@@ -1,0 +1,154 @@
+"""Loads a pose-estimator package directory (`metrabs_tpu/io/packaging.py`).
+
+Same package format as the JAX package (`manifest.json`,
+`crop_model.msgpack`, optionally `detector.msgpack` and
+`joint_transform.npy`) and the same serving defaults: a scanned-layout
+backbone is unrolled to the flat layout, and BatchNorm is folded into the
+convs for foldable families. File reading is split from the rest
+(`crop_model_from_variables`, `pose_estimator_from_variables`) so that a
+caller holding variables in memory builds exactly the estimator that
+`load_pose_estimator` builds.
+
+The detector is not ported yet: a package with one loads without it, and
+the estimator's `detect_poses*` methods raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from metrabs_tpu.config import AugConfig, ModelConfig
+from metrabs_tpu.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
+from metrabs_tpu.utils.joint_info import JointInfo
+from metrabs_tpu_torch.io import weights
+from metrabs_tpu_torch.io.checkpoints import load_model_msgpack
+from metrabs_tpu_torch.models.metrabs import Metrabs, build_crop_model
+from metrabs_tpu_torch.pipeline.estimator import PoseEstimator
+
+# ModelConfig fields that define the trained model and may not be overridden.
+_PROTECTED_FIELDS = {'proc_side', 'depth', 'n_joints', 'backbone', 'stride_train',
+                     'stride_test'}
+
+
+def _check_model_class(manifest: dict) -> None:
+    model_class = manifest.get('model_class', 'metrabs')
+    if model_class != 'metrabs' or manifest.get('latent_mode'):
+        raise NotImplementedError(
+            f'model_class {model_class!r} with latent_mode '
+            f'{manifest.get("latent_mode")!r} is not yet ported to metrabs_tpu_torch; '
+            f'only the plain Metrabs crop model is')
+
+
+def crop_model_from_variables(
+        variables: Dict, manifest: dict, *, scan_blocks: Optional[bool] = None,
+        bn_fold: bool = False, device='cpu') -> Tuple[Metrabs, ModelConfig]:
+    """The crop model of a package from its variable tree (numpy leaves, as
+    stored) and manifest, in eval mode on `device` in `cfg.dtype`.
+
+    `scan_blocks=False` unrolls a scanned-layout tree; `bn_fold` folds BN."""
+    _check_model_class(manifest)
+    cfg = ModelConfig(**manifest['model_config'])
+    if scan_blocks is not None and scan_blocks != cfg.backbone_scan_blocks:
+        if scan_blocks:
+            raise ValueError('Re-stacking a flat-layout package into the scanned '
+                             'layout is not supported')
+        variables = weights.scanned_to_flat(variables)
+        cfg = dataclasses.replace(cfg, backbone_scan_blocks=False)
+    if cfg.backbone_scan_blocks:
+        raise ValueError('The port runs the flat layout only; load with '
+                         'scan_blocks=False to unroll a scanned package')
+    if bn_fold:
+        variables = weights.fold_bn_variables(
+            variables, epsilon=weights.bn_epsilon_for(cfg.backbone))
+        cfg = dataclasses.replace(cfg, bn_fold=True)
+    state = weights.crop_model_state_dict_from_flax(variables, cfg)
+    with torch.device('meta'):
+        model = build_crop_model(cfg)
+    model.load_state_dict(state, assign=True)
+    model = model.to(device=device, dtype=getattr(torch, cfg.dtype)).eval()
+    model.requires_grad_(False)
+    return model, cfg
+
+
+def load_crop_model(directory: str, *, scan_blocks: Optional[bool] = None,
+                    bn_fold: bool = False, device='cpu'):
+    """Returns (model, cfg, joint_info, manifest) of a package directory."""
+    manifest = _read_manifest(directory)
+    variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
+    model, cfg = crop_model_from_variables(variables, manifest, scan_blocks=scan_blocks,
+                                           bn_fold=bn_fold, device=device)
+    return model, cfg, _joint_info(manifest), manifest
+
+
+def pose_estimator_from_variables(
+        crop_variables: Dict, manifest: dict, *, device='cpu',
+        cfg_overrides: Optional[dict] = None,
+        joint_transform_matrix: Optional[np.ndarray] = None) -> PoseEstimator:
+    """Everything `load_pose_estimator` does after reading the files.
+
+    `cfg_overrides`: serving-only ModelConfig fields to replace; the fields
+    that define the trained model cannot be overridden. Defaults: a scanned
+    backbone is unrolled, and BN is folded for foldable families (opt out
+    with `{'bn_fold': False}`)."""
+    cfg_overrides = dict(cfg_overrides or {})
+    if cfg_overrides.pop('backbone_scan_blocks', False):
+        raise ValueError('The port runs the flat backbone layout only')
+    bn_fold = cfg_overrides.pop('bn_fold', None)
+    if bn_fold is None:
+        bn_fold = weights.backbone_supports_bn_fold(
+            manifest['model_config'].get('backbone', ModelConfig.backbone))
+    bad = _PROTECTED_FIELDS & set(cfg_overrides)
+    if bad:
+        raise ValueError(f'cfg_overrides may not change trained-model fields: {bad}')
+    model, cfg = crop_model_from_variables(crop_variables, manifest, scan_blocks=False,
+                                           bn_fold=bn_fold, device=device)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+
+    joint_info = _joint_info(manifest)
+    skeleton_registry = None
+    if manifest.get('skeletons'):
+        infos = {k: SkeletonInfo(indices=tuple(v['indices']), names=tuple(v['names']),
+                                 edges=tuple(tuple(e) for e in v['edges']))
+                 for k, v in manifest['skeletons'].items()}
+        skeleton_registry = SkeletonRegistry(joint_info, infos)
+    return PoseEstimator(
+        model, joint_info, cfg, aug_cfg=AugConfig(**manifest['aug_config']),
+        skeleton_registry=skeleton_registry,
+        joint_transform_matrix=joint_transform_matrix,
+        has_detector=bool(manifest.get('has_detector')), device=device)
+
+
+def load_pose_estimator(directory: str, device='cuda',
+                        cfg_overrides: Optional[dict] = None) -> PoseEstimator:
+    """A `PoseEstimator` from a package directory, on `device`.
+
+    The detector of a package that has one is not loaded (not yet ported)."""
+    manifest = _read_manifest(directory)
+    variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
+    joint_transform = None
+    if manifest.get('has_joint_transform'):
+        jt_path = os.path.join(directory, 'joint_transform.npy')
+        if not os.path.exists(jt_path):
+            raise FileNotFoundError(f'manifest declares a joint transform but {jt_path} '
+                                    f'is missing; the package is incomplete')
+        joint_transform = np.load(jt_path)
+    return pose_estimator_from_variables(
+        variables, manifest, device=device, cfg_overrides=cfg_overrides,
+        joint_transform_matrix=joint_transform)
+
+
+def _read_manifest(directory: str) -> dict:
+    with open(os.path.join(directory, 'manifest.json')) as f:
+        return json.load(f)
+
+
+def _joint_info(manifest: dict) -> JointInfo:
+    return JointInfo(names=tuple(manifest['joint_names']),
+                     edges=tuple(tuple(e) for e in manifest['joint_edges']))

@@ -1,0 +1,234 @@
+"""Carries packaged JAX variable trees across to the port's modules.
+
+Plain-numpy versions of the two serving-time layout transforms of the JAX
+package, which cannot be imported here because they reach flax:
+`scanned_to_flat` (`metrabs_tpu/io/scan_convert.py`) and
+`fold_bn_variables` (`metrabs_tpu/io/bn_fold.py`), both on nested dicts of
+numpy arrays. Then `crop_model_state_dict_from_flax` maps the flat tree onto
+the port's `Metrabs` state_dict: conv kernels HWIO [kh, kw, I, O] -> OIHW
+(depthwise [k, k, 1, E] -> [E, 1, k, k]), BatchNorm scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from metrabs_tpu.config import ModelConfig
+from metrabs_tpu_torch.models.metrabs import build_crop_model
+
+Key = Tuple[str, ...]
+
+_SCAN_GROUP = re.compile(r'blocks_(\d+)_scan(\d+)$')
+_FLAT_BLOCK = re.compile(r'blocks_(\d+)$')
+
+# The one BN epsilon each foldable family uses throughout.
+_BN_EPSILONS = {'efficientnetv2': 1e-3, 'mobilenetv3': 1e-3, 'resnet': 1e-5}
+
+
+def flatten_dict(tree: Dict, prefix: Key = ()) -> Dict[Key, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_dict(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def unflatten_dict(flat: Dict[Key, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for key, value in flat.items():
+        node = tree
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = value
+    return tree
+
+
+def scanned_to_flat(variables: Dict) -> Dict:
+    """Splits every `.../blocks_{s}_scan{n}/block/...` stacked leaf (leading
+    axis n) into n flat `.../blocks_{s+i}/...` leaves, at any depth and in
+    any collection; other keys pass through."""
+    out = {}
+    for key, value in flatten_dict(variables).items():
+        hits = [(j, m) for j, part in enumerate(key)
+                if (m := _SCAN_GROUP.match(part))]
+        if not hits:
+            out[key] = value
+            continue
+        if len(hits) > 1:
+            raise ValueError(f'Nested scan groups at {key}')
+        j, m = hits[0]
+        start, n = int(m.group(1)), int(m.group(2))
+        if j + 1 >= len(key) or key[j + 1] != 'block':
+            raise ValueError(f'Scan group {key} lacks the "block" wrapper')
+        if value.shape[0] != n:
+            raise ValueError(f'Leading axis {value.shape[0]} != scan length {n} at {key}')
+        for i in range(n):
+            out[key[:j] + (f'blocks_{start + i}',) + key[j + 2:]] = value[i]
+    return unflatten_dict(out)
+
+
+def _conv_candidates(bn_name: str) -> Iterator[str]:
+    """Sibling module names that may hold the conv feeding `bn_name`, by the
+    naming conventions of the JAX package's conv->BN families."""
+    if bn_name == 'bn':
+        yield 'conv'
+    if bn_name.endswith('_bn'):
+        base = bn_name[:-3]
+        yield base
+        yield base + '_conv'
+    if bn_name.startswith('bn') and bn_name[2:].isdigit():
+        yield 'conv' + bn_name[2:]
+    if bn_name == 'norm0':
+        yield 'expand_conv'
+    if bn_name == 'norm1':
+        yield 'depthwise_conv'
+        yield 'project_conv'
+    if bn_name == 'norm2':
+        yield 'project_conv'
+
+
+def _find_conv_kernel_key(params: Dict[Key, np.ndarray], parent: Key, bn_name: str):
+    for cand in _conv_candidates(bn_name):
+        for key in (parent + (cand, 'kernel'), parent + (cand, 'conv', 'kernel')):
+            if key in params:
+                return key
+    return None
+
+
+def fold_bn_variables(variables: Dict, epsilon: float) -> Dict:
+    """Folds every inference BN into its feeding conv: kernel' = kernel * g,
+    bias' = beta - mean * g (+ old bias * g) with g = gamma / sqrt(var + eps).
+    float64 arithmetic, cast back to the stored dtype; BN leaves removed.
+    Raises ValueError on a BN with no conv sibling (pre-activation BNs)."""
+    params = flatten_dict(variables['params'])
+    stats = flatten_dict(variables.get('batch_stats', {}))
+    bn_scopes = [key[:-1] for key in params
+                 if len(key) >= 3 and key[-2:] == ('bn', 'scale')]
+    for scope in bn_scopes:  # (..., bn_name, 'bn')
+        parent, bn_name = scope[:-2], scope[-2]
+        kernel_key = _find_conv_kernel_key(params, parent, bn_name)
+        if kernel_key is None:
+            kernel_key = _find_conv_kernel_key(params, scope[:-1], 'bn')
+        if kernel_key is None:
+            raise ValueError(
+                f'BN at {"/".join(scope)} has no conv sibling to fold into; '
+                f'candidates tried: {list(_conv_candidates(bn_name))}')
+        gamma = np.asarray(params.pop(scope + ('scale',)), np.float64)
+        beta = np.asarray(params.pop(scope + ('bias',)), np.float64)
+        mean = np.asarray(stats.pop(scope + ('mean',)), np.float64)
+        var = np.asarray(stats.pop(scope + ('var',)), np.float64)
+        kernel = np.asarray(params[kernel_key])
+        g = gamma / np.sqrt(var + epsilon)
+        b = beta - mean * g
+        g_k = g.reshape(g.shape[:-1] + (1,) * (kernel.ndim - g.ndim) + g.shape[-1:])
+        params[kernel_key] = (kernel.astype(np.float64) * g_k).astype(kernel.dtype)
+        bias_key = kernel_key[:-1] + ('bias',)
+        if bias_key in params:
+            b = b + np.asarray(params[bias_key], np.float64) * g
+        params[bias_key] = b.astype(kernel.dtype)
+    out = dict(variables)
+    out['params'] = unflatten_dict(params)
+    if 'batch_stats' in variables:
+        if stats:
+            out['batch_stats'] = unflatten_dict(stats)
+        else:
+            out.pop('batch_stats')
+    return out
+
+
+def backbone_supports_bn_fold(backbone_name: str) -> bool:
+    """Families with a conv->BN structure that `fold_bn_variables` folds (the
+    JAX package's rule; ResNet V2 and GroupNorm variants are excluded)."""
+    name = backbone_name.lower().replace('_', '-')
+    if name.startswith('efficientnetv2') or name.startswith('mobilenetv3'):
+        return True
+    if name.startswith('resnet'):
+        return 'v2' not in name and 'groupnorm' not in name
+    return False
+
+
+def bn_epsilon_for(backbone_name: str) -> float:
+    name = backbone_name.lower().replace('_', '-')
+    for family, eps in _BN_EPSILONS.items():
+        if name.startswith(family):
+            return eps
+    raise ValueError(f'No BN epsilon known for backbone {backbone_name!r}')
+
+
+def _torch_key(key: Key) -> str:
+    """('params', 'backbone', 'blocks_3', 'norm0', 'bn', 'scale') ->
+    'backbone.blocks.3.norm0.weight'."""
+    collection, *path, leaf = key
+    parts = []
+    for part in path:
+        m = _FLAT_BLOCK.match(part)
+        if m:
+            parts += ['blocks', m.group(1)]
+        elif part != 'bn':
+            parts.append(part)
+    names = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias',
+             ('params', 'scale'): 'weight', ('batch_stats', 'mean'): 'running_mean',
+             ('batch_stats', 'var'): 'running_var'}
+    if (collection, leaf) not in names:
+        raise ValueError(f'Unexpected variable {"/".join(key)}')
+    return '.'.join(parts + [names[collection, leaf]])
+
+
+def crop_model_state_dict_from_flax(variables: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The port's `Metrabs` state_dict from a flat-layout JAX variable tree
+    (numpy leaves) of the same `cfg` (its `bn_fold` picks the BN layout).
+    Raises ValueError on a leftover, missing or misshapen entry."""
+    with torch.device('meta'):
+        expected = build_crop_model(cfg).state_dict()
+    state = {}
+    for key, value in flatten_dict(variables).items():
+        value = np.asarray(value)
+        if key[-1] == 'kernel':
+            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        state[_torch_key(key)] = torch.tensor(np.ascontiguousarray(value))
+    missing = sorted(set(expected) - set(state))
+    leftover = sorted(set(state) - set(expected))
+    if missing or leftover:
+        raise ValueError(f'Variable tree does not match the crop model: missing '
+                         f'{missing[:8]}, leftover {leftover[:8]}')
+    for name, tensor in state.items():
+        if tensor.shape != expected[name].shape:
+            raise ValueError(f'Shape mismatch at {name}: {tuple(tensor.shape)} vs '
+                             f'{tuple(expected[name].shape)}')
+    return state
+
+
+def flax_variables_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict:
+    """Inverse of `crop_model_state_dict_from_flax`: a flat-layout JAX-style
+    variable tree (numpy leaves) from a port `Metrabs` state_dict."""
+    flat = {}
+    for name, tensor in state.items():
+        *path, leaf = name.split('.')
+        parts = []
+        i = 0
+        while i < len(path):
+            if path[i] == 'blocks':
+                parts.append(f'blocks_{path[i + 1]}')
+                i += 2
+            else:
+                parts.append(path[i])
+                i += 1
+        value = tensor.detach().cpu().float().numpy()
+        if leaf == 'weight' and value.ndim == 4:
+            flat[('params', *parts, 'kernel')] = value.transpose(2, 3, 1, 0)
+        elif leaf in ('running_mean', 'running_var'):
+            flat[('batch_stats', *parts, 'bn', leaf[len('running_'):])] = value
+        elif leaf == 'weight':
+            flat[('params', *parts, 'bn', 'scale')] = value
+        elif value.ndim == 1 and parts[-1].startswith(('norm', 'stem_bn', 'head_bn')):
+            flat[('params', *parts, 'bn', 'bias')] = value
+        else:
+            flat[('params', *parts, 'bias')] = value
+    return unflatten_dict(flat)

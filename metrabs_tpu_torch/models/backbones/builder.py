@@ -1,0 +1,42 @@
+"""Backbone dispatch by name (`metrabs_tpu/models/backbones/builder.py`).
+
+Only the EfficientNetV2 family is ported: `efficientnetv2-{s,m,l,xl}` and
+the dilated `-stride4|8|16` plans. Other families raise NotImplementedError
+rather than falling back to a different network.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import torch.nn as nn
+
+from metrabs_tpu_torch.models.backbones.efficientnet_v2 import (
+    EFFNETV2_PARAMS, EfficientNetV2)
+
+
+def build_backbone(name: str, *, centered_stride: bool = True,
+                   stride_test: Optional[int] = None,
+                   bn_fold: bool = False) -> nn.Module:
+    """`stride_test`: test-time output stride when it differs from the
+    training stride of the name's -strideN suffix (default 32).
+    `bn_fold`: the folded-BN serving layout (`io.weights.fold_bn_variables`)."""
+    name = name.lower().replace('_', '-')
+    if not name.startswith('efficientnetv2'):
+        raise NotImplementedError(
+            f'Backbone {name!r} is not yet ported to metrabs_tpu_torch; only '
+            f'efficientnetv2-* is')
+    m = re.match(r'(efficientnetv2-[smlx]+)(?:-stride(\d+))?$', name)
+    if not m or name not in EFFNETV2_PARAMS:
+        raise ValueError(f'Cannot parse EffNetV2 name {name!r}')
+    model_name_test = None
+    if stride_test is not None:
+        base = m.group(1)
+        model_name_test = base if stride_test == 32 else f'{base}-stride{stride_test}'
+        if model_name_test not in EFFNETV2_PARAMS:
+            raise ValueError(
+                f'No -stride{stride_test} variant tables for {base!r}; available: '
+                f'{sorted(k for k in EFFNETV2_PARAMS if "stride" in k)}')
+    return EfficientNetV2(model_name=name, model_name_test=model_name_test,
+                          centered_stride=centered_stride, bn_fold=bn_fold)

@@ -1,0 +1,316 @@
+"""EfficientNetV2 backbones (S/M/L/XL and the dilated -stride4/8/16 plans),
+inference only (`metrabs_tpu/models/backbones/efficientnet_v2.py`).
+
+Same architecture semantics as the JAX module: MBConv / FusedMBConv blocks
+with SE (reduction from the block's input filters), silu, BN eps 1e-3,
+explicit fixed padding before every spatial conv with the `br` bottom-right
+shift on the last stride-2 block, and the flat `blocks.{i}` layout (the JAX
+`blocks_{i}`). Padding is `F.pad` followed by a VALID conv: PyTorch's
+symmetric conv padding cannot express the `br` shift.
+
+Two BN layouts: folded (`bn_fold=True`: every conv carries a bias and no BN
+module exists; weights from `io.weights.fold_bn_variables`) and unfolded
+(inference BatchNorm after each conv). Internally NCHW; the public input is
+NHWC gamma-space RGB in [0, 1].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from metrabs_tpu_torch.models.backbones import common
+
+BN_EPSILON = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockArgs:
+    num_repeat: int
+    kernel_size: int
+    strides: int
+    dilation_in: int
+    dilation_out: int
+    expand_ratio: int
+    input_filters: int
+    output_filters: int
+    se_ratio: Optional[float]
+    conv_type: int  # 0 = MBConv, 1 = Fused
+    bottomright_stride: bool
+
+
+def decode_block_string(s: str) -> BlockArgs:
+    """Decodes 'r2_k3_s1_din1_dout1_e4_i24_o48_c1[_se0.25][_br]' strings."""
+    opts = {}
+    flags = set()
+    for p in s.split('_'):
+        m = re.match(r'([a-z]+)([\d.]+)$', p)
+        if m:
+            opts[m.group(1)] = m.group(2)
+        else:
+            flags.add(p)
+    return BlockArgs(
+        num_repeat=int(opts['r']),
+        kernel_size=int(opts['k']),
+        strides=int(opts['s']),
+        dilation_in=int(opts.get('din', 1)),
+        dilation_out=int(opts.get('dout', 1)),
+        expand_ratio=int(opts['e']),
+        input_filters=int(opts['i']),
+        output_filters=int(opts['o']),
+        se_ratio=float(opts['se']) if 'se' in opts else None,
+        conv_type=int(opts.get('c', 0)),
+        bottomright_stride='br' in flags)
+
+
+# Stage tables of the reference (`effnetv2_configs.py:155-247`), as in the
+# JAX module (which cannot be imported here: it imports flax).
+_V2_S = ['r2_k3_s1_din1_dout1_e1_i24_o24_c1',
+         'r4_k3_s2_din1_dout1_e4_i24_o48_c1',
+         'r4_k3_s2_din1_dout1_e4_i48_o64_c1',
+         'r6_k3_s2_din1_dout1_e4_i64_o128_se0.25',
+         'r9_k3_s1_din1_dout1_e6_i128_o160_se0.25',
+         'r15_k3_s2_din1_dout1_e6_i160_o256_se0.25_br']
+_V2_S_STRIDE16 = ['r2_k3_s1_din1_dout1_e1_i24_o24_c1',
+                  'r4_k3_s2_din1_dout1_e4_i24_o48_c1',
+                  'r4_k3_s2_din1_dout1_e4_i48_o64_c1',
+                  'r6_k3_s2_din1_dout1_e4_i64_o128_se0.25_br',
+                  'r9_k3_s1_din1_dout1_e6_i128_o160_se0.25',
+                  'r15_k3_s1_din1_dout2_e6_i160_o256_se0.25']
+_V2_S_STRIDE8 = ['r2_k3_s1_din1_dout1_e1_i24_o24_c1',
+                 'r4_k3_s2_din1_dout1_e4_i24_o48_c1',
+                 'r4_k3_s2_din1_dout1_e4_i48_o64_c1_br',
+                 'r6_k3_s1_din1_dout2_e4_i64_o128_se0.25',
+                 'r9_k3_s1_din2_dout2_e6_i128_o160_se0.25',
+                 'r15_k3_s1_din2_dout4_e6_i160_o256_se0.25']
+_V2_S_STRIDE4 = ['r2_k3_s1_din1_dout1_e1_i24_o24_c1',
+                 'r4_k3_s2_din1_dout1_e4_i24_o48_c1_br',
+                 'r4_k3_s1_din1_dout2_e4_i48_o64_c1',
+                 'r6_k3_s1_din2_dout4_e4_i64_o128_se0.25',
+                 'r9_k3_s1_din4_dout4_e6_i128_o160_se0.25',
+                 'r15_k3_s1_din4_dout8_e6_i160_o256_se0.25']
+_V2_M = ['r3_k3_s1_din1_dout1_e1_i24_o24_c1',
+         'r5_k3_s2_din1_dout1_e4_i24_o48_c1',
+         'r5_k3_s2_din1_dout1_e4_i48_o80_c1',
+         'r7_k3_s2_din1_dout1_e4_i80_o160_se0.25',
+         'r14_k3_s1_din1_dout1_e6_i160_o176_se0.25',
+         'r18_k3_s2_din1_dout1_e6_i176_o304_se0.25_br',
+         'r5_k3_s1_din1_dout1_e6_i304_o512_se0.25']
+_V2_L = ['r4_k3_s1_din1_dout1_e1_i32_o32_c1',
+         'r7_k3_s2_din1_dout1_e4_i32_o64_c1',
+         'r7_k3_s2_din1_dout1_e4_i64_o96_c1',
+         'r10_k3_s2_din1_dout1_e4_i96_o192_se0.25',
+         'r19_k3_s1_din1_dout1_e6_i192_o224_se0.25',
+         'r25_k3_s2_din1_dout1_e6_i224_o384_se0.25_br',
+         'r7_k3_s1_din1_dout1_e6_i384_o640_se0.25']
+_V2_L_STRIDE16 = ['r4_k3_s1_din1_dout1_e1_i32_o32_c1',
+                  'r7_k3_s2_din1_dout1_e4_i32_o64_c1',
+                  'r7_k3_s2_din1_dout1_e4_i64_o96_c1',
+                  'r10_k3_s2_din1_dout1_e4_i96_o192_se0.25_br',
+                  'r19_k3_s1_din1_dout1_e6_i192_o224_se0.25',
+                  'r25_k3_s1_din1_dout2_e6_i224_o384_se0.25',
+                  'r7_k3_s1_din2_dout2_e6_i384_o640_se0.25']
+_V2_L_STRIDE8 = ['r4_k3_s1_din1_dout1_e1_i32_o32_c1',
+                 'r7_k3_s2_din1_dout1_e4_i32_o64_c1',
+                 'r7_k3_s2_din1_dout1_e4_i64_o96_c1_br',
+                 'r10_k3_s1_din1_dout2_e4_i96_o192_se0.25',
+                 'r19_k3_s1_din2_dout2_e6_i192_o224_se0.25',
+                 'r25_k3_s1_din2_dout4_e6_i224_o384_se0.25',
+                 'r7_k3_s1_din4_dout4_e6_i384_o640_se0.25']
+_V2_L_STRIDE4 = ['r4_k3_s1_din1_dout1_e1_i32_o32_c1',
+                 'r7_k3_s2_din1_dout1_e4_i32_o64_c1_br',
+                 'r7_k3_s1_din1_dout2_e4_i64_o96_c1',
+                 'r10_k3_s1_din2_dout4_e4_i96_o192_se0.25',
+                 'r19_k3_s1_din4_dout4_e6_i192_o224_se0.25',
+                 'r25_k3_s1_din4_dout8_e6_i224_o384_se0.25',
+                 'r7_k3_s1_din8_dout8_e6_i384_o640_se0.25']
+_V2_XL = ['r4_k3_s1_din1_dout1_e1_i32_o32_c1',
+          'r8_k3_s2_din1_dout1_e4_i32_o64_c1',
+          'r8_k3_s2_din1_dout1_e4_i64_o96_c1',
+          'r16_k3_s2_din1_dout1_e4_i96_o192_se0.25',
+          'r24_k3_s1_din1_dout1_e6_i192_o256_se0.25',
+          'r32_k3_s2_din1_dout1_e6_i256_o512_se0.25_br',
+          'r8_k3_s1_din1_dout1_e6_i512_o640_se0.25']
+
+# name -> (stage strings, width_coefficient, depth_coefficient)
+EFFNETV2_PARAMS = {
+    'efficientnetv2-s': (_V2_S, 1.0, 1.0),
+    'efficientnetv2-s-stride4': (_V2_S_STRIDE4, 1.0, 1.0),
+    'efficientnetv2-s-stride8': (_V2_S_STRIDE8, 1.0, 1.0),
+    'efficientnetv2-s-stride16': (_V2_S_STRIDE16, 1.0, 1.0),
+    'efficientnetv2-m': (_V2_M, 1.0, 1.0),
+    'efficientnetv2-l': (_V2_L, 1.0, 1.0),
+    'efficientnetv2-l-stride4': (_V2_L_STRIDE4, 1.0, 1.0),
+    'efficientnetv2-l-stride8': (_V2_L_STRIDE8, 1.0, 1.0),
+    'efficientnetv2-l-stride16': (_V2_L_STRIDE16, 1.0, 1.0),
+    'efficientnetv2-xl': (_V2_XL, 1.0, 1.0),
+}
+
+
+def round_filters(filters: float, width_coefficient: float,
+                  divisor: int = 8, min_depth: int = 8) -> int:
+    if not width_coefficient:
+        return int(filters)
+    filters *= width_coefficient
+    return int(max(min_depth, int(filters + divisor / 2) // divisor * divisor))
+
+
+def round_repeats(repeats: int, depth_coefficient: float) -> int:
+    return int(math.ceil(depth_coefficient * repeats))
+
+
+def expand_blocks(model_name: str) -> List[BlockArgs]:
+    """One BlockArgs per layer; the first block of a stage carries its stride."""
+    stage_strings, width, depth = EFFNETV2_PARAMS[model_name]
+    blocks = []
+    for s in stage_strings:
+        args = decode_block_string(s)
+        in_f = round_filters(args.input_filters, width)
+        out_f = round_filters(args.output_filters, width)
+        repeats = round_repeats(args.num_repeat, depth)
+        first = dataclasses.replace(args, input_filters=in_f, output_filters=out_f,
+                                    num_repeat=1)
+        blocks.append(first)
+        rest = dataclasses.replace(first, input_filters=out_f, strides=1,
+                                   bottomright_stride=False,
+                                   dilation_in=args.dilation_out)
+        blocks.extend([rest] * (repeats - 1))
+    return blocks
+
+
+def _conv(cin: int, cout: int, k: int = 1, stride: int = 1, dilation: int = 1,
+          groups: int = 1, bias: bool = False) -> nn.Conv2d:
+    """VALID conv; callers pad explicitly."""
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=0, dilation=dilation,
+                     groups=groups, bias=bias)
+
+
+def _norm(c: int, bn_fold: bool) -> nn.Module:
+    return nn.Identity() if bn_fold else common.FrozenBatchNorm2d(c, BN_EPSILON)
+
+
+class SqueezeExcite(nn.Module):
+    def __init__(self, filters: int, se_filters: int):
+        super().__init__()
+        self.reduce = _conv(filters, se_filters, bias=True)
+        self.expand = _conv(se_filters, filters, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = torch.mean(x, dim=(2, 3), keepdim=True)
+        se = self.expand(F.silu(self.reduce(se)))
+        return torch.sigmoid(se) * x
+
+
+class MBConv(nn.Module):
+    """expand 1x1 -> depthwise kxk -> SE -> project 1x1 (the unfused branch
+    of the JAX module)."""
+
+    def __init__(self, a: BlockArgs, bn_fold: bool):
+        super().__init__()
+        self.a = a
+        filters = a.input_filters * a.expand_ratio
+        if a.expand_ratio != 1:
+            self.expand_conv = _conv(a.input_filters, filters, bias=bn_fold)
+            self.norm0 = _norm(filters, bn_fold)
+        self.pads = common.fixed_padding_amounts(
+            a.kernel_size, a.dilation_in, 1 if a.bottomright_stride else 0)
+        self.depthwise_conv = _conv(filters, filters, a.kernel_size, a.strides,
+                                    a.dilation_in, groups=filters, bias=bn_fold)
+        self.norm1 = _norm(filters, bn_fold)
+        if a.se_ratio:
+            self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)))
+        self.project_conv = _conv(filters, a.output_filters, bias=bn_fold)
+        self.norm2 = _norm(a.output_filters, bn_fold)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.a
+        inputs = x
+        if a.expand_ratio != 1:
+            x = F.silu(self.norm0(self.expand_conv(x)))
+        x = self.depthwise_conv(common.pad_nchw(x, self.pads))
+        x = F.silu(self.norm1(x))
+        if a.se_ratio:
+            x = self.se(x)
+        x = self.norm2(self.project_conv(x))
+        if a.strides == 1 and a.input_filters == a.output_filters:
+            x = inputs + x
+        return x
+
+
+class FusedMBConv(nn.Module):
+    """Fused expand kxk (or a single kxk conv when expand_ratio == 1) -> SE ->
+    project 1x1."""
+
+    def __init__(self, a: BlockArgs, bn_fold: bool):
+        super().__init__()
+        self.a = a
+        filters = a.input_filters * a.expand_ratio
+        self.pads = common.fixed_padding_amounts(
+            a.kernel_size, a.dilation_in, 1 if a.bottomright_stride else 0)
+        if a.expand_ratio != 1:
+            self.expand_conv = _conv(a.input_filters, filters, a.kernel_size,
+                                     a.strides, a.dilation_in, bias=bn_fold)
+            self.norm0 = _norm(filters, bn_fold)
+            self.project_conv = _conv(filters, a.output_filters, bias=bn_fold)
+        else:
+            self.project_conv = _conv(filters, a.output_filters, a.kernel_size,
+                                      a.strides, a.dilation_in, bias=bn_fold)
+        if a.se_ratio:
+            self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)))
+        self.norm1 = _norm(a.output_filters, bn_fold)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.a
+        inputs = x
+        if a.expand_ratio != 1:
+            x = self.expand_conv(common.pad_nchw(x, self.pads))
+            x = F.silu(self.norm0(x))
+        if a.se_ratio:
+            x = self.se(x)
+        if a.expand_ratio == 1:
+            x = common.pad_nchw(x, self.pads)
+        x = self.norm1(self.project_conv(x))
+        if a.expand_ratio == 1:
+            x = F.silu(x)
+        if a.strides == 1 and a.input_filters == a.output_filters:
+            x = inputs + x
+        return x
+
+
+class EfficientNetV2(nn.Module):
+    """[N, S, S, 3] NHWC gamma-space RGB in [0, 1] -> NCHW features
+    [N, 1280, S/32, S/32] (or finer for the -strideN plans).
+
+    `model_name_test`: the test-time plan (a dilated -strideN variant of the
+    same family); all plans of a family share one parameter layout."""
+
+    def __init__(self, model_name: str = 'efficientnetv2-s',
+                 model_name_test: Optional[str] = None,
+                 centered_stride: bool = True, feature_size: int = 1280,
+                 bn_fold: bool = False):
+        super().__init__()
+        blocks = expand_blocks(model_name_test or model_name)
+        if not centered_stride:
+            blocks = [dataclasses.replace(b, bottomright_stride=False) for b in blocks]
+        self.stem_pads = common.fixed_padding_amounts(3)
+        self.stem_conv = _conv(3, blocks[0].input_filters, 3, 2, bias=bn_fold)
+        self.stem_bn = _norm(blocks[0].input_filters, bn_fold)
+        self.blocks = nn.ModuleList([
+            (FusedMBConv if a.conv_type == 1 else MBConv)(a, bn_fold) for a in blocks])
+        self.head_conv = _conv(blocks[-1].output_filters, feature_size, bias=bn_fold)
+        self.head_bn = _norm(feature_size, bn_fold)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.stem_conv.weight.dtype
+        x = common.tf_preproc(x.to(dtype)).permute(0, 3, 1, 2)
+        h = self.stem_conv(common.pad_nchw(x, self.stem_pads))
+        h = F.silu(self.stem_bn(h))
+        for block in self.blocks:
+            h = block(h)
+        return F.silu(self.head_bn(self.head_conv(h)))

@@ -1,0 +1,134 @@
+"""The crop-warp kernel (`csrc/warp.cu`) and its wrapper: the Hopper port of
+the TPU kernel `metrabs_tpu/ops/warp_pallas.py::_warp_tile_kernel`.
+
+`warp_pyramid` is the wrapper: on a CUDA tensor it launches the kernel (or
+raises), on a CPU tensor it runs the plain version `ops.warp.warp_pyramid`.
+It never falls back from one to the other. `warp_pyramid.launches` counts
+kernel launches.
+
+The kernel is built at first use, from `csrc/warp.cu` only, with nvcc into
+`metrabs_tpu_torch/_build/` (a plain C entry point loaded with ctypes), and
+the build is keyed by a hash of the source and flags.
+
+Precision: the four names of the TPU kernel are accepted ('highest'/'f32',
+'high'/'bf16x3', 'bf16x2', 'default'/'bf16'); all of them compute in float32
+here. The TPU's modes only trade MXU passes of its hat-weight matmul, which a
+gather kernel does not have, so the bf16 names are more exact here than in
+JAX (whose single-pass bf16 mode errs by up to ~8e-3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from metrabs_tpu_torch.ops import warp as warp_ops
+
+_PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SOURCE = _PACKAGE_DIR / 'csrc' / 'warp.cu'
+BUILD_DIR = _PACKAGE_DIR / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+_MAX_CROPS = 65535  # grid.z limit
+
+PRECISIONS = frozenset({'highest', 'f32', 'high', 'bf16x3', 'bf16x2', 'default', 'bf16'})
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get('CUDA_HOME'), os.environ.get('CUDA_PATH')):
+        if home and os.path.exists(os.path.join(home, 'bin', 'nvcc')):
+            return os.path.join(home, 'bin', 'nvcc')
+    found = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(found):
+        raise RuntimeError('nvcc not found (set CUDA_HOME); the warp kernel cannot be built')
+    return found
+
+
+def build_library() -> Tuple[Path, float]:
+    """Compiles `csrc/warp.cu` unless a build of the same source and flags
+    exists. Returns (library path, seconds spent compiling; 0 if cached)."""
+    key = hashlib.sha256(SOURCE.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f'libmetrabs_warp_{key[:16]}.so'
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+    start = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
+    return lib, time.perf_counter() - start
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    fn = lib.metrabs_warp_pyramid_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, last: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name} must be {dtype}, got {t.dtype}')
+    if t.ndim != ndim or t.shape[-1] != last:
+        raise ValueError(f'{name} must be [..., {last}] of rank {ndim}, got {tuple(t.shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+
+
+def warp_pyramid(flat: torch.Tensor, params: torch.Tensor, geom: torch.Tensor,
+                 output_shape: Tuple[int, int], precision: str = 'highest') -> torch.Tensor:
+    """Crops [N, oh, ow, 3] float32 from the flat pixel-major pyramid
+    `flat` [T, 3] with the per-crop `params` [N, 27] and `geom` [N, 3] of
+    `ops.warp.pyramid_warp_params`."""
+    if precision not in PRECISIONS:
+        raise ValueError(f'unknown warp precision {precision!r}; expected one of '
+                         f"'highest'/'f32', 'high'/'bf16x3', 'bf16x2', 'default'/'bf16'")
+    oh, ow = (int(s) for s in output_shape)
+    if flat.device.type == 'cpu':
+        return warp_ops.warp_pyramid(flat, params, geom, (oh, ow))
+    if flat.device.type != 'cuda':
+        raise ValueError(f'warp_pyramid runs on CPU or CUDA tensors, got {flat.device}')
+    _check(flat, 'flat', torch.float32, 2, 3, flat.device)
+    _check(params, 'params', torch.float32, 2, warp_ops.N_PARAMS, flat.device)
+    _check(geom, 'geom', torch.int64, 2, warp_ops.N_GEOM, flat.device)
+    n = params.shape[0]
+    if geom.shape[0] != n:
+        raise ValueError(f'params has {n} crops, geom {geom.shape[0]}')
+    if n > _MAX_CROPS or oh <= 0 or ow <= 0:
+        raise ValueError(f'unsupported warp shape: {n} crops of {oh}x{ow}')
+    out = torch.empty((n, oh, ow, 3), dtype=torch.float32, device=flat.device)
+    if n == 0:
+        return out
+    fn = _library().metrabs_warp_pyramid_f32
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        err = fn(flat.data_ptr(), flat.shape[0], params.data_ptr(), geom.data_ptr(),
+                 out.data_ptr(), n, oh, ow, stream)
+    if err != 0:
+        raise RuntimeError(f'warp kernel launch failed with CUDA error {err}')
+    warp_pyramid.launches += 1
+    return out
+
+
+warp_pyramid.launches = 0
+

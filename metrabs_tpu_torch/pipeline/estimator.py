@@ -1,0 +1,305 @@
+"""Multi-person absolute 3D pose estimation from given boxes
+(`metrabs_tpu/pipeline/estimator.py`, the `estimate_poses*` half).
+
+The JAX pipeline is one jitted program with `lax.cond` skips and a
+`lax.map` over equal chunks. Here it runs eagerly: the skips become host
+checks on `box_valid` (already a host array), so a batch with no valid box
+builds no pyramid and a chunk with no valid box runs no warp or crop model;
+the last chunk is simply shorter instead of zero-padded. Per image batch:
+FOV intrinsics, camera-space up, stable valid-first compaction, look-at
+rotation and zoom per box, one pyramid build, then per chunk of boxes (all
+TTA augmentations of each) the warp kernel, the per-aug gamma re-encode, the
+crop model, the mirror unswap and the rotation back; then un-compaction, the
+optional joint transform, 2D projection with distortion, the world
+transform, the skeleton gather and the aug average.
+
+The crop warp always goes through `ops.warp_cuda.warp_pyramid`: the CUDA
+kernel on a CUDA device, its plain version on the CPU. `cfg.warp_backend`
+(a JAX/TPU choice) is not consulted.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from metrabs_tpu.config import AugConfig, ModelConfig
+from metrabs_tpu.pipeline import tta as tta_mod
+from metrabs_tpu.pipeline.skeletons import SkeletonRegistry
+from metrabs_tpu.utils.joint_info import JointInfo
+from metrabs_tpu_torch.ops import camera as camera_ops
+from metrabs_tpu_torch.ops import distortion as distortion_ops
+from metrabs_tpu_torch.ops import rotation as rotation_ops
+from metrabs_tpu_torch.ops import warp as warp_ops
+from metrabs_tpu_torch.ops import warp_cuda
+
+N_PYRAMID_LEVELS = 3
+
+
+def _get_new_rotation_and_scale(intrinsic_matrix, distortion_coeffs, camspace_up, boxes,
+                                box_valid, proc_side: int):
+    """Per-box look-at rotation R_noaug [N, 3, 3] and zoom factor [N]; boxes
+    that are invalid or degenerate get scale 1 (their outputs are masked)."""
+    x, y, w, h = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    pts = torch.stack([
+        torch.stack([x + w / 2, y + h / 2], dim=1),
+        torch.stack([x + w / 2, y], dim=1),
+        torch.stack([x + w, y + h / 2], dim=1),
+        torch.stack([x + w / 2, y + h], dim=1),
+        torch.stack([x, y + h / 2], dim=1)], dim=1)  # [N, 5, 2]
+    inv_k = torch.linalg.inv(intrinsic_matrix)
+    pts_cam = torch.einsum('bpc,bCc->bpC', camera_ops.to_homogeneous(pts), inv_k)
+    pts_cam = camera_ops.to_homogeneous(distortion_ops.undistort_points(
+        pts_cam[:, :, :2], distortion_coeffs[:, None, :]))
+    R_noaug = rotation_ops.lookat_rotation_matrix(pts_cam[:, 0], camspace_up)
+    side_new = camera_ops.project(torch.einsum(
+        'bpc,bCc->bpC', pts_cam[:, 1:5], intrinsic_matrix @ R_noaug))
+    vertical = torch.linalg.norm(side_new[:, 0] - side_new[:, 2], dim=-1)
+    horizontal = torch.linalg.norm(side_new[:, 1] - side_new[:, 3], dim=-1)
+    box_size_new = torch.maximum(vertical, horizontal)
+    box_ok = box_valid & (box_size_new > 0)
+    ones = torch.ones_like(box_size_new)
+    box_scales = torch.where(box_ok, proc_side / torch.where(box_ok, box_size_new, ones),
+                             ones)
+    return R_noaug, box_scales
+
+
+class PoseEstimator:
+    """`estimate_poses` / `estimate_poses_batched` of the JAX package, on
+    `device`. The crop model must already be on `device`, in eval mode;
+    `crop_model(crops [N, S, S, 3], intrinsics [N, 3, 3], sample_valid [N])`
+    returns absolute camera-space poses [N, J, 3] in millimeters."""
+
+    def __init__(self, crop_model: torch.nn.Module, joint_info: JointInfo,
+                 cfg: ModelConfig, aug_cfg: AugConfig = AugConfig(),
+                 skeleton_registry: Optional[SkeletonRegistry] = None,
+                 joint_transform_matrix: Optional[np.ndarray] = None,
+                 has_detector: bool = False, device='cpu'):
+        self.device = torch.device(device)
+        self.crop_model = crop_model
+        self.cfg = cfg
+        self._aug_cfg = aug_cfg
+        self._has_detector = has_detector
+        self.joint_info = joint_info
+        self.skeletons = skeleton_registry or SkeletonRegistry(joint_info)
+        self.per_skeleton_joint_names = self.skeletons.per_skeleton_joint_names
+        self.per_skeleton_joint_edges = self.skeletons.per_skeleton_joint_edges
+        self.per_skeleton_edges = self.per_skeleton_joint_edges
+        self._mirror = torch.as_tensor(joint_info.mirror_mapping, dtype=torch.long,
+                                       device=self.device)
+        self._joint_transform = (
+            None if joint_transform_matrix is None
+            else torch.as_tensor(joint_transform_matrix, dtype=torch.float32,
+                                 device=self.device))
+
+    def estimate_poses_batched(
+            self, images, boxes, box_valid=None, intrinsic_matrix=None,
+            distortion_coeffs=None, extrinsic_matrix=None, world_up_vector=(0, -1, 0),
+            default_fov_degrees=55.0, internal_batch_size=64, antialias_factor=1,
+            num_aug=5, average_aug=True, skeleton='') -> Dict[str, torch.Tensor]:
+        """images: [B, H, W, 3] uint8; boxes: [B, max_boxes, 4] (x, y, w, h).
+
+        Returns tensors on the estimator's device: boxes [B, max, 5] (the
+        given boxes with confidence 1), poses3d [B, max, (A,) J, 3],
+        poses2d [B, max, (A,) J, 2] and valid [B, max]; the aug axis A is
+        present iff average_aug is False."""
+        boxes5, box_valid = self._boxes5_from(boxes, box_valid)
+        images = torch.as_tensor(images, device=self.device)
+        camera = self._prepare_camera_args(images.shape[0], intrinsic_matrix,
+                                           distortion_coeffs, extrinsic_matrix,
+                                           world_up_vector)
+        with torch.inference_mode():
+            return self._estimate(
+                images, boxes5, box_valid, *camera, float(default_fov_degrees),
+                num_aug=int(num_aug), average_aug=bool(average_aug),
+                antialias_factor=int(antialias_factor),
+                internal_batch_size=int(internal_batch_size),
+                skeleton_indices=self.skeletons.indices(skeleton))
+
+    def estimate_poses(self, image, boxes, **kwargs) -> Dict[str, np.ndarray]:
+        """Single image; returns host numpy arrays restricted to valid rows."""
+        images = torch.as_tensor(image)[None]
+        result = self.estimate_poses_batched(
+            images, np.asarray(boxes, np.float32)[None], **kwargs)
+        out = {k: v[0].cpu().numpy() for k, v in result.items()}
+        valid = out.pop('valid').astype(bool)
+        return {k: v[valid] for k, v in out.items()}
+
+    def detect_poses_batched(self, *args, **kwargs):
+        raise NotImplementedError(
+            'detect_poses_batched needs the person detector, which is not yet ported '
+            'to metrabs_tpu_torch (next step: YOLOv4, plausibility filter and pose '
+            'NMS, ROADMAP M5); use estimate_poses_batched with given boxes'
+            + (' (this package has a detector; it was not loaded)'
+               if self._has_detector else ''))
+
+    def detect_poses(self, *args, **kwargs):
+        return self.detect_poses_batched(*args, **kwargs)
+
+    @staticmethod
+    def _boxes5_from(boxes, box_valid):
+        """[..., 4] user boxes -> ([..., 5] with confidence 1, host validity)."""
+        boxes = np.asarray(boxes, np.float32)
+        box_valid = (np.ones(boxes.shape[:-1], bool) if box_valid is None
+                     else np.asarray(box_valid, bool))
+        boxes5 = np.concatenate([boxes, np.ones_like(boxes[..., :1])], axis=-1)
+        return boxes5, box_valid
+
+    def _prepare_camera_args(self, n_images, intrinsic_matrix, distortion_coeffs,
+                             extrinsic_matrix, world_up_vector):
+        if intrinsic_matrix is None:
+            intrinsic_matrix = np.tile(-np.ones((1, 3, 3), np.float32), (n_images, 1, 1))
+        else:
+            intrinsic_matrix = np.broadcast_to(
+                np.asarray(intrinsic_matrix, np.float32).reshape(-1, 3, 3),
+                (n_images, 3, 3))
+        if distortion_coeffs is None:
+            distortion_coeffs = np.zeros((n_images, 12), np.float32)
+        else:
+            d = np.asarray(distortion_coeffs, np.float32)
+            d = d.reshape(1, -1) if d.ndim == 1 else d
+            d = np.pad(d, ((0, 0), (0, 12 - d.shape[1])))
+            distortion_coeffs = np.broadcast_to(d, (n_images, 12))
+        if extrinsic_matrix is None:
+            extrinsic_matrix = np.broadcast_to(np.eye(4, dtype=np.float32),
+                                               (n_images, 4, 4))
+        else:
+            extrinsic_matrix = np.broadcast_to(
+                np.asarray(extrinsic_matrix, np.float32).reshape(-1, 4, 4),
+                (n_images, 4, 4))
+        return tuple(torch.tensor(np.asarray(a, np.float32), device=self.device)
+                     for a in (intrinsic_matrix, distortion_coeffs, extrinsic_matrix,
+                               world_up_vector))
+
+    def _estimate(self, images, boxes5, box_valid, intrinsic_matrix, distortion_coeffs,
+                  extrinsic_matrix, world_up_vector, default_fov_degrees, *,
+                  num_aug: int, average_aug: bool, antialias_factor: int,
+                  internal_batch_size: int, skeleton_indices: np.ndarray):
+        dev = self.device
+        n_images, img_h, img_w = images.shape[:3]
+        max_boxes = boxes5.shape[1]
+        n_total = n_images * max_boxes
+
+        fov_k = camera_ops.intrinsics_from_fov(default_fov_degrees, (img_h, img_w),
+                                               device=dev)
+        unknown = torch.all(intrinsic_matrix == -1, dim=-1).all(dim=-1)[:, None, None]
+        intrinsic_matrix = torch.where(unknown, fov_k, intrinsic_matrix)
+        camspace_up = torch.einsum('c,bCc->bC', world_up_vector,
+                                   extrinsic_matrix[:, :3, :3])
+
+        boxes_t = torch.as_tensor(boxes5, device=dev)
+        valid_flat = box_valid.reshape(n_total)
+        k_flat = intrinsic_matrix.repeat_interleave(max_boxes, dim=0)
+        dist_flat = distortion_coeffs.repeat_interleave(max_boxes, dim=0)
+
+        # Valid boxes first (stable), so that padding gathers in the trailing
+        # chunks, which are skipped. Only the poses need un-compacting.
+        order = torch.argsort(torch.from_numpy(~valid_flat).to(torch.uint8), stable=True)
+        valid_c = valid_flat[order.numpy()]
+        order_d = order.to(dev)
+        inv_order = torch.argsort(order_d)
+        image_ids_c = torch.arange(n_images, device=dev).repeat_interleave(max_boxes)[order_d]
+        k_c = k_flat[order_d]
+        dist_c = dist_flat[order_d]
+        boxes_c = boxes_t.reshape(n_total, -1)[order_d]
+        up_c = camspace_up.repeat_interleave(max_boxes, dim=0)[order_d]
+        valid_c_d = torch.as_tensor(valid_c, device=dev)
+
+        R_noaug, box_scales = _get_new_rotation_and_scale(
+            k_c, dist_c, up_c, boxes_c, valid_c_d, self.cfg.proc_side)
+
+        pyramid = None
+        if valid_flat.any():
+            images_lin = (images.float() / 255.0) ** 2.2
+            pyramid = warp_ops.build_flat_pyramid(images_lin, N_PYRAMID_LEVELS)
+            del images_lin
+
+        tta = tta_mod.make_tta_params(num_aug, self._aug_cfg)
+        n_joints = self.joint_info.n_joints
+        boxes_per_chunk = internal_batch_size // max(num_aug, 1) or n_total
+        chunks = []
+        for start in range(0, n_total, boxes_per_chunk):
+            sl = slice(start, min(start + boxes_per_chunk, n_total))
+            if not valid_c[sl].any():
+                chunks.append(torch.tensor([0.0, 0.0, 1000.0], device=dev).expand(
+                    sl.stop - sl.start, num_aug, n_joints, 3))
+                continue
+            chunks.append(self._predict_chunk(
+                pyramid, tta, k_c[sl], dist_c[sl], R_noaug[sl], box_scales[sl],
+                image_ids_c[sl], valid_c_d[sl], antialias_factor))
+        poses3d_flat = torch.cat(chunks)[inv_order]  # [N, A, J, 3]
+
+        if self._joint_transform is not None:
+            poses3d_flat = torch.einsum('bank,nN->baNk', poses3d_flat,
+                                        self._joint_transform)
+        n_out = poses3d_flat.shape[2]
+
+        poses2d_normalized = camera_ops.to_homogeneous(distortion_ops.distort_points(
+            camera_ops.project(poses3d_flat), dist_flat[:, None, None, :]))
+        poses2d_flat = torch.einsum('bank,bjk->banj', poses2d_normalized,
+                                    k_flat[:, :2, :])
+        poses3d = poses3d_flat.reshape(n_images, max_boxes, num_aug, n_out, 3)
+        poses2d = poses2d_flat.reshape(n_images, max_boxes, num_aug, n_out, 2)
+
+        inv_ext = torch.linalg.inv(extrinsic_matrix)
+        poses3d = torch.einsum('bmank,bjk->bmanj', camera_ops.to_homogeneous(poses3d),
+                               inv_ext[:, :3, :])
+
+        sel = torch.as_tensor(skeleton_indices, dtype=torch.long, device=dev)
+        poses3d = poses3d[..., sel, :]
+        poses2d = poses2d[..., sel, :]
+        if average_aug:
+            poses3d = poses3d.mean(dim=-3)
+            poses2d = poses2d.mean(dim=-3)
+        return dict(boxes=boxes_t, poses3d=poses3d, poses2d=poses2d,
+                    valid=torch.as_tensor(box_valid, device=dev))
+
+    def _predict_chunk(self, pyramid, tta, k_c, dist_c, r_noaug_c, scales_c, ids_c,
+                       valid_c, antialias_factor: int):
+        """Warp + crop model for all augmentations of a chunk of boxes;
+        returns poses [n_box, A, J, 3] in the original camera frame."""
+        dev = self.device
+        res = self.cfg.proc_side
+        num_aug = tta.num_aug
+        n_box = k_c.shape[0]
+        aug_scales = torch.as_tensor(tta.scales, device=dev)
+        rotflip = torch.as_tensor(tta.rotflip_mats, device=dev)
+        crop_scales = aug_scales[:, None] * scales_c[None, :]  # [A, n]
+
+        # New intrinsics: focal scaled, principal point centered.
+        topleft = k_c[None, :, :2, :2] * crop_scales[:, :, None, None]
+        pp = torch.full((num_aug, n_box, 2, 1), res / 2.0, device=dev)
+        row3 = torch.cat([torch.zeros((num_aug, n_box, 1, 2), device=dev),
+                          torch.ones((num_aug, n_box, 1, 1), device=dev)], dim=3)
+        new_k = torch.cat([torch.cat([topleft, pp], dim=3), row3], dim=2)  # [A, n, 3, 3]
+        R = torch.einsum('aij,njk->anik', rotflip, r_noaug_c)
+        new_invprojmat = torch.linalg.inv(new_k @ R)
+        if antialias_factor > 1:
+            new_invprojmat = new_invprojmat @ camera_ops.corner_aligned_scale_mat(
+                1.0 / antialias_factor, device=dev)
+
+        flat, level_info, per_image_len = pyramid
+        params, geom = warp_ops.pyramid_warp_params(
+            k_c.repeat(num_aug, 1, 1), new_invprojmat.reshape(-1, 3, 3),
+            dist_c.repeat(num_aug, 1), crop_scales.reshape(-1) * antialias_factor,
+            ids_c.repeat(num_aug), level_info, per_image_len)
+        out_side = res * antialias_factor
+        crops = warp_cuda.warp_pyramid(flat, params, geom, (out_side, out_side),
+                                       precision=self.cfg.warp_precision)
+        if antialias_factor > 1:
+            crops = warp_ops.avg_pool_nxn(crops, antialias_factor)
+        # Per-aug gamma re-encode; cancels the 2.2 decode of the pyramid.
+        gammas = torch.as_tensor(tta.gammas, device=dev)
+        crops = crops ** (gammas / 2.2).repeat_interleave(n_box)[:, None, None, None]
+
+        poses_flat = self.crop_model(crops.to(getattr(torch, self.cfg.dtype)),
+                                     new_k.reshape(-1, 3, 3), valid_c.repeat(num_aug))
+        poses = poses_flat.reshape(num_aug, n_box, -1, 3)
+        # Undo the horizontal flip's left/right swap; R undoes the mirror.
+        should_flip = torch.as_tensor(tta.should_flip, device=dev)
+        poses = torch.where(should_flip[:, None, None, None], poses[:, :, self._mirror],
+                            poses)
+        poses_orig_cam = torch.einsum('anjc,anck->anjk', poses, R)
+        return poses_orig_cam.transpose(0, 1)

@@ -24,7 +24,9 @@ setup(
     version='0.1.0',
     description=('TPU-native absolute 3D human pose estimation '
                  '(JAX/XLA re-design of MeTRAbs)'),
-    packages=find_packages(include=['metrabs_tpu', 'metrabs_tpu.*']),
+    packages=find_packages(include=['metrabs_tpu', 'metrabs_tpu.*',
+                                    'metrabs_tpu_torch', 'metrabs_tpu_torch.*']),
+    package_data={'metrabs_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'einops', 'numpy',
