@@ -3,26 +3,44 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero before the last line:
+Phases, one line or a few each; any failure exits non-zero before the last
+line:
  1. device: a CUDA device, its name and power limit from nvidia-smi;
- 2. build: nvcc builds the crop-warp kernel `metrabs_tpu_torch/csrc/warp.cu`
-    for sm_90a from the checkout;
+ 2. build: nvcc builds the port's two kernels, the crop warp
+    `metrabs_tpu_torch/csrc/warp.cu` and the fused MBConv chain
+    `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, both
+    compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
     lens distortion on some crops, a crop entirely outside its frame), and
-    both times;
- 4. main path: `estimate_poses_batched` of an estimator built by the same
+    both times; the MBConv kernel against its plain version at the
+    EffNetV2-S@256 stage-5 shape [64, 960, 16, 16] and the EffNetV2-L@384
+    one [128, 1344, 24, 24] in bfloat16 and at the first in float32, with
+    three times each: the kernel, the plain version and the port's unfused
+    chain (BN, silu, pad, cuDNN depthwise conv, BN, silu, mean);
+ 4. main: `estimate_poses_batched` of an estimator built by the same
     function `load_pose_estimator` uses after reading a package, with
     EffNetV2-S at 256 px in bfloat16 (BN folded, flat layout) and weights
     minted from a seed, on 8 synthetic 1080p frames with 16 boxes each
     (some invalid), num_aug 2, internal batch 64. Checks shapes, finiteness,
     the validity mask and that the warp kernel ran once per non-empty chunk;
     then holds a float32 estimator on the GPU against the same estimator on
-    the CPU (plain warp) on a small input, and times the bf16 path.
-The second-to-last line is a JSON object with the kernel's measurements;
+    the CPU (plain warp) on a small input, and times the bf16 path;
+ 5. detect: `detect_poses_batched` of the same crop model with BN unfolded
+    and `fuse_mbconv='on'`, plus a minted YOLOv4-416 in bfloat16, on the
+    same frames: num_aug 2, max_detections 16, internal batch 64, detector
+    threshold 0 (every slot valid) and the plausibility filter on. Checks
+    shapes, finiteness, and that the warp kernel ran once and the MBConv
+    kernel 28 times (the qualifying blocks) per non-empty chunk; then holds
+    a float32 detect estimator on the GPU against the same one on the CPU
+    on a small frame, times the bf16 path, and splits one call's time under
+    torch.profiler.
+The second-to-last line is a JSON object with the kernels' measurements;
 the last is {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
+import functools
 import json
 import math
 import statistics
@@ -42,6 +60,19 @@ NUM_AUG = 2
 INTERNAL_BATCH = 64
 WARP_TOL = 1e-4  # linear [0, 1] values; FMA and reassociation between nvcc and ATen
 POSE_ATOL_MM, POSE_RTOL = 1.0, 1e-3
+# The fused MBConv kernel's cases: (label, [N, E, H, W], dtype). Tolerances
+# on (v, se_mean): float32 1e-5 (same operations in the same order, no FMA
+# contraction; only the mean sums in another order); bfloat16 those of the
+# JAX kernel's tests (tests/test_mbconv_pallas.py), one bf16 ulp of silu.
+K2_CASES = (('S@256 stage 5', (64, 960, 16, 16), torch.bfloat16),
+            ('L@384 stage 5', (128, 1344, 24, 24), torch.bfloat16),
+            ('S@256 stage 5', (64, 960, 16, 16), torch.float32))
+K2_TOLS = {torch.float32: (dict(atol=1e-5, rtol=1e-5), dict(atol=1e-5, rtol=1e-5)),
+           torch.bfloat16: (dict(atol=7e-2, rtol=5e-2), dict(atol=1e-2, rtol=1e-2))}
+K2_BLOCKS = 28  # MBConv blocks of EffNetV2-S that the fused chain takes
+DETECTOR_SIZE = 416
+MAX_DETECTIONS = 16
+BOX_TOL_PX = 1e-2
 
 
 def phase(name: str, msg: str) -> None:
@@ -108,15 +139,9 @@ def warp_case(dev, n_crops: int = 64, side: int = 256):
                 image_ids=torch.arange(n_crops, device=dev) % N_FRAMES)
 
 
-def mint_crop_variables(cfg, gen: torch.Generator):
-    """Flat, unfolded JAX-layout variables for `cfg`: 0.8x He fan-in
-    kernels, random BN statistics and affine, and a 3D head that agrees with
-    the 2D head (so the reconstruction places joints in front of the camera)."""
-    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
-    from metrabs_tpu_torch.models.metrabs import build_crop_model
-
-    with torch.device('meta'):
-        shapes = build_crop_model(cfg).state_dict()
+def mint_state(shapes, gen: torch.Generator):
+    """A state dict for the meta tensors `shapes`: 0.8x He fan-in kernels,
+    random BN statistics and affine, small random biases."""
     state = {}
     for name, meta in shapes.items():
         shape = tuple(meta.shape)
@@ -130,6 +155,19 @@ def mint_crop_variables(cfg, gen: torch.Generator):
         else:
             v = torch.randn(shape, generator=gen) * 0.1
         state[name] = v
+    return state
+
+
+def mint_crop_variables(cfg, gen: torch.Generator):
+    """Flat, unfolded JAX-layout variables for `cfg`, minted by `mint_state`,
+    with a 3D head that agrees with the 2D head (so the reconstruction places
+    joints in front of the camera)."""
+    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
+    from metrabs_tpu_torch.models.metrabs import build_crop_model
+
+    with torch.device('meta'):
+        shapes = build_crop_model(cfg).state_dict()
+    state = mint_state(shapes, gen)
     j = cfg.n_joints
     for name in ('heatmap_heads.conv_final.weight', 'heatmap_heads.conv_final.bias'):
         v = state[name]
@@ -170,6 +208,146 @@ def synthetic_boxes():
     return boxes, valid
 
 
+def detect_manifest_for(dtype: str) -> dict:
+    """The manifest with a YOLOv4-416 detector in `dtype` (flat layout)."""
+    return dict(manifest_for(dtype), has_detector=True, detector_type='yolov4',
+                detector_dtype=dtype, detector_input_size=DETECTOR_SIZE,
+                detector_scan_repeats=False)
+
+
+def mint_detector_variables(gen: torch.Generator):
+    """Flat, unfolded JAX-layout variables of a YOLOv4, minted by `mint_state`."""
+    from metrabs_tpu_torch.detect.yolov4 import build_detector_model
+    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
+
+    with torch.device('meta'):
+        shapes = build_detector_model('yolov4').state_dict()
+    return flax_variables_from_state_dict(mint_state(shapes, gen))
+
+
+def k2_case(shape, dtype, gen: torch.Generator, dev):
+    """The expand-conv output u [N, E, H, W] in `dtype`, the depthwise weight
+    [E, 1, 3, 3] and the two inference BatchNorms around the depthwise conv,
+    with random statistics."""
+    from metrabs_tpu_torch.models.backbones.common import FrozenBatchNorm2d
+
+    e = shape[1]
+    rand = lambda lo, hi: torch.rand(e, generator=gen, device=dev) * (hi - lo) + lo
+    u = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+    dw = torch.randn((e, 1, 3, 3), generator=gen, device=dev) * 0.3
+    bns = []
+    for _ in range(2):
+        bn = FrozenBatchNorm2d(e, 1e-3).to(dev)
+        bn.weight.data, bn.bias.data = rand(0.5, 1.5), rand(-0.3, 0.3)
+        bn.running_mean.copy_(rand(-0.5, 0.5))
+        bn.running_var.copy_(rand(0.5, 1.5))
+        bns.append(bn)
+    return u, dw, bns
+
+
+def unfused_chain(u, dw, bn0, bn1):
+    """The port's unfused MBConv inner chain (`efficientnet_v2.MBConv` with
+    `fuse_mbconv='off'`): BN, silu, pad, cuDNN depthwise conv, BN, silu, and
+    the SE block's spatial mean."""
+    x = torch.nn.functional.silu(bn0(u))
+    x = torch.nn.functional.conv2d(torch.nn.functional.pad(x, (1, 1, 1, 1)), dw.to(x.dtype),
+                                   groups=x.shape[1])
+    x = torch.nn.functional.silu(bn1(x))
+    return x, torch.mean(x, dim=(2, 3))
+
+
+def check_k2(gen, dev):
+    """Every K2 case: the kernel against its plain version, and three times.
+    Returns one dict per case."""
+    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda
+
+    results = []
+    for label, shape, dtype in K2_CASES:
+        u, dw, (bn0, bn1) = k2_case(shape, dtype, gen, dev)
+        consts = (*bn0.folded(), *bn1.folded())
+        got_v, got_mean = mbconv_cuda.fused_mbconv_inner(u, dw, *consts)
+        want_v, want_mean = mbconv.fused_mbconv_inner(u, dw, *consts)
+        torch.cuda.synchronize()
+        name = f'fused_mbconv_inner {label} {list(shape)} {str(dtype)[6:]}'
+        if got_v.shape != u.shape or got_v.dtype != dtype or got_mean.shape != shape[:2]:
+            fail('kernel', f'{name}: output {tuple(got_v.shape)} {got_v.dtype}, '
+                           f'mean {tuple(got_mean.shape)}')
+        if not (torch.isfinite(got_v).all() and torch.isfinite(got_mean).all()):
+            fail('kernel', f'{name}: non-finite kernel output')
+        tol_v, tol_mean = K2_TOLS[dtype]
+        err_v = (got_v.float() - want_v.float()).abs().max().item()
+        err_mean = (got_mean - want_mean).abs().max().item()
+        if not (torch.allclose(got_v.float(), want_v.float(), **tol_v)
+                and torch.allclose(got_mean, want_mean, **tol_mean)):
+            fail('kernel', f'{name}: max |kernel - plain| v {err_v:.3g}, mean {err_mean:.3g} '
+                           f'beyond {tol_v} / {tol_mean}')
+        unfused_v, _ = unfused_chain(u, dw, bn0, bn1)
+        err_unfused = (got_v.float() - unfused_v.float()).abs().max().item()
+        ms = cuda_time_ms(lambda: mbconv_cuda.fused_mbconv_inner(u, dw, *consts))
+        plain_ms = cuda_time_ms(lambda: mbconv.fused_mbconv_inner(u, dw, *consts))
+        unfused_ms = cuda_time_ms(lambda: unfused_chain(u, dw, bn0, bn1))
+        phase('kernel', f'{name}: max |kernel - plain| v {err_v:.3g}, mean {err_mean:.3g} '
+                        f'(tol {tol_v["atol"]}/{tol_v["rtol"]}); vs the unfused chain '
+                        f'{err_unfused:.3g} (BN folded vs not); kernel {ms:.4f} ms, plain '
+                        f'torch {plain_ms:.4f} ms, unfused cuDNN chain {unfused_ms:.4f} ms '
+                        f'(CUDA events, median of 25)')
+        results.append(dict(case=label, shape=list(shape), dtype=str(dtype)[6:],
+                            max_abs_err=max(err_v, err_mean), ms=ms, plain_ms=plain_ms,
+                            unfused_ms=unfused_ms))
+        del u, got_v, want_v, unfused_v
+    return results
+
+
+def profile_detect(est, run):
+    """One `run()` under torch.profiler, with ranges around the detector, its
+    box NMS, the crop model, the plausibility filter and its pose NMS.
+    Returns (wall ms, {name: device ms}, {name: host ms}, busy device ms,
+    kernel count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from metrabs_tpu_torch.detect import yolov4
+    from metrabs_tpu_torch.pipeline import plausibility
+
+    def labelled(name, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    patches = [(est.detector, 'detect_batched', 'detector'), (yolov4, 'box_nms', 'detector_nms'),
+               (est, 'crop_model', 'crop_model'),
+               (plausibility, 'suppress_implausible_poses', 'pose_filter'),
+               (plausibility, 'pose_non_max_suppression', 'pose_nms')]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, name in patches:
+        setattr(obj, attr, labelled(name, getattr(obj, attr)))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+    names = {name for _, _, name in patches}
+    events = prof.events()
+    device_ms, host_ms = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in names:
+            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.device_time_total / 1e3
+            host_ms[e.name] = host_ms.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in names]
+    for key, pattern in (('K2 (mbconv kernel)', 'mbconv_inner_kernel'),
+                         ('K1 (warp kernel)', 'warp_pyramid_kernel')):
+        device_ms[key] = sum(e.device_time_total for e in kernels if pattern in e.name) / 1e3
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3  # one stream: no overlap
+    return wall_ms, device_ms, host_ms, busy_ms, len(kernels)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -194,12 +372,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. Build.
+    # 2. Build: one nvcc per source, started together.
+    from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
-    lib_path, build_s = warp_cuda.build_library()
-    phase('build', f'nvcc {" ".join(warp_cuda.NVCC_FLAGS)} {warp_cuda.SOURCE.name} -> '
-                   f'{lib_path.name} in {build_s:.2f} s')
+    sources = ('warp', 'mbconv')
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(cuda_build.build_library, sources))
+    for name, (lib_path, build_s) in zip(sources, built):
+        phase('build', f'nvcc {" ".join(cuda_build.NVCC_FLAGS)} '
+                       f'{cuda_build.source_path(name).name} -> {lib_path.name} in {build_s:.2f} s')
+    phase('build', f'both in {time.perf_counter() - start:.2f} s')
 
     # 3. The warp kernel against its plain version at the serving shape.
     gen = torch.Generator(device=dev)
@@ -231,6 +415,7 @@ def main() -> None:
                     f'(tol {WARP_TOL}); kernel {kernel_ms:.4f} ms, plain torch '
                     f'{plain_ms:.4f} ms (CUDA events, median of 25)')
     del flat, got, want
+    k2_results = check_k2(gen, dev)
 
     # 4. The main path.
     from metrabs_tpu_torch.io.packaging import pose_estimator_from_variables
@@ -255,10 +440,11 @@ def main() -> None:
         frames, boxes, box_valid, num_aug=NUM_AUG, internal_batch_size=INTERNAL_BATCH)
     run()  # warm-up (cuDNN algorithm selection)
     torch.cuda.synchronize()
-    warp_cuda.warp_pyramid.launches = 0
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
     out = run()
     torch.cuda.synchronize()
     launches = warp_cuda.warp_pyramid.launches
+    main_k2_launches = mbconv_cuda.fused_mbconv_inner.launches
     n_valid = int(box_valid.sum())
     expected_launches = math.ceil(n_valid / (INTERNAL_BATCH // NUM_AUG))
     shapes = {k: tuple(v.shape) for k, v in out.items()}
@@ -304,10 +490,117 @@ def main() -> None:
                   f'{call_s * 1e3:.1f} ms/call (median of {n_calls}), '
                   f'{n_valid * NUM_AUG / call_s:.1f} valid crops/s')
 
-    print(json.dumps({'kernels': [dict(
-        name='warp_pyramid', route='cuda', source='metrabs_tpu_torch/csrc/warp.cu',
-        replaces='metrabs_tpu/ops/warp_pallas.py:68', launches=launches,
-        max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms)]}), flush=True)
+    if main_k2_launches != 0:
+        fail('main', f'the folded model launched the MBConv kernel {main_k2_launches} times')
+
+    # 5. The detect path: YOLOv4, the fused MBConv crop model, the filter.
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    fused_builder = functools.partial(build_backbone, fuse_mbconv='on')
+    det_variables = mint_detector_variables(cpu_gen)
+    unfolded = {'bn_fold': False}
+    est_d = pose_estimator_from_variables(
+        variables, detect_manifest_for('bfloat16'), device=dev, cfg_overrides=unfolded,
+        detector_variables=det_variables, backbone_builder=fused_builder)
+    fused_blocks = sum(getattr(b, 'fusable', False) and b.fuse == 'on'
+                       for b in est_d.crop_model.backbone.blocks)
+    if est_d.cfg.bn_fold or fused_blocks != K2_BLOCKS:
+        fail('detect', f'expected the unfolded model with {K2_BLOCKS} fused blocks, got '
+                       f'bn_fold={est_d.cfg.bn_fold} and {fused_blocks}')
+    detect = lambda: est_d.detect_poses_batched(
+        frames, num_aug=NUM_AUG, max_detections=MAX_DETECTIONS,
+        internal_batch_size=INTERNAL_BATCH, detector_threshold=0.0,
+        suppress_implausible_poses=True)
+    detect()  # warm-up (cuDNN algorithm selection)
+    with torch.inference_mode():
+        _, det_valid = est_d.detector.detect_batched(frames, threshold=0.0,
+                                                     max_detections=MAX_DETECTIONS)
+    n_detected = int(det_valid.sum())
+    torch.cuda.synchronize()
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    out = detect()
+    torch.cuda.synchronize()
+    det_warp_launches = warp_cuda.warp_pyramid.launches
+    det_k2_launches = mbconv_cuda.fused_mbconv_inner.launches
+    chunks = math.ceil(n_detected / (INTERNAL_BATCH // NUM_AUG))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    want_shapes = dict(boxes=(8, MAX_DETECTIONS, 5), poses3d=(8, MAX_DETECTIONS, 17, 3),
+                       poses2d=(8, MAX_DETECTIONS, 17, 2), valid=(8, MAX_DETECTIONS))
+    if shapes != want_shapes:
+        fail('detect', f'output shapes {shapes} != {want_shapes}')
+    if n_detected == 0 or (out['valid'] & ~det_valid).any():
+        fail('detect', f'{n_detected} detections; the filter must only drop detections')
+    for k in ('boxes', 'poses3d', 'poses2d'):
+        if not torch.isfinite(out[k][det_valid]).all():
+            fail('detect', f'non-finite {k} on detected rows')
+    if det_warp_launches != chunks or det_k2_launches != K2_BLOCKS * chunks:
+        fail('detect', f'warp kernel launched {det_warp_launches} times and MBConv kernel '
+                       f'{det_k2_launches}, expected {chunks} and {K2_BLOCKS * chunks} '
+                       f'({chunks} non-empty chunks)')
+    n_kept = int(out['valid'].sum())
+
+    # The float32 detect estimator on the GPU against the same one on the CPU.
+    ests32 = [pose_estimator_from_variables(
+        variables, detect_manifest_for('float32'), device=d, cfg_overrides=unfolded,
+        detector_variables=det_variables, backbone_builder=fused_builder)
+        for d in (dev, 'cpu')]
+    small = frames[:1, 300:660, 500:980].contiguous()
+    small_kwargs = dict(num_aug=NUM_AUG, max_detections=4, detector_threshold=0.0,
+                        suppress_implausible_poses=False)
+    with torch.inference_mode():
+        (b_got, v_got), (b_want, v_want) = [
+            e.detector.detect_batched(x, threshold=0.0, max_detections=4)
+            for e, x in zip(ests32, (small, small.cpu()))]
+    box_err = (b_got.cpu() - b_want).abs().max().item()
+    if not torch.equal(v_got.cpu(), v_want) or not box_err <= BOX_TOL_PX:
+        fail('detect', f'float32 GPU detections differ from the CPU reference: masks '
+                       f'{v_got.tolist()} vs {v_want.tolist()}, boxes by {box_err:.3g} px')
+    got32, want32 = [e.detect_poses_batched(x, **small_kwargs)
+                     for e, x in zip(ests32, (small, small.cpu()))]
+    v32 = want32['valid']
+    p_got, p_want = got32['poses3d'].cpu()[v32], want32['poses3d'][v32]
+    det_pose_err = (p_got - p_want).abs().max().item()
+    if not torch.equal(got32['valid'].cpu(), v32) or not torch.allclose(
+            p_got, p_want, atol=POSE_ATOL_MM, rtol=POSE_RTOL):
+        fail('detect', f'float32 GPU detect poses differ from the CPU reference by '
+                       f'{det_pose_err:.3g} mm')
+    del ests32
+
+    times = []
+    for _ in range(n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detect()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    detect_s = statistics.median(times)
+    phase('detect', f'detect_poses_batched YOLOv4-{DETECTOR_SIZE} bf16 + EffNetV2-S@{PROC_SIDE} '
+                    f'bf16 unfolded, fuse_mbconv on, {N_FRAMES}x{FRAME_H}p, max_detections '
+                    f'{MAX_DETECTIONS}, num_aug {NUM_AUG}, threshold 0: {n_detected} detections, '
+                    f'{n_kept} after the plausibility filter; warp launches '
+                    f'{det_warp_launches}, MBConv launches {det_k2_launches} ({chunks} chunks); '
+                    f'f32 GPU vs CPU: masks equal, max |dbox| {box_err:.3g} px, max |dpose| '
+                    f'{det_pose_err:.3g} mm; {detect_s * 1e3:.1f} ms/call (median of {n_calls}; '
+                    f'all: {", ".join(f"{t * 1e3:.1f}" for t in times)})')
+    wall_ms, device_ms, host_ms, busy_ms, n_kernels = profile_detect(est_d, detect)
+    phase('detect', f'one call under torch.profiler: wall {wall_ms:.1f} ms, device busy '
+                    f'{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels')
+    for name in sorted(device_ms, key=device_ms.get, reverse=True):
+        host = f', host {host_ms[name]:.2f} ms' if name in host_ms else ''
+        phase('detect', f'  {name}: device {device_ms[name]:.3f} ms '
+                        f'({100 * device_ms[name] / busy_ms:.1f}% of busy){host}')
+
+    k2_main = k2_results[0]
+    print(json.dumps({'kernels': [
+        dict(name='warp_pyramid', route='cuda', source='metrabs_tpu_torch/csrc/warp.cu',
+             replaces='metrabs_tpu/ops/warp_pallas.py:68', launches=det_warp_launches,
+             launches_by_path=dict(main=launches, detect=det_warp_launches),
+             max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms),
+        dict(name='fused_mbconv_inner', route='cuda', source='metrabs_tpu_torch/csrc/mbconv.cu',
+             replaces='metrabs_tpu/ops/mbconv_pallas.py:77', launches=det_k2_launches,
+             launches_by_path=dict(main=main_k2_launches, detect=det_k2_launches),
+             max_abs_err=max(r['max_abs_err'] for r in k2_results), ms=k2_main['ms'],
+             plain_ms=k2_main['plain_ms'], unfused_ms=k2_main['unfused_ms'],
+             cases=k2_results)]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -3,14 +3,17 @@
 Same package format as the JAX package (`manifest.json`,
 `crop_model.msgpack`, optionally `detector.msgpack` and
 `joint_transform.npy`) and the same serving defaults: a scanned-layout
-backbone is unrolled to the flat layout, and BatchNorm is folded into the
-convs for foldable families. File reading is split from the rest
-(`crop_model_from_variables`, `pose_estimator_from_variables`) so that a
-caller holding variables in memory builds exactly the estimator that
-`load_pose_estimator` builds.
+backbone (and YOLOv4 detector) is unrolled to the flat layout, and
+BatchNorm is folded into the convs for foldable families, the YOLOv4
+detector included (darknet eps 1e-5) under the same `bn_fold` switch. File
+reading is split from the rest (`crop_model_from_variables`,
+`pose_estimator_from_variables`) so that a caller holding variables in
+memory builds exactly the estimator that `load_pose_estimator` builds.
 
-The detector is not ported yet: a package with one loads without it, and
-the estimator's `detect_poses*` methods raise NotImplementedError.
+`backbone_builder` (default `models.backbones.builder.build_backbone`, same
+arguments) builds the crop model's backbone, e.g.
+`functools.partial(build_backbone, fuse_mbconv='on')` for the fused MBConv
+kernel, which needs `cfg_overrides={'bn_fold': False}`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from metrabs_tpu.config import AugConfig, ModelConfig
 from metrabs_tpu.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
 from metrabs_tpu.utils.joint_info import JointInfo
+from metrabs_tpu_torch.detect.yolov4 import PersonDetector, build_detector_model
 from metrabs_tpu_torch.io import weights
 from metrabs_tpu_torch.io.checkpoints import load_model_msgpack
 from metrabs_tpu_torch.models.metrabs import Metrabs, build_crop_model
@@ -47,11 +51,13 @@ def _check_model_class(manifest: dict) -> None:
 
 def crop_model_from_variables(
         variables: Dict, manifest: dict, *, scan_blocks: Optional[bool] = None,
-        bn_fold: bool = False, device='cpu') -> Tuple[Metrabs, ModelConfig]:
+        bn_fold: bool = False, device='cpu',
+        backbone_builder=None) -> Tuple[Metrabs, ModelConfig]:
     """The crop model of a package from its variable tree (numpy leaves, as
     stored) and manifest, in eval mode on `device` in `cfg.dtype`.
 
-    `scan_blocks=False` unrolls a scanned-layout tree; `bn_fold` folds BN."""
+    `scan_blocks=False` unrolls a scanned-layout tree; `bn_fold` folds BN;
+    `backbone_builder` builds the backbone (module docstring)."""
     _check_model_class(manifest)
     cfg = ModelConfig(**manifest['model_config'])
     if scan_blocks is not None and scan_blocks != cfg.backbone_scan_blocks:
@@ -69,7 +75,7 @@ def crop_model_from_variables(
         cfg = dataclasses.replace(cfg, bn_fold=True)
     state = weights.crop_model_state_dict_from_flax(variables, cfg)
     with torch.device('meta'):
-        model = build_crop_model(cfg)
+        model = build_crop_model(cfg, backbone_builder)
     model.load_state_dict(state, assign=True)
     model = model.to(device=device, dtype=getattr(torch, cfg.dtype)).eval()
     model.requires_grad_(False)
@@ -77,25 +83,54 @@ def crop_model_from_variables(
 
 
 def load_crop_model(directory: str, *, scan_blocks: Optional[bool] = None,
-                    bn_fold: bool = False, device='cpu'):
+                    bn_fold: bool = False, device='cpu', backbone_builder=None):
     """Returns (model, cfg, joint_info, manifest) of a package directory."""
     manifest = _read_manifest(directory)
     variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
     model, cfg = crop_model_from_variables(variables, manifest, scan_blocks=scan_blocks,
-                                           bn_fold=bn_fold, device=device)
+                                           bn_fold=bn_fold, device=device,
+                                           backbone_builder=backbone_builder)
     return model, cfg, _joint_info(manifest), manifest
+
+
+def detector_from_variables(variables: Dict, manifest: dict, *, bn_fold: bool,
+                            device='cpu') -> PersonDetector:
+    """The package's person detector from its variable tree (numpy leaves, as
+    stored) and manifest, in eval mode on `device` in `detector_dtype`. A
+    scanned YOLOv4 tree is unrolled; BN is folded (eps 1e-5) iff `bn_fold`
+    and the detector is of the YOLOv4 family."""
+    det_type = manifest.get('detector_type', 'yolov4')
+    det_size = manifest.get('detector_input_size') or (
+        640 if det_type.startswith('yolov8') else 416)
+    det_fold = bn_fold and det_type.startswith('yolov4')
+    with torch.device('meta'):
+        model = build_detector_model(det_type, bn_fold=det_fold)
+    if manifest.get('detector_scan_repeats', True):
+        variables = weights.yolo_scanned_to_flat(variables)
+    if det_fold:
+        variables = weights.fold_bn_variables(variables, epsilon=1e-5)
+    model.load_state_dict(weights.detector_state_dict_from_flax(variables, model), assign=True)
+    dtype = getattr(torch, manifest.get('detector_dtype', 'float32'))
+    model = model.to(device=device, dtype=dtype).eval()
+    model.requires_grad_(False)
+    return PersonDetector(model, input_size=det_size)
 
 
 def pose_estimator_from_variables(
         crop_variables: Dict, manifest: dict, *, device='cpu',
         cfg_overrides: Optional[dict] = None,
-        joint_transform_matrix: Optional[np.ndarray] = None) -> PoseEstimator:
+        joint_transform_matrix: Optional[np.ndarray] = None,
+        detector_variables: Optional[Dict] = None,
+        backbone_builder=None) -> PoseEstimator:
     """Everything `load_pose_estimator` does after reading the files.
 
     `cfg_overrides`: serving-only ModelConfig fields to replace; the fields
     that define the trained model cannot be overridden. Defaults: a scanned
     backbone is unrolled, and BN is folded for foldable families (opt out
-    with `{'bn_fold': False}`)."""
+    with `{'bn_fold': False}`), in the crop model and in a YOLOv4 detector.
+    `detector_variables`: the detector's tree (the manifest's `detector_*`
+    fields describe it), or None for an estimator without a detector;
+    `backbone_builder`: module docstring."""
     cfg_overrides = dict(cfg_overrides or {})
     if cfg_overrides.pop('backbone_scan_blocks', False):
         raise ValueError('The port runs the flat backbone layout only')
@@ -107,7 +142,8 @@ def pose_estimator_from_variables(
     if bad:
         raise ValueError(f'cfg_overrides may not change trained-model fields: {bad}')
     model, cfg = crop_model_from_variables(crop_variables, manifest, scan_blocks=False,
-                                           bn_fold=bn_fold, device=device)
+                                           bn_fold=bn_fold, device=device,
+                                           backbone_builder=backbone_builder)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
 
@@ -118,20 +154,30 @@ def pose_estimator_from_variables(
                                  edges=tuple(tuple(e) for e in v['edges']))
                  for k, v in manifest['skeletons'].items()}
         skeleton_registry = SkeletonRegistry(joint_info, infos)
+    detector = None
+    if detector_variables is not None:
+        detector = detector_from_variables(detector_variables, manifest, bn_fold=bn_fold,
+                                           device=device)
+    bone_means = (np.asarray(manifest['bone_mean_lengths'], np.float32)
+                  if manifest.get('bone_mean_lengths') else None)
     return PoseEstimator(
         model, joint_info, cfg, aug_cfg=AugConfig(**manifest['aug_config']),
         skeleton_registry=skeleton_registry,
         joint_transform_matrix=joint_transform_matrix,
-        has_detector=bool(manifest.get('has_detector')), device=device)
+        detector=detector, bone_mean_lengths=bone_means, device=device)
 
 
 def load_pose_estimator(directory: str, device='cuda',
-                        cfg_overrides: Optional[dict] = None) -> PoseEstimator:
-    """A `PoseEstimator` from a package directory, on `device`.
-
-    The detector of a package that has one is not loaded (not yet ported)."""
+                        cfg_overrides: Optional[dict] = None,
+                        backbone_builder=None) -> PoseEstimator:
+    """A `PoseEstimator` from a package directory, on `device`, with the
+    package's detector when it has one (`detect_poses_batched`)."""
     manifest = _read_manifest(directory)
     variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
+    detector_variables = None
+    if manifest.get('has_detector'):
+        detector_variables = load_model_msgpack(
+            os.path.join(directory, 'detector.msgpack'))['variables']
     joint_transform = None
     if manifest.get('has_joint_transform'):
         jt_path = os.path.join(directory, 'joint_transform.npy')
@@ -141,7 +187,8 @@ def load_pose_estimator(directory: str, device='cuda',
         joint_transform = np.load(jt_path)
     return pose_estimator_from_variables(
         variables, manifest, device=device, cfg_overrides=cfg_overrides,
-        joint_transform_matrix=joint_transform)
+        joint_transform_matrix=joint_transform, detector_variables=detector_variables,
+        backbone_builder=backbone_builder)
 
 
 def _read_manifest(directory: str) -> dict:

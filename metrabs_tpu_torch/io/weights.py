@@ -8,6 +8,11 @@ numpy arrays. Then `crop_model_state_dict_from_flax` maps the flat tree onto
 the port's `Metrabs` state_dict: conv kernels HWIO [kh, kw, I, O] -> OIHW
 (depthwise [k, k, 1, E] -> [E, 1, k, k]), BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var.
+
+The detector's half: `yolo_scanned_to_flat` unrolls YOLOv4's scanned
+residual groups (the inverse of `metrabs_tpu/detect/yolov4.py::
+yolo_flat_to_scanned`), and `detector_state_dict_from_flax` maps the flat
+`conv_<i>/{conv,bn}` tree onto the port's detector modules.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ Key = Tuple[str, ...]
 
 _SCAN_GROUP = re.compile(r'blocks_(\d+)_scan(\d+)$')
 _FLAT_BLOCK = re.compile(r'blocks_(\d+)$')
+_YOLO_SCAN_GROUP = re.compile(r'res_scan_(\d+)_(\d+)$')
 
 # The one BN epsilon each foldable family uses throughout.
 _BN_EPSILONS = {'efficientnetv2': 1e-3, 'mobilenetv3': 1e-3, 'resnet': 1e-5}
@@ -206,8 +212,9 @@ def crop_model_state_dict_from_flax(variables: Dict, cfg: ModelConfig) -> Dict[s
 
 
 def flax_variables_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict:
-    """Inverse of `crop_model_state_dict_from_flax`: a flat-layout JAX-style
-    variable tree (numpy leaves) from a port `Metrabs` state_dict."""
+    """Inverse of `crop_model_state_dict_from_flax` and of
+    `detector_state_dict_from_flax`: a flat-layout JAX-style variable tree
+    (numpy leaves) from a port crop model's or detector's state_dict."""
     flat = {}
     for name, tensor in state.items():
         *path, leaf = name.split('.')
@@ -221,14 +228,72 @@ def flax_variables_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict:
                 parts.append(path[i])
                 i += 1
         value = tensor.detach().cpu().float().numpy()
+        # A detector's BN module is itself flax's 'bn'; a crop model's BN
+        # modules (norm0, stem_bn, ...) wrap one.
+        bn_scope = parts if parts[-1] == 'bn' else parts + ['bn']
         if leaf == 'weight' and value.ndim == 4:
             flat[('params', *parts, 'kernel')] = value.transpose(2, 3, 1, 0)
         elif leaf in ('running_mean', 'running_var'):
-            flat[('batch_stats', *parts, 'bn', leaf[len('running_'):])] = value
+            flat[('batch_stats', *bn_scope, leaf[len('running_'):])] = value
         elif leaf == 'weight':
-            flat[('params', *parts, 'bn', 'scale')] = value
-        elif value.ndim == 1 and parts[-1].startswith(('norm', 'stem_bn', 'head_bn')):
-            flat[('params', *parts, 'bn', 'bias')] = value
+            flat[('params', *bn_scope, 'scale')] = value
+        elif value.ndim == 1 and (parts[-1] == 'bn'
+                                  or parts[-1].startswith(('norm', 'stem_bn', 'head_bn'))):
+            flat[('params', *bn_scope, 'bias')] = value
         else:
             flat[('params', *parts, 'bias')] = value
     return unflatten_dict(flat)
+
+
+def yolo_scanned_to_flat(variables: Dict) -> Dict:
+    """Splits every `res_scan_<start>_<n>/{conv_a,conv_b}/...` stacked leaf
+    (leading axis n) of a YOLOv4 tree into `conv_<start+2i>` (conv_a) and
+    `conv_<start+2i+1>` (conv_b); other keys pass through."""
+    out = {}
+    for key, value in flatten_dict(variables).items():
+        m = _YOLO_SCAN_GROUP.match(key[1]) if len(key) > 2 else None
+        if not m:
+            out[key] = value
+            continue
+        start, n = int(m.group(1)), int(m.group(2))
+        offsets = {'conv_a': 0, 'conv_b': 1}
+        if key[2] not in offsets:
+            raise ValueError(f'Unexpected member {key[2]!r} of scan group {"/".join(key)}')
+        if value.shape[0] != n:
+            raise ValueError(f'Leading axis {value.shape[0]} != scan length {n} at {key}')
+        for i in range(n):
+            out[(key[0], f'conv_{start + 2 * i + offsets[key[2]]}') + key[3:]] = value[i]
+    return unflatten_dict(out)
+
+
+_DETECTOR_NAMES = {('conv', 'kernel'): 'weight', ('conv', 'bias'): 'bias',
+                   ('bn', 'scale'): 'weight', ('bn', 'bias'): 'bias',
+                   ('bn', 'mean'): 'running_mean', ('bn', 'var'): 'running_var'}
+
+
+def detector_state_dict_from_flax(variables: Dict, model: torch.nn.Module
+                                  ) -> Dict[str, torch.Tensor]:
+    """The state_dict of the port's detector `model` (built for the tree's BN
+    layout, on any device, meta included) from a flat-layout JAX detector
+    tree: `(collection, conv_<i>, conv|bn, leaf)` -> `conv_<i>.conv|bn.<name>`.
+    Raises ValueError on a leftover, missing or misshapen entry."""
+    expected = model.state_dict()
+    state = {}
+    for key, value in flatten_dict(variables).items():
+        if len(key) != 4 or (key[2], key[3]) not in _DETECTOR_NAMES:
+            raise ValueError(f'Unexpected detector variable {"/".join(key)}')
+        value = np.asarray(value)
+        if key[3] == 'kernel':
+            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        state[f'{key[1]}.{key[2]}.{_DETECTOR_NAMES[key[2], key[3]]}'] = torch.tensor(
+            np.ascontiguousarray(value))
+    missing = sorted(set(expected) - set(state))
+    leftover = sorted(set(state) - set(expected))
+    if missing or leftover:
+        raise ValueError(f'Variable tree does not match the detector: missing '
+                         f'{missing[:8]}, leftover {leftover[:8]}')
+    for name, tensor in state.items():
+        if tensor.shape != expected[name].shape:
+            raise ValueError(f'Shape mismatch at {name}: {tuple(tensor.shape)} vs '
+                             f'{tuple(expected[name].shape)}')
+    return state

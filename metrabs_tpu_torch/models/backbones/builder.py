@@ -18,10 +18,13 @@ from metrabs_tpu_torch.models.backbones.efficientnet_v2 import (
 
 def build_backbone(name: str, *, centered_stride: bool = True,
                    stride_test: Optional[int] = None,
-                   bn_fold: bool = False) -> nn.Module:
+                   bn_fold: bool = False, fuse_mbconv: str = 'off') -> nn.Module:
     """`stride_test`: test-time output stride when it differs from the
     training stride of the name's -strideN suffix (default 32).
-    `bn_fold`: the folded-BN serving layout (`io.weights.fold_bn_variables`)."""
+    `bn_fold`: the folded-BN serving layout (`io.weights.fold_bn_variables`).
+    `fuse_mbconv`: the fused MBConv inner chain (`efficientnet_v2` docstring);
+    a loader takes it through `backbone_builder`, e.g.
+    `functools.partial(build_backbone, fuse_mbconv='on')`."""
     name = name.lower().replace('_', '-')
     if not name.startswith('efficientnetv2'):
         raise NotImplementedError(
@@ -39,4 +42,5 @@ def build_backbone(name: str, *, centered_stride: bool = True,
                 f'No -stride{stride_test} variant tables for {base!r}; available: '
                 f'{sorted(k for k in EFFNETV2_PARAMS if "stride" in k)}')
     return EfficientNetV2(model_name=name, model_name_test=model_name_test,
-                          centered_stride=centered_stride, bn_fold=bn_fold)
+                          centered_stride=centered_stride, bn_fold=bn_fold,
+                          fuse_mbconv=fuse_mbconv)

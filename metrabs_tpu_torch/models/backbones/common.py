@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from metrabs_tpu_torch.ops.mbconv import fold_bn
+
 
 def fixed_padding_amounts(kernel_size: int, rate: int = 1,
                           shift: int = 0) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -49,6 +51,12 @@ class FrozenBatchNorm2d(nn.Module):
                * self.weight.float()).reshape(shape)
         y = (x.float() - mean) * mul + self.bias.float().reshape(shape)
         return y.to(x.dtype)
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-channel float32 (scale, bias) of this BN, for the fused MBConv
+        kernel (`GhostBatchNorm(fold=True)` in JAX)."""
+        return fold_bn(self.weight, self.bias, self.running_mean, self.running_var,
+                       self.eps)
 
 
 def tf_preproc(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,16 @@ Two BN layouts: folded (`bn_fold=True`: every conv carries a bias and no BN
 module exists; weights from `io.weights.fold_bn_variables`) and unfolded
 (inference BatchNorm after each conv). Internally NCHW; the public input is
 NHWC gamma-space RGB in [0, 1].
+
+`fuse_mbconv` ('off' | 'auto' | 'on' | 'interpret', default 'off' as in JAX)
+runs the inner chain of the qualifying MBConv blocks (unfolded BN, expand !=
+1, 3x3, stride 1, no dilation, no `br` shift) as one fused operation, the
+port of TPU kernel K2: 'on' calls `ops.mbconv_cuda.fused_mbconv_inner` (the
+CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), 'auto'
+does so only on a CUDA tensor, 'interpret' calls the plain version
+`ops.mbconv.fused_mbconv_inner` on any device. The parameters are the same
+either way; with `bn_fold=True` every block takes the unfused branch, as in
+JAX (there is no folded-BN fused variant).
 """
 
 from __future__ import annotations
@@ -26,8 +36,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from metrabs_tpu_torch.models.backbones import common
+from metrabs_tpu_torch.ops import mbconv as mbconv_ops
+from metrabs_tpu_torch.ops import mbconv_cuda
 
 BN_EPSILON = 1e-3
+FUSE_MODES = ('off', 'auto', 'on', 'interpret')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,19 +214,32 @@ class SqueezeExcite(nn.Module):
         self.reduce = _conv(filters, se_filters, bias=True)
         self.expand = _conv(se_filters, filters, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        se = torch.mean(x, dim=(2, 3), keepdim=True)
+    def forward(self, x: torch.Tensor,
+                precomputed_mean: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`precomputed_mean` [N, C, 1, 1]: the spatial mean, already reduced
+        by the fused MBConv kernel."""
+        if precomputed_mean is None:
+            se = torch.mean(x, dim=(2, 3), keepdim=True)
+        else:
+            se = precomputed_mean.to(x.dtype)
         se = self.expand(F.silu(self.reduce(se)))
         return torch.sigmoid(se) * x
 
 
 class MBConv(nn.Module):
-    """expand 1x1 -> depthwise kxk -> SE -> project 1x1 (the unfused branch
-    of the JAX module)."""
+    """expand 1x1 -> depthwise kxk -> SE -> project 1x1; with `fuse` the
+    inner chain of a qualifying block is one fused operation (module
+    docstring)."""
 
-    def __init__(self, a: BlockArgs, bn_fold: bool):
+    def __init__(self, a: BlockArgs, bn_fold: bool, fuse: str = 'off'):
         super().__init__()
+        if fuse not in FUSE_MODES:
+            raise ValueError(f'fuse_mbconv must be one of {FUSE_MODES}, got {fuse!r}')
         self.a = a
+        self.fuse = fuse
+        self.fusable = (not bn_fold and a.expand_ratio != 1 and a.kernel_size == 3
+                        and a.strides == 1 and a.dilation_in == 1
+                        and not a.bottomright_stride)
         filters = a.input_filters * a.expand_ratio
         if a.expand_ratio != 1:
             self.expand_conv = _conv(a.input_filters, filters, bias=bn_fold)
@@ -228,15 +254,28 @@ class MBConv(nn.Module):
         self.project_conv = _conv(filters, a.output_filters, bias=bn_fold)
         self.norm2 = _norm(a.output_filters, bn_fold)
 
+    def _use_fused(self, x: torch.Tensor) -> bool:
+        return self.fusable and (self.fuse in ('on', 'interpret')
+                                 or (self.fuse == 'auto' and x.is_cuda))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.a
         inputs = x
-        if a.expand_ratio != 1:
-            x = F.silu(self.norm0(self.expand_conv(x)))
-        x = self.depthwise_conv(common.pad_nchw(x, self.pads))
-        x = F.silu(self.norm1(x))
-        if a.se_ratio:
-            x = self.se(x)
+        if self._use_fused(x):
+            u = self.expand_conv(x)
+            inner = (mbconv_ops.fused_mbconv_inner if self.fuse == 'interpret'
+                     else mbconv_cuda.fused_mbconv_inner)
+            x, se_mean = inner(u.contiguous(), self.depthwise_conv.weight,
+                               *self.norm0.folded(), *self.norm1.folded())
+            if a.se_ratio:
+                x = self.se(x, se_mean[:, :, None, None])
+        else:
+            if a.expand_ratio != 1:
+                x = F.silu(self.norm0(self.expand_conv(x)))
+            x = self.depthwise_conv(common.pad_nchw(x, self.pads))
+            x = F.silu(self.norm1(x))
+            if a.se_ratio:
+                x = self.se(x)
         x = self.norm2(self.project_conv(x))
         if a.strides == 1 and a.input_filters == a.output_filters:
             x = inputs + x
@@ -293,7 +332,7 @@ class EfficientNetV2(nn.Module):
     def __init__(self, model_name: str = 'efficientnetv2-s',
                  model_name_test: Optional[str] = None,
                  centered_stride: bool = True, feature_size: int = 1280,
-                 bn_fold: bool = False):
+                 bn_fold: bool = False, fuse_mbconv: str = 'off'):
         super().__init__()
         blocks = expand_blocks(model_name_test or model_name)
         if not centered_stride:
@@ -302,7 +341,8 @@ class EfficientNetV2(nn.Module):
         self.stem_conv = _conv(3, blocks[0].input_filters, 3, 2, bias=bn_fold)
         self.stem_bn = _norm(blocks[0].input_filters, bn_fold)
         self.blocks = nn.ModuleList([
-            (FusedMBConv if a.conv_type == 1 else MBConv)(a, bn_fold) for a in blocks])
+            FusedMBConv(a, bn_fold) if a.conv_type == 1 else MBConv(a, bn_fold, fuse_mbconv)
+            for a in blocks])
         self.head_conv = _conv(blocks[-1].output_filters, feature_size, bias=bn_fold)
         self.head_bn = _norm(feature_size, bn_fold)
 

@@ -46,10 +46,11 @@ class Metrabs(nn.Module):
             sample_valid=sample_valid)
 
 
-def build_crop_model(cfg: ModelConfig) -> Metrabs:
+def build_crop_model(cfg: ModelConfig, backbone_builder=None) -> Metrabs:
     """An uninitialized crop model for `cfg`: flat layout, BN folded iff
-    `cfg.bn_fold`."""
-    backbone = build_backbone(
+    `cfg.bn_fold`. `backbone_builder` (default `build_backbone`) takes the
+    same arguments as `build_backbone`."""
+    backbone = (backbone_builder or build_backbone)(
         cfg.backbone, centered_stride=cfg.centered_stride,
         stride_test=cfg.stride_test if cfg.stride_test != cfg.stride_train else None,
         bn_fold=cfg.bn_fold)

@@ -6,9 +6,9 @@ raises), on a CPU tensor it runs the plain version `ops.warp.warp_pyramid`.
 It never falls back from one to the other. `warp_pyramid.launches` counts
 kernel launches.
 
-The kernel is built at first use, from `csrc/warp.cu` only, with nvcc into
-`metrabs_tpu_torch/_build/` (a plain C entry point loaded with ctypes), and
-the build is keyed by a hash of the source and flags.
+The kernel is built at first use from `csrc/warp.cu` by `ops.cuda_build`
+(nvcc into `metrabs_tpu_torch/_build/`, a plain C entry point loaded with
+ctypes, keyed by a hash of the source and flags).
 
 Precision: the four names of the TPU kernel are accepted ('highest'/'f32',
 'high'/'bf16x3', 'bf16x2', 'default'/'bf16'); all of them compute in float32
@@ -21,59 +21,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from metrabs_tpu_torch.ops import cuda_build
 from metrabs_tpu_torch.ops import warp as warp_ops
 
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE_DIR / 'csrc' / 'warp.cu'
-BUILD_DIR = _PACKAGE_DIR / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
 _MAX_CROPS = 65535  # grid.z limit
 
 PRECISIONS = frozenset({'highest', 'f32', 'high', 'bf16x3', 'bf16x2', 'default', 'bf16'})
 
 
-def _nvcc() -> str:
-    for home in (os.environ.get('CUDA_HOME'), os.environ.get('CUDA_PATH')):
-        if home and os.path.exists(os.path.join(home, 'bin', 'nvcc')):
-            return os.path.join(home, 'bin', 'nvcc')
-    found = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-    if not os.path.exists(found):
-        raise RuntimeError('nvcc not found (set CUDA_HOME); the warp kernel cannot be built')
-    return found
-
-
-def build_library() -> Tuple[Path, float]:
-    """Compiles `csrc/warp.cu` unless a build of the same source and flags
-    exists. Returns (library path, seconds spent compiling; 0 if cached)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f'libmetrabs_warp_{key[:16]}.so'
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
-    start = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}')
-    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
-    return lib, time.perf_counter() - start
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _ = build_library()
+    path, _ = cuda_build.build_library('warp')
     lib = ctypes.CDLL(str(path))
     fn = lib.metrabs_warp_pyramid_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,

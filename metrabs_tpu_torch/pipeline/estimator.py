@@ -1,17 +1,20 @@
-"""Multi-person absolute 3D pose estimation from given boxes
-(`metrabs_tpu/pipeline/estimator.py`, the `estimate_poses*` half).
+"""Multi-person absolute 3D pose estimation (`metrabs_tpu/pipeline/
+estimator.py`): `detect_poses*` (person detector, then estimation and the
+plausibility filter) and `estimate_poses*` (given boxes).
 
 The JAX pipeline is one jitted program with `lax.cond` skips and a
 `lax.map` over equal chunks. Here it runs eagerly: the skips become host
-checks on `box_valid` (already a host array), so a batch with no valid box
-builds no pyramid and a chunk with no valid box runs no warp or crop model;
-the last chunk is simply shorter instead of zero-padded. Per image batch:
-FOV intrinsics, camera-space up, stable valid-first compaction, look-at
+checks on `box_valid` (a host array; after the detector, its `valid` is
+read to the host once per call), so a batch with no valid box builds no
+pyramid and a chunk with no valid box runs no warp or crop model; the last
+chunk is simply shorter instead of zero-padded. Per image batch: FOV
+intrinsics, camera-space up, stable valid-first compaction, look-at
 rotation and zoom per box, one pyramid build, then per chunk of boxes (all
 TTA augmentations of each) the warp kernel, the per-aug gamma re-encode, the
 crop model, the mirror unswap and the rotation back; then un-compaction, the
-optional joint transform, 2D projection with distortion, the world
-transform, the skeleton gather and the aug average.
+optional joint transform, 2D projection with distortion, the plausibility
+filter and pose NMS (detections only, on camera-space poses with the aug
+axis, as JAX), the world transform, the skeleton gather and the aug average.
 
 The crop warp always goes through `ops.warp_cuda.warp_pyramid`: the CUDA
 kernel on a CUDA device, its plain version on the CPU. `cfg.warp_backend`
@@ -20,12 +23,14 @@ kernel on a CUDA device, its plain version on the CPU. `cfg.warp_backend`
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from metrabs_tpu.config import AugConfig, ModelConfig
+from metrabs_tpu.pipeline import bone_priors
 from metrabs_tpu.pipeline import tta as tta_mod
 from metrabs_tpu.pipeline.skeletons import SkeletonRegistry
 from metrabs_tpu.utils.joint_info import JointInfo
@@ -34,6 +39,7 @@ from metrabs_tpu_torch.ops import distortion as distortion_ops
 from metrabs_tpu_torch.ops import rotation as rotation_ops
 from metrabs_tpu_torch.ops import warp as warp_ops
 from metrabs_tpu_torch.ops import warp_cuda
+from metrabs_tpu_torch.pipeline import plausibility
 
 N_PYRAMID_LEVELS = 3
 
@@ -66,22 +72,49 @@ def _get_new_rotation_and_scale(intrinsic_matrix, distortion_coeffs, camspace_up
     return R_noaug, box_scales
 
 
+def _bone_priors(joint_info: JointInfo, bone_mean_lengths) -> np.ndarray:
+    """The given priors, else the built-in asset for an exactly matching
+    skeleton, else a flat 300 mm; the fallbacks warn as in JAX."""
+    if bone_mean_lengths is not None:
+        return np.asarray(bone_mean_lengths, np.float32)
+    asset = bone_priors.priors_for_joint_info(joint_info)
+    if asset is not None:
+        warnings.warn(
+            'PoseEstimator: no bone_mean_lengths provided; the plausibility filter will '
+            'use the built-in APPROXIMATE anthropometric priors asset '
+            '(metrabs_tpu/assets/bone_priors.json), not dataset-derived means. Ship '
+            'dataset-derived priors (apps/train.py accumulates them automatically, or '
+            'pipeline.plausibility.compute_bone_mean_lengths).', stacklevel=3)
+        return np.asarray(asset, np.float32)
+    warnings.warn(
+        'PoseEstimator: no bone_mean_lengths provided for a joint set matching no '
+        'built-in skeleton; the plausibility filter falls back to a FLAT 300mm prior '
+        'for every bone, which makes detect_poses(suppress_implausible_poses=True) '
+        'unreliable. Provide dataset-derived means (apps/train.py accumulates them '
+        'automatically, or pipeline.plausibility.compute_bone_mean_lengths).',
+        stacklevel=3)
+    return np.full(len(joint_info.edges), 300.0, np.float32)
+
+
 class PoseEstimator:
-    """`estimate_poses` / `estimate_poses_batched` of the JAX package, on
-    `device`. The crop model must already be on `device`, in eval mode;
-    `crop_model(crops [N, S, S, 3], intrinsics [N, 3, 3], sample_valid [N])`
-    returns absolute camera-space poses [N, J, 3] in millimeters."""
+    """`detect_poses*` / `estimate_poses*` of the JAX package, on `device`.
+    The crop model (and the detector's model) must already be on `device`,
+    in eval mode; `crop_model(crops [N, S, S, 3], intrinsics [N, 3, 3],
+    sample_valid [N])` returns absolute camera-space poses [N, J, 3] in
+    millimeters. `detector`: a `detect.yolov4.PersonDetector` or None.
+    `bone_mean_lengths` [n_edges] (mm): the plausibility filter's priors."""
 
     def __init__(self, crop_model: torch.nn.Module, joint_info: JointInfo,
                  cfg: ModelConfig, aug_cfg: AugConfig = AugConfig(),
                  skeleton_registry: Optional[SkeletonRegistry] = None,
                  joint_transform_matrix: Optional[np.ndarray] = None,
-                 has_detector: bool = False, device='cpu'):
+                 detector=None, bone_mean_lengths: Optional[np.ndarray] = None,
+                 device='cpu'):
         self.device = torch.device(device)
         self.crop_model = crop_model
         self.cfg = cfg
         self._aug_cfg = aug_cfg
-        self._has_detector = has_detector
+        self.detector = detector
         self.joint_info = joint_info
         self.skeletons = skeleton_registry or SkeletonRegistry(joint_info)
         self.per_skeleton_joint_names = self.skeletons.per_skeleton_joint_names
@@ -93,6 +126,9 @@ class PoseEstimator:
             None if joint_transform_matrix is None
             else torch.as_tensor(joint_transform_matrix, dtype=torch.float32,
                                  device=self.device))
+        self._joint2bone = torch.as_tensor(joint_info.joint2bone_matrix(), device=self.device)
+        self._mean_bones = torch.as_tensor(_bone_priors(joint_info, bone_mean_lengths),
+                                           device=self.device)
 
     def estimate_poses_batched(
             self, images, boxes, box_valid=None, intrinsic_matrix=None,
@@ -116,27 +152,70 @@ class PoseEstimator:
                 num_aug=int(num_aug), average_aug=bool(average_aug),
                 antialias_factor=int(antialias_factor),
                 internal_batch_size=int(internal_batch_size),
-                skeleton_indices=self.skeletons.indices(skeleton))
+                skeleton_indices=self.skeletons.indices(skeleton), suppress=False)
 
     def estimate_poses(self, image, boxes, **kwargs) -> Dict[str, np.ndarray]:
         """Single image; returns host numpy arrays restricted to valid rows."""
         images = torch.as_tensor(image)[None]
         result = self.estimate_poses_batched(
             images, np.asarray(boxes, np.float32)[None], **kwargs)
+        return self._squeeze_single(result)
+
+    def detect_poses_batched(
+            self, images, intrinsic_matrix=None, distortion_coeffs=None,
+            extrinsic_matrix=None, world_up_vector=(0, -1, 0), default_fov_degrees=55.0,
+            internal_batch_size=64, antialias_factor=1, num_aug=5, average_aug=True,
+            skeleton='', detector_threshold=0.3, detector_nms_iou_threshold=0.7,
+            max_detections=16, detector_flip_aug=False, suppress_implausible_poses=True,
+            fused=True) -> Dict[str, torch.Tensor]:
+        """Detection, then estimation: images [B, H, W, 3] uint8.
+
+        Returns tensors on the estimator's device: boxes [B, max_detections,
+        5] (x, y, w, h, score), poses3d, poses2d and valid as in
+        `estimate_poses_batched`; with `suppress_implausible_poses`, valid
+        also drops implausible and duplicate poses.
+
+        `fused` is accepted and gives the same result either way: in JAX it
+        chooses between one compiled program for detector and estimator and
+        two, while here both run eagerly, so there is no separate program to
+        fuse."""
+        del fused
+        if self.detector is None:
+            raise ValueError('No detector attached to this estimator.')
+        if max_detections <= 0:
+            raise ValueError(
+                "max_detections must be a positive static capacity (the reference's "
+                '-1/unlimited has no fixed-shape equivalent; use a generous cap, e.g. '
+                '150 = the pose-NMS maximum)')
+        flip_vertical = detector_flip_aug and self._aug_cfg.detector_flip_vertical_too
+        images = torch.as_tensor(images, device=self.device)
+        camera = self._prepare_camera_args(images.shape[0], intrinsic_matrix,
+                                           distortion_coeffs, extrinsic_matrix,
+                                           world_up_vector)
+        with torch.inference_mode():
+            boxes5, valid = self.detector.detect_batched(
+                images, threshold=float(detector_threshold),
+                nms_iou_threshold=float(detector_nms_iou_threshold),
+                max_detections=int(max_detections), flip_aug=bool(detector_flip_aug),
+                flip_vertical=bool(flip_vertical))
+            return self._estimate(
+                images, boxes5, valid.cpu().numpy(), *camera, float(default_fov_degrees),
+                num_aug=int(num_aug), average_aug=bool(average_aug),
+                antialias_factor=int(antialias_factor),
+                internal_batch_size=int(internal_batch_size),
+                skeleton_indices=self.skeletons.indices(skeleton),
+                suppress=bool(suppress_implausible_poses))
+
+    def detect_poses(self, image, **kwargs) -> Dict[str, np.ndarray]:
+        """Single image; returns host numpy arrays restricted to valid rows."""
+        result = self.detect_poses_batched(torch.as_tensor(image)[None], **kwargs)
+        return self._squeeze_single(result)
+
+    @staticmethod
+    def _squeeze_single(result) -> Dict[str, np.ndarray]:
         out = {k: v[0].cpu().numpy() for k, v in result.items()}
         valid = out.pop('valid').astype(bool)
         return {k: v[valid] for k, v in out.items()}
-
-    def detect_poses_batched(self, *args, **kwargs):
-        raise NotImplementedError(
-            'detect_poses_batched needs the person detector, which is not yet ported '
-            'to metrabs_tpu_torch (next step: YOLOv4, plausibility filter and pose '
-            'NMS, ROADMAP M5); use estimate_poses_batched with given boxes'
-            + (' (this package has a detector; it was not loaded)'
-               if self._has_detector else ''))
-
-    def detect_poses(self, *args, **kwargs):
-        return self.detect_poses_batched(*args, **kwargs)
 
     @staticmethod
     def _boxes5_from(boxes, box_valid):
@@ -176,7 +255,7 @@ class PoseEstimator:
     def _estimate(self, images, boxes5, box_valid, intrinsic_matrix, distortion_coeffs,
                   extrinsic_matrix, world_up_vector, default_fov_degrees, *,
                   num_aug: int, average_aug: bool, antialias_factor: int,
-                  internal_batch_size: int, skeleton_indices: np.ndarray):
+                  internal_batch_size: int, skeleton_indices: np.ndarray, suppress: bool):
         dev = self.device
         n_images, img_h, img_w = images.shape[:3]
         max_boxes = boxes5.shape[1]
@@ -242,6 +321,10 @@ class PoseEstimator:
                                     k_flat[:, :2, :])
         poses3d = poses3d_flat.reshape(n_images, max_boxes, num_aug, n_out, 3)
         poses2d = poses2d_flat.reshape(n_images, max_boxes, num_aug, n_out, 2)
+        valid = torch.as_tensor(box_valid, device=dev)
+        if suppress:
+            valid = valid & plausibility.suppress_implausible_poses(
+                poses3d, poses2d, boxes_t, valid, self._joint2bone, self._mean_bones)
 
         inv_ext = torch.linalg.inv(extrinsic_matrix)
         poses3d = torch.einsum('bmank,bjk->bmanj', camera_ops.to_homogeneous(poses3d),
@@ -253,8 +336,7 @@ class PoseEstimator:
         if average_aug:
             poses3d = poses3d.mean(dim=-3)
             poses2d = poses2d.mean(dim=-3)
-        return dict(boxes=boxes_t, poses3d=poses3d, poses2d=poses2d,
-                    valid=torch.as_tensor(box_valid, device=dev))
+        return dict(boxes=boxes_t, poses3d=poses3d, poses2d=poses2d, valid=valid)
 
     def _predict_chunk(self, pyramid, tta, k_c, dist_c, r_noaug_c, scales_c, ids_c,
                        valid_c, antialias_factor: int):

@@ -3,11 +3,12 @@
 
 `make_package` writes a small JAX pose-estimator package: EffNetV2-S at
 proc_side 64 (a multiple of 32, so the tiled warp runs in interpret mode),
-float32, 17 joints, with weights minted from a numpy seed. Kernels are He
-fan-in normal scaled by 0.8 and BatchNorm gets non-trivial random scale,
-bias, mean and variance: flat-scale random nets ignore their input
-(PARITY.md, methodology note), so each parity test also checks that two
-inputs give clearly different outputs.
+float32, 17 joints, with weights minted from a numpy seed, and optionally a
+person detector (YOLOv4 or YOLOv4-tiny, scanned layout as packaged by
+default). Kernels are He fan-in normal scaled by 0.8 and BatchNorm gets
+non-trivial random scale, bias, mean and variance: flat-scale random nets
+ignore their input (PARITY.md, methodology note), so each parity test also
+checks that two inputs give clearly different outputs.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ def mint_variables(shapes, rng: np.random.Generator):
     # reconstruction places every joint metres in front of the camera, where
     # the 2D projection is well-conditioned (a random 2D/3D pair can put
     # joints at z ~ 0, whose projection amplifies f32 rounding without bound).
+    if ('params', 'heatmap_heads', 'conv_final', 'kernel') not in flat:
+        return flax.traverse_util.unflatten_dict(flat)  # not a crop model
     for leaf in ('kernel', 'bias'):
         key = ('params', 'heatmap_heads', 'conv_final', leaf)
         v = flat[key]
@@ -75,8 +78,25 @@ def scanned_variables(seed: int = 0):
     return cfg, mint_variables(shapes, np.random.default_rng(seed))
 
 
-def make_package(directory: str, scanned: bool, seed: int = 0) -> str:
-    """Writes a JAX package (scanned or flat backbone layout, same weights)."""
+def detector_variables(kind: str = 'yolov4', scan_repeats: bool = True, seed: int = 1,
+                       size: int = 96):
+    """Variables of a JAX detector (`detect.yolov4.build_detector_model`),
+    minted from `seed` like the crop model's."""
+    import jax
+    import jax.numpy as jnp
+    from metrabs_tpu.detect.yolov4 import build_detector_model
+
+    model = build_detector_model(kind, dtype=jnp.float32, scan_repeats=scan_repeats)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 3)), train=False)
+    return mint_variables(shapes, np.random.default_rng(seed))
+
+
+def make_package(directory: str, scanned: bool, seed: int = 0, detector: str = '',
+                 detector_input_size: int = 96, bone_mean_lengths=None) -> str:
+    """Writes a JAX package (scanned or flat backbone layout, same weights),
+    with a float32 `detector` ('yolov4' or 'yolov4-tiny', scanned layout) if
+    one is named, and the plausibility filter's `bone_mean_lengths` if given."""
     import dataclasses
 
     from metrabs_tpu.config import AugConfig
@@ -88,8 +108,14 @@ def make_package(directory: str, scanned: bool, seed: int = 0) -> str:
     if not scanned:
         variables = scanned_to_flat(variables)
         cfg = dataclasses.replace(cfg, backbone_scan_blocks=False)
+    det = {}
+    if detector:
+        det = dict(detector_variables=detector_variables(detector, seed=seed + 1),
+                   detector_type=detector, detector_dtype='float32',
+                   detector_input_size=detector_input_size)
     save_pose_estimator_package(directory, cfg=cfg, aug_cfg=AugConfig(),
-                                crop_model_variables=variables, joint_info=H36M_17)
+                                crop_model_variables=variables, joint_info=H36M_17,
+                                bone_mean_lengths=bone_mean_lengths, **det)
     return directory
 
 

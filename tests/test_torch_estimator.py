@@ -1,18 +1,19 @@
-"""The slice end to end: `load_pose_estimator(pkg).estimate_poses_batched` of
-`metrabs_tpu_torch` (on the CPU) against that of `metrabs_tpu`, on one JAX-written
-package (EffNetV2-S at 64 px, scanned layout, so both loaders unroll it and
-fold its BatchNorm).
+"""The slice end to end: `load_pose_estimator(pkg).estimate_poses_batched`
+of `metrabs_tpu_torch` (on the CPU) against that of
+`metrabs_tpu`, on a JAX-written package (EffNetV2-S at 64 px, scanned
+layout, so both loaders unroll it and fold its BatchNorm). The detect path,
+with a YOLOv4 inside the package, is in tests/test_torch_detect_poses.py.
 
 Inputs: 2 frames of 240x320 uint8 with 3 boxes each, one of them a
 degenerate [0, 0, 0, 0] box with box_valid False. Tolerances on valid boxes:
 poses3d atol 1 mm + rtol 1e-3 (README's bound for the TF oracle), poses2d
-atol 0.1 px, valid identical. The JAX side runs its gather warp, and in one
-case the TPU kernel's code path (warp_backend='tiled-interpret').
+atol 0.1 px, valid identical. The JAX side runs its gather warp,
+and in one case the TPU kernel's code path (warp_backend='tiled-interpret');
+the fused-MBConv case runs the TPU kernel K2 in interpret mode.
 """
 
-import json
+import functools
 import os
-import shutil
 import subprocess
 import sys
 
@@ -21,8 +22,10 @@ import pytest
 import torch
 
 from metrabs_tpu.io.packaging import load_pose_estimator as jax_load_pose_estimator
+from metrabs_tpu.models.backbones.builder import build_backbone as jax_build_backbone
 from metrabs_tpu_torch.io.packaging import load_pose_estimator
-from metrabs_tpu_torch.ops import warp_cuda
+from metrabs_tpu_torch.models.backbones.builder import build_backbone
+from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
 from tests import _torch_port
 
 POSES3D = dict(atol=1.0, rtol=1e-3)
@@ -86,15 +89,28 @@ CASES = {
 }
 
 
-def compare(got, want, valid):
+def compare(got, want, valid, boxes_tol=None, min_depth_2d=None):
+    """`boxes_tol` None: the boxes are the caller's and pass through exactly;
+    detected boxes are compared within `boxes_tol`. `min_depth_2d` (mm):
+    poses2d only of joints at least that far in front of the camera (camera
+    and world coincide); nearer, the projection scales the 3D difference by
+    f / z without bound."""
     assert set(got) == set(want)
     np.testing.assert_array_equal(got['valid'].numpy(), np.asarray(want['valid']))
-    np.testing.assert_array_equal(got['boxes'].numpy(), np.asarray(want['boxes']))
+    if boxes_tol is None:
+        np.testing.assert_array_equal(got['boxes'].numpy(), np.asarray(want['boxes']))
+    else:
+        np.testing.assert_allclose(got['boxes'].numpy(), np.asarray(want['boxes']), **boxes_tol)
     for key, tol in (('poses3d', POSES3D), ('poses2d', POSES2D)):
         g, w = got[key].numpy(), np.asarray(want[key])
         assert g.shape == w.shape, key
-        np.testing.assert_allclose(g[valid], w[valid], **tol)
-        assert np.isfinite(g[valid]).all()
+        mask = valid
+        if key == 'poses2d' and min_depth_2d is not None:
+            depth = np.asarray(want['poses3d'])[..., 2]
+            mask = valid.reshape(valid.shape + (1,) * (depth.ndim - valid.ndim)) & (
+                depth > min_depth_2d)
+        np.testing.assert_allclose(g[mask], w[mask], **tol)
+        assert np.isfinite(g[mask]).all()
 
 
 @pytest.mark.parametrize('name', sorted(CASES))
@@ -163,25 +179,38 @@ def test_serving_defaults_and_overrides(package):
                             cfg_overrides={'backbone_scan_blocks': True})
 
 
-def test_detect_poses_raises_not_implemented(package, tmp_path):
-    pkg = shutil.copytree(package, tmp_path / 'with_detector')
-    manifest = json.loads((pkg / 'manifest.json').read_text())
-    manifest['has_detector'] = True
-    (pkg / 'manifest.json').write_text(json.dumps(manifest))
-    (pkg / 'detector.msgpack').write_bytes(b'')  # never read: the detector is not ported
-    est = load_pose_estimator(str(pkg), device='cpu')
-    frames, _, _ = frames_and_boxes()
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        est.detect_poses_batched(frames)
-    with pytest.raises(NotImplementedError, match='detector'):
-        est.detect_poses(frames[0])
-
-
 def test_cpu_run_launches_no_kernel(estimators):
     frames, boxes, valid = frames_and_boxes()
     before = warp_cuda.warp_pyramid.launches
     estimators['torch'].estimate_poses_batched(frames, boxes, valid, num_aug=1)
     assert warp_cuda.warp_pyramid.launches == before
+
+
+def test_fused_mbconv_estimator_matches_jax(package, monkeypatch):
+    """The unfolded crop model with `fuse_mbconv='on'` (plain K2 on the CPU)
+    against JAX's with the TPU kernel K2 in interpret mode."""
+    def jax_builder(name, **kwargs):
+        return jax_build_backbone(name, **kwargs).clone(fuse_mbconv='interpret')
+
+    calls = []
+    plain = mbconv.fused_mbconv_inner
+    monkeypatch.setattr(mbconv, 'fused_mbconv_inner',
+                        lambda *a: calls.append(a[0].shape) or plain(*a))
+    overrides = {'bn_fold': False}
+    with pytest.warns(UserWarning, match='bone_mean_lengths'):
+        jax_est = jax_load_pose_estimator(package, backbone_builder=jax_builder,
+                                          cfg_overrides=overrides)
+    est = load_pose_estimator(package, device='cpu', cfg_overrides=overrides,
+                              backbone_builder=functools.partial(build_backbone,
+                                                                 fuse_mbconv='on'))
+    frames, boxes, valid = frames_and_boxes(seed=4)
+    kwargs = dict(num_aug=2, average_aug=False)
+    want = jax_est.estimate_poses_batched(frames, boxes, valid, **kwargs)
+    before = mbconv_cuda.fused_mbconv_inner.launches
+    got = est.estimate_poses_batched(frames, boxes, valid, **kwargs)
+    compare(got, want, valid)
+    assert len(calls) == 28  # one chunk: every qualifying block once
+    assert mbconv_cuda.fused_mbconv_inner.launches == before
 
 
 _NO_JAX_SCRIPT = """
