@@ -12,12 +12,14 @@ line:
     compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
-    lens distortion on some crops, a crop entirely outside its frame), and
-    both times; the MBConv kernel against its plain version at the
-    EffNetV2-S@256 stage-5 shape [64, 960, 16, 16] and the EffNetV2-L@384
-    one [128, 1344, 24, 24] in bfloat16 and at the first in float32, with
-    three times each: the kernel, the plain version and the port's unfused
-    chain (BN, silu, pad, cuDNN depthwise conv, BN, silu, mean);
+    lens distortion on some crops, a crop entirely outside its frame); the
+    MBConv kernel against its plain version at every shape of K2_CASES (the
+    four the detect path gives it, EffNetV2-L@384's stage 5 and 6 in
+    bfloat16, S stage 5 in float32), v required equal. For each: the
+    kernel's time, the bytes it must move (for the warp: its output and the
+    distinct pyramid pixels its taps read), its bound and share of it, the
+    plain version's time and, for K2, the port's unfused chain's (BN, silu,
+    pad, cuDNN depthwise conv, BN, silu, mean);
  4. main: `estimate_poses_batched` of an estimator built by the same
     function `load_pose_estimator` uses after reading a package, with
     EffNetV2-S at 256 px in bfloat16 (BN folded, flat layout) and weights
@@ -31,10 +33,12 @@ line:
     same frames: num_aug 2, max_detections 16, internal batch 64, detector
     threshold 0 (every slot valid) and the plausibility filter on. Checks
     shapes, finiteness, and that the warp kernel ran once and the MBConv
-    kernel 28 times (the qualifying blocks) per non-empty chunk; then holds
-    a float32 detect estimator on the GPU against the same one on the CPU
-    on a small frame, times the bf16 path, and splits one call's time under
-    torch.profiler.
+    kernel 28 times (the qualifying blocks) per non-empty chunk, split over
+    its input shapes as K2_CASES expects; then holds a float32 detect
+    estimator on the GPU against the same one on the CPU on a small frame,
+    times the bf16 path, and splits one call's time under torch.profiler,
+    with K2's launches and device time per call against the bound of the
+    launches its wrapper counted, shape by shape.
 The second-to-last line is a JSON object with the kernels' measurements;
 the last is {"ok": true, "device": {...}}.
 """
@@ -60,16 +64,35 @@ NUM_AUG = 2
 INTERNAL_BATCH = 64
 WARP_TOL = 1e-4  # linear [0, 1] values; FMA and reassociation between nvcc and ATen
 POSE_ATOL_MM, POSE_RTOL = 1.0, 1e-3
-# The fused MBConv kernel's cases: (label, [N, E, H, W], dtype). Tolerances
-# on (v, se_mean): float32 1e-5 (same operations in the same order, no FMA
-# contraction; only the mean sums in another order); bfloat16 those of the
-# JAX kernel's tests (tests/test_mbconv_pallas.py), one bf16 ulp of silu.
-K2_CASES = (('S@256 stage 5', (64, 960, 16, 16), torch.bfloat16),
-            ('L@384 stage 5', (128, 1344, 24, 24), torch.bfloat16),
-            ('S@256 stage 5', (64, 960, 16, 16), torch.float32))
-K2_TOLS = {torch.float32: (dict(atol=1e-5, rtol=1e-5), dict(atol=1e-5, rtol=1e-5)),
-           torch.bfloat16: (dict(atol=7e-2, rtol=5e-2), dict(atol=1e-2, rtol=1e-2))}
+# The fused MBConv kernel's cases: (label, [N, E, H, W], dtype, launches
+# expected per detect-path chunk of 64 crops, which the detect phase checks
+# against the wrapper's count per shape): the four shapes the detect path
+# gives it (EffNetV2-S@256), EffNetV2-L@384's stage 5 and 6 at batch 128,
+# and S stage 5 in float32. v must equal the plain version's exactly (same
+# operations in the same order, no FMA contraction); the SE mean sums the
+# same values in another order: 1e-5.
+K2_CASES = (('S@256 stage 4', (64, 512, 16, 16), torch.bfloat16, 5),
+            ('S@256 stage 5 first', (64, 768, 16, 16), torch.bfloat16, 1),
+            ('S@256 stage 5', (64, 960, 16, 16), torch.bfloat16, 8),
+            ('S@256 stage 6', (64, 1536, 8, 8), torch.bfloat16, 14),
+            ('L@384 stage 5', (128, 1344, 24, 24), torch.bfloat16, 0),
+            ('L@384 stage 6', (128, 2304, 12, 12), torch.bfloat16, 0),
+            ('S@256 stage 5', (64, 960, 16, 16), torch.float32, 0))
+K2_MAIN_CASE = 2  # the one the kernels line reports; every case is under 'cases'
+K2_MEAN_TOL = dict(atol=1e-5, rtol=1e-5)
 K2_BLOCKS = 28  # MBConv blocks of EffNetV2-S that the fused chain takes
+K2_KERNELS = ('mbconv_warp_kernel', 'mbconv_strip_kernel')  # profiler names
+# Bounds (H100 SXM datasheet peaks, at 700 W): HBM
+# bytes per second and float32 operations per second outside the tensor
+# cores, where both kernels compute. Operations counted per element: K2 2
+# (BN0) + 4 (silu: exp, add, reciprocal, multiply) + 18 (9 taps) + 2 (BN1) +
+# 4 (silu) + 1 (mean) = 31; K1 per output pixel ~20 (ray and divide) + ~25
+# (distortion) + 4 (intrinsics) + 6 (clamps, floor) + 27 (3 bilinear blends)
+# = 82.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+K2_OPS_PER_ELEMENT = 31
+K1_OPS_PER_PIXEL = 82
 DETECTOR_SIZE = 416
 MAX_DETECTIONS = 16
 BOX_TOL_PX = 1e-2
@@ -98,6 +121,26 @@ def cuda_time_ms(fn, n_warm: int = 3, n: int = 25) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_time_ms(fn, n: int = 25) -> float:
+    """Mean device time of `fn` over `n` warm calls: the summed durations of
+    the GPU kernels it launches, from torch.profiler, so without the host's
+    launch gaps that `cuda_time_ms` includes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        fail('kernel', 'torch.profiler recorded no GPU kernels')
+    return sum(e.device_time_total for e in events) / n / 1e3
 
 
 def synthetic_frames(gen: torch.Generator, dev) -> torch.Tensor:
@@ -256,17 +299,35 @@ def unfused_chain(u, dw, bn0, bn1):
     return x, torch.mean(x, dim=(2, 3))
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, 'bytes' or 'operations'): the larger of the bytes over the
+    HBM rate and the float32 operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def k2_bound(shape, element_size: int):
+    """(bytes, least ms, what bounds it) of K2 on a u of `shape`: u read and
+    v written once, the float32 taps, BN constants and SE mean;
+    K2_OPS_PER_ELEMENT."""
+    n, e = shape[:2]
+    numel = math.prod(shape)
+    n_bytes = 2 * numel * element_size + 4 * (n * e + 9 * e + 4 * e)
+    return (n_bytes, *bound(n_bytes, K2_OPS_PER_ELEMENT * numel))
+
+
 def check_k2(gen, dev):
-    """Every K2 case: the kernel against its plain version, and three times.
-    Returns one dict per case."""
+    """Every K2 case: the kernel against its plain version, its times beside
+    its bound, the plain version's and the unfused chain's. Returns one dict
+    per case."""
     from metrabs_tpu_torch.ops import mbconv, mbconv_cuda
 
     results = []
-    for label, shape, dtype in K2_CASES:
+    for label, shape, dtype, _ in K2_CASES:
         u, dw, (bn0, bn1) = k2_case(shape, dtype, gen, dev)
-        consts = (*bn0.folded(), *bn1.folded())
-        got_v, got_mean = mbconv_cuda.fused_mbconv_inner(u, dw, *consts)
-        want_v, want_mean = mbconv.fused_mbconv_inner(u, dw, *consts)
+        taps, sb = mbconv.inner_constants(dw, *bn0.folded(), *bn1.folded())
+        got_v, got_mean = mbconv_cuda.fused_mbconv_inner(u, taps, sb)
+        want_v, want_mean = mbconv.fused_mbconv_inner(u, taps, sb)
         torch.cuda.synchronize()
         name = f'fused_mbconv_inner {label} {list(shape)} {str(dtype)[6:]}'
         if got_v.shape != u.shape or got_v.dtype != dtype or got_mean.shape != shape[:2]:
@@ -274,28 +335,51 @@ def check_k2(gen, dev):
                            f'mean {tuple(got_mean.shape)}')
         if not (torch.isfinite(got_v).all() and torch.isfinite(got_mean).all()):
             fail('kernel', f'{name}: non-finite kernel output')
-        tol_v, tol_mean = K2_TOLS[dtype]
         err_v = (got_v.float() - want_v.float()).abs().max().item()
         err_mean = (got_mean - want_mean).abs().max().item()
-        if not (torch.allclose(got_v.float(), want_v.float(), **tol_v)
-                and torch.allclose(got_mean, want_mean, **tol_mean)):
-            fail('kernel', f'{name}: max |kernel - plain| v {err_v:.3g}, mean {err_mean:.3g} '
-                           f'beyond {tol_v} / {tol_mean}')
+        if err_v != 0.0 or not torch.allclose(got_mean, want_mean, **K2_MEAN_TOL):
+            fail('kernel', f'{name}: max |kernel - plain| v {err_v:.3g} (must be 0), mean '
+                           f'{err_mean:.3g} (tol {K2_MEAN_TOL})')
         unfused_v, _ = unfused_chain(u, dw, bn0, bn1)
         err_unfused = (got_v.float() - unfused_v.float()).abs().max().item()
-        ms = cuda_time_ms(lambda: mbconv_cuda.fused_mbconv_inner(u, dw, *consts))
-        plain_ms = cuda_time_ms(lambda: mbconv.fused_mbconv_inner(u, dw, *consts))
-        unfused_ms = cuda_time_ms(lambda: unfused_chain(u, dw, bn0, bn1))
-        phase('kernel', f'{name}: max |kernel - plain| v {err_v:.3g}, mean {err_mean:.3g} '
-                        f'(tol {tol_v["atol"]}/{tol_v["rtol"]}); vs the unfused chain '
-                        f'{err_unfused:.3g} (BN folded vs not); kernel {ms:.4f} ms, plain '
-                        f'torch {plain_ms:.4f} ms, unfused cuDNN chain {unfused_ms:.4f} ms '
-                        f'(CUDA events, median of 25)')
+        del got_v, want_v, unfused_v
+        kernel = lambda: mbconv_cuda.fused_mbconv_inner(u, taps, sb)
+        ms, event_ms = device_time_ms(kernel), cuda_time_ms(kernel)
+        plain_ms = device_time_ms(lambda: mbconv.fused_mbconv_inner(u, taps, sb))
+        unfused_ms = device_time_ms(lambda: unfused_chain(u, dw, bn0, bn1))
+        n_bytes, bound_ms, bound_by = k2_bound(u.shape, u.element_size())
+        phase('kernel', f'{name}: max |kernel - plain| v {err_v:.3g}, mean {err_mean:.3g}; '
+                        f'vs the unfused chain {err_unfused:.3g} (BN folded vs not); kernel '
+                        f'{ms:.4f} ms, {n_bytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms '
+                        f'({bound_by}), {100 * bound_ms / ms:.1f}% of bound; plain torch '
+                        f'{plain_ms:.4f} ms, unfused cuDNN chain {unfused_ms:.4f} ms (device '
+                        f'time, mean of 25); kernel {event_ms:.4f} ms between CUDA events '
+                        f'(median of 25 single calls, launch included)')
         results.append(dict(case=label, shape=list(shape), dtype=str(dtype)[6:],
-                            max_abs_err=max(err_v, err_mean), ms=ms, plain_ms=plain_ms,
-                            unfused_ms=unfused_ms))
-        del u, got_v, want_v, unfused_v
+                            max_abs_err=err_v, max_abs_err_mean=err_mean, ms=ms,
+                            event_ms=event_ms,
+                            plain_ms=plain_ms, unfused_ms=unfused_ms, bytes=n_bytes,
+                            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms))
+        del u
     return results
+
+
+def k1_bound(flat, params, geom, side):
+    """(bytes, least ms, what bounds it) of K1 on these inputs: every output
+    byte, the parameters, and each distinct pyramid pixel that a bilinear tap
+    reads, once; K1_OPS_PER_PIXEL."""
+    from metrabs_tpu_torch.ops import warp as warp_ops
+
+    coords = warp_ops.warp_pyramid_coords(params, side)
+    idx00, _, _ = warp_ops.bilinear_corners(geom[:, 0], geom[:, 1], geom[:, 2], coords)
+    used = torch.zeros(flat.shape[0], dtype=torch.bool, device=flat.device)
+    wp = geom[:, 2, None, None]
+    for offset in (0, 1, wp, wp + 1):
+        used[(idx00 + offset).reshape(-1)] = True
+    n_pixels = params.shape[0] * side[0] * side[1]
+    n_bytes = (n_pixels * 3 * 4 + int(used.sum()) * flat.element_size() * 3
+               + params.numel() * 4 + geom.numel() * 8)
+    return (n_bytes, *bound(n_bytes, K1_OPS_PER_PIXEL * n_pixels))
 
 
 def profile_detect(est, run):
@@ -341,11 +425,14 @@ def profile_detect(est, run):
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.device_time_total / 1e3
             host_ms[e.name] = host_ms.get(e.name, 0.0) + e.cpu_time_total / 1e3
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in names]
-    for key, pattern in (('K2 (mbconv kernel)', 'mbconv_inner_kernel'),
-                         ('K1 (warp kernel)', 'warp_pyramid_kernel')):
-        device_ms[key] = sum(e.device_time_total for e in kernels if pattern in e.name) / 1e3
+    counts = {}
+    for key, patterns in (('K2 (mbconv kernel)', K2_KERNELS),
+                          ('K1 (warp kernel)', ('warp_pyramid_kernel',))):
+        mine = [e for e in kernels if any(p in e.name for p in patterns)]
+        device_ms[key] = sum(e.device_time_total for e in mine) / 1e3
+        counts[key] = len(mine)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3  # one stream: no overlap
-    return wall_ms, device_ms, host_ms, busy_ms, len(kernels)
+    return wall_ms, device_ms, host_ms, busy_ms, len(kernels), counts
 
 
 def main() -> None:
@@ -409,11 +496,16 @@ def main() -> None:
     max_err = (got - want).abs().max().item()
     if not max_err <= WARP_TOL:
         fail('kernel', f'max |kernel - plain| = {max_err:.3g} > {WARP_TOL}')
-    kernel_ms = cuda_time_ms(lambda: warp_cuda.warp_pyramid(flat, params, geom, side))
-    plain_ms = cuda_time_ms(lambda: warp_ops.warp_pyramid(flat, params, geom, side))
+    k1 = lambda: warp_cuda.warp_pyramid(flat, params, geom, side)
+    kernel_ms, k1_event_ms = device_time_ms(k1), cuda_time_ms(k1)
+    plain_ms = device_time_ms(lambda: warp_ops.warp_pyramid(flat, params, geom, side))
+    k1_bytes, k1_bound_ms, k1_bound_by = k1_bound(flat, params, geom, side)
     phase('kernel', f'warp_pyramid {tuple(got.shape)}: max |kernel - plain| = {max_err:.3g} '
-                    f'(tol {WARP_TOL}); kernel {kernel_ms:.4f} ms, plain torch '
-                    f'{plain_ms:.4f} ms (CUDA events, median of 25)')
+                    f'(tol {WARP_TOL}); kernel {kernel_ms:.4f} ms, {k1_bytes / 1e6:.1f} MB '
+                    f'(output and distinct pyramid pixels), bound {k1_bound_ms:.4f} ms '
+                    f'({k1_bound_by}), {100 * k1_bound_ms / kernel_ms:.1f}% of bound; plain '
+                    f'torch {plain_ms:.4f} ms (device time, mean of 25); kernel '
+                    f'{k1_event_ms:.4f} ms between CUDA events (median of 25 single calls)')
     del flat, got, want
     k2_results = check_k2(gen, dev)
 
@@ -517,10 +609,12 @@ def main() -> None:
     n_detected = int(det_valid.sum())
     torch.cuda.synchronize()
     warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    mbconv_cuda.fused_mbconv_inner.launches_by_shape.clear()
     out = detect()
     torch.cuda.synchronize()
     det_warp_launches = warp_cuda.warp_pyramid.launches
     det_k2_launches = mbconv_cuda.fused_mbconv_inner.launches
+    det_k2_by_shape = dict(mbconv_cuda.fused_mbconv_inner.launches_by_shape)
     chunks = math.ceil(n_detected / (INTERNAL_BATCH // NUM_AUG))
     shapes = {k: tuple(v.shape) for k, v in out.items()}
     want_shapes = dict(boxes=(8, MAX_DETECTIONS, 5), poses3d=(8, MAX_DETECTIONS, 17, 3),
@@ -536,6 +630,19 @@ def main() -> None:
         fail('detect', f'warp kernel launched {det_warp_launches} times and MBConv kernel '
                        f'{det_k2_launches}, expected {chunks} and {K2_BLOCKS * chunks} '
                        f'({chunks} non-empty chunks)')
+    # K2's launches per [E, H, W] and dtype in this run, against K2_CASES.
+    by_case = {}
+    for (n, e, h, w, dtype), count in det_k2_by_shape.items():
+        by_case[(e, h, w, dtype)] = by_case.get((e, h, w, dtype), 0) + count
+    want_by_case = {(*shape[1:], str(dtype)[6:]): per_chunk * chunks
+                    for _, shape, dtype, per_chunk in K2_CASES if per_chunk}
+    if by_case != want_by_case:
+        fail('detect', f'MBConv launches per [E, H, W, dtype] {by_case}, expected '
+                       f'{want_by_case}')
+    for r in k2_results:
+        r['detect_launches'] = by_case.get((*r['shape'][1:], r['dtype']), 0)
+    k2_bound_call = sum(count * k2_bound((n, e, h, w), getattr(torch, dtype).itemsize)[1]
+                        for (n, e, h, w, dtype), count in det_k2_by_shape.items())
     n_kept = int(out['valid'].sum())
 
     # The float32 detect estimator on the GPU against the same one on the CPU.
@@ -581,26 +688,44 @@ def main() -> None:
                     f'f32 GPU vs CPU: masks equal, max |dbox| {box_err:.3g} px, max |dpose| '
                     f'{det_pose_err:.3g} mm; {detect_s * 1e3:.1f} ms/call (median of {n_calls}; '
                     f'all: {", ".join(f"{t * 1e3:.1f}" for t in times)})')
-    wall_ms, device_ms, host_ms, busy_ms, n_kernels = profile_detect(est_d, detect)
+    wall_ms, device_ms, host_ms, busy_ms, n_kernels, counts = profile_detect(est_d, detect)
     phase('detect', f'one call under torch.profiler: wall {wall_ms:.1f} ms, device busy '
                     f'{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels')
     for name in sorted(device_ms, key=device_ms.get, reverse=True):
         host = f', host {host_ms[name]:.2f} ms' if name in host_ms else ''
+        launched = f', {counts[name]} launches' if name in counts else ''
         phase('detect', f'  {name}: device {device_ms[name]:.3f} ms '
-                        f'({100 * device_ms[name] / busy_ms:.1f}% of busy){host}')
+                        f'({100 * device_ms[name] / busy_ms:.1f}% of busy){launched}{host}')
+    if counts['K2 (mbconv kernel)'] != det_k2_launches:
+        fail('detect', f'the profiler saw {counts["K2 (mbconv kernel)"]} MBConv kernels, the '
+                       f'wrapper counted {det_k2_launches}')
+    phase('detect', f'K2 per call: {det_k2_launches} launches ('
+                    + ', '.join(f'{list(k[:4])} {k[4]}: {c}' for k, c in det_k2_by_shape.items())
+                    + f'), device {device_ms["K2 (mbconv kernel)"]:.3f} ms against a bound of '
+                      f'{k2_bound_call:.3f} ms for these launches')
 
-    k2_main = k2_results[0]
+    # No single PyTorch call computes either kernel's function: library_ms is
+    # null (the unfused cuDNN chain's time stands beside K2 as unfused_ms).
+    k2_main = k2_results[K2_MAIN_CASE]
     print(json.dumps({'kernels': [
         dict(name='warp_pyramid', route='cuda', source='metrabs_tpu_torch/csrc/warp.cu',
              replaces='metrabs_tpu/ops/warp_pallas.py:68', launches=det_warp_launches,
              launches_by_path=dict(main=launches, detect=det_warp_launches),
-             max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms),
+             max_abs_err=max_err, ms=kernel_ms, event_ms=k1_event_ms, plain_ms=plain_ms,
+             bytes=k1_bytes,
+             bound_ms=k1_bound_ms, bound_by=k1_bound_by, bound_share=k1_bound_ms / kernel_ms,
+             library_ms=None),
         dict(name='fused_mbconv_inner', route='cuda', source='metrabs_tpu_torch/csrc/mbconv.cu',
              replaces='metrabs_tpu/ops/mbconv_pallas.py:77', launches=det_k2_launches,
              launches_by_path=dict(main=main_k2_launches, detect=det_k2_launches),
              max_abs_err=max(r['max_abs_err'] for r in k2_results), ms=k2_main['ms'],
-             plain_ms=k2_main['plain_ms'], unfused_ms=k2_main['unfused_ms'],
-             cases=k2_results)]}), flush=True)
+             event_ms=k2_main['event_ms'], plain_ms=k2_main['plain_ms'],
+             bytes=k2_main['bytes'],
+             bound_ms=k2_main['bound_ms'], bound_by=k2_main['bound_by'],
+             bound_share=k2_main['bound_share'], library_ms=None,
+             unfused_ms=k2_main['unfused_ms'],
+             detect_call_device_ms=device_ms['K2 (mbconv kernel)'],
+             detect_call_bound_ms=k2_bound_call, cases=k2_results)]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -4,11 +4,14 @@ The JAX package `metrabs_tpu` is the reference: each module here mirrors the
 module of the same path there, keeps its public layouts (images NHWC
 [N, H, W, 3], matrices [N, 3, 3], poses [..., J, 3]) and is tested against
 it on the same inputs (`tests/test_torch_*.py`). This package imports torch
-and never jax or flax; it reuses only the jax-free modules of `metrabs_tpu`
-(config, joint_info, pipeline.tta, pipeline.skeletons).
+and nothing of jax, flax or `metrabs_tpu`: it keeps its own copies of the
+framework-free modules it needs (`config`, `utils.joint_info`,
+`pipeline.tta`, `pipeline.skeletons`, `pipeline.bone_priors` and its asset).
 
-Ported so far: the crop path behind
-`io.packaging.load_pose_estimator(pkg).estimate_poses_batched` with the
-EfficientNetV2 crop model; the crop warp runs as a hand-written CUDA kernel
-(`csrc/warp.cu`) on CUDA tensors.
+Ported so far: `io.packaging.load_pose_estimator(pkg)` with
+`estimate_poses_batched` and `detect_poses_batched` (YOLOv4 detector,
+plausibility filter, pose NMS) and the EfficientNetV2 crop model. The TPU
+kernels run as hand-written CUDA kernels on CUDA tensors: the crop warp
+(`csrc/warp.cu`) and the fused MBConv chain (`csrc/mbconv.cu`). The entry
+points run on the card unless the caller passes `device='cpu'`.
 """

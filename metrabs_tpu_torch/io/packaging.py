@@ -9,6 +9,8 @@ detector included (darknet eps 1e-5) under the same `bn_fold` switch. File
 reading is split from the rest (`crop_model_from_variables`,
 `pose_estimator_from_variables`) so that a caller holding variables in
 memory builds exactly the estimator that `load_pose_estimator` builds.
+Every loader puts its result on the card unless `device` says otherwise,
+and raises where CUDA is not available and no device was named.
 
 `backbone_builder` (default `models.backbones.builder.build_backbone`, same
 arguments) builds the crop model's backbone, e.g.
@@ -26,14 +28,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from metrabs_tpu.config import AugConfig, ModelConfig
-from metrabs_tpu.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
-from metrabs_tpu.utils.joint_info import JointInfo
+from metrabs_tpu_torch.config import AugConfig, ModelConfig
 from metrabs_tpu_torch.detect.yolov4 import PersonDetector, build_detector_model
 from metrabs_tpu_torch.io import weights
 from metrabs_tpu_torch.io.checkpoints import load_model_msgpack
 from metrabs_tpu_torch.models.metrabs import Metrabs, build_crop_model
-from metrabs_tpu_torch.pipeline.estimator import PoseEstimator
+from metrabs_tpu_torch.pipeline.estimator import PoseEstimator, checked_device
+from metrabs_tpu_torch.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
+from metrabs_tpu_torch.utils.joint_info import JointInfo
 
 # ModelConfig fields that define the trained model and may not be overridden.
 _PROTECTED_FIELDS = {'proc_side', 'depth', 'n_joints', 'backbone', 'stride_train',
@@ -51,13 +53,14 @@ def _check_model_class(manifest: dict) -> None:
 
 def crop_model_from_variables(
         variables: Dict, manifest: dict, *, scan_blocks: Optional[bool] = None,
-        bn_fold: bool = False, device='cpu',
+        bn_fold: bool = False, device='cuda',
         backbone_builder=None) -> Tuple[Metrabs, ModelConfig]:
     """The crop model of a package from its variable tree (numpy leaves, as
     stored) and manifest, in eval mode on `device` in `cfg.dtype`.
 
     `scan_blocks=False` unrolls a scanned-layout tree; `bn_fold` folds BN;
     `backbone_builder` builds the backbone (module docstring)."""
+    device = checked_device(device)
     _check_model_class(manifest)
     cfg = ModelConfig(**manifest['model_config'])
     if scan_blocks is not None and scan_blocks != cfg.backbone_scan_blocks:
@@ -83,8 +86,9 @@ def crop_model_from_variables(
 
 
 def load_crop_model(directory: str, *, scan_blocks: Optional[bool] = None,
-                    bn_fold: bool = False, device='cpu', backbone_builder=None):
+                    bn_fold: bool = False, device='cuda', backbone_builder=None):
     """Returns (model, cfg, joint_info, manifest) of a package directory."""
+    device = checked_device(device)
     manifest = _read_manifest(directory)
     variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
     model, cfg = crop_model_from_variables(variables, manifest, scan_blocks=scan_blocks,
@@ -94,11 +98,12 @@ def load_crop_model(directory: str, *, scan_blocks: Optional[bool] = None,
 
 
 def detector_from_variables(variables: Dict, manifest: dict, *, bn_fold: bool,
-                            device='cpu') -> PersonDetector:
+                            device='cuda') -> PersonDetector:
     """The package's person detector from its variable tree (numpy leaves, as
     stored) and manifest, in eval mode on `device` in `detector_dtype`. A
     scanned YOLOv4 tree is unrolled; BN is folded (eps 1e-5) iff `bn_fold`
     and the detector is of the YOLOv4 family."""
+    device = checked_device(device)
     det_type = manifest.get('detector_type', 'yolov4')
     det_size = manifest.get('detector_input_size') or (
         640 if det_type.startswith('yolov8') else 416)
@@ -117,7 +122,7 @@ def detector_from_variables(variables: Dict, manifest: dict, *, bn_fold: bool,
 
 
 def pose_estimator_from_variables(
-        crop_variables: Dict, manifest: dict, *, device='cpu',
+        crop_variables: Dict, manifest: dict, *, device='cuda',
         cfg_overrides: Optional[dict] = None,
         joint_transform_matrix: Optional[np.ndarray] = None,
         detector_variables: Optional[Dict] = None,
@@ -131,6 +136,7 @@ def pose_estimator_from_variables(
     `detector_variables`: the detector's tree (the manifest's `detector_*`
     fields describe it), or None for an estimator without a detector;
     `backbone_builder`: module docstring."""
+    device = checked_device(device)
     cfg_overrides = dict(cfg_overrides or {})
     if cfg_overrides.pop('backbone_scan_blocks', False):
         raise ValueError('The port runs the flat backbone layout only')
@@ -172,6 +178,7 @@ def load_pose_estimator(directory: str, device='cuda',
                         backbone_builder=None) -> PoseEstimator:
     """A `PoseEstimator` from a package directory, on `device`, with the
     package's detector when it has one (`detect_poses_batched`)."""
+    device = checked_device(device)
     manifest = _read_manifest(directory)
     variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
     detector_variables = None

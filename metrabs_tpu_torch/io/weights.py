@@ -23,7 +23,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from metrabs_tpu.config import ModelConfig
+from metrabs_tpu_torch.config import ModelConfig
 from metrabs_tpu_torch.models.metrabs import build_crop_model
 
 Key = Tuple[str, ...]

@@ -21,7 +21,11 @@ CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), 'auto'
 does so only on a CUDA tensor, 'interpret' calls the plain version
 `ops.mbconv.fused_mbconv_inner` on any device. The parameters are the same
 either way; with `bn_fold=True` every block takes the unfused branch, as in
-JAX (there is no folded-BN fused variant).
+JAX (there is no folded-BN fused variant). A fused block computes the
+chain's float32 constants (depthwise taps and both BNs' scale and bias) once
+in eval mode and keeps them as non-persistent buffers, so its forward
+launches only the expand conv, the fused chain, the SE convs and the project
+conv; `train()` and `eval()` drop them, to be made again from the weights.
 """
 
 from __future__ import annotations
@@ -253,6 +257,38 @@ class MBConv(nn.Module):
             self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)))
         self.project_conv = _conv(filters, a.output_filters, bias=bn_fold)
         self.norm2 = _norm(a.output_filters, bn_fold)
+        if self.fusable:
+            # The fused chain's constants (`ops.mbconv.inner_constants`): made
+            # from the weights at the first fused call in eval mode and kept
+            # until `train()`, `eval()` or `load_state_dict` drops them (an
+            # in-place edit of the weights needs one of those); not part of
+            # the state dict.
+            self.register_buffer('inner_taps', None, persistent=False)
+            self.register_buffer('inner_sb', None, persistent=False)
+            self.register_load_state_dict_post_hook(
+                lambda module, incompatible_keys: module._drop_inner_constants())
+
+    def _drop_inner_constants(self):
+        self.inner_taps = self.inner_sb = None
+
+    def train(self, mode: bool = True):
+        """Also drops the fused chain's kept constants (`eval()` too), so that
+        they are made again from the weights of the moment."""
+        if self.fusable:
+            self._drop_inner_constants()
+        return super().train(mode)
+
+    def _inner_constants(self):
+        """(taps [E, 9], sb [4, E]) float32; kept in eval mode. Made again
+        if a cast of the module (`.to(dtype)`) has cast the kept ones."""
+        if (self.training or self.inner_taps is None
+                or self.inner_taps.dtype != torch.float32):
+            consts = mbconv_ops.inner_constants(self.depthwise_conv.weight,
+                                                *self.norm0.folded(), *self.norm1.folded())
+            if self.training:
+                return consts
+            self.inner_taps, self.inner_sb = consts
+        return self.inner_taps, self.inner_sb
 
     def _use_fused(self, x: torch.Tensor) -> bool:
         return self.fusable and (self.fuse in ('on', 'interpret')
@@ -265,8 +301,7 @@ class MBConv(nn.Module):
             u = self.expand_conv(x)
             inner = (mbconv_ops.fused_mbconv_inner if self.fuse == 'interpret'
                      else mbconv_cuda.fused_mbconv_inner)
-            x, se_mean = inner(u.contiguous(), self.depthwise_conv.weight,
-                               *self.norm0.folded(), *self.norm1.folded())
+            x, se_mean = inner(u.contiguous(), *self._inner_constants())
             if a.se_ratio:
                 x = self.se(x, se_mean[:, :, None, None])
         else:

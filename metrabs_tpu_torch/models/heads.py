@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from metrabs_tpu.config import ModelConfig
+from metrabs_tpu_torch.config import ModelConfig
 from metrabs_tpu_torch.ops import heatmap as heatmap_ops
 from metrabs_tpu_torch.ops import heatmap_decode as sa
 

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from metrabs_tpu.config import ModelConfig
+from metrabs_tpu_torch.config import ModelConfig
 from metrabs_tpu_torch.models.backbones.builder import build_backbone
 from metrabs_tpu_torch.models.heads import MetrabsHeads
 from metrabs_tpu_torch.ops import reconstruct

@@ -24,8 +24,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
 
 
-def source_path(name: str) -> Path:
-    return CSRC_DIR / f'{name}.cu'
+def source_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    return Path(csrc_dir) / f'{name}.cu'
 
 
 def nvcc() -> str:
@@ -38,18 +38,21 @@ def nvcc() -> str:
     return found
 
 
-def build_library(name: str) -> Tuple[Path, float]:
-    """Compiles `csrc/<name>.cu` unless a build of the same source and flags
-    exists. Returns (library path, seconds spent compiling; 0 if cached)."""
-    source = source_path(name)
-    key = hashlib.sha256(source.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+def build_library(name: str, csrc_dir: Path = CSRC_DIR,
+                  defines: Tuple[str, ...] = ()) -> Tuple[Path, float]:
+    """Compiles `<csrc_dir>/<name>.cu`, with a `-D` for each of `defines`,
+    unless a build of the same source and flags exists. Returns (library
+    path, seconds spent compiling; 0 if cached)."""
+    source = source_path(name, csrc_dir)
+    flags = (*NVCC_FLAGS, *(f'-D{d}' for d in defines))
+    key = hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f'libmetrabs_{name}_{key[:16]}.so'
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
     start = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(source)],
+    proc = subprocess.run([nvcc(), *flags, '-o', str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed on {source}:\n{proc.stdout}{proc.stderr}')

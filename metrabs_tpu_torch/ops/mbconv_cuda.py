@@ -4,7 +4,8 @@ of the TPU kernel `metrabs_tpu/ops/mbconv_pallas.py::_kernel`.
 `fused_mbconv_inner` is the wrapper: on CUDA tensors it launches the kernel
 (or raises), on CPU tensors it runs the plain version
 `ops.mbconv.fused_mbconv_inner`. It never falls back from one to the other.
-`fused_mbconv_inner.launches` counts kernel launches.
+`fused_mbconv_inner.launches` counts kernel launches, and
+`fused_mbconv_inner.launches_by_shape` counts them per input shape and dtype.
 
 The kernel is built at first use from `csrc/mbconv.cu` by `ops.cuda_build`.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 from typing import Tuple
 
 import torch
@@ -24,8 +26,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _ = cuda_build.build_library('mbconv')
+def _library(csrc_dir: Path = cuda_build.CSRC_DIR, defines: Tuple[str, ...] = ()
+             ) -> ctypes.CDLL:
+    path, _ = cuda_build.build_library('mbconv', csrc_dir, defines)
     lib = ctypes.CDLL(str(path))
     fn = lib.metrabs_mbconv_inner
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -33,31 +36,27 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def fused_mbconv_inner(u: torch.Tensor, dw_weight: torch.Tensor,
-                       scale0: torch.Tensor, bias0: torch.Tensor,
-                       scale1: torch.Tensor, bias1: torch.Tensor
+def fused_mbconv_inner(u: torch.Tensor, taps: torch.Tensor, sb: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """silu(BN1(dw3x3(silu(BN0(u))))) and its spatial mean, in one pass; the
-    arguments and results of `ops.mbconv.fused_mbconv_inner`."""
+    arguments (u, and the constants of `ops.mbconv.inner_constants`) and
+    results of `ops.mbconv.fused_mbconv_inner`."""
     if u.device.type == 'cpu':
-        return mbconv_ops.fused_mbconv_inner(u, dw_weight, scale0, bias0, scale1, bias1)
+        return mbconv_ops.fused_mbconv_inner(u, taps, sb)
     if u.device.type != 'cuda':
         raise ValueError(f'fused_mbconv_inner runs on CPU or CUDA tensors, got {u.device}')
     if u.dtype not in _DTYPE_CODES:
         raise ValueError(f'u must be float32 or bfloat16, got {u.dtype}')
-    if u.ndim != 4 or not u.is_contiguous():
-        raise ValueError(f'u must be a contiguous [N, E, H, W] tensor, got {tuple(u.shape)}')
+    if u.ndim != 4 or not u.is_contiguous() or u.data_ptr() % 16:
+        raise ValueError(f'u must be a contiguous, 16-byte aligned [N, E, H, W] tensor, got '
+                         f'{tuple(u.shape)}')
     n, e, h, w = u.shape
-    if tuple(dw_weight.shape) != (e, 1, 3, 3):
-        raise ValueError(f'dw_weight must be [{e}, 1, 3, 3], got {tuple(dw_weight.shape)}')
-    consts = (scale0, bias0, scale1, bias1)
-    if any(c.shape != (e,) for c in consts):
-        raise ValueError(f'BN constants must be [{e}], got {[tuple(c.shape) for c in consts]}')
-    tensors = (dw_weight,) + consts
-    if any(t.device != u.device for t in tensors):
-        raise ValueError(f'all arguments must be on {u.device}')
-    taps = dw_weight.float().reshape(e, 9).contiguous()
-    sb = torch.stack(consts).float().contiguous()
+    for name, t, shape in (('taps', taps, (e, 9)), ('sb', sb, (4, e))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f'{name} must be a contiguous float32 {list(shape)} tensor, got '
+                             f'{t.dtype} {tuple(t.shape)}')
+        if t.device != u.device:
+            raise ValueError(f'all arguments must be on {u.device}, {name} is on {t.device}')
     v = torch.empty_like(u)
     se_mean = torch.empty((n, e), dtype=torch.float32, device=u.device)
     if u.numel() == 0:
@@ -71,7 +70,11 @@ def fused_mbconv_inner(u: torch.Tensor, dw_weight: torch.Tensor,
         raise RuntimeError(f'mbconv kernel launch failed with CUDA error {err} '
                            f'(shape {tuple(u.shape)}, {u.dtype})')
     fused_mbconv_inner.launches += 1
+    key = (n, e, h, w, str(u.dtype).removeprefix('torch.'))
+    counts = fused_mbconv_inner.launches_by_shape
+    counts[key] = counts.get(key, 0) + 1
     return v, se_mean
 
 
 fused_mbconv_inner.launches = 0
+fused_mbconv_inner.launches_by_shape = {}  # (N, E, H, W, dtype name) -> launches

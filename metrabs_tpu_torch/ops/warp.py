@@ -106,12 +106,12 @@ def build_flat_pyramid(images: torch.Tensor, n_levels: int):
     return flat, level_info, offset
 
 
-def bilinear_gather_flat(flat: torch.Tensor, base_offset: torch.Tensor,
-                         hp: torch.Tensor, wp: torch.Tensor,
-                         coords_xy: torch.Tensor) -> torch.Tensor:
-    """Bilinear samples [N, oh, ow, C] of the flat pyramid [T, C] at
-    `coords_xy` [N, oh, ow, 2] (unpadded source pixels) within each crop's
-    padded level region (base_offset, hp, wp: [N]). Zero border via the zero
+def bilinear_corners(base_offset: torch.Tensor, hp: torch.Tensor, wp: torch.Tensor,
+                     coords_xy: torch.Tensor):
+    """Flat pyramid index of the top-left tap [N, oh, ow] and the bilinear
+    fractions fx, fy [N, oh, ow, 1] at `coords_xy` [N, oh, ow, 2] (unpadded
+    source pixels) within each crop's padded level region (base_offset, hp,
+    wp: [N]). The other taps are +1, +wp and +wp+1. Zero border via the zero
     ring; beyond it lookups replicate-clamp. A NaN coordinate samples the
     region's corner (a zero-ring pixel), as the kernel's fmaxf/fminf do."""
     wp_f = wp[:, None, None].float()
@@ -121,11 +121,17 @@ def bilinear_gather_flat(flat: torch.Tensor, base_offset: torch.Tensor,
     y = clip(torch.nan_to_num(coords_xy[..., 1] + 1.0, nan=0.0), hp_f - 1.0)
     x0 = clip(torch.floor(x), wp_f - 2.0)
     y0 = clip(torch.floor(y), hp_f - 2.0)
-    fx = (x - x0)[..., None]
-    fy = (y - y0)[..., None]
-    wp_i = wp[:, None, None]
-    idx00 = base_offset[:, None, None] + y0.long() * wp_i + x0.long()
-    idx10 = idx00 + wp_i
+    idx00 = base_offset[:, None, None] + y0.long() * wp[:, None, None] + x0.long()
+    return idx00, (x - x0)[..., None], (y - y0)[..., None]
+
+
+def bilinear_gather_flat(flat: torch.Tensor, base_offset: torch.Tensor,
+                         hp: torch.Tensor, wp: torch.Tensor,
+                         coords_xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples [N, oh, ow, C] of the flat pyramid [T, C] at
+    `coords_xy`, with the taps and fractions of `bilinear_corners`."""
+    idx00, fx, fy = bilinear_corners(base_offset, hp, wp, coords_xy)
+    idx10 = idx00 + wp[:, None, None]
     top = flat[idx00] * (1 - fx) + flat[idx00 + 1] * fx
     bottom = flat[idx10] * (1 - fx) + flat[idx10 + 1] * fx
     return top * (1 - fy) + bottom * fy
@@ -149,16 +155,22 @@ def pyramid_warp_params(intrinsic_matrix: torch.Tensor, new_invprojmat: torch.Te
     return params.contiguous(), geom.contiguous()
 
 
-def warp_pyramid(flat: torch.Tensor, params: torch.Tensor, geom: torch.Tensor,
-                 output_shape: Tuple[int, int]) -> torch.Tensor:
-    """Plain version of the kernel: [N, oh, ow, C] crops from the flat
-    pyramid, per-crop `params` and `geom` of `pyramid_warp_params`."""
+def warp_pyramid_coords(params: torch.Tensor, output_shape: Tuple[int, int]) -> torch.Tensor:
+    """Source pixel coordinates [N, oh, ow, 2] of each output pixel from the
+    per-crop `params` of `pyramid_warp_params`."""
     n = params.shape[0]
     invproj = params[:, :9].reshape(n, 3, 3)
     k = torch.cat([params[:, 9:15].reshape(n, 2, 3),
                    torch.tensor([0.0, 0.0, 1.0], device=params.device).expand(n, 1, 3)],
                   dim=1)
-    coords = warp_coords(invproj, k, params[:, 15:], output_shape)
+    return warp_coords(invproj, k, params[:, 15:], output_shape)
+
+
+def warp_pyramid(flat: torch.Tensor, params: torch.Tensor, geom: torch.Tensor,
+                 output_shape: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of the kernel: [N, oh, ow, C] crops from the flat
+    pyramid, per-crop `params` and `geom` of `pyramid_warp_params`."""
+    coords = warp_pyramid_coords(params, output_shape)
     return bilinear_gather_flat(flat, geom[:, 0], geom[:, 1], geom[:, 2], coords)
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 from typing import Tuple
 
 import torch
@@ -34,8 +35,8 @@ PRECISIONS = frozenset({'highest', 'f32', 'high', 'bf16x3', 'bf16x2', 'default',
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _ = cuda_build.build_library('warp')
+def _library(csrc_dir: Path = cuda_build.CSRC_DIR) -> ctypes.CDLL:
+    path, _ = cuda_build.build_library('warp', csrc_dir)
     lib = ctypes.CDLL(str(path))
     fn = lib.metrabs_warp_pyramid_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,

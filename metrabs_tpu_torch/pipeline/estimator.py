@@ -29,19 +29,29 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from metrabs_tpu.config import AugConfig, ModelConfig
-from metrabs_tpu.pipeline import bone_priors
-from metrabs_tpu.pipeline import tta as tta_mod
-from metrabs_tpu.pipeline.skeletons import SkeletonRegistry
-from metrabs_tpu.utils.joint_info import JointInfo
+from metrabs_tpu_torch.config import AugConfig, ModelConfig
 from metrabs_tpu_torch.ops import camera as camera_ops
 from metrabs_tpu_torch.ops import distortion as distortion_ops
 from metrabs_tpu_torch.ops import rotation as rotation_ops
 from metrabs_tpu_torch.ops import warp as warp_ops
 from metrabs_tpu_torch.ops import warp_cuda
-from metrabs_tpu_torch.pipeline import plausibility
+from metrabs_tpu_torch.pipeline import bone_priors, plausibility
+from metrabs_tpu_torch.pipeline import tta as tta_mod
+from metrabs_tpu_torch.pipeline.skeletons import SkeletonRegistry
+from metrabs_tpu_torch.utils.joint_info import JointInfo
 
 N_PYRAMID_LEVELS = 3
+
+
+def checked_device(device) -> torch.device:
+    """`device` as a `torch.device`. A CUDA device on a machine without CUDA
+    raises: the entry points default to the card and never fall back to the
+    CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs CUDA, which is not available; "
+                           "pass device='cpu' to run on the CPU")
+    return device
 
 
 def _get_new_rotation_and_scale(intrinsic_matrix, distortion_coeffs, camspace_up, boxes,
@@ -82,7 +92,7 @@ def _bone_priors(joint_info: JointInfo, bone_mean_lengths) -> np.ndarray:
         warnings.warn(
             'PoseEstimator: no bone_mean_lengths provided; the plausibility filter will '
             'use the built-in APPROXIMATE anthropometric priors asset '
-            '(metrabs_tpu/assets/bone_priors.json), not dataset-derived means. Ship '
+            '(metrabs_tpu_torch/assets/bone_priors.json), not dataset-derived means. Ship '
             'dataset-derived priors (apps/train.py accumulates them automatically, or '
             'pipeline.plausibility.compute_bone_mean_lengths).', stacklevel=3)
         return np.asarray(asset, np.float32)
@@ -102,15 +112,16 @@ class PoseEstimator:
     in eval mode; `crop_model(crops [N, S, S, 3], intrinsics [N, 3, 3],
     sample_valid [N])` returns absolute camera-space poses [N, J, 3] in
     millimeters. `detector`: a `detect.yolov4.PersonDetector` or None.
-    `bone_mean_lengths` [n_edges] (mm): the plausibility filter's priors."""
+    `bone_mean_lengths` [n_edges] (mm): the plausibility filter's priors.
+    `device` defaults to the card and raises where CUDA is not available."""
 
     def __init__(self, crop_model: torch.nn.Module, joint_info: JointInfo,
                  cfg: ModelConfig, aug_cfg: AugConfig = AugConfig(),
                  skeleton_registry: Optional[SkeletonRegistry] = None,
                  joint_transform_matrix: Optional[np.ndarray] = None,
                  detector=None, bone_mean_lengths: Optional[np.ndarray] = None,
-                 device='cpu'):
-        self.device = torch.device(device)
+                 device='cuda'):
+        self.device = checked_device(device)
         self.crop_model = crop_model
         self.cfg = cfg
         self._aug_cfg = aug_cfg

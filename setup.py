@@ -26,7 +26,7 @@ setup(
                  '(JAX/XLA re-design of MeTRAbs)'),
     packages=find_packages(include=['metrabs_tpu', 'metrabs_tpu.*',
                                     'metrabs_tpu_torch', 'metrabs_tpu_torch.*']),
-    package_data={'metrabs_tpu_torch': ['csrc/*.cu']},
+    package_data={'metrabs_tpu_torch': ['csrc/*.cu', 'assets/*.json']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'einops', 'numpy',

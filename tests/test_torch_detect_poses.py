@@ -114,7 +114,8 @@ out = est.detect_poses_batched(frames, num_aug=2, max_detections=3, detector_thr
                                suppress_implausible_poses=True)
 assert tuple(out['poses3d'].shape) == (1, 3, 17, 3), out['poses3d'].shape
 assert bool(out['poses3d'].isfinite().all())
-leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrabs_tpu'))
 assert not leaked, leaked
 print('NO_JAX_OK')
 """

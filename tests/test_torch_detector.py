@@ -147,7 +147,8 @@ def test_forward_matches_jax(rng, kind, fold):
     x = rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
     want = [np.asarray(h) for h in jax.jit(functools.partial(model.apply, train=False))(
         variables, jnp.asarray(x))]
-    det = detector_from_variables(scanned_tree(kind), manifest(kind), bn_fold=fold)
+    det = detector_from_variables(scanned_tree(kind), manifest(kind), bn_fold=fold,
+                                  device='cpu')
     assert det.model.bn_fold == fold and not det.model.training
     with torch.no_grad():
         got = [h.numpy() for h in det.model(torch.tensor(x))]
@@ -166,7 +167,8 @@ def test_forward_matches_jax(rng, kind, fold):
 def test_detect_batched_matches_jax(rng, flip):
     model, variables = jax_detector('yolov4', False)
     jdet = jax_yolo.PersonDetector(model, variables, input_size=SIZE)
-    det = detector_from_variables(scanned_tree('yolov4'), manifest('yolov4'), bn_fold=False)
+    det = detector_from_variables(scanned_tree('yolov4'), manifest('yolov4'), bn_fold=False,
+                                  device='cpu')
     images = rng.integers(0, 256, size=(2, 120, 160, 3), dtype=np.uint8)
     kwargs = dict(max_detections=8, flip_aug=flip, flip_vertical=flip)
     # A threshold halfway between two kept scores, so that some slots are

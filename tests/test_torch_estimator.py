@@ -225,7 +225,8 @@ frames = np.random.default_rng(0).integers(0, 256, (1, 120, 160, 3), dtype=np.ui
 out = est.estimate_poses_batched(frames, [[[20, 10, 60, 100]]], num_aug=1)
 assert tuple(out['poses3d'].shape) == (1, 1, 17, 3), out['poses3d'].shape
 assert bool(out['poses3d'].isfinite().all())
-leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrabs_tpu'))
 assert not leaked, leaked
 print('NO_JAX_OK')
 """

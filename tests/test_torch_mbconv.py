@@ -12,6 +12,9 @@ applies BN as a folded scale and bias).
 """
 
 import functools
+import importlib.util
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +22,12 @@ import pytest
 import torch
 
 from metrabs_tpu.io.packaging import load_crop_model as jax_load_crop_model
+from metrabs_tpu.models.backbones.builder import build_backbone as jax_build_backbone
 from metrabs_tpu.ops import mbconv_pallas
 from metrabs_tpu_torch.io.packaging import load_crop_model
 from metrabs_tpu_torch.models.backbones import efficientnet_v2 as effnet
 from metrabs_tpu_torch.models.backbones.builder import build_backbone
-from metrabs_tpu_torch.ops import mbconv, mbconv_cuda
+from metrabs_tpu_torch.ops import cuda_build, mbconv, mbconv_cuda
 from tests import _torch_port
 
 F32 = dict(atol=1e-5, rtol=1e-5)
@@ -53,7 +57,7 @@ def run_port(fn, u, dw, *consts, dtype):
     """NCHW in, NHWC float32 out."""
     ut = torch.tensor(u).permute(0, 3, 1, 2).contiguous().to(dtype)
     dwt = torch.tensor(dw).permute(3, 2, 0, 1).contiguous()  # [E, 1, 3, 3]
-    v, mean = fn(ut, dwt, *map(torch.tensor, consts))
+    v, mean = fn(ut, *mbconv.inner_constants(dwt, *map(torch.tensor, consts)))
     assert v.dtype == dtype and mean.dtype == torch.float32
     return v.float().permute(0, 2, 3, 1).numpy(), mean.numpy()
 
@@ -142,8 +146,9 @@ def test_fused_backbone_matches_jax(package, jax_features, mode):
     as the unfused port."""
     from tests.test_torch_model import inputs, run_torch
     builder = functools.partial(build_backbone, fuse_mbconv=mode)
-    model, cfg, _, _ = load_crop_model(package, bn_fold=False, backbone_builder=builder)
-    plain, _, _, _ = load_crop_model(package, bn_fold=False)
+    model, cfg, _, _ = load_crop_model(package, bn_fold=False, device='cpu',
+                                       backbone_builder=builder)
+    plain, _, _, _ = load_crop_model(package, bn_fold=False, device='cpu')
     assert model.state_dict().keys() == plain.state_dict().keys()
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                   plain.state_dict().values()))
@@ -156,3 +161,95 @@ def test_fused_backbone_matches_jax(package, jax_features, mode):
     assert sum(calls) == (0 if mode == 'auto' else 2 * 28)  # run_torch runs it twice
     np.testing.assert_allclose(t_feats, j_feats, **BACKBONE)
     np.testing.assert_allclose(t_poses, j_poses, atol=1.0, rtol=1e-3)
+
+
+def test_inner_constants_layout(rng):
+    """taps [E, 9] row-major from the [E, 1, 3, 3] weight; sb rows scale0,
+    bias0, scale1, bias1; float32 and contiguous."""
+    dw = torch.tensor(rng.normal(size=(5, 1, 3, 3)), dtype=torch.float64)
+    consts = [torch.tensor(rng.normal(size=5), dtype=torch.float32) for _ in range(4)]
+    taps, sb = mbconv.inner_constants(dw, *consts)
+    assert taps.dtype == sb.dtype == torch.float32 and taps.is_contiguous() and sb.is_contiguous()
+    torch.testing.assert_close(taps[:, 3 * 1 + 2], dw[:, 0, 1, 2].float(), rtol=0, atol=0)
+    torch.testing.assert_close(sb, torch.stack(consts), rtol=0, atol=0)
+
+
+def test_kernel_probes_are_switches_of_the_source():
+    """Each K2 probe of scripts/torch_kernel_ab.py is an `#ifdef` of
+    csrc/mbconv.cu, and the source has no other."""
+    path = Path(__file__).resolve().parent.parent / 'scripts' / 'torch_kernel_ab.py'
+    spec = importlib.util.spec_from_file_location('torch_kernel_ab', path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    src = cuda_build.source_path('mbconv').read_text()
+    switches = re.findall(r'#ifdef MBCONV_PROBE_(\w+)', src)
+    assert sorted(switches) == sorted(p.upper() for p in script.PROBES)
+
+
+@pytest.fixture(scope='module')
+def jax_interpret_outputs(package):
+    """JAX's unfolded crop model with the TPU kernel K2 in interpret mode."""
+    from tests.test_torch_model import inputs, run_jax
+
+    def builder(name, **kwargs):
+        return jax_build_backbone(name, **kwargs).clone(fuse_mbconv='interpret')
+    model, variables, _, _, _ = jax_load_crop_model(package, backbone_builder=builder,
+                                                    bn_fold=False)
+    return run_jax(model, variables, *inputs(0))
+
+
+def test_fused_crop_model_keeps_constants(package, jax_interpret_outputs, monkeypatch):
+    """The fused blocks make their constants at the first eval-mode call and
+    reuse them; the second call gives the first's result exactly, both agree
+    with JAX's fused model in interpret mode, the state dict does not hold
+    the constants, and `eval()` drops them."""
+    from tests.test_torch_model import inputs, run_torch
+    builder = functools.partial(build_backbone, fuse_mbconv='on')
+    model, _, _, _ = load_crop_model(package, bn_fold=False, device='cpu',
+                                     backbone_builder=builder)
+    fused = [b for b in model.backbone.blocks if getattr(b, 'fusable', False)]
+    assert len(fused) == 28 and all(b.inner_taps is None for b in fused)
+    assert not any('inner_' in k for k in model.state_dict())
+    made = []
+    make = mbconv.inner_constants
+    monkeypatch.setattr(mbconv, 'inner_constants', lambda *a: made.append(1) or make(*a))
+    first = run_torch(model, *inputs(0))
+    assert len(made) == 28  # run_torch calls the model twice; made once per block
+    for b in fused:
+        want = make(b.depthwise_conv.weight, *b.norm0.folded(), *b.norm1.folded())
+        torch.testing.assert_close((b.inner_taps, b.inner_sb), want, rtol=0, atol=0)
+    second = run_torch(model, *inputs(0))
+    assert len(made) == 28
+    for got, want in zip(second, first):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(first[0], jax_interpret_outputs[0], **BACKBONE)
+    np.testing.assert_allclose(first[1], jax_interpret_outputs[1], atol=1.0, rtol=1e-3)
+    model.eval()
+    assert all(b.inner_taps is None and b.inner_sb is None for b in fused)
+
+
+def test_fused_constants_follow_load_state_dict(package):
+    """Weights loaded after a fused eval-mode call replace the kept
+    constants: the model then gives exactly what a model built with those
+    weights from the start gives, and not its earlier result."""
+    from tests.test_torch_model import inputs, run_torch
+    builder = functools.partial(build_backbone, fuse_mbconv='on')
+    load = lambda: load_crop_model(package, bn_fold=False, device='cpu',
+                                   backbone_builder=builder)[0]
+    model = load()
+    x, k = inputs(0)
+    before = run_torch(model, x, k)
+    gen = torch.Generator().manual_seed(0)
+    state = {name: (t * (1 + 0.2 * torch.rand(t.shape, generator=gen))
+                    if '.depthwise_conv.' in name or '.norm0.' in name or '.norm1.' in name
+                    else t)
+             for name, t in model.state_dict().items()}
+    model.load_state_dict(state)
+    assert all(b.inner_taps is None for b in model.backbone.blocks
+               if getattr(b, 'fusable', False))
+    fresh = load()
+    fresh.load_state_dict(state)
+    after, want = run_torch(model, x, k), run_torch(fresh, x, k)
+    for got, expected in zip(after, want):
+        np.testing.assert_array_equal(got, expected)
+    assert np.abs(after[1] - before[1]).max() > 1.0

@@ -6,10 +6,9 @@ elsewhere. The file imports neither jax nor the test conftest's jax setup:
 
     python -m pytest --noconftest -m cuda tests/test_torch_mbconv_cuda.py
 
-Tolerances: float32 atol and rtol 1e-5 (the kernel follows the plain
-version's operations in order and is built without FMA contraction; only the
-SE mean sums in another order); bfloat16 7e-2 / 5e-2 on v and 1e-2 on the
-mean, the JAX kernel's bf16 tolerance (tests/test_mbconv_pallas.py).
+Agreement: v exactly equal in float32 and bfloat16 (the kernel follows the
+plain version's operations in order and is built without FMA contraction);
+the SE mean within 1e-5 (it sums the same values in another order).
 """
 
 import numpy as np
@@ -19,8 +18,7 @@ import torch
 from metrabs_tpu_torch.ops import mbconv, mbconv_cuda
 
 pytestmark = pytest.mark.cuda
-TOLS = {torch.float32: (dict(atol=1e-5, rtol=1e-5), dict(atol=1e-5, rtol=1e-5)),
-        torch.bfloat16: (dict(atol=7e-2, rtol=5e-2), dict(atol=1e-2, rtol=1e-2))}
+MEAN_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 @pytest.fixture
@@ -33,10 +31,11 @@ def dev():
 
 def inputs(dev, n, e, h, w, dtype, seed=0):
     g = np.random.default_rng(seed)
-    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
-    return (t(g.normal(size=(n, e, h, w)) * 2, dtype), t(g.normal(size=(e, 1, 3, 3)) * 0.3),
-            t(g.uniform(0.5, 1.5, e)), t(g.normal(size=e) * 0.2),
-            t(g.uniform(0.5, 1.5, e)), t(g.normal(size=e) * 0.2))
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    u = t(g.normal(size=(n, e, h, w)) * 2).to(dtype)
+    return (u,) + mbconv.inner_constants(
+        t(g.normal(size=(e, 1, 3, 3)) * 0.3), t(g.uniform(0.5, 1.5, e)), t(g.normal(size=e) * 0.2),
+        t(g.uniform(0.5, 1.5, e)), t(g.normal(size=e) * 0.2))
 
 
 def check(args):
@@ -45,19 +44,38 @@ def check(args):
     torch.cuda.synchronize()
     assert got_v.dtype == args[0].dtype and got_v.shape == args[0].shape
     assert got_mean.dtype == torch.float32 and got_mean.shape == args[0].shape[:2]
-    tol_v, tol_mean = TOLS[args[0].dtype]
-    torch.testing.assert_close(got_v.float(), want_v.float(), **tol_v)
-    torch.testing.assert_close(got_mean, want_mean, **tol_mean)
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got_mean, want_mean, equal_nan=True, **MEAN_TOL)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
-@pytest.mark.parametrize('shape', [(2, 16, 12, 10), (2, 40, 7, 9), (3, 33, 16, 16),
-                                   (1, 24, 24, 24), (2, 8, 3, 130), (1, 4, 200, 180)],
-                         ids=lambda s: 'x'.join(map(str, s)))
+@pytest.mark.parametrize('shape', [
+    (4, 100, 8, 8), (3, 50, 12, 12), (2, 70, 16, 16), (1, 30, 24, 24),  # ragged last step
+    (2, 64, 8, 8), (2, 16, 12, 10), (2, 40, 7, 9), (3, 33, 16, 16), (1, 24, 24, 24),
+    (2, 8, 3, 130),
+    (1, 4, 200, 180), (1, 3, 61, 67)],  # planes above a warp step's budget: the strip kernel
+    ids=lambda s: 'x'.join(map(str, s)))
 def test_kernel_matches_plain(dev, dtype, shape):
-    """Odd H and W, E not a multiple of 32, a plane wider than the block and
-    one larger than the shared-memory tile (strips)."""
+    """The stage planes 8x8 to 24x24, N*E not a multiple of the planes per
+    warp step, odd H and W (shorter runs), and planes for the strip
+    kernel."""
     check(inputs(dev, *shape, dtype))
+
+
+@pytest.mark.parametrize('bn0', ['random', 'identity'])
+def test_every_finite_bf16_input(dev, bn0):
+    """u holds each of the 65280 finite bfloat16 values once (255 planes of
+    16x16), subnormals and the largest values included, so the packed bf16
+    BN meets every input it can get; with the first BN the identity, the
+    first silu (the kernel's table and the values it computes) does too."""
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    values = bits[torch.isfinite(bits.float())]
+    assert values.numel() == 255 * 16 * 16
+    _, taps, sb = inputs(dev, 1, 255, 16, 16, torch.bfloat16)
+    if bn0 == 'identity':
+        sb[0], sb[1] = 1.0, 0.0
+    u = values.reshape(1, 255, 16, 16).to(dev).contiguous()
+    check((u, taps, sb))
 
 
 def test_zero_border(dev):
@@ -65,22 +83,31 @@ def test_zero_border(dev):
     u = torch.zeros((1, e, 6, 6), device=dev)
     u[0, :, 0, 0] = 1.0
     ones = torch.ones(e, device=dev)
-    args = (u, torch.ones((e, 1, 3, 3), device=dev), ones, ones * 0.5, ones, ones * 0)
+    args = (u,) + mbconv.inner_constants(torch.ones((e, 1, 3, 3), device=dev), ones,
+                                         ones * 0.5, ones, ones * 0)
     check(args)
     v, _ = mbconv_cuda.fused_mbconv_inner(*args)
     assert torch.isfinite(v).all()
 
 
 def test_launch_count_and_errors(dev):
-    args = inputs(dev, 1, 8, 5, 5, torch.float32)
+    u, taps, sb = inputs(dev, 1, 8, 5, 5, torch.float32)
     before = mbconv_cuda.fused_mbconv_inner.launches
-    mbconv_cuda.fused_mbconv_inner(*args)
-    mbconv_cuda.fused_mbconv_inner(*args)
+    by_shape = mbconv_cuda.fused_mbconv_inner.launches_by_shape
+    before_shape = by_shape.get((1, 8, 5, 5, 'float32'), 0)
+    mbconv_cuda.fused_mbconv_inner(u, taps, sb)
+    mbconv_cuda.fused_mbconv_inner(u, taps, sb)
     assert mbconv_cuda.fused_mbconv_inner.launches == before + 2
+    assert by_shape[(1, 8, 5, 5, 'float32')] == before_shape + 2
     with pytest.raises(ValueError, match='float32 or bfloat16'):
-        mbconv_cuda.fused_mbconv_inner(args[0].half(), *args[1:])
+        mbconv_cuda.fused_mbconv_inner(u.half(), taps, sb)
     with pytest.raises(ValueError, match='contiguous'):
-        mbconv_cuda.fused_mbconv_inner(args[0].transpose(2, 3), *args[1:])
+        mbconv_cuda.fused_mbconv_inner(u.transpose(2, 3), taps, sb)
+    with pytest.raises(ValueError, match='aligned'):
+        shifted = torch.empty(u.numel() + 1, device=dev)[1:].view(u.shape)
+        mbconv_cuda.fused_mbconv_inner(shifted, taps, sb)
     with pytest.raises(ValueError, match='on cuda'):
-        mbconv_cuda.fused_mbconv_inner(args[0], args[1].cpu(), *args[2:])
+        mbconv_cuda.fused_mbconv_inner(u, taps.cpu(), sb)
+    with pytest.raises(ValueError, match='taps must be'):
+        mbconv_cuda.fused_mbconv_inner(u, taps[:, :8].contiguous(), sb)
     assert mbconv_cuda.fused_mbconv_inner.launches == before + 2

@@ -74,7 +74,8 @@ def run_torch(model, x, k):
 @pytest.mark.parametrize('fold', [True, False], ids=['folded', 'unfolded'])
 @pytest.mark.parametrize('layout', ['flat', 'scanned'])
 def test_crop_model_matches_jax(packages, jax_outputs, layout, fold):
-    model, cfg, _, _ = load_crop_model(packages[layout], scan_blocks=False, bn_fold=fold)
+    model, cfg, _, _ = load_crop_model(packages[layout], scan_blocks=False, bn_fold=fold,
+                                       device='cpu')
     assert cfg.bn_fold == fold and not cfg.backbone_scan_blocks
     assert not model.training
     x, k = inputs(0)
@@ -93,7 +94,7 @@ def test_stride16_test_plan_matches_jax(packages):
     jmodel = JaxMetrabs(cfg=jcfg, backbone=jax_build_backbone(
         jcfg.backbone, dtype=jnp.float32, scan_blocks=False, stride_test=16, bn_fold=True))
     model = build_crop_model(jcfg)
-    template, _, _, _ = load_crop_model(packages['flat'], bn_fold=True)
+    template, _, _, _ = load_crop_model(packages['flat'], bn_fold=True, device='cpu')
     model.load_state_dict(template.state_dict())
     model.eval()
     x, k = inputs(2)

@@ -1,0 +1,164 @@
+"""The port stands alone: `metrabs_tpu_torch` and `chip_smoke.py` import
+nothing of jax, flax or the JAX package `metrabs_tpu`, its entry points run
+on the card unless the caller names another device, and its copies of the
+JAX package's framework-free modules (config, joint info, TTA schedules,
+skeletons, bone priors) agree with the originals.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from metrabs_tpu import config as jax_config
+from metrabs_tpu.pipeline import bone_priors as jax_bone_priors
+from metrabs_tpu.pipeline import skeletons as jax_skeletons
+from metrabs_tpu.pipeline import tta as jax_tta
+from metrabs_tpu_torch import config
+from metrabs_tpu_torch.io import packaging
+from metrabs_tpu_torch.pipeline import bone_priors, skeletons, tta
+from metrabs_tpu_torch.pipeline.estimator import PoseEstimator
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax')
+PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / 'metrabs_tpu_torch').rglob('*.py')
+                    if '_build' not in p.parts) + ['chip_smoke.py']
+
+
+def imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', PORT_FILES)
+def test_port_file_imports_nothing_of_jax(path):
+    """Every import statement, also those inside functions."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = [m for m in imported_modules(tree) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, f'{path} imports {bad}'
+
+
+_STANDALONE_SCRIPT = """
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import metrabs_tpu_torch
+for mod in pkgutil.walk_packages(metrabs_tpu_torch.__path__, 'metrabs_tpu_torch.'):
+    importlib.import_module(mod.name)
+import chip_smoke
+from metrabs_tpu_torch.io.packaging import pose_estimator_from_variables
+from metrabs_tpu_torch.config import ModelConfig
+manifest = chip_smoke.manifest_for('float32')
+manifest['model_config']['proc_side'] = 64
+cfg = ModelConfig(**manifest['model_config'])
+variables = chip_smoke.mint_crop_variables(cfg, torch.Generator().manual_seed(0))
+est = pose_estimator_from_variables(variables, manifest, device='cpu')
+frames = np.random.default_rng(0).integers(0, 256, (1, 120, 160, 3), dtype=np.uint8)
+out = est.estimate_poses_batched(frames, [[[20, 10, 60, 100]]], num_aug=2)
+assert tuple(out['poses3d'].shape) == (1, 1, 17, 3), out['poses3d'].shape
+assert bool(out['poses3d'].isfinite().all())
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
+assert not leaked, leaked
+print('STANDALONE_OK')
+"""
+
+
+def test_port_and_chip_smoke_run_without_jax_loaded():
+    """Every module of the port and chip_smoke's helpers, then a small CPU
+    `estimate_poses_batched` on weights minted with torch alone, in a
+    process that never loads jax, flax or `metrabs_tpu`."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN))
+    proc = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'STANDALONE_OK' in proc.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without CUDA, wherever the test runs."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+@pytest.mark.parametrize('entry', ['PoseEstimator', 'pose_estimator_from_variables',
+                                   'crop_model_from_variables', 'detector_from_variables',
+                                   'load_crop_model', 'load_pose_estimator'])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
+    calls = dict(
+        PoseEstimator=lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
+                                            config.ModelConfig()),
+        pose_estimator_from_variables=lambda: packaging.pose_estimator_from_variables({}, {}),
+        crop_model_from_variables=lambda: packaging.crop_model_from_variables({}, {}),
+        detector_from_variables=lambda: packaging.detector_from_variables(
+            {}, {}, bn_fold=False),
+        load_crop_model=lambda: packaging.load_crop_model(str(tmp_path)),
+        load_pose_estimator=lambda: packaging.load_pose_estimator(str(tmp_path)))
+    with pytest.raises(RuntimeError, match="needs CUDA.*device='cpu'"):
+        calls[entry]()
+
+
+def test_estimator_runs_on_the_cpu_when_asked(no_cuda):
+    est = PoseEstimator(torch.nn.Identity(), skeletons.H36M_17, config.ModelConfig(),
+                        bone_mean_lengths=np.ones(16, np.float32), device='cpu')
+    assert est.device == torch.device('cpu') and est._mean_bones.device.type == 'cpu'
+
+
+@pytest.mark.parametrize('name', ['ModelConfig', 'AugConfig'])
+def test_config_fields_and_defaults_match_jax(name):
+    ours, theirs = getattr(config, name), getattr(jax_config, name)
+    as_pairs = lambda cls: [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert as_pairs(ours) == as_pairs(theirs)
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
+
+
+@pytest.mark.parametrize('aug', [{}, dict(rot_aug_360=True), dict(rot_aug_360_half=True),
+                                 dict(rot_aug_degrees=10.0)],
+                         ids=['default', '360', '360_half', 'deg10'])
+@pytest.mark.parametrize('num_aug', [1, 2, 3, 4, 5])
+def test_tta_params_match_jax(num_aug, aug):
+    ours = tta.make_tta_params(num_aug, config.AugConfig(**aug))
+    theirs = jax_tta.make_tta_params(num_aug, jax_config.AugConfig(**aug))
+    for field in dataclasses.fields(theirs):
+        want = getattr(theirs, field.name)
+        got = getattr(ours, field.name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=field.name)
+
+
+@pytest.mark.parametrize('name', sorted(jax_skeletons.BUILTIN_SKELETONS))
+def test_builtin_skeleton_matches_jax(name):
+    """Names, edges, mirror mapping and joint-to-bone matrix of the built-in
+    skeleton, its indices through a registry of H36M-17 joints (where it
+    resolves there), and its bone priors."""
+    ours, theirs = skeletons.BUILTIN_SKELETONS[name], jax_skeletons.BUILTIN_SKELETONS[name]
+    assert (ours.names, ours.edges) == (theirs.names, theirs.edges)
+    np.testing.assert_array_equal(ours.mirror_mapping, theirs.mirror_mapping)
+    np.testing.assert_array_equal(ours.joint2bone_matrix(), theirs.joint2bone_matrix())
+    reg = skeletons.SkeletonRegistry(skeletons.H36M_17)
+    jax_reg = jax_skeletons.SkeletonRegistry(jax_skeletons.H36M_17)
+    assert reg.skeleton_names == jax_reg.skeleton_names
+    if name in jax_reg.skeleton_names:
+        np.testing.assert_array_equal(reg.indices(name), jax_reg.indices(name))
+        assert reg.joint_names(name) == jax_reg.joint_names(name)
+        assert reg.joint_edges(name) == jax_reg.joint_edges(name)
+    np.testing.assert_array_equal(bone_priors.priors_for_joint_info(ours),
+                                  jax_bone_priors.priors_for_joint_info(theirs))
+
+
+def test_bone_priors_asset_is_a_copy_of_jax():
+    assert Path(bone_priors.ASSET_PATH).read_bytes() == Path(
+        jax_bone_priors.ASSET_PATH).read_bytes()
+    np.testing.assert_array_equal(bone_priors.priors_for_joint_info(skeletons.H36M_17),
+                                  jax_bone_priors.priors_for_joint_info(jax_skeletons.H36M_17))
+    unknown = skeletons.make_joint_info(['a', 'b'], [('a', 'b')])
+    assert bone_priors.priors_for_joint_info(unknown) is None

@@ -18,6 +18,7 @@ import torch
 
 # By its directory-local name (pytest puts tests/ on sys.path): a `tests`
 # package installed in site-packages can shadow `tests._torch_port`.
+import _torch_port
 from _torch_port import CASES, make_case
 from metrabs_tpu_torch.ops import warp, warp_cuda
 
@@ -49,6 +50,24 @@ def test_kernel_matches_plain(dev, name):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize('out', [(64, 130), (7, 9), (33, 3), (16, 1), (20, 132)],
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_kernel_matches_plain_exactly_at_any_width(dev, out):
+    """Output widths that end a row partway through a block's 128 columns
+    (a thread's later pixels past the row end, masked) and one that fills
+    its blocks; the kernel and the plain version round alike, so they agree
+    exactly."""
+    case = _torch_port.random_case(np.random.default_rng(3), out=out, distort=True)
+    t = {k: torch.tensor(v, device=dev) for k, v in case.items() if k != 'output_shape'}
+    flat, info, per_image = warp.build_flat_pyramid(t.pop('images'), 3)
+    params, geom = warp.pyramid_warp_params(level_info=info, per_image_len=per_image, **t)
+    got = warp_cuda.warp_pyramid(flat, params, geom, out)
+    want = warp.warp_pyramid(flat, params, geom, out)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() == 0.0
 
 
 def test_launch_counter_counts_kernel_launches(dev):
