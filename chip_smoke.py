@@ -38,12 +38,27 @@ line:
     estimator on the GPU against the same one on the CPU on a small frame,
     times the bf16 path, and splits one call's time under torch.profiler,
     with K2's launches and device time per call against the bound of the
-    launches its wrapper counted, shape by shape.
+    launches its wrapper counted, shape by shape;
+ 6. train: the trainer (`metrabs_tpu_torch.train`) on EffNetV2-S@256
+    Metrabs with BN unfolded and `fuse_mbconv='on'`, H36M-17 3D and LSP-14
+    2D joints, weights minted from TrainConfig's seed, bf16 compute with
+    f32 master weights, batches of 32 + 32 synthetic examples through
+    `ParallelBatchLoader` and `device_prefetch` (one batch, repeated): 3
+    warm-up and 20 timed steps (median step time, images/s), one more under
+    torch.profiler (device-busy share, kernels), the peak memory and the
+    losses. Checks finite losses that fall on the repeated batch, a nonzero
+    gradient in every backbone parameter (F1) and no K1 or K2 launch in a
+    step; holds one float32 step on the GPU (TF32 off) against the same
+    step on the CPU; then packages the EMA weights and serves them with
+    `load_pose_estimator` on the main phase's frames and boxes, folded (K1
+    once per non-empty chunk) and unfolded with `fuse_mbconv='on'` (K2 28
+    times per chunk, v equal to the plain chain's on the trained weights).
 The second-to-last line is a JSON object with the kernels' measurements;
 the last is {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import dataclasses
 import functools
 import json
 import math
@@ -96,6 +111,15 @@ K1_OPS_PER_PIXEL = 82
 DETECTOR_SIZE = 416
 MAX_DETECTIONS = 16
 BOX_TOL_PX = 1e-2
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+TRAIN_PARITY_BATCH = 2  # per stream, in the float32 GPU-vs-CPU step
+# Kernel-name groups of a train step's device time, first match wins.
+TRAIN_KERNEL_GROUPS = (
+    ('optimizer (foreach)', ('multi_tensor_apply',)),
+    ('convolution', ('conv', 'gemm', 'xmma', 'cudnn', 'sm90_', 'cutlass', 'wgrad', 'dgrad')),
+    ('reduction', ('reduce',)),
+    ('copy, cast, memcpy', ('copy', 'memcpy', 'memset', 'cat')),
+    ('elementwise', ('elementwise', 'vectorized', 'unrolled')))
 
 
 def phase(name: str, msg: str) -> None:
@@ -435,6 +459,294 @@ def profile_detect(est, run):
     return wall_ms, device_ms, host_ms, busy_ms, len(kernels), counts
 
 
+def synthetic_example(index: int, stream: str, side: int = PROC_SIDE) -> dict:
+    """Training example `index` of the 3D or 2D stream, made from (SEED,
+    index) alone: a noise image, a camera, and a person of 17 joints around
+    a root 2.5-5 m away (3D) or 14 joints inside the crop (2D), ~10% of the
+    joints marked invalid."""
+    rng = np.random.default_rng((SEED, index))
+    k = np.float32([[1.5 * side, 0, side / 2], [0, 1.5 * side, side / 2], [0, 0, 1]])
+    out = dict(image=rng.random((side, side, 3), dtype=np.float32), intrinsics=k)
+    if stream == '3d':
+        root = np.concatenate([rng.normal(0, 300, 2), rng.uniform(2500, 5000, 1)])
+        out.update(coords3d_true=(root + rng.normal(0, 250, (17, 3))).astype(np.float32),
+                   joint_validity_mask=rng.random(17) < 0.9)
+    else:
+        out.update(coords2d_true=rng.uniform(0.12 * side, 0.88 * side, (14, 2)).astype(
+            np.float32), joint_validity_mask=rng.random(14) < 0.9)
+    return out
+
+
+def synthetic_batches(tcfg, n_steps: int, dev):
+    """`n_steps` (3D, 2D) batch pairs of tcfg's sizes through
+    `ParallelBatchLoader` and `device_prefetch`. Both streams cycle over one
+    batch's worth of examples, so every step sees the same batch."""
+    import itertools
+
+    from metrabs_tpu_torch.data.pipeline import ParallelBatchLoader, device_prefetch
+
+    loaders = [ParallelBatchLoader(lambda i, _, s=stream: synthetic_example(i, s),
+                                   itertools.cycle(range(offset, offset + size)), size,
+                                   n_workers=4, seed=SEED)
+               for stream, offset, size in (('3d', 0, tcfg.batch_size),
+                                            ('2d', tcfg.batch_size, tcfg.batch_size_2d))]
+    pairs = ({'3d': a, '2d': b} for a, b in itertools.islice(zip(*loaders), n_steps))
+    return device_prefetch(({f'{s}/{k}': v for s, batch in pair.items()
+                             for k, v in batch.items()} for pair in pairs), device=dev), loaders
+
+
+def split_streams(batch: dict):
+    return [{k.split('/', 1)[1]: v for k, v in batch.items() if k.startswith(s)}
+            for s in ('3d/', '2d/')]
+
+
+def make_trainer(cfg, tcfg, variables, dev, fuse: str = 'off'):
+    """(train state on `dev`, train step) of a crop model with `variables`."""
+    from metrabs_tpu_torch.io.weights import crop_model_state_dict_from_flax
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.models.metrabs import build_crop_model
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17, LSP_14
+    from metrabs_tpu_torch.train import loop, optim
+
+    model = build_crop_model(cfg, functools.partial(build_backbone, fuse_mbconv=fuse))
+    model.load_state_dict(crop_model_state_dict_from_flax(variables, cfg))
+    optimizer = optim.Optimizer(tcfg)
+    state = loop.create_train_state(model, optimizer, device=dev)
+    return state, loop.make_train_step(optimizer, H36M_17, LSP_14, cfg, tcfg)
+
+
+def train_parity(cfg, tcfg, variables, dev):
+    """One float32 step (TF32 off) on the GPU against the same step on the CPU
+    from the same state, batch and mix, drop-connect off on both (the two
+    devices' generators differ). Returns the worst deviations; fails past
+    the parity tolerance of tests/_torch_train.py, with Adam's moments held
+    per tensor as the gradients are (mu is 0.1 g after one step; float32
+    rounding through forty train-mode BatchNorms reaches ~6e-5 of a tensor's
+    largest gradient, beyond an elementwise rtol on its small elements)."""
+    from metrabs_tpu_torch.models.backbones import efficientnet_v2
+
+    cfg32 = dataclasses.replace(cfg, dtype='float32')
+    n = TRAIN_PARITY_BATCH
+    b3, b2 = [{k: torch.as_tensor(np.stack([synthetic_example(i, s)[k] for i in ids]))
+               for k in synthetic_example(0, s)}
+              for s, ids in (('3d', range(n)), ('2d', range(100, 100 + n)))]
+    mix = torch.rand((2 * n, 1, 1), generator=torch.Generator().manual_seed(SEED))
+    saved_survival = efficientnet_v2.SURVIVAL_PROB
+    efficientnet_v2.SURVIVAL_PROB = 1.0
+    try:
+        runs = []
+        for d in (dev, 'cpu'):
+            state, step = make_trainer(cfg32, tcfg, variables, d)
+            losses = step(state, b3, b2, mix=mix)
+            named = lambda t: {k: v.detach().float().cpu() for k, v in t.items()}
+            adam = state.opt_state.groups['all']
+            runs.append(dict(
+                losses=named(losses), grads=named({k: p.grad for k, p in state.params().items()}),
+                params=named(state.params()), mu=named(adam.mu), nu=named(adam.nu),
+                ema=named(state.ema_params),
+                stats=named({k: b for k, b in state.model.named_buffers()
+                             if k.endswith(('running_mean', 'running_var'))})))
+            del state
+    finally:
+        efficientnet_v2.SURVIVAL_PROB = saved_survival
+    got, want = runs
+    lr = float(tcfg.base_learning_rate)
+    worst = {}
+    worst['loss_rel'] = max(abs(got['losses'][k] - want['losses'][k]).item()
+                            / abs(want['losses'][k]).item() for k in want['losses'])
+    # A tensor whose gradient is zero in exact arithmetic (the bias of a BN
+    # that the next train-mode BN cancels) holds rounding noise on both
+    # sides: it and its moments are held against the model's largest value.
+    largest_grad = max(v.abs().max().item() for v in want['grads'].values())
+    zero = {k for k, w in want['grads'].items() if w.abs().max().item() < 1e-6 * largest_grad}
+    for key in ('grads', 'mu', 'nu'):
+        largest = max(v.abs().max().item() for v in want[key].values())
+        worst[f'{key}_rel_to_tensor_max'] = max(
+            (got[key][k] - w).abs().max().item() / (largest if k in zero else w.abs().max().item())
+            for k, w in want[key].items())
+    stats_excess = max(((got['stats'][k] - w).abs() - (1e-7 + 1e-4 * w.abs())).max().item()
+                       for k, w in want['stats'].items())
+    moved = {k: (got['params'][k] - w).abs() for k, w in want['params'].items()}
+    n_near = sum(int((d <= 1e-2 * lr).sum()) for d in moved.values())
+    n_all = sum(d.numel() for d in moved.values())
+    worst['params_max_over_lr'] = max(d.max().item() for d in moved.values()) / lr
+    worst['params_near_share'] = n_near / n_all
+    # The EMA blends (1 - momentum) of the updated parameters in (all of
+    # them at momentum 1): it carries that share of their difference.
+    carried = 1.0 if tcfg.ema_momentum >= 1.0 else 1.0 - tcfg.ema_momentum
+    ema_excess = max(((got['ema'][k] - w).abs() - carried * moved[k]
+                      - (1e-7 + 1e-4 * w.abs())).max().item() for k, w in want['ema'].items())
+    worst['stats_excess'], worst['ema_excess'] = stats_excess, ema_excess
+    ok = (worst['loss_rel'] <= 1e-4 and worst['grads_rel_to_tensor_max'] <= 1e-4
+          and worst['mu_rel_to_tensor_max'] <= 1e-4 and worst['nu_rel_to_tensor_max'] <= 2e-4
+          and stats_excess <= 0 and ema_excess <= 0 and worst['params_max_over_lr'] <= 2
+          and worst['params_near_share'] >= 0.999)
+    if not ok:
+        fail('train', f'the float32 GPU step differs from the CPU step: {worst}')
+    return worst
+
+
+def profile_step(run):
+    """One `run()` under torch.profiler: (wall ms, device busy ms, kernels,
+    {kernel group: device ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith(('Memcpy', 'Memset'))]
+    groups = {}
+    for e in device:
+        name = e.name.lower()
+        group = next((g for g, keys in TRAIN_KERNEL_GROUPS if any(k in name for k in keys)),
+                     'other')
+        groups[group] = groups.get(group, 0.0) + e.device_time_total / 1e3
+    return wall_ms, sum(e.device_time_total for e in device) / 1e3, len(kernels), groups
+
+
+def train_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
+    """The [train] phase (module docstring). Returns the K1 and K2 launches
+    of the serving run after training."""
+    import shutil
+
+    from metrabs_tpu_torch.config import AugConfig, ModelConfig, TrainConfig
+    from metrabs_tpu_torch.io.packaging import (load_pose_estimator,
+                                                save_pose_estimator_package)
+    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    tcfg = TrainConfig()
+    variables = mint_crop_variables(cfg, torch.Generator().manual_seed(tcfg.seed))
+    torch.cuda.reset_peak_memory_stats()
+    state, step = make_trainer(cfg, tcfg, variables, dev, fuse='on')
+    if sum(getattr(b, 'fusable', False) and b.fuse == 'on'
+           for b in state.model.backbone.blocks) != K2_BLOCKS:
+        fail('train', f'expected {K2_BLOCKS} blocks built with fuse_mbconv on')
+    gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    batches, loaders = synthetic_batches(tcfg, n_steps, dev)
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    losses, times = [], []
+    try:
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b3, b2 = split_streams(next(batches))
+            losses.append(step(state, b3, b2, generator=gen))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        b3, b2 = split_streams(next(batches))
+        wall_ms, busy_ms, n_kernels, groups = profile_step(
+            lambda: losses.append(step(state, b3, b2, generator=gen)))
+    finally:
+        for loader in loaders:
+            loader.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if warp_cuda.warp_pyramid.launches or mbconv_cuda.fused_mbconv_inner.launches:
+        fail('train', 'a train step launched K1 or K2')
+    loss = torch.stack([l['loss'] for l in losses]).float().cpu()
+    if not all(bool(torch.isfinite(v).all()) for l in losses for v in l.values()):
+        fail('train', f'non-finite losses: {loss.tolist()}')
+    if not loss[-5:].mean() < loss[:5].mean():
+        fail('train', f'the loss on the repeated batch does not fall: {loss.tolist()}')
+    silent = [n for n, p in state.model.backbone.named_parameters()
+              if p.grad is None or not p.grad.abs().max() > 0]
+    if silent:
+        fail('train', f'{len(silent)} backbone parameters got no gradient, e.g. {silent[:4]}')
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    n_images = tcfg.batch_size + tcfg.batch_size_2d
+    phase('train', f'EffNetV2-S@{PROC_SIDE} Metrabs, bf16 compute, f32 master weights, '
+                   f'fuse_mbconv on, batch {tcfg.batch_size}+{tcfg.batch_size_2d}: '
+                   f'{TRAIN_STEPS} timed steps after {TRAIN_WARMUP}: median '
+                   f'{step_s * 1e3:.1f} ms/step (CUDA-synchronised), '
+                   f'{n_images / step_s:.1f} images/s; all: '
+                   + ', '.join(f'{t * 1e3:.1f}' for t in times))
+    phase('train', f'one step under torch.profiler: wall {wall_ms:.1f} ms, device busy '
+                   f'{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels; '
+                   f'peak memory {peak_gb:.2f} GiB (max_memory_allocated); device time: '
+                   + ', '.join(f'{g} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)'
+                               for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    phase('train', f'loss first {loss[0]:.4f}, last {loss[-1]:.4f} (repeated batch; all: '
+                   + ', '.join(f'{v:.4f}' for v in loss.tolist()) + '); every backbone '
+                   'parameter got a nonzero gradient; K1 and K2 launches in training: 0')
+    worst = train_parity(cfg, tcfg, variables, dev)
+    phase('train', 'float32 step, GPU (TF32 off) vs CPU from the same state and mix: '
+                   + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()))
+
+    # Serve the EMA weights through a package.
+    package = root / 'runs' / 'chip_smoke_trained_package'
+    shutil.rmtree(package, ignore_errors=True)
+    try:
+        save_pose_estimator_package(
+            str(package), cfg=cfg, aug_cfg=AugConfig(), joint_info=H36M_17,
+            crop_model_variables=flax_variables_from_state_dict(state.ema_state_dict()))
+        del state
+        run_kwargs = dict(num_aug=NUM_AUG, internal_batch_size=INTERNAL_BATCH)
+        chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
+        folded = load_pose_estimator(str(package), device=dev)
+        folded.estimate_poses_batched(frames, boxes, box_valid, **run_kwargs)  # warm-up
+        torch.cuda.synchronize()
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+        out = folded.estimate_poses_batched(frames, boxes, box_valid, **run_kwargs)
+        torch.cuda.synchronize()
+        k1_folded = warp_cuda.warp_pyramid.launches
+        if not folded.cfg.bn_fold or k1_folded != chunks:
+            fail('train', f'folded serving: bn_fold {folded.cfg.bn_fold}, K1 launched '
+                          f'{k1_folded} times, expected {chunks}')
+        del folded
+        fused = load_pose_estimator(str(package), device=dev, cfg_overrides={'bn_fold': False},
+                                    backbone_builder=functools.partial(build_backbone,
+                                                                       fuse_mbconv='on'))
+        # The first chunk's input to each fused chain (its expand conv's
+        # output), kept to hold K2 against its plain version afterwards.
+        fused_blocks = [b for b in fused.crop_model.backbone.blocks
+                        if getattr(b, 'fusable', False)]
+        inputs = {}
+        hooks = [b.expand_conv.register_forward_hook(
+            lambda m, args, u, b=b: inputs.setdefault(b, u.contiguous()))
+            for b in fused_blocks]
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+        try:
+            out_fused = fused.estimate_poses_batched(frames, boxes, box_valid, **run_kwargs)
+            torch.cuda.synchronize()
+        finally:
+            for hook in hooks:
+                hook.remove()
+        k1_fused, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+        if k1_fused != chunks or k2 != K2_BLOCKS * chunks:
+            fail('train', f'fused serving: K1 launched {k1_fused} times and K2 {k2}, expected '
+                          f'{chunks} and {K2_BLOCKS * chunks}')
+        # The kept constants, made from the trained weights at the first call.
+        err_v = max((mbconv_cuda.fused_mbconv_inner(u, *b._inner_constants())[0].float()
+                     - mbconv.fused_mbconv_inner(u, *b._inner_constants())[0].float()
+                     ).abs().max().item() for b, u in inputs.items())
+        if len(inputs) != K2_BLOCKS or err_v != 0.0:
+            fail('train', f'K2 on the trained weights: max |kernel - plain| v {err_v:.3g} over '
+                          f'{len(inputs)} blocks (must be 0)')
+        valid_t = torch.as_tensor(box_valid, device=dev)
+        for result in (out, out_fused):
+            if not all(bool(torch.isfinite(result[k][valid_t]).all())
+                       for k in ('poses3d', 'poses2d')):
+                fail('train', 'non-finite poses from the trained package')
+        phase('train', f'trained EMA weights packaged and served ({int(box_valid.sum())} valid '
+                       f'boxes, {chunks} chunks): folded K1 launches {k1_folded}; unfused with '
+                       f'fuse_mbconv on K1 {k1_fused}, K2 {k2}, K2 v vs plain on the trained '
+                       f'weights {err_v:.3g} on the first chunk\'s input to each of the '
+                       f'{len(inputs)} blocks; '
+                       f'poses finite')
+    finally:
+        shutil.rmtree(package, ignore_errors=True)
+    return dict(k1=k1_fused, k2=k2)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -704,20 +1016,27 @@ def main() -> None:
                     + f'), device {device_ms["K2 (mbconv kernel)"]:.3f} ms against a bound of '
                       f'{k2_bound_call:.3f} ms for these launches')
 
+    # 6. The trainer, then the trained weights served through K1 and K2.
+    del est, est32, ref32, est_d
+    torch.cuda.empty_cache()
+    serve = train_phase(root, dev, frames, boxes, box_valid)
+
     # No single PyTorch call computes either kernel's function: library_ms is
     # null (the unfused cuDNN chain's time stands beside K2 as unfused_ms).
     k2_main = k2_results[K2_MAIN_CASE]
     print(json.dumps({'kernels': [
         dict(name='warp_pyramid', route='cuda', source='metrabs_tpu_torch/csrc/warp.cu',
              replaces='metrabs_tpu/ops/warp_pallas.py:68', launches=det_warp_launches,
-             launches_by_path=dict(main=launches, detect=det_warp_launches),
+             launches_by_path=dict(main=launches, detect=det_warp_launches, train=0,
+                                   serve_after_train=serve['k1']),
              max_abs_err=max_err, ms=kernel_ms, event_ms=k1_event_ms, plain_ms=plain_ms,
              bytes=k1_bytes,
              bound_ms=k1_bound_ms, bound_by=k1_bound_by, bound_share=k1_bound_ms / kernel_ms,
              library_ms=None),
         dict(name='fused_mbconv_inner', route='cuda', source='metrabs_tpu_torch/csrc/mbconv.cu',
              replaces='metrabs_tpu/ops/mbconv_pallas.py:77', launches=det_k2_launches,
-             launches_by_path=dict(main=main_k2_launches, detect=det_k2_launches),
+             launches_by_path=dict(main=main_k2_launches, detect=det_k2_launches, train=0,
+                                   serve_after_train=serve['k2']),
              max_abs_err=max(r['max_abs_err'] for r in k2_results), ms=k2_main['ms'],
              event_ms=k2_main['event_ms'], plain_ms=k2_main['plain_ms'],
              bytes=k2_main['bytes'],

@@ -1,6 +1,6 @@
-"""Static configuration of the crop model and the test-time augmentation
-(`metrabs_tpu/config.py`'s `ModelConfig` and `AugConfig`, same fields and
-defaults).
+"""Static configuration of the crop model, the test-time augmentation and
+training (`metrabs_tpu/config.py`'s `ModelConfig`, `AugConfig` and
+`TrainConfig`, same fields and defaults).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 A package manifest written by either package holds these fields, so the
@@ -14,6 +14,7 @@ as its module docstrings say.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +36,8 @@ class ModelConfig:
     # Scan-stacked repeated backbone blocks in the JAX package; the port runs
     # the flat `blocks.{i}` layout only and unrolls a scanned package at load.
     backbone_scan_blocks: bool = True
-    # Rematerialisation in the JAX backward pass; no effect on inference.
+    # Rematerialise the backbone's blocks in the backward pass
+    # (`torch.utils.checkpoint` per block); no effect on inference.
     backbone_remat: bool = False
     model_class: str = 'Metrabs'
     n_joints: int = 17
@@ -62,3 +64,42 @@ class AugConfig:
     rot_aug_360: bool = False
     rot_aug_360_half: bool = False
     detector_flip_vertical_too: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the reference's defaults)."""
+
+    batch_size: int = 32
+    batch_size_2d: int = 32
+    batch_size_test: int = 150
+    training_steps: int = 400_000
+    base_learning_rate: float = 2.121e-4
+    weight_decay: float = 3e-3
+    ema_momentum: float = 1.0
+    grad_accum_steps: int = 1
+    # Max-norm projection of the backbone's conv kernels after every update;
+    # inf is off.
+    constrain_kernel_norm: float = float('inf')
+    dual_finetune_lr: bool = False
+    # Dtype of Adam's first moment ('' keeps float32).
+    optimizer_mu_dtype: str = ''
+    loss2d_factor: float = 0.2
+    absloss_factor: float = 0.1
+    absloss_start_step: int = 5000
+    mean_relative: bool = True
+    ghost_bn_splits: Tuple[int, ...] = ()
+    seed: int = 1
+    # The last N steps run the model in inference mode (BatchNorm on its
+    # running statistics, no drop-connect); 0 disables.
+    finetune_in_inference_mode: int = 0
+    # Latent-joint and manifold modes; the port trains the plain mode only.
+    transform_coords: bool = False
+    predict_all_and_latents: bool = False
+    regularize_to_manifold: bool = False
+    loss_manif_factor: float = 1.0
+    loss_manif_factor2d: float = 1.0
+    teacher_loss_factor: float = 1.0
+    teacher_start_step: int = 5000
+    allhead_aegt_loss_factor: float = 1.0
+    stop_gradient_latent: bool = True

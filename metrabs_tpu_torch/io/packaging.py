@@ -1,4 +1,5 @@
-"""Loads a pose-estimator package directory (`metrabs_tpu/io/packaging.py`).
+"""Writes and loads pose-estimator package directories
+(`metrabs_tpu/io/packaging.py`).
 
 Same package format as the JAX package (`manifest.json`,
 `crop_model.msgpack`, optionally `detector.msgpack` and
@@ -16,6 +17,9 @@ and raises where CUDA is not available and no device was named.
 arguments) builds the crop model's backbone, e.g.
 `functools.partial(build_backbone, fuse_mbconv='on')` for the fused MBConv
 kernel, which needs `cfg_overrides={'bn_fold': False}`.
+
+`save_pose_estimator_package` writes the plain Metrabs crop model (e.g. a
+model the port trained) in the same format, which both packages load.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from metrabs_tpu_torch.config import AugConfig, ModelConfig
 from metrabs_tpu_torch.detect.yolov4 import PersonDetector, build_detector_model
 from metrabs_tpu_torch.io import weights
-from metrabs_tpu_torch.io.checkpoints import load_model_msgpack
+from metrabs_tpu_torch.io.checkpoints import export_model_msgpack, load_model_msgpack
 from metrabs_tpu_torch.models.metrabs import Metrabs, build_crop_model
 from metrabs_tpu_torch.pipeline.estimator import PoseEstimator, checked_device
 from metrabs_tpu_torch.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
@@ -40,6 +44,46 @@ from metrabs_tpu_torch.utils.joint_info import JointInfo
 # ModelConfig fields that define the trained model and may not be overridden.
 _PROTECTED_FIELDS = {'proc_side', 'depth', 'n_joints', 'backbone', 'stride_train',
                      'stride_test'}
+
+
+def save_pose_estimator_package(
+        directory: str, *, cfg: ModelConfig, aug_cfg: AugConfig,
+        crop_model_variables: Dict, joint_info: JointInfo,
+        skeleton_registry: Optional[SkeletonRegistry] = None,
+        bone_mean_lengths: Optional[np.ndarray] = None,
+        joint_transform_matrix: Optional[np.ndarray] = None) -> None:
+    """A package of the plain Metrabs crop model without a detector:
+    `crop_model_variables` is its flat-layout JAX-style tree of numpy arrays
+    (`io.weights.flax_variables_from_state_dict` of its state dict, BN
+    unfolded), `cfg` its config with `backbone_scan_blocks=False`. The
+    manifest is the JAX package's."""
+    if cfg.backbone_scan_blocks or cfg.bn_fold:
+        raise ValueError('The port writes the flat, unfolded layout: '
+                         'backbone_scan_blocks and bn_fold must be False')
+    os.makedirs(directory, exist_ok=True)
+    export_model_msgpack(os.path.join(directory, 'crop_model.msgpack'), crop_model_variables)
+    if joint_transform_matrix is not None:
+        np.save(os.path.join(directory, 'joint_transform.npy'), joint_transform_matrix)
+    skeletons = {}
+    if skeleton_registry is not None:
+        for name in skeleton_registry.skeleton_names:
+            skeletons[name] = dict(
+                indices=[int(i) for i in skeleton_registry.indices(name)],
+                names=list(skeleton_registry.joint_names(name)),
+                edges=[list(map(int, e)) for e in skeleton_registry.joint_edges(name)])
+    manifest = dict(
+        format_version=1, model_config=dataclasses.asdict(cfg),
+        aug_config=dataclasses.asdict(aug_cfg), joint_names=list(joint_info.names),
+        joint_edges=[list(map(int, e)) for e in joint_info.edges], has_detector=False,
+        detector_scan_repeats=True, detector_type='yolov4', detector_dtype='bfloat16',
+        detector_input_size=None, has_joint_transform=joint_transform_matrix is not None,
+        latent_mode='', n_latents=0, model_class='metrabs', bones_25d=None,
+        bone_lengths_ideal=None,
+        bone_mean_lengths=(None if bone_mean_lengths is None
+                           else [float(x) for x in bone_mean_lengths]),
+        skeletons=skeletons)
+    with open(os.path.join(directory, 'manifest.json'), 'w') as f:
+        json.dump(manifest, f, indent=2)
 
 
 def _check_model_class(manifest: dict) -> None:

@@ -13,6 +13,14 @@ The detector's half: `yolo_scanned_to_flat` unrolls YOLOv4's scanned
 residual groups (the inverse of `metrabs_tpu/detect/yolov4.py::
 yolo_flat_to_scanned`), and `detector_state_dict_from_flax` maps the flat
 `conv_<i>/{conv,bn}` tree onto the port's detector modules.
+
+Training's half: `flax_train_state_dict` and `load_flax_train_state` carry a
+JAX `TrainState` across in both directions, in the form
+`flax.serialization.to_state_dict` gives it (nested dicts of numpy arrays;
+the JAX side restores with `from_state_dict(template, ...)`): params and
+batch_stats, the Adam moments and counts of `optax.adamw` (inside
+`multi_transform` for dual LR, inside `MultiSteps` for accumulation), mapped
+with the parameters' transposes, and the EMA parameters.
 """
 
 from __future__ import annotations
@@ -187,18 +195,32 @@ def _torch_key(key: Key) -> str:
     return '.'.join(parts + [names[collection, leaf]])
 
 
+def _tensor(value) -> torch.Tensor:
+    value = np.asarray(value)
+    if value.dtype.name == 'bfloat16':  # JAX's bfloat16 (ml_dtypes): widen exactly
+        return torch.tensor(value.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(value))
+
+
+def torch_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """Torch names and layouts of a flat-layout JAX variable tree (any of
+    its collections; conv kernels HWIO -> OIHW), unchecked."""
+    state = {}
+    for key, value in flatten_dict(variables).items():
+        tensor = _tensor(value)
+        if key[-1] == 'kernel':
+            tensor = tensor.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+        state[_torch_key(key)] = tensor
+    return state
+
+
 def crop_model_state_dict_from_flax(variables: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's `Metrabs` state_dict from a flat-layout JAX variable tree
     (numpy leaves) of the same `cfg` (its `bn_fold` picks the BN layout).
     Raises ValueError on a leftover, missing or misshapen entry."""
     with torch.device('meta'):
         expected = build_crop_model(cfg).state_dict()
-    state = {}
-    for key, value in flatten_dict(variables).items():
-        value = np.asarray(value)
-        if key[-1] == 'kernel':
-            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        state[_torch_key(key)] = torch.tensor(np.ascontiguousarray(value))
+    state = torch_state_dict_from_flax(variables)
     missing = sorted(set(expected) - set(state))
     leftover = sorted(set(state) - set(expected))
     if missing or leftover:
@@ -228,21 +250,90 @@ def flax_variables_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict:
                 parts.append(path[i])
                 i += 1
         value = tensor.detach().cpu().float().numpy()
-        # A detector's BN module is itself flax's 'bn'; a crop model's BN
-        # modules (norm0, stem_bn, ...) wrap one.
-        bn_scope = parts if parts[-1] == 'bn' else parts + ['bn']
+        # A detector's BN module ('bn') and the tiny backbone's ('bn<i>') are
+        # flax's BatchNorm; EfficientNetV2's (norm<i>, stem_bn, head_bn) wrap
+        # one named 'bn'.
+        is_bn = parts[-1].startswith(('bn', 'norm', 'stem_bn', 'head_bn'))
+        bn_scope = parts if parts[-1].startswith('bn') else parts + ['bn']
         if leaf == 'weight' and value.ndim == 4:
             flat[('params', *parts, 'kernel')] = value.transpose(2, 3, 1, 0)
         elif leaf in ('running_mean', 'running_var'):
             flat[('batch_stats', *bn_scope, leaf[len('running_'):])] = value
         elif leaf == 'weight':
             flat[('params', *bn_scope, 'scale')] = value
-        elif value.ndim == 1 and (parts[-1] == 'bn'
-                                  or parts[-1].startswith(('norm', 'stem_bn', 'head_bn'))):
+        elif value.ndim == 1 and is_bn:
             flat[('params', *bn_scope, 'bias')] = value
         else:
             flat[('params', *parts, 'bias')] = value
     return unflatten_dict(flat)
+
+
+def _params_tree(named: Dict[str, torch.Tensor]) -> Dict:
+    return flax_variables_from_state_dict(named).get('params', {}) if named else {}
+
+
+def flax_train_state_dict(state) -> Dict:
+    """A port `train.loop.TrainState` as the state dict of the JAX
+    `TrainState` of the same optimizer configuration. Parameters outside an
+    Adam group of the dual-LR optimizer are optax's MaskedNode, {} here.
+    A bfloat16 first moment comes out as float32 (exactly)."""
+    params = dict(state.model.named_parameters())
+    variables = flax_variables_from_state_dict(state.model.state_dict())
+    keys = list(flatten_dict(_params_tree(params)))
+
+    def masked_tree(named):
+        flat = flatten_dict(_params_tree(named))
+        return unflatten_dict({k: flat.get(k, {}) for k in keys})
+
+    def adam(a):
+        count = np.int32(a.count)
+        return {'0': {'count': count, 'mu': masked_tree(a.mu), 'nu': masked_tree(a.nu)},
+                '1': {}, '2': {'count': count}}
+
+    opt = state.opt_state
+    opt_sd = (adam(opt.groups['all']) if 'all' in opt.groups
+              else {'inner_states': {g: {'inner_state': adam(a)} for g, a in opt.groups.items()}})
+    if opt.acc_grads is not None:
+        opt_sd = {'acc_grads': _params_tree(opt.acc_grads),
+                  'gradient_step': np.int32(opt.gradient_step), 'inner_opt_state': opt_sd,
+                  'mini_step': np.int32(opt.mini_step), 'skip_state': {}}
+    return {'step': np.int32(state.step), 'params': variables['params'],
+            'batch_stats': variables.get('batch_stats', {}), 'opt_state': opt_sd,
+            'ema_params': _params_tree(state.ema_params)}
+
+
+def load_flax_train_state(state, flax_state: Dict) -> None:
+    """Loads the state dict of a JAX `TrainState` (`flax.serialization.
+    to_state_dict`, numpy leaves) into the port's `state` of the same model
+    and optimizer configuration, in place. Raises ValueError where the trees
+    do not match."""
+    state.model.load_state_dict(torch_state_dict_from_flax(
+        {'params': flax_state['params'], 'batch_stats': flax_state.get('batch_stats', {})}))
+
+    @torch.no_grad()
+    def copy_into(dst: Dict[str, torch.Tensor], tree: Dict, what: str):
+        src = torch_state_dict_from_flax({'params': tree})
+        if src.keys() != dst.keys():
+            raise ValueError(f'{what}: parameters {sorted(set(src) ^ set(dst))[:8]} are in '
+                             f'one tree only')
+        for name, t in src.items():
+            dst[name].copy_(t)
+
+    copy_into(state.ema_params, flax_state['ema_params'], 'ema_params')
+    opt, opt_sd = state.opt_state, flax_state['opt_state']
+    if opt.acc_grads is not None:
+        opt.mini_step = int(opt_sd['mini_step'])
+        opt.gradient_step = int(opt_sd['gradient_step'])
+        copy_into(opt.acc_grads, opt_sd['acc_grads'], 'acc_grads')
+        opt_sd = opt_sd['inner_opt_state']
+    for group, adam in opt.groups.items():
+        adam_sd = opt_sd if group == 'all' else opt_sd['inner_states'][group]['inner_state']
+        adam.count = int(adam_sd['0']['count'])
+        if int(adam_sd['2']['count']) != adam.count:
+            raise ValueError(f'Adam and schedule counts differ in group {group!r}')
+        copy_into(adam.mu, adam_sd['0']['mu'], f'mu of {group!r}')
+        copy_into(adam.nu, adam_sd['0']['nu'], f'nu of {group!r}')
+    state.step = int(flax_state['step'])
 
 
 def yolo_scanned_to_flat(variables: Dict) -> Dict:

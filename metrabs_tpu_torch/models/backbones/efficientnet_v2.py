@@ -1,20 +1,33 @@
-"""EfficientNetV2 backbones (S/M/L/XL and the dilated -stride4/8/16 plans),
-inference only (`metrabs_tpu/models/backbones/efficientnet_v2.py`).
+"""EfficientNetV2 backbones (S/M/L/XL and the dilated -stride4/8/16 plans)
+(`metrabs_tpu/models/backbones/efficientnet_v2.py`).
 
 Same architecture semantics as the JAX module: MBConv / FusedMBConv blocks
-with SE (reduction from the block's input filters), silu, BN eps 1e-3,
-explicit fixed padding before every spatial conv with the `br` bottom-right
-shift on the last stride-2 block, and the flat `blocks.{i}` layout (the JAX
-`blocks_{i}`). Padding is `F.pad` followed by a VALID conv: PyTorch's
-symmetric conv padding cannot express the `br` shift.
+with SE (reduction from the block's input filters), silu, BN momentum 0.9
+and eps 1e-3, explicit fixed padding before every spatial conv with the
+`br` bottom-right shift on the last stride-2 block, drop-connect with
+survival 1 - (1 - SURVIVAL_PROB) * i / n_blocks, and the flat `blocks.{i}`
+layout (the JAX `blocks_{i}`). Padding is `F.pad` followed by a VALID conv:
+PyTorch's symmetric conv padding cannot express the `br` shift.
 
-Two BN layouts: folded (`bn_fold=True`: every conv carries a bias and no BN
-module exists; weights from `io.weights.fold_bn_variables`) and unfolded
-(inference BatchNorm after each conv). Internally NCHW; the public input is
-NHWC gamma-space RGB in [0, 1].
+The module's mode is JAX's `train` flag. Train mode: BatchNorm on batch
+statistics (`common.GhostBatchNorm`, with `ghost_splits` and
+`bn_bf16_stats`), drop-connect masks drawn from the forward's `generator`
+before each block is called, and the training plan `model_name` (eval mode
+runs `model_name_test` when given; both share one parameter layout).
+`remat` recomputes each block below `remat_until_block` in the backward
+pass (`torch.utils.checkpoint`, non-reentrant), with the running statistics
+left alone during the recompute. Convolutions compute in `dtype` (None: the
+weights' dtype), so float32 master weights train in bfloat16 as flax's
+`dtype=bfloat16, param_dtype=float32` does; BN reductions run in float32.
+
+Two BN layouts: folded (`bn_fold=True`, inference only: every conv carries a
+bias and no BN module exists; weights from `io.weights.fold_bn_variables`)
+and unfolded (BatchNorm after each conv). Internally NCHW; the public input
+is NHWC gamma-space RGB in [0, 1].
 
 `fuse_mbconv` ('off' | 'auto' | 'on' | 'interpret', default 'off' as in JAX)
-runs the inner chain of the qualifying MBConv blocks (unfolded BN, expand !=
+runs, in eval mode only as in JAX, the inner chain of the qualifying MBConv
+blocks (unfolded BN, expand !=
 1, 3x3, stride 1, no dilation, no `br` shift) as one fused operation, the
 port of TPU kernel K2: 'on' calls `ops.mbconv_cuda.fused_mbconv_inner` (the
 CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), 'auto'
@@ -26,10 +39,13 @@ chain's float32 constants (depthwise taps and both BNs' scale and bias) once
 in eval mode and keeps them as non-persistent buffers, so its forward
 launches only the expand conv, the fused chain, the SE convs and the project
 conv; `train()` and `eval()` drop them, to be made again from the weights.
+The fused chain has no backward: an eval-mode forward that autograd would
+differentiate through it raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
@@ -38,12 +54,15 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from metrabs_tpu_torch.models.backbones import common
 from metrabs_tpu_torch.ops import mbconv as mbconv_ops
 from metrabs_tpu_torch.ops import mbconv_cuda
 
+BN_MOMENTUM = 0.9
 BN_EPSILON = 1e-3
+SURVIVAL_PROB = 0.8
 FUSE_MODES = ('off', 'auto', 'on', 'interpret')
 
 
@@ -202,14 +221,29 @@ def expand_blocks(model_name: str) -> List[BlockArgs]:
 
 
 def _conv(cin: int, cout: int, k: int = 1, stride: int = 1, dilation: int = 1,
-          groups: int = 1, bias: bool = False) -> nn.Conv2d:
+          groups: int = 1, bias: bool = False) -> common.Conv2d:
     """VALID conv; callers pad explicitly."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=0, dilation=dilation,
-                     groups=groups, bias=bias)
+    return common.Conv2d(cin, cout, k, stride=stride, padding=0, dilation=dilation,
+                         groups=groups, bias=bias)
 
 
-def _norm(c: int, bn_fold: bool) -> nn.Module:
-    return nn.Identity() if bn_fold else common.FrozenBatchNorm2d(c, BN_EPSILON)
+def _pads(a: BlockArgs):
+    return common.fixed_padding_amounts(a.kernel_size, a.dilation_in,
+                                        1 if a.bottomright_stride else 0)
+
+
+class _BnOptions:
+    """How a backbone's BatchNorms are built: none with `bn_fold`, else
+    `common.GhostBatchNorm` with the backbone's ghost splits and stats dtype."""
+
+    def __init__(self, bn_fold: bool, ghost_splits: int, bf16_stats: bool):
+        self.bn_fold, self.ghost_splits, self.bf16_stats = bn_fold, ghost_splits, bf16_stats
+
+    def __call__(self, c: int) -> nn.Module:
+        if self.bn_fold:
+            return nn.Identity()
+        return common.GhostBatchNorm(c, BN_EPSILON, BN_MOMENTUM, self.ghost_splits,
+                                     self.bf16_stats)
 
 
 class SqueezeExcite(nn.Module):
@@ -230,33 +264,55 @@ class SqueezeExcite(nn.Module):
         return torch.sigmoid(se) * x
 
 
-class MBConv(nn.Module):
-    """expand 1x1 -> depthwise kxk -> SE -> project 1x1; with `fuse` the
-    inner chain of a qualifying block is one fused operation (module
-    docstring)."""
+class _Block(nn.Module):
+    """A block with a training plan `a_train` and a test plan `a_test` of
+    the same weights (they differ in stride, dilation and `br` only); the
+    module's mode picks one."""
 
-    def __init__(self, a: BlockArgs, bn_fold: bool, fuse: str = 'off'):
+    def __init__(self, a_train: BlockArgs, a_test: BlockArgs):
         super().__init__()
+        self.a_train, self.a_test = a_train, a_test
+
+    @property
+    def a(self) -> BlockArgs:
+        return self.a_train if self.training else self.a_test
+
+    def has_residual(self) -> bool:
+        a = self.a
+        return a.strides == 1 and a.input_filters == a.output_filters
+
+    def _residual(self, inputs, x, keep, survival_prob):
+        if self.has_residual():
+            return common.stochastic_depth(inputs, x, survival_prob, keep)
+        return x
+
+
+class MBConv(_Block):
+    """expand 1x1 -> depthwise kxk -> SE -> project 1x1; with `fuse` the
+    inner chain of a qualifying block is one fused operation in eval mode
+    (module docstring)."""
+
+    def __init__(self, a_train: BlockArgs, a_test: BlockArgs, bn: _BnOptions,
+                 fuse: str = 'off'):
+        super().__init__(a_train, a_test)
         if fuse not in FUSE_MODES:
             raise ValueError(f'fuse_mbconv must be one of {FUSE_MODES}, got {fuse!r}')
-        self.a = a
+        a = a_test
         self.fuse = fuse
-        self.fusable = (not bn_fold and a.expand_ratio != 1 and a.kernel_size == 3
+        self.fusable = (not bn.bn_fold and a.expand_ratio != 1 and a.kernel_size == 3
                         and a.strides == 1 and a.dilation_in == 1
                         and not a.bottomright_stride)
         filters = a.input_filters * a.expand_ratio
         if a.expand_ratio != 1:
-            self.expand_conv = _conv(a.input_filters, filters, bias=bn_fold)
-            self.norm0 = _norm(filters, bn_fold)
-        self.pads = common.fixed_padding_amounts(
-            a.kernel_size, a.dilation_in, 1 if a.bottomright_stride else 0)
+            self.expand_conv = _conv(a.input_filters, filters, bias=bn.bn_fold)
+            self.norm0 = bn(filters)
         self.depthwise_conv = _conv(filters, filters, a.kernel_size, a.strides,
-                                    a.dilation_in, groups=filters, bias=bn_fold)
-        self.norm1 = _norm(filters, bn_fold)
+                                    a.dilation_in, groups=filters, bias=bn.bn_fold)
+        self.norm1 = bn(filters)
         if a.se_ratio:
             self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)))
-        self.project_conv = _conv(filters, a.output_filters, bias=bn_fold)
-        self.norm2 = _norm(a.output_filters, bn_fold)
+        self.project_conv = _conv(filters, a.output_filters, bias=bn.bn_fold)
+        self.norm2 = bn(a.output_filters)
         if self.fusable:
             # The fused chain's constants (`ops.mbconv.inner_constants`): made
             # from the weights at the first fused call in eval mode and kept
@@ -279,26 +335,29 @@ class MBConv(nn.Module):
         return super().train(mode)
 
     def _inner_constants(self):
-        """(taps [E, 9], sb [4, E]) float32; kept in eval mode. Made again
-        if a cast of the module (`.to(dtype)`) has cast the kept ones."""
-        if (self.training or self.inner_taps is None
-                or self.inner_taps.dtype != torch.float32):
-            consts = mbconv_ops.inner_constants(self.depthwise_conv.weight,
-                                                *self.norm0.folded(), *self.norm1.folded())
-            if self.training:
-                return consts
-            self.inner_taps, self.inner_sb = consts
+        """(taps [E, 9], sb [4, E]) float32, kept. Made again if a cast of the
+        module (`.to(dtype)`) has cast the kept ones."""
+        if self.inner_taps is None or self.inner_taps.dtype != torch.float32:
+            with torch.no_grad():
+                self.inner_taps, self.inner_sb = mbconv_ops.inner_constants(
+                    self.depthwise_conv.weight, *self.norm0.folded(), *self.norm1.folded())
         return self.inner_taps, self.inner_sb
 
     def _use_fused(self, x: torch.Tensor) -> bool:
-        return self.fusable and (self.fuse in ('on', 'interpret')
-                                 or (self.fuse == 'auto' and x.is_cuda))
+        return (not self.training and self.fusable
+                and (self.fuse in ('on', 'interpret') or (self.fuse == 'auto' and x.is_cuda)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                survival_prob: float = 1.0) -> torch.Tensor:
         a = self.a
         inputs = x
         if self._use_fused(x):
             u = self.expand_conv(x)
+            if torch.is_grad_enabled() and u.requires_grad:
+                raise RuntimeError(
+                    'The fused MBConv chain has no backward: in eval mode with '
+                    "gradients (finetune_in_inference_mode), build the backbone with "
+                    "fuse_mbconv='off'")
             inner = (mbconv_ops.fused_mbconv_inner if self.fuse == 'interpret'
                      else mbconv_cuda.fused_mbconv_inner)
             x, se_mean = inner(u.contiguous(), *self._inner_constants())
@@ -307,54 +366,51 @@ class MBConv(nn.Module):
         else:
             if a.expand_ratio != 1:
                 x = F.silu(self.norm0(self.expand_conv(x)))
-            x = self.depthwise_conv(common.pad_nchw(x, self.pads))
+            x = self.depthwise_conv(common.pad_nchw(x, _pads(a)), a.strides, a.dilation_in)
             x = F.silu(self.norm1(x))
             if a.se_ratio:
                 x = self.se(x)
         x = self.norm2(self.project_conv(x))
-        if a.strides == 1 and a.input_filters == a.output_filters:
-            x = inputs + x
-        return x
+        return self._residual(inputs, x, keep, survival_prob)
 
 
-class FusedMBConv(nn.Module):
+class FusedMBConv(_Block):
     """Fused expand kxk (or a single kxk conv when expand_ratio == 1) -> SE ->
     project 1x1."""
 
-    def __init__(self, a: BlockArgs, bn_fold: bool):
-        super().__init__()
-        self.a = a
+    def __init__(self, a_train: BlockArgs, a_test: BlockArgs, bn: _BnOptions):
+        super().__init__(a_train, a_test)
+        a = a_test
         filters = a.input_filters * a.expand_ratio
-        self.pads = common.fixed_padding_amounts(
-            a.kernel_size, a.dilation_in, 1 if a.bottomright_stride else 0)
         if a.expand_ratio != 1:
             self.expand_conv = _conv(a.input_filters, filters, a.kernel_size,
-                                     a.strides, a.dilation_in, bias=bn_fold)
-            self.norm0 = _norm(filters, bn_fold)
-            self.project_conv = _conv(filters, a.output_filters, bias=bn_fold)
+                                     a.strides, a.dilation_in, bias=bn.bn_fold)
+            self.norm0 = bn(filters)
+            self.project_conv = _conv(filters, a.output_filters, bias=bn.bn_fold)
         else:
             self.project_conv = _conv(filters, a.output_filters, a.kernel_size,
-                                      a.strides, a.dilation_in, bias=bn_fold)
+                                      a.strides, a.dilation_in, bias=bn.bn_fold)
         if a.se_ratio:
             self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)))
-        self.norm1 = _norm(a.output_filters, bn_fold)
+        self.norm1 = bn(a.output_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                survival_prob: float = 1.0) -> torch.Tensor:
         a = self.a
         inputs = x
         if a.expand_ratio != 1:
-            x = self.expand_conv(common.pad_nchw(x, self.pads))
+            x = self.expand_conv(common.pad_nchw(x, _pads(a)), a.strides, a.dilation_in)
             x = F.silu(self.norm0(x))
         if a.se_ratio:
             x = self.se(x)
         if a.expand_ratio == 1:
-            x = common.pad_nchw(x, self.pads)
-        x = self.norm1(self.project_conv(x))
+            x = self.project_conv(common.pad_nchw(x, _pads(a)), a.strides, a.dilation_in)
+        else:
+            x = self.project_conv(x)
+        x = self.norm1(x)
         if a.expand_ratio == 1:
             x = F.silu(x)
-        if a.strides == 1 and a.input_filters == a.output_filters:
-            x = inputs + x
-        return x
+        return self._residual(inputs, x, keep, survival_prob)
 
 
 class EfficientNetV2(nn.Module):
@@ -362,30 +418,60 @@ class EfficientNetV2(nn.Module):
     [N, 1280, S/32, S/32] (or finer for the -strideN plans).
 
     `model_name_test`: the test-time plan (a dilated -strideN variant of the
-    same family); all plans of a family share one parameter layout."""
+    same family); all plans of a family share one parameter layout. Other
+    arguments: module docstring."""
 
     def __init__(self, model_name: str = 'efficientnetv2-s',
                  model_name_test: Optional[str] = None,
                  centered_stride: bool = True, feature_size: int = 1280,
-                 bn_fold: bool = False, fuse_mbconv: str = 'off'):
+                 bn_fold: bool = False, fuse_mbconv: str = 'off', ghost_splits: int = 1,
+                 bn_bf16_stats: bool = False, remat: bool = False,
+                 remat_until_block: int = 10_000, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        blocks = expand_blocks(model_name_test or model_name)
+        plans = [expand_blocks(name) for name in (model_name, model_name_test or model_name)]
         if not centered_stride:
-            blocks = [dataclasses.replace(b, bottomright_stride=False) for b in blocks]
+            plans = [[dataclasses.replace(b, bottomright_stride=False) for b in blocks]
+                     for blocks in plans]
+        blocks_train, blocks = plans
+        bn = _BnOptions(bn_fold, ghost_splits, bn_bf16_stats)
+        self.bn_fold = bn_fold
+        self.remat, self.remat_until_block = remat, remat_until_block
+        self.dtype = dtype
+        self.out_channels = feature_size
         self.stem_pads = common.fixed_padding_amounts(3)
         self.stem_conv = _conv(3, blocks[0].input_filters, 3, 2, bias=bn_fold)
-        self.stem_bn = _norm(blocks[0].input_filters, bn_fold)
+        self.stem_bn = bn(blocks[0].input_filters)
         self.blocks = nn.ModuleList([
-            FusedMBConv(a, bn_fold) if a.conv_type == 1 else MBConv(a, bn_fold, fuse_mbconv)
-            for a in blocks])
+            FusedMBConv(a_train, a, bn) if a.conv_type == 1
+            else MBConv(a_train, a, bn, fuse_mbconv)
+            for a_train, a in zip(blocks_train, blocks)])
         self.head_conv = _conv(blocks[-1].output_filters, feature_size, bias=bn_fold)
-        self.head_bn = _norm(feature_size, bn_fold)
+        self.head_bn = bn(feature_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.stem_conv.weight.dtype
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the drop-connect masks in train mode (None: the
+        default generator)."""
+        if self.bn_fold and self.training:
+            raise ValueError('bn_fold is an inference-only layout')
+        dtype = self.dtype or self.stem_conv.weight.dtype
         x = common.tf_preproc(x.to(dtype)).permute(0, 3, 1, 2)
         h = self.stem_conv(common.pad_nchw(x, self.stem_pads))
         h = F.silu(self.stem_bn(h))
-        for block in self.blocks:
-            h = block(h)
+        n_blocks = len(self.blocks)
+        drop_rate = 1.0 - SURVIVAL_PROB
+        for i, block in enumerate(self.blocks):
+            survival = 1.0 - drop_rate * float(i) / n_blocks
+            keep = None
+            if self.training and block.has_residual():
+                # Drawn here, outside a checkpointed call: a recompute does
+                # not rewind the generator.
+                keep = common.drop_mask(h.shape[0], survival, generator, h.device)
+            if self.remat and i < self.remat_until_block and torch.is_grad_enabled():
+                h = checkpoint(block, h, keep, survival, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                           common.frozen_stats(b)))
+            else:
+                h = block(h, keep, survival)
         return F.silu(self.head_bn(self.head_conv(h)))

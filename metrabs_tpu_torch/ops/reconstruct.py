@@ -3,7 +3,9 @@
 
 The full-perspective reference point is the Tikhonov-regularized weighted
 least-squares solve of the reference (`l2_regularizer=1e-2`), written as
-batched 3x3 normal equations.
+batched 3x3 normal equations. Training passes a per-sample
+`mix_3d_inside_fov` [N, 1, 1] and differentiates through both the solve and
+the weak-perspective branch; `project_pose` is the losses' projection.
 """
 
 from __future__ import annotations
@@ -30,6 +32,13 @@ def back_project(camcoords2d: torch.Tensor, delta_z: torch.Tensor,
                  z_offset: torch.Tensor) -> torch.Tensor:
     """Lifts normalized 2D points to 3D given per-joint depth offsets."""
     return to_homogeneous(camcoords2d) * (delta_z + z_offset[..., None])[..., None]
+
+
+def project_pose(coords3d: torch.Tensor, intrinsic_matrix: torch.Tensor) -> torch.Tensor:
+    """Projects camera-space 3D joints to pixels with z clamped to >= 1 mm
+    (the training losses' projection; serving uses `camera.project`)."""
+    projected = coords3d / torch.clamp(coords3d[..., 2:], min=1.0)
+    return torch.einsum('...nk,...jk->...nj', projected, intrinsic_matrix[..., :2, :])
 
 
 def reconstruct_ref_weakpersp(normalized_2d: torch.Tensor, coords3d_rel: torch.Tensor,
@@ -102,11 +111,14 @@ def reconstruct_ref_fullpersp(normalized_2d: torch.Tensor, coords3d_rel: torch.T
 def reconstruct_absolute(
         coords2d: torch.Tensor, coords3d_rel: torch.Tensor, intrinsics: torch.Tensor,
         *, proc_side: int, stride: int, centered_stride: bool = True,
-        mix_3d_inside_fov: Optional[float] = None, weak_perspective: bool = False,
+        mix_3d_inside_fov=None, weak_perspective: bool = False,
         sample_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fuses 2D pixel and metric root-relative 3D predictions into absolute
     camera-space 3D joints: inside the FOV band the 2D-based estimate
-    (optionally blended with the 3D one) wins, outside the 3D-based one."""
+    (optionally blended with the 3D one by `mix_3d_inside_fov`, a float or a
+    tensor broadcasting against [N, J, 3]) wins, outside the 3D-based one.
+    The RMS normalisation of the full-perspective solve pools over the whole
+    batch."""
     inv_intrinsics = torch.linalg.inv(intrinsics.to(coords2d.dtype))
     coords2d_normalized = (to_homogeneous(coords2d)
                            @ inv_intrinsics.transpose(-1, -2))[..., :2]

@@ -1,0 +1,142 @@
+"""MeTRAbs training losses, plain mode (`metrabs_tpu/train/losses.py`).
+
+A 3D-labelled batch and a 2D-labelled batch run through the network
+together; the 3D batch gets root-relative, absolute (after
+`absloss_start_step`) and in-FOV projection losses, the 2D batch weak 2D
+supervision through name-prefix joint matching. Reductions are
+validity-masked, millimetres become metres (/1000) inside the losses.
+
+The step gates take the step as a host integer: JAX computes both
+reconstructions and selects with `where`; here the one the step selects is
+computed. The latent and manifold losses come with the latent crop models.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from metrabs_tpu_torch.config import ModelConfig, TrainConfig
+from metrabs_tpu_torch.ops import masked, reconstruct
+from metrabs_tpu_torch.utils.joint_info import JointInfo
+
+WEAK_PERSPECTIVE_STEPS = 500
+
+
+def center_relative_pose(coords3d: torch.Tensor, joint_validity_mask: Optional[torch.Tensor],
+                         center_is_mean: bool) -> torch.Tensor:
+    """Root-relative (last joint) or mean-relative pose."""
+    if not center_is_mean:
+        center = coords3d[:, -1:]
+    elif joint_validity_mask is None:
+        center = torch.mean(coords3d, dim=1, keepdim=True)
+    else:
+        center = masked.reduce_mean_masked(coords3d, joint_validity_mask, axis=1,
+                                           keepdim=True)
+    return coords3d - center
+
+
+def _is_within_fov(coords2d: torch.Tensor, cfg: ModelConfig,
+                   border_factor: float = 0.75) -> torch.Tensor:
+    return reconstruct.is_within_fov(coords2d, proc_side=cfg.proc_side, stride=cfg.stride_train,
+                                     centered_stride=cfg.centered_stride,
+                                     border_factor=border_factor)
+
+
+def compute_loss_with_3d_gt(coords3d_pred_abs: torch.Tensor, coords3d_true: torch.Tensor,
+                            intrinsics: torch.Tensor,
+                            joint_validity_mask: Optional[torch.Tensor], *,
+                            cfg: ModelConfig, tcfg: TrainConfig, step: int) -> torch.Tensor:
+    """Root-relative + gated absolute + in-FOV projection loss."""
+    diff = coords3d_true - coords3d_pred_abs
+    true_rootrel = center_relative_pose(coords3d_true, joint_validity_mask, tcfg.mean_relative)
+    pred_rootrel = center_relative_pose(coords3d_pred_abs, joint_validity_mask,
+                                        tcfg.mean_relative)
+    loss3d = masked.reduce_mean_masked(torch.abs(true_rootrel - pred_rootrel) / 1000.0,
+                                       joint_validity_mask)
+
+    is_valid_and_far = coords3d_true[..., 2] > 300.0
+    if joint_validity_mask is not None:
+        is_valid_and_far = joint_validity_mask & is_valid_and_far
+
+    # z is downweighted for far subjects (10000 / |z|, at most 1); xy 2:1 to z.
+    absdiff = torch.abs(diff)
+    scale_for_far = torch.clamp(10000.0 / torch.abs(coords3d_true[..., 2:]), max=1.0)
+    absdiff_scaled = (absdiff[..., :2] * 2 + absdiff[..., 2:] * scale_for_far) / 3
+    loss3d_abs = masked.reduce_mean_masked(absdiff_scaled, is_valid_and_far) / 1000.0
+
+    coords2d_pred = reconstruct.project_pose(coords3d_pred_abs, intrinsics)
+    coords2d_true = reconstruct.project_pose(coords3d_true, intrinsics)
+    scale_2d = 1.0 / cfg.proc_side * cfg.box_size_mm / 1000.0
+    in_fov_pred = _is_within_fov(coords2d_pred, cfg) & (coords3d_pred_abs[..., 2] > 1)
+    near_fov_true = (_is_within_fov(coords2d_true, cfg, border_factor=-20)
+                     & (coords3d_true[..., 2] > 1))
+    loss2d = masked.reduce_mean_masked(
+        torch.abs((coords2d_true - coords2d_pred) * scale_2d),
+        is_valid_and_far & in_fov_pred & near_fov_true)
+
+    absloss_factor = tcfg.absloss_factor if step > tcfg.absloss_start_step else 0.0
+    return loss3d + loss2d + absloss_factor * loss3d_abs
+
+
+def get_2d_joint_index_groups(joint_info3d: JointInfo,
+                              joint_info2d: JointInfo) -> List[List[int]]:
+    """For each 2D joint name, the 3D joints whose names start with it.
+    Raises on a 2D joint that matches no 3D joint."""
+    groups = [[joint_info3d.ids[n3] for n3 in joint_info3d.names if n3.startswith(n2)]
+              for n2 in joint_info2d.names]
+    empty = [n2 for n2, g in zip(joint_info2d.names, groups) if not g]
+    if empty:
+        raise ValueError(f'2D joints {empty} match no 3D joint by name-prefix; check the '
+                         f'joint naming conventions of the 2D and 3D joint sets')
+    return groups
+
+
+def get_2dlike_joints(coords: torch.Tensor,
+                      index_groups: Sequence[Sequence[int]]) -> torch.Tensor:
+    """The mean xy of each group of matched 3D joints."""
+    return torch.stack([torch.mean(coords[:, list(ids), :2], dim=1) for ids in index_groups],
+                       dim=1)
+
+
+def compute_loss_with_2d_gt(coords3d_pred_abs: torch.Tensor, coords2d_true: torch.Tensor,
+                            intrinsics: torch.Tensor, joint_validity_mask: torch.Tensor,
+                            index_groups: Sequence[Sequence[int]], *,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """Weak 2D supervision of the 2D-labelled stream."""
+    scale_2d = 1.0 / cfg.proc_side * cfg.box_size_mm / 1000.0
+    coords2d_pred_2dlike = get_2dlike_joints(
+        reconstruct.project_pose(coords3d_pred_abs, intrinsics), index_groups)
+    in_fov_pred = _is_within_fov(coords2d_pred_2dlike, cfg)
+    near_fov_true = _is_within_fov(coords2d_true, cfg, border_factor=-20)
+    return masked.reduce_mean_masked(
+        torch.abs((coords2d_true - coords2d_pred_2dlike) * scale_2d),
+        joint_validity_mask & in_fov_pred & near_fov_true)
+
+
+def reconstruct_absolute_trainmode(head2d: torch.Tensor, head3d: torch.Tensor,
+                                   intrinsics: torch.Tensor, mix_3d_inside_fov: torch.Tensor,
+                                   step: int, *, cfg: ModelConfig) -> torch.Tensor:
+    """Weak-perspective reconstruction for the first 500 steps, full
+    perspective afterwards; only the one `step` selects is computed."""
+    return reconstruct.reconstruct_absolute(
+        head2d, head3d, intrinsics, proc_side=cfg.proc_side, stride=cfg.stride_train,
+        centered_stride=cfg.centered_stride, mix_3d_inside_fov=mix_3d_inside_fov,
+        weak_perspective=step < WEAK_PERSPECTIVE_STEPS)
+
+
+def compute_losses(preds_abs: torch.Tensor, preds_abs_2d: torch.Tensor, batch3d: Dict,
+                   batch2d: Dict, index_groups: Sequence[Sequence[int]], *,
+                   cfg: ModelConfig, tcfg: TrainConfig, step: int) -> Dict[str, torch.Tensor]:
+    """loss_3dbatch, loss_2dbatch and loss = loss_3dbatch + loss2d_factor *
+    loss_2dbatch."""
+    losses = {}
+    losses['loss_3dbatch'] = compute_loss_with_3d_gt(
+        preds_abs, batch3d['coords3d_true'], batch3d['intrinsics'],
+        batch3d.get('joint_validity_mask'), cfg=cfg, tcfg=tcfg, step=step)
+    losses['loss_2dbatch'] = compute_loss_with_2d_gt(
+        preds_abs_2d, batch2d['coords2d_true'], batch2d['intrinsics'],
+        batch2d['joint_validity_mask'], index_groups, cfg=cfg)
+    losses['loss'] = losses['loss_3dbatch'] + tcfg.loss2d_factor * losses['loss_2dbatch']
+    return losses

@@ -122,7 +122,7 @@ def test_wider_plans_build_at_full_width(name):
     assert backbone.head_conv.weight.shape[1] == blocks[-1].output_filters
 
 
-@pytest.mark.parametrize('name', ['resnet50', 'mobilenetv3-small', 'tiny'])
+@pytest.mark.parametrize('name', ['resnet50', 'mobilenetv3-small', 'mobilenetv3-large'])
 def test_other_backbones_are_not_ported(name):
     with pytest.raises(NotImplementedError, match='not yet ported'):
         build_backbone(name)

@@ -1,12 +1,15 @@
 """The port stands alone: `metrabs_tpu_torch` and `chip_smoke.py` import
-nothing of jax, flax or the JAX package `metrabs_tpu`, its entry points run
-on the card unless the caller names another device, and its copies of the
-JAX package's framework-free modules (config, joint info, TTA schedules,
-skeletons, bone priors) agree with the originals.
+nothing of jax, flax, optax, orbax or the JAX package `metrabs_tpu`, its
+entry points run on the card unless the caller names another device, and
+its copies of the JAX package's framework-free modules (config with the
+training hyperparameters, joint info, TTA schedules, skeletons, bone
+priors, the host data pipeline) agree with the originals. Also F1's
+regression test: a train-mode MBConv never runs the fused chain.
 """
 
 import ast
 import dataclasses
+import itertools
 import os
 import subprocess
 import sys
@@ -17,16 +20,19 @@ import pytest
 import torch
 
 from metrabs_tpu import config as jax_config
+from metrabs_tpu.data import pipeline as jax_data
 from metrabs_tpu.pipeline import bone_priors as jax_bone_priors
 from metrabs_tpu.pipeline import skeletons as jax_skeletons
 from metrabs_tpu.pipeline import tta as jax_tta
 from metrabs_tpu_torch import config
+from metrabs_tpu_torch.data import pipeline as data
 from metrabs_tpu_torch.io import packaging
 from metrabs_tpu_torch.pipeline import bone_priors, skeletons, tta
 from metrabs_tpu_torch.pipeline.estimator import PoseEstimator
+from metrabs_tpu_torch.train import loop, optim
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax')
+FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax')
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / 'metrabs_tpu_torch').rglob('*.py')
                     if '_build' not in p.parts) + ['chip_smoke.py']
 
@@ -56,6 +62,7 @@ for mod in pkgutil.walk_packages(metrabs_tpu_torch.__path__, 'metrabs_tpu_torch.
     importlib.import_module(mod.name)
 import chip_smoke
 from metrabs_tpu_torch.io.packaging import pose_estimator_from_variables
+from metrabs_tpu_torch import config
 from metrabs_tpu_torch.config import ModelConfig
 manifest = chip_smoke.manifest_for('float32')
 manifest['model_config']['proc_side'] = 64
@@ -66,6 +73,26 @@ frames = np.random.default_rng(0).integers(0, 256, (1, 120, 160, 3), dtype=np.ui
 out = est.estimate_poses_batched(frames, [[[20, 10, 60, 100]]], num_aug=2)
 assert tuple(out['poses3d'].shape) == (1, 1, 17, 3), out['poses3d'].shape
 assert bool(out['poses3d'].isfinite().all())
+from metrabs_tpu_torch.models.backbones.tiny import TinyBackbone
+from metrabs_tpu_torch.models.metrabs import Metrabs
+from metrabs_tpu_torch.pipeline.skeletons import H36M_17, LSP_14
+from metrabs_tpu_torch.train import loop, optim
+tcfg = config.TrainConfig()
+cfg = ModelConfig(proc_side=64, backbone='tiny', dtype='float32')
+optimizer = optim.Optimizer(tcfg)
+state = loop.create_train_state(Metrabs(cfg, TinyBackbone(width=8, use_bn=True)), optimizer,
+                                device='cpu')
+step = loop.make_train_step(optimizer, H36M_17, LSP_14, cfg, tcfg)
+k = np.tile(np.float32([[60, 0, 32], [0, 60, 32], [0, 0, 1]]), (2, 1, 1))
+g = np.random.default_rng(0)
+b3 = dict(image=g.uniform(size=(2, 64, 64, 3)).astype(np.float32), intrinsics=k,
+          coords3d_true=(g.normal(0, 300, (2, 17, 3)) + [0, 0, 3000]).astype(np.float32),
+          joint_validity_mask=np.ones((2, 17), bool))
+b2 = dict(image=g.uniform(size=(2, 64, 64, 3)).astype(np.float32), intrinsics=k,
+          coords2d_true=g.uniform(0, 64, (2, 14, 2)).astype(np.float32),
+          joint_validity_mask=np.ones((2, 14), bool))
+losses = step(state, b3, b2, generator=torch.Generator().manual_seed(0))
+assert state.step == 1 and bool(losses['loss'].isfinite())
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 assert not leaked, leaked
 print('STANDALONE_OK')
@@ -74,8 +101,9 @@ print('STANDALONE_OK')
 
 def test_port_and_chip_smoke_run_without_jax_loaded():
     """Every module of the port and chip_smoke's helpers, then a small CPU
-    `estimate_poses_batched` on weights minted with torch alone, in a
-    process that never loads jax, flax or `metrabs_tpu`."""
+    `estimate_poses_batched` on weights minted with torch alone and one CPU
+    train step, in a process that never loads jax, flax, optax or
+    `metrabs_tpu`."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN))
     proc = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
@@ -92,9 +120,13 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize('entry', ['PoseEstimator', 'pose_estimator_from_variables',
                                    'crop_model_from_variables', 'detector_from_variables',
-                                   'load_crop_model', 'load_pose_estimator'])
+                                   'load_crop_model', 'load_pose_estimator',
+                                   'create_train_state', 'device_prefetch'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     calls = dict(
+        create_train_state=lambda: loop.create_train_state(
+            torch.nn.Linear(2, 2), optim.Optimizer(config.TrainConfig())),
+        device_prefetch=lambda: data.device_prefetch([{'x': np.zeros(2)}]),
         PoseEstimator=lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
                                             config.ModelConfig()),
         pose_estimator_from_variables=lambda: packaging.pose_estimator_from_variables({}, {}),
@@ -113,7 +145,7 @@ def test_estimator_runs_on_the_cpu_when_asked(no_cuda):
     assert est.device == torch.device('cpu') and est._mean_bones.device.type == 'cpu'
 
 
-@pytest.mark.parametrize('name', ['ModelConfig', 'AugConfig'])
+@pytest.mark.parametrize('name', ['ModelConfig', 'AugConfig', 'TrainConfig'])
 def test_config_fields_and_defaults_match_jax(name):
     ours, theirs = getattr(config, name), getattr(jax_config, name)
     as_pairs = lambda cls: [(f.name, f.default) for f in dataclasses.fields(cls)]
@@ -162,3 +194,71 @@ def test_bone_priors_asset_is_a_copy_of_jax():
                                   jax_bone_priors.priors_for_joint_info(jax_skeletons.H36M_17))
     unknown = skeletons.make_joint_info(['a', 'b'], [('a', 'b')])
     assert bone_priors.priors_for_joint_info(unknown) is None
+
+
+def test_data_pipeline_copies_match_jax():
+    assert data.ROUNDROBIN_SECTIONS == jax_data.ROUNDROBIN_SECTIONS
+    for n in (1, 2, 3, 6):
+        assert data.huge2d_sections(n) == jax_data.huge2d_sections(n)
+    lists = [list(range(5)), list(range(100, 103)), list(range(200, 207))]
+    take = lambda mod: list(itertools.islice(
+        mod.roundrobin_iterate(lists, [2, 1, 3], np.random.default_rng(4)), 60))
+    assert take(data) == take(jax_data)
+    with pytest.raises(ValueError, match='empty'):
+        next(data.roundrobin_iterate([[], [1]], [1, 1], np.random.default_rng(0)))
+
+    class Example:
+        def __init__(self, path):
+            self.image_path = path
+    examples = [Example(p) for p in ('/d/H36M_x/1.jpg', '/d/coco_down/2.jpg', '/d/h36m_/3.jpg')]
+    prefixes = ['h36m_', 'coco_down']
+    assert ([[e.image_path for e in sec] for sec in data.build_dataset_sections(
+        examples, prefixes)] == [[e.image_path for e in sec] for sec in
+                                 jax_data.build_dataset_sections(examples, prefixes)])
+    with pytest.raises(RuntimeError, match='No section'):
+        data.build_dataset_sections([Example('/d/mpii/1.jpg')], prefixes)
+
+
+@pytest.mark.parametrize('use_processes', [False, True], ids=['threads', 'processes'])
+def test_parallel_batch_loader_matches_jax(use_processes):
+    def batches(mod):
+        loader = mod.ParallelBatchLoader(_load_example, iter(range(10)), 4, n_workers=2,
+                                         seed=7, use_processes=use_processes)
+        try:
+            return list(loader)
+        finally:
+            loader.close()
+    ours, theirs = batches(data), batches(jax_data)
+    assert [b['x'].shape for b in ours] == [(4, 3), (4, 3), (2, 3)]
+    for a, b in zip(ours, theirs, strict=True):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def _load_example(example, rng):
+    return dict(x=rng.uniform(size=3) + example, i=np.int64(example))
+
+
+def test_device_prefetch_on_the_cpu_keeps_order_and_values():
+    batches = [dict(x=np.full((2, 3), i, np.float32)) for i in range(5)]
+    out = list(data.device_prefetch(iter(batches), device='cpu'))
+    assert [int(b['x'][0, 0]) for b in out] == list(range(5))
+    assert all(isinstance(b['x'], torch.Tensor) for b in out)
+
+
+def test_f1_train_mode_mbconv_takes_the_unfused_chain(monkeypatch):
+    """F1: `MBConv` took the fused chain (no backward, folded running
+    statistics) in train mode too. In train mode it must take the unfused
+    chain, so that `expand_conv`, `norm0`, `depthwise_conv` and `norm1` learn."""
+    from metrabs_tpu_torch.models.backbones import efficientnet_v2 as effnet
+    from metrabs_tpu_torch.ops import mbconv_cuda
+    a = effnet.decode_block_string('r1_k3_s1_din1_dout1_e4_i8_o8_se0.25')
+    block = effnet.MBConv(a, a, effnet._BnOptions(False, 1, False), fuse='on')
+    assert block.fusable
+    monkeypatch.setattr(mbconv_cuda, 'fused_mbconv_inner', lambda *args: pytest.fail(
+        'the fused MBConv chain ran in train mode'))
+    x = torch.randn(4, 8, 6, 6, generator=torch.Generator().manual_seed(0))
+    block.train()(x).square().sum().backward()
+    for name, p in block.named_parameters():
+        assert p.grad is not None and p.grad.abs().max() > 0, name
