@@ -1,5 +1,6 @@
 """YOLOv4 and YOLOv4-tiny person detectors, inference only
-(`metrabs_tpu/detect/yolov4.py`).
+(`metrabs_tpu/detect/yolov4.py`), and the `PersonDetector` of every
+detector family (YOLOv8 is in `detect.yolov8`).
 
 Same networks as the JAX module, in darknet cfg order with the flat
 `conv_<i>` naming (the scanned `res_scan_<start>_<n>` groups are unrolled by
@@ -26,13 +27,14 @@ original pixels.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from metrabs_tpu_torch.detect.yolov8 import YOLOv8, decode_heads
 from metrabs_tpu_torch.models.backbones.common import FrozenBatchNorm2d
 from metrabs_tpu_torch.ops import resize
 from metrabs_tpu_torch.ops.nms import greedy_nms
@@ -292,16 +294,17 @@ class YOLOv4Tiny(_Darknet):
     decode_tables = (ANCHORS_TINY, STRIDES_TINY, XYSCALE_TINY)
 
 
-def build_detector_model(kind: str, bn_fold: bool = False) -> _Darknet:
-    """The detector module for a package's `detector_type`."""
+def build_detector_model(kind: str, bn_fold: bool = False) -> nn.Module:
+    """The detector module for a package's `detector_type`: 'yolov4',
+    'yolov4-tiny' or 'yolov8{n,s,m,l,x}' (`detect.yolov8`, no BN fold)."""
     if kind == 'yolov4':
         return YOLOv4(bn_fold=bn_fold)
     if kind == 'yolov4-tiny':
         return YOLOv4Tiny(bn_fold=bn_fold)
-    if kind.startswith('yolov8'):
-        raise NotImplementedError(
-            f'Detector {kind!r} is not yet ported to metrabs_tpu_torch (ROADMAP M9: '
-            f'YOLOv8); the YOLOv4 family is')
+    if kind.startswith('yolov8') and kind[-1] in 'nsmlx' and len(kind) == 7:
+        if bn_fold:
+            raise ValueError('bn_fold is not wired for YOLOv8 yet')
+        return YOLOv8(size=kind[-1])
     raise ValueError(f'Unknown detector kind {kind!r}')
 
 
@@ -353,18 +356,25 @@ def box_nms(boxes_xywh: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 class PersonDetector:
     """Batched person detection (`metrabs_tpu/detect/yolov4.py::PersonDetector`).
 
-    `model` is a detector module in eval mode on its device, in its compute
-    dtype. `detect_batched` returns padded (boxes5 [B, max_det, 5], valid
-    [B, max_det]) in original image pixels, on the model's device."""
+    `model` is a detector module (`build_detector_model`) in eval mode on its
+    device, in its compute dtype. `detect_batched` returns padded (boxes5
+    [B, max_det, 5], valid [B, max_det]) in original image pixels, on the
+    model's device."""
 
-    def __init__(self, model: _Darknet, input_size: int = 416, top_candidates: int = 256):
+    def __init__(self, model: nn.Module, input_size: Optional[int] = None,
+                 top_candidates: int = 256):
+        """`input_size` None: 640 for YOLOv8 (ultralytics' imgsz), else 416."""
         self.model = model
-        self.input_size = input_size
+        self.input_size = input_size or (640 if isinstance(model, YOLOv8) else 416)
         self.top_candidates = top_candidates
 
     def _person_preds(self, images_resized: torch.Tensor):
         """(center-format boxes [N, A, 4] in resized pixels, person scores
-        [N, A]): objectness times the person class probability."""
+        [N, A]): YOLOv4's objectness times the person class probability, or
+        YOLOv8's anchor-free sigmoid person probability."""
+        if isinstance(self.model, YOLOv8):
+            merged = decode_heads(self.model(images_resized))
+            return merged[..., :4], merged[..., 4 + PERSON_CLASS]
         anchors, strides, xyscale = self.model.decode_tables
         preds = torch.cat([decode_head(h, i, self.input_size, anchors, strides, xyscale)
                            for i, h in enumerate(self.model(images_resized))], dim=1)

@@ -18,7 +18,15 @@ arguments) builds the crop model's backbone, e.g.
 `functools.partial(build_backbone, fuse_mbconv='on')` for the fused MBConv
 kernel, which needs `cfg_overrides={'bn_fold': False}`.
 
-`save_pose_estimator_package` writes the plain Metrabs crop model (e.g. a
+Every crop-model class and latent mode of the JAX package loads: the
+manifest's `model_class` ('metrabs', 'metro' or 'model25d'), `latent_mode`,
+`n_latents` and Model25D's `bones_25d` and `bone_lengths_ideal` pick the
+model (`models.metrabs.build_crop_model`), on any backbone family, with a
+detector of the YOLOv4 or YOLOv8 family. Metro predicts root-relative poses
+only: `load_crop_model` builds it, the estimator loaders refuse it, as JAX's
+do.
+
+`save_pose_estimator_package` writes a crop model of any class (e.g. a
 model the port trained) in the same format, which both packages load.
 """
 
@@ -36,7 +44,8 @@ from metrabs_tpu_torch.config import AugConfig, ModelConfig
 from metrabs_tpu_torch.detect.yolov4 import PersonDetector, build_detector_model
 from metrabs_tpu_torch.io import weights
 from metrabs_tpu_torch.io.checkpoints import export_model_msgpack, load_model_msgpack
-from metrabs_tpu_torch.models.metrabs import Metrabs, build_crop_model
+from metrabs_tpu_torch.models.backbones.builder import backbone_supports_bn_fold
+from metrabs_tpu_torch.models.metrabs import build_crop_model
 from metrabs_tpu_torch.pipeline.estimator import PoseEstimator, checked_device
 from metrabs_tpu_torch.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
 from metrabs_tpu_torch.utils.joint_info import JointInfo
@@ -51,15 +60,22 @@ def save_pose_estimator_package(
         crop_model_variables: Dict, joint_info: JointInfo,
         skeleton_registry: Optional[SkeletonRegistry] = None,
         bone_mean_lengths: Optional[np.ndarray] = None,
-        joint_transform_matrix: Optional[np.ndarray] = None) -> None:
-    """A package of the plain Metrabs crop model without a detector:
-    `crop_model_variables` is its flat-layout JAX-style tree of numpy arrays
+        joint_transform_matrix: Optional[np.ndarray] = None,
+        latent_mode: str = '', n_latents: int = 0, model_class: str = 'metrabs',
+        bones_25d=None, bone_lengths_ideal=None) -> None:
+    """A package of a crop model without a detector: `crop_model_variables`
+    is its flat-layout JAX-style tree of numpy arrays
     (`io.weights.flax_variables_from_state_dict` of its state dict, BN
-    unfolded), `cfg` its config with `backbone_scan_blocks=False`. The
-    manifest is the JAX package's."""
+    unfolded), `cfg` its config with `backbone_scan_blocks=False`.
+    `model_class` ('metrabs', 'metro' or 'model25d'), Metrabs' `latent_mode`
+    and `n_latents`, and Model25D's `bones_25d` [B, 2] and
+    `bone_lengths_ideal` [B] mm (which it needs) as in JAX. The manifest is
+    the JAX package's."""
     if cfg.backbone_scan_blocks or cfg.bn_fold:
         raise ValueError('The port writes the flat, unfolded layout: '
                          'backbone_scan_blocks and bn_fold must be False')
+    if model_class == 'model25d' and (bones_25d is None or bone_lengths_ideal is None):
+        raise ValueError('model25d packages need bones_25d and bone_lengths_ideal')
     os.makedirs(directory, exist_ok=True)
     export_model_msgpack(os.path.join(directory, 'crop_model.msgpack'), crop_model_variables)
     if joint_transform_matrix is not None:
@@ -77,8 +93,10 @@ def save_pose_estimator_package(
         joint_edges=[list(map(int, e)) for e in joint_info.edges], has_detector=False,
         detector_scan_repeats=True, detector_type='yolov4', detector_dtype='bfloat16',
         detector_input_size=None, has_joint_transform=joint_transform_matrix is not None,
-        latent_mode='', n_latents=0, model_class='metrabs', bones_25d=None,
-        bone_lengths_ideal=None,
+        latent_mode=latent_mode, n_latents=n_latents, model_class=model_class,
+        bones_25d=None if bones_25d is None else [list(map(int, b)) for b in bones_25d],
+        bone_lengths_ideal=(None if bone_lengths_ideal is None
+                            else [float(x) for x in bone_lengths_ideal]),
         bone_mean_lengths=(None if bone_mean_lengths is None
                            else [float(x) for x in bone_mean_lengths]),
         skeletons=skeletons)
@@ -86,26 +104,27 @@ def save_pose_estimator_package(
         json.dump(manifest, f, indent=2)
 
 
-def _check_model_class(manifest: dict) -> None:
-    model_class = manifest.get('model_class', 'metrabs')
-    if model_class != 'metrabs' or manifest.get('latent_mode'):
-        raise NotImplementedError(
-            f'model_class {model_class!r} with latent_mode '
-            f'{manifest.get("latent_mode")!r} is not yet ported to metrabs_tpu_torch; '
-            f'only the plain Metrabs crop model is')
+def crop_model_kwargs(manifest: dict) -> dict:
+    """`build_crop_model`'s model arguments from a package manifest."""
+    return dict(model_class=manifest.get('model_class', 'metrabs'),
+                latent_mode=manifest.get('latent_mode', ''),
+                n_latents=manifest.get('n_latents', 0),
+                bones=tuple(tuple(b) for b in manifest.get('bones_25d') or ()),
+                bone_lengths_ideal=tuple(manifest.get('bone_lengths_ideal') or ()))
 
 
 def crop_model_from_variables(
         variables: Dict, manifest: dict, *, scan_blocks: Optional[bool] = None,
         bn_fold: bool = False, device='cuda',
-        backbone_builder=None) -> Tuple[Metrabs, ModelConfig]:
-    """The crop model of a package from its variable tree (numpy leaves, as
-    stored) and manifest, in eval mode on `device` in `cfg.dtype`.
+        backbone_builder=None) -> Tuple[torch.nn.Module, ModelConfig]:
+    """The crop model of a package (its `model_class`) from its variable
+    tree (numpy leaves, as stored) and manifest, in eval mode on `device`,
+    its submodules in `cfg.dtype` (the latent modes' constants stay
+    float32).
 
     `scan_blocks=False` unrolls a scanned-layout tree; `bn_fold` folds BN;
     `backbone_builder` builds the backbone (module docstring)."""
     device = checked_device(device)
-    _check_model_class(manifest)
     cfg = ModelConfig(**manifest['model_config'])
     if scan_blocks is not None and scan_blocks != cfg.backbone_scan_blocks:
         if scan_blocks:
@@ -120,11 +139,14 @@ def crop_model_from_variables(
         variables = weights.fold_bn_variables(
             variables, epsilon=weights.bn_epsilon_for(cfg.backbone))
         cfg = dataclasses.replace(cfg, bn_fold=True)
-    state = weights.crop_model_state_dict_from_flax(variables, cfg)
+    kwargs = crop_model_kwargs(manifest)
+    state = weights.crop_model_state_dict_from_flax(variables, cfg, **kwargs)
     with torch.device('meta'):
-        model = build_crop_model(cfg, backbone_builder)
+        model = build_crop_model(cfg, backbone_builder, **kwargs)
     model.load_state_dict(state, assign=True)
-    model = model.to(device=device, dtype=getattr(torch, cfg.dtype)).eval()
+    model = model.to(device=device).eval()
+    for child in model.children():
+        child.to(getattr(torch, cfg.dtype))
     model.requires_grad_(False)
     return model, cfg
 
@@ -149,8 +171,6 @@ def detector_from_variables(variables: Dict, manifest: dict, *, bn_fold: bool,
     and the detector is of the YOLOv4 family."""
     device = checked_device(device)
     det_type = manifest.get('detector_type', 'yolov4')
-    det_size = manifest.get('detector_input_size') or (
-        640 if det_type.startswith('yolov8') else 416)
     det_fold = bn_fold and det_type.startswith('yolov4')
     with torch.device('meta'):
         model = build_detector_model(det_type, bn_fold=det_fold)
@@ -162,7 +182,7 @@ def detector_from_variables(variables: Dict, manifest: dict, *, bn_fold: bool,
     dtype = getattr(torch, manifest.get('detector_dtype', 'float32'))
     model = model.to(device=device, dtype=dtype).eval()
     model.requires_grad_(False)
-    return PersonDetector(model, input_size=det_size)
+    return PersonDetector(model, input_size=manifest.get('detector_input_size'))
 
 
 def pose_estimator_from_variables(
@@ -171,7 +191,8 @@ def pose_estimator_from_variables(
         joint_transform_matrix: Optional[np.ndarray] = None,
         detector_variables: Optional[Dict] = None,
         backbone_builder=None) -> PoseEstimator:
-    """Everything `load_pose_estimator` does after reading the files.
+    """Everything `load_pose_estimator` does after reading the files. A
+    Metro package raises ValueError, as in JAX.
 
     `cfg_overrides`: serving-only ModelConfig fields to replace; the fields
     that define the trained model cannot be overridden. Defaults: a scanned
@@ -181,12 +202,17 @@ def pose_estimator_from_variables(
     fields describe it), or None for an estimator without a detector;
     `backbone_builder`: module docstring."""
     device = checked_device(device)
+    if manifest.get('model_class', 'metrabs') == 'metro':
+        raise ValueError(
+            'Metro predicts root-relative poses only (no intrinsics input, '
+            'metro.py:24-27) and cannot drive the absolute multi-person '
+            'estimator; use load_crop_model() for the bare model')
     cfg_overrides = dict(cfg_overrides or {})
     if cfg_overrides.pop('backbone_scan_blocks', False):
         raise ValueError('The port runs the flat backbone layout only')
     bn_fold = cfg_overrides.pop('bn_fold', None)
     if bn_fold is None:
-        bn_fold = weights.backbone_supports_bn_fold(
+        bn_fold = backbone_supports_bn_fold(
             manifest['model_config'].get('backbone', ModelConfig.backbone))
     bad = _PROTECTED_FIELDS & set(cfg_overrides)
     if bad:

@@ -5,14 +5,17 @@ package, which cannot be imported here because they reach flax:
 `scanned_to_flat` (`metrabs_tpu/io/scan_convert.py`) and
 `fold_bn_variables` (`metrabs_tpu/io/bn_fold.py`), both on nested dicts of
 numpy arrays. Then `crop_model_state_dict_from_flax` maps the flat tree onto
-the port's `Metrabs` state_dict: conv kernels HWIO [kh, kw, I, O] -> OIHW
-(depthwise [k, k, 1, E] -> [E, 1, k, k]), BatchNorm scale/bias/mean/var ->
-weight/bias/running_mean/running_var.
+the state_dict of the port's crop model of any class and backbone family:
+conv kernels HWIO [kh, kw, I, O] -> OIHW (depthwise [k, k, 1, E] -> [E, 1,
+k, k]), BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
+running_var, GroupNorm's `gn` scale/bias -> weight/bias, and the latent
+modes' `constants` collection -> the model's float32 buffers.
 
 The detector's half: `yolo_scanned_to_flat` unrolls YOLOv4's scanned
 residual groups (the inverse of `metrabs_tpu/detect/yolov4.py::
-yolo_flat_to_scanned`), and `detector_state_dict_from_flax` maps the flat
-`conv_<i>/{conv,bn}` tree onto the port's detector modules.
+yolo_flat_to_scanned`; a YOLOv8 tree, which has none, passes unchanged),
+and `detector_state_dict_from_flax` maps the flat tree onto the port's
+detector modules.
 
 Training's half: `flax_train_state_dict` and `load_flax_train_state` carry a
 JAX `TrainState` across in both directions, in the form
@@ -157,17 +160,6 @@ def fold_bn_variables(variables: Dict, epsilon: float) -> Dict:
     return out
 
 
-def backbone_supports_bn_fold(backbone_name: str) -> bool:
-    """Families with a conv->BN structure that `fold_bn_variables` folds (the
-    JAX package's rule; ResNet V2 and GroupNorm variants are excluded)."""
-    name = backbone_name.lower().replace('_', '-')
-    if name.startswith('efficientnetv2') or name.startswith('mobilenetv3'):
-        return True
-    if name.startswith('resnet'):
-        return 'v2' not in name and 'groupnorm' not in name
-    return False
-
-
 def bn_epsilon_for(backbone_name: str) -> float:
     name = backbone_name.lower().replace('_', '-')
     for family, eps in _BN_EPSILONS.items():
@@ -176,10 +168,16 @@ def bn_epsilon_for(backbone_name: str) -> float:
     raise ValueError(f'No BN epsilon known for backbone {backbone_name!r}')
 
 
+# Metrabs' latent-mode `constants` collection: float32 buffers of the model.
+_CONSTANTS = ('recombination_weights', 'encoder_weights')
+
+
 def _torch_key(key: Key) -> str:
     """('params', 'backbone', 'blocks_3', 'norm0', 'bn', 'scale') ->
-    'backbone.blocks.3.norm0.weight'."""
+    'backbone.blocks.3.norm0.weight'; ('constants', name) -> name."""
     collection, *path, leaf = key
+    if collection == 'constants' and not path and leaf in _CONSTANTS:
+        return leaf
     parts = []
     for part in path:
         m = _FLAT_BLOCK.match(part)
@@ -214,12 +212,15 @@ def torch_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     return state
 
 
-def crop_model_state_dict_from_flax(variables: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The port's `Metrabs` state_dict from a flat-layout JAX variable tree
-    (numpy leaves) of the same `cfg` (its `bn_fold` picks the BN layout).
-    Raises ValueError on a leftover, missing or misshapen entry."""
+def crop_model_state_dict_from_flax(variables: Dict, cfg: ModelConfig,
+                                    **crop_model_kwargs) -> Dict[str, torch.Tensor]:
+    """The state_dict of the port's crop model `build_crop_model(cfg,
+    **crop_model_kwargs)` (model class, latent mode) from a flat-layout JAX
+    variable tree (numpy leaves) of the same model (`cfg.bn_fold` picks the
+    BN layout). Raises ValueError on a leftover, missing or misshapen
+    entry."""
     with torch.device('meta'):
-        expected = build_crop_model(cfg).state_dict()
+        expected = build_crop_model(cfg, **crop_model_kwargs).state_dict()
     state = torch_state_dict_from_flax(variables)
     missing = sorted(set(expected) - set(state))
     leftover = sorted(set(state) - set(expected))
@@ -233,12 +234,24 @@ def crop_model_state_dict_from_flax(variables: Dict, cfg: ModelConfig) -> Dict[s
     return state
 
 
+def _is_bare_bn(parts) -> bool:
+    """Whether the norm module at `parts` is flax's BatchNorm or GroupNorm
+    itself (a detector's `bn`, GroupNormCompat's `gn`, the tiny backbone's
+    `bn<i>`) rather than the JAX package's GhostBatchNorm, which wraps one
+    named `bn`."""
+    return (parts[-1] in ('bn', 'gn')
+            or (len(parts) == 2 and parts[0] == 'backbone' and parts[1].startswith('bn')))
+
+
 def flax_variables_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict:
     """Inverse of `crop_model_state_dict_from_flax` and of
     `detector_state_dict_from_flax`: a flat-layout JAX-style variable tree
     (numpy leaves) from a port crop model's or detector's state_dict."""
     flat = {}
     for name, tensor in state.items():
+        if name in _CONSTANTS:
+            flat[('constants', name)] = tensor.detach().cpu().float().numpy()
+            continue
         *path, leaf = name.split('.')
         parts = []
         i = 0
@@ -250,18 +263,17 @@ def flax_variables_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict:
                 parts.append(path[i])
                 i += 1
         value = tensor.detach().cpu().float().numpy()
-        # A detector's BN module ('bn') and the tiny backbone's ('bn<i>') are
-        # flax's BatchNorm; EfficientNetV2's (norm<i>, stem_bn, head_bn) wrap
-        # one named 'bn'.
-        is_bn = parts[-1].startswith(('bn', 'norm', 'stem_bn', 'head_bn'))
-        bn_scope = parts if parts[-1].startswith('bn') else parts + ['bn']
+        # Norm modules: the BNs (bn, bn<k>, norm<k>, <name>_bn) and `gn`.
+        is_norm = (parts[-1] == 'gn' or parts[-1].startswith(('bn', 'norm'))
+                   or parts[-1].endswith('_bn'))
+        bn_scope = parts if _is_bare_bn(parts) else parts + ['bn']
         if leaf == 'weight' and value.ndim == 4:
             flat[('params', *parts, 'kernel')] = value.transpose(2, 3, 1, 0)
         elif leaf in ('running_mean', 'running_var'):
             flat[('batch_stats', *bn_scope, leaf[len('running_'):])] = value
         elif leaf == 'weight':
             flat[('params', *bn_scope, 'scale')] = value
-        elif value.ndim == 1 and is_bn:
+        elif is_norm:
             flat[('params', *bn_scope, 'bias')] = value
         else:
             flat[('params', *parts, 'bias')] = value
@@ -357,26 +369,28 @@ def yolo_scanned_to_flat(variables: Dict) -> Dict:
     return unflatten_dict(out)
 
 
-_DETECTOR_NAMES = {('conv', 'kernel'): 'weight', ('conv', 'bias'): 'bias',
-                   ('bn', 'scale'): 'weight', ('bn', 'bias'): 'bias',
-                   ('bn', 'mean'): 'running_mean', ('bn', 'var'): 'running_var'}
+_DETECTOR_NAMES = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias',
+                   ('params', 'scale'): 'weight', ('batch_stats', 'mean'): 'running_mean',
+                   ('batch_stats', 'var'): 'running_var'}
 
 
 def detector_state_dict_from_flax(variables: Dict, model: torch.nn.Module
                                   ) -> Dict[str, torch.Tensor]:
     """The state_dict of the port's detector `model` (built for the tree's BN
     layout, on any device, meta included) from a flat-layout JAX detector
-    tree: `(collection, conv_<i>, conv|bn, leaf)` -> `conv_<i>.conv|bn.<name>`.
-    Raises ValueError on a leftover, missing or misshapen entry."""
+    tree, whose module paths the port keeps: YOLOv4's `conv_<i>/{conv,bn}`,
+    YOLOv8's nested `l2/m0/cv1/{conv,bn}` and `l22/cv2_0_2`. Raises
+    ValueError on a leftover, missing or misshapen entry."""
     expected = model.state_dict()
     state = {}
     for key, value in flatten_dict(variables).items():
-        if len(key) != 4 or (key[2], key[3]) not in _DETECTOR_NAMES:
+        collection, *path, leaf = key
+        if not path or (collection, leaf) not in _DETECTOR_NAMES:
             raise ValueError(f'Unexpected detector variable {"/".join(key)}')
         value = np.asarray(value)
-        if key[3] == 'kernel':
+        if leaf == 'kernel':
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        state[f'{key[1]}.{key[2]}.{_DETECTOR_NAMES[key[2], key[3]]}'] = torch.tensor(
+        state['.'.join(path + [_DETECTOR_NAMES[collection, leaf]])] = torch.tensor(
             np.ascontiguousarray(value))
     missing = sorted(set(expected) - set(state))
     leftover = sorted(set(state) - set(expected))

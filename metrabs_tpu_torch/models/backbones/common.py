@@ -1,7 +1,9 @@
 """Shared backbone building blocks (`metrabs_tpu/models/backbones/common.py`):
-explicit padding with the centered-stride bottom-right shift, a convolution
-that computes in its input's dtype, inference and train-mode BatchNorm,
-drop-connect, and the family's input preprocessing."""
+explicit padding with the centered-stride bottom-right shift and flax's
+'SAME' padding, a convolution that computes in its input's dtype, the
+activations, inference and train-mode BatchNorm, flax's GroupNorm,
+drop-connect, rematerialised blocks, and each family's input
+preprocessing."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from metrabs_tpu_torch.ops.mbconv import fold_bn
 
@@ -32,6 +35,23 @@ def pad_nchw(x: torch.Tensor, pads: Tuple[Tuple[int, int], Tuple[int, int]]) -> 
     return F.pad(x, (left, right, top, bottom))
 
 
+def same_pads(n: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax's 'SAME' padding (before, after) of one axis of length `n`: at
+    stride 2 an even side pads (0, 1), not symmetrically."""
+    total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """An NCHW tensor padded for a VALID `kernel` x `kernel` window at
+    `stride` to give flax's 'SAME' output (max pools pad with -inf)."""
+    top, bottom = same_pads(x.shape[2], kernel, stride)
+    left, right = same_pads(x.shape[3], kernel, stride)
+    if not (top or bottom or left or right):
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
 class Conv2d(nn.Conv2d):
     """`nn.Conv2d` computing in its input's dtype, as flax's `Conv(dtype=...,
     param_dtype=float32)`: float32 weights are cast to bfloat16 for bfloat16
@@ -44,6 +64,23 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, stride or self.stride,
                         self.padding, dilation or self.dilation, self.groups)
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return F.relu6(x + 3.0) * (1.0 / 6.0)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    return x * hard_sigmoid(x)
+
+
+ACTIVATIONS = {
+    'relu': F.relu,
+    'silu': F.silu,
+    'swish': F.silu,
+    'hard_swish': hard_swish,
+    'gelu': lambda x: F.gelu(x, approximate='tanh'),  # flax's nn.gelu
+}
 
 
 def at_least_f32(dtype: torch.dtype) -> torch.dtype:
@@ -131,6 +168,48 @@ class GhostBatchNorm(FrozenBatchNorm2d):
         return self._scale_shift(centered.to(at_least_f32(centered.dtype)), var, x.dtype)
 
 
+class BnOptions:
+    """How a backbone's BatchNorms are built: none with `bn_fold` (the convs
+    carry a bias instead), else `GhostBatchNorm` with the family's `eps`
+    and `momentum` and the backbone's ghost splits and statistics dtype."""
+
+    def __init__(self, bn_fold: bool, ghost_splits: int = 1, bf16_stats: bool = False, *,
+                 eps: float, momentum: float):
+        self.bn_fold, self.ghost_splits, self.bf16_stats = bn_fold, ghost_splits, bf16_stats
+        self.eps, self.momentum = eps, momentum
+
+    def __call__(self, c: int) -> nn.Module:
+        if self.bn_fold:
+            return nn.Identity()
+        return GhostBatchNorm(c, self.eps, self.momentum, self.ghost_splits, self.bf16_stats)
+
+
+class GroupNormCompat(nn.Module):
+    """flax's `nn.GroupNorm` over NCHW, as the JAX package's GroupNormCompat
+    wraps it (the reference's resnet50v1_5_groupnorm: 32 groups, eps 1e-5):
+    statistics per sample and group of `C / groups` consecutive channels,
+    mean and E[x^2] - E[x]^2 (clamped at 0) in at least float32, then
+    `FrozenBatchNorm2d`'s scale and shift. The scale and shift sit under
+    `gn`, the name of the wrapped module in the JAX tree."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, groups: int = 32):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.gn = nn.Module()
+        self.gn.weight = nn.Parameter(torch.ones(num_features))
+        self.gn.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        xs = x.to(at_least_f32(x.dtype)).reshape(n, self.groups, c // self.groups, h, w)
+        mean = xs.mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp((xs * xs).mean(dim=(2, 3, 4), keepdim=True) - mean * mean, min=0)
+        centered = (xs - mean).reshape(n, c, h, w)
+        var = var.expand(-1, -1, c // self.groups, -1, -1).reshape(n, c, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.gn.weight.float().reshape(1, -1, 1, 1)
+        return (centered * mul + self.gn.bias.float().reshape(1, -1, 1, 1)).to(x.dtype)
+
+
 @contextlib.contextmanager
 def frozen_stats(module: nn.Module):
     """Within: the `GhostBatchNorm`s of `module` leave their running
@@ -144,6 +223,16 @@ def frozen_stats(module: nn.Module):
     finally:
         for bn, flag in zip(bns, saved):
             bn.update_stats = flag
+
+
+def call_block(block: nn.Module, *args, remat: bool = False):
+    """`block(*args)`; with `remat` and gradients on, recomputed in the
+    backward pass (`torch.utils.checkpoint`, non-reentrant) with the block's
+    running statistics left alone during the recompute."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), frozen_stats(block)))
 
 
 def drop_mask(n: int, survival_prob: float, generator: Optional[torch.Generator],
@@ -166,6 +255,28 @@ def stochastic_depth(x: torch.Tensor, residual: torch.Tensor, survival_prob: flo
                            torch.zeros_like(scaled))
 
 
+# Per-family input preprocessing of gamma-space RGB in [0, 1], in the
+# input's dtype.
+
 def tf_preproc(x: torch.Tensor) -> torch.Tensor:
-    """Gamma-space RGB in [0, 1] -> [-1, 1] (the EfficientNetV2 family)."""
+    """-> [-1, 1] (EfficientNetV2, ResNet V2)."""
     return 2.0 * x - 1.0
+
+
+def torch_preproc(x: torch.Tensor) -> torch.Tensor:
+    """ImageNet mean and standard deviation (ResNet V1.5)."""
+    mean = torch.tensor([0.485, 0.456, 0.406], dtype=x.dtype, device=x.device)
+    std = torch.tensor([0.229, 0.224, 0.225], dtype=x.dtype, device=x.device)
+    return (x - mean) / std
+
+
+def caffe_preproc(x: torch.Tensor) -> torch.Tensor:
+    """255 x minus the BGR-ordered means, applied to RGB values as they are,
+    as the reference does (ResNet V1 and the basic-block ResNets)."""
+    mean = torch.tensor([103.939, 116.779, 123.68], dtype=x.dtype, device=x.device)
+    return 255.0 * x - mean
+
+
+def mobilenet_preproc(x: torch.Tensor) -> torch.Tensor:
+    """MobileNetV3's x 255 then Rescaling(1 / 127.5, -1)."""
+    return (255.0 / 127.5) * x - 1.0

@@ -45,8 +45,8 @@ differentiate through it raises.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import functools
 import math
 import re
 from typing import List, Optional
@@ -54,7 +54,6 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from metrabs_tpu_torch.models.backbones import common
 from metrabs_tpu_torch.ops import mbconv as mbconv_ops
@@ -232,18 +231,8 @@ def _pads(a: BlockArgs):
                                         1 if a.bottomright_stride else 0)
 
 
-class _BnOptions:
-    """How a backbone's BatchNorms are built: none with `bn_fold`, else
-    `common.GhostBatchNorm` with the backbone's ghost splits and stats dtype."""
-
-    def __init__(self, bn_fold: bool, ghost_splits: int, bf16_stats: bool):
-        self.bn_fold, self.ghost_splits, self.bf16_stats = bn_fold, ghost_splits, bf16_stats
-
-    def __call__(self, c: int) -> nn.Module:
-        if self.bn_fold:
-            return nn.Identity()
-        return common.GhostBatchNorm(c, BN_EPSILON, BN_MOMENTUM, self.ghost_splits,
-                                     self.bf16_stats)
+# (bn_fold, ghost_splits, bf16_stats) -> the family's BatchNorm factory.
+_BnOptions = functools.partial(common.BnOptions, eps=BN_EPSILON, momentum=BN_MOMENTUM)
 
 
 class SqueezeExcite(nn.Module):
@@ -292,7 +281,7 @@ class MBConv(_Block):
     inner chain of a qualifying block is one fused operation in eval mode
     (module docstring)."""
 
-    def __init__(self, a_train: BlockArgs, a_test: BlockArgs, bn: _BnOptions,
+    def __init__(self, a_train: BlockArgs, a_test: BlockArgs, bn: common.BnOptions,
                  fuse: str = 'off'):
         super().__init__(a_train, a_test)
         if fuse not in FUSE_MODES:
@@ -378,7 +367,7 @@ class FusedMBConv(_Block):
     """Fused expand kxk (or a single kxk conv when expand_ratio == 1) -> SE ->
     project 1x1."""
 
-    def __init__(self, a_train: BlockArgs, a_test: BlockArgs, bn: _BnOptions):
+    def __init__(self, a_train: BlockArgs, a_test: BlockArgs, bn: common.BnOptions):
         super().__init__(a_train, a_test)
         a = a_test
         filters = a.input_filters * a.expand_ratio
@@ -467,11 +456,6 @@ class EfficientNetV2(nn.Module):
                 # Drawn here, outside a checkpointed call: a recompute does
                 # not rewind the generator.
                 keep = common.drop_mask(h.shape[0], survival, generator, h.device)
-            if self.remat and i < self.remat_until_block and torch.is_grad_enabled():
-                h = checkpoint(block, h, keep, survival, use_reentrant=False,
-                               preserve_rng_state=False,
-                               context_fn=lambda b=block: (contextlib.nullcontext(),
-                                                           common.frozen_stats(b)))
-            else:
-                h = block(h, keep, survival)
+            h = common.call_block(block, h, keep, survival,
+                                  remat=self.remat and i < self.remat_until_block)
         return F.silu(self.head_bn(self.head_conv(h)))

@@ -14,13 +14,6 @@ import torch.nn.functional as F
 from metrabs_tpu_torch.models.backbones import common
 
 
-def _same_pads(n: int, k: int = 3, s: int = 2):
-    """flax's 'SAME' padding (before, after) of one axis: at stride 2 an even
-    side pads (0, 1), not symmetrically."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
 class TinyBackbone(nn.Module):
     """[N, S, S, 3] NHWC -> NCHW [N, width, S/32, S/32]."""
 
@@ -41,9 +34,7 @@ class TinyBackbone(nn.Module):
         """`generator` is unused (no drop-connect)."""
         x = x.to(self.dtype or self.conv0.weight.dtype).permute(0, 3, 1, 2)
         for i in range(5):
-            top, bottom = _same_pads(x.shape[2])
-            left, right = _same_pads(x.shape[3])
-            x = getattr(self, f'conv{i}')(F.pad(x, (left, right, top, bottom)))
+            x = getattr(self, f'conv{i}')(common.pad_same(x, 3, 2))
             if self.use_bn:
                 x = getattr(self, f'bn{i}')(x)
             x = F.relu(x)

@@ -21,6 +21,14 @@ def heatmap_to_image(coords: torch.Tensor, *, proc_side: int, stride: int,
     return out
 
 
+def heatmap_to_25d(coords: torch.Tensor, *, proc_side: int, stride: int, box_size_mm: float,
+                   centered_stride: bool = True) -> torch.Tensor:
+    """xy in pixels, z in millimeters."""
+    coords2d = heatmap_to_image(coords[..., :2], proc_side=proc_side, stride=stride,
+                                centered_stride=centered_stride)
+    return torch.cat([coords2d, coords[..., 2:] * box_size_mm], dim=-1)
+
+
 def heatmap_to_metric(coords: torch.Tensor, *, proc_side: int, stride: int,
                       box_size_mm: float, centered_stride: bool = True) -> torch.Tensor:
     """All three axes in millimeters, root-relative."""

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from metrabs_tpu_torch.config import ModelConfig, TrainConfig
+from metrabs_tpu_torch.models.metrabs import Metrabs
 from metrabs_tpu_torch.pipeline.estimator import checked_device
 from metrabs_tpu_torch.train import losses as losses_mod
 from metrabs_tpu_torch.train import optim
@@ -64,7 +65,8 @@ def make_train_step(optimizer: optim.Optimizer, joint_info3d: JointInfo,
                     joint_info2d: JointInfo, cfg: ModelConfig, tcfg: TrainConfig,
                     bn_inference: bool = False):
     """The step `train_step(state, batch3d, batch2d, generator=None,
-    mix=None) -> losses` for a `Metrabs` model.
+    mix=None) -> losses` for a plain `Metrabs` model (another crop model
+    raises NotImplementedError).
 
     batch3d: image [n, S, S, 3], intrinsics [n, 3, 3], coords3d_true
     [n, J, 3], joint_validity_mask [n, J]; batch2d: image [m, S, S, 3],
@@ -83,6 +85,10 @@ def make_train_step(optimizer: optim.Optimizer, joint_info3d: JointInfo,
                    generator: Optional[torch.Generator] = None,
                    mix: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         model = state.model
+        if not isinstance(model, Metrabs) or model.latent_mode:
+            raise NotImplementedError('The Metro, Model25D and latent-mode train steps are '
+                                      'not yet ported to metrabs_tpu_torch; the plain '
+                                      'Metrabs step is')
         device = next(model.parameters()).device
         to_dev = lambda batch: {k: torch.as_tensor(v).to(device, non_blocking=True)
                                 for k, v in batch.items()}

@@ -9,9 +9,13 @@ default). Kernels are He fan-in normal scaled by 0.8 and BatchNorm gets
 non-trivial random scale, bias, mean and variance: flat-scale random nets
 ignore their input (PARITY.md, methodology note), so each parity test also
 checks that two inputs give clearly different outputs.
+`make_family_package` writes the same kind of package for any backbone
+family, crop-model class and latent mode, with any detector.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -43,6 +47,10 @@ def mint_variables(shapes, rng: np.random.Generator):
             v = rng.normal(0.0, 0.1, s.shape)
         elif leaf == 'var':
             v = rng.uniform(0.6, 1.4, s.shape)
+        elif leaf in ('recombination_weights', 'encoder_weights'):
+            # Affine combinations: each output point's weights sum to 1.
+            v = rng.uniform(0.0, 1.0, s.shape)
+            v /= v.sum(axis=0, keepdims=True)
         else:
             raise ValueError(f'unexpected variable {key}')
         flat[key] = v.astype(np.float32)
@@ -87,8 +95,8 @@ def detector_variables(kind: str = 'yolov4', scan_repeats: bool = True, seed: in
     from metrabs_tpu.detect.yolov4 import build_detector_model
 
     model = build_detector_model(kind, dtype=jnp.float32, scan_repeats=scan_repeats)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, size, size, 3)), train=False)
+    shapes = jax.eval_shape(functools.partial(model.init, train=False), jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 3)))
     return mint_variables(shapes, np.random.default_rng(seed))
 
 
@@ -116,6 +124,76 @@ def make_package(directory: str, scanned: bool, seed: int = 0, detector: str = '
     save_pose_estimator_package(directory, cfg=cfg, aug_cfg=AugConfig(),
                                 crop_model_variables=variables, joint_info=H36M_17,
                                 bone_mean_lengths=bone_mean_lengths, **det)
+    return directory
+
+
+def family_cfg(backbone: str, **kwargs):
+    """A flat-layout float32 crop-model config at 64 px for `backbone`."""
+    from metrabs_tpu.config import ModelConfig
+    return ModelConfig(proc_side=PROC_SIDE, n_joints=17, dtype='float32', backbone=backbone,
+                       warp_backend='gather', backbone_scan_blocks=False, **kwargs)
+
+
+def bones_25d():
+    """(bones, ideal lengths in mm) for Model25D on H36M-17."""
+    from metrabs_tpu.pipeline.skeletons import H36M_17
+    lengths = np.random.default_rng(7).uniform(150.0, 450.0, len(H36M_17.edges))
+    return tuple(tuple(map(int, e)) for e in H36M_17.edges), tuple(float(x) for x in lengths)
+
+
+def family_model(cfg, model_class: str = 'metrabs', latent_mode: str = '',
+                 n_latents: int = 0):
+    """The JAX crop model of `model_class` on `cfg.backbone` (flat, unfolded)."""
+    import jax.numpy as jnp
+    from metrabs_tpu.models.backbones.builder import build_backbone
+    backbone = build_backbone(cfg.backbone, dtype=jnp.float32, scan_blocks=False,
+                              stride_test=(cfg.stride_test if cfg.stride_test != cfg.stride_train
+                                           else None))
+    if model_class == 'metro':
+        from metrabs_tpu.models.metro import Metro
+        return Metro(cfg=cfg, backbone=backbone)
+    if model_class == 'model25d':
+        from metrabs_tpu.models.model25d import Model25D
+        bones, lengths = bones_25d()
+        return Model25D(cfg=cfg, backbone=backbone, bones=bones, bone_lengths_ideal=lengths)
+    from metrabs_tpu.models.metrabs import Metrabs
+    return Metrabs(cfg=cfg, backbone=backbone, latent_mode=latent_mode, n_latents=n_latents)
+
+
+def family_variables(model, model_class: str = 'metrabs', seed: int = 0):
+    """Variables of a JAX crop model from `family_model`, minted from `seed`."""
+    import jax
+    import jax.numpy as jnp
+    x = jnp.zeros((1, PROC_SIDE, PROC_SIDE, 3))
+    args = (x,) if model_class == 'metro' else (x, jnp.eye(3)[None])
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args)
+    return mint_variables(shapes, np.random.default_rng(seed))
+
+
+def make_family_package(directory: str, backbone: str, model_class: str = 'metrabs',
+                        latent_mode: str = '', n_latents: int = 0, detector: str = '',
+                        detector_input_size: int = 96, seed: int = 0,
+                        bone_mean_lengths=None) -> str:
+    """Writes a JAX package of any crop-model class on any backbone family
+    (flat layout, float32, 64 px), with a float32 `detector` if one is named."""
+    from metrabs_tpu.config import AugConfig
+    from metrabs_tpu.io.packaging import save_pose_estimator_package
+    from metrabs_tpu.pipeline.skeletons import H36M_17
+
+    cfg = family_cfg(backbone)
+    model = family_model(cfg, model_class, latent_mode, n_latents)
+    extra = {}
+    if model_class == 'model25d':
+        extra = dict(zip(('bones_25d', 'bone_lengths_ideal'), bones_25d()))
+    if detector:
+        extra.update(detector_variables=detector_variables(detector, seed=seed + 1),
+                     detector_type=detector, detector_dtype='float32',
+                     detector_input_size=detector_input_size)
+    save_pose_estimator_package(
+        directory, cfg=cfg, aug_cfg=AugConfig(), joint_info=H36M_17,
+        crop_model_variables=family_variables(model, model_class, seed),
+        bone_mean_lengths=bone_mean_lengths, latent_mode=latent_mode, n_latents=n_latents,
+        model_class=model_class, **extra)
     return directory
 
 

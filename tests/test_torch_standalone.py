@@ -3,7 +3,8 @@ nothing of jax, flax, optax, orbax or the JAX package `metrabs_tpu`, its
 entry points run on the card unless the caller names another device, and
 its copies of the JAX package's framework-free modules (config with the
 training hyperparameters, joint info, TTA schedules, skeletons, bone
-priors, the host data pipeline) agree with the originals. Also F1's
+priors, the host data pipeline, the registry of released models) agree
+with the originals. Also F1's
 regression test: a train-mode MBConv never runs the fused chain.
 """
 
@@ -21,12 +22,14 @@ import torch
 
 from metrabs_tpu import config as jax_config
 from metrabs_tpu.data import pipeline as jax_data
+from metrabs_tpu.models import registry as jax_registry
 from metrabs_tpu.pipeline import bone_priors as jax_bone_priors
 from metrabs_tpu.pipeline import skeletons as jax_skeletons
 from metrabs_tpu.pipeline import tta as jax_tta
 from metrabs_tpu_torch import config
 from metrabs_tpu_torch.data import pipeline as data
 from metrabs_tpu_torch.io import packaging
+from metrabs_tpu_torch.models import registry
 from metrabs_tpu_torch.pipeline import bone_priors, skeletons, tta
 from metrabs_tpu_torch.pipeline.estimator import PoseEstimator
 from metrabs_tpu_torch.train import loop, optim
@@ -121,9 +124,17 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize('entry', ['PoseEstimator', 'pose_estimator_from_variables',
                                    'crop_model_from_variables', 'detector_from_variables',
                                    'load_crop_model', 'load_pose_estimator',
-                                   'create_train_state', 'device_prefetch'])
+                                   'create_train_state', 'device_prefetch',
+                                   'model25d_from_variables', 'metro_from_variables',
+                                   'yolov8_from_variables'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
+    families = dict(model_config={}, model_class='model25d', detector_type='yolov8m')
     calls = dict(
+        model25d_from_variables=lambda: packaging.pose_estimator_from_variables({}, families),
+        metro_from_variables=lambda: packaging.crop_model_from_variables(
+            {}, dict(families, model_class='metro')),
+        yolov8_from_variables=lambda: packaging.detector_from_variables(
+            {}, families, bn_fold=False),
         create_train_state=lambda: loop.create_train_state(
             torch.nn.Linear(2, 2), optim.Optimizer(config.TrainConfig())),
         device_prefetch=lambda: data.device_prefetch([{'x': np.zeros(2)}]),
@@ -143,6 +154,20 @@ def test_estimator_runs_on_the_cpu_when_asked(no_cuda):
     est = PoseEstimator(torch.nn.Identity(), skeletons.H36M_17, config.ModelConfig(),
                         bone_mean_lengths=np.ones(16, np.float32), device='cpu')
     assert est.device == torch.device('cpu') and est._mean_bones.device.type == 'cpu'
+
+
+def test_registry_copy_matches_jax():
+    """The 14 released configurations: names, backbones, sizes, detectors,
+    augmentation flags and the configs they make."""
+    assert list(registry.NAMED_MODELS) == list(jax_registry.NAMED_MODELS)
+    for name, ours in registry.NAMED_MODELS.items():
+        theirs = jax_registry.get_named_model(name)
+        assert dataclasses.astuple(ours) == dataclasses.astuple(theirs)
+        assert (dataclasses.asdict(ours.model_config(depth=4))
+                == dataclasses.asdict(theirs.model_config(depth=4)))
+        assert dataclasses.asdict(ours.aug_config()) == dataclasses.asdict(theirs.aug_config())
+    with pytest.raises(KeyError, match='Unknown model'):
+        registry.get_named_model('metrabs_vit_y4')
 
 
 @pytest.mark.parametrize('name', ['ModelConfig', 'AugConfig', 'TrainConfig'])

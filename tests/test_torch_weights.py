@@ -17,6 +17,7 @@ from metrabs_tpu.io import bn_fold as jax_bn_fold
 from metrabs_tpu.io import scan_convert as jax_scan_convert
 from metrabs_tpu.io.checkpoints import load_model_msgpack as jax_load_msgpack
 from metrabs_tpu_torch.io import checkpoints, weights
+from metrabs_tpu_torch.models.backbones.builder import backbone_supports_bn_fold
 from metrabs_tpu_torch.models.metrabs import build_crop_model
 from tests import _torch_port
 
@@ -125,9 +126,9 @@ def test_fold_bn_variables_rejects_bn_without_conv():
                                   'mobilenetv3-small', 'resnet50', 'resnet50v1-5',
                                   'resnet50v2', 'resnet50-groupnorm', 'tiny'])
 def test_bn_fold_support_matches_jax(name):
-    assert (weights.backbone_supports_bn_fold(name)
+    assert (backbone_supports_bn_fold(name)
             == jax_bn_fold.backbone_supports_bn_fold(name))
-    if weights.backbone_supports_bn_fold(name):
+    if backbone_supports_bn_fold(name):
         assert weights.bn_epsilon_for(name) == jax_bn_fold.bn_epsilon_for(name)
 
 
