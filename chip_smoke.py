@@ -69,7 +69,22 @@ line:
     FAMILY_CASES in float32 on the GPU against the CPU on a small frame with
     2 boxes, with another frame moving the poses; Metro built by
     `load_crop_model` and refused by `load_pose_estimator`; a float32
-    YOLOv8-n's detections equal on the GPU and the CPU.
+    YOLOv8-n's detections equal on the GPU and the CPU;
+ 8. import: the released metrabs_eff2s_y4 (EffNetV2-S@256 and YOLOv4-416,
+    bf16), weights minted from a seed, written in the released formats by
+    the port's own code (a TF TensorBundle under the reference fork's names,
+    a darknet yolov4.weights, both under runs/ and deleted after the phase),
+    read back by its importers (every leaf equal to the minted one bit for
+    bit), packaged with the detector by its writer and loaded unfolded with
+    `fuse_mbconv='on'`; on the main frames: `detect_poses_stream` (K=2
+    batches, the second the frames mirrored) with K1 once and K2 28 times
+    per non-empty chunk, `detect_poses_pipelined` (in_flight 2, 3 batches)
+    and `estimate_poses_stream` (K=2, the main boxes), each against the
+    batched calls within STREAM_TOL; F3 (the detect output's CUDA boxes back
+    into `estimate_poses_batched`) and F2 (zero boxes, empty shapes); K1 and
+    K2 counted again under torch.profiler on one stream call; the median of
+    5 calls per frame batch, stream against batched, with the device-busy
+    share of one profiled call of each.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -81,6 +96,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -170,6 +186,27 @@ def cuda_time_ms(fn, n_warm: int = 3, n: int = 25) -> float:
     return statistics.median(times)
 
 
+def profiled(run, name: str):
+    """(the events of one `run()` under torch.profiler, its wall ms). A
+    profile without a single GPU kernel record (torch.profiler drops a whole
+    profile now and then) is taken again, up to TIMING_TRIES times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(TIMING_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            return events, wall_ms
+        phase(name, 'torch.profiler recorded no GPU kernels: profiling again')
+    fail(name, f'torch.profiler recorded no GPU kernels in {TIMING_TRIES} profiles')
+
+
 def device_time_ms(fn, n: int = 25) -> float:
     """Mean device time of `fn` over `n` warm calls: the summed durations of
     the GPU kernels it launches, from torch.profiler, so without the host's
@@ -179,19 +216,13 @@ def device_time_ms(fn, n: int = 25) -> float:
     made, which reads as a kernel faster than its bound) is taken again, up
     to TIMING_TRIES times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for _ in range(TIMING_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not events:
-            fail('kernel', 'torch.profiler recorded no GPU kernels')
+        events, _ = profiled(lambda: [fn() for _ in range(n)], 'kernel')
+        events = [e for e in events if e.device_type == DeviceType.CUDA]
         counts = collections.Counter(e.name for e in events)
         if all(c % n == 0 for c in counts.values()):
             return sum(e.device_time_total for e in events) / n / 1e3
@@ -469,7 +500,7 @@ def profile_detect(est, run):
     filter and its pose NMS. Returns (wall ms, {name: device ms}, {name:
     host ms}, busy device ms, kernel count, {kernel: launches})."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from metrabs_tpu_torch.detect import yolov4
     from metrabs_tpu_torch.pipeline import plausibility
@@ -490,17 +521,11 @@ def profile_detect(est, run):
     for obj, attr, name in patches:
         setattr(obj, attr, labelled(name, getattr(obj, attr)))
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        events, wall_ms = profiled(run, 'profile')
     finally:
         for obj, attr, value in saved:
             setattr(obj, attr, value)
     names = {name for _, _, name in patches}
-    events = prof.events()
     device_ms, host_ms = {}, {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in names:
@@ -648,15 +673,9 @@ def profile_step(run):
     """One `run()` under torch.profiler: (wall ms, device busy ms, kernels,
     {kernel group: device ms})."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events, wall_ms = profiled(run, 'train')
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     kernels = [e for e in device if not e.name.startswith(('Memcpy', 'Memset'))]
     groups = {}
     for e in device:
@@ -1110,6 +1129,231 @@ def families_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     return launches
 
 
+IMPORT_MODEL = 'metrabs_eff2s_y4'  # EffNetV2-S@256 crop model + YOLOv4-416, both bf16
+IMPORT_K = 2  # frame batches per stream call
+IMPORT_PIPELINED = 3  # frame batches through detect_poses_pipelined
+# Stream, pipelined and batched calls run the same kernels in the same order
+# on the same inputs, so they are expected to agree exactly; the tolerance
+# only admits a cuDNN algorithm that sums in another order between calls.
+STREAM_TOL = dict(boxes_px=BOX_TOL_PX, poses_mm=POSE_ATOL_MM)
+
+
+def zeros_template(module) -> dict:
+    """The JAX-layout variable tree of `module` (built on the meta device),
+    zero-filled: an importer's template that holds no value of its own."""
+    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
+    return flax_variables_from_state_dict(
+        {k: torch.zeros(v.shape) for k, v in module.state_dict().items()})
+
+
+def trees_equal(got: dict, want: dict) -> bool:
+    """Same paths, dtypes, shapes and bits."""
+    from metrabs_tpu_torch.io.weights import flatten_dict
+    got, want = flatten_dict(got), flatten_dict(want)
+    return got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+
+
+def max_diff(got: dict, want: dict, rows) -> tuple:
+    """(valid masks equal, max |dbox| px, max |dpose3d| mm) on `rows`."""
+    same_valid = torch.equal(torch.as_tensor(got['valid']).to(rows.device), want['valid'])
+    diff = lambda k: (torch.as_tensor(got[k]).to(rows.device)[rows] - want[k][rows]).abs().max()
+    return same_valid, diff('boxes').item(), diff('poses3d').item()
+
+
+def import_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
+    """The [import] phase: the released metrabs_eff2s_y4 (EffNetV2-S@256 and
+    YOLOv4-416, bf16) with weights minted from a seed, written in the
+    released formats (a TF TensorBundle under the reference fork's names, a
+    darknet yolov4.weights) and read back bit for bit by the port's
+    importers, packaged with its detector by the port's writer, loaded
+    unfolded with `fuse_mbconv='on'`, then `detect_poses_stream` (K=2),
+    `detect_poses_pipelined` (3 batches) and `estimate_poses_stream` (K=2)
+    against the batched calls, F3 and F2 on the card, the K1 and K2 launches
+    of one profiled stream call and the stream and batched times. Returns
+    the K1 and K2 launches of the counted stream call."""
+    import shutil
+
+    from metrabs_tpu_torch.detect.yolov4 import (build_detector_model, load_darknet_weights,
+                                                 write_darknet_weights)
+    from metrabs_tpu_torch.io import tf_checkpoint, weights_import
+    from metrabs_tpu_torch.io.packaging import load_pose_estimator, save_pose_estimator_package
+    from metrabs_tpu_torch.io.weights import flatten_dict
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.models.metrabs import build_crop_model
+    from metrabs_tpu_torch.models.registry import get_named_model
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+
+    named = get_named_model(IMPORT_MODEL)
+    cfg = named.model_config(dtype='bfloat16', n_joints=17, backbone_scan_blocks=False)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    minted = mint_crop_variables(cfg, gen)
+    minted_det = mint_detector_variables(gen, named.detector)
+    work = root / 'runs' / f'chip_smoke_import_{os.getpid()}'
+    try:
+        # The released formats, written by the port's own code.
+        prefix = str(work / 'saved_model' / 'variables' / 'variables')
+        pairs = (weights_import.import_backbone_from_tf(None, minted, cfg.backbone)
+                 + weights_import.import_metrabs_head_from_tf(None, minted))
+        flat = {'/'.join(k): v for k, v in flatten_dict(minted).items()}
+        if sorted(p for p, _, _ in pairs) != sorted(flat):
+            fail('import', 'the TF mapping does not cover the crop model exactly')
+        # `_dw`, the one transform, swaps two axes: it is its own inverse.
+        tf_checkpoint.write_tf_checkpoint(prefix, {name: (t or np.asarray)(flat[path])
+                                                   for path, name, t in pairs})
+        darknet = str(work / 'yolov4.weights')
+        write_darknet_weights(minted_det, darknet)
+        sizes = [os.path.getsize(prefix + '.data-00000-of-00001'), os.path.getsize(darknet)]
+
+        # Read back into zero templates of the port's modules.
+        with torch.device('meta'):
+            crop_module = build_crop_model(cfg)
+            det_module = build_detector_model(named.detector)
+        tf_vars = tf_checkpoint.load_tf_checkpoint(prefix)
+        imported = weights_import.import_metrabs_head_from_tf(
+            tf_vars, weights_import.import_backbone_from_tf(tf_vars, zeros_template(crop_module),
+                                                            cfg.backbone))
+        imported_det = load_darknet_weights(zeros_template(det_module), darknet)
+        if not trees_equal(imported, minted) or not trees_equal(imported_det, minted_det):
+            fail('import', 'an imported leaf differs from the minted one')
+        n_leaves = (len(flatten_dict(imported)), len(flatten_dict(imported_det)))
+        pkg = str(work / 'package')
+        save_pose_estimator_package(
+            pkg, cfg=cfg, aug_cfg=named.aug_config(), crop_model_variables=imported,
+            joint_info=H36M_17, detector_variables=imported_det, detector_type=named.detector,
+            detector_dtype='bfloat16', detector_input_size=DETECTOR_SIZE)
+        est = load_pose_estimator(
+            pkg, device=dev, cfg_overrides={'bn_fold': False},
+            backbone_builder=functools.partial(build_backbone, fuse_mbconv='on'))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    io_s = time.perf_counter() - t0
+    fused_blocks = sum(getattr(b, 'fusable', False) and b.fuse == 'on'
+                       for b in est.crop_model.backbone.blocks)
+    if est.cfg.bn_fold or est.cfg.dtype != 'bfloat16' or fused_blocks != K2_BLOCKS:
+        fail('import', f'expected the unfolded bf16 model with {K2_BLOCKS} fused blocks')
+    phase('import', f'{IMPORT_MODEL}: minted, written as a TF TensorBundle ({len(pairs)} '
+                    f'variables, {sizes[0] / 1e6:.1f} MB) and a darknet yolov4.weights '
+                    f'({sizes[1] / 1e6:.1f} MB), read back: all {n_leaves[0]} crop-model and '
+                    f'{n_leaves[1]} detector leaves equal the minted ones bit for bit; packaged '
+                    f'with the detector and loaded unfolded, fuse_mbconv on, in {io_s:.1f} s')
+
+    frames_k = torch.stack([frames, torch.flip(frames, dims=[2])])
+    kwargs = dict(num_aug=NUM_AUG, max_detections=MAX_DETECTIONS,
+                  internal_batch_size=INTERNAL_BATCH, detector_threshold=0.0,
+                  suppress_implausible_poses=True)
+    est.detect_poses_batched(frames, **kwargs)  # warm-up (cuDNN algorithm selection)
+    with torch.inference_mode():
+        det_valid = [est.detector.detect_batched(f, threshold=0.0,
+                                                 max_detections=MAX_DETECTIONS)[1]
+                     for f in frames_k]
+    if not all(bool(v.all()) for v in det_valid):
+        fail('import', f'threshold 0 left detection slots empty: '
+                       f'{[int(v.sum()) for v in det_valid]} of {N_FRAMES * MAX_DETECTIONS}')
+    chunks = sum(math.ceil(int(v.sum()) / (INTERNAL_BATCH // NUM_AUG)) for v in det_valid)
+    stream = lambda: est.detect_poses_stream(frames_k, **kwargs)
+    torch.cuda.synchronize()
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    out = stream()
+    torch.cuda.synchronize()
+    k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+    want_shapes = dict(boxes=(IMPORT_K, N_FRAMES, MAX_DETECTIONS, 5),
+                       poses3d=(IMPORT_K, N_FRAMES, MAX_DETECTIONS, 17, 3),
+                       poses2d=(IMPORT_K, N_FRAMES, MAX_DETECTIONS, 17, 2),
+                       valid=(IMPORT_K, N_FRAMES, MAX_DETECTIONS))
+    if {k: tuple(v.shape) for k, v in out.items()} != want_shapes:
+        fail('import', f'stream output shapes {[tuple(v.shape) for v in out.values()]}')
+    if k1 != chunks or k2 != K2_BLOCKS * chunks:
+        fail('import', f'detect_poses_stream launched K1 {k1} and K2 {k2} times, expected '
+                       f'{chunks} and {K2_BLOCKS * chunks} ({chunks} non-empty chunks)')
+
+    # Stream and pipelined against batched calls, on the detector's rows.
+    batches = [frames_k[0], frames_k[1], torch.flip(frames, dims=[1])]
+    batched = [est.detect_poses_batched(b, **kwargs) for b in batches]
+    with torch.inference_mode():
+        det_valid.append(est.detector.detect_batched(batches[2], threshold=0.0,
+                                                     max_detections=MAX_DETECTIONS)[1])
+    checks = [('stream', k, {key: v[k] for key, v in out.items()}) for k in range(IMPORT_K)]
+    pipelined = list(est.detect_poses_pipelined(iter(batches), in_flight=2, **kwargs))
+    if len(pipelined) != IMPORT_PIPELINED:
+        fail('import', f'detect_poses_pipelined gave {len(pipelined)} results')
+    checks += [('pipelined', k, r) for k, r in enumerate(pipelined)]
+    worst = {}
+    for name, k, got in checks:
+        same_valid, box_err, pose_err = max_diff(got, batched[k], det_valid[k])
+        if not (torch.isfinite(batched[k]['poses3d'][det_valid[k]]).all() and same_valid
+                and box_err <= STREAM_TOL['boxes_px'] and pose_err <= STREAM_TOL['poses_mm']):
+            fail('import', f'{name} batch {k} differs from detect_poses_batched: masks equal '
+                           f'{same_valid}, boxes by {box_err:.3g} px, poses by {pose_err:.3g} mm')
+        prev = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(prev[0], box_err), max(prev[1], pose_err))
+
+    # estimate_poses_stream with the main phase's boxes.
+    est_kwargs = dict(num_aug=NUM_AUG, internal_batch_size=INTERNAL_BATCH)
+    est_stream = est.estimate_poses_stream(frames_k, np.stack([boxes] * IMPORT_K),
+                                           np.stack([box_valid] * IMPORT_K), **est_kwargs)
+    valid_t = torch.as_tensor(box_valid, device=dev)
+    est_err = 0.0
+    for k in range(IMPORT_K):
+        want = est.estimate_poses_batched(frames_k[k], boxes, box_valid, **est_kwargs)
+        same_valid, _, err = max_diff({key: v[k] for key, v in est_stream.items()}, want, valid_t)
+        if not same_valid or not err <= STREAM_TOL['poses_mm']:
+            fail('import', f'estimate_poses_stream batch {k} differs by {err:.3g} mm')
+        est_err = max(est_err, err)
+
+    # F3: the detect output's CUDA boxes go back in; F2: zero boxes.
+    f3 = est.estimate_poses_batched(frames, batched[0]['boxes'][..., :4], det_valid[0],
+                                    **est_kwargs)
+    f3_err = (f3['poses3d'] - batched[0]['poses3d'])[det_valid[0]].abs().max().item()
+    if not torch.equal(f3['valid'], det_valid[0]) or not f3_err <= STREAM_TOL['poses_mm']:
+        fail('import', f'F3: poses from the CUDA boxes differ by {f3_err:.3g} mm')
+    for average_aug, aug in ((True, ()), (False, (NUM_AUG,))):
+        f2 = est.estimate_poses_batched(frames, np.zeros((N_FRAMES, 0, 4)), num_aug=NUM_AUG,
+                                        average_aug=average_aug)
+        if {k: tuple(v.shape) for k, v in f2.items()} != dict(
+                boxes=(N_FRAMES, 0, 5), poses3d=(N_FRAMES, 0, *aug, 17, 3),
+                poses2d=(N_FRAMES, 0, *aug, 17, 2), valid=(N_FRAMES, 0)):
+            fail('import', f'F2: zero boxes gave {[tuple(v.shape) for v in f2.values()]}')
+    phase('import', f'detect_poses_stream K={IMPORT_K} x {N_FRAMES}x{FRAME_H}p: K1 {k1}, K2 '
+                    f'{k2} ({chunks} chunks); stream vs batched: masks equal, max |dbox| '
+                    f'{worst["stream"][0]:.3g} px, max |dpose| {worst["stream"][1]:.3g} mm; '
+                    f'pipelined (in_flight 2, {IMPORT_PIPELINED} batches) vs batched: max |dbox| '
+                    f'{worst["pipelined"][0]:.3g} px, max |dpose| {worst["pipelined"][1]:.3g} '
+                    f'mm; estimate_poses_stream vs batched: max |dpose| {est_err:.3g} mm '
+                    f'(tolerances {STREAM_TOL}); F3: CUDA boxes back in, max |dpose| '
+                    f'{f3_err:.3g} mm; F2: zero boxes give empty shapes')
+
+    # K1 and K2 under the profiler (again where it lost records), then times
+    # per frame batch.
+    for _ in range(TIMING_TRIES):
+        wall_ms, device_ms, _, busy_ms, n_kernels, counts = profile_detect(est, stream)
+        seen = (counts['K1 (warp kernel)'], counts['K2 (mbconv kernel)'])
+        if seen == (k1, k2):
+            break
+        phase('import', f'the profiler saw K1 and K2 {seen} times in one stream call, the '
+                        f'wrappers counted {(k1, k2)}: profiling again')
+    else:
+        fail('import', f'the profiler never saw the {k1} K1 and {k2} K2 launches the wrappers '
+                       f'counted in one stream call')
+    b_wall_ms, _, _, b_busy_ms, b_kernels, _ = profile_detect(
+        est, lambda: est.detect_poses_batched(frames, **kwargs))
+    stream_times = [t / IMPORT_K for t in timed_calls(stream)]
+    batched_times = timed_calls(lambda: est.detect_poses_batched(frames, **kwargs))
+    fmt = lambda ts: ', '.join(f'{t * 1e3:.1f}' for t in ts)
+    phase('import', f'per frame batch: stream {statistics.median(stream_times) * 1e3:.1f} ms, '
+                    f'batched {statistics.median(batched_times) * 1e3:.1f} ms (medians of 5; '
+                    f'all: stream {fmt(stream_times)}; batched {fmt(batched_times)})')
+    phase('import', f'one stream call under torch.profiler: wall {wall_ms:.1f} ms, device busy '
+                    f'{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels, K1 '
+                    f'{counts["K1 (warp kernel)"]} ({device_ms["K1 (warp kernel)"]:.3f} ms), K2 '
+                    f'{counts["K2 (mbconv kernel)"]} ({device_ms["K2 (mbconv kernel)"]:.3f} ms); '
+                    f'one batched call: wall {b_wall_ms:.1f} ms, busy {b_busy_ms:.2f} ms '
+                    f'({100 * b_busy_ms / b_wall_ms:.1f}%), {b_kernels} kernels')
+    return {'import_stream': (k1, k2)}
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -1387,7 +1631,11 @@ def main() -> None:
 
     # 7. The other model families.
     torch.cuda.empty_cache()
-    families = families_phase(root, dev, frames, boxes, box_valid)
+    by_path = families_phase(root, dev, frames, boxes, box_valid)
+
+    # 8. The released weight formats and the streaming entry points.
+    torch.cuda.empty_cache()
+    by_path.update(import_phase(root, dev, frames, boxes, box_valid))
 
     # No single PyTorch call computes either kernel's function: library_ms is
     # null (the unfused cuDNN chain's time stands beside K2 as unfused_ms).
@@ -1397,7 +1645,7 @@ def main() -> None:
              replaces='metrabs_tpu/ops/warp_pallas.py:68', launches=det_warp_launches,
              launches_by_path=dict(main=launches, detect=det_warp_launches, train=0,
                                    serve_after_train=serve['k1'],
-                                   **{k: v[0] for k, v in families.items()}),
+                                   **{k: v[0] for k, v in by_path.items()}),
              max_abs_err=max_err, ms=kernel_ms, event_ms=k1_event_ms, plain_ms=plain_ms,
              bytes=k1_bytes,
              bound_ms=k1_bound_ms, bound_by=k1_bound_by, bound_share=k1_bound_ms / kernel_ms,
@@ -1406,7 +1654,7 @@ def main() -> None:
              replaces='metrabs_tpu/ops/mbconv_pallas.py:77', launches=det_k2_launches,
              launches_by_path=dict(main=main_k2_launches, detect=det_k2_launches, train=0,
                                    serve_after_train=serve['k2'],
-                                   **{k: v[1] for k, v in families.items()}),
+                                   **{k: v[1] for k, v in by_path.items()}),
              max_abs_err=max(r['max_abs_err'] for r in k2_results), ms=k2_main['ms'],
              event_ms=k2_main['event_ms'], plain_ms=k2_main['plain_ms'],
              bytes=k2_main['bytes'],

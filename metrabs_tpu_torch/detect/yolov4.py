@@ -23,6 +23,10 @@ horizontal (and vertical) flip augmentation, float32 decode, exact top-k of
 `top_candidates` (`approx_max_k` is not ported), per-image greedy box NMS
 batched over images, the top `max_detections` and the per-axis unscale to
 original pixels.
+
+`load_darknet_weights` reads a released darknet `.weights` file onto the
+flat-layout variable tree (`io.weights.detector_state_dict_from_flax` puts
+it into the module); `write_darknet_weights` is its inverse.
 """
 
 from __future__ import annotations
@@ -306,6 +310,85 @@ def build_detector_model(kind: str, bn_fold: bool = False) -> nn.Module:
             raise ValueError('bn_fold is not wired for YOLOv8 yet')
         return YOLOv8(size=kind[-1])
     raise ValueError(f'Unknown detector kind {kind!r}')
+
+
+# The header of a released darknet `.weights` file: major 0, minor 2,
+# revision 5, then the int64 count of images seen in training (here 0).
+DARKNET_HEADER = np.array([0, 2, 5, 0, 0], np.int32)
+
+
+def _darknet_sections(flat):
+    """Per conv section in cfg order: (its name, whether it has a BN, the
+    kernel's HWIO shape), from a flat-layout tree's flattened keys."""
+    n_convs = 1 + max(int(k[1].split('_')[1]) for k in flat if k[1].startswith('conv_'))
+    return [(f'conv_{i}', ('params', f'conv_{i}', 'bn', 'scale') in flat,
+             np.shape(flat[('params', f'conv_{i}', 'conv', 'kernel')]))
+            for i in range(n_convs)]
+
+
+def load_darknet_weights(variables: dict, path: str) -> dict:
+    """Imports a darknet `.weights` release file (`yolov4.weights`,
+    `yolov4-tiny.weights`; `metrabs_tpu/detect/yolov4.py::
+    load_darknet_weights`) into `variables`, the flat-layout, unfolded
+    variable tree of the detector (numpy leaves, e.g. `io.weights.
+    flax_variables_from_state_dict` of an unfolded `build_detector_model`'s
+    state dict). Returns the updated tree.
+
+    darknet layout: 5 int32 header, then per conv section in cfg order:
+    [bn: beta, gamma, mean, var][conv: OIHW] or [bias][conv: OIHW] for the
+    output convs. The module names conv_<i> follow cfg order, so the import
+    is a linear scan. A file that is not consumed exactly raises
+    ValueError."""
+    from metrabs_tpu_torch.io.weights import flatten_dict, unflatten_dict
+
+    with open(path, 'rb') as f:
+        raw = f.read()
+    body = len(raw) - 4 * len(DARKNET_HEADER)
+    if body < 0 or body % 4:
+        raise ValueError(f'{path}: {len(raw)} bytes is not a darknet header and float32s')
+    data = np.frombuffer(raw, np.float32, offset=4 * len(DARKNET_HEADER))
+    flat = flatten_dict(variables)
+    offset = 0
+
+    def take(n):
+        nonlocal offset
+        if offset + n > len(data):
+            raise ValueError(f'Weight file size mismatch: {len(data)} floats end before '
+                             f'{offset + n} are read')
+        offset += n
+        return data[offset - n:offset].copy()
+
+    for name, has_bn, (kh, kw, cin, cout) in _darknet_sections(flat):
+        if has_bn:
+            flat[('params', name, 'bn', 'bias')] = take(cout)
+            flat[('params', name, 'bn', 'scale')] = take(cout)
+            flat[('batch_stats', name, 'bn', 'mean')] = take(cout)
+            flat[('batch_stats', name, 'bn', 'var')] = take(cout)
+        else:
+            flat[('params', name, 'conv', 'bias')] = take(cout)
+        w = take(cout * cin * kh * kw).reshape(cout, cin, kh, kw)
+        flat[('params', name, 'conv', 'kernel')] = np.transpose(w, (2, 3, 1, 0))
+    if offset != len(data):
+        raise ValueError(f'Weight file size mismatch: consumed {offset} of {len(data)} floats')
+    return unflatten_dict(flat)
+
+
+def write_darknet_weights(variables: dict, path: str) -> None:
+    """Writes a flat-layout, unfolded detector tree as a darknet `.weights`
+    file, the inverse of `load_darknet_weights`."""
+    from metrabs_tpu_torch.io.weights import flatten_dict
+
+    flat = flatten_dict(variables)
+    with open(path, 'wb') as f:
+        f.write(DARKNET_HEADER.tobytes())
+        for name, has_bn, _ in _darknet_sections(flat):
+            parts = ([('params', name, 'bn', 'bias'), ('params', name, 'bn', 'scale'),
+                      ('batch_stats', name, 'bn', 'mean'), ('batch_stats', name, 'bn', 'var')]
+                     if has_bn else [('params', name, 'conv', 'bias')])
+            for key in parts:
+                f.write(np.asarray(flat[key], np.float32).tobytes())
+            kernel = np.asarray(flat[('params', name, 'conv', 'kernel')], np.float32)
+            f.write(np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1))).tobytes())
 
 
 def decode_head(raw: torch.Tensor, scale_idx: int, input_size: int,

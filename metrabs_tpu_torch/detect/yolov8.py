@@ -9,15 +9,20 @@ Convolutions are flax 'SAME' (at stride 2 an even side pads (0, 1), not
 ultralytics' symmetric 1), BN eps 1e-3 (never folded: JAX wires no fold for
 YOLOv8), SPPF's max pools pad with -inf and the neck upsamples by exactly
 2x nearest. Internally NCHW; the public input is NHWC in [0, 1] (sides
-multiples of 32) and the heads come out NHWC, as in JAX. The ultralytics
-state-dict importer is not ported.
+multiples of 32) and the heads come out NHWC, as in JAX.
+
+`import_yolov8_from_torch` reads a released ultralytics state dict
+(yolov8{n,s,m,l,x}.pt's `model.<idx>...` keys) onto the JAX-layout variable
+tree, which `io.weights.detector_state_dict_from_flax` puts into the module;
+`export_torch_style_state_dict` is its inverse.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -206,3 +211,136 @@ def decode_heads(level_outputs) -> torch.Tensor:
         probs = torch.sigmoid(cls_logits.float())
         outs.append(torch.cat([boxes, probs], dim=-1).reshape(n, gh * gw, -1))
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Ultralytics state_dict import, onto the JAX-layout variable tree
+
+_CONV_IDXS = (0, 1, 3, 5, 7, 16, 19)
+_C2F_IDXS = (2, 4, 6, 8, 12, 15, 18, 21)
+
+
+def import_yolov8_from_torch(state_dict: Dict[str, Any], flax_variables: Dict) -> Dict:
+    """Fills a YOLOv8 variable tree (JAX layout, numpy leaves, e.g. `io.
+    weights.flax_variables_from_state_dict` of a `YOLOv8`'s state dict) from
+    an ultralytics DetectionModel state_dict (keys `model.<idx>.<sub>.conv.
+    weight` etc.; `metrabs_tpu/detect/yolov8.py::import_yolov8_from_torch`).
+    Returns the updated tree. Unknown torch keys raise; missing expected keys
+    raise; a shape that differs from the tree's raises (the wrong size
+    variant): the import is all-or-nothing.
+
+    Layout: Conv block `conv.weight` [O,I,H,W] -> HWIO, `bn.{weight,bias,
+    running_mean,running_var}` -> BN scale/bias/mean/var; C2f `cv1`, `cv2`,
+    bottlenecks `m.<i>.cv1/cv2`; Detect (idx 22) `cv2.<lvl>.<0|1>` Conv blocks
+    + `cv2.<lvl>.2` plain Conv2d (weight+bias), same for cv3;
+    `dfl.conv.weight` is the constant arange(REG_MAX) expectation kernel,
+    which `decode_heads` computes directly, so it is skipped."""
+    from metrabs_tpu_torch.io.weights import flatten_dict, unflatten_dict
+
+    variables = unflatten_dict({k: np.asarray(v) for k, v in
+                                flatten_dict(flax_variables).items()})
+    params = variables['params']
+    stats = variables['batch_stats']
+    consumed = set()
+
+    def get(key):
+        if key not in state_dict:
+            raise KeyError(f'ultralytics state_dict missing {key!r}')
+        consumed.add(key)
+        value = state_dict[key]
+        return (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+                else np.asarray(value))
+
+    def assign(node, leaf_key, value, src_key):
+        old = node[leaf_key]
+        if tuple(old.shape) != tuple(value.shape):
+            raise ValueError(
+                f'shape mismatch importing {src_key!r}: checkpoint {value.shape} vs model '
+                f'{old.shape} — wrong size variant?')
+        node[leaf_key] = value
+
+    def put_convbn(p, s, prefix):
+        assign(p['conv'], 'kernel', np.transpose(get(f'{prefix}.conv.weight'), (2, 3, 1, 0)),
+               f'{prefix}.conv.weight')
+        for node, leaf, src in ((p['bn'], 'scale', 'weight'), (p['bn'], 'bias', 'bias'),
+                                (s['bn'], 'mean', 'running_mean'),
+                                (s['bn'], 'var', 'running_var')):
+            assign(node, leaf, get(f'{prefix}.bn.{src}'), f'{prefix}.bn.{src}')
+
+    def put_c2f(p, s, prefix):
+        put_convbn(p['cv1'], s['cv1'], f'{prefix}.cv1')
+        put_convbn(p['cv2'], s['cv2'], f'{prefix}.cv2')
+        i = 0
+        while f'm{i}' in p:
+            for cv in ('cv1', 'cv2'):
+                put_convbn(p[f'm{i}'][cv], s[f'm{i}'][cv], f'{prefix}.m.{i}.{cv}')
+            i += 1
+
+    for i in _CONV_IDXS:
+        put_convbn(params[f'l{i}'], stats[f'l{i}'], f'model.{i}')
+    for i in _C2F_IDXS:
+        put_c2f(params[f'l{i}'], stats[f'l{i}'], f'model.{i}')
+    for cv in ('cv1', 'cv2'):
+        put_convbn(params['l9'][cv], stats['l9'][cv], f'model.9.{cv}')
+    det_p, det_s = params['l22'], stats['l22']
+    for branch in ('cv2', 'cv3'):
+        for lvl in range(3):
+            for j in (0, 1):
+                put_convbn(det_p[f'{branch}_{lvl}_{j}'], det_s[f'{branch}_{lvl}_{j}'],
+                           f'model.22.{branch}.{lvl}.{j}')
+            final = det_p[f'{branch}_{lvl}_2']
+            src = f'model.22.{branch}.{lvl}.2'
+            assign(final, 'kernel', np.transpose(get(f'{src}.weight'), (2, 3, 1, 0)),
+                   f'{src}.weight')
+            assign(final, 'bias', get(f'{src}.bias'), f'{src}.bias')
+
+    consumed.add('model.22.dfl.conv.weight')  # a constant, not a parameter
+    leftovers = {k for k in state_dict if k not in consumed and 'num_batches_tracked' not in k}
+    if leftovers:
+        raise KeyError(f'{len(leftovers)} unconsumed ultralytics keys, e.g. '
+                       f'{sorted(leftovers)[:4]} — architecture/size mismatch?')
+    return variables
+
+
+def export_torch_style_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
+    """Inverse of `import_yolov8_from_torch`: an ultralytics-layout
+    state_dict (numpy arrays) from a YOLOv8 variable tree."""
+    out: Dict[str, np.ndarray] = {}
+    params = variables['params']
+    stats = variables['batch_stats']
+
+    def dump_convbn(p, s, prefix):
+        out[f'{prefix}.conv.weight'] = np.transpose(np.asarray(p['conv']['kernel']),
+                                                    (3, 2, 0, 1))
+        out[f'{prefix}.bn.weight'] = np.asarray(p['bn']['scale'])
+        out[f'{prefix}.bn.bias'] = np.asarray(p['bn']['bias'])
+        out[f'{prefix}.bn.running_mean'] = np.asarray(s['bn']['mean'])
+        out[f'{prefix}.bn.running_var'] = np.asarray(s['bn']['var'])
+
+    def dump_c2f(p, s, prefix):
+        dump_convbn(p['cv1'], s['cv1'], f'{prefix}.cv1')
+        dump_convbn(p['cv2'], s['cv2'], f'{prefix}.cv2')
+        i = 0
+        while f'm{i}' in p:
+            for cv in ('cv1', 'cv2'):
+                dump_convbn(p[f'm{i}'][cv], s[f'm{i}'][cv], f'{prefix}.m.{i}.{cv}')
+            i += 1
+
+    for i in _CONV_IDXS:
+        dump_convbn(params[f'l{i}'], stats[f'l{i}'], f'model.{i}')
+    for i in _C2F_IDXS:
+        dump_c2f(params[f'l{i}'], stats[f'l{i}'], f'model.{i}')
+    for cv in ('cv1', 'cv2'):
+        dump_convbn(params['l9'][cv], stats['l9'][cv], f'model.9.{cv}')
+    for branch in ('cv2', 'cv3'):
+        for lvl in range(3):
+            for j in (0, 1):
+                dump_convbn(params['l22'][f'{branch}_{lvl}_{j}'],
+                            stats['l22'][f'{branch}_{lvl}_{j}'], f'model.22.{branch}.{lvl}.{j}')
+            p2 = params['l22'][f'{branch}_{lvl}_2']
+            out[f'model.22.{branch}.{lvl}.2.weight'] = np.transpose(np.asarray(p2['kernel']),
+                                                                   (3, 2, 0, 1))
+            out[f'model.22.{branch}.{lvl}.2.bias'] = np.asarray(p2['bias'])
+    out['model.22.dfl.conv.weight'] = np.arange(REG_MAX, dtype=np.float32).reshape(
+        1, REG_MAX, 1, 1)
+    return out

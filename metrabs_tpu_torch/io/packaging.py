@@ -27,7 +27,10 @@ only: `load_crop_model` builds it, the estimator loaders refuse it, as JAX's
 do.
 
 `save_pose_estimator_package` writes a crop model of any class (e.g. a
-model the port trained) in the same format, which both packages load.
+model the port trained or imported with `io.weights_import`) in the same
+format, which both packages load, with a detector of any family in the flat
+layout (e.g. imported with `detect.yolov4.load_darknet_weights`);
+`add_detector_to_package` adds one to a package afterwards.
 """
 
 from __future__ import annotations
@@ -58,19 +61,28 @@ _PROTECTED_FIELDS = {'proc_side', 'depth', 'n_joints', 'backbone', 'stride_train
 def save_pose_estimator_package(
         directory: str, *, cfg: ModelConfig, aug_cfg: AugConfig,
         crop_model_variables: Dict, joint_info: JointInfo,
+        detector_variables: Optional[Dict] = None, detector_scan_repeats: bool = False,
+        detector_type: str = 'yolov4', detector_dtype: str = 'bfloat16',
+        detector_input_size: Optional[int] = None,
         skeleton_registry: Optional[SkeletonRegistry] = None,
         bone_mean_lengths: Optional[np.ndarray] = None,
         joint_transform_matrix: Optional[np.ndarray] = None,
         latent_mode: str = '', n_latents: int = 0, model_class: str = 'metrabs',
         bones_25d=None, bone_lengths_ideal=None) -> None:
-    """A package of a crop model without a detector: `crop_model_variables`
-    is its flat-layout JAX-style tree of numpy arrays
+    """A package of a crop model, with a person detector if
+    `detector_variables` is given: `crop_model_variables` is the crop
+    model's flat-layout JAX-style tree of numpy arrays
     (`io.weights.flax_variables_from_state_dict` of its state dict, BN
-    unfolded), `cfg` its config with `backbone_scan_blocks=False`.
-    `model_class` ('metrabs', 'metro' or 'model25d'), Metrabs' `latent_mode`
-    and `n_latents`, and Model25D's `bones_25d` [B, 2] and
-    `bone_lengths_ideal` [B] mm (which it needs) as in JAX. The manifest is
-    the JAX package's."""
+    unfolded), `cfg` its config with `backbone_scan_blocks=False`;
+    `detector_variables` the detector's flat-layout, unfolded tree (e.g. from
+    `detect.yolov4.load_darknet_weights` or `detect.yolov8.
+    import_yolov8_from_torch`) of `detector_type` ('yolov4', 'yolov4-tiny' or
+    'yolov8{n,s,m,l,x}'), served in `detector_dtype` at `detector_input_size`
+    (None: the family's default, 416 or 640). The port writes the flat
+    detector layout only (`detector_scan_repeats=False`). `model_class`
+    ('metrabs', 'metro' or 'model25d'), Metrabs' `latent_mode` and
+    `n_latents`, and Model25D's `bones_25d` [B, 2] and `bone_lengths_ideal`
+    [B] mm (which it needs) as in JAX. The manifest is the JAX package's."""
     if cfg.backbone_scan_blocks or cfg.bn_fold:
         raise ValueError('The port writes the flat, unfolded layout: '
                          'backbone_scan_blocks and bn_fold must be False')
@@ -78,6 +90,8 @@ def save_pose_estimator_package(
         raise ValueError('model25d packages need bones_25d and bone_lengths_ideal')
     os.makedirs(directory, exist_ok=True)
     export_model_msgpack(os.path.join(directory, 'crop_model.msgpack'), crop_model_variables)
+    if detector_variables is not None:
+        _write_detector(directory, detector_variables, detector_scan_repeats)
     if joint_transform_matrix is not None:
         np.save(os.path.join(directory, 'joint_transform.npy'), joint_transform_matrix)
     skeletons = {}
@@ -90,9 +104,11 @@ def save_pose_estimator_package(
     manifest = dict(
         format_version=1, model_config=dataclasses.asdict(cfg),
         aug_config=dataclasses.asdict(aug_cfg), joint_names=list(joint_info.names),
-        joint_edges=[list(map(int, e)) for e in joint_info.edges], has_detector=False,
-        detector_scan_repeats=True, detector_type='yolov4', detector_dtype='bfloat16',
-        detector_input_size=None, has_joint_transform=joint_transform_matrix is not None,
+        joint_edges=[list(map(int, e)) for e in joint_info.edges],
+        has_detector=detector_variables is not None,
+        detector_scan_repeats=detector_scan_repeats, detector_type=detector_type,
+        detector_dtype=detector_dtype, detector_input_size=detector_input_size,
+        has_joint_transform=joint_transform_matrix is not None,
         latent_mode=latent_mode, n_latents=n_latents, model_class=model_class,
         bones_25d=None if bones_25d is None else [list(map(int, b)) for b in bones_25d],
         bone_lengths_ideal=(None if bone_lengths_ideal is None
@@ -102,6 +118,32 @@ def save_pose_estimator_package(
         skeletons=skeletons)
     with open(os.path.join(directory, 'manifest.json'), 'w') as f:
         json.dump(manifest, f, indent=2)
+
+
+def add_detector_to_package(
+        directory: str, detector_variables: Dict, *, detector_type: str = 'yolov4',
+        detector_dtype: str = 'bfloat16', detector_input_size: Optional[int] = None,
+        detector_scan_repeats: bool = False) -> None:
+    """Adds (or replaces) the detector of an existing package
+    (`metrabs_tpu/io/packaging.py::add_detector_to_package`), so that a crop
+    model and a detector made apart can be joined: arguments as in
+    `save_pose_estimator_package`."""
+    manifest_path = os.path.join(directory, 'manifest.json')
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    _write_detector(directory, detector_variables, detector_scan_repeats)
+    manifest.update(has_detector=True, detector_type=detector_type,
+                    detector_dtype=detector_dtype, detector_input_size=detector_input_size,
+                    detector_scan_repeats=detector_scan_repeats)
+    with open(manifest_path, 'w') as f:
+        json.dump(manifest, f, indent=2)
+
+
+def _write_detector(directory: str, variables: Dict, scan_repeats: bool) -> None:
+    if scan_repeats or any(k.startswith('res_scan_') for k in variables.get('params', {})):
+        raise ValueError('The port writes the flat detector layout: detector_scan_repeats '
+                         'must be False and the tree must have no res_scan_ groups')
+    export_model_msgpack(os.path.join(directory, 'detector.msgpack'), variables)
 
 
 def crop_model_kwargs(manifest: dict) -> dict:

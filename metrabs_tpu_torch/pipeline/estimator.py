@@ -16,6 +16,12 @@ optional joint transform, 2D projection with distortion, the plausibility
 filter and pose NMS (detections only, on camera-space poses with the aug
 axis, as JAX), the world transform, the skeleton gather and the aug average.
 
+The stream entry points (`estimate_poses_stream`, `detect_poses_stream`:
+JAX's one `lax.map` program over K frame batches) run one batched call per
+frame batch, building each batch's pyramid in turn; `detect_poses_pipelined`
+keeps batches dispatched ahead of their readback, which overlaps nothing
+while the detect path waits for the device within a call.
+
 The crop warp always goes through `ops.warp_cuda.warp_pyramid`: the CUDA
 kernel on a CUDA device, its plain version on the CPU. `cfg.warp_backend`
 (a JAX/TPU choice) is not consulted.
@@ -23,6 +29,7 @@ kernel on a CUDA device, its plain version on the CPU. `cfg.warp_backend`
 
 from __future__ import annotations
 
+import collections
 import warnings
 from typing import Dict, Optional
 
@@ -52,6 +59,23 @@ def checked_device(device) -> torch.device:
         raise RuntimeError(f"device {str(device)!r} needs CUDA, which is not available; "
                            "pass device='cpu' to run on the CPU")
     return device
+
+
+def _array(x, host: bool = False):
+    """`x` as a tensor if it is one (copied to the host if `host`), else as
+    a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu() if host else x
+    return np.asarray(x)
+
+
+def _stack(results) -> Dict[str, torch.Tensor]:
+    """Per-batch result dicts -> one dict with a leading batch-stream axis."""
+    return {k: torch.stack([r[k] for r in results]) for k in results[0]}
+
+
+def _to_host(result) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in result.items()}
 
 
 def _get_new_rotation_and_scale(intrinsic_matrix, distortion_coeffs, camspace_up, boxes,
@@ -165,6 +189,30 @@ class PoseEstimator:
                 internal_batch_size=int(internal_batch_size),
                 skeleton_indices=self.skeletons.indices(skeleton), suppress=False)
 
+    def estimate_poses_stream(
+            self, images, boxes, box_valid=None, intrinsic_matrix=None,
+            distortion_coeffs=None, extrinsic_matrix=None, world_up_vector=(0, -1, 0),
+            default_fov_degrees=55.0, internal_batch_size=64, antialias_factor=1,
+            num_aug=5, average_aug=True, skeleton='') -> Dict[str, torch.Tensor]:
+        """`estimate_poses_batched` over a stream of K frame batches: images
+        [K, B, H, W, 3] uint8, boxes [K, B, max_boxes, 4], box_valid [K, B,
+        max_boxes] or None (all valid). Camera arguments are per frame slot
+        [B, ...], shared over K. Returns the batched call's tensors stacked
+        on a leading K axis; each batch runs as its own batched call (its own
+        pyramid), so the result is that of K batched calls."""
+        images = _array(images)
+        if images.ndim != 5:
+            raise ValueError(f'images must be [K, B, H, W, 3], got shape {tuple(images.shape)}')
+        boxes = _array(boxes)
+        box_valid = None if box_valid is None else _array(box_valid)
+        return _stack([self.estimate_poses_batched(
+            images[k], boxes[k], None if box_valid is None else box_valid[k],
+            intrinsic_matrix=intrinsic_matrix, distortion_coeffs=distortion_coeffs,
+            extrinsic_matrix=extrinsic_matrix, world_up_vector=world_up_vector,
+            default_fov_degrees=default_fov_degrees, internal_batch_size=internal_batch_size,
+            antialias_factor=antialias_factor, num_aug=num_aug, average_aug=average_aug,
+            skeleton=skeleton) for k in range(images.shape[0])])
+
     def estimate_poses(self, image, boxes, **kwargs) -> Dict[str, np.ndarray]:
         """Single image; returns host numpy arrays restricted to valid rows."""
         images = torch.as_tensor(image)[None]
@@ -217,6 +265,55 @@ class PoseEstimator:
                 skeleton_indices=self.skeletons.indices(skeleton),
                 suppress=bool(suppress_implausible_poses))
 
+    def detect_poses_stream(
+            self, images, intrinsic_matrix=None, distortion_coeffs=None,
+            extrinsic_matrix=None, world_up_vector=(0, -1, 0), default_fov_degrees=55.0,
+            internal_batch_size=64, antialias_factor=1, num_aug=5, average_aug=True,
+            skeleton='', detector_threshold=0.3, detector_nms_iou_threshold=0.7,
+            max_detections=16, detector_flip_aug=False,
+            suppress_implausible_poses=True) -> Dict[str, torch.Tensor]:
+        """`detect_poses_batched` over a stream of K frame batches: images
+        [K, B, H, W, 3] uint8; camera arguments per frame slot [B, ...],
+        shared over K. Returns the batched call's tensors stacked on a
+        leading K axis, the result of K batched calls (whose errors it
+        raises)."""
+        images = _array(images)
+        if images.ndim != 5:
+            raise ValueError(f'images must be [K, B, H, W, 3], got shape {tuple(images.shape)}')
+        return _stack([self.detect_poses_batched(
+            images[k], intrinsic_matrix=intrinsic_matrix, distortion_coeffs=distortion_coeffs,
+            extrinsic_matrix=extrinsic_matrix, world_up_vector=world_up_vector,
+            default_fov_degrees=default_fov_degrees, internal_batch_size=internal_batch_size,
+            antialias_factor=antialias_factor, num_aug=num_aug, average_aug=average_aug,
+            skeleton=skeleton, detector_threshold=detector_threshold,
+            detector_nms_iou_threshold=detector_nms_iou_threshold,
+            max_detections=max_detections, detector_flip_aug=detector_flip_aug,
+            suppress_implausible_poses=suppress_implausible_poses)
+            for k in range(images.shape[0])])
+
+    def detect_poses_pipelined(self, image_batches, *, in_flight=2, fused=False, **kwargs):
+        """`detect_poses_batched` over an iterable of [B, H, W, 3] frame
+        batches, keeping `in_flight` batches dispatched ahead of their copy
+        to the host: a generator of per-batch dicts of host numpy arrays, in
+        order. `kwargs` (camera arguments included) are shared by every
+        batch; `fused` is accepted as `detect_poses_batched` accepts it.
+
+        The detect path reads the detector's mask to the host and inverts
+        matrices with `torch.linalg.inv`, both of which wait for the device,
+        so a batch's dispatch overlaps nothing yet; the results are those of
+        one batched call per batch."""
+        if self.detector is None:
+            raise ValueError('No detector attached to this estimator.')
+        if in_flight < 1:
+            raise ValueError('in_flight must be >= 1')
+        pending = collections.deque()
+        for images in image_batches:
+            pending.append(self.detect_poses_batched(images, fused=fused, **kwargs))
+            if len(pending) > in_flight:
+                yield _to_host(pending.popleft())
+        while pending:
+            yield _to_host(pending.popleft())
+
     def detect_poses(self, image, **kwargs) -> Dict[str, np.ndarray]:
         """Single image; returns host numpy arrays restricted to valid rows."""
         result = self.detect_poses_batched(torch.as_tensor(image)[None], **kwargs)
@@ -224,16 +321,17 @@ class PoseEstimator:
 
     @staticmethod
     def _squeeze_single(result) -> Dict[str, np.ndarray]:
-        out = {k: v[0].cpu().numpy() for k, v in result.items()}
+        out = {k: v[0] for k, v in _to_host(result).items()}
         valid = out.pop('valid').astype(bool)
         return {k: v[valid] for k, v in out.items()}
 
     @staticmethod
     def _boxes5_from(boxes, box_valid):
-        """[..., 4] user boxes -> ([..., 5] with confidence 1, host validity)."""
-        boxes = np.asarray(boxes, np.float32)
+        """[..., 4] user boxes (array-likes or tensors on any device) -> ([...,
+        5] with confidence 1, validity), both on the host."""
+        boxes = np.asarray(_array(boxes, host=True), np.float32)
         box_valid = (np.ones(boxes.shape[:-1], bool) if box_valid is None
-                     else np.asarray(box_valid, bool))
+                     else np.asarray(_array(box_valid, host=True), bool))
         boxes5 = np.concatenate([boxes, np.ones_like(boxes[..., :1])], axis=-1)
         return boxes5, box_valid
 
@@ -293,7 +391,7 @@ class PoseEstimator:
         image_ids_c = torch.arange(n_images, device=dev).repeat_interleave(max_boxes)[order_d]
         k_c = k_flat[order_d]
         dist_c = dist_flat[order_d]
-        boxes_c = boxes_t.reshape(n_total, -1)[order_d]
+        boxes_c = boxes_t.reshape(n_total, boxes_t.shape[-1])[order_d]
         up_c = camspace_up.repeat_interleave(max_boxes, dim=0)[order_d]
         valid_c_d = torch.as_tensor(valid_c, device=dev)
 
@@ -308,7 +406,7 @@ class PoseEstimator:
 
         tta = tta_mod.make_tta_params(num_aug, self._aug_cfg)
         n_joints = self.joint_info.n_joints
-        boxes_per_chunk = internal_batch_size // max(num_aug, 1) or n_total
+        boxes_per_chunk = internal_batch_size // max(num_aug, 1) or max(n_total, 1)
         chunks = []
         for start in range(0, n_total, boxes_per_chunk):
             sl = slice(start, min(start + boxes_per_chunk, n_total))
@@ -319,7 +417,8 @@ class PoseEstimator:
             chunks.append(self._predict_chunk(
                 pyramid, tta, k_c[sl], dist_c[sl], R_noaug[sl], box_scales[sl],
                 image_ids_c[sl], valid_c_d[sl], antialias_factor))
-        poses3d_flat = torch.cat(chunks)[inv_order]  # [N, A, J, 3]
+        poses3d_flat = (torch.cat(chunks)[inv_order] if chunks  # [N, A, J, 3]
+                        else torch.zeros((0, num_aug, n_joints, 3), device=dev))
 
         if self._joint_transform is not None:
             poses3d_flat = torch.einsum('bank,nN->baNk', poses3d_flat,

@@ -166,6 +166,24 @@ def test_no_valid_box(estimators):
         assert tuple(got[key].shape) == np.asarray(want[key]).shape
 
 
+@pytest.mark.parametrize('average_aug', [True, False])
+def test_zero_boxes_give_empty_shapes_as_in_jax(estimators, average_aug):
+    """F2: no box at all gives JAX's empty-shaped outputs, batched and
+    single-image."""
+    frames = frames_and_boxes()[0]
+    kwargs = dict(num_aug=2, average_aug=average_aug)
+    want = estimators['gather'].estimate_poses_batched(frames, np.zeros((2, 0, 4)), **kwargs)
+    got = estimators['torch'].estimate_poses_batched(frames, np.zeros((2, 0, 4)), **kwargs)
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: np.asarray(v).shape for k, v in want.items()}
+    assert got['poses3d'].shape[1:] == ((0, 17, 3) if average_aug else (0, 2, 17, 3))
+    want = estimators['gather'].estimate_poses(frames[0], np.zeros((0, 4)), **kwargs)
+    got = estimators['torch'].estimate_poses(frames[0], np.zeros((0, 4)), **kwargs)
+    assert {k: v.shape for k, v in got.items()} == {k: np.asarray(v).shape
+                                                     for k, v in want.items()}
+    assert got['boxes'].shape == (0, 5)
+
+
 def test_serving_defaults_and_overrides(package):
     est = load_pose_estimator(package, device='cpu', cfg_overrides={'warp_precision': 'bf16'})
     assert est.cfg.bn_fold and not est.cfg.backbone_scan_blocks

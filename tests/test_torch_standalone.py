@@ -1,10 +1,11 @@
 """The port stands alone: `metrabs_tpu_torch` and `chip_smoke.py` import
-nothing of jax, flax, optax, orbax or the JAX package `metrabs_tpu`, its
+nothing of jax, flax, optax, orbax, msgpack, ml_dtypes or the JAX package
+`metrabs_tpu`, its
 entry points run on the card unless the caller names another device, and
 its copies of the JAX package's framework-free modules (config with the
 training hyperparameters, joint info, TTA schedules, skeletons, bone
-priors, the host data pipeline, the registry of released models) agree
-with the originals. Also F1's
+priors, the host data pipeline, the registry of released models, the TF
+checkpoint reader and writer) agree with the originals. Also F1's
 regression test: a train-mode MBConv never runs the fused chain.
 """
 
@@ -35,7 +36,7 @@ from metrabs_tpu_torch.pipeline.estimator import PoseEstimator
 from metrabs_tpu_torch.train import loop, optim
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax')
+FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack', 'ml_dtypes')
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / 'metrabs_tpu_torch').rglob('*.py')
                     if '_build' not in p.parts) + ['chip_smoke.py']
 
@@ -76,6 +77,19 @@ frames = np.random.default_rng(0).integers(0, 256, (1, 120, 160, 3), dtype=np.ui
 out = est.estimate_poses_batched(frames, [[[20, 10, 60, 100]]], num_aug=2)
 assert tuple(out['poses3d'].shape) == (1, 1, 17, 3), out['poses3d'].shape
 assert bool(out['poses3d'].isfinite().all())
+stream = est.estimate_poses_stream(np.stack([frames, frames]), [[[[20, 10, 60, 100]]]] * 2,
+                                   num_aug=2)
+assert all(torch.equal(stream[k][1], out[k]) for k in out)
+from metrabs_tpu_torch.io import tf_checkpoint, weights, weights_import
+pairs = (weights_import.import_backbone_from_tf(None, variables, cfg.backbone)
+         + weights_import.import_metrabs_head_from_tf(None, variables))
+flat = {{'/'.join(k): v for k, v in weights.flatten_dict(variables).items()}}
+tf_checkpoint.write_tf_checkpoint(sys.argv[1], {{n: (t or np.asarray)(flat[p]) for p, n, t in pairs}})
+tf_vars = tf_checkpoint.load_tf_checkpoint(sys.argv[1])
+imported = weights_import.import_metrabs_head_from_tf(
+    tf_vars, weights_import.import_backbone_from_tf(tf_vars, variables, cfg.backbone))
+assert all(np.array_equal(v, flat['/'.join(k)])
+           for k, v in weights.flatten_dict(imported).items())
 from metrabs_tpu_torch.models.backbones.tiny import TinyBackbone
 from metrabs_tpu_torch.models.metrabs import Metrabs
 from metrabs_tpu_torch.pipeline.skeletons import H36M_17, LSP_14
@@ -102,14 +116,16 @@ print('STANDALONE_OK')
 """
 
 
-def test_port_and_chip_smoke_run_without_jax_loaded():
+def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     """Every module of the port and chip_smoke's helpers, then a small CPU
-    `estimate_poses_batched` on weights minted with torch alone and one CPU
-    train step, in a process that never loads jax, flax, optax or
-    `metrabs_tpu`."""
+    `estimate_poses_batched` and `estimate_poses_stream` on weights minted
+    with torch alone, those weights through a TF checkpoint and back, and
+    one CPU train step, in a process that never loads jax, flax, optax,
+    msgpack, ml_dtypes or `metrabs_tpu`."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN))
-    proc = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ckpt')], cwd=REPO,
+                          env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'STANDALONE_OK' in proc.stdout
@@ -126,10 +142,19 @@ def no_cuda(monkeypatch):
                                    'load_crop_model', 'load_pose_estimator',
                                    'create_train_state', 'device_prefetch',
                                    'model25d_from_variables', 'metro_from_variables',
-                                   'yolov8_from_variables'])
+                                   'yolov8_from_variables', 'estimate_poses_stream',
+                                   'detect_poses_stream', 'detect_poses_pipelined'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     families = dict(model_config={}, model_class='model25d', detector_type='yolov8m')
+    default_estimator = lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
+                                              config.ModelConfig())
+    frames = np.zeros((1, 1, 64, 64, 3), np.uint8)
     calls = dict(
+        estimate_poses_stream=lambda: default_estimator().estimate_poses_stream(
+            frames, np.zeros((1, 1, 1, 4))),
+        detect_poses_stream=lambda: default_estimator().detect_poses_stream(frames),
+        detect_poses_pipelined=lambda: list(default_estimator().detect_poses_pipelined(
+            frames)),
         model25d_from_variables=lambda: packaging.pose_estimator_from_variables({}, families),
         metro_from_variables=lambda: packaging.crop_model_from_variables(
             {}, dict(families, model_class='metro')),
@@ -154,6 +179,28 @@ def test_estimator_runs_on_the_cpu_when_asked(no_cuda):
     est = PoseEstimator(torch.nn.Identity(), skeletons.H36M_17, config.ModelConfig(),
                         bone_mean_lengths=np.ones(16, np.float32), device='cpu')
     assert est.device == torch.device('cpu') and est._mean_bones.device.type == 'cpu'
+
+
+def test_tf_checkpoint_copy_writes_the_originals_bytes(tmp_path):
+    """The same tensors through the port's copy of the TensorBundle writer
+    and the original: the same files, read back alike by both readers."""
+    from metrabs_tpu.io import tf_checkpoint as jax_tf_checkpoint
+    from metrabs_tpu_torch.io import tf_checkpoint
+    rng = np.random.default_rng(0)
+    tensors = {'b/kernel': rng.normal(size=(3, 3, 2, 4)).astype(np.float32),
+               'b/step': np.array(7, np.int64), 'b/flags': np.array([True, False]),
+               'a/h': rng.normal(size=(3,)).astype(np.float16)}
+    out = {}
+    for name, module in (('port', tf_checkpoint), ('jax', jax_tf_checkpoint)):
+        module.write_tf_checkpoint(str(tmp_path / name / 'ckpt'), tensors)
+        out[name] = [(tmp_path / name / f).read_bytes()
+                     for f in ('ckpt.index', 'ckpt.data-00000-of-00001')]
+    assert out['port'] == out['jax']
+    for module in (tf_checkpoint, jax_tf_checkpoint):
+        loaded = module.load_tf_checkpoint(str(tmp_path / 'port' / 'ckpt'))
+        assert sorted(loaded) == sorted(tensors)
+        for k, v in tensors.items():
+            np.testing.assert_array_equal(loaded[k], v)
 
 
 def test_registry_copy_matches_jax():
