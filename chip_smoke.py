@@ -55,6 +55,27 @@ line:
     `load_pose_estimator` on the main phase's frames and boxes, folded (K1
     once per non-empty chunk) and unfolded with `fuse_mbconv='on'` (K2 28
     times per chunk, v equal to the plain chain's on the trained weights);
+ 6b. train_families: every other crop-model family trained as phase 6
+    trains plain Metrabs (EffNetV2-S@256, bf16 compute with f32 master
+    weights, TrainConfig defaults, 32 + 32 synthetic examples, one batch
+    repeated): Metro, Model25D (H36M-17 bones, minted ideal lengths),
+    Metrabs in `transform_coords` and `predict_all_and_latents` (an affine
+    autoencoder of FAMILY_N_LATENTS points minted into an npz and read back
+    by `load_affine_weights`) and plain Metrabs with `regularize_to_manifold`,
+    warm-started by `warm_start_backbone` from phase 6's package (backbone
+    and head equal to the source's bit for bit). Per mode: 3 warm-up and 5
+    timed steps and one profiled (median step time, images/s, device-busy
+    share, peak memory), the checks of phase 6 (finite, falling losses, a
+    gradient in every backbone parameter, no K1 or K2 launch), one step
+    past `teacher_start_step` for `predict_all_and_latents` (the teacher term
+    live), one float32 step on the GPU against the CPU; then the EMA weights
+    packaged with the bone lengths of the 3D batches (`BoneLengthStats`),
+    the crop model's eval-mode predictions on its training batch scored by
+    `compute_pose3d_metrics` and `rigid_align` on the GPU against the CPU,
+    and the package served on the main frames and boxes: folded bf16 through
+    `load_pose_estimator` with K1 once per non-empty chunk (Metro: refused
+    there, as in JAX), and FAMILY_FUSED_SERVE also unfolded with
+    `fuse_mbconv='on'` (K2 28 times per chunk, v equal to the plain chain's);
  7. families: the other model families, weights minted from a seed:
     (a) `detect_poses_batched` of ResNet-50@256 (metrabs_rn50_y4's crop
     model) in bf16 with BN folded by the loader's default, plus a minted
@@ -97,6 +118,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -151,6 +173,7 @@ DETECTOR_SIZE = 416
 MAX_DETECTIONS = 16
 BOX_TOL_PX = 1e-2
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+TRAINED_PACKAGE = 'runs/chip_smoke_trained_package'  # [train]'s, read by [train_families]
 TRAIN_PARITY_BATCH = 2  # per stream, in the float32 GPU-vs-CPU step
 # Kernel-name groups of a train step's device time, first match wins.
 TRAIN_KERNEL_GROUPS = (
@@ -545,14 +568,16 @@ def profile_detect(est, run):
 def synthetic_example(index: int, stream: str, side: int = PROC_SIDE) -> dict:
     """Training example `index` of the 3D or 2D stream, made from (SEED,
     index) alone: a noise image, a camera, and a person of 17 joints around
-    a root 2.5-5 m away (3D) or 14 joints inside the crop (2D), ~10% of the
-    joints marked invalid."""
+    a root 2.5-5 m away with their projection into the crop (3D) or 14
+    joints inside the crop (2D), ~10% of the joints marked invalid."""
     rng = np.random.default_rng((SEED, index))
     k = np.float32([[1.5 * side, 0, side / 2], [0, 1.5 * side, side / 2], [0, 0, 1]])
     out = dict(image=rng.random((side, side, 3), dtype=np.float32), intrinsics=k)
     if stream == '3d':
         root = np.concatenate([rng.normal(0, 300, 2), rng.uniform(2500, 5000, 1)])
-        out.update(coords3d_true=(root + rng.normal(0, 250, (17, 3))).astype(np.float32),
+        coords = (root + rng.normal(0, 250, (17, 3))).astype(np.float32)
+        projected = coords @ k.T
+        out.update(coords3d_true=coords, coords2d_true=projected[:, :2] / projected[:, 2:],
                    joint_validity_mask=rng.random(17) < 0.9)
     else:
         out.update(coords2d_true=rng.uniform(0.12 * side, 0.88 * side, (14, 2)).astype(
@@ -560,10 +585,13 @@ def synthetic_example(index: int, stream: str, side: int = PROC_SIDE) -> dict:
     return out
 
 
-def synthetic_batches(tcfg, n_steps: int, dev):
+def synthetic_batches(tcfg, n_steps: int, dev, bone_stats=None, first_example: int = 0):
     """`n_steps` (3D, 2D) batch pairs of tcfg's sizes through
-    `ParallelBatchLoader` and `device_prefetch`. Both streams cycle over one
-    batch's worth of examples, so every step sees the same batch."""
+    `ParallelBatchLoader` and `device_prefetch`, of the examples from
+    `first_example` on. Both streams cycle over one batch's worth of
+    examples, so every step sees the same batch. The 3D batches update
+    `bone_stats` (a `BoneLengthStats`) on the host as they stream by, as the
+    trainer measures the package's bone lengths."""
     import itertools
 
     from metrabs_tpu_torch.data.pipeline import ParallelBatchLoader, device_prefetch
@@ -571,9 +599,13 @@ def synthetic_batches(tcfg, n_steps: int, dev):
     loaders = [ParallelBatchLoader(lambda i, _, s=stream: synthetic_example(i, s),
                                    itertools.cycle(range(offset, offset + size)), size,
                                    n_workers=4, seed=SEED)
-               for stream, offset, size in (('3d', 0, tcfg.batch_size),
-                                            ('2d', tcfg.batch_size, tcfg.batch_size_2d))]
+               for stream, offset, size in (
+                   ('3d', first_example, tcfg.batch_size),
+                   ('2d', first_example + tcfg.batch_size, tcfg.batch_size_2d))]
     pairs = ({'3d': a, '2d': b} for a, b in itertools.islice(zip(*loaders), n_steps))
+    if bone_stats is not None:
+        pairs = (bone_stats.update(pair['3d']['coords3d_true'],
+                                   pair['3d']['joint_validity_mask']) or pair for pair in pairs)
     return device_prefetch(({f'{s}/{k}': v for s, batch in pair.items()
                              for k, v in batch.items()} for pair in pairs), device=dev), loaders
 
@@ -583,25 +615,39 @@ def split_streams(batch: dict):
             for s in ('3d/', '2d/')]
 
 
-def make_trainer(cfg, tcfg, variables, dev, fuse: str = 'off'):
-    """(train state on `dev`, train step) of a crop model with `variables`."""
+def make_trainer(cfg, tcfg, variables, dev, fuse: str = 'off', model_kwargs=None,
+                 affine_weights=None):
+    """(train state on `dev`, train step) of a crop model with `variables`,
+    of the class and latent mode of `model_kwargs` (`build_crop_model`'s),
+    with the autoencoder's `affine_weights` in the latent and manifold
+    modes."""
     from metrabs_tpu_torch.io.weights import crop_model_state_dict_from_flax
     from metrabs_tpu_torch.models.backbones.builder import build_backbone
     from metrabs_tpu_torch.models.metrabs import build_crop_model
     from metrabs_tpu_torch.pipeline.skeletons import H36M_17, LSP_14
     from metrabs_tpu_torch.train import loop, optim
 
-    model = build_crop_model(cfg, functools.partial(build_backbone, fuse_mbconv=fuse))
-    model.load_state_dict(crop_model_state_dict_from_flax(variables, cfg))
+    model_kwargs = model_kwargs or {}
+    model = build_crop_model(cfg, functools.partial(build_backbone, fuse_mbconv=fuse),
+                             **model_kwargs)
+    model.load_state_dict(crop_model_state_dict_from_flax(variables, cfg, **model_kwargs))
     optimizer = optim.Optimizer(tcfg)
     state = loop.create_train_state(model, optimizer, device=dev)
-    return state, loop.make_train_step(optimizer, H36M_17, LSP_14, cfg, tcfg)
+    model_class = model_kwargs.get('model_class', 'metrabs')
+    if model_class != 'metrabs':
+        maker = dict(metro=loop.make_train_step_metro,
+                     model25d=loop.make_train_step_model25d)[model_class]
+        return state, maker(model, optimizer, H36M_17, LSP_14, cfg, tcfg)
+    return state, loop.make_train_step(model, optimizer, H36M_17, LSP_14, cfg, tcfg,
+                                       affine_weights=affine_weights)
 
 
-def train_parity(cfg, tcfg, variables, dev):
+def train_parity(cfg, tcfg, variables, dev, name='train', model_kwargs=None,
+                 affine_weights=None):
     """One float32 step (TF32 off) on the GPU against the same step on the CPU
-    from the same state, batch and mix, drop-connect off on both (the two
-    devices' generators differ). Returns the worst deviations; fails past
+    from the same state, batch and mix (the Metrabs step's), drop-connect off
+    on both (the two devices' generators differ), for the crop model of
+    `model_kwargs` (`make_trainer`'s). Returns the worst deviations; fails past
     the parity tolerance of tests/_torch_train.py, with Adam's moments held
     per tensor as the gradients are (mu is 0.1 g after one step; float32
     rounding through forty train-mode BatchNorms reaches ~6e-5 of a tensor's
@@ -614,13 +660,16 @@ def train_parity(cfg, tcfg, variables, dev):
                for k in synthetic_example(0, s)}
               for s, ids in (('3d', range(n)), ('2d', range(100, 100 + n)))]
     mix = torch.rand((2 * n, 1, 1), generator=torch.Generator().manual_seed(SEED))
+    step_kwargs = {} if (model_kwargs or {}).get('model_class', 'metrabs') != 'metrabs' else dict(
+        mix=mix)
     saved_survival = efficientnet_v2.SURVIVAL_PROB
     efficientnet_v2.SURVIVAL_PROB = 1.0
     try:
         runs = []
         for d in (dev, 'cpu'):
-            state, step = make_trainer(cfg32, tcfg, variables, d)
-            losses = step(state, b3, b2, mix=mix)
+            state, step = make_trainer(cfg32, tcfg, variables, d, model_kwargs=model_kwargs,
+                                       affine_weights=affine_weights)
+            losses = step(state, b3, b2, **step_kwargs)
             named = lambda t: {k: v.detach().float().cpu() for k, v in t.items()}
             adam = state.opt_state.groups['all']
             runs.append(dict(
@@ -665,7 +714,7 @@ def train_parity(cfg, tcfg, variables, dev):
           and stats_excess <= 0 and ema_excess <= 0 and worst['params_max_over_lr'] <= 2
           and worst['params_near_share'] >= 0.999)
     if not ok:
-        fail('train', f'the float32 GPU step differs from the CPU step: {worst}')
+        fail(name, f'the float32 GPU step differs from the CPU step: {worst}')
     return worst
 
 
@@ -686,34 +735,27 @@ def profile_step(run):
     return wall_ms, sum(e.device_time_total for e in device) / 1e3, len(kernels), groups
 
 
-def train_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
-    """The [train] phase (module docstring). Returns the K1 and K2 launches
-    of the serving run after training."""
-    import shutil
+def train_steps(state, step, tcfg, dev, name: str, n_warmup: int, n_timed: int,
+                fall_window: int, bone_stats=None, first_example: int = 0) -> dict:
+    """`n_warmup` + `n_timed` steps of `step` on the repeated synthetic batch
+    (`synthetic_batches` from `first_example`, updating `bone_stats`), then
+    one more under torch.profiler, with the drop-connect masks (and the
+    Metrabs step's mix) from a generator on `dev`. Fails unless every loss is finite, the mean
+    loss of the last `fall_window` steps is below that of the first, every
+    backbone parameter got a nonzero gradient in the last step and no step
+    launched K1 or K2. Returns the median step time, the busy share of the
+    profiled step, the peak memory since the caller's
+    `reset_peak_memory_stats`, the last batch (host tensors) and a `summary`
+    line."""
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
 
-    from metrabs_tpu_torch.config import AugConfig, ModelConfig, TrainConfig
-    from metrabs_tpu_torch.io.packaging import (load_pose_estimator,
-                                                save_pose_estimator_package)
-    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
-    from metrabs_tpu_torch.models.backbones.builder import build_backbone
-    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
-    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
-
-    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
-    tcfg = TrainConfig()
-    variables = mint_crop_variables(cfg, torch.Generator().manual_seed(tcfg.seed))
-    torch.cuda.reset_peak_memory_stats()
-    state, step = make_trainer(cfg, tcfg, variables, dev, fuse='on')
-    if sum(getattr(b, 'fusable', False) and b.fuse == 'on'
-           for b in state.model.backbone.blocks) != K2_BLOCKS:
-        fail('train', f'expected {K2_BLOCKS} blocks built with fuse_mbconv on')
     gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS + 1
-    batches, loaders = synthetic_batches(tcfg, n_steps, dev)
+    batches, loaders = synthetic_batches(tcfg, n_warmup + n_timed + 1, dev, bone_stats,
+                                         first_example)
     warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
     losses, times = [], []
     try:
-        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        for _ in range(n_warmup + n_timed):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             b3, b2 = split_streams(next(batches))
@@ -728,100 +770,153 @@ def train_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
             loader.close()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if warp_cuda.warp_pyramid.launches or mbconv_cuda.fused_mbconv_inner.launches:
-        fail('train', 'a train step launched K1 or K2')
+        fail(name, 'a train step launched K1 or K2')
     loss = torch.stack([l['loss'] for l in losses]).float().cpu()
     if not all(bool(torch.isfinite(v).all()) for l in losses for v in l.values()):
-        fail('train', f'non-finite losses: {loss.tolist()}')
-    if not loss[-5:].mean() < loss[:5].mean():
-        fail('train', f'the loss on the repeated batch does not fall: {loss.tolist()}')
+        fail(name, f'non-finite losses: {loss.tolist()}')
+    if not loss[-fall_window:].mean() < loss[:fall_window].mean():
+        fail(name, f'the loss on the repeated batch does not fall: {loss.tolist()}')
     silent = [n for n, p in state.model.backbone.named_parameters()
               if p.grad is None or not p.grad.abs().max() > 0]
     if silent:
-        fail('train', f'{len(silent)} backbone parameters got no gradient, e.g. {silent[:4]}')
-    step_s = statistics.median(times[TRAIN_WARMUP:])
+        fail(name, f'{len(silent)} backbone parameters got no gradient, e.g. {silent[:4]}')
+    step_s = statistics.median(times[n_warmup:])
     n_images = tcfg.batch_size + tcfg.batch_size_2d
+    summary = (
+        f'{n_timed} timed steps after {n_warmup}: median {step_s * 1e3:.1f} ms/step '
+        f'(CUDA-synchronised), {n_images / step_s:.1f} images/s; all: '
+        + ', '.join(f'{t * 1e3:.1f}' for t in times)
+        + f'; one step under torch.profiler: wall {wall_ms:.1f} ms, device busy '
+          f'{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels; peak '
+          f'memory {peak_gb:.2f} GiB (max_memory_allocated); device time: '
+        + ', '.join(f'{g} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)'
+                    for g, ms in sorted(groups.items(), key=lambda x: -x[1]))
+        + f'; loss first {loss[0]:.4f}, last {loss[-1]:.4f} (repeated batch; all: '
+        + ', '.join(f'{v:.4f}' for v in loss.tolist()) + '); every backbone parameter got a '
+          'nonzero gradient; K1 and K2 launches in training: 0')
+    host = lambda batch: {k: v.cpu() for k, v in batch.items()}
+    return dict(step_s=step_s, busy_share=busy_ms / wall_ms, peak_gb=peak_gb,
+                batch=(host(b3), host(b2)), summary=summary)
+
+
+def train_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
+    """The [train] phase (module docstring). Returns the K1 and K2 launches
+    of the serving run after training. The trained package stays at
+    TRAINED_PACKAGE under `root` for [train_families]; the caller deletes
+    it."""
+    from metrabs_tpu_torch.config import AugConfig, ModelConfig, TrainConfig
+    from metrabs_tpu_torch.io.packaging import save_pose_estimator_package
+    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    tcfg = TrainConfig()
+    variables = mint_crop_variables(cfg, torch.Generator().manual_seed(tcfg.seed))
+    torch.cuda.reset_peak_memory_stats()
+    state, step = make_trainer(cfg, tcfg, variables, dev, fuse='on')
+    if sum(getattr(b, 'fusable', False) and b.fuse == 'on'
+           for b in state.model.backbone.blocks) != K2_BLOCKS:
+        fail('train', f'expected {K2_BLOCKS} blocks built with fuse_mbconv on')
+    run = train_steps(state, step, tcfg, dev, 'train', TRAIN_WARMUP, TRAIN_STEPS, fall_window=5)
     phase('train', f'EffNetV2-S@{PROC_SIDE} Metrabs, bf16 compute, f32 master weights, '
                    f'fuse_mbconv on, batch {tcfg.batch_size}+{tcfg.batch_size_2d}: '
-                   f'{TRAIN_STEPS} timed steps after {TRAIN_WARMUP}: median '
-                   f'{step_s * 1e3:.1f} ms/step (CUDA-synchronised), '
-                   f'{n_images / step_s:.1f} images/s; all: '
-                   + ', '.join(f'{t * 1e3:.1f}' for t in times))
-    phase('train', f'one step under torch.profiler: wall {wall_ms:.1f} ms, device busy '
-                   f'{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels; '
-                   f'peak memory {peak_gb:.2f} GiB (max_memory_allocated); device time: '
-                   + ', '.join(f'{g} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)'
-                               for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
-    phase('train', f'loss first {loss[0]:.4f}, last {loss[-1]:.4f} (repeated batch; all: '
-                   + ', '.join(f'{v:.4f}' for v in loss.tolist()) + '); every backbone '
-                   'parameter got a nonzero gradient; K1 and K2 launches in training: 0')
+                   + run['summary'])
     worst = train_parity(cfg, tcfg, variables, dev)
     phase('train', 'float32 step, GPU (TF32 off) vs CPU from the same state and mix: '
                    + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()))
 
-    # Serve the EMA weights through a package.
-    package = root / 'runs' / 'chip_smoke_trained_package'
-    shutil.rmtree(package, ignore_errors=True)
-    try:
-        save_pose_estimator_package(
-            str(package), cfg=cfg, aug_cfg=AugConfig(), joint_info=H36M_17,
-            crop_model_variables=flax_variables_from_state_dict(state.ema_state_dict()))
-        del state
-        run_kwargs = dict(num_aug=NUM_AUG, internal_batch_size=INTERNAL_BATCH)
-        chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
-        folded = load_pose_estimator(str(package), device=dev)
-        folded.estimate_poses_batched(frames, boxes, box_valid, **run_kwargs)  # warm-up
-        torch.cuda.synchronize()
-        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
-        out = folded.estimate_poses_batched(frames, boxes, box_valid, **run_kwargs)
-        torch.cuda.synchronize()
-        k1_folded = warp_cuda.warp_pyramid.launches
-        if not folded.cfg.bn_fold or k1_folded != chunks:
-            fail('train', f'folded serving: bn_fold {folded.cfg.bn_fold}, K1 launched '
-                          f'{k1_folded} times, expected {chunks}')
-        del folded
-        fused = load_pose_estimator(str(package), device=dev, cfg_overrides={'bn_fold': False},
-                                    backbone_builder=functools.partial(build_backbone,
-                                                                       fuse_mbconv='on'))
-        # The first chunk's input to each fused chain (its expand conv's
-        # output), kept to hold K2 against its plain version afterwards.
-        fused_blocks = [b for b in fused.crop_model.backbone.blocks
-                        if getattr(b, 'fusable', False)]
-        inputs = {}
-        hooks = [b.expand_conv.register_forward_hook(
-            lambda m, args, u, b=b: inputs.setdefault(b, u.contiguous()))
-            for b in fused_blocks]
-        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
-        try:
-            out_fused = fused.estimate_poses_batched(frames, boxes, box_valid, **run_kwargs)
-            torch.cuda.synchronize()
-        finally:
-            for hook in hooks:
-                hook.remove()
-        k1_fused, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
-        if k1_fused != chunks or k2 != K2_BLOCKS * chunks:
-            fail('train', f'fused serving: K1 launched {k1_fused} times and K2 {k2}, expected '
-                          f'{chunks} and {K2_BLOCKS * chunks}')
-        # The kept constants, made from the trained weights at the first call.
-        err_v = max((mbconv_cuda.fused_mbconv_inner(u, *b._inner_constants())[0].float()
-                     - mbconv.fused_mbconv_inner(u, *b._inner_constants())[0].float()
-                     ).abs().max().item() for b, u in inputs.items())
-        if len(inputs) != K2_BLOCKS or err_v != 0.0:
-            fail('train', f'K2 on the trained weights: max |kernel - plain| v {err_v:.3g} over '
-                          f'{len(inputs)} blocks (must be 0)')
-        valid_t = torch.as_tensor(box_valid, device=dev)
-        for result in (out, out_fused):
-            if not all(bool(torch.isfinite(result[k][valid_t]).all())
-                       for k in ('poses3d', 'poses2d')):
-                fail('train', 'non-finite poses from the trained package')
-        phase('train', f'trained EMA weights packaged and served ({int(box_valid.sum())} valid '
-                       f'boxes, {chunks} chunks): folded K1 launches {k1_folded}; unfused with '
-                       f'fuse_mbconv on K1 {k1_fused}, K2 {k2}, K2 v vs plain on the trained '
-                       f'weights {err_v:.3g} on the first chunk\'s input to each of the '
-                       f'{len(inputs)} blocks; '
-                       f'poses finite')
-    finally:
-        shutil.rmtree(package, ignore_errors=True)
+    # Serve the EMA weights through a package, kept for [train_families].
+    package = root / TRAINED_PACKAGE
+    save_pose_estimator_package(
+        str(package), cfg=cfg, aug_cfg=AugConfig(), joint_info=H36M_17,
+        crop_model_variables=flax_variables_from_state_dict(state.ema_state_dict()))
+    del state
+    chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
+    k1_folded = serve_folded(package, dev, frames, boxes, box_valid, 'train')[1]
+    k1_fused, k2, err_v, n_blocks = serve_fused(package, dev, frames, boxes, box_valid,
+                                                'train')[1:]
+    phase('train', f'trained EMA weights packaged and served ({int(box_valid.sum())} valid '
+                   f'boxes, {chunks} chunks): folded K1 launches {k1_folded}; unfused with '
+                   f'fuse_mbconv on K1 {k1_fused}, K2 {k2}, K2 v vs plain on the trained '
+                   f'weights {err_v:.3g} on the first chunk\'s input to each of the '
+                   f'{n_blocks} blocks; poses finite')
     return dict(k1=k1_fused, k2=k2)
+
+
+def serve_folded(package: Path, dev, frames, boxes, box_valid, name: str):
+    """`load_pose_estimator(package)` (bf16, BN folded) on the main frames and
+    boxes, warmed up, then counted: K1 must run once per non-empty chunk and
+    K2 never, the poses of valid boxes be finite. Returns (output, K1
+    launches)."""
+    from metrabs_tpu_torch.io.packaging import load_pose_estimator
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+
+    chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
+    est = load_pose_estimator(str(package), device=dev)
+    run = lambda: est.estimate_poses_batched(frames, boxes, box_valid, num_aug=NUM_AUG,
+                                             internal_batch_size=INTERNAL_BATCH)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+    if not est.cfg.bn_fold or k1 != chunks or k2 != 0:
+        fail(name, f'folded serving: bn_fold {est.cfg.bn_fold}, K1 launched {k1} times and K2 '
+                   f'{k2}, expected {chunks} and 0')
+    check_served_poses(out, dev, box_valid, name)
+    return out, k1
+
+
+def serve_fused(package: Path, dev, frames, boxes, box_valid, name: str):
+    """`load_pose_estimator(package)` unfolded with `fuse_mbconv='on'` on the
+    main frames and boxes: K1 must run once and K2 K2_BLOCKS times per
+    non-empty chunk, and K2's v on the first chunk's input to each fused
+    block equal the plain chain's on the package's weights. Returns (output,
+    K1 launches, K2 launches, max |kernel - plain| of v, blocks checked)."""
+    from metrabs_tpu_torch.io.packaging import load_pose_estimator
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
+
+    chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
+    fused = load_pose_estimator(str(package), device=dev, cfg_overrides={'bn_fold': False},
+                                backbone_builder=functools.partial(build_backbone,
+                                                                   fuse_mbconv='on'))
+    # The first chunk's input to each fused chain (its expand conv's output),
+    # kept to hold K2 against its plain version afterwards.
+    fused_blocks = [b for b in fused.crop_model.backbone.blocks if getattr(b, 'fusable', False)]
+    inputs = {}
+    hooks = [b.expand_conv.register_forward_hook(
+        lambda m, args, u, b=b: inputs.setdefault(b, u.contiguous())) for b in fused_blocks]
+    torch.cuda.synchronize()
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    try:
+        out = fused.estimate_poses_batched(frames, boxes, box_valid, num_aug=NUM_AUG,
+                                           internal_batch_size=INTERNAL_BATCH)
+        torch.cuda.synchronize()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+    if k1 != chunks or k2 != K2_BLOCKS * chunks:
+        fail(name, f'fused serving: K1 launched {k1} times and K2 {k2}, expected {chunks} and '
+                   f'{K2_BLOCKS * chunks}')
+    # The kept constants, made from the package's weights at the first call.
+    err_v = max((mbconv_cuda.fused_mbconv_inner(u, *b._inner_constants())[0].float()
+                 - mbconv.fused_mbconv_inner(u, *b._inner_constants())[0].float()
+                 ).abs().max().item() for b, u in inputs.items())
+    if len(inputs) != K2_BLOCKS or err_v != 0.0:
+        fail(name, f'K2 on the trained weights: max |kernel - plain| v {err_v:.3g} over '
+                   f'{len(inputs)} blocks (must be 0)')
+    check_served_poses(out, dev, box_valid, name)
+    return out, k1, k2, err_v, len(inputs)
+
+
+def check_served_poses(out, dev, box_valid, name: str) -> None:
+    valid_t = torch.as_tensor(box_valid, device=dev)
+    if not torch.equal(out['valid'], valid_t) or not all(
+            bool(torch.isfinite(out[k][valid_t]).all()) for k in ('poses3d', 'poses2d')):
+        fail(name, 'non-finite poses or a wrong valid mask from a trained package')
 
 
 # The [families] phase: (label, backbone, extra model config, build_crop_model
@@ -924,8 +1019,6 @@ def families_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     against the CPU on a small frame, Metro built by `load_crop_model` and
     refused by `load_pose_estimator`, and a float32 YOLOv8-n's GPU and CPU
     detections. Returns the K1 and K2 launches of each path."""
-    import shutil
-
     from metrabs_tpu_torch.config import AugConfig, ModelConfig
     from metrabs_tpu_torch.io.packaging import (detector_from_variables, load_crop_model,
                                                 load_pose_estimator,
@@ -1129,6 +1222,211 @@ def families_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     return launches
 
 
+# The [train_families] phase: (label, build_crop_model arguments, TrainConfig
+# fields) of each mode trained at EffNetV2-S@256, in this order; the last is
+# warm-started from the [train] phase's package.
+FAMILY_TRAIN_MODES = (
+    ('Metro', dict(model_class='metro'), {}),
+    ('Model25D', dict(model_class='model25d'), {}),
+    ('transform_coords', dict(latent_mode='transform_coords'), dict(transform_coords=True)),
+    ('predict_all_and_latents', dict(latent_mode='predict_all_and_latents'),
+     dict(predict_all_and_latents=True)),
+    ('regularize_to_manifold', {}, dict(regularize_to_manifold=True)))
+FAMILY_N_LATENTS = 32  # latent points of the minted autoencoder
+FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_STEPS = 3, 5
+FAMILY_FUSED_SERVE = 'transform_coords'  # the mode also served unfolded through K2
+# The families train on examples of their own: the last mode warm-starts
+# from a package trained on [train]'s batch, and fine-tuning on that same
+# batch again has nothing left to fit.
+FAMILY_FIRST_EXAMPLE = 1000
+METRIC_RTOL = 1e-4  # GPU vs CPU eval metrics of the same predictions
+
+
+def score_trained(package: Path, batch3d: dict, dev, label: str):
+    """The package's crop model (bf16, eval mode) on its training batch
+    `batch3d`, scored by `compute_pose3d_metrics` on the GPU and on the CPU
+    from the same predictions, and `rigid_align` on both. Fails where a
+    metric, or an aligned pose relative to the largest true coordinate,
+    differs by more than METRIC_RTOL. Returns (GPU metrics, worst relative
+    metric difference, max |aligned GPU - CPU| mm, the source lines of the
+    host syncs in the GPU metrics call)."""
+    import warnings
+
+    from metrabs_tpu_torch.eval.metrics import compute_pose3d_metrics
+    from metrabs_tpu_torch.io.packaging import load_crop_model
+    from metrabs_tpu_torch.ops.procrustes import rigid_align
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+
+    model, cfg, _, manifest = load_crop_model(str(package), device=dev)
+    is_metro = manifest['model_class'] == 'metro'
+    images = batch3d['image'].to(dev, getattr(torch, cfg.dtype))
+    with torch.inference_mode():
+        pred = (model(images) if is_metro
+                else model(images, batch3d['intrinsics'].to(dev))).float()
+    true, valid = batch3d['coords3d_true'], batch3d['joint_validity_mask']
+    true_dev, valid_dev = true.to(dev), valid.to(dev)
+    kwargs = dict(coords3d_pred_is_abs=not is_metro, joint_info=H36M_17)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            got = compute_pose3d_metrics(pred, true_dev, valid_dev, device=dev, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = [f'{Path(w.filename).name}:{w.lineno}' for w in caught
+             if 'synchroniz' in str(w.message)]
+    want = compute_pose3d_metrics(pred.cpu(), true, valid, device='cpu', **kwargs)
+    rel = {k: abs(got[k].item() - w.item()) / max(abs(w.item()), 1e-30) for k, w in want.items()}
+    if got.keys() != want.keys() or not all(
+            torch.isfinite(v).all() for v in got.values()) or max(rel.values()) > METRIC_RTOL:
+        fail('train_families', f'{label}: GPU metrics differ from the CPU\'s: {rel}')
+    aligned = [rigid_align(p, t.to(p.device), joint_validity_mask=v.to(p.device),
+                           scale_align=True).cpu() for p, t, v in
+               ((pred, true, valid), (pred.cpu(), true, valid))]
+    align_err = (aligned[0] - aligned[1]).abs().max().item()
+    if not align_err <= METRIC_RTOL * true.abs().max().item():
+        fail('train_families', f'{label}: rigid_align on the GPU differs from the CPU by '
+                               f'{align_err:.3g} mm')
+    return {k: v.item() for k, v in got.items()}, max(rel.values()), align_err, syncs
+
+
+def train_families_phase(root: Path, dev, frames, boxes, box_valid, source_package: Path) -> dict:
+    """The [train_families] phase: each of FAMILY_TRAIN_MODES trained at
+    EffNetV2-S@256 as the [train] phase trains plain Metrabs (bf16 compute, f32
+    master weights, TrainConfig defaults, 32 + 32 synthetic examples, one
+    batch repeated), its step held in float32 against the CPU, packaged with
+    the bone lengths of its 3D batches, scored on that batch and served.
+    Returns the K1 and K2 launches of each path."""
+    from metrabs_tpu_torch.apps.train import warm_start_backbone
+    from metrabs_tpu_torch.config import AugConfig, ModelConfig, TrainConfig
+    from metrabs_tpu_torch.io.checkpoints import load_model_msgpack
+    from metrabs_tpu_torch.io.packaging import load_pose_estimator, save_pose_estimator_package
+    from metrabs_tpu_torch.io.weights import (flax_variables_from_state_dict,
+                                              torch_state_dict_from_flax)
+    from metrabs_tpu_torch.pipeline.plausibility import BoneLengthStats
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+    from metrabs_tpu_torch.train.loop import load_affine_weights
+
+    name = 'train_families'
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    work = root / 'runs' / 'chip_smoke_train_families'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    # The autoencoder, affine (each point's weights sum to 1), through its npz.
+    w1 = torch.rand((17, FAMILY_N_LATENTS), generator=gen)
+    w2 = torch.rand((FAMILY_N_LATENTS, 17), generator=gen)
+    np.savez(work / 'affine.npz', w1=(w1 / w1.sum(0)).numpy(), w2=(w2 / w2.sum(0)).numpy())
+    affine = load_affine_weights(str(work / 'affine.npz'))
+    bones = [tuple(e) for e in H36M_17.edges]
+    lengths = (torch.rand(len(bones), generator=gen) * 300 + 150).tolist()
+    chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
+    launches = {'train_families': (0, 0), 'serve_trained_families': (0, 0)}
+    table = []
+    try:
+        for label, model_kwargs, tcfg_fields in FAMILY_TRAIN_MODES:
+            tcfg = TrainConfig(**tcfg_fields)
+            kwargs = dict(model_kwargs)
+            model_class = kwargs.get('model_class', 'metrabs')
+            if kwargs.get('latent_mode'):
+                kwargs['n_latents'] = FAMILY_N_LATENTS
+            if model_class == 'model25d':
+                kwargs.update(bones=bones, bone_lengths_ideal=lengths)
+            ae = affine if kwargs.get('latent_mode') or tcfg.regularize_to_manifold else None
+            variables = mint_crop_variables(cfg, gen, **kwargs)
+            if kwargs.get('latent_mode'):
+                variables['constants'] = dict(affine)
+            torch.cuda.reset_peak_memory_stats()
+            state, step = make_trainer(cfg, tcfg, variables, dev, model_kwargs=kwargs,
+                                       affine_weights=ae)
+            notes = []
+            if tcfg.regularize_to_manifold:
+                warm_start_backbone(state, str(source_package), cfg, apply_head_surgery=True)
+                source = torch_state_dict_from_flax(load_model_msgpack(
+                    str(source_package / 'crop_model.msgpack'))['variables'])
+                own = state.model.state_dict()
+                backbone = [k for k in source if k.startswith('backbone.')]
+                head = [k for k in source if k.startswith('heatmap_heads.')]
+                unequal = [k for k in backbone + head if not torch.equal(own[k].cpu(), source[k])]
+                ema_reset = all(torch.equal(state.ema_params[k], p)
+                                for k, p in state.model.named_parameters())
+                if unequal or not backbone or not head or not ema_reset:
+                    fail(name, f'warm start: {len(unequal)} of {len(backbone)} backbone and '
+                               f'{len(head)} head tensors differ from the source (e.g. '
+                               f'{unequal[:3]}); EMA reset {ema_reset}')
+                notes.append(f'warm-started from the [train] package: {len(backbone)} backbone '
+                             f'tensors and the head\'s last {cfg.n_joints} slots equal to the '
+                             f'source bit for bit, EMA reset')
+                variables = flax_variables_from_state_dict(state.model.state_dict())
+            bone_stats = BoneLengthStats(H36M_17.edges)
+            run = train_steps(state, step, tcfg, dev, name, FAMILY_TRAIN_WARMUP,
+                              FAMILY_TRAIN_STEPS, fall_window=3, bone_stats=bone_stats,
+                              first_example=FAMILY_FIRST_EXAMPLE)
+            phase(name, f'{label}: ' + run['summary'])
+            if tcfg.predict_all_and_latents:
+                state.step = tcfg.teacher_start_step + 1
+                l = {k: v.item() for k, v in step(state, *run['batch'],
+                                                  generator=torch.Generator(device=dev)).items()}
+                teacher = l['loss_3dbatch'] - (
+                    l['loss_allhead_vs_gt'] + l['loss_latentheadreconstruction_vs_gt']
+                    + tcfg.allhead_aegt_loss_factor * l['loss_allhead_ae_vs_gt']
+                    + tcfg.loss_manif_factor * l['loss_allhead_vs_reconstr'])
+                want = tcfg.teacher_loss_factor * l['loss_latenthead_vs_latents_from_allhead']
+                if not (want > 0 and math.isfinite(l['loss'])
+                        and abs(teacher - want) <= 1e-3 * want):
+                    fail(name, f'{label}: the teacher term is not live past teacher_start_step: '
+                               f'{teacher} vs {want}')
+                notes.append(f'one step at step {tcfg.teacher_start_step + 1}: teacher term '
+                             f'{teacher:.5f} (loss_latenthead_vs_latents_from_allhead '
+                             f'{want:.5f}), loss {l["loss"]:.4f}')
+            worst = train_parity(cfg, tcfg, variables, dev, name, kwargs, ae)
+            notes.append('float32 step, GPU (TF32 off) vs CPU: '
+                         + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()))
+            package = work / label
+            save_pose_estimator_package(
+                str(package), cfg=cfg, aug_cfg=AugConfig(), joint_info=H36M_17,
+                crop_model_variables=flax_variables_from_state_dict(state.ema_state_dict()),
+                bone_mean_lengths=bone_stats.mean_lengths(), model_class=model_class,
+                latent_mode=kwargs.get('latent_mode', ''), n_latents=kwargs.get('n_latents', 0),
+                bones_25d=kwargs.get('bones'), bone_lengths_ideal=kwargs.get('bone_lengths_ideal'))
+            del state, step
+            torch.cuda.empty_cache()
+            metrics, rel, align_err, syncs = score_trained(package, run['batch'][0], dev, label)
+            means = bone_stats.mean_lengths()
+            notes.append(f'packaged with {len(means)} bone means from {bone_stats.n_samples}+ '
+                         f'samples each ({means.min():.1f}-{means.max():.1f} mm); scored on its '
+                         f'training batch, GPU vs CPU metrics within {rel:.3g} relative, '
+                         f'rigid_align within {align_err:.3g} mm, {len(syncs)} host syncs in the '
+                         f'GPU metrics call ({", ".join(syncs)}): '
+                         + ', '.join(f'{k} {v:.4g}' for k, v in metrics.items()))
+            if model_class == 'metro':
+                try:
+                    load_pose_estimator(str(package), device=dev)
+                    fail(name, 'load_pose_estimator accepted a trained Metro package')
+                except ValueError as e:
+                    notes.append(f'load_pose_estimator refused it ("{str(e).split(" (")[0]}")')
+            else:
+                k1 = serve_folded(package, dev, frames, boxes, box_valid, name)[1]
+                launches['serve_trained_families'] = (
+                    launches['serve_trained_families'][0] + k1, 0)
+                notes.append(f'served folded bf16: K1 {k1} ({chunks} chunks), K2 0, poses finite')
+            if label == FAMILY_FUSED_SERVE:
+                k1, k2, err_v, n_blocks = serve_fused(package, dev, frames, boxes, box_valid,
+                                                      name)[1:]
+                launches['serve_trained_family_fused'] = (k1, k2)
+                notes.append(f'served unfolded with fuse_mbconv on: K1 {k1}, K2 {k2}, K2 v vs '
+                             f'plain {err_v:.3g} over {n_blocks} blocks')
+            phase(name, f'{label}: ' + '; '.join(notes))
+            table.append(f'{label} {run["step_s"] * 1e3:.1f} ms/step, '
+                         f'{(tcfg.batch_size + tcfg.batch_size_2d) / run["step_s"]:.1f} images/s, '
+                         f'busy {100 * run["busy_share"]:.1f}%, peak {run["peak_gb"]:.2f} GiB')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase(name, 'summary: ' + '; '.join(table))
+    return launches
+
+
 IMPORT_MODEL = 'metrabs_eff2s_y4'  # EffNetV2-S@256 crop model + YOLOv4-416, both bf16
 IMPORT_K = 2  # frame batches per stream call
 IMPORT_PIPELINED = 3  # frame batches through detect_poses_pipelined
@@ -1172,8 +1470,6 @@ def import_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     against the batched calls, F3 and F2 on the card, the K1 and K2 launches
     of one profiled stream call and the stream and batched times. Returns
     the K1 and K2 launches of the counted stream call."""
-    import shutil
-
     from metrabs_tpu_torch.detect.yolov4 import (build_detector_model, load_darknet_weights,
                                                  write_darknet_weights)
     from metrabs_tpu_torch.io import tf_checkpoint, weights_import
@@ -1627,11 +1923,24 @@ def main() -> None:
     # 6. The trainer, then the trained weights served through K1 and K2.
     del est, est32, ref32, est_d
     torch.cuda.empty_cache()
-    serve = train_phase(root, dev, frames, boxes, box_valid)
+    shutil.rmtree(root / TRAINED_PACKAGE, ignore_errors=True)
+    try:
+        start = time.perf_counter()
+        serve = train_phase(root, dev, frames, boxes, box_valid)
+        phase('train', f'{time.perf_counter() - start:.1f} s')
+
+        # 6b. Every other crop-model family trained, scored and served.
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        by_path = train_families_phase(root, dev, frames, boxes, box_valid,
+                                       root / TRAINED_PACKAGE)
+        phase('train_families', f'{time.perf_counter() - start:.1f} s')
+    finally:
+        shutil.rmtree(root / TRAINED_PACKAGE, ignore_errors=True)
 
     # 7. The other model families.
     torch.cuda.empty_cache()
-    by_path = families_phase(root, dev, frames, boxes, box_valid)
+    by_path.update(families_phase(root, dev, frames, boxes, box_valid))
 
     # 8. The released weight formats and the streaming entry points.
     torch.cuda.empty_cache()

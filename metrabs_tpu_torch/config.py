@@ -93,7 +93,7 @@ class TrainConfig:
     # The last N steps run the model in inference mode (BatchNorm on its
     # running statistics, no drop-connect); 0 disables.
     finetune_in_inference_mode: int = 0
-    # Latent-joint and manifold modes; the port trains the plain mode only.
+    # Latent-joint and manifold modes (`train.loop.make_train_step`).
     transform_coords: bool = False
     predict_all_and_latents: bool = False
     regularize_to_manifold: bool = False

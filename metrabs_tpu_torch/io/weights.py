@@ -318,9 +318,13 @@ def load_flax_train_state(state, flax_state: Dict) -> None:
     """Loads the state dict of a JAX `TrainState` (`flax.serialization.
     to_state_dict`, numpy leaves) into the port's `state` of the same model
     and optimizer configuration, in place. Raises ValueError where the trees
-    do not match."""
-    state.model.load_state_dict(torch_state_dict_from_flax(
-        {'params': flax_state['params'], 'batch_stats': flax_state.get('batch_stats', {})}))
+    do not match. A latent model's constants are no part of JAX's
+    `TrainState` (its train step takes them apart): the model keeps its
+    own."""
+    model_state = torch_state_dict_from_flax(
+        {'params': flax_state['params'], 'batch_stats': flax_state.get('batch_stats', {})})
+    model_state.update({k: v for k, v in state.model.state_dict().items() if k in _CONSTANTS})
+    state.model.load_state_dict(model_state)
 
     @torch.no_grad()
     def copy_into(dst: Dict[str, torch.Tensor], tree: Dict, what: str):

@@ -17,12 +17,20 @@ The backbone and the head's conv compute in `cfg.dtype` (float32 master
 weights train in bfloat16); the head decode, the reconstruction and the
 latent recombination run in float32. `build_crop_model` builds any crop
 model class of a package (Metrabs, Metro, Model25D).
+
+`set_last_point_weights` (on a JAX-style variable tree) and
+`set_last_point_weights_` (on the port's head, in place) are the head
+surgery of fine-tuning: a smaller head's points go into the last slots of
+this head. The head's channels are [2D | 3D interleaved by depth], channel
+d * n_points + j of the 3D part; they run along flax's kernel's last axis
+[1, 1, in, out] and along dim 0 of the port's weight [out, in, 1, 1].
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -108,6 +116,53 @@ class Metrabs(nn.Module):
 
     def joints_to_joints(self, points: torch.Tensor) -> torch.Tensor:
         return linear_combine_points(points, self.encoder_weights @ self.recombination_weights)
+
+
+@torch.no_grad()
+def _write_last_points(dst: torch.Tensor, src: torch.Tensor, depth: int,
+                       n_points: int) -> None:
+    """Writes the channels of `src` ((1 + depth) * n_other along dim 0) into
+    the last n_other points of `dst` ((1 + depth) * n_points along dim 0),
+    in place."""
+    n_other = src.shape[0] // (1 + depth)
+    dst[n_points - n_other:n_points] = src[:n_other]
+    dst[n_points:].unflatten(0, (depth, n_points))[:, n_points - n_other:] = (
+        src[n_other:].unflatten(0, (depth, n_other)))
+
+
+def set_last_point_weights_(heads: MetrabsHeads, other_weight: torch.Tensor,
+                            other_bias: torch.Tensor) -> None:
+    """Writes a smaller Metrabs head's `conv_final` weight [O, in, 1, 1] and
+    bias [O] (O = (1 + depth) * n_other) into the last n_other points of
+    `heads`, in place."""
+    conv, depth = heads.conv_final, heads.cfg.depth
+    _write_last_points(conv.weight, other_weight.to(conv.weight), depth, heads.n_points)
+    _write_last_points(conv.bias, other_bias.to(conv.bias), depth, heads.n_points)
+
+
+def set_last_point_weights(params: Dict, other_kernel: np.ndarray, other_bias: np.ndarray,
+                           depth: int, n_points: int,
+                           head_path=('heatmap_heads', 'conv_final')) -> Dict:
+    """The head surgery on a JAX-style params tree (`metrabs_tpu/models/
+    metrabs.py::set_last_point_weights`): returns a copy of `params` whose
+    head at `head_path` (kernel [1, 1, in, (1 + depth) * n_points]) holds
+    `other_kernel` and `other_bias` in its last points."""
+    params = dict(params)
+    node = params
+    for key in head_path[:-1]:
+        node[key] = dict(node[key])
+        node = node[key]
+    conv = dict(node[head_path[-1]])
+    node[head_path[-1]] = conv
+    kernel = np.array(conv['kernel'], np.float32)
+    bias = np.array(conv['bias'], np.float32)
+    _write_last_points(torch.from_numpy(kernel).movedim(-1, 0),
+                       torch.from_numpy(np.asarray(other_kernel, np.float32)).movedim(-1, 0),
+                       depth, n_points)
+    _write_last_points(torch.from_numpy(bias), torch.from_numpy(
+        np.asarray(other_bias, np.float32)), depth, n_points)
+    conv['kernel'], conv['bias'] = kernel, bias
+    return params
 
 
 def build_crop_model(cfg: ModelConfig, backbone_builder=None, *, model_class: str = 'metrabs',

@@ -1,15 +1,17 @@
 """Pose plausibility filtering and 3D-pose non-maximum suppression
-(`metrabs_tpu/pipeline/plausibility.py:20-137`).
+(`metrabs_tpu/pipeline/plausibility.py`).
 
 Masked and fixed-shape, as in JAX: padded pose sets with validity masks and
 the greedy NMS loop of `ops.nms`. Every function takes any leading batch
 axes, so the estimator filters all images of a batch at once where JAX maps
-over them. The bone-length priors come from `metrabs_tpu.pipeline.bone_priors`
-(framework-free) or the package.
+over them. The bone-length priors come from `pipeline.bone_priors` or the
+package, whose trainer measures them with `BoneLengthStats` (numpy, on the
+host) from the ground-truth 3D batches it trains on.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from metrabs_tpu_torch.ops.nms import greedy_nms
@@ -109,3 +111,45 @@ def suppress_implausible_poses(poses3d: torch.Tensor, poses2d: torch.Tensor,
                  & box_valid)
     return pose_non_max_suppression(poses3d_mean, boxes[..., 4], plausible,
                                     overlap_threshold, max_output)
+
+
+class BoneLengthStats:
+    """Streaming mean bone lengths of ground-truth 3D poses, on the host. A
+    bone sample counts only where both of its joints are valid (and its
+    length is finite); an edge never observed reports NaN, not a 0 mm bone,
+    which the plausibility check would always fail."""
+
+    def __init__(self, edges):
+        self.edges = tuple((int(i), int(j)) for i, j in edges)
+        self._sum = np.zeros(len(self.edges), np.float64)
+        self._count = np.zeros(len(self.edges), np.int64)
+
+    def update(self, coords3d_mm: np.ndarray, validity: np.ndarray) -> None:
+        """coords3d_mm [B, J, 3] camera-space mm; validity [B, J] bool."""
+        c = np.asarray(coords3d_mm, np.float64)
+        v = np.asarray(validity, bool)
+        for b, (i, j) in enumerate(self.edges):
+            ok = v[:, i] & v[:, j]
+            if not ok.any():
+                continue
+            d = np.linalg.norm(c[ok, i] - c[ok, j], axis=-1)
+            ok_finite = np.isfinite(d)
+            self._sum[b] += d[ok_finite].sum()
+            self._count[b] += int(ok_finite.sum())
+
+    @property
+    def n_samples(self) -> int:
+        return int(self._count.min()) if len(self.edges) else 0
+
+    def mean_lengths(self) -> np.ndarray:
+        """Per-edge mean bone length in mm, float32; NaN where unobserved."""
+        with np.errstate(invalid='ignore'):
+            out = self._sum / np.maximum(self._count, 1)
+        return np.where(self._count > 0, out, np.nan).astype(np.float32)
+
+
+def compute_bone_mean_lengths(coords3d_mm, validity, edges) -> np.ndarray:
+    """`BoneLengthStats` of one in-memory set of poses."""
+    stats = BoneLengthStats(edges)
+    stats.update(coords3d_mm, validity)
+    return stats.mean_lengths()

@@ -1,13 +1,29 @@
-"""Training state and the train step, plain Metrabs mode
+"""Training state and the train steps of every crop-model family
 (`metrabs_tpu/train/loop.py`: `TrainState`, `create_train_state`,
-`make_train_step`).
+`load_affine_weights`, `make_train_step`, `make_train_step_metro`,
+`make_train_step_model25d`).
 
 One step: the 3D- and 2D-labelled batches are concatenated and run through
-`backbone_and_head` together, a per-sample 2D/3D mixing factor is drawn
-from the step's generator, the absolute reconstruction and the MeTRAbs
-losses follow, then backward, the optimizer update, the kernel-norm
-projection and the EMA (under gradient accumulation, only on the
-micro-steps that apply an update). The state is updated in place.
+the model together, the family's losses follow, then backward, the optimizer
+update, the kernel-norm projection and the EMA (under gradient
+accumulation, only on the micro-steps that apply an update). The state is
+updated in place.
+
+The Metrabs step draws a per-sample 2D/3D mixing factor from the step's
+generator before the forward (Metro and Model25D draw none), then the
+absolute reconstruction of each head; its latent and manifold modes need
+the affine-combining autoencoder's weights (`affine_weights`, e.g. from
+`load_affine_weights`):
+  - `transform_coords`: the head predicts the latent points, decoded to
+    joints after the reconstruction;
+  - `predict_all_and_latents`: the latent slots (first) and the all-joint
+    slots reconstruct apart and train with the hybrid student-teacher
+    losses;
+  - `regularize_to_manifold`: a plain head plus the distance of its joints
+    to their autoencoder reconstruction.
+The weights are the step's float32 constants; the model's own
+`recombination_weights` and `encoder_weights` buffers (what a package
+exports) are the caller's to set.
 
 The step counts micro-steps; the loss gates read it unscaled, as in JAX.
 With `bn_inference` the model runs in eval mode (BatchNorm on its running
@@ -19,13 +35,16 @@ phase.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from metrabs_tpu_torch.config import ModelConfig, TrainConfig
-from metrabs_tpu_torch.models.metrabs import Metrabs
+from metrabs_tpu_torch.models.metrabs import Metrabs, linear_combine_points
+from metrabs_tpu_torch.models.metro import Metro, compute_metro_losses
+from metrabs_tpu_torch.models.model25d import Model25D, compute_model25d_losses
 from metrabs_tpu_torch.pipeline.estimator import checked_device
 from metrabs_tpu_torch.train import losses as losses_mod
 from metrabs_tpu_torch.train import optim
@@ -61,50 +80,37 @@ def create_train_state(model: nn.Module, optimizer: optim.Optimizer,
                       ema_params={n: p.detach().clone() for n, p in params.items()})
 
 
-def make_train_step(optimizer: optim.Optimizer, joint_info3d: JointInfo,
-                    joint_info2d: JointInfo, cfg: ModelConfig, tcfg: TrainConfig,
-                    bn_inference: bool = False):
-    """The step `train_step(state, batch3d, batch2d, generator=None,
-    mix=None) -> losses` for a plain `Metrabs` model (another crop model
-    raises NotImplementedError).
+def load_affine_weights(path: str) -> Dict[str, np.ndarray]:
+    """Affine-combining autoencoder weights from an npz with w1 [n_joints,
+    n_latents] (encoder) and w2 [n_latents, n_joints] (decoder), keyed as
+    the latent Metrabs model's constants, float32."""
+    ws = np.load(path)
+    return {'encoder_weights': np.asarray(ws['w1'], np.float32),
+            'recombination_weights': np.asarray(ws['w2'], np.float32)}
 
-    batch3d: image [n, S, S, 3], intrinsics [n, 3, 3], coords3d_true
-    [n, J, 3], joint_validity_mask [n, J]; batch2d: image [m, S, S, 3],
-    intrinsics [m, 3, 3], coords2d_true [m, J2, 2], joint_validity_mask
-    [m, J2], as tensors or arrays (moved to the model's device).
-    `generator` draws `mix` [n + m, 1, 1] (uniform in [0, 1)) unless it is
-    given, then the drop-connect masks. Returns the losses, detached; the
-    gradients stay in the parameters' `.grad`."""
-    if tcfg.transform_coords or tcfg.predict_all_and_latents or tcfg.regularize_to_manifold:
-        raise NotImplementedError('The latent and manifold training modes are not yet '
-                                  'ported to metrabs_tpu_torch')
-    index_groups = losses_mod.get_2d_joint_index_groups(joint_info3d, joint_info2d)
+
+def _make_step(model: nn.Module, optimizer: optim.Optimizer, cfg: ModelConfig,
+               tcfg: TrainConfig, bn_inference: bool, loss_fn: Callable):
+    """The step shared by every family: `loss_fn(model, image, intrinsics,
+    batch3d, batch2d, step, generator, **kwargs)` gives the losses of the
+    concatenated batch (image in `cfg.dtype`); the step's keyword arguments
+    go to it."""
     dtype = getattr(torch, cfg.dtype)
 
     def train_step(state: TrainState, batch3d: Dict, batch2d: Dict,
                    generator: Optional[torch.Generator] = None,
-                   mix: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        model = state.model
-        if not isinstance(model, Metrabs) or model.latent_mode:
-            raise NotImplementedError('The Metro, Model25D and latent-mode train steps are '
-                                      'not yet ported to metrabs_tpu_torch; the plain '
-                                      'Metrabs step is')
+                   **kwargs) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError('The train step was made for another model than the state\'s')
         device = next(model.parameters()).device
         to_dev = lambda batch: {k: torch.as_tensor(v).to(device, non_blocking=True)
                                 for k, v in batch.items()}
         batch3d, batch2d = to_dev(batch3d), to_dev(batch2d)
-        n3 = batch3d['image'].shape[0]
         image = torch.cat([batch3d['image'], batch2d['image']]).to(dtype)
         intrinsics = torch.cat([batch3d['intrinsics'], batch2d['intrinsics']])
-        if mix is None:
-            mix = torch.rand((image.shape[0], 1, 1), generator=generator, device=device)
         model.train(not bn_inference)
-        _, head2d, head3d = model.backbone_and_head(image, train=not bn_inference,
-                                                    generator=generator)
-        coords_abs = losses_mod.reconstruct_absolute_trainmode(
-            head2d, head3d, intrinsics, mix.to(device, torch.float32), state.step, cfg=cfg)
-        losses = losses_mod.compute_losses(coords_abs[:n3], coords_abs[n3:], batch3d, batch2d,
-                                           index_groups, cfg=cfg, tcfg=tcfg, step=state.step)
+        losses = loss_fn(model, image, intrinsics, batch3d, batch2d, state.step, generator,
+                         **kwargs)
         params = state.params()
         for p in params.values():
             p.grad = None
@@ -116,6 +122,123 @@ def make_train_step(optimizer: optim.Optimizer, joint_info3d: JointInfo,
         return {k: v.detach() for k, v in losses.items()}
 
     return train_step
+
+
+def make_train_step(model: Metrabs, optimizer: optim.Optimizer, joint_info3d: JointInfo,
+                    joint_info2d: JointInfo, cfg: ModelConfig, tcfg: TrainConfig,
+                    bn_inference: bool = False,
+                    affine_weights: Optional[Dict] = None):
+    """The step `train_step(state, batch3d, batch2d, generator=None,
+    mix=None) -> losses` of the `Metrabs` `model` (whose state it takes), in
+    its latent mode and TrainConfig's modes (module docstring);
+    `affine_weights` = {'encoder_weights': [J, L], 'recombination_weights':
+    [L, J]} for the latent and manifold modes, kept on the model's device at
+    this call. Raises ValueError where the model's latent mode and `tcfg`
+    disagree or the weights are missing.
+
+    batch3d: image [n, S, S, 3], intrinsics [n, 3, 3], coords3d_true
+    [n, J, 3], joint_validity_mask [n, J]; batch2d: image [m, S, S, 3],
+    intrinsics [m, 3, 3], coords2d_true [m, J2, 2], joint_validity_mask
+    [m, J2], as tensors or arrays (moved to the model's device).
+    `generator` draws `mix` [n + m, 1, 1] (uniform in [0, 1)) unless it is
+    given, then the drop-connect masks. Returns the losses, detached; the
+    gradients stay in the parameters' `.grad`."""
+    if not isinstance(model, Metrabs):
+        raise ValueError(f'make_train_step trains Metrabs models; a {type(model).__name__} '
+                         f'trains with make_train_step_metro or make_train_step_model25d')
+    latent_mode = model.latent_mode
+    if tcfg.predict_all_and_latents and latent_mode != 'predict_all_and_latents':
+        raise ValueError(f'TrainConfig.predict_all_and_latents requires a model built with '
+                         f"latent_mode='predict_all_and_latents', got {latent_mode!r}")
+    if tcfg.transform_coords and latent_mode != 'transform_coords':
+        raise ValueError(f'TrainConfig.transform_coords requires a model built with '
+                         f"latent_mode='transform_coords', got {latent_mode!r}")
+    w_dec = w_enc = w_rec = None
+    if latent_mode or tcfg.regularize_to_manifold:
+        if affine_weights is None:
+            raise ValueError('latent/manifold training modes need the autoencoder weights: '
+                             "pass affine_weights={'encoder_weights': [J, L], "
+                             "'recombination_weights': [L, J]}")
+        # On the model's device once: a copy to the card per step would wait.
+        device = next(model.parameters()).device
+        w_dec, w_enc = (torch.as_tensor(affine_weights[k], dtype=torch.float32, device=device)
+                        for k in ('recombination_weights', 'encoder_weights'))
+        w_rec = torch.matmul(w_enc, w_dec)
+    index_groups = losses_mod.get_2d_joint_index_groups(joint_info3d, joint_info2d)
+
+    def loss_fn(model, image, intrinsics, batch3d, batch2d, step, generator, mix=None):
+        n3 = batch3d['image'].shape[0]
+        if mix is None:
+            mix = torch.rand((image.shape[0], 1, 1), generator=generator, device=image.device)
+        mix = mix.to(image.device, torch.float32)
+        _, head2d, head3d = model.backbone_and_head(image, train=model.training,
+                                                    generator=generator)
+
+        def reconstruct(head2d, head3d):
+            return losses_mod.reconstruct_absolute_trainmode(head2d, head3d, intrinsics, mix,
+                                                             step, cfg=cfg)
+
+        if latent_mode == 'predict_all_and_latents':
+            n_lat = model.n_latents
+            abs_lat = reconstruct(head2d[:, :n_lat], head3d[:, :n_lat])
+            abs_all = reconstruct(head2d[:, n_lat:], head3d[:, n_lat:])
+            return losses_mod.compute_losses_latents_and_all(
+                abs_all[:n3], abs_lat[:n3], abs_all[n3:], abs_lat[n3:], batch3d, batch2d,
+                index_groups, cfg=cfg, tcfg=tcfg, step=step, recombination_weights=w_dec,
+                encoder_weights=w_enc)
+        coords_abs = reconstruct(head2d, head3d)
+        if latent_mode == 'transform_coords':
+            coords_abs = linear_combine_points(coords_abs, w_dec)
+        return losses_mod.compute_losses(
+            coords_abs[:n3], coords_abs[n3:], batch3d, batch2d, index_groups, cfg=cfg,
+            tcfg=tcfg, step=step,
+            reconstruction_weights=w_rec if tcfg.regularize_to_manifold else None)
+
+    return _make_step(model, optimizer, cfg, tcfg, bn_inference, loss_fn)
+
+
+def make_train_step_metro(model: Metro, optimizer: optim.Optimizer, joint_info3d: JointInfo,
+                          joint_info2d: JointInfo, cfg: ModelConfig, tcfg: TrainConfig,
+                          bn_inference: bool = False):
+    """The step `train_step(state, batch3d, batch2d, generator=None) ->
+    losses` of the Metro `model`: the root-relative L1 on the 3D batch and
+    the aligned weak 2D loss on the 2D batch (`models.metro.
+    compute_metro_losses`). Batches as `make_train_step`'s; `generator`
+    draws the drop-connect masks."""
+    if not isinstance(model, Metro):
+        raise ValueError(f'make_train_step_metro trains Metro models, not '
+                         f'{type(model).__name__}')
+    index_groups = losses_mod.get_2d_joint_index_groups(joint_info3d, joint_info2d)
+
+    def loss_fn(model, image, intrinsics, batch3d, batch2d, step, generator):
+        n3 = batch3d['image'].shape[0]
+        coords = model(image, generator=generator)
+        return compute_metro_losses(coords[:n3], coords[n3:], batch3d, batch2d, index_groups,
+                                    cfg=cfg, tcfg=tcfg)
+
+    return _make_step(model, optimizer, cfg, tcfg, bn_inference, loss_fn)
+
+
+def make_train_step_model25d(model: Model25D, optimizer: optim.Optimizer,
+                             joint_info3d: JointInfo, joint_info2d: JointInfo,
+                             cfg: ModelConfig, tcfg: TrainConfig,
+                             bn_inference: bool = False):
+    """The step `train_step(state, batch3d, batch2d, generator=None) ->
+    losses` of the Model25D `model`, supervising its raw 2.5D head
+    (`models.model25d.compute_model25d_losses`); the 3D batch also carries
+    `coords2d_true` [n, J, 2]. `generator` draws the drop-connect masks."""
+    if not isinstance(model, Model25D):
+        raise ValueError(f'make_train_step_model25d trains Model25D models, not '
+                         f'{type(model).__name__}')
+    index_groups = losses_mod.get_2d_joint_index_groups(joint_info3d, joint_info2d)
+
+    def loss_fn(model, image, intrinsics, batch3d, batch2d, step, generator):
+        n3 = batch3d['image'].shape[0]
+        coords25d = model.forward_25d(image, generator=generator)
+        return compute_model25d_losses(coords25d[:n3], coords25d[n3:], batch3d, batch2d,
+                                       index_groups, cfg=cfg, tcfg=tcfg)
+
+    return _make_step(model, optimizer, cfg, tcfg, bn_inference, loss_fn)
 
 
 def apply_gradients(optimizer: optim.Optimizer, tcfg: TrainConfig,

@@ -1,4 +1,4 @@
-"""MeTRAbs training losses, plain mode (`metrabs_tpu/train/losses.py`).
+"""MeTRAbs training losses (`metrabs_tpu/train/losses.py`).
 
 A 3D-labelled batch and a 2D-labelled batch run through the network
 together; the 3D batch gets root-relative, absolute (after
@@ -8,7 +8,15 @@ validity-masked, millimetres become metres (/1000) inside the losses.
 
 The step gates take the step as a host integer: JAX computes both
 reconstructions and selects with `where`; here the one the step selects is
-computed. The latent and manifold losses come with the latent crop models.
+computed.
+
+The latent and manifold modes add the affine-combining autoencoder's
+weights (decoder `w_dec` [L, J], encoder `w_enc` [J, L]): `compute_losses`
+with `reconstruction_weights` (`w_enc @ w_dec`) for `regularize_to_manifold`,
+and `compute_losses_latents_and_all` for `predict_all_and_latents`. Their
+point recombinations run in float32 (`models.metrabs.linear_combine_points`),
+as JAX's `precision='highest'` einsums; on the card that needs TF32 off for
+float32 matmuls, torch's default.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from metrabs_tpu_torch.config import ModelConfig, TrainConfig
+from metrabs_tpu_torch.models.metrabs import linear_combine_points
 from metrabs_tpu_torch.ops import masked, reconstruct
 from metrabs_tpu_torch.utils.joint_info import JointInfo
 
@@ -126,11 +135,83 @@ def reconstruct_absolute_trainmode(head2d: torch.Tensor, head3d: torch.Tensor,
         weak_perspective=step < WEAK_PERSPECTIVE_STEPS)
 
 
+def compute_losses_latents_and_all(
+        preds_abs: torch.Tensor, preds_abs_latent: torch.Tensor, preds_abs_2d: torch.Tensor,
+        preds_abs_2d_latent: torch.Tensor, batch3d: Dict, batch2d: Dict,
+        index_groups: Sequence[Sequence[int]], *, cfg: ModelConfig, tcfg: TrainConfig,
+        step: int, recombination_weights: torch.Tensor,
+        encoder_weights: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The hybrid student-teacher losses of `predict_all_and_latents`: the
+    all-joints head (`preds_abs*`) teaches the latent head (`*_latent`) once
+    `step > teacher_start_step`; both heads are tied to the ground truth
+    directly and through the autoencoder. The 2D batch's manifold and
+    teacher terms count half. With `stop_gradient_latent` the teacher's
+    latents are detached."""
+    w_dec, w_enc = recombination_weights, encoder_weights
+    w_rec = torch.matmul(w_enc.float(), w_dec.float())
+    sg = (lambda x: x.detach()) if tcfg.stop_gradient_latent else (lambda x: x)
+    losses = {}
+
+    def loss3d(pred, true, intrinsics, mask=None):
+        return compute_loss_with_3d_gt(pred, true, intrinsics, mask, cfg=cfg, tcfg=tcfg,
+                                       step=step)
+
+    def loss_vs_reconstr(pred):
+        return torch.mean(torch.abs(pred - linear_combine_points(pred, w_rec))) / 1000.0
+
+    true3d, intr3d, mask3d = (batch3d['coords3d_true'], batch3d['intrinsics'],
+                              batch3d.get('joint_validity_mask'))
+    losses['loss_allhead_vs_gt'] = loss3d(preds_abs, true3d, intr3d, mask3d)
+    losses['loss_latentheadreconstruction_vs_gt'] = loss3d(
+        linear_combine_points(preds_abs_latent, w_dec), true3d, intr3d, mask3d)
+    losses['loss_allhead_vs_reconstr'] = loss_vs_reconstr(preds_abs)
+    losses['loss_allhead_ae_vs_gt'] = loss3d(linear_combine_points(preds_abs, w_rec), true3d,
+                                             intr3d, mask3d)
+    losses['loss_latenthead_vs_latents_from_allhead'] = loss3d(
+        preds_abs_latent, linear_combine_points(sg(preds_abs), w_enc), intr3d)
+
+    teacher_factor = tcfg.teacher_loss_factor if step > tcfg.teacher_start_step else 0.0
+    losses['loss_3dbatch'] = (
+        losses['loss_allhead_vs_gt']
+        + losses['loss_latentheadreconstruction_vs_gt']
+        + tcfg.allhead_aegt_loss_factor * losses['loss_allhead_ae_vs_gt']
+        + tcfg.loss_manif_factor * losses['loss_allhead_vs_reconstr']
+        + teacher_factor * losses['loss_latenthead_vs_latents_from_allhead'])
+
+    def loss2d(pred):
+        return compute_loss_with_2d_gt(pred, batch2d['coords2d_true'], batch2d['intrinsics'],
+                                       batch2d['joint_validity_mask'], index_groups, cfg=cfg)
+
+    losses['loss_allhead_vs_gt_2dbatch'] = loss2d(preds_abs_2d)
+    losses['loss_latentheadreconstruction_vs_gt_2dbatch'] = loss2d(
+        linear_combine_points(preds_abs_2d_latent, w_dec))
+    losses['loss_allhead_vs_reconstr_2dbatch'] = loss_vs_reconstr(preds_abs_2d)
+    losses['loss_allhead_ae_vs_gt_2dbatch'] = loss2d(linear_combine_points(preds_abs_2d, w_rec))
+    losses['loss_latenthead_vs_latents_from_allhead_2dbatch'] = loss3d(
+        preds_abs_2d_latent, linear_combine_points(sg(preds_abs_2d), w_enc),
+        batch2d['intrinsics'])
+
+    losses['loss_2dbatch'] = (
+        losses['loss_allhead_vs_gt_2dbatch']
+        + losses['loss_latentheadreconstruction_vs_gt_2dbatch']
+        + tcfg.allhead_aegt_loss_factor * losses['loss_allhead_ae_vs_gt_2dbatch']
+        + 0.5 * (tcfg.loss_manif_factor * tcfg.loss_manif_factor2d
+                 * losses['loss_allhead_vs_reconstr_2dbatch'])
+        + 0.5 * teacher_factor * losses['loss_latenthead_vs_latents_from_allhead_2dbatch'])
+    losses['loss'] = losses['loss_3dbatch'] + tcfg.loss2d_factor * losses['loss_2dbatch']
+    return losses
+
+
 def compute_losses(preds_abs: torch.Tensor, preds_abs_2d: torch.Tensor, batch3d: Dict,
                    batch2d: Dict, index_groups: Sequence[Sequence[int]], *,
-                   cfg: ModelConfig, tcfg: TrainConfig, step: int) -> Dict[str, torch.Tensor]:
+                   cfg: ModelConfig, tcfg: TrainConfig, step: int,
+                   reconstruction_weights: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
     """loss_3dbatch, loss_2dbatch and loss = loss_3dbatch + loss2d_factor *
-    loss_2dbatch."""
+    loss_2dbatch. With `regularize_to_manifold`, also each batch's distance
+    to its autoencoder reconstruction through `reconstruction_weights`
+    [J, J] (`w_enc @ w_dec`), weighted by `loss_manif_factor` (and
+    `loss_manif_factor2d` on the 2D batch)."""
     losses = {}
     losses['loss_3dbatch'] = compute_loss_with_3d_gt(
         preds_abs, batch3d['coords3d_true'], batch3d['intrinsics'],
@@ -139,4 +220,16 @@ def compute_losses(preds_abs: torch.Tensor, preds_abs_2d: torch.Tensor, batch3d:
         preds_abs_2d, batch2d['coords2d_true'], batch2d['intrinsics'],
         batch2d['joint_validity_mask'], index_groups, cfg=cfg)
     losses['loss'] = losses['loss_3dbatch'] + tcfg.loss2d_factor * losses['loss_2dbatch']
+    if tcfg.regularize_to_manifold:
+        if reconstruction_weights is None:
+            raise ValueError('regularize_to_manifold requires autoencoder weights')
+        for key, pred in (('loss_pred_vs_reconstr', preds_abs),
+                          ('loss_pred_vs_reconstr_2dbatch', preds_abs_2d)):
+            losses[key] = torch.mean(torch.abs(
+                pred - linear_combine_points(pred, reconstruction_weights))) / 1000.0
+        losses['loss'] = (
+            losses['loss_3dbatch'] + tcfg.loss_manif_factor * losses['loss_pred_vs_reconstr']
+            + tcfg.loss2d_factor * losses['loss_2dbatch']
+            + (tcfg.loss2d_factor * tcfg.loss_manif_factor * tcfg.loss_manif_factor2d
+               * losses['loss_pred_vs_reconstr_2dbatch']))
     return losses

@@ -208,12 +208,12 @@ def test_linear_combine_points_matches_jax():
 @pytest.mark.parametrize('model_class,latent_mode', [('metro', ''), ('model25d', ''),
                                                       ('metrabs', 'transform_coords')])
 def test_train_step_refuses_other_crop_models(model_class, latent_mode):
-    """Their train steps are not ported: the plain Metrabs step raises
-    rather than running them untested."""
+    """The Metrabs step refuses Metro and Model25D (they have steps of their
+    own) and a latent model without the autoencoder's weights, as JAX's
+    does, rather than running them wrongly."""
     _, _, model = models(model_class, latent_mode)
     tcfg = TrainConfig()
     optimizer = optim.Optimizer(tcfg)
-    state = loop.TrainState(0, model, optimizer.init({}), {})
-    step = loop.make_train_step(optimizer, H36M_17, LSP_14, model.cfg, tcfg)
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        step(state, {}, {})
+    match = 'autoencoder weights' if latent_mode else 'make_train_step_' + model_class
+    with pytest.raises(ValueError, match=match):
+        loop.make_train_step(model, optimizer, H36M_17, LSP_14, model.cfg, tcfg)

@@ -1,12 +1,15 @@
 """The port stands alone: `metrabs_tpu_torch` and `chip_smoke.py` import
 nothing of jax, flax, optax, orbax, msgpack, ml_dtypes or the JAX package
-`metrabs_tpu`, its
+`metrabs_tpu`, and no module imports cv2 when it is imported (the card's
+machine has none), its
 entry points run on the card unless the caller names another device, and
 its copies of the JAX package's framework-free modules (config with the
 training hyperparameters, joint info, TTA schedules, skeletons, bone
 priors, the host data pipeline, the registry of released models, the TF
-checkpoint reader and writer) agree with the originals. Also F1's
-regression test: a train-mode MBConv never runs the fused chain.
+checkpoint reader and writer, the bone-length statistics, the RLE mask
+codec and mask IoU, the evaluation's association and its numpy metrics)
+agree with the originals. Also F1's regression test: a train-mode MBConv
+never runs the fused chain.
 """
 
 import ast
@@ -29,6 +32,7 @@ from metrabs_tpu.pipeline import skeletons as jax_skeletons
 from metrabs_tpu.pipeline import tta as jax_tta
 from metrabs_tpu_torch import config
 from metrabs_tpu_torch.data import pipeline as data
+from metrabs_tpu_torch.eval import harness, metrics
 from metrabs_tpu_torch.io import packaging
 from metrabs_tpu_torch.models import registry
 from metrabs_tpu_torch.pipeline import bone_priors, skeletons, tta
@@ -55,6 +59,20 @@ def test_port_file_imports_nothing_of_jax(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)
     bad = [m for m in imported_modules(tree) if m.split('.')[0] in FORBIDDEN]
     assert not bad, f'{path} imports {bad}'
+
+
+@pytest.mark.parametrize('path', PORT_FILES)
+def test_port_file_imports_no_cv2_at_module_level(path):
+    """The import statements that run on import (not those inside functions)
+    import no cv2: the card's machine has none."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    in_functions = {id(n) for fn in ast.walk(tree)
+                    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for n in ast.walk(fn)}
+    on_import = ast.Module(body=[n for n in ast.walk(tree) if id(n) not in in_functions
+                                 and isinstance(n, (ast.Import, ast.ImportFrom))],
+                           type_ignores=[])
+    assert 'cv2' not in {m.split('.')[0] for m in imported_modules(on_import)}, path
 
 
 _STANDALONE_SCRIPT = """
@@ -99,7 +117,7 @@ cfg = ModelConfig(proc_side=64, backbone='tiny', dtype='float32')
 optimizer = optim.Optimizer(tcfg)
 state = loop.create_train_state(Metrabs(cfg, TinyBackbone(width=8, use_bn=True)), optimizer,
                                 device='cpu')
-step = loop.make_train_step(optimizer, H36M_17, LSP_14, cfg, tcfg)
+step = loop.make_train_step(state.model, optimizer, H36M_17, LSP_14, cfg, tcfg)
 k = np.tile(np.float32([[60, 0, 32], [0, 60, 32], [0, 0, 1]]), (2, 1, 1))
 g = np.random.default_rng(0)
 b3 = dict(image=g.uniform(size=(2, 64, 64, 3)).astype(np.float32), intrinsics=k,
@@ -110,6 +128,16 @@ b2 = dict(image=g.uniform(size=(2, 64, 64, 3)).astype(np.float32), intrinsics=k,
           joint_validity_mask=np.ones((2, 14), bool))
 losses = step(state, b3, b2, generator=torch.Generator().manual_seed(0))
 assert state.step == 1 and bool(losses['loss'].isfinite())
+from metrabs_tpu_torch.eval.metrics import compute_pose3d_metrics
+from metrabs_tpu_torch.models.metro import Metro
+optimizer = optim.Optimizer(tcfg)
+metro = Metro(cfg, TinyBackbone(width=8, use_bn=True))
+state = loop.create_train_state(metro, optimizer, device='cpu')
+losses = loop.make_train_step_metro(metro, optimizer, H36M_17, LSP_14, cfg, tcfg)(state, b3, b2)
+assert bool(losses['loss'].isfinite())
+m = compute_pose3d_metrics(b3['coords3d_true'], b3['coords3d_true'], b3['joint_validity_mask'],
+                           device='cpu')
+assert float(m['mean_error_procrustes']) < 1e-3 and float(m['mean_pck']) == 1.0
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 assert not leaked, leaked
 print('STANDALONE_OK')
@@ -119,9 +147,10 @@ print('STANDALONE_OK')
 def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     """Every module of the port and chip_smoke's helpers, then a small CPU
     `estimate_poses_batched` and `estimate_poses_stream` on weights minted
-    with torch alone, those weights through a TF checkpoint and back, and
-    one CPU train step, in a process that never loads jax, flax, optax,
-    msgpack, ml_dtypes or `metrabs_tpu`."""
+    with torch alone, those weights through a TF checkpoint and back, one
+    CPU train step of Metrabs and one of Metro, and the eval metrics, in a
+    process that never loads jax, flax, optax, msgpack, ml_dtypes or
+    `metrabs_tpu`."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN))
     proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ckpt')], cwd=REPO,
@@ -143,13 +172,20 @@ def no_cuda(monkeypatch):
                                    'create_train_state', 'device_prefetch',
                                    'model25d_from_variables', 'metro_from_variables',
                                    'yolov8_from_variables', 'estimate_poses_stream',
-                                   'detect_poses_stream', 'detect_poses_pipelined'])
+                                   'detect_poses_stream', 'detect_poses_pipelined',
+                                   'compute_pose3d_metrics', 'evaluate_predictions'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     families = dict(model_config={}, model_class='model25d', detector_type='yolov8m')
     default_estimator = lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
                                               config.ModelConfig())
     frames = np.zeros((1, 1, 64, 64, 3), np.uint8)
+    poses = np.zeros((2, 17, 3), np.float32)
     calls = dict(
+        compute_pose3d_metrics=lambda: metrics.compute_pose3d_metrics(
+            poses, poses, np.ones((2, 17), bool)),
+        evaluate_predictions=lambda: harness.evaluate_predictions(dict(
+            poses3d_pred_cam=poses, poses3d_true_cam=poses,
+            joint_validity_mask=np.ones((2, 17), bool))),
         estimate_poses_stream=lambda: default_estimator().estimate_poses_stream(
             frames, np.zeros((1, 1, 1, 4))),
         detect_poses_stream=lambda: default_estimator().detect_poses_stream(frames),
@@ -334,3 +370,76 @@ def test_f1_train_mode_mbconv_takes_the_unfused_chain(monkeypatch):
     block.train()(x).square().sum().backward()
     for name, p in block.named_parameters():
         assert p.grad is not None and p.grad.abs().max() > 0, name
+
+
+def _copies_rlemask(rng):
+    from metrabs_tpu.utils import rlemask as theirs
+    from metrabs_tpu_torch.utils import rlemask as ours
+    for shape in ((13, 7), (1, 40), (0, 3)):
+        mask = (rng.uniform(size=shape) > 0.6).astype(np.uint8)
+        rle = ours.encode(mask)
+        assert rle == theirs.encode(mask)
+        np.testing.assert_array_equal(ours.decode(rle), theirs.decode(rle))
+        assert ours.area(rle) == theirs.area(rle) == int(mask.sum())
+        counts = ours._decode_counts(rle['counts'])
+        assert counts == theirs._decode_counts(rle['counts'])
+        assert ours._encode_counts(counts) == theirs._encode_counts(counts)
+
+
+def _copies_mask_iou(rng):
+    from metrabs_tpu.data.masks import mask_iou as theirs
+    from metrabs_tpu_torch.data.masks import mask_iou as ours
+    a, b = rng.uniform(size=(2, 9, 11)) > 0.5
+    for m1, m2 in ((a, b), (a, a), (np.zeros((3, 3)), np.zeros((3, 3)))):
+        assert ours(m1, m2) == theirs(m1, m2)
+
+
+def _copies_bone_length_stats(rng):
+    from metrabs_tpu.pipeline.plausibility import BoneLengthStats as Theirs
+    from metrabs_tpu_torch.pipeline.plausibility import BoneLengthStats as Ours
+    ours, theirs = Ours(skeletons.H36M_17.edges), Theirs(skeletons.H36M_17.edges)
+    for _ in range(2):
+        coords, valid = rng.normal(0, 300, (5, 17, 3)), rng.random((5, 17)) < 0.7
+        ours.update(coords, valid)
+        theirs.update(coords, valid)
+    np.testing.assert_array_equal(ours.mean_lengths(), theirs.mean_lengths())
+    assert ours.n_samples == theirs.n_samples
+
+
+def _copies_association(rng):
+    from metrabs_tpu.eval import association as theirs
+    from metrabs_tpu.pipeline import skeletons as jax_skeletons
+    from metrabs_tpu_torch.eval import association as ours
+    assert ours.ASSOC_JOINTS == theirs.ASSOC_JOINTS
+    pred = rng.normal(size=(2, 17, 2)) * 30 + [[[100, 100]], [[400, 300]]]
+    true = np.concatenate([rng.normal(size=(2, 19, 2)) * 30 + [[[400, 300]], [[100, 100]]],
+                           rng.uniform(0, 1, (2, 19, 1))], -1)
+    poses3d, prev = rng.normal(size=(2, 17, 3)), np.zeros((2, 17, 2))
+    got = ours.associate_predictions(poses3d, pred, true, prev, skeletons.H36M_17,
+                                     skeletons.COCO_19)
+    want = theirs.associate_predictions(poses3d, pred, true, prev, jax_skeletons.H36M_17,
+                                        jax_skeletons.COCO_19)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _copies_harness(rng):
+    from metrabs_tpu.eval import harness as theirs
+    from metrabs_tpu_torch.eval import harness as ours
+    assert ours.JOINT_SUBSETS == theirs.JOINT_SUBSETS
+    assert ({k: dataclasses.astuple(v) for k, v in ours.BENCHMARK_PROTOCOLS.items()}
+            == {k: dataclasses.astuple(v) for k, v in theirs.BENCHMARK_PROTOCOLS.items()})
+    gts = [rng.normal(0, 300, (k, 17, 3)) for k in (2, 1, 0)]
+    preds = [g + rng.normal(0, 80, g.shape) for g in gts]
+    for kwargs in ({}, dict(root_index=0, eval_joints=[1, 4, 7])):
+        assert (ours.matched_pose_metrics(preds, gts, **kwargs)
+                == theirs.matched_pose_metrics(preds, gts, **kwargs))
+
+
+@pytest.mark.parametrize('check', [_copies_rlemask, _copies_mask_iou, _copies_bone_length_stats,
+                                   _copies_association, _copies_harness],
+                         ids=['rlemask', 'mask_iou', 'bone_length_stats', 'association', 'harness'])
+def test_numpy_copies_match_jax(check):
+    """The port's copies of the JAX package's numpy code give the originals'
+    results on the same random inputs."""
+    check(np.random.default_rng(0))

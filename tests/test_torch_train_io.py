@@ -38,8 +38,9 @@ from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 
-def port_step_fn(cfg, tcfg, optimizer):
-    return loop.make_train_step(optimizer, skeletons.H36M_17, skeletons.LSP_14, cfg, tcfg)
+def port_step_fn(model, cfg, tcfg, optimizer):
+    return loop.make_train_step(model, optimizer, skeletons.H36M_17, skeletons.LSP_14, cfg,
+                                tcfg)
 
 
 def trained_state(seed=0, n_steps=1):
@@ -53,7 +54,7 @@ def trained_state(seed=0, n_steps=1):
     model.load_state_dict(weights.crop_model_state_dict_from_flax(variables, cfg))
     optimizer = optim.Optimizer(tcfg)
     state = loop.create_train_state(model, optimizer, device='cpu')
-    step = port_step_fn(cfg, tcfg, optimizer)
+    step = port_step_fn(model, cfg, tcfg, optimizer)
     rng = np.random.default_rng(seed)
     for i in range(n_steps):
         step(state, *tt.make_batches(rng, 2, 2), generator=torch.Generator().manual_seed(i))
@@ -115,7 +116,7 @@ def tiny_state(seed):
 
 def test_checkpoint_resumes_to_the_same_next_step(tmp_path):
     cfg, tcfg, optimizer, state = tiny_state(0)
-    step = port_step_fn(cfg, tcfg, optimizer)
+    step = port_step_fn(state.model, cfg, tcfg, optimizer)
     rng = np.random.default_rng(0)
     manager = checkpoints.CheckpointManager(str(tmp_path / 'ckpt'), save_interval_steps=2)
     saved = []
@@ -129,8 +130,8 @@ def test_checkpoint_resumes_to_the_same_next_step(tmp_path):
     _, _, optimizer2, fresh = tiny_state(1)
     restored, at = checkpoints.restore_train_state(str(tmp_path / 'ckpt'), fresh)
     assert restored is fresh and at == 4 == fresh.step
-    got = port_step_fn(cfg, tcfg, optimizer2)(fresh, *batches,
-                                              generator=torch.Generator().manual_seed(9))
+    got = port_step_fn(fresh.model, cfg, tcfg, optimizer2)(
+        fresh, *batches, generator=torch.Generator().manual_seed(9))
     assert all(torch.equal(got[k], want[k]) for k in want)
     for (n, p), (_, q) in zip(state.model.state_dict().items(), fresh.model.state_dict().items()):
         assert torch.equal(p, q), n

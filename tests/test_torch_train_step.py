@@ -38,8 +38,8 @@ def run_both(backbone: str, *, ghost_splits=1, bn_inference=False, n_steps=1, se
     jax_step = jax.jit(jax_loop.make_train_step(model, tx, H36M_17, LSP_14, cfg, tcfg,
                                                 bn_inference=bn_inference))
     pcfg, ptcfg = tt.port_cfgs(cfg, tcfg)
-    port_step = loop.make_train_step(optimizer, skeletons.H36M_17, skeletons.LSP_14, pcfg,
-                                     ptcfg, bn_inference=bn_inference)
+    port_step = loop.make_train_step(pstate.model, optimizer, skeletons.H36M_17,
+                                     skeletons.LSP_14, pcfg, ptcfg, bn_inference=bn_inference)
     rng = np.random.default_rng(seed + 1)
     jax_states, jax_losses, port_losses = [state], [], []
     first_grads = None
@@ -62,7 +62,9 @@ def adam_state(opt_state):
     return inner[0]
 
 
-def check_step(jax_states, jax_losses, pstate, port_losses, first_grads, tcfg):
+def check_step(jax_states, jax_losses, pstate, port_losses, first_grads, tcfg,
+               exact_zero=None):
+    """`exact_zero`: `tt.assert_params_moved_alike`'s."""
     for want, got in zip(jax_losses, port_losses):
         assert want.keys() == got.keys()
         for k in want:
@@ -86,7 +88,7 @@ def check_step(jax_states, jax_losses, pstate, port_losses, first_grads, tcfg):
     port_params, jax_params = tt.flat_port(pstate.params()), tt.flat_jax_params(final.params)
     tt.assert_ema_close(tt.flat_port(pstate.ema_params), tt.flat_jax_params(final.ema_params),
                         port_params, jax_params, tcfg.ema_momentum)
-    tt.assert_params_moved_alike(port_params, jax_params, lr)
+    tt.assert_params_moved_alike(port_params, jax_params, lr, exact_zero)
     assert pstate.step == int(final.step)
 
 
