@@ -76,6 +76,22 @@ line:
     `load_pose_estimator` with K1 once per non-empty chunk (Metro: refused
     there, as in JAX), and FAMILY_FUSED_SERVE also unfolded with
     `fuse_mbconv='on'` (K2 28 times per chunk, v equal to the plain chain's);
+ 6c. train_app: the training app (`apps.train.main`) on a dataset minted
+    under runs/ with the port's own classes and PNG writer (64 Example3D on
+    1000x1000 frames with Human3.6M's cameras, half with lens distortion,
+    half with foreground masks; 64 Example2D, some without a camera; 32
+    held out): first `ParallelBatchLoader` alone over each stream
+    (examples/s with every augmentation), then `main` at EffNetV2-S@256,
+    bf16, 32 + 32, the default LoadConfig (every augmentation, synthetic
+    occluders and backgrounds), 24 steps with log period 4, checkpoint
+    period 8 and validation through `predict_dataset` every 12 steps, and
+    again to 28 steps. Checks finite losses and validation metrics, the
+    newest two checkpoints kept, the resumed run restoring step 24 and
+    taking 4 steps, no K1 or K2 launch in the app, finite positive bone
+    means in the exported manifest, and the package served as [train]
+    serves its own (folded: K1 per chunk; fused: K2 28 times per chunk, v
+    exact). Prints the loader's examples/s, the app's median step time and
+    images/s, and [train]'s repeated-batch step time of the same run;
  7. families: the other model families, weights minted from a seed:
     (a) `detect_poses_batched` of ResNet-50@256 (metrabs_rn50_y4's crop
     model) in bf16 with BN folded by the loader's default, plus a minted
@@ -801,7 +817,8 @@ def train_steps(state, step, tcfg, dev, name: str, n_warmup: int, n_timed: int,
 
 def train_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     """The [train] phase (module docstring). Returns the K1 and K2 launches
-    of the serving run after training. The trained package stays at
+    of the serving run after training and the median step time. The trained
+    package stays at
     TRAINED_PACKAGE under `root` for [train_families]; the caller deletes
     it."""
     from metrabs_tpu_torch.config import AugConfig, ModelConfig, TrainConfig
@@ -840,7 +857,7 @@ def train_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
                    f'fuse_mbconv on K1 {k1_fused}, K2 {k2}, K2 v vs plain on the trained '
                    f'weights {err_v:.3g} on the first chunk\'s input to each of the '
                    f'{n_blocks} blocks; poses finite')
-    return dict(k1=k1_fused, k2=k2)
+    return dict(k1=k1_fused, k2=k2, step_s=run['step_s'])
 
 
 def serve_folded(package: Path, dev, frames, boxes, box_valid, name: str):
@@ -1427,6 +1444,230 @@ def train_families_phase(root: Path, dev, frames, boxes, box_valid, source_packa
     return launches
 
 
+# The [train_app] phase: `apps.train.main` on a dataset minted under runs/.
+TRAIN_APP_DIR = 'runs/chip_smoke_train_app'
+TRAIN_APP_EXAMPLES = (64, 64, 32)  # 3D, 2D and held-out 3D examples
+TRAIN_APP_FRAMES = 16  # distinct 1000x1000 PNG frames the examples are cut from
+TRAIN_APP_FRAME_SIDE = 1000  # Human3.6M's frames are 1000x1000 (1002 rows for some cameras)
+TRAIN_APP_STEPS, TRAIN_APP_RESUMED_STEPS = 24, 28
+TRAIN_APP_PERIODS = dict(log=4, checkpoint=8, validate=12)
+TRAIN_APP_LOADER_BATCHES = 3  # batches of 32 per stream in the loader-alone measurement
+
+
+def mint_train_app_dataset(work: Path) -> dict:
+    """Example pickles of the port's own classes over PNG frames written by
+    the port's PNG writer (smooth random content, 1000x1000): 64
+    `Example3D` (cameras of Human3.6M's intrinsics, every other one with its
+    lens distortion, every other one with a foreground mask, so that the
+    background augmentation runs), 64 `Example2D` (every fourth without a
+    camera) and 32 held-out `Example3D`; people of 17 joints 3-6 m from
+    the camera, their boxes from the projected joints. Returns the paths."""
+    import pickle
+
+    from metrabs_tpu_torch.data import cvfree
+    from metrabs_tpu_torch.data.camera import Camera
+    from metrabs_tpu_torch.data.loading import Example2D, Example3D
+
+    rng = np.random.default_rng(SEED + 11)
+    side = TRAIN_APP_FRAME_SIDE
+    frame_paths = []
+    (work / 'frames').mkdir(parents=True)
+    for i in range(TRAIN_APP_FRAMES):
+        coarse = rng.integers(0, 256, (12, 12, 3), dtype=np.uint8)
+        frame = cvfree.resize(coarse, (side, side), cvfree.INTER_LINEAR)
+        frame = np.clip(frame + rng.integers(-6, 7, frame.shape), 0, 255).astype(np.uint8)
+        frame_paths.append(str(work / 'frames' / f'{i}.png'))
+        cvfree.write_png(frame_paths[-1], frame)
+    # A camera looking along the world's +y axis, z up, tilted down a little.
+    tilt = np.deg2rad(10)
+    rot = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32) @ np.array(
+        [[1, 0, 0], [0, np.cos(tilt), -np.sin(tilt)], [0, np.sin(tilt), np.cos(tilt)]],
+        np.float32)
+    intrinsics = np.array([[1145.0, 0, 512.5], [0, 1143.8, 515.5], [0, 0, 1]], np.float32)
+    distortion = np.array([-0.207, 0.248, -0.0009, -0.0014, -0.0031], np.float32)
+
+    def camera(i):
+        return Camera(optical_center=np.array([0, -4500, 1600], np.float32),
+                      rot_world_to_cam=rot, intrinsic_matrix=intrinsics,
+                      distortion_coeffs=distortion if i % 2 else None, world_up=(0, 0, 1))
+
+    def person(i, cam):
+        root = np.array([rng.uniform(-600, 600), rng.uniform(-400, 400),
+                         rng.uniform(3000, 6000)], np.float32)
+        in_cam = (root + rng.normal(0, 250, (17, 3))).astype(np.float32)
+        world = cam.camera_to_world(in_cam).astype(np.float32)
+        image_points = cam.world_to_image(world)
+        (x0, y0), (x1, y1) = image_points.min(0) - 40, image_points.max(0) + 40
+        return world, image_points, np.array([x0, y0, x1 - x0, y1 - y0], np.float32)
+
+    def example3d(i):
+        cam = camera(i)
+        world, _, box = person(i, cam)
+        mask = None
+        if i % 4 < 2:
+            mask = np.zeros((side, side), bool)
+            x, y, w, h = np.clip(np.round(box), 0, side).astype(int)
+            mask[y:y + h, x + w // 4:x + 3 * w // 4] = True
+        return Example3D(image_path=frame_paths[i % TRAIN_APP_FRAMES], camera=cam, bbox=box,
+                         world_coords=world, mask=mask)
+
+    def example2d(i):
+        cam = camera(i)
+        _, image_points, box = person(i, cam)
+        return Example2D(image_path=frame_paths[i % TRAIN_APP_FRAMES], bbox=box,
+                         coords=image_points[:14].astype(np.float32),
+                         camera=cam if i % 4 else None)
+
+    n3, n2, n_val = TRAIN_APP_EXAMPLES
+    paths = {}
+    for name, examples in (('ds3d', [example3d(i) for i in range(n3)]),
+                           ('ds2d', [example2d(i) for i in range(n2)]),
+                           ('val', [example3d(n3 + i) for i in range(n_val)])):
+        paths[name] = str(work / f'{name}.pkl')
+        with open(paths[name], 'wb') as f:
+            pickle.dump(examples, f)
+    return paths
+
+
+def loader_examples_per_s(paths: dict, workers: int) -> dict:
+    """Examples per second of `ParallelBatchLoader` alone (the app's load
+    functions, EffNetV2-S@256's config, every augmentation, `workers`
+    threads), for the 3D and the 2D stream: TRAIN_APP_LOADER_BATCHES batches
+    of 32 after one."""
+    import itertools
+
+    from metrabs_tpu_torch.config import ModelConfig
+    from metrabs_tpu_torch.data.loading import (LoadConfig, load_and_transform2d,
+                                                load_and_transform3d, load_examples)
+    from metrabs_tpu_torch.data.pipeline import ParallelBatchLoader
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17, LSP_14
+
+    cfg = ModelConfig(proc_side=PROC_SIDE)
+    out = {}
+    for name, load, joints in (('3d', load_and_transform3d, H36M_17),
+                               ('2d', load_and_transform2d, LSP_14)):
+        examples = load_examples(paths[f'ds{name}'])
+        loader = ParallelBatchLoader(lambda ex, r: load(ex, joints, True, r, cfg, LoadConfig()),
+                                     itertools.cycle(examples), 32, n_workers=workers, seed=SEED)
+        try:
+            next(loader)
+            start = time.perf_counter()
+            for _ in range(TRAIN_APP_LOADER_BATCHES):
+                batch = next(loader)
+            out[name] = 32 * TRAIN_APP_LOADER_BATCHES / (time.perf_counter() - start)
+        finally:
+            loader.close()
+        if batch['image'].shape != (32, PROC_SIDE, PROC_SIDE, 3) or not np.isfinite(
+                batch['image']).all():
+            fail('train_app', f'the {name} loader gave {batch["image"].shape} images')
+    return out
+
+
+def train_app_phase(root: Path, dev, frames, boxes, box_valid, repeated_step_s: float) -> dict:
+    """The [train_app] phase (module docstring). Returns the K1 and K2
+    launches of the app's run and of serving its package."""
+    import contextlib
+    import io
+
+    from metrabs_tpu_torch.apps import train as train_app
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+
+    name = 'train_app'
+    work = root / TRAIN_APP_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        start = time.perf_counter()
+        paths = mint_train_app_dataset(work)
+        mint_s = time.perf_counter() - start
+        workers = train_app.parse_args(['--ds3d', '', '--ds2d', '', '--checkpoint-dir', '']).workers
+        loader_rate = loader_examples_per_s(paths, workers)
+        ckpt, package = work / 'checkpoints', work / 'package'
+        argv = ['--ds3d', paths['ds3d'], '--ds2d', paths['ds2d'], '--ds3d-val', paths['val'],
+                '--checkpoint-dir', str(ckpt), '--export-dir', str(package),
+                '--backbone', 'efficientnetv2-s', '--proc-side', str(PROC_SIDE),
+                '--dtype', 'bfloat16', '--batch-size', '32', '--batch-size-2d', '32',
+                '--log-period', str(TRAIN_APP_PERIODS['log']),
+                '--checkpoint-period', str(TRAIN_APP_PERIODS['checkpoint']),
+                '--validate-period', str(TRAIN_APP_PERIODS['validate']),
+                '--absloss-start-step', str(TRAIN_APP_PERIODS['validate'])]
+        runs = []
+        torch.cuda.reset_peak_memory_stats()
+        for steps in (TRAIN_APP_STEPS, TRAIN_APP_RESUMED_STEPS):
+            out = io.StringIO()
+            warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                train_app.main(argv + ['--training-steps', str(steps)])
+            torch.cuda.synchronize()
+            runs.append(dict(seconds=time.perf_counter() - start, stdout=out.getvalue(),
+                             checkpoints=sorted(int(p.stem) for p in ckpt.glob('*.pt')),
+                             launches=(warp_cuda.warp_pyramid.launches,
+                                       mbconv_cuda.fused_mbconv_inner.launches)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        log = [json.loads(line) for line in (ckpt / 'train_log.jsonl').read_text().splitlines()]
+        losses = [r for r in log if 'loss' in r]
+        vals = [r for r in log if 'val_mean_error' in r]
+        period = TRAIN_APP_PERIODS['log']
+        want_steps = list(range(period, TRAIN_APP_RESUMED_STEPS + 1, period))
+        if [r['step'] for r in losses] != want_steps or not all(
+                math.isfinite(r['loss']) for r in losses):
+            fail(name, f'loss records {losses}, expected finite ones at steps {want_steps}')
+        if [r['step'] for r in vals] != [12, 24] or not all(
+                math.isfinite(v) for r in vals for k, v in r.items() if k.startswith('val_')):
+            fail(name, f'validation records {vals}, expected finite ones at steps 12 and 24')
+        if runs[0]['checkpoints'] != [16, 24] or runs[1]['checkpoints'] != [24, 28]:
+            fail(name, f'checkpoints {runs[0]["checkpoints"]} after the first run and '
+                       f'{runs[1]["checkpoints"]} after the second, expected [16, 24], [24, 28]')
+        resumed = torch.load(ckpt / '28.pt', map_location='cpu', weights_only=True)['step']
+        if (f'restored checkpoint at step {TRAIN_APP_STEPS}' not in runs[1]['stdout']
+                or resumed != TRAIN_APP_RESUMED_STEPS
+                or [r['step'] for r in losses if r['step'] > TRAIN_APP_STEPS] != [28]):
+            fail(name, f'the second run did not restore step {TRAIN_APP_STEPS} and take '
+                       f'{TRAIN_APP_RESUMED_STEPS - TRAIN_APP_STEPS} steps (checkpoint step '
+                       f'{resumed})')
+        if any(r['launches'] != (0, 0) for r in runs):
+            fail(name, f'the app launched K1 and K2 {[r["launches"] for r in runs]} times')
+        manifest = json.loads((package / 'manifest.json').read_text())
+        means = np.asarray(manifest.get('bone_mean_lengths') or [np.nan], np.float64)
+        if means.shape != (16,) or not (np.isfinite(means).all() and (means > 0).all()):
+            fail(name, f'bone means {means} in the exported manifest')
+        # Windows of log_period steps after the first (which holds the
+        # warm-up), the feed included, validation and checkpoints not.
+        window_s = [period / r['steps_per_sec'] for r in losses[1:]
+                    if r['step'] <= TRAIN_APP_STEPS]
+        step_s = statistics.median(window_s) / period
+        k1_folded = serve_folded(package, dev, frames, boxes, box_valid, name)[1]
+        k1_fused, k2, err_v, n_blocks = serve_fused(package, dev, frames, boxes, box_valid,
+                                                    name)[1:]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_images = 64
+    phase(name, f'dataset minted in {mint_s:.1f} s: {TRAIN_APP_EXAMPLES[0]} Example3D, '
+                f'{TRAIN_APP_EXAMPLES[1]} Example2D, {TRAIN_APP_EXAMPLES[2]} held out, over '
+                f'{TRAIN_APP_FRAMES} {TRAIN_APP_FRAME_SIDE}x{TRAIN_APP_FRAME_SIDE} PNG frames')
+    phase(name, f'loader alone ({workers} threads, every augmentation, {PROC_SIDE} px): '
+                f'3D {loader_rate["3d"]:.1f} examples/s, 2D {loader_rate["2d"]:.1f} examples/s')
+    phase(name, f'apps.train.main EffNetV2-S@{PROC_SIDE} bf16 32+32 through the real loader: '
+                f'{TRAIN_APP_STEPS} steps in {runs[0]["seconds"]:.1f} s, then resumed at step '
+                f'{TRAIN_APP_STEPS} to {TRAIN_APP_RESUMED_STEPS} in {runs[1]["seconds"]:.1f} s; '
+                f'median step {step_s * 1e3:.1f} ms ({n_images / step_s:.1f} images/s) over '
+                f'{len(window_s)} windows of {period} steps (all: '
+                + ', '.join(f'{1e3 * w / period:.1f}' for w in window_s)
+                + f'); [train] repeated batch in this run {repeated_step_s * 1e3:.1f} ms '
+                  f'({n_images / repeated_step_s:.1f} images/s); peak {peak_gb:.2f} GiB; losses '
+                + ', '.join(f'{r["step"]}: {r["loss"]:.4f}' for r in losses)
+                + '; validation ' + '; '.join(
+                    f'step {r["step"]}: MPJPE {r["val_mean_error"]:.1f} mm, PCK '
+                    f'{r["val_mean_pck"]:.3f} in {r["seconds"]:.1f} s' for r in vals))
+    phase(name, f'checkpoints {runs[0]["checkpoints"]} then {runs[1]["checkpoints"]}, the second '
+                f'run restored step {TRAIN_APP_STEPS} and took '
+                f'{TRAIN_APP_RESUMED_STEPS - TRAIN_APP_STEPS} steps; K1 and K2 launches in the '
+                f'app: 0; package bone means {means.min():.1f}-{means.max():.1f} mm; served '
+                f'folded K1 {k1_folded}, unfolded with fuse_mbconv on K1 {k1_fused}, K2 {k2}, '
+                f'K2 v vs plain {err_v:.3g} over {n_blocks} blocks')
+    return {'train_app': (0, 0), 'serve_train_app': (k1_folded + k1_fused, k2)}
+
+
 IMPORT_MODEL = 'metrabs_eff2s_y4'  # EffNetV2-S@256 crop model + YOLOv4-416, both bf16
 IMPORT_K = 2  # frame batches per stream call
 IMPORT_PIPELINED = 3  # frame batches through detect_poses_pipelined
@@ -1937,6 +2178,12 @@ def main() -> None:
         phase('train_families', f'{time.perf_counter() - start:.1f} s')
     finally:
         shutil.rmtree(root / TRAINED_PACKAGE, ignore_errors=True)
+
+    # 6c. The training app on dataset files, then its package served.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(train_app_phase(root, dev, frames, boxes, box_valid, serve['step_s']))
+    phase('train_app', f'{time.perf_counter() - start:.1f} s')
 
     # 7. The other model families.
     torch.cuda.empty_cache()

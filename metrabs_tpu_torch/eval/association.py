@@ -5,8 +5,8 @@ As the reference's 3DPW harness: predictions are matched to annotated
 tracks by Hungarian assignment over a 2D-AUC similarity (falling back to
 temporal consistency with the previous frame's assignment when too few
 annotated joints are confident), or to annotated person masks by the IoU of
-each prediction drawn as a stick figure. Drawing it needs cv2, which
-`pose_to_mask` imports when called.
+each prediction drawn as a stick figure, rasterised as OpenCV would by
+`data.cvfree`.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import scipy.optimize
 
+from metrabs_tpu_torch.data import cvfree
 from metrabs_tpu_torch.data.masks import mask_iou
 from metrabs_tpu_torch.utils.joint_info import JointInfo
 from metrabs_tpu_torch.utils.rlemask import decode as decode_rle
@@ -106,8 +107,8 @@ def pose_to_mask(pose2d: np.ndarray, imshape, joint_info: JointInfo,
     polygon into a [h, w] uint8 mask (`predict_tdpw.py:238-255`). pose2d is
     [J, 2] or [J, 3] (x, y, conf); with confidences, only edges whose both
     endpoints exceed `thresh` draw, and the torso fills only when all four
-    corner joints (lhip/rhip/rsho/lsho) are confident."""
-    import cv2
+    corner joints (lhip/rhip/rsho/lsho) are confident. The lines and the
+    quad are OpenCV's (`cvfree.line`, `cvfree.fill_poly`)."""
     result = np.zeros(imshape[:2], dtype=np.uint8)
     if pose2d.shape[1] == 3:
         is_valid = pose2d[:, 2] > thresh
@@ -119,9 +120,8 @@ def pose_to_mask(pose2d: np.ndarray, imshape, joint_info: JointInfo,
             p2 = pose2d[i2, :2]
             if not (np.all(np.isfinite(p1)) and np.all(np.isfinite(p2))):
                 continue
-            cv2.line(result, tuple(np.round(p1).astype(int)),
-                     tuple(np.round(p2).astype(int)), color=1,
-                     thickness=thickness)
+            cvfree.line(result, np.round(p1).astype(int), np.round(p2).astype(int), 1,
+                        thickness=thickness)
     # Torso fill (`predict_tdpw.py:252-255`): the stick figure alone has far
     # less area than a person, which skews mask IoU; the quad between the hip
     # and (contralateral-ordered) shoulder joints restores the bulk.
@@ -131,7 +131,7 @@ def pose_to_mask(pose2d: np.ndarray, imshape, joint_info: JointInfo,
         torso = [ids[name] for name in torso_names]
         corners = pose2d[torso, :2]
         if np.all(is_valid[torso]) and np.all(np.isfinite(corners)):
-            cv2.fillPoly(result, [np.round(corners).astype(np.int32)], 1)
+            cvfree.fill_poly(result, [np.round(corners).astype(np.int32)], 1)
     return result
 
 

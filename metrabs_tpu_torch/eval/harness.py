@@ -1,23 +1,104 @@
-"""Benchmark evaluation, the metric half (`metrabs_tpu/eval/harness.py`):
-the per-benchmark protocols (3DPW's 14 joints with PCK at 50 mm, H36M,
-3DHP, MuPoTS, 3DOH, ASPset), `evaluate_predictions` over a prediction dump,
-the NPZ and HDF5 dump writers, and the matched multi-person metrics of the
-MuPoTS protocol.
-
-`predict_dataset`, which runs a crop model over a test set to make the dump,
-goes through the data layer (example loading and its image warps) and comes
-with it; it is not here.
+"""Benchmark evaluation (`metrabs_tpu/eval/harness.py`): `predict_dataset`,
+which runs a crop model over a test set's examples to make a prediction
+dump, the per-benchmark protocols (3DPW's 14 joints with PCK at 50 mm, H36M,
+3DHP, MuPoTS, 3DOH, ASPset), `evaluate_predictions` over a dump, the NPZ and
+HDF5 dump writers, and the matched multi-person metrics of the MuPoTS
+protocol.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
+from metrabs_tpu_torch.config import ModelConfig
+from metrabs_tpu_torch.data.loading import Example3D, LoadConfig, load_and_transform3d
+from metrabs_tpu_torch.data.pipeline import ParallelBatchLoader
 from metrabs_tpu_torch.eval import metrics as metrics_mod
+from metrabs_tpu_torch.pipeline.estimator import checked_device
 from metrabs_tpu_torch.utils.joint_info import JointInfo
+
+
+def predict_dataset(
+        crop_model_fn: Callable, examples: Sequence[Example3D],
+        joint_info: JointInfo, cfg: ModelConfig, *, batch_size: int = 64,
+        n_workers: int = 8, test_time_mirror_aug: bool = False,
+        lcfg: Optional[LoadConfig] = None, device='cuda') -> Dict[str, np.ndarray]:
+    """Runs the crop model over a test set; returns stacked predictions in the
+    original camera and world frames (`poses3d_pred_cam`,
+    `poses3d_pred_world`, `poses3d_true_cam`, `joint_validity_mask`, numpy).
+
+    `crop_model_fn(crops [N, S, S, 3] in cfg.dtype, intrinsics [N, 3, 3],
+    valid [N]) -> [N, J, 3]` runs on `device` (a Metrabs or Model25D module
+    is such a function), under `torch.inference_mode`. Every batch has
+    `min(batch_size, len(examples))` rows: the last one is padded with
+    invalid rows (zero images, identity intrinsics), as in JAX. With
+    `test_time_mirror_aug` the mirrored crops' poses are mirrored back (x
+    negated, left and right swapped) and averaged in. `lcfg` defaults to no
+    augmentation at all. Raises without CUDA unless another device is
+    named."""
+    device = checked_device(device)
+    lcfg = lcfg or LoadConfig(
+        geom_aug=False, occlude_aug_prob=0, color_aug=False,
+        background_aug_prob=0, partial_visibility_prob=0)
+
+    def load_fn(ex, rng):
+        return load_and_transform3d(ex, joint_info, False, rng, cfg, lcfg)
+
+    n_total = len(examples)
+    if n_total == 0:
+        raise ValueError('predict_dataset called with an empty example list '
+                         '(did the dataset adapter match any files?)')
+    full_bs = min(batch_size, n_total)
+    loader = ParallelBatchLoader(load_fn, iter(list(examples)), batch_size=full_bs,
+                                 n_workers=n_workers)
+    mirror = torch.as_tensor(joint_info.mirror_mapping, device=device)
+    flip_x = torch.tensor([-1.0, 1.0, 1.0], device=device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def predict_batch(images, intrinsics, valid):
+        crops = images.to(dtype)
+        poses = crop_model_fn(crops, intrinsics, valid).float()
+        if test_time_mirror_aug:
+            flipped = crop_model_fn(crops.flip(2), intrinsics, valid).float()
+            poses = (poses + (flipped * flip_x)[:, mirror]) / 2
+        return poses
+
+    all_preds_cam, all_true_cam, all_valid, all_preds_world = [], [], [], []
+    n_done = 0
+    try:
+        for batch in loader:
+            if n_done >= n_total:
+                break
+            n = len(batch['image'])
+            take = min(n, n_total - n_done)
+            images = torch.zeros((full_bs,) + batch['image'].shape[1:])
+            images[:n] = torch.from_numpy(batch['image'])
+            intrinsics = torch.eye(3).repeat(full_bs, 1, 1)
+            intrinsics[:n] = torch.from_numpy(batch['intrinsics'])
+            valid = torch.arange(full_bs) < n
+            with torch.inference_mode():
+                poses = predict_batch(images.to(device), intrinsics.to(device),
+                                      valid.to(device)).cpu().numpy()
+            for i in range(take):
+                # Crop camera -> original camera / world (`main.py:496-507`).
+                rot_oc = batch['rot_to_orig_cam'][i]
+                all_preds_cam.append(poses[i] @ rot_oc.T)
+                all_preds_world.append(poses[i] @ batch['rot_to_world'][i].T
+                                       + batch['cam_loc'][i])
+                all_true_cam.append(batch['coords3d_true'][i] @ rot_oc.T)
+                all_valid.append(batch['joint_validity_mask'][i])
+            n_done += take
+    finally:
+        loader.close()
+    return dict(
+        poses3d_pred_cam=np.stack(all_preds_cam),
+        poses3d_pred_world=np.stack(all_preds_world),
+        poses3d_true_cam=np.stack(all_true_cam),
+        joint_validity_mask=np.stack(all_valid))
 
 
 @dataclasses.dataclass(frozen=True)

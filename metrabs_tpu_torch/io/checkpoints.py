@@ -251,10 +251,12 @@ class CheckpointManager:
         latest = self.latest_step()
         return (latest is None or step > latest) and step % self.save_interval_steps == 0
 
-    def save(self, step: int, state) -> bool:
-        """Saves `state` (a `train.loop.TrainState`) as step `step` if due;
-        returns whether it did."""
-        if not self.should_save(step):
+    def save(self, step: int, state, force: bool = False) -> bool:
+        """Saves `state` (a `train.loop.TrainState`) as step `step` if due, or
+        with `force` at any step later than the newest (the final save off
+        the interval); returns whether it did."""
+        latest = self.latest_step()
+        if not (self.should_save(step) or force and (latest is None or step > latest)):
             return False
         os.makedirs(self.directory, exist_ok=True)
         tmp = self.path(step) + '.tmp'

@@ -30,6 +30,11 @@ from metrabs_tpu_torch.io import weights
 from metrabs_tpu_torch.models.backbones import common, resnet
 from metrabs_tpu_torch.models.backbones.builder import backbone_supports_bn_fold, build_backbone
 from tests import _torch_port
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+# One intra-op thread: under the suite's parallel workers more threads
+# oversubscribe the cores.
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 SIZE = 64
 

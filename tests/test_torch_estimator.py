@@ -27,6 +27,11 @@ from metrabs_tpu_torch.io.packaging import load_pose_estimator
 from metrabs_tpu_torch.models.backbones.builder import build_backbone
 from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
 from tests import _torch_port
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+# One intra-op thread: under the suite's parallel workers more threads
+# oversubscribe the cores.
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 POSES3D = dict(atol=1.0, rtol=1e-3)
 POSES2D = dict(atol=0.1, rtol=0)
@@ -113,11 +118,26 @@ def compare(got, want, valid, boxes_tol=None, min_depth_2d=None):
         assert np.isfinite(g[mask]).all()
 
 
+@pytest.fixture(scope='module')
+def jax_results(estimators):
+    """JAX's `estimate_poses_batched` of each case on the default frames,
+    run once and shared by the tests that hold the port against it."""
+    frames, boxes, valid = frames_and_boxes()
+    cache = {}
+
+    def result(name):
+        if name not in cache:
+            cache[name] = estimators['gather'].estimate_poses_batched(frames, boxes, valid,
+                                                                      **CASES[name])
+        return cache[name]
+    return result
+
+
 @pytest.mark.parametrize('name', sorted(CASES))
-def test_estimate_poses_batched_matches_jax(estimators, name):
+def test_estimate_poses_batched_matches_jax(estimators, jax_results, name):
     frames, boxes, valid = frames_and_boxes()
     kwargs = CASES[name]
-    want = estimators['gather'].estimate_poses_batched(frames, boxes, valid, **kwargs)
+    want = jax_results(name)
     got = estimators['torch'].estimate_poses_batched(frames, boxes, valid, **kwargs)
     compare(got, want, valid)
     # Input sensitivity: another frame moves the poses far beyond the tolerance.
@@ -126,11 +146,10 @@ def test_estimate_poses_batched_matches_jax(estimators, name):
     assert np.abs(other['poses3d'].numpy() - got['poses3d'].numpy())[valid].max() > 50
 
 
-def test_aug_average_matches_jax(estimators):
+def test_aug_average_matches_jax(estimators, jax_results):
     """average_aug=True is the mean over the aug axis of the per-aug result."""
     frames, boxes, valid = frames_and_boxes()
-    want = estimators['gather'].estimate_poses_batched(frames, boxes, valid,
-                                                       **CASES['aug5_per_aug'])
+    want = jax_results('aug5_per_aug')
     want = {k: (np.asarray(v).mean(axis=-3) if k.startswith('poses') else v)
             for k, v in want.items()}
     got = estimators['torch'].estimate_poses_batched(frames, boxes, valid, num_aug=5)

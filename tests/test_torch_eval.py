@@ -11,7 +11,8 @@
    root-relative) and `eval.harness.evaluate_predictions` (all joints, and
    the 3DPW protocol's 14-joint subset at 50 mm) to METRIC_RTOL;
  - `matched_pose_metrics` and the association functions (keypoint and
-   mask-IoU association, RLE decoding) equal to JAX's;
+   mask-IoU association, RLE decoding) equal to JAX's; `pose_to_mask` draws
+   JAX's cv2 masks without cv2 (F4), at thicknesses 1-8;
  - the prediction dumps (NPZ and HDF5) read back equal.
 """
 
@@ -222,3 +223,21 @@ def test_mask_association_matches_jax():
         np.testing.assert_array_equal(association.decode_rle(m), jax_association.decode_rle(m))
     assert association.associate_predictions_to_masks(
         poses3d, poses2d, (256, 256), [], skeletons.H36M_17).shape == (0, 17, 3)
+
+
+@pytest.mark.parametrize('thickness', range(1, 9))
+def test_pose_to_mask_equals_jax_without_cv2(thickness):
+    """F4: `pose_to_mask` imported cv2. It now draws with `data.cvfree` and
+    gives the cv2-drawn masks of JAX's, for confident and unconfident joints
+    (a torso corner unconfident: no quad) and for poses without
+    confidences."""
+    pytest.importorskip('cv2', reason="JAX's pose_to_mask draws with cv2")
+    rng = np.random.default_rng(thickness)
+    poses = rng.uniform(10, 110, (4, 17, 2))
+    conf = rng.uniform(0, 1, (4, 17, 1))
+    conf[0] = 1.0
+    conf[1, skeletons.H36M_17.ids['lsho']] = 0.1
+    for pose in list(np.concatenate([poses, conf], -1)) + list(poses[:2]):
+        np.testing.assert_array_equal(
+            association.pose_to_mask(pose, (120, 130), skeletons.H36M_17, thickness),
+            jax_association.pose_to_mask(pose, (120, 130), jax_skeletons.H36M_17, thickness))

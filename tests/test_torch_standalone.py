@@ -1,7 +1,7 @@
 """The port stands alone: `metrabs_tpu_torch` and `chip_smoke.py` import
 nothing of jax, flax, optax, orbax, msgpack, ml_dtypes or the JAX package
-`metrabs_tpu`, and no module imports cv2 when it is imported (the card's
-machine has none), its
+`metrabs_tpu`, and no import statement of theirs names cv2, at any level
+(the card's machine has none), its
 entry points run on the card unless the caller names another device, and
 its copies of the JAX package's framework-free modules (config with the
 training hyperparameters, joint info, TTA schedules, skeletons, bone
@@ -75,8 +75,17 @@ def test_port_file_imports_no_cv2_at_module_level(path):
     assert 'cv2' not in {m.split('.')[0] for m in imported_modules(on_import)}, path
 
 
+@pytest.mark.parametrize('path', PORT_FILES)
+def test_port_file_imports_no_cv2(path):
+    """Every import statement, also those inside functions (F4: `pose_to_mask`
+    imported cv2 when called)."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    assert 'cv2' not in {m.split('.')[0] for m in imported_modules(tree)}, path
+
+
 _STANDALONE_SCRIPT = """
 import importlib, pkgutil, sys
+sys.modules['cv2'] = None  # any import of cv2 fails
 import numpy as np
 import torch
 import metrabs_tpu_torch
@@ -138,6 +147,27 @@ assert bool(losses['loss'].isfinite())
 m = compute_pose3d_metrics(b3['coords3d_true'], b3['coords3d_true'], b3['joint_validity_mask'],
                            device='cpu')
 assert float(m['mean_error_procrustes']) < 1e-3 and float(m['mean_pck']) == 1.0
+from metrabs_tpu_torch.data import camera, cvfree, loading
+from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+image = np.random.default_rng(1).integers(0, 256, (90, 120, 3), dtype=np.uint8)
+cvfree.write_png(sys.argv[1] + '.png', image)
+mask = np.zeros((90, 120), np.float32)
+mask[20:80, 40:90] = 1
+cam = camera.Camera(intrinsic_matrix=np.float32([[150, 0, 60], [0, 150, 45], [0, 0, 1]]),
+                    distortion_coeffs=np.float32([-0.1, 0.01, 0, 0, 0]), world_up=(0, -1, 0))
+pose = (np.random.default_rng(2).normal(size=(17, 3)) * 150 + [0, 0, 3000]).astype(np.float32)
+ex = loading.Example3D(image_path=sys.argv[1] + '.png', camera=cam,
+                       bbox=np.float32([30, 10, 60, 75]), world_coords=pose, mask=mask)
+out = loading.load_and_transform3d(ex, H36M_17, True, np.random.default_rng(0),
+                                   config.ModelConfig(proc_side=64),
+                                   loading.LoadConfig(background_aug_prob=1.0))
+assert out['image'].shape == (64, 64, 3) and bool(np.isfinite(out['image']).all())
+from metrabs_tpu_torch.eval.association import associate_predictions_to_masks, pose_to_mask
+poses2d = np.random.default_rng(3).uniform(10, 110, (2, 17, 2))
+masks = [pose_to_mask(p, (120, 120), H36M_17, 8) for p in poses2d]
+matched = associate_predictions_to_masks(pose[None].repeat(2, 0) + [[[0, 0, 0]], [[1, 0, 0]]],
+                                         poses2d[::-1], (120, 120), masks, H36M_17)
+assert matched.shape == (2, 17, 3) and matched[0, 0, 0] == pose[0, 0] + 1
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 assert not leaked, leaked
 print('STANDALONE_OK')
@@ -148,9 +178,10 @@ def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     """Every module of the port and chip_smoke's helpers, then a small CPU
     `estimate_poses_batched` and `estimate_poses_stream` on weights minted
     with torch alone, those weights through a TF checkpoint and back, one
-    CPU train step of Metrabs and one of Metro, and the eval metrics, in a
-    process that never loads jax, flax, optax, msgpack, ml_dtypes or
-    `metrabs_tpu`."""
+    CPU train step of Metrabs and one of Metro, the eval metrics, an example
+    loaded from a PNG with every augmentation (`load_and_transform3d`) and
+    the mask association, in a process that never loads jax, flax, optax,
+    msgpack, ml_dtypes or `metrabs_tpu` and where cv2 cannot be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN))
     proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ckpt')], cwd=REPO,
@@ -173,7 +204,8 @@ def no_cuda(monkeypatch):
                                    'model25d_from_variables', 'metro_from_variables',
                                    'yolov8_from_variables', 'estimate_poses_stream',
                                    'detect_poses_stream', 'detect_poses_pipelined',
-                                   'compute_pose3d_metrics', 'evaluate_predictions'])
+                                   'compute_pose3d_metrics', 'evaluate_predictions',
+                                   'predict_dataset'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     families = dict(model_config={}, model_class='model25d', detector_type='yolov8m')
     default_estimator = lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
@@ -183,6 +215,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, en
     calls = dict(
         compute_pose3d_metrics=lambda: metrics.compute_pose3d_metrics(
             poses, poses, np.ones((2, 17), bool)),
+        predict_dataset=lambda: harness.predict_dataset(
+            lambda c, k, v: None, [None], skeletons.H36M_17, config.ModelConfig()),
         evaluate_predictions=lambda: harness.evaluate_predictions(dict(
             poses3d_pred_cam=poses, poses3d_true_cam=poses,
             joint_validity_mask=np.ones((2, 17), bool))),

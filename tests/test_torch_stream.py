@@ -26,8 +26,13 @@ from metrabs_tpu_torch.io import packaging
 from metrabs_tpu_torch.io.weights import scanned_to_flat
 from metrabs_tpu_torch.pipeline.skeletons import H36M_17
 from tests import _torch_port
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
 from tests.test_torch_detect_poses import BONE_MEANS, BOXES_PX, MIN_DEPTH_MM, detector_threshold
 from tests.test_torch_estimator import compare, frames_and_boxes
+
+# One intra-op thread: under the suite's parallel workers more threads
+# oversubscribe the cores (the pipelined threads wait on spinning ones).
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 MAX_DETECTIONS = 6
 
@@ -72,6 +77,21 @@ def detect_kwargs(est):
                 detector_threshold=detector_threshold(est, frames_and_boxes()[0]))
 
 
+@pytest.fixture(scope='module')
+def port_detect_kwargs(estimators):
+    """`detect_kwargs` of the port's estimator, worked out once (it runs the
+    detector)."""
+    return detect_kwargs(estimators['torch'])
+
+
+@pytest.fixture(scope='module')
+def pipelined_batches():
+    """Three frame batches of 1-2 frames and a store for their batched
+    detections, which the first `detect_poses_pipelined` case makes (on the
+    test's one thread) for every case."""
+    return [frames_and_boxes(seed=s)[0][:1 + s % 2] for s in range(3)], {}
+
+
 def test_estimate_poses_stream_matches_batched_and_jax(estimators):
     frames_k = stream_frames()
     _, boxes, valid = frames_and_boxes()
@@ -94,11 +114,11 @@ def test_estimate_poses_stream_matches_batched_and_jax(estimators):
     assert bool(all_valid['valid'].all())
 
 
-def test_detect_poses_stream_matches_batched_and_jax(estimators):
+def test_detect_poses_stream_matches_batched_and_jax(estimators, port_detect_kwargs):
     """Detections of the port's package by the port and by JAX."""
     est = estimators['torch']
     frames_k = stream_frames()
-    kwargs = detect_kwargs(est)
+    kwargs = port_detect_kwargs
     got = est.detect_poses_stream(frames_k, **kwargs)
     assert tuple(got['boxes'].shape) == (2, 2, MAX_DETECTIONS, 5)
     for k in range(2):
@@ -115,15 +135,18 @@ def test_detect_poses_stream_matches_batched_and_jax(estimators):
 
 @pytest.mark.parametrize('fused', [False, True])
 @pytest.mark.parametrize('in_flight', [1, 2])
-def test_detect_poses_pipelined_matches_batched(estimators, in_flight, fused):
+def test_detect_poses_pipelined_matches_batched(estimators, port_detect_kwargs,
+                                                pipelined_batches, in_flight, fused):
     est = estimators['torch']
-    kwargs = detect_kwargs(est)
-    batches = [frames_and_boxes(seed=s)[0][:1 + s % 2] for s in range(3)]
+    batches, store = pipelined_batches
+    if 'wants' not in store:
+        store['wants'] = [est.detect_poses_batched(images, **port_detect_kwargs)
+                          for images in batches]
+    wants = store['wants']
     got = list(est.detect_poses_pipelined(iter(batches), in_flight=in_flight, fused=fused,
-                                          **kwargs))
+                                          **port_detect_kwargs))
     assert len(got) == len(batches)
-    for g, images in zip(got, batches):
-        want = est.detect_poses_batched(images, **kwargs)
+    for g, want in zip(got, wants):
         assert g.keys() == want.keys()
         for k in want:
             assert isinstance(g[k], np.ndarray)
@@ -161,7 +184,8 @@ def test_writer_refuses_the_scanned_detector_layout(parts, tmp_path):
                                               **crop)
 
 
-def test_add_detector_to_package_matches_writing_it_at_once(estimators, parts, tmp_path):
+def test_add_detector_to_package_matches_writing_it_at_once(estimators, parts, tmp_path,
+                                                            port_detect_kwargs):
     """The port's package with its detector added later equals, file for
     file, the package written at once; JAX's `add_detector_to_package` on
     the same crop-model package writes the same manifest."""
@@ -182,6 +206,6 @@ def test_add_detector_to_package_matches_writing_it_at_once(estimators, parts, t
     assert load(theirs) == load(ours)
     est = packaging.load_pose_estimator(ours, device='cpu')
     frames = frames_and_boxes()[0]
-    kwargs = detect_kwargs(est)
+    kwargs = port_detect_kwargs  # the same detector: the same threshold
     assert_equal(est.detect_poses_batched(frames, **kwargs),
                  estimators['torch'].detect_poses_batched(frames, **kwargs))
