@@ -8,7 +8,8 @@ line:
  1. device: a CUDA device, its name and power limit from nvidia-smi;
  2. build: nvcc builds the port's two kernels, the crop warp
     `metrabs_tpu_torch/csrc/warp.cu` and the fused MBConv chain
-    `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, both
+    `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, and the
+    host C++ compiler the JPEG decoder `csrc/jpeg_decode.cpp`, all three
     compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
@@ -121,7 +122,28 @@ line:
     into `estimate_poses_batched`) and F2 (zero boxes, empty shapes); K1 and
     K2 counted again under torch.profiler on one stream call; the median of
     5 calls per frame batch, stream against batched, with the device-busy
-    share of one profiled call of each.
+    share of one profiled call of each;
+ 9. bench_apps: the benchmark path on JPEG frames. The host JPEG decoder
+    (`csrc/jpeg_decode.cpp`) on every fixture of tests/torch_fixtures/jpeg,
+    each held to the SHA-256 of cv2's decode in its manifest, then its time
+    on the 1080x1920 frame (median of 20 on one thread, frames/s on 8). A
+    3DPW layout (2 sequences x 24 copies of the portrait fixture, sequence
+    pickles with 2 tracks) and a Human3.6M one (S9, one activity, 4 cameras
+    x 8 copies of the 1000x1002 fixture, CDF poses from the port's writer, a
+    cameras JSON) are minted under runs/ (deleted after), with
+    metrabs_eff2s_y4 minted on SMPL-24 joints with a YOLOv4-416 whose heads
+    fire (`firing_detector_variables`) and on H36M-17. `apps.predict_3dpw
+    .main --gtassoc` with its defaults runs the first loaded unfolded with
+    `fuse_mbconv='on'` (K1 once and K2 28 times per non-empty chunk), then
+    `apps.eval_3dpw.main`; its first batch again with each K1 launch
+    (portrait pyramids) held against the plain warp, K2's v against the
+    plain chain, and under torch.profiler; `apps.predict_h36m.main` runs the
+    second folded (K1 once per batch, K2 never), its first batch again with
+    each K1 launch (odd level sizes, lens distortion) against the plain
+    warp, then `apps.eval_benchmark.main` on a pickle of the same examples.
+    Prints frames/s per driver with and without the package's loading, the
+    share of `jpeg.decode` in its wall time, valid boxes per frame and
+    finite metrics.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -417,6 +439,26 @@ def mint_detector_variables(gen: torch.Generator, kind: str = 'yolov4'):
     with torch.device('meta'):
         shapes = build_detector_model(kind).state_dict()
     return flax_variables_from_state_dict(mint_state(shapes, gen))
+
+
+# Added to the objectness and person-class logits of every YOLOv4 head of a
+# minted detector, so that its scores pass a driver's fixed threshold (0.2
+# in predict_3dpw and predict_mupots): a random head's scores sit near
+# sigmoid(0)^2 = 0.25 with a wide spread, and many frames would have no box.
+DETECTOR_FIRE_BIAS = 3.0
+
+
+def firing_detector_variables(gen: torch.Generator, kind: str = 'yolov4'):
+    """`mint_detector_variables` with DETECTOR_FIRE_BIAS added to each head's
+    objectness and person logits (channels 4 and 5 of each anchor's 85)."""
+    variables = mint_detector_variables(gen, kind)
+    for layer in variables['params'].values():
+        conv_bias = layer.get('conv', {}).get('bias') if isinstance(layer, dict) else None
+        if conv_bias is not None and conv_bias.shape == (3 * 85,):
+            conv_bias = np.array(conv_bias, copy=True)
+            conv_bias.reshape(3, 85)[:, 4:6] += np.float32(DETECTOR_FIRE_BIAS)
+            layer['conv']['bias'] = conv_bias
+    return variables
 
 
 def k2_case(shape, dtype, gen: torch.Generator, dev):
@@ -893,40 +935,85 @@ def serve_fused(package: Path, dev, frames, boxes, box_valid, name: str):
     K1 launches, K2 launches, max |kernel - plain| of v, blocks checked)."""
     from metrabs_tpu_torch.io.packaging import load_pose_estimator
     from metrabs_tpu_torch.models.backbones.builder import build_backbone
-    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
 
     chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
     fused = load_pose_estimator(str(package), device=dev, cfg_overrides={'bn_fold': False},
                                 backbone_builder=functools.partial(build_backbone,
                                                                    fuse_mbconv='on'))
-    # The first chunk's input to each fused chain (its expand conv's output),
-    # kept to hold K2 against its plain version afterwards.
-    fused_blocks = [b for b in fused.crop_model.backbone.blocks if getattr(b, 'fusable', False)]
+    out, k1, k2, err_v, n_blocks = k2_v_error(fused, lambda: fused.estimate_poses_batched(
+        frames, boxes, box_valid, num_aug=NUM_AUG, internal_batch_size=INTERNAL_BATCH))
+    if k1 != chunks or k2 != K2_BLOCKS * chunks:
+        fail(name, f'fused serving: K1 launched {k1} times and K2 {k2}, expected {chunks} and '
+                   f'{K2_BLOCKS * chunks}')
+    if n_blocks != K2_BLOCKS or err_v != 0.0:
+        fail(name, f'K2 on the trained weights: max |kernel - plain| v {err_v:.3g} over '
+                   f'{n_blocks} blocks (must be 0)')
+    check_served_poses(out, dev, box_valid, name)
+    return out, k1, k2, err_v, n_blocks
+
+
+def keep_first_input(inputs: dict, block, module, args, output) -> None:
+    """A forward hook on a fused block's expand conv: keeps the output of its
+    first call (the chain's input) in `inputs[block]`. It returns None, so
+    the forward goes on with its own output."""
+    if block not in inputs:
+        inputs[block] = output.contiguous()
+
+
+def k2_v_error(est, run):
+    """`run()` once with K1's and K2's counts set to 0 and a hook on each
+    fused block of `est`'s backbone keeping the first input to its chain;
+    then K2 on each kept input against the plain chain on the block's
+    constants (made from the loaded weights at the first call). Returns
+    (run's output, K1 launches, K2 launches, max |kernel - plain| of v,
+    blocks checked)."""
+    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda, warp_cuda
+
+    fused_blocks = [b for b in est.crop_model.backbone.blocks if getattr(b, 'fusable', False)]
     inputs = {}
     hooks = [b.expand_conv.register_forward_hook(
-        lambda m, args, u, b=b: inputs.setdefault(b, u.contiguous())) for b in fused_blocks]
+        functools.partial(keep_first_input, inputs, b)) for b in fused_blocks]
     torch.cuda.synchronize()
     warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
     try:
-        out = fused.estimate_poses_batched(frames, boxes, box_valid, num_aug=NUM_AUG,
-                                           internal_batch_size=INTERNAL_BATCH)
+        out = run()
         torch.cuda.synchronize()
     finally:
         for hook in hooks:
             hook.remove()
     k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
-    if k1 != chunks or k2 != K2_BLOCKS * chunks:
-        fail(name, f'fused serving: K1 launched {k1} times and K2 {k2}, expected {chunks} and '
-                   f'{K2_BLOCKS * chunks}')
-    # The kept constants, made from the package's weights at the first call.
     err_v = max((mbconv_cuda.fused_mbconv_inner(u, *b._inner_constants())[0].float()
                  - mbconv.fused_mbconv_inner(u, *b._inner_constants())[0].float()
-                 ).abs().max().item() for b, u in inputs.items())
-    if len(inputs) != K2_BLOCKS or err_v != 0.0:
-        fail(name, f'K2 on the trained weights: max |kernel - plain| v {err_v:.3g} over '
-                   f'{len(inputs)} blocks (must be 0)')
-    check_served_poses(out, dev, box_valid, name)
+                 ).abs().max().item() for b, u in inputs.items()) if inputs else math.inf
     return out, k1, k2, err_v, len(inputs)
+
+
+def checked_warps(run):
+    """`run()` with `warp_cuda.warp_pyramid` wrapped: each launch's crops are
+    held against the plain `ops.warp.warp_pyramid` on the same tensors.
+    Returns (run's output, max |kernel - plain| of each launch). The
+    kernel's wrapper counts on the module's name, the wrapper here while it
+    stands there: its count starts from the kernel's and goes back to it."""
+    from metrabs_tpu_torch.ops import warp as warp_ops
+    from metrabs_tpu_torch.ops import warp_cuda
+
+    kernel, errors = warp_cuda.warp_pyramid, []
+
+    def compared(flat, params, geom, output_shape, **kwargs):
+        launches = compared.launches
+        got = kernel(flat, params, geom, output_shape, **kwargs)
+        if compared.launches != launches:
+            want = warp_ops.warp_pyramid(flat, params, geom, output_shape)
+            errors.append((got - want).abs().max().item())
+        return got
+
+    compared.launches = kernel.launches
+    warp_cuda.warp_pyramid = compared
+    try:
+        return run(), errors
+    finally:
+        warp_cuda.warp_pyramid = kernel
+        kernel.launches = compared.launches
 
 
 def check_served_poses(out, dev, box_valid, name: str) -> None:
@@ -1891,6 +1978,379 @@ def import_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     return {'import_stream': (k1, k2)}
 
 
+# The [bench_apps] phase: the benchmark drivers on JPEG layouts minted under
+# runs/ from the committed fixtures (the card's machine has no JPEG encoder).
+BENCH_DIR = 'runs/chip_smoke_bench_apps'
+JPEG_FIXTURES = 'tests/torch_fixtures/jpeg'
+FRAME_3DPW, FRAME_H36M = 'frame_3dpw_1080x1920.jpg', 'frame_h36m_1000x1002.jpg'
+DECODE_REPEATS = 20  # single-thread decodes of the 1080x1920 frame, median taken
+DECODE_THREADS = 8  # predict_*'s default --io-threads
+BENCH_3DPW = dict(sequences=2, frames=24, tracks=2)
+BENCH_H36M = dict(frames=64, frame_step=8)  # S9, one activity, 4 cameras: 32 examples
+# 3DPW's published intrinsics (portrait 1080x1920) and Human3.6M's (camera 54138969).
+K_3DPW = np.array([[1961.9, 0, 540.0], [0, 1969.2, 960.0], [0, 0, 1]])
+K_H36M = np.array([[1145.05, 0, 512.54], [0, 1143.78, 515.45], [0, 0, 1]])
+
+
+def union_seconds(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def check_decoder(root: Path) -> dict:
+    """Every fixture decoded and held to its manifest hash (cv2's decode on
+    the machine that wrote them); the 1080x1920 frame's decode time on one
+    thread and frames/s on DECODE_THREADS."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc, jpeg
+
+    manifest = json.loads((root / JPEG_FIXTURES / 'manifest.json').read_text())
+    wrong = [name for name, entry in sorted(manifest.items())
+             if hashlib.sha256(improc.imread(str(root / JPEG_FIXTURES / name)).tobytes())
+             .hexdigest() != entry['sha256_rgb']]
+    if wrong:
+        fail('bench_apps', f'{len(wrong)} of {len(manifest)} fixtures decode differently from '
+                           f'cv2: {wrong}')
+    data = (root / JPEG_FIXTURES / FRAME_3DPW).read_bytes()
+    times = []
+    for _ in range(DECODE_REPEATS):
+        t0 = time.perf_counter()
+        jpeg.decode(data)
+        times.append(time.perf_counter() - t0)
+    n = 8 * DECODE_THREADS
+    with concurrent.futures.ThreadPoolExecutor(DECODE_THREADS) as pool:
+        list(pool.map(jpeg.decode, [data] * DECODE_THREADS))
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.decode, [data] * n))
+        fps = n / (time.perf_counter() - t0)
+    return dict(n=len(manifest), ms=statistics.median(times) * 1e3,
+                all_ms=[t * 1e3 for t in times], fps=fps, kib=len(data) / 1024)
+
+
+def mint_3dpw_layout(root: Path, rng, frame: Path) -> None:
+    """sequenceFiles/test/*.pkl (latin1-readable pickles: SMPL-24 world
+    joints in metres, cam_poses, campose_valid, poses2d) and the frames,
+    copies of the portrait fixture."""
+    import pickle
+
+    from metrabs_tpu_torch.data.camera import Camera
+
+    n, n_tracks = BENCH_3DPW['frames'], BENCH_3DPW['tracks']
+    cam = Camera(intrinsic_matrix=K_3DPW, world_up=(0, -1, 0))
+    for i_seq in range(BENCH_3DPW['sequences']):
+        name = f'bench_{i_seq:02d}'
+        joints, poses2d = [], []
+        for t in range(n_tracks):
+            centre = np.array([(t - 0.5) * 900, 200, 4500.0])
+            world = centre + rng.normal(0, 200, (n, 24, 3)) + np.arange(n)[:, None, None] * [8, 0, 0]
+            joints.append((world / 1000).reshape(n, 72))
+            image = cam.world_to_image(world.reshape(-1, 3)).reshape(n, 24, 2)
+            coco = np.concatenate([image[:, :18], np.full((n, 18, 1), 0.9)], -1)
+            poses2d.append(np.transpose(coco, (0, 2, 1)))
+        seq = dict(sequence=name, cam_intrinsics=K_3DPW, jointPositions=joints,
+                   cam_poses=np.tile(np.eye(4), (n, 1, 1)),
+                   campose_valid=np.ones((n_tracks, n), bool), poses2d=poses2d)
+        (root / 'sequenceFiles' / 'test').mkdir(parents=True, exist_ok=True)
+        (root / 'sequenceFiles' / 'test' / f'{name}.pkl').write_bytes(pickle.dumps(seq, 2))
+        (root / 'imageFiles' / name).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            shutil.copyfile(frame, root / 'imageFiles' / name / f'image_{i:05d}.jpg')
+
+
+def mint_h36m_layout(root: Path, rng, frame: Path) -> str:
+    """S9 with one activity: D3_Positions/Walking.cdf (the port's CDF writer),
+    BBoxes/Walking.<camera>.npy and every frame_step-th frame per camera (copies
+    of the 1000x1002 fixture), cameras.json around a person at the origin.
+    Returns the cameras JSON's path."""
+    from metrabs_tpu_torch.data import datasets
+    from metrabs_tpu_torch.data.camera import Camera
+    from metrabs_tpu_torch.utils.cdf import write_cdf
+
+    n, step = BENCH_H36M['frames'], BENCH_H36M['frame_step']
+    base = root / 'S9'
+    (base / 'MyPoseFeatures' / 'D3_Positions').mkdir(parents=True)
+    (base / 'BBoxes').mkdir()
+    world = rng.normal(0, 200, (n, 32, 3)) + [0, 0, 1000.0]
+    write_cdf(str(base / 'MyPoseFeatures' / 'D3_Positions' / 'Walking.cdf'),
+              {'Pose': world.reshape(1, n, 96)})
+    cameras = dict(intrinsics={}, extrinsics={'S9': {}})
+    for i_cam, cam_id in enumerate(datasets.H36M_CAMERA_IDS):
+        yaw = np.pi / 4 + i_cam * np.pi / 2
+        forward = -np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.cross(forward, [0, 0, 1.0])
+        rot = np.stack([right, [0, 0, -1.0], forward])
+        centre = -4500 * forward + [0, 0, 1000.0]
+        cameras['intrinsics'][cam_id] = dict(calibration_matrix=K_H36M.tolist(),
+                                             distortion=[-0.207, 0.248, -0.0009, -0.0014, -0.0031])
+        cameras['extrinsics']['S9'][cam_id] = dict(R=rot.tolist(), t=(-rot @ centre).tolist())
+        cam = Camera(optical_center=centre, rot_world_to_cam=rot, intrinsic_matrix=K_H36M)
+        joints = world[:, list(datasets.H36M_RELEVANT_JOINTS)]
+        boxes = np.stack([datasets.boxes_from_joints(cam.world_to_image(j)) for j in joints])
+        np.save(base / 'BBoxes' / f'Walking.{cam_id}.npy', boxes)
+        (base / 'Images' / f'Walking.{cam_id}').mkdir(parents=True)
+        for k in range(0, n, step):
+            shutil.copyfile(frame, base / 'Images' / f'Walking.{cam_id}' / f'frame_{k:06d}.jpg')
+    (root / 'cameras.json').write_text(json.dumps(cameras))
+    return str(root / 'cameras.json')
+
+
+def bench_package(path: Path, gen, joint_info, with_detector: bool) -> None:
+    """metrabs_eff2s_y4 (EffNetV2-S@256, bf16) minted as [import] mints it,
+    on `joint_info`'s joints, with a YOLOv4-416 whose heads fire."""
+    from metrabs_tpu_torch.io.packaging import save_pose_estimator_package
+    from metrabs_tpu_torch.models.registry import get_named_model
+
+    named = get_named_model(IMPORT_MODEL)
+    cfg = named.model_config(dtype='bfloat16', n_joints=joint_info.n_joints,
+                             backbone_scan_blocks=False)
+    det = {}
+    if with_detector:
+        det = dict(detector_variables=firing_detector_variables(gen, named.detector),
+                   detector_type=named.detector, detector_dtype='bfloat16',
+                   detector_input_size=DETECTOR_SIZE)
+    save_pose_estimator_package(str(path), cfg=cfg, aug_cfg=named.aug_config(),
+                                crop_model_variables=mint_crop_variables(cfg, gen),
+                                joint_info=joint_info, **det)
+
+
+def run_app(main, argv) -> tuple:
+    """(seconds, the last line it printed) of a driver's `main(argv)`, its
+    output kept off this script's."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    return seconds, result, out.getvalue(), lines[-1] if lines else ''
+
+
+def bench_apps_phase(root: Path, dev) -> dict:
+    """The [bench_apps] phase (module docstring). Returns the K1 and K2
+    launches of the predict_3dpw and predict_h36m runs."""
+    import pickle
+
+    import metrabs_tpu_torch.io.packaging as packaging
+    from metrabs_tpu_torch.apps import (eval_3dpw, eval_benchmark, predict_3dpw,
+                                        predict_h36m)
+    from metrabs_tpu_torch.data import jpeg
+    from metrabs_tpu_torch.data.datasets import load_h36m_examples
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17, SMPL_24
+
+    name = 'bench_apps'
+    dec = check_decoder(root)
+    phase(name, f'JPEG decoder (host C++): all {dec["n"]} '
+                f'fixtures equal their cv2 manifest hashes; {FRAME_3DPW} ({dec["kib"]:.0f} KiB): '
+                f'{dec["ms"]:.2f} ms median of {DECODE_REPEATS} on one thread (all: '
+                + ', '.join(f'{t:.1f}' for t in dec['all_ms'])
+                + f'), {dec["fps"]:.1f} frames/s on {DECODE_THREADS} threads')
+
+    work = root / BENCH_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 13)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    original_load = packaging.load_pose_estimator
+    original_decode = jpeg.decode
+    try:
+        t0 = time.perf_counter()
+        mint_3dpw_layout(work / '3dpw', rng, root / JPEG_FIXTURES / FRAME_3DPW)
+        cameras_json = mint_h36m_layout(work / 'h36m', rng, root / JPEG_FIXTURES / FRAME_H36M)
+        bench_package(work / 'pkg_smpl', gen, SMPL_24, with_detector=True)
+        bench_package(work / 'pkg_h36m', gen, H36M_17, with_detector=False)
+        phase(name, f'layouts and packages minted in {time.perf_counter() - t0:.1f} s: 3DPW '
+                    f'{BENCH_3DPW["sequences"]} sequences x {BENCH_3DPW["frames"]} frames '
+                    f'1080x1920 with {BENCH_3DPW["tracks"]} tracks, Human3.6M S9 4 cameras x '
+                    f'{BENCH_H36M["frames"] // BENCH_H36M["frame_step"]} frames 1000x1002; '
+                    f'{IMPORT_MODEL} on SMPL-24 with a firing YOLOv4-{DETECTOR_SIZE} and on '
+                    f'H36M-17')
+
+        # Each driver loads its package through `load`, which keeps the
+        # estimator, times the loading and records the arguments of each
+        # call of `method`; `jpeg.decode` (what `improc.imread` calls) is
+        # timed while the drivers run.
+        loaded, calls, decode_spans, load_s = [], [], [], []
+
+        def loader(method, **overrides):
+            def load(path, device='cuda'):
+                t = time.perf_counter()
+                est = original_load(path, device=device, **overrides)
+                load_s.append(time.perf_counter() - t)
+                call = getattr(est, method)
+
+                def recorded(images, *args, **kwargs):
+                    out = call(images, *args, **kwargs)
+                    calls.append((images, args, kwargs, int(out['valid'].sum())))
+                    return out
+                setattr(est, method, recorded)
+                loaded.append(est)
+                return est
+            return load
+
+        def timed_decode(data, path='<bytes>'):
+            t = time.perf_counter()
+            im = original_decode(data, path)
+            decode_spans.append((t, time.perf_counter()))
+            return im
+
+        def run_driver(load, main, argv):
+            for kept in (loaded, calls, decode_spans, load_s):
+                kept.clear()
+            packaging.load_pose_estimator, jpeg.decode = load, timed_decode
+            torch.cuda.synchronize()
+            warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+            try:
+                seconds, _, _, last = run_app(main, argv)
+                torch.cuda.synchronize()
+            finally:
+                packaging.load_pose_estimator, jpeg.decode = original_load, original_decode
+            k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+            # Frames/s and the decoding share without the package's loading,
+            # which a whole benchmark run spreads over all its frames.
+            run_s = seconds - load_s[0]
+            decode_s = union_seconds(decode_spans)
+            return dict(seconds=seconds, run_s=run_s, load_s=load_s[0], decode_s=decode_s,
+                        k1=k1, k2=k2, last=last, est=loaded[0], calls=list(calls))
+
+        def timing(r, n: int) -> str:
+            return (f'{n} frames in {r["seconds"]:.2f} s = {n / r["seconds"]:.2f} frames/s, '
+                    f'{r["run_s"]:.2f} s = {n / r["run_s"]:.2f} frames/s without loading the '
+                    f'package ({r["load_s"]:.2f} s); decoding {r["decode_s"]:.2f} s '
+                    f'({100 * r["decode_s"] / r["seconds"]:.1f}% of the wall, '
+                    f'{100 * r["decode_s"] / r["run_s"]:.1f}% without the loading)')
+
+        # predict_3dpw through K1 and K2: the package loaded unfolded, fuse_mbconv on.
+        r = run_driver(loader('detect_poses_batched', cfg_overrides={'bn_fold': False},
+                              backbone_builder=functools.partial(build_backbone,
+                                                                 fuse_mbconv='on')),
+                       predict_3dpw.main, [
+                           '--package', str(work / 'pkg_smpl'), '--root', str(work / '3dpw'),
+                           '--output-path', str(work / 'pred_3dpw'), '--gtassoc'])
+        est = r['est']
+        n_frames = BENCH_3DPW['sequences'] * BENCH_3DPW['frames']
+        per_chunk = INTERNAL_BATCH // 5  # boxes per chunk at predict_3dpw's num_aug 5
+        chunks = sum(math.ceil(v / per_chunk) for *_, v in r['calls'])
+        boxes_per_frame = [v / len(images) for images, *_, v in r['calls']]
+        if (r['k1'] != chunks or r['k2'] != K2_BLOCKS * chunks or chunks == 0
+                or est.cfg.bn_fold):
+            fail(name, f'predict_3dpw launched K1 {r["k1"]} and K2 {r["k2"]} times, expected '
+                       f'{chunks} and {K2_BLOCKS * chunks} ({chunks} non-empty chunks; '
+                       f'bn_fold {est.cfg.bn_fold})')
+        preds = [pickle.loads(p.read_bytes())['jointPositions']
+                 for p in sorted((work / 'pred_3dpw' / 'test').glob('*.pkl'))]
+        want_shape = (BENCH_3DPW['tracks'], BENCH_3DPW['frames'], 24, 3)
+        if len(preds) != BENCH_3DPW['sequences'] or any(
+                p.shape != want_shape or not np.isfinite(p).all() for p in preds):
+            fail(name, f'predict_3dpw wrote {[p.shape for p in preds]}, expected '
+                       f'{BENCH_3DPW["sequences"]} x {want_shape}, finite')
+        eval_s, metrics_3dpw, _, _ = run_app(eval_3dpw.main, [
+            '--pred-path', str(work / 'pred_3dpw'), '--root', str(work / '3dpw')])
+        if not all(np.isfinite(v) for v in metrics_3dpw.values()):
+            fail(name, f'eval_3dpw metrics {metrics_3dpw}')
+        phase(name, f'predict_3dpw --gtassoc (num_aug 5, batch 16, internal batch 64, '
+                    f'max_detections 16, threshold 0.2), unfolded, fuse_mbconv on: '
+                    + timing(r, n_frames) + f'; valid boxes per frame '
+                    f'{min(boxes_per_frame):.2f}-{max(boxes_per_frame):.2f} (mean '
+                    f'{statistics.mean(boxes_per_frame):.2f}) over {len(r["calls"])} calls; K1 '
+                    f'{r["k1"]}, K2 {r["k2"]} ({chunks} chunks); {r["last"]}')
+        phase(name, f'eval_3dpw in {eval_s:.2f} s: ' + json.dumps(metrics_3dpw))
+
+        # The driver's first detect_poses_batched batch again: K1 and K2
+        # counted, each K1 launch (portrait 1080x1920 pyramids) and K2's v
+        # against their plain versions on the batch's inputs, then profiled.
+        frames, args, kwargs, _ = r['calls'][0]
+        (out, warp_errs), k1_batch, k2_batch, err_v, n_blocks = k2_v_error(
+            est, lambda: checked_warps(lambda: est.detect_poses_batched(frames, *args,
+                                                                        **kwargs)))
+        warp_err = max(warp_errs, default=math.inf)
+        if (n_blocks != K2_BLOCKS or err_v != 0.0 or k1_batch == 0
+                or len(warp_errs) != k1_batch or not warp_err <= WARP_TOL):
+            fail(name, f'one predict_3dpw batch: K1 {k1_batch} ({len(warp_errs)} compared, max '
+                       f'|kernel - plain| {warp_err:.3g}, tol {WARP_TOL}), K2 {k2_batch}; K2 v '
+                       f'max |kernel - plain| {err_v:.3g} over {n_blocks} blocks (must be 0)')
+        for _ in range(TIMING_TRIES):
+            wall_ms, device_ms, _, busy_ms, n_kernels, counts = profile_detect(
+                est, lambda: est.detect_poses_batched(frames, *args, **kwargs))
+            seen = (counts['K1 (warp kernel)'], counts['K2 (mbconv kernel)'])
+            if seen == (k1_batch, k2_batch):
+                break
+        else:
+            fail(name, f'the profiler never saw the {k1_batch} K1 and {k2_batch} K2 launches '
+                       f'the wrappers counted in one batch')
+        phase(name, f'one predict_3dpw batch ({len(frames)} frames, {int(out["valid"].sum())} '
+                    f'valid boxes): K1 {k1_batch}, each against the plain warp (max |kernel - '
+                    f'plain| {warp_err:.3g}, tol {WARP_TOL}); K2 {k2_batch}, v exact (max |kernel '
+                    f'- plain| {err_v:.3g} over {n_blocks} blocks); under torch.profiler: wall '
+                    f'{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms '
+                    f'({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernels, K1 '
+                    f'{device_ms["K1 (warp kernel)"]:.3f} ms, K2 '
+                    f'{device_ms["K2 (mbconv kernel)"]:.3f} ms, crop model '
+                    f'{device_ms["crop_model"]:.2f} ms, detector {device_ms["detector"]:.2f} ms')
+        k1_3dpw, k2_3dpw = r['k1'], r['k2']
+        del est, r, out, frames
+        torch.cuda.empty_cache()
+
+        # predict_h36m (folded: K1 only), then eval_benchmark on the same examples.
+        r = run_driver(loader('estimate_poses_batched'), predict_h36m.main, [
+            '--package', str(work / 'pkg_h36m'), '--h36m-root', str(work / 'h36m'),
+            '--cameras-json', cameras_json, '--output-path', str(work / 'pred_h36m.npz'),
+            '--frame-step', str(BENCH_H36M['frame_step'])])
+        examples = load_h36m_examples(str(work / 'h36m'), cameras_json, subjects=(9,),
+                                      frame_step=BENCH_H36M['frame_step'])
+        n_ex = len(examples)
+        with np.load(work / 'pred_h36m.npz') as f:
+            poses = f['coords3d_pred_world']
+        batches = math.ceil(n_ex / 16)
+        if r['k1'] != batches or r['k2'] != 0 or poses.shape != (n_ex, 17, 3) or not np.isfinite(
+                poses).all():
+            fail(name, f'predict_h36m: K1 {r["k1"]} (expected {batches}), K2 {r["k2"]} '
+                       f'(expected 0), poses {poses.shape} finite {np.isfinite(poses).all()}')
+        # Its first batch again, each K1 launch (1000x1002 pyramids with odd
+        # level sizes, the cameras' lens distortion, 2x antialiasing) against
+        # the plain warp.
+        est = r['est']
+        images, args, kwargs, _ = r['calls'][0]
+        warp_cuda.warp_pyramid.launches = 0
+        _, warp_errs = checked_warps(lambda: est.estimate_poses_batched(images, *args, **kwargs))
+        torch.cuda.synchronize()
+        k1_batch = warp_cuda.warp_pyramid.launches
+        warp_err = max(warp_errs, default=math.inf)
+        distorted = bool(np.any(kwargs['distortion_coeffs'] != 0))
+        if not distorted or k1_batch == 0 or len(warp_errs) != k1_batch or not (
+                warp_err <= WARP_TOL):
+            fail(name, f'one predict_h36m batch: K1 {k1_batch} ({len(warp_errs)} compared, max '
+                       f'|kernel - plain| {warp_err:.3g}, tol {WARP_TOL}); distortion {distorted}')
+        phase(name, f'predict_h36m (num_aug 1, batch 16), folded: ' + timing(r, n_ex)
+                    + f'; K1 {r["k1"]}, K2 {r["k2"]}; its first batch ({len(images)} frames, '
+                      f'distorted cameras): K1 {k1_batch}, each against the plain warp (max '
+                      f'|kernel - plain| {warp_err:.3g}, tol {WARP_TOL}); {r["last"]}')
+        k1_h36m, k2_h36m = r['k1'], r['k2']
+        del est, r, images
+        (work / 'examples.pkl').write_bytes(pickle.dumps(examples))
+        seconds, _, printed, _ = run_app(eval_benchmark.main, [
+            '--package', str(work / 'pkg_h36m'), '--examples', str(work / 'examples.pkl'),
+            '--benchmark', 'h36m', '--pred-out', str(work / 'preds.npz')])
+        metrics = json.loads(printed[printed.index('{'):])
+        if not all(np.isfinite(v) for k, v in metrics.items() if k != 'benchmark'):
+            fail(name, f'eval_benchmark metrics {metrics}')
+        phase(name, f'eval_benchmark --benchmark h36m ({n_ex} examples, crops on the host, '
+                    f'no K1): {seconds:.2f} s, ' + json.dumps(metrics))
+    finally:
+        packaging.load_pose_estimator, jpeg.decode = original_load, original_decode
+        shutil.rmtree(work, ignore_errors=True)
+    return {'bench_3dpw': (k1_3dpw, k2_3dpw), 'bench_h36m': (k1_h36m, k2_h36m)}
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -1915,18 +2375,23 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. Build: one nvcc per source, started together.
+    # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
+    # decoder, started together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        host_build = pool.submit(cuda_build.build_host_library, 'jpeg_decode')
         built = list(pool.map(cuda_build.build_library, sources))
+        host_lib, host_s = host_build.result()
     for name, (lib_path, build_s) in zip(sources, built):
         phase('build', f'nvcc {" ".join(cuda_build.NVCC_FLAGS)} '
                        f'{cuda_build.source_path(name).name} -> {lib_path.name} in {build_s:.2f} s')
-    phase('build', f'both in {time.perf_counter() - start:.2f} s')
+    phase('build', f'{os.environ.get("CXX") or "c++"} {" ".join(cuda_build.CXX_FLAGS)} '
+                   f'jpeg_decode.cpp -> {host_lib.name} in {host_s:.2f} s')
+    phase('build', f'all three in {time.perf_counter() - start:.2f} s')
 
     # 3. The warp kernel against its plain version at the serving shape.
     gen = torch.Generator(device=dev)
@@ -2192,6 +2657,12 @@ def main() -> None:
     # 8. The released weight formats and the streaming entry points.
     torch.cuda.empty_cache()
     by_path.update(import_phase(root, dev, frames, boxes, box_valid))
+
+    # 9. The benchmark drivers on JPEG frames.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(bench_apps_phase(root, dev))
+    phase('bench_apps', f'{time.perf_counter() - start:.1f} s')
 
     # No single PyTorch call computes either kernel's function: library_ms is
     # null (the unfused cuDNN chain's time stands beside K2 as unfused_ms).

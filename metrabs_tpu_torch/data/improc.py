@@ -1,10 +1,10 @@
 """CPU image helpers of the data pipeline (`metrabs_tpu/data/improc.py`)
-without OpenCV: images are read from PNG (through `data.cvfree`) and `.npy`
-files, and the colour and resize helpers give OpenCV's numbers.
+without OpenCV: images are read from JPEG (through `data.jpeg`, equal to
+cv2's decode), PNG (through `data.cvfree`) and `.npy` files, and the colour
+and resize helpers give OpenCV's numbers.
 
-JPEG and video decoding wait for a decoder on the card's machine, which has
-none (ROADMAP.md lists them); `imread` refuses them. The video helpers of
-the JAX module come with the apps.
+Video decoding waits for a decoder on the card's machine, which has none
+(ROADMAP.md lists it); `imread` refuses video frames.
 """
 
 from __future__ import annotations
@@ -15,32 +15,39 @@ from typing import Optional
 
 import numpy as np
 
-from metrabs_tpu_torch.data import cvfree
+from metrabs_tpu_torch.data import cvfree, jpeg
 
-_UNDECODED = ('JPEG and video decoding are not ported: the GPU machine has no decoder '
-              '(ROADMAP.md, "JPEG and video"); convert the images to PNG or .npy')
+_UNDECODED = ('video decoding is not ported: the GPU machine has no decoder '
+              '(ROADMAP.md, "Video decoding"); extract the frames to JPEG, PNG or .npy')
+_JPEG_SIGNATURE = b'\xff\xd8\xff'
+_PNG_SIGNATURE = b'\x89PNG'
 
 
 def imread(path: str) -> np.ndarray:
-    """RGB uint8 [H, W, 3] image from a PNG (gray is repeated over the three
-    channels and alpha dropped, as cv2.IMREAD_COLOR does) or a `.npy` file
-    holding such an array. Raises FileNotFoundError for a missing file and
-    NotImplementedError for JPEG, video frames (`video.ext#frame=N`) and any
-    other format."""
+    """RGB uint8 [H, W, 3] image. The format is the file's signature, as cv2
+    reads it: JPEG (`FF D8 FF`; equal to `cv2.imread(path, IMREAD_COLOR)`,
+    EXIF orientation applied) or PNG (`89 50 4E 47`; gray is repeated over
+    the three channels and alpha dropped, as IMREAD_COLOR does); a `.npy`
+    file holds such an array. Raises FileNotFoundError for a missing file,
+    ValueError for a corrupt or truncated JPEG, and NotImplementedError for
+    video frames (`video.ext#frame=N`) and any other format."""
     path = str(path)
     if '#frame=' in path:
         raise NotImplementedError(f'{path}: {_UNDECODED}')
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
-    ext = os.path.splitext(path)[1].lower()
-    if ext == '.npy':
+    if os.path.splitext(path)[1].lower() == '.npy':
         im = np.load(path)
         if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:
             raise ValueError(f'{path}: expected a uint8 [H, W, 3] array, got {im.dtype} '
                              f'{im.shape}')
         return im
-    if ext != '.png':
-        raise NotImplementedError(f'{path}: {_UNDECODED}')
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data.startswith(_JPEG_SIGNATURE):
+        return jpeg.decode(data, path)
+    if not data.startswith(_PNG_SIGNATURE):
+        raise NotImplementedError(f'{path}: neither JPEG nor PNG (the formats imread decodes)')
     im = cvfree.read_png(path)
     if im.ndim == 2:
         return np.repeat(im[..., None], 3, axis=2)
@@ -120,17 +127,20 @@ def rounded_int_tuple(p) -> tuple:
 
 
 def image_extents(filepath: str) -> np.ndarray:
-    """Image (width, height) without decoding pixel data: from a PNG's
-    header or a `.npy` file's; other formats raise NotImplementedError."""
+    """Image (width, height) without decoding pixel data: from a `.npy`
+    file's header, a PNG's, or a JPEG's frame header (before its EXIF
+    orientation, as the JAX package reads it); other formats raise
+    NotImplementedError."""
     filepath = str(filepath)
-    ext = os.path.splitext(filepath)[1].lower()
-    if ext == '.npy':
+    if os.path.splitext(filepath)[1].lower() == '.npy':
         shape = np.load(filepath, mmap_mode='r').shape
         return np.asarray([shape[1], shape[0]])
-    if ext != '.png':
-        raise NotImplementedError(f'{filepath}: {_UNDECODED}')
     with open(filepath, 'rb') as f:
-        head = f.read(24)
-    if head[:8] != b'\x89PNG\r\n\x1a\n' or head[12:16] != b'IHDR':
-        raise ValueError(f'{filepath} is not a PNG file')
-    return np.asarray(struct.unpack('>II', head[16:24]))
+        data = f.read(24)
+        if data.startswith(_JPEG_SIGNATURE):
+            # The frame header follows segments of any length (EXIF, tables).
+            height, width, _ = jpeg.header(data + f.read(), filepath)
+            return np.asarray([width, height])
+    if data[:8] != b'\x89PNG\r\n\x1a\n' or data[12:16] != b'IHDR':
+        raise NotImplementedError(f'{filepath}: neither JPEG nor PNG')
+    return np.asarray(struct.unpack('>II', data[16:24]))

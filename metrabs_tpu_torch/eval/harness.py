@@ -1,9 +1,9 @@
 """Benchmark evaluation (`metrabs_tpu/eval/harness.py`): `predict_dataset`,
 which runs a crop model over a test set's examples to make a prediction
 dump, the per-benchmark protocols (3DPW's 14 joints with PCK at 50 mm, H36M,
-3DHP, MuPoTS, 3DOH, ASPset), `evaluate_predictions` over a dump, the NPZ and
-HDF5 dump writers, and the matched multi-person metrics of the MuPoTS
-protocol.
+3DHP, MuPoTS, 3DOH, ASPset), `evaluate_predictions` over a dump, the NPZ
+dump writer (HDF5 dumps raise: no h5py on the card's machine), and the
+matched multi-person metrics of the MuPoTS protocol.
 """
 
 from __future__ import annotations
@@ -150,26 +150,14 @@ def save_predictions_npz(path: str, preds: Dict[str, np.ndarray]) -> None:
     np.savez_compressed(path, **preds)
 
 
-def save_predictions_hdf5(path: str, preds: Dict[str, np.ndarray]) -> None:
-    """An HDF5 prediction dump; string arrays as variable-length UTF-8. Needs
-    h5py."""
-    import h5py
-    with h5py.File(path, 'w') as f:
-        for key, value in preds.items():
-            value = np.asarray(value)
-            if value.dtype.kind in ('U', 'O'):
-                f.create_dataset(key, data=value.astype(object),
-                                 dtype=h5py.string_dtype(encoding='utf-8'))
-            else:
-                f.create_dataset(key, data=value, compression='gzip')
-
-
 def save_predictions(path: str, preds: Dict[str, np.ndarray]) -> None:
-    """HDF5 for a .h5 or .hdf5 path, NPZ otherwise."""
+    """NPZ. A .h5 or .hdf5 path raises NotImplementedError: the card's
+    machine has no HDF5 writer (F5; ROADMAP.md, "HDF5 reader")."""
     if path.endswith(('.h5', '.hdf5')):
-        save_predictions_hdf5(path, preds)
-    else:
-        save_predictions_npz(path, preds)
+        raise NotImplementedError(
+            f'{path}: HDF5 prediction dumps are not ported (no h5py on the GPU machine; '
+            f'ROADMAP.md, "HDF5 reader"); write an .npz path instead')
+    save_predictions_npz(path, preds)
 
 
 def matched_pose_metrics(preds_per_frame, gts_per_frame, threshold_mm: float = 150.0,

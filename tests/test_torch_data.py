@@ -268,7 +268,9 @@ def _png_row_filters(path):
 
 def test_imread_matches_cv2_imread(tmp_path):
     """Gray and RGBA PNGs come back as 3-channel RGB, as cv2.IMREAD_COLOR
-    reads them; .npy files load as they are; JPEG and video raise."""
+    reads them; .npy files load as they are; a JPEG decodes as cv2 decodes
+    it (tests/test_torch_jpeg.py holds the decoder to cv2 in depth); video
+    raises."""
     rng = np.random.default_rng(10)
     for shape in ((20, 30), (20, 30, 3), (20, 30, 4)):
         im = rng.integers(0, 256, shape, dtype=np.uint8)
@@ -280,11 +282,14 @@ def test_imread_matches_cv2_imread(tmp_path):
     np.save(tmp_path / 'im.npy', want)
     np.testing.assert_array_equal(improc.imread(str(tmp_path / 'im.npy')), want)
     np.testing.assert_array_equal(improc.image_extents(str(tmp_path / 'im.npy')), [30, 20])
-    cv2.imwrite(str(tmp_path / 'im.jpg'), want)
-    for path in (tmp_path / 'im.jpg', f'{tmp_path}/v.mp4#frame=3'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            improc.imread(str(path))
-    assert not improc.is_image_readable(str(tmp_path / 'im.jpg'))
+    jpg = str(tmp_path / 'im.jpg')
+    cv2.imwrite(jpg, want)
+    np.testing.assert_array_equal(improc.imread(jpg), jax_improc.imread(jpg))
+    np.testing.assert_array_equal(improc.image_extents(jpg), jax_improc.image_extents(jpg))
+    video = f'{tmp_path}/v.mp4#frame=3'
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        improc.imread(video)
+    assert improc.is_image_readable(jpg) and not improc.is_image_readable(video)
     with pytest.raises(FileNotFoundError):
         improc.imread(str(tmp_path / 'missing.png'))
 

@@ -166,11 +166,14 @@ def test_prediction_dumps_read_back(tmp_path):
     harness.save_predictions(str(tmp_path / 'p.npz'), preds)
     with np.load(tmp_path / 'p.npz') as f:
         assert all(np.array_equal(f[k], v) for k, v in preds.items())
-    h5py = pytest.importorskip('h5py', reason='h5py is not installed: no HDF5 dumps')
-    harness.save_predictions(str(tmp_path / 'p.h5'), preds)
-    with h5py.File(tmp_path / 'p.h5') as f:
-        assert np.array_equal(f['image_path'].asstr()[()], preds['image_path'])
-        assert all(np.array_equal(f[k][()], v) for k, v in preds.items() if k != 'image_path')
+
+
+@pytest.mark.parametrize('name', ['p.h5', 'p.hdf5'])
+def test_hdf5_dump_raises_naming_the_roadmap(tmp_path, name):
+    """F5: the HDF5 writer imported h5py, which the card's machine lacks."""
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        harness.save_predictions(str(tmp_path / name), dump())
+    assert not (tmp_path / name).exists()
 
 
 def annotated(pose2d, confidence=0.9):

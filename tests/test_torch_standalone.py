@@ -1,7 +1,8 @@
 """The port stands alone: `metrabs_tpu_torch` and `chip_smoke.py` import
 nothing of jax, flax, optax, orbax, msgpack, ml_dtypes or the JAX package
-`metrabs_tpu`, and no import statement of theirs names cv2, at any level
-(the card's machine has none), its
+`metrabs_tpu`, and no import statement of theirs names a package the card's
+machine lacks (cv2, h5py, matplotlib, PIL, ml_dtypes, msgpack), at any
+level, its
 entry points run on the card unless the caller names another device, and
 its copies of the JAX package's framework-free modules (config with the
 training hyperparameters, joint info, TTA schedules, skeletons, bone
@@ -41,6 +42,8 @@ from metrabs_tpu_torch.train import loop, optim
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack', 'ml_dtypes')
+# Packages the card's machine does not have (F4: cv2, F5: h5py).
+MISSING_ON_CARD = ('cv2', 'h5py', 'matplotlib', 'PIL', 'ml_dtypes', 'msgpack')
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / 'metrabs_tpu_torch').rglob('*.py')
                     if '_build' not in p.parts) + ['chip_smoke.py']
 
@@ -64,7 +67,7 @@ def test_port_file_imports_nothing_of_jax(path):
 @pytest.mark.parametrize('path', PORT_FILES)
 def test_port_file_imports_no_cv2_at_module_level(path):
     """The import statements that run on import (not those inside functions)
-    import no cv2: the card's machine has none."""
+    import none of MISSING_ON_CARD (cv2 first among them)."""
     tree = ast.parse((REPO / path).read_text(), filename=path)
     in_functions = {id(n) for fn in ast.walk(tree)
                     if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
@@ -72,20 +75,24 @@ def test_port_file_imports_no_cv2_at_module_level(path):
     on_import = ast.Module(body=[n for n in ast.walk(tree) if id(n) not in in_functions
                                  and isinstance(n, (ast.Import, ast.ImportFrom))],
                            type_ignores=[])
-    assert 'cv2' not in {m.split('.')[0] for m in imported_modules(on_import)}, path
+    bad = {m.split('.')[0] for m in imported_modules(on_import)} & set(MISSING_ON_CARD)
+    assert not bad, f'{path} imports {bad}'
 
 
 @pytest.mark.parametrize('path', PORT_FILES)
 def test_port_file_imports_no_cv2(path):
-    """Every import statement, also those inside functions (F4: `pose_to_mask`
-    imported cv2 when called)."""
+    """Every import statement, also those inside functions, imports none of
+    MISSING_ON_CARD (F4: `pose_to_mask` imported cv2 when called; F5:
+    `save_predictions_hdf5` imported h5py)."""
     tree = ast.parse((REPO / path).read_text(), filename=path)
-    assert 'cv2' not in {m.split('.')[0] for m in imported_modules(tree)}, path
+    bad = {m.split('.')[0] for m in imported_modules(tree)} & set(MISSING_ON_CARD)
+    assert not bad, f'{path} imports {bad}'
 
 
 _STANDALONE_SCRIPT = """
 import importlib, pkgutil, sys
-sys.modules['cv2'] = None  # any import of cv2 fails
+for name in {missing!r}:
+    sys.modules[name] = None  # any import of these fails, as on the card's machine
 import numpy as np
 import torch
 import metrabs_tpu_torch
@@ -168,7 +175,21 @@ masks = [pose_to_mask(p, (120, 120), H36M_17, 8) for p in poses2d]
 matched = associate_predictions_to_masks(pose[None].repeat(2, 0) + [[[0, 0, 0]], [[1, 0, 0]]],
                                          poses2d[::-1], (120, 120), masks, H36M_17)
 assert matched.shape == (2, 17, 3) and matched[0, 0, 0] == pose[0, 0] + 1
-leaked = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
+import hashlib, json
+from metrabs_tpu_torch.data.improc import imread
+fixtures = 'tests/torch_fixtures/jpeg'
+manifest = json.load(open(fixtures + '/manifest.json'))
+for name in ('progressive_s420_61x75.jpg', 'exif_orientation6_40x64.jpg', 'gray_48x80.jpg'):
+    im = imread(fixtures + '/' + name)
+    assert hashlib.sha256(im.tobytes()).hexdigest() == manifest[name]['sha256_rgb'], name
+from metrabs_tpu_torch.eval import harness
+try:
+    harness.save_predictions(sys.argv[1] + '.h5', dict(x=np.zeros(2)))
+    raise AssertionError('an HDF5 dump was written')
+except NotImplementedError:
+    pass
+leaked = sorted(m for m, mod in sys.modules.items()
+                if mod is not None and m.split('.')[0] in {forbidden!r})
 assert not leaked, leaked
 print('STANDALONE_OK')
 """
@@ -179,11 +200,13 @@ def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     `estimate_poses_batched` and `estimate_poses_stream` on weights minted
     with torch alone, those weights through a TF checkpoint and back, one
     CPU train step of Metrabs and one of Metro, the eval metrics, an example
-    loaded from a PNG with every augmentation (`load_and_transform3d`) and
-    the mask association, in a process that never loads jax, flax, optax,
-    msgpack, ml_dtypes or `metrabs_tpu` and where cv2 cannot be imported."""
+    loaded from a PNG with every augmentation (`load_and_transform3d`), the
+    mask association, JPEG fixtures decoded to their manifest hashes and the
+    HDF5 dump refused, in a process that never loads jax, flax, optax,
+    msgpack, ml_dtypes or `metrabs_tpu` and where none of MISSING_ON_CARD
+    can be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN))
+    script = _STANDALONE_SCRIPT.format(forbidden=set(FORBIDDEN), missing=MISSING_ON_CARD)
     proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ckpt')], cwd=REPO,
                           env=env,
                           capture_output=True, text=True, timeout=300)
