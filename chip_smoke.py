@@ -143,7 +143,36 @@ line:
     warp, then `apps.eval_benchmark.main` on a pickle of the same examples.
     Prints frames/s per driver with and without the package's loading, the
     share of `jpeg.decode` in its wall time, valid boxes per frame and
-    finite metrics.
+    finite metrics;
+10. tdhp: MPI-INF-3DHP's scoring path. The port's HDF5 reader on every
+    MATLAB-layout fixture of tests/torch_fixtures/hdf5 (user block,
+    MATLAB_class attributes, chunked deflated doubles), each dataset held to
+    the SHA-256, dtype and shape h5py read in its manifest. A layout under
+    runs/ (deleted after): TS1 with 48 frames of 2048x2048 and TS5 with 40
+    of 1920x1080 (copies of the JPEG fixtures), each with its fixture
+    `annot_data.mat` (one invalid frame each), and a cameras JSON with 12
+    distortion coefficients for subj5_6. metrabs_eff2s_y4 on H36M-17 joints
+    (whose registry has mpi_inf_3dhp_17) with YOLOv4-416, loaded unfolded
+    with `fuse_mbconv='on'`: `apps.predict_3dhp.main` with its defaults (K1
+    once and K2 28 times per non-empty chunk), `apps.eval_3dhp.main` on its
+    dump (finite PCK, AUC, MPJPE), the first batch of each frame size again
+    with each K1 launch against the plain warp and K2's v against the plain
+    chain; the predictions through `save_predictions` as .npz and .h5 read
+    back equal; a MATLAB-layout file of TDHP_LARGE_FRAMES frames written by
+    the port and read, timed. Prints frames/s with and without the package's
+    loading and the decoding share;
+11. detector_train: the detector trainer (`detect.train`) on minted
+    416x416 scenes of upright figures with tight person boxes, float32,
+    batch 8, BN frozen, Adam on the cosine schedule: YOLOv4-tiny for 3 + 30
+    steps (the loss must fall) and full YOLOv4 (CSPDarknet53, mish) for 2 +
+    5 (finite), each with its median step time, images/s, one step under
+    torch.profiler (kernels, device busy share) and peak memory, no K1 or K2
+    launch; one float32 step of an initial YOLOv4-tiny on the GPU against
+    the same step on the CPU in float64; then the trained YOLOv4-tiny added
+    to a metrabs_eff2s_y4 crop-model package (`add_detector_to_package`)
+    and served folded by `detect_poses_batched` on held-out scenes, each K1
+    launch against the plain warp, with the detector's recall at IoU 0.5
+    printed.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -2134,18 +2163,91 @@ def run_app(main, argv) -> tuple:
     return seconds, result, out.getvalue(), lines[-1] if lines else ''
 
 
+class DriverRuns:
+    """Runs a benchmark driver's `main` with its package loaded through
+    `loader(method, **overrides)`, which keeps the estimator, times the
+    loading and records the arguments of each call of `method`, and with
+    `jpeg.decode` (what `improc.imread` calls) timed; K1's and K2's counts
+    are set to 0 just before the driver runs and read just after."""
+
+    def __init__(self):
+        import metrabs_tpu_torch.io.packaging as packaging
+        from metrabs_tpu_torch.data import jpeg
+
+        self.packaging, self.jpeg = packaging, jpeg
+        self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
+        self.loaded, self.calls, self.decode_spans, self.load_s = [], [], [], []
+        self.call_s = []  # seconds of each recorded call, CUDA-synchronised
+
+    def loader(self, method: str, **overrides):
+        def load(path, device='cuda'):
+            t = time.perf_counter()
+            est = self.original_load(path, device=device, **overrides)
+            self.load_s.append(time.perf_counter() - t)
+            call = getattr(est, method)
+
+            def recorded(images, *args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = call(images, *args, **kwargs)
+                self.calls.append((images, args, kwargs, int(out['valid'].sum())))
+                self.call_s.append(time.perf_counter() - t)
+                return out
+            setattr(est, method, recorded)
+            self.loaded.append(est)
+            return est
+        return load
+
+    def timed_decode(self, data, path='<bytes>'):
+        t = time.perf_counter()
+        im = self.original_decode(data, path)
+        self.decode_spans.append((t, time.perf_counter()))
+        return im
+
+    def restore(self) -> None:
+        self.packaging.load_pose_estimator = self.original_load
+        self.jpeg.decode = self.original_decode
+
+    def run(self, load, main, argv) -> dict:
+        from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+
+        for kept in (self.loaded, self.calls, self.decode_spans, self.load_s, self.call_s):
+            kept.clear()
+        self.packaging.load_pose_estimator, self.jpeg.decode = load, self.timed_decode
+        torch.cuda.synchronize()
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+        try:
+            seconds, _, _, last = run_app(main, argv)
+            torch.cuda.synchronize()
+        finally:
+            self.restore()
+        k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+        # Frames/s and the decoding share without the package's loading,
+        # which a whole benchmark run spreads over all its frames.
+        run_s = seconds - self.load_s[0]
+        return dict(seconds=seconds, run_s=run_s, load_s=self.load_s[0],
+                    decode_s=union_seconds(self.decode_spans), k1=k1, k2=k2, last=last,
+                    est=self.loaded[0], calls=list(self.calls), call_s=list(self.call_s))
+
+
+def driver_timing(r: dict, n: int) -> str:
+    return (f'{n} frames in {r["seconds"]:.2f} s = {n / r["seconds"]:.2f} frames/s, '
+            f'{r["run_s"]:.2f} s = {n / r["run_s"]:.2f} frames/s without loading the '
+            f'package ({r["load_s"]:.2f} s); decoding {r["decode_s"]:.2f} s '
+            f'({100 * r["decode_s"] / r["seconds"]:.1f}% of the wall, '
+            f'{100 * r["decode_s"] / r["run_s"]:.1f}% without the loading)')
+
+
 def bench_apps_phase(root: Path, dev) -> dict:
     """The [bench_apps] phase (module docstring). Returns the K1 and K2
     launches of the predict_3dpw and predict_h36m runs."""
     import pickle
 
-    import metrabs_tpu_torch.io.packaging as packaging
     from metrabs_tpu_torch.apps import (eval_3dpw, eval_benchmark, predict_3dpw,
                                         predict_h36m)
-    from metrabs_tpu_torch.data import jpeg
     from metrabs_tpu_torch.data.datasets import load_h36m_examples
     from metrabs_tpu_torch.models.backbones.builder import build_backbone
-    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.ops import warp_cuda
     from metrabs_tpu_torch.pipeline.skeletons import H36M_17, SMPL_24
 
     name = 'bench_apps'
@@ -2160,8 +2262,7 @@ def bench_apps_phase(root: Path, dev) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     rng = np.random.default_rng(SEED + 13)
     gen = torch.Generator().manual_seed(SEED + 13)
-    original_load = packaging.load_pose_estimator
-    original_decode = jpeg.decode
+    drivers = DriverRuns()
     try:
         t0 = time.perf_counter()
         mint_3dpw_layout(work / '3dpw', rng, root / JPEG_FIXTURES / FRAME_3DPW)
@@ -2175,65 +2276,11 @@ def bench_apps_phase(root: Path, dev) -> dict:
                     f'{IMPORT_MODEL} on SMPL-24 with a firing YOLOv4-{DETECTOR_SIZE} and on '
                     f'H36M-17')
 
-        # Each driver loads its package through `load`, which keeps the
-        # estimator, times the loading and records the arguments of each
-        # call of `method`; `jpeg.decode` (what `improc.imread` calls) is
-        # timed while the drivers run.
-        loaded, calls, decode_spans, load_s = [], [], [], []
-
-        def loader(method, **overrides):
-            def load(path, device='cuda'):
-                t = time.perf_counter()
-                est = original_load(path, device=device, **overrides)
-                load_s.append(time.perf_counter() - t)
-                call = getattr(est, method)
-
-                def recorded(images, *args, **kwargs):
-                    out = call(images, *args, **kwargs)
-                    calls.append((images, args, kwargs, int(out['valid'].sum())))
-                    return out
-                setattr(est, method, recorded)
-                loaded.append(est)
-                return est
-            return load
-
-        def timed_decode(data, path='<bytes>'):
-            t = time.perf_counter()
-            im = original_decode(data, path)
-            decode_spans.append((t, time.perf_counter()))
-            return im
-
-        def run_driver(load, main, argv):
-            for kept in (loaded, calls, decode_spans, load_s):
-                kept.clear()
-            packaging.load_pose_estimator, jpeg.decode = load, timed_decode
-            torch.cuda.synchronize()
-            warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
-            try:
-                seconds, _, _, last = run_app(main, argv)
-                torch.cuda.synchronize()
-            finally:
-                packaging.load_pose_estimator, jpeg.decode = original_load, original_decode
-            k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
-            # Frames/s and the decoding share without the package's loading,
-            # which a whole benchmark run spreads over all its frames.
-            run_s = seconds - load_s[0]
-            decode_s = union_seconds(decode_spans)
-            return dict(seconds=seconds, run_s=run_s, load_s=load_s[0], decode_s=decode_s,
-                        k1=k1, k2=k2, last=last, est=loaded[0], calls=list(calls))
-
-        def timing(r, n: int) -> str:
-            return (f'{n} frames in {r["seconds"]:.2f} s = {n / r["seconds"]:.2f} frames/s, '
-                    f'{r["run_s"]:.2f} s = {n / r["run_s"]:.2f} frames/s without loading the '
-                    f'package ({r["load_s"]:.2f} s); decoding {r["decode_s"]:.2f} s '
-                    f'({100 * r["decode_s"] / r["seconds"]:.1f}% of the wall, '
-                    f'{100 * r["decode_s"] / r["run_s"]:.1f}% without the loading)')
-
         # predict_3dpw through K1 and K2: the package loaded unfolded, fuse_mbconv on.
-        r = run_driver(loader('detect_poses_batched', cfg_overrides={'bn_fold': False},
-                              backbone_builder=functools.partial(build_backbone,
-                                                                 fuse_mbconv='on')),
-                       predict_3dpw.main, [
+        r = drivers.run(drivers.loader('detect_poses_batched', cfg_overrides={'bn_fold': False},
+                                       backbone_builder=functools.partial(build_backbone,
+                                                                          fuse_mbconv='on')),
+                        predict_3dpw.main, [
                            '--package', str(work / 'pkg_smpl'), '--root', str(work / '3dpw'),
                            '--output-path', str(work / 'pred_3dpw'), '--gtassoc'])
         est = r['est']
@@ -2259,7 +2306,7 @@ def bench_apps_phase(root: Path, dev) -> dict:
             fail(name, f'eval_3dpw metrics {metrics_3dpw}')
         phase(name, f'predict_3dpw --gtassoc (num_aug 5, batch 16, internal batch 64, '
                     f'max_detections 16, threshold 0.2), unfolded, fuse_mbconv on: '
-                    + timing(r, n_frames) + f'; valid boxes per frame '
+                    + driver_timing(r, n_frames) + f'; valid boxes per frame '
                     f'{min(boxes_per_frame):.2f}-{max(boxes_per_frame):.2f} (mean '
                     f'{statistics.mean(boxes_per_frame):.2f}) over {len(r["calls"])} calls; K1 '
                     f'{r["k1"]}, K2 {r["k2"]} ({chunks} chunks); {r["last"]}')
@@ -2301,7 +2348,7 @@ def bench_apps_phase(root: Path, dev) -> dict:
         torch.cuda.empty_cache()
 
         # predict_h36m (folded: K1 only), then eval_benchmark on the same examples.
-        r = run_driver(loader('estimate_poses_batched'), predict_h36m.main, [
+        r = drivers.run(drivers.loader('estimate_poses_batched'), predict_h36m.main, [
             '--package', str(work / 'pkg_h36m'), '--h36m-root', str(work / 'h36m'),
             '--cameras-json', cameras_json, '--output-path', str(work / 'pred_h36m.npz'),
             '--frame-step', str(BENCH_H36M['frame_step'])])
@@ -2330,7 +2377,7 @@ def bench_apps_phase(root: Path, dev) -> dict:
                 warp_err <= WARP_TOL):
             fail(name, f'one predict_h36m batch: K1 {k1_batch} ({len(warp_errs)} compared, max '
                        f'|kernel - plain| {warp_err:.3g}, tol {WARP_TOL}); distortion {distorted}')
-        phase(name, f'predict_h36m (num_aug 1, batch 16), folded: ' + timing(r, n_ex)
+        phase(name, f'predict_h36m (num_aug 1, batch 16), folded: ' + driver_timing(r, n_ex)
                     + f'; K1 {r["k1"]}, K2 {r["k2"]}; its first batch ({len(images)} frames, '
                       f'distorted cameras): K1 {k1_batch}, each against the plain warp (max '
                       f'|kernel - plain| {warp_err:.3g}, tol {WARP_TOL}); {r["last"]}')
@@ -2346,9 +2393,517 @@ def bench_apps_phase(root: Path, dev) -> dict:
         phase(name, f'eval_benchmark --benchmark h36m ({n_ex} examples, crops on the host, '
                     f'no K1): {seconds:.2f} s, ' + json.dumps(metrics))
     finally:
-        packaging.load_pose_estimator, jpeg.decode = original_load, original_decode
+        drivers.restore()
         shutil.rmtree(work, ignore_errors=True)
     return {'bench_3dpw': (k1_3dpw, k2_3dpw), 'bench_h36m': (k1_h36m, k2_h36m)}
+
+
+TDHP_DIR = 'runs/chip_smoke_tdhp'
+HDF5_FIXTURES = 'tests/torch_fixtures/hdf5'
+# MPI-INF-3DHP test sequences driven in [tdhp]: (sequence number, its
+# MATLAB-layout annotation fixture, the JPEG fixture its frames copy). TS1-4
+# are 2048x2048, TS5-6 1920x1080 with lens distortion.
+TDHP_SEQUENCES = ((1, 'TS1_annot_data.mat', 'frame_3dhp_2048x2048.jpg'),
+                  (5, 'TS5_annot_data.mat', 'frame_3dhp_1920x1080.jpg'))
+# Cameras close to 3DHP's test cameras (subj1_4 without distortion; subj5_6
+# with 12 coefficients, as `load_3dhp_test_frames` reads them).
+TDHP_CAMERAS = {
+    'subj1_4': dict(intrinsic_matrix=[[1497.7, 0, 1024.1], [0, 1497.6, 1051.1], [0, 0, 1]]),
+    'subj5_6': dict(intrinsic_matrix=[[1684.0, 0, 939.9], [0, 1672.6, 560.4], [0, 0, 1]],
+                    extrinsic_matrix=np.eye(4)[:3].tolist(),
+                    distortion=[-0.12, 0.05, 0.001, -0.0005, -0.01, 0.002, 0.0, 0.0, 0.0005,
+                                0.0, -0.0003, 0.0])}
+TDHP_LARGE_FRAMES = 6151  # frames of TS1 in the published test set: the file timed on the card
+
+
+def check_hdf5_fixtures(root: Path) -> int:
+    """Every dataset of every HDF5 fixture, read by the port's reader, equal
+    to its manifest's SHA-256, dtype and shape (h5py's read, on the machine
+    that wrote them: the card's machine has no h5py). Returns the count."""
+    import hashlib
+
+    from metrabs_tpu_torch.utils import hdf5
+
+    manifest = json.loads((root / HDF5_FIXTURES / 'manifest.json').read_text())
+    n = 0
+    for name, datasets in sorted(manifest.items()):
+        with hdf5.File(root / HDF5_FIXTURES / name) as f:
+            for key, want in sorted(datasets.items()):
+                got = np.ascontiguousarray(f[key][()])
+                if (hashlib.sha256(got.tobytes()).hexdigest() != want['sha256']
+                        or got.dtype.str != want['dtype'] or list(got.shape) != want['shape']):
+                    fail('tdhp', f'{name}/{key} reads as {got.dtype.str} {got.shape}, not as its '
+                                 f'manifest says: {want}')
+                n += 1
+    return n
+
+
+def mint_tdhp_layout(work: Path, root: Path) -> tuple:
+    """TS{n}/annot_data.mat (the fixtures) and TS{n}/imageSequence/img_%06d.jpg
+    (copies of the JPEG fixture) for every frame of TDHP_SEQUENCES, and the
+    cameras JSON. Returns (its path, frames per sequence)."""
+    from metrabs_tpu_torch.utils import hdf5
+
+    frames = {}
+    for subj, annotations, jpeg_name in TDHP_SEQUENCES:
+        seq = work / f'TS{subj}'
+        (seq / 'imageSequence').mkdir(parents=True)
+        shutil.copyfile(root / HDF5_FIXTURES / annotations, seq / 'annot_data.mat')
+        with hdf5.File(seq / 'annot_data.mat') as m:
+            frames[subj] = len(m['valid_frame'])
+        for i in range(frames[subj]):
+            shutil.copyfile(root / JPEG_FIXTURES / jpeg_name,
+                            seq / 'imageSequence' / f'img_{i + 1:06d}.jpg')
+    (work / 'cameras.json').write_text(json.dumps(TDHP_CAMERAS))
+    return str(work / 'cameras.json'), frames
+
+
+def time_large_annotations(path: Path) -> dict:
+    """A MATLAB-layout annot_data.mat of TDHP_LARGE_FRAMES frames written by
+    the port's writer (user block, MATLAB_class attributes, doubles, chunked
+    and deflated), then read as eval_3dhp reads it: seconds of each, equal
+    values."""
+    from metrabs_tpu_torch.utils import hdf5
+
+    n = TDHP_LARGE_FRAMES
+    rng = np.random.default_rng(SEED + 17)
+    annot3 = rng.normal(0, 200, (n, 1, 17, 3)) + [0, 0, 4000.0]
+    valid = np.ones((n, 1))
+    valid[::97] = 0
+    arrays = dict(valid_frame=valid, annot3=annot3, univ_annot3=annot3 * 0.95)
+    t0 = time.perf_counter()
+    hdf5.write_hdf5(path, arrays, userblock_size=512,
+                    attrs={k: {'MATLAB_class': 'double'} for k in arrays})
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with hdf5.File(path, 'r') as m:
+        read = {k: np.asarray(m[k]) for k in arrays}
+    read_s = time.perf_counter() - t0
+    if not all(np.array_equal(read[k], v) for k, v in arrays.items()):
+        fail('tdhp', 'the large annotation file reads back differently from what was written')
+    return dict(frames=n, write_s=write_s, read_s=read_s, mib=path.stat().st_size / 2**20)
+
+
+def tdhp_phase(root: Path, dev) -> dict:
+    """The [tdhp] phase (module docstring). Returns predict_3dhp's K1 and K2
+    launches."""
+    from metrabs_tpu_torch.apps import eval_3dhp, predict_3dhp
+    from metrabs_tpu_torch.eval.harness import save_predictions
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+    from metrabs_tpu_torch.utils import hdf5
+
+    name = 'tdhp'
+    n_datasets = check_hdf5_fixtures(root)
+    phase(name, f'HDF5 reader (pure Python): all {n_datasets} datasets of the MATLAB-layout '
+                f'fixtures equal their manifest (SHA-256, dtype, shape as h5py read them)')
+    work = root / TDHP_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    gen = torch.Generator().manual_seed(SEED + 19)
+    drivers = DriverRuns()
+    try:
+        t0 = time.perf_counter()
+        cameras_json, frames = mint_tdhp_layout(work / '3dhp', root)
+        bench_package(work / 'pkg', gen, H36M_17, with_detector=True)
+        phase(name, f'layout and package minted in {time.perf_counter() - t0:.1f} s: '
+                    + ', '.join(f'TS{s} {frames[s]} frames of {j[11:-4]}'
+                                for s, _, j in TDHP_SEQUENCES)
+                    + f'; {IMPORT_MODEL} on H36M-17 joints (mpi_inf_3dhp_17 in its registry) '
+                      f'with YOLOv4-{DETECTOR_SIZE}')
+
+        # predict_3dhp through K1 and K2: the package loaded unfolded, fuse_mbconv on.
+        r = drivers.run(drivers.loader('detect_poses_batched', cfg_overrides={'bn_fold': False},
+                                       backbone_builder=functools.partial(build_backbone,
+                                                                          fuse_mbconv='on')),
+                        predict_3dhp.main, [
+                            '--package', str(work / 'pkg'), '--root', str(work / '3dhp'),
+                            '--cameras-json', cameras_json,
+                            '--output-path', str(work / 'pred.npz')])
+        est = r['est']
+        chunks = sum(math.ceil(v / INTERNAL_BATCH) for *_, v in r['calls'])  # num_aug 1
+        n_pred = sum(len(images) for images, *_ in r['calls'])
+        if (r['k1'] != chunks or r['k2'] != K2_BLOCKS * chunks or chunks == 0
+                or est.cfg.bn_fold):
+            fail(name, f'predict_3dhp launched K1 {r["k1"]} and K2 {r["k2"]} times, expected '
+                       f'{chunks} and {K2_BLOCKS * chunks} ({chunks} non-empty chunks; bn_fold '
+                       f'{est.cfg.bn_fold})')
+        with np.load(work / 'pred.npz') as f:
+            paths, poses = f['image_path'], f['coords3d_pred_world']
+        if poses.shape != (n_pred, 17, 3) or not np.isfinite(poses).all() or len(paths) != n_pred:
+            fail(name, f'predict_3dhp wrote {poses.shape} poses for {len(paths)} paths, '
+                       f'expected ({n_pred}, 17, 3), finite')
+        eval_s, metrics, _, _ = run_app(eval_3dhp.main, [
+            '--pred-path', str(work / 'pred.npz'), '--root', str(work / '3dhp')])
+        if not (all(np.isfinite(metrics[k]) for k in ('pck', 'auc', 'mpjpe'))
+                and metrics['n_frames'] == n_pred):
+            fail(name, f'eval_3dhp metrics {metrics}')
+        phase(name, f'predict_3dhp (num_aug 1, batch 16, internal batch 64, max_detections 1, '
+                    f'threshold 0, flip aug, antialias 2), unfolded, fuse_mbconv on: '
+                    + driver_timing(r, n_pred) + f'; K1 {r["k1"]}, K2 {r["k2"]} ({chunks} '
+                    f'chunks over {len(r["calls"])} calls); {r["last"]}')
+        phase(name, f'eval_3dhp in {eval_s:.2f} s: ' + json.dumps(metrics, sort_keys=True))
+        for size in sorted({tuple(c[0].shape[1:3]) for c in r['calls']}, reverse=True):
+            mine = [(len(c[0]), t) for c, t in zip(r['calls'], r['call_s'])
+                    if tuple(c[0].shape[1:3]) == size]
+            n, t = sum(m[0] for m in mine), sum(m[1] for m in mine)
+            phase(name, f'{size[1]}x{size[0]}: {n} frames in {len(mine)} detect_poses_batched '
+                        f'calls, {t:.2f} s = {n / t:.2f} frames/s in the calls (decoding and '
+                        f'file I/O excluded; the first call of each size includes cuDNN\'s '
+                        f'algorithm search); per call: '
+                        + ', '.join(f'{m[1] * 1e3:.0f} ms' for m in mine))
+
+        # The first batch of each frame size again: each K1 launch against
+        # the plain warp, K2's v against the plain chain.
+        for size in sorted({tuple(images.shape[1:3]) for images, *_ in r['calls']}):
+            images, args, kwargs, _ = next(c for c in r['calls']
+                                           if tuple(c[0].shape[1:3]) == size)
+            (out, warp_errs), k1_batch, k2_batch, err_v, n_blocks = k2_v_error(
+                est, lambda: checked_warps(lambda: est.detect_poses_batched(images, *args,
+                                                                            **kwargs)))
+            warp_err = max(warp_errs, default=math.inf)
+            distorted = bool(np.any(np.asarray(kwargs['distortion_coeffs']) != 0))
+            if (n_blocks != K2_BLOCKS or err_v != 0.0 or k1_batch == 0
+                    or len(warp_errs) != k1_batch or not warp_err <= WARP_TOL):
+                fail(name, f'one predict_3dhp batch of {size[1]}x{size[0]}: K1 {k1_batch} '
+                           f'({len(warp_errs)} compared, max |kernel - plain| {warp_err:.3g}, '
+                           f'tol {WARP_TOL}), K2 {k2_batch}; K2 v max |kernel - plain| '
+                           f'{err_v:.3g} over {n_blocks} blocks (must be 0)')
+            phase(name, f'one predict_3dhp batch of {len(images)} {size[1]}x{size[0]} frames '
+                        f'(distortion {distorted}, {int(out["valid"].sum())} valid boxes): K1 '
+                        f'{k1_batch}, each against the plain warp (max |kernel - plain| '
+                        f'{warp_err:.3g}, tol {WARP_TOL}); K2 {k2_batch}, v exact (max |kernel - '
+                        f'plain| {err_v:.3g} over {n_blocks} blocks)')
+        k1_tdhp, k2_tdhp = r['k1'], r['k2']
+        del est, r, out, images
+
+        # The same predictions as NPZ and as HDF5 through save_predictions.
+        dump = dict(image_path=paths, coords3d_pred_world=poses)
+        save_predictions(str(work / 'dump.npz'), dump)
+        save_predictions(str(work / 'dump.h5'), dump)
+        with np.load(work / 'dump.npz') as f, hdf5.File(work / 'dump.h5') as h:
+            same = (np.array_equal(f['coords3d_pred_world'], poses)
+                    and np.array_equal(h['coords3d_pred_world'][()], poses)
+                    and f['image_path'].tolist() == paths.tolist()
+                    and [s.decode() for s in h['image_path'][()]] == paths.tolist())
+        if not same:
+            fail(name, 'the predictions read back from .npz and .h5 differ from those written')
+        large = time_large_annotations(work / 'large_annot_data.mat')
+        phase(name, f'predictions written through save_predictions as .npz and .h5 and read '
+                    f'back equal; a MATLAB-layout annot_data.mat of {large["frames"]} frames '
+                    f'({large["mib"]:.1f} MiB, written by the port in {large["write_s"]:.2f} s) '
+                    f'read in {large["read_s"]:.3f} s')
+    finally:
+        drivers.restore()
+        shutil.rmtree(work, ignore_errors=True)
+    return {'tdhp': (k1_tdhp, k2_tdhp)}
+
+
+DETECTOR_TRAIN_DIR = 'runs/chip_smoke_detector_train'  # the served package (deleted after)
+DET_TRAIN_SIZE = 416  # scripts/train_to_serve_e2e.py's SCENE_SIDE
+DET_TRAIN_BATCH = 8  # its --det-batch
+# (warm-up steps, timed steps, peak LR of the cosine schedule) per detector.
+# YOLOv4-tiny at scripts/train_to_serve_e2e.py's 1e-3; full YOLOv4 at 1e-4:
+# from this random start, Adam's first steps at 1e-3 (about lr * sign(g) on
+# every weight) make its 110 layers' activations and the loss overflow
+# (1e7-1e15 within a few steps in float32 CPU runs at batch 2), as BN is
+# frozen.
+DET_RUNS = {'yolov4-tiny': (3, 30, 1e-3), 'yolov4': (2, 5, 1e-4)}
+DET_SCENES = 32  # minted scenes the batches are drawn from
+DET_MAX_BOXES = 3  # ground-truth boxes per scene (and the padding of gt_boxes)
+DET_PARITY_BATCH = 2
+# The float32 GPU step against the same step on the CPU in float64 from one
+# state (an initial YOLOv4-tiny): the loss within DET_LOSS_RTOL; every
+# gradient within DET_GRAD_TOL of the model's largest gradient; the updated
+# parameters within DET_PARAM_ATOL where the reference gradient is at least
+# DET_GRAD_NOISE of the model's largest, else within 2 lr (Adam's first step
+# is about lr * sign(g), so this holds the sign of every gradient above the
+# noise). The scale is the model's largest gradient, not each tensor's: a
+# weight gradient sums thousands of products that largely cancel, and
+# float32 on an H100 (cuDNN's algorithms or native convolutions,
+# deterministic or not) left up to 1.1e-3 of some tensor's own largest
+# gradient of a trained YOLOv4-tiny but 1.8e-5 of the model's; TF32 left
+# 1.8e-3 of the model's.
+DET_LOSS_RTOL, DET_GRAD_TOL = 1e-4, 1e-4
+DET_GRAD_NOISE, DET_PARAM_ATOL = 1e-3, 1e-6
+
+
+def detector_scenes(rng, n: int, size: int = DET_TRAIN_SIZE) -> tuple:
+    """`n` uint8 scenes [n, size, size, 3]: smooth backgrounds with 1 to
+    DET_MAX_BOXES upright 'people' (a body rectangle and a head disc in a
+    flat colour), and their tight top-left (x, y, w, h) boxes."""
+    y, x = np.mgrid[:size, :size].astype(np.float32)
+    images, boxes = [], []
+    for _ in range(n):
+        im = np.stack([110 + 60 * np.sin(x / rng.uniform(20, 60) + k)
+                       * np.cos(y / rng.uniform(20, 60) - k) for k in range(3)], -1)
+        scene = []
+        for _ in range(rng.integers(1, DET_MAX_BOXES + 1)):
+            h = rng.uniform(0.25, 0.7) * size
+            w = h * rng.uniform(0.3, 0.45)
+            x0, y0 = rng.uniform(0, size - w), rng.uniform(0, size - h)
+            colour = rng.uniform(0, 255, 3)
+            head = w / 2
+            body = (x >= x0) & (x < x0 + w) & (y >= y0 + head) & (y < y0 + h)
+            disc = (x - x0 - w / 2) ** 2 + (y - y0 - head / 2) ** 2 < (head / 2) ** 2
+            im[body | disc] = colour
+            scene.append([x0, y0, w, h])
+        images.append(np.clip(im + rng.normal(0, 4, im.shape), 0, 255).astype(np.uint8))
+        boxes.append(np.float32(scene))
+    return np.stack(images), boxes
+
+
+def detector_batch(images, boxes, idx, model) -> tuple:
+    """(images [B, S, S, 3] float32 in [0, 1], targets, obj_masks, gt_boxes,
+    gt_valid) of scenes `idx`, the boxes padded to DET_MAX_BOXES (fixed
+    shapes, as scripts/train_to_serve_e2e.py pads them)."""
+    from metrabs_tpu_torch.detect.train import build_targets
+
+    anchors, strides, _ = model.decode_tables
+    targets, masks, gtb, gtv = build_targets([boxes[i] for i in idx], DET_TRAIN_SIZE,
+                                             anchors=anchors, strides=strides)
+    pad = DET_MAX_BOXES - gtb.shape[1]
+    gtb = np.pad(gtb, ((0, 0), (0, pad), (0, 0)))
+    gtv = np.pad(gtv, ((0, 0), (0, pad)))
+    return images[idx].astype(np.float32) / 255.0, targets, masks, gtb, gtv
+
+
+def initial_detector(kind: str, gen: torch.Generator):
+    """A float32 detector module of `kind` at JAX's training start
+    (`create_detector_train_state` initialises with flax's defaults): conv
+    kernels from a normal of variance 1 / fan-in drawn from `gen`, zero
+    biases, BN scale 1, shift 0 and running statistics 0 and 1 (the
+    module's own)."""
+    from metrabs_tpu_torch.detect.yolov4 import build_detector_model
+
+    model = build_detector_model(kind)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.Conv2d):
+                fan_in = module.weight[0].numel()
+                module.weight.normal_(0.0, fan_in ** -0.5, generator=gen)
+                if module.bias is not None:
+                    module.bias.zero_()
+    return model
+
+
+def train_detector(model, dev, scenes, rng, n_warmup: int, n_timed: int, lr: float,
+                   must_fall: bool, name: str) -> dict:
+    """`n_warmup` + `n_timed` steps at DET_TRAIN_BATCH of random scenes with
+    Adam on the cosine schedule from `lr` (scripts/train_to_serve_e2e.py's
+    form), then one under torch.profiler. Fails unless every loss is finite,
+    no step launched K1 or K2 and, if `must_fall`, the last steps' mean loss
+    is below the first steps'."""
+    from metrabs_tpu_torch.detect import train as det_train
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.train import optim
+
+    images, boxes = scenes
+    n_steps = n_warmup + n_timed + 1
+    tx = optim.Adam(optim.cosine_decay_schedule(lr, n_steps, alpha=0.05))
+    state = det_train.create_detector_train_state(model, tx, device=dev)
+    step = det_train.make_detector_train_step(model, tx, input_size=DET_TRAIN_SIZE)
+    batches = [detector_batch(images, boxes, rng.integers(0, len(images), DET_TRAIN_BATCH), model)
+               for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    losses, times = [], []
+    for batch in batches[:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, *batch)[1])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall_ms, busy_ms, n_kernels, _ = profile_step(
+        lambda: losses.append(step(state, *batches[-1])[1]))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if warp_cuda.warp_pyramid.launches or mbconv_cuda.fused_mbconv_inner.launches:
+        fail(name, 'a detector train step launched K1 or K2')
+    loss = torch.stack(losses).cpu()
+    window = max(2, len(loss) // 6)
+    falls = bool(loss[-window:].mean() < loss[:window].mean())
+    if not bool(torch.isfinite(loss).all()) or (must_fall and not falls):
+        fail(name, f'detector losses not finite or not falling: {loss.tolist()}')
+    step_s = statistics.median(times[n_warmup:])
+    return dict(step_s=step_s, images_s=DET_TRAIN_BATCH / step_s, wall_ms=wall_ms,
+                busy_ms=busy_ms, kernels=n_kernels, peak_gb=peak_gb, losses=loss.tolist(),
+                falls=falls, times=times, state=state)
+
+
+def detector_step_parity(model, dev, scenes) -> dict:
+    """One step (Adam, lr 1e-3) of copies of `model` on the GPU in float32
+    and on the CPU in float64 from the same state and batch
+    (DET_PARITY_BATCH scenes)."""
+    import copy
+
+    from metrabs_tpu_torch.detect import train as det_train
+    from metrabs_tpu_torch.train import optim
+
+    images, boxes = scenes
+    batch = detector_batch(images, boxes, np.arange(DET_PARITY_BATCH), model)
+    results = []
+    for where, dtype in ((dev, torch.float32), ('cpu', torch.float64)):
+        copied = copy.deepcopy(model).to(where, dtype)
+        tx = optim.Adam(1e-3)
+        grads = {}
+        apply = tx.step
+        tx.step = lambda params, g, st: (grads.update({n: v.double().cpu()
+                                                       for n, v in g.items()}),
+                                         apply(params, g, st))
+        state = det_train.create_detector_train_state(copied, tx, device=where)
+        _, loss = det_train.make_detector_train_step(copied, tx, input_size=DET_TRAIN_SIZE)(
+            state, *batch)
+        results.append((float(loss), grads, {n: p.detach().double().cpu()
+                                             for n, p in copied.named_parameters()}))
+    (gpu_loss, gpu_grads, gpu_params), (cpu_loss, cpu_grads, cpu_params) = results
+    largest = max(g.abs().max().item() for g in cpu_grads.values())
+    worst = (0.0, '', 0.0, 0.0)  # (error, tensor, its largest |g|, error over that)
+    param_err = 0.0
+    flipped = held = 0
+    for n, want in cpu_grads.items():
+        scale = want.abs().max().item()
+        err = (gpu_grads[n] - want).abs().max().item()
+        worst = max(worst, (err, n, scale, err / max(scale, 1e-30)))
+        diff = (gpu_params[n] - cpu_params[n]).abs()
+        noise = want.abs() < DET_GRAD_NOISE * largest
+        param_err = max(param_err, diff[~noise].max().item() if (~noise).any() else 0.0)
+        held += int((~noise).sum())
+        flipped += int((diff > DET_PARAM_ATOL).sum())
+        if diff.max().item() > 2e-3 + DET_PARAM_ATOL:
+            fail('detector_train', f'{n}: GPU and CPU parameters differ by '
+                                   f'{diff.max().item():.3g} after one step')
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = worst[0] / largest
+    if not (loss_err <= DET_LOSS_RTOL and grad_err <= DET_GRAD_TOL
+            and param_err <= DET_PARAM_ATOL):
+        fail('detector_train', f'float32 GPU step vs float64 CPU: loss {gpu_loss} vs {cpu_loss} '
+                               f'(rel {loss_err:.3g}), worst gradient {worst[1]} off by '
+                               f'{grad_err:.3g} of the model\'s largest |g| {largest:.3g} '
+                               f'({worst[3]:.3g} of its own {worst[2]:.3g}), max parameter error '
+                               f'{param_err:.3g} where the gradient is above noise')
+    return dict(loss_err=loss_err, grad_err=grad_err, worst=worst[1], worst_scale=worst[2],
+                worst_own=worst[3], largest=largest, param_err=param_err, flipped=flipped,
+                held=held, n_params=sum(p.numel() for p in cpu_params.values()))
+
+
+def detector_recall(est, images, boxes, threshold: float = 0.3) -> tuple:
+    """(ground-truth boxes found at IoU > 0.5, their count) by `est`'s
+    detector at `threshold` (scripts/train_to_serve_e2e.py's measure)."""
+    with torch.inference_mode():
+        boxes5, valid = est.detector.detect_batched(
+            torch.as_tensor(images, device=est.device), threshold=threshold, max_detections=8)
+    boxes5, valid = boxes5.cpu().numpy(), valid.cpu().numpy()
+    hits = total = 0
+    for i, gt in enumerate(boxes):
+        pred = boxes5[i][valid[i]][:, :4]
+        total += len(gt)
+        for g in gt:
+            if len(pred) == 0:
+                continue
+            iw = np.clip(np.minimum(g[0] + g[2], pred[:, 0] + pred[:, 2])
+                         - np.maximum(g[0], pred[:, 0]), 0, None)
+            ih = np.clip(np.minimum(g[1] + g[3], pred[:, 1] + pred[:, 3])
+                         - np.maximum(g[1], pred[:, 1]), 0, None)
+            inter = iw * ih
+            iou = inter / np.maximum(g[2] * g[3] + pred[:, 2] * pred[:, 3] - inter, 1e-9)
+            hits += int(iou.max() > 0.5)
+    return hits, total
+
+
+def detector_train_phase(root: Path, dev) -> dict:
+    """The [detector_train] phase (module docstring). Returns the K1 and K2
+    launches of the training runs and of serving the trained detector."""
+    from metrabs_tpu_torch.io.packaging import add_detector_to_package, load_pose_estimator
+    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+
+    name = 'detector_train'
+    rng = np.random.default_rng(SEED + 23)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    t0 = time.perf_counter()
+    scenes = detector_scenes(rng, DET_SCENES)
+    held_out = detector_scenes(rng, DET_TRAIN_BATCH)
+    phase(name, f'{DET_SCENES} training and {DET_TRAIN_BATCH} held-out scenes of '
+                f'{DET_TRAIN_SIZE}x{DET_TRAIN_SIZE} minted in {time.perf_counter() - t0:.1f} s '
+                f'({sum(map(len, scenes[1]))} ground-truth person boxes)')
+    runs = {}
+    for kind, (n_warm, n_timed, lr) in DET_RUNS.items():
+        model = initial_detector(kind, gen)
+        r = train_detector(model, dev, scenes, rng, n_warm, n_timed, lr,
+                           must_fall=kind == 'yolov4-tiny', name=name)
+        runs[kind] = r
+        phase(name, f'{kind}@{DET_TRAIN_SIZE} float32 batch {DET_TRAIN_BATCH}, Adam on the cosine '
+                    f'schedule ({lr:g}, alpha 0.05), BN frozen: {n_timed} timed steps after '
+                    f'{n_warm}: median {r["step_s"] * 1e3:.1f} ms/step (CUDA-synchronised), '
+                    f'{r["images_s"]:.1f} images/s; all: '
+                    + ', '.join(f'{t * 1e3:.1f}' for t in r['times'])
+                    + f'; one step under torch.profiler: wall {r["wall_ms"]:.1f} ms, device busy '
+                      f'{r["busy_ms"]:.2f} ms ({100 * r["busy_ms"] / r["wall_ms"]:.1f}%), '
+                      f'{r["kernels"]} kernels; peak memory {r["peak_gb"]:.2f} GiB; loss first '
+                      f'{r["losses"][0]:.4f}, last {r["losses"][-1]:.4f} (all: '
+                    + ', '.join(f'{v:.3f}' for v in r['losses'])
+                    + f'; falling: {r["falls"]}); K1 and K2 launches: 0')
+        if kind == 'yolov4':
+            del model, r
+            runs[kind].pop('state')
+            torch.cuda.empty_cache()
+    tiny = runs['yolov4-tiny'].pop('state').model
+    # From a state drawn on the host, so that it is the same in every run
+    # (the GPU's training runs differ at ~1e-4, and with them how far float32
+    # rounding moves a gradient that cancels).
+    parity = detector_step_parity(initial_detector('yolov4-tiny',
+                                                   torch.Generator().manual_seed(SEED + 29)),
+                                  dev, scenes)
+    phase(name, f'initial YOLOv4-tiny step, GPU float32 (TF32 off) vs CPU float64, batch '
+                f'{DET_PARITY_BATCH}: loss rel {parity["loss_err"]:.3g} (tol {DET_LOSS_RTOL}), '
+                f'gradients within {parity["grad_err"]:.3g} of the model\'s largest |g| '
+                f'{parity["largest"]:.3g} (tol {DET_GRAD_TOL}; the worst, {parity["worst"]}, '
+                f'{parity["worst_own"]:.3g} of its own largest {parity["worst_scale"]:.3g}), '
+                f'parameters within {parity["param_err"]:.3g} where the gradient is above '
+                f'{DET_GRAD_NOISE} of the model\'s largest ({parity["held"]} of '
+                f'{parity["n_params"]}; tol {DET_PARAM_ATOL}); {parity["flipped"]} parameters '
+                f'differ by more')
+
+    # The trained tiny detector joins a crop-model package and serves.
+    work = root / DETECTOR_TRAIN_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        bench_package(work / 'pkg', gen, H36M_17, with_detector=False)
+        trained = {k: v.detach().cpu() for k, v in tiny.state_dict().items()}
+        add_detector_to_package(str(work / 'pkg'), flax_variables_from_state_dict(trained),
+                                detector_type='yolov4-tiny', detector_dtype='float32',
+                                detector_input_size=DET_TRAIN_SIZE)
+        del tiny
+        est = load_pose_estimator(str(work / 'pkg'), device=dev)
+        hits, total = detector_recall(est, *held_out)
+        frames = torch.as_tensor(held_out[0], device=dev)
+        run = lambda: est.detect_poses_batched(frames, num_aug=NUM_AUG, max_detections=4,
+                                               detector_threshold=0.0,
+                                               internal_batch_size=INTERNAL_BATCH)
+        run()  # warm-up (cuDNN algorithm selection)
+        torch.cuda.synchronize()
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+        out, warp_errs = checked_warps(run)
+        torch.cuda.synchronize()
+        k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+        warp_err = max(warp_errs, default=math.inf)
+        detected = out['boxes'][..., 4] > 0
+        if (k1 == 0 or k2 != 0 or len(warp_errs) != k1 or not warp_err <= WARP_TOL
+                or not bool(torch.isfinite(out['poses3d'][detected]).all())):
+            fail(name, f'serving the trained detector: K1 {k1} ({len(warp_errs)} compared, max '
+                       f'|kernel - plain| {warp_err:.3g}), K2 {k2}; finite poses '
+                       f'{bool(torch.isfinite(out["poses3d"][detected]).all())}')
+        phase(name, f'the trained YOLOv4-tiny added to a {IMPORT_MODEL} crop-model package '
+                    f'(add_detector_to_package) and served folded by detect_poses_batched on '
+                    f'the {DET_TRAIN_BATCH} held-out scenes (threshold 0, max_detections 4, '
+                    f'num_aug {NUM_AUG}): {int(detected.sum())} detections, finite poses; K1 '
+                    f'{k1}, each against the plain warp (max |kernel - plain| {warp_err:.3g}, '
+                    f'tol {WARP_TOL}), K2 {k2}; recall at IoU 0.5 and threshold 0.3 on the '
+                    f'held-out scenes: {hits} of {total}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {'detector_train': (0, 0), 'serve_trained_detector': (k1, k2)}
 
 
 def main() -> None:
@@ -2664,6 +3219,21 @@ def main() -> None:
     by_path.update(bench_apps_phase(root, dev))
     phase('bench_apps', f'{time.perf_counter() - start:.1f} s')
 
+    # 10. MPI-INF-3DHP's scoring path on 2048x2048 and 1920x1080 frames.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(tdhp_phase(root, dev))
+    phase('tdhp', f'{time.perf_counter() - start:.1f} s')
+
+    # 11. The detector trainer, then the trained detector served.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(detector_train_phase(root, dev))
+    phase('detector_train', f'{time.perf_counter() - start:.1f} s')
+
+    # The card's name and power limit again, where a tail of the output keeps
+    # them beside the numbers.
+    print(card, flush=True)
     # No single PyTorch call computes either kernel's function: library_ms is
     # null (the unfused cuDNN chain's time stands beside K2 as unfused_ms).
     k2_main = k2_results[K2_MAIN_CASE]

@@ -7,9 +7,9 @@ pickles, MuPoTS `annot.mat` (scipy.io), the generic NPZ layout, Human3.6M
 (CDF poses through `utils/cdf.py`, cameras from the community JSON export or
 the release's `metadata.xml`), 3DOH50K's JSON and ASPset-510's CSV/JSON
 (`#frame=N` paths into its videos, which `imread` refuses until a video
-decoder is ported). MPI-INF-3DHP's `annot_data.mat` is MATLAB v7.3, that
-is HDF5, and the card's machine has no HDF5 reader: `load_3dhp_test_frames`
-parses its cameras and raises where it would open that file (ROADMAP.md).
+decoder is ported) and MPI-INF-3DHP's test set, whose `annot_data.mat` is
+MATLAB v7.3, that is HDF5, read by the port's own `utils/hdf5.py` (the
+card's machine has no h5py).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 
 from metrabs_tpu_torch.data.camera import Camera
 from metrabs_tpu_torch.data.loading import Example3D
-from metrabs_tpu_torch.utils import matlabfile
+from metrabs_tpu_torch.utils import hdf5, matlabfile
 
 
 def boxes_from_joints(imcoords: np.ndarray, margin: float = 0.1) -> np.ndarray:
@@ -444,10 +444,6 @@ def load_3dhp_test_frames(root: str, camera_json: str):
     "distortion"?}, "subj5_6": {...}} — the posepile
     get_test_camera_subj1_4/5_6 constants exported once).
 
-    In the port: raises NotImplementedError for the first sequence whose
-    `annot_data.mat` exists (no HDF5 reader on the card's machine); returns
-    [] when there is none, as JAX does.
-
     Returns [(sequence_name, frame_paths, camera)] — the 3DHP protocol runs
     the DETECTOR (max_detections=1), so there are no ground-truth boxes and
     the output of this adapter feeds apps/predict_3dhp rather than Example3D
@@ -470,13 +466,18 @@ def load_3dhp_test_frames(root: str, camera_json: str):
             if d.get('distortion') else None,
             world_up=(0, 1, 0))
 
-    make_cam(cams['subj1_4'])  # parsed (and checked) as JAX parses them
-    make_cam(cams['subj5_6'])
+    cam1_4 = make_cam(cams['subj1_4'])
+    cam5_6 = make_cam(cams['subj5_6'])
+    sequences = []
     for subj in range(1, 7):
         annot_path = os.path.join(root, f'TS{subj}', 'annot_data.mat')
         if not os.path.exists(annot_path):
             continue
-        raise NotImplementedError(
-            f'{annot_path}: MATLAB v7.3 (HDF5) files cannot be read yet: the port has no '
-            f'HDF5 reader (ROADMAP.md, "HDF5 reader"), so MPI-INF-3DHP is not ported')
-    return []
+        with hdf5.File(annot_path, 'r') as m:
+            valid_frames = np.where(np.asarray(m['valid_frame'])[:, 0])[0]
+        frame_paths = [
+            os.path.join(root, f'TS{subj}', 'imageSequence',
+                         f'img_{i + 1:06d}.jpg') for i in valid_frames]
+        sequences.append((f'TS{subj}', frame_paths,
+                          cam1_4 if subj <= 4 else cam5_6))
+    return sequences

@@ -2,8 +2,9 @@
 which runs a crop model over a test set's examples to make a prediction
 dump, the per-benchmark protocols (3DPW's 14 joints with PCK at 50 mm, H36M,
 3DHP, MuPoTS, 3DOH, ASPset), `evaluate_predictions` over a dump, the NPZ
-dump writer (HDF5 dumps raise: no h5py on the card's machine), and the
-matched multi-person metrics of the MuPoTS protocol.
+dump writers (NPZ, and HDF5 through the port's own `utils/hdf5.py`: the
+card's machine has no h5py), and the matched multi-person metrics of the
+MuPoTS protocol.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from metrabs_tpu_torch.data.loading import Example3D, LoadConfig, load_and_trans
 from metrabs_tpu_torch.data.pipeline import ParallelBatchLoader
 from metrabs_tpu_torch.eval import metrics as metrics_mod
 from metrabs_tpu_torch.pipeline.estimator import checked_device
+from metrabs_tpu_torch.utils.hdf5 import write_hdf5
 from metrabs_tpu_torch.utils.joint_info import JointInfo
 
 
@@ -150,14 +152,19 @@ def save_predictions_npz(path: str, preds: Dict[str, np.ndarray]) -> None:
     np.savez_compressed(path, **preds)
 
 
+def save_predictions_hdf5(path: str, preds: Dict[str, np.ndarray]) -> None:
+    """HDF5 prediction dump (`metrabs_tpu/eval/harness.py::save_predictions_hdf5`,
+    which writes it with h5py): numeric arrays chunked and gzip-compressed at
+    h5py's level 4, string arrays as variable-length UTF-8."""
+    write_hdf5(path, {key: np.asarray(value) for key, value in preds.items()})
+
+
 def save_predictions(path: str, preds: Dict[str, np.ndarray]) -> None:
-    """NPZ. A .h5 or .hdf5 path raises NotImplementedError: the card's
-    machine has no HDF5 writer (F5; ROADMAP.md, "HDF5 reader")."""
+    """Dispatches on extension: .h5/.hdf5 -> HDF5, otherwise NPZ."""
     if path.endswith(('.h5', '.hdf5')):
-        raise NotImplementedError(
-            f'{path}: HDF5 prediction dumps are not ported (no h5py on the GPU machine; '
-            f'ROADMAP.md, "HDF5 reader"); write an .npz path instead')
-    save_predictions_npz(path, preds)
+        save_predictions_hdf5(path, preds)
+    else:
+        save_predictions_npz(path, preds)
 
 
 def matched_pose_metrics(preds_per_frame, gts_per_frame, threshold_mm: float = 150.0,

@@ -15,7 +15,9 @@ with optax), as plain tensor functions that match optax step for step:
  - `optax.MultiSteps` accumulation: a running mean of the gradients, and a
    real update every `grad_accum_steps`-th micro-step;
  - the EMA of the parameters and the max-norm projection of the backbone's
-   conv kernels (`ema_update`, `project_kernel_norms`).
+   conv kernels (`ema_update`, `project_kernel_norms`);
+ - `optax.adam` with a constant LR or `optax.cosine_decay_schedule`
+   (`Adam`, `cosine_decay_schedule`), the detector trainer's optimizer.
 
 Schedules compute in float32, as the JAX ones do under `jnp`.
 """
@@ -161,24 +163,71 @@ class Optimizer:
         return True
 
     def _adamw(self, names: List[str], params, grads, adam: AdamState, schedule) -> None:
-        if not names:
-            return
-        lr = schedule(adam.count)
-        adam.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(B1) ** f32(adam.count))
-        bc2 = float(f32(1) - f32(B2) ** f32(adam.count))
-        p = [params[n] for n in names]
-        g = [grads[n] for n in names]
-        mu = _moment_update(g, [adam.mu[n] for n in names], B1)
-        nu = _moment_update(torch._foreach_mul(g, g), [adam.nu[n] for n in names], B2)
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
-        u = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        u = torch._foreach_add(u, torch._foreach_mul(p, self.weight_decay))
-        torch._foreach_add_(p, torch._foreach_mul(u, -lr))
-        for name, m, v in zip(names, mu, nu):
-            adam.mu[name] = m.to(adam.mu[name].dtype)
-            adam.nu[name] = v
+        _adam_update(names, params, grads, adam, schedule, self.weight_decay)
+
+
+def _adam_update(names: List[str], params, grads, adam: AdamState, schedule,
+                 weight_decay: float = 0.0) -> None:
+    """One optax Adam update of `names` in place, with decoupled weight
+    decay if `weight_decay` (optax.adamw), at the LR `schedule(count)`."""
+    if not names:
+        return
+    lr = schedule(adam.count)
+    adam.count += 1
+    f32 = np.float32
+    bc1 = float(f32(1) - f32(B1) ** f32(adam.count))
+    bc2 = float(f32(1) - f32(B2) ** f32(adam.count))
+    p = [params[n] for n in names]
+    g = [grads[n] for n in names]
+    mu = _moment_update(g, [adam.mu[n] for n in names], B1)
+    nu = _moment_update(torch._foreach_mul(g, g), [adam.nu[n] for n in names], B2)
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
+    u = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+    if weight_decay:
+        u = torch._foreach_add(u, torch._foreach_mul(p, weight_decay))
+    torch._foreach_add_(p, torch._foreach_mul(u, -lr))
+    for name, m, v in zip(names, mu, nu):
+        adam.mu[name] = m.to(adam.mu[name].dtype)
+        adam.nu[name] = v
+
+
+class Adam:
+    """`optax.adam(learning_rate)` (b1 0.9, b2 0.999, eps 1e-8, no weight
+    decay) over a dict of named float32 parameters, updated in place:
+    p -= lr(count) * m_hat / (sqrt(v_hat) + eps), the schedule read at the
+    count before its increment. `learning_rate` is a number or a schedule
+    of the count (`cosine_decay_schedule`). The detector trainer's
+    optimizer; the crop-model trainer's is `Optimizer`."""
+
+    def __init__(self, learning_rate):
+        self.schedule = (learning_rate if callable(learning_rate)
+                         else lambda count: float(np.float32(learning_rate)))
+
+    def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
+        return AdamState(0, {n: torch.zeros_like(p) for n, p in params.items()},
+                         {n: torch.zeros_like(p) for n, p in params.items()})
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+             state: AdamState) -> None:
+        _adam_update(list(params), params, grads, state, self.schedule)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """`optax.cosine_decay_schedule` in float32: init_value * ((1 - alpha) *
+    0.5 * (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha)."""
+    if not decay_steps > 0:
+        raise ValueError(f'The cosine_decay_schedule requires positive decay_steps, got '
+                         f'decay_steps={decay_steps}.')
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(min(count, decay_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay_steps)))
+        return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+    return schedule
 
 
 def _moment_update(values: List[torch.Tensor], moments: List[torch.Tensor],

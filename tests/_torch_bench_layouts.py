@@ -295,3 +295,35 @@ class StubEstimator:
         poses3d = np.concatenate([poses2d * 3, 4000 + 50 * frac[..., :1]], -1)
         return dict(poses3d=poses3d.astype(np.float32), poses2d=poses2d.astype(np.float32),
                     boxes=np.zeros((b, d, 5), np.float32), valid=valid)
+
+
+def tdhp_cameras(scale: float = 1.0) -> dict:
+    """MPI-INF-3DHP's test cameras as `load_3dhp_test_frames` reads them, for
+    frames scaled by `scale`: TS1-4 (2048x2048) without distortion, TS5-6
+    (1920x1080) with 12 distortion coefficients, extrinsics identity (3x4)."""
+    k14 = np.array([[1497.7, 0, 1024.1], [0, 1497.6, 1051.1], [0, 0, 1]])
+    k56 = np.array([[1684.0, 0, 939.9], [0, 1672.6, 560.4], [0, 0, 1]])
+    s = np.diag([scale, scale, 1.0])
+    return {'subj1_4': dict(intrinsic_matrix=(s @ k14).tolist()),
+            'subj5_6': dict(intrinsic_matrix=(s @ k56).tolist(),
+                            extrinsic_matrix=np.eye(4)[:3].tolist(),
+                            distortion=[-0.12, 0.05, 0.001, -0.0005, -0.01, 0.002, 0.0, 0.0,
+                                        0.0005, 0.0, -0.0003, 0.0])}
+
+
+def mint_3dhp(root: Path, sequences: dict, frame_hw: dict, scale: float, seed: int = 0) -> str:
+    """TS{n}/annot_data.mat in MATLAB's layout (h5py, tests/_torch_hdf5_
+    fixtures.py) and TS{n}/imageSequence/img_%06d.jpg for `sequences`
+    {n: (frames, invalid frames)}, frames of `frame_hw[n]`; returns the
+    cameras JSON's path."""
+    import _torch_hdf5_fixtures as hdf5_fixtures
+    for subj, (n_frames, invalid) in sequences.items():
+        seq = root / f'TS{subj}'
+        (seq / 'imageSequence').mkdir(parents=True)
+        arrays = hdf5_fixtures.matlab_annotations(n_frames, invalid, seed=seed + subj)
+        hdf5_fixtures.write_matlab_h5py(seq / 'annot_data.mat', arrays)
+        for i in range(n_frames):
+            write_jpeg(seq / 'imageSequence' / f'img_{i + 1:06d}.jpg', *frame_hw[subj],
+                       seed=seed + 100 * subj + i)
+    (root / 'cameras.json').write_text(json.dumps(tdhp_cameras(scale)))
+    return str(root / 'cameras.json')

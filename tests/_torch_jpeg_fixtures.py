@@ -7,9 +7,10 @@ machine has no cv2; `chip_smoke.py` holds the decoder to these hashes there.
 
 The set: the five chroma samplings and gray, progressive, restart
 intervals, odd sizes down to 1x1, qualities 30 and 100, EXIF orientations
-1-8 (an APP1 segment spliced in after SOI), and two full-size frames of
-synthetic content: a portrait 1080x1920 (3DPW's frames) and a 1000x1002
-(Human3.6M's), each at most 400 KiB.
+1-8 (an APP1 segment spliced in after SOI), and four full-size frames of
+synthetic content: a portrait 1080x1920 (3DPW's frames), a 1000x1002
+(Human3.6M's), a 2048x2048 and a landscape 1920x1080 (MPI-INF-3DHP's test
+sequences TS1-4 and TS5-6), each at most 400 KiB.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ FIXTURE_DIR = Path(__file__).resolve().parent / 'torch_fixtures' / 'jpeg'
 MANIFEST = FIXTURE_DIR / 'manifest.json'
 FRAME_3DPW = 'frame_3dpw_1080x1920.jpg'  # width x height, portrait
 FRAME_H36M = 'frame_h36m_1000x1002.jpg'
+FRAME_3DHP_TS1 = 'frame_3dhp_2048x2048.jpg'  # MPI-INF-3DHP's TS1-4 frames
+FRAME_3DHP_TS5 = 'frame_3dhp_1920x1080.jpg'  # its TS5-6 frames (landscape)
 MAX_FRAME_BYTES = 400 * 1024
 
 
@@ -88,7 +91,9 @@ def fixture_specs():
     ]
     specs += [(f'exif_orientation{o}_40x64.jpg', 40, 64, False, {q: 90}, o) for o in range(1, 9)]
     specs += [(FRAME_3DPW, 1920, 1080, False, {q: 85}, None),
-              (FRAME_H36M, 1002, 1000, False, {q: 85}, None)]
+              (FRAME_H36M, 1002, 1000, False, {q: 85}, None),
+              (FRAME_3DHP_TS1, 2048, 2048, False, {q: 75}, None),
+              (FRAME_3DHP_TS5, 1080, 1920, False, {q: 75}, None)]
     return specs
 
 

@@ -26,6 +26,9 @@ from _torch_train import one_torch_thread  # noqa: F401 (fixture)
 PA_MPJPE_RTOL = 1e-5
 # eval_benchmark's metrics through torch against JAX's evaluate_predictions.
 METRIC_RTOL = 1e-5
+# Predicted poses of the port's estimator against JAX's on one package
+# (tests/test_torch_estimator.py's tolerance).
+POSE_TOL = dict(atol=1.0, rtol=1e-3)
 
 
 @pytest.fixture
@@ -302,24 +305,49 @@ def test_viz_dir_raises(tmp_path, driver):
 
 
 def test_eval_benchmark_hdf5_dump_raises(tmp_path, tiny_package, one_torch_thread):
-    """F5: `--pred-out x.h5` needed h5py, which the card's machine lacks."""
+    """(The name is from F5's repair, when `--pred-out x.h5` raised: h5py,
+    which the card's machine lacks, wrote it.) The port's `eval_benchmark`
+    and JAX's on the same examples and package, each with `--pred-out
+    x.h5`: h5py reads both dumps alike (keys, dtypes, shapes; the
+    predicted poses within POSE_TOL, the rest equal), and the port's reader
+    reads the port's dump as h5py does."""
+    import h5py
+
+    from metrabs_tpu.apps import eval_benchmark as jax_eval_benchmark
     from metrabs_tpu_torch.apps import eval_benchmark
     from metrabs_tpu_torch.data.camera import Camera
     from metrabs_tpu_torch.data.loading import Example3D
-    layouts.write_jpeg(tmp_path / 'f.jpg', 80, 60, seed=0)
+    from metrabs_tpu_torch.utils import hdf5
     cam = Camera(intrinsic_matrix=np.float32([[100, 0, 30], [0, 100, 40], [0, 0, 1]]),
                  world_up=(0, -1, 0))
-    pose = np.random.default_rng(9).normal(0, 200, (17, 3)) + [0, 0, 3000]
-    example = Example3D(image_path=str(tmp_path / 'f.jpg'), camera=cam,
-                        bbox=np.float32([10, 10, 40, 60]), world_coords=pose.astype(np.float32))
-    (tmp_path / 'ex.pkl').write_bytes(pickle.dumps([example]))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        eval_benchmark.main(['--package', tiny_package, '--examples', str(tmp_path / 'ex.pkl'),
-                             '--pred-out', str(tmp_path / 'p.h5'), '--device', 'cpu'])
+    examples = []
+    for i in range(3):
+        layouts.write_jpeg(tmp_path / f'f{i}.jpg', 80, 60, seed=i)
+        pose = np.random.default_rng(9 + i).normal(0, 200, (17, 3)) + [0, 0, 3000]
+        examples.append(Example3D(image_path=str(tmp_path / f'f{i}.jpg'), camera=cam,
+                                  bbox=np.float32([10, 10, 40, 60]),
+                                  world_coords=pose.astype(np.float32)))
+    (tmp_path / 'ex.pkl').write_bytes(pickle.dumps(examples))
+    argv = ['--package', tiny_package, '--examples', str(tmp_path / 'ex.pkl'), '--workers', '1']
+    eval_benchmark.main(argv + ['--pred-out', str(tmp_path / 'port.h5'), '--device', 'cpu'])
+    jax_eval_benchmark.main(argv + ['--pred-out', str(tmp_path / 'jax.h5')])
+    with h5py.File(tmp_path / 'port.h5', 'r') as ours, h5py.File(tmp_path / 'jax.h5') as theirs:
+        assert sorted(ours) == sorted(theirs) and 'poses3d_pred_cam' in ours
+        for k in theirs:
+            assert ours[k].dtype == theirs[k].dtype and ours[k].shape == theirs[k].shape, k
+            assert ours[k].compression == theirs[k].compression, k
+            if 'pred' in k:
+                np.testing.assert_allclose(ours[k][()], theirs[k][()], **POSE_TOL, err_msg=k)
+            else:
+                np.testing.assert_array_equal(ours[k][()], theirs[k][()], err_msg=k)
+        with hdf5.File(tmp_path / 'port.h5') as port_read:
+            for k in ours:
+                np.testing.assert_array_equal(port_read[k][()], ours[k][()], err_msg=k)
 
 
 @pytest.mark.parametrize('driver', ['predict_h36m', 'predict_3doh', 'predict_mupots',
-                                    'predict_3dpw', 'eval_benchmark', 'eval_3dpw'])
+                                    'predict_3dpw', 'eval_benchmark', 'eval_3dpw',
+                                    'predict_3dhp'])
 def test_drivers_default_to_cuda_and_raise_without_it(tmp_path, tiny_package, monkeypatch,
                                                       driver):
     import importlib
@@ -332,7 +360,9 @@ def test_drivers_default_to_cuda_and_raise_without_it(tmp_path, tiny_package, mo
         predict_mupots=['--root', str(tmp_path), '--output-path', 'o.npz'],
         predict_3dpw=['--root', str(tmp_path), '--output-path', 'o'],
         eval_benchmark=['--examples', 'e.pkl'],
-        eval_3dpw=['--pred-path', str(tmp_path), '--root', str(tmp_path)])[driver]
+        eval_3dpw=['--pred-path', str(tmp_path), '--root', str(tmp_path)],
+        predict_3dhp=['--root', str(tmp_path), '--cameras-json', 'c.json',
+                      '--output-path', 'o.npz'])[driver]
     if driver != 'eval_3dpw':
         argv = ['--package', tiny_package] + argv
     with pytest.raises(RuntimeError, match="needs CUDA.*device='cpu'"):

@@ -142,7 +142,13 @@ def test_aspset_examples_match_jax(tmp_path, rng, frame_step):
 
 
 def test_3dhp_test_frames_raise_where_the_hdf5_annotations_are(tmp_path):
+    """(The name is from when the port raised at `annot_data.mat`: it reads
+    it now, with its own HDF5 reader.) No annotation file: no sequence, as
+    in JAX; TS2's MATLAB-layout file: the same sequence as JAX's; a file
+    that only starts like HDF5 raises; the cameras are parsed first."""
     import json
+
+    import _torch_hdf5_fixtures as hdf5_fixtures
     cams = {'subj1_4': dict(intrinsic_matrix=np.eye(3).tolist()),
             'subj5_6': dict(intrinsic_matrix=np.eye(3).tolist(), distortion=[0.1, 0, 0, 0, 0])}
     cam_json = tmp_path / 'cams.json'
@@ -150,8 +156,16 @@ def test_3dhp_test_frames_raise_where_the_hdf5_annotations_are(tmp_path):
     assert datasets.load_3dhp_test_frames(str(tmp_path), str(cam_json)) == []
     assert jax_datasets.load_3dhp_test_frames(str(tmp_path), str(cam_json)) == []
     (tmp_path / 'TS2').mkdir()
+    hdf5_fixtures.write_matlab_h5py(tmp_path / 'TS2' / 'annot_data.mat',
+                                    hdf5_fixtures.matlab_annotations(9, [0, 4], seed=3))
+    ours = datasets.load_3dhp_test_frames(str(tmp_path), str(cam_json))
+    theirs = jax_datasets.load_3dhp_test_frames(str(tmp_path), str(cam_json))
+    assert [(s[0], s[1]) for s in ours] == [(s[0], s[1]) for s in theirs]
+    assert ours[0][0] == 'TS2' and len(ours[0][1]) == 7
+    assert ours[0][1][0].endswith('TS2/imageSequence/img_000002.jpg')
+    np.testing.assert_array_equal(ours[0][2].intrinsic_matrix, theirs[0][2].intrinsic_matrix)
     (tmp_path / 'TS2' / 'annot_data.mat').write_bytes(b'\x89HDF\r\n\x1a\n')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+    with pytest.raises(ValueError, match='truncated'):
         datasets.load_3dhp_test_frames(str(tmp_path), str(cam_json))
     with pytest.raises(KeyError):  # the cameras are parsed first, as in JAX
         (tmp_path / 'bad.json').write_text('{}')

@@ -8,8 +8,8 @@ its copies of the JAX package's framework-free modules (config with the
 training hyperparameters, joint info, TTA schedules, skeletons, bone
 priors, the host data pipeline, the registry of released models, the TF
 checkpoint reader and writer, the bone-length statistics, the RLE mask
-codec and mask IoU, the evaluation's association and its numpy metrics)
-agree with the originals. Also F1's regression test: a train-mode MBConv
+codec and mask IoU, the evaluation's association and its numpy metrics,
+the adaptive pose samplers) agree with the originals. Also F1's regression test: a train-mode MBConv
 never runs the fused chain.
 """
 
@@ -33,6 +33,8 @@ from metrabs_tpu.pipeline import skeletons as jax_skeletons
 from metrabs_tpu.pipeline import tta as jax_tta
 from metrabs_tpu_torch import config
 from metrabs_tpu_torch.data import pipeline as data
+from metrabs_tpu_torch.detect import train as detector_train
+from metrabs_tpu_torch.detect.yolov4 import YOLOv4Tiny
 from metrabs_tpu_torch.eval import harness, metrics
 from metrabs_tpu_torch.io import packaging
 from metrabs_tpu_torch.models import registry
@@ -183,11 +185,43 @@ for name in ('progressive_s420_61x75.jpg', 'exif_orientation6_40x64.jpg', 'gray_
     im = imread(fixtures + '/' + name)
     assert hashlib.sha256(im.tobytes()).hexdigest() == manifest[name]['sha256_rgb'], name
 from metrabs_tpu_torch.eval import harness
-try:
-    harness.save_predictions(sys.argv[1] + '.h5', dict(x=np.zeros(2)))
-    raise AssertionError('an HDF5 dump was written')
-except NotImplementedError:
-    pass
+from metrabs_tpu_torch.utils import hdf5
+dumped = dict(x=np.arange(6.0).reshape(2, 3), names=np.array(['a', 'b']), ok=np.array([True, False]))
+harness.save_predictions(sys.argv[1] + '.h5', dumped)
+with hdf5.File(sys.argv[1] + '.h5') as f:
+    assert np.array_equal(f['x'][()], dumped['x']) and f['ok'].dtype == bool
+    assert f['names'][()].tolist() == [b'a', b'b']
+import os, shutil
+fixtures = 'tests/torch_fixtures/hdf5'
+manifest = json.load(open(fixtures + '/manifest.json'))['TS1_annot_data.mat']
+root = sys.argv[1] + '_3dhp'
+os.makedirs(root + '/TS1')
+shutil.copy(fixtures + '/TS1_annot_data.mat', root + '/TS1/annot_data.mat')
+with hdf5.File(root + '/TS1/annot_data.mat') as m:
+    for key, want in manifest.items():
+        got = np.ascontiguousarray(m[key][()])
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want['sha256'], key
+    annot3 = m['annot3'][()]
+json.dump({{'subj1_4': {{'intrinsic_matrix': np.eye(3).tolist()}},
+           'subj5_6': {{'intrinsic_matrix': np.eye(3).tolist()}}}}, open(root + '/cams.json', 'w'))
+from metrabs_tpu_torch.data.datasets import load_3dhp_test_frames
+(seq, paths, cam), = load_3dhp_test_frames(root, root + '/cams.json')
+assert seq == 'TS1' and len(paths) == 47, (seq, len(paths))
+frames = [int(p[-10:-4]) - 1 for p in paths]
+np.savez(root + '/p.npz', image_path=np.array(paths), coords3d_pred_world=annot3[frames, 0])
+from metrabs_tpu_torch.apps import eval_3dhp
+scores = eval_3dhp.main(['--pred-path', root + '/p.npz', '--root', root])
+assert scores['pck'] == 100.0 and scores['mpjpe'] == 0.0 and scores['n_frames'] == 47
+from metrabs_tpu_torch.detect import train as det_train
+from metrabs_tpu_torch.detect.yolov4 import YOLOv4Tiny
+det_tx = optim.Adam(optim.cosine_decay_schedule(1e-3, 10, 0.05))
+det = YOLOv4Tiny()
+det_state = det_train.create_detector_train_state(det, det_tx, device='cpu')
+det_targets = det_train.build_targets([np.float32([[4, 4, 20, 24]])], 32)
+det_images = np.random.default_rng(0).uniform(size=(1, 32, 32, 3)).astype(np.float32)
+det_state, det_loss = det_train.make_detector_train_step(det, det_tx, input_size=32)(
+    det_state, det_images, *det_targets)
+assert det_state.step == 1 and bool(det_loss.isfinite())
 leaked = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split('.')[0] in {forbidden!r})
 assert not leaked, leaked
@@ -201,8 +235,11 @@ def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     with torch alone, those weights through a TF checkpoint and back, one
     CPU train step of Metrabs and one of Metro, the eval metrics, an example
     loaded from a PNG with every augmentation (`load_and_transform3d`), the
-    mask association, JPEG fixtures decoded to their manifest hashes and the
-    HDF5 dump refused, in a process that never loads jax, flax, optax,
+    mask association, JPEG fixtures decoded to their manifest hashes, an
+    HDF5 dump written and read back by the port's own HDF5 code, the
+    MATLAB-layout 3DHP fixture read to its manifest hashes through
+    `load_3dhp_test_frames` and scored by `eval_3dhp`, and one detector
+    train step, in a process that never loads jax, flax, optax,
     msgpack, ml_dtypes or `metrabs_tpu` and where none of MISSING_ON_CARD
     can be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -228,7 +265,7 @@ def no_cuda(monkeypatch):
                                    'yolov8_from_variables', 'estimate_poses_stream',
                                    'detect_poses_stream', 'detect_poses_pipelined',
                                    'compute_pose3d_metrics', 'evaluate_predictions',
-                                   'predict_dataset'])
+                                   'predict_dataset', 'create_detector_train_state'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     families = dict(model_config={}, model_class='model25d', detector_type='yolov8m')
     default_estimator = lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
@@ -238,6 +275,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, en
     calls = dict(
         compute_pose3d_metrics=lambda: metrics.compute_pose3d_metrics(
             poses, poses, np.ones((2, 17), bool)),
+        create_detector_train_state=lambda: detector_train.create_detector_train_state(
+            YOLOv4Tiny(), optim.Adam(1e-3)),
         predict_dataset=lambda: harness.predict_dataset(
             lambda c, k, v: None, [None], skeletons.H36M_17, config.ModelConfig()),
         evaluate_predictions=lambda: harness.evaluate_predictions(dict(
@@ -493,9 +532,31 @@ def _copies_harness(rng):
                 == theirs.matched_pose_metrics(preds, gts, **kwargs))
 
 
+def _copies_pose_sampler(rng):
+    """The same keep/skip decisions on random walks with NaN joints, for
+    every option, and the same file."""
+    from metrabs_tpu.utils import pose_sampler as theirs
+    from metrabs_tpu_torch.utils import pose_sampler as ours
+    assert Path(ours.__file__).read_bytes() == Path(theirs.__file__).read_bytes()
+    poses = np.cumsum(rng.normal(0, 15, (60, 17, 3)), axis=0)
+    poses[rng.random((60, 17)) < 0.1] = np.nan
+    poses[0, :5] = np.nan
+    for check, nan_unchanged in itertools.product([False, True], repeat=2):
+        samplers = [(ours.AdaptivePoseSampler(100.0, check, nan_unchanged),
+                     theirs.AdaptivePoseSampler(100.0, check, nan_unchanged))]
+        samplers += [(ours.AdaptivePoseSampler2(100.0, check, nan_unchanged, n),
+                      theirs.AdaptivePoseSampler2(100.0, check, nan_unchanged, n))
+                     for n in (1, 4)]
+        for a, b in samplers:
+            decisions = [a.should_skip(p) for p in poses]
+            assert decisions == [b.should_skip(p) for p in poses]
+            assert 0 < sum(decisions) < len(poses)
+
+
 @pytest.mark.parametrize('check', [_copies_rlemask, _copies_mask_iou, _copies_bone_length_stats,
-                                   _copies_association, _copies_harness],
-                         ids=['rlemask', 'mask_iou', 'bone_length_stats', 'association', 'harness'])
+                                   _copies_association, _copies_harness, _copies_pose_sampler],
+                         ids=['rlemask', 'mask_iou', 'bone_length_stats', 'association', 'harness',
+                              'pose_sampler'])
 def test_numpy_copies_match_jax(check):
     """The port's copies of the JAX package's numpy code give the originals'
     results on the same random inputs."""
