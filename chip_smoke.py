@@ -172,7 +172,20 @@ line:
     to a metrabs_eff2s_y4 crop-model package (`add_detector_to_package`)
     and served folded by `detect_poses_batched` on held-out scenes, each K1
     launch against the plain warp, with the detector's recall at IoU 0.5
-    printed.
+    printed;
+12. train2serve: `scripts/train_to_serve_e2e_torch.py`'s `main` in-process
+    at full width (EffNetV2-S@256 bf16 at 16 + 16 through `apps.train.main`,
+    YOLOv4-tiny@416 float32 at batch 8), cut by TRAIN2SERVE_ARGS (24
+    training and 8 held-out scenes, 40 crop steps with validation every 8,
+    40 detector steps, the smoke gates), every K1 launch of its folded serve
+    against the plain warp and K2 never; the crop step timed alone and with
+    the feed, one step under torch.profiler (busy share, kernels, peak
+    memory), the detector's step median, the served matched metrics and
+    GT-box MPJPE from the script's record; then the trained package loaded
+    unfolded with `fuse_mbconv='on'` and served on the held-out scenes'
+    ground-truth boxes: K1 once and K2 28 times per chunk, each K1 launch
+    and K2's v on the first chunk's input to each fused block against the
+    plain versions. Its files are under runs/ and deleted after.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -2789,25 +2802,14 @@ def detector_step_parity(model, dev, scenes) -> dict:
 def detector_recall(est, images, boxes, threshold: float = 0.3) -> tuple:
     """(ground-truth boxes found at IoU > 0.5, their count) by `est`'s
     detector at `threshold` (scripts/train_to_serve_e2e.py's measure)."""
+    from metrabs_tpu_torch.eval.harness import box_recall
+
     with torch.inference_mode():
         boxes5, valid = est.detector.detect_batched(
             torch.as_tensor(images, device=est.device), threshold=threshold, max_detections=8)
-    boxes5, valid = boxes5.cpu().numpy(), valid.cpu().numpy()
-    hits = total = 0
-    for i, gt in enumerate(boxes):
-        pred = boxes5[i][valid[i]][:, :4]
-        total += len(gt)
-        for g in gt:
-            if len(pred) == 0:
-                continue
-            iw = np.clip(np.minimum(g[0] + g[2], pred[:, 0] + pred[:, 2])
-                         - np.maximum(g[0], pred[:, 0]), 0, None)
-            ih = np.clip(np.minimum(g[1] + g[3], pred[:, 1] + pred[:, 3])
-                         - np.maximum(g[1], pred[:, 1]), 0, None)
-            inter = iw * ih
-            iou = inter / np.maximum(g[2] * g[3] + pred[:, 2] * pred[:, 3] - inter, 1e-9)
-            hits += int(iou.max() > 0.5)
-    return hits, total
+    total = sum(len(gt) for gt in boxes)
+    recall, _ = box_recall(boxes5.cpu().numpy(), valid.cpu().numpy(), boxes)
+    return round(recall * total), total
 
 
 def detector_train_phase(root: Path, dev) -> dict:
@@ -2904,6 +2906,156 @@ def detector_train_phase(root: Path, dev) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {'detector_train': (0, 0), 'serve_trained_detector': (k1, k2)}
+
+
+TRAIN2SERVE_DIR = 'runs/chip_smoke_train2serve'  # the run's files (deleted after)
+# scripts/train_to_serve_e2e_torch.py at full width (EffNetV2-S@256 bf16 at
+# 16 + 16, YOLOv4-tiny@416 at batch 8), cut: 24 training and 8 held-out
+# scenes (the script's first scenes of its seeds), 40 crop steps (validation
+# every 8, the script's steps // 5), 40 detector steps, the smoke gates.
+TRAIN2SERVE_ARGS = ('--steps', '40', '--det-steps', '40', '--scenes', '24', '--val-scenes', '8',
+                    '--smoke')
+TRAIN2SERVE_PROFILED_STEP = 30  # the crop step taken under torch.profiler
+
+
+def train2serve_phase(root: Path, dev) -> dict:
+    """The [train2serve] phase (module docstring). Returns the K1 and K2
+    launches of the script's run and of the fused serve."""
+    import importlib.util
+
+    from metrabs_tpu_torch.io.packaging import load_pose_estimator
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.train import loop
+
+    name = 'train2serve'
+    spec = importlib.util.spec_from_file_location(
+        'train_to_serve_e2e_torch', root / 'scripts' / 'train_to_serve_e2e_torch.py')
+    t2s = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t2s)
+    work = root / TRAIN2SERVE_DIR
+    shutil.rmtree(work, ignore_errors=True)
+
+    # The app's train step, timed (CUDA-synchronised before and after each
+    # step: the step alone, and from one step's start to the next's, the
+    # feed, logging and validation included), with one step
+    # (TRAIN2SERVE_PROFILED_STEP) taken under torch.profiler and the peak
+    # memory of that step. A profile that recorded no GPU kernel is taken
+    # again (`profiled`): one more step on the same batch.
+    make_train_step, profile, starts, ends = loop.make_train_step, {}, [], []
+
+    def make_profiled_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def profiled_step(state, b3, b2, **step_kwargs):
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            if len(starts) != TRAIN2SERVE_PROFILED_STEP:
+                losses = step(state, b3, b2, **step_kwargs)
+            else:
+                out = []
+                torch.cuda.reset_peak_memory_stats()
+                wall_ms, busy_ms, n_kernels, _ = profile_step(
+                    lambda: out.append(step(state, b3, b2, **step_kwargs)))
+                profile.update(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels,
+                               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+                losses = out[-1]
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            return losses
+        return profiled_step
+
+    argv = [*TRAIN2SERVE_ARGS, '--out', str(work), '--record', str(work / 'record.json')]
+    try:
+        loop.make_train_step = make_profiled_step
+        torch.cuda.synchronize()
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+        try:
+            record, warp_errs = checked_warps(lambda: t2s.main(argv))
+        finally:
+            loop.make_train_step = make_train_step
+        torch.cuda.synchronize()
+        k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+        warp_err = max(warp_errs, default=math.inf)
+        if k1 == 0 or k2 != 0 or len(warp_errs) != k1 or not warp_err <= WARP_TOL:
+            fail(name, f'the script\'s serve: K1 {k1} ({len(warp_errs)} compared, max |kernel - '
+                       f'plain| {warp_err:.3g}), K2 {k2}')
+        if not profile:
+            fail(name, f'crop step {TRAIN2SERVE_PROFILED_STEP} was not profiled')
+        # Medians after TRAIN_WARMUP steps, without the profiled one.
+        timed = [i for i in range(TRAIN_WARMUP, len(starts))
+                 if i != TRAIN2SERVE_PROFILED_STEP - 1]
+        step_s = statistics.median(ends[i] - starts[i] for i in timed)
+        iteration_s = statistics.median(starts[i + 1] - starts[i] for i in timed
+                                        if i + 1 < len(starts))
+        cut = t2s.parse_args(argv)
+        n_images = 2 * cut.batch_size
+        matched = record['detect_poses_matched']
+        if not all(math.isfinite(v) for v in (*matched.values(), record['mpjpe_served_gt_boxes'],
+                                                 record['det_step_median_s'])):
+            fail(name, f'non-finite numbers in the record: {record}')
+        phase(name, f'scripts/train_to_serve_e2e_torch.py in-process, EffNetV2-S@{PROC_SIDE} bf16 '
+                    f'{cut.batch_size}+{cut.batch_size} and YOLOv4-tiny@416 float32 batch '
+                    f'{cut.det_batch}, cut to {" ".join(TRAIN2SERVE_ARGS)} (full run: 96 + 16 '
+                    f'scenes, 6000 + 800 steps): '
+                    f'{record["n_train_people"]} training and {record["n_val_people"]} held-out '
+                    f'people; crop step median {step_s * 1e3:.1f} ms (CUDA-synchronised, '
+                    f'{n_images / step_s:.1f} images/s), {iteration_s * 1e3:.1f} ms from one '
+                    f'step to the next with the feed ({n_images / iteration_s:.1f} images/s), over '
+                    f'{len(timed)} steps after {TRAIN_WARMUP}; '
+                    f'step {TRAIN2SERVE_PROFILED_STEP} under torch.profiler: wall '
+                    f'{profile["wall_ms"]:.1f} ms, device busy {profile["busy_ms"]:.2f} ms '
+                    f'({100 * profile["busy_ms"] / profile["wall_ms"]:.1f}%), {profile["kernels"]} '
+                    f'kernels, peak memory {profile["peak_gb"]:.2f} GiB; detector step median '
+                    f'{record["det_step_median_s"] * 1e3:.1f} ms; val MPJPE '
+                    f'{record["val_mpjpe_curve"][0][1]:.1f} -> '
+                    f'{record["val_mpjpe_curve"][-1][1]:.1f} mm (absolute '
+                    f'{record["val_abs_mpjpe_curve"][-1][1]:.1f} mm); detector recall '
+                    f'{record["detector_recall"]:.3f}; served folded: matched '
+                    f'{json.dumps(matched)}, GT-box MPJPE '
+                    f'{record["mpjpe_served_gt_boxes"]:.1f} mm; '
+                    f'K1 {k1}, each against the plain warp (max |kernel - plain| '
+                    f'{warp_err:.3g}, tol {WARP_TOL}), K2 {k2}; {record["wall_s"]:.1f} s')
+
+        # The trained package served again, unfolded with fuse_mbconv='on',
+        # on the held-out scenes' ground-truth boxes (the script's second
+        # serving call): K2's v on the first chunk's input to each fused
+        # block and every K1 launch against the plain versions.
+        val_scenes, _, _, cam = t2s.build_split(1007, cut.val_scenes)
+        images = np.stack([img for img, _ in val_scenes])
+        gt_boxes = t2s.scene_boxes(val_scenes, cam)
+        intrinsics = np.tile(cam.intrinsic_matrix[None], (len(images), 1, 1))
+        fused = load_pose_estimator(str(work / 'package'), device=dev,
+                                    cfg_overrides={'bn_fold': False},
+                                    backbone_builder=functools.partial(build_backbone,
+                                                                       fuse_mbconv='on'))
+        run = lambda: fused.estimate_poses_batched(images, gt_boxes, intrinsic_matrix=intrinsics,
+                                                   num_aug=NUM_AUG)
+        run()  # warm-up (cuDNN algorithm selection)
+        (out, warp_errs), k1_fused, k2_fused, err_v, n_blocks = k2_v_error(
+            fused, lambda: checked_warps(run))
+        chunks = math.ceil(gt_boxes.shape[0] * gt_boxes.shape[1] / (INTERNAL_BATCH // NUM_AUG))
+        warp_err = max(warp_errs, default=math.inf)
+        if (k1_fused != chunks or k2_fused != K2_BLOCKS * chunks or n_blocks != K2_BLOCKS
+                or err_v != 0.0 or len(warp_errs) != k1_fused or not warp_err <= WARP_TOL):
+            fail(name, f'fused serve: K1 {k1_fused} and K2 {k2_fused} (expected {chunks} and '
+                       f'{K2_BLOCKS * chunks}); K2 v error {err_v:.3g} over {n_blocks} blocks; '
+                       f'K1 error {warp_err:.3g} over {len(warp_errs)} launches')
+        poses = out['poses3d'].cpu().numpy()
+        errs = [np.linalg.norm((poses[i, j] - poses[i, j, :1]) - (p - p[:1]), axis=-1).mean()
+                for i, (_, ps) in enumerate(val_scenes) for j, p in enumerate(ps)]
+        if not np.isfinite(poses).all():
+            fail(name, 'non-finite poses from the fused serve')
+        phase(name, f'the trained package unfolded with fuse_mbconv on, estimate_poses_batched on '
+                    f'the {len(images)} held-out scenes\' ground-truth boxes (num_aug {NUM_AUG}, '
+                    f'{chunks} chunk(s)): GT-box MPJPE {float(np.mean(errs)):.1f} mm (folded '
+                    f'{record["mpjpe_served_gt_boxes"]:.1f}); K1 {k1_fused}, each against the '
+                    f'plain warp (max |kernel - plain| {warp_err:.3g}), K2 {k2_fused}, v against '
+                    f'the plain chain on the first chunk\'s input to each of the {n_blocks} blocks '
+                    f'{err_v:.3g}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {'train2serve': (k1, k2), 'serve_train2serve_fused': (k1_fused, k2_fused)}
 
 
 def main() -> None:
@@ -3230,6 +3382,12 @@ def main() -> None:
     start = time.perf_counter()
     by_path.update(detector_train_phase(root, dev))
     phase('detector_train', f'{time.perf_counter() - start:.1f} s')
+
+    # 12. The train-to-serve run, cut, then its package served fused.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(train2serve_phase(root, dev))
+    phase('train2serve', f'{time.perf_counter() - start:.1f} s')
 
     # The card's name and power limit again, where a tail of the output keeps
     # them beside the numbers.

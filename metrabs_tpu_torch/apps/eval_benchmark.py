@@ -2,12 +2,13 @@
 packaged model and a pickle of `Example3D` (from the port's or the JAX
 package's dataset adapters) in, the crop model run over the test set by
 `eval/harness.py::predict_dataset` on `--device`, the standard metric
-table out. Predictions are optionally dumped as NPZ (`--pred-out`; an HDF5
-path raises, ROADMAP.md "HDF5 reader").
+table out. Predictions are optionally dumped (`--pred-out`): NPZ, or HDF5
+for a `.h5`/`.hdf5` path (`eval/harness.py::save_predictions`, written by
+`utils/hdf5.py`).
 
   python -m metrabs_tpu_torch.apps.eval_benchmark \
       --package models/metrabs_eff2s --examples 3dpw_test.pkl \
-      --benchmark 3dpw [--pred-out preds.npz] [--mirror-aug]
+      --benchmark 3dpw [--pred-out preds.npz|preds.h5] [--mirror-aug]
 
 JAX's flags and defaults, plus `--device` (default cuda).
 """

@@ -664,6 +664,17 @@ def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int, color) -> Non
         minus -= mask & 2
 
 
+def circle(img: np.ndarray, center, radius: int, color, thickness: int = 1) -> np.ndarray:
+    """`cv2.circle(img, center, radius, color, thickness)` for a filled
+    circle (thickness < 0; 8-connected, integer center, no shift), in place.
+    Outlines are not ported and raise."""
+    if thickness >= 0:
+        raise NotImplementedError('circle outlines (thickness >= 0); only filled circles')
+    cx, cy = (int(v) for v in center)
+    _circle_filled(img, cx, cy, int(radius), color)
+    return img
+
+
 def line(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
     """`cv2.line(img, p1, p2, color, thickness)` (8-connected, integer
     points), in place: a thick line is OpenCV's quad of half-width

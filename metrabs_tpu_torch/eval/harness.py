@@ -4,7 +4,7 @@ dump, the per-benchmark protocols (3DPW's 14 joints with PCK at 50 mm, H36M,
 3DHP, MuPoTS, 3DOH, ASPset), `evaluate_predictions` over a dump, the NPZ
 dump writers (NPZ, and HDF5 through the port's own `utils/hdf5.py`: the
 card's machine has no h5py), and the matched multi-person metrics of the
-MuPoTS protocol.
+MuPoTS protocol, and the person detector's box recall.
 """
 
 from __future__ import annotations
@@ -207,3 +207,30 @@ def matched_pose_metrics(preds_per_frame, gts_per_frame, threshold_mm: float = 1
     return dict(matched_pck=n_correct / max(n_total, 1),
                 matched_apck=n_correct_abs / max(n_total, 1),
                 recall=n_matched / max(n_gt, 1))
+
+
+def box_recall(boxes5, valid, gt_per_image, iou_threshold: float = 0.5):
+    """(recall, mean IoU of the hits) of detected boxes `boxes5` [n, k, 5]
+    (x, y, w, h, score) where `valid` [n, k], against the ground-truth
+    (x, y, w, h) boxes of each image: a ground-truth box is found where a
+    valid box overlaps it at IoU > `iou_threshold`."""
+    n_gt = n_hit = 0
+    ious = []
+    for i, gt in enumerate(gt_per_image):
+        pred = boxes5[i][valid[i]][:, :4]
+        n_gt += len(gt)
+        for g in gt:
+            if len(pred) == 0:
+                continue
+            gx0, gy0, gx1, gy1 = g[0], g[1], g[0] + g[2], g[1] + g[3]
+            px0, py0 = pred[:, 0], pred[:, 1]
+            px1, py1 = pred[:, 0] + pred[:, 2], pred[:, 1] + pred[:, 3]
+            iw = np.clip(np.minimum(gx1, px1) - np.maximum(gx0, px0), 0, None)
+            ih = np.clip(np.minimum(gy1, py1) - np.maximum(gy0, py0), 0, None)
+            inter = iw * ih
+            union = g[2] * g[3] + pred[:, 2] * pred[:, 3] - inter
+            iou = (inter / np.maximum(union, 1e-9)).max()
+            if iou > iou_threshold:
+                n_hit += 1
+                ious.append(iou)
+    return n_hit / max(n_gt, 1), float(np.mean(ious)) if ious else 0.0

@@ -46,8 +46,11 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('metrabs_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack', 'ml_dtypes')
 # Packages the card's machine does not have (F4: cv2, F5: h5py).
 MISSING_ON_CARD = ('cv2', 'h5py', 'matplotlib', 'PIL', 'ml_dtypes', 'msgpack')
+# The port's scripts, held to the package's rules.
+PORT_SCRIPTS = ['scripts/ablate_crop_served_gap_torch.py', 'scripts/gen_bone_priors_torch.py',
+                'scripts/train_to_serve_e2e_torch.py', 'scripts/verify_e2e_torch.py']
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / 'metrabs_tpu_torch').rglob('*.py')
-                    if '_build' not in p.parts) + ['chip_smoke.py']
+                    if '_build' not in p.parts) + ['chip_smoke.py'] + PORT_SCRIPTS
 
 
 def imported_modules(tree: ast.AST):
@@ -222,6 +225,21 @@ det_images = np.random.default_rng(0).uniform(size=(1, 32, 32, 3)).astype(np.flo
 det_state, det_loss = det_train.make_detector_train_step(det, det_tx, input_size=32)(
     det_state, det_images, *det_targets)
 assert det_state.step == 1 and bool(det_loss.isfinite())
+import importlib.util
+scripts = {{}}
+for name in ('ablate_crop_served_gap_torch', 'gen_bone_priors_torch', 'train_to_serve_e2e_torch',
+             'verify_e2e_torch'):
+    spec = importlib.util.spec_from_file_location(name, 'scripts/' + name + '.py')
+    scripts[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scripts[name])
+from metrabs_tpu_torch.pipeline import bone_priors
+shipped = open(bone_priors.ASSET_PATH).read()
+bone_priors.ASSET_PATH = sys.argv[1] + '_priors.json'
+scripts['gen_bone_priors_torch'].main()
+assert open(bone_priors.ASSET_PATH).read() == shipped
+t2s_scenes, t2s_ex3d, _, _ = scripts['train_to_serve_e2e_torch'].build_split(7, 2)
+assert t2s_scenes[0][0].shape == (416, 416, 3) and len(t2s_ex3d) == 4
+scripts['verify_e2e_torch'].main(['--device', 'cpu'])
 leaked = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split('.')[0] in {forbidden!r})
 assert not leaked, leaked
@@ -238,8 +256,10 @@ def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     mask association, JPEG fixtures decoded to their manifest hashes, an
     HDF5 dump written and read back by the port's own HDF5 code, the
     MATLAB-layout 3DHP fixture read to its manifest hashes through
-    `load_3dhp_test_frames` and scored by `eval_3dhp`, and one detector
-    train step, in a process that never loads jax, flax, optax,
+    `load_3dhp_test_frames` and scored by `eval_3dhp`, one detector
+    train step, and the port's scripts: the bone-prior generator rewriting
+    the asset, two scenes of the train-to-serve run and the verify drive on
+    the CPU, in a process that never loads jax, flax, optax,
     msgpack, ml_dtypes or `metrabs_tpu` and where none of MISSING_ON_CARD
     can be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
