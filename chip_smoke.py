@@ -9,8 +9,8 @@ line:
  2. build: nvcc builds the port's two kernels, the crop warp
     `metrabs_tpu_torch/csrc/warp.cu` and the fused MBConv chain
     `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, and the
-    host C++ compiler the JPEG decoder `csrc/jpeg_decode.cpp`, all three
-    compilers started together;
+    host C++ compiler the JPEG decoder `csrc/jpeg_decode.cpp` and encoder
+    `csrc/jpeg_encode.cpp`, all four compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
     lens distortion on some crops, a crop entirely outside its frame); the
@@ -186,6 +186,32 @@ line:
     ground-truth boxes: K1 once and K2 28 times per chunk, each K1 launch
     and K2's v on the first chunk's input to each fused block against the
     plain versions. Its files are under runs/ and deleted after.
+13. demos: drawing and video. The host JPEG encoder (`csrc/jpeg_encode.cpp`)
+    on every case of tests/torch_fixtures/jpeg_encode (images minted from a
+    numpy seed and decoded fixtures), each held to the SHA-256 of
+    cv2.imencode in its manifest, then its time on the 1080x1920 frame
+    (median of 20 on one thread); the video reader on the cv2-written MJPG
+    fixtures of tests/torch_fixtures/video (AVI and Matroska), every packet
+    held to the SHA-256 of cv2.imdecode and the metadata to cv2's. Under
+    runs/ (deleted after): metrabs_eff2s_y4 minted on H36M-17 with a firing
+    YOLOv4-416, a 24-frame 1080x1920 MJPEG .avi and an ASPset-510 layout
+    (one subject, two views of 16 1080x1920 MJPEG .mkv frames, box CSVs,
+    camera JSONs), all written by the port. The demos' detector calls are
+    made with `suppress_implausible_poses=False`, so that the random
+    weights' poses survive and are drawn. `apps.demo_image.main` on the
+    1080x1920 JPEG fixture, folded, with `--out` (.jpg) and `--out-3d`
+    (.png), every K1 launch against the plain warp, both files read back,
+    poses found and the overlay unlike the undrawn frame; `apps.demo_video.main`
+    with `--frame-batch 8`, as is and with `--stream 2`, each writing an
+    overlay .mkv read back (frames, size, poses drawn), frames/s end to end
+    and the decoding, drawing and encoding shares of the wall; one batch
+    again with each K1 launch against the plain warp, then profiled (busy
+    share); `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8
+    frames (SMPL-24 package), its figures under JAX's names read back and
+    timed; `apps.predict_aspset.main` loaded unfolded with
+    `fuse_mbconv='on'` (K1 once and K2 28 times per chunk), frames/s with
+    and without the package's loading and the decoding share, its first
+    chunk again with K1 against the plain warp and K2's v exact.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -2075,7 +2101,7 @@ def check_decoder(root: Path) -> dict:
                 all_ms=[t * 1e3 for t in times], fps=fps, kib=len(data) / 1024)
 
 
-def mint_3dpw_layout(root: Path, rng, frame: Path) -> None:
+def mint_3dpw_layout(root: Path, rng, frame: Path, dims: dict = BENCH_3DPW) -> None:
     """sequenceFiles/test/*.pkl (latin1-readable pickles: SMPL-24 world
     joints in metres, cam_poses, campose_valid, poses2d) and the frames,
     copies of the portrait fixture."""
@@ -2083,9 +2109,9 @@ def mint_3dpw_layout(root: Path, rng, frame: Path) -> None:
 
     from metrabs_tpu_torch.data.camera import Camera
 
-    n, n_tracks = BENCH_3DPW['frames'], BENCH_3DPW['tracks']
+    n, n_tracks = dims['frames'], dims['tracks']
     cam = Camera(intrinsic_matrix=K_3DPW, world_up=(0, -1, 0))
-    for i_seq in range(BENCH_3DPW['sequences']):
+    for i_seq in range(dims['sequences']):
         name = f'bench_{i_seq:02d}'
         joints, poses2d = [], []
         for t in range(n_tracks):
@@ -2180,8 +2206,10 @@ class DriverRuns:
     """Runs a benchmark driver's `main` with its package loaded through
     `loader(method, **overrides)`, which keeps the estimator, times the
     loading and records the arguments of each call of `method`, and with
-    `jpeg.decode` (what `improc.imread` calls) timed; K1's and K2's counts
-    are set to 0 just before the driver runs and read just after."""
+    `jpeg.decode` (what `improc.imread` and the video reader call) and
+    `jpeg.encode` (what `improc.imwrite` and the video writer call) timed;
+    K1's and K2's counts are set to 0 just before the driver runs and read
+    just after."""
 
     def __init__(self):
         import metrabs_tpu_torch.io.packaging as packaging
@@ -2189,10 +2217,13 @@ class DriverRuns:
 
         self.packaging, self.jpeg = packaging, jpeg
         self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
+        self.original_encode = jpeg.encode
         self.loaded, self.calls, self.decode_spans, self.load_s = [], [], [], []
+        self.encode_spans = []
         self.call_s = []  # seconds of each recorded call, CUDA-synchronised
 
-    def loader(self, method: str, **overrides):
+    def loader(self, method: str, call_kwargs=None, **overrides):
+        """`call_kwargs` are set on every call of `method`."""
         def load(path, device='cuda'):
             t = time.perf_counter()
             est = self.original_load(path, device=device, **overrides)
@@ -2200,6 +2231,7 @@ class DriverRuns:
             call = getattr(est, method)
 
             def recorded(images, *args, **kwargs):
+                kwargs.update(call_kwargs or {})
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 out = call(images, *args, **kwargs)
@@ -2217,20 +2249,28 @@ class DriverRuns:
         self.decode_spans.append((t, time.perf_counter()))
         return im
 
+    def timed_encode(self, image, *args, **kwargs):
+        t = time.perf_counter()
+        data = self.original_encode(image, *args, **kwargs)
+        self.encode_spans.append((t, time.perf_counter()))
+        return data
+
     def restore(self) -> None:
         self.packaging.load_pose_estimator = self.original_load
-        self.jpeg.decode = self.original_decode
+        self.jpeg.decode, self.jpeg.encode = self.original_decode, self.original_encode
 
     def run(self, load, main, argv) -> dict:
         from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
 
-        for kept in (self.loaded, self.calls, self.decode_spans, self.load_s, self.call_s):
+        for kept in (self.loaded, self.calls, self.decode_spans, self.load_s, self.call_s,
+                     self.encode_spans):
             kept.clear()
         self.packaging.load_pose_estimator, self.jpeg.decode = load, self.timed_decode
+        self.jpeg.encode = self.timed_encode
         torch.cuda.synchronize()
         warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
         try:
-            seconds, _, _, last = run_app(main, argv)
+            seconds, _, printed, last = run_app(main, argv)
             torch.cuda.synchronize()
         finally:
             self.restore()
@@ -2239,7 +2279,9 @@ class DriverRuns:
         # which a whole benchmark run spreads over all its frames.
         run_s = seconds - self.load_s[0]
         return dict(seconds=seconds, run_s=run_s, load_s=self.load_s[0],
-                    decode_s=union_seconds(self.decode_spans), k1=k1, k2=k2, last=last,
+                    decode_s=union_seconds(self.decode_spans),
+                    encode_s=union_seconds(self.encode_spans), k1=k1, k2=k2, last=last,
+                    printed=printed,
                     est=self.loaded[0], calls=list(self.calls), call_s=list(self.call_s))
 
 
@@ -3058,6 +3100,381 @@ def train2serve_phase(root: Path, dev) -> dict:
     return {'train2serve': (k1, k2), 'serve_train2serve_fused': (k1_fused, k2_fused)}
 
 
+DEMOS_DIR = 'runs/chip_smoke_demos'
+ENCODE_FIXTURES = 'tests/torch_fixtures/jpeg_encode'
+VIDEO_FIXTURES = 'tests/torch_fixtures/video'
+ENCODE_REPEATS = 20  # single-thread encodes of the 1080x1920 frame, median taken
+
+
+def encode_case_image(root: Path, case: dict) -> np.ndarray:
+    """The image of an encoder fixture case: uniform noise ('noise', RGB;
+    'gray', one channel) or smooth colour waves with noise ('waves') from
+    the case's numpy seed, or a JPEG fixture decoded ('fixture')."""
+    h, w, source = case['height'], case['width'], case['source']
+    if case['kind'] == 'fixture':
+        from metrabs_tpu_torch.data import improc
+        return improc.imread(str(root / JPEG_FIXTURES / source))
+    rng = np.random.default_rng(source)
+    if case['kind'] == 'noise':
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if case['kind'] == 'gray':
+        return rng.integers(0, 256, (h, w), dtype=np.uint8)
+    y, x = np.mgrid[:h, :w].astype(np.float64)
+    waves = np.stack([128 + 100 * np.sin(x / 23 + k) * np.cos(y / 17 - k) for k in range(3)], -1)
+    return np.clip(waves + rng.normal(0, 8, waves.shape), 0, 255).astype(np.uint8)
+
+
+DEMO_VIDEO_FRAMES = 24  # 1080x1920 MJPEG .avi frames through demo_video
+DEMO_FRAME_BATCH = 8
+DEMO_STREAM = 2
+ASPSET_VIEWS = ('left', 'mid')
+ASPSET_FRAMES = 16  # per view: 1080x1920 MJPEG .mkv
+ASPSET_BATCH = 8  # predict_aspset's default --batch-size
+FRAME_3DPW_SIZE = (1920, 1080)  # rows, columns of the portrait fixture
+# A 1080x1920 portrait camera for the minted ASPset views.
+K_ASPSET = [[1500.0, 0, 540.0, 0], [0, 1500.0, 960.0, 0], [0, 0, 1, 0]]
+
+
+# A 3DPW layout for --viz-dir: one sequence, a figure every VIZ_STEP frames.
+VIZ_3DPW = dict(sequences=1, frames=8, tracks=2)
+VIZ_STEP = 4
+# The random weights' poses fail the plausibility filter: the demos' detector
+# calls keep them, so that they are drawn.
+KEEP_POSES = dict(suppress_implausible_poses=False)
+
+
+class TimedCalls:
+    """Wraps the functions named as (module, name) so that the span of each
+    call is kept, until `restore`."""
+
+    def __init__(self, *targets):
+        self.originals = [(module, name, getattr(module, name)) for module, name in targets]
+        self.spans = {name: [] for _, name in targets}
+        for module, name, f in self.originals:
+            setattr(module, name, self._timed(f, self.spans[name]))
+
+    @staticmethod
+    def _timed(f, spans):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return f(*args, **kwargs)
+            finally:
+                spans.append((t, time.perf_counter()))
+        return timed
+
+    def seconds(self, name: str) -> float:
+        return union_seconds(self.spans[name])
+
+    def restore(self) -> None:
+        for module, name, f in self.originals:
+            setattr(module, name, f)
+
+
+def undrawn(rgb: np.ndarray) -> np.ndarray:
+    """A frame as an overlay file would hold it with nothing drawn on it."""
+    from metrabs_tpu_torch.data import jpeg
+    return jpeg.decode(jpeg.encode(rgb))
+
+
+def shifted_frames(root: Path, n: int):
+    """n RGB frames: the portrait JPEG fixture decoded, shifted 24 px right
+    per frame with wraparound, so that every frame differs."""
+    from metrabs_tpu_torch.data import improc
+    base = improc.imread(str(root / JPEG_FIXTURES / FRAME_3DPW))
+    return [np.ascontiguousarray(np.roll(base, 24 * k, axis=1)) for k in range(n)]
+
+
+def check_encoder(root: Path) -> dict:
+    """Every case of the encoder's manifest held to cv2's SHA-256; the
+    1080x1920 fixture's encode time on one thread."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc, jpeg
+
+    cases = json.loads((root / ENCODE_FIXTURES / 'manifest.json').read_text())['cases']
+    wrong = [case for case in cases
+             if hashlib.sha256(jpeg.encode(encode_case_image(root, case), case['quality']))
+             .hexdigest() != case['sha256']]
+    if wrong:
+        fail('demos', f'{len(wrong)} of {len(cases)} encoder cases differ from cv2.imencode: '
+                      + ', '.join(f'{c["kind"]} {c["height"]}x{c["width"]}' for c in wrong))
+    rgb = improc.imread(str(root / JPEG_FIXTURES / FRAME_3DPW))
+    times = []
+    for _ in range(ENCODE_REPEATS):
+        t0 = time.perf_counter()
+        data = jpeg.encode(rgb)
+        times.append(time.perf_counter() - t0)
+    return dict(n=len(cases), ms=statistics.median(times) * 1e3,
+                all_ms=[t * 1e3 for t in times], kib=len(data) / 1024)
+
+
+def check_video_fixtures(root: Path) -> dict:
+    """Every packet of the cv2-written MJPG fixtures decoded and held to the
+    SHA-256 of cv2.imdecode in the manifest; size, frame count and rate to
+    cv2's (the NTSC Matroska's rate: cv2 reports FFmpeg's 29.97, the track
+    says 1e9 / 33366700 ns)."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc, video
+
+    manifest = json.loads((root / VIDEO_FIXTURES / 'manifest.json').read_text())
+    n_packets = 0
+    for name, entry in sorted(manifest.items()):
+        path = str(root / VIDEO_FIXTURES / name)
+        idx = video.index(path)
+        digests = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(path)]
+        n_packets += len(digests)
+        cv = entry['cv2']
+        meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
+        if digests != entry['packet_sha256_rgb'] or meta != ([cv['width'], cv['height']],
+                                                           cv['frame_count']):
+            fail('demos', f'{name}: frames or metadata differ from cv2 ({idx.n_frames} frames, '
+                          f'{meta})')
+        if not math.isclose(improc.video_fps(path), cv['fps'], rel_tol=1e-6):
+            fail('demos', f'{name}: {improc.video_fps(path)} frames/s, cv2 {cv["fps"]}')
+    return dict(files=len(manifest), packets=n_packets)
+
+
+def mint_aspset_layout(root: Path, work: Path) -> None:
+    """ASPset-510's layout with one subject and ASPSET_VIEWS: splits.csv, a
+    box CSV per clip (a person box moving with the frame's shift), a camera
+    JSON per view and 1080x1920 MJPEG .mkv clips of ASPSET_FRAMES frames
+    written by the port's own writer."""
+    from metrabs_tpu_torch.data import video
+
+    subj, vid = '01', '0001'
+    work.mkdir(parents=True, exist_ok=True)
+    (work / 'splits.csv').write_text('subject,video,view,split\n' + ''.join(
+        f'{subj},{vid},{view},test\n' for view in ASPSET_VIEWS))
+    frames = shifted_frames(root, ASPSET_FRAMES)
+    for i_view, view in enumerate(ASPSET_VIEWS):
+        for d in ('boxes', 'cameras', 'videos'):
+            (work / 'test' / d / subj).mkdir(parents=True, exist_ok=True)
+        lines = ['x1,y1,x2,y2'] + [f'{300 + 10 * k + 40 * i_view},400,{700 + 10 * k},1500'
+                                   for k in range(ASPSET_FRAMES)]
+        (work / 'test' / 'boxes' / subj / f'{subj}-{vid}-{view}.csv').write_text(
+            '\n'.join(lines) + '\n')
+        (work / 'test' / 'cameras' / subj / f'{subj}-{view}.json').write_text(
+            json.dumps(dict(intrinsic_matrix=K_ASPSET)))
+        with video.VideoWriter(str(work / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'),
+                               50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])) as writer:
+            for frame in frames[i_view:] + frames[:i_view]:
+                writer.write(frame)
+
+
+
+def demo_timing(r: dict, n: int) -> str:
+    return (f'{n} frames in {r["seconds"]:.2f} s = {n / r["seconds"]:.2f} frames/s end to end, '
+            f'{n / r["run_s"]:.2f} frames/s without loading the package ({r["load_s"]:.2f} s); '
+            f'decoding {r["decode_s"]:.2f} s ({100 * r["decode_s"] / r["seconds"]:.1f}% of the '
+            f'wall), drawing {r["draw_s"]:.2f} s ({100 * r["draw_s"] / r["seconds"]:.1f}%), '
+            f'encoding {r["encode_s"]:.2f} s ({100 * r["encode_s"] / r["seconds"]:.1f}%)')
+
+
+def demos_phase(root: Path, dev) -> dict:
+    """The [demos] phase (module docstring). Returns the K1 and K2 launches
+    of the demo_image, demo_video (as is and with --stream) and
+    predict_aspset runs."""
+    from metrabs_tpu_torch.apps import demo_image, demo_video, predict_3dpw, predict_aspset
+    from metrabs_tpu_torch.data import improc, video
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17, SMPL_24
+    from metrabs_tpu_torch.utils import viz
+
+    name = 'demos'
+    enc = check_encoder(root)
+    phase(name, f'JPEG encoder (host C++): all {enc["n"]} cases equal their cv2.imencode '
+                f'hashes; {FRAME_3DPW} ({enc["kib"]:.0f} KiB at quality 95): '
+                f'{enc["ms"]:.2f} ms median of {ENCODE_REPEATS} on one thread (all: '
+                + ', '.join(f'{t:.1f}' for t in enc['all_ms']) + ')')
+    vid = check_video_fixtures(root)
+    phase(name, f'video reader: {vid["files"]} cv2-written MJPG files (AVI and Matroska), all '
+                f'{vid["packets"]} packets equal their cv2.imdecode hashes, sizes, counts and '
+                f'rates equal cv2\'s')
+
+    work = root / DEMOS_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    drivers = DriverRuns()
+    try:
+        t0 = time.perf_counter()
+        bench_package(work / 'pkg', gen, H36M_17, with_detector=True)
+        src = work / 'in.avi'
+        with video.VideoWriter(str(src), 25.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])) as w:
+            for frame in shifted_frames(root, DEMO_VIDEO_FRAMES):
+                w.write(frame)
+        mint_aspset_layout(root, work / 'aspset')
+        phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
+                    f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
+                    f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
+                    f'{ASPSET_FRAMES} frames of 1080x1920 MJPEG .mkv, written by the port')
+
+        # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
+        # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
+        # overlay unlike the frame written with nothing drawn.
+        image_path = str(root / JPEG_FIXTURES / FRAME_3DPW)
+        drawing = TimedCalls((demo_image, 'draw_poses'), (viz, 'plot_poses_3d'))
+        try:
+            r, warp_errs = checked_warps(lambda: drivers.run(
+                drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_image.main, [
+                    '--image', image_path, '--package', str(work / 'pkg'),
+                    '--out', str(work / 'overlay.jpg'), '--out-3d', str(work / 'scene.png')]))
+        finally:
+            drawing.restore()
+        line = json.loads([t for t in r['printed'].splitlines() if t.startswith('{')][-1])
+        overlay, scene = improc.imread(str(work / 'overlay.jpg')), improc.imread(
+            str(work / 'scene.png'))
+        warp_err = max(warp_errs, default=math.inf)
+        if (r['k1'] == 0 or r['k2'] != 0 or len(warp_errs) != r['k1'] or not warp_err <= WARP_TOL
+                or overlay.shape != (*FRAME_3DPW_SIZE, 3) or scene.ndim != 3
+                or line['poses3d_shape'][1:] != [17, 3] or line['n_poses'] == 0
+                or np.array_equal(overlay, undrawn(improc.imread(image_path)))):
+            fail(name, f'demo_image: K1 {r["k1"]} ({len(warp_errs)} compared, max |kernel - '
+                       f'plain| {warp_err:.3g}), K2 {r["k2"]}, overlay {overlay.shape} (unlike '
+                       f'the undrawn frame: poses must be drawn), scene {scene.shape}, {line}')
+        phase(name, f'demo_image (num_aug 5, folded): {line["n_poses"]} poses in '
+                    f'{r["seconds"]:.2f} s ({r["run_s"]:.2f} s without loading the package); K1 '
+                    f'{r["k1"]}, each against the plain warp (max |kernel - plain| '
+                    f'{warp_err:.3g}, tol {WARP_TOL}), K2 {r["k2"]}; overlay {overlay.shape} with '
+                    f'the poses drawn ({drawing.seconds("draw_poses") * 1e3:.1f} ms), 3D scene '
+                    f'{scene.shape} ({drawing.seconds("plot_poses_3d") * 1e3:.1f} ms); encoding '
+                    f'{r["encode_s"] * 1e3:.1f} ms, decoding {r["decode_s"] * 1e3:.1f} ms')
+        launches = {'demo_image': (r['k1'], r['k2'])}
+        del r
+
+        # demo_video as is and with --stream, each writing its overlay video.
+        for key, extra in (('demo_video', []), ('demo_video_stream', ['--stream',
+                                                                      str(DEMO_STREAM)])):
+            out = work / f'{key}.mkv'
+            drawing = TimedCalls((demo_image, 'draw_poses'))
+            try:
+                r = drivers.run(drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
+                                demo_video.main, [
+                    '--video', str(src), '--package', str(work / 'pkg'), '--out', str(out),
+                    '--frame-batch', str(DEMO_FRAME_BATCH)] + extra)
+            finally:
+                drawing.restore()
+            r['draw_s'] = drawing.seconds('draw_poses')
+            result = json.loads(r['last'])
+            n_batches = DEMO_VIDEO_FRAMES // DEMO_FRAME_BATCH
+            if extra:  # the last stream call is padded to DEMO_STREAM batches
+                n_batches = math.ceil(n_batches / DEMO_STREAM) * DEMO_STREAM
+            back = video.index(str(out))
+            first = improc.imread(f'{out}#frame=0')
+            # The first frame that holds a drawn pose.
+            drawn = next((i for i in range(back.n_frames) if not np.array_equal(
+                back.frame(i), undrawn(video.read_frame(str(src), i)))), None)
+            if (result['frames'] != DEMO_VIDEO_FRAMES or back.n_frames != DEMO_VIDEO_FRAMES
+                    or result['total_poses'] == 0 or drawn is None
+                    or (back.width, back.height) != (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])
+                    or first.shape != (*FRAME_3DPW_SIZE, 3) or len(r['calls']) != n_batches
+                    or r['k1'] < n_batches or r['k2'] != 0):
+                fail(name, f'{key}: {result}, {back.n_frames} frames of {back.width}x'
+                           f'{back.height} read back (first with a pose drawn: {drawn}), '
+                           f'{len(r["calls"])} batched calls, K1 {r["k1"]}, K2 {r["k2"]}')
+            phase(name, f'{key} {" ".join(extra)} (frame batch {DEMO_FRAME_BATCH}, num_aug 2, '
+                        f'folded; {result["total_poses"]} poses): ' + demo_timing(
+                            r, DEMO_VIDEO_FRAMES) + f'; K1 {r["k1"]}, K2 {r["k2"]}; the overlay '
+                        f'.mkv read back: {back.n_frames} frames of {back.width}x{back.height}, '
+                        f'poses drawn from frame {drawn} on')
+            launches[key] = (r['k1'], r['k2'])
+            if not extra:
+                # One batch again: each K1 launch against the plain warp, then profiled.
+                est = r['est']
+                frames, args, kwargs, _ = r['calls'][0]
+                _, warp_errs = checked_warps(lambda: est.detect_poses_batched(
+                    frames, *args, **kwargs))
+                warp_err = max(warp_errs, default=math.inf)
+                if not warp_errs or not warp_err <= WARP_TOL:
+                    fail(name, f'one demo_video batch: {len(warp_errs)} K1 launches compared, '
+                               f'max |kernel - plain| {warp_err:.3g} (tol {WARP_TOL})')
+                wall_ms, device_ms, _, busy_ms, n_kernels, _ = profile_detect(
+                    est, lambda: est.detect_poses_batched(frames, *args, **kwargs))
+                phase(name, f'one demo_video batch ({len(frames)} frames): K1 '
+                            f'{len(warp_errs)}, each against the plain warp (max |kernel - '
+                            f'plain| {warp_err:.3g}); under torch.profiler: wall {wall_ms:.1f} '
+                            f'ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), '
+                            f'{n_kernels} kernels, K1 {device_ms["K1 (warp kernel)"]:.3f} ms, '
+                            f'crop model {device_ms["crop_model"]:.2f} ms, detector '
+                            f'{device_ms["detector"]:.2f} ms')
+                del est, frames
+            del r
+
+        # predict_3dpw --viz-dir (folded) on VIZ_3DPW: JAX's figure names, every
+        # VIZ_STEP frames, read back.
+        t0 = time.perf_counter()
+        mint_3dpw_layout(work / '3dpw', np.random.default_rng(SEED + 17),
+                         root / JPEG_FIXTURES / FRAME_3DPW, dims=VIZ_3DPW)
+        bench_package(work / 'pkg_smpl', gen, SMPL_24, with_detector=True)
+        mint_s = time.perf_counter() - t0
+        drawing = TimedCalls((viz, 'plot_poses_3d'))
+        try:
+            r = drivers.run(drivers.loader('detect_poses_batched'), predict_3dpw.main, [
+                '--package', str(work / 'pkg_smpl'), '--root', str(work / '3dpw'),
+                '--output-path', str(work / 'pred_3dpw'), '--gtassoc',
+                '--viz-dir', str(work / 'viz'), '--viz-step', str(VIZ_STEP)])
+        finally:
+            drawing.restore()
+        names = sorted(os.listdir(work / 'viz'))
+        want = [f'bench_00_{i:05d}.jpg' for i in range(0, VIZ_3DPW['frames'], VIZ_STEP)]
+        figures = [improc.imread(str(work / 'viz' / n)) for n in names]
+        if (names != want or r['k1'] == 0 or r['k2'] != 0 or min(v for *_, v in r['calls']) == 0
+                or any(f.ndim != 3 or f.std() == 0 for f in figures)):
+            fail(name, f'predict_3dpw --viz-dir wrote {names} (expected {want}) of '
+                       f'{[f.shape for f in figures]}; K1 {r["k1"]}, K2 {r["k2"]}, valid poses '
+                       f'per call {[v for *_, v in r["calls"]]}')
+        phase(name, f'predict_3dpw --gtassoc --viz-dir --viz-step {VIZ_STEP} (folded, SMPL-24 '
+                    f'package and layout minted in {mint_s:.1f} s): '
+                    + driver_timing(r, VIZ_3DPW['frames']) + f'; {len(names)} figures '
+                    f'{[f.shape for f in figures]} under JAX\'s names in '
+                    f'{drawing.seconds("plot_poses_3d"):.2f} s with their JPEG encoding; K1 '
+                    f'{r["k1"]}, K2 {r["k2"]}')
+        launches['viz_dir'] = (r['k1'], r['k2'])
+        del r
+
+        # predict_aspset on the .mkv clips, unfolded with fuse_mbconv on: K1 and K2.
+        r = drivers.run(drivers.loader('estimate_poses_batched', cfg_overrides={'bn_fold': False},
+                                       backbone_builder=functools.partial(build_backbone,
+                                                                          fuse_mbconv='on')),
+                        predict_aspset.main, [
+                            '--package', str(work / 'pkg'), '--root', str(work / 'aspset'),
+                            '--output-dir', str(work / 'pred_aspset')])
+        n_frames = len(ASPSET_VIEWS) * ASPSET_FRAMES
+        calls = len(ASPSET_VIEWS) * math.ceil(ASPSET_FRAMES / ASPSET_BATCH)
+        preds = [np.load(work / 'pred_aspset' / f'01-0001-{view}.npz')['coords3d_pred_world']
+                 for view in ASPSET_VIEWS]
+        if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
+                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                       for p in preds)):
+            fail(name, f'predict_aspset: K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} and '
+                       f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, predictions '
+                       f'{[p.shape for p in preds]}')
+        est = r['est']
+        images, args, kwargs, _ = r['calls'][0]
+        (_, warp_errs), k1_batch, k2_batch, err_v, n_blocks = k2_v_error(
+            est, lambda: checked_warps(lambda: est.estimate_poses_batched(images, *args,
+                                                                          **kwargs)))
+        warp_err = max(warp_errs, default=math.inf)
+        if (n_blocks != K2_BLOCKS or err_v != 0.0 or k1_batch != 1 or len(warp_errs) != 1
+                or not warp_err <= WARP_TOL):
+            fail(name, f'predict_aspset first chunk: K1 {k1_batch} ({len(warp_errs)} compared, '
+                       f'max |kernel - plain| {warp_err:.3g}), K2 {k2_batch}, v max |kernel - '
+                       f'plain| {err_v:.3g} over {n_blocks} blocks (must be 0)')
+        phase(name, f'predict_aspset (num_aug 1, batch {ASPSET_BATCH}, antialias 2), unfolded, '
+                    f'fuse_mbconv on: ' + driver_timing(r, n_frames) + f'; K1 {r["k1"]}, K2 '
+                    f'{r["k2"]}; its first chunk again: K1 against the plain warp (max |kernel '
+                    f'- plain| {warp_err:.3g}), K2 v exact (max {err_v:.3g} over {n_blocks} '
+                    f'blocks)')
+        launches['predict_aspset'] = (r['k1'], r['k2'])
+        del est, r, images
+    finally:
+        drivers.restore()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -3089,16 +3506,18 @@ def main() -> None:
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
-        host_build = pool.submit(cuda_build.build_host_library, 'jpeg_decode')
+    host_sources = ('jpeg_decode', 'jpeg_encode')
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
+        host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))
-        host_lib, host_s = host_build.result()
+        host_built = [b.result() for b in host_builds]
     for name, (lib_path, build_s) in zip(sources, built):
         phase('build', f'nvcc {" ".join(cuda_build.NVCC_FLAGS)} '
                        f'{cuda_build.source_path(name).name} -> {lib_path.name} in {build_s:.2f} s')
-    phase('build', f'{os.environ.get("CXX") or "c++"} {" ".join(cuda_build.CXX_FLAGS)} '
-                   f'jpeg_decode.cpp -> {host_lib.name} in {host_s:.2f} s')
-    phase('build', f'all three in {time.perf_counter() - start:.2f} s')
+    for name, (host_lib, host_s) in zip(host_sources, host_built):
+        phase('build', f'{os.environ.get("CXX") or "c++"} {" ".join(cuda_build.CXX_FLAGS)} '
+                       f'{name}.cpp -> {host_lib.name} in {host_s:.2f} s')
+    phase('build', f'all four in {time.perf_counter() - start:.2f} s')
 
     # 3. The warp kernel against its plain version at the serving shape.
     gen = torch.Generator(device=dev)
@@ -3388,6 +3807,13 @@ def main() -> None:
     start = time.perf_counter()
     by_path.update(train2serve_phase(root, dev))
     phase('train2serve', f'{time.perf_counter() - start:.1f} s')
+
+    # 13. The demos and the video path: encoder, video reader, demo_image,
+    # demo_video (as is and streamed) and predict_aspset.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(demos_phase(root, dev))
+    phase('demos', f'{time.perf_counter() - start:.1f} s')
 
     # The card's name and power limit again, where a tail of the output keeps
     # them beside the numbers.

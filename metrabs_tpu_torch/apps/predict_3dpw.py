@@ -12,8 +12,9 @@ input of `eval_3dpw` and of the official 3DPW evaluation.
 
 As in JAX: detector_threshold 0.2, flip aug, suppress_implausible_poses
 False, skeleton smpl_24, camera-space output. JAX's flags and defaults,
-plus `--device` (default cuda). `--viz-dir` raises: the overlay figures need
-a plotting library the card's machine lacks (ROADMAP.md, "viz").
+plus `--device` (default cuda). `--viz-dir` writes JAX's figures (the frame
+with its 2D overlay beside the 3D scene, `utils.viz.plot_poses_3d`) every
+`--viz-step` frames as `<viz-dir>/<sequence>_<frame:05d>.jpg`.
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ import os
 import os.path as osp
 import pickle
 from concurrent.futures import ThreadPoolExecutor
-
-from metrabs_tpu_torch.apps.predict_mupots import VIZ_REFUSED
 
 # 3DPW's 2D annotation joint order (COCO-style 18).
 JOINT_NAMES_2D = (
@@ -97,6 +96,13 @@ def predict_sequence(estimator, frame_paths, poses2d_true, masks, ji2d, ji3d,
         for k in range(len(images)):
             p3 = poses3d_all[k][valid[k]]
             p2 = poses2d_all[k][valid[k]]
+            if args.viz_dir and (i_frame % args.viz_step == 0):
+                from metrabs_tpu_torch.utils.viz import plot_poses_3d
+                os.makedirs(args.viz_dir, exist_ok=True)
+                plot_poses_3d(
+                    p3, ji3d.edges, image=images[k], poses2d=p2,
+                    out_path=osp.join(
+                        args.viz_dir, f'{seq_name}_{i_frame:05d}.jpg'))
             if masks is None:
                 ordered, prev2d = associate_predictions(
                     p3, p2, poses2d_true[i_frame], prev2d, ji3d, ji2d)
@@ -130,13 +136,11 @@ def main(argv=None):
     parser.add_argument('--max-detections', type=int, default=16)
     parser.add_argument('--io-threads', type=int, default=8)
     parser.add_argument('--viz-dir', default=None,
-                        help='overlay figures: not ported, raises')
+                        help='save 2D+3D overlay figures here')
     parser.add_argument('--viz-step', type=int, default=50)
     parser.add_argument('--device', default='cuda',
                         help="the device to predict on (default cuda; 'cpu' for a CPU run)")
     args = parser.parse_args(argv)
-    if args.viz_dir:
-        raise NotImplementedError(VIZ_REFUSED)
 
     import numpy as np
 

@@ -9,8 +9,9 @@ mpi_inf_3dhp_17 output, world-space NPZ dump with one row per detected pose
 As in JAX: detector_threshold 0.2, flip aug, suppress_implausible_poses
 False, antialias 2, per-sequence camera from camera_intrinsics.json,
 annotations only for the frame count. JAX's flags and defaults, plus
-`--device` (default cuda). `--viz-dir` raises: the overlay figures need a
-plotting library the card's machine lacks (ROADMAP.md, "viz").
+`--device` (default cuda). `--viz-dir` writes JAX's figures (the frame with
+its 2D overlay beside the 3D scene, `utils.viz.plot_poses_3d`) every
+`--viz-step` frames as `<viz-dir>/TS<n>_<frame:05d>.jpg`.
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ import argparse
 import json
 import os.path as osp
 from concurrent.futures import ThreadPoolExecutor
-
-VIZ_REFUSED = ('--viz-dir: the overlay figures (utils/viz.py) are not ported: the GPU '
-               'machine has no matplotlib or cv2 (ROADMAP.md, "viz")')
 
 
 def main(argv=None):
@@ -37,13 +35,11 @@ def main(argv=None):
                         help='subset of 1..20 (default all)')
     parser.add_argument('--io-threads', type=int, default=8)
     parser.add_argument('--viz-dir', default=None,
-                        help='overlay figures: not ported, raises')
+                        help='save 2D+3D overlay figures here')
     parser.add_argument('--viz-step', type=int, default=50)
     parser.add_argument('--device', default='cuda',
                         help="the device to predict on (default cuda; 'cpu' for a CPU run)")
     args = parser.parse_args(argv)
-    if args.viz_dir:
-        raise NotImplementedError(VIZ_REFUSED)
 
     import numpy as np
 
@@ -82,7 +78,19 @@ def main(argv=None):
                 world_up_vector=(0, -1, 0))
             valid = to_host(pred['valid'])
             poses3d = to_host(pred['poses3d'])
+            poses2d = to_host(pred['poses2d'])
             for k, relpath in enumerate(chunk):
+                i_frame = start + k
+                if args.viz_dir and (i_frame % args.viz_step == 0):
+                    import os
+
+                    from metrabs_tpu_torch.pipeline.skeletons import MPI_INF_3DHP_17
+                    from metrabs_tpu_torch.utils.viz import plot_poses_3d
+                    os.makedirs(args.viz_dir, exist_ok=True)
+                    plot_poses_3d(
+                        poses3d[k][valid[k]], MPI_INF_3DHP_17.edges,
+                        image=images[k], poses2d=poses2d[k][valid[k]],
+                        out_path=osp.join(args.viz_dir, f'TS{i_seq}_{i_frame:05d}.jpg'))
                 for pose in poses3d[k][valid[k]]:
                     image_relpaths_all.append(f'mupots/{relpath}')
                     poses_all.append(pose)

@@ -6,7 +6,8 @@
 //
 // Scope: baseline and extended sequential and progressive Huffman JPEG, 8-bit
 // samples, 1 (gray) or 3 (YCbCr) components, any integral sampling factors,
-// restart intervals, any image size. Arithmetic coding, 12-bit, lossless,
+// restart intervals, any image size, the standard Huffman tables where a file
+// defines none (Motion JPEG frames). Arithmetic coding, 12-bit, lossless,
 // hierarchical, CMYK/YCCK and RGB-coded files are refused as unsupported; a
 // corrupt or truncated file as corrupt (libjpeg would warn and fill; this
 // decoder never returns a partial image).
@@ -43,6 +44,43 @@ const int kNaturalOrder[64 + 16] = {
     40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
     29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
     47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// The standard's Huffman tables (Annex K.3): code counts per length 1-16
+// (index 0 unused), then the symbols. libjpeg-turbo's decoder loads them
+// into slots 0 and 1 wherever a file defines no table of its own, as Motion
+// JPEG frames (AVI1) leave them out.
+const uint8_t kDcLumaBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcLumaVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kDcChromaBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcChromaBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 constexpr int kLookBits = 9;
 
@@ -374,6 +412,7 @@ class Decoder {
   uint16_t quant_[4][64] = {{0}};
   bool quant_defined_[4] = {false, false, false, false};
   HuffTable dc_tables_[4], ac_tables_[4];
+  bool standard_tables_checked_ = false;
 
   unsigned u8(size_t at) const {
     if (at >= size_) corrupt("truncated file (no end-of-image marker)");
@@ -509,6 +548,21 @@ class Decoder {
     if (p != end) corrupt("bad DQT length");
   }
 
+  // jdhuff.c std_huff_tables: DC and AC slots 0 and 1 that no DHT segment
+  // filled by the first scan get the standard's tables.
+  void load_standard_huff_tables() {
+    if (standard_tables_checked_) return;
+    standard_tables_checked_ = true;
+    const uint8_t* dc_bits[2] = {kDcLumaBits, kDcChromaBits};
+    const uint8_t* dc_vals[2] = {kDcLumaVals, kDcChromaVals};
+    const uint8_t* ac_bits[2] = {kAcLumaBits, kAcChromaBits};
+    const uint8_t* ac_vals[2] = {kAcLumaVals, kAcChromaVals};
+    for (int t = 0; t < 2; t++) {
+      if (!dc_tables_[t].defined) build_huff_table(dc_tables_[t], dc_bits[t], dc_vals[t], 12, true);
+      if (!ac_tables_[t].defined) build_huff_table(ac_tables_[t], ac_bits[t], ac_vals[t], 162, false);
+    }
+  }
+
   void read_dht(size_t body, size_t end) {
     size_t p = body;
     while (p + 17 <= end) {
@@ -621,6 +675,7 @@ class Decoder {
     int blocks_in_mcu = 0;
     for (int ci : scan) blocks_in_mcu += ns == 1 ? 1 : comps_[ci].h * comps_[ci].v;
     if (blocks_in_mcu > 10) corrupt("too many blocks in an MCU");
+    load_standard_huff_tables();
     // libjpeg latches each component's quantization table at its first scan.
     for (int ci : scan) {
       Component& c = comps_[ci];

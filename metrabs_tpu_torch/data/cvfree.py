@@ -126,7 +126,8 @@ def resize(image: np.ndarray, size: Tuple[int, int], interpolation: int = INTER_
     of 1 or 3 channels, INTER_CUBIC on float32 ones (the synthetic
     background's upsampling). A resize to the same size is a copy;
     INTER_LINEAR at exactly half the size in both axes is INTER_AREA's, as
-    in OpenCV; INTER_AREA enlarging an axis is not supported."""
+    in OpenCV; INTER_AREA enlarging an axis is OpenCV's linear resize with
+    INTER_AREA's tap weights."""
     image = _check_image(image)
     out_w, out_h = int(size[0]), int(size[1])
     h, w = image.shape[:2]
@@ -143,9 +144,7 @@ def resize(image: np.ndarray, size: Tuple[int, int], interpolation: int = INTER_
     area_fast = abs(scale_x - int_x) < 2.2e-16 and abs(scale_y - int_y) < 2.2e-16
     if interpolation == INTER_LINEAR and area_fast and int_x == int_y == 2:
         interpolation = INTER_AREA
-    if interpolation == INTER_AREA:
-        if scale_x < 1 or scale_y < 1:
-            raise NotImplementedError('INTER_AREA enlarging an axis')
+    if interpolation == INTER_AREA and scale_x >= 1 and scale_y >= 1:
         out = (_resize_area_fast(src, int_x, int_y, out_w, out_h) if area_fast
                else _resize_area(src, scale_x, scale_y, out_w, out_h))
     else:
@@ -171,12 +170,19 @@ def _axis_taps(n_src: int, n_dst: int, scale: float, interpolation: int, horizon
     horizontal axis a linear tap left of the first or right of the last
     pixel takes that pixel whole."""
     k = 4 if interpolation == INTER_CUBIC else 2
-    f = (np.arange(n_dst) + 0.5) * scale - 0.5
-    if fixed_point:
-        f = f.astype(_F32)
-    s = np.floor(f).astype(np.int64)
-    f = (f - s).astype(f.dtype)
-    if interpolation == INTER_LINEAR:
+    if interpolation == INTER_AREA:
+        # OpenCV's area mode of its linear resize (an axis enlarged).
+        d = np.arange(n_dst)
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * (n_dst / n_src)).astype(_F32)
+        f = np.where(f <= 0, _F32(0), f - np.floor(f)).astype(_F32)
+    else:
+        f = (np.arange(n_dst) + 0.5) * scale - 0.5
+        if fixed_point:
+            f = f.astype(_F32)
+        s = np.floor(f).astype(np.int64)
+        f = (f - s).astype(f.dtype)
+    if interpolation in (INTER_LINEAR, INTER_AREA):
         f = f.astype(_F32)
         if horizontal:
             low, high = s < 0, s >= n_src - 1
@@ -208,7 +214,7 @@ def _resize_separable(src: np.ndarray, scale_x: float, scale_y: float, out_w: in
     if fixed_point:
         iwx = np.rint(wx * _F32(_COEF_SCALE)).astype(np.int64)
         iwy = np.rint(wy * _F32(_COEF_SCALE)).astype(np.int64)
-        if interpolation == INTER_LINEAR:
+        if interpolation in (INTER_LINEAR, INTER_AREA):
             edge = (x0 + (k // 2 - 1) < 0) | (x0 + (k // 2 - 1) >= w - 1)
             iwx[edge] = [_COEF_SCALE, 0]
         rows = src.astype(np.int64)

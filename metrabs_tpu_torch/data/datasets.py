@@ -390,7 +390,7 @@ def load_aspset_examples(
     the examples here carry boxes and cameras for prediction.
 
     The examples' image paths name video frames (`<video>.mkv#frame=N`),
-    which `imread` refuses until a video decoder is ported (ROADMAP.md).
+    which `improc.imread` decodes from Motion JPEG files (`data.video`).
     """
     import csv
     import json

@@ -1,10 +1,9 @@
 """CPU image helpers of the data pipeline (`metrabs_tpu/data/improc.py`)
 without OpenCV: images are read from JPEG (through `data.jpeg`, equal to
-cv2's decode), PNG (through `data.cvfree`) and `.npy` files, and the colour
+cv2's decode), PNG (through `data.cvfree`) and `.npy` files and written as
+JPEG (equal to cv2's encode) or PNG, video frames are read and written as
+Motion JPEG in AVI and Matroska files (through `data.video`), and the colour
 and resize helpers give OpenCV's numbers.
-
-Video decoding waits for a decoder on the card's machine, which has none
-(ROADMAP.md lists it); `imread` refuses video frames.
 """
 
 from __future__ import annotations
@@ -15,10 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-from metrabs_tpu_torch.data import cvfree, jpeg
-
-_UNDECODED = ('video decoding is not ported: the GPU machine has no decoder '
-              '(ROADMAP.md, "Video decoding"); extract the frames to JPEG, PNG or .npy')
+from metrabs_tpu_torch.data import cvfree, jpeg, video
 _JPEG_SIGNATURE = b'\xff\xd8\xff'
 _PNG_SIGNATURE = b'\x89PNG'
 
@@ -30,10 +26,17 @@ def imread(path: str) -> np.ndarray:
     the three channels and alpha dropped, as IMREAD_COLOR does); a `.npy`
     file holds such an array. Raises FileNotFoundError for a missing file,
     ValueError for a corrupt or truncated JPEG, and NotImplementedError for
-    video frames (`video.ext#frame=N`) and any other format."""
+    any other format.
+
+    `video.ext#frame=N` is frame N (from 0) of a Motion JPEG AVI or Matroska
+    video (the ASPset adapter's convention for its .mkv files): the file's
+    index is parsed once and kept, so each frame is one seek and one decode
+    (equal to `cv2.imdecode` of its packet). Other codecs raise
+    NotImplementedError naming the codec."""
     path = str(path)
     if '#frame=' in path:
-        raise NotImplementedError(f'{path}: {_UNDECODED}')
+        video_path, frame_spec = path.split('#frame=')
+        return video.read_frame(video_path, int(frame_spec))
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     if os.path.splitext(path)[1].lower() == '.npy':
@@ -144,3 +147,82 @@ def image_extents(filepath: str) -> np.ndarray:
     if data[:8] != b'\x89PNG\r\n\x1a\n' or data[12:16] != b'IHDR':
         raise NotImplementedError(f'{filepath}: neither JPEG nor PNG')
     return np.asarray(struct.unpack('>II', data[16:24]))
+
+
+def imwrite(path: str, image: np.ndarray) -> None:
+    """Writes an RGB uint8 [H, W, 3] (or gray [H, W]) image as `cv2.imwrite`
+    writes its BGR counterpart at OpenCV's defaults: `.jpg`/`.jpeg` through
+    `jpeg.encode` (the same bytes as cv2), `.png` through `cvfree.write_png`.
+    Other extensions raise NotImplementedError."""
+    path = str(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in ('.jpg', '.jpeg'):
+        data = jpeg.encode(image)
+        with open(path, 'wb') as f:
+            f.write(data)
+    elif ext == '.png':
+        cvfree.write_png(path, np.ascontiguousarray(image))
+    else:
+        raise NotImplementedError(f'{path}: imwrite writes .jpg, .jpeg and .png')
+
+
+def video_extents(filepath: str) -> np.ndarray:
+    """Video (width, height) from the container's header, without decoding
+    frames (Motion JPEG AVI and Matroska)."""
+    idx = video.index(str(filepath))
+    return np.asarray([idx.width, idx.height])
+
+
+def video_fps(filepath: str) -> float:
+    """Frame rate from the container's header: an AVI stream's rate / scale,
+    a Matroska track's DefaultDuration."""
+    return float(video.index(str(filepath)).fps)
+
+
+def num_frames_of_video(path: str) -> int:
+    """Frame count: the packets the container's index lists."""
+    return int(video.index(str(path)).n_frames)
+
+
+def transform_video(inp_path: str, out_path: str, process_frame_fn,
+                    fourcc: str = 'MJPG') -> None:
+    """Reads a video, maps `process_frame_fn` over its RGB frames and writes
+    the results at the source's frame rate, in the container the output's
+    extension names (`.avi` or `.mkv`). The frame function must keep the
+    frame size. Only Motion JPEG is written: JAX's default `fourcc='mp4v'`
+    waits for the mp4v item of ROADMAP.md, and raises NotImplementedError."""
+    if fourcc.upper() != 'MJPG':
+        raise NotImplementedError(f'transform_video: codec {fourcc!r} is not ported, only '
+                                  f'MJPG (ROADMAP.md, "mp4v read and write with the MP4 '
+                                  f'container")')
+    idx = video.index(str(inp_path))
+    parent = os.path.dirname(os.path.abspath(out_path))
+    os.makedirs(parent, exist_ok=True)
+    writer = None
+    try:
+        for frame in video.iter_frames(str(inp_path)):
+            out = process_frame_fn(frame)
+            if writer is None:
+                writer = video.VideoWriter(str(out_path), idx.fps or 30.0,
+                                           (out.shape[1], out.shape[0]), fourcc)
+            writer.write(out)
+    finally:
+        if writer is not None:
+            writer.close()
+
+
+def video_audio_mux(vidpath_audiosource: str, vidpath_imagesource: str,
+                    out_video_path: str) -> None:
+    """Copies the audio track of one video onto the frames of another. Stream
+    copy needs the ffmpeg binary; raises RuntimeError when it is not
+    installed."""
+    import shutil
+    import subprocess
+    ffmpeg = shutil.which('ffmpeg')
+    if ffmpeg is None:
+        raise RuntimeError('video_audio_mux needs the ffmpeg binary on PATH (audio stream '
+                           'copy is not done in-process)')
+    subprocess.run(
+        [ffmpeg, '-y', '-i', str(vidpath_imagesource), '-i', str(vidpath_audiosource),
+         '-map', '0:v', '-map', '1:a', '-c', 'copy', str(out_video_path)],
+        check=True, capture_output=True)

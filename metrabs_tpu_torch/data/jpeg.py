@@ -1,11 +1,16 @@
-"""JPEG decoding on the host, equal to `cv2.imread(path, cv2.IMREAD_COLOR)`
-(converted to RGB) bit for bit: `csrc/jpeg_decode.cpp` follows libjpeg-turbo
-3.1's default decode (ISLOW IDCT, fancy upsampling, its YCbCr tables), and
-the EXIF orientation is applied as OpenCV applies it.
+"""JPEG decoding and encoding on the host, equal to OpenCV's bit for bit.
 
-The library is built with the host C++ compiler at first use
+`decode` equals `cv2.imread(path, cv2.IMREAD_COLOR)` (converted to RGB):
+`csrc/jpeg_decode.cpp` follows libjpeg-turbo 3.1's default decode (ISLOW
+IDCT, fancy upsampling, its YCbCr tables), and the EXIF orientation is
+applied as OpenCV applies it. `encode` equals `cv2.imencode('.jpg', bgr)`
+at OpenCV's defaults: `csrc/jpeg_encode.cpp` follows libjpeg-turbo 3.1's
+default compression (quality 95, 4:2:0, ISLOW FDCT, the standard Huffman
+tables, a JFIF header).
+
+Each library is built with the host C++ compiler at first use
 (`ops/cuda_build.py::build_host_library`) and called through `ctypes.CDLL`,
-which releases the GIL for the call: threads decode in parallel.
+which releases the GIL for the call: threads decode and encode in parallel.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from metrabs_tpu_torch.ops import cuda_build
 
 _LOCK = threading.Lock()
 _LIB = None
+_ENCODER = None
 _ERR_LEN = 256
+DEFAULT_QUALITY = 95  # cv2.IMWRITE_JPEG_QUALITY's default
 
 
 def _library() -> ctypes.CDLL:
@@ -83,3 +90,46 @@ def apply_exif_orientation(im: np.ndarray, orientation: int) -> np.ndarray:
     if flips:
         im = np.flip(im, axis=flips)
     return np.ascontiguousarray(im)
+
+
+def _encoder() -> ctypes.CDLL:
+    global _ENCODER
+    with _LOCK:
+        if _ENCODER is None:
+            path, _ = cuda_build.build_host_library('jpeg_encode')
+            lib = ctypes.CDLL(str(path))
+            lib.metrabs_jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_int,
+                                                ctypes.POINTER(ctypes.c_size_t),
+                                                ctypes.c_char_p, ctypes.c_int]
+            lib.metrabs_jpeg_encode.restype = ctypes.c_void_p
+            lib.metrabs_jpeg_free.argtypes = [ctypes.c_void_p]
+            lib.metrabs_jpeg_free.restype = None
+            _ENCODER = lib
+        return _ENCODER
+
+
+def encode(image: np.ndarray, quality: int = DEFAULT_QUALITY) -> bytes:
+    """JPEG file bytes of an RGB uint8 [H, W, 3] image (or gray [H, W] or
+    [H, W, 1]), equal to `cv2.imencode('.jpg', bgr, [cv2.IMWRITE_JPEG_QUALITY,
+    quality])` of the same pixels in BGR order: baseline, 4:2:0 for colour,
+    the standard Huffman tables, no restart interval, a JFIF APP0 header."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError(f'expected uint8 pixels, got {image.dtype}')
+    if image.ndim == 3 and image.shape[2] == 1:
+        image = image[..., 0]
+    channels = 1 if image.ndim == 2 else image.shape[2]
+    if image.ndim not in (2, 3) or channels not in (1, 3):
+        raise ValueError(f'expected an [H, W, 3] or [H, W] image, got {image.shape}')
+    size = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    lib = _encoder()
+    buf = lib.metrabs_jpeg_encode(image.ctypes.data, image.shape[0], image.shape[1], channels,
+                                  int(quality), ctypes.byref(size), err, _ERR_LEN)
+    if not buf:
+        raise ValueError(f'JPEG encoding failed: {err.value.decode()}')
+    try:
+        return ctypes.string_at(buf, size.value)
+    finally:
+        lib.metrabs_jpeg_free(buf)

@@ -1,0 +1,733 @@
+"""Motion JPEG video in AVI and Matroska files, without a video library.
+
+Reading: the demuxers index a file's video packets once (AVI: RIFF with the
+`idx1` index, or the OpenDML `indx` super index and its `ix##` chunks that
+FFmpeg writes past 1 GiB; an AVI with neither raises; Matroska: EBML with
+SimpleBlock and BlockGroup in Clusters, `DefaultDuration` for the frame
+rate), so that frame N is one seek, one read and one `jpeg.decode`, which
+equals `cv2.imdecode` of the packet bit for bit. A packet without a DHT
+segment (the AVI1 convention of Motion JPEG cameras) is decoded with the
+standard Huffman tables, as libjpeg-turbo decodes it. `cv2.VideoCapture`
+decodes through FFmpeg's own IDCT and colour conversion, so its frames
+differ from these by a few levels.
+
+Writing: `VideoWriter` writes each RGB frame through `jpeg.encode` (equal to
+`cv2.imencode`) into an AVI (RIFF, `idx1`, and past `DEFAULT_RIFF_LIMIT`
+bytes the OpenDML index in AVIX extensions, as FFmpeg writes them) or a Matroska file
+(SimpleBlocks, one Cluster per second, Cues), chosen by the extension, as
+cv2 chooses. Frame sizes are kept as given, odd ones too.
+
+Only the Motion JPEG codec is ported: any other (MPEG-4 Part 2 `mp4v`,
+H.264, ...) and any other container (MP4) raise NotImplementedError naming
+it (ROADMAP.md, "mp4v read and write with the MP4 container").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import struct
+import threading
+from typing import BinaryIO, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from metrabs_tpu_torch.data import jpeg
+
+MJPEG_CODECS = ('MJPG', 'mjpg', 'V_MJPEG')  # AVI FourCCs, the Matroska CodecID
+_ROADMAP = 'ROADMAP.md, "mp4v read and write with the MP4 container"'
+DEFAULT_RIFF_LIMIT = 1 << 30  # FFmpeg's AVI_MAX_RIFF_SIZE: an AVIX extension past 1 GiB
+
+
+class UnsupportedVideo(NotImplementedError):
+    """A container or codec other than Motion JPEG in AVI or Matroska."""
+
+
+@dataclasses.dataclass
+class VideoIndex:
+    """Where each video packet of a file lies, and the stream's header."""
+    path: str
+    container: str  # 'avi' or 'matroska'
+    codec: str  # the AVI FourCC or the Matroska CodecID
+    width: int
+    height: int
+    fps: float
+    offsets: np.ndarray  # int64 byte offset of each packet
+    sizes: np.ndarray  # int64 byte length of each packet
+
+    @property
+    def n_frames(self) -> int:
+        return len(self.offsets)
+
+    def packet(self, i: int, f: Optional[BinaryIO] = None) -> bytes:
+        if not 0 <= i < self.n_frames:
+            raise IndexError(f'{self.path}: frame {i} of {self.n_frames}')
+        if f is None:
+            with open(self.path, 'rb') as g:
+                return self.packet(i, g)
+        f.seek(int(self.offsets[i]))
+        data = f.read(int(self.sizes[i]))
+        if len(data) != self.sizes[i]:
+            raise ValueError(f'{self.path}: truncated packet {i}')
+        return data
+
+    def frame(self, i: int, f: Optional[BinaryIO] = None) -> np.ndarray:
+        """RGB uint8 [H, W, 3] of packet i."""
+        return jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}')
+
+
+_INDEX_LOCK = threading.Lock()
+_INDEX_CACHE: Dict[str, Tuple[Tuple[int, int], VideoIndex]] = {}
+
+
+def index(path: str) -> VideoIndex:
+    """The packet index of a video file, parsed once per path and kept until
+    the file's size or modification time changes. Raises FileNotFoundError,
+    ValueError for a corrupt file and UnsupportedVideo for another codec or
+    container."""
+    path = str(path)
+    st = os.stat(path)
+    key = (st.st_size, st.st_mtime_ns)
+    with _INDEX_LOCK:
+        hit = _INDEX_CACHE.get(path)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+    with open(path, 'rb') as f:
+        head = f.read(12)
+        if head[:4] == b'RIFF' and head[8:12] == b'AVI ':
+            idx = _index_avi(path, f, st.st_size)
+        elif head[:4] == b'\x1a\x45\xdf\xa3':
+            idx = _index_matroska(path, f, st.st_size)
+        elif head[4:8] in (b'ftyp', b'moov', b'mdat', b'free', b'wide'):
+            raise UnsupportedVideo(f'{path}: MP4/QuickTime container (codec '
+                                   f'{_mp4_codec(path)!r}) is not ported ({_ROADMAP})')
+        else:
+            raise UnsupportedVideo(f'{path}: not an AVI or Matroska file')
+    if idx.codec not in MJPEG_CODECS:
+        raise UnsupportedVideo(f'{path}: codec {idx.codec!r} is not ported, only Motion JPEG '
+                               f'({_ROADMAP})')
+    with _INDEX_LOCK:
+        _INDEX_CACHE[path] = (key, idx)
+    return idx
+
+
+def read_frame(path: str, i: int) -> np.ndarray:
+    """Frame i (from 0) of a video as RGB uint8 [H, W, 3]."""
+    idx = index(path)
+    if not 0 <= i < idx.n_frames:
+        raise FileNotFoundError(f'{path}#frame={i}: the video has {idx.n_frames} frames')
+    return idx.frame(i)
+
+
+def iter_frames(path: str):
+    """Every frame of a video in order, RGB uint8 [H, W, 3], through one open
+    file."""
+    idx = index(path)
+    with open(path, 'rb') as f:
+        for i in range(idx.n_frames):
+            yield idx.frame(i, f)
+
+
+# --------------------------------------------------------------------------
+# AVI
+
+
+def _mp4_codec(path: str) -> str:
+    """The sample entry FourCC of an MP4 file's first `stsd` box, for the
+    error message ('mp4v', 'avc1', ...), looked for in the first MiB."""
+    with open(path, 'rb') as f:
+        data = f.read(1 << 20)
+    at = data.find(b'stsd')
+    if at < 0 or at + 20 > len(data):
+        return 'unknown'
+    return data[at + 16:at + 20].decode('latin1')
+
+
+def _chunks(f: BinaryIO, start: int, end: int):
+    """(FourCC, data offset, size, list type or None) of the RIFF chunks
+    between start and end."""
+    pos = start
+    while pos + 8 <= end:
+        f.seek(pos)
+        head = f.read(12)
+        if len(head) < 8:
+            return
+        fcc, size = head[:4], struct.unpack('<I', head[4:8])[0]
+        if fcc in (b'RIFF', b'LIST'):
+            yield fcc, pos + 12, size - 4, head[8:12]
+        else:
+            yield fcc, pos + 8, size, None
+        pos += 8 + size + (size & 1)
+
+
+def _index_avi(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
+    stream, n_streams = None, 0
+    movi: List[Tuple[int, int]] = []
+    idx1 = None
+    riffs = []
+    pos = 0
+    while pos + 12 <= file_size:  # RIFF 'AVI ' then RIFF 'AVIX' extensions
+        f.seek(pos)
+        head = f.read(12)
+        if head[:4] != b'RIFF':
+            break
+        size = struct.unpack('<I', head[4:8])[0]
+        riffs.append((pos + 12, min(pos + 8 + size, file_size)))
+        pos += 8 + size + (size & 1)
+    for r_start, r_end in riffs:
+        for fcc, at, size, kind in _chunks(f, r_start, r_end):
+            if kind == b'hdrl':
+                for sfcc, sat, ssize, skind in _chunks(f, at, at + size):
+                    if skind == b'strl':
+                        parsed = _parse_strl(f, sat, ssize, n_streams)
+                        if parsed is not None and stream is None:
+                            stream = parsed
+                        n_streams += 1
+            elif kind == b'movi':
+                movi.append((at - 4, at + size))
+            elif fcc == b'idx1' and idx1 is None:
+                f.seek(at)
+                idx1 = f.read(size)
+    if stream is None:
+        raise ValueError(f'{path}: no video stream in the AVI header')
+    ids = (b'%02ddc' % stream['number'], b'%02ddb' % stream['number'])
+    offsets, sizes = [], []
+    if stream['indx']:
+        for qw_offset, _ in stream['indx']:
+            # An ix## chunk: its header, then nEntriesInUse at 12 and
+            # qwBaseOffset at 20; each entry's offset is its data's.
+            f.seek(qw_offset)
+            head = f.read(32)
+            entries = struct.unpack('<I', head[12:16])[0]
+            base = struct.unpack('<Q', head[20:28])[0]
+            raw = np.frombuffer(f.read(8 * entries), '<u4').reshape(-1, 2)
+            offsets.extend((base + raw[:, 0].astype(np.int64)).tolist())
+            sizes.extend((raw[:, 1] & 0x7FFFFFFF).astype(np.int64).tolist())
+    elif idx1 is not None and movi:
+        raw = np.frombuffer(idx1[:len(idx1) // 16 * 16], np.dtype([
+            ('id', 'S4'), ('flags', '<u4'), ('offset', '<u4'), ('size', '<u4')]))
+        raw = raw[np.isin(raw['id'], ids)]
+        if len(raw):
+            # Offsets count from the 'movi' FourCC, or from the file's start.
+            base = movi[0][0] if raw['offset'][0] < movi[0][0] else 0
+            offsets = (raw['offset'].astype(np.int64) + base + 8).tolist()
+            sizes = raw['size'].astype(np.int64).tolist()
+    else:
+        raise ValueError(f'{path}: AVI without an index (idx1 or OpenDML indx)')
+    return VideoIndex(path=path, container='avi', codec=stream['codec'],
+                      width=stream['width'], height=stream['height'], fps=stream['fps'],
+                      offsets=np.asarray(offsets, np.int64), sizes=np.asarray(sizes, np.int64))
+
+
+def _parse_strl(f, start: int, size: int, number: int):
+    """The video stream's header fields (None for another stream type)."""
+    out = dict(number=number, indx=[])
+    for fcc, at, csize, _ in _chunks(f, start, start + size):
+        f.seek(at)
+        data = f.read(csize)
+        if fcc == b'strh':
+            if data[:4] != b'vids':
+                return None
+            scale, rate = struct.unpack('<II', data[20:28])
+            out.update(handler=data[4:8], fps=rate / scale if scale else 0.0)
+        elif fcc == b'strf':
+            width, height = struct.unpack('<ii', data[4:12])
+            out.update(width=width, height=abs(height), compression=data[16:20])
+        elif fcc == b'indx':
+            longs, sub, kind, n_used = struct.unpack('<HBBI', data[:8])
+            if kind == 0:  # AVI_INDEX_OF_INDEXES: (qwOffset, dwSize, dwDuration) entries
+                for k in range(n_used):
+                    qw, dw, _ = struct.unpack('<QII', data[24 + 16 * k:40 + 16 * k])
+                    out['indx'].append((qw, dw))
+    if 'fps' not in out or 'width' not in out:
+        raise ValueError('AVI stream header without strh or strf')
+    codec = out['compression'] if out['compression'].strip(b'\0') else out['handler']
+    out['codec'] = codec.decode('latin1')
+    return out
+
+
+class _AviMuxer:
+    """RIFF AVI with one Motion JPEG stream, laid out as FFmpeg lays it out:
+    hdrl with avih and strl (strh, strf, a JUNK chunk that becomes the
+    OpenDML `indx` super index), a JUNK that becomes the `odml` list, then
+    `movi` with `00dc` chunks and `idx1`. Past DEFAULT_RIFF_LIMIT bytes the RIFF
+    is closed with an `ix00` standard index and the packets go on in
+    RIFF 'AVIX' extensions, each with its own `ix00`."""
+
+    SUPER_ENTRIES = 256
+
+    def __init__(self, f: BinaryIO, width: int, height: int, fps: float):
+        self.f, self.width, self.height, self.fps = f, width, height, fps
+        self.riff_frames: List[List[Tuple[int, int]]] = [[]]  # (data offset, size) per RIFF
+        self.ix_chunks: List[Tuple[int, int, int]] = []  # (offset, size, frames)
+        self.scale, self.rate = _rational(fps)
+        self._write_headers()
+        self.riff_start = 0
+        self.movi_start = self._begin_list(b'movi')
+
+    def _begin(self, fcc: bytes) -> int:
+        at = self.f.tell()
+        self.f.write(fcc + b'\0\0\0\0')
+        return at
+
+    def _begin_list(self, kind: bytes, fcc: bytes = b'LIST') -> int:
+        at = self._begin(fcc)
+        self.f.write(kind)
+        return at
+
+    def _end(self, at: int) -> None:
+        end = self.f.tell()
+        size = end - at - 8
+        self.f.seek(at + 4)
+        self.f.write(struct.pack('<I', size))
+        self.f.seek(end)
+        if size & 1:
+            self.f.write(b'\0')
+
+    def _chunk(self, fcc: bytes, data: bytes) -> None:
+        self.f.write(fcc + struct.pack('<I', len(data)) + data)
+        if len(data) & 1:
+            self.f.write(b'\0')
+
+    def _write_headers(self) -> None:
+        riff = self._begin_list(b'AVI ', b'RIFF')
+        assert riff == 0
+        hdrl = self._begin_list(b'hdrl')
+        self.avih_at = self.f.tell()
+        self._chunk(b'avih', self._avih(0, 0))
+        strl = self._begin_list(b'strl')
+        self.strh_at = self.f.tell()
+        self._chunk(b'strh', self._strh(0, 0))
+        self._chunk(b'strf', struct.pack('<IiiHH4sIiiII', 40, self.width, self.height, 1, 24,
+                                         b'MJPG', self.width * self.height * 3, 0, 0, 0, 0))
+        self.indx_at = self.f.tell()
+        self._chunk(b'JUNK', self._indx([]))
+        self._end(strl)
+        self.odml_at = self.f.tell()
+        self._chunk(b'JUNK', b'odmldmlh' + struct.pack('<I', 248) + bytes(248))
+        self._end(hdrl)
+
+    def _avih(self, frames: int, max_bytes: int) -> bytes:
+        usec = int(round(1e6 * self.scale / self.rate))
+        return struct.pack('<14I', usec, 0, 0, 0x910, frames, 0, 1, max_bytes, self.width,
+                           self.height, 0, 0, 0, 0)
+
+    def _strh(self, frames: int, max_bytes: int) -> bytes:
+        return (b'vidsMJPG' + struct.pack('<IHHIIIIIIII', 0, 0, 0, 0, self.scale, self.rate, 0,
+                                          frames, max_bytes, 0xFFFFFFFF, 0)
+                + struct.pack('<4h', 0, 0, self.width, self.height))
+
+    def _indx(self, entries) -> bytes:
+        body = struct.pack('<HBBI4s12x', 4, 0, 0, len(entries), b'00dc')
+        for offset, size, frames in entries:
+            body += struct.pack('<QII', offset, size, frames)
+        return body + bytes(16 * (self.SUPER_ENTRIES - len(entries)))
+
+    def write(self, packet: bytes) -> None:
+        if self.f.tell() - self.riff_start + len(packet) + 8 > DEFAULT_RIFF_LIMIT and \
+                self.riff_frames[-1]:
+            self._close_riff()
+            if len(self.riff_frames) > self.SUPER_ENTRIES:
+                raise ValueError(f'more than {self.SUPER_ENTRIES} RIFF extensions')
+            self.riff_start = self._begin_list(b'AVIX', b'RIFF')
+            self.movi_start = self._begin_list(b'movi')
+            self.riff_frames.append([])
+        self.riff_frames[-1].append((self.f.tell() + 8, len(packet)))
+        self._chunk(b'00dc', packet)
+
+    def _write_ix(self) -> None:
+        frames = self.riff_frames[-1]
+        base = frames[0][0] - 8 if frames else 0
+        at = self.f.tell()
+        body = struct.pack('<HBBI4sQ4x', 2, 0, 1, len(frames), b'00dc', base)
+        body += b''.join(struct.pack('<II', off - base, size) for off, size in frames)
+        self._chunk(b'ix00', body)
+        self.ix_chunks.append((at, len(body) + 8, len(frames)))
+
+    def _close_riff(self) -> None:
+        self._write_ix()
+        self._end(self.movi_start)
+        if len(self.riff_frames) == 1:
+            self._write_idx1()
+        self._end(self.riff_start)
+
+    def _write_idx1(self) -> None:
+        body = b''.join(struct.pack('<4sIII', b'00dc', 0x10, off - 8 - self.movi_start - 8, size)
+                        for off, size in self.riff_frames[0])
+        self._chunk(b'idx1', body)
+
+    def close(self) -> None:
+        all_frames = [fr for riff in self.riff_frames for fr in riff]
+        max_bytes = max((size for _, size in all_frames), default=0)
+        if len(self.riff_frames) == 1:
+            self._end(self.movi_start)
+            self._write_idx1()
+            self._end(self.riff_start)
+        else:
+            self._close_riff()
+            self.f.seek(self.indx_at)
+            self.f.write(b'indx' + struct.pack('<I', 24 + 16 * self.SUPER_ENTRIES)
+                         + self._indx(self.ix_chunks))
+            self.f.seek(self.odml_at)
+            self.f.write(b'LIST' + struct.pack('<I', 4 + 8 + 248) + b'odmldmlh'
+                         + struct.pack('<II', 248, len(all_frames)) + bytes(244))
+        self.f.seek(self.avih_at + 8)
+        self.f.write(self._avih(len(self.riff_frames[0]), max_bytes))
+        self.f.seek(self.strh_at + 8)
+        self.f.write(self._strh(len(all_frames), max_bytes))
+        self.f.seek(0, os.SEEK_END)
+
+
+def _rational(fps: float) -> Tuple[int, int]:
+    """(scale, rate) with rate / scale == fps: an integer rate as it is,
+    another to a millionth."""
+    if fps <= 0 or not np.isfinite(fps):
+        raise ValueError(f'frame rate must be positive, got {fps}')
+    if abs(fps - round(fps)) < 1e-9:
+        return 1, int(round(fps))
+    return 1000000, int(round(fps * 1000000))
+
+
+# --------------------------------------------------------------------------
+# Matroska
+
+_EBML, _SEGMENT, _SEEKHEAD, _INFO, _TRACKS, _CLUSTER, _CUES = (
+    0x1A45DFA3, 0x18538067, 0x114D9B74, 0x1549A966, 0x1654AE6B, 0x1F43B675, 0x1C53BB6B)
+_TOP_LEVEL = (_SEEKHEAD, _INFO, _TRACKS, _CLUSTER, _CUES, 0x1254C367, 0x1941A469, 0x1043A770)
+_UNKNOWN = -1
+
+
+def _read_vint(f: BinaryIO, keep_marker: bool):
+    """(value, length) of an EBML variable-length integer: an element ID
+    with its marker bit kept, or a size without it (all ones: _UNKNOWN)."""
+    first = f.read(1)
+    if not first:
+        raise EOFError
+    b = first[0]
+    if b == 0:
+        raise ValueError('invalid EBML variable-length integer')
+    length = 1
+    while not b & (0x80 >> (length - 1)):
+        length += 1
+    rest = f.read(length - 1)
+    if len(rest) != length - 1:
+        raise EOFError
+    value = b if keep_marker else b & ((0x80 >> (length - 1)) - 1)
+    for c in rest:
+        value = (value << 8) | c
+    if not keep_marker and value == (1 << (7 * length)) - 1:
+        return _UNKNOWN, length
+    return value, length
+
+
+def _elements(f: BinaryIO, start: int, end: int):
+    """(id, data offset, size or _UNKNOWN) of the EBML elements between
+    start and end; an element of unknown size ends where the next one of the
+    top level begins."""
+    pos = start
+    while pos < end:
+        f.seek(pos)
+        try:
+            eid, n_id = _read_vint(f, keep_marker=True)
+            size, n_size = _read_vint(f, keep_marker=False)
+        except EOFError:
+            return
+        at = pos + n_id + n_size
+        yield eid, at, size
+        if size == _UNKNOWN:
+            return
+        pos = at + size
+
+
+def _uint(data: bytes) -> int:
+    return int.from_bytes(data, 'big')
+
+
+def _index_matroska(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
+    doc = None
+    segment = None
+    for eid, at, size in _elements(f, 0, file_size):
+        if eid == _EBML:
+            for cid, cat, csize in _elements(f, at, at + size):
+                if cid == 0x4282:
+                    f.seek(cat)
+                    doc = f.read(csize).decode('latin1')
+        elif eid == _SEGMENT:
+            segment = (at, file_size if size == _UNKNOWN else min(at + size, file_size))
+            break
+    if doc not in ('matroska', 'webm') or segment is None:
+        raise ValueError(f'{path}: not a Matroska file (DocType {doc!r})')
+    scale, track = 1000000, None
+    blocks: List[Tuple[int, int, int]] = []  # (data offset, size, timestamp)
+    pos, end = segment
+    while pos < end:
+        f.seek(pos)
+        try:
+            eid, n_id = _read_vint(f, keep_marker=True)
+            size, n_size = _read_vint(f, keep_marker=False)
+        except EOFError:
+            break
+        at = pos + n_id + n_size
+        if eid == _INFO:
+            for cid, cat, csize in _elements(f, at, at + size):
+                if cid == 0x2AD7B1:
+                    f.seek(cat)
+                    scale = _uint(f.read(csize))
+        elif eid == _TRACKS:
+            track = _matroska_video_track(f, at, at + size)
+        elif eid == _CLUSTER:
+            if track is None:
+                raise ValueError(f'{path}: a Cluster before the Tracks')
+            size = _matroska_cluster(f, at, size, end, track['number'], blocks)
+        if size == _UNKNOWN:
+            raise ValueError(f'{path}: element {eid:#x} of unknown size')
+        pos = at + size
+    if track is None:
+        raise ValueError(f'{path}: no video track')
+    if track['default_duration']:
+        fps = 1e9 / track['default_duration']
+    elif len(blocks) > 1:
+        fps = 1e9 / (float(np.median(np.diff([b[2] for b in blocks]))) * scale)
+    else:
+        fps = 0.0
+    return VideoIndex(path=path, container='matroska', codec=track['codec'],
+                      width=track['width'], height=track['height'], fps=fps,
+                      offsets=np.asarray([b[0] for b in blocks], np.int64),
+                      sizes=np.asarray([b[1] for b in blocks], np.int64))
+
+
+def _matroska_video_track(f, start: int, end: int):
+    for eid, at, size in _elements(f, start, end):
+        if eid != 0xAE:  # TrackEntry
+            continue
+        fields = dict(number=None, kind=None, codec='', default_duration=0, width=0, height=0)
+        for cid, cat, csize in _elements(f, at, at + size):
+            f.seek(cat)
+            data = f.read(csize)
+            if cid == 0xD7:
+                fields['number'] = _uint(data)
+            elif cid == 0x83:
+                fields['kind'] = _uint(data)
+            elif cid == 0x86:
+                fields['codec'] = data.rstrip(b'\0').decode('latin1')
+            elif cid == 0x23E383:
+                fields['default_duration'] = _uint(data)
+            elif cid == 0xE0:
+                for vid, vat, vsize in _elements(f, cat, cat + csize):
+                    f.seek(vat)
+                    if vid == 0xB0:
+                        fields['width'] = _uint(f.read(vsize))
+                    elif vid == 0xBA:
+                        fields['height'] = _uint(f.read(vsize))
+            elif cid == 0x6D80:  # ContentEncodings: compressed or encrypted frames
+                raise UnsupportedVideo('Matroska content encodings are not ported')
+        if fields['kind'] == 1:
+            return fields
+    return None
+
+
+def _matroska_cluster(f, start: int, size: int, segment_end: int, track: int,
+                      blocks: list) -> int:
+    """Appends the track's blocks of one Cluster; returns the Cluster's size
+    (found by its end for one of unknown size)."""
+    end = segment_end if size == _UNKNOWN else start + size
+    timestamp = 0
+    pos = start
+    while pos < end:
+        f.seek(pos)
+        try:
+            eid, n_id = _read_vint(f, keep_marker=True)
+            esize, n_size = _read_vint(f, keep_marker=False)
+        except EOFError:
+            break
+        if size == _UNKNOWN and eid in _TOP_LEVEL:
+            return pos - start
+        at = pos + n_id + n_size
+        if esize == _UNKNOWN:
+            raise ValueError('a Cluster child of unknown size')
+        if eid == 0xE7:  # Timestamp
+            f.seek(at)
+            timestamp = _uint(f.read(esize))
+        elif eid == 0xA3:  # SimpleBlock
+            _matroska_block(f, at, esize, track, timestamp, blocks)
+        elif eid == 0xA0:  # BlockGroup
+            for cid, cat, csize in _elements(f, at, at + esize):
+                if cid == 0xA1:  # Block
+                    _matroska_block(f, cat, csize, track, timestamp, blocks)
+        pos = at + esize
+    return end - start
+
+
+def _matroska_block(f, at: int, size: int, track: int, cluster_ts: int, blocks: list) -> None:
+    f.seek(at)
+    number, n = _read_vint(f, keep_marker=False)
+    if number != track:
+        return
+    rel, flags = struct.unpack('>hB', f.read(3))
+    if flags & 0x06:
+        raise UnsupportedVideo('laced Matroska blocks are not ported')
+    head = n + 3
+    blocks.append((at + head, size - head, cluster_ts + rel))
+
+
+def _id_bytes(eid: int) -> bytes:
+    return eid.to_bytes((eid.bit_length() + 7) // 8, 'big')
+
+
+def _element(eid: int, data: bytes) -> bytes:
+    return _id_bytes(eid) + _size8(len(data)) + data
+
+
+def _size8(n: int) -> bytes:
+    return (n | (1 << 56)).to_bytes(8, 'big')
+
+
+def _uint_element(eid: int, value: int) -> bytes:
+    return _element(eid, value.to_bytes(max(1, (value.bit_length() + 7) // 8), 'big'))
+
+
+class _MatroskaMuxer:
+    """A Matroska file with one V_MJPEG track: EBML header, then a Segment
+    with SeekHead, Info (TimestampScale 1 ms, Duration), Tracks
+    (DefaultDuration from the frame rate), one Cluster per second of
+    SimpleBlocks (every frame a key frame) and Cues, one CuePoint per
+    Cluster. Sizes are written as 8-byte numbers and filled in on close."""
+
+    CLUSTER_MS = 1000
+
+    def __init__(self, f: BinaryIO, width: int, height: int, fps: float):
+        self.f, self.fps = f, fps
+        self.n = 0
+        self.clusters: List[Tuple[int, int]] = []  # (segment-relative offset, timestamp)
+        self.cluster_at = None
+        f.write(_element(_EBML, b''.join([
+            _uint_element(0x4286, 1), _uint_element(0x42F7, 1), _uint_element(0x42F2, 4),
+            _uint_element(0x42F3, 8), _element(0x4282, b'matroska'),
+            _uint_element(0x4287, 4), _uint_element(0x4285, 2)])))
+        self.segment_at = f.tell()
+        f.write(_id_bytes(_SEGMENT) + _size8(0))
+        self.data_at = f.tell()
+        # SeekHead: Info, Tracks and Cues (filled in on close), each position 8 bytes.
+        self.seek_at = f.tell()
+        f.write(self._seekhead(0, 0, 0))
+        self.info_at = f.tell()
+        f.write(self._info(0.0))
+        self.tracks_at = f.tell()
+        f.write(_element(_TRACKS, _element(0xAE, b''.join([
+            _uint_element(0xD7, 1), _uint_element(0x73C5, 1), _uint_element(0x83, 1),
+            _uint_element(0x9C, 0), _element(0x86, b'V_MJPEG'),
+            _uint_element(0x23E383, int(round(1e9 / fps))),
+            _element(0xE0, _uint_element(0xB0, width) + _uint_element(0xBA, height))]))))
+
+    @staticmethod
+    def _seekhead(info: int, tracks: int, cues: int) -> bytes:
+        def seek(eid, pos):
+            return _element(0x4DBB, _element(0x53AB, _id_bytes(eid))
+                            + _element(0x53AC, pos.to_bytes(8, 'big')))
+        return _element(_SEEKHEAD, seek(_INFO, info) + seek(_TRACKS, tracks)
+                        + seek(_CUES, cues))
+
+    @staticmethod
+    def _info(duration_ms: float) -> bytes:
+        return _element(_INFO, b''.join([
+            _uint_element(0x2AD7B1, 1000000), _element(0x4D80, b'metrabs_tpu_torch'),
+            _element(0x5741, b'metrabs_tpu_torch'),
+            _element(0x4489, struct.pack('>d', duration_ms))]))
+
+    def _timestamp(self, i: int) -> int:
+        return int(round(i * 1000 / self.fps))
+
+    def write(self, packet: bytes) -> None:
+        ts = self._timestamp(self.n)
+        if self.cluster_at is None or ts - self.clusters[-1][1] >= self.CLUSTER_MS:
+            self._end_cluster()
+            self.cluster_at = self.f.tell()
+            self.clusters.append((self.cluster_at - self.data_at, ts))
+            self.f.write(_id_bytes(_CLUSTER) + _size8(0) + _uint_element(0xE7, ts))
+        rel = ts - self.clusters[-1][1]
+        self.f.write(_element(0xA3, b'\x81' + struct.pack('>hB', rel, 0x80) + packet))
+        self.n += 1
+
+    def _end_cluster(self) -> None:
+        if self.cluster_at is None:
+            return
+        end = self.f.tell()
+        self.f.seek(self.cluster_at + 4)
+        self.f.write(_size8(end - self.cluster_at - 12))
+        self.f.seek(end)
+        self.cluster_at = None
+
+    def close(self) -> None:
+        self._end_cluster()
+        cues_at = self.f.tell()
+        self.f.write(_element(_CUES, b''.join(
+            _element(0xBB, _uint_element(0xB3, ts) + _element(
+                0xB7, _uint_element(0xF7, 1) + _uint_element(0xF1, offset)))
+            for offset, ts in self.clusters)))
+        end = self.f.tell()
+        self.f.seek(self.segment_at + 4)
+        self.f.write(_size8(end - self.data_at))
+        self.f.seek(self.seek_at)
+        self.f.write(self._seekhead(self.info_at - self.data_at, self.tracks_at - self.data_at,
+                                    cues_at - self.data_at))
+        self.f.seek(self.info_at)
+        self.f.write(self._info(self.n * 1000 / self.fps))
+        self.f.seek(end)
+
+
+# --------------------------------------------------------------------------
+
+
+class VideoWriter:
+    """Writes RGB uint8 [H, W, 3] frames of one size as Motion JPEG into an
+    AVI (`.avi`) or Matroska (`.mkv`) file, each frame encoded by
+    `jpeg.encode` at cv2's default quality. `fourcc` must be 'MJPG' (the one
+    codec ported; 'mp4v' and the rest raise UnsupportedVideo). Each AVI RIFF
+    holds at most DEFAULT_RIFF_LIMIT bytes; an OpenDML AVIX extension follows
+    past it."""
+
+    def __init__(self, path: str, fps: float, size: Tuple[int, int], fourcc: str = 'MJPG'):
+        path = str(path)
+        if fourcc.upper() != 'MJPG':
+            raise UnsupportedVideo(f'{path}: codec {fourcc!r} is not ported, only MJPG '
+                                   f'({_ROADMAP})')
+        ext = os.path.splitext(path)[1].lower()
+        if ext not in ('.avi', '.mkv'):
+            raise UnsupportedVideo(f'{path}: container {ext or "(none)"!r} is not ported, only '
+                                   f'.avi and .mkv ({_ROADMAP})')
+        self.path, self.width, self.height = path, int(size[0]), int(size[1])
+        self.n_frames = 0
+        self._f = open(path, 'wb')
+        try:
+            if ext == '.avi':
+                self._mux = _AviMuxer(self._f, self.width, self.height, float(fps))
+            else:
+                self._mux = _MatroskaMuxer(self._f, self.width, self.height, float(fps))
+        except BaseException:
+            self._f.close()
+            raise
+
+    def write(self, rgb: np.ndarray) -> None:
+        if rgb.shape != (self.height, self.width, 3):
+            raise ValueError(f'{self.path}: frame of shape {rgb.shape}, the video is '
+                             f'{self.height}x{self.width}x3')
+        self.write_packet(jpeg.encode(rgb))
+
+    def write_packet(self, packet: bytes) -> None:
+        """Writes one encoded JPEG frame as it is."""
+        self._mux.write(packet)
+        self.n_frames += 1
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        try:
+            self._mux.close()
+        finally:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -12,6 +12,7 @@ CPU, and the options the port refuses raise NotImplementedError.
 """
 
 import json
+import os
 import pickle
 
 import numpy as np
@@ -296,12 +297,23 @@ def test_eval_benchmark_prints_jax_metrics_of_its_predictions(tmp_path, tiny_pac
 # --- what the port refuses ---------------------------------------------------
 
 @pytest.mark.parametrize('driver', ['predict_3dpw', 'predict_mupots'])
-def test_viz_dir_raises(tmp_path, driver):
+def test_viz_dir_raises(tmp_path, stubs, driver):
+    """(The name is from when `--viz-dir` raised: the figures had no
+    renderer on the card's machine.) `--viz-dir` now writes the figures:
+    one JPEG per `--viz-step` frames, under JAX's names
+    (tests/test_torch_demos.py holds the names to JAX's driver)."""
     import importlib
     main = importlib.import_module(f'metrabs_tpu_torch.apps.{driver}').main
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        main(['--package', 'pkg', '--root', str(tmp_path), '--output-path', str(tmp_path / 'o'),
-              '--viz-dir', str(tmp_path / 'viz'), '--device', 'cpu'])
+    root = tmp_path / 'data'
+    if driver == 'predict_3dpw':
+        layouts.mint_3dpw(root, np.random.default_rng(3), n_seqs=1, n_frames=5)
+        extra, want = ['--gtassoc'], ['seq_00_00000.jpg', 'seq_00_00003.jpg']
+    else:
+        layouts.mint_mupots(root, np.random.default_rng(2), sequences=(1,), n_frames=5)
+        extra, want = [], ['TS1_00000.jpg', 'TS1_00003.jpg']
+    main(['--package', 'pkg', '--root', str(root), '--output-path', str(tmp_path / 'o'),
+          '--viz-dir', str(tmp_path / 'viz'), '--viz-step', '3', '--device', 'cpu'] + extra)
+    assert sorted(os.listdir(tmp_path / 'viz')) == want
 
 
 def test_eval_benchmark_hdf5_dump_raises(tmp_path, tiny_package, one_torch_thread):

@@ -100,19 +100,23 @@ def _resize_cases():
     yield 'linear_up', (17, 23), (61, 40), cv2.INTER_LINEAR
     yield 'linear_down', (97, 61), (40, 33), cv2.INTER_LINEAR
     yield 'linear_half', (64, 96), (32, 48), cv2.INTER_LINEAR
+    # INTER_AREA enlarging an axis (demo_video's letterbox): OpenCV's linear
+    # path with its area weights.
+    yield 'area_up', (17, 23), (61, 40), cv2.INTER_AREA
+    yield 'area_up_mixed', (40, 30), (25, 70), cv2.INTER_AREA
 
 
 @pytest.mark.parametrize('case', list(_resize_cases()), ids=lambda c: c[0])
 @pytest.mark.parametrize('channels', [1, 3])
 @pytest.mark.parametrize('dtype', [np.uint8, np.float32], ids=['uint8', 'float32'])
 def test_resize_equals_cv2(case, channels, dtype):
-    _, (h, w), (oh, ow), interp = case
+    name, (h, w), (oh, ow), interp = case
     rng = np.random.default_rng(2)
     im = _image(rng, (h, w) if channels == 1 else (h, w, channels), dtype)
     want = cv2.resize(im, (ow, oh), interpolation=interp)
     got = cvfree.resize(im, (ow, oh), interp)
     assert got.dtype == want.dtype and got.shape == want.shape
-    if dtype == np.float32 and interp == cv2.INTER_LINEAR:
+    if dtype == np.float32 and (interp == cv2.INTER_LINEAR or name.startswith('area_up')):
         np.testing.assert_allclose(got, want, atol=FLOAT_RESIZE_ATOL, rtol=0)
     else:
         np.testing.assert_array_equal(got, want)
@@ -269,8 +273,9 @@ def _png_row_filters(path):
 def test_imread_matches_cv2_imread(tmp_path):
     """Gray and RGBA PNGs come back as 3-channel RGB, as cv2.IMREAD_COLOR
     reads them; .npy files load as they are; a JPEG decodes as cv2 decodes
-    it (tests/test_torch_jpeg.py holds the decoder to cv2 in depth); video
-    raises."""
+    it (tests/test_torch_jpeg.py holds the decoder to cv2 in depth); an
+    mp4v video's frame raises, naming ROADMAP.md (only Motion JPEG is read:
+    tests/test_torch_video.py)."""
     rng = np.random.default_rng(10)
     for shape in ((20, 30), (20, 30, 3), (20, 30, 4)):
         im = rng.integers(0, 256, shape, dtype=np.uint8)
@@ -286,6 +291,11 @@ def test_imread_matches_cv2_imread(tmp_path):
     cv2.imwrite(jpg, want)
     np.testing.assert_array_equal(improc.imread(jpg), jax_improc.imread(jpg))
     np.testing.assert_array_equal(improc.image_extents(jpg), jax_improc.image_extents(jpg))
+    writer = cv2.VideoWriter(str(tmp_path / 'v.mp4'), cv2.CAP_FFMPEG,
+                             cv2.VideoWriter_fourcc(*'mp4v'), 10, (32, 24))
+    for _ in range(5):
+        writer.write(np.zeros((24, 32, 3), np.uint8))
+    writer.release()
     video = f'{tmp_path}/v.mp4#frame=3'
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         improc.imread(video)

@@ -6,6 +6,7 @@ the HDF5 annotations it cannot read.
 """
 
 import dataclasses
+import os
 import pickle
 
 import numpy as np
@@ -136,9 +137,26 @@ def test_aspset_examples_match_jax(tmp_path, rng, frame_step):
     assert_examples_equal(ours, jax_datasets.load_aspset_examples(
         str(tmp_path), frame_step=frame_step))
     assert all('.mkv#frame=' in ex.image_path for ex in ours)
+    # The frame paths read from a Motion JPEG clip where one is written (the
+    # first clip's), and raise as JAX's imread does where none is.
+    from metrabs_tpu.data.improc import imread as jax_imread
+    from metrabs_tpu_torch.data import jpeg, video
     from metrabs_tpu_torch.data.improc import imread
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        imread(ours[0].image_path)
+    clip = ours[0].image_path.split('#')[0]
+    frames = [np.full((48, 64, 3), 40 * k, np.uint8) for k in range(5)]
+    os.makedirs(os.path.dirname(clip))
+    with video.VideoWriter(clip, 25, (64, 48)) as writer:
+        for frame in frames:
+            writer.write(frame)
+    for ex in ours:
+        path, index = ex.image_path.split('#frame=')
+        if path == clip:
+            np.testing.assert_array_equal(imread(ex.image_path),
+                                          jpeg.decode(jpeg.encode(frames[int(index)])))
+        else:
+            for read in (imread, jax_imread):
+                with pytest.raises(FileNotFoundError):
+                    read(ex.image_path)
 
 
 def test_3dhp_test_frames_raise_where_the_hdf5_annotations_are(tmp_path):
