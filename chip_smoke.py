@@ -10,7 +10,8 @@ line:
     `metrabs_tpu_torch/csrc/warp.cu` and the fused MBConv chain
     `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, and the
     host C++ compiler the JPEG decoder `csrc/jpeg_decode.cpp` and encoder
-    `csrc/jpeg_encode.cpp`, all four compilers started together;
+    `csrc/jpeg_encode.cpp` and the mp4v codec `csrc/mpeg4_video.cpp`, all
+    five compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
     lens distortion on some crops, a crop entirely outside its frame); the
@@ -192,26 +193,37 @@ line:
     cv2.imencode in its manifest, then its time on the 1080x1920 frame
     (median of 20 on one thread); the video reader on the cv2-written MJPG
     fixtures of tests/torch_fixtures/video (AVI and Matroska), every packet
-    held to the SHA-256 of cv2.imdecode and the metadata to cv2's. Under
-    runs/ (deleted after): metrabs_eff2s_y4 minted on H36M-17 with a firing
-    YOLOv4-416, a 24-frame 1080x1920 MJPEG .avi and an ASPset-510 layout
-    (one subject, two views of 16 1080x1920 MJPEG .mkv frames, box CSVs,
-    camera JSONs), all written by the port. The demos' detector calls are
+    held to the SHA-256 of cv2.imdecode and the metadata to cv2's; the mp4v
+    decoder (`csrc/mpeg4_video.cpp`) on the cv2-written fixtures of
+    tests/torch_fixtures/mp4v (MP4, AVI and Matroska, I- and P-VOPs across
+    a GOP), every packet, luma plane and RGB frame held to the SHA-256 of
+    cv2's in the manifest and the metadata to cv2's, the decode timed on
+    one thread. Under runs/ (deleted after): the mp4v encoder on
+    MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
+    thread), read back with its luma equal to the encoder's reconstruction;
+    metrabs_eff2s_y4 minted on H36M-17 with a firing YOLOv4-416, a 24-frame
+    1080x1920 MJPEG .avi and an ASPset-510 layout (one subject, two views
+    of 16 1080x1920 mp4v .mkv frames, box CSVs, camera JSONs), all written
+    by the port. The demos' detector calls are
     made with `suppress_implausible_poses=False`, so that the random
     weights' poses survive and are drawn. `apps.demo_image.main` on the
     1080x1920 JPEG fixture, folded, with `--out` (.jpg) and `--out-3d`
     (.png), every K1 launch against the plain warp, both files read back,
     poses found and the overlay unlike the undrawn frame; `apps.demo_video.main`
-    with `--frame-batch 8`, as is and with `--stream 2`, each writing an
-    overlay .mkv read back (frames, size, poses drawn), frames/s end to end
-    and the decoding, drawing and encoding shares of the wall; one batch
-    again with each K1 launch against the plain warp, then profiled (busy
-    share); `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8
-    frames (SMPL-24 package), its figures under JAX's names read back and
-    timed; `apps.predict_aspset.main` loaded unfolded with
-    `fuse_mbconv='on'` (K1 once and K2 28 times per chunk), frames/s with
-    and without the package's loading and the decoding share, its first
-    chunk again with K1 against the plain warp and K2's v exact.
+    with `--frame-batch 8`, on the MJPEG .avi as is and with `--stream 2`
+    (each writing an overlay .mkv) and on the mp4v .mp4 (writing an .mp4),
+    each overlay mp4v as JAX's demo writes it, read back (frames, size,
+    poses drawn: its first frame unlike the same frame encoded undrawn),
+    frames/s end to end and the decoding, drawing and encoding shares of the
+    wall, the mp4v input's frames each decoded once; one batch again with each K1 launch
+    against the plain warp, then profiled (busy share);
+    `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
+    (SMPL-24 package), its figures under JAX's names read back and timed;
+    `apps.predict_aspset.main` on the mp4v .mkv clips, loaded unfolded with
+    `fuse_mbconv='on'` (K1 once and K2 28 times per chunk), each frame
+    decoded once, frames/s with and without the package's loading and the
+    decoding share; then again with every K1 launch against the plain warp
+    and every K2 launch against the plain chain, both exact.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -1081,6 +1093,35 @@ def checked_warps(run):
         return run(), errors
     finally:
         warp_cuda.warp_pyramid = kernel
+        kernel.launches = compared.launches
+
+
+def checked_mbconv(run):
+    """`run()` with `mbconv_cuda.fused_mbconv_inner` wrapped as
+    `checked_warps` wraps the warp: each launch's v and SE mean are held
+    against the plain `ops.mbconv.fused_mbconv_inner` on the same tensors.
+    Returns (run's output, max |kernel - plain| of v per launch, of the
+    mean per launch)."""
+    from metrabs_tpu_torch.ops import mbconv, mbconv_cuda
+
+    kernel, errors_v, errors_mean = mbconv_cuda.fused_mbconv_inner, [], []
+
+    def compared(u, taps, sb):
+        launches = compared.launches
+        v, mean = kernel(u, taps, sb)
+        if compared.launches != launches:
+            want_v, want_mean = mbconv.fused_mbconv_inner(u, taps, sb)
+            errors_v.append((v.float() - want_v.float()).abs().max().item())
+            errors_mean.append((mean - want_mean).abs().max().item())
+        return v, mean
+
+    compared.launches = kernel.launches
+    compared.launches_by_shape = kernel.launches_by_shape
+    mbconv_cuda.fused_mbconv_inner = compared
+    try:
+        return run(), errors_v, errors_mean
+    finally:
+        mbconv_cuda.fused_mbconv_inner = kernel
         kernel.launches = compared.launches
 
 
@@ -2206,18 +2247,20 @@ class DriverRuns:
     """Runs a benchmark driver's `main` with its package loaded through
     `loader(method, **overrides)`, which keeps the estimator, times the
     loading and records the arguments of each call of `method`, and with
-    `jpeg.decode` (what `improc.imread` and the video reader call) and
-    `jpeg.encode` (what `improc.imwrite` and the video writer call) timed;
-    K1's and K2's counts are set to 0 just before the driver runs and read
-    just after."""
+    `jpeg.decode` and `mpeg4.Decoder.decode` (what `improc.imread` and the
+    video reader call) and `jpeg.encode` and `mpeg4.Encoder.encode` (what
+    `improc.imwrite` and the video writer call) timed; K1's and K2's counts
+    are set to 0 just before the driver runs and read just after, and the
+    mp4v frames decoded in the run are counted."""
 
     def __init__(self):
         import metrabs_tpu_torch.io.packaging as packaging
-        from metrabs_tpu_torch.data import jpeg
+        from metrabs_tpu_torch.data import jpeg, mpeg4
 
-        self.packaging, self.jpeg = packaging, jpeg
+        self.packaging, self.jpeg, self.mpeg4 = packaging, jpeg, mpeg4
         self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
         self.original_encode = jpeg.encode
+        self.original_mp4v = mpeg4.Decoder.decode, mpeg4.Encoder.encode
         self.loaded, self.calls, self.decode_spans, self.load_s = [], [], [], []
         self.encode_spans = []
         self.call_s = []  # seconds of each recorded call, CUDA-synchronised
@@ -2255,9 +2298,20 @@ class DriverRuns:
         self.encode_spans.append((t, time.perf_counter()))
         return data
 
+    @staticmethod
+    def timed_method(f, spans):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return f(*args, **kwargs)
+            finally:
+                spans.append((t, time.perf_counter()))
+        return timed
+
     def restore(self) -> None:
         self.packaging.load_pose_estimator = self.original_load
         self.jpeg.decode, self.jpeg.encode = self.original_decode, self.original_encode
+        self.mpeg4.Decoder.decode, self.mpeg4.Encoder.encode = self.original_mp4v
 
     def run(self, load, main, argv) -> dict:
         from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
@@ -2267,6 +2321,9 @@ class DriverRuns:
             kept.clear()
         self.packaging.load_pose_estimator, self.jpeg.decode = load, self.timed_decode
         self.jpeg.encode = self.timed_encode
+        self.mpeg4.Decoder.decode = self.timed_method(self.original_mp4v[0], self.decode_spans)
+        self.mpeg4.Encoder.encode = self.timed_method(self.original_mp4v[1], self.encode_spans)
+        decoded = self.mpeg4.frames_decoded()
         torch.cuda.synchronize()
         warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
         try:
@@ -2281,7 +2338,7 @@ class DriverRuns:
         return dict(seconds=seconds, run_s=run_s, load_s=self.load_s[0],
                     decode_s=union_seconds(self.decode_spans),
                     encode_s=union_seconds(self.encode_spans), k1=k1, k2=k2, last=last,
-                    printed=printed,
+                    printed=printed, mp4v_decodes=self.mpeg4.frames_decoded() - decoded,
                     est=self.loaded[0], calls=list(self.calls), call_s=list(self.call_s))
 
 
@@ -3103,7 +3160,10 @@ def train2serve_phase(root: Path, dev) -> dict:
 DEMOS_DIR = 'runs/chip_smoke_demos'
 ENCODE_FIXTURES = 'tests/torch_fixtures/jpeg_encode'
 VIDEO_FIXTURES = 'tests/torch_fixtures/video'
+MP4V_FIXTURES = 'tests/torch_fixtures/mp4v'
 ENCODE_REPEATS = 20  # single-thread encodes of the 1080x1920 frame, median taken
+MP4V_FRAMES = 24  # shifted 1080x1920 frames through the mp4v encoder: demo_video's .mp4
+MP4V_SHIFT = (3, 4)  # (down, right) pixels per frame, as tests/_torch_mp4v_fixtures.py shifts
 
 
 def encode_case_image(root: Path, case: dict) -> np.ndarray:
@@ -3128,7 +3188,7 @@ DEMO_VIDEO_FRAMES = 24  # 1080x1920 MJPEG .avi frames through demo_video
 DEMO_FRAME_BATCH = 8
 DEMO_STREAM = 2
 ASPSET_VIEWS = ('left', 'mid')
-ASPSET_FRAMES = 16  # per view: 1080x1920 MJPEG .mkv
+ASPSET_FRAMES = 16  # per view: 1080x1920 mp4v .mkv
 ASPSET_BATCH = 8  # predict_aspset's default --batch-size
 FRAME_3DPW_SIZE = (1920, 1080)  # rows, columns of the portrait fixture
 # A 1080x1920 portrait camera for the minted ASPset views.
@@ -3236,11 +3296,99 @@ def check_video_fixtures(root: Path) -> dict:
     return dict(files=len(manifest), packets=n_packets)
 
 
+def mp4v_frames(root: Path, n: int):
+    """n RGB frames: the portrait JPEG fixture decoded, shifted MP4V_SHIFT
+    pixels per frame with wraparound (the frames of the mp4v fixtures)."""
+    from metrabs_tpu_torch.data import improc
+    base = improc.imread(str(root / JPEG_FIXTURES / FRAME_3DPW))
+    return [np.ascontiguousarray(np.roll(base, (MP4V_SHIFT[0] * k, MP4V_SHIFT[1] * k),
+                                         axis=(0, 1))) for k in range(n)]
+
+
+def check_mp4v_fixtures(root: Path) -> dict:
+    """Every cv2-written mp4v fixture through the port's demuxer and
+    decoder: each packet, luma plane and RGB frame held to the SHA-256 of
+    cv2's in the manifest, size and frame count to cv2's, the rate within
+    1e-4 (cv2 reports 30000/1001 as 29.97); the 1080x1920 frames' decode
+    (to RGB) timed on one thread."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc, mpeg4, video
+
+    def sha(data: bytes) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    manifest = json.loads((root / MP4V_FIXTURES / 'manifest.json').read_text())
+    n_frames, times = 0, []
+    for name, entry in sorted(manifest.items()):
+        path = str(root / MP4V_FIXTURES / name)
+        idx = video.index(path)
+        packets = [idx.packet(i) for i in range(idx.n_frames)]
+        decoder = mpeg4.Decoder(idx.config, path)
+        lumas, rgbs = [], []
+        for packet in packets:
+            t = time.perf_counter()
+            rgb, y = decoder.decode(packet, luma=True)
+            if idx.height == FRAME_3DPW_SIZE[0]:
+                times.append(time.perf_counter() - t)
+            lumas.append(sha(y.tobytes()))
+            rgbs.append(sha(rgb.tobytes()))
+        cv = entry['cv2']
+        meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
+        wrong = [what for what, got, want in (
+            ('packets', [sha(p) for p in packets], entry['packet_sha256']),
+            ('luma', lumas, entry['luma_sha256']), ('RGB', rgbs, entry['rgb_sha256']),
+            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count']))) if got != want]
+        if wrong or not math.isclose(improc.video_fps(path), cv['fps'], rel_tol=1e-4):
+            fail('demos', f'{name}: {", ".join(wrong) or "rate"} differ from cv2\'s '
+                          f'({idx.n_frames} frames, {meta}, {improc.video_fps(path)} frames/s)')
+        n_frames += len(packets)
+    return dict(files=len(manifest), frames=n_frames, ms=statistics.median(times) * 1e3,
+                n_timed=len(times))
+
+
+def check_mp4v_encoder(root: Path, path: Path) -> dict:
+    """The mp4v encoder on MP4V_FRAMES shifted 1080x1920 frames into an MP4
+    file (each `write` timed on one thread), then read back: every luma
+    plane equal to the encoder's reconstruction (each decode timed), PSNR
+    over RGB against the frames, bytes per frame."""
+    from metrabs_tpu_torch.data import mpeg4, video
+
+    frames = mp4v_frames(root, MP4V_FRAMES)
+    recon, enc_times = [], []
+    with video.VideoWriter(str(path), 25.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]),
+                           'mp4v') as writer:
+        for frame in frames:
+            t = time.perf_counter()
+            writer.write(frame)
+            enc_times.append(time.perf_counter() - t)
+            recon.append(writer.encoder.reconstruction()[0])
+    idx = video.index(str(path))
+    decoder = mpeg4.Decoder(idx.config, str(path))
+    dec_times, mse, exact = [], [], 0
+    with open(path, 'rb') as f:
+        for i in range(idx.n_frames):
+            packet = idx.packet(i, f)
+            t = time.perf_counter()
+            rgb, y = decoder.decode(packet, luma=True)
+            dec_times.append(time.perf_counter() - t)
+            exact += int(np.array_equal(y, recon[i]))
+            mse.append(np.mean((rgb.astype(np.float64) - frames[i]) ** 2))
+    if idx.n_frames != MP4V_FRAMES or exact != MP4V_FRAMES or list(
+            np.flatnonzero(idx.keyframes)) != [0, 12]:
+        fail('demos', f'mp4v round trip: {idx.n_frames} frames, {exact} luma planes equal to '
+                      f'the reconstruction, key frames {np.flatnonzero(idx.keyframes)}')
+    return dict(enc_ms=statistics.median(enc_times) * 1e3,
+                dec_ms=statistics.median(dec_times) * 1e3,
+                kib=float(np.sum(idx.sizes)) / idx.n_frames / 1024,
+                psnr=float(np.mean([10 * np.log10(255.0 ** 2 / m) for m in mse])))
+
+
 def mint_aspset_layout(root: Path, work: Path) -> None:
     """ASPset-510's layout with one subject and ASPSET_VIEWS: splits.csv, a
     box CSV per clip (a person box moving with the frame's shift), a camera
-    JSON per view and 1080x1920 MJPEG .mkv clips of ASPSET_FRAMES frames
-    written by the port's own writer."""
+    JSON per view and 1080x1920 mp4v .mkv clips of ASPSET_FRAMES frames (as
+    JAX's test writes them) written by the port's own writer."""
     from metrabs_tpu_torch.data import video
 
     subj, vid = '01', '0001'
@@ -3258,7 +3406,7 @@ def mint_aspset_layout(root: Path, work: Path) -> None:
         (work / 'test' / 'cameras' / subj / f'{subj}-{view}.json').write_text(
             json.dumps(dict(intrinsic_matrix=K_ASPSET)))
         with video.VideoWriter(str(work / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'),
-                               50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])) as writer:
+                               50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]), 'mp4v') as writer:
             for frame in frames[i_view:] + frames[:i_view]:
                 writer.write(frame)
 
@@ -3277,7 +3425,7 @@ def demos_phase(root: Path, dev) -> dict:
     of the demo_image, demo_video (as is and with --stream) and
     predict_aspset runs."""
     from metrabs_tpu_torch.apps import demo_image, demo_video, predict_3dpw, predict_aspset
-    from metrabs_tpu_torch.data import improc, video
+    from metrabs_tpu_torch.data import improc, mpeg4, video
     from metrabs_tpu_torch.models.backbones.builder import build_backbone
     from metrabs_tpu_torch.pipeline.skeletons import H36M_17, SMPL_24
     from metrabs_tpu_torch.utils import viz
@@ -3292,10 +3440,22 @@ def demos_phase(root: Path, dev) -> dict:
     phase(name, f'video reader: {vid["files"]} cv2-written MJPG files (AVI and Matroska), all '
                 f'{vid["packets"]} packets equal their cv2.imdecode hashes, sizes, counts and '
                 f'rates equal cv2\'s')
+    mp4v = check_mp4v_fixtures(root)
+    phase(name, f'mp4v decoder (host C++): {mp4v["files"]} cv2-written files (MP4, AVI and '
+                f'Matroska), all {mp4v["frames"]} frames\' packets, luma planes and RGB frames '
+                f'equal their cv2 hashes, sizes, counts and rates cv2\'s; 1080x1920 decode to '
+                f'RGB {mp4v["ms"]:.2f} ms per frame on one thread (median of {mp4v["n_timed"]})')
 
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    mp4v_src = work / 'in.mp4'
+    enc = check_mp4v_encoder(root, mp4v_src)
+    phase(name, f'mp4v encoder (host C++, GOP 12, qscale 3): {MP4V_FRAMES} shifted 1080x1920 '
+                f'frames into {mp4v_src.name}: encode {enc["enc_ms"]:.2f} ms per frame, decode '
+                f'{enc["dec_ms"]:.2f} ms (medians, one thread), {enc["kib"]:.1f} KiB per frame, '
+                f'{enc["psnr"]:.2f} dB PSNR over RGB; every luma plane read back equal to the '
+                f'encoder\'s reconstruction')
     gen = torch.Generator().manual_seed(SEED + 17)
     drivers = DriverRuns()
     try:
@@ -3309,7 +3469,7 @@ def demos_phase(root: Path, dev) -> dict:
         phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
                     f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
                     f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
-                    f'{ASPSET_FRAMES} frames of 1080x1920 MJPEG .mkv, written by the port')
+                    f'{ASPSET_FRAMES} frames of 1080x1920 mp4v .mkv, written by the port')
 
         # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
         # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
@@ -3344,15 +3504,18 @@ def demos_phase(root: Path, dev) -> dict:
         launches = {'demo_image': (r['k1'], r['k2'])}
         del r
 
-        # demo_video as is and with --stream, each writing its overlay video.
-        for key, extra in (('demo_video', []), ('demo_video_stream', ['--stream',
-                                                                      str(DEMO_STREAM)])):
-            out = work / f'{key}.mkv'
+        # demo_video on the MJPEG .avi as is and with --stream, writing .mkv,
+        # and on the mp4v .mp4, writing .mp4; each overlay video read back.
+        for key, source, out, extra in (
+                ('demo_video', src, work / 'demo_video.mkv', []),
+                ('demo_video_stream', src, work / 'demo_video_stream.mkv',
+                 ['--stream', str(DEMO_STREAM)]),
+                ('demo_video_mp4v', mp4v_src, work / 'demo_video_mp4v.mp4', [])):
             drawing = TimedCalls((demo_image, 'draw_poses'))
             try:
                 r = drivers.run(drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
                                 demo_video.main, [
-                    '--video', str(src), '--package', str(work / 'pkg'), '--out', str(out),
+                    '--video', str(source), '--package', str(work / 'pkg'), '--out', str(out),
                     '--frame-batch', str(DEMO_FRAME_BATCH)] + extra)
             finally:
                 drawing.restore()
@@ -3363,24 +3526,31 @@ def demos_phase(root: Path, dev) -> dict:
                 n_batches = math.ceil(n_batches / DEMO_STREAM) * DEMO_STREAM
             back = video.index(str(out))
             first = improc.imread(f'{out}#frame=0')
-            # The first frame that holds a drawn pose.
-            drawn = next((i for i in range(back.n_frames) if not np.array_equal(
-                back.frame(i), undrawn(video.read_frame(str(src), i)))), None)
+            # The overlay (mp4v, as JAX's demo writes) has poses drawn: its
+            # first frame, an I-VOP, is unlike the same frame encoded undrawn.
+            mp4v_run = source.suffix == '.mp4'
+            encoder = mpeg4.Encoder(back.width, back.height, back.fps)
+            packet, _ = encoder.encode(video.read_frame(str(source), 0))
+            drawn = None if np.array_equal(
+                first, mpeg4.Decoder(encoder.config).decode(packet)) else 0
             if (result['frames'] != DEMO_VIDEO_FRAMES or back.n_frames != DEMO_VIDEO_FRAMES
                     or result['total_poses'] == 0 or drawn is None
                     or (back.width, back.height) != (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])
                     or first.shape != (*FRAME_3DPW_SIZE, 3) or len(r['calls']) != n_batches
-                    or r['k1'] < n_batches or r['k2'] != 0):
-                fail(name, f'{key}: {result}, {back.n_frames} frames of {back.width}x'
+                    or r['k1'] < n_batches or r['k2'] != 0 or back.kind != 'mp4v'
+                    or r['mp4v_decodes'] != (DEMO_VIDEO_FRAMES if mp4v_run else 0)):
+                fail(name, f'{key}: {result}, {back.n_frames} {back.codec} frames of {back.width}x'
                            f'{back.height} read back (first with a pose drawn: {drawn}), '
-                           f'{len(r["calls"])} batched calls, K1 {r["k1"]}, K2 {r["k2"]}')
-            phase(name, f'{key} {" ".join(extra)} (frame batch {DEMO_FRAME_BATCH}, num_aug 2, '
-                        f'folded; {result["total_poses"]} poses): ' + demo_timing(
-                            r, DEMO_VIDEO_FRAMES) + f'; K1 {r["k1"]}, K2 {r["k2"]}; the overlay '
-                        f'.mkv read back: {back.n_frames} frames of {back.width}x{back.height}, '
-                        f'poses drawn from frame {drawn} on')
+                           f'{len(r["calls"])} batched calls, K1 {r["k1"]}, K2 {r["k2"]}, '
+                           f'{r["mp4v_decodes"]} mp4v frames decoded')
+            phase(name, f'{key} {" ".join(extra)} ({source.name}, frame batch '
+                        f'{DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} poses): '
+                        + demo_timing(r, DEMO_VIDEO_FRAMES) + f'; K1 {r["k1"]}, K2 {r["k2"]}; '
+                        f'{r["mp4v_decodes"]} mp4v frames decoded; the overlay {out.suffix} read '
+                        f'back: {back.n_frames} {back.codec} frames of {back.width}x'
+                        f'{back.height}, poses drawn from frame {drawn} on')
             launches[key] = (r['k1'], r['k2'])
-            if not extra:
+            if key == 'demo_video':
                 # One batch again: each K1 launch against the plain warp, then profiled.
                 est = r['est']
                 frames, args, kwargs, _ = r['calls'][0]
@@ -3434,41 +3604,51 @@ def demos_phase(root: Path, dev) -> dict:
         launches['viz_dir'] = (r['k1'], r['k2'])
         del r
 
-        # predict_aspset on the .mkv clips, unfolded with fuse_mbconv on: K1 and K2.
-        r = drivers.run(drivers.loader('estimate_poses_batched', cfg_overrides={'bn_fold': False},
-                                       backbone_builder=functools.partial(build_backbone,
-                                                                          fuse_mbconv='on')),
-                        predict_aspset.main, [
-                            '--package', str(work / 'pkg'), '--root', str(work / 'aspset'),
-                            '--output-dir', str(work / 'pred_aspset')])
+        # predict_aspset on the mp4v .mkv clips, unfolded with fuse_mbconv on:
+        # K1 and K2, each frame decoded once; then again with every launch of
+        # either kernel against its plain version.
+        def aspset_run(out_dir: str):
+            return drivers.run(
+                drivers.loader('estimate_poses_batched', cfg_overrides={'bn_fold': False},
+                               backbone_builder=functools.partial(build_backbone,
+                                                                  fuse_mbconv='on')),
+                predict_aspset.main, ['--package', str(work / 'pkg'), '--root',
+                                      str(work / 'aspset'), '--output-dir', str(work / out_dir)])
+
+        r = aspset_run('pred_aspset')
         n_frames = len(ASPSET_VIEWS) * ASPSET_FRAMES
         calls = len(ASPSET_VIEWS) * math.ceil(ASPSET_FRAMES / ASPSET_BATCH)
         preds = [np.load(work / 'pred_aspset' / f'01-0001-{view}.npz')['coords3d_pred_world']
                  for view in ASPSET_VIEWS]
         if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
+                or r['mp4v_decodes'] != n_frames
                 or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
                        for p in preds)):
             fail(name, f'predict_aspset: K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} and '
-                       f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, predictions '
+                       f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, {r["mp4v_decodes"]} '
+                       f'mp4v frames decoded (expected {n_frames}), predictions '
                        f'{[p.shape for p in preds]}')
-        est = r['est']
-        images, args, kwargs, _ = r['calls'][0]
-        (_, warp_errs), k1_batch, k2_batch, err_v, n_blocks = k2_v_error(
-            est, lambda: checked_warps(lambda: est.estimate_poses_batched(images, *args,
-                                                                          **kwargs)))
-        warp_err = max(warp_errs, default=math.inf)
-        if (n_blocks != K2_BLOCKS or err_v != 0.0 or k1_batch != 1 or len(warp_errs) != 1
-                or not warp_err <= WARP_TOL):
-            fail(name, f'predict_aspset first chunk: K1 {k1_batch} ({len(warp_errs)} compared, '
-                       f'max |kernel - plain| {warp_err:.3g}), K2 {k2_batch}, v max |kernel - '
-                       f'plain| {err_v:.3g} over {n_blocks} blocks (must be 0)')
-        phase(name, f'predict_aspset (num_aug 1, batch {ASPSET_BATCH}, antialias 2), unfolded, '
-                    f'fuse_mbconv on: ' + driver_timing(r, n_frames) + f'; K1 {r["k1"]}, K2 '
-                    f'{r["k2"]}; its first chunk again: K1 against the plain warp (max |kernel '
-                    f'- plain| {warp_err:.3g}), K2 v exact (max {err_v:.3g} over {n_blocks} '
-                    f'blocks)')
+        (((checked, warp_errs), v_errs, mean_errs)) = checked_mbconv(
+            lambda: checked_warps(lambda: aspset_run('pred_aspset_checked')))
+        again = [np.load(work / 'pred_aspset_checked' / f'01-0001-{view}.npz')
+                 ['coords3d_pred_world'] for view in ASPSET_VIEWS]
+        warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
+        if (len(warp_errs) != calls or len(v_errs) != K2_BLOCKS * calls or warp_err != 0.0
+                or err_v != 0.0 or checked['k1'] != calls or checked['k2'] != K2_BLOCKS * calls
+                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                       for p in again)):
+            fail(name, f'predict_aspset checked: {len(warp_errs)} K1 launches compared (max '
+                       f'|kernel - plain| {warp_err:.3g}, must be 0), {len(v_errs)} K2 launches '
+                       f'(v max {err_v:.3g}, must be 0), predictions {[p.shape for p in again]}')
+        phase(name, f'predict_aspset (mp4v .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
+                    f'unfolded, fuse_mbconv on: ' + driver_timing(r, n_frames) + f'; '
+                    f'{r["mp4v_decodes"]} mp4v frames decoded for {n_frames}; K1 {r["k1"]}, K2 '
+                    f'{r["k2"]}; run again with every launch checked: K1 {len(warp_errs)} against '
+                    f'the plain warp (max |kernel - plain| {warp_err:.3g}), K2 {len(v_errs)} '
+                    f'against the plain chain (v max {err_v:.3g}, SE mean max '
+                    f'{max(mean_errs, default=math.inf):.3g})')
         launches['predict_aspset'] = (r['k1'], r['k2'])
-        del est, r, images
+        del r, checked
     finally:
         drivers.restore()
         shutil.rmtree(work, ignore_errors=True)
@@ -3500,13 +3680,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
-    # decoder, started together.
+    # decoder and encoder and the mp4v codec, started together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
-    host_sources = ('jpeg_decode', 'jpeg_encode')
+    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video')
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))
@@ -3517,7 +3697,7 @@ def main() -> None:
     for name, (host_lib, host_s) in zip(host_sources, host_built):
         phase('build', f'{os.environ.get("CXX") or "c++"} {" ".join(cuda_build.CXX_FLAGS)} '
                        f'{name}.cpp -> {host_lib.name} in {host_s:.2f} s')
-    phase('build', f'all four in {time.perf_counter() - start:.2f} s')
+    phase('build', f'all five in {time.perf_counter() - start:.2f} s')
 
     # 3. The warp kernel against its plain version at the serving shape.
     gen = torch.Generator(device=dev)

@@ -1,5 +1,5 @@
 """Video demo: streaming multi-person estimation (`metrabs_tpu/apps/
-demo_video.py`), on Motion JPEG videos read and written by `data.video`.
+demo_video.py`), on videos read and written by `data.video`.
 
 Frames are batched (--frame-batch); the trailing partial batch is padded to
 --frame-batch (results sliced back), and --letterbox HxW resizes and pads
@@ -8,13 +8,13 @@ estimator call sees one shape. --stream K sends K frame batches per
 `detect_poses_stream` call. An overlay video is written with --out.
 
 Usage:
-  python -m metrabs_tpu_torch.apps.demo_video --video in.avi \
-      [--package dir] [--out out.avi] [--max-frames N] [--fov 55] \
+  python -m metrabs_tpu_torch.apps.demo_video --video in.mp4 \
+      [--package dir] [--out out.mp4] [--max-frames N] [--fov 55] \
       [--letterbox 1080x1920] [--device cuda]
 
-The input is a Motion JPEG AVI or Matroska file. `--out` writes Motion JPEG
-into `.avi` or `.mkv`: JAX writes mp4v, which waits for ROADMAP.md's "mp4v
-read and write with the MP4 container", and any other extension raises.
+The input is Motion JPEG or mp4v in an AVI, Matroska or MP4 file. `--out`
+writes mp4v, as JAX's demo does, into the container its extension names
+(`.mp4`, `.avi` or `.mkv`); any other extension raises.
 JAX's flags plus `--device` (default cuda); `--fast-load` is accepted and
 does nothing (`demo_image`).
 """
@@ -56,7 +56,7 @@ def main(argv=None):
     parser.add_argument('--video', required=True)
     parser.add_argument('--package', default=None)
     parser.add_argument('--out', default=None,
-                        help='overlay video, Motion JPEG in .avi or .mkv')
+                        help='overlay video, mp4v in .mp4, .avi or .mkv')
     parser.add_argument('--num-aug', type=int, default=2)
     parser.add_argument('--skeleton', default='')
     parser.add_argument('--fov', type=float, default=55.0)
@@ -76,10 +76,9 @@ def main(argv=None):
     parser.add_argument('--device', default='cuda',
                         help="the device to estimate on (default cuda; 'cpu' for a CPU run)")
     args = parser.parse_args(argv)
-    if args.out and os.path.splitext(args.out)[1].lower() not in ('.avi', '.mkv'):
+    if args.out and os.path.splitext(args.out)[1].lower() not in ('.mp4', '.avi', '.mkv'):
         raise NotImplementedError(
-            f'--out {args.out}: the port writes Motion JPEG into .avi or .mkv only; mp4v '
-            f'waits for ROADMAP.md, "mp4v read and write with the MP4 container"')
+            f'--out {args.out}: the port writes mp4v into .mp4, .avi or .mkv only')
     letterbox_hw = None
     if args.letterbox:
         lh, lw = args.letterbox.lower().split('x')
@@ -185,7 +184,8 @@ def main(argv=None):
             n_poses_total += int(valid[bi].sum())
             if args.out:
                 if writer is None:
-                    writer = video.VideoWriter(args.out, fps, (rgb.shape[1], rgb.shape[0]))
+                    writer = video.VideoWriter(args.out, fps, (rgb.shape[1], rgb.shape[0]),
+                                               'mp4v')
                 writer.write(demo_image.draw_poses(rgb, poses2d[bi][valid[bi]], edges))
         n_frames += n_real
 

@@ -1,14 +1,16 @@
 """ASPset-510 prediction driver (`metrabs_tpu/apps/predict_aspset.py`):
-per-sequence cameras and box CSVs, frames decoded from the Motion JPEG .mkv
-videos (`improc.imread('<video>#frame=N')`), aspset_17 skeleton, world-space
-NPZ dump per sequence.
+per-sequence cameras and box CSVs, frames decoded from the .mkv videos
+(`improc.imread('<video>#frame=N')`), aspset_17 skeleton, world-space NPZ
+dump per sequence.
 
   python -m metrabs_tpu_torch.apps.predict_aspset --package models/eff2l \
       --root $DATA/aspset/data --output-dir preds/aspset [--num-aug 1]
 
-JAX's flags and defaults, plus `--device` (default cuda). The released
-ASPset-510 videos must be Motion JPEG: other codecs raise, naming the codec
-(ROADMAP.md, "H.264").
+JAX's flags and defaults, plus `--device` (default cuda). The videos may be
+Motion JPEG or mp4v (MPEG-4 Part 2 Simple Profile, as cv2 writes it and as
+JAX's tests lay ASPset out): an mp4v clip is decoded once per frame, in
+order, through the file's decoder, whichever of the I/O threads asks.
+Other codecs (H.264, ...) raise, naming the codec (ROADMAP.md, "H.264").
 """
 
 from __future__ import annotations

@@ -1,0 +1,1999 @@
+// MPEG-4 Part 2 Simple Profile video (ISO/IEC 14496-2; the `mp4v` FourCC
+// that cv2 and FFmpeg write) on the host: a decoder whose planes equal
+// FFmpeg's (libavcodec's mpeg4 decoder) bit for bit, and an encoder whose
+// reconstruction is the decoder's own.
+//
+// Decoder. I- and P-VOPs of rectangular, progressive, 8-bit 4:2:0 video with
+// H.263 quantisation: DC/AC prediction with the alternate scans, intra DC
+// through the DC size VLCs or (intra_dc_vlc_thr) the AC table, dquant,
+// not-coded MBs, intra MBs in P-VOPs, 1MV and 4MV with median prediction and
+// f_code wrap, half-pel MC that honours vop_rounding_type, unrestricted MVs
+// over references replicated past the edge of the MB-aligned picture (FFmpeg
+// pads from mb_width * 16, not the display width), resync markers and video
+// packets, and not-coded VOPs (the reference repeats, keeping the container's
+// frame numbering; FFmpeg outputs no frame for one). The decisions FFmpeg
+// takes where the standard leaves room are taken as it takes them: the DC
+// clip to [0, 2047], the AC rescale by the neighbour's qscale, the AC buffers
+// cleared at a video packet, the MV prediction at a packet's first line.
+// The IDCT is FFmpeg's C "simple IDCT" (integer rows, then columns, with
+// 11- and 20-bit shifts and the DC-only row shortcut), which FFmpeg uses for
+// Lavc-stamped and unstamped streams; probed against cv2's FFmpeg, its
+// planes are equal bit for bit. (FFmpeg switches to Xvid's IDCT for
+// Xvid-stamped streams, which this decoder does not: their planes may differ
+// from FFmpeg's by a level.)
+//
+// Every other tool of the standard raises "unsupported" naming it: B-VOPs,
+// S-VOPs (sprites, GMC), quarter-pel, interlaced, data partitioning and
+// RVLC, non-rectangular shape, MPEG quantisation (quant_type 1), not-8-bit,
+// reduced resolution VOPs, newpred, scalability and complexity estimation.
+//
+// Encoder. I-VOP every `gop` frames, P-VOPs between, at a fixed quantiser,
+// 1MV with a predictor search and half-pel refinement, intra MBs where they
+// cost less, not-coded MBs, vop_rounding_type flipped on each P-VOP as
+// FFmpeg flips it. Headers: VOS (Simple Profile), VO, VOL (verid 1,
+// low_delay), GOV before each I-VOP. Optional tools (Tools), off as in cv2's
+// stream: AC prediction, dquant, 4MV, video packets, intra_dc_vlc_thr and
+// not-coded VOPs; FFmpeg decodes each of them to the encoder's
+// reconstruction.
+//
+// C interface for ctypes; a call returns 0, 1 (corrupt stream), 2
+// (unsupported tool, named in the error text) or 3 (a packet without a VOP).
+
+#include <algorithm>
+#include <cmath>
+#include <cstdarg>
+#include <cstddef>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+enum { kOk = 0, kCorrupt = 1, kUnsupported = 2, kNoFrame = 3 };
+
+struct Failure {
+  int code;
+  std::string message;
+};
+
+[[noreturn]] void corrupt(const char* fmt, ...) {
+  char buf[200];
+  va_list ap;
+  va_start(ap, fmt);
+  vsnprintf(buf, sizeof buf, fmt, ap);
+  va_end(ap);
+  throw Failure{kCorrupt, buf};
+}
+
+[[noreturn]] void unsupported(const char* tool) { throw Failure{kUnsupported, tool}; }
+
+inline uint8_t clip_pixel(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+inline int mid_pred(int a, int b, int c) {
+  return std::max(std::min(a, b), std::min(std::max(a, b), c));
+}
+
+inline int log2_floor(unsigned v) {
+  int n = 0;
+  while (v >>= 1) n++;
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// Tables (ISO/IEC 14496-2 Annex B; the TCOEF tables as FFmpeg orders them)
+
+// MCBPC of I-VOPs: symbols 0-3 intra with cbpc, 4-7 intra+q, 8 stuffing.
+const uint8_t kIntraMcbpc[9][2] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
+                                   {1, 6}, {2, 6}, {3, 6}, {1, 9}};
+// MCBPC of P-VOPs: bit 2 intra, bit 3 dquant, bit 4 4MV; 20 stuffing.
+const uint8_t kInterMcbpc[21][2] = {
+    {1, 1}, {3, 4}, {2, 4}, {5, 6},  // inter
+    {3, 5}, {4, 8}, {3, 8}, {3, 7},  // intra
+    {3, 3}, {7, 7}, {6, 7}, {5, 9},  // inter + q
+    {4, 6}, {4, 9}, {3, 9}, {2, 9},  // intra + q
+    {2, 3}, {5, 7}, {4, 7}, {5, 8},  // inter 4MV
+    {1, 9}};                         // stuffing
+// CBPY as intra MBs read it (inter MBs invert it).
+const uint8_t kCbpy[16][2] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4},
+                              {2, 6}, {11, 4}, {2, 5}, {3, 6}, {5, 4}, {10, 4},
+                              {4, 4}, {8, 4}, {6, 4}, {3, 2}};
+// Motion vector differences by |motion_code|; a sign bit follows.
+const uint8_t kMv[33][2] = {
+    {1, 1},   {1, 2},   {1, 3},   {1, 4},   {3, 6},   {5, 7},   {4, 7},   {3, 7},   {11, 9},
+    {10, 9},  {9, 9},   {17, 10}, {16, 10}, {15, 10}, {14, 10}, {13, 10}, {12, 10}, {11, 10},
+    {10, 10}, {9, 10},  {8, 10},  {7, 10},  {6, 10},  {5, 10},  {4, 10},  {7, 11},  {6, 11},
+    {5, 11},  {4, 11},  {3, 11},  {2, 11},  {3, 12},  {2, 12}};
+// dct_dc_size VLCs.
+const uint8_t kDcLum[13][2] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3}, {1, 4}, {1, 5},
+                               {1, 6}, {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}};
+const uint8_t kDcChrom[13][2] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4},  {1, 5}, {1, 6},
+                                 {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}, {1, 12}};
+
+// TCOEF: (code, length) of each (last, run, level); the last entry is ESCAPE.
+const uint16_t kIntraVlc[103][2] = {
+    {0x2, 2}, {0x6, 3}, {0xf, 4}, {0xd, 5}, {0xc, 5}, {0x15, 6}, {0x13, 6}, {0x12, 6},
+    {0x17, 7}, {0x1f, 8}, {0x1e, 8}, {0x1d, 8}, {0x25, 9}, {0x24, 9}, {0x23, 9}, {0x21, 9},
+    {0x21, 10}, {0x20, 10}, {0xf, 10}, {0xe, 10}, {0x7, 11}, {0x6, 11}, {0x20, 11}, {0x21, 11},
+    {0x50, 12}, {0x51, 12}, {0x52, 12}, {0xe, 4}, {0x14, 6}, {0x16, 7}, {0x1c, 8}, {0x20, 9},
+    {0x1f, 9}, {0xd, 10}, {0x22, 11}, {0x53, 12}, {0x55, 12}, {0xb, 5}, {0x15, 7}, {0x1e, 9},
+    {0xc, 10}, {0x56, 12}, {0x11, 6}, {0x1b, 8}, {0x1d, 9}, {0xb, 10}, {0x10, 6}, {0x22, 9},
+    {0xa, 10}, {0xd, 6}, {0x1c, 9}, {0x8, 10}, {0x12, 7}, {0x1b, 9}, {0x54, 12}, {0x14, 7},
+    {0x1a, 9}, {0x57, 12}, {0x19, 8}, {0x9, 10}, {0x18, 8}, {0x23, 11}, {0x17, 8}, {0x19, 9},
+    {0x18, 9}, {0x7, 10}, {0x58, 12}, {0x7, 4}, {0xc, 6}, {0x16, 8}, {0x17, 9}, {0x6, 10},
+    {0x5, 11}, {0x4, 11}, {0x59, 12}, {0xf, 6}, {0x16, 9}, {0x5, 10}, {0xe, 6}, {0x4, 10},
+    {0x11, 7}, {0x24, 11}, {0x10, 7}, {0x25, 11}, {0x13, 7}, {0x5a, 12}, {0x15, 8}, {0x5b, 12},
+    {0x14, 8}, {0x13, 8}, {0x1a, 8}, {0x15, 9}, {0x14, 9}, {0x13, 9}, {0x12, 9}, {0x11, 9},
+    {0x26, 11}, {0x27, 11}, {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12}, {0x3, 7},
+};
+const uint16_t kInterVlc[103][2] = {
+    {0x2, 2}, {0xf, 4}, {0x15, 6}, {0x17, 7}, {0x1f, 8}, {0x25, 9}, {0x24, 9}, {0x21, 10},
+    {0x20, 10}, {0x7, 11}, {0x6, 11}, {0x20, 11}, {0x6, 3}, {0x14, 6}, {0x1e, 8}, {0xf, 10},
+    {0x21, 11}, {0x50, 12}, {0xe, 4}, {0x1d, 8}, {0xe, 10}, {0x51, 12}, {0xd, 5}, {0x23, 9},
+    {0xd, 10}, {0xc, 5}, {0x22, 9}, {0x52, 12}, {0xb, 5}, {0xc, 10}, {0x53, 12}, {0x13, 6},
+    {0xb, 10}, {0x54, 12}, {0x12, 6}, {0xa, 10}, {0x11, 6}, {0x9, 10}, {0x10, 6}, {0x8, 10},
+    {0x16, 7}, {0x55, 12}, {0x15, 7}, {0x14, 7}, {0x1c, 8}, {0x1b, 8}, {0x21, 9}, {0x20, 9},
+    {0x1f, 9}, {0x1e, 9}, {0x1d, 9}, {0x1c, 9}, {0x1b, 9}, {0x1a, 9}, {0x22, 11}, {0x23, 11},
+    {0x56, 12}, {0x57, 12}, {0x7, 4}, {0x19, 9}, {0x5, 11}, {0xf, 6}, {0x4, 11}, {0xe, 6},
+    {0xd, 6}, {0xc, 6}, {0x13, 7}, {0x12, 7}, {0x11, 7}, {0x10, 7}, {0x1a, 8}, {0x19, 8},
+    {0x18, 8}, {0x17, 8}, {0x16, 8}, {0x15, 8}, {0x14, 8}, {0x13, 8}, {0x18, 9}, {0x17, 9},
+    {0x16, 9}, {0x15, 9}, {0x14, 9}, {0x13, 9}, {0x12, 9}, {0x11, 9}, {0x7, 10}, {0x6, 10},
+    {0x5, 10}, {0x4, 10}, {0x24, 11}, {0x25, 11}, {0x26, 11}, {0x27, 11}, {0x58, 12}, {0x59, 12},
+    {0x5a, 12}, {0x5b, 12}, {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12}, {0x3, 7},
+};
+// The largest level of each run, in table order: {last 0}, {last 1}.
+const uint8_t kIntraMaxLevels[2][41] = {
+    {27, 10, 5, 4, 3, 3, 3, 3, 2, 2, 1, 1, 1, 1, 1},
+    {8, 3, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1}};
+const uint8_t kInterMaxLevels[2][41] = {
+    {12, 6, 4, 3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
+    {3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1}};
+
+const uint8_t kZigzag[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+                             12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+                             35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+                             58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+const uint8_t kAltHorizontal[64] = {
+    0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14, 13, 12, 19, 18, 24, 25,
+    32, 33, 26, 27, 20, 21, 22, 23, 28, 29, 30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37,
+    38, 39, 44, 45, 46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
+const uint8_t kAltVertical[64] = {
+    0,  8,  16, 24, 1,  9,  2,  10, 17, 25, 32, 40, 48, 56, 57, 49, 41, 33, 26, 18, 3,  11,
+    4,  12, 19, 27, 34, 42, 50, 58, 35, 43, 51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44,
+    52, 60, 37, 45, 53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
+
+const int kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};
+const int kQuantDelta[4] = {-1, -2, 1, 2};
+
+int y_dc_scale(int q) { return q < 5 ? 8 : q < 9 ? 2 * q : q < 25 ? q + 8 : 2 * q - 16; }
+int c_dc_scale(int q) { return q < 5 ? 8 : q < 25 ? (q + 13) / 2 : q - 6; }
+
+// One table of (last, run, level) for TCOEF decoding and encoding.
+struct RunLevelTable {
+  const uint16_t (*vlc)[2];
+  uint8_t last[102], run[102], level[102];
+  uint8_t max_level[2][64];  // by run
+  uint8_t max_run[2][64];    // by level
+  int16_t index[2][64][32];  // (last, run, level) -> symbol, -1 if none
+
+  RunLevelTable(const uint16_t (*codes)[2], const uint8_t (*max_levels)[41]) : vlc(codes) {
+    memset(max_level, 0, sizeof max_level);
+    memset(max_run, 0, sizeof max_run);
+    memset(index, 0xff, sizeof index);
+    int k = 0;
+    for (int l = 0; l < 2; l++)
+      for (int r = 0; r < 41 && max_levels[l][r]; r++)
+        for (int lev = 1; lev <= max_levels[l][r]; lev++, k++) {
+          last[k] = (uint8_t)l;
+          run[k] = (uint8_t)r;
+          level[k] = (uint8_t)lev;
+          max_level[l][r] = (uint8_t)std::max<int>(max_level[l][r], lev);
+          max_run[l][lev] = (uint8_t)std::max<int>(max_run[l][lev], r);
+          index[l][r][lev] = (int16_t)k;
+        }
+  }
+};
+
+// A prefix code read through one lookup of `bits` bits.
+struct Vlc {
+  int bits = 0;
+  std::vector<int16_t> sym;
+  std::vector<uint8_t> len;
+
+  template <typename T>
+  Vlc(const T (*table)[2], int n, int max_bits) : bits(max_bits) {
+    sym.assign(1u << bits, -1);
+    len.assign(1u << bits, 0);
+    for (int s = 0; s < n; s++) {
+      int l = table[s][1];
+      if (!l) continue;
+      unsigned first = (unsigned)table[s][0] << (bits - l);
+      for (unsigned j = 0; j < (1u << (bits - l)); j++) {
+        sym[first + j] = (int16_t)s;
+        len[first + j] = (uint8_t)l;
+      }
+    }
+  }
+};
+
+struct Tables {
+  RunLevelTable intra{kIntraVlc, kIntraMaxLevels}, inter{kInterVlc, kInterMaxLevels};
+  Vlc intra_vlc{kIntraVlc, 103, 12}, inter_vlc{kInterVlc, 103, 12};
+  Vlc intra_mcbpc{kIntraMcbpc, 9, 9}, inter_mcbpc{kInterMcbpc, 21, 9};
+  Vlc cbpy{kCbpy, 16, 6}, mv{kMv, 33, 12};
+  Vlc dc_lum{kDcLum, 13, 11}, dc_chrom{kDcChrom, 13, 12};
+};
+
+const Tables& tables() {
+  static const Tables t;  // initialised once, thread-safe
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// Bit reader (MSB first) over a copy of the packet padded with zero bytes.
+
+class BitReader {
+ public:
+  BitReader(const uint8_t* data, size_t n) : buf_(n + 8, 0), size_bits_(n * 8) {
+    if (n) memcpy(buf_.data(), data, n);
+  }
+  uint32_t peek(int n) const {  // 1 <= n <= 32
+    uint64_t v = 0;
+    size_t byte = pos_ >> 3;
+    if (byte < buf_.size() - 8) {
+      for (int i = 0; i < 8; i++) v = (v << 8) | buf_[byte + i];
+    }
+    v <<= (pos_ & 7);
+    return (uint32_t)(v >> (64 - n));
+  }
+  uint32_t peek_at(size_t pos, int n) const {  // 1 <= n <= 32, ahead of pos()
+    size_t keep = pos_;
+    const_cast<BitReader*>(this)->pos_ = pos;
+    uint32_t v = peek(n);
+    const_cast<BitReader*>(this)->pos_ = keep;
+    return v;
+  }
+  void skip(int n) { pos_ += n; }
+  uint32_t get(int n) {
+    if (!n) return 0;
+    uint32_t v = peek(n);
+    pos_ += n;
+    return v;
+  }
+  int get1() { return (int)get(1); }
+  int sget(int n) {  // two's complement
+    int v = (int)get(n);
+    return v >= (1 << (n - 1)) ? v - (1 << n) : v;
+  }
+  void marker(const char* where) {
+    if (!get1()) corrupt("missing marker bit %s", where);
+  }
+  int vlc(const Vlc& t) {
+    uint32_t v = peek(t.bits);
+    int l = t.len[v];
+    if (!l) corrupt("invalid VLC code at bit %zu", pos_);
+    pos_ += l;
+    return t.sym[v];
+  }
+  size_t pos() const { return pos_; }
+  void seek(size_t p) { pos_ = p; }
+  size_t size_bits() const { return size_bits_; }
+  ptrdiff_t left() const { return (ptrdiff_t)size_bits_ - (ptrdiff_t)pos_; }
+  void align() { pos_ = (pos_ + 7) & ~size_t(7); }
+  const uint8_t* data() const { return buf_.data(); }
+
+ private:
+  std::vector<uint8_t> buf_;
+  size_t size_bits_;
+  size_t pos_ = 0;
+};
+
+// ---------------------------------------------------------------------------
+// IDCT: FFmpeg's simple IDCT (8-bit), rows then columns.
+
+constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873, W6 = 8867, W7 = 4520;
+constexpr int ROW_SHIFT = 11, COL_SHIFT = 20, DC_SHIFT = 3;
+
+void idct_row(int16_t* row) {
+  if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
+    int16_t v = (int16_t)(uint16_t)(row[0] * (1 << DC_SHIFT));
+    for (int i = 0; i < 8; i++) row[i] = v;
+    return;
+  }
+  unsigned a0 = (unsigned)(W4 * row[0]) + (1u << (ROW_SHIFT - 1));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += (unsigned)(W2 * row[2]);
+  a1 += (unsigned)(W6 * row[2]);
+  a2 -= (unsigned)(W6 * row[2]);
+  a3 -= (unsigned)(W2 * row[2]);
+  unsigned b0 = (unsigned)(W1 * row[1]) + (unsigned)(W3 * row[3]);
+  unsigned b1 = (unsigned)(W3 * row[1]) - (unsigned)(W7 * row[3]);
+  unsigned b2 = (unsigned)(W5 * row[1]) - (unsigned)(W1 * row[3]);
+  unsigned b3 = (unsigned)(W7 * row[1]) - (unsigned)(W5 * row[3]);
+  if (row[4] | row[5] | row[6] | row[7]) {
+    a0 += (unsigned)(W4 * row[4]) + (unsigned)(W6 * row[6]);
+    a1 += (unsigned)(-W4 * row[4]) - (unsigned)(W2 * row[6]);
+    a2 += (unsigned)(-W4 * row[4]) + (unsigned)(W2 * row[6]);
+    a3 += (unsigned)(W4 * row[4]) - (unsigned)(W6 * row[6]);
+    b0 += (unsigned)(W5 * row[5]) + (unsigned)(W7 * row[7]);
+    b1 += (unsigned)(-W1 * row[5]) - (unsigned)(W5 * row[7]);
+    b2 += (unsigned)(W7 * row[5]) + (unsigned)(W3 * row[7]);
+    b3 += (unsigned)(W3 * row[5]) - (unsigned)(W1 * row[7]);
+  }
+  row[0] = (int16_t)((int)(a0 + b0) >> ROW_SHIFT);
+  row[7] = (int16_t)((int)(a0 - b0) >> ROW_SHIFT);
+  row[1] = (int16_t)((int)(a1 + b1) >> ROW_SHIFT);
+  row[6] = (int16_t)((int)(a1 - b1) >> ROW_SHIFT);
+  row[2] = (int16_t)((int)(a2 + b2) >> ROW_SHIFT);
+  row[5] = (int16_t)((int)(a2 - b2) >> ROW_SHIFT);
+  row[3] = (int16_t)((int)(a3 + b3) >> ROW_SHIFT);
+  row[4] = (int16_t)((int)(a3 - b3) >> ROW_SHIFT);
+}
+
+// The column pass of block column `c` (stride 8), pre-clip values out[8].
+void idct_col(const int16_t* col, int* out) {
+  unsigned a0 = (unsigned)(W4 * (col[0] + ((1 << (COL_SHIFT - 1)) / W4)));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += (unsigned)(W2 * col[16]);
+  a1 += (unsigned)(W6 * col[16]);
+  a2 += (unsigned)(-W6 * col[16]);
+  a3 += (unsigned)(-W2 * col[16]);
+  unsigned b0 = (unsigned)(W1 * col[8]), b1 = (unsigned)(W3 * col[8]);
+  unsigned b2 = (unsigned)(W5 * col[8]), b3 = (unsigned)(W7 * col[8]);
+  b0 += (unsigned)(W3 * col[24]);
+  b1 += (unsigned)(-W7 * col[24]);
+  b2 += (unsigned)(-W1 * col[24]);
+  b3 += (unsigned)(-W5 * col[24]);
+  if (col[32]) {
+    a0 += (unsigned)(W4 * col[32]);
+    a1 += (unsigned)(-W4 * col[32]);
+    a2 += (unsigned)(-W4 * col[32]);
+    a3 += (unsigned)(W4 * col[32]);
+  }
+  if (col[40]) {
+    b0 += (unsigned)(W5 * col[40]);
+    b1 += (unsigned)(-W1 * col[40]);
+    b2 += (unsigned)(W7 * col[40]);
+    b3 += (unsigned)(W3 * col[40]);
+  }
+  if (col[48]) {
+    a0 += (unsigned)(W6 * col[48]);
+    a1 += (unsigned)(-W2 * col[48]);
+    a2 += (unsigned)(W2 * col[48]);
+    a3 += (unsigned)(-W6 * col[48]);
+  }
+  if (col[56]) {
+    b0 += (unsigned)(W7 * col[56]);
+    b1 += (unsigned)(-W5 * col[56]);
+    b2 += (unsigned)(W3 * col[56]);
+    b3 += (unsigned)(-W1 * col[56]);
+  }
+  out[0] = (int)(a0 + b0) >> COL_SHIFT;
+  out[1] = (int)(a1 + b1) >> COL_SHIFT;
+  out[2] = (int)(a2 + b2) >> COL_SHIFT;
+  out[3] = (int)(a3 + b3) >> COL_SHIFT;
+  out[4] = (int)(a3 - b3) >> COL_SHIFT;
+  out[5] = (int)(a2 - b2) >> COL_SHIFT;
+  out[6] = (int)(a1 - b1) >> COL_SHIFT;
+  out[7] = (int)(a0 - b0) >> COL_SHIFT;
+}
+
+// The residual of a block of coefficients (natural order), res[y * 8 + x].
+void idct(const int16_t* coef, int* res) {
+  int16_t b[64];
+  memcpy(b, coef, sizeof b);
+  for (int i = 0; i < 8; i++) idct_row(b + 8 * i);
+  int out[8];
+  for (int c = 0; c < 8; c++) {
+    idct_col(b + c, out);
+    for (int r = 0; r < 8; r++) res[r * 8 + c] = out[r];
+  }
+}
+
+void idct_put(const int16_t* coef, uint8_t* dst, int stride) {
+  int res[64];
+  idct(coef, res);
+  for (int y = 0; y < 8; y++)
+    for (int x = 0; x < 8; x++) dst[y * stride + x] = clip_pixel(res[y * 8 + x]);
+}
+
+void idct_add(const int16_t* coef, uint8_t* dst, int stride) {
+  int res[64];
+  idct(coef, res);
+  for (int y = 0; y < 8; y++)
+    for (int x = 0; x < 8; x++) dst[y * stride + x] = clip_pixel(dst[y * stride + x] + res[y * 8 + x]);
+}
+
+// ---------------------------------------------------------------------------
+// Planes and half-pel motion compensation
+
+struct Plane {
+  int w = 0, h = 0;  // coded (MB-aligned) size
+  std::vector<uint8_t> px;
+  void resize(int w_, int h_) {
+    w = w_;
+    h = h_;
+    px.assign((size_t)w * h, 0);
+  }
+  uint8_t* row(int y) { return px.data() + (size_t)y * w; }
+  const uint8_t* row(int y) const { return px.data() + (size_t)y * w; }
+};
+
+struct Frame {
+  Plane p[3];
+  void resize(int mbw, int mbh) {
+    p[0].resize(mbw * 16, mbh * 16);
+    p[1].resize(mbw * 8, mbh * 8);
+    p[2].resize(mbw * 8, mbh * 8);
+  }
+};
+
+// Predicts a bw x bh block at (sx, sy) + half-pel offset dxy (bit 0 x, bit 1
+// y) of `ref`, whose pixels past its edges repeat the edge (FFmpeg's
+// emulated edge over the MB-aligned picture). rnd: 0 rounds half up (FFmpeg's
+// put_pixels), 1 rounds down (put_no_rnd_pixels).
+void mc_block(const Plane& ref, int sx, int sy, int dxy, int bw, int bh, int rnd, uint8_t* dst,
+              int dstride) {
+  uint8_t tmp[17 * 17];
+  const int tw = bw + 1, th = bh + 1;
+  const uint8_t* src;
+  int sstride;
+  if (sx >= 0 && sy >= 0 && sx + tw <= ref.w && sy + th <= ref.h) {
+    src = ref.row(sy) + sx;
+    sstride = ref.w;
+  } else {
+    for (int y = 0; y < th; y++) {
+      int yy = std::min(std::max(sy + y, 0), ref.h - 1);
+      const uint8_t* r = ref.row(yy);
+      for (int x = 0; x < tw; x++) tmp[y * tw + x] = r[std::min(std::max(sx + x, 0), ref.w - 1)];
+    }
+    src = tmp;
+    sstride = tw;
+  }
+  switch (dxy) {
+    case 0:
+      for (int y = 0; y < bh; y++) memcpy(dst + y * dstride, src + y * sstride, bw);
+      break;
+    case 1:
+      for (int y = 0; y < bh; y++)
+        for (int x = 0; x < bw; x++) {
+          const uint8_t* s = src + y * sstride + x;
+          dst[y * dstride + x] = (uint8_t)((s[0] + s[1] + 1 - rnd) >> 1);
+        }
+      break;
+    case 2:
+      for (int y = 0; y < bh; y++)
+        for (int x = 0; x < bw; x++) {
+          const uint8_t* s = src + y * sstride + x;
+          dst[y * dstride + x] = (uint8_t)((s[0] + s[sstride] + 1 - rnd) >> 1);
+        }
+      break;
+    default:
+      for (int y = 0; y < bh; y++)
+        for (int x = 0; x < bw; x++) {
+          const uint8_t* s = src + y * sstride + x;
+          dst[y * dstride + x] =
+              (uint8_t)((s[0] + s[1] + s[sstride] + s[sstride + 1] + 2 - rnd) >> 2);
+        }
+  }
+}
+
+// The chroma vector of 4MV from the sum of the four luma vectors (half-pel):
+// Table 7-9's sixteenth-pel rounding.
+int round_chroma_4mv(int x) {
+  static const uint8_t tab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+  return tab[x & 0xf] + ((x >> 3) & ~1);
+}
+
+// ---------------------------------------------------------------------------
+// Stream headers
+
+struct Vol {
+  bool valid = false;
+  int width = 0, height = 0;
+  int time_resolution = 0, time_bits = 1;
+  int quant_precision = 5;
+  bool resync_disable = true;
+  int ver_id = 1;
+};
+
+struct MbState {  // per-MB motion and prediction state, with a border
+  int mbw = 0, mbh = 0;
+  int ys = 0, cs = 0;             // strides of the luma 8x8 grid and the MB grid
+  std::vector<int16_t> dc[3];     // DC predictors (dequantised), 1024 at borders
+  std::vector<int16_t> ac[3];     // 16 per block: [1..7] first column, [9..15] first row
+  std::vector<int16_t> mv;        // 2 per luma block
+  std::vector<uint8_t> qscale;    // per MB
+
+  void resize(int w, int h) {
+    mbw = w;
+    mbh = h;
+    ys = 2 * mbw + 2;
+    cs = mbw + 2;
+    size_t ny = (size_t)ys * (2 * mbh + 1), nc = (size_t)cs * (mbh + 1);
+    dc[0].assign(ny, 1024);
+    dc[1].assign(nc, 1024);
+    dc[2].assign(nc, 1024);
+    ac[0].assign(ny * 16, 0);
+    ac[1].assign(nc * 16, 0);
+    ac[2].assign(nc * 16, 0);
+    mv.assign(ny * 2, 0);
+    qscale.assign(nc, 0);
+  }
+  int yidx(int bx, int by) const { return (by + 1) * ys + bx + 1; }
+  int cidx(int mx, int my) const { return (my + 1) * cs + mx + 1; }
+};
+
+
+// ---------------------------------------------------------------------------
+// The state and reconstruction that the decoder and the encoder share
+
+class Codec {
+ public:
+  int width = 0, height = 0;
+
+  // The last complete frame (the reference of the next P-VOP).
+  const Frame& output() const { return ref_; }
+
+ protected:
+  Frame cur_, ref_;
+  MbState st_;
+  int mbw_ = 0, mbh_ = 0;
+  int pict_ = 0, qscale_ = 1, rounding_ = 0, fcode_ = 1;
+  int mb_x_ = 0, mb_y_ = 0, resync_x_ = 0, resync_y_ = 0;
+  bool first_line_ = true;
+  bool ac_pred_ = false;
+  int y_dc_ = 8, c_dc_ = 8;
+  int16_t block_[6][64];
+  int last_index_[6];
+
+  void init_size(int w, int h) {
+    width = w;
+    height = h;
+    mbw_ = (w + 15) / 16;
+    mbh_ = (h + 15) / 16;
+    cur_.resize(mbw_, mbh_);
+    ref_.resize(mbw_, mbh_);
+    st_.resize(mbw_, mbh_);
+  }
+
+  void set_qscale(int q) {
+    qscale_ = std::min(std::max(q, 1), 31);
+    y_dc_ = y_dc_scale(qscale_);
+    c_dc_ = c_dc_scale(qscale_);
+  }
+
+  // A video packet (or the VOP) starts at the current MB.
+  void start_packet() {
+    resync_x_ = mb_x_;
+    resync_y_ = mb_y_;
+    first_line_ = true;
+  }
+
+  int16_t* mv_at(int bx, int by) { return &st_.mv[(size_t)st_.yidx(bx, by) * 2]; }
+
+  // FFmpeg's ff_h263_pred_motion: the median of the left, top and top-right
+  // vectors, with the H.263 rules at a packet's first line.
+  void pred_motion(int block, int* px, int* py) {
+    const int bx = 2 * mb_x_ + (block & 1), by = 2 * mb_y_ + (block >> 1);
+    static const int off[4] = {2, 1, 1, -1};
+    int16_t* A = mv_at(bx - 1, by);
+    if (first_line_ && block < 3) {
+      if (block == 0) {
+        if (mb_x_ == resync_x_) {
+          *px = *py = 0;
+        } else if (mb_x_ + 1 == resync_x_) {
+          int16_t* C = mv_at(bx + off[block], by - 1);
+          if (mb_x_ == 0) {
+            *px = C[0];
+            *py = C[1];
+          } else {
+            *px = mid_pred(A[0], 0, C[0]);
+            *py = mid_pred(A[1], 0, C[1]);
+          }
+        } else {
+          *px = A[0];
+          *py = A[1];
+        }
+      } else if (block == 1) {
+        if (mb_x_ + 1 == resync_x_) {
+          int16_t* C = mv_at(bx + off[block], by - 1);
+          *px = mid_pred(A[0], 0, C[0]);
+          *py = mid_pred(A[1], 0, C[1]);
+        } else {
+          *px = A[0];
+          *py = A[1];
+        }
+      } else {
+        int16_t* B = mv_at(bx, by - 1);
+        int16_t* C = mv_at(bx + off[block], by - 1);
+        if (mb_x_ == resync_x_) A[0] = A[1] = 0;
+        *px = mid_pred(A[0], B[0], C[0]);
+        *py = mid_pred(A[1], B[1], C[1]);
+      }
+    } else {
+      int16_t* B = mv_at(bx, by - 1);
+      int16_t* C = mv_at(bx + off[block], by - 1);
+      *px = mid_pred(A[0], B[0], C[0]);
+      *py = mid_pred(A[1], B[1], C[1]);
+    }
+  }
+
+  void set_mvs(int mx, int my) {
+    for (int b = 0; b < 4; b++) {
+      int16_t* p = mv_at(2 * mb_x_ + (b & 1), 2 * mb_y_ + (b >> 1));
+      p[0] = (int16_t)mx;
+      p[1] = (int16_t)my;
+    }
+  }
+
+  // An inter MB predicts no DC or AC of its neighbours.
+  void clean_intra_entries() {
+    for (int b = 0; b < 4; b++) {
+      int idx = st_.yidx(2 * mb_x_ + (b & 1), 2 * mb_y_ + (b >> 1));
+      st_.dc[0][idx] = 1024;
+      memset(&st_.ac[0][(size_t)idx * 16], 0, 16 * sizeof(int16_t));
+    }
+    int c = st_.cidx(mb_x_, mb_y_);
+    for (int k = 1; k < 3; k++) {
+      st_.dc[k][c] = 1024;
+      memset(&st_.ac[k][(size_t)c * 16], 0, 16 * sizeof(int16_t));
+    }
+  }
+
+  int16_t* dc_entry(int n) {
+    if (n < 4) return &st_.dc[0][st_.yidx(2 * mb_x_ + (n & 1), 2 * mb_y_ + (n >> 1))];
+    return &st_.dc[n - 3][st_.cidx(mb_x_, mb_y_)];
+  }
+
+  // FFmpeg's ff_mpeg4_pred_dc: decoding adds the prediction to the
+  // differential `level` and returns the DC level; encoding takes the level
+  // and returns the differential. Either way the dequantised DC is kept.
+  int pred_dc(int n, int level, int* dir, bool encoding) {
+    int scale = n < 4 ? y_dc_ : c_dc_;
+    int wrap = n < 4 ? st_.ys : st_.cs;
+    int16_t* dc = dc_entry(n);
+    int a = dc[-1], b = dc[-1 - wrap], c = dc[-wrap];
+    if (first_line_ && n != 3) {
+      if (n != 2) b = c = 1024;
+      if (n != 1 && mb_x_ == resync_x_) b = a = 1024;
+    }
+    if (mb_x_ == resync_x_ && mb_y_ == resync_y_ + 1) {
+      if (n == 0 || n == 4 || n == 5) b = 1024;
+    }
+    int pred;
+    if (std::abs(a - b) < std::abs(b - c)) {
+      pred = c;
+      *dir = 1;
+    } else {
+      pred = a;
+      *dir = 0;
+    }
+    pred = (pred + (scale >> 1)) / scale;
+    int ret;
+    if (encoding) {
+      ret = level - pred;
+    } else {
+      level += pred;
+      ret = level;
+    }
+    level *= scale;
+    if (level & ~2047) level = level < 0 ? 0 : 2047;
+    dc[0] = (int16_t)level;
+    return ret;
+  }
+
+  static int rounded_div(int a, int b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
+
+  int16_t* ac_entry(int n) {
+    if (n < 4)
+      return &st_.ac[0][(size_t)st_.yidx(2 * mb_x_ + (n & 1), 2 * mb_y_ + (n >> 1)) * 16];
+    return &st_.ac[n - 3][(size_t)st_.cidx(mb_x_, mb_y_) * 16];
+  }
+
+  // What FFmpeg's ff_mpeg4_pred_ac adds to block n with ac_pred on, at
+  // natural positions pos[1..7]: the left neighbour's first column (dir 0)
+  // or the top's first row (dir 1), rescaled to this MB's qscale.
+  void ac_prediction(int n, int dir, int* pred, int* pos) {
+    const int16_t* ac = ac_entry(n);
+    const int16_t* src;
+    int q;
+    bool same;
+    if (dir == 0) {
+      src = ac - 16;
+      q = st_.qscale[st_.cidx(mb_x_ - 1, mb_y_)];
+      same = mb_x_ == 0 || qscale_ == q || n == 1 || n == 3;
+    } else {
+      src = ac - 16 * (n < 4 ? st_.ys : st_.cs) + 8;
+      q = st_.qscale[st_.cidx(mb_x_, mb_y_ - 1)];
+      same = first_line_ || qscale_ == q || n == 2 || n == 3;
+    }
+    for (int i = 1; i < 8; i++) {
+      pos[i] = dir == 0 ? i << 3 : i;
+      pred[i] = same ? src[i] : rounded_div(src[i] * q, qscale_);
+    }
+  }
+
+  // FFmpeg's ff_mpeg4_pred_ac: adds the prediction when ac_pred is on, then
+  // keeps this block's first column and row for the blocks to come.
+  void pred_ac(int16_t* block, int n, int dir) {
+    if (ac_pred_) {
+      int pred[8], pos[8];
+      ac_prediction(n, dir, pred, pos);
+      for (int i = 1; i < 8; i++) block[pos[i]] = (int16_t)(block[pos[i]] + pred[i]);
+    }
+    int16_t* ac = ac_entry(n);
+    for (int i = 1; i < 8; i++) {
+      ac[i] = block[i << 3];
+      ac[8 + i] = block[i];
+    }
+  }
+
+  // FFmpeg's ff_mpeg4_clean_buffers at a video packet: the AC predictors of
+  // the earlier packets' blocks that border this one are cleared (luma 8x8
+  // rows 2 mb_y - 1 from column 2 mb_x - 1, 2 mb_y, and 2 mb_y + 1 up to
+  // column 2 mb_x - 1: one run in FFmpeg's layout).
+  void clean_buffers() {
+    auto clear_y = [&](int bx, int by) {
+      if (by >= 0) memset(&st_.ac[0][(size_t)st_.yidx(bx, by) * 16], 0, 16 * sizeof(int16_t));
+    };
+    for (int bx = std::max(2 * mb_x_ - 1, 0); bx < 2 * mbw_; bx++) clear_y(bx, 2 * mb_y_ - 1);
+    for (int bx = 0; bx < 2 * mbw_; bx++) clear_y(bx, 2 * mb_y_);
+    for (int bx = 0; bx <= 2 * mb_x_ - 1; bx++) clear_y(bx, 2 * mb_y_ + 1);
+    for (int c = 1; c < 3; c++) {
+      auto clear_c = [&](int mx, int my) {
+        if (my >= 0) memset(&st_.ac[c][(size_t)st_.cidx(mx, my) * 16], 0, 16 * sizeof(int16_t));
+      };
+      for (int mx = std::max(mb_x_ - 1, 0); mx < mbw_; mx++) clear_c(mx, mb_y_ - 1);
+      for (int mx = 0; mx <= mb_x_ - 1; mx++) clear_c(mx, mb_y_);
+    }
+  }
+
+  uint8_t* dest(int plane, int n) {
+    if (plane == 0) return cur_.p[0].row(mb_y_ * 16 + (n >> 1) * 8) + mb_x_ * 16 + (n & 1) * 8;
+    return cur_.p[plane].row(mb_y_ * 8) + mb_x_ * 8;
+  }
+
+  // Intra MB: block_ holds quantised levels (the DC with its prediction).
+  void reconstruct_intra() {
+    const int qmul = qscale_ << 1, qadd = (qscale_ - 1) | 1;
+    for (int n = 0; n < 6; n++) {
+      int16_t* b = block_[n];
+      b[0] = (int16_t)(b[0] * (n < 4 ? y_dc_ : c_dc_));
+      for (int k = 1; k < 64; k++) {
+        int level = b[k];
+        if (level) b[k] = (int16_t)(level < 0 ? level * qmul - qadd : level * qmul + qadd);
+      }
+      int plane = n < 4 ? 0 : n - 3;
+      idct_put(b, dest(plane, n), cur_.p[plane].w);
+    }
+  }
+
+  // Inter MB: the motion-compensated prediction into cur_ (FFmpeg's
+  // mpeg_motion for one vector, hpel_motion and chroma_4mv_motion for four).
+  void predict_inter(int mv_type, const int mvs[4][2]) {
+    const Plane& ry = ref_.p[0];
+    if (mv_type <= 1) {
+      int mx = mvs[0][0], my = mvs[0][1];
+      int dxy = ((my & 1) << 1) | (mx & 1);
+      int sx = mb_x_ * 16 + (mx >> 1), sy = mb_y_ * 16 + (my >> 1);
+      mc_block(ry, sx, sy, dxy, 16, 16, rounding_, dest(0, 0), cur_.p[0].w);
+      int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+      for (int c = 1; c < 3; c++)
+        mc_block(ref_.p[c], sx >> 1, sy >> 1, uvdxy, 8, 8, rounding_, dest(c, 0), cur_.p[c].w);
+      return;
+    }
+    int sumx = 0, sumy = 0;
+    for (int i = 0; i < 4; i++) {
+      int mx = mvs[i][0], my = mvs[i][1];
+      int sx = mb_x_ * 16 + (i & 1) * 8 + (mx >> 1);
+      int sy = mb_y_ * 16 + (i >> 1) * 8 + (my >> 1);
+      int dxy = 0;
+      sx = std::min(std::max(sx, -16), width);
+      if (sx != width) dxy |= mx & 1;
+      sy = std::min(std::max(sy, -16), height);
+      if (sy != height) dxy |= (my & 1) << 1;
+      mc_block(ry, sx, sy, dxy, 8, 8, rounding_, dest(0, i), cur_.p[0].w);
+      sumx += mx;
+      sumy += my;
+    }
+    int mx = round_chroma_4mv(sumx), my = round_chroma_4mv(sumy);
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    int sx = mb_x_ * 8 + (mx >> 1), sy = mb_y_ * 8 + (my >> 1);
+    sx = std::min(std::max(sx, -8), width >> 1);
+    if (sx == (width >> 1)) dxy &= ~1;
+    sy = std::min(std::max(sy, -8), height >> 1);
+    if (sy == (height >> 1)) dxy &= ~2;
+    for (int c = 1; c < 3; c++)
+      mc_block(ref_.p[c], sx, sy, dxy, 8, 8, rounding_, dest(c, 0), cur_.p[c].w);
+  }
+
+  // Inter MB: block_ holds dequantised coefficients of the coded blocks.
+  void add_residual() {
+    for (int n = 0; n < 6; n++) {
+      if (last_index_[n] < 0) continue;
+      int plane = n < 4 ? 0 : n - 3;
+      idct_add(block_[n], dest(plane, n), cur_.p[plane].w);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Decoder
+
+class Decoder : public Codec {
+ public:
+  Vol vol;
+  bool have_ref = false;
+
+  void header(const uint8_t* data, size_t n) { parse(data, n, false); }
+
+  // Decodes one packet; returns true if it held a VOP (coded or not).
+  bool decode(const uint8_t* data, size_t n) { return parse(data, n, true); }
+
+ private:
+  int dc_threshold_ = 99;
+
+  bool parse(const uint8_t* data, size_t n, bool want_vop) {
+    // Walks the start codes: VOS, VO, VOL, user data, GOV, then one VOP.
+    size_t i = 0;
+    while (i + 4 <= n) {
+      if (!(data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1)) {
+        i++;
+        continue;
+      }
+      const uint8_t code = data[i + 3];
+      const size_t start = i + 4;
+      size_t end = start;
+      while (end + 3 <= n && !(data[end] == 0 && data[end + 1] == 0 && data[end + 2] == 1)) end++;
+      if (end + 3 > n) end = n;
+      if (code >= 0x20 && code <= 0x2f) {
+        BitReader br(data + start, end - start);
+        parse_vol(br);
+      } else if (code == 0xb6) {
+        if (!want_vop) return false;
+        if (!vol.valid) corrupt("a VOP before the video object layer header");
+        BitReader br(data + start, n - start);
+        decode_vop(br);
+        return true;
+      } else if (code == 0xb5) {
+        BitReader br(data + start, end - start);
+        if (br.get1()) br.skip(7);  // visual_object_verid, priority
+        if (br.get(4) != 1) unsupported("visual objects other than video (still texture, mesh, face)");
+      }
+      i = end;
+    }
+    return false;
+  }
+
+  void parse_vol(BitReader& br) {
+    Vol v;
+    br.skip(1);  // random_accessible_vol
+    if (br.get(8) == 0x12) unsupported("fine granularity scalability");  // vo_type
+    if (br.get1()) {  // is_object_layer_identifier
+      v.ver_id = (int)br.get(4);
+      br.skip(3);
+    }
+    if (br.get(4) == 15) br.skip(16);  // extended pixel aspect ratio
+    if (br.get1()) {                   // vol_control_parameters
+      if (br.get(2) != 1) unsupported("chroma formats other than 4:2:0");
+      br.skip(1);       // low_delay: B-VOPs are refused where they come
+      if (br.get1()) {  // vbv_parameters
+        for (int bits : {15, 15, 15}) {
+          br.skip(bits);
+          br.marker("in vbv_parameters");
+        }
+        br.skip(3 + 11);
+        br.marker("in vbv_parameters");
+        br.skip(15);
+        br.marker("in vbv_parameters");
+      }
+    }
+    if (br.get(2) != 0) unsupported("non-rectangular shape");
+    br.marker("before vop_time_increment_resolution");
+    v.time_resolution = (int)br.get(16);
+    if (!v.time_resolution) corrupt("vop_time_increment_resolution 0");
+    v.time_bits = std::max(log2_floor(v.time_resolution - 1) + 1, 1);
+    br.marker("after vop_time_increment_resolution");
+    if (br.get1()) br.skip(v.time_bits);  // fixed_vop_rate
+    br.marker("before video_object_layer_width");
+    v.width = (int)br.get(13);
+    br.marker("before video_object_layer_height");
+    v.height = (int)br.get(13);
+    br.marker("after video_object_layer_height");
+    if (v.width <= 0 || v.height <= 0) corrupt("video size %dx%d", v.width, v.height);
+    if (br.get1()) unsupported("interlaced video");
+    br.skip(1);  // obmc_disable
+    int sprite = (int)br.get(v.ver_id == 1 ? 1 : 2);
+    if (sprite == 1) unsupported("static sprites");
+    if (sprite == 2) unsupported("global motion compensation (GMC)");
+    if (br.get1()) unsupported("not-8-bit video");
+    if (br.get1()) unsupported("MPEG quantisation (quant_type 1)");
+    if (v.ver_id != 1 && br.get1()) unsupported("quarter-pel motion");
+    if (!br.get1()) unsupported("complexity estimation");
+    v.resync_disable = br.get1();
+    if (br.get1()) unsupported("data partitioning (and RVLC)");
+    if (v.ver_id != 1) {
+      if (br.get1()) unsupported("newpred");
+      if (br.get1()) unsupported("reduced resolution VOPs");
+    }
+    if (br.get1()) unsupported("scalability");
+    v.valid = true;
+    bool resized = !vol.valid || v.width != vol.width || v.height != vol.height;
+    vol = v;
+    if (resized) {
+      init_size(vol.width, vol.height);
+      have_ref = false;
+    }
+  }
+
+  void decode_vop(BitReader& br) {
+    pict_ = (int)br.get(2);
+    if (pict_ == 2) unsupported("B-VOPs");
+    if (pict_ == 3) unsupported("S-VOPs (sprites, GMC)");
+    while (br.get1()) {  // modulo_time_base
+      if (br.left() <= 0) corrupt("truncated VOP header");
+    }
+    br.marker("before vop_time_increment");
+    br.skip(vol.time_bits);
+    br.marker("after vop_time_increment");
+    if (!br.get1()) {  // vop_coded 0: the reference repeats
+      if (!have_ref) corrupt("a not-coded VOP without a reference");
+      return;
+    }
+    rounding_ = pict_ == 1 ? br.get1() : 0;
+    dc_threshold_ = kDcThreshold[br.get(3)];
+    int q = (int)br.get(vol.quant_precision);
+    if (q == 0) corrupt("vop_quant 0");
+    set_qscale(q);
+    fcode_ = 1;
+    if (pict_ == 1) {
+      fcode_ = (int)br.get(3);
+      if (!fcode_) corrupt("vop_fcode_forward 0");
+      if (!have_ref) corrupt("a P-VOP without a reference");
+    }
+    decode_mbs(br);
+    std::swap(cur_, ref_);
+    have_ref = true;
+  }
+
+  int packet_prefix_length() const { return pict_ == 0 ? 16 : 15 + fcode_; }
+
+  // Whether a resync marker follows the MB just decoded: the stuffing (a
+  // zero, then ones to the byte boundary), prefix-length zeros and a one.
+  bool at_resync(const BitReader& br) const {
+    size_t pos = br.pos();
+    size_t aligned = (pos + 8) & ~size_t(7);
+    int stuff_bits = (int)(aligned - pos);
+    int prefix = packet_prefix_length();
+    if (br.size_bits() < aligned + prefix + 1) return false;
+    if (br.peek(stuff_bits) != (1u << (stuff_bits - 1)) - 1) return false;
+    return br.peek_at(aligned, prefix + 1) == 1u;
+  }
+
+  void video_packet_header(BitReader& br) {
+    br.skip(1);  // the stuffing
+    br.align();
+    int zeros = 0;
+    while (zeros < 32 && !br.get1()) zeros++;
+    if (zeros != packet_prefix_length()) corrupt("bad resync marker");
+    int mb_num = (int)br.get(log2_floor(mbw_ * mbh_ - 1) + 1);
+    if (mb_num <= 0 || mb_num >= mbw_ * mbh_) corrupt("video packet at MB %d", mb_num);
+    mb_x_ = mb_num % mbw_;
+    mb_y_ = mb_num / mbw_;
+    int q = (int)br.get(vol.quant_precision);
+    if (q) set_qscale(q);
+    if (br.get1()) {  // header_extension_code
+      while (br.get1()) {
+        if (br.left() <= 0) corrupt("truncated video packet header");
+      }
+      br.marker("in a video packet header");
+      br.skip(vol.time_bits);
+      br.marker("in a video packet header");
+      br.skip(2 + 3);  // vop_coding_type, intra_dc_vlc_thr
+      if (pict_ != 0 && !br.get(3)) corrupt("vop_fcode_forward 0 in a video packet header");
+    }
+  }
+
+  void decode_mbs(BitReader& br) {
+    mb_x_ = mb_y_ = 0;
+    for (bool first = true;; first = false) {
+      if (!first) {
+        video_packet_header(br);
+        clean_buffers();
+      }
+      start_packet();
+      bool packet_end = false;
+      for (; mb_y_ < mbh_; mb_y_++) {
+        for (; mb_x_ < mbw_; mb_x_++) {
+          if (resync_x_ == mb_x_ && resync_y_ + 1 == mb_y_) first_line_ = false;
+          decode_mb(br);
+          bool last_mb = mb_x_ + 1 == mbw_ && mb_y_ + 1 == mbh_;
+          if (!vol.resync_disable && !last_mb && at_resync(br)) {
+            packet_end = true;
+            break;
+          }
+        }
+        if (packet_end) break;
+        mb_x_ = 0;
+      }
+      if (!packet_end) return;
+    }
+  }
+
+  int decode_motion(BitReader& br, int pred) {
+    int code = br.vlc(tables().mv);
+    if (code == 0) return pred;
+    int sign = br.get1();
+    int shift = fcode_ - 1;
+    int val = code;
+    if (shift) {
+      val = (val - 1) << shift;
+      val |= (int)br.get(shift);
+      val++;
+    }
+    if (sign) val = -val;
+    val += pred;
+    int m = 1 << (5 + fcode_);  // wrap into [-32 << (fcode - 1), 32 << (fcode - 1))
+    return ((val + (m >> 1)) & (m - 1)) - (m >> 1);
+  }
+
+  void decode_mb(BitReader& br) {
+    const Tables& t = tables();
+    int cbpc, dquant;
+    int mvs[4][2] = {{0, 0}, {0, 0}, {0, 0}, {0, 0}};
+    memset(block_, 0, sizeof block_);
+    if (pict_ == 1) {
+      do {
+        if (br.get1()) {  // not_coded: a copy of the reference
+          set_mvs(0, 0);
+          st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
+          clean_intra_entries();
+          predict_inter(1, mvs);
+          return;
+        }
+        cbpc = br.vlc(t.inter_mcbpc);
+      } while (cbpc == 20);
+      dquant = cbpc & 8;
+      if (!(cbpc & 4)) {
+        int cbpy = br.vlc(t.cbpy) ^ 0xf;
+        int cbp = (cbpc & 3) | (cbpy << 2);
+        if (dquant) set_qscale(qscale_ + kQuantDelta[br.get(2)]);
+        int mv_type = cbpc & 16 ? 4 : 1;
+        if (mv_type == 4) {
+          for (int i = 0; i < 4; i++) {
+            int px, py;
+            pred_motion(i, &px, &py);
+            int mx = decode_motion(br, px);
+            int my = decode_motion(br, py);
+            int16_t* p = mv_at(2 * mb_x_ + (i & 1), 2 * mb_y_ + (i >> 1));
+            p[0] = (int16_t)(mvs[i][0] = mx);
+            p[1] = (int16_t)(mvs[i][1] = my);
+          }
+        } else {
+          int px, py;
+          pred_motion(0, &px, &py);
+          mvs[0][0] = decode_motion(br, px);
+          mvs[0][1] = decode_motion(br, py);
+          set_mvs(mvs[0][0], mvs[0][1]);
+        }
+        for (int i = 0; i < 6; i++) decode_block(br, block_[i], i, (cbp >> (5 - i)) & 1, false, false);
+        st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
+        clean_intra_entries();
+        predict_inter(mv_type, mvs);
+        add_residual();
+        return;
+      }
+    } else {
+      do {
+        cbpc = br.vlc(t.intra_mcbpc);
+      } while (cbpc == 8);
+      dquant = cbpc & 4;
+    }
+    // An intra MB.
+    ac_pred_ = br.get1();
+    int cbpy = br.vlc(t.cbpy);
+    int cbp = (cbpc & 3) | (cbpy << 2);
+    bool use_dc_vlc = qscale_ < dc_threshold_;  // the running qscale, before dquant
+    if (dquant) set_qscale(qscale_ + kQuantDelta[br.get(2)]);
+    st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
+    for (int i = 0; i < 6; i++) decode_block(br, block_[i], i, (cbp >> (5 - i)) & 1, true, use_dc_vlc);
+    set_mvs(0, 0);
+    reconstruct_intra();
+  }
+
+  // FFmpeg's mpeg4_decode_block: intra blocks keep quantised levels (with
+  // their DC and AC predictions); inter blocks are dequantised as read.
+  void decode_block(BitReader& br, int16_t* block, int n, bool coded, bool intra, bool use_dc_vlc) {
+    const Tables& t = tables();
+    int i, dc_dir = 0;
+    const uint8_t* scan = kZigzag;
+    const RunLevelTable* rl;
+    const Vlc* vlc;
+    int qmul = 1, qadd = 0;
+    if (intra) {
+      if (use_dc_vlc) {
+        int size = br.vlc(n < 4 ? t.dc_lum : t.dc_chrom);
+        if (size > 9) corrupt("DC size %d", size);
+        int level = 0;
+        if (size) {
+          int v = (int)br.get(size);
+          level = (v >> (size - 1)) ? v : v - (1 << size) + 1;
+          if (size > 8) br.marker("after a DC coefficient");
+        }
+        block[0] = (int16_t)pred_dc(n, level, &dc_dir, false);
+        i = 0;
+      } else {
+        i = -1;
+        pred_dc(n, 0, &dc_dir, false);  // the direction; the level comes with the AC
+      }
+      rl = &t.intra;
+      vlc = &t.intra_vlc;
+      if (ac_pred_) scan = dc_dir == 0 ? kAltVertical : kAltHorizontal;
+    } else {
+      i = -1;
+      if (!coded) {
+        last_index_[n] = -1;
+        return;
+      }
+      rl = &t.inter;
+      vlc = &t.inter_vlc;
+      qmul = qscale_ << 1;
+      qadd = (qscale_ - 1) | 1;
+    }
+    if (coded) {
+      for (;;) {
+        int sym = br.vlc(*vlc);
+        int last, run, level;
+        if (sym == 102) {    // ESCAPE
+          if (!br.get1()) {  // type 1: the level less the run's largest
+            sym = br.vlc(*vlc);
+            if (sym == 102) corrupt("an escape within an escape");
+            last = rl->last[sym];
+            run = rl->run[sym];
+            level = (rl->level[sym] + rl->max_level[last][run]) * qmul + qadd;
+            if (br.get1()) level = -level;
+          } else if (!br.get1()) {  // type 2: the run less the level's largest, less one
+            sym = br.vlc(*vlc);
+            if (sym == 102) corrupt("an escape within an escape");
+            last = rl->last[sym];
+            level = rl->level[sym];
+            run = rl->run[sym] + rl->max_run[last][level] + 1;
+            level = level * qmul + qadd;
+            if (br.get1()) level = -level;
+          } else {  // type 3: fixed-length last, run and level
+            last = br.get1();
+            run = (int)br.get(6);
+            br.marker("before an escaped level");
+            level = br.sget(12);
+            br.marker("after an escaped level");
+            level = level > 0 ? level * qmul + qadd : level * qmul - qadd;
+            if (level < -2048 || level > 2047) level = level < 0 ? -2048 : 2047;
+          }
+        } else {
+          last = rl->last[sym];
+          run = rl->run[sym];
+          level = rl->level[sym] * qmul + qadd;
+          if (br.get1()) level = -level;
+        }
+        i += run + 1;
+        if (i > 63) corrupt("more than 64 coefficients in a block");
+        block[scan[i]] = (int16_t)level;
+        if (last) break;
+      }
+    }
+    if (intra) {
+      if (!use_dc_vlc) {
+        block[0] = (int16_t)pred_dc(n, block[0], &dc_dir, false);
+        if (i < 0) i = 0;
+      }
+      pred_ac(block, n, dc_dir);
+      if (ac_pred_) i = 63;
+    }
+    last_index_[n] = i;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Encoder
+
+class BitWriter {
+ public:
+  std::vector<uint8_t> bytes;
+
+  void put(uint32_t value, int bits) {  // bits <= 32
+    if (!bits) return;
+    acc_ = (acc_ << bits) | (value & (bits == 32 ? 0xffffffffu : ((1u << bits) - 1)));
+    n_ += bits;
+    while (n_ >= 8) {
+      bytes.push_back((uint8_t)(acc_ >> (n_ - 8)));
+      n_ -= 8;
+    }
+    acc_ &= (1ull << n_) - 1;
+  }
+  // next_start_code(): a zero, then ones to the byte boundary.
+  void stuffing() {
+    put(0, 1);
+    if (n_) put((1u << (8 - n_)) - 1, 8 - n_);
+  }
+  void start_code(uint8_t code) { put(0x100 | code, 32); }
+  size_t bit_count() const { return bytes.size() * 8 + n_; }
+
+ private:
+  uint64_t acc_ = 0;
+  int n_ = 0;
+};
+
+// The orthonormal-scaled forward DCT of MPEG: F(0, 0) is 8 times the mean.
+// Two passes of 8x8 products in float (the encoder's own rounding: only
+// its reconstruction, through the decoder's IDCT, must be exact).
+struct ForwardDct {
+  float c[8][8];
+  ForwardDct() {
+    for (int u = 0; u < 8; u++)
+      for (int x = 0; x < 8; x++)
+        c[u][x] = (float)((u ? 0.5 : 0.5 / std::sqrt(2.0)) * std::cos((2 * x + 1) * u * M_PI / 16));
+  }
+  void operator()(const int* f, float* out) const {
+    float tmp[64];
+    for (int y = 0; y < 8; y++) {
+      float row[8];
+      for (int x = 0; x < 8; x++) row[x] = (float)f[y * 8 + x];
+      for (int u = 0; u < 8; u++) {
+        const float* cu = c[u];
+        tmp[u * 8 + y] = cu[0] * row[0] + cu[1] * row[1] + cu[2] * row[2] + cu[3] * row[3] +
+                         cu[4] * row[4] + cu[5] * row[5] + cu[6] * row[6] + cu[7] * row[7];
+      }
+    }
+    for (int u = 0; u < 8; u++) {
+      const float* t = tmp + u * 8;
+      for (int v = 0; v < 8; v++) {
+        const float* cv = c[v];
+        out[v * 8 + u] = cv[0] * t[0] + cv[1] * t[1] + cv[2] * t[2] + cv[3] * t[3] + cv[4] * t[4] +
+                         cv[5] * t[5] + cv[6] * t[6] + cv[7] * t[7];
+      }
+    }
+  }
+};
+
+const ForwardDct& fdct() {
+  static const ForwardDct d;
+  return d;
+}
+
+// Coding tools the encoder can use beyond what cv2's FFmpeg writes (all
+// off by default): they exercise the decoder's remaining paths in streams
+// that FFmpeg can judge.
+struct Tools {
+  bool ac_pred = false;     // per intra MB where it saves bits (FFmpeg's decide_ac_pred)
+  bool dquant = false;      // qscale changes by -1, -2, +1, +2 in turn over coded MBs
+  bool four_mv = false;     // 4MV where the four 8x8 vectors cost less
+  int packet_mbs = 0;       // a video packet (resync marker) every that many MBs
+  int dc_threshold = 0;     // intra_dc_vlc_thr: DC through the AC table at qscale >= 13, 15, ...
+  int not_coded_every = 0;  // every that many frames a P-VOP with vop_coded 0
+};
+
+class Encoder : public Codec {
+ public:
+  long long frames = 0;
+  std::vector<uint8_t> packet;
+  bool keyframe = false;
+  Tools tools;
+
+  Encoder(int w, int h, int time_resolution, int time_increment, int gop, int q)
+      : time_res_(time_resolution), time_inc_(time_increment), gop_(gop), q_(q) {
+    init_size(w, h);
+    src_.resize(mbw_, mbh_);
+    time_bits_ = std::max(log2_floor(time_res_ - 1) + 1, 1);
+    prev_mv_.assign((size_t)mbw_ * mbh_ * 2, 0);
+    fcode_ = 2;  // vectors within +-32 pel
+  }
+
+  // VOS (Simple Profile), VO and VOL, as FFmpeg writes them: the decoder
+  // configuration of MP4 and Matroska, and the head of AVI key frames.
+  std::vector<uint8_t> config() const {
+    BitWriter bw;
+    bw.start_code(0xb0);
+    bw.put(0x01, 8);  // profile_and_level_indication: Simple Profile
+    bw.start_code(0xb5);
+    bw.put(1, 1);  // is_visual_object_identifier
+    bw.put(1, 4);  // visual_object_verid
+    bw.put(1, 3);  // visual_object_priority
+    bw.put(1, 4);  // visual_object_type: video
+    bw.put(0, 1);  // video_signal_type
+    bw.stuffing();
+    bw.start_code(0x00);  // video_object
+    bw.start_code(0x20);  // video_object_layer
+    bw.put(0, 1);         // random_accessible_vol
+    bw.put(1, 8);         // video_object_type_indication: Simple Object
+    bw.put(1, 1);         // is_object_layer_identifier
+    bw.put(1, 4);         // video_object_layer_verid
+    bw.put(1, 3);         // video_object_layer_priority
+    bw.put(1, 4);         // aspect_ratio_info: square pixels
+    bw.put(1, 1);         // vol_control_parameters
+    bw.put(1, 2);         // chroma_format 4:2:0
+    bw.put(1, 1);         // low_delay
+    bw.put(0, 1);         // vbv_parameters
+    bw.put(0, 2);         // rectangular
+    bw.put(1, 1);
+    bw.put((uint32_t)time_res_, 16);
+    bw.put(1, 1);
+    bw.put(0, 1);  // fixed_vop_rate
+    bw.put(1, 1);
+    bw.put((uint32_t)width, 13);
+    bw.put(1, 1);
+    bw.put((uint32_t)height, 13);
+    bw.put(1, 1);
+    bw.put(0, 1);  // interlaced
+    bw.put(1, 1);  // obmc_disable
+    bw.put(0, 1);  // sprite_enable
+    bw.put(0, 1);  // not_8_bit
+    bw.put(0, 1);  // quant_type: H.263
+    bw.put(1, 1);  // complexity_estimation_disable
+    bw.put(tools.packet_mbs ? 0 : 1, 1);  // resync_marker_disable
+    bw.put(0, 1);  // data_partitioned
+    bw.put(0, 1);  // scalability
+    bw.stuffing();
+    return bw.bytes;
+  }
+
+  // Encodes one frame of planes y [h][w], u and v [(h+1)/2][(w+1)/2] into
+  // `packet` (a GOV before each I-VOP).
+  void encode(const uint8_t* y, const uint8_t* u, const uint8_t* v) {
+    load_source(y, u, v);
+    keyframe = frames % gop_ == 0;
+    bool coded = keyframe || !tools.not_coded_every || frames % tools.not_coded_every;
+    pict_ = keyframe ? 0 : 1;
+    if (coded) rounding_ = keyframe ? 0 : rounding_ ^ 1;
+    set_qscale(q_);
+    BitWriter bw;
+    long long t = frames * time_inc_;
+    long long sec = t / time_res_;
+    if (keyframe) {
+      bw.start_code(0xb3);  // GOV: the time code of this frame
+      bw.put((uint32_t)((sec / 3600) % 24), 5);
+      bw.put((uint32_t)((sec / 60) % 60), 6);
+      bw.put(1, 1);
+      bw.put((uint32_t)(sec % 60), 6);
+      bw.put(0, 1);  // closed_gov
+      bw.put(0, 1);  // broken_link
+      bw.stuffing();
+      last_sec_ = sec;
+    }
+    bw.start_code(0xb6);
+    bw.put((uint32_t)pict_, 2);
+    for (long long k = last_sec_; k < sec; k++) bw.put(1, 1);  // modulo_time_base
+    bw.put(0, 1);
+    last_sec_ = sec;
+    bw.put(1, 1);
+    bw.put((uint32_t)(t % time_res_), time_bits_);
+    bw.put(1, 1);
+    bw.put(coded ? 1 : 0, 1);  // vop_coded
+    if (!coded) {  // the reference repeats
+      bw.stuffing();
+      packet.swap(bw.bytes);
+      frames++;
+      return;
+    }
+    if (pict_ == 1) bw.put((uint32_t)rounding_, 1);
+    bw.put((uint32_t)tools.dc_threshold, 3);  // intra_dc_vlc_thr
+    dc_threshold_ = kDcThreshold[tools.dc_threshold];
+    bw.put((uint32_t)qscale_, 5);
+    if (pict_ == 1) bw.put((uint32_t)fcode_, 3);
+    mb_x_ = mb_y_ = 0;
+    start_packet();
+    int mb = 0;
+    for (mb_y_ = 0; mb_y_ < mbh_; mb_y_++) {
+      for (mb_x_ = 0; mb_x_ < mbw_; mb_x_++, mb++) {
+        if (tools.packet_mbs && mb && mb % tools.packet_mbs == 0) put_packet_header(bw, mb);
+        if (resync_x_ == mb_x_ && resync_y_ + 1 == mb_y_) first_line_ = false;
+        if (pict_ == 0)
+          encode_intra_mb(bw, kIntraMcbpc, 0, 4);
+        else
+          encode_p_mb(bw);
+      }
+    }
+    bw.stuffing();
+    std::swap(cur_, ref_);
+    packet.swap(bw.bytes);
+    frames++;
+  }
+
+ private:
+  Frame src_;  // the input, replicated to the MB-aligned size
+  int time_res_, time_inc_, time_bits_ = 1, gop_, q_;
+  int dc_threshold_ = 99;
+  long long last_sec_ = 0;
+  int dquant_turn_ = 0;
+  std::vector<int16_t> prev_mv_;  // per MB, the previous P-VOP's vector
+
+  // A resync marker and video packet header before MB `mb`; the prediction
+  // restarts as the decoder restarts it.
+  void put_packet_header(BitWriter& bw, int mb) {
+    bw.stuffing();
+    int prefix = pict_ == 0 ? 16 : 15 + fcode_;
+    bw.put(1, prefix + 1);
+    bw.put((uint32_t)mb, log2_floor(mbw_ * mbh_ - 1) + 1);
+    bw.put((uint32_t)qscale_, 5);
+    bw.put(0, 1);  // header_extension_code
+    start_packet();
+    clean_buffers();
+  }
+
+  // The next dquant of the turn, or 0; applies it.
+  int take_dquant() {
+    if (!tools.dquant) return -1;
+    int code = dquant_turn_++ & 3;
+    set_qscale(qscale_ + kQuantDelta[code]);
+    return code;
+  }
+
+  void load_source(const uint8_t* y, const uint8_t* u, const uint8_t* v) {
+    const uint8_t* in[3] = {y, u, v};
+    for (int c = 0; c < 3; c++) {
+      Plane& p = src_.p[c];
+      int w = c ? (width + 1) / 2 : width, h = c ? (height + 1) / 2 : height;
+      for (int r = 0; r < p.h; r++) {
+        const uint8_t* s = in[c] + (size_t)std::min(r, h - 1) * w;
+        uint8_t* d = p.row(r);
+        memcpy(d, s, w);
+        memset(d + w, s[w - 1], p.w - w);
+      }
+    }
+  }
+
+  const uint8_t* src_block(int plane, int n) const {
+    if (plane == 0) return src_.p[0].row(mb_y_ * 16 + (n >> 1) * 8) + mb_x_ * 16 + (n & 1) * 8;
+    return src_.p[plane].row(mb_y_ * 8) + mb_x_ * 8;
+  }
+  int stride(int plane) const { return src_.p[plane].w; }
+
+  // Writes one (last, run, level) through the table, its escapes or the
+  // fixed-length escape.
+  static void put_coef(BitWriter& bw, const RunLevelTable& rl, int last, int run, int level) {
+    int sign = level < 0, a = std::abs(level);
+    auto code = [&](int l, int r, int lev) -> int {
+      return (r < 64 && lev < 32) ? rl.index[l][r][lev] : -1;
+    };
+    int sym = code(last, run, a);
+    if (sym >= 0) {
+      bw.put(rl.vlc[sym][0], rl.vlc[sym][1]);
+      bw.put((uint32_t)sign, 1);
+      return;
+    }
+    const uint16_t* esc = rl.vlc[102];
+    int a1 = a - rl.max_level[last][run];
+    sym = a1 > 0 ? code(last, run, a1) : -1;
+    if (sym >= 0) {
+      bw.put(esc[0], esc[1]);
+      bw.put(0, 1);
+      bw.put(rl.vlc[sym][0], rl.vlc[sym][1]);
+      bw.put((uint32_t)sign, 1);
+      return;
+    }
+    int r2 = a < 64 ? run - rl.max_run[last][a] - 1 : -1;
+    sym = r2 >= 0 ? code(last, r2, a) : -1;
+    if (sym >= 0) {
+      bw.put(esc[0], esc[1]);
+      bw.put(2, 2);
+      bw.put(rl.vlc[sym][0], rl.vlc[sym][1]);
+      bw.put((uint32_t)sign, 1);
+      return;
+    }
+    bw.put(esc[0], esc[1]);
+    bw.put(3, 2);
+    bw.put((uint32_t)last, 1);
+    bw.put((uint32_t)run, 6);
+    bw.put(1, 1);
+    bw.put((uint32_t)level & 0xfff, 12);
+    bw.put(1, 1);
+  }
+
+  // The coefficients of `levels` (natural order) from position `start` of
+  // `scan`.
+  static void put_block(BitWriter& bw, const RunLevelTable& rl, const int16_t* levels, int start,
+                        const uint8_t* scan = kZigzag) {
+    int last_pos = -1;
+    for (int i = 63; i >= start; i--)
+      if (levels[scan[i]]) {
+        last_pos = i;
+        break;
+      }
+    int run = 0;
+    for (int i = start; i <= last_pos; i++) {
+      int level = levels[scan[i]];
+      if (!level) {
+        run++;
+        continue;
+      }
+      put_coef(bw, rl, i == last_pos, run, level);
+      run = 0;
+    }
+  }
+
+  static void put_dc(BitWriter& bw, int n, int diff) {
+    int a = std::abs(diff), size = 0;
+    while (a >> size) size++;
+    const uint8_t* t = n < 4 ? kDcLum[size] : kDcChrom[size];
+    bw.put(t[0], t[1]);
+    if (size) {
+      bw.put((uint32_t)(diff > 0 ? diff : diff + (1 << size) - 1), size);
+      if (size > 8) bw.put(1, 1);
+    }
+  }
+
+  // Quantises an intra MB into block_ (levels, DC prediction taken, the
+  // AC predictors kept) and returns, per block, the DC differential.
+  void quantise_intra(int* diffs, int* dirs) {
+    float coef[64];
+    int px[64];
+    const float inv_step = 1.0f / (2 * qscale_);
+    for (int n = 0; n < 6; n++) {
+      int plane = n < 4 ? 0 : n - 3;
+      const uint8_t* s = src_block(plane, n);
+      for (int y = 0; y < 8; y++)
+        for (int x = 0; x < 8; x++) px[y * 8 + x] = s[y * stride(plane) + x];
+      fdct()(px, coef);
+      int16_t* b = block_[n];
+      int scale = n < 4 ? y_dc_ : c_dc_;
+      b[0] = (int16_t)std::min(std::max((int)std::lround(coef[0] / scale), 0), 2047 / scale);
+      for (int k = 1; k < 64; k++) {
+        int l = std::min((int)(std::fabs(coef[k]) * inv_step), 2047);
+        b[k] = (int16_t)(coef[k] < 0 ? -l : l);
+      }
+      diffs[n] = pred_dc(n, b[0], &dirs[n], true);
+    }
+  }
+
+  // Codes an intra MB (MCBPC from `mcbpc`, whose intra symbols start at
+  // `base` and intra+q ones `q_offset` after); reconstructs it as the
+  // decoder does.
+  void encode_intra_mb(BitWriter& bw, const uint8_t (*mcbpc)[2], int base, int q_offset) {
+    const bool use_dc_vlc = qscale_ < dc_threshold_;  // the running qscale
+    const int dquant = take_dquant();
+    int diffs[6], dirs[6];
+    quantise_intra(diffs, dirs);
+    st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
+    // The coded levels: with ac_pred, the first row or column less its
+    // prediction, where that costs less over the MB. Each block keeps its
+    // levels for the next as it goes, as the decoder keeps them.
+    int16_t coded[6][64];
+    int gain = 0;
+    ac_pred_ = false;
+    for (int n = 0; n < 6; n++) {
+      memcpy(coded[n], block_[n], sizeof coded[n]);
+      if (tools.ac_pred) {
+        int pred[8], pos[8];
+        ac_prediction(n, dirs[n], pred, pos);
+        for (int i = 1; i < 8; i++) {
+          int c = block_[n][pos[i]] - pred[i];
+          gain += std::abs(block_[n][pos[i]]) - std::abs(c);
+          coded[n][pos[i]] = (int16_t)c;
+        }
+      }
+      pred_ac(block_[n], n, dirs[n]);
+    }
+    ac_pred_ = tools.ac_pred && gain > 0;
+    int cbp = 0;
+    for (int n = 0; n < 6; n++) {
+      const int16_t* c = ac_pred_ ? coded[n] : block_[n];
+      bool any = !use_dc_vlc && diffs[n];
+      for (int k = 1; k < 64 && !any; k++) any = c[k] != 0;
+      if (any) cbp |= 1 << (5 - n);
+    }
+    int symbol = base + (dquant >= 0 ? q_offset : 0) + (cbp & 3), cbpy = cbp >> 2;
+    bw.put(mcbpc[symbol][0], mcbpc[symbol][1]);
+    bw.put(ac_pred_ ? 1 : 0, 1);
+    bw.put(kCbpy[cbpy][0], kCbpy[cbpy][1]);
+    if (dquant >= 0) bw.put((uint32_t)dquant, 2);
+    for (int n = 0; n < 6; n++) {
+      const int16_t* c = ac_pred_ ? coded[n] : block_[n];
+      const uint8_t* scan = !ac_pred_ ? kZigzag : dirs[n] == 0 ? kAltVertical : kAltHorizontal;
+      if (use_dc_vlc) {
+        put_dc(bw, n, diffs[n]);
+        if (cbp & (1 << (5 - n))) put_block(bw, tables().intra, c, 1, scan);
+      } else {
+        int16_t with_dc[64];
+        memcpy(with_dc, c, sizeof with_dc);
+        with_dc[0] = (int16_t)diffs[n];
+        if (cbp & (1 << (5 - n))) put_block(bw, tables().intra, with_dc, 0, scan);
+      }
+    }
+    set_mvs(0, 0);
+    reconstruct_intra();
+  }
+
+  // The SAD of the 16x16 luma prediction at half-pel vector (mx, my).
+  int sad(int mx, int my, int limit) {
+    uint8_t pred[256];
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    mc_block(ref_.p[0], mb_x_ * 16 + (mx >> 1), mb_y_ * 16 + (my >> 1), dxy, 16, 16, rounding_,
+             pred, 16);
+    const uint8_t* s = src_block(0, 0);
+    int total = 0;
+    for (int y = 0; y < 16; y++) {
+      for (int x = 0; x < 16; x++) total += std::abs(s[y * stride(0) + x] - pred[y * 16 + x]);
+      if (total >= limit) return total;
+    }
+    return total;
+  }
+
+  static int mv_bits(int d) {
+    if (!d) return 1;
+    int a = std::abs(d) - 1;
+    return kMv[std::min((a >> 1) + 1, 32)][1] + 2;
+  }
+
+  // The SAD of 8x8 luma block `n` predicted at half-pel vector (mx, my).
+  int sad8(int n, int mx, int my) {
+    uint8_t pred[64];
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    mc_block(ref_.p[0], mb_x_ * 16 + (n & 1) * 8 + (mx >> 1), mb_y_ * 16 + (n >> 1) * 8 + (my >> 1),
+             dxy, 8, 8, rounding_, pred, 8);
+    const uint8_t* s = src_block(0, n);
+    int total = 0;
+    for (int y = 0; y < 8; y++)
+      for (int x = 0; x < 8; x++) total += std::abs(s[y * stride(0) + x] - pred[y * 8 + x]);
+    return total;
+  }
+
+  // The residual of the prediction in cur_, quantised as H.263 inter (a
+  // dead zone of a quarter step) into levels and, dequantised as the
+  // decoder holds them, into block_; returns the cbp.
+  int quantise_inter(int16_t (*levels)[64]) {
+    const int qmul = qscale_ << 1, qadd = (qscale_ - 1) | 1;
+    const int max_level = (2047 - qadd) / qmul;
+    int cbp = 0;
+    for (int n = 0; n < 6; n++) {
+      int plane = n < 4 ? 0 : n - 3;
+      const uint8_t* src = src_block(plane, n);
+      const uint8_t* pred = dest(plane, n);
+      int res[64];
+      float coef[64];
+      int energy = 0;
+      for (int y = 0; y < 8; y++)
+        for (int x = 0; x < 8; x++) {
+          res[y * 8 + x] = src[y * stride(plane) + x] - pred[y * cur_.p[plane].w + x];
+          energy += std::abs(res[y * 8 + x]);
+        }
+      memset(levels[n], 0, sizeof levels[n]);
+      memset(block_[n], 0, sizeof block_[n]);
+      last_index_[n] = -1;
+      // |F(u, v)| <= sum |res| / 4: below 4 (2 Q + Q / 2) every level is 0.
+      if (energy * 2 < 4 * (4 * qscale_ + qscale_)) continue;
+      fdct()(res, coef);
+      const float inv_step = 1.0f / qmul, dead = qscale_ / 2.0f;
+      for (int k = 0; k < 64; k++) {
+        int l = std::min(std::max((int)((std::fabs(coef[k]) - dead) * inv_step), 0), max_level);
+        if (!l) continue;
+        levels[n][k] = (int16_t)(coef[k] < 0 ? -l : l);
+        block_[n][k] = (int16_t)(coef[k] < 0 ? -(l * qmul + qadd) : l * qmul + qadd);
+        last_index_[n] = 63;
+      }
+      if (last_index_[n] >= 0) cbp |= 1 << (5 - n);
+    }
+    return cbp;
+  }
+
+  void encode_p_mb(BitWriter& bw) {
+    int px, py;
+    pred_motion(0, &px, &py);
+    const int range = 32 << (fcode_ - 1);  // half-pel vectors lie in [-range, range)
+    const int lambda = 2 * qscale_;
+    auto cost_of = [&](int mx, int my, int limit) {
+      int bits = mv_bits(mx - px) + mv_bits(my - py);
+      return sad(mx, my, limit) + lambda * bits;
+    };
+    auto in_range = [&](int mx, int my) {
+      return mx >= -range && mx < range && my >= -range && my < range;
+    };
+    // Full-pel candidates: zero, the predictor, the neighbours, the last frame's.
+    int best_x = 0, best_y = 0, best = cost_of(0, 0, 1 << 30);
+    auto consider = [&](int mx, int my) {
+      mx &= ~1;
+      my &= ~1;
+      if (!in_range(mx, my) || (mx == best_x && my == best_y)) return false;
+      int c = cost_of(mx, my, best);
+      if (c < best) {
+        best = c;
+        best_x = mx;
+        best_y = my;
+        return true;
+      }
+      return false;
+    };
+    consider(px, py);
+    const int16_t* left = mv_at(2 * mb_x_ - 1, 2 * mb_y_);
+    consider(left[0], left[1]);
+    if (mb_y_ > 0) {
+      const int16_t* top = mv_at(2 * mb_x_, 2 * mb_y_ - 1);
+      consider(top[0], top[1]);
+      const int16_t* tr = mv_at(2 * mb_x_ + 2, 2 * mb_y_ - 1);
+      consider(tr[0], tr[1]);
+    }
+    const int16_t* prev = &prev_mv_[((size_t)mb_y_ * mbw_ + mb_x_) * 2];
+    consider(prev[0], prev[1]);
+    // A diamond of one pel, then the eight half-pel neighbours.
+    for (int step = 0; step < 32; step++) {
+      int cx = best_x, cy = best_y;
+      bool moved = false;
+      static const int dirs[4][2] = {{2, 0}, {-2, 0}, {0, 2}, {0, -2}};
+      for (auto& d : dirs) moved |= consider(cx + d[0], cy + d[1]);
+      if (!moved) break;
+    }
+    int fx = best_x, fy = best_y;
+    for (int dy = -1; dy <= 1; dy++)
+      for (int dx = -1; dx <= 1; dx++) {
+        int mx = fx + dx, my = fy + dy;
+        if ((!dx && !dy) || !in_range(mx, my)) continue;
+        int c = cost_of(mx, my, best);
+        if (c < best) {
+          best = c;
+          best_x = mx;
+          best_y = my;
+        }
+      }
+    // Intra where the MB's deviation from its mean is well below the best
+    // prediction's error (FFmpeg's simple mb decision).
+    const uint8_t* s = src_block(0, 0);
+    int sum = 0;
+    for (int y = 0; y < 16; y++)
+      for (int x = 0; x < 16; x++) sum += s[y * stride(0) + x];
+    int mean = (sum + 128) >> 8, dev = 0;
+    for (int y = 0; y < 16; y++)
+      for (int x = 0; x < 16; x++) dev += std::abs(s[y * stride(0) + x] - mean);
+    int16_t* pm = &prev_mv_[((size_t)mb_y_ * mbw_ + mb_x_) * 2];
+    int best_sad = best - lambda * (mv_bits(best_x - px) + mv_bits(best_y - py));
+    if (dev + 500 < best_sad) {
+      pm[0] = pm[1] = 0;
+      bw.put(0, 1);  // coded
+      encode_intra_mb(bw, kInterMcbpc, 4, 8);
+      return;
+    }
+    pm[0] = (int16_t)best_x;
+    pm[1] = (int16_t)best_y;
+    // 4MV: each 8x8 block refined by half a pel around the MB's vector.
+    int mvs[4][2] = {{best_x, best_y}, {best_x, best_y}, {best_x, best_y}, {best_x, best_y}};
+    bool four = false;
+    if (tools.four_mv) {
+      int total = 0;
+      for (int n = 0; n < 4; n++) {
+        int bsad = sad8(n, best_x, best_y);
+        for (int dy = -1; dy <= 1; dy++)
+          for (int dx = -1; dx <= 1; dx++) {
+            int mx = best_x + dx, my = best_y + dy;
+            if ((!dx && !dy) || !in_range(mx, my)) continue;
+            int c = sad8(n, mx, my);
+            if (c < bsad) {
+              bsad = c;
+              mvs[n][0] = mx;
+              mvs[n][1] = my;
+            }
+          }
+        total += bsad;
+      }
+      four = total + 3 * lambda * 4 < best_sad;
+      if (!four)
+        for (auto& mv : mvs) mv[0] = best_x, mv[1] = best_y;
+    }
+    predict_inter(four ? 4 : 1, mvs);
+    int16_t levels[6][64];
+    int cbp = quantise_inter(levels);
+    st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
+    clean_intra_entries();
+    if (!cbp && !four && !best_x && !best_y) {
+      bw.put(1, 1);  // not_coded
+      set_mvs(0, 0);
+      return;
+    }
+    int dquant = four ? -1 : take_dquant();
+    if (dquant >= 0) {  // requantised at the new qscale
+      cbp = quantise_inter(levels);
+      st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
+    }
+    int symbol = (four ? 16 : dquant >= 0 ? 8 : 0) + (cbp & 3), cbpy = (cbp >> 2) ^ 0xf;
+    bw.put(0, 1);
+    bw.put(kInterMcbpc[symbol][0], kInterMcbpc[symbol][1]);
+    bw.put(kCbpy[cbpy][0], kCbpy[cbpy][1]);
+    if (dquant >= 0) bw.put((uint32_t)dquant, 2);
+    if (four) {
+      for (int n = 0; n < 4; n++) {
+        int bx, by;
+        pred_motion(n, &bx, &by);
+        put_motion(bw, mvs[n][0] - bx);
+        put_motion(bw, mvs[n][1] - by);
+        int16_t* p = mv_at(2 * mb_x_ + (n & 1), 2 * mb_y_ + (n >> 1));
+        p[0] = (int16_t)mvs[n][0];
+        p[1] = (int16_t)mvs[n][1];
+      }
+    } else {
+      put_motion(bw, best_x - px);
+      put_motion(bw, best_y - py);
+      set_mvs(best_x, best_y);
+    }
+    for (int n = 0; n < 6; n++)
+      if (cbp & (1 << (5 - n))) put_block(bw, tables().inter, levels[n], 0);
+    add_residual();
+  }
+
+  // FFmpeg's ff_h263_encode_motion: the difference wrapped into the f_code range.
+  void put_motion(BitWriter& bw, int val) {
+    if (!val) {
+      bw.put(1, 1);
+      return;
+    }
+    int bit_size = fcode_ - 1;
+    int m = 1 << (6 + bit_size);
+    val = ((val + (m >> 1)) & (m - 1)) - (m >> 1);
+    int sign = val < 0;
+    val = std::abs(val) - 1;
+    int code = (val >> bit_size) + 1;
+    bw.put(((uint32_t)kMv[code][0] << 1) | (uint32_t)sign, kMv[code][1] + 1);
+    if (bit_size) bw.put((uint32_t)(val & ((1 << bit_size) - 1)), bit_size);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Colour: BT.601 limited range, as swscale converts for cv2.
+
+void rgb_to_yuv420(const uint8_t* rgb, int w, int h, uint8_t* y, uint8_t* u, uint8_t* v) {
+  for (int r = 0; r < h; r++)
+    for (int c = 0; c < w; c++) {
+      const uint8_t* p = rgb + ((size_t)r * w + c) * 3;
+      y[(size_t)r * w + c] = (uint8_t)(((66 * p[0] + 129 * p[1] + 25 * p[2] + 128) >> 8) + 16);
+    }
+  int cw = (w + 1) / 2, ch = (h + 1) / 2;
+  for (int r = 0; r < ch; r++)
+    for (int c = 0; c < cw; c++) {
+      int sum[3] = {0, 0, 0};  // the 2x2 mean, edges repeated
+      for (int dy = 0; dy < 2; dy++)
+        for (int dx = 0; dx < 2; dx++) {
+          int rr = std::min(2 * r + dy, h - 1), cc = std::min(2 * c + dx, w - 1);
+          const uint8_t* p = rgb + ((size_t)rr * w + cc) * 3;
+          for (int k = 0; k < 3; k++) sum[k] += p[k];
+        }
+      int R = (sum[0] + 2) / 4, G = (sum[1] + 2) / 4, B = (sum[2] + 2) / 4;
+      u[(size_t)r * cw + c] = (uint8_t)(((-38 * R - 74 * G + 112 * B + 128) >> 8) + 128);
+      v[(size_t)r * cw + c] = (uint8_t)(((112 * R - 94 * G - 18 * B + 128) >> 8) + 128);
+    }
+}
+
+// swscale's unscaled yuv420p -> bgr24 path on x86 (its SIMD yuv2rgb): each
+// chroma sample serves its 2x2 luma samples, and each term is a 16-bit
+// fixed-point product rounded down (pmulhw) with the 13-bit coefficients of
+// BT.601 limited range: 1.164 (luma), 1.596, -0.392, -0.813, 2.017.
+void yuv420_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, int w, int h, uint8_t* rgb) {
+  auto mulhi = [](int a, int c) { return (a * c) >> 16; };
+  const int cw = (w + 1) / 2;
+  for (int r = 0; r < h; r++) {
+    const uint8_t* yr = y + (size_t)r * w;
+    const uint8_t* ur = u + (size_t)(r >> 1) * cw;
+    const uint8_t* vr = v + (size_t)(r >> 1) * cw;
+    uint8_t* out = rgb + (size_t)r * w * 3;
+    for (int c = 0; c < w; c++) {
+      int yy = mulhi((yr[c] - 16) * 8, 9539);
+      int du = (ur[c >> 1] - 128) * 8, dv = (vr[c >> 1] - 128) * 8;
+      out[3 * c + 0] = clip_pixel(yy + mulhi(dv, 13075));
+      out[3 * c + 1] = clip_pixel(yy + mulhi(du, -3209) + mulhi(dv, -6660));
+      out[3 * c + 2] = clip_pixel(yy + mulhi(du, 16525));
+    }
+  }
+}
+
+int fail(const Failure& f, char* err, int err_len) {
+  if (err && err_len > 0) snprintf(err, (size_t)err_len, "%s", f.message.c_str());
+  return f.code;
+}
+
+void copy_planes(const Frame& f, int w, int h, uint8_t* y, uint8_t* u, uint8_t* v) {
+  int cw = (w + 1) / 2, ch = (h + 1) / 2;
+  for (int r = 0; r < h; r++) memcpy(y + (size_t)r * w, f.p[0].row(r), w);
+  for (int r = 0; r < ch; r++) {
+    memcpy(u + (size_t)r * cw, f.p[1].row(r), cw);
+    memcpy(v + (size_t)r * cw, f.p[2].row(r), cw);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+void* metrabs_mp4v_decoder_new() { return new Decoder(); }
+
+void metrabs_mp4v_decoder_free(void* d) { delete static_cast<Decoder*>(d); }
+
+// Reads the VOL of a decoder configuration (MP4's esds, Matroska's
+// CodecPrivate, AVI's strf extra bytes) or of a packet that carries it.
+int metrabs_mp4v_decoder_config(void* d, const uint8_t* data, size_t n, int* width, int* height,
+                                char* err, int err_len) {
+  Decoder* dec = static_cast<Decoder*>(d);
+  try {
+    dec->header(data, n);
+  } catch (const Failure& f) {
+    return fail(f, err, err_len);
+  }
+  if (!dec->vol.valid) return kNoFrame;
+  *width = dec->vol.width;
+  *height = dec->vol.height;
+  return kOk;
+}
+
+// Decodes one packet into RGB [h][w][3], and its luma into y if not null
+// (a not-coded VOP gives the previous frame again).
+int metrabs_mp4v_decode_rgb(void* d, const uint8_t* data, size_t n, uint8_t* rgb, uint8_t* y,
+                            char* err, int err_len) {
+  Decoder* dec = static_cast<Decoder*>(d);
+  try {
+    if (!dec->decode(data, n)) return kNoFrame;
+  } catch (const Failure& f) {
+    return fail(f, err, err_len);
+  }
+  const Frame& f = dec->output();
+  int w = dec->width, h = dec->height;
+  std::vector<uint8_t> planes((size_t)w * h + 2 * (size_t)((w + 1) / 2) * ((h + 1) / 2));
+  uint8_t* py = planes.data();
+  uint8_t* pu = py + (size_t)w * h;
+  uint8_t* pv = pu + (size_t)((w + 1) / 2) * ((h + 1) / 2);
+  copy_planes(f, w, h, py, pu, pv);
+  yuv420_to_rgb(py, pu, pv, w, h, rgb);
+  if (y) memcpy(y, py, (size_t)w * h);
+  return kOk;
+}
+
+void* metrabs_mp4v_encoder_new(int width, int height, int time_resolution, int time_increment,
+                               int gop, int qscale) {
+  if (width <= 0 || height <= 0 || width >= 8192 || height >= 8192 || time_resolution <= 0 ||
+      time_resolution > 65535 || time_increment <= 0 || gop <= 0 || qscale < 1 || qscale > 31)
+    return nullptr;
+  return new Encoder(width, height, time_resolution, time_increment, gop, qscale);
+}
+
+void metrabs_mp4v_encoder_free(void* e) { delete static_cast<Encoder*>(e); }
+
+// The coding tools beyond cv2's stream (Tools); before the first frame.
+void metrabs_mp4v_encoder_tools(void* e, int ac_pred, int dquant, int four_mv, int packet_mbs,
+                                int dc_threshold, int not_coded_every) {
+  Tools& t = static_cast<Encoder*>(e)->tools;
+  t.ac_pred = ac_pred;
+  t.dquant = dquant;
+  t.four_mv = four_mv;
+  t.packet_mbs = std::max(packet_mbs, 0);
+  t.dc_threshold = std::min(std::max(dc_threshold, 0), 7);
+  t.not_coded_every = std::max(not_coded_every, 0);
+}
+
+// The VOS, VO and VOL headers into out (at most cap bytes); their length.
+int metrabs_mp4v_encoder_config(void* e, uint8_t* out, int cap) {
+  std::vector<uint8_t> c = static_cast<Encoder*>(e)->config();
+  if ((int)c.size() > cap) return -(int)c.size();
+  memcpy(out, c.data(), c.size());
+  return (int)c.size();
+}
+
+// Encodes one RGB [h][w][3] frame; *data and *size hold the packet until
+// the next call; *key is 1 for an I-VOP.
+int metrabs_mp4v_encode(void* e, const uint8_t* rgb, const uint8_t** data, size_t* size, int* key) {
+  Encoder* enc = static_cast<Encoder*>(e);
+  int w = enc->width, h = enc->height;
+  std::vector<uint8_t> planes((size_t)w * h + 2 * (size_t)((w + 1) / 2) * ((h + 1) / 2));
+  uint8_t* y = planes.data();
+  uint8_t* u = y + (size_t)w * h;
+  uint8_t* v = u + (size_t)((w + 1) / 2) * ((h + 1) / 2);
+  rgb_to_yuv420(rgb, w, h, y, u, v);
+  enc->encode(y, u, v);
+  *data = enc->packet.data();
+  *size = enc->packet.size();
+  *key = enc->keyframe;
+  return kOk;
+}
+
+// The encoder's reconstruction of its last frame (what a decoder gives).
+void metrabs_mp4v_encoder_recon(void* e, uint8_t* y, uint8_t* u, uint8_t* v) {
+  Encoder* enc = static_cast<Encoder*>(e);
+  copy_planes(enc->output(), enc->width, enc->height, y, u, v);
+}
+
+}  // extern "C"

@@ -2,8 +2,8 @@
 without OpenCV: images are read from JPEG (through `data.jpeg`, equal to
 cv2's decode), PNG (through `data.cvfree`) and `.npy` files and written as
 JPEG (equal to cv2's encode) or PNG, video frames are read and written as
-Motion JPEG in AVI and Matroska files (through `data.video`), and the colour
-and resize helpers give OpenCV's numbers.
+Motion JPEG or MPEG-4 Part 2 (mp4v) in AVI, Matroska and MP4 files (through
+`data.video`), and the colour and resize helpers give OpenCV's numbers.
 """
 
 from __future__ import annotations
@@ -28,11 +28,14 @@ def imread(path: str) -> np.ndarray:
     ValueError for a corrupt or truncated JPEG, and NotImplementedError for
     any other format.
 
-    `video.ext#frame=N` is frame N (from 0) of a Motion JPEG AVI or Matroska
-    video (the ASPset adapter's convention for its .mkv files): the file's
-    index is parsed once and kept, so each frame is one seek and one decode
-    (equal to `cv2.imdecode` of its packet). Other codecs raise
-    NotImplementedError naming the codec."""
+    `video.ext#frame=N` is frame N (from 0) of a Motion JPEG or mp4v video
+    in AVI, Matroska or MP4 (the ASPset adapter's convention for its .mkv
+    files): the file's index is parsed once and kept. A Motion JPEG frame is
+    one seek and one decode (equal to `cv2.imdecode` of its packet); an mp4v
+    frame is decoded from the last key frame before it, through the file's
+    decoder, which frames read in order continue (equal to
+    `cv2.VideoCapture`'s frame). Other codecs raise NotImplementedError
+    naming the codec."""
     path = str(path)
     if '#frame=' in path:
         video_path, frame_spec = path.split('#frame=')
@@ -168,14 +171,15 @@ def imwrite(path: str, image: np.ndarray) -> None:
 
 def video_extents(filepath: str) -> np.ndarray:
     """Video (width, height) from the container's header, without decoding
-    frames (Motion JPEG AVI and Matroska)."""
+    frames (AVI, Matroska and MP4)."""
     idx = video.index(str(filepath))
     return np.asarray([idx.width, idx.height])
 
 
 def video_fps(filepath: str) -> float:
     """Frame rate from the container's header: an AVI stream's rate / scale,
-    a Matroska track's DefaultDuration."""
+    a Matroska track's DefaultDuration, an MP4 track's timescale over its
+    sample durations."""
     return float(video.index(str(filepath)).fps)
 
 
@@ -185,16 +189,12 @@ def num_frames_of_video(path: str) -> int:
 
 
 def transform_video(inp_path: str, out_path: str, process_frame_fn,
-                    fourcc: str = 'MJPG') -> None:
+                    fourcc: str = 'mp4v') -> None:
     """Reads a video, maps `process_frame_fn` over its RGB frames and writes
     the results at the source's frame rate, in the container the output's
-    extension names (`.avi` or `.mkv`). The frame function must keep the
-    frame size. Only Motion JPEG is written: JAX's default `fourcc='mp4v'`
-    waits for the mp4v item of ROADMAP.md, and raises NotImplementedError."""
-    if fourcc.upper() != 'MJPG':
-        raise NotImplementedError(f'transform_video: codec {fourcc!r} is not ported, only '
-                                  f'MJPG (ROADMAP.md, "mp4v read and write with the MP4 '
-                                  f'container")')
+    extension names (`.mp4`, `.avi` or `.mkv`), as mp4v (JAX's default) or
+    MJPG. The frame function must keep the frame size. Another codec raises
+    NotImplementedError naming it."""
     idx = video.index(str(inp_path))
     parent = os.path.dirname(os.path.abspath(out_path))
     os.makedirs(parent, exist_ok=True)

@@ -1,29 +1,41 @@
-"""Motion JPEG video in AVI and Matroska files, without a video library.
+"""Video files without a video library: Motion JPEG and MPEG-4 Part 2
+(`mp4v`) in AVI, Matroska and MP4.
 
 Reading: the demuxers index a file's video packets once (AVI: RIFF with the
 `idx1` index, or the OpenDML `indx` super index and its `ix##` chunks that
 FFmpeg writes past 1 GiB; an AVI with neither raises; Matroska: EBML with
 SimpleBlock and BlockGroup in Clusters, `DefaultDuration` for the frame
-rate), so that frame N is one seek, one read and one `jpeg.decode`, which
-equals `cv2.imdecode` of the packet bit for bit. A packet without a DHT
-segment (the AVI1 convention of Motion JPEG cameras) is decoded with the
-standard Huffman tables, as libjpeg-turbo decodes it. `cv2.VideoCapture`
-decodes through FFmpeg's own IDCT and colour conversion, so its frames
-differ from these by a few levels.
+rate; MP4: `data.mp4`), with each packet's key-frame flag and the codec's
+private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`).
 
-Writing: `VideoWriter` writes each RGB frame through `jpeg.encode` (equal to
-`cv2.imencode`) into an AVI (RIFF, `idx1`, and past `DEFAULT_RIFF_LIMIT`
-bytes the OpenDML index in AVIX extensions, as FFmpeg writes them) or a Matroska file
-(SimpleBlocks, one Cluster per second, Cues), chosen by the extension, as
-cv2 chooses. Frame sizes are kept as given, odd ones too.
+- Motion JPEG: frame N is one seek, one read and one `jpeg.decode`, which
+  equals `cv2.imdecode` of the packet bit for bit. A packet without a DHT
+  segment (the AVI1 convention of Motion JPEG cameras) is decoded with the
+  standard Huffman tables, as libjpeg-turbo decodes it. `cv2.VideoCapture`
+  decodes through FFmpeg's own IDCT and colour conversion, so its frames
+  differ from these by a few levels.
+- mp4v (FourCCs `mp4v`, `MP4V`, `FMP4`, `DIVX`, `DX50`, `XVID`; Matroska
+  `V_MPEG4/ISO/SP`, `/ASP`, `/AP`): decoded by `data.mpeg4`, whose luma
+  equals FFmpeg's and whose RGB equals `cv2.VideoCapture`'s. Frame N is
+  decoded from the last key frame at or before it. Each file keeps a few
+  decoders and its last few frames under a lock, so frames read in order,
+  from one thread or from several, are each decoded once. The stream's own
+  VOL decides what is refused (B-VOPs, quarter-pel, GMC, ...).
 
-Only the Motion JPEG codec is ported: any other (MPEG-4 Part 2 `mp4v`,
-H.264, ...) and any other container (MP4) raise NotImplementedError naming
-it (ROADMAP.md, "mp4v read and write with the MP4 container").
+Writing: `VideoWriter` writes RGB frames as Motion JPEG (`jpeg.encode`,
+equal to `cv2.imencode`) or mp4v (`mpeg4.Encoder`) into an AVI (RIFF,
+`idx1`, and past `DEFAULT_RIFF_LIMIT` bytes the OpenDML index in AVIX
+extensions, as FFmpeg writes them), a Matroska file (SimpleBlocks, one
+Cluster per second, Cues) or, for mp4v, an MP4 file, chosen by the
+extension, as cv2 chooses. Frame sizes are kept as given, odd ones too.
+
+Any other codec (H.264, HEVC, ...) or container raises UnsupportedVideo
+naming it (ROADMAP.md, "H.264").
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import struct
@@ -32,32 +44,52 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from metrabs_tpu_torch.data import jpeg
+from metrabs_tpu_torch.data import jpeg, mp4, mpeg4
+from metrabs_tpu_torch.data.mpeg4 import UnsupportedVideo  # noqa: F401 (the module's error)
 
 MJPEG_CODECS = ('MJPG', 'mjpg', 'V_MJPEG')  # AVI FourCCs, the Matroska CodecID
-_ROADMAP = 'ROADMAP.md, "mp4v read and write with the MP4 container"'
+# AVI FourCCs (any case) and Matroska CodecIDs of MPEG-4 Part 2 video
+MP4V_FOURCCS = ('MP4V', 'FMP4', 'DIVX', 'DX50', 'XVID')
+MP4V_CODEC_IDS = ('V_MPEG4/ISO/SP', 'V_MPEG4/ISO/ASP', 'V_MPEG4/ISO/AP')
+_ROADMAP = 'ROADMAP.md, "H.264"'
 DEFAULT_RIFF_LIMIT = 1 << 30  # FFmpeg's AVI_MAX_RIFF_SIZE: an AVIX extension past 1 GiB
+_AVIIF_KEYFRAME = 0x10
 
 
-class UnsupportedVideo(NotImplementedError):
-    """A container or codec other than Motion JPEG in AVI or Matroska."""
+def codec_kind(codec: str) -> Optional[str]:
+    """'mjpeg', 'mp4v' or None for a FourCC, CodecID or sample entry."""
+    if codec in MJPEG_CODECS:
+        return 'mjpeg'
+    if codec.upper() in MP4V_FOURCCS or codec in MP4V_CODEC_IDS:
+        return 'mp4v'
+    return None
 
 
 @dataclasses.dataclass
 class VideoIndex:
     """Where each video packet of a file lies, and the stream's header."""
     path: str
-    container: str  # 'avi' or 'matroska'
-    codec: str  # the AVI FourCC or the Matroska CodecID
+    container: str  # 'avi', 'matroska' or 'mp4'
+    codec: str  # the AVI FourCC, the Matroska CodecID or the MP4 sample entry
     width: int
     height: int
     fps: float
     offsets: np.ndarray  # int64 byte offset of each packet
     sizes: np.ndarray  # int64 byte length of each packet
+    keyframes: Optional[np.ndarray] = None  # bool per packet; None: every one
+    config: bytes = b''  # the codec's private header (mp4v: VOS and VOL)
+
+    def __post_init__(self):
+        if self.keyframes is None:
+            self.keyframes = np.ones(len(self.offsets), bool)
 
     @property
     def n_frames(self) -> int:
         return len(self.offsets)
+
+    @property
+    def kind(self) -> Optional[str]:
+        return codec_kind(self.codec)
 
     def packet(self, i: int, f: Optional[BinaryIO] = None) -> bytes:
         if not 0 <= i < self.n_frames:
@@ -72,7 +104,10 @@ class VideoIndex:
         return data
 
     def frame(self, i: int, f: Optional[BinaryIO] = None) -> np.ndarray:
-        """RGB uint8 [H, W, 3] of packet i."""
+        """RGB uint8 [H, W, 3] of frame i (mp4v: through the file's decoder
+        state, from the last key frame at or before i)."""
+        if self.kind == 'mp4v':
+            return _stream(self).read(i)
         return jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}')
 
 
@@ -98,15 +133,17 @@ def index(path: str) -> VideoIndex:
             idx = _index_avi(path, f, st.st_size)
         elif head[:4] == b'\x1a\x45\xdf\xa3':
             idx = _index_matroska(path, f, st.st_size)
-        elif head[4:8] in (b'ftyp', b'moov', b'mdat', b'free', b'wide'):
-            raise UnsupportedVideo(f'{path}: MP4/QuickTime container (codec '
-                                   f'{_mp4_codec(path)!r}) is not ported ({_ROADMAP})')
+        elif head[4:8] in (b'ftyp', b'moov', b'mdat', b'free', b'wide', b'skip'):
+            idx = VideoIndex(path=path, container='mp4', **mp4.read_index(path, f, st.st_size))
         else:
-            raise UnsupportedVideo(f'{path}: not an AVI or Matroska file')
-    if idx.codec not in MJPEG_CODECS:
+            raise UnsupportedVideo(f'{path}: not an AVI, Matroska or MP4 file')
+    if idx.kind is None:
         raise UnsupportedVideo(f'{path}: codec {idx.codec!r} is not ported, only Motion JPEG '
-                               f'({_ROADMAP})')
-    with _INDEX_LOCK:
+                               f'and MPEG-4 Part 2 (mp4v) ({_ROADMAP})')
+    with _INDEX_LOCK:  # threads that parsed the file at once all get the first index
+        hit = _INDEX_CACHE.get(path)
+        if hit is not None and hit[0] == key:
+            return hit[1]
         _INDEX_CACHE[path] = (key, idx)
     return idx
 
@@ -121,26 +158,97 @@ def read_frame(path: str, i: int) -> np.ndarray:
 
 def iter_frames(path: str):
     """Every frame of a video in order, RGB uint8 [H, W, 3], through one open
-    file."""
+    file (and for mp4v one decoder of its own: each frame is decoded once)."""
     idx = index(path)
     with open(path, 'rb') as f:
+        if idx.kind == 'mp4v':
+            decoder = mpeg4.Decoder(idx.config, path)
+            try:
+                for i in range(idx.n_frames):
+                    yield decoder.decode(idx.packet(i, f))
+            finally:
+                decoder.close()
+            return
         for i in range(idx.n_frames):
             yield idx.frame(i, f)
 
 
 # --------------------------------------------------------------------------
+# mp4v random access
+
+_CACHED_FRAMES = 16  # frames kept per file: twice predict_common's 8 I/O threads
+_CURSORS = 3  # decoders kept per file
+_MAX_STREAMS = 2  # files with decoders kept
+_STREAMS_LOCK = threading.Lock()
+_STREAMS: Dict[str, '_Stream'] = {}
+
+
+class _Cursor:
+    """A decoder and the frame it would decode next."""
+
+    def __init__(self, idx: VideoIndex, start: int):
+        self.decoder = mpeg4.Decoder(idx.config, idx.path)
+        self.next = start
+
+
+class _Stream:
+    """The decoders over one mp4v file and the last _CACHED_FRAMES frames
+    they decoded. Readers of frame i take the lock: a frame at hand is
+    copied out; else the cursor that stands after the last key frame at or
+    before i, and not past i, decodes on to it; else a new cursor starts at
+    that key frame. Up to _CURSORS cursors are kept, so that the I/O threads
+    of one batch may ask across a GOP boundary in any order and each frame
+    read in order is decoded once."""
+
+    def __init__(self, idx: VideoIndex):
+        self.idx = idx
+        self.lock = threading.Lock()
+        self.cursors: List[_Cursor] = []  # the most recently used last
+        self.frames: 'collections.OrderedDict[int, np.ndarray]' = collections.OrderedDict()
+
+    def read(self, i: int) -> np.ndarray:
+        idx = self.idx
+        if not 0 <= i < idx.n_frames:
+            raise IndexError(f'{idx.path}: frame {i} of {idx.n_frames}')
+        with self.lock:
+            hit = self.frames.get(i)
+            if hit is not None:
+                return hit.copy()
+            keys = np.flatnonzero(idx.keyframes[:i + 1])
+            if not len(keys):
+                raise ValueError(f'{idx.path}: no key frame at or before frame {i}')
+            start = int(keys[-1])
+            usable = [c for c in self.cursors if start <= c.next <= i]
+            if usable:
+                cursor = max(usable, key=lambda c: c.next)
+                self.cursors.remove(cursor)
+            else:
+                cursor = _Cursor(idx, start)
+                if len(self.cursors) >= _CURSORS:
+                    self.cursors.pop(0).decoder.close()
+            self.cursors.append(cursor)
+            with open(idx.path, 'rb') as f:
+                while cursor.next <= i:
+                    rgb = cursor.decoder.decode(idx.packet(cursor.next, f))
+                    self.frames[cursor.next] = rgb
+                    if len(self.frames) > _CACHED_FRAMES:
+                        self.frames.popitem(last=False)
+                    cursor.next += 1
+            return rgb.copy()
+
+
+def _stream(idx: VideoIndex) -> _Stream:
+    with _STREAMS_LOCK:
+        stream = _STREAMS.get(idx.path)
+        if stream is None or stream.idx is not idx:
+            stream = _STREAMS[idx.path] = _Stream(idx)
+            while len(_STREAMS) > _MAX_STREAMS:
+                del _STREAMS[next(iter(_STREAMS))]
+        return stream
+
+
+# --------------------------------------------------------------------------
 # AVI
-
-
-def _mp4_codec(path: str) -> str:
-    """The sample entry FourCC of an MP4 file's first `stsd` box, for the
-    error message ('mp4v', 'avc1', ...), looked for in the first MiB."""
-    with open(path, 'rb') as f:
-        data = f.read(1 << 20)
-    at = data.find(b'stsd')
-    if at < 0 or at + 20 > len(data):
-        return 'unknown'
-    return data[at + 16:at + 20].decode('latin1')
 
 
 def _chunks(f: BinaryIO, start: int, end: int):
@@ -191,7 +299,7 @@ def _index_avi(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
     if stream is None:
         raise ValueError(f'{path}: no video stream in the AVI header')
     ids = (b'%02ddc' % stream['number'], b'%02ddb' % stream['number'])
-    offsets, sizes = [], []
+    offsets, sizes, keys = [], [], []
     if stream['indx']:
         for qw_offset, _ in stream['indx']:
             # An ix## chunk: its header, then nEntriesInUse at 12 and
@@ -203,6 +311,7 @@ def _index_avi(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
             raw = np.frombuffer(f.read(8 * entries), '<u4').reshape(-1, 2)
             offsets.extend((base + raw[:, 0].astype(np.int64)).tolist())
             sizes.extend((raw[:, 1] & 0x7FFFFFFF).astype(np.int64).tolist())
+            keys.extend((raw[:, 1] & 0x80000000 == 0).tolist())  # bit 31: not a key frame
     elif idx1 is not None and movi:
         raw = np.frombuffer(idx1[:len(idx1) // 16 * 16], np.dtype([
             ('id', 'S4'), ('flags', '<u4'), ('offset', '<u4'), ('size', '<u4')]))
@@ -212,11 +321,13 @@ def _index_avi(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
             base = movi[0][0] if raw['offset'][0] < movi[0][0] else 0
             offsets = (raw['offset'].astype(np.int64) + base + 8).tolist()
             sizes = raw['size'].astype(np.int64).tolist()
+            keys = (raw['flags'] & _AVIIF_KEYFRAME != 0).tolist()
     else:
         raise ValueError(f'{path}: AVI without an index (idx1 or OpenDML indx)')
     return VideoIndex(path=path, container='avi', codec=stream['codec'],
                       width=stream['width'], height=stream['height'], fps=stream['fps'],
-                      offsets=np.asarray(offsets, np.int64), sizes=np.asarray(sizes, np.int64))
+                      offsets=np.asarray(offsets, np.int64), sizes=np.asarray(sizes, np.int64),
+                      keyframes=np.asarray(keys, bool), config=stream['extra'])
 
 
 def _parse_strl(f, start: int, size: int, number: int):
@@ -232,7 +343,9 @@ def _parse_strl(f, start: int, size: int, number: int):
             out.update(handler=data[4:8], fps=rate / scale if scale else 0.0)
         elif fcc == b'strf':
             width, height = struct.unpack('<ii', data[4:12])
-            out.update(width=width, height=abs(height), compression=data[16:20])
+            header = struct.unpack('<I', data[:4])[0]  # biSize: the codec's bytes follow
+            out.update(width=width, height=abs(height), compression=data[16:20],
+                       extra=data[max(header, 40):])
         elif fcc == b'indx':
             longs, sub, kind, n_used = struct.unpack('<HBBI', data[:8])
             if kind == 0:  # AVI_INDEX_OF_INDEXES: (qwOffset, dwSize, dwDuration) entries
@@ -247,18 +360,22 @@ def _parse_strl(f, start: int, size: int, number: int):
 
 
 class _AviMuxer:
-    """RIFF AVI with one Motion JPEG stream, laid out as FFmpeg lays it out:
+    """RIFF AVI with one video stream (`fourcc`), laid out as FFmpeg lays it out:
     hdrl with avih and strl (strh, strf, a JUNK chunk that becomes the
     OpenDML `indx` super index), a JUNK that becomes the `odml` list, then
     `movi` with `00dc` chunks and `idx1`. Past DEFAULT_RIFF_LIMIT bytes the RIFF
     is closed with an `ix00` standard index and the packets go on in
-    RIFF 'AVIX' extensions, each with its own `ix00`."""
+    RIFF 'AVIX' extensions, each with its own `ix00`. The indexes flag the
+    key frames (idx1 AVIIF_KEYFRAME; ix## entries with bit 31 clear)."""
 
     SUPER_ENTRIES = 256
 
-    def __init__(self, f: BinaryIO, width: int, height: int, fps: float):
+    def __init__(self, f: BinaryIO, width: int, height: int, fps: float,
+                 fourcc: bytes = b'MJPG'):
         self.f, self.width, self.height, self.fps = f, width, height, fps
-        self.riff_frames: List[List[Tuple[int, int]]] = [[]]  # (data offset, size) per RIFF
+        self.fourcc = fourcc
+        # (data offset, size, key) per RIFF
+        self.riff_frames: List[List[Tuple[int, int, bool]]] = [[]]
         self.ix_chunks: List[Tuple[int, int, int]] = []  # (offset, size, frames)
         self.scale, self.rate = _rational(fps)
         self._write_headers()
@@ -299,7 +416,8 @@ class _AviMuxer:
         self.strh_at = self.f.tell()
         self._chunk(b'strh', self._strh(0, 0))
         self._chunk(b'strf', struct.pack('<IiiHH4sIiiII', 40, self.width, self.height, 1, 24,
-                                         b'MJPG', self.width * self.height * 3, 0, 0, 0, 0))
+                                         self.fourcc, self.width * self.height * 3, 0, 0, 0,
+                                         0))
         self.indx_at = self.f.tell()
         self._chunk(b'JUNK', self._indx([]))
         self._end(strl)
@@ -313,7 +431,8 @@ class _AviMuxer:
                            self.height, 0, 0, 0, 0)
 
     def _strh(self, frames: int, max_bytes: int) -> bytes:
-        return (b'vidsMJPG' + struct.pack('<IHHIIIIIIII', 0, 0, 0, 0, self.scale, self.rate, 0,
+        return (b'vids' + self.fourcc + struct.pack('<IHHIIIIIIII', 0, 0, 0, 0, self.scale,
+                                                    self.rate, 0,
                                           frames, max_bytes, 0xFFFFFFFF, 0)
                 + struct.pack('<4h', 0, 0, self.width, self.height))
 
@@ -323,7 +442,7 @@ class _AviMuxer:
             body += struct.pack('<QII', offset, size, frames)
         return body + bytes(16 * (self.SUPER_ENTRIES - len(entries)))
 
-    def write(self, packet: bytes) -> None:
+    def write(self, packet: bytes, key: bool = True) -> None:
         if self.f.tell() - self.riff_start + len(packet) + 8 > DEFAULT_RIFF_LIMIT and \
                 self.riff_frames[-1]:
             self._close_riff()
@@ -332,7 +451,7 @@ class _AviMuxer:
             self.riff_start = self._begin_list(b'AVIX', b'RIFF')
             self.movi_start = self._begin_list(b'movi')
             self.riff_frames.append([])
-        self.riff_frames[-1].append((self.f.tell() + 8, len(packet)))
+        self.riff_frames[-1].append((self.f.tell() + 8, len(packet), key))
         self._chunk(b'00dc', packet)
 
     def _write_ix(self) -> None:
@@ -340,7 +459,8 @@ class _AviMuxer:
         base = frames[0][0] - 8 if frames else 0
         at = self.f.tell()
         body = struct.pack('<HBBI4sQ4x', 2, 0, 1, len(frames), b'00dc', base)
-        body += b''.join(struct.pack('<II', off - base, size) for off, size in frames)
+        body += b''.join(struct.pack('<II', off - base, size | (0 if key else 1 << 31))
+                         for off, size, key in frames)
         self._chunk(b'ix00', body)
         self.ix_chunks.append((at, len(body) + 8, len(frames)))
 
@@ -352,13 +472,14 @@ class _AviMuxer:
         self._end(self.riff_start)
 
     def _write_idx1(self) -> None:
-        body = b''.join(struct.pack('<4sIII', b'00dc', 0x10, off - 8 - self.movi_start - 8, size)
-                        for off, size in self.riff_frames[0])
+        body = b''.join(struct.pack('<4sIII', b'00dc', _AVIIF_KEYFRAME if key else 0,
+                                    off - 8 - self.movi_start - 8, size)
+                        for off, size, key in self.riff_frames[0])
         self._chunk(b'idx1', body)
 
     def close(self) -> None:
         all_frames = [fr for riff in self.riff_frames for fr in riff]
-        max_bytes = max((size for _, size in all_frames), default=0)
+        max_bytes = max((size for _, size, _ in all_frames), default=0)
         if len(self.riff_frames) == 1:
             self._end(self.movi_start)
             self._write_idx1()
@@ -458,7 +579,7 @@ def _index_matroska(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
     if doc not in ('matroska', 'webm') or segment is None:
         raise ValueError(f'{path}: not a Matroska file (DocType {doc!r})')
     scale, track = 1000000, None
-    blocks: List[Tuple[int, int, int]] = []  # (data offset, size, timestamp)
+    blocks: List[Tuple[int, int, int, bool]] = []  # (data offset, size, timestamp, key)
     pos, end = segment
     while pos < end:
         f.seek(pos)
@@ -493,14 +614,16 @@ def _index_matroska(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
     return VideoIndex(path=path, container='matroska', codec=track['codec'],
                       width=track['width'], height=track['height'], fps=fps,
                       offsets=np.asarray([b[0] for b in blocks], np.int64),
-                      sizes=np.asarray([b[1] for b in blocks], np.int64))
+                      sizes=np.asarray([b[1] for b in blocks], np.int64),
+                      keyframes=np.asarray([b[3] for b in blocks], bool), config=track['private'])
 
 
 def _matroska_video_track(f, start: int, end: int):
     for eid, at, size in _elements(f, start, end):
         if eid != 0xAE:  # TrackEntry
             continue
-        fields = dict(number=None, kind=None, codec='', default_duration=0, width=0, height=0)
+        fields = dict(number=None, kind=None, codec='', default_duration=0, width=0, height=0,
+                      private=b'')
         for cid, cat, csize in _elements(f, at, at + size):
             f.seek(cat)
             data = f.read(csize)
@@ -512,6 +635,8 @@ def _matroska_video_track(f, start: int, end: int):
                 fields['codec'] = data.rstrip(b'\0').decode('latin1')
             elif cid == 0x23E383:
                 fields['default_duration'] = _uint(data)
+            elif cid == 0x63A2:
+                fields['private'] = data
             elif cid == 0xE0:
                 for vid, vat, vsize in _elements(f, cat, cat + csize):
                     f.seek(vat)
@@ -548,17 +673,20 @@ def _matroska_cluster(f, start: int, size: int, segment_end: int, track: int,
         if eid == 0xE7:  # Timestamp
             f.seek(at)
             timestamp = _uint(f.read(esize))
-        elif eid == 0xA3:  # SimpleBlock
-            _matroska_block(f, at, esize, track, timestamp, blocks)
-        elif eid == 0xA0:  # BlockGroup
-            for cid, cat, csize in _elements(f, at, at + esize):
+        elif eid == 0xA3:  # SimpleBlock: bit 7 of its flags marks a key frame
+            _matroska_block(f, at, esize, track, timestamp, blocks, None)
+        elif eid == 0xA0:  # BlockGroup: a key frame unless it has a ReferenceBlock
+            children = list(_elements(f, at, at + esize))
+            key = not any(cid == 0xFB for cid, _, _ in children)
+            for cid, cat, csize in children:
                 if cid == 0xA1:  # Block
-                    _matroska_block(f, cat, csize, track, timestamp, blocks)
+                    _matroska_block(f, cat, csize, track, timestamp, blocks, key)
         pos = at + esize
     return end - start
 
 
-def _matroska_block(f, at: int, size: int, track: int, cluster_ts: int, blocks: list) -> None:
+def _matroska_block(f, at: int, size: int, track: int, cluster_ts: int, blocks: list,
+                    key: Optional[bool]) -> None:
     f.seek(at)
     number, n = _read_vint(f, keep_marker=False)
     if number != track:
@@ -567,7 +695,8 @@ def _matroska_block(f, at: int, size: int, track: int, cluster_ts: int, blocks: 
     if flags & 0x06:
         raise UnsupportedVideo('laced Matroska blocks are not ported')
     head = n + 3
-    blocks.append((at + head, size - head, cluster_ts + rel))
+    blocks.append((at + head, size - head, cluster_ts + rel,
+                   bool(flags & 0x80) if key is None else key))
 
 
 def _id_bytes(eid: int) -> bytes:
@@ -587,15 +716,17 @@ def _uint_element(eid: int, value: int) -> bytes:
 
 
 class _MatroskaMuxer:
-    """A Matroska file with one V_MJPEG track: EBML header, then a Segment
-    with SeekHead, Info (TimestampScale 1 ms, Duration), Tracks
-    (DefaultDuration from the frame rate), one Cluster per second of
-    SimpleBlocks (every frame a key frame) and Cues, one CuePoint per
-    Cluster. Sizes are written as 8-byte numbers and filled in on close."""
+    """A Matroska file with one video track (`codec_id`, with `private` as
+    its CodecPrivate): EBML header, then a Segment with SeekHead, Info
+    (TimestampScale 1 ms, Duration), Tracks (DefaultDuration from the frame
+    rate), one Cluster per second of SimpleBlocks (the key frames flagged)
+    and Cues, one CuePoint per Cluster. Sizes are written as 8-byte numbers
+    and filled in on close."""
 
     CLUSTER_MS = 1000
 
-    def __init__(self, f: BinaryIO, width: int, height: int, fps: float):
+    def __init__(self, f: BinaryIO, width: int, height: int, fps: float,
+                 codec_id: bytes = b'V_MJPEG', private: bytes = b''):
         self.f, self.fps = f, fps
         self.n = 0
         self.clusters: List[Tuple[int, int]] = []  # (segment-relative offset, timestamp)
@@ -615,7 +746,8 @@ class _MatroskaMuxer:
         self.tracks_at = f.tell()
         f.write(_element(_TRACKS, _element(0xAE, b''.join([
             _uint_element(0xD7, 1), _uint_element(0x73C5, 1), _uint_element(0x83, 1),
-            _uint_element(0x9C, 0), _element(0x86, b'V_MJPEG'),
+            _uint_element(0x9C, 0), _element(0x86, codec_id),
+            *([_element(0x63A2, private)] if private else []),
             _uint_element(0x23E383, int(round(1e9 / fps))),
             _element(0xE0, _uint_element(0xB0, width) + _uint_element(0xBA, height))]))))
 
@@ -637,7 +769,7 @@ class _MatroskaMuxer:
     def _timestamp(self, i: int) -> int:
         return int(round(i * 1000 / self.fps))
 
-    def write(self, packet: bytes) -> None:
+    def write(self, packet: bytes, key: bool = True) -> None:
         ts = self._timestamp(self.n)
         if self.cluster_at is None or ts - self.clusters[-1][1] >= self.CLUSTER_MS:
             self._end_cluster()
@@ -645,7 +777,8 @@ class _MatroskaMuxer:
             self.clusters.append((self.cluster_at - self.data_at, ts))
             self.f.write(_id_bytes(_CLUSTER) + _size8(0) + _uint_element(0xE7, ts))
         rel = ts - self.clusters[-1][1]
-        self.f.write(_element(0xA3, b'\x81' + struct.pack('>hB', rel, 0x80) + packet))
+        self.f.write(_element(0xA3, b'\x81' + struct.pack('>hB', rel, 0x80 if key else 0)
+                              + packet))
         self.n += 1
 
     def _end_cluster(self) -> None:
@@ -679,30 +812,47 @@ class _MatroskaMuxer:
 
 
 class VideoWriter:
-    """Writes RGB uint8 [H, W, 3] frames of one size as Motion JPEG into an
-    AVI (`.avi`) or Matroska (`.mkv`) file, each frame encoded by
-    `jpeg.encode` at cv2's default quality. `fourcc` must be 'MJPG' (the one
-    codec ported; 'mp4v' and the rest raise UnsupportedVideo). Each AVI RIFF
-    holds at most DEFAULT_RIFF_LIMIT bytes; an OpenDML AVIX extension follows
-    past it."""
+    """Writes RGB uint8 [H, W, 3] frames of one size into the container the
+    extension names, as cv2 does: `fourcc` 'MJPG' (each frame through
+    `jpeg.encode` at cv2's default quality) into `.avi` or `.mkv`, or
+    'mp4v' (`mpeg4.Encoder`: an I-VOP every 12 frames at cv2's quantiser)
+    into `.mp4`, `.avi` or `.mkv`. Any other codec or container raises
+    UnsupportedVideo naming it. Each AVI RIFF holds at most
+    DEFAULT_RIFF_LIMIT bytes; an OpenDML AVIX extension follows past it."""
 
     def __init__(self, path: str, fps: float, size: Tuple[int, int], fourcc: str = 'MJPG'):
         path = str(path)
-        if fourcc.upper() != 'MJPG':
-            raise UnsupportedVideo(f'{path}: codec {fourcc!r} is not ported, only MJPG '
+        codec = {'MJPG': 'mjpeg', 'MP4V': 'mp4v'}.get(fourcc.upper())
+        if codec is None:
+            raise UnsupportedVideo(f'{path}: codec {fourcc!r} is not ported, only MJPG and mp4v '
                                    f'({_ROADMAP})')
         ext = os.path.splitext(path)[1].lower()
-        if ext not in ('.avi', '.mkv'):
-            raise UnsupportedVideo(f'{path}: container {ext or "(none)"!r} is not ported, only '
-                                   f'.avi and .mkv ({_ROADMAP})')
+        containers = ('.avi', '.mkv', '.mp4') if codec == 'mp4v' else ('.avi', '.mkv')
+        if ext not in containers:
+            raise UnsupportedVideo(f'{path}: container {ext or "(none)"!r} is not ported for '
+                                   f'{fourcc}, only {", ".join(containers)}')
         self.path, self.width, self.height = path, int(size[0]), int(size[1])
         self.n_frames = 0
+        # The mp4v encoder (None for MJPG): its `reconstruction()` is what a
+        # decoder gives for the frame written last.
+        self.encoder = (mpeg4.Encoder(self.width, self.height, float(fps))
+                         if codec == 'mp4v' else None)
         self._f = open(path, 'wb')
         try:
-            if ext == '.avi':
-                self._mux = _AviMuxer(self._f, self.width, self.height, float(fps))
+            if codec == 'mjpeg':
+                mux_args = dict(avi=(b'MJPG',), mkv=(b'V_MJPEG',))
             else:
-                self._mux = _MatroskaMuxer(self._f, self.width, self.height, float(fps))
+                mux_args = dict(avi=(b'mp4v',), mkv=(b'V_MPEG4/ISO/SP', self.encoder.config))
+            if ext == '.avi':
+                self._mux = _AviMuxer(self._f, self.width, self.height, float(fps),
+                                      *mux_args['avi'])
+            elif ext == '.mkv':
+                self._mux = _MatroskaMuxer(self._f, self.width, self.height, float(fps),
+                                           *mux_args['mkv'])
+            else:
+                rate, scale = self.encoder.time_resolution, self.encoder.time_increment
+                self._mux = mp4.Mp4Muxer(self._f, self.width, self.height, rate, scale,
+                                         self.encoder.config)
         except BaseException:
             self._f.close()
             raise
@@ -711,11 +861,17 @@ class VideoWriter:
         if rgb.shape != (self.height, self.width, 3):
             raise ValueError(f'{self.path}: frame of shape {rgb.shape}, the video is '
                              f'{self.height}x{self.width}x3')
-        self.write_packet(jpeg.encode(rgb))
+        if self.encoder is None:
+            self.write_packet(jpeg.encode(rgb))
+            return
+        packet, key = self.encoder.encode(rgb)
+        if key and isinstance(self._mux, _AviMuxer):
+            packet = self.encoder.config + packet  # AVI key frames carry the VOL, as FFmpeg's
+        self.write_packet(packet, key)
 
-    def write_packet(self, packet: bytes) -> None:
-        """Writes one encoded JPEG frame as it is."""
-        self._mux.write(packet)
+    def write_packet(self, packet: bytes, key: bool = True) -> None:
+        """Writes one encoded frame as it is."""
+        self._mux.write(packet, key)
         self.n_frames += 1
 
     def close(self) -> None:
@@ -725,6 +881,8 @@ class VideoWriter:
             self._mux.close()
         finally:
             self._f.close()
+            if self.encoder is not None:
+                self.encoder.close()
 
     def __enter__(self):
         return self

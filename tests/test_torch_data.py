@@ -274,8 +274,8 @@ def test_imread_matches_cv2_imread(tmp_path):
     """Gray and RGBA PNGs come back as 3-channel RGB, as cv2.IMREAD_COLOR
     reads them; .npy files load as they are; a JPEG decodes as cv2 decodes
     it (tests/test_torch_jpeg.py holds the decoder to cv2 in depth); an
-    mp4v video's frame raises, naming ROADMAP.md (only Motion JPEG is read:
-    tests/test_torch_video.py)."""
+    mp4v video's frame reads as JAX's cv2 reads it, and is readable for
+    both (tests/test_torch_mp4v.py holds the decoder to FFmpeg in depth)."""
     rng = np.random.default_rng(10)
     for shape in ((20, 30), (20, 30, 3), (20, 30, 4)):
         im = rng.integers(0, 256, shape, dtype=np.uint8)
@@ -297,9 +297,10 @@ def test_imread_matches_cv2_imread(tmp_path):
         writer.write(np.zeros((24, 32, 3), np.uint8))
     writer.release()
     video = f'{tmp_path}/v.mp4#frame=3'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        improc.imread(video)
-    assert improc.is_image_readable(jpg) and not improc.is_image_readable(video)
+    np.testing.assert_array_equal(improc.imread(video), jax_improc.imread(video))
+    assert improc.is_image_readable(jpg) and improc.is_image_readable(video)
+    assert jax_improc.is_image_readable(video)
+    assert not improc.is_image_readable(f'{tmp_path}/v.mp4#frame=5')
     with pytest.raises(FileNotFoundError):
         improc.imread(str(tmp_path / 'missing.png'))
 

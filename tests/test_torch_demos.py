@@ -8,14 +8,16 @@ package's on the same weights or the same stub estimator:
 - `demo_video` makes the calls and frame counts of JAX's
   `test_letterbox_and_partial_batch` and `test_stream_mode` (JAX's file is
   marked slow for its XLA compiles; these run the port alone against the
-  numbers that test asserts), writes Motion JPEG at the source's size, and
+  numbers that test asserts), reads and writes mp4v (JAX's codec) and
+  Motion JPEG at the source's size, and
   `letterbox_frame` and `fov_intrinsics` equal JAX's;
 - `camera_extrinsics_from_pitch_height` equals JAX's; the webcam's capture
   raises after the set-up;
 - `predict_aspset` on JAX's `test_predict_drivers.py` layout with MJPG .mkv
   videos: the same `.npz` files as JAX's driver with the same stub, whose
   features are binned so that FFmpeg's decode (JAX's cv2.VideoCapture) and
-  libjpeg's (the port's) of the flat frames give the same poses;
+  libjpeg's (the port's) of the flat frames give the same poses; with mp4v
+  .mkv videos, as JAX's test writes them, the very same images and poses;
 - `--viz-dir` writes JAX's file names.
 """
 
@@ -98,9 +100,9 @@ def test_default_estimator_is_seeded_and_runs(tmp_path, capsys, monkeypatch, one
         demo_image.build_default_estimator()  # the card by default, no fallback
 
 
-def write_clip(path: str, n: int, w: int, h: int) -> None:
+def write_clip(path: str, n: int, w: int, h: int, fourcc: str = 'MJPG') -> None:
     rng = np.random.default_rng(0)
-    with video.VideoWriter(path, 10, (w, h)) as writer:
+    with video.VideoWriter(path, 10, (w, h), fourcc) as writer:
         for _ in range(n):
             writer.write(rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8))
 
@@ -165,8 +167,38 @@ def test_demo_video_stream_mode(tmp_path, tiny_package, monkeypatch, capsys, one
 
 
 def test_demo_video_refuses_mp4_output(tmp_path):
-    with pytest.raises(NotImplementedError, match='mp4v'):
-        demo_video.main(['--video', 'in.avi', '--out', str(tmp_path / 'out.mp4')])
+    """--out writes mp4v into .mp4, .avi or .mkv; another container is
+    refused before the estimator loads."""
+    with pytest.raises(NotImplementedError, match='mp4v into .mp4, .avi or .mkv'):
+        demo_video.main(['--video', 'in.avi', '--out', str(tmp_path / 'out.webm')])
+
+
+def test_demo_video_mp4v_in_and_out(tmp_path, tiny_package, monkeypatch, capsys,
+                                    one_torch_thread):
+    """JAX's test_letterbox_and_partial_batch on its own formats: 7 frames of
+    100x76 mp4v .mp4 in, mp4v .mp4 out, read back by cv2 and by the port
+    as 100x76 x 7, each input frame decoded once."""
+    from metrabs_tpu_torch.data import mpeg4
+    from metrabs_tpu_torch.io.packaging import load_pose_estimator
+    est = load_pose_estimator(tiny_package, device='cpu')
+    est.detector = None  # the full-image box path, as JAX's test has no detector
+    calls = recording(est, 'estimate_poses_batched')
+    monkeypatch.setattr(demo_image, 'build_default_estimator', lambda device='cuda': est)
+    src, out = str(tmp_path / 'in.mp4'), str(tmp_path / 'out.mp4')
+    write_clip(src, n=7, w=100, h=76, fourcc='mp4v')
+    before = mpeg4.frames_decoded()
+    demo_video.main(['--video', src, '--out', out, '--num-aug', '1', '--frame-batch', '4',
+                     '--letterbox', '96x128', '--device', 'cpu'])
+    assert mpeg4.frames_decoded() - before == 7
+    assert last_json(capsys.readouterr().out)['frames'] == 7
+    assert calls['estimate_poses_batched'] == [(4, 96, 128, 3), (4, 96, 128, 3)]
+    cap = cv2.VideoCapture(out)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)) == 100
+    assert int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) == 76
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 7
+    cap.release()
+    idx = video.index(out)
+    assert (idx.codec, idx.width, idx.height, idx.n_frames) == ('mp4v', 100, 76, 7)
 
 
 @pytest.mark.parametrize('src_hw, out_hw', [((76, 100), (96, 128)), ((1080, 1920), (540, 960)),
@@ -212,9 +244,11 @@ class BinnedStub(layouts.StubEstimator):
         return np.floor(mean / 16) * 16
 
 
-def mint_aspset_with_videos(root, n_frames: int = 3, w: int = 96, h: int = 64):
-    """JAX's test_predict_aspset layout (test_predict_drivers.py) with MJPG
-    .mkv videos written by cv2, two views; frames flat, mid-bin colours."""
+def mint_aspset_with_videos(root, n_frames: int = 3, w: int = 96, h: int = 64,
+                            fourcc: str = 'MJPG'):
+    """JAX's test_predict_aspset layout (test_predict_drivers.py) with .mkv
+    videos written by cv2 (MJPG, or mp4v as JAX's test writes them), two
+    views; frames flat, mid-bin colours."""
     subj, vid = '1e2f', '0001'
     views = ('left', 'mid')
     os.makedirs(root)
@@ -233,7 +267,7 @@ def mint_aspset_with_videos(root, n_frames: int = 3, w: int = 96, h: int = 64):
             json.dump(dict(intrinsic_matrix=[[900.0, 0, w / 2, 0], [0, 900.0, h / 2, 0],
                                              [0, 0, 1, 0]]), f)
         writer = cv2.VideoWriter(str(root / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'),
-                                 cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*'MJPG'), 25, (w, h))
+                                 cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*fourcc), 25, (w, h))
         assert writer.isOpened()
         for k in range(n_frames):
             writer.write(np.full((h, w, 3), (16 * (2 + k) + 8, 16 * (6 + i_view) + 8, 200),
@@ -270,6 +304,37 @@ def test_predict_aspset_matches_jax(tmp_path, monkeypatch):
         assert kw1.keys() == kw2.keys() and kw1['skeleton'] == 'aspset_17'
         for k in ('boxes', 'intrinsic_matrix', 'extrinsic_matrix', 'distortion_coeffs'):
             np.testing.assert_array_equal(kw1[k], kw2[k], err_msg=k)
+
+
+def test_predict_aspset_on_mp4v_matches_jax(tmp_path, monkeypatch):
+    """JAX's layout with mp4v .mkv videos, as JAX's test writes them: the
+    port's frames equal cv2's, so the driver gives JAX's poses and hands the
+    estimator JAX's very images; each frame is decoded once."""
+    import metrabs_tpu.io.packaging as jax_packaging
+    import metrabs_tpu_torch.io.packaging as packaging
+    from metrabs_tpu.apps import predict_aspset as jax_predict_aspset
+    from metrabs_tpu_torch.data import mpeg4
+    monkeypatch.setitem(layouts.SKELETON_JOINTS, 'aspset_17', 17)
+    port, jax = (layouts.StubEstimator(skeleton_names=tuple(layouts.SKELETON_JOINTS))
+                 for _ in range(2))
+    monkeypatch.setattr(packaging, 'load_pose_estimator', lambda path, device='cuda': port)
+    monkeypatch.setattr(jax_packaging, 'load_pose_estimator', lambda path: jax)
+    root = tmp_path / 'aspset'
+    names = mint_aspset_with_videos(root, n_frames=14, fourcc='mp4v')
+    before = mpeg4.frames_decoded()
+    predict_aspset.main(['--package', 'stub', '--root', str(root), '--output-dir',
+                         str(tmp_path / 'port'), '--device', 'cpu'])
+    assert mpeg4.frames_decoded() - before == 2 * 14
+    jax_predict_aspset.main(['--package', 'stub', '--root', str(root), '--output-dir',
+                             str(tmp_path / 'jax')])
+    for name in names:
+        with np.load(tmp_path / 'port' / f'{name}.npz') as a, \
+                np.load(tmp_path / 'jax' / f'{name}.npz') as b:
+            assert a['coords3d_pred_world'].shape == (14, 17, 3)
+            np.testing.assert_array_equal(a['coords3d_pred_world'], b['coords3d_pred_world'])
+    assert len(port.calls) == len(jax.calls) == 4
+    for (_, im1, _), (_, im2, _) in zip(port.calls, jax.calls):
+        np.testing.assert_array_equal(im1, im2)
 
 
 def test_predict_aspset_with_the_real_estimator(tmp_path, tiny_package, one_torch_thread):

@@ -18,7 +18,8 @@ the JAX package's helpers, on the MJPG clips cv2 wrote into
 - files the port writes are read by `cv2.VideoCapture` with their count,
   size and frame rate, odd sizes kept; the OpenDML index past the RIFF
   limit; a frame without Huffman tables; `transform_video` as JAX's test
-  drives it; and every other codec or container raises, naming it.
+  drives it; the mp4v that cv2 writes reads in each container, and every
+  other codec or container raises, naming it.
 """
 
 import hashlib
@@ -271,22 +272,40 @@ def test_transform_video_like_jax(tmp_path):
     ok, frame = cap.read()
     cap.release()
     assert ok and frame.mean() > 200
-    with pytest.raises(NotImplementedError, match='mp4v'):
-        improc.transform_video(src, str(tmp_path / 'x.avi'), fn, fourcc='mp4v')
+    # JAX's default codec, mp4v, into MP4; MJPG as asked; any other raises naming it.
+    improc.transform_video(src, str(tmp_path / 'x.mp4'), fn)
+    assert video.index(str(tmp_path / 'x.mp4')).codec == 'mp4v'
+    improc.transform_video(src, str(tmp_path / 'x.avi'), fn, fourcc='MJPG')
+    assert video.index(str(tmp_path / 'x.avi')).codec == 'MJPG'
+    with pytest.raises(NotImplementedError, match='avc1'):
+        improc.transform_video(src, str(tmp_path / 'y.mp4'), fn, fourcc='avc1')
 
 
 @pytest.mark.parametrize('ext, codec', [('.mp4', 'mp4v'), ('.avi', 'mp4v'), ('.mkv', 'V_MPEG4')])
 def test_other_codecs_raise_naming_it(tmp_path, ext, codec):
+    """The codec cv2 writes for the mp4v FourCC in each container reads
+    (tests/test_torch_mp4v.py holds its frames to FFmpeg's); the same file
+    with its codec renamed to H.264's raises naming that."""
     path = str(tmp_path / f'clip{ext}')
     writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*'mp4v'), 10, (32, 24))
     assert writer.isOpened()
     for _ in range(3):
         writer.write(np.zeros((24, 32, 3), np.uint8))
     writer.release()
-    with pytest.raises(NotImplementedError, match=codec):
-        improc.imread(f'{path}#frame=0')
-    with pytest.raises(NotImplementedError, match=codec):
-        improc.num_frames_of_video(path)
+    assert video.index(path).codec.startswith(codec)
+    assert improc.num_frames_of_video(path) == 3
+    np.testing.assert_array_equal(improc.imread(f'{path}#frame=2'),
+                                  jax_improc.imread(f'{path}#frame=2'))
+    data = open(path, 'rb').read()
+    entry = {'.mp4': b'mp4v', '.avi': b'mp4v', '.mkv': b'V_MPEG4/ISO/ASP'}[ext]
+    other = {'.mp4': b'avc1', '.avi': b'H264', '.mkv': b'V_MPEG4/ISO/AVC'}[ext]
+    renamed = str(tmp_path / f'h264{ext}')
+    with open(renamed, 'wb') as f:
+        f.write(data.replace(entry, other))
+    with pytest.raises(NotImplementedError, match=other.decode()):
+        improc.imread(f'{renamed}#frame=0')
+    with pytest.raises(NotImplementedError, match=other.decode()):
+        improc.num_frames_of_video(renamed)
 
 
 def test_avi_without_an_index_raises(tmp_path):
@@ -301,10 +320,12 @@ def test_avi_without_an_index_raises(tmp_path):
 
 
 def test_writer_refuses_other_codecs_and_containers(tmp_path):
-    with pytest.raises(NotImplementedError, match='mp4v'):
-        video.VideoWriter(str(tmp_path / 'a.avi'), 25, (8, 8), fourcc='mp4v')
+    with pytest.raises(NotImplementedError, match='avc1'):
+        video.VideoWriter(str(tmp_path / 'a.avi'), 25, (8, 8), fourcc='avc1')
     with pytest.raises(NotImplementedError, match='.mp4'):
-        video.VideoWriter(str(tmp_path / 'a.mp4'), 25, (8, 8))
+        video.VideoWriter(str(tmp_path / 'a.mp4'), 25, (8, 8))  # MJPG into MP4
+    with pytest.raises(NotImplementedError, match='.webm'):
+        video.VideoWriter(str(tmp_path / 'a.webm'), 25, (8, 8), fourcc='mp4v')
     with video.VideoWriter(str(tmp_path / 'b.avi'), 25, (8, 8)) as writer:
         with pytest.raises(ValueError, match='8x8x3'):
             writer.write(np.zeros((8, 9, 3), np.uint8))
