@@ -10,11 +10,13 @@ line:
     `metrabs_tpu_torch/csrc/warp.cu` and the fused MBConv chain
     `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, and the
     host C++ compiler the JPEG decoder `csrc/jpeg_decode.cpp` and encoder
-    `csrc/jpeg_encode.cpp` and the mp4v codec `csrc/mpeg4_video.cpp`, all
-    five compilers started together;
+    `csrc/jpeg_encode.cpp`, the mp4v codec `csrc/mpeg4_video.cpp` and the
+    native image ops `csrc/improc.cpp`, all six compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
-    lens distortion on some crops, a crop entirely outside its frame); the
+    lens distortion on some crops, a crop entirely outside its frame), and
+    each crop within NATIVE_WARP_TOL of the C++ warp (`utils/native.py`) on
+    its level image of `build_flat_pyramid` with the level-adjusted K; the
     MBConv kernel against its plain version at every shape of K2_CASES (the
     four the detect path gives it, EffNetV2-L@384's stage 5 and 6 in
     bfloat16, S stage 5 in float32), v required equal. For each: the
@@ -223,7 +225,23 @@ line:
     `fuse_mbconv='on'` (K1 once and K2 28 times per chunk), each frame
     decoded once, frames/s with and without the package's loading and the
     decoding share; then again with every K1 launch against the plain warp
-    and every K2 launch against the plain chain, both exact.
+    and every K2 launch against the plain chain, both exact;
+14. calibrate: camera calibration without OpenCV on the checkerboard
+    fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
+    1920x1080 JPEG views through a known lens, a partial board and an empty
+    scene), held to the cv2 5.0 results in their manifest: every view's gray
+    read (SHA-256), found flag (the port also finds CALIB_CV2_MISSES, where
+    cv2 does not) and corners after the app's refinement on the card,
+    `corner_subpix` from cv2's detections, `calibrate_camera` on cv2's
+    corners (K, rms, the lens's displacement over the image), then
+    `apps.calibrate_camera.main` on each directory against the JAX app's
+    result and (b) against the true camera; seconds per view printed; one
+    view of (b) rendered again by `render_checkerboard` and held to its
+    RGB and JPEG hashes. Then `estimate_poses_batched` (EffNetV2-S@256 bf16
+    folded, the main frames and boxes, num_aug 2) with the K and
+    coefficients calibrated from (b): K1 once per non-empty chunk and K2
+    never, every K1 launch exact against the plain warp and each of its
+    crops within NATIVE_WARP_TOL of the C++ warp.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -1068,12 +1086,32 @@ def k2_v_error(est, run):
     return out, k1, k2, err_v, len(inputs)
 
 
-def checked_warps(run):
+def native_warp_error(flat, params, geom, output_shape, got) -> tuple:
+    """(max |crops - native.bilinear_warp|, crops compared, crops skipped):
+    each crop of a warp launch against the C++ warp on its level image cut
+    from `flat`, with its own level-adjusted intrinsics (`utils/native.py::
+    warp_params_oracle`). Crops whose parameters are not finite (the
+    padding of degenerate boxes, whose output is discarded) are skipped."""
+    from metrabs_tpu_torch.utils import native
+
+    finite = torch.isfinite(params).all(1).cpu().numpy()
+    crops = np.flatnonzero(finite)
+    if not len(crops):
+        return 0.0, 0, len(finite)
+    want = native.warp_params_oracle(flat, params, geom, output_shape, crops=crops)
+    err = float(np.abs(got[torch.as_tensor(crops, device=got.device)].float().cpu().numpy()
+                       - want).max())
+    return err, len(crops), int((~finite).sum())
+
+
+def checked_warps(run, native_errors=None):
     """`run()` with `warp_cuda.warp_pyramid` wrapped: each launch's crops are
-    held against the plain `ops.warp.warp_pyramid` on the same tensors.
-    Returns (run's output, max |kernel - plain| of each launch). The
-    kernel's wrapper counts on the module's name, the wrapper here while it
-    stands there: its count starts from the kernel's and goes back to it."""
+    held against the plain `ops.warp.warp_pyramid` on the same tensors (and,
+    given a list `native_errors`, against the C++ warp: `native_warp_error`
+    of each launch is appended). Returns (run's output, max |kernel - plain|
+    of each launch). The kernel's wrapper counts on the module's name, the
+    wrapper here while it stands there: its count starts from the kernel's
+    and goes back to it."""
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
 
@@ -1085,6 +1123,8 @@ def checked_warps(run):
         if compared.launches != launches:
             want = warp_ops.warp_pyramid(flat, params, geom, output_shape)
             errors.append((got - want).abs().max().item())
+            if native_errors is not None:
+                native_errors.append(native_warp_error(flat, params, geom, output_shape, got))
         return got
 
     compared.launches = kernel.launches
@@ -2286,9 +2326,9 @@ class DriverRuns:
             return est
         return load
 
-    def timed_decode(self, data, path='<bytes>'):
+    def timed_decode(self, data, *args, **kwargs):
         t = time.perf_counter()
-        im = self.original_decode(data, path)
+        im = self.original_decode(data, *args, **kwargs)
         self.decode_spans.append((t, time.perf_counter()))
         return im
 
@@ -3655,6 +3695,232 @@ def demos_phase(root: Path, dev) -> dict:
     return launches
 
 
+# The [calibrate] phase.
+CALIB_FIXTURES = 'tests/torch_fixtures/calib'
+CALIB_DIR = 'runs/chip_smoke_calibrate'  # the apps' JSON output (deleted after)
+CALIB_RENDERED = 'b/view_3.jpg'  # re-rendered here and held to its hashes
+# The view where cv2's image normalisation loses the board and the port finds
+# it (utils/calibration.py::find_chessboard_corners): the port must find it.
+CALIB_CV2_MISSES = ('a/calib_4.png',)
+CALIB_TOL = dict(refined_px=0.02, subpix_px=1e-3, k_rtol=1e-4, rms_rtol=1e-6,
+                 displacement_px=0.01, app_f_rtol=1e-3, app_pp_px=0.5, app_rms_px=1e-3,
+                 truth_f_rtol=0.01, truth_displacement_px=0.5)
+NATIVE_WARP_TOL = 5e-4  # tests/test_native.py's tolerance of the C++ warp
+
+
+def lens_displacement(k, dist, shape, step: int = 20) -> np.ndarray:
+    """A lens's displacement in pixels [h, w, 2] on a grid of the image: an
+    undistorted pixel p goes to K distort(K^-1 p)."""
+    from metrabs_tpu_torch.ops.distortion import distort_points
+
+    k = np.asarray(k, np.float64)
+    v, u = np.mgrid[0:shape[0]:step, 0:shape[1]:step].astype(np.float64)
+    xu = np.stack([(u - k[0, 2]) / k[0, 0], (v - k[1, 2]) / k[1, 1]], -1)
+    xd = distort_points(torch.from_numpy(xu),
+                        torch.tensor(np.ravel(dist), dtype=torch.float64)).numpy()
+    return np.stack([xd[..., 0] * k[0, 0] + k[0, 2] - u, xd[..., 1] * k[1, 1] + k[1, 2] - v], -1)
+
+
+def calibration_gap(got: dict, want: dict) -> dict:
+    """fx and fy relative, principal point px, rms px and the lens's
+    displacement px between two calibrate_camera JSON results."""
+    kg, kw = np.asarray(got['intrinsic_matrix']), np.asarray(want['intrinsic_matrix'])
+    d = (lens_displacement(kg, got['distortion_coeffs'], want['image_shape'])
+         - lens_displacement(kw, want['distortion_coeffs'], want['image_shape']))
+    return dict(f_rel=float(np.abs(kg[[0, 1], [0, 1]] / kw[[0, 1], [0, 1]] - 1).max()),
+                pp_px=float(np.abs(kg[:2, 2] - kw[:2, 2]).max()),
+                rms_px=abs(got['rms_reprojection_error'] - want['rms_reprojection_error']),
+                displacement_px=float(np.linalg.norm(d, axis=-1).max()))
+
+
+def calibrate_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
+    """The [calibrate] phase (module docstring). Returns the K1 and K2
+    launches of the serve with the calibrated camera."""
+    import contextlib
+    import hashlib
+    import io
+
+    from metrabs_tpu_torch.apps import calibrate_camera
+    from metrabs_tpu_torch.data import improc, jpeg
+    from metrabs_tpu_torch.io.packaging import pose_estimator_from_variables
+    from metrabs_tpu_torch.models.metrabs import ModelConfig
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.utils import calibration
+
+    name, tol = 'calibrate', CALIB_TOL
+    fixtures = root / CALIB_FIXTURES
+    manifest = json.loads((fixtures / 'manifest.json').read_text())
+    cols, rows = manifest['pattern_size']
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+
+    # Every view: the gray read, the board found as cv2 finds it, the app's
+    # refinement, and cornerSubPix from cv2's own detection.
+    seconds, worst_refined, worst_subpix = {}, 0.0, 0.0
+    criteria = (calibration.TERM_CRITERIA_EPS + calibration.TERM_CRITERIA_MAX_ITER, 30, 1e-3)
+    calibration.find_chessboard_corners(np.zeros((64, 64), np.uint8), (cols, rows), device=dev)
+    for view, rec in sorted(manifest['views'].items()):
+        gray = improc.imread(str(fixtures / view), gray=True)
+        if sha(gray.tobytes()) != rec['gray_sha256']:
+            fail(name, f'{view}: the gray read differs from cv2.imread(IMREAD_GRAYSCALE)')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined = calibrate_camera.find_corners(gray, rows, cols, dev)
+        torch.cuda.synchronize()
+        seconds[view] = time.perf_counter() - t0
+        found = refined is not None
+        if view in CALIB_CV2_MISSES:
+            if rec['found'] or not found:
+                fail(name, f'{view}: cv2 found {rec["found"]}, the port {found}; expected '
+                           f'False and True')
+            continue
+        if found != rec['found']:
+            fail(name, f'{view}: found {found}, cv2 {rec["found"]}')
+        if not found:
+            continue
+        err = float(np.abs(refined.reshape(-1, 2) - np.asarray(rec['refined'])).max())
+        half = rec['half_window']
+        sub = calibration.corner_subpix(gray, np.asarray(rec['corners'], np.float32),
+                                        (half, half), (-1, -1), criteria, device=dev)
+        sub_err = float(np.abs(sub.reshape(-1, 2) - np.asarray(rec['refined'])).max())
+        if not err <= tol['refined_px'] or not sub_err <= tol['subpix_px']:
+            fail(name, f'{view}: corners {err:.3g} px from cv2 after the refinement (tol '
+                       f'{tol["refined_px"]}), cornerSubPix from cv2\'s {sub_err:.3g} px (tol '
+                       f'{tol["subpix_px"]})')
+        worst_refined, worst_subpix = max(worst_refined, err), max(worst_subpix, sub_err)
+    for size in ('640x480', '1920x1080'):
+        per = [t for v, t in seconds.items() if manifest['views'][v]['shape'][1] == int(
+            size.split('x')[0])]
+        phase(name, f'{len(per)} views of {size}: find_corners (detection and the app\'s '
+                    f'refinement) {statistics.median(per):.3f} s per view (median; all: '
+                    + ', '.join(f'{t:.3f}' for t in per) + ')')
+    n_found = sum(r['found'] for r in manifest['views'].values())
+    phase(name, f'{len(seconds)} views: gray reads equal cv2\'s, found as cv2 on all but '
+                f'{list(CALIB_CV2_MISSES)} (cv2 misses it, the port finds it), {n_found} boards: '
+                f'refined corners max {worst_refined:.3g} px from cv2 (tol '
+                f'{tol["refined_px"]}), cornerSubPix from cv2\'s detections max '
+                f'{worst_subpix:.3g} px from cv2 (tol {tol["subpix_px"]})')
+
+    # calibrateCamera on cv2's corners, then the app on each directory.
+    work = root / CALIB_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    results = {}
+    try:
+        for sub, run in sorted(manifest['calibrations'].items()):
+            want = run['result']
+            objp = np.zeros((rows * cols, 3), np.float32)
+            objp[:, :2] = np.mgrid[0:cols, 0:rows].T.reshape(-1, 2) * run['square_mm']
+            imgs = [np.asarray(manifest['views'][v]['refined'], np.float32) for v in run['views']]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rms, k, dist, _, _ = calibration.calibrate_camera(
+                [objp] * len(imgs), imgs, want['image_shape'][::-1], device=dev)
+            solve_s = time.perf_counter() - t0
+            gap = calibration_gap(dict(rms_reprojection_error=rms, intrinsic_matrix=k,
+                                       distortion_coeffs=dist), want)
+            k_rel = float(np.abs(k - np.asarray(want['intrinsic_matrix'])).max() / k[0, 0])
+            if (k_rel > tol['k_rtol'] or gap['rms_px'] > tol['rms_rtol'] * rms
+                    or gap['displacement_px'] > tol['displacement_px']):
+                fail(name, f'{sub}: calibrate_camera on cv2\'s corners against cv2: K '
+                           f'{k_rel:.3g} relative, rms {gap["rms_px"]:.3g} px, displacement '
+                           f'{gap["displacement_px"]:.3g} px')
+            t0 = time.perf_counter()
+            out = work / f'{sub}.json'
+            with contextlib.redirect_stdout(io.StringIO()):  # main prints its JSON
+                calibrate_camera.main(['--images', str(fixtures / run['images']), '--rows',
+                                       str(rows), '--cols', str(cols), '--square-mm',
+                                       str(run['square_mm']), '--out', str(out), '--device',
+                                       str(dev)])
+            app_s = time.perf_counter() - t0
+            got = json.loads(out.read_text())
+            results[sub] = got
+            app_gap = calibration_gap(got, want)
+            misses = [v for v in CALIB_CV2_MISSES if v.startswith(sub + '/')]
+            if not misses and (app_gap['f_rel'] > tol['app_f_rtol']
+                               or app_gap['pp_px'] > tol['app_pp_px']
+                               or app_gap['rms_px'] > tol['app_rms_px']):
+                fail(name, f'{sub}: the app against the JAX app\'s cv2 result: {app_gap}')
+            phase(name, f'{sub}: calibrate_camera on cv2\'s corners of {len(imgs)} views in '
+                        f'{solve_s:.3f} s: K {k_rel:.3g} relative, rms {gap["rms_px"]:.3g} px, '
+                        f'displacement {gap["displacement_px"]:.3g} px from cv2; apps.'
+                        f'calibrate_camera.main on {run["images"]} in {app_s:.2f} s: rms '
+                        f'{got["rms_reprojection_error"]:.6f} px, fx fy '
+                        f'{got["intrinsic_matrix"][0][0]:.3f} {got["intrinsic_matrix"][1][1]:.3f}, '
+                        f'against the JAX app: fx/fy {app_gap["f_rel"]:.3g} relative, principal '
+                        f'point {app_gap["pp_px"]:.3g} px, rms {app_gap["rms_px"]:.3g} px'
+                        + (f' (the port also uses {misses})' if misses else ''))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    truth = dict(intrinsic_matrix=manifest['k_true'], distortion_coeffs=manifest['dist_true'],
+                 image_shape=results['b']['image_shape'], rms_reprojection_error=0.0)
+    truth_gap = calibration_gap(results['b'], truth)
+    if (truth_gap['f_rel'] > tol['truth_f_rtol']
+            or truth_gap['displacement_px'] > tol['truth_displacement_px']):
+        fail(name, f'b: the calibrated camera against the true one: {truth_gap}')
+    phase(name, f'b against the true camera: fx/fy {truth_gap["f_rel"]:.3g} relative, '
+                f'principal point {truth_gap["pp_px"]:.3g} px, lens displacement '
+                f'{truth_gap["displacement_px"]:.3g} px over the image')
+
+    # One view of (b) rendered again where this script runs, held to its hashes.
+    rec = manifest['views'][CALIB_RENDERED]
+    t0 = time.perf_counter()
+    rgb = calibration.render_checkerboard(**rec['render'])
+    render_s = time.perf_counter() - t0
+    if sha(rgb.tobytes()) != rec['sha256_rgb'] or sha(jpeg.encode(rgb)) != rec['file_sha256']:
+        fail(name, f'{CALIB_RENDERED} renders to other pixels or bytes here')
+    phase(name, f'{CALIB_RENDERED} rendered again in {render_s:.1f} s: RGB and JPEG equal the '
+                f'fixture\'s hashes')
+
+    # Serve with the camera calibrated from (b): K1 exact against its plain
+    # version and within NATIVE_WARP_TOL of the C++ warp, crop by crop.
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    variables = mint_crop_variables(cfg, torch.Generator().manual_seed(SEED))
+    est = pose_estimator_from_variables(variables, manifest_for('bfloat16'), device=dev)
+    k_cal = np.tile(np.asarray(results['b']['intrinsic_matrix'], np.float32)[None],
+                    (N_FRAMES, 1, 1))
+    d_cal = np.tile(np.asarray(results['b']['distortion_coeffs'], np.float32)[None],
+                    (N_FRAMES, 1))
+    run = lambda: est.estimate_poses_batched(
+        frames, boxes, box_valid, intrinsic_matrix=k_cal, distortion_coeffs=d_cal,
+        num_aug=NUM_AUG, internal_batch_size=INTERNAL_BATCH)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    k1, k2 = warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches
+    chunks = math.ceil(int(box_valid.sum()) / (INTERNAL_BATCH // NUM_AUG))
+    if k1 != chunks or k2 != 0:
+        fail(name, f'K1 launched {k1} times and K2 {k2}, expected {chunks} and 0')
+    check_served_poses(out, dev, box_valid, name)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    natives = []
+    again, errors = checked_warps(run, native_errors=natives)
+    native_err = max((e for e, _, _ in natives), default=math.inf)
+    n_native = sum(n for _, n, _ in natives)
+    n_skipped = sum(s for _, _, s in natives)
+    check_served_poses(again, dev, box_valid, name)
+    if len(errors) != chunks or max(errors) != 0.0 or not native_err <= NATIVE_WARP_TOL:
+        fail(name, f'{len(errors)} K1 launches checked: max |kernel - plain| '
+                   f'{max(errors, default=math.inf):.3g} (must be 0), max |kernel - native| '
+                   f'{native_err:.3g} (tol {NATIVE_WARP_TOL}) over {n_native} crops')
+    phase(name, f'estimate_poses_batched EffNetV2-S@{PROC_SIDE} bf16 folded with the camera '
+                f'calibrated from b (k1 {results["b"]["distortion_coeffs"][0]:.4f}), '
+                f'{N_FRAMES}x{FRAME_H}p, {BOXES_PER_FRAME} boxes per frame, num_aug {NUM_AUG}: '
+                f'K1 {k1}, K2 {k2}; {statistics.median(times) * 1e3:.1f} ms per call (median '
+                f'of 5); every K1 launch against the plain warp: max |kernel - plain| '
+                f'{max(errors):.3g}; against the C++ warp: {n_native} crops, max |kernel - '
+                f'native| {native_err:.3g} (tol {NATIVE_WARP_TOL}; {n_skipped} padding crops '
+                f'of degenerate boxes skipped)')
+    return {'calibrate': (k1, k2)}
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -3680,13 +3946,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
-    # decoder and encoder and the mp4v codec, started together.
+    # decoder and encoder, the mp4v codec and the native image ops, started
+    # together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
-    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video')
+    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'improc')
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))
@@ -3697,7 +3964,8 @@ def main() -> None:
     for name, (host_lib, host_s) in zip(host_sources, host_built):
         phase('build', f'{os.environ.get("CXX") or "c++"} {" ".join(cuda_build.CXX_FLAGS)} '
                        f'{name}.cpp -> {host_lib.name} in {host_s:.2f} s')
-    phase('build', f'all five in {time.perf_counter() - start:.2f} s')
+    phase('build', f'all {len(sources) + len(host_sources)} in '
+                   f'{time.perf_counter() - start:.2f} s')
 
     # 3. The warp kernel against its plain version at the serving shape.
     gen = torch.Generator(device=dev)
@@ -3723,6 +3991,13 @@ def main() -> None:
     max_err = (got - want).abs().max().item()
     if not max_err <= WARP_TOL:
         fail('kernel', f'max |kernel - plain| = {max_err:.3g} > {WARP_TOL}')
+    native_err, native_n, _ = native_warp_error(flat, params, geom, side, got)
+    if not native_err <= NATIVE_WARP_TOL or native_n != len(got):
+        fail('kernel', f'{native_n} of {len(got)} crops against native.bilinear_warp: max '
+                       f'|kernel - native| = {native_err:.3g} > {NATIVE_WARP_TOL}')
+    phase('kernel', f'warp_pyramid against the C++ warp (utils/native.py, level images of '
+                    f'build_flat_pyramid, level-adjusted K): all {native_n} crops, max '
+                    f'|kernel - native| = {native_err:.3g} (tol {NATIVE_WARP_TOL})')
     k1 = lambda: warp_cuda.warp_pyramid(flat, params, geom, side)
     k1_bytes, k1_bound_ms, k1_bound_by = k1_bound(flat, params, geom, side)
     kernel_ms = timed_against_bound('warp_pyramid', k1, k1_bound_ms)
@@ -3994,6 +4269,12 @@ def main() -> None:
     start = time.perf_counter()
     by_path.update(demos_phase(root, dev))
     phase('demos', f'{time.perf_counter() - start:.1f} s')
+
+    # 14. Calibrate a camera from the checkerboard fixtures, then serve with it.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    by_path.update(calibrate_phase(root, dev, frames, boxes, box_valid))
+    phase('calibrate', f'{time.perf_counter() - start:.1f} s')
 
     # The card's name and power limit again, where a tail of the output keeps
     # them beside the numbers.

@@ -14,11 +14,14 @@
 //
 // Plain C interface for ctypes:
 //   metrabs_jpeg_header(data, size, &height, &width, &orientation, err, n)
-//   metrabs_jpeg_decode(data, size, out_rgb, out_size, err, n)
+//   metrabs_jpeg_decode(data, size, out, out_size, channels, err, n)
 // return 0 on success, 1 for a corrupt file, 2 for an unsupported one (the
 // reason is written to err). `orientation` is the EXIF Orientation tag of the
 // first APP1 segment (1 when absent), read as OpenCV reads it; the caller
-// applies it. The output is height x width x 3 RGB, row-major.
+// applies it. The output is height x width x channels, row-major: RGB for 3
+// channels; for 1 the luma plane at full resolution, which is what libjpeg
+// gives for JCS_GRAYSCALE output and cv2.imread(path, IMREAD_GRAYSCALE)
+// returns (no colour conversion and no chroma upsampling).
 
 #include <algorithm>
 #include <cstdint>
@@ -391,10 +394,13 @@ class Decoder {
   // Reads the markers up to the first scan: the frame and the EXIF orientation.
   void read_header() { parse(false); }
 
-  void decode(uint8_t* out, size_t out_size) {
+  void decode(uint8_t* out, size_t out_size, int channels) {
     parse(true);
-    if (out_size != static_cast<size_t>(height) * width * 3) corrupt("output buffer of the wrong size");
-    reconstruct(out);
+    if ((channels != 1 && channels != 3) ||
+        out_size != static_cast<size_t>(height) * width * channels) {
+      corrupt("output buffer of the wrong size");
+    }
+    reconstruct(out, channels);
   }
 
   int height = 0, width = 0, orientation = 1;
@@ -841,8 +847,9 @@ class Decoder {
   }
 
   // Dequantization and the IDCT of every block within the image, then
-  // upsampling and colour conversion row by row.
-  void reconstruct(uint8_t* out) {
+  // upsampling and colour conversion row by row (for one output channel,
+  // the luma component alone).
+  void reconstruct(uint8_t* out, int channels) {
     allocate();
     for (Component& c : comps_) {
       const int stride = c.blocks_w * 8;
@@ -855,11 +862,15 @@ class Decoder {
       }
       std::vector<int16_t>().swap(c.coef);
     }
-    const int nc = static_cast<int>(comps_.size());
+    const int nc = channels == 1 ? 1 : static_cast<int>(comps_.size());
     std::vector<std::vector<uint8_t>> rows(nc, std::vector<uint8_t>(width + 8));
     std::vector<int> colsum(width + 8);
     for (int y = 0; y < height; y++) {
       for (int ci = 0; ci < nc; ci++) upsample_row(comps_[ci], y, rows[ci].data(), colsum.data());
+      if (channels == 1) {
+        std::memcpy(out + static_cast<size_t>(y) * width, rows[0].data(), width);
+        continue;
+      }
       uint8_t* o = out + static_cast<size_t>(y) * width * 3;
       if (nc == 1) {
         const uint8_t* g = rows[0].data();
@@ -951,9 +962,9 @@ int metrabs_jpeg_header(const uint8_t* data, size_t size, int* height, int* widt
 }
 
 int metrabs_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size,
-                        char* err, int err_len) {
+                        int channels, char* err, int err_len) {
   try {
-    Decoder(data, size).decode(out, out_size);
+    Decoder(data, size).decode(out, out_size, channels);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, err_len);

@@ -19,7 +19,7 @@ _JPEG_SIGNATURE = b'\xff\xd8\xff'
 _PNG_SIGNATURE = b'\x89PNG'
 
 
-def imread(path: str) -> np.ndarray:
+def imread(path: str, gray: bool = False) -> np.ndarray:
     """RGB uint8 [H, W, 3] image. The format is the file's signature, as cv2
     reads it: JPEG (`FF D8 FF`; equal to `cv2.imread(path, IMREAD_COLOR)`,
     EXIF orientation applied) or PNG (`89 50 4E 47`; gray is repeated over
@@ -35,8 +35,18 @@ def imread(path: str) -> np.ndarray:
     frame is decoded from the last key frame before it, through the file's
     decoder, which frames read in order continue (equal to
     `cv2.VideoCapture`'s frame). Other codecs raise NotImplementedError
-    naming the codec."""
+    naming the codec.
+
+    With `gray`, uint8 [H, W], equal to `cv2.imread(path,
+    cv2.IMREAD_GRAYSCALE)` bit for bit: a JPEG's luma plane (libjpeg's
+    grayscale output), a gray PNG as stored, an RGB or RGBA PNG through
+    libpng's `png_set_rgb_to_gray` as OpenCV sets it up, (9797 R + 19234 G +
+    3737 B) >> 15 (0.299 and 0.587 in 15-bit fixed point, truncated, blue
+    the rest; alpha dropped). `.npy` files and video frames, which cv2 does
+    not read, raise NotImplementedError in gray."""
     path = str(path)
+    if gray and ('#frame=' in path or os.path.splitext(path)[1].lower() == '.npy'):
+        raise NotImplementedError(f'{path}: gray reads are of JPEG and PNG files only')
     if '#frame=' in path:
         video_path, frame_spec = path.split('#frame=')
         return video.read_frame(video_path, int(frame_spec))
@@ -51,10 +61,16 @@ def imread(path: str) -> np.ndarray:
     with open(path, 'rb') as f:
         data = f.read()
     if data.startswith(_JPEG_SIGNATURE):
-        return jpeg.decode(data, path)
+        return jpeg.decode(data, path, gray=gray)
     if not data.startswith(_PNG_SIGNATURE):
         raise NotImplementedError(f'{path}: neither JPEG nor PNG (the formats imread decodes)')
     im = cvfree.read_png(path)
+    if gray:
+        if im.ndim == 2:
+            return im
+        rgb = im[..., :3].astype(np.uint32)
+        return ((9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2]) >> 15
+                ).astype(np.uint8)
     if im.ndim == 2:
         return np.repeat(im[..., None], 3, axis=2)
     return np.ascontiguousarray(im[..., :3])

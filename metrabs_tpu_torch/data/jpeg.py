@@ -39,7 +39,7 @@ def _library() -> ctypes.CDLL:
             lib.metrabs_jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_size_t, int_p, int_p,
                                                 int_p, ctypes.c_char_p, ctypes.c_int]
             lib.metrabs_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                                ctypes.c_void_p, ctypes.c_size_t,
+                                                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
                                                 ctypes.c_char_p, ctypes.c_int]
             lib.metrabs_jpeg_header.restype = lib.metrabs_jpeg_decode.restype = ctypes.c_int
             _LIB = lib
@@ -68,17 +68,22 @@ def header(data: bytes, name: str = '<bytes>'):
     return h.value, w.value, o.value
 
 
-def decode(data: bytes, name: str = '<bytes>') -> np.ndarray:
+def decode(data: bytes, name: str = '<bytes>', gray: bool = False) -> np.ndarray:
     """RGB uint8 [H, W, 3] of an encoded JPEG, EXIF orientation applied (gray
-    files give three equal channels). Raises ValueError naming `name` for a
-    corrupt or truncated file and NotImplementedError for arithmetic coding,
-    12-bit, lossless, hierarchical, CMYK/YCCK and RGB-coded files."""
+    files give three equal channels); with `gray`, uint8 [H, W], the luma
+    plane, equal to `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` (libjpeg's
+    grayscale output: the Y component, not a conversion of the RGB). Raises
+    ValueError naming `name` for a corrupt or truncated file and
+    NotImplementedError for arithmetic coding, 12-bit, lossless,
+    hierarchical, CMYK/YCCK and RGB-coded files."""
     height, width, orientation = header(data, name)
-    out = np.empty((height, width, 3), np.uint8)
+    channels = 1 if gray else 3
+    out = np.empty((height, width, channels), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    _check(_library().metrabs_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, err,
-                                          _ERR_LEN), err, name)
-    return apply_exif_orientation(out, orientation)
+    _check(_library().metrabs_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
+                                          channels, err, _ERR_LEN), err, name)
+    out = apply_exif_orientation(out, orientation)
+    return out[..., 0] if gray else out
 
 
 def apply_exif_orientation(im: np.ndarray, orientation: int) -> np.ndarray:

@@ -1,0 +1,256 @@
+"""The port's camera calibration (`metrabs_tpu_torch/utils/calibration.py`,
+`apps/calibrate_camera.py`) against OpenCV 5.0 and the JAX app on the
+checkerboard fixtures of tests/torch_fixtures/calib (written by
+`python tests/_torch_calib_fixtures.py`, whose manifest holds cv2's answers).
+
+Tolerances: gray reads equal cv2's bit for bit; the detector's corners in
+cv2's order (each within 1 px of cv2's) and, after the app's refinement,
+within 0.02 px of cv2's; `corner_subpix` from cv2's own detections within
+1e-3 px of `cv2.cornerSubPix`; `calibrate_camera` on cv2's corners against
+`cv2.calibrateCamera`: K within 1e-4 relative, rms within 1e-6 relative, the
+distortion's displacement over the image within 0.01 px; `main` against the
+JAX app: fx and fy within 0.1%, the principal point within 0.5 px, rms
+within 1e-3 px; on (b) against the truth: the displacement within 0.5 px and
+fx within 1%.
+
+One view is a known difference from cv2, left open: on a/calib_4.png cv2
+(with its default image normalisation) finds no board and the port finds it
+(CV2_MISSES; utils/calibration.py says why). The JAX app calibrates (a) from
+7 views, the port from 8: the app comparison on (a) runs both apps on the
+views both find, and a separate test pins the full directory's difference.
+"""
+
+import hashlib
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from metrabs_tpu_torch.apps import calibrate_camera as app
+from metrabs_tpu_torch.data import improc
+from metrabs_tpu_torch.ops.distortion import distort_points
+from metrabs_tpu_torch.utils import calibration
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
+
+FIXTURES = Path(__file__).resolve().parent / 'torch_fixtures' / 'calib'
+MANIFEST = json.loads((FIXTURES / 'manifest.json').read_text())
+VIEWS = sorted(MANIFEST['views'])
+FOUND = [v for v in VIEWS if MANIFEST['views'][v]['found']]
+PATTERN = tuple(MANIFEST['pattern_size'])  # (cols, rows)
+CV2_MISSES = {'a/calib_4.png'}  # cv2's NORMALIZE_IMAGE loses this board; the port finds it
+ORDER_TOL_PX = 1.0
+REFINED_TOL_PX = 0.02
+SUBPIX_TOL_PX = 1e-3
+K_RTOL, RMS_RTOL, DISPLACEMENT_TOL_PX = 1e-4, 1e-6, 0.01
+APP_F_RTOL, APP_PP_TOL_PX, APP_RMS_TOL_PX = 1e-3, 0.5, 1e-3
+TRUTH_DISPLACEMENT_TOL_PX, TRUTH_F_RTOL = 0.5, 0.01
+CRITERIA = (calibration.TERM_CRITERIA_EPS + calibration.TERM_CRITERIA_MAX_ITER, 30, 1e-3)
+
+
+def gray(view: str) -> np.ndarray:
+    return improc.imread(str(FIXTURES / view), gray=True)
+
+
+def object_points(square: float) -> np.ndarray:
+    objp = np.zeros((PATTERN[0] * PATTERN[1], 3), np.float32)
+    objp[:, :2] = np.mgrid[0:PATTERN[0], 0:PATTERN[1]].T.reshape(-1, 2) * square
+    return objp
+
+
+def displacement(k, dist, shape, step: int = 20) -> np.ndarray:
+    """The lens's displacement in pixels [h, w, 2] on a grid of the image: an
+    undistorted pixel p goes to K distort(K^-1 p)."""
+    k = np.asarray(k, np.float64)
+    v, u = np.mgrid[0:shape[0]:step, 0:shape[1]:step].astype(np.float64)
+    xu = np.stack([(u - k[0, 2]) / k[0, 0], (v - k[1, 2]) / k[1, 1]], -1)
+    xd = distort_points(torch.from_numpy(xu),
+                        torch.tensor(np.ravel(dist), dtype=torch.float64)).numpy()
+    return np.stack([xd[..., 0] * k[0, 0] + k[0, 2] - u, xd[..., 1] * k[1, 1] + k[1, 2] - v], -1)
+
+
+def assert_calibrations_close(got: dict, want: dict, f_rtol, pp_tol, rms_tol, disp_tol):
+    kg, kw = np.asarray(got['intrinsic_matrix']), np.asarray(want['intrinsic_matrix'])
+    np.testing.assert_allclose(kg[[0, 1], [0, 1]], kw[[0, 1], [0, 1]], rtol=f_rtol)
+    np.testing.assert_allclose(kg[:2, 2], kw[:2, 2], atol=pp_tol)
+    assert abs(got['rms_reprojection_error'] - want['rms_reprojection_error']) <= rms_tol
+    shape = want['image_shape']
+    d = displacement(kg, got['distortion_coeffs'], shape) - displacement(
+        kw, want['distortion_coeffs'], shape)
+    assert np.linalg.norm(d, axis=-1).max() <= disp_tol
+
+
+@pytest.mark.parametrize('view', VIEWS)
+def test_gray_read_equals_cv2(view):
+    rec = MANIFEST['views'][view]
+    assert hashlib.sha256((FIXTURES / view).read_bytes()).hexdigest() == rec['file_sha256']
+    g = gray(view)
+    assert g.dtype == np.uint8 and list(g.shape) == rec['shape']
+    assert hashlib.sha256(g.tobytes()).hexdigest() == rec['gray_sha256']
+
+
+@pytest.mark.parametrize('view', VIEWS)
+def test_find_chessboard_corners_against_cv2(view):
+    rec = MANIFEST['views'][view]
+    g = gray(view)
+    found, corners = calibration.find_chessboard_corners(g, PATTERN, device='cpu')
+    if view in CV2_MISSES:
+        assert not rec['found'] and found
+        return
+    assert found == rec['found']
+    if not found:
+        assert corners is None
+        return
+    assert corners.shape == (PATTERN[0] * PATTERN[1], 1, 2) and corners.dtype == np.float32
+    # cv2's order: corner for corner within a pixel of cv2's detection.
+    assert np.abs(corners.reshape(-1, 2) - np.asarray(rec['corners'])).max() <= ORDER_TOL_PX
+    refined = app.find_corners(g, PATTERN[1], PATTERN[0], device='cpu')
+    err = np.abs(refined.reshape(-1, 2) - np.asarray(rec['refined'])).max()
+    assert err <= REFINED_TOL_PX, f'{view}: {err:.3g} px from cv2 after the refinement'
+
+
+@pytest.mark.parametrize('view', FOUND)
+def test_corner_subpix_from_cv2_corners_equals_cv2(view):
+    rec = MANIFEST['views'][view]
+    half = rec['half_window']
+    got = calibration.corner_subpix(gray(view), np.asarray(rec['corners'], np.float32),
+                                    (half, half), (-1, -1), CRITERIA, device='cpu')
+    err = np.abs(got.reshape(-1, 2) - np.asarray(rec['refined'])).max()
+    assert err <= SUBPIX_TOL_PX, f'{view}: {err:.3g} px from cv2.cornerSubPix'
+
+
+@pytest.mark.parametrize('sub', ['a', 'b'])
+def test_calibrate_camera_on_cv2_corners_equals_cv2(sub):
+    run = MANIFEST['calibrations'][sub]
+    want = run['result']
+    imgs = [np.asarray(MANIFEST['views'][v]['refined'], np.float32) for v in run['views']]
+    objs = [object_points(run['square_mm'])] * len(imgs)
+    rms, k, dist, rvecs, tvecs = calibration.calibrate_camera(
+        objs, imgs, want['image_shape'][::-1], device='cpu')
+    got = dict(rms_reprojection_error=rms, intrinsic_matrix=k, distortion_coeffs=dist)
+    np.testing.assert_allclose(k, want['intrinsic_matrix'], rtol=K_RTOL, atol=0)
+    assert abs(rms - want['rms_reprojection_error']) <= RMS_RTOL * want['rms_reprojection_error']
+    assert_calibrations_close(got, want, K_RTOL, K_RTOL * k[0, 0], RMS_RTOL * rms,
+                              DISPLACEMENT_TOL_PX)
+    assert dist.shape == (1, 5) and len(rvecs) == len(tvecs) == len(imgs)
+    # The returned poses reproject the corners at the returned rms.
+    proj = calibration.project_points(
+        torch.tensor(np.stack(objs), dtype=torch.float64),
+        torch.tensor(np.stack(rvecs)[..., 0]), torch.tensor(np.stack(tvecs)[..., 0]),
+        torch.tensor([k[0, 0], k[1, 1], k[0, 2], k[1, 2]]), torch.tensor(dist[0])).numpy()
+    resid = proj - np.stack(imgs).astype(np.float64)
+    assert np.sqrt((resid ** 2).sum() / resid[..., 0].size) == pytest.approx(rms, rel=1e-9)
+
+
+def run_jax_app(images: str, square: float, out: Path) -> dict:
+    """The JAX app as tests/test_calibrate.py runs it."""
+    pytest.importorskip('cv2')
+    from metrabs_tpu.apps import calibrate_camera as jax_app
+    jax_app.main(['--images', images, '--rows', str(PATTERN[1]), '--cols', str(PATTERN[0]),
+                  '--square-mm', str(square), '--out', str(out)])
+    return json.loads(out.read_text())
+
+
+def run_port_app(images: str, square: float, out: Path) -> dict:
+    app.main(['--images', images, '--rows', str(PATTERN[1]), '--cols', str(PATTERN[0]),
+              '--square-mm', str(square), '--out', str(out), '--device', 'cpu'])
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize('sub', ['a', 'b'])
+def test_main_against_the_jax_app(tmp_path, sub):
+    """Both apps on the same directory of the views both find (all of (b);
+    (a) without CV2_MISSES): the same JSON keys, image shape and view count,
+    intrinsics and rms within the app tolerances."""
+    run = MANIFEST['calibrations'][sub]
+    src = FIXTURES / sub
+    if any(v.startswith(sub + '/') for v in CV2_MISSES):
+        src = tmp_path / sub
+        shutil.copytree(FIXTURES / sub, src)
+        for v in CV2_MISSES:
+            (tmp_path / v).unlink()
+    pattern = str(src / Path(run['images']).name)
+    want = run_jax_app(pattern, run['square_mm'], tmp_path / 'jax.json')
+    got = run_port_app(pattern, run['square_mm'], tmp_path / 'port.json')
+    assert got.keys() == want.keys() and got['image_shape'] == want['image_shape']
+    assert_calibrations_close(got, want, APP_F_RTOL, APP_PP_TOL_PX, APP_RMS_TOL_PX, np.inf)
+
+
+def test_main_on_the_whole_of_a_uses_the_view_cv2_misses(tmp_path):
+    """On all of (a) the port calibrates from 8 views and the JAX app from 7
+    (CV2_MISSES): the port's answer is `calibrate_camera` on its own 8
+    refined views, which is cv2's answer on them within the calibration
+    tolerances."""
+    run = MANIFEST['calibrations']['a']
+    got = run_port_app(str(FIXTURES / run['images']), run['square_mm'], tmp_path / 'port.json')
+    views = [v for v in VIEWS if v.startswith('a/') and (v in FOUND or v in CV2_MISSES)]
+    assert len(views) == len(run['views']) + 1
+    imgs = [app.find_corners(gray(v), PATTERN[1], PATTERN[0], device='cpu') for v in views]
+    cv2 = pytest.importorskip('cv2')
+    objs = [object_points(run['square_mm'])] * len(imgs)
+    rms, k, dist, _, _ = cv2.calibrateCamera(objs, imgs, (640, 480), None, None)
+    want = dict(rms_reprojection_error=rms, intrinsic_matrix=k, distortion_coeffs=dist,
+                image_shape=[480, 640])
+    assert_calibrations_close(got, want, K_RTOL, K_RTOL * k[0, 0], RMS_RTOL * rms,
+                              DISPLACEMENT_TOL_PX)
+
+
+def test_main_recovers_the_true_camera_of_b(tmp_path):
+    run = MANIFEST['calibrations']['b']
+    got = run_port_app(str(FIXTURES / run['images']), run['square_mm'], tmp_path / 'b.json')
+    k_true = np.asarray(MANIFEST['k_true'])
+    np.testing.assert_allclose(np.asarray(got['intrinsic_matrix'])[[0, 1], [0, 1]],
+                               k_true[[0, 1], [0, 1]], rtol=TRUTH_F_RTOL)
+    d = displacement(got['intrinsic_matrix'], got['distortion_coeffs'], got['image_shape']) \
+        - displacement(k_true, MANIFEST['dist_true'], got['image_shape'])
+    assert np.linalg.norm(d, axis=-1).max() <= TRUTH_DISPLACEMENT_TOL_PX
+
+
+def test_main_needs_three_views_and_refuses_a_camera(tmp_path):
+    shutil.copy(FIXTURES / 'a' / 'calib_8_partial.png', tmp_path / 'x.png')
+    shutil.copy(FIXTURES / 'b' / 'view_8_empty.jpg', tmp_path / 'y.jpg')
+    (tmp_path / 'z.png').write_bytes(b'not an image')
+    with pytest.raises(SystemExit, match='Only 0 checkerboard views found; need at least 3'):
+        app.main(['--images', str(tmp_path / '*'), '--device', 'cpu',
+                  '--out', str(tmp_path / 'o.json')])
+    with pytest.raises(NotImplementedError, match='camera 0: camera capture is not ported'):
+        app.main(['--camera-id', '0', '--device', 'cpu'])
+
+
+def test_render_checkerboard_reproduces_the_fixture():
+    rec = MANIFEST['views']['a/calib_8_partial.png']
+    rgb = calibration.render_checkerboard(**rec['render'])
+    assert hashlib.sha256(rgb.tobytes()).hexdigest() == rec['sha256_rgb']
+    np.testing.assert_array_equal(improc.imread(str(FIXTURES / 'a' / 'calib_8_partial.png')),
+                                  rgb)
+
+
+@pytest.mark.parametrize('pattern', [(8, 6), (8, 5), (7, 5)])
+@pytest.mark.parametrize('degrees', [10, 100, 190, 280])
+def test_corner_order_against_cv2_on_other_boards(pattern, degrees):
+    """OpenCV's order on boards of even x even, even x odd and odd x odd
+    inner corners, turned in the image plane."""
+    cv2 = pytest.importorskip('cv2')
+    half = np.radians(degrees) / 2
+    q = [np.cos(half), 0.0, 0.0, np.sin(half)]
+    rot = calibration.rotation_from_quaternion(q)
+    mid = np.array([(pattern[0] - 1) * 10.0, (pattern[1] - 1) * 10.0, 0.0])
+    t = np.array([0.0, 0.0, 550.0]) - rot @ mid
+    rgb = calibration.render_checkerboard(
+        (480, 640), [[520.0, 0, 320.0], [0, 520.0, 240.0], [0, 0, 1]], [0.0] * 5, q, t,
+        pattern_size=pattern, square=20.0, margin=20.0, supersample=2)
+    g = (rgb.astype(np.uint32) @ np.array([9797, 19234, 3737], np.uint32) >> 15).astype(np.uint8)
+    want_found, want = cv2.findChessboardCorners(g, pattern)
+    found, got = calibration.find_chessboard_corners(g, pattern, device='cpu')
+    assert want_found and found
+    assert np.abs(got.reshape(-1, 2) - want.reshape(-1, 2)).max() <= ORDER_TOL_PX
+
+
+def test_calibrate_camera_refuses_a_non_planar_board():
+    objs = [np.c_[np.random.default_rng(0).uniform(size=(8, 2)), np.ones(8)]] * 3
+    with pytest.raises(ValueError, match='planar'):
+        calibration.calibrate_camera(objs, [o[:, :2] for o in objs], (64, 48), device='cpu')

@@ -32,6 +32,7 @@ from metrabs_tpu.pipeline import bone_priors as jax_bone_priors
 from metrabs_tpu.pipeline import skeletons as jax_skeletons
 from metrabs_tpu.pipeline import tta as jax_tta
 from metrabs_tpu_torch import config
+from metrabs_tpu_torch.apps import calibrate_camera as calibrate_camera_app
 from metrabs_tpu_torch.data import pipeline as data
 from metrabs_tpu_torch.detect import train as detector_train
 from metrabs_tpu_torch.detect.yolov4 import YOLOv4Tiny
@@ -92,6 +93,40 @@ def test_port_file_imports_no_cv2(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)
     bad = {m.split('.')[0] for m in imported_modules(tree)} & set(MISSING_ON_CARD)
     assert not bad, f'{path} imports {bad}'
+
+
+@pytest.mark.parametrize('path', ['metrabs_tpu_torch/apps/calibrate_camera.py',
+                                  'metrabs_tpu_torch/utils/calibration.py',
+                                  'metrabs_tpu_torch/utils/native.py'])
+def test_calibration_and_native_modules_are_held_to_the_card(path):
+    """The modules that replace cv2's calibration and the JAX package's
+    native ops are port files: no import of theirs, also inside functions,
+    is of JAX or of MISSING_ON_CARD."""
+    assert path in PORT_FILES
+    test_port_file_imports_nothing_of_jax(path)
+    test_port_file_imports_no_cv2(path)
+
+
+def _c_function(source: str, name: str) -> str:
+    """The text of C function `name` from its name to its closing brace."""
+    start = source.index(f' {name}(')
+    depth, i = 0, source.index('{', start)
+    while True:
+        depth += {'{': 1, '}': -1}.get(source[i], 0)
+        if depth == 0:
+            return source[start:i + 1]
+        i += 1
+
+
+@pytest.mark.parametrize('name', ['gamma_decode_u8', 'gamma_encode_f32', 'paste_over',
+                                  'box_downsample_2x2', 'bilinear_warp', 'distort_point',
+                                  'sample_bilinear_zero_border'])
+def test_native_source_is_a_copy_of_jax(name):
+    """`csrc/improc.cpp`'s functions are `native/improc.cc`'s, character for
+    character (only the header comment names the port's module)."""
+    port = (REPO / 'metrabs_tpu_torch' / 'csrc' / 'improc.cpp').read_text()
+    jax = (REPO / 'native' / 'improc.cc').read_text()
+    assert _c_function(port, name) == _c_function(jax, name)
 
 
 _STANDALONE_SCRIPT = """
@@ -285,7 +320,8 @@ def no_cuda(monkeypatch):
                                    'yolov8_from_variables', 'estimate_poses_stream',
                                    'detect_poses_stream', 'detect_poses_pipelined',
                                    'compute_pose3d_metrics', 'evaluate_predictions',
-                                   'predict_dataset', 'create_detector_train_state'])
+                                   'predict_dataset', 'create_detector_train_state',
+                                   'calibrate_camera'])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     families = dict(model_config={}, model_class='model25d', detector_type='yolov8m')
     default_estimator = lambda: PoseEstimator(torch.nn.Identity(), skeletons.H36M_17,
@@ -322,7 +358,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, en
         detector_from_variables=lambda: packaging.detector_from_variables(
             {}, {}, bn_fold=False),
         load_crop_model=lambda: packaging.load_crop_model(str(tmp_path)),
-        load_pose_estimator=lambda: packaging.load_pose_estimator(str(tmp_path)))
+        load_pose_estimator=lambda: packaging.load_pose_estimator(str(tmp_path)),
+        calibrate_camera=lambda: calibrate_camera_app.main([]))
     with pytest.raises(RuntimeError, match="needs CUDA.*device='cpu'"):
         calls[entry]()
 
