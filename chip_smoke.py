@@ -242,6 +242,31 @@ line:
     coefficients calibrated from (b): K1 once per non-empty chunk and K2
     never, every K1 launch exact against the plain warp and each of its
     crops within NATIVE_WARP_TOL of the C++ warp.
+15. parallel: several ranks (`parallel.mesh`). (a) This process joins a
+    one-rank NCCL group: `make_sharded_train_step` at EffNetV2-S@256 bf16,
+    32 + 32, against the plain step from the same state, batch and
+    generator (cuDNN deterministic in both), within the parity tolerance of
+    tests/_torch_train.py, with its one gradient all-reduce timed. Then the
+    one-rank serve of phase 5's detect path (threshold 0, the plausibility
+    filter on) on the main frames, its detector run on each rank's frames
+    in turn (`BlockwiseDetector`), and PARALLEL_RANKS spawned processes
+    sharing cuda:0 over gloo (their collectives through host copies),
+    joined with a deadline: (b) on a (2, 1) mesh, `detect_poses_batched`
+    (YOLOv4-416 + EffNetV2-S@256 bf16 unfolded, `fuse_mbconv='on'`) with
+    each rank detecting its frames and running its share of the chunks,
+    K1 once and K2 28 times per chunk of its share, every launch exact
+    against the plain versions, valid equal to the one-rank serve and the
+    poses within 1 mm + 1e-3; a float32 step (TF32 off) of 16 + 16 per rank
+    against the one-rank step on the global 32 + 32, ranks left equal; (c)
+    on a (1, 2) mesh with the weights of at least PARALLEL_TP_MIN_SIZE
+    elements sharded over 'model' (every fused block's depthwise weight
+    among them: K2 on channel slices), the fused detect in float32 (4
+    detections per frame) against (b)'s data-parallel serve in float32,
+    every launch exact, and a float32 step (JAX's default tp_min_size)
+    against the one-rank step and, within twice the relative limits,
+    against (b)'s. Prints each path's launches per rank, the collectives'
+    calls, bytes and time per call and per step, and the device-busy share
+    of one data-parallel call.
 The second-to-last line is a JSON object with the kernels' measurements
 (each kernel's `launches_by_path` counts every path's run);
 the last is {"ok": true, "device": {...}}.
@@ -804,10 +829,7 @@ def train_parity(cfg, tcfg, variables, dev, name='train', model_kwargs=None,
     from the same state, batch and mix (the Metrabs step's), drop-connect off
     on both (the two devices' generators differ), for the crop model of
     `model_kwargs` (`make_trainer`'s). Returns the worst deviations; fails past
-    the parity tolerance of tests/_torch_train.py, with Adam's moments held
-    per tensor as the gradients are (mu is 0.1 g after one step; float32
-    rounding through forty train-mode BatchNorms reaches ~6e-5 of a tensor's
-    largest gradient, beyond an elementwise rtol on its small elements)."""
+    the parity tolerance of `step_deviations`."""
     from metrabs_tpu_torch.models.backbones import efficientnet_v2
 
     cfg32 = dataclasses.replace(cfg, dtype='float32')
@@ -825,19 +847,46 @@ def train_parity(cfg, tcfg, variables, dev, name='train', model_kwargs=None,
         for d in (dev, 'cpu'):
             state, step = make_trainer(cfg32, tcfg, variables, d, model_kwargs=model_kwargs,
                                        affine_weights=affine_weights)
-            losses = step(state, b3, b2, **step_kwargs)
-            named = lambda t: {k: v.detach().float().cpu() for k, v in t.items()}
-            adam = state.opt_state.groups['all']
-            runs.append(dict(
-                losses=named(losses), grads=named({k: p.grad for k, p in state.params().items()}),
-                params=named(state.params()), mu=named(adam.mu), nu=named(adam.nu),
-                ema=named(state.ema_params),
-                stats=named({k: b for k, b in state.model.named_buffers()
-                             if k.endswith(('running_mean', 'running_var'))})))
+            runs.append(step_record(state, step(state, b3, b2, **step_kwargs)))
             del state
     finally:
         efficientnet_v2.SURVIVAL_PROB = saved_survival
-    got, want = runs
+    worst, ok = step_deviations(*runs, tcfg)
+    if not ok:
+        fail(name, f'the float32 GPU step differs from the CPU step: {worst}')
+    return worst
+
+
+def step_record(state, losses) -> dict:
+    """One step's losses, gradients, updated parameters, Adam moments, EMA
+    and BatchNorm statistics, as float32 host tensors (tensor-parallel
+    leaves gathered to their full shapes: a collective)."""
+    from metrabs_tpu_torch.parallel import mesh as mesh_mod
+    from metrabs_tpu_torch.train import loop
+
+    full = loop.full_train_state_dict(state)
+    grads = {k: p.grad for k, p in state.params().items()}
+    if state.sharded:
+        grads = mesh_mod.gather_named(grads, state.sharded, state.mesh)
+    named = lambda t: {k: v.detach().float().cpu() for k, v in t.items()}
+    adam = full['opt_state']['groups']['all']
+    return dict(losses=named(losses), grads=named(grads),
+                params=named({k: full['model'][k] for k in grads}), mu=named(adam['mu']),
+                nu=named(adam['nu']), ema=named(full['ema_params']),
+                stats=named({k: v for k, v in full['model'].items()
+                             if k.endswith(('running_mean', 'running_var'))}))
+
+
+def step_deviations(got: dict, want: dict, tcfg, stats_atol: float = 1e-7,
+                    rel_scale: float = 1.0):
+    """(the worst deviations of step record `got` from `want`, whether they
+    are within the parity tolerance of tests/_torch_train.py), with Adam's
+    moments held per tensor as the gradients are (mu is 0.1 g after one
+    step; float32 rounding through forty train-mode BatchNorms reaches
+    ~6e-5 of a tensor's largest gradient, beyond an elementwise rtol on its
+    small elements). The BatchNorm statistics within `stats_atol` + 1e-4
+    relative. `rel_scale` multiplies the relative limits of the losses,
+    gradients, moments and statistics."""
     lr = float(tcfg.base_learning_rate)
     worst = {}
     worst['loss_rel'] = max(abs(got['losses'][k] - want['losses'][k]).item()
@@ -852,7 +901,8 @@ def train_parity(cfg, tcfg, variables, dev, name='train', model_kwargs=None,
         worst[f'{key}_rel_to_tensor_max'] = max(
             (got[key][k] - w).abs().max().item() / (largest if k in zero else w.abs().max().item())
             for k, w in want[key].items())
-    stats_excess = max(((got['stats'][k] - w).abs() - (1e-7 + 1e-4 * w.abs())).max().item()
+    stats_excess = max(((got['stats'][k] - w).abs()
+                        - rel_scale * (stats_atol + 1e-4 * w.abs())).max().item()
                        for k, w in want['stats'].items())
     moved = {k: (got['params'][k] - w).abs() for k, w in want['params'].items()}
     n_near = sum(int((d <= 1e-2 * lr).sum()) for d in moved.values())
@@ -865,13 +915,13 @@ def train_parity(cfg, tcfg, variables, dev, name='train', model_kwargs=None,
     ema_excess = max(((got['ema'][k] - w).abs() - carried * moved[k]
                       - (1e-7 + 1e-4 * w.abs())).max().item() for k, w in want['ema'].items())
     worst['stats_excess'], worst['ema_excess'] = stats_excess, ema_excess
-    ok = (worst['loss_rel'] <= 1e-4 and worst['grads_rel_to_tensor_max'] <= 1e-4
-          and worst['mu_rel_to_tensor_max'] <= 1e-4 and worst['nu_rel_to_tensor_max'] <= 2e-4
+    limit = lambda rel: rel_scale * rel
+    ok = (worst['loss_rel'] <= limit(1e-4) and worst['grads_rel_to_tensor_max'] <= limit(1e-4)
+          and worst['mu_rel_to_tensor_max'] <= limit(1e-4)
+          and worst['nu_rel_to_tensor_max'] <= limit(2e-4)
           and stats_excess <= 0 and ema_excess <= 0 and worst['params_max_over_lr'] <= 2
           and worst['params_near_share'] >= 0.999)
-    if not ok:
-        fail(name, f'the float32 GPU step differs from the CPU step: {worst}')
-    return worst
+    return worst, ok
 
 
 def profile_step(run):
@@ -3921,6 +3971,461 @@ def calibrate_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
     return {'calibrate': (k1, k2)}
 
 
+# The [parallel] phase: (a) in this process on NCCL, (b) and (c) on
+# PARALLEL_RANKS processes sharing cuda:0 over gloo.
+PARALLEL_RANKS = 2
+# Shards the weights of at least 4096 elements over 'model' in (c): every
+# fused block's depthwise weight among them (E >= 456), so that K2 runs on
+# channel slices.
+PARALLEL_TP_MIN_SIZE = 2 ** 12
+PARALLEL_STEP_BATCH = 32  # per stream, global: 16 + 16 per rank in (b)
+# The running statistics of (b)'s and (c)'s steps: each is a mean over up to
+# 64 x 128 x 128 float32 values per channel, which the data-parallel step
+# sums in another order (each rank's rows, then the all-reduce) than the
+# one-rank mean; a running mean near 0 then differs by ~1.2e-7 absolute on
+# an H100, above tests/_torch_train.py's 1e-7 for 4-crop batches.
+PARALLEL_STATS_ATOL = 1e-6
+PARALLEL_DEADLINE_S = 480
+PARALLEL_PG_TIMEOUT = 300  # seconds a rank waits in a collective before it fails
+PARALLEL_DETECT = dict(num_aug=NUM_AUG, max_detections=MAX_DETECTIONS,
+                       internal_batch_size=INTERNAL_BATCH, detector_threshold=0.0,
+                       suppress_implausible_poses=True)
+# (c)'s float32 serve: 4 detections per frame, one chunk (its sharded
+# convolutions' activations, ~4 GB a chunk, go through host copies).
+PARALLEL_TP_DETECT = dict(PARALLEL_DETECT, max_detections=4)
+# (c)'s step shards at JAX's default size (94 of the 170 convolutions).
+PARALLEL_TP_STEP_MIN_SIZE = 2 ** 16
+
+
+class BlockwiseDetector:
+    """`detector` run on each of `n` equal blocks of the frame batch in
+    turn, as `n` 'data' ranks run it. A serve held against a data-parallel
+    one detects in the same blocks: cuDNN picks its algorithms by batch
+    size, and at threshold 0 scores that tie within their rounding change
+    places, which puts other boxes in a slot."""
+
+    def __init__(self, detector, n: int):
+        self.detector, self.n = detector, n
+
+    def detect_batched(self, images, **kwargs):
+        parts = [self.detector.detect_batched(block, **kwargs) for block in images.chunk(self.n)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+class CollectiveMeter:
+    """While entered: the calls, bytes and seconds of `parallel.mesh`'s
+    collectives, which all go through `all_reduce_tensor` (bytes: the
+    tensor's) and `all_gather_tensors` (bytes: the gathered tensors'), each
+    timed on the host between device synchronisations."""
+
+    def __init__(self):
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+    def __enter__(self):
+        from metrabs_tpu_torch.parallel import mesh as mesh_mod
+
+        def timed(fn, n_bytes):
+            def wrapped(x, group, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(x, group, *args)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                self.bytes += n_bytes(x, *args)
+                return out
+            return wrapped
+
+        self._saved = (mesh_mod.all_reduce_tensor, mesh_mod.all_gather_tensors)
+        mesh_mod.all_reduce_tensor = timed(self._saved[0],
+                                           lambda x: x.numel() * x.element_size())
+        mesh_mod.all_gather_tensors = timed(self._saved[1],
+                                            lambda x, n: n * x.numel() * x.element_size())
+        return self
+
+    def __exit__(self, *exc):
+        from metrabs_tpu_torch.parallel import mesh as mesh_mod
+        mesh_mod.all_reduce_tensor, mesh_mod.all_gather_tensors = self._saved
+        return False
+
+    def summary(self) -> dict:
+        return dict(calls=self.calls, mb=self.bytes / 1e6, ms=self.seconds * 1e3)
+
+
+def describe(c: dict) -> str:
+    return f'{c["calls"]} collectives, {c["mb"]:.1f} MB, {c["ms"]:.1f} ms'
+
+
+def global_train_batch(dev):
+    """The (3D, 2D) global batches of PARALLEL_STEP_BATCH synthetic examples
+    each, on `dev`."""
+    return [{k: torch.as_tensor(np.stack([synthetic_example(i, s)[k] for i in ids])).to(dev)
+             for k in synthetic_example(0, s)}
+            for s, ids in (('3d', range(PARALLEL_STEP_BATCH)),
+                           ('2d', range(100, 100 + PARALLEL_STEP_BATCH)))]
+
+
+def timed_step(state, step, b3, b2, dev):
+    """One step with the drop-connect masks and the mix drawn from a seeded
+    generator on `dev` (every rank alike), under a `CollectiveMeter`:
+    (step_record, host ms, collectives)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with CollectiveMeter() as meter:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step(state, b3, b2, generator=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return step_record(state, losses), ms, meter.summary()
+
+
+def parallel_nccl(dev) -> dict:
+    """(a): `make_sharded_train_step` on a one-rank NCCL group at
+    EffNetV2-S@256 bf16, 32 + 32, against the plain step from the same
+    state, batch and generator."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from metrabs_tpu_torch.config import ModelConfig, TrainConfig
+    from metrabs_tpu_torch.parallel import mesh as mesh_mod
+    from metrabs_tpu_torch.train import loop
+
+    name = 'parallel'
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    tcfg = TrainConfig()
+    variables = mint_crop_variables(cfg, torch.Generator().manual_seed(tcfg.seed))
+    b3, b2 = global_train_batch(dev)
+    mesh_mod.init_process_group('nccl', f'tcp://localhost:{free_port()}', 0, 1, device=dev,
+                                timeout=datetime.timedelta(seconds=PARALLEL_PG_TIMEOUT))
+    # Deterministic cuDNN algorithms: the two steps then differ only where
+    # the sharded one does (bf16 rounding would show run-to-run atomics).
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = mesh_mod.make_mesh(1, 1)
+        state, step = make_trainer(cfg, tcfg, variables, dev)
+        sharded = loop.make_sharded_train_step(step, mesh)
+        timed_step(state, sharded, b3, b2, dev)  # warm-up (cuDNN algorithm selection)
+        state, step = make_trainer(cfg, tcfg, variables, dev)
+        got, ms, collectives = timed_step(state, loop.make_sharded_train_step(step, mesh),
+                                          b3, b2, dev)
+        del state
+        state, step = make_trainer(cfg, tcfg, variables, dev)
+        want, plain_ms, _ = timed_step(state, step, b3, b2, dev)
+        del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    worst, ok = step_deviations(got, want, tcfg)
+    if not ok or collectives['calls'] != 1:
+        fail(name, f'(a) the NCCL one-rank sharded step against the plain step: {worst}, '
+                   f'{describe(collectives)} (one gradient all-reduce expected)')
+    phase(name, f'(a) NCCL, world 1: make_sharded_train_step EffNetV2-S@{PROC_SIDE} bf16 '
+                f'{PARALLEL_STEP_BATCH}+{PARALLEL_STEP_BATCH} against the plain step: '
+                + ', '.join(f'{k} {v:.3g}' for k, v in worst.items())
+                + f'; step {ms:.1f} ms (plain {plain_ms:.1f} ms); gradient all-reduce: '
+                + describe(collectives))
+    return dict(step_ms=ms, plain_ms=plain_ms, collectives=collectives)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank(rank: int, port: int, payload: bytes, results) -> None:
+    """A rank of parts (b) and (c): its results, or its traceback, on
+    `results`."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        results.put((rank, 'ok', parallel_rank_work(rank, port, pickle.loads(payload))))
+    except BaseException:
+        results.put((rank, 'error', traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def detect_checked(detect):
+    """One `detect()` with every K1 and K2 launch held against its plain
+    version: (output, K1 launches, K2 launches, max K1 error, max K2 v
+    error, max K2 mean error)."""
+    (out, warp_errs), v_errs, mean_errs = checked_mbconv(lambda: checked_warps(detect))
+    return (out, len(warp_errs), len(v_errs), max(warp_errs, default=math.inf),
+            max(v_errs, default=math.inf), max(mean_errs, default=math.inf))
+
+
+def poses_within(got: dict, want: dict) -> tuple:
+    """(valid masks equal, max |dpose| mm, poses within POSE_ATOL_MM + POSE_RTOL
+    on the rows the detector found)."""
+    rows = want['boxes'][..., 4] > 0
+    g, w = got['poses3d'][rows].float().cpu(), want['poses3d'][rows].float().cpu()
+    return (torch.equal(got['valid'].cpu(), want['valid'].cpu()),
+            (g - w).abs().max().item(),
+            bool(torch.allclose(g, w, atol=POSE_ATOL_MM, rtol=POSE_RTOL)))
+
+
+def parallel_rank_work(rank: int, port: int, payload: dict) -> dict:
+    import datetime
+
+    from metrabs_tpu_torch.config import ModelConfig, TrainConfig
+    from metrabs_tpu_torch.io.packaging import pose_estimator_from_variables
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda, warp_cuda
+    from metrabs_tpu_torch.parallel import mesh as mesh_mod
+    from metrabs_tpu_torch.train import loop
+
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    for source in ('warp', 'mbconv'):
+        cuda_build.build_library(source)  # built by the parent: found by its hash
+    mesh_mod.init_process_group('gloo', f'tcp://localhost:{port}', rank, PARALLEL_RANKS,
+                                timeout=datetime.timedelta(seconds=PARALLEL_PG_TIMEOUT))
+    out = {}
+    counts = lambda: (warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches)
+
+    def reset():
+        torch.cuda.synchronize()
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+
+    # The main phase's frames and minted weights, made as main() makes them.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    frames = synthetic_frames(gen, dev)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    variables = mint_crop_variables(cfg, cpu_gen)
+    det_variables = mint_detector_variables(cpu_gen)
+
+    def estimator(dtype, mesh, tp_min_size=None):
+        return pose_estimator_from_variables(
+            variables, detect_manifest_for(dtype), device=dev, cfg_overrides={'bn_fold': False},
+            detector_variables=det_variables,
+            backbone_builder=functools.partial(build_backbone, fuse_mbconv='on'), mesh=mesh,
+            tp_min_size=tp_min_size)
+
+    def serve(key, est, kwargs, want, profile=False):
+        detect = lambda: est.detect_poses_batched(frames, **kwargs)
+        detect()  # warm-up (cuDNN algorithm selection)
+        reset()
+        with CollectiveMeter() as meter:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = detect()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        k1, k2 = counts()
+        _, n1, n2, err1, err_v, err_mean = detect_checked(detect)
+        wall_ms = busy_ms = None
+        if profile:
+            from torch.autograd import DeviceType
+            events, wall_ms = profiled(detect, 'parallel')
+            busy_ms = sum(e.device_time_total for e in events
+                          if e.device_type == DeviceType.CUDA) / 1e3
+        equal, err, within = poses_within(got, want)
+        out[f'{key}_detect'] = dict(
+            k1=k1, k2=k2, checked=(n1, n2), errors=(err1, err_v, err_mean), ms=ms,
+            wall_ms=wall_ms, busy_ms=busy_ms, valid_equal=equal, pose_err=err,
+            within=within, collectives=meter.summary(),
+            n_detected=int((got['boxes'][..., 4] > 0).sum()),
+            n_sharded=sum(mesh_mod.is_sharded(p) for p in est.crop_model.parameters()),
+            n_sharded_dw=sum(mesh_mod.is_sharded(p) for n, p in
+                             est.crop_model.named_parameters() if 'depthwise' in n))
+
+    # (b) Data-parallel detect over a (2, 1) mesh, against the one-rank serve.
+    mesh_dp = mesh_mod.make_mesh(PARALLEL_RANKS, 1)
+    serve('dp', estimator('bfloat16', mesh_dp), PARALLEL_DETECT,
+          {k: v.to(dev) for k, v in payload['one_rank'].items()}, profile=True)
+    torch.cuda.empty_cache()
+
+    # (c) The tensor-parallel fused serve over a (1, 2) mesh, in float32
+    # (TF32 off), against (b)'s data-parallel serve in float32: each of
+    # its convolutions computes on a slice of the out-channels, which bf16
+    # would round apart from the whole convolution.
+    mesh_tp = mesh_mod.make_mesh(1, PARALLEL_RANKS)
+    with torch.inference_mode():
+        want = estimator('float32', mesh_dp).detect_poses_batched(frames, **PARALLEL_TP_DETECT)
+    torch.cuda.empty_cache()
+    est = estimator('float32', mesh_tp, PARALLEL_TP_MIN_SIZE)
+    est.detector = BlockwiseDetector(est.detector, PARALLEL_RANKS)
+    serve('tp', est, PARALLEL_TP_DETECT, want)
+    del est, want
+    torch.cuda.empty_cache()
+
+    # The steps in float32 (TF32 off), where the parity tolerance holds:
+    # the one-rank step on the global batch, (b) data-parallel, (c)
+    # tensor-parallel, each from the same state, batch and generator.
+    cfg32 = dataclasses.replace(cfg, dtype='float32')
+    tcfg = TrainConfig()
+    train_vars = mint_crop_variables(cfg, torch.Generator().manual_seed(tcfg.seed))
+    b3, b2 = global_train_batch(dev)
+    records = {}
+    for key, mesh, min_size in (('one', None, None), ('dp', mesh_dp, None),
+                                ('tp', mesh_tp, PARALLEL_TP_STEP_MIN_SIZE)):
+        state, step = make_trainer(cfg32, tcfg, train_vars, dev)
+        if mesh is not None:
+            shardings = (None if min_size is None
+                         else mesh_mod.tp_shardings(mesh, state, min_size=min_size))
+            step = loop.make_sharded_train_step(step, mesh, state_shardings=shardings)
+        reset()
+        records[key], ms, collectives = timed_step(state, step, b3, b2, dev)
+        out[f'{key}_train'] = dict(ms=ms, collectives=collectives, launches=counts(),
+                                   n_sharded=len(state.sharded))
+        del state, step
+        torch.cuda.empty_cache()
+    out['dp_train']['worst'], out['dp_train']['ok'] = step_deviations(
+        records['dp'], records['one'], tcfg, PARALLEL_STATS_ATOL)
+    # (c) against the one-rank step within the parity tolerance, and against
+    # (b)'s step within twice it: each holds the one-rank step within it.
+    worst_one, ok_one = step_deviations(records['tp'], records['one'], tcfg, PARALLEL_STATS_ATOL)
+    out['tp_train']['worst'], ok_dp = step_deviations(records['tp'], records['dp'], tcfg,
+                                                      PARALLEL_STATS_ATOL, rel_scale=2.0)
+    out['tp_train']['ok'] = ok_one and ok_dp
+    out['tp_train']['worst_one'] = worst_one
+    out['checksum'] = float(sum(v.double().sum() for v in records['dp']['params'].values()))
+    return out
+
+
+def parallel_phase(dev, frames) -> dict:
+    """The [parallel] phase (module docstring). Returns the K1 and K2
+    launches of its paths, summed over the ranks."""
+    import multiprocessing
+    import pickle
+    import queue
+
+    from metrabs_tpu_torch.io.packaging import pose_estimator_from_variables
+    from metrabs_tpu_torch.models.backbones.builder import build_backbone
+    from metrabs_tpu_torch.models.metrabs import ModelConfig
+
+    name = 'parallel'
+    start = time.perf_counter()
+    nccl = parallel_nccl(dev)
+    torch.cuda.empty_cache()
+
+    # The one-rank serve of (b), made here as the detect phase makes it, its
+    # detector run on each rank's frames in turn (`BlockwiseDetector`).
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    cfg = ModelConfig(**manifest_for('bfloat16')['model_config'])
+    variables = mint_crop_variables(cfg, cpu_gen)
+    est = pose_estimator_from_variables(
+        variables, detect_manifest_for('bfloat16'), device=dev, cfg_overrides={'bn_fold': False},
+        detector_variables=mint_detector_variables(cpu_gen),
+        backbone_builder=functools.partial(build_backbone, fuse_mbconv='on'))
+    est.detector = BlockwiseDetector(est.detector, PARALLEL_RANKS)
+    torch.backends.cudnn.deterministic = True  # as in the ranks
+    try:
+        one_rank = {k: v.cpu()
+                    for k, v in est.detect_poses_batched(frames, **PARALLEL_DETECT).items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del est
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context('spawn')
+    results, port = ctx.Queue(), free_port()
+    payload = pickle.dumps(dict(one_rank=one_rank))
+    procs = [ctx.Process(target=parallel_rank, args=(rank, port, payload, results), daemon=True)
+             for rank in range(PARALLEL_RANKS)]
+    t_spawn = time.perf_counter()
+    for p in procs:
+        p.start()
+    ranks, errors = {}, []
+    try:
+        while len(ranks) + len(errors) < PARALLEL_RANKS:
+            left = PARALLEL_DEADLINE_S - (time.perf_counter() - t_spawn)
+            try:
+                rank, status, value = results.get(timeout=max(left, 1.0))
+            except queue.Empty:
+                fail(name, f'ranks {sorted(set(range(PARALLEL_RANKS)) - set(ranks))} did not '
+                           f'finish within {PARALLEL_DEADLINE_S} s')
+            if status != 'ok':
+                fail(name, f'rank {rank} failed:\n{value}')
+            ranks[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    r = [ranks[i] for i in range(PARALLEL_RANKS)]
+    if len({x['checksum'] for x in r}) != 1:
+        fail(name, f'the data-parallel step left the ranks with different parameters: '
+                   f'{[x["checksum"] for x in r]}')
+    per_chunk = INTERNAL_BATCH // NUM_AUG
+    n_detected = int((one_rank['boxes'][..., 4] > 0).sum())
+    chunks = math.ceil(n_detected / per_chunk)
+    shares = [len(range(i, chunks, PARALLEL_RANKS)) for i in range(PARALLEL_RANKS)]
+    tp_chunks = math.ceil(r[0]['tp_detect']['n_detected'] / per_chunk)
+    by_path, launches = {}, {}
+    for key, against, per_rank in (('dp', 'the one-rank serve', shares),
+                                   ('tp', '(b) in float32', [tp_chunks] * PARALLEL_RANKS)):
+        d = [x[f'{key}_detect'] for x in r]
+        launches[key] = [(x['k1'], x['k2']) for x in d]
+        want = [(c, K2_BLOCKS * c) for c in per_rank]
+        if launches[key] != want or [x['checked'] for x in d] != want:
+            fail(name, f'{key} detect: K1 and K2 launches per rank {launches[key]} (checked '
+                       f'{[x["checked"] for x in d]}), expected {want}')
+        if any(x['errors'][0] != 0.0 or x['errors'][1] != 0.0
+               or not x['errors'][2] <= K2_MEAN_TOL['atol'] for x in d):
+            fail(name, f'{key} detect: max |kernel - plain| (K1, K2 v, K2 mean) per rank '
+                       f'{[x["errors"] for x in d]}')
+        if not all(x['valid_equal'] and x['within'] for x in d):
+            fail(name, f'{key} detect against {against}: valid equal '
+                       f'{[x["valid_equal"] for x in d]}, max |dpose| '
+                       f'{[x["pose_err"] for x in d]} mm')
+        by_path[f'parallel_{key}_detect'] = tuple(map(sum, zip(*launches[key])))
+    if r[0]['tp_detect']['n_sharded_dw'] == 0:
+        fail(name, '(c) no depthwise weight was sharded: K2 never ran on a channel slice')
+    d0, c0 = r[0]['dp_detect'], r[0]['tp_detect']
+    t_one, t_dp, t_tp = (r[0][f'{k}_train'] for k in ('one', 'dp', 'tp'))
+    worst = lambda t: ', '.join(f'{k} {v:.3g}' for k, v in t['worst'].items())
+    max_of = lambda key, field, i=None: max(
+        x[key][field] if i is None else x[key][field][i] for x in r)
+    per_rank = PARALLEL_STEP_BATCH // PARALLEL_RANKS
+    phase(name, f'(b) {PARALLEL_RANKS} ranks sharing cuda:0 over gloo, (2, 1) mesh: '
+                f'detect_poses_batched YOLOv4-{DETECTOR_SIZE} + EffNetV2-S@{PROC_SIDE} bf16 '
+                f'fused, {N_FRAMES}x{FRAME_H}p, {n_detected} detections, {chunks} chunks dealt '
+                f'{shares}: K1/K2 per rank {launches["dp"]}, every launch exact against the '
+                f'plain versions (K2 mean max {max_of("dp_detect", "errors", 2):.3g}); valid '
+                f'equal to the one-rank serve, max |dpose| {max_of("dp_detect", "pose_err"):.3g} '
+                f'mm; call {d0["ms"]:.1f} ms on rank 0, {describe(d0["collectives"])}; under '
+                f'torch.profiler wall {d0["wall_ms"]:.1f} ms, device busy {d0["busy_ms"]:.2f} '
+                f'ms ({100 * d0["busy_ms"] / d0["wall_ms"]:.1f}%, the card shared by both ranks)')
+    phase(name, f'(b) float32 step, {per_rank}+{per_rank} per rank against the one-rank step on '
+                f'{PARALLEL_STEP_BATCH}+{PARALLEL_STEP_BATCH}: {worst(t_dp)}; ranks equal; step '
+                f'{t_dp["ms"]:.1f} ms (one rank {t_one["ms"]:.1f} ms, the process\'s first '
+                f'float32 step), {describe(t_dp["collectives"])}')
+    phase(name, f'(c) (1, 2) mesh, tp_min_size {PARALLEL_TP_MIN_SIZE}: {c0["n_sharded"]} '
+                f'crop-model weights sharded ({c0["n_sharded_dw"]} depthwise: K2 on channel '
+                f'slices); the fused detect in float32, max_detections '
+                f'{PARALLEL_TP_DETECT["max_detections"]} (chunks: {tp_chunks}), K1/K2 per rank '
+                f'{launches["tp"]}, every launch exact; valid equal to (b)\'s float32 serve, max '
+                f'|dpose| {max_of("tp_detect", "pose_err"):.3g} mm; call '
+                f'{c0["ms"]:.1f} ms, {describe(c0["collectives"])}; float32 step, tp_min_size '
+                f'{PARALLEL_TP_STEP_MIN_SIZE} ({t_tp["n_sharded"]} parameters sharded), against '
+                f'the one-rank step: '
+                + ', '.join(f'{k} {v:.3g}' for k, v in t_tp['worst_one'].items())
+                + f'; against (b) (twice the relative limits): {worst(t_tp)}; step '
+                f'{t_tp["ms"]:.1f} ms, {describe(t_tp["collectives"])}')
+    for key, against in (('dp', 'the one-rank step'), ('tp', '(b)')):
+        t = [x[f'{key}_train'] for x in r]
+        if not all(x['ok'] for x in t) or any(x['launches'] != (0, 0) for x in t):
+            fail(name, f'{key} step against {against}: {[x["worst"] for x in t]}, K1/K2 '
+                       f'launches {[x["launches"] for x in t]}')
+        by_path[f'parallel_{key}_train'] = (0, 0)
+    phase(name, f'{time.perf_counter() - start:.1f} s ((a) and the one-rank serve '
+                f'{t_spawn - start:.1f} s)')
+    return by_path, dict(nccl=nccl, ranks=r)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / 'metrabs_tpu_torch' / 'csrc' / 'warp.cu').exists():
@@ -4275,6 +4780,11 @@ def main() -> None:
     start = time.perf_counter()
     by_path.update(calibrate_phase(root, dev, frames, boxes, box_valid))
     phase('calibrate', f'{time.perf_counter() - start:.1f} s')
+
+    # 15. Several ranks: NCCL in this process, then two ranks sharing the card.
+    torch.cuda.empty_cache()
+    parallel_by_path, _ = parallel_phase(dev, frames)
+    by_path.update(parallel_by_path)
 
     # The card's name and power limit again, where a tail of the output keeps
     # them beside the numbers.

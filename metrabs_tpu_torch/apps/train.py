@@ -9,9 +9,24 @@ checkpoints, resumes, validates and exports a package that serves.
 
 The flags and their defaults are the JAX app's, plus `--device` (default
 `cuda`; the app raises without CUDA unless another device is named). The
-multi-device flags (`--distributed`, `--model-parallel` above 1,
-`--tp-min-size`) raise SystemExit: the port trains on one device. The
 pickles may come from either package (`data.loading.load_examples`).
+
+On several GPUs, one process per card under torchrun:
+
+  torchrun --nproc-per-node N -m metrabs_tpu_torch.apps.train --distributed \
+      [--model-parallel M [--tp-min-size 65536]] ...
+
+`--distributed` joins the process group from torchrun's environment
+(`parallel.mesh.init_distributed`: NCCL on the cards, gloo with `--device
+cpu`), the mesh is (N / M) x M over ('data', 'model'), and the step is
+`train.loop.make_sharded_train_step`, tensor-parallel where M > 1
+(`parallel.mesh.tp_shardings` with `--tp-min-size`). As in JAX: the global
+batch sizes must divide the process count; every rank runs the same
+round-robin stream and loads its own slice of each global block
+(`data.pipeline.shard_example_stream`) with loader seeds seed + 101 *
+rank and seed + 1 + 101 * rank; rank 0 logs and exports, and accumulates
+the bone lengths of its own batches; every rank validates; checkpoints
+are written by rank 0 (`io.checkpoints`).
 
 `train_log.jsonl` in the checkpoint directory gets one record per log
 period (the mean loss is the last step's; `steps_per_sec` covers the steps
@@ -87,12 +102,12 @@ def parse_args(argv=None):
                    help="Adam first-moment dtype, e.g. 'bfloat16' (second moment stays "
                         "float32)")
     p.add_argument('--distributed', action='store_true',
-                   help='multi-process training: not ported (one device), raises')
+                   help='multi-process training under torchrun (one process per GPU)')
     p.add_argument('--model-parallel', type=int, default=1,
-                   help='model-axis extent: only 1 is ported, other values raise')
-    p.add_argument('--tp-min-size', type=int, default=None,
-                   help='smallest kernel sharded over the model axis (JAX default 65536): '
-                        'not ported, raises when given')
+                   help='model-axis extent of the mesh (tensor parallelism when > 1; needs '
+                        '--distributed)')
+    p.add_argument('--tp-min-size', type=int, default=2 ** 16,
+                   help='smallest kernel (elements) sharded over the model axis')
     p.add_argument('--absloss-factor', type=float, default=None,
                    help='weight of the absolute-pose loss once active (default 0.1)')
     p.add_argument('--absloss-start-step', type=int, default=None,
@@ -212,26 +227,44 @@ def init_like_flax_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def _multi_device_refused(args):
-    if args.distributed:
-        raise SystemExit('--distributed: multi-process training is not ported (one device; '
-                         'ROADMAP.md)')
-    if args.model_parallel != 1:
-        raise SystemExit(f'--model-parallel {args.model_parallel}: model parallelism is not '
-                         f'ported (one device; ROADMAP.md)')
-    if args.tp_min_size is not None:
-        raise SystemExit('--tp-min-size: model parallelism is not ported (one device; '
-                         'ROADMAP.md)')
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _multi_device_refused(args)
+    if args.model_parallel < 1:
+        raise SystemExit(f'--model-parallel must be at least 1, got {args.model_parallel}')
+    if args.model_parallel > 1 and not args.distributed:
+        raise SystemExit(f'--model-parallel {args.model_parallel} needs --distributed (one '
+                         f'process per GPU under torchrun)')
+    if not args.distributed:
+        return _main(args, None, 0, 1, args.device)
+    import torch.distributed as dist
+
+    from metrabs_tpu_torch.parallel import mesh as mesh_mod
+    # One process per card: rank r on cuda:LOCAL_RANK (or all on the CPU).
+    device = args.device
+    if torch.device(device).type == 'cuda':
+        device = f'cuda:{os.environ.get("LOCAL_RANK", 0)}'
+    try:
+        rank, world, _ = mesh_mod.init_distributed(device=device)
+    except RuntimeError as e:
+        raise SystemExit(f'--distributed: {e}') from e
+    try:
+        if world % args.model_parallel:
+            raise SystemExit(f'--model-parallel {args.model_parallel} must divide the '
+                             f'{world} processes')
+        return _main(args, mesh_mod.make_mesh(n_model=args.model_parallel), rank, world,
+                     device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _main(args, mesh, rank: int, n_proc: int, device):
+    """`main` on `device`, rank `rank` of `n_proc` processes over `mesh`
+    (None: one process, the plain step)."""
 
     from metrabs_tpu_torch.data.loading import (load_and_transform2d, load_and_transform3d,
                                                 load_examples)
     from metrabs_tpu_torch.data.pipeline import (ParallelBatchLoader, device_prefetch,
-                                                 roundrobin_iterate)
+                                                 roundrobin_iterate, shard_example_stream)
     from metrabs_tpu_torch.eval.harness import evaluate_predictions, predict_dataset
     from metrabs_tpu_torch.io.checkpoints import CheckpointManager, restore_train_state
     from metrabs_tpu_torch.io.packaging import save_pose_estimator_package
@@ -242,7 +275,7 @@ def main(argv=None):
     from metrabs_tpu_torch.pipeline.skeletons import H36M_17, LSP_14, SkeletonRegistry
     from metrabs_tpu_torch.train import loop as loop_mod, optim
 
-    device = checked_device(args.device)
+    device = checked_device(device)
     cfg = ModelConfig(
         proc_side=args.proc_side, depth=args.depth, n_joints=args.n_joints,
         dtype=args.dtype, backbone=args.backbone, backbone_scan_blocks=False,
@@ -310,6 +343,17 @@ def main(argv=None):
     it2d = roundrobin_iterate(
         lists2d, sections(args.sections2d, len(lists2d), args.batch_size_2d), rng_np)
 
+    # Per-process (local) batch sizes; the sharded step sees the global batch.
+    if args.batch_size % n_proc or args.batch_size_2d % n_proc:
+        raise SystemExit(f'global batch sizes ({args.batch_size}, {args.batch_size_2d}) must '
+                         f'divide the process count {n_proc}')
+    local_bs, local_bs2 = args.batch_size // n_proc, args.batch_size_2d // n_proc
+    if n_proc > 1:
+        # Every process runs the same round-robin order (same seed) and takes
+        # its own slice of each global block: distinct examples per process.
+        it3d = shard_example_stream(it3d, args.batch_size, rank, n_proc)
+        it2d = shard_example_stream(it2d, args.batch_size_2d, rank, n_proc)
+
     # The crop model (`main.py:177-180`), initialised from the seed.
     model_kwargs = dict(model_class=args.model_class)
     bones_25d = bone_lengths_ideal = None
@@ -356,6 +400,16 @@ def main(argv=None):
     # The final phase's step with BN frozen in inference mode, switched in by
     # step index below.
     step_fn_inf = make_step(bn_inference=True) if tcfg.finetune_in_inference_mode else None
+    state_shardings = None
+    if mesh is not None:
+        from metrabs_tpu_torch.parallel import mesh as mesh_mod
+        if args.model_parallel > 1:
+            state_shardings = mesh_mod.tp_shardings(mesh, state, min_size=args.tp_min_size)
+        step_fn = loop_mod.make_sharded_train_step(step_fn, mesh,
+                                                   state_shardings=state_shardings)
+        if step_fn_inf is not None:
+            step_fn_inf = loop_mod.make_sharded_train_step(step_fn_inf, mesh,
+                                                           state_shardings=state_shardings)
 
     # Checkpoint restore (precedence: load_path > latest > init_path).
     manager = CheckpointManager(args.checkpoint_dir, save_interval_steps=args.checkpoint_period)
@@ -364,11 +418,16 @@ def main(argv=None):
     if restored is not None:
         state = restored
         print(f'restored checkpoint at step {state.step}', flush=True)
+    if state_shardings is not None:
+        # Every rank restored the full state; each keeps its slices.
+        loop_mod.shard_train_state(state, mesh, state_shardings)
 
     log_path = os.path.join(args.checkpoint_dir, 'train_log.jsonl')
     os.makedirs(args.checkpoint_dir, exist_ok=True)
 
     def log(rec):
+        if rank != 0:
+            return
         print(json.dumps(rec), flush=True)
         with open(log_path, 'a') as f:
             f.write(json.dumps(rec) + '\n')
@@ -376,10 +435,10 @@ def main(argv=None):
     lcfg = build_load_config(args)
     loader3 = ParallelBatchLoader(
         lambda ex, r: load_and_transform3d(ex, joint_info3d, True, r, cfg, lcfg),
-        it3d, batch_size=args.batch_size, n_workers=args.workers, seed=args.seed)
+        it3d, batch_size=local_bs, n_workers=args.workers, seed=args.seed + 101 * rank)
     loader2 = ParallelBatchLoader(
         lambda ex, r: load_and_transform2d(ex, joint_info2d, True, r, cfg, lcfg),
-        it2d, batch_size=args.batch_size_2d, n_workers=args.workers, seed=args.seed + 1)
+        it2d, batch_size=local_bs2, n_workers=args.workers, seed=args.seed + 1 + 101 * rank)
 
     def batch_fields(b, keys):
         return {k: v for k, v in b.items() if k in keys}
@@ -397,11 +456,14 @@ def main(argv=None):
             bone_stats.update(b['coords3d_true'], b['joint_validity_mask'])
             yield b
 
+    # Under several processes each rank feeds its own rows to its own card.
+    local_rows = mesh is not None
     feed3 = device_prefetch(
-        accumulate_bones(batch_fields(b, feed3_keys) for b in loader3), device)
+        accumulate_bones(batch_fields(b, feed3_keys) for b in loader3), device,
+        local_rows=local_rows)
     feed2 = device_prefetch(
         (batch_fields(b, ('image', 'intrinsics', 'coords2d_true', 'joint_validity_mask'))
-         for b in loader2), device)
+         for b in loader2), device, local_rows=local_rows)
 
     # Periodic validation over a held-out 3D set: a forward-only metric pass
     # through `predict_dataset`, logged beside the training losses.
@@ -453,15 +515,18 @@ def main(argv=None):
             manager.save(i + 1, state)
             t_last += time.time() - pause
     finally:
-        # Save on the way out, also off the checkpoint interval.
-        if manager.latest_step() != state.step:
-            manager.save(state.step, state, force=True)
+        # Save on the way out, also off the checkpoint interval (unless the
+        # newest checkpoint is of this step).
+        manager.save(state.step, state, force=True)
         loader3.close()
         loader2.close()
 
     if args.export_dir:
-        state_dict = (state.ema_state_dict() if tcfg.ema_momentum < 1
-                      else state.model.state_dict())
+        # Tensor-parallel leaves are gathered on every rank; rank 0 exports.
+        state_dict = (loop_mod.full_ema_state_dict(state) if tcfg.ema_momentum < 1
+                      else loop_mod.full_model_state_dict(state))
+        if rank != 0:
+            return
         variables = weights.flax_variables_from_state_dict(state_dict)
         # Dataset mean bone lengths where the run saw ground truth for every
         # edge; otherwise none, and the estimator warns at load time.

@@ -4,8 +4,9 @@ section-size tables, and `device_prefetch`, which feeds batches to the card
 ahead of the step.
 
 Everything but `device_prefetch` is a copy of the JAX package's
-framework-free code (tests/test_torch_standalone.py holds it against the
-originals). The multi-host `shard_example_stream` is not ported.
+framework-free code (tests/test_torch_standalone.py and
+tests/test_torch_parallel.py hold it against the originals), the
+multi-process `shard_example_stream` included.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, Dict, Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from metrabs_tpu_torch.parallel.mesh import LocalRows
 from metrabs_tpu_torch.pipeline.estimator import checked_device
 
 
@@ -53,6 +55,28 @@ def roundrobin_iterate(
 
 def batch_dicts(dicts: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+def shard_example_stream(example_iter: Iterator, global_block: int,
+                         process_index: int, process_count: int) -> Iterator:
+    """Multi-host data sharding: every process runs the SAME round-robin
+    stream (same seed) and consumes only its `global_block/process_count`
+    slice of each global block, so the assembled global batch
+    (make_array_from_process_local_data) holds `global_block` DISTINCT
+    examples with the round-robin composition intact — not process_count
+    duplicates of one local stream."""
+    if global_block % process_count:
+        raise ValueError(
+            f'global block {global_block} must divide process count '
+            f'{process_count}')
+    local = global_block // process_count
+    lo = process_index * local
+    while True:
+        block = list(itertools.islice(example_iter, global_block))
+        if len(block) < global_block:
+            yield from block[lo:lo + local]
+            return
+        yield from block[lo:lo + local]
 
 
 class ParallelBatchLoader:
@@ -135,18 +159,26 @@ class ParallelBatchLoader:
 
 
 def device_prefetch(batch_iter: Iterable[Dict[str, np.ndarray]], device='cuda',
-                    depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                    depth: int = 2, local_rows: bool = False
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
     """The batches of `batch_iter` (dicts of numpy arrays) as dicts of tensors
     on `device`, with `depth` batches in flight so that host loading
     overlaps the step. On a CUDA device each array is pinned and copied
     with `non_blocking=True` on a side stream; the consumer's stream waits
     on the copy's event before the batch is handed out. Raises at the call
-    where CUDA is not available and no other device was named."""
+    where CUDA is not available and no other device was named.
+
+    Under several processes each rank feeds its own rows of the global
+    batch to its own device: with `local_rows` the batches are yielded as
+    `parallel.mesh.LocalRows`, which a sharded step takes as this rank's
+    rows (JAX's `make_array_from_process_local_data`)."""
     device = checked_device(device)
     if device.type != 'cuda':
-        return ({k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-                for batch in batch_iter)
-    return _cuda_prefetch(iter(batch_iter), device, depth)
+        out = ({k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+               for batch in batch_iter)
+    else:
+        out = _cuda_prefetch(iter(batch_iter), device, depth)
+    return (LocalRows(b) for b in out) if local_rows else out
 
 
 def _cuda_prefetch(it: Iterator, device: torch.device, depth: int):

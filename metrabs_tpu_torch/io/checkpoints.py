@@ -15,6 +15,12 @@ containers, restored with `weights_only=True`) with the JAX package's
 policy: keep the newest 2, save every 2000 steps, and restore an explicit
 `load_path` before the newest checkpoint of the directory before an
 `init_path`.
+
+Under several processes every rank calls `CheckpointManager.save` alike and
+rank 0 writes: a replicated state as it is, a tensor-parallel one
+(`train.loop.shard_train_state`) gathered to its full shapes first, which
+every rank takes part in. Every rank restores the full state, then shards
+it again.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metrabs_tpu_torch.train.optim import OptState
 
@@ -254,17 +261,36 @@ class CheckpointManager:
     def save(self, step: int, state, force: bool = False) -> bool:
         """Saves `state` (a `train.loop.TrainState`) as step `step` if due, or
         with `force` at any step later than the newest (the final save off
-        the interval); returns whether it did."""
+        the interval); returns whether it did (under several processes:
+        module docstring)."""
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        sharded = getattr(state, 'sharded', None)
+        if rank != 0 and not sharded:
+            return False  # replicated: rank 0 holds all of it and writes alone
         latest = self.latest_step()
-        if not (self.should_save(step) or force and (latest is None or step > latest)):
+        due = self.should_save(step) or force and (latest is None or step > latest)
+        if sharded:  # every rank gathers: rank 0's decision holds
+            flag = torch.tensor([int(due)], device=_collective_device())
+            dist.broadcast(flag, src=0)
+            due = bool(flag.item())
+        if not due:
             return False
+        from metrabs_tpu_torch.train.loop import full_train_state_dict
+        contents = full_train_state_dict(state)
+        if rank != 0:
+            return True
         os.makedirs(self.directory, exist_ok=True)
         tmp = self.path(step) + '.tmp'
-        torch.save(train_state_dict(state), tmp)
+        torch.save(contents, tmp)
         os.replace(tmp, self.path(step))
         for old in self.all_steps()[:-self.keep]:
             os.remove(self.path(old))
         return True
+
+
+def _collective_device() -> torch.device:
+    return (torch.device('cuda', torch.cuda.current_device()) if dist.get_backend() == 'nccl'
+            else torch.device('cpu'))
 
 
 def train_state_dict(state) -> dict:

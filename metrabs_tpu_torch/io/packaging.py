@@ -49,6 +49,7 @@ from metrabs_tpu_torch.io import weights
 from metrabs_tpu_torch.io.checkpoints import export_model_msgpack, load_model_msgpack
 from metrabs_tpu_torch.models.backbones.builder import backbone_supports_bn_fold
 from metrabs_tpu_torch.models.metrabs import build_crop_model
+from metrabs_tpu_torch.parallel.mesh import tp_shardings
 from metrabs_tpu_torch.pipeline.estimator import PoseEstimator, checked_device
 from metrabs_tpu_torch.pipeline.skeletons import SkeletonInfo, SkeletonRegistry
 from metrabs_tpu_torch.utils.joint_info import JointInfo
@@ -232,7 +233,7 @@ def pose_estimator_from_variables(
         cfg_overrides: Optional[dict] = None,
         joint_transform_matrix: Optional[np.ndarray] = None,
         detector_variables: Optional[Dict] = None,
-        backbone_builder=None) -> PoseEstimator:
+        backbone_builder=None, mesh=None, tp_min_size: Optional[int] = None) -> PoseEstimator:
     """Everything `load_pose_estimator` does after reading the files. A
     Metro package raises ValueError, as in JAX.
 
@@ -242,7 +243,11 @@ def pose_estimator_from_variables(
     with `{'bn_fold': False}`), in the crop model and in a YOLOv4 detector.
     `detector_variables`: the detector's tree (the manifest's `detector_*`
     fields describe it), or None for an estimator without a detector;
-    `backbone_builder`: module docstring."""
+    `backbone_builder`: module docstring. `mesh`: serving over its ranks
+    (`pipeline.estimator`), every rank loading the package alike; with
+    `tp_min_size` the crop model is also tensor-parallel over the mesh's
+    'model' axis (`parallel.mesh.tp_shardings(mesh, crop_model,
+    tp_min_size)`)."""
     device = checked_device(device)
     if manifest.get('model_class', 'metrabs') == 'metro':
         raise ValueError(
@@ -278,18 +283,26 @@ def pose_estimator_from_variables(
                                            device=device)
     bone_means = (np.asarray(manifest['bone_mean_lengths'], np.float32)
                   if manifest.get('bone_mean_lengths') else None)
+    shardings = None
+    if tp_min_size is not None:
+        if mesh is None:
+            raise ValueError('tp_min_size needs a mesh')
+        shardings = tp_shardings(mesh, model, tp_min_size)
     return PoseEstimator(
         model, joint_info, cfg, aug_cfg=AugConfig(**manifest['aug_config']),
         skeleton_registry=skeleton_registry,
         joint_transform_matrix=joint_transform_matrix,
-        detector=detector, bone_mean_lengths=bone_means, device=device)
+        detector=detector, bone_mean_lengths=bone_means, device=device, mesh=mesh,
+        crop_state_shardings=shardings)
 
 
 def load_pose_estimator(directory: str, device='cuda',
                         cfg_overrides: Optional[dict] = None,
-                        backbone_builder=None) -> PoseEstimator:
+                        backbone_builder=None, mesh=None,
+                        tp_min_size: Optional[int] = None) -> PoseEstimator:
     """A `PoseEstimator` from a package directory, on `device`, with the
-    package's detector when it has one (`detect_poses_batched`)."""
+    package's detector when it has one (`detect_poses_batched`); `mesh`
+    and `tp_min_size`: `pose_estimator_from_variables`'s."""
     device = checked_device(device)
     manifest = _read_manifest(directory)
     variables = load_model_msgpack(os.path.join(directory, 'crop_model.msgpack'))['variables']
@@ -307,7 +320,7 @@ def load_pose_estimator(directory: str, device='cuda',
     return pose_estimator_from_variables(
         variables, manifest, device=device, cfg_overrides=cfg_overrides,
         joint_transform_matrix=joint_transform, detector_variables=detector_variables,
-        backbone_builder=backbone_builder)
+        backbone_builder=backbone_builder, mesh=mesh, tp_min_size=tp_min_size)
 
 
 def _read_manifest(directory: str) -> dict:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from metrabs_tpu_torch.ops.mbconv import fold_bn
+from metrabs_tpu_torch.parallel import mesh as mesh_mod
 
 
 def fixed_padding_amounts(kernel_size: int, rate: int = 1,
@@ -57,10 +58,16 @@ class Conv2d(nn.Conv2d):
     param_dtype=float32)`: float32 weights are cast to bfloat16 for bfloat16
     activations (a no-op when the dtypes agree). A call may give the stride
     and dilation: the train and test plans of an EfficientNetV2 block share
-    one weight but may differ in both."""
+    one weight but may differ in both. A weight sharded over a mesh's
+    'model' axis (`parallel.mesh.shard_module` sets `tp`) runs
+    column-parallel."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor, stride: Optional[int] = None,
                 dilation: Optional[int] = None) -> torch.Tensor:
+        if self.tp is not None:
+            return mesh_mod.column_parallel_conv2d(self, x, stride, dilation)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, stride or self.stride,
                         self.padding, dilation or self.dilation, self.groups)
@@ -136,7 +143,15 @@ class GhostBatchNorm(FrozenBatchNorm2d):
     batch. `F.batch_norm` is not used: it writes the unbiased variance into
     `running_var`. `update_stats` is cleared while a checkpointed block
     recomputes its forward (`frozen_stats`), so that a step updates the
-    running statistics once."""
+    running statistics once.
+
+    In a data-parallel step over several 'data' ranks
+    (`parallel.mesh.data_parallel`) the splits are those of the global
+    batch, [all 3D rows; all 2D rows], as JAX's sharded step computes them:
+    a split may straddle ranks and a rank's rows fall in several splits.
+    Each rank sums x and x^2 over its rows of every split, the [splits, 2,
+    C] sums are all-reduced over 'data', and the running statistics, which
+    stay replicated, are updated once per split in order."""
 
     def __init__(self, num_features: int, eps: float, momentum: float, splits: int = 1,
                  bf16_stats: bool = False):
@@ -149,6 +164,9 @@ class GhostBatchNorm(FrozenBatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        layout = mesh_mod.active_layout()
+        if layout is not None and layout.distributed:
+            return self._global_batch_norm(x, layout)
         n = x.shape[0]
         if n % self.splits:
             raise ValueError(f'Batch {n} not divisible by ghost splits {self.splits}')
@@ -166,6 +184,34 @@ class GhostBatchNorm(FrozenBatchNorm2d):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var.float())
         centered = stats - mean.reshape(1, -1, 1, 1)
         return self._scale_shift(centered.to(at_least_f32(centered.dtype)), var, x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor, layout) -> torch.Tensor:
+        """Train mode over the global batch of `layout` (class docstring):
+        the sums in at least float32, the statistics rounded to the input's
+        dtype with `bf16_stats`."""
+        g = self.splits
+        if layout.n_global % g:
+            raise ValueError(f'Batch {layout.n_global} not divisible by ghost splits {g}')
+        acc = at_least_f32(x.dtype)
+        stats_dtype = x.dtype if self.bf16_stats else acc
+        xs = x.to(acc)
+        split = (layout.rows // (layout.n_global // g)).to(x.device)  # [n] split of each row
+        onehot = F.one_hot(split, g).to(acc)  # [n, g]
+        sums = torch.stack([onehot.T @ xs.sum(dim=(2, 3)), onehot.T @ (xs * xs).sum(dim=(2, 3))],
+                           dim=1)  # [g, 2, C]
+        sums = mesh_mod.all_reduce_sum(sums, layout.group)
+        count = float(layout.n_global // g * x.shape[2] * x.shape[3])
+        mean = (sums[:, 0] / count).to(stats_dtype)
+        var = torch.clamp((sums[:, 1] / count).to(stats_dtype) - mean * mean, min=0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                for k in range(g):
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean[k].float())
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var[k].float())
+        centered = (x.to(stats_dtype) - mean[split][:, :, None, None]).to(acc)
+        mul = (torch.rsqrt(var[split].to(acc) + self.eps) * self.weight.float())[:, :, None, None]
+        return (centered * mul + self.bias.float().reshape(1, -1, 1, 1)).to(x.dtype)
 
 
 class BnOptions:
@@ -238,9 +284,10 @@ def call_block(block: nn.Module, *args, remat: bool = False):
 def drop_mask(n: int, survival_prob: float, generator: Optional[torch.Generator],
               device) -> torch.Tensor:
     """[n] bool: which samples keep their residual branch, each with
-    probability `survival_prob` (`jax.random.bernoulli`: uniform < p)."""
+    probability `survival_prob` (`jax.random.bernoulli`: uniform < p); in a
+    data-parallel step, this rank's rows of the global batch's draw."""
     p = min(max(survival_prob, 1e-6), 1.0)
-    return torch.rand(n, generator=generator, device=device) < p
+    return mesh_mod.batch_rand(n, generator, device) < p
 
 
 def stochastic_depth(x: torch.Tensor, residual: torch.Tensor, survival_prob: float,

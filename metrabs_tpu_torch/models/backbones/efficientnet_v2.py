@@ -32,8 +32,10 @@ blocks (unfolded BN, expand !=
 port of TPU kernel K2: 'on' calls `ops.mbconv_cuda.fused_mbconv_inner` (the
 CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), 'auto'
 does so only on a CUDA tensor, 'interpret' calls the plain version
-`ops.mbconv.fused_mbconv_inner` on any device. The parameters are the same
-either way; with `bn_fold=True` every block takes the unfused branch, as in
+`ops.mbconv.fused_mbconv_inner` on any device. With the depthwise weight
+sharded over a mesh's 'model' axis the chain runs on this rank's channel
+slice and its v and SE mean are all-gathered (every step of the chain is
+per channel). The parameters are the same either way; with `bn_fold=True` every block takes the unfused branch, as in
 JAX (there is no folded-BN fused variant). A fused block computes the
 chain's float32 constants (depthwise taps and both BNs' scale and bias) once
 in eval mode and keeps them as non-persistent buffers, so its forward
@@ -325,11 +327,16 @@ class MBConv(_Block):
 
     def _inner_constants(self):
         """(taps [E, 9], sb [4, E]) float32, kept. Made again if a cast of the
-        module (`.to(dtype)`) has cast the kept ones."""
+        module (`.to(dtype)`) has cast the kept ones. With the depthwise
+        weight sharded over 'model', those of this rank's channel slice."""
         if self.inner_taps is None or self.inner_taps.dtype != torch.float32:
             with torch.no_grad():
+                folded = self.norm0.folded() + self.norm1.folded()
+                tp = self.depthwise_conv.tp
+                if tp is not None:
+                    folded = tuple(t[tp.local_slice(t.shape[0])] for t in folded)
                 self.inner_taps, self.inner_sb = mbconv_ops.inner_constants(
-                    self.depthwise_conv.weight, *self.norm0.folded(), *self.norm1.folded())
+                    self.depthwise_conv.weight, *folded)
         return self.inner_taps, self.inner_sb
 
     def _use_fused(self, x: torch.Tensor) -> bool:
@@ -349,7 +356,12 @@ class MBConv(_Block):
                     "fuse_mbconv='off'")
             inner = (mbconv_ops.fused_mbconv_inner if self.fuse == 'interpret'
                      else mbconv_cuda.fused_mbconv_inner)
+            tp = self.depthwise_conv.tp
+            if tp is not None:  # the chain is per channel: K2 on this rank's slice
+                u = u[:, tp.local_slice(u.shape[1])]
             x, se_mean = inner(u.contiguous(), *self._inner_constants())
+            if tp is not None:
+                x, se_mean = tp.gather(x, 1), tp.gather(se_mean, 1)
             if a.se_ratio:
                 x = self.se(x, se_mean[:, :, None, None])
         else:

@@ -59,14 +59,14 @@ def compute_metro_losses(coords3d_rel_pred: torch.Tensor, coords3d_pred_2d: torc
                                                    tcfg.mean_relative)
     pred_rootrel = losses_mod.center_relative_pose(coords3d_rel_pred, mask3d,
                                                    tcfg.mean_relative)
-    losses['loss3d'] = masked.reduce_mean_masked(
+    losses['loss3d'] = masked.batch_mean_masked(
         torch.abs((true_rootrel - pred_rootrel) / 1000.0), mask3d)
 
     scale_2d = 1.0 / cfg.proc_side * cfg.box_size_mm / 1000.0
     coords2d_pred_2d = align_2d_skeletons(
         losses_mod.get_2dlike_joints(coords3d_pred_2d[..., :2], index_groups),
         batch2d['coords2d_true'], batch2d['joint_validity_mask'])
-    losses['loss2d'] = masked.reduce_mean_masked(
+    losses['loss2d'] = masked.batch_mean_masked(
         torch.abs((batch2d['coords2d_true'] - coords2d_pred_2d) * scale_2d),
         batch2d['joint_validity_mask'])
     losses['loss'] = losses['loss3d'] + tcfg.loss2d_factor * losses['loss2d']

@@ -84,15 +84,15 @@ def compute_model25d_losses(coords25d_pred: torch.Tensor, coords25d_pred_2d: tor
     losses = {}
     scale_2d = 1.0 / cfg.proc_side * cfg.box_size_mm / 1000.0
     mask3d = batch3d['joint_validity_mask']
-    losses['loss23d'] = masked.reduce_mean_masked(
+    losses['loss23d'] = masked.batch_mean_masked(
         torch.abs((batch3d['coords2d_true'] - coords25d_pred[..., :2]) * scale_2d), mask3d)
     z_ref = losses_mod.center_relative_pose(
         batch3d['coords3d_true'][..., 2:], mask3d,
         tcfg.mean_relative)[..., 0] + 0.5 * cfg.box_size_mm
-    losses['loss_z'] = masked.reduce_mean_masked(
+    losses['loss_z'] = masked.batch_mean_masked(
         torch.abs(z_ref - coords25d_pred[..., 2]), mask3d) / 1000.0
     coords2d_pred_2d = losses_mod.get_2dlike_joints(coords25d_pred_2d[..., :2], index_groups)
-    losses['loss2d'] = masked.reduce_mean_masked(
+    losses['loss2d'] = masked.batch_mean_masked(
         torch.abs((batch2d['coords2d_true'] - coords2d_pred_2d) * scale_2d),
         batch2d['joint_validity_mask'])
     losses['loss3d'] = losses['loss_z'] / 3 + 2 * losses['loss23d'] / 3

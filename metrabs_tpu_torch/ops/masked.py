@@ -2,6 +2,13 @@
 
 Invalid entries are zeroed and the divisor is the count of valid entries
 (0/0 = 0), so fully padded batches stay finite.
+
+`batch_mean_masked` and `batch_mean` are the losses' means over every
+dim, the batch's included: in a data-parallel step
+(`parallel.mesh.data_parallel`) the sum and the count of every rank's rows
+are summed over 'data' first, so that the mean, and its gradient, are
+those of the global batch (a per-rank mean averaged over the ranks is not
+where ranks hold different numbers of valid entries).
 """
 
 from __future__ import annotations
@@ -9,6 +16,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 import torch
+
+from metrabs_tpu_torch.parallel import mesh as mesh_mod
 
 Axis = Union[None, int, Sequence[int]]
 
@@ -68,3 +77,26 @@ def mean_stdev_masked(x: torch.Tensor, is_valid: torch.Tensor, items_axis: int,
                                axis=(items_axis, dimensions_axis), keepdim=True)
     stdev = torch.sqrt(divide_no_nan(sum_sq, n_valid) + 1e-10)
     return mean, stdev
+
+
+def batch_mean_masked(x: torch.Tensor, is_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """`reduce_mean_masked(x, is_valid)` over every dim, over the global
+    batch in a data-parallel step (module docstring)."""
+    layout = mesh_mod.active_layout()
+    if layout is None or not layout.distributed:
+        return reduce_mean_masked(x, is_valid)
+    if is_valid is None:
+        return batch_mean(x)
+    mask = _expand_mask(is_valid, x.ndim)
+    sums = torch.stack([torch.sum(torch.where(mask, x, torch.zeros_like(x))),
+                        torch.sum(torch.broadcast_to(mask, x.shape).to(x.dtype))])
+    sums = mesh_mod.batch_sum(sums)
+    return divide_no_nan(sums[0], sums[1])
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """`torch.mean(x)`, over the global batch in a data-parallel step."""
+    layout = mesh_mod.active_layout()
+    if layout is None or not layout.distributed:
+        return torch.mean(x)
+    return mesh_mod.batch_sum(torch.sum(x)) / (x.numel() * layout.n_data)

@@ -25,6 +25,20 @@ while the detect path waits for the device within a call.
 The crop warp always goes through `ops.warp_cuda.warp_pyramid`: the CUDA
 kernel on a CUDA device, its plain version on the CPU. `cfg.warp_backend`
 (a JAX/TPU choice) is not consulted.
+
+With a `mesh` (`parallel.mesh`), every rank is called with the same global
+frame batch, as a multi-process `jit` is, and returns the whole result.
+The frame batch must divide the mesh's 'data' extent (else ValueError, as
+JAX's shardings raise). The detector runs on each rank's frames and the
+boxes are all-gathered over 'data'; every rank then computes the same
+valid-first compaction and the same chunks of boxes (JAX's chunking, which
+`ops.reconstruct` pools its scale over); the non-empty chunks are dealt
+round-robin to the 'data' ranks and their poses all-gathered; the filter
+and the pose NMS run after the gather, alike on every rank. Each rank
+builds the pyramid of every frame. With `crop_state_shardings`
+(`parallel.mesh.tp_shardings` of the crop model) the crop model is also
+tensor-parallel over 'model' (`parallel.mesh.shard_module`); the detector
+stays replicated.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from metrabs_tpu_torch.ops import distortion as distortion_ops
 from metrabs_tpu_torch.ops import rotation as rotation_ops
 from metrabs_tpu_torch.ops import warp as warp_ops
 from metrabs_tpu_torch.ops import warp_cuda
+from metrabs_tpu_torch.parallel import mesh as mesh_mod
 from metrabs_tpu_torch.pipeline import bone_priors, plausibility
 from metrabs_tpu_torch.pipeline import tta as tta_mod
 from metrabs_tpu_torch.pipeline.skeletons import SkeletonRegistry
@@ -137,15 +152,22 @@ class PoseEstimator:
     sample_valid [N])` returns absolute camera-space poses [N, J, 3] in
     millimeters. `detector`: a `detect.yolov4.PersonDetector` or None.
     `bone_mean_lengths` [n_edges] (mm): the plausibility filter's priors.
-    `device` defaults to the card and raises where CUDA is not available."""
+    `device` defaults to the card and raises where CUDA is not available.
+    `mesh` and `crop_state_shardings`: serving over several ranks (module
+    docstring); the crop model is sharded in place."""
 
     def __init__(self, crop_model: torch.nn.Module, joint_info: JointInfo,
                  cfg: ModelConfig, aug_cfg: AugConfig = AugConfig(),
                  skeleton_registry: Optional[SkeletonRegistry] = None,
                  joint_transform_matrix: Optional[np.ndarray] = None,
                  detector=None, bone_mean_lengths: Optional[np.ndarray] = None,
-                 device='cuda'):
+                 device='cuda', mesh=None, crop_state_shardings=None):
         self.device = checked_device(device)
+        self.mesh = mesh
+        if crop_state_shardings is not None:
+            if mesh is None:
+                raise ValueError('crop_state_shardings needs a mesh')
+            mesh_mod.shard_module(crop_model, mesh, crop_state_shardings)
         self.crop_model = crop_model
         self.cfg = cfg
         self._aug_cfg = aug_cfg
@@ -177,6 +199,7 @@ class PoseEstimator:
         poses2d [B, max, (A,) J, 2] and valid [B, max]; the aug axis A is
         present iff average_aug is False."""
         boxes5, box_valid = self._boxes5_from(boxes, box_valid)
+        self._data_rows(boxes5)  # raises where the batch does not divide 'data'
         images = torch.as_tensor(images, device=self.device)
         camera = self._prepare_camera_args(images.shape[0], intrinsic_matrix,
                                            distortion_coeffs, extrinsic_matrix,
@@ -253,10 +276,11 @@ class PoseEstimator:
                                            world_up_vector)
         with torch.inference_mode():
             boxes5, valid = self.detector.detect_batched(
-                images, threshold=float(detector_threshold),
+                self._data_rows(images), threshold=float(detector_threshold),
                 nms_iou_threshold=float(detector_nms_iou_threshold),
                 max_detections=int(max_detections), flip_aug=bool(detector_flip_aug),
                 flip_vertical=bool(flip_vertical))
+            boxes5, valid = self._gather_data(boxes5), self._gather_data(valid)
             return self._estimate(
                 images, boxes5, valid.cpu().numpy(), *camera, float(default_fov_degrees),
                 num_aug=int(num_aug), average_aug=bool(average_aug),
@@ -318,6 +342,50 @@ class PoseEstimator:
         """Single image; returns host numpy arrays restricted to valid rows."""
         result = self.detect_poses_batched(torch.as_tensor(image)[None], **kwargs)
         return self._squeeze_single(result)
+
+    def _data_extent(self) -> int:
+        return 1 if self.mesh is None else mesh_mod.axis_size(self.mesh, mesh_mod.DATA_AXIS)
+
+    def _data_rows(self, x):
+        """This rank's frames of a frame batch (all of them without a
+        mesh); raises where the batch does not divide 'data'."""
+        return x if self.mesh is None else mesh_mod.shard_batch(self.mesh, x)
+
+    def _gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The 'data' ranks' frame rows of `x` concatenated in rank order."""
+        n = self._data_extent()
+        if n == 1:
+            return x
+        group = mesh_mod.axis_group(self.mesh, mesh_mod.DATA_AXIS)
+        if x.dtype == torch.bool:
+            return mesh_mod.all_gather_rows(x.to(torch.uint8), group, n).bool()
+        return mesh_mod.all_gather_rows(x, group, n)
+
+    def _deal_chunks(self, chunks, nonempty, chunk_rows, row_shape):
+        """Under several 'data' ranks, `chunks` holds the poses of this
+        rank's share of the non-empty chunks (`nonempty`, dealt round-robin)
+        and None for the others': fills those in from one all-gather, each
+        rank's rows padded to the longest share. `chunk_rows`: each chunk's
+        box count; `row_shape`: a box's poses' shape."""
+        n = self._data_extent()
+        if n == 1:
+            return chunks
+        index = mesh_mod.axis_index(self.mesh, mesh_mod.DATA_AXIS)
+        share = [nonempty[r::n] for r in range(n)]
+        width = max(sum(chunk_rows[i] for i in s) for s in share)
+        local = torch.zeros((width,) + row_shape, device=self.device)
+        offset = 0
+        for i in share[index]:
+            local[offset:offset + chunk_rows[i]] = chunks[i]
+            offset += chunk_rows[i]
+        gathered = mesh_mod.all_gather_rows(
+            local, mesh_mod.axis_group(self.mesh, mesh_mod.DATA_AXIS), n)
+        for r in range(n):
+            offset = r * width
+            for i in share[r]:
+                chunks[i] = gathered[offset:offset + chunk_rows[i]]
+                offset += chunk_rows[i]
+        return chunks
 
     @staticmethod
     def _squeeze_single(result) -> Dict[str, np.ndarray]:
@@ -407,16 +475,24 @@ class PoseEstimator:
         tta = tta_mod.make_tta_params(num_aug, self._aug_cfg)
         n_joints = self.joint_info.n_joints
         boxes_per_chunk = internal_batch_size // max(num_aug, 1) or max(n_total, 1)
+        slices = [slice(start, min(start + boxes_per_chunk, n_total))
+                  for start in range(0, n_total, boxes_per_chunk)]
+        nonempty = [i for i, sl in enumerate(slices) if valid_c[sl].any()]
+        n_data = self._data_extent()
+        mine = set(nonempty if n_data == 1 else nonempty[
+            mesh_mod.axis_index(self.mesh, mesh_mod.DATA_AXIS)::n_data])
         chunks = []
-        for start in range(0, n_total, boxes_per_chunk):
-            sl = slice(start, min(start + boxes_per_chunk, n_total))
-            if not valid_c[sl].any():
-                chunks.append(torch.tensor([0.0, 0.0, 1000.0], device=dev).expand(
-                    sl.stop - sl.start, num_aug, n_joints, 3))
+        for i, sl in enumerate(slices):
+            if i not in mine:
+                chunks.append(None if i in nonempty else torch.tensor(
+                    [0.0, 0.0, 1000.0], device=dev).expand(sl.stop - sl.start, num_aug,
+                                                            n_joints, 3))
                 continue
             chunks.append(self._predict_chunk(
                 pyramid, tta, k_c[sl], dist_c[sl], R_noaug[sl], box_scales[sl],
                 image_ids_c[sl], valid_c_d[sl], antialias_factor))
+        chunks = self._deal_chunks(chunks, nonempty, [sl.stop - sl.start for sl in slices],
+                                   (num_aug, n_joints, 3))
         poses3d_flat = (torch.cat(chunks)[inv_order] if chunks  # [N, A, J, 3]
                         else torch.zeros((0, num_aug, n_joints, 3), device=dev))
 

@@ -30,12 +30,16 @@ With `bn_inference` the model runs in eval mode (BatchNorm on its running
 statistics, which stay as they are; no drop-connect; the head decodes at
 `stride_test`) while gradients still flow: the `finetune_in_inference_mode`
 phase.
+
+`make_sharded_train_step` runs any of these steps over a mesh
+(`parallel.mesh`): data-parallel over 'data', and with `state_shardings`
+tensor-parallel over 'model' (`shard_train_state`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from metrabs_tpu_torch.config import ModelConfig, TrainConfig
 from metrabs_tpu_torch.models.metrabs import Metrabs, linear_combine_points
 from metrabs_tpu_torch.models.metro import Metro, compute_metro_losses
 from metrabs_tpu_torch.models.model25d import Model25D, compute_model25d_losses
+from metrabs_tpu_torch.parallel import mesh as mesh_mod
 from metrabs_tpu_torch.pipeline.estimator import checked_device
 from metrabs_tpu_torch.train import losses as losses_mod
 from metrabs_tpu_torch.train import optim
@@ -54,11 +59,15 @@ from metrabs_tpu_torch.utils.joint_info import JointInfo
 @dataclasses.dataclass
 class TrainState:
     """The micro-step count, the model (parameters and BatchNorm running
-    statistics), the optimizer state and the EMA of the parameters."""
+    statistics), the optimizer state and the EMA of the parameters; under
+    tensor parallelism (`shard_train_state`) also its mesh and the names of
+    its parameters that hold this rank's 'model' slice."""
     step: int
     model: nn.Module
     opt_state: optim.OptState
     ema_params: Dict[str, torch.Tensor]
+    mesh: Optional[object] = None
+    sharded: List[str] = dataclasses.field(default_factory=list)
 
     def params(self) -> Dict[str, nn.Parameter]:
         return dict(self.model.named_parameters())
@@ -117,6 +126,9 @@ def _make_step(model: nn.Module, optimizer: optim.Optimizer, cfg: ModelConfig,
         losses['loss'].backward()
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in params.items()}
+        layout = mesh_mod.active_layout()
+        if layout is not None:
+            layout.reduce_gradients(grads)
         apply_gradients(optimizer, tcfg, params, grads, state.opt_state, state.ema_params)
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}
@@ -169,7 +181,7 @@ def make_train_step(model: Metrabs, optimizer: optim.Optimizer, joint_info3d: Jo
     def loss_fn(model, image, intrinsics, batch3d, batch2d, step, generator, mix=None):
         n3 = batch3d['image'].shape[0]
         if mix is None:
-            mix = torch.rand((image.shape[0], 1, 1), generator=generator, device=image.device)
+            mix = mesh_mod.batch_rand(image.shape[0], generator, image.device, (1, 1))
         mix = mix.to(image.device, torch.float32)
         _, head2d, head3d = model.backbone_and_head(image, train=model.training,
                                                     generator=generator)
@@ -254,3 +266,93 @@ def apply_gradients(optimizer: optim.Optimizer, tcfg: TrainConfig,
     if applied or tcfg.ema_momentum >= 1.0:
         optim.ema_update(ema_params, params, tcfg.ema_momentum)
     return applied
+
+
+def shard_train_state(state: TrainState, mesh, shardings: Dict) -> TrainState:
+    """Makes `state` tensor-parallel over `mesh`'s 'model' axis, in place:
+    every parameter that `shardings` (`parallel.mesh.tp_shardings`) shards
+    keeps this rank's out-channel slice, and so do its Adam moments, its
+    accumulated gradient and its EMA (`parallel.mesh.shard_module`). A
+    state already sharded stays as it is. Returns `state`."""
+    if state.sharded:
+        return state
+    names = mesh_mod.shard_module(state.model, mesh, shardings)
+    opt = state.opt_state
+    trees = [state.ema_params] + [t for g in opt.groups.values() for t in (g.mu, g.nu)]
+    if opt.acc_grads is not None:
+        trees.append(opt.acc_grads)
+    for tree in trees:
+        for name in names:
+            if name in tree:
+                tree[name] = mesh_mod.slice_leaf(tree[name], mesh)
+    state.mesh, state.sharded = mesh, names
+    return state
+
+
+def full_train_state_dict(state: TrainState) -> dict:
+    """The contents of a train-state checkpoint (`io.checkpoints.
+    train_state_dict`) with every tensor-parallel leaf gathered to its full
+    shape: a collective under tensor parallelism (every rank calls it)."""
+    from metrabs_tpu_torch.io.checkpoints import train_state_dict
+    d = train_state_dict(state)
+    if not state.sharded:
+        return d
+    gather = lambda tree: (None if tree is None
+                           else mesh_mod.gather_named(tree, state.sharded, state.mesh))
+    d['model'] = gather(d['model'])
+    d['ema_params'] = gather(d['ema_params'])
+    opt = d['opt_state']
+    for g in opt['groups'].values():
+        g['mu'], g['nu'] = gather(g['mu']), gather(g['nu'])
+    opt['acc_grads'] = gather(opt['acc_grads'])
+    return d
+
+
+def full_ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """`state.ema_state_dict()` with the tensor-parallel leaves gathered (a
+    collective under tensor parallelism)."""
+    sd = state.ema_state_dict()
+    return mesh_mod.gather_named(sd, state.sharded, state.mesh) if state.sharded else sd
+
+
+def full_model_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """`state.model.state_dict()` with the tensor-parallel leaves gathered
+    (a collective under tensor parallelism)."""
+    sd = state.model.state_dict()
+    return mesh_mod.gather_named(sd, state.sharded, state.mesh) if state.sharded else sd
+
+
+def make_sharded_train_step(train_step, mesh, donate_state=None, state_shardings=None):
+    """`train_step` (any step of this module) over `mesh`: the step
+    `sharded_step(state, batch3d, batch2d, generator=None, **kwargs) ->
+    losses` that every rank calls alike. It takes this rank's rows of each
+    batch (`parallel.mesh.shard_batch`; a `LocalRows` batch already holds
+    them), runs the step with the train-mode BatchNorms, the losses' batch
+    means and the random draws over the global batch
+    (`parallel.mesh.data_parallel`; a given `mix` is the global batch's),
+    sums the gradients over 'data' before the update, and returns the
+    global batch's losses. A W-rank step thus equals the one-rank step on
+    the global batch, up to the order of the sums.
+
+    `state_shardings` ({parameter name: placements}, e.g. from
+    `parallel.mesh.tp_shardings(mesh, state)`) opts into tensor
+    parallelism: the state is sharded in place at the first call
+    (`shard_train_state`) and stays so. Default None: the state is
+    replicated, each rank holding all of it.
+
+    `donate_state` is accepted for JAX's signature: the port's steps update
+    the state in place, which is what donation buys JAX."""
+    del donate_state
+
+    def sharded_step(state: TrainState, batch3d: Dict, batch2d: Dict,
+                     generator: Optional[torch.Generator] = None, **kwargs):
+        if state_shardings is not None:
+            shard_train_state(state, mesh, state_shardings)
+        b3, b2 = mesh_mod.shard_batch(mesh, batch3d), mesh_mod.shard_batch(mesh, batch2d)
+        layout = mesh_mod.BatchLayout(mesh, (len(b3['image']), len(b2['image'])))
+        if kwargs.get('mix') is not None:
+            kwargs['mix'] = layout.take(torch.as_tensor(kwargs['mix']))
+        with mesh_mod.data_parallel(layout):
+            return train_step(state, b3, b2, generator=generator, **kwargs)
+
+    return sharded_step

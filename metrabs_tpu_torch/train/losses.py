@@ -5,6 +5,8 @@ together; the 3D batch gets root-relative, absolute (after
 `absloss_start_step`) and in-FOV projection losses, the 2D batch weak 2D
 supervision through name-prefix joint matching. Reductions are
 validity-masked, millimetres become metres (/1000) inside the losses.
+Every mean over the batch is `ops.masked.batch_mean(_masked)`: in a
+data-parallel step, the global batch's.
 
 The step gates take the step as a host integer: JAX computes both
 reconstructions and selects with `where`; here the one the step selects is
@@ -62,8 +64,8 @@ def compute_loss_with_3d_gt(coords3d_pred_abs: torch.Tensor, coords3d_true: torc
     true_rootrel = center_relative_pose(coords3d_true, joint_validity_mask, tcfg.mean_relative)
     pred_rootrel = center_relative_pose(coords3d_pred_abs, joint_validity_mask,
                                         tcfg.mean_relative)
-    loss3d = masked.reduce_mean_masked(torch.abs(true_rootrel - pred_rootrel) / 1000.0,
-                                       joint_validity_mask)
+    loss3d = masked.batch_mean_masked(torch.abs(true_rootrel - pred_rootrel) / 1000.0,
+                                      joint_validity_mask)
 
     is_valid_and_far = coords3d_true[..., 2] > 300.0
     if joint_validity_mask is not None:
@@ -73,7 +75,7 @@ def compute_loss_with_3d_gt(coords3d_pred_abs: torch.Tensor, coords3d_true: torc
     absdiff = torch.abs(diff)
     scale_for_far = torch.clamp(10000.0 / torch.abs(coords3d_true[..., 2:]), max=1.0)
     absdiff_scaled = (absdiff[..., :2] * 2 + absdiff[..., 2:] * scale_for_far) / 3
-    loss3d_abs = masked.reduce_mean_masked(absdiff_scaled, is_valid_and_far) / 1000.0
+    loss3d_abs = masked.batch_mean_masked(absdiff_scaled, is_valid_and_far) / 1000.0
 
     coords2d_pred = reconstruct.project_pose(coords3d_pred_abs, intrinsics)
     coords2d_true = reconstruct.project_pose(coords3d_true, intrinsics)
@@ -81,7 +83,7 @@ def compute_loss_with_3d_gt(coords3d_pred_abs: torch.Tensor, coords3d_true: torc
     in_fov_pred = _is_within_fov(coords2d_pred, cfg) & (coords3d_pred_abs[..., 2] > 1)
     near_fov_true = (_is_within_fov(coords2d_true, cfg, border_factor=-20)
                      & (coords3d_true[..., 2] > 1))
-    loss2d = masked.reduce_mean_masked(
+    loss2d = masked.batch_mean_masked(
         torch.abs((coords2d_true - coords2d_pred) * scale_2d),
         is_valid_and_far & in_fov_pred & near_fov_true)
 
@@ -119,7 +121,7 @@ def compute_loss_with_2d_gt(coords3d_pred_abs: torch.Tensor, coords2d_true: torc
         reconstruct.project_pose(coords3d_pred_abs, intrinsics), index_groups)
     in_fov_pred = _is_within_fov(coords2d_pred_2dlike, cfg)
     near_fov_true = _is_within_fov(coords2d_true, cfg, border_factor=-20)
-    return masked.reduce_mean_masked(
+    return masked.batch_mean_masked(
         torch.abs((coords2d_true - coords2d_pred_2dlike) * scale_2d),
         joint_validity_mask & in_fov_pred & near_fov_true)
 
@@ -157,7 +159,7 @@ def compute_losses_latents_and_all(
                                        step=step)
 
     def loss_vs_reconstr(pred):
-        return torch.mean(torch.abs(pred - linear_combine_points(pred, w_rec))) / 1000.0
+        return masked.batch_mean(torch.abs(pred - linear_combine_points(pred, w_rec))) / 1000.0
 
     true3d, intr3d, mask3d = (batch3d['coords3d_true'], batch3d['intrinsics'],
                               batch3d.get('joint_validity_mask'))
@@ -225,7 +227,7 @@ def compute_losses(preds_abs: torch.Tensor, preds_abs_2d: torch.Tensor, batch3d:
             raise ValueError('regularize_to_manifold requires autoencoder weights')
         for key, pred in (('loss_pred_vs_reconstr', preds_abs),
                           ('loss_pred_vs_reconstr_2dbatch', preds_abs_2d)):
-            losses[key] = torch.mean(torch.abs(
+            losses[key] = masked.batch_mean(torch.abs(
                 pred - linear_combine_points(pred, reconstruction_weights))) / 1000.0
         losses['loss'] = (
             losses['loss_3dbatch'] + tcfg.loss_manif_factor * losses['loss_pred_vs_reconstr']

@@ -15,9 +15,10 @@ as PNG files, half in memory), with the JAX package reading what it exports:
  - `predict_dataset` (a partial last batch, with and without the mirror
    test-time augmentation) equals JAX's on the same weights within
    PREDICT_RTOL of the largest coordinate;
- - the flags and defaults are JAX's (`--device` added, `--tp-min-size`
-   defaulting to unset), `build_load_config` makes JAX's LoadConfig, and
-   the unported multi-device flags raise SystemExit.
+ - the flags and defaults are JAX's (`--device` added), `build_load_config`
+   makes JAX's LoadConfig, and the multi-device flags used where they cannot
+   apply raise SystemExit (the two-rank runs are in
+   tests/test_torch_parallel.py).
 """
 
 import json
@@ -217,7 +218,6 @@ def test_flags_and_load_config_match_jax():
     required = ['--ds3d', 'a', '--ds2d', 'b', '--checkpoint-dir', 'c']
     ours, theirs = vars(train.parse_args(required)), vars(jax_train.parse_args(required))
     assert ours.pop('device') == 'cuda'
-    assert ours.pop('tp_min_size') is None and theirs.pop('tp_min_size') == 2 ** 16
     assert ours == theirs
     overrides = ['--no-color-aug', '--rot-aug-degrees', '5', '--occlude-aug-prob-2d', '0.1',
                  '--partial-visibility-prob', '0.2', '--no-geom-aug']
@@ -225,11 +225,17 @@ def test_flags_and_load_config_match_jax():
             == vars(jax_train.build_load_config(jax_train.parse_args(required + overrides))))
 
 
-@pytest.mark.parametrize('flags', [['--distributed'], ['--model-parallel', '2'],
-                                   ['--tp-min-size', '1024']],
-                         ids=['distributed', 'model_parallel', 'tp_min_size'])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(SystemExit, match='not ported'):
+@pytest.mark.parametrize('flags,message', [
+    (['--distributed'], 'torchrun'),
+    (['--model-parallel', '2'], 'needs --distributed'),
+    (['--model-parallel', '0', '--tp-min-size', '1024'], 'at least 1')],
+    ids=['distributed', 'model_parallel', 'tp_min_size'])
+def test_unported_flags_raise(tmp_path, flags, message, monkeypatch):
+    """The multi-device flags where they cannot apply: `--distributed`
+    outside torchrun, a model axis in one process, an empty model axis."""
+    for name in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR', 'MASTER_PORT'):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(SystemExit, match=message):
         train.main(['--ds3d', 'a', '--ds2d', 'b', '--checkpoint-dir', str(tmp_path),
                     '--device', 'cpu'] + flags)
 
