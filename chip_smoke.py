@@ -10,8 +10,9 @@ line:
     `metrabs_tpu_torch/csrc/warp.cu` and the fused MBConv chain
     `metrabs_tpu_torch/csrc/mbconv.cu`, for sm_90a from the checkout, and the
     host C++ compiler the JPEG decoder `csrc/jpeg_decode.cpp` and encoder
-    `csrc/jpeg_encode.cpp`, the mp4v codec `csrc/mpeg4_video.cpp` and the
-    native image ops `csrc/improc.cpp`, all six compilers started together;
+    `csrc/jpeg_encode.cpp`, the mp4v codec `csrc/mpeg4_video.cpp`, the H.264
+    decoder `csrc/h264_decode.cpp` and the native image ops
+    `csrc/improc.cpp`, all seven compilers started together;
  3. kernel: the warp kernel against its plain PyTorch version at the serving
     shape (8 synthetic 1080p frames, 64 crops of 256x256, pyramid levels 0-2,
     lens distortion on some crops, a crop entirely outside its frame), and
@@ -198,34 +199,45 @@ line:
     held to the SHA-256 of cv2.imdecode and the metadata to cv2's; the mp4v
     decoder (`csrc/mpeg4_video.cpp`) on the cv2-written fixtures of
     tests/torch_fixtures/mp4v (MP4, AVI and Matroska, I- and P-VOPs across
-    a GOP), every packet, luma plane and RGB frame held to the SHA-256 of
-    cv2's in the manifest and the metadata to cv2's, the decode timed on
-    one thread. Under runs/ (deleted after): the mp4v encoder on
+    a GOP; the libxvidcore clips through FFmpeg's Xvid IDCT), every packet,
+    luma plane and RGB frame held to the SHA-256 of cv2's in the manifest
+    and the metadata to cv2's, the decode timed on one thread; the H.264
+    decoder (`csrc/h264_decode.cpp`) on the libx264 fixtures of
+    tests/torch_fixtures/h264 (three sizes in MP4, Matroska and AVI, the
+    per-tool and VUI clips), every packet (as cv2 returns it), key flag,
+    Y/U/V plane (x264's reconstruction), luma and RGB frame held to the
+    manifest's SHA-256 and the metadata to cv2's, the 1080x1920 decode timed
+    on one thread. Under runs/ (deleted after): the mp4v encoder on
     MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
     thread), read back with its luma equal to the encoder's reconstruction;
     metrabs_eff2s_y4 minted on H36M-17 with a firing YOLOv4-416, a 24-frame
     1080x1920 MJPEG .avi and an ASPset-510 layout (one subject, two views
     of 16 1080x1920 mp4v .mkv frames, box CSVs, camera JSONs), all written
-    by the port. The demos' detector calls are
+    by the port; a 24-frame 1080x1920 H.264 .mp4 and a second ASPset layout
+    of 2 x 16 frames of H.264 .mkv, muxed by the port from the 1080x1920
+    fixture's packets (each clip starts at an IDR picture). The demos' detector calls are
     made with `suppress_implausible_poses=False`, so that the random
     weights' poses survive and are drawn. `apps.demo_image.main` on the
     1080x1920 JPEG fixture, folded, with `--out` (.jpg) and `--out-3d`
     (.png), every K1 launch against the plain warp, both files read back,
     poses found and the overlay unlike the undrawn frame; `apps.demo_video.main`
     with `--frame-batch 8`, on the MJPEG .avi as is and with `--stream 2`
-    (each writing an overlay .mkv) and on the mp4v .mp4 (writing an .mp4),
+    (each writing an overlay .mkv) and on the mp4v and H.264 .mp4 (each
+    writing an .mp4; the H.264 input's frames held to the manifest, and the
+    H.264 run made again with every K1 launch against the plain warp),
     each overlay mp4v as JAX's demo writes it, read back (frames, size,
     poses drawn: its first frame unlike the same frame encoded undrawn),
     frames/s end to end and the decoding, drawing and encoding shares of the
-    wall, the mp4v input's frames each decoded once; one batch again with each K1 launch
+    wall, the mp4v and H.264 inputs' frames each decoded once; one batch again with each K1 launch
     against the plain warp, then profiled (busy share);
     `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
     (SMPL-24 package), its figures under JAX's names read back and timed;
-    `apps.predict_aspset.main` on the mp4v .mkv clips, loaded unfolded with
-    `fuse_mbconv='on'` (K1 once and K2 28 times per chunk), each frame
-    decoded once, frames/s with and without the package's loading and the
-    decoding share; then again with every K1 launch against the plain warp
-    and every K2 launch against the plain chain, both exact;
+    `apps.predict_aspset.main` on the mp4v .mkv clips and on the H.264
+    .mkv clips, loaded unfolded with `fuse_mbconv='on'` (K1 once and K2 28
+    times per chunk), each frame decoded once, frames/s with and without
+    the package's loading and the decoding share; then each again with every
+    K1 launch against the plain warp and every K2 launch against the plain
+    chain, both exact;
 14. calibrate: camera calibration without OpenCV on the checkerboard
     fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
     1920x1080 JPEG views through a known lens, a partial board and an empty
@@ -347,6 +359,16 @@ TRAIN_KERNEL_GROUPS = (
 
 def phase(name: str, msg: str) -> None:
     print(f'[{name}] {msg}', flush=True)
+
+
+CARD_UNKNOWN = 'nvidia-smi failed'
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else CARD_UNKNOWN
 
 
 def fail(name: str, msg: str) -> None:
@@ -2337,17 +2359,19 @@ class DriverRuns:
     """Runs a benchmark driver's `main` with its package loaded through
     `loader(method, **overrides)`, which keeps the estimator, times the
     loading and records the arguments of each call of `method`, and with
-    `jpeg.decode` and `mpeg4.Decoder.decode` (what `improc.imread` and the
-    video reader call) and `jpeg.encode` and `mpeg4.Encoder.encode` (what
-    `improc.imwrite` and the video writer call) timed; K1's and K2's counts
-    are set to 0 just before the driver runs and read just after, and the
-    mp4v frames decoded in the run are counted."""
+    `jpeg.decode`, `mpeg4.Decoder.decode` and `h264.Decoder.decode` (what
+    `improc.imread` and the video reader call) and `jpeg.encode` and
+    `mpeg4.Encoder.encode` (what `improc.imwrite` and the video writer call)
+    timed; K1's and K2's counts are set to 0 just before the driver runs and
+    read just after, and the mp4v and H.264 frames decoded in the run are
+    counted."""
 
     def __init__(self):
         import metrabs_tpu_torch.io.packaging as packaging
-        from metrabs_tpu_torch.data import jpeg, mpeg4
+        from metrabs_tpu_torch.data import h264, jpeg, mpeg4
 
-        self.packaging, self.jpeg, self.mpeg4 = packaging, jpeg, mpeg4
+        self.packaging, self.jpeg, self.mpeg4, self.h264 = packaging, jpeg, mpeg4, h264
+        self.original_h264 = h264.Decoder.decode
         self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
         self.original_encode = jpeg.encode
         self.original_mp4v = mpeg4.Decoder.decode, mpeg4.Encoder.encode
@@ -2402,6 +2426,7 @@ class DriverRuns:
         self.packaging.load_pose_estimator = self.original_load
         self.jpeg.decode, self.jpeg.encode = self.original_decode, self.original_encode
         self.mpeg4.Decoder.decode, self.mpeg4.Encoder.encode = self.original_mp4v
+        self.h264.Decoder.decode = self.original_h264
 
     def run(self, load, main, argv) -> dict:
         from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
@@ -2413,7 +2438,8 @@ class DriverRuns:
         self.jpeg.encode = self.timed_encode
         self.mpeg4.Decoder.decode = self.timed_method(self.original_mp4v[0], self.decode_spans)
         self.mpeg4.Encoder.encode = self.timed_method(self.original_mp4v[1], self.encode_spans)
-        decoded = self.mpeg4.frames_decoded()
+        self.h264.Decoder.decode = self.timed_method(self.original_h264, self.decode_spans)
+        decoded, decoded_h264 = self.mpeg4.frames_decoded(), self.h264.frames_decoded()
         torch.cuda.synchronize()
         warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
         try:
@@ -2429,6 +2455,7 @@ class DriverRuns:
                     decode_s=union_seconds(self.decode_spans),
                     encode_s=union_seconds(self.encode_spans), k1=k1, k2=k2, last=last,
                     printed=printed, mp4v_decodes=self.mpeg4.frames_decoded() - decoded,
+                    h264_decodes=self.h264.frames_decoded() - decoded_h264,
                     est=self.loaded[0], calls=list(self.calls), call_s=list(self.call_s))
 
 
@@ -3251,6 +3278,11 @@ DEMOS_DIR = 'runs/chip_smoke_demos'
 ENCODE_FIXTURES = 'tests/torch_fixtures/jpeg_encode'
 VIDEO_FIXTURES = 'tests/torch_fixtures/video'
 MP4V_FIXTURES = 'tests/torch_fixtures/mp4v'
+H264_FIXTURES = 'tests/torch_fixtures/h264'
+H264_SOURCE = 'h264_1080x1920.mp4'  # the fixture whose packets make the H.264 demo inputs
+# Packet orders of the H.264 demo inputs: each starts at an IDR picture (0, 12).
+H264_DEMO_PACKETS = list(range(14)) + list(range(10))  # demo_video's 24 frames
+H264_ASPSET_PACKETS = {'left': list(range(14)) + [0, 1], 'mid': [12, 13] + list(range(14))}
 ENCODE_REPEATS = 20  # single-thread encodes of the 1080x1920 frame, median taken
 MP4V_FRAMES = 24  # shifted 1080x1920 frames through the mp4v encoder: demo_video's .mp4
 MP4V_SHIFT = (3, 4)  # (down, right) pixels per frame, as tests/_torch_mp4v_fixtures.py shifts
@@ -3437,6 +3469,74 @@ def check_mp4v_fixtures(root: Path) -> dict:
                 n_timed=len(times))
 
 
+def check_h264_fixtures(root: Path) -> dict:
+    """Every libx264 fixture through the port's demuxer and H.264 decoder:
+    each packet (as FFmpeg's mp4toannexb hands it to cv2), key flag, Y/U/V
+    plane (x264's reconstruction), luma plane and RGB frame held to the
+    SHA-256 in the manifest, size and frame count to cv2's, the rate within
+    1e-4; the 1080x1920 frames' decode (to RGB and planes) timed on one
+    thread."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import h264, improc, video
+
+    def sha(data: bytes) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    manifest = json.loads((root / H264_FIXTURES / 'manifest.json').read_text())
+    n_frames, times = 0, []
+    for name, entry in sorted(manifest.items()):
+        path = str(root / H264_FIXTURES / name)
+        idx = video.index(path)
+        packets = [idx.packet(i) for i in range(idx.n_frames)]
+        decoder = idx.decoder(0)
+        planes, lumas, rgbs = [], [], []
+        for packet in packets:
+            t = time.perf_counter()
+            rgb, yuv = decoder.decode(packet, planes=True)
+            if idx.height == FRAME_3DPW_SIZE[0]:
+                times.append(time.perf_counter() - t)
+            planes.append([sha(p.tobytes()) for p in yuv])
+            lumas.append(planes[-1][0])
+            rgbs.append(sha(rgb.tobytes()))
+        decoder.close()
+        cv = entry['cv2']
+        meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
+        wrong = [what for what, got, want in (
+            ('packets', [sha(h264.annexb(p, idx.config)) for p in packets],
+             entry['packet_sha256']),
+            ('key frames', idx.keyframes.tolist(), entry['key_frames']),
+            ('planes', planes, entry['recon_sha256']), ('luma', lumas, entry['luma_sha256']),
+            ('RGB', rgbs, entry['rgb_sha256']),
+            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count']))) if got != want]
+        if wrong or not math.isclose(improc.video_fps(path), cv['fps'], rel_tol=1e-4):
+            fail('demos', f'{name}: {", ".join(wrong) or "rate"} differ from the manifest\'s '
+                          f'({idx.n_frames} frames, {meta}, {improc.video_fps(path)} frames/s)')
+        n_frames += len(packets)
+    return dict(files=len(manifest), frames=n_frames, ms=statistics.median(times) * 1e3,
+                all_ms=[t * 1e3 for t in times], n_timed=len(times))
+
+
+def mux_h264(root: Path, path: Path, order) -> list:
+    """The 1080x1920 H.264 fixture's packets in `order` muxed by the port
+    into `path` (.mp4 or .mkv, 25 frames/s); returns the manifest's RGB
+    SHA-256 of each frame."""
+    from metrabs_tpu_torch.data import mp4, video
+
+    src = video.index(str(root / H264_FIXTURES / H264_SOURCE))
+    want = json.loads((root / H264_FIXTURES / 'manifest.json').read_text())[H264_SOURCE]
+    with open(path, 'wb') as f:
+        if path.suffix == '.mkv':
+            mux = video._MatroskaMuxer(f, src.width, src.height, 25.0, b'V_MPEG4/ISO/AVC',
+                                       src.config)
+        else:
+            mux = mp4.Mp4Muxer(f, src.width, src.height, 25, 1, src.config, codec='avc1')
+        for i in order:
+            mux.write(src.packet(i), bool(src.keyframes[i]))
+        mux.close()
+    return [want['rgb_sha256'][i] for i in order]
+
+
 def check_mp4v_encoder(root: Path, path: Path) -> dict:
     """The mp4v encoder on MP4V_FRAMES shifted 1080x1920 frames into an MP4
     file (each `write` timed on one thread), then read back: every luma
@@ -3474,18 +3574,19 @@ def check_mp4v_encoder(root: Path, path: Path) -> dict:
                 psnr=float(np.mean([10 * np.log10(255.0 ** 2 / m) for m in mse])))
 
 
-def mint_aspset_layout(root: Path, work: Path) -> None:
+def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> None:
     """ASPset-510's layout with one subject and ASPSET_VIEWS: splits.csv, a
     box CSV per clip (a person box moving with the frame's shift), a camera
-    JSON per view and 1080x1920 mp4v .mkv clips of ASPSET_FRAMES frames (as
-    JAX's test writes them) written by the port's own writer."""
+    JSON per view and 1080x1920 .mkv clips of ASPSET_FRAMES frames: mp4v (as
+    JAX's test writes them) written by the port's own writer, or H.264 muxed
+    from the fixture's packets (H264_ASPSET_PACKETS)."""
     from metrabs_tpu_torch.data import video
 
     subj, vid = '01', '0001'
     work.mkdir(parents=True, exist_ok=True)
     (work / 'splits.csv').write_text('subject,video,view,split\n' + ''.join(
         f'{subj},{vid},{view},test\n' for view in ASPSET_VIEWS))
-    frames = shifted_frames(root, ASPSET_FRAMES)
+    frames = shifted_frames(root, ASPSET_FRAMES) if codec == 'mp4v' else []
     for i_view, view in enumerate(ASPSET_VIEWS):
         for d in ('boxes', 'cameras', 'videos'):
             (work / 'test' / d / subj).mkdir(parents=True, exist_ok=True)
@@ -3495,8 +3596,12 @@ def mint_aspset_layout(root: Path, work: Path) -> None:
             '\n'.join(lines) + '\n')
         (work / 'test' / 'cameras' / subj / f'{subj}-{view}.json').write_text(
             json.dumps(dict(intrinsic_matrix=K_ASPSET)))
-        with video.VideoWriter(str(work / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'),
-                               50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]), 'mp4v') as writer:
+        clip = work / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'
+        if codec == 'h264':
+            mux_h264(root, clip, H264_ASPSET_PACKETS[view])
+            continue
+        with video.VideoWriter(str(clip), 50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]),
+                               'mp4v') as writer:
             for frame in frames[i_view:] + frames[:i_view]:
                 writer.write(frame)
 
@@ -3536,6 +3641,14 @@ def demos_phase(root: Path, dev) -> dict:
                 f'equal their cv2 hashes, sizes, counts and rates cv2\'s; 1080x1920 decode to '
                 f'RGB {mp4v["ms"]:.2f} ms per frame on one thread (median of {mp4v["n_timed"]})')
 
+    avc = check_h264_fixtures(root)
+    phase(name, f'H.264 decoder (host C++): {avc["files"]} libx264 files (MP4, Matroska and AVI; '
+                f'the per-tool and VUI clips), all {avc["frames"]} frames\' packets, key flags, '
+                f'Y/U/V planes, luma planes and RGB frames equal their manifest hashes, sizes, '
+                f'counts and rates cv2\'s; 1080x1920 decode to RGB and planes '
+                f'{avc["ms"]:.2f} ms per frame on one thread (median of {avc["n_timed"]}; all: '
+                + ', '.join(f'{t:.1f}' for t in avc['all_ms']) + f') on {card_name()}')
+
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -3556,10 +3669,16 @@ def demos_phase(root: Path, dev) -> dict:
             for frame in shifted_frames(root, DEMO_VIDEO_FRAMES):
                 w.write(frame)
         mint_aspset_layout(root, work / 'aspset')
+        h264_src = work / 'in_h264.mp4'
+        h264_want = mux_h264(root, h264_src, H264_DEMO_PACKETS)
+        mint_aspset_layout(root, work / 'aspset_h264', 'h264')
         phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
                     f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
                     f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
-                    f'{ASPSET_FRAMES} frames of 1080x1920 mp4v .mkv, written by the port')
+                    f'{ASPSET_FRAMES} frames of 1080x1920 mp4v .mkv, written by the port; a '
+                    f'{len(H264_DEMO_PACKETS)}-frame 1080x1920 H.264 .mp4 and an ASPset layout '
+                    f'of {len(ASPSET_VIEWS)} views x {ASPSET_FRAMES} frames of H.264 .mkv, '
+                    f'muxed by the port from {H264_SOURCE}\'s packets')
 
         # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
         # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
@@ -3600,7 +3719,8 @@ def demos_phase(root: Path, dev) -> dict:
                 ('demo_video', src, work / 'demo_video.mkv', []),
                 ('demo_video_stream', src, work / 'demo_video_stream.mkv',
                  ['--stream', str(DEMO_STREAM)]),
-                ('demo_video_mp4v', mp4v_src, work / 'demo_video_mp4v.mp4', [])):
+                ('demo_video_mp4v', mp4v_src, work / 'demo_video_mp4v.mp4', []),
+                ('demo_video_h264', h264_src, work / 'demo_video_h264.mp4', [])):
             drawing = TimedCalls((demo_image, 'draw_poses'))
             try:
                 r = drivers.run(drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
@@ -3618,7 +3738,7 @@ def demos_phase(root: Path, dev) -> dict:
             first = improc.imread(f'{out}#frame=0')
             # The overlay (mp4v, as JAX's demo writes) has poses drawn: its
             # first frame, an I-VOP, is unlike the same frame encoded undrawn.
-            mp4v_run = source.suffix == '.mp4'
+            mp4v_run, h264_run = key == 'demo_video_mp4v', key == 'demo_video_h264'
             encoder = mpeg4.Encoder(back.width, back.height, back.fps)
             packet, _ = encoder.encode(video.read_frame(str(source), 0))
             drawn = None if np.array_equal(
@@ -3628,17 +3748,44 @@ def demos_phase(root: Path, dev) -> dict:
                     or (back.width, back.height) != (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])
                     or first.shape != (*FRAME_3DPW_SIZE, 3) or len(r['calls']) != n_batches
                     or r['k1'] < n_batches or r['k2'] != 0 or back.kind != 'mp4v'
-                    or r['mp4v_decodes'] != (DEMO_VIDEO_FRAMES if mp4v_run else 0)):
+                    or r['mp4v_decodes'] != (DEMO_VIDEO_FRAMES if mp4v_run else 0)
+                    or r['h264_decodes'] != (DEMO_VIDEO_FRAMES if h264_run else 0)):
                 fail(name, f'{key}: {result}, {back.n_frames} {back.codec} frames of {back.width}x'
                            f'{back.height} read back (first with a pose drawn: {drawn}), '
                            f'{len(r["calls"])} batched calls, K1 {r["k1"]}, K2 {r["k2"]}, '
-                           f'{r["mp4v_decodes"]} mp4v frames decoded')
+                           f'{r["mp4v_decodes"]} mp4v and {r["h264_decodes"]} H.264 frames '
+                           f'decoded')
+            checked_line = ''
+            if h264_run:
+                # The input's frames, as the demo read them, are the manifest's;
+                # the run again with every K1 launch against the plain warp.
+                import hashlib
+                got = [hashlib.sha256(f.tobytes()).hexdigest()
+                       for f in video.iter_frames(str(source))]
+                if got != h264_want:
+                    fail(name, f'{key}: {sum(a != b for a, b in zip(got, h264_want))} of '
+                               f'{len(h264_want)} input frames differ from the manifest')
+                checked, warp_errs = checked_warps(lambda: drivers.run(
+                    drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
+                    demo_video.main, ['--video', str(source), '--package', str(work / 'pkg'),
+                                      '--frame-batch', str(DEMO_FRAME_BATCH)]))
+                warp_err = max(warp_errs, default=math.inf)
+                if (len(warp_errs) != checked['k1'] or checked['k1'] != r['k1']
+                        or not warp_err <= WARP_TOL or checked['k2'] != 0):
+                    fail(name, f'{key} checked: {len(warp_errs)} of {checked["k1"]} K1 launches '
+                               f'compared (max |kernel - plain| {warp_err:.3g}), K2 '
+                               f'{checked["k2"]}')
+                checked_line = (f'; run again with every launch checked: K1 {len(warp_errs)} '
+                                f'against the plain warp (max |kernel - plain| {warp_err:.3g})')
+                del checked
             phase(name, f'{key} {" ".join(extra)} ({source.name}, frame batch '
                         f'{DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} poses): '
                         + demo_timing(r, DEMO_VIDEO_FRAMES) + f'; K1 {r["k1"]}, K2 {r["k2"]}; '
-                        f'{r["mp4v_decodes"]} mp4v frames decoded; the overlay {out.suffix} read '
-                        f'back: {back.n_frames} {back.codec} frames of {back.width}x'
-                        f'{back.height}, poses drawn from frame {drawn} on')
+                        f'{r["mp4v_decodes"]} mp4v and {r["h264_decodes"]} H.264 frames decoded '
+                        f'({(r["mp4v_decodes"] + r["h264_decodes"]) / DEMO_VIDEO_FRAMES:g} per '
+                        f'frame read); the overlay {out.suffix} read back: {back.n_frames} '
+                        f'{back.codec} frames of {back.width}x{back.height}, poses drawn from '
+                        f'frame {drawn} on' + checked_line)
             launches[key] = (r['k1'], r['k2'])
             if key == 'demo_video':
                 # One batch again: each K1 launch against the plain warp, then profiled.
@@ -3697,13 +3844,13 @@ def demos_phase(root: Path, dev) -> dict:
         # predict_aspset on the mp4v .mkv clips, unfolded with fuse_mbconv on:
         # K1 and K2, each frame decoded once; then again with every launch of
         # either kernel against its plain version.
-        def aspset_run(out_dir: str):
+        def aspset_run(out_dir: str, layout: str = 'aspset'):
             return drivers.run(
                 drivers.loader('estimate_poses_batched', cfg_overrides={'bn_fold': False},
                                backbone_builder=functools.partial(build_backbone,
                                                                   fuse_mbconv='on')),
                 predict_aspset.main, ['--package', str(work / 'pkg'), '--root',
-                                      str(work / 'aspset'), '--output-dir', str(work / out_dir)])
+                                      str(work / layout), '--output-dir', str(work / out_dir)])
 
         r = aspset_run('pred_aspset')
         n_frames = len(ASPSET_VIEWS) * ASPSET_FRAMES
@@ -3738,6 +3885,42 @@ def demos_phase(root: Path, dev) -> dict:
                     f'against the plain chain (v max {err_v:.3g}, SE mean max '
                     f'{max(mean_errs, default=math.inf):.3g})')
         launches['predict_aspset'] = (r['k1'], r['k2'])
+        del r, checked
+
+        # predict_aspset on the H.264 .mkv clips, the same way.
+        r = aspset_run('pred_aspset_h264', 'aspset_h264')
+        preds = [np.load(work / 'pred_aspset_h264' / f'01-0001-{view}.npz')['coords3d_pred_world']
+                 for view in ASPSET_VIEWS]
+        if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
+                or r['h264_decodes'] != n_frames or r['mp4v_decodes'] != 0
+                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                       for p in preds)):
+            fail(name, f'predict_aspset (H.264): K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} '
+                       f'and {K2_BLOCKS * calls}), {len(r["calls"])} calls, {r["h264_decodes"]} '
+                       f'H.264 frames decoded (expected {n_frames}), predictions '
+                       f'{[p.shape for p in preds]}')
+        (((checked, warp_errs), v_errs, mean_errs)) = checked_mbconv(
+            lambda: checked_warps(lambda: aspset_run('pred_aspset_h264_checked', 'aspset_h264')))
+        again = [np.load(work / 'pred_aspset_h264_checked' / f'01-0001-{view}.npz')
+                 ['coords3d_pred_world'] for view in ASPSET_VIEWS]
+        warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
+        if (len(warp_errs) != calls or len(v_errs) != K2_BLOCKS * calls or warp_err != 0.0
+                or err_v != 0.0 or checked['k1'] != calls or checked['k2'] != K2_BLOCKS * calls
+                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                       for p in again)):
+            fail(name, f'predict_aspset (H.264) checked: {len(warp_errs)} K1 launches compared '
+                       f'(max |kernel - plain| {warp_err:.3g}, must be 0), {len(v_errs)} K2 '
+                       f'launches (v max {err_v:.3g}, must be 0), predictions '
+                       f'{[p.shape for p in again]}')
+        phase(name, f'predict_aspset (H.264 .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
+                    f'unfolded, fuse_mbconv on: ' + driver_timing(r, n_frames) + f'; '
+                    f'{r["h264_decodes"]} H.264 frames decoded for {n_frames} '
+                    f'({r["h264_decodes"] / n_frames:g} per frame read); K1 {r["k1"]}, K2 '
+                    f'{r["k2"]}; run again with every launch checked: K1 {len(warp_errs)} against '
+                    f'the plain warp (max |kernel - plain| {warp_err:.3g}), K2 {len(v_errs)} '
+                    f'against the plain chain (v max {err_v:.3g}, SE mean max '
+                    f'{max(mean_errs, default=math.inf):.3g})')
+        launches['predict_aspset_h264'] = (r['k1'], r['k2'])
         del r, checked
     finally:
         drivers.restore()
@@ -4436,12 +4619,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail('device', 'torch.cuda.is_available() is False; this smoke run needs a GPU')
     dev = torch.device('cuda', 0)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0:
-        fail('device', f'nvidia-smi failed: {smi.stderr.strip()}')
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
+    if card == CARD_UNKNOWN:
+        fail('device', 'nvidia-smi failed')
     phase('device', f'{torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
                     f'CUDA {torch.version.cuda}')
     print(card, flush=True)
@@ -4451,14 +4631,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
-    # decoder and encoder, the mp4v codec and the native image ops, started
-    # together.
+    # decoder and encoder, the mp4v codec, the H.264 decoder and the native
+    # image ops, started together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
-    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'improc')
+    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'h264_decode', 'improc')
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))

@@ -10,17 +10,24 @@
 // f_code wrap, half-pel MC that honours vop_rounding_type, unrestricted MVs
 // over references replicated past the edge of the MB-aligned picture (FFmpeg
 // pads from mb_width * 16, not the display width), resync markers and video
-// packets, and not-coded VOPs (the reference repeats, keeping the container's
-// frame numbering; FFmpeg outputs no frame for one). The decisions FFmpeg
+// packets, and not-coded VOPs (the reference repeats; FFmpeg outputs no frame
+// for one, and `data.video` numbers frames as FFmpeg does, from
+// metrabs_mp4v_vop_coded). The decisions FFmpeg
 // takes where the standard leaves room are taken as it takes them: the DC
 // clip to [0, 2047], the AC rescale by the neighbour's qscale, the AC buffers
 // cleared at a video packet, the MV prediction at a packet's first line.
 // The IDCT is FFmpeg's C "simple IDCT" (integer rows, then columns, with
 // 11- and 20-bit shifts and the DC-only row shortcut), which FFmpeg uses for
 // Lavc-stamped and unstamped streams; probed against cv2's FFmpeg, its
-// planes are equal bit for bit. (FFmpeg switches to Xvid's IDCT for
-// Xvid-stamped streams, which this decoder does not: their planes may differ
-// from FFmpeg's by a level.)
+// planes are equal bit for bit. A stream whose user data carries an Xvid
+// stamp ("XviD<build>", read as FFmpeg's decode_user_data reads it) is
+// decoded with FFmpeg's Xvid IDCT (ff_xvid_idct: 16-bit rows with per-row
+// rounding, then columns through the tangent butterflies), as FFmpeg
+// switches to it. FFmpeg also takes an unstamped stream in an AVI with the
+// FourCC XVID (XVIX, RMP4, ZMP4, SIPP) for Xvid build 0, and DivX-stamped or
+// unstamped DIVX streams for DivX: both then get bug workarounds (edge
+// emulation, DC clipping, half-pel chroma rounding) that this decoder does
+// not emulate, so they are refused, as Xvid builds up to 32 are.
 //
 // Every other tool of the standard raises "unsupported" naming it: B-VOPs,
 // S-VOPs (sprites, GMC), quarter-pel, interlaced, data partitioning and
@@ -49,6 +56,8 @@
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "yuv_rgb.h"
 
 namespace {
 
@@ -393,18 +402,190 @@ void idct(const int16_t* coef, int* res) {
   }
 }
 
-void idct_put(const int16_t* coef, uint8_t* dst, int stride) {
+void block_idct(const int16_t* coef, int* res, bool xvid);
+
+void idct_put(const int16_t* coef, uint8_t* dst, int stride, bool xvid = false) {
   int res[64];
-  idct(coef, res);
+  block_idct(coef, res, xvid);
   for (int y = 0; y < 8; y++)
     for (int x = 0; x < 8; x++) dst[y * stride + x] = clip_pixel(res[y * 8 + x]);
 }
 
-void idct_add(const int16_t* coef, uint8_t* dst, int stride) {
+void idct_add(const int16_t* coef, uint8_t* dst, int stride, bool xvid = false) {
   int res[64];
-  idct(coef, res);
+  block_idct(coef, res, xvid);
   for (int y = 0; y < 8; y++)
     for (int x = 0; x < 8; x++) dst[y * stride + x] = clip_pixel(dst[y * stride + x] + res[y * 8 + x]);
+}
+
+// ---------------------------------------------------------------------------
+// IDCT: FFmpeg's Xvid IDCT (ff_xvid_idct), for Xvid-stamped streams.
+
+const int kXvidTab04[7] = {22725, 21407, 19266, 16384, 12873, 8867, 4520};
+const int kXvidTab17[7] = {31521, 29692, 26722, 22725, 17855, 12299, 6270};
+const int kXvidTab26[7] = {29692, 27969, 25172, 21407, 16819, 11585, 5906};
+const int kXvidTab35[7] = {26722, 25172, 22654, 19266, 15137, 10426, 5315};
+constexpr int XVID_ROW_SHIFT = 11, XVID_COL_SHIFT = 6;
+constexpr unsigned XVID_TAN1 = 0x32EC, XVID_TAN2 = 0x6A0A, XVID_TAN3 = 0xAB0E, XVID_SQRT2 = 0x5A82;
+
+// A row; false when it is all zero (left as it is).
+bool xvid_idct_row(int16_t* in, const int* tab, int rnd) {
+  const unsigned c1 = tab[0], c2 = tab[1], c3 = tab[2], c4 = tab[3], c5 = tab[4], c6 = tab[5],
+                 c7 = tab[6];
+  const int right = in[5] | in[6] | in[7];
+  const int left = in[1] | in[2] | in[3];
+  if (!(right | in[4])) {
+    const int k = (int)(c4 * in[0] + rnd);
+    if (left) {
+      const unsigned a0 = k + c2 * in[2], a1 = k + c6 * in[2], a2 = k - c6 * in[2],
+                     a3 = k - c2 * in[2];
+      const int b0 = (int)(c1 * in[1] + c3 * in[3]), b1 = (int)(c3 * in[1] - c7 * in[3]);
+      const int b2 = (int)(c5 * in[1] - c1 * in[3]), b3 = (int)(c7 * in[1] - c5 * in[3]);
+      in[0] = (int16_t)((int)(a0 + b0) >> XVID_ROW_SHIFT);
+      in[1] = (int16_t)((int)(a1 + b1) >> XVID_ROW_SHIFT);
+      in[2] = (int16_t)((int)(a2 + b2) >> XVID_ROW_SHIFT);
+      in[3] = (int16_t)((int)(a3 + b3) >> XVID_ROW_SHIFT);
+      in[4] = (int16_t)((int)(a3 - b3) >> XVID_ROW_SHIFT);
+      in[5] = (int16_t)((int)(a2 - b2) >> XVID_ROW_SHIFT);
+      in[6] = (int16_t)((int)(a1 - b1) >> XVID_ROW_SHIFT);
+      in[7] = (int16_t)((int)(a0 - b0) >> XVID_ROW_SHIFT);
+    } else {
+      const int a0 = k >> XVID_ROW_SHIFT;
+      if (!a0) return false;
+      for (int i = 0; i < 8; i++) in[i] = (int16_t)a0;
+    }
+  } else if (!(left | right)) {
+    const int a0 = (int)(rnd + c4 * (in[0] + in[4])) >> XVID_ROW_SHIFT;
+    const int a1 = (int)(rnd + c4 * (in[0] - in[4])) >> XVID_ROW_SHIFT;
+    in[0] = in[3] = in[4] = in[7] = (int16_t)a0;
+    in[1] = in[2] = in[5] = in[6] = (int16_t)a1;
+  } else {
+    const unsigned k = c4 * in[0] + rnd;
+    const unsigned a0 = k + c2 * in[2] + c4 * in[4] + c6 * in[6];
+    const unsigned a1 = k + c6 * in[2] - c4 * in[4] - c2 * in[6];
+    const unsigned a2 = k - c6 * in[2] - c4 * in[4] + c2 * in[6];
+    const unsigned a3 = k - c2 * in[2] + c4 * in[4] - c6 * in[6];
+    const unsigned b0 = c1 * in[1] + c3 * in[3] + c5 * in[5] + c7 * in[7];
+    const unsigned b1 = c3 * in[1] - c7 * in[3] - c1 * in[5] - c5 * in[7];
+    const unsigned b2 = c5 * in[1] - c1 * in[3] + c7 * in[5] + c3 * in[7];
+    const unsigned b3 = c7 * in[1] - c5 * in[3] + c3 * in[5] - c1 * in[7];
+    in[0] = (int16_t)((int)(a0 + b0) >> XVID_ROW_SHIFT);
+    in[1] = (int16_t)((int)(a1 + b1) >> XVID_ROW_SHIFT);
+    in[2] = (int16_t)((int)(a2 + b2) >> XVID_ROW_SHIFT);
+    in[3] = (int16_t)((int)(a3 + b3) >> XVID_ROW_SHIFT);
+    in[4] = (int16_t)((int)(a3 - b3) >> XVID_ROW_SHIFT);
+    in[5] = (int16_t)((int)(a2 - b2) >> XVID_ROW_SHIFT);
+    in[6] = (int16_t)((int)(a1 - b1) >> XVID_ROW_SHIFT);
+    in[7] = (int16_t)((int)(a0 - b0) >> XVID_ROW_SHIFT);
+  }
+  return true;
+}
+
+inline int xvid_mult(unsigned c, int x) { return (int)((unsigned)((int)(c * (unsigned)x) >> 16)); }
+
+// One column (stride 8) after rows: `rows` 8 when rows 4-7 may be non-zero,
+// 4 when only rows 0-3, 3 when only rows 0-2.
+void xvid_idct_col(int16_t* in, int rows) {
+  int mm0, mm1, mm2, mm3, mm4, mm5, mm6, mm7, spill;
+  if (rows == 8) {
+    mm4 = in[7 * 8];
+    mm5 = in[5 * 8];
+    mm6 = in[3 * 8];
+    mm7 = in[1 * 8];
+    mm0 = xvid_mult(XVID_TAN1, mm4) + mm7;
+    mm1 = xvid_mult(XVID_TAN1, mm7) - mm4;
+    mm2 = xvid_mult(XVID_TAN3, mm5) + mm6;
+    mm3 = xvid_mult(XVID_TAN3, mm6) - mm5;
+    mm7 = mm0 + mm2;
+    mm4 = mm1 - mm3;
+    mm0 = mm0 - mm2;
+    mm1 = mm1 + mm3;
+    mm6 = mm0 + mm1;
+    mm5 = mm0 - mm1;
+    mm5 = 2 * xvid_mult(XVID_SQRT2, mm5);
+    mm6 = 2 * xvid_mult(XVID_SQRT2, mm6);
+    mm1 = in[2 * 8];
+    mm2 = in[6 * 8];
+    mm3 = xvid_mult(XVID_TAN2, mm2) + mm1;
+    mm2 = xvid_mult(XVID_TAN2, mm1) - mm2;
+    mm0 = in[0] + in[4 * 8];
+    mm1 = in[0] - in[4 * 8];
+  } else if (rows == 4) {
+    mm0 = in[1 * 8];
+    mm2 = in[3 * 8];
+    mm1 = xvid_mult(XVID_TAN1, mm0);
+    mm3 = xvid_mult(XVID_TAN3, mm2);
+    mm7 = mm0 + mm2;
+    mm4 = mm1 - mm3;
+    mm0 = mm0 - mm2;
+    mm1 = mm1 + mm3;
+    mm6 = mm0 + mm1;
+    mm5 = mm0 - mm1;
+    mm6 = 2 * xvid_mult(XVID_SQRT2, mm6);
+    mm5 = 2 * xvid_mult(XVID_SQRT2, mm5);
+    mm0 = mm1 = in[0];
+    mm3 = in[2 * 8];
+    mm2 = xvid_mult(XVID_TAN2, mm3);
+  } else {
+    mm7 = in[1 * 8];
+    mm4 = xvid_mult(XVID_TAN1, mm7);
+    mm6 = mm7 + mm4;
+    mm5 = mm7 - mm4;
+    mm6 = 2 * xvid_mult(XVID_SQRT2, mm6);
+    mm5 = 2 * xvid_mult(XVID_SQRT2, mm5);
+    mm0 = mm1 = in[0];
+    mm3 = in[2 * 8];
+    mm2 = xvid_mult(XVID_TAN2, mm3);
+  }
+  // even part and the butterflies
+  spill = mm0 + mm3;
+  mm3 = mm0 - mm3;
+  mm0 = spill;
+  spill = mm0 + mm7;
+  mm7 = mm0 - mm7;
+  mm0 = spill;
+  in[8 * 0] = (int16_t)(mm0 >> XVID_COL_SHIFT);
+  in[8 * 7] = (int16_t)(mm7 >> XVID_COL_SHIFT);
+  mm0 = mm3 + mm4;
+  mm4 = mm3 - mm4;
+  mm3 = mm0;
+  in[8 * 3] = (int16_t)(mm3 >> XVID_COL_SHIFT);
+  in[8 * 4] = (int16_t)(mm4 >> XVID_COL_SHIFT);
+  mm0 = mm1 + mm2;
+  mm2 = mm1 - mm2;
+  mm1 = mm0;
+  mm0 = mm1 + mm6;
+  mm6 = mm1 - mm6;
+  mm1 = mm0;
+  in[8 * 1] = (int16_t)(mm1 >> XVID_COL_SHIFT);
+  in[8 * 6] = (int16_t)(mm6 >> XVID_COL_SHIFT);
+  mm0 = mm2 + mm5;
+  mm5 = mm2 - mm5;
+  mm2 = mm0;
+  in[8 * 2] = (int16_t)(mm2 >> XVID_COL_SHIFT);
+  in[8 * 5] = (int16_t)(mm5 >> XVID_COL_SHIFT);
+}
+
+// The residual of a block (natural order), res[y * 8 + x].
+void xvid_idct(const int16_t* coef, int* res) {
+  int16_t b[64];
+  memcpy(b, coef, sizeof b);
+  static const int* const kTab[8] = {kXvidTab04, kXvidTab17, kXvidTab26, kXvidTab35,
+                                     kXvidTab04, kXvidTab35, kXvidTab26, kXvidTab17};
+  static const int kRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+  int rows = 0x07;
+  for (int i = 0; i < 8; i++)
+    if (xvid_idct_row(b + 8 * i, kTab[i], kRnd[i]) && i >= 3) rows |= 1 << i;
+  int kind = (rows & 0xF0) ? 8 : (rows & 0x08) ? 4 : 3;
+  for (int c = 0; c < 8; c++) xvid_idct_col(b + c, kind);
+  for (int k = 0; k < 64; k++) res[k] = b[k];
+}
+
+void block_idct(const int16_t* coef, int* res, bool xvid) {
+  if (xvid)
+    xvid_idct(coef, res);
+  else
+    idct(coef, res);
 }
 
 // ---------------------------------------------------------------------------
@@ -498,6 +679,8 @@ struct Vol {
   int quant_precision = 5;
   bool resync_disable = true;
   int ver_id = 1;
+  int vo_type = 0;
+  bool control_parameters = false;
 };
 
 struct MbState {  // per-MB motion and prediction state, with a border
@@ -549,6 +732,7 @@ class Codec {
   int y_dc_ = 8, c_dc_ = 8;
   int16_t block_[6][64];
   int last_index_[6];
+  bool xvid_idct_ = false;  // FFmpeg's Xvid IDCT in place of its simple IDCT
 
   void init_size(int w, int h) {
     width = w;
@@ -768,7 +952,7 @@ class Codec {
         if (level) b[k] = (int16_t)(level < 0 ? level * qmul - qadd : level * qmul + qadd);
       }
       int plane = n < 4 ? 0 : n - 3;
-      idct_put(b, dest(plane, n), cur_.p[plane].w);
+      idct_put(b, dest(plane, n), cur_.p[plane].w, xvid_idct_);
     }
   }
 
@@ -816,7 +1000,7 @@ class Codec {
     for (int n = 0; n < 6; n++) {
       if (last_index_[n] < 0) continue;
       int plane = n < 4 ? 0 : n - 3;
-      idct_add(block_[n], dest(plane, n), cur_.p[plane].w);
+      idct_add(block_[n], dest(plane, n), cur_.p[plane].w, xvid_idct_);
     }
   }
 };
@@ -833,6 +1017,40 @@ class Decoder : public Codec {
 
   // Decodes one packet; returns true if it held a VOP (coded or not).
   bool decode(const uint8_t* data, size_t n) { return parse(data, n, true); }
+
+  // The vop_coded flag of the packet's VOP (reading its headers, not its
+  // macroblocks); -1 without a VOP.
+  int vop_coded(const uint8_t* data, size_t n) {
+    size_t i = 0;
+    while (i + 4 <= n) {
+      if (!(data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1)) {
+        i++;
+        continue;
+      }
+      const uint8_t code = data[i + 3];
+      const size_t start = i + 4;
+      size_t end = start;
+      while (end + 3 <= n && !(data[end] == 0 && data[end + 1] == 0 && data[end + 2] == 1)) end++;
+      if (end + 3 > n) end = n;
+      if (code >= 0x20 && code <= 0x2f) {
+        BitReader br(data + start, end - start);
+        parse_vol(br);
+      } else if (code == 0xb6) {
+        if (!vol.valid) corrupt("a VOP before the video object layer header");
+        BitReader br(data + start, n - start);
+        br.skip(2);
+        while (br.get1()) {
+          if (br.left() <= 0) corrupt("truncated VOP header");
+        }
+        br.marker("before vop_time_increment");
+        br.skip(vol.time_bits);
+        br.marker("after vop_time_increment");
+        return br.get1();
+      }
+      i = end;
+    }
+    return -1;
+  }
 
  private:
   int dc_threshold_ = 99;
@@ -859,6 +1077,8 @@ class Decoder : public Codec {
         BitReader br(data + start, n - start);
         decode_vop(br);
         return true;
+      } else if (code == 0xb2) {
+        user_data(data + start, end - start);
       } else if (code == 0xb5) {
         BitReader br(data + start, end - start);
         if (br.get1()) br.skip(7);  // visual_object_verid, priority
@@ -869,16 +1089,65 @@ class Decoder : public Codec {
     return false;
   }
 
+  // User data: the encoder stamps FFmpeg's decode_user_data reads.
+  void user_data(const uint8_t* p, size_t n) {
+    char buf[256];
+    size_t len = 0;
+    while (len < n && len < 255) {
+      if (len + 3 <= n && p[len] == 0 && p[len + 1] == 0 && p[len + 2] < 2) break;
+      buf[len] = (char)p[len];
+      len++;
+    }
+    buf[len] = 0;
+    int ver = 0, build = 0, ver2 = 0, ver3 = 0;
+    char last = 0;
+    int e = sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
+    if (e < 2) e = sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
+    if (e >= 2) divx_version_ = ver;
+    e = sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+    if (e != 4) e = sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2, &ver3, &build);
+    if (e != 4) e = sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+    if (e == 4 || strcmp(buf, "ffmpeg") == 0) lavc_ = true;
+    if (sscanf(buf, "XviD%d", &build) == 1) xvid_build_ = build;
+  }
+
+  // FFmpeg's ff_mpeg4_workaround_bugs, as far as it changes the decoding of
+  // the tools this decoder reads: the IDCT, or a refusal.
+  void choose_idct() {
+    int xvid = xvid_build_, divx = divx_version_;
+    if (xvid < 0 && divx < 0 && !lavc_) {
+      static const char* kXvidTags[] = {"XVID", "XVIX", "RMP4", "ZMP4", "SIPP"};
+      for (const char* t : kXvidTags)
+        if (fourcc == t) xvid = 0;
+      if (xvid < 0 && fourcc == "DIVX" && vol.vo_type == 0 && !vol.control_parameters) divx = 400;
+    }
+    if (xvid >= 0 && divx >= 0) divx = -1;
+    if (xvid >= 0 && xvid <= 32)
+      unsupported("Xvid streams of build 32 or earlier, or unstamped with the FourCC XVID "
+                  "(FFmpeg decodes them with bug workarounds)");
+    if (divx >= 0) unsupported("DivX streams (FFmpeg decodes them with bug workarounds)");
+    xvid_idct_ = xvid >= 0;
+  }
+
+ public:
+  std::string fourcc;  // the AVI FourCC, else empty
+
+ private:
+  int xvid_build_ = -1, divx_version_ = -1;
+  bool lavc_ = false;
+
   void parse_vol(BitReader& br) {
     Vol v;
     br.skip(1);  // random_accessible_vol
-    if (br.get(8) == 0x12) unsupported("fine granularity scalability");  // vo_type
+    v.vo_type = (int)br.get(8);
+    if (v.vo_type == 0x12) unsupported("fine granularity scalability");
     if (br.get1()) {  // is_object_layer_identifier
       v.ver_id = (int)br.get(4);
       br.skip(3);
     }
     if (br.get(4) == 15) br.skip(16);  // extended pixel aspect ratio
-    if (br.get1()) {                   // vol_control_parameters
+    v.control_parameters = br.get1();
+    if (v.control_parameters) {
       if (br.get(2) != 1) unsupported("chroma formats other than 4:2:0");
       br.skip(1);       // low_delay: B-VOPs are refused where they come
       if (br.get1()) {  // vbv_parameters
@@ -931,6 +1200,7 @@ class Decoder : public Codec {
   }
 
   void decode_vop(BitReader& br) {
+    choose_idct();
     pict_ = (int)br.get(2);
     if (pict_ == 2) unsupported("B-VOPs");
     if (pict_ == 3) unsupported("S-VOPs (sprites, GMC)");
@@ -1861,28 +2131,6 @@ void rgb_to_yuv420(const uint8_t* rgb, int w, int h, uint8_t* y, uint8_t* u, uin
     }
 }
 
-// swscale's unscaled yuv420p -> bgr24 path on x86 (its SIMD yuv2rgb): each
-// chroma sample serves its 2x2 luma samples, and each term is a 16-bit
-// fixed-point product rounded down (pmulhw) with the 13-bit coefficients of
-// BT.601 limited range: 1.164 (luma), 1.596, -0.392, -0.813, 2.017.
-void yuv420_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, int w, int h, uint8_t* rgb) {
-  auto mulhi = [](int a, int c) { return (a * c) >> 16; };
-  const int cw = (w + 1) / 2;
-  for (int r = 0; r < h; r++) {
-    const uint8_t* yr = y + (size_t)r * w;
-    const uint8_t* ur = u + (size_t)(r >> 1) * cw;
-    const uint8_t* vr = v + (size_t)(r >> 1) * cw;
-    uint8_t* out = rgb + (size_t)r * w * 3;
-    for (int c = 0; c < w; c++) {
-      int yy = mulhi((yr[c] - 16) * 8, 9539);
-      int du = (ur[c >> 1] - 128) * 8, dv = (vr[c >> 1] - 128) * 8;
-      out[3 * c + 0] = clip_pixel(yy + mulhi(dv, 13075));
-      out[3 * c + 1] = clip_pixel(yy + mulhi(du, -3209) + mulhi(dv, -6660));
-      out[3 * c + 2] = clip_pixel(yy + mulhi(du, 16525));
-    }
-  }
-}
-
 int fail(const Failure& f, char* err, int err_len) {
   if (err && err_len > 0) snprintf(err, (size_t)err_len, "%s", f.message.c_str());
   return f.code;
@@ -1904,6 +2152,23 @@ extern "C" {
 void* metrabs_mp4v_decoder_new() { return new Decoder(); }
 
 void metrabs_mp4v_decoder_free(void* d) { delete static_cast<Decoder*>(d); }
+
+// *coded: the vop_coded flag of the packet's VOP (FFmpeg outputs no frame
+// for a VOP with 0), read from its headers; 3 without a VOP.
+int metrabs_mp4v_vop_coded(void* d, const uint8_t* data, size_t n, int* coded, char* err,
+                           int err_len) {
+  try {
+    *coded = static_cast<Decoder*>(d)->vop_coded(data, n);
+  } catch (const Failure& f) {
+    return fail(f, err, err_len);
+  }
+  return *coded < 0 ? kNoFrame : kOk;
+}
+
+// The AVI FourCC of the stream, which FFmpeg reads for encoder workarounds.
+void metrabs_mp4v_decoder_fourcc(void* d, const char* fourcc) {
+  static_cast<Decoder*>(d)->fourcc = fourcc ? fourcc : "";
+}
 
 // Reads the VOL of a decoder configuration (MP4's esds, Matroska's
 // CodecPrivate, AVI's strf extra bytes) or of a packet that carries it.
@@ -1933,12 +2198,14 @@ int metrabs_mp4v_decode_rgb(void* d, const uint8_t* data, size_t n, uint8_t* rgb
   }
   const Frame& f = dec->output();
   int w = dec->width, h = dec->height;
+  if (!yuv_rgb::supported(h))
+    return fail(Failure{kUnsupported, "RGB frames of an odd height below 9 rows"}, err, err_len);
   std::vector<uint8_t> planes((size_t)w * h + 2 * (size_t)((w + 1) / 2) * ((h + 1) / 2));
   uint8_t* py = planes.data();
   uint8_t* pu = py + (size_t)w * h;
   uint8_t* pv = pu + (size_t)((w + 1) / 2) * ((h + 1) / 2);
   copy_planes(f, w, h, py, pu, pv);
-  yuv420_to_rgb(py, pu, pv, w, h, rgb);
+  yuv_rgb::to_rgb(py, w, pu, pv, (w + 1) / 2, w, h, 0, 2, rgb);  // BT.601, limited range
   if (y) memcpy(y, py, (size_t)w * h);
   return kOk;
 }

@@ -1,9 +1,10 @@
 """CPU image helpers of the data pipeline (`metrabs_tpu/data/improc.py`)
 without OpenCV: images are read from JPEG (through `data.jpeg`, equal to
 cv2's decode), PNG (through `data.cvfree`) and `.npy` files and written as
-JPEG (equal to cv2's encode) or PNG, video frames are read and written as
-Motion JPEG or MPEG-4 Part 2 (mp4v) in AVI, Matroska and MP4 files (through
-`data.video`), and the colour and resize helpers give OpenCV's numbers.
+JPEG (equal to cv2's encode) or PNG, video frames are read as Motion JPEG,
+MPEG-4 Part 2 (mp4v) or H.264 and written as Motion JPEG or mp4v in AVI,
+Matroska and MP4 files (through `data.video`), and the colour and resize
+helpers give OpenCV's numbers.
 """
 
 from __future__ import annotations
@@ -28,14 +29,16 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
     ValueError for a corrupt or truncated JPEG, and NotImplementedError for
     any other format.
 
-    `video.ext#frame=N` is frame N (from 0) of a Motion JPEG or mp4v video
-    in AVI, Matroska or MP4 (the ASPset adapter's convention for its .mkv
-    files): the file's index is parsed once and kept. A Motion JPEG frame is
-    one seek and one decode (equal to `cv2.imdecode` of its packet); an mp4v
-    frame is decoded from the last key frame before it, through the file's
-    decoder, which frames read in order continue (equal to
-    `cv2.VideoCapture`'s frame). Other codecs raise NotImplementedError
-    naming the codec.
+    `video.ext#frame=N` is frame N (from 0) of a Motion JPEG, mp4v or H.264
+    video in AVI, Matroska or MP4 (the ASPset adapter's convention for its
+    .mkv files), numbered as cv2 numbers the frames it decodes (past them
+    FileNotFoundError, as JAX's read raises): the file's index is parsed once
+    and kept. A Motion JPEG frame is one seek and one decode (equal to
+    `cv2.imdecode` of its packet); an mp4v or H.264 frame is decoded from the
+    entry point before it (a key frame; for H.264 an IDR picture or a
+    recovery point), through the file's decoder, which frames read in order
+    continue (equal to `cv2.VideoCapture`'s frame). Other codecs raise
+    NotImplementedError naming the codec.
 
     With `gray`, uint8 [H, W], equal to `cv2.imread(path,
     cv2.IMREAD_GRAYSCALE)` bit for bit: a JPEG's luma plane (libjpeg's
@@ -200,17 +203,18 @@ def video_fps(filepath: str) -> float:
 
 
 def num_frames_of_video(path: str) -> int:
-    """Frame count: the packets the container's index lists."""
+    """Frame count: the packets the container's index lists (cv2's
+    CAP_PROP_FRAME_COUNT, which counts an mp4v VOP that is not coded)."""
     return int(video.index(str(path)).n_frames)
 
 
 def transform_video(inp_path: str, out_path: str, process_frame_fn,
                     fourcc: str = 'mp4v') -> None:
-    """Reads a video, maps `process_frame_fn` over its RGB frames and writes
-    the results at the source's frame rate, in the container the output's
-    extension names (`.mp4`, `.avi` or `.mkv`), as mp4v (JAX's default) or
-    MJPG. The frame function must keep the frame size. Another codec raises
-    NotImplementedError naming it."""
+    """Reads a video (Motion JPEG, mp4v or H.264), maps `process_frame_fn`
+    over its RGB frames and writes the results at the source's frame rate,
+    in the container the output's extension names (`.mp4`, `.avi` or
+    `.mkv`), as mp4v (JAX's default) or MJPG. The frame function must keep
+    the frame size. Another codec raises NotImplementedError naming it."""
     idx = video.index(str(inp_path))
     parent = os.path.dirname(os.path.abspath(out_path))
     os.makedirs(parent, exist_ok=True)

@@ -3,14 +3,18 @@ the index of a file's first video track, and a muxer for one mp4v track.
 
 Reading walks the boxes `ftyp`, `moov` (before or after `mdat`) / `mvhd` /
 `trak` / `tkhd`, `mdia` / `mdhd` / `hdlr` and `minf` / `stbl`, whose sample
-table gives each packet: `stsd` (the sample entry's FourCC and size, and
-for `mp4v` the `esds` DecoderSpecificInfo: the VOS and VOL), `stts`
-(durations: the frame rate is the `mdhd` timescale over them), `stss` (key
-frames; without it every sample is one), `stsc`, `stsz` and `stco`/`co64`.
+table gives each packet: `stsd` (the sample entry's FourCC and size; for
+`mp4v` the `esds` DecoderSpecificInfo: the VOS and VOL; for `avc1` and
+`avc3` the `avcC`), `stts` (durations: the frame rate is the `mdhd`
+timescale over them), `stss` (key frames; without it every sample is one),
+`stsc`, `stsz` and `stco`/`co64`. An H.264 track whose `ctts` offsets or
+`elst` edit shift its frames (the reordering of B-frame streams) raises
+UnsupportedVideo.
 
 Writing lays a file out as FFmpeg does: `ftyp`, then `mdat` with the
-packets, then `moov` with one track, one sample per chunk, `stss` for the
-key frames, and `co64` in place of `stco` once an offset passes 4 GiB.
+packets, then `moov` with one track (mp4v with its `esds`, or avc1 with its
+`avcC`), one sample per chunk, `stss` for the key frames, and `co64` in
+place of `stco` once an offset passes 4 GiB.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from metrabs_tpu_torch.data.mpeg4 import UnsupportedVideo
 
 _CONTAINERS = (b'moov', b'trak', b'mdia', b'minf', b'stbl', b'edts', b'dinf')
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication of MPEG-4 Part 2 video
@@ -152,6 +158,20 @@ def _read_track(path: str, moov: bytes, a: int, b: int) -> Dict:
                 object_type, config = decoder_specific_info(stsd[x:y])
                 if object_type != MPEG4_VISUAL:
                     codec = f'mp4v (objectTypeIndication {object_type:#x})'
+    elif codec in ('avc1', 'avc3'):
+        for kind, x, y in _boxes(stsd, entry[1] + 78, entry[2]):
+            if kind == b'avcC':
+                config = stsd[x:y]
+        ctts = payload(b'ctts')
+        if ctts is not None:
+            runs = np.frombuffer(ctts[8:8 + 8 * struct.unpack('>I', ctts[4:8])[0]], '>u4')
+            if runs.size and np.any(runs.reshape(-1, 2)[:, 1] != runs[1]):
+                raise UnsupportedVideo(f'{path}: composition time offsets (ctts), the frame '
+                                       f'reordering of B-frame streams')
+        elst = _find(moov, a, b, (b'edts', b'elst'))
+        if elst is not None and _edit_shift(moov[elst[0]:elst[1]]):
+            raise UnsupportedVideo(f'{path}: an edit list (elst) that shifts frames, as '
+                                   f'B-frame streams carry')
     sizes = _sample_sizes(payload(b'stsz'))
     offsets = _sample_offsets(path, payload(b'stsc'), payload(b'stco'), payload(b'co64'), sizes)
     n = len(sizes)
@@ -170,6 +190,20 @@ def _read_track(path: str, moov: bytes, a: int, b: int) -> Dict:
         keyframes[sync[(sync >= 1) & (sync <= n)].astype(np.int64) - 1] = True
     return dict(codec=codec, width=width, height=height, fps=fps, offsets=offsets,
                 sizes=sizes, keyframes=keyframes, config=config)
+
+
+def _edit_shift(elst: bytes) -> bool:
+    """Whether an elst starts the presentation past the first sample's time
+    (an empty edit, media_time -1, only delays it)."""
+    version, count = elst[0], struct.unpack('>I', elst[4:8])[0]
+    size = 20 if version == 1 else 12
+    for k in range(count):
+        e = elst[8 + size * k:8 + size * (k + 1)]
+        media_time = struct.unpack('>q' if version == 1 else '>i', e[8:16] if version == 1
+                                   else e[4:8])[0]
+        if media_time != -1:
+            return media_time > 0
+    return False
 
 
 def _sample_sizes(stsz: bytes) -> np.ndarray:
@@ -226,14 +260,18 @@ _IDENTITY = struct.pack('>9I', 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
 
 
 class Mp4Muxer:
-    """One mp4v video track: `ftyp`, `mdat` (its size in 64 bits, filled
-    in on close), then `moov`. `timescale / delta` is the frame rate;
-    `config` is the VOS and VOL for the esds."""
+    """One video track: `ftyp`, `mdat` (its size in 64 bits, filled in on
+    close), then `moov`. `timescale / delta` is the frame rate; `config` is
+    the VOS and VOL for an mp4v track's esds, or an avc1 track's avcC
+    (`codec` 'avc1', whose packets are length-prefixed NAL units)."""
 
     def __init__(self, f: BinaryIO, width: int, height: int, timescale: int, delta: int,
-                 config: bytes):
+                 config: bytes, codec: str = 'mp4v'):
+        if codec not in ('mp4v', 'avc1'):
+            raise UnsupportedVideo(f'the MP4 muxer writes mp4v and avc1 tracks, not {codec!r}')
         self.f, self.width, self.height = f, width, height
         self.timescale, self.delta, self.config = timescale, delta, config
+        self.codec = codec
         self.sizes: List[int] = []
         self.offsets: List[int] = []
         self.keys: List[int] = []
@@ -271,15 +309,18 @@ class Mp4Muxer:
         vmhd = _full_box(b'vmhd', 0, 1, bytes(8))
         dinf = _box(b'dinf', _full_box(b'dref', 0, 0, struct.pack('>I', 1)
                                        + _full_box(b'url ', 0, 1, b'')))
-        es = (struct.pack('>HB', 1, 0)
-              + _descr(0x04, struct.pack('>BB3sII', MPEG4_VISUAL, 0x11, bytes(3),
-                                         max(self.sizes, default=0) * 8, 0)
-                       + _descr(0x05, self.config))
-              + _descr(0x06, b'\x02'))
-        esds = _full_box(b'esds', 0, 0, _descr(0x03, es))
-        entry = _box(b'mp4v', bytes(6) + struct.pack('>H', 1) + bytes(16)
+        if self.codec == 'avc1':
+            extension = _box(b'avcC', self.config)
+        else:
+            es = (struct.pack('>HB', 1, 0)
+                  + _descr(0x04, struct.pack('>BB3sII', MPEG4_VISUAL, 0x11, bytes(3),
+                                             max(self.sizes, default=0) * 8, 0)
+                           + _descr(0x05, self.config))
+                  + _descr(0x06, b'\x02'))
+            extension = _full_box(b'esds', 0, 0, _descr(0x03, es))
+        entry = _box(self.codec.encode(), bytes(6) + struct.pack('>H', 1) + bytes(16)
                      + struct.pack('>HHIIIH', self.width, self.height, 0x480000, 0x480000, 0, 1)
-                     + bytes(32) + struct.pack('>Hh', 24, -1) + esds)
+                     + bytes(32) + struct.pack('>Hh', 24, -1) + extension)
         stsd = _full_box(b'stsd', 0, 0, struct.pack('>I', 1) + entry)
         stts = _full_box(b'stts', 0, 0, struct.pack('>III', 1, n, self.delta) if n
                          else struct.pack('>I', 0))

@@ -3,11 +3,13 @@ write) on the host, through `csrc/mpeg4_video.cpp`.
 
 `Decoder` turns the packets of one stream into RGB frames. Its luma planes
 equal FFmpeg's (`cv2.VideoCapture(path, cv2.CAP_FFMPEG,
-[cv2.CAP_PROP_CONVERT_RGB, 0])`) bit for bit, and its RGB equals
-`cv2.VideoCapture`'s BGR frames (swscale's unscaled yuv420p path, chroma
-repeated over 2x2 pixels) on frames of even height. A stream that uses a
-tool beyond the Simple Profile (B-VOPs, quarter-pel, GMC, interlaced, data
-partitioning, MPEG quantisation, ...) raises UnsupportedVideo naming it.
+[cv2.CAP_PROP_CONVERT_RGB, 0])`) bit for bit, with FFmpeg's Xvid IDCT for
+Xvid-stamped streams, and its RGB equals `cv2.VideoCapture`'s BGR frames
+(swscale's conversion, `csrc/yuv_rgb.h`: the unscaled path at even heights,
+the scaler at odd ones). A stream that uses a tool beyond the Simple
+Profile (B-VOPs, quarter-pel, GMC, interlaced, data partitioning, MPEG
+quantisation, ...) raises UnsupportedVideo naming it, as do the streams
+FFmpeg decodes with bug workarounds (DivX, old or unstamped Xvid).
 
 `Encoder` writes I-VOPs every GOP frames and P-VOPs between at a fixed
 quantiser (OpenCV's GOP of 12 and its qmin of 3), and reconstructs each
@@ -54,6 +56,11 @@ def _library() -> ctypes.CDLL:
             lib.metrabs_mp4v_decoder_new.restype = vp
             lib.metrabs_mp4v_decoder_new.argtypes = []
             lib.metrabs_mp4v_decoder_free.argtypes = [vp]
+            lib.metrabs_mp4v_decoder_fourcc.argtypes = [vp, ctypes.c_char_p]
+            lib.metrabs_mp4v_decoder_fourcc.restype = None
+            lib.metrabs_mp4v_vop_coded.argtypes = [vp, ctypes.c_char_p, sz, ip, ctypes.c_char_p,
+                                                   i]
+            lib.metrabs_mp4v_vop_coded.restype = ctypes.c_int
             lib.metrabs_mp4v_decoder_config.argtypes = [vp, ctypes.c_char_p, sz, ip, ip,
                                                         ctypes.c_char_p, i]
             lib.metrabs_mp4v_decode_rgb.argtypes = [vp, ctypes.c_char_p, sz, vp, vp,
@@ -106,13 +113,15 @@ class Decoder:
     """Decodes the packets of one mp4v stream in order. `config` is the
     decoder configuration (MP4's esds, Matroska's CodecPrivate, AVI's strf
     extra bytes); without one, the first key frame must carry the VOL, as
-    AVI key frames do."""
+    AVI key frames do. `fourcc` is an AVI stream's FourCC, which FFmpeg
+    reads where the stream carries no encoder stamp (XVID: Xvid's IDCT)."""
 
-    def __init__(self, config: bytes = b'', name: str = '<mp4v>'):
+    def __init__(self, config: bytes = b'', name: str = '<mp4v>', fourcc: str = ''):
         self._lib = _library()
         self._ptr = self._lib.metrabs_mp4v_decoder_new()
         self.name = name
         self.width = self.height = 0
+        self._lib.metrabs_mp4v_decoder_fourcc(self._ptr, fourcc.encode('latin1'))
         if config:
             self.configure(config)
 
@@ -131,7 +140,8 @@ class Decoder:
 
     def decode(self, packet: bytes, luma: bool = False):
         """RGB uint8 [H, W, 3] of the packet's VOP (and its luma plane
-        [H, W] if `luma`); a not-coded VOP repeats the previous frame."""
+        [H, W] if `luma`); a not-coded VOP gives the previous frame again
+        (`data.video` numbers frames as FFmpeg does, without it)."""
         global _FRAMES_DECODED
         if not self.width or _has_vol(packet):
             self.configure(packet)
@@ -146,6 +156,16 @@ class Decoder:
         with _COUNT_LOCK:
             _FRAMES_DECODED += 1
         return (rgb, y) if luma else rgb
+
+    def vop_coded(self, packet: bytes) -> bool:
+        """The vop_coded flag of the packet's VOP, read from its headers
+        (FFmpeg outputs no frame for a VOP that is not coded)."""
+        coded = ctypes.c_int()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = self._lib.metrabs_mp4v_vop_coded(self._ptr, packet, len(packet), ctypes.byref(coded),
+                                              err, _ERR_LEN)
+        _check(rc, err, self.name)
+        return bool(coded.value)
 
     def close(self) -> None:
         if self._ptr:

@@ -1,12 +1,13 @@
-"""Video files without a video library: Motion JPEG and MPEG-4 Part 2
-(`mp4v`) in AVI, Matroska and MP4.
+"""Video files without a video library: Motion JPEG, MPEG-4 Part 2 (`mp4v`)
+and H.264 in AVI, Matroska and MP4.
 
 Reading: the demuxers index a file's video packets once (AVI: RIFF with the
 `idx1` index, or the OpenDML `indx` super index and its `ix##` chunks that
 FFmpeg writes past 1 GiB; an AVI with neither raises; Matroska: EBML with
 SimpleBlock and BlockGroup in Clusters, `DefaultDuration` for the frame
 rate; MP4: `data.mp4`), with each packet's key-frame flag and the codec's
-private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`).
+private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`
+or `avcC`).
 
 - Motion JPEG: frame N is one seek, one read and one `jpeg.decode`, which
   equals `cv2.imdecode` of the packet bit for bit. A packet without a DHT
@@ -16,11 +17,22 @@ private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`).
   differ from these by a few levels.
 - mp4v (FourCCs `mp4v`, `MP4V`, `FMP4`, `DIVX`, `DX50`, `XVID`; Matroska
   `V_MPEG4/ISO/SP`, `/ASP`, `/AP`): decoded by `data.mpeg4`, whose luma
-  equals FFmpeg's and whose RGB equals `cv2.VideoCapture`'s. Frame N is
-  decoded from the last key frame at or before it. Each file keeps a few
-  decoders and its last few frames under a lock, so frames read in order,
-  from one thread or from several, are each decoded once. The stream's own
-  VOL decides what is refused (B-VOPs, quarter-pel, GMC, ...).
+  equals FFmpeg's and whose RGB equals `cv2.VideoCapture`'s. A VOP that is
+  not coded gives no frame, as FFmpeg gives none: the index reads each
+  packet's `vop_coded` flag, and frames are numbered as cv2 numbers them
+  (`num_frames_of_video` stays the container's count, as cv2's
+  CAP_PROP_FRAME_COUNT does). The stream's own VOL decides what is refused
+  (B-VOPs, quarter-pel, GMC, ...).
+- H.264 (AVI FourCCs `H264`, `X264`, `AVC1` in any case, Annex B; Matroska
+  `V_MPEG4/ISO/AVC` and MP4 `avc1`/`avc3`, length-prefixed with the avcC as
+  the configuration): decoded by `data.h264`, whose planes equal FFmpeg's and
+  whose RGB equals `cv2.VideoCapture`'s. Random access starts at the last
+  IDR picture at or before the frame, or at a recovery point whose frames
+  are exact by then (its recovery-point SEI), else at the first frame.
+
+Frame N of mp4v and H.264 is decoded from such an entry point. Each file
+keeps a few decoders and its last few frames under a lock, so frames read
+in order, from one thread or from several, are each decoded once.
 
 Writing: `VideoWriter` writes RGB frames as Motion JPEG (`jpeg.encode`,
 equal to `cv2.imencode`) or mp4v (`mpeg4.Encoder`) into an AVI (RIFF,
@@ -29,8 +41,8 @@ extensions, as FFmpeg writes them), a Matroska file (SimpleBlocks, one
 Cluster per second, Cues) or, for mp4v, an MP4 file, chosen by the
 extension, as cv2 chooses. Frame sizes are kept as given, odd ones too.
 
-Any other codec (H.264, HEVC, ...) or container raises UnsupportedVideo
-naming it (ROADMAP.md, "H.264").
+Any other codec (HEVC, VP9, ...) or container raises UnsupportedVideo
+naming it (ROADMAP.md, "Video").
 """
 
 from __future__ import annotations
@@ -44,24 +56,29 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from metrabs_tpu_torch.data import jpeg, mp4, mpeg4
+from metrabs_tpu_torch.data import h264, jpeg, mp4, mpeg4
 from metrabs_tpu_torch.data.mpeg4 import UnsupportedVideo  # noqa: F401 (the module's error)
 
 MJPEG_CODECS = ('MJPG', 'mjpg', 'V_MJPEG')  # AVI FourCCs, the Matroska CodecID
 # AVI FourCCs (any case) and Matroska CodecIDs of MPEG-4 Part 2 video
 MP4V_FOURCCS = ('MP4V', 'FMP4', 'DIVX', 'DX50', 'XVID')
 MP4V_CODEC_IDS = ('V_MPEG4/ISO/SP', 'V_MPEG4/ISO/ASP', 'V_MPEG4/ISO/AP')
-_ROADMAP = 'ROADMAP.md, "H.264"'
+# H.264: AVI FourCCs (any case), the Matroska CodecID, MP4 sample entries
+H264_FOURCCS = ('H264', 'X264', 'AVC1')
+H264_CODEC_IDS = ('V_MPEG4/ISO/AVC', 'avc1', 'avc3')
+_ROADMAP = 'ROADMAP.md, "Video"'
 DEFAULT_RIFF_LIMIT = 1 << 30  # FFmpeg's AVI_MAX_RIFF_SIZE: an AVIX extension past 1 GiB
 _AVIIF_KEYFRAME = 0x10
 
 
 def codec_kind(codec: str) -> Optional[str]:
-    """'mjpeg', 'mp4v' or None for a FourCC, CodecID or sample entry."""
+    """'mjpeg', 'mp4v', 'h264' or None for a FourCC, CodecID or sample entry."""
     if codec in MJPEG_CODECS:
         return 'mjpeg'
     if codec.upper() in MP4V_FOURCCS or codec in MP4V_CODEC_IDS:
         return 'mp4v'
+    if codec.upper() in H264_FOURCCS or codec in H264_CODEC_IDS:
+        return 'h264'
     return None
 
 
@@ -77,15 +94,29 @@ class VideoIndex:
     offsets: np.ndarray  # int64 byte offset of each packet
     sizes: np.ndarray  # int64 byte length of each packet
     keyframes: Optional[np.ndarray] = None  # bool per packet; None: every one
-    config: bytes = b''  # the codec's private header (mp4v: VOS and VOL)
+    config: bytes = b''  # the codec's private header (mp4v: VOS and VOL; H.264: avcC)
+    # The packet of each frame a decoder outputs (mp4v: the coded VOPs);
+    # None: one per packet.
+    frame_packets: Optional[np.ndarray] = None
+    # Entry points of random access (mp4v, H.264): (first packet, first
+    # packet decoded exactly from it, whether it starts at a recovery point).
+    entries: Optional[List[Tuple[int, int, bool]]] = None
 
     def __post_init__(self):
         if self.keyframes is None:
             self.keyframes = np.ones(len(self.offsets), bool)
+        if self.frame_packets is None:
+            self.frame_packets = np.arange(len(self.offsets), dtype=np.int64)
 
     @property
     def n_frames(self) -> int:
+        """The container's frame count (cv2's CAP_PROP_FRAME_COUNT)."""
         return len(self.offsets)
+
+    @property
+    def n_decoded(self) -> int:
+        """How many frames a decoder outputs (cv2's frames read)."""
+        return len(self.frame_packets)
 
     @property
     def kind(self) -> Optional[str]:
@@ -93,7 +124,7 @@ class VideoIndex:
 
     def packet(self, i: int, f: Optional[BinaryIO] = None) -> bytes:
         if not 0 <= i < self.n_frames:
-            raise IndexError(f'{self.path}: frame {i} of {self.n_frames}')
+            raise IndexError(f'{self.path}: packet {i} of {self.n_frames}')
         if f is None:
             with open(self.path, 'rb') as g:
                 return self.packet(i, g)
@@ -104,11 +135,25 @@ class VideoIndex:
         return data
 
     def frame(self, i: int, f: Optional[BinaryIO] = None) -> np.ndarray:
-        """RGB uint8 [H, W, 3] of frame i (mp4v: through the file's decoder
-        state, from the last key frame at or before i)."""
-        if self.kind == 'mp4v':
+        """RGB uint8 [H, W, 3] of frame i (mp4v, H.264: through the file's
+        decoder state, from the entry point before i)."""
+        if self.kind in ('mp4v', 'h264'):
             return _stream(self).read(i)
         return jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}')
+
+    def decoder(self, start: int = 0):
+        """A decoder of this stream whose first packet is `start`."""
+        if self.kind == 'h264':
+            recovering = any(s == start and r for s, _, r in self.entries or [])
+            return h264.Decoder(self.config, self.path, recovering)
+        return mpeg4.Decoder(self.config, self.path,
+                             self.codec if self.container == 'avi' else '')
+
+    def entry_for(self, packet: int) -> Tuple[int, int]:
+        """(first packet, first exact packet) of the latest entry point from
+        which `packet` decodes exactly."""
+        return max((start, exact) for start, exact, _ in self.entries
+                   if start <= packet and exact <= packet)
 
 
 _INDEX_LOCK = threading.Lock()
@@ -137,9 +182,13 @@ def index(path: str) -> VideoIndex:
             idx = VideoIndex(path=path, container='mp4', **mp4.read_index(path, f, st.st_size))
         else:
             raise UnsupportedVideo(f'{path}: not an AVI, Matroska or MP4 file')
-    if idx.kind is None:
-        raise UnsupportedVideo(f'{path}: codec {idx.codec!r} is not ported, only Motion JPEG '
-                               f'and MPEG-4 Part 2 (mp4v) ({_ROADMAP})')
+        if idx.kind is None:
+            raise UnsupportedVideo(f'{path}: codec {idx.codec!r} is not ported, only Motion JPEG, '
+                                   f'MPEG-4 Part 2 (mp4v) and H.264 ({_ROADMAP})')
+        if idx.kind == 'mp4v':
+            _index_vops(idx, f)
+        elif idx.kind == 'h264':
+            _index_h264(idx, f)
     with _INDEX_LOCK:  # threads that parsed the file at once all get the first index
         hit = _INDEX_CACHE.get(path)
         if hit is not None and hit[0] == key:
@@ -148,24 +197,58 @@ def index(path: str) -> VideoIndex:
     return idx
 
 
+def _index_vops(idx: VideoIndex, f: BinaryIO) -> None:
+    """mp4v: the packets whose VOP is coded (FFmpeg outputs a frame for
+    each), from their headers; entry points at the key frames."""
+    probe = idx.decoder()
+    try:
+        coded = [probe.vop_coded(idx.packet(i, f)) for i in range(idx.n_frames)]
+    finally:
+        probe.close()
+    idx.frame_packets = np.flatnonzero(coded).astype(np.int64)
+    idx.entries = [(int(k), int(k), False) for k in np.flatnonzero(idx.keyframes)] or [
+        (0, 0, False)]
+
+
+def _index_h264(idx: VideoIndex, f: BinaryIO) -> None:
+    """H.264: entry points at packet 0, the IDR pictures and the recovery
+    points (exact from their recovery_frame_cnt on) among the key frames."""
+    size = h264.length_size(idx.config)
+    if idx.container != 'avi' and not size:
+        raise ValueError(f'{idx.path}: an H.264 track without its avcC')
+    idx.entries = [(0, 0, False)]
+    for k in np.flatnonzero(idx.keyframes[1:]) + 1:
+        e = h264.entry_point(idx.packet(int(k), f), size)
+        if e.idr:
+            idx.entries.append((int(k), int(k), False))
+        elif e.recovery_frames >= 0 and e.exact:
+            idx.entries.append((int(k), int(k) + e.recovery_frames, True))
+
+
 def read_frame(path: str, i: int) -> np.ndarray:
-    """Frame i (from 0) of a video as RGB uint8 [H, W, 3]."""
+    """Frame i (from 0) of a video as RGB uint8 [H, W, 3]; FileNotFoundError
+    past the frames a decoder outputs, as JAX's cv2 read raises."""
     idx = index(path)
-    if not 0 <= i < idx.n_frames:
-        raise FileNotFoundError(f'{path}#frame={i}: the video has {idx.n_frames} frames')
+    if not 0 <= i < idx.n_decoded:
+        raise FileNotFoundError(f'{path}#frame={i}: the video has {idx.n_decoded} frames')
     return idx.frame(i)
 
 
 def iter_frames(path: str):
     """Every frame of a video in order, RGB uint8 [H, W, 3], through one open
-    file (and for mp4v one decoder of its own: each frame is decoded once)."""
+    file (and for mp4v and H.264 one decoder of its own: each frame is
+    decoded once)."""
     idx = index(path)
     with open(path, 'rb') as f:
-        if idx.kind == 'mp4v':
-            decoder = mpeg4.Decoder(idx.config, path)
+        if idx.kind in ('mp4v', 'h264'):
+            outputs = np.zeros(idx.n_frames, bool)
+            outputs[idx.frame_packets] = True
+            decoder = idx.decoder(0)
             try:
                 for i in range(idx.n_frames):
-                    yield decoder.decode(idx.packet(i, f))
+                    rgb = decoder.decode(idx.packet(i, f))
+                    if outputs[i]:
+                        yield rgb
             finally:
                 decoder.close()
             return
@@ -174,7 +257,7 @@ def iter_frames(path: str):
 
 
 # --------------------------------------------------------------------------
-# mp4v random access
+# mp4v and H.264 random access
 
 _CACHED_FRAMES = 16  # frames kept per file: twice predict_common's 8 I/O threads
 _CURSORS = 3  # decoders kept per file
@@ -184,55 +267,60 @@ _STREAMS: Dict[str, '_Stream'] = {}
 
 
 class _Cursor:
-    """A decoder and the frame it would decode next."""
+    """A decoder, the packet it would decode next and the first packet it
+    decodes exactly."""
 
-    def __init__(self, idx: VideoIndex, start: int):
-        self.decoder = mpeg4.Decoder(idx.config, idx.path)
+    def __init__(self, idx: VideoIndex, start: int, exact_from: int):
+        self.decoder = idx.decoder(start)
         self.next = start
+        self.exact_from = exact_from
 
 
 class _Stream:
-    """The decoders over one mp4v file and the last _CACHED_FRAMES frames
-    they decoded. Readers of frame i take the lock: a frame at hand is
-    copied out; else the cursor that stands after the last key frame at or
-    before i, and not past i, decodes on to it; else a new cursor starts at
-    that key frame. Up to _CURSORS cursors are kept, so that the I/O threads
-    of one batch may ask across a GOP boundary in any order and each frame
-    read in order is decoded once."""
+    """The decoders over one mp4v or H.264 file and the last _CACHED_FRAMES
+    frames they decoded. Readers of frame i (packet p) take the lock: a
+    frame at hand is copied out; else the cursor that stands after the
+    entry point of p, and not past p, decodes on to it; else a new cursor
+    starts at that entry point. Up to _CURSORS cursors are kept, so that the
+    I/O threads of one batch may ask across a GOP boundary in any order and
+    each frame read in order is decoded once."""
 
     def __init__(self, idx: VideoIndex):
         self.idx = idx
         self.lock = threading.Lock()
         self.cursors: List[_Cursor] = []  # the most recently used last
         self.frames: 'collections.OrderedDict[int, np.ndarray]' = collections.OrderedDict()
+        self.frame_of = np.full(idx.n_frames, -1, np.int64)  # frame index by packet
+        self.frame_of[idx.frame_packets] = np.arange(idx.n_decoded)
 
     def read(self, i: int) -> np.ndarray:
         idx = self.idx
-        if not 0 <= i < idx.n_frames:
-            raise IndexError(f'{idx.path}: frame {i} of {idx.n_frames}')
+        if not 0 <= i < idx.n_decoded:
+            raise IndexError(f'{idx.path}: frame {i} of {idx.n_decoded}')
         with self.lock:
             hit = self.frames.get(i)
             if hit is not None:
                 return hit.copy()
-            keys = np.flatnonzero(idx.keyframes[:i + 1])
-            if not len(keys):
-                raise ValueError(f'{idx.path}: no key frame at or before frame {i}')
-            start = int(keys[-1])
-            usable = [c for c in self.cursors if start <= c.next <= i]
+            p = int(idx.frame_packets[i])
+            start, exact_from = idx.entry_for(p)
+            usable = [c for c in self.cursors if start <= c.next <= p and c.exact_from <= p]
             if usable:
                 cursor = max(usable, key=lambda c: c.next)
                 self.cursors.remove(cursor)
             else:
-                cursor = _Cursor(idx, start)
+                cursor = _Cursor(idx, start, exact_from)
                 if len(self.cursors) >= _CURSORS:
                     self.cursors.pop(0).decoder.close()
             self.cursors.append(cursor)
+            rgb = None
             with open(idx.path, 'rb') as f:
-                while cursor.next <= i:
+                while cursor.next <= p:
                     rgb = cursor.decoder.decode(idx.packet(cursor.next, f))
-                    self.frames[cursor.next] = rgb
-                    if len(self.frames) > _CACHED_FRAMES:
-                        self.frames.popitem(last=False)
+                    k = int(self.frame_of[cursor.next])
+                    if k >= 0 and cursor.next >= cursor.exact_from:
+                        self.frames[k] = rgb
+                        if len(self.frames) > _CACHED_FRAMES:
+                            self.frames.popitem(last=False)
                     cursor.next += 1
             return rgb.copy()
 
@@ -824,8 +912,8 @@ class VideoWriter:
         path = str(path)
         codec = {'MJPG': 'mjpeg', 'MP4V': 'mp4v'}.get(fourcc.upper())
         if codec is None:
-            raise UnsupportedVideo(f'{path}: codec {fourcc!r} is not ported, only MJPG and mp4v '
-                                   f'({_ROADMAP})')
+            raise UnsupportedVideo(f'{path}: codec {fourcc!r} is not ported for writing, only '
+                                   f'MJPG and mp4v ({_ROADMAP})')
         ext = os.path.splitext(path)[1].lower()
         containers = ('.avi', '.mkv', '.mp4') if codec == 'mp4v' else ('.avi', '.mkv')
         if ext not in containers:

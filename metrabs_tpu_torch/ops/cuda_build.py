@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,8 +61,17 @@ def build_host_library(name: str, csrc_dir: Path = CSRC_DIR) -> Tuple[Path, floa
                   name)
 
 
+def _source_bytes(source: Path) -> bytes:
+    """The source and the local headers it includes (`#include "x.h"`), so
+    that an edited header builds anew too."""
+    data = source.read_bytes()
+    for header in re.findall(rb'^#include "([^"]+)"', data, re.M):
+        data += (source.parent / header.decode()).read_bytes()
+    return data
+
+
 def _build(compiler: Callable[[], str], source: Path, flags: Tuple[str, ...], name: str) -> Tuple[Path, float]:
-    key = hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()
+    key = hashlib.sha256(_source_bytes(source) + ' '.join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f'libmetrabs_{name}_{key[:16]}.so'
     if lib.exists():
         return lib, 0.0

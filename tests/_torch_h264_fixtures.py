@@ -1,0 +1,419 @@
+"""Writes the H.264 fixtures of the port's video layer with libx264, and the
+Xvid-stamped mp4v fixtures with libxvidcore, both through ctypes (cv2's
+writer refuses H.264, and the card's machine has neither library:
+`chip_smoke.py` holds the port's decoders to the recorded hashes there):
+
+- `tests/torch_fixtures/h264/h264_<size>.mp4|.mkv|.avi`: 14 frames across a
+  GOP of 12 (IDR pictures at 0 and 12, P slices between, no B slices) of
+  shifted copies of the portrait JPEG fixture at 96x66 (coded as 96x80 and
+  cropped), 320x568 and 1080x1920, x264's `medium` preset at its default
+  rate, in the three containers written by the port's muxers (MP4 `avc1`
+  with the avcC, Matroska `V_MPEG4/ISO/AVC`, AVI `H264` in Annex B);
+- `h264_tool_<tool>.mp4`: 96x66 clips with one of x264's options that
+  switches a coding tool on or off (CAVLC, no 8x8 transform, no deblocking,
+  partitions none or all, 1 or 4 references, weighted prediction off or
+  smart, 4 slices, intra refresh with recovery-point SEIs, the JVT scaling
+  matrices, constrained intra prediction, deblocking offsets, the Baseline
+  and Main profiles) and `h264_vui_<vui>.mp4` with the VUI's full-range
+  flag and colour matrix (BT.601, BT.709, unspecified);
+- `tests/torch_fixtures/mp4v/xvid_<size>.avi|.mkv`: libxvidcore's Simple
+  Profile (half-pel, no B-VOPs, quarter-pel, GMC or interlacing) at a fixed
+  quantiser, stamped `XviD<build>` in its user data;
+- `manifest.json` beside each: per file cv2's frame count, rate, size and
+  frames read, and per frame the SHA-256 of FFmpeg's luma plane
+  (`cv2.CAP_PROP_CONVERT_RGB` 0), of `cv2.VideoCapture`'s frame as RGB, of
+  the packet as cv2 returns it (`cv2.CAP_PROP_FORMAT` -1) with its key
+  flag, and for H.264 of x264's reconstruction (Y, U, V: cv2 gives no
+  chroma plane). For a stream whose VUI names the BT.709 matrix, cv2's raw
+  output is not the luma plane (it converts it): `luma_from` is then
+  'x264' and the luma hashes are the reconstruction's.
+
+    python tests/_torch_h264_fixtures.py
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import sys
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from _torch_mp4v_fixtures import MP4V_DIR, XVID_CASES, cv2_read, sha256, shifted_frames
+
+ROOT = Path(__file__).resolve().parent.parent
+if str(ROOT) not in sys.path:  # run as a script: the port's muxers write the containers
+    sys.path.insert(0, str(ROOT))
+H264_DIR = ROOT / 'tests' / 'torch_fixtures' / 'h264'
+GOP = 12
+FRAMES = 14
+CONTAINERS = ('.mp4', '.mkv', '.avi')
+BASE = {'bframes': 0, 'threads': 1, 'lookahead-threads': 1, 'keyint': GOP, 'min-keyint': GOP,
+        'scenecut': 0}
+
+# (stem, fps, (width, height) or None for the fixture's size, x264 options)
+SIZES = [
+    ('h264_96x66', 10.0, (96, 66), {}),
+    ('h264_320x568', 30000 / 1001, (320, 568), {}),
+    ('h264_1080x1920', 25.0, None, {}),
+]
+TOOLS = {
+    'cavlc': {'cabac': 0},
+    'no_8x8dct': {'no-8x8dct': 1},
+    'no_deblock': {'no-deblock': 1},
+    'partitions_none': {'partitions': 'none'},
+    'partitions_all': {'partitions': 'all'},
+    'ref1': {'ref': 1},
+    'ref4': {'ref': 4, 'mixed-refs': 1},
+    'weightp0': {'weightp': 0},
+    'weightp2': {'weightp': 2},
+    'slices4': {'slices': 4},
+    'intra_refresh': {'intra-refresh': 1, 'keyint': 6, 'min-keyint': 6},
+    'cqm_jvt': {'cqm': 'jvt'},
+    'constrained_intra': {'constrained-intra': 1},
+    'deblock_offsets': {'deblock': '-3:2'},
+    'baseline': {'profile': 'baseline'},
+    'main': {'profile': 'main'},
+}
+VUIS = {
+    'fullrange': {'fullrange': 'on'},
+    'bt709': {'colormatrix': 'bt709'},
+    'bt601': {'colormatrix': 'smpte170m'},
+    'unspecified': {'colormatrix': 'undef'},
+    'bt709_fullrange': {'colormatrix': 'bt709', 'fullrange': 'on'},
+}
+TOOL_SIZE = (96, 66)
+CASES = ([(stem + ext, fps, size, opts) for stem, fps, size, opts in SIZES for ext in CONTAINERS]
+         + [(f'h264_tool_{t}.mp4', 25.0, TOOL_SIZE, o) for t, o in TOOLS.items()]
+         + [(f'h264_vui_{v}.mp4', 25.0, TOOL_SIZE, o) for v, o in VUIS.items()])
+
+
+# --------------------------------------------------------------------------
+# libx264 through ctypes (x264.h, API build 164)
+
+class _Nal(ctypes.Structure):
+    _fields_ = [('i_ref_idc', ctypes.c_int), ('i_type', ctypes.c_int),
+                ('b_long_startcode', ctypes.c_int), ('i_first_mb', ctypes.c_int),
+                ('i_last_mb', ctypes.c_int), ('i_payload', ctypes.c_int),
+                ('p_payload', ctypes.POINTER(ctypes.c_uint8)), ('i_padding', ctypes.c_int)]
+
+
+# Colour spaces of x264_image_t (x264.h) by chroma format.
+X264_CSP = {'i400': 0x0001, 'i420': 0x0002, 'i422': 0x0006, 'i444': 0x000c}
+X264_CSP_HIGH_DEPTH = 0x2000
+# Offsets in x264_param_t (i_width, i_height, i_csp, i_bitdepth) and
+# x264_picture_t (x264.h of build 164).
+PARAM_WIDTH = 28
+PIC_PTS, PIC_KEYFRAME, PIC_IMG = 16, 12, 40
+
+
+def _input_planes(frame: np.ndarray, csp: str, depth: int):
+    """The planes of an RGB frame in x264's input layout: cv2's I420, the
+    chroma repeated for 4:2:2 and 4:4:4, samples of 16 bits above depth 8."""
+    import cv2
+    h, w = frame.shape[:2]
+    flat = cv2.cvtColor(np.ascontiguousarray(frame[..., ::-1]), cv2.COLOR_BGR2YUV_I420).reshape(-1)
+    q = (h // 2) * (w // 2)
+    y = flat[:h * w].reshape(h, w)
+    u, v = flat[h * w:h * w + q].reshape(h // 2, w // 2), flat[h * w + q:].reshape(h // 2, w // 2)
+    chroma = {'i400': [], 'i420': [u, v], 'i422': [np.repeat(c, 2, 0) for c in (u, v)],
+              'i444': [np.repeat(np.repeat(c, 2, 0), 2, 1) for c in (u, v)]}[csp]
+    planes = [y] + chroma
+    if depth > 8:
+        planes = [p.astype(np.uint16) << (depth - 8) for p in planes]
+    return [np.ascontiguousarray(p) for p in planes]
+
+
+def x264_encode(frames, options: dict, fps: float, csp: str = 'i420', depth: int = 8):
+    """Annex B packets (one access unit per frame, SPS and PPS before each
+    IDR), their key flags and x264's reconstruction (y, u, v) of each (4:2:0
+    at 8 bits; None otherwise)."""
+    lib = ctypes.CDLL('libx264.so.164')
+    vp = ctypes.c_void_p
+    lib.x264_param_default_preset.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
+    lib.x264_param_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
+    lib.x264_param_apply_profile.argtypes = [vp, ctypes.c_char_p]
+    lib.x264_encoder_open_164.argtypes = [vp]
+    lib.x264_encoder_open_164.restype = vp
+    lib.x264_encoder_encode.argtypes = [vp, vp, vp, vp, vp]
+    lib.x264_encoder_delayed_frames.argtypes = [vp]
+    lib.x264_encoder_close.argtypes = [vp]
+    lib.x264_picture_init.argtypes = [vp]
+    h, w = frames[0].shape[:2]
+    options = dict(BASE, **options)
+    profile = options.pop('profile', None)
+    param = ctypes.create_string_buffer(8192)
+    assert lib.x264_param_default_preset(param, b'medium', None) == 0
+    num, den = (fps, 1) if float(fps).is_integer() else (30000, 1001)
+    options['fps'] = f'{int(num)}/{int(den)}'
+    for key, value in options.items():
+        assert lib.x264_param_parse(param, key.encode(), str(value).encode()) == 0, (key, value)
+    ctypes.memmove(ctypes.addressof(param) + PARAM_WIDTH,
+                   np.array([w, h, X264_CSP[csp], depth], np.int32).tobytes(), 16)
+    if profile:
+        assert lib.x264_param_apply_profile(param, profile.encode()) == 0, profile
+    enc = lib.x264_encoder_open_164(param)
+    assert enc, options
+    pic, out = ctypes.create_string_buffer(1024), ctypes.create_string_buffer(1024)
+    lib.x264_picture_init(pic)
+    nals, n_nal = ctypes.POINTER(_Nal)(), ctypes.c_int()
+    packets, keys, recon = [], [], []
+
+    def collect(size):
+        if size <= 0:
+            return
+        packets.append(b''.join(ctypes.string_at(nals[i].p_payload, nals[i].i_payload)
+                                for i in range(n_nal.value)))
+        keys.append(bool(np.frombuffer(out.raw[PIC_KEYFRAME:PIC_KEYFRAME + 4], np.int32)[0]))
+        if csp != 'i420' or depth != 8:
+            recon.append(None)
+            return
+        strides = np.frombuffer(out.raw[PIC_IMG + 8:PIC_IMG + 24], np.int32)
+        planes = np.frombuffer(out.raw[PIC_IMG + 24:PIC_IMG + 56], np.uint64)
+        as_array = lambda p, shape: np.ctypeslib.as_array(  # noqa: E731
+            ctypes.cast(int(p), ctypes.POINTER(ctypes.c_uint8)), shape)
+        y = as_array(planes[0], (h, strides[0]))[:, :w].copy()
+        uv = as_array(planes[1], ((h + 1) // 2, strides[1]))[:, :2 * ((w + 1) // 2)].copy()
+        recon.append((y, uv[:, 0::2].copy(), uv[:, 1::2].copy()))  # NV12
+
+    for k, frame in enumerate(frames):
+        planes = _input_planes(frame, csp, depth)
+        image_csp = X264_CSP[csp] | (X264_CSP_HIGH_DEPTH if depth > 8 else 0)
+        strides = [p.strides[0] for p in planes] + [0] * (4 - len(planes))
+        pointers = [p.ctypes.data for p in planes] + [0] * (4 - len(planes))
+        ctypes.memmove(ctypes.addressof(pic) + PIC_IMG,
+                       np.array([image_csp, len(planes)] + strides, np.int32).tobytes(), 24)
+        ctypes.memmove(ctypes.addressof(pic) + PIC_IMG + 24,
+                       np.array(pointers, np.uint64).tobytes(), 32)
+        ctypes.memmove(ctypes.addressof(pic) + PIC_PTS, np.array([k], np.int64).tobytes(), 8)
+        collect(lib.x264_encoder_encode(enc, ctypes.byref(nals), ctypes.byref(n_nal), pic, out))
+    while lib.x264_encoder_delayed_frames(enc):
+        collect(lib.x264_encoder_encode(enc, ctypes.byref(nals), ctypes.byref(n_nal), None, out))
+    lib.x264_encoder_close(enc)
+    return packets, keys, recon
+
+
+# --------------------------------------------------------------------------
+# libxvidcore through ctypes (xvid.h, API 4)
+
+XVID_VERSION = (1 << 16) | (3 << 8)
+XVID_VOP_HALFPEL = 1 << 1
+XVID_CSP_PLANAR = 1 << 0
+XVID_KEYFRAME = 1 << 1
+
+
+class _XvidGblInit(ctypes.Structure):
+    _fields_ = [('version', ctypes.c_int), ('cpu_flags', ctypes.c_uint), ('debug', ctypes.c_int)]
+
+
+class _XvidEncCreate(ctypes.Structure):
+    _fields_ = [('version', ctypes.c_int), ('profile', ctypes.c_int), ('width', ctypes.c_int),
+                ('height', ctypes.c_int), ('num_zones', ctypes.c_int), ('zones', ctypes.c_void_p),
+                ('num_plugins', ctypes.c_int), ('plugins', ctypes.c_void_p),
+                ('num_threads', ctypes.c_int), ('max_bframes', ctypes.c_int),
+                ('global_flags', ctypes.c_int), ('fincr', ctypes.c_int), ('fbase', ctypes.c_int),
+                ('max_key_interval', ctypes.c_int), ('frame_drop_ratio', ctypes.c_int),
+                ('bquant_ratio', ctypes.c_int), ('bquant_offset', ctypes.c_int),
+                ('min_quant', ctypes.c_int * 3), ('max_quant', ctypes.c_int * 3),
+                ('handle', ctypes.c_void_p), ('start_frame_num', ctypes.c_int),
+                ('num_slices', ctypes.c_int)]
+
+
+class _XvidImage(ctypes.Structure):
+    _fields_ = [('csp', ctypes.c_int), ('plane', ctypes.c_void_p * 4),
+                ('stride', ctypes.c_int * 4)]
+
+
+class _XvidEncFrame(ctypes.Structure):
+    _fields_ = [('version', ctypes.c_int), ('vol_flags', ctypes.c_int),
+                ('quant_intra_matrix', ctypes.c_void_p), ('quant_inter_matrix', ctypes.c_void_p),
+                ('par', ctypes.c_int), ('par_width', ctypes.c_int), ('par_height', ctypes.c_int),
+                ('fincr', ctypes.c_int), ('vop_flags', ctypes.c_int), ('motion', ctypes.c_int),
+                ('input', _XvidImage), ('type', ctypes.c_int), ('quant', ctypes.c_int),
+                ('bframe_threshold', ctypes.c_int), ('bitstream', ctypes.c_void_p),
+                ('length', ctypes.c_int), ('out_flags', ctypes.c_int)]
+
+
+def xvid_encode(frames, fps: float, quant: int):
+    """Packets (the first with the VOL and the XviD user data) and key
+    flags: Simple Profile tools, an I-VOP every GOP frames."""
+    import cv2
+    lib = ctypes.CDLL('libxvidcore.so.4')
+    lib.xvid_global.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.xvid_encore.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    assert lib.xvid_global(None, 0, ctypes.byref(_XvidGblInit(XVID_VERSION, 0, 0)), None) == 0
+    h, w = frames[0].shape[:2]
+    create = _XvidEncCreate(version=XVID_VERSION, width=w, height=h, max_key_interval=GOP)
+    create.fincr, create.fbase = (1, int(fps)) if float(fps).is_integer() else (1001, 30000)
+    assert lib.xvid_encore(None, 0, ctypes.byref(create), None) == 0, (w, h)
+    buf = ctypes.create_string_buffer(w * h * 4 + 4096)
+    packets, keys = [], []
+    for frame in frames:
+        flat = cv2.cvtColor(np.ascontiguousarray(frame[..., ::-1]), cv2.COLOR_BGR2YUV_I420).reshape(-1)
+        q = (h // 2) * (w // 2)
+        planes = [np.ascontiguousarray(flat[:h * w]), np.ascontiguousarray(flat[h * w:h * w + q]),
+                  np.ascontiguousarray(flat[h * w + q:h * w + 2 * q])]
+        fr = _XvidEncFrame(version=XVID_VERSION, vop_flags=XVID_VOP_HALFPEL, quant=quant)
+        fr.input.csp = XVID_CSP_PLANAR
+        for k, (p, stride) in enumerate(zip(planes, (w, w // 2, w // 2))):
+            fr.input.plane[k] = p.ctypes.data
+            fr.input.stride[k] = stride
+        fr.bitstream = ctypes.cast(buf, ctypes.c_void_p)
+        fr.length = len(buf)
+        n = lib.xvid_encore(create.handle, 2, ctypes.byref(fr), None)
+        assert n > 0, n
+        packets.append(buf.raw[:n])
+        keys.append(bool(fr.out_flags & XVID_KEYFRAME))
+    lib.xvid_encore(create.handle, 1, None, None)
+    return packets, keys
+
+
+# --------------------------------------------------------------------------
+# H.264 packets for the containers: Annex B as x264 writes them (AVI), or
+# length-prefixed after an avcC (Matroska, MP4).
+
+def avcc(sps: bytes, pps: bytes) -> bytes:
+    """An avcC (ISO/IEC 14496-15 AVCDecoderConfigurationRecord) of one SPS
+    and one PPS (NAL units without start codes), 4-byte NAL lengths."""
+    return (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + len(sps).to_bytes(2, 'big') + sps
+            + bytes([1]) + len(pps).to_bytes(2, 'big') + pps)
+
+
+def annexb_to_lengths(data: bytes, size: int = 4) -> bytes:
+    """Annex B NAL units (start codes) as length-prefixed ones."""
+    out = []
+    for nal in split_annexb(data):
+        out.append(len(nal).to_bytes(size, 'big') + nal)
+    return b''.join(out)
+
+
+def split_annexb(data: bytes):
+    """The NAL units of Annex B data, without their start codes."""
+    starts = []
+    i = data.find(b'\x00\x00\x01')
+    while i >= 0:
+        starts.append(i + 3)
+        i = data.find(b'\x00\x00\x01', i + 3)
+    for k, s in enumerate(starts):
+        end = starts[k + 1] - 3 if k + 1 < len(starts) else len(data)
+        nal = data[s:end].rstrip(b'\x00')
+        if nal:
+            yield nal
+
+
+def parameter_sets(data: bytes) -> Optional[bytes]:
+    """An avcC of the first SPS and PPS in Annex B data (None without
+    them)."""
+    sps = pps = None
+    for nal in split_annexb(data):
+        if nal[0] & 31 == 7 and sps is None:
+            sps = nal
+        elif nal[0] & 31 == 8 and pps is None:
+            pps = nal
+    return avcc(sps, pps) if sps and pps else None
+
+
+def write_container(path: Path, packets, keys, size, fps: float, codec: str) -> None:
+    """Annex B H.264 packets (codec 'h264') or mp4v packets ('xvid') into
+    the container the extension names, through the port's muxers."""
+    from metrabs_tpu_torch.data import mp4, mpeg4, video
+    w, h = size
+    ext = path.suffix
+    with open(path, 'wb') as f:
+        if codec == 'h264':
+            config = parameter_sets(packets[0])
+            lp = [annexb_to_lengths(p) for p in packets]
+            if ext == '.avi':
+                mux = video._AviMuxer(f, w, h, fps, b'H264')
+                data = packets
+            elif ext == '.mkv':
+                mux = video._MatroskaMuxer(f, w, h, fps, b'V_MPEG4/ISO/AVC', config)
+                data = lp
+            else:
+                res, inc = mpeg4.time_base(fps)
+                mux = mp4.Mp4Muxer(f, w, h, res, inc, config, codec='avc1')
+                data = lp
+        else:
+            vol = packets[0][:packets[0].index(b'\x00\x00\x01\xb6')]
+            if ext == '.avi':
+                mux = video._AviMuxer(f, w, h, fps, b'XVID')
+            else:
+                mux = video._MatroskaMuxer(f, w, h, fps, b'V_MPEG4/ISO/ASP', vol)
+            data = packets
+        for packet, key in zip(data, keys):
+            mux.write(packet, key)
+        mux.close()
+
+
+def cv2_packets_and_keys(path: str):
+    import cv2
+    cap = cv2.VideoCapture(str(path), cv2.CAP_FFMPEG, [cv2.CAP_PROP_FORMAT, -1])
+    packets, keys = [], []
+    while True:
+        ok, data = cap.read()
+        if not ok:
+            break
+        packets.append(data.tobytes())
+        keys.append(bool(cap.get(cv2.CAP_PROP_LRF_HAS_KEY_FRAME)))
+    cap.release()
+    return packets, keys
+
+
+def cv2_entry(path: Path, written: dict, recon=None) -> dict:
+    bgr, meta = cv2_read(path)
+    lumas, _ = cv2_read(path, _raw_params())
+    packets, keys = cv2_packets_and_keys(str(path))
+    entry = dict(written=written, cv2=dict(meta, frames_read=len(bgr)),
+                 rgb_sha256=[sha256(f[..., ::-1]) for f in bgr],
+                 packet_sha256=[sha256(p) for p in packets], key_frames=keys,
+                 file_sha256=hashlib.sha256(path.read_bytes()).hexdigest())
+    luma = [sha256(y) for y in lumas]
+    entry['luma_from'] = 'cv2'
+    if recon is not None:
+        entry['recon_sha256'] = [[sha256(p) for p in planes] for planes in recon]
+        recon_luma = [sha256(planes[0]) for planes in recon]
+        if luma != recon_luma:  # cv2 converts the plane (BT.709): the reconstruction's
+            luma, entry['luma_from'] = recon_luma, 'x264'
+    entry['luma_sha256'] = luma
+    return entry
+
+
+def _raw_params():
+    import cv2
+    return [cv2.CAP_PROP_CONVERT_RGB, 0]
+
+
+def write_fixtures() -> None:
+    H264_DIR.mkdir(parents=True, exist_ok=True)
+    manifest = {}
+    encoded = {}
+    for name, fps, size, options in CASES:
+        stem = name.rsplit('.', 1)[0]
+        key = (stem, fps, size, tuple(sorted(options.items())))
+        if key not in encoded:
+            frames = shifted_frames(FRAMES, size)
+            encoded[key] = (x264_encode(frames, options, fps), frames[0].shape[1::-1])
+        (packets, keys, recon), wh = encoded[key]
+        path = H264_DIR / name
+        write_container(path, packets, keys, wh, fps, 'h264')
+        manifest[name] = cv2_entry(path, dict(frames=FRAMES, fps=fps, width=wh[0], height=wh[1],
+                                              x264=options, key_frames=keys), recon)
+    (H264_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
+
+    mp4v_manifest = json.loads((MP4V_DIR / 'manifest.json').read_text())
+    for name, fps, size, quant in XVID_CASES:
+        frames = shifted_frames(FRAMES, size)
+        packets, keys = xvid_encode(frames, fps, quant)
+        path = MP4V_DIR / name
+        wh = frames[0].shape[1::-1]
+        write_container(path, packets, keys, wh, fps, 'xvid')
+        mp4v_manifest[name] = cv2_entry(path, dict(frames=FRAMES, fps=fps, width=wh[0],
+                                                   height=wh[1], xvid_quant=quant))
+    (MP4V_DIR / 'manifest.json').write_text(json.dumps(mp4v_manifest, indent=1) + '\n')
+
+
+if __name__ == '__main__':
+    write_fixtures()

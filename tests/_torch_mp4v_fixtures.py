@@ -9,7 +9,8 @@ recorded hashes there):
   cv2 rounds an odd mp4v frame size down to even (asked for 93x67 it
   writes 92x66), so the small clip is 92x66, which is not a multiple of 16
   either way;
-- `manifest.json`: per file cv2's frame count, frame rate and size, and per
+- `manifest.json` (whose Xvid entries `tests/_torch_h264_fixtures.py`
+  writes): per file cv2's frame count, frame rate and size, and per
   frame the SHA-256 of FFmpeg's luma plane (`cv2.CAP_PROP_CONVERT_RGB` 0,
   [H, W] uint8), of `cv2.VideoCapture`'s frame (as RGB) and of the packet
   (`cv2.CAP_PROP_FORMAT` -1).
@@ -38,6 +39,12 @@ SIZES = [
 ]
 CONTAINERS = ('.mp4', '.avi', '.mkv')
 CASES = [(stem + ext, n, fps, size) for stem, n, fps, size in SIZES for ext in CONTAINERS]
+# Xvid-stamped clips, written by tests/_torch_h264_fixtures.py with libxvidcore:
+# (stem, fps, (width, height) or None, quantiser), in AVI (FourCC XVID) and Matroska.
+XVID_SIZES = [('xvid_96x66', 10.0, (96, 66), 4), ('xvid_320x568', 25.0, (320, 568), 4),
+              ('xvid_1080x1920', 25.0, None, 8)]
+XVID_CASES = [(stem + ext, fps, size, q) for stem, fps, size, q in XVID_SIZES
+              for ext in ('.avi', '.mkv')]
 
 
 def sha256(a) -> str:
@@ -97,7 +104,8 @@ def cv2_packets(path: str):
 
 def write_fixtures() -> None:
     MP4V_DIR.mkdir(parents=True, exist_ok=True)
-    manifest = {}
+    path = MP4V_DIR / 'manifest.json'
+    manifest = json.loads(path.read_text()) if path.exists() else {}  # keeps the Xvid entries
     for name, n, fps, size in CASES:
         path = MP4V_DIR / name
         frames = shifted_frames(n, size)

@@ -18,6 +18,10 @@ package's on the same weights or the same stub estimator:
   features are binned so that FFmpeg's decode (JAX's cv2.VideoCapture) and
   libjpeg's (the port's) of the flat frames give the same poses; with mp4v
   .mkv videos, as JAX's test writes them, the very same images and poses;
+- on an H.264 input (the libx264 fixtures), `demo_video` hands the same
+  estimator JAX's very frames (JAX reads them through cv2) and prints JAX's
+  line, and `transform_video` maps JAX's frames and writes an output no
+  further from them than JAX's;
 - `--viz-dir` writes JAX's file names.
 """
 
@@ -36,6 +40,7 @@ from metrabs_tpu_torch.apps import demo_image, demo_video, predict_aspset, webca
 from metrabs_tpu_torch.data import improc, video
 
 POSES3D = dict(atol=1.0, rtol=1e-3)  # tests/test_torch_estimator.py
+TRANSFORM_MARGIN = 0.5  # mean levels, as tests/test_torch_mp4v.py's transform_video test
 
 
 @pytest.fixture(scope='module')
@@ -199,6 +204,80 @@ def test_demo_video_mp4v_in_and_out(tmp_path, tiny_package, monkeypatch, capsys,
     cap.release()
     idx = video.index(out)
     assert (idx.codec, idx.width, idx.height, idx.n_frames) == ('mp4v', 100, 76, 7)
+
+
+def h264_fixture(name: str) -> str:
+    from _torch_h264_fixtures import H264_DIR
+    return str(H264_DIR / name)
+
+
+class EdgeStub(layouts.StubEstimator):
+    """The drivers' stub estimator with the skeleton edges the demos draw."""
+
+    def __init__(self):
+        super().__init__()
+        self.skeletons.joint_edges = lambda name: [(0, 1), (1, 2)]
+        self.detector = object()
+
+
+@pytest.mark.parametrize('name', ['h264_320x568.mp4', 'h264_96x66.mkv', 'h264_96x66.avi'])
+def test_demo_video_on_h264_matches_jax(tmp_path, monkeypatch, capsys, name):
+    """demo_video on a libx264 clip: the port's and JAX's demo (JAX reading
+    through cv2) hand the same estimator the very same frames in the same
+    batches, so it gives the same poses, and both print the same line; each
+    frame is decoded once."""
+    import metrabs_tpu.apps.demo_image as jax_demo_image
+    from metrabs_tpu.apps import demo_video as jax_demo_video
+    from metrabs_tpu_torch.data import h264
+    port, jax = EdgeStub(), EdgeStub()
+    monkeypatch.setattr(demo_image, 'build_default_estimator', lambda device='cuda': port)
+    monkeypatch.setattr(jax_demo_image, 'build_default_estimator', lambda: jax)
+    src = h264_fixture(name)
+    args = ['--video', src, '--num-aug', '1', '--frame-batch', '4', '--max-boxes', '2']
+    before = h264.frames_decoded()
+    demo_video.main(args + ['--device', 'cpu', '--out', str(tmp_path / 'port.mp4')])
+    assert h264.frames_decoded() - before == 14
+    port_line = last_json(capsys.readouterr().out)
+    jax_demo_video.main(args + ['--out', str(tmp_path / 'jax.mp4')])
+    jax_line = last_json(capsys.readouterr().out)
+    assert port_line == jax_line and port_line['frames'] == 14
+    assert len(port.calls) == len(jax.calls) == 4
+    for (m1, im1, kw1), (m2, im2, kw2) in zip(list(port.calls), list(jax.calls)):
+        assert m1 == m2 == 'detect'
+        np.testing.assert_array_equal(im1, im2)
+        out1 = port.detect_poses_batched(im1, **kw1)
+        out2 = jax.detect_poses_batched(im2, **kw2)
+        for key in ('poses3d', 'poses2d', 'valid'):
+            np.testing.assert_array_equal(out1[key], out2[key])
+    for out in ('port.mp4', 'jax.mp4'):
+        assert improc.num_frames_of_video(str(tmp_path / out)) == 14
+
+
+def test_transform_video_on_h264_matches_jax(tmp_path):
+    """transform_video on a libx264 .mp4 through the port and through JAX:
+    the frame function sees the same frames, and the port's mp4v output is
+    no further from the inverted frames than JAX's (cv2's encoder) by
+    TRANSFORM_MARGIN."""
+    from metrabs_tpu.data import improc as jax_improc
+    src = h264_fixture('h264_96x66.mp4')
+    seen, errors = {}, {}
+    inverted = [255 - f for f in video.iter_frames(src)]
+    for name, module in (('port', improc), ('jax', jax_improc)):
+        seen[name] = []
+
+        def fn(frame, _seen=seen[name]):
+            _seen.append(frame.copy())
+            return 255 - frame
+
+        dst = str(tmp_path / name / 'dst.mp4')
+        module.transform_video(src, dst, fn)
+        out = list(video.iter_frames(dst))
+        assert len(out) == 14 == jax_improc.num_frames_of_video(dst)
+        errors[name] = np.mean([np.abs(a.astype(int) - b).mean() for a, b in zip(out, inverted)])
+    assert len(seen['port']) == len(seen['jax']) == 14
+    for a, b in zip(seen['port'], seen['jax']):
+        np.testing.assert_array_equal(a, b)
+    assert errors['port'] <= errors['jax'] + TRANSFORM_MARGIN, errors
 
 
 @pytest.mark.parametrize('src_hw, out_hw', [((76, 100), (96, 128)), ((1080, 1920), (540, 960)),

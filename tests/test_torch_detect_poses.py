@@ -24,6 +24,9 @@ from metrabs_tpu.io.packaging import load_pose_estimator as jax_load_pose_estima
 from metrabs_tpu_torch.io.packaging import load_pose_estimator
 from tests import _torch_port
 from tests.test_torch_estimator import compare, frames_and_boxes
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 BOXES_PX = dict(atol=1e-3, rtol=0)
 # Random poses of boxes at the frame's edge put some joints near or behind

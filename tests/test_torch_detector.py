@@ -28,6 +28,9 @@ from metrabs_tpu_torch.io import weights
 from metrabs_tpu_torch.io.packaging import detector_from_variables
 from metrabs_tpu_torch.ops import resize
 from tests import _torch_port
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 SIZE = 96
 BOXES_PX = dict(atol=1e-3, rtol=0)

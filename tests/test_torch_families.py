@@ -33,6 +33,9 @@ from metrabs_tpu_torch.pipeline.skeletons import H36M_17
 from tests import _torch_port
 from tests.test_torch_detect_poses import BOXES_PX, MIN_DEPTH_MM
 from tests.test_torch_estimator import compare, frames_and_boxes
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 SMALL = 'mobilenetv3-small-mini'
 BONE_MEANS = np.full(16, 700.0, np.float32)

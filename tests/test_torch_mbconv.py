@@ -29,6 +29,9 @@ from metrabs_tpu_torch.models.backbones import efficientnet_v2 as effnet
 from metrabs_tpu_torch.models.backbones.builder import build_backbone
 from metrabs_tpu_torch.ops import cuda_build, mbconv, mbconv_cuda
 from tests import _torch_port
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 BF16_V = dict(atol=7e-2, rtol=5e-2)

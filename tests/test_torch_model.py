@@ -27,6 +27,9 @@ from metrabs_tpu_torch.models.backbones import efficientnet_v2 as effnet
 from metrabs_tpu_torch.models.backbones.builder import build_backbone
 from metrabs_tpu_torch.models.metrabs import build_crop_model
 from tests import _torch_port
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 FEATURES = dict(atol=1e-3, rtol=1e-3)
 POSES = dict(atol=1.0, rtol=1e-3)

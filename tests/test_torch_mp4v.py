@@ -19,12 +19,19 @@ tests/_torch_mp4v_fixtures.py`) and on files written here:
   no more than PSNR_MARGIN_DB below, bytes at most BYTES_RATIO times;
 - the tools cv2's stream never uses, written by the port's encoder (AC
   prediction, dquant, 4MV, video packets, the DC through the AC table):
-  FFmpeg's luma planes equal the port's; a not-coded VOP repeats the
-  previous frame where FFmpeg outputs none;
+  FFmpeg's luma planes equal the port's; a not-coded VOP gives no frame, as
+  FFmpeg gives none: the frames, their count and `imread('#frame=N')` are
+  cv2's and JAX's;
+- libxvidcore's clips (Xvid-stamped, in `tests/torch_fixtures/mp4v/` with
+  the cv2 ones) decode through FFmpeg's Xvid IDCT, equal to FFmpeg bit for
+  bit, while a Lavc-stamped XVID AVI keeps the simple IDCT and unstamped
+  XVID or DivX streams, which FFmpeg decodes with bug workarounds, raise;
+- RGB equals `cv2.VideoCapture`'s at odd heights (swscale's scaler path)
+  and odd widths;
 - frames read in order, through `iter_frames` or `predict_common`'s I/O
   pool, are each decoded once, whatever order the threads ask in;
 - B-VOPs, S-VOPs, quarter-pel, GMC, interlaced, data partitioning, MPEG
-  quantisation and `avc1` raise UnsupportedVideo naming the tool or codec;
+  quantisation and HEVC raise UnsupportedVideo naming the tool or codec;
 - `transform_video` on JAX's layout: the port's output is no further from
   the inverted frames than JAX's (cv2's encoder) by TRANSFORM_MARGIN.
 """
@@ -39,7 +46,8 @@ import cv2
 import numpy as np
 import pytest
 
-from _torch_mp4v_fixtures import CASES, MP4V_DIR, cv2_lumas, cv2_read, cv2_write, shifted_frames
+from _torch_mp4v_fixtures import (CASES, MP4V_DIR, XVID_CASES, cv2_lumas, cv2_read, cv2_write,
+                                  shifted_frames)
 from _torch_train import one_torch_thread  # noqa: F401 (fixture)
 from metrabs_tpu.data import improc as jax_improc
 from metrabs_tpu_torch.data import improc, mp4, mpeg4, video
@@ -47,7 +55,7 @@ from metrabs_tpu_torch.data import improc, mp4, mpeg4, video
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 MANIFEST = json.loads((MP4V_DIR / 'manifest.json').read_text())
-NAMES = [name for name, *_ in CASES]
+NAMES = [name for name, *_ in CASES] + [name for name, *_ in XVID_CASES]
 RGB_TOL = dict(mean=0.0, max=0)  # levels of uint8 RGB against cv2.VideoCapture, per frame
 DRIFT_TOL = 0.5  # mean levels: the last P-VOP of a GOP against its I-VOP's error
 FPS_REL = 1e-4  # cv2 reports the 30000/1001 clip as 29.97
@@ -303,21 +311,108 @@ def test_coding_tools_decode_as_ffmpeg(tmp_path, tool, size):
 
 
 def test_not_coded_vops_repeat_the_reference(tmp_path):
-    """A VOP with vop_coded 0 repeats the previous frame and keeps the
-    container's frame numbering; FFmpeg outputs no frame for it (cv2 reads
-    12 of 14), and its frames equal the port's others."""
+    """A VOP with vop_coded 0 gives no frame, as FFmpeg gives none (cv2
+    reads 12 of 14): the port's frames, their count and `imread('#frame=N')`
+    equal cv2's and JAX's (N numbers the frames FFmpeg outputs, and past
+    them raises); `num_frames_of_video` stays the container's 14, as JAX's
+    CAP_PROP_FRAME_COUNT. The decoder itself repeats the reference."""
     path = str(tmp_path / 'skips.mp4')
     recon = write_mp4(path, shifted_frames(14, (93, 67)), not_coded_every=5)
     got = [y for _, y in decode_all(path)]
-    assert len(got) == improc.num_frames_of_video(path) == 14
     for i in (5, 10):
         np.testing.assert_array_equal(got[i], got[i - 1])
+    idx = video.index(path)
+    assert idx.frame_packets.tolist() == [i for i in range(14) if i not in (5, 10)]
+    assert improc.num_frames_of_video(path) == jax_improc.num_frames_of_video(path) == 14
     coded = [y for i, y in enumerate(got) if i not in (5, 10)]
     want = cv2_lumas(path)
     assert len(want) == len(coded) == 12
     for y, w, r in zip(coded, want, [r for i, r in enumerate(recon) if i not in (5, 10)]):
         np.testing.assert_array_equal(y, w)
         np.testing.assert_array_equal(y, r)
+    rgb, _ = cv2_read(path)
+    frames = list(video.iter_frames(path))
+    assert len(frames) == len(rgb) == 12
+    for f, bgr in zip(frames, rgb):
+        np.testing.assert_array_equal(f, bgr[..., ::-1])
+    for i in (11, 0, 4, 5, 9, 10, 6):
+        np.testing.assert_array_equal(improc.imread(f'{path}#frame={i}'),
+                                      jax_improc.imread(f'{path}#frame={i}'))
+    for module in (improc, jax_improc):
+        with pytest.raises(FileNotFoundError):
+            module.imread(f'{path}#frame=12')
+
+
+def xvid_avi(tmp_path, name: str, user_data: bytes = None, fourcc: bytes = b'XVID') -> str:
+    """The Xvid fixture's packets in an AVI with `fourcc`, its user data
+    replaced by `user_data` (b'': removed)."""
+    src = str(MP4V_DIR / 'xvid_96x66.avi')
+    idx = video.index(src)
+    stamp = b'\x00\x00\x01\xb2XviD'
+    path = str(tmp_path / name)
+    with open(path, 'wb') as f:
+        mux = video._AviMuxer(f, idx.width, idx.height, idx.fps, fourcc)
+        for i in range(idx.n_frames):
+            packet = idx.packet(i)
+            if user_data is not None and stamp in packet:
+                at = packet.index(stamp)
+                end = packet.index(b'\x00\x00\x01', at + 4)
+                packet = packet[:at] + (b'\x00\x00\x01\xb2' + user_data if user_data else b'') \
+                    + packet[end:]
+            mux.write(packet, bool(idx.keyframes[i]))
+        mux.close()
+    return path
+
+
+def test_xvid_stamp_selects_ffmpegs_idct(tmp_path):
+    """FFmpeg decodes Xvid-stamped streams with its Xvid IDCT and the others
+    with its simple IDCT: the Xvid fixture restamped Lavc in an XVID AVI
+    decodes through the simple IDCT, equal to FFmpeg and unlike the Xvid
+    decode; without any stamp (FFmpeg's Xvid build 0, with its workarounds
+    for old Xvid builds) and stamped DivX it raises."""
+    xvid = [y for _, y in decode_all(str(MP4V_DIR / 'xvid_96x66.avi'))]
+    lavc = xvid_avi(tmp_path, 'lavc.avi', b'Lavc61.19.100')
+    got = [y for _, y in decode_all(lavc)]
+    want = cv2_lumas(lavc)
+    assert len(got) == len(want) == 14
+    for y, w in zip(got, want):
+        np.testing.assert_array_equal(y, w)
+    assert any(not np.array_equal(a, b) for a, b in zip(got, xvid))
+    for name, data, fourcc, tool in (('bare.avi', b'', b'XVID', 'Xvid streams'),
+                                     ('old.avi', b'XviD0032', b'XVID', 'Xvid streams'),
+                                     ('divx.avi', b'DivX503b1393p', b'DIVX', 'DivX')):
+        with pytest.raises(video.UnsupportedVideo, match=tool):
+            list(video.iter_frames(xvid_avi(tmp_path, name, data, fourcc)))
+    # Without a stamp, an mp4v FourCC keeps the simple IDCT.
+    bare = xvid_avi(tmp_path, 'bare_mp4v.avi', b'', b'FMP4')
+    for y, w in zip((y for _, y in decode_all(bare)), cv2_lumas(bare)):
+        np.testing.assert_array_equal(y, w)
+
+
+@pytest.mark.parametrize('size', [(93, 67), (96, 67), (92, 65), (31, 17), (320, 569)])
+def test_rgb_equals_videocapture_at_odd_sizes(tmp_path, size):
+    """At an odd height swscale leaves its unscaled converter for its scaler
+    (bicubic chroma, the MMX vertical filter, C tables for the last two rows;
+    full chroma interpolation at an odd width): the port's RGB of its own
+    mp4v equals cv2's on every frame."""
+    path = str(tmp_path / 'odd.mp4')
+    frames = shifted_frames(3, size) + [
+        np.random.default_rng(size[0]).integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)]
+    write_mp4(path, frames)
+    want, _ = cv2_read(path)
+    got = list(video.iter_frames(path))
+    assert len(got) == len(want) == 4
+    for f, bgr in zip(got, want):
+        np.testing.assert_array_equal(f, bgr[..., ::-1])
+
+
+def test_rgb_of_odd_heights_below_9_rows_raises(tmp_path):
+    """There swscale's vertical chroma filter has two taps and it takes a
+    shortcut the port does not emulate."""
+    path = str(tmp_path / 'tiny.mp4')
+    write_mp4(path, shifted_frames(2, (48, 7)))
+    with pytest.raises(video.UnsupportedVideo, match='odd height below 9'):
+        list(video.iter_frames(path))
 
 
 def top_level_boxes(data: bytes):
@@ -390,17 +485,23 @@ def test_b_and_s_vops_raise_naming_them(vop_type, tool):
         decoder.decode(with_vop_type(idx.packet(1), vop_type))
 
 
-@pytest.mark.parametrize('ext, entry, codec', [('.mp4', b'mp4v', 'avc1'),
-                                                ('.avi', b'mp4v', 'H264'),
-                                                ('.mkv', b'V_MPEG4/ISO/ASP', 'V_MPEG4/ISO/AVC')])
+@pytest.mark.parametrize('ext, entry, codec', [('.mp4', b'mp4v', 'hvc1'),
+                                                ('.avi', b'mp4v', 'HEVC'),
+                                                ('.mkv', b'V_MPEG4/ISO/ASP', 'V_MPEGH/ISO/HEVC')])
 def test_other_codecs_in_each_container_raise_naming_them(tmp_path, ext, entry, codec):
     data = (MP4V_DIR / f'mp4v_92x66{ext}').read_bytes()
     assert entry in data
     path = tmp_path / f'clip{ext}'
-    renamed = codec.encode()
-    if ext == '.mkv':  # keep the element's size: pad the CodecID
-        renamed = renamed.ljust(len(entry), b'\0')
-    path.write_bytes(data.replace(entry, renamed))
+    if ext == '.mkv':  # a longer CodecID: the port's muxer writes the file with it
+        src = video.index(str(MP4V_DIR / 'mp4v_92x66.mkv'))
+        with open(path, 'wb') as f:
+            mux = video._MatroskaMuxer(f, src.width, src.height, src.fps, codec.encode(),
+                                       src.config)
+            for i in range(src.n_frames):
+                mux.write(src.packet(i), bool(src.keyframes[i]))
+            mux.close()
+    else:
+        path.write_bytes(data.replace(entry, codec.encode()))
     with pytest.raises(video.UnsupportedVideo, match=codec):
         improc.num_frames_of_video(str(path))
     with pytest.raises(NotImplementedError, match=codec):

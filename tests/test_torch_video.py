@@ -285,7 +285,8 @@ def test_transform_video_like_jax(tmp_path):
 def test_other_codecs_raise_naming_it(tmp_path, ext, codec):
     """The codec cv2 writes for the mp4v FourCC in each container reads
     (tests/test_torch_mp4v.py holds its frames to FFmpeg's); the same file
-    with its codec renamed to H.264's raises naming that."""
+    with its codec renamed to HEVC's raises naming that (H.264, the name
+    this test used before the port read it, is tests/test_torch_h264.py's)."""
     path = str(tmp_path / f'clip{ext}')
     writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*'mp4v'), 10, (32, 24))
     assert writer.isOpened()
@@ -298,10 +299,17 @@ def test_other_codecs_raise_naming_it(tmp_path, ext, codec):
                                   jax_improc.imread(f'{path}#frame=2'))
     data = open(path, 'rb').read()
     entry = {'.mp4': b'mp4v', '.avi': b'mp4v', '.mkv': b'V_MPEG4/ISO/ASP'}[ext]
-    other = {'.mp4': b'avc1', '.avi': b'H264', '.mkv': b'V_MPEG4/ISO/AVC'}[ext]
-    renamed = str(tmp_path / f'h264{ext}')
+    other = {'.mp4': b'hvc1', '.avi': b'HEVC', '.mkv': b'V_MPEGH/ISO/HEVC'}[ext]
+    renamed = str(tmp_path / f'hevc{ext}')
     with open(renamed, 'wb') as f:
-        f.write(data.replace(entry, other))
+        if ext == '.mkv':  # a longer CodecID: the port's muxer writes the file with it
+            src = video.index(path)
+            mux = video._MatroskaMuxer(f, src.width, src.height, src.fps, other, src.config)
+            for i in range(src.n_frames):
+                mux.write(src.packet(i), bool(src.keyframes[i]))
+            mux.close()
+        else:
+            f.write(data.replace(entry, other))
     with pytest.raises(NotImplementedError, match=other.decode()):
         improc.imread(f'{renamed}#frame=0')
     with pytest.raises(NotImplementedError, match=other.decode()):

@@ -40,6 +40,9 @@ from metrabs_tpu_torch.pipeline.skeletons import H36M_17
 from tests import _torch_port
 from tests.test_torch_estimator import compare, frames_and_boxes
 from tests.test_weights_import import build_synthetic_torch_sd
+from tests._torch_train import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 BACKBONES = sorted({m.backbone for m in NAMED_MODELS.values()}
                    | {'resnet50v2', 'resnet18-groupnorm'})
