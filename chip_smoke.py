@@ -207,7 +207,14 @@ line:
     per-tool and VUI clips), every packet (as cv2 returns it), key flag,
     Y/U/V plane (x264's reconstruction), luma and RGB frame held to the
     manifest's SHA-256 and the metadata to cv2's, the 1080x1920 decode timed
-    on one thread. Under runs/ (deleted after): the mp4v encoder on
+    on one thread; the same decoder on the B-frame fixtures of
+    tests/torch_fixtures/h264_b (x264's medium B-frame defaults at three
+    sizes, MP4 with FFmpeg's ctts and elst, Matroska and AVI; a clip per
+    B-frame option; three edited streams), every packet, key flag, luma and
+    RGB frame in output order held to cv2's SHA-256, Y/U/V to x264's
+    reconstruction where its luma is FFmpeg's, imread('#frame=N') for every
+    N to cv2's seek table, the metadata to cv2's, the 1080x1920 B-stream
+    decode per packet timed on one thread. Under runs/ (deleted after): the mp4v encoder on
     MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
     thread), read back with its luma equal to the encoder's reconstruction;
     metrabs_eff2s_y4 minted on H36M-17 with a firing YOLOv4-416, a 24-frame
@@ -215,7 +222,10 @@ line:
     of 16 1080x1920 mp4v .mkv frames, box CSVs, camera JSONs), all written
     by the port; a 24-frame 1080x1920 H.264 .mp4 and a second ASPset layout
     of 2 x 16 frames of H.264 .mkv, muxed by the port from the 1080x1920
-    fixture's packets (each clip starts at an IDR picture). The demos' detector calls are
+    fixture's packets (each clip starts at an IDR picture); a 24-frame
+    1080x1920 B-frame H.264 .mp4 (ctts, elst) and a third ASPset layout of
+    B-frame .mkv views, whole closed GOPs of the 1080x1920 B-frame fixture
+    (H264_B_DEMO_GOPS, H264_B_ASPSET_GOPS). The demos' detector calls are
     made with `suppress_implausible_poses=False`, so that the random
     weights' poses survive and are drawn. `apps.demo_image.main` on the
     1080x1920 JPEG fixture, folded, with `--out` (.jpg) and `--out-3d`
@@ -229,7 +239,9 @@ line:
     poses drawn: its first frame unlike the same frame encoded undrawn),
     frames/s end to end and the decoding, drawing and encoding shares of the
     wall, the mp4v and H.264 inputs' frames each decoded once; one batch again with each K1 launch
-    against the plain warp, then profiled (busy share);
+    against the plain warp, then profiled (busy share); on the B-frame .mp4
+    once with every K1 launch against the plain warp, every input frame the
+    manifest's, each picture decoded once (path demo_video_h264_b);
     `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
     (SMPL-24 package), its figures under JAX's names read back and timed;
     `apps.predict_aspset.main` on the mp4v .mkv clips and on the H.264
@@ -237,7 +249,9 @@ line:
     times per chunk), each frame decoded once, frames/s with and without
     the package's loading and the decoding share; then each again with every
     K1 launch against the plain warp and every K2 launch against the plain
-    chain, both exact;
+    chain, both exact; on the B-frame .mkv views once with every launch so
+    checked, every input frame the manifest's, each picture decoded once
+    by the 8 I/O threads (path predict_aspset_h264_b);
 14. calibrate: camera calibration without OpenCV on the checkerboard
     fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
     1920x1080 JPEG views through a known lens, a partial board and an empty
@@ -2359,7 +2373,7 @@ class DriverRuns:
     """Runs a benchmark driver's `main` with its package loaded through
     `loader(method, **overrides)`, which keeps the estimator, times the
     loading and records the arguments of each call of `method`, and with
-    `jpeg.decode`, `mpeg4.Decoder.decode` and `h264.Decoder.decode` (what
+    `jpeg.decode`, `mpeg4.Decoder.decode` and `h264.Decoder.decode` and `.flush` (what
     `improc.imread` and the video reader call) and `jpeg.encode` and
     `mpeg4.Encoder.encode` (what `improc.imwrite` and the video writer call)
     timed; K1's and K2's counts are set to 0 just before the driver runs and
@@ -2371,7 +2385,7 @@ class DriverRuns:
         from metrabs_tpu_torch.data import h264, jpeg, mpeg4
 
         self.packaging, self.jpeg, self.mpeg4, self.h264 = packaging, jpeg, mpeg4, h264
-        self.original_h264 = h264.Decoder.decode
+        self.original_h264 = h264.Decoder.decode, h264.Decoder.flush
         self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
         self.original_encode = jpeg.encode
         self.original_mp4v = mpeg4.Decoder.decode, mpeg4.Encoder.encode
@@ -2426,7 +2440,7 @@ class DriverRuns:
         self.packaging.load_pose_estimator = self.original_load
         self.jpeg.decode, self.jpeg.encode = self.original_decode, self.original_encode
         self.mpeg4.Decoder.decode, self.mpeg4.Encoder.encode = self.original_mp4v
-        self.h264.Decoder.decode = self.original_h264
+        self.h264.Decoder.decode, self.h264.Decoder.flush = self.original_h264
 
     def run(self, load, main, argv) -> dict:
         from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
@@ -2438,7 +2452,8 @@ class DriverRuns:
         self.jpeg.encode = self.timed_encode
         self.mpeg4.Decoder.decode = self.timed_method(self.original_mp4v[0], self.decode_spans)
         self.mpeg4.Encoder.encode = self.timed_method(self.original_mp4v[1], self.encode_spans)
-        self.h264.Decoder.decode = self.timed_method(self.original_h264, self.decode_spans)
+        self.h264.Decoder.decode = self.timed_method(self.original_h264[0], self.decode_spans)
+        self.h264.Decoder.flush = self.timed_method(self.original_h264[1], self.decode_spans)
         decoded, decoded_h264 = self.mpeg4.frames_decoded(), self.h264.frames_decoded()
         torch.cuda.synchronize()
         warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
@@ -3283,6 +3298,13 @@ H264_SOURCE = 'h264_1080x1920.mp4'  # the fixture whose packets make the H.264 d
 # Packet orders of the H.264 demo inputs: each starts at an IDR picture (0, 12).
 H264_DEMO_PACKETS = list(range(14)) + list(range(10))  # demo_video's 24 frames
 H264_ASPSET_PACKETS = {'left': list(range(14)) + [0, 1], 'mid': [12, 13] + list(range(14))}
+# B slices: the fixtures with their ctts/elst and seek tables, and the clip
+# whose closed GOPs (each from an IDR picture) make the B-frame demo inputs,
+# repeated whole: demo_video's 24 frames and 16 per ASPset view.
+H264_B_FIXTURES = 'tests/torch_fixtures/h264_b'
+H264_B_SOURCE = 'h264b_1080x1920.mp4'
+H264_B_DEMO_GOPS = (0, 0)
+H264_B_ASPSET_GOPS = {'left': (0, 1, 1), 'mid': (1, 0, 1)}
 ENCODE_REPEATS = 20  # single-thread encodes of the 1080x1920 frame, median taken
 MP4V_FRAMES = 24  # shifted 1080x1920 frames through the mp4v encoder: demo_video's .mp4
 MP4V_SHIFT = (3, 4)  # (down, right) pixels per frame, as tests/_torch_mp4v_fixtures.py shifts
@@ -3490,16 +3512,17 @@ def check_h264_fixtures(root: Path) -> dict:
         idx = video.index(path)
         packets = [idx.packet(i) for i in range(idx.n_frames)]
         decoder = idx.decoder(0)
-        planes, lumas, rgbs = [], [], []
+        out = []
         for packet in packets:
             t = time.perf_counter()
-            rgb, yuv = decoder.decode(packet, planes=True)
+            out += decoder.decode(packet, planes=True)
             if idx.height == FRAME_3DPW_SIZE[0]:
                 times.append(time.perf_counter() - t)
-            planes.append([sha(p.tobytes()) for p in yuv])
-            lumas.append(planes[-1][0])
-            rgbs.append(sha(rgb.tobytes()))
+        out += decoder.flush(planes=True)
         decoder.close()
+        planes = [[sha(p.tobytes()) for p in yuv] for _, yuv in out]
+        lumas = [p[0] for p in planes]
+        rgbs = [sha(rgb.tobytes()) for rgb, _ in out]
         cv = entry['cv2']
         meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
         wrong = [what for what, got, want in (
@@ -3515,6 +3538,72 @@ def check_h264_fixtures(root: Path) -> dict:
         n_frames += len(packets)
     return dict(files=len(manifest), frames=n_frames, ms=statistics.median(times) * 1e3,
                 all_ms=[t * 1e3 for t in times], n_timed=len(times))
+
+
+def check_h264_b_fixtures(root: Path) -> dict:
+    """Every libx264 B-frame fixture (tests/torch_fixtures/h264_b: x264's
+    medium clips at three sizes, a clip per B-frame option, three edited
+    streams) through the port's demuxer and decoder: each packet, key
+    flag, luma plane and RGB frame (in output order) held to cv2's SHA-256
+    in the manifest, Y/U/V to x264's reconstruction where its luma is
+    FFmpeg's, imread('#frame=N') for every N to cv2's seek table, size,
+    frame count and rate to cv2's; each packet of the 1080x1920 clip's
+    decode (to RGB and planes of what it outputs) timed on one thread."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import h264, improc, video
+
+    def sha(data: bytes) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    manifest = json.loads((root / H264_B_FIXTURES / 'manifest.json').read_text())
+    n_frames, n_seeks, times = 0, 0, []
+    for name, entry in sorted(manifest.items()):
+        path = str(root / H264_B_FIXTURES / name)
+        idx = video.index(path)
+        packets = [idx.packet(i) for i in range(idx.n_frames)]
+        decoder = idx.decoder(0)
+        out = []
+        for packet in packets:
+            t = time.perf_counter()
+            out += decoder.decode(packet, planes=True)
+            if idx.height == FRAME_3DPW_SIZE[0]:
+                times.append(time.perf_counter() - t)
+        out += decoder.flush(planes=True)
+        decoder.close()
+        planes = [[sha(p.tobytes()) for p in yuv] for _, yuv in out]
+        recon = [want if agree else got  # x264 leaves non-reference B pictures unfiltered
+                 for got, want, agree in zip(planes, entry.get('recon_sha256', planes),
+                                             entry.get('recon_equals_ffmpeg', [True] * len(out)))]
+        seeks = []
+        video._STREAMS.clear()
+        for n, want in enumerate(entry['seek']):
+            try:
+                seeks.append(entry['rgb_sha256'].index(
+                    sha(improc.imread(f'{path}#frame={n}').tobytes())))
+            except FileNotFoundError:
+                seeks.append(-1)
+            except ValueError:
+                seeks.append(-2)
+        cv = entry['cv2']
+        meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
+        wrong = [what for what, got, want in (
+            ('packets', [sha(h264.annexb(p, idx.config)) for p in packets],
+             entry['packet_sha256']),
+            ('key frames', idx.keyframes.tolist(), entry['key_frames']),
+            ('luma', [p[0] for p in planes], entry['luma_sha256']),
+            ('planes', planes, recon),
+            ('RGB', [sha(rgb.tobytes()) for rgb, _ in out], entry['rgb_sha256']),
+            ('seeks', seeks, entry['seek']),
+            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count']))) if got != want]
+        if wrong or not math.isclose(improc.video_fps(path), cv['fps'], rel_tol=1e-4):
+            fail('demos', f'{name}: {", ".join(wrong) or "rate"} differ from the manifest\'s '
+                          f'({idx.n_frames} frames, {meta}, {improc.video_fps(path)} frames/s)')
+        n_frames += len(out)
+        n_seeks += len(seeks)
+    return dict(files=len(manifest), frames=n_frames, seeks=n_seeks,
+                ms=statistics.median(times) * 1e3, all_ms=[t * 1e3 for t in times],
+                n_timed=len(times))
 
 
 def mux_h264(root: Path, path: Path, order) -> list:
@@ -3535,6 +3624,36 @@ def mux_h264(root: Path, path: Path, order) -> list:
             mux.write(src.packet(i), bool(src.keyframes[i]))
         mux.close()
     return [want['rgb_sha256'][i] for i in order]
+
+
+def mux_h264_b(root: Path, path: Path, gops) -> list:
+    """The closed GOPs (numbered from 0, each from an IDR picture) of the
+    1080x1920 B-frame fixture, whole and in the order `gops`, muxed into
+    `path` as tests/_torch_h264_fixtures.py writes its clips: .mp4 with
+    FFmpeg's ctts and elst, .mkv with presentation timestamps. Returns the
+    manifest's RGB SHA-256 of each frame in output order."""
+    from metrabs_tpu_torch.data import h264, video
+
+    if str(root / 'tests') not in sys.path:
+        sys.path.insert(0, str(root / 'tests'))
+    from _torch_h264_fixtures import write_container
+
+    src = video.index(str(root / H264_B_FIXTURES / H264_B_SOURCE))
+    entry = json.loads((root / H264_B_FIXTURES / 'manifest.json').read_text())[H264_B_SOURCE]
+    starts = [int(k) for k in np.flatnonzero(src.keyframes)] + [src.n_frames]
+    packets, keys, times, want = [], [], [], []
+    for g in gops:
+        first, end = starts[g], starts[g + 1]
+        shift = len(packets) - first  # frames before this GOP in the output, less its own start
+        for i in range(first, end):
+            packets.append(h264.annexb(src.packet(i), src.config))
+            keys.append(bool(src.keyframes[i]))
+            pts, dts = entry['written']['times'][i]
+            times.append((pts + shift, dts + shift))
+        want += entry['rgb_sha256'][first:end]
+    write_container(path, packets, keys, (src.width, src.height), entry['written']['fps'],
+                    'h264', times=times)
+    return want
 
 
 def check_mp4v_encoder(root: Path, path: Path) -> dict:
@@ -3574,12 +3693,14 @@ def check_mp4v_encoder(root: Path, path: Path) -> dict:
                 psnr=float(np.mean([10 * np.log10(255.0 ** 2 / m) for m in mse])))
 
 
-def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> None:
+def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
     """ASPset-510's layout with one subject and ASPSET_VIEWS: splits.csv, a
     box CSV per clip (a person box moving with the frame's shift), a camera
     JSON per view and 1080x1920 .mkv clips of ASPSET_FRAMES frames: mp4v (as
     JAX's test writes them) written by the port's own writer, or H.264 muxed
-    from the fixture's packets (H264_ASPSET_PACKETS)."""
+    from the fixture's packets ('h264': H264_ASPSET_PACKETS; 'h264_b': the
+    B-frame fixture's GOPs, H264_B_ASPSET_GOPS). Returns the manifest's RGB
+    SHA-256 of each frame by clip path (H.264)."""
     from metrabs_tpu_torch.data import video
 
     subj, vid = '01', '0001'
@@ -3587,6 +3708,7 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> None:
     (work / 'splits.csv').write_text('subject,video,view,split\n' + ''.join(
         f'{subj},{vid},{view},test\n' for view in ASPSET_VIEWS))
     frames = shifted_frames(root, ASPSET_FRAMES) if codec == 'mp4v' else []
+    want = {}
     for i_view, view in enumerate(ASPSET_VIEWS):
         for d in ('boxes', 'cameras', 'videos'):
             (work / 'test' / d / subj).mkdir(parents=True, exist_ok=True)
@@ -3598,12 +3720,16 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> None:
             json.dumps(dict(intrinsic_matrix=K_ASPSET)))
         clip = work / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'
         if codec == 'h264':
-            mux_h264(root, clip, H264_ASPSET_PACKETS[view])
+            want[str(clip)] = mux_h264(root, clip, H264_ASPSET_PACKETS[view])
+            continue
+        if codec == 'h264_b':
+            want[str(clip)] = mux_h264_b(root, clip, H264_B_ASPSET_GOPS[view])
             continue
         with video.VideoWriter(str(clip), 50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]),
                                'mp4v') as writer:
             for frame in frames[i_view:] + frames[:i_view]:
                 writer.write(frame)
+    return want
 
 
 
@@ -3619,6 +3745,8 @@ def demos_phase(root: Path, dev) -> dict:
     """The [demos] phase (module docstring). Returns the K1 and K2 launches
     of the demo_image, demo_video (as is and with --stream) and
     predict_aspset runs."""
+    import hashlib
+
     from metrabs_tpu_torch.apps import demo_image, demo_video, predict_3dpw, predict_aspset
     from metrabs_tpu_torch.data import improc, mpeg4, video
     from metrabs_tpu_torch.models.backbones.builder import build_backbone
@@ -3648,6 +3776,17 @@ def demos_phase(root: Path, dev) -> dict:
                 f'counts and rates cv2\'s; 1080x1920 decode to RGB and planes '
                 f'{avc["ms"]:.2f} ms per frame on one thread (median of {avc["n_timed"]}; all: '
                 + ', '.join(f'{t:.1f}' for t in avc['all_ms']) + f') on {card_name()}')
+    avc_b = check_h264_b_fixtures(root)
+    phase(name, f'H.264 decoder, B slices: {avc_b["files"]} libx264 files (x264\'s medium '
+                f'B-frame defaults in MP4 with ctts and elst, Matroska and AVI; a clip per '
+                f'B-frame option; explicit bi-weights, direct_8x8_inference 0 and no '
+                f'bitstream_restriction edited in), all {avc_b["frames"]} frames\' packets, key '
+                f'flags, luma planes and RGB frames (output order) equal their cv2 hashes, Y/U/V '
+                f'x264\'s where its luma is FFmpeg\'s, all {avc_b["seeks"]} imread(#frame=N) '
+                f'equal cv2\'s seek table, sizes, counts and rates cv2\'s; 1080x1920 B-stream '
+                f'decode {avc_b["ms"]:.2f} ms per packet on one thread (median of '
+                f'{avc_b["n_timed"]}; all: ' + ', '.join(f'{t:.1f}' for t in avc_b['all_ms'])
+                + f') on {card_name()}')
 
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
@@ -3672,13 +3811,18 @@ def demos_phase(root: Path, dev) -> dict:
         h264_src = work / 'in_h264.mp4'
         h264_want = mux_h264(root, h264_src, H264_DEMO_PACKETS)
         mint_aspset_layout(root, work / 'aspset_h264', 'h264')
+        h264b_src = work / 'in_h264_b.mp4'
+        h264b_want = mux_h264_b(root, h264b_src, H264_B_DEMO_GOPS)
+        aspset_b_want = mint_aspset_layout(root, work / 'aspset_h264_b', 'h264_b')
         phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
                     f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
                     f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
                     f'{ASPSET_FRAMES} frames of 1080x1920 mp4v .mkv, written by the port; a '
                     f'{len(H264_DEMO_PACKETS)}-frame 1080x1920 H.264 .mp4 and an ASPset layout '
                     f'of {len(ASPSET_VIEWS)} views x {ASPSET_FRAMES} frames of H.264 .mkv, '
-                    f'muxed by the port from {H264_SOURCE}\'s packets')
+                    f'muxed by the port from {H264_SOURCE}\'s packets; a {len(h264b_want)}-frame '
+                    f'1080x1920 B-frame H.264 .mp4 (ctts, elst) and an ASPset layout of B-frame '
+                    f'.mkv views, whole closed GOPs of {H264_B_SOURCE}')
 
         # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
         # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
@@ -3759,7 +3903,6 @@ def demos_phase(root: Path, dev) -> dict:
             if h264_run:
                 # The input's frames, as the demo read them, are the manifest's;
                 # the run again with every K1 launch against the plain warp.
-                import hashlib
                 got = [hashlib.sha256(f.tobytes()).hexdigest()
                        for f in video.iter_frames(str(source))]
                 if got != h264_want:
@@ -3808,6 +3951,39 @@ def demos_phase(root: Path, dev) -> dict:
                             f'{device_ms["detector"]:.2f} ms')
                 del est, frames
             del r
+
+        # demo_video on the B-frame .mp4 (ctts and elst): every K1 launch
+        # against the plain warp, every input frame the manifest's, each
+        # picture decoded once.
+        key = 'demo_video_h264_b'
+        r, warp_errs = checked_warps(lambda: drivers.run(
+            drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_video.main, [
+                '--video', str(h264b_src), '--package', str(work / 'pkg'),
+                '--out', str(work / f'{key}.mp4'), '--frame-batch', str(DEMO_FRAME_BATCH)]))
+        result = json.loads(r['last'])
+        back = video.index(str(work / f'{key}.mp4'))
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(str(h264b_src))]
+        n_b = len(h264b_want)
+        warp_err = max(warp_errs, default=math.inf)
+        if (result['frames'] != n_b or back.n_frames != n_b or got != h264b_want
+                or result['total_poses'] == 0 or len(r['calls']) != n_b // DEMO_FRAME_BATCH
+                or r['k1'] < n_b // DEMO_FRAME_BATCH or len(warp_errs) != r['k1']
+                or not warp_err <= WARP_TOL or r['k2'] != 0 or r['h264_decodes'] != n_b
+                or r['mp4v_decodes'] != 0):
+            fail(name, f'{key}: {result}, {back.n_frames} frames read back, '
+                       f'{sum(a != b for a, b in zip(got, h264b_want))} of {n_b} input frames '
+                       f'unlike the manifest, {len(r["calls"])} batched calls, K1 {r["k1"]} '
+                       f'({len(warp_errs)} compared, max |kernel - plain| {warp_err:.3g}), K2 '
+                       f'{r["k2"]}, {r["h264_decodes"]} H.264 pictures decoded')
+        phase(name, f'{key} ({h264b_src.name}, {n_b} frames of B-frame H.264 with ctts and elst, '
+                    f'frame batch {DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} '
+                    f'poses): every input frame equal to the manifest (cv2\'s), '
+                    f'{r["h264_decodes"]} pictures decoded ({r["h264_decodes"] / n_b:g} per frame '
+                    f'read); K1 {r["k1"]}, each against the plain warp (max |kernel - plain| '
+                    f'{warp_err:.3g}), K2 {r["k2"]}; with the checks: {r["seconds"]:.2f} s, '
+                    f'decoding {r["decode_s"]:.2f} s')
+        launches[key] = (r['k1'], r['k2'])
+        del r
 
         # predict_3dpw --viz-dir (folded) on VIZ_3DPW: JAX's figure names, every
         # VIZ_STEP frames, read back.
@@ -3922,6 +4098,40 @@ def demos_phase(root: Path, dev) -> dict:
                     f'{max(mean_errs, default=math.inf):.3g})')
         launches['predict_aspset_h264'] = (r['k1'], r['k2'])
         del r, checked
+
+        # predict_aspset on the B-frame H.264 .mkv views: one run with every
+        # launch of either kernel against its plain version, every input
+        # frame against the manifest, each picture decoded once by the 8 I/O
+        # threads asking in any order.
+        key = 'predict_aspset_h264_b'
+        (((r, warp_errs), v_errs, mean_errs)) = checked_mbconv(
+            lambda: checked_warps(lambda: aspset_run(f'pred_{key}', 'aspset_h264_b')))
+        preds = [np.load(work / f'pred_{key}' / f'01-0001-{view}.npz')['coords3d_pred_world']
+                 for view in ASPSET_VIEWS]
+        unlike = sum(a != b for clip, want in aspset_b_want.items() for a, b in zip(
+            [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(clip)], want))
+        warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
+        if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
+                or len(warp_errs) != calls or len(v_errs) != K2_BLOCKS * calls or warp_err != 0.0
+                or err_v != 0.0 or r['h264_decodes'] != n_frames or r['mp4v_decodes'] != 0
+                or unlike or sum(map(len, aspset_b_want.values())) != n_frames
+                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                       for p in preds)):
+            fail(name, f'{key}: K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} and '
+                       f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, {len(warp_errs)} K1 '
+                       f'launches compared (max |kernel - plain| {warp_err:.3g}, must be 0), '
+                       f'{len(v_errs)} K2 (v max {err_v:.3g}, must be 0), {r["h264_decodes"]} '
+                       f'pictures decoded (expected {n_frames}), {unlike} input frames unlike the '
+                       f'manifest, predictions {[p.shape for p in preds]}')
+        phase(name, f'{key} (B-frame H.264 .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
+                    f'unfolded, fuse_mbconv on: every input frame equal to the manifest; '
+                    f'{r["h264_decodes"]} pictures decoded for {n_frames} frames read by 8 I/O '
+                    f'threads; K1 {r["k1"]}, each against the plain warp (max |kernel - plain| '
+                    f'{warp_err:.3g}), K2 {r["k2"]}, each against the plain chain (v max '
+                    f'{err_v:.3g}, SE mean max {max(mean_errs, default=math.inf):.3g}); with the '
+                    f'checks: {r["seconds"]:.2f} s, decoding {r["decode_s"]:.2f} s')
+        launches[key] = (r['k1'], r['k2'])
+        del r
     finally:
         drivers.restore()
         shutil.rmtree(work, ignore_errors=True)

@@ -12,8 +12,9 @@ Usage:
       [--package dir] [--out out.mp4] [--max-frames N] [--fov 55] \
       [--letterbox 1080x1920] [--device cuda]
 
-The input is Motion JPEG, mp4v or H.264 (I and P slices) in an AVI,
-Matroska or MP4 file (`data.video`). `--out`
+The input is Motion JPEG, mp4v or H.264 (progressive I, P and B slices,
+its frames in cv2's output order) in an AVI, Matroska or MP4 file
+(`data.video`). `--out`
 writes mp4v, as JAX's demo does, into the container its extension names
 (`.mp4`, `.avi` or `.mkv`); any other extension raises.
 JAX's flags plus `--device` (default cuda); `--fast-load` is accepted and

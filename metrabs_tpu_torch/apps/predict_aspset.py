@@ -8,11 +8,12 @@ dump per sequence.
 
 JAX's flags and defaults, plus `--device` (default cuda). The videos may be
 Motion JPEG, mp4v (MPEG-4 Part 2 Simple Profile, as cv2 writes it and as
-JAX's tests lay ASPset out) or H.264 (progressive I and P slices, the codec
-of most camera files): an mp4v or H.264 clip is decoded once per frame, in
-order, through the file's decoder, whichever of the I/O threads asks, its
-frames numbered as cv2 numbers them. Other codecs (HEVC, H.264 with B
-slices, ...) raise, naming the codec or tool (ROADMAP.md, "Video").
+JAX's tests lay ASPset out) or H.264 (progressive I, P and B slices, the
+codec of most camera files): an mp4v or H.264 clip is decoded once per
+frame, in order, through the file's decoder, whichever of the I/O threads
+asks (a B-frame stream's packet may output several frames, all kept), its
+frames numbered as cv2 numbers them. Other codecs (HEVC, interlaced H.264,
+...) raise, naming the codec or tool (ROADMAP.md §1).
 """
 
 from __future__ import annotations

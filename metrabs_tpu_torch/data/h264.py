@@ -9,13 +9,16 @@ for bit, as the standard's decoding process is exact, and its RGB equals
 stream's VUI (matrix_coefficients and video_full_range_flag; `csrc/
 yuv_rgb.h`).
 
-Ported: progressive 8-bit 4:2:0 streams of I and P slices in the
+Ported: progressive 8-bit 4:2:0 streams of I, P and B slices in the
 Constrained Baseline, Main and High profiles, with CAVLC or CABAC (the
-tools are listed in `csrc/h264_decode.cpp`). A stream that uses a tool
-beyond them raises UnsupportedVideo naming it: B slices, interlaced coding,
-4:0:0, 4:2:2, 4:4:4 and bit depths above 8, FMO and ASO, redundant slices,
-SP and SI slices, data partitioning, transform bypass, SVC and MVC NAL
-units, output reordering.
+tools are listed in `csrc/h264_decode.cpp`: the direct modes, implicit and
+explicit bi-prediction weights among them). Frames come out in FFmpeg's
+output order (picture order, delayed by the VUI's max_num_reorder_frames).
+A stream that uses a tool beyond them raises UnsupportedVideo naming it:
+interlaced coding, 4:0:0, 4:2:2, 4:4:4 and bit depths above 8, FMO and
+ASO, redundant slices, SP and SI slices, data partitioning, transform
+bypass, SVC and MVC NAL units, reordering deeper than
+max_num_reorder_frames.
 
 The library is built with the host C++ compiler at first use
 (`ops/cuda_build.py::build_host_library`) and called through `ctypes`, which
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
@@ -53,14 +56,15 @@ def _library() -> ctypes.CDLL:
             lib.metrabs_h264_decoder_free.argtypes = [vp]
             lib.metrabs_h264_decoder_free.restype = None
             lib.metrabs_h264_decoder_config.argtypes = [vp, cp, sz, cp, i]
-            lib.metrabs_h264_decoder_recovering.argtypes = [vp]
-            lib.metrabs_h264_decoder_recovering.restype = None
+            for name in ('decoder_recovering', 'decoder_headers_only', 'flush'):
+                getattr(lib, f'metrabs_h264_{name}').argtypes = [vp]
+                getattr(lib, f'metrabs_h264_{name}').restype = None
             lib.metrabs_h264_decode.argtypes = [vp, cp, sz, cp, i]
-            lib.metrabs_h264_size.argtypes = [vp, ip, ip]
-            lib.metrabs_h264_size.restype = None
+            lib.metrabs_h264_pictures.argtypes = [vp]
+            lib.metrabs_h264_next.argtypes = [vp, ip, ip, ip]
             lib.metrabs_h264_frame.argtypes = [vp, vp, vp, vp, vp, cp, i]
             lib.metrabs_h264_packet_info.argtypes = [cp, sz, i, ip, ip, ip]
-            for name in ('decoder_config', 'decode', 'frame', 'packet_info'):
+            for name in ('decoder_config', 'decode', 'pictures', 'next', 'frame', 'packet_info'):
                 getattr(lib, f'metrabs_h264_{name}').restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -77,7 +81,7 @@ def _check(rc: int, err, name: str) -> None:
     if rc == 2:
         raise UnsupportedVideo(
             f'{name}: the H.264 stream uses {err.value.decode()}, which the port does not '
-            f'decode (progressive 8-bit 4:2:0 I and P slices only)')
+            f'decode (progressive 8-bit 4:2:0 I, P and B slices only)')
     if rc != 0:
         raise RuntimeError(f'{name}: the H.264 decoder returned {rc}')
 
@@ -112,48 +116,92 @@ class Decoder:
     decoder configuration (MP4's avcC, Matroska's CodecPrivate; AVI's
     packets carry their parameter sets). `recovering`: decoding starts at a
     recovery point, whose references before it are taken as grey (its frames
-    are exact from the recovery point's count on)."""
+    are exact from the recovery point's count on). `headers_only`: the
+    decoder reads parameter sets and slice headers only, and `order` tells
+    which pictures each packet outputs (`data.video` indexes a stream so).
 
-    def __init__(self, config: bytes = b'', name: str = '<h264>', recovering: bool = False):
+    Pictures come out in output order, as FFmpeg's decoder hands them to
+    cv2: a picture waits while reordering may still put a later one before
+    it, so a packet outputs none, one or several, and `flush` outputs those
+    still waiting at the end of the stream."""
+
+    def __init__(self, config: bytes = b'', name: str = '<h264>', recovering: bool = False,
+                 headers_only: bool = False):
         self._lib = _library()
         self._ptr = self._lib.metrabs_h264_decoder_new()
         self.name = name
         if recovering:
             self._lib.metrabs_h264_decoder_recovering(self._ptr)
+        if headers_only:
+            self._lib.metrabs_h264_decoder_headers_only(self._ptr)
+        self._counted = not headers_only
         if config:
             err = ctypes.create_string_buffer(_ERR_LEN)
             _check(self._lib.metrabs_h264_decoder_config(self._ptr, config, len(config), err,
                                                          _ERR_LEN), err, name)
 
-    def decode(self, packet: bytes, luma: bool = False, planes: bool = False):
-        """RGB uint8 [H, W, 3] of the packet's picture; with `luma` also its
-        Y plane [H, W]; with `planes` RGB and (Y, U, V), the chroma planes
-        [(H + 1) // 2, (W + 1) // 2]. Raises ValueError for a packet that
-        completes no picture."""
+    def decode(self, packet: bytes, luma: bool = False, planes: bool = False) -> list:
+        """The frames the packet outputs, in output order: each RGB uint8
+        [H, W, 3]; with `luma` (RGB, Y [H, W]); with `planes` (RGB, (Y, U,
+        V)), the chroma planes [(H + 1) // 2, (W + 1) // 2]."""
+        self._send(packet)
+        return self._take(luma, planes)
+
+    def flush(self, luma: bool = False, planes: bool = False) -> list:
+        """The frames still waiting at the end of the stream, as `decode`
+        returns them."""
+        self._lib.metrabs_h264_flush(self._ptr)
+        return self._take(luma, planes)
+
+    def order(self, packet: Optional[bytes]) -> List[int]:
+        """The decoding-order indices of the pictures a packet (None: the
+        end of the stream) outputs, without their samples."""
+        if packet is None:
+            self._lib.metrabs_h264_flush(self._ptr)
+        else:
+            self._send(packet)
+        out = []
+        w, h, index = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        while self._lib.metrabs_h264_next(self._ptr, ctypes.byref(w), ctypes.byref(h),
+                                          ctypes.byref(index)):
+            out.append(index.value)
+            self._lib.metrabs_h264_frame(self._ptr, None, None, None, None, None, 0)
+        return out
+
+    @property
+    def pictures(self) -> int:
+        """How many pictures this decoder has decoded (or parsed)."""
+        return self._lib.metrabs_h264_pictures(self._ptr)
+
+    def _send(self, packet: bytes) -> None:
         global _FRAMES_DECODED
         err = ctypes.create_string_buffer(_ERR_LEN)
+        before = self._lib.metrabs_h264_pictures(self._ptr)
         rc = self._lib.metrabs_h264_decode(self._ptr, packet, len(packet), err, _ERR_LEN)
-        if rc == 3:
-            raise ValueError(f'{self.name}: a packet without a complete picture')
+        if self._counted:
+            with _COUNT_LOCK:
+                _FRAMES_DECODED += self._lib.metrabs_h264_pictures(self._ptr) - before
         _check(rc, err, self.name)
-        with _COUNT_LOCK:
-            _FRAMES_DECODED += 1
-        w, h = ctypes.c_int(), ctypes.c_int()
-        self._lib.metrabs_h264_size(self._ptr, ctypes.byref(w), ctypes.byref(h))
-        h, w = h.value, w.value
-        rgb = np.empty((h, w, 3), np.uint8)
-        y = np.empty((h, w), np.uint8) if luma or planes else None
-        u = v = None
-        if planes:
-            u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
-            v = np.empty_like(u)
-        ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
-        rc = self._lib.metrabs_h264_frame(self._ptr, rgb.ctypes.data, ptr(y), ptr(u), ptr(v), err,
-                                          _ERR_LEN)
-        _check(rc, err, self.name)
-        if planes:
-            return rgb, (y, u, v)
-        return (rgb, y) if luma else rgb
+
+    def _take(self, luma: bool, planes: bool) -> list:
+        out = []
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        w, h, index = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        while self._lib.metrabs_h264_next(self._ptr, ctypes.byref(w), ctypes.byref(h),
+                                          ctypes.byref(index)):
+            hh, ww = h.value, w.value
+            rgb = np.empty((hh, ww, 3), np.uint8)
+            y = np.empty((hh, ww), np.uint8) if luma or planes else None
+            u = v = None
+            if planes:
+                u = np.empty(((hh + 1) // 2, (ww + 1) // 2), np.uint8)
+                v = np.empty_like(u)
+            ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
+            rc = self._lib.metrabs_h264_frame(self._ptr, rgb.ctypes.data, ptr(y), ptr(u), ptr(v),
+                                              err, _ERR_LEN)
+            _check(rc, err, self.name)
+            out.append((rgb, (y, u, v)) if planes else (rgb, y) if luma else rgb)
+        return out
 
     def close(self) -> None:
         if self._ptr:

@@ -37,7 +37,8 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
     `cv2.imdecode` of its packet); an mp4v or H.264 frame is decoded from the
     entry point before it (a key frame; for H.264 an IDR picture or a
     recovery point), through the file's decoder, which frames read in order
-    continue (equal to `cv2.VideoCapture`'s frame). Other codecs raise
+    continue (equal to `cv2.VideoCapture`'s frame; H.264 with B slices in
+    its output order, as cv2's CAP_PROP_POS_FRAMES seek gives it). Other codecs raise
     NotImplementedError naming the codec.
 
     With `gray`, uint8 [H, W], equal to `cv2.imread(path,
@@ -210,8 +211,8 @@ def num_frames_of_video(path: str) -> int:
 
 def transform_video(inp_path: str, out_path: str, process_frame_fn,
                     fourcc: str = 'mp4v') -> None:
-    """Reads a video (Motion JPEG, mp4v or H.264), maps `process_frame_fn`
-    over its RGB frames and writes the results at the source's frame rate,
+    """Reads a video (Motion JPEG, mp4v or H.264, B-frame streams in their
+    output order), maps `process_frame_fn` over its RGB frames and writes the results at the source's frame rate,
     in the container the output's extension names (`.mp4`, `.avi` or
     `.mkv`), as mp4v (JAX's default) or MJPG. The frame function must keep
     the frame size. Another codec raises NotImplementedError naming it."""

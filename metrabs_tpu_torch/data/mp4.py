@@ -7,9 +7,13 @@ table gives each packet: `stsd` (the sample entry's FourCC and size; for
 `mp4v` the `esds` DecoderSpecificInfo: the VOS and VOL; for `avc1` and
 `avc3` the `avcC`), `stts` (durations: the frame rate is the `mdhd`
 timescale over them), `stss` (key frames; without it every sample is one),
-`stsc`, `stsz` and `stco`/`co64`. An H.264 track whose `ctts` offsets or
-`elst` edit shift its frames (the reordering of B-frame streams) raises
-UnsupportedVideo.
+`stsc`, `stsz` and `stco`/`co64`. An H.264 track's presentation times
+are its decoding times plus the `ctts` offsets (versions 0 and 1, read as
+signed, as FFmpeg's mov demuxer reads them), shifted by the `elst` edit (an
+empty edit first delays them): B-frame streams reorder their frames so. An
+edit list that FFmpeg would make drop decoded frames (an edit that starts
+past the first frame or ends before the last), holds several edits or
+plays at another rate raises UnsupportedVideo.
 
 Writing lays a file out as FFmpeg does: `ftyp`, then `mdat` with the
 packets, then `moov` with one track (mp4v with its `esds`, or avc1 with its
@@ -114,7 +118,8 @@ def decoder_specific_info(esds: bytes) -> Tuple[int, bytes]:
 def read_index(path: str, f: BinaryIO, file_size: int) -> Dict:
     """The first video track of an MP4/QuickTime file: codec (the sample
     entry's FourCC), width, height, fps, the byte offset and size of each
-    packet, the key-frame mask and the decoder configuration."""
+    packet, the key-frame mask, the decoder configuration and (H.264) each
+    packet's presentation time in the track's timescale."""
     moov = None
     for kind, at, size in _top_level(f, file_size):
         if kind == b'moov':
@@ -129,11 +134,14 @@ def read_index(path: str, f: BinaryIO, file_size: int) -> Dict:
         hdlr = _find(moov, a, b, (b'mdia', b'hdlr'))
         if hdlr is None or moov[hdlr[0] + 8:hdlr[0] + 12] != b'vide':
             continue
-        return _read_track(path, moov, a, b)
+        mvhd = _find(moov, 0, len(moov), (b'mvhd',))
+        version = moov[mvhd[0]]
+        movie_scale = struct.unpack('>I', moov[mvhd[0] + (20 if version == 1 else 12):][:4])[0]
+        return _read_track(path, moov, a, b, movie_scale)
     raise ValueError(f'{path}: no video track')
 
 
-def _read_track(path: str, moov: bytes, a: int, b: int) -> Dict:
+def _read_track(path: str, moov: bytes, a: int, b: int, movie_scale: int) -> Dict:
     mdhd = _find(moov, a, b, (b'mdia', b'mdhd'))
     version = moov[mdhd[0]]
     timescale = struct.unpack('>I', moov[mdhd[0] + (20 if version == 1 else 12):][:4])[0]
@@ -162,16 +170,6 @@ def _read_track(path: str, moov: bytes, a: int, b: int) -> Dict:
         for kind, x, y in _boxes(stsd, entry[1] + 78, entry[2]):
             if kind == b'avcC':
                 config = stsd[x:y]
-        ctts = payload(b'ctts')
-        if ctts is not None:
-            runs = np.frombuffer(ctts[8:8 + 8 * struct.unpack('>I', ctts[4:8])[0]], '>u4')
-            if runs.size and np.any(runs.reshape(-1, 2)[:, 1] != runs[1]):
-                raise UnsupportedVideo(f'{path}: composition time offsets (ctts), the frame '
-                                       f'reordering of B-frame streams')
-        elst = _find(moov, a, b, (b'edts', b'elst'))
-        if elst is not None and _edit_shift(moov[elst[0]:elst[1]]):
-            raise UnsupportedVideo(f'{path}: an edit list (elst) that shifts frames, as '
-                                   f'B-frame streams carry')
     sizes = _sample_sizes(payload(b'stsz'))
     offsets = _sample_offsets(path, payload(b'stsc'), payload(b'stco'), payload(b'co64'), sizes)
     n = len(sizes)
@@ -188,22 +186,58 @@ def _read_track(path: str, moov: bytes, a: int, b: int) -> Dict:
         keyframes[:] = False
         sync = np.frombuffer(stss[8:8 + 4 * struct.unpack('>I', stss[4:8])[0]], '>u4')
         keyframes[sync[(sync >= 1) & (sync <= n)].astype(np.int64) - 1] = True
-    return dict(codec=codec, width=width, height=height, fps=fps, offsets=offsets,
-                sizes=sizes, keyframes=keyframes, config=config)
+    out = dict(codec=codec, width=width, height=height, fps=fps, offsets=offsets,
+               sizes=sizes, keyframes=keyframes, config=config)
+    if codec in ('avc1', 'avc3'):
+        dts = np.concatenate([[0], np.cumsum(np.repeat(deltas[:, 1].astype(np.int64),
+                                                       deltas[:, 0].astype(np.int64)))])[:n]
+        ctts = payload(b'ctts')
+        if ctts is not None:
+            runs = np.frombuffer(ctts[8:8 + 8 * struct.unpack('>I', ctts[4:8])[0]],
+                                 '>i4').reshape(-1, 2).astype(np.int64)
+            offsets_ct = np.repeat(runs[:, 1], runs[:, 0])
+            if len(offsets_ct) < n:
+                raise ValueError(f'{path}: a ctts of {len(offsets_ct)} of {n} samples')
+            dts = dts + offsets_ct[:n]
+        elst = _find(moov, a, b, (b'edts', b'elst'))
+        shift = 0
+        if elst is not None and n:
+            shift = _edit_shift(path, moov[elst[0]:elst[1]], int(dts.min()), int(dts.max()),
+                                timescale, movie_scale)
+        out['pts'] = dts + shift
+    return out
 
 
-def _edit_shift(elst: bytes) -> bool:
-    """Whether an elst starts the presentation past the first sample's time
-    (an empty edit, media_time -1, only delays it)."""
+def _edit_shift(path: str, elst: bytes, first: int, last: int, timescale: int,
+                movie_scale: int) -> int:
+    """What an edit list adds to the composition times: the empty edits'
+    delay less the media_time of its edit, which must start at the first
+    composition time (`first`) or before it and end after the last one
+    (`last`): FFmpeg drops the decoded frames outside the edit, and such a
+    list raises."""
     version, count = elst[0], struct.unpack('>I', elst[4:8])[0]
     size = 20 if version == 1 else 12
+    delay, edit = 0, None
     for k in range(count):
         e = elst[8 + size * k:8 + size * (k + 1)]
-        media_time = struct.unpack('>q' if version == 1 else '>i', e[8:16] if version == 1
-                                   else e[4:8])[0]
-        if media_time != -1:
-            return media_time > 0
-    return False
+        duration, media_time = struct.unpack('>Qq' if version == 1 else '>Ii', e[:size - 4])
+        rate = struct.unpack('>i', e[size - 4:size])[0]
+        if media_time == -1:
+            if edit is None:
+                delay += duration * timescale // movie_scale
+            continue
+        if edit is not None:
+            raise UnsupportedVideo(f'{path}: an edit list (elst) of several edits')
+        if rate != 0x10000:
+            raise UnsupportedVideo(f'{path}: an edit list (elst) at a rate of {rate / 65536}')
+        edit = media_time, duration
+    if edit is None:
+        return 0
+    media_time, duration = edit
+    if media_time > first or (duration and media_time + duration * timescale / movie_scale <= last):
+        raise UnsupportedVideo(f'{path}: an edit list (elst) that drops decoded frames '
+                               f'(media_time {media_time}, composition times {first} to {last})')
+    return delay - media_time
 
 
 def _sample_sizes(stsz: bytes) -> np.ndarray:

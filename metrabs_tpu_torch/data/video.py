@@ -26,13 +26,21 @@ or `avcC`).
 - H.264 (AVI FourCCs `H264`, `X264`, `AVC1` in any case, Annex B; Matroska
   `V_MPEG4/ISO/AVC` and MP4 `avc1`/`avc3`, length-prefixed with the avcC as
   the configuration): decoded by `data.h264`, whose planes equal FFmpeg's and
-  whose RGB equals `cv2.VideoCapture`'s. Random access starts at the last
-  IDR picture at or before the frame, or at a recovery point whose frames
-  are exact by then (its recovery-point SEI), else at the first frame.
+  whose RGB equals `cv2.VideoCapture`'s. B-frame streams come out in
+  FFmpeg's output order (picture order counts), which the index finds from
+  the slice headers without decoding; frame N is the N-th frame of that
+  order, as cv2's CAP_PROP_POS_FRAMES seek gives it on these files. MP4's
+  `ctts` and `elst` and Matroska's block timestamps (presentation times)
+  must order the frames as the picture order counts do, else the file
+  raises. Random access starts at the last IDR picture whose frames reach
+  the frame, or at a recovery point whose frames are exact by then (its
+  recovery-point SEI; an open GOP's leading B pictures are not taken from
+  it), else at the first frame.
 
 Frame N of mp4v and H.264 is decoded from such an entry point. Each file
 keeps a few decoders and its last few frames under a lock, so frames read
-in order, from one thread or from several, are each decoded once.
+in order, from one thread or from several, are each decoded once; every
+frame a packet outputs is kept.
 
 Writing: `VideoWriter` writes RGB frames as Motion JPEG (`jpeg.encode`,
 equal to `cv2.imencode`) or mp4v (`mpeg4.Encoder`) into an AVI (RIFF,
@@ -66,7 +74,7 @@ MP4V_CODEC_IDS = ('V_MPEG4/ISO/SP', 'V_MPEG4/ISO/ASP', 'V_MPEG4/ISO/AP')
 # H.264: AVI FourCCs (any case), the Matroska CodecID, MP4 sample entries
 H264_FOURCCS = ('H264', 'X264', 'AVC1')
 H264_CODEC_IDS = ('V_MPEG4/ISO/AVC', 'avc1', 'avc3')
-_ROADMAP = 'ROADMAP.md, "Video"'
+_ROADMAP = 'ROADMAP.md §1, "Still to port"'
 DEFAULT_RIFF_LIMIT = 1 << 30  # FFmpeg's AVI_MAX_RIFF_SIZE: an AVIX extension past 1 GiB
 _AVIIF_KEYFRAME = 0x10
 
@@ -95,12 +103,18 @@ class VideoIndex:
     sizes: np.ndarray  # int64 byte length of each packet
     keyframes: Optional[np.ndarray] = None  # bool per packet; None: every one
     config: bytes = b''  # the codec's private header (mp4v: VOS and VOL; H.264: avcC)
-    # The packet of each frame a decoder outputs (mp4v: the coded VOPs);
-    # None: one per packet.
+    # The packet whose decoding outputs each frame, in output order (mp4v:
+    # the coded VOPs; H.264 reorders: n_frames for the flush at the end);
+    # None: one frame per packet.
     frame_packets: Optional[np.ndarray] = None
-    # Entry points of random access (mp4v, H.264): (first packet, first
-    # packet decoded exactly from it, whether it starts at a recovery point).
+    # Entry points of random access (mp4v, H.264): (first packet, first frame
+    # decoded exactly from it, whether it starts at a recovery point), and
+    # the first frame a decoder that starts there outputs, by first packet.
     entries: Optional[List[Tuple[int, int, bool]]] = None
+    first_frames: Optional[Dict[int, int]] = None
+    # Presentation time of each packet (MP4 H.264: decoding time plus ctts,
+    # shifted by the elst; Matroska: the block timestamps); None for AVI.
+    pts: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.keyframes is None:
@@ -149,11 +163,11 @@ class VideoIndex:
         return mpeg4.Decoder(self.config, self.path,
                              self.codec if self.container == 'avi' else '')
 
-    def entry_for(self, packet: int) -> Tuple[int, int]:
-        """(first packet, first exact packet) of the latest entry point from
-        which `packet` decodes exactly."""
+    def entry_for(self, frame: int) -> Tuple[int, int]:
+        """(first packet, first exact frame) of the latest entry point from
+        which `frame` decodes exactly."""
         return max((start, exact) for start, exact, _ in self.entries
-                   if start <= packet and exact <= packet)
+                   if self.first_frames[start] <= frame and exact <= frame)
 
 
 _INDEX_LOCK = threading.Lock()
@@ -206,23 +220,56 @@ def _index_vops(idx: VideoIndex, f: BinaryIO) -> None:
     finally:
         probe.close()
     idx.frame_packets = np.flatnonzero(coded).astype(np.int64)
-    idx.entries = [(int(k), int(k), False) for k in np.flatnonzero(idx.keyframes)] or [
-        (0, 0, False)]
+    starts = [int(k) for k in np.flatnonzero(idx.keyframes)] or [0]
+    first = [int(np.searchsorted(idx.frame_packets, k)) for k in starts]
+    idx.entries = [(k, j, False) for k, j in zip(starts, first)]
+    idx.first_frames = dict(zip(starts, first))
 
 
 def _index_h264(idx: VideoIndex, f: BinaryIO) -> None:
-    """H.264: entry points at packet 0, the IDR pictures and the recovery
-    points (exact from their recovery_frame_cnt on) among the key frames."""
+    """H.264: the output order, from the parameter sets and slice headers
+    (picture order counts, reference marking and the reorder depth) without
+    decoding, and the entry points: packet 0, the IDR pictures and the
+    recovery points among the key frames (exact from their
+    recovery_frame_cnt on; one whose leading pictures would be output
+    among the frames before it is no entry)."""
     size = h264.length_size(idx.config)
     if idx.container != 'avi' and not size:
         raise ValueError(f'{idx.path}: an H.264 track without its avcC')
+    n = idx.n_frames
+    scan = h264.Decoder(idx.config, idx.path, headers_only=True)
+    emitter, order = [], []  # per output frame: the packet that outputs it, its picture
+    try:
+        for p in range(n + 1):
+            pictures = scan.order(idx.packet(p, f) if p < n else None)
+            if p < n and scan.pictures != p + 1:
+                raise ValueError(f'{idx.path}: H.264 packet {p} holds {scan.pictures - p} '
+                                 f'pictures, not one')
+            emitter += [p] * len(pictures)
+            order += pictures
+    finally:
+        scan.close()
+    display = np.empty(n, np.int64)  # the output frame of each packet's picture
+    display[np.asarray(order, np.int64)] = np.arange(n)
+    idx.frame_packets = np.asarray(emitter, np.int64)
+    if idx.pts is not None and not np.array_equal(np.argsort(idx.pts, kind='stable'), order):
+        what = 'composition times (ctts)' if idx.container == 'mp4' else 'block timestamps'
+        raise UnsupportedVideo(f'{idx.path}: {what} whose order disagrees with the H.264 '
+                               f"stream's picture order counts")
+    # The first frame a decoder that starts at packet k outputs; frames
+    # decoded before k all precede it for an entry point.
+    first = np.minimum.accumulate(display[::-1])[::-1]
+    before = np.maximum.accumulate(np.concatenate([[-1], display[:-1]]))
     idx.entries = [(0, 0, False)]
     for k in np.flatnonzero(idx.keyframes[1:]) + 1:
-        e = h264.entry_point(idx.packet(int(k), f), size)
+        k = int(k)
+        e = h264.entry_point(idx.packet(k, f), size)
         if e.idr:
-            idx.entries.append((int(k), int(k), False))
-        elif e.recovery_frames >= 0 and e.exact:
-            idx.entries.append((int(k), int(k) + e.recovery_frames, True))
+            idx.entries.append((k, int(first[k]), False))
+        elif e.recovery_frames >= 0 and e.exact and before[k] < first[k]:
+            exact = k + e.recovery_frames
+            idx.entries.append((k, int(display[exact]) if exact < n else n, True))
+    idx.first_frames = {start: int(first[start]) for start, _, _ in idx.entries}
 
 
 def read_frame(path: str, i: int) -> np.ndarray:
@@ -235,22 +282,18 @@ def read_frame(path: str, i: int) -> np.ndarray:
 
 
 def iter_frames(path: str):
-    """Every frame of a video in order, RGB uint8 [H, W, 3], through one open
-    file (and for mp4v and H.264 one decoder of its own: each frame is
-    decoded once)."""
+    """Every frame of a video in output order, RGB uint8 [H, W, 3], through
+    one open file (and for mp4v and H.264 one decoder of its own: each frame
+    is decoded once; H.264's last frames come from the flush at the end)."""
     idx = index(path)
     with open(path, 'rb') as f:
         if idx.kind in ('mp4v', 'h264'):
-            outputs = np.zeros(idx.n_frames, bool)
-            outputs[idx.frame_packets] = True
-            decoder = idx.decoder(0)
+            cursor = _Cursor(idx, 0)
             try:
-                for i in range(idx.n_frames):
-                    rgb = decoder.decode(idx.packet(i, f))
-                    if outputs[i]:
-                        yield rgb
+                while not cursor.done:
+                    yield from cursor.step(f)
             finally:
-                decoder.close()
+                cursor.decoder.close()
             return
         for i in range(idx.n_frames):
             yield idx.frame(i, f)
@@ -267,31 +310,63 @@ _STREAMS: Dict[str, '_Stream'] = {}
 
 
 class _Cursor:
-    """A decoder, the packet it would decode next and the first packet it
-    decodes exactly."""
+    """A decoder started at an entry point: the packet it decodes next, the
+    frame it outputs next and the first frame it decodes exactly."""
 
-    def __init__(self, idx: VideoIndex, start: int, exact_from: int):
+    def __init__(self, idx: VideoIndex, start: int, exact_from: int = 0):
+        self.idx = idx
         self.decoder = idx.decoder(start)
-        self.next = start
+        self.start = self.next = start
+        self.frame = idx.first_frames[start]
         self.exact_from = exact_from
+        self.done = False  # past the flush at the end
+        self.flushed = start  # H.264: the entry point before which it last flushed
+        if idx.kind == 'mp4v':
+            self.coded = np.zeros(idx.n_frames, bool)
+            self.coded[idx.frame_packets] = True
+        else:  # H.264: the pictures before an entry point all precede it in output order
+            self.entry_starts = {s for s, _, _ in idx.entries}
+
+    def step(self, f: BinaryIO) -> list:
+        """Decodes the next packet, or flushes the decoder before an entry
+        point's packet (H.264) and past the last: the frames it outputs. The
+        frames before an entry point so come out without decoding its
+        packet, which a cursor started there may decode."""
+        idx = self.idx
+        p = self.next
+        if p >= idx.n_frames:
+            self.done = True
+            out = self.decoder.flush() if idx.kind == 'h264' else []
+        elif idx.kind == 'h264' and p in self.entry_starts and self.flushed != p:
+            self.flushed = p
+            out = self.decoder.flush()
+        else:
+            self.next += 1
+            packet = idx.packet(p, f)
+            if idx.kind == 'mp4v':
+                rgb = self.decoder.decode(packet)
+                out = [rgb] if self.coded[p] else []
+            else:
+                out = self.decoder.decode(packet)
+        self.frame += len(out)
+        return out
 
 
 class _Stream:
     """The decoders over one mp4v or H.264 file and the last _CACHED_FRAMES
-    frames they decoded. Readers of frame i (packet p) take the lock: a
-    frame at hand is copied out; else the cursor that stands after the
-    entry point of p, and not past p, decodes on to it; else a new cursor
-    starts at that entry point. Up to _CURSORS cursors are kept, so that the
-    I/O threads of one batch may ask across a GOP boundary in any order and
-    each frame read in order is decoded once."""
+    frames they decoded. Readers of frame i take the lock: a frame at hand
+    is copied out; else the cursor that stands after the entry point of i
+    and has not output i decodes on to it; else a new cursor starts at that
+    entry point. Every frame a packet outputs goes into the cache. Up to
+    _CURSORS cursors are kept, so that the I/O threads of one batch may ask
+    across a GOP boundary in any order and each frame read in order is
+    decoded once."""
 
     def __init__(self, idx: VideoIndex):
         self.idx = idx
         self.lock = threading.Lock()
         self.cursors: List[_Cursor] = []  # the most recently used last
         self.frames: 'collections.OrderedDict[int, np.ndarray]' = collections.OrderedDict()
-        self.frame_of = np.full(idx.n_frames, -1, np.int64)  # frame index by packet
-        self.frame_of[idx.frame_packets] = np.arange(idx.n_decoded)
 
     def read(self, i: int) -> np.ndarray:
         idx = self.idx
@@ -301,11 +376,11 @@ class _Stream:
             hit = self.frames.get(i)
             if hit is not None:
                 return hit.copy()
-            p = int(idx.frame_packets[i])
-            start, exact_from = idx.entry_for(p)
-            usable = [c for c in self.cursors if start <= c.next <= p and c.exact_from <= p]
+            start, exact_from = idx.entry_for(i)
+            usable = [c for c in self.cursors
+                      if start <= c.next and c.frame <= i and c.exact_from <= i and not c.done]
             if usable:
-                cursor = max(usable, key=lambda c: c.next)
+                cursor = max(usable, key=lambda c: c.frame)
                 self.cursors.remove(cursor)
             else:
                 cursor = _Cursor(idx, start, exact_from)
@@ -314,14 +389,17 @@ class _Stream:
             self.cursors.append(cursor)
             rgb = None
             with open(idx.path, 'rb') as f:
-                while cursor.next <= p:
-                    rgb = cursor.decoder.decode(idx.packet(cursor.next, f))
-                    k = int(self.frame_of[cursor.next])
-                    if k >= 0 and cursor.next >= cursor.exact_from:
-                        self.frames[k] = rgb
-                        if len(self.frames) > _CACHED_FRAMES:
-                            self.frames.popitem(last=False)
-                    cursor.next += 1
+                while rgb is None:
+                    if cursor.done:
+                        raise ValueError(f'{idx.path}: the decoder ended before frame {i}')
+                    first = cursor.frame
+                    for k, frame in enumerate(cursor.step(f), first):
+                        if k >= cursor.exact_from:
+                            self.frames[k] = frame
+                            if len(self.frames) > _CACHED_FRAMES:
+                                self.frames.popitem(last=False)
+                        if k == i:
+                            rgb = frame
             return rgb.copy()
 
 
@@ -695,15 +773,16 @@ def _index_matroska(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
         raise ValueError(f'{path}: no video track')
     if track['default_duration']:
         fps = 1e9 / track['default_duration']
-    elif len(blocks) > 1:
-        fps = 1e9 / (float(np.median(np.diff([b[2] for b in blocks]))) * scale)
+    elif len(blocks) > 1:  # timestamps in presentation order: sorted first
+        fps = 1e9 / (float(np.median(np.diff(sorted(b[2] for b in blocks)))) * scale)
     else:
         fps = 0.0
     return VideoIndex(path=path, container='matroska', codec=track['codec'],
                       width=track['width'], height=track['height'], fps=fps,
                       offsets=np.asarray([b[0] for b in blocks], np.int64),
                       sizes=np.asarray([b[1] for b in blocks], np.int64),
-                      keyframes=np.asarray([b[3] for b in blocks], bool), config=track['private'])
+                      keyframes=np.asarray([b[3] for b in blocks], bool), config=track['private'],
+                      pts=np.asarray([b[2] for b in blocks], np.int64))
 
 
 def _matroska_video_track(f, start: int, end: int):

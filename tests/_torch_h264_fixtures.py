@@ -26,9 +26,18 @@ writer refuses H.264, and the card's machine has neither library:
   flag, and for H.264 of x264's reconstruction (Y, U, V: cv2 gives no
   chroma plane). For a stream whose VUI names the BT.709 matrix, cv2's raw
   output is not the luma plane (it converts it): `luma_from` is then
-  'x264' and the luma hashes are the reconstruction's.
+  'x264' and the luma hashes are the reconstruction's;
+- `tests/torch_fixtures/h264_b/h264b_*`: B-frame clips (`write_b_fixtures`:
+  x264's medium B-frame defaults at three sizes, one option each, three
+  streams edited after x264 wrote them), the MP4s with the ctts and elst
+  FFmpeg's mov muxer writes, the Matroska blocks with presentation
+  timestamps, and a manifest of cv2's frames in output order, its seek for
+  every N (JAX's `imread`, read twice), x264's pts/dts and its
+  reconstruction, which equals FFmpeg's only for the pictures x264
+  deblocks (not the non-reference B ones).
 
-    python tests/_torch_h264_fixtures.py
+    python tests/_torch_h264_fixtures.py      # all
+    python tests/_torch_h264_fixtures.py b    # the B-frame clips only
 """
 
 from __future__ import annotations
@@ -107,7 +116,7 @@ X264_CSP_HIGH_DEPTH = 0x2000
 # Offsets in x264_param_t (i_width, i_height, i_csp, i_bitdepth) and
 # x264_picture_t (x264.h of build 164).
 PARAM_WIDTH = 28
-PIC_PTS, PIC_KEYFRAME, PIC_IMG = 16, 12, 40
+PIC_PTS, PIC_KEYFRAME, PIC_IMG = 16, 12, 40  # i_dts follows i_pts
 
 
 def _input_planes(frame: np.ndarray, csp: str, depth: int):
@@ -127,10 +136,12 @@ def _input_planes(frame: np.ndarray, csp: str, depth: int):
     return [np.ascontiguousarray(p) for p in planes]
 
 
-def x264_encode(frames, options: dict, fps: float, csp: str = 'i420', depth: int = 8):
+def x264_encode(frames, options: dict, fps: float, csp: str = 'i420', depth: int = 8,
+                times: Optional[list] = None):
     """Annex B packets (one access unit per frame, SPS and PPS before each
-    IDR), their key flags and x264's reconstruction (y, u, v) of each (4:2:0
-    at 8 bits; None otherwise)."""
+    IDR, in decoding order), their key flags and x264's reconstruction (y,
+    u, v) of each (4:2:0 at 8 bits; None otherwise). `times`, if given,
+    receives each packet's (pts, dts) in frames."""
     lib = ctypes.CDLL('libx264.so.164')
     vp = ctypes.c_void_p
     lib.x264_param_default_preset.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
@@ -168,6 +179,9 @@ def x264_encode(frames, options: dict, fps: float, csp: str = 'i420', depth: int
         packets.append(b''.join(ctypes.string_at(nals[i].p_payload, nals[i].i_payload)
                                 for i in range(n_nal.value)))
         keys.append(bool(np.frombuffer(out.raw[PIC_KEYFRAME:PIC_KEYFRAME + 4], np.int32)[0]))
+        if times is not None:
+            times.append(tuple(int(t) for t in np.frombuffer(out.raw[PIC_PTS:PIC_PTS + 16],
+                                                              np.int64)))
         if csp != 'i420' or depth != 8:
             recon.append(None)
             return
@@ -316,9 +330,14 @@ def parameter_sets(data: bytes) -> Optional[bytes]:
     return avcc(sps, pps) if sps and pps else None
 
 
-def write_container(path: Path, packets, keys, size, fps: float, codec: str) -> None:
+def write_container(path: Path, packets, keys, size, fps: float, codec: str,
+                    times=None) -> None:
     """Annex B H.264 packets (codec 'h264') or mp4v packets ('xvid') into
-    the container the extension names, through the port's muxers."""
+    the container the extension names, through the port's muxers. `times`
+    (x264's (pts, dts) per packet, in frames) marks a stream whose frames
+    are reordered: Matroska's block timestamps are then the presentation
+    times, and the MP4 gets the time base, `ctts` and `elst` that FFmpeg's
+    mov muxer writes for it."""
     from metrabs_tpu_torch.data import mp4, mpeg4, video
     w, h = size
     ext = path.suffix
@@ -331,6 +350,14 @@ def write_container(path: Path, packets, keys, size, fps: float, codec: str) -> 
                 data = packets
             elif ext == '.mkv':
                 mux = video._MatroskaMuxer(f, w, h, fps, b'V_MPEG4/ISO/AVC', config)
+                if times is not None:
+                    mux._timestamp = lambda i: int(round(times[i][0] * 1000 / fps))
+                data = lp
+            elif times is not None:
+                res, inc = mov_time_base(fps)
+                mux = mp4.Mp4Muxer(f, w, h, res, inc, config, codec='avc1')
+                plain = mux._moov
+                mux._moov = lambda: moov_with_timing(plain(), *mov_timing_boxes(times, inc, res))
                 data = lp
             else:
                 res, inc = mpeg4.time_base(fps)
@@ -346,6 +373,81 @@ def write_container(path: Path, packets, keys, size, fps: float, codec: str) -> 
         for packet, key in zip(data, keys):
             mux.write(packet, key)
         mux.close()
+
+
+def mov_time_base(fps: float):
+    """(timescale, delta) of FFmpeg's mov muxer for a video stream whose
+    time base is 1/fps: the denominator doubled up to 10000 or more."""
+    from metrabs_tpu_torch.data import mpeg4
+    res, inc = mpeg4.time_base(fps)
+    while res < 10000:
+        res, inc = 2 * res, 2 * inc
+    return res, inc
+
+
+def insert_box(moov: bytes, path, box: bytes, after: bytes) -> bytes:
+    """moov with `box` put into the box at `path` (a tuple of types below
+    moov), after its child `after`, each enclosing box's size grown."""
+    import struct
+
+    def walk(data: bytes, path) -> bytes:
+        out, pos = [], 8
+        out.append(data[:8])
+        while pos < len(data):
+            size, kind = struct.unpack('>I4s', data[pos:pos + 8])
+            child = data[pos:pos + size]
+            if path and kind == path[0]:
+                child = walk(child, path[1:])
+            out.append(child)
+            if not path and kind == after:
+                out.append(box)
+            pos += size
+        body = b''.join(out)
+        return struct.pack('>I', len(body)) + body[4:]
+
+    return walk(moov, path)
+
+
+def mov_timing_boxes(times, delta: int, timescale: int, version: Optional[int] = None):
+    """The boxes FFmpeg's mov muxer adds for a stream whose pts and dts
+    differ (`times`: (pts, dts) per packet, in frames of `delta` ticks):
+    `ctts` (pts - dts per sample, in runs; version 1 if an offset is
+    negative) and `edts` with an `elst` whose media_time skips the dts
+    before the first pts (an empty edit first if the presentation starts
+    late)."""
+    import struct
+    from metrabs_tpu_torch.data import mp4
+    offsets = [(p - d) * delta for p, d in times]
+    runs = []
+    for o in offsets:
+        if runs and runs[-1][1] == o:
+            runs[-1][0] += 1
+        else:
+            runs.append([1, o])
+    if version is None:
+        version = int(min(offsets) < 0)
+    ctts = mp4._full_box(b'ctts', version, 0, struct.pack('>I', len(runs)) + b''.join(
+        struct.pack('>Ii', c, o) for c, o in runs))
+    start_dts = times[0][1] * delta
+    start_ct = offsets[0]
+    delay = (start_dts + start_ct) * 1000 // timescale
+    duration = -(-len(times) * delta * 1000 // timescale)
+    entries = []
+    if delay > 0:
+        entries.append(struct.pack('>Iii', delay, -1, 0x10000))
+        media_time = start_ct
+    else:
+        media_time = -min(start_dts, 0)
+        duration += delay
+    entries.append(struct.pack('>IiI', duration, media_time, 0x10000))
+    elst = mp4._full_box(b'elst', 0, 0, struct.pack('>I', len(entries)) + b''.join(entries))
+    return ctts, mp4._box(b'edts', elst)
+
+
+def moov_with_timing(moov: bytes, ctts: bytes, edts: Optional[bytes]) -> bytes:
+    """The port's moov with a ctts after its stss and an edts after its tkhd."""
+    moov = insert_box(moov, (b'trak', b'mdia', b'minf', b'stbl'), ctts, b'stss')
+    return insert_box(moov, (b'trak',), edts, b'tkhd') if edts else moov
 
 
 def cv2_packets_and_keys(path: str):
@@ -415,5 +517,383 @@ def write_fixtures() -> None:
     (MP4V_DIR / 'manifest.json').write_text(json.dumps(mp4v_manifest, indent=1) + '\n')
 
 
+# --------------------------------------------------------------------------
+# B-frame clips (tests/torch_fixtures/h264_b): x264's `medium` B-frame
+# defaults (bframes 3, b-pyramid normal, weightb, direct spatial, b-adapt 1)
+# and one option each, and three streams edited from x264's.
+
+H264_B_DIR = ROOT / 'tests' / 'torch_fixtures' / 'h264_b'
+B_BASE = dict(BASE, bframes=3)
+B_SIZES = [
+    ('h264b_96x66', 10.0, (96, 66), CONTAINERS),
+    ('h264b_320x568', 30000 / 1001, (320, 568), CONTAINERS),
+    ('h264b_1080x1920', 25.0, None, ('.mp4',)),
+]
+B_TOOLS = {
+    'direct_temporal': {'direct': 'temporal'},
+    'direct_auto': {'direct': 'auto'},
+    'weightb0': {'weightb': 0},
+    'pyramid_none': {'b-pyramid': 'none'},
+    'pyramid_strict': {'b-pyramid': 'strict'},
+    'bframes1': {'bframes': 1},
+    'bframes16': {'bframes': 16, 'b-adapt': 0, 'keyint': 24, 'min-keyint': 24},
+    'badapt2': {'b-adapt': 2},
+    'cavlc': {'cabac': 0},
+    'partitions_all': {'partitions': 'all'},
+    'ref1': {'ref': 1},
+    'ref4': {'ref': 4, 'mixed-refs': 1},
+    'slices4': {'slices': 4},
+    'weightp2': {'weightp': 2},
+    'no_deblock': {'no-deblock': 1},
+    'open_gop': {'open-gop': 1},
+}
+# Streams edited after x264 wrote them (cv2 decodes them as the oracle):
+# (x264 options, edit).
+B_CRAFTED = {
+    'weighted_bipred1': ({'cabac': 0}, 'weighted_bipred1'),
+    'direct_8x8_inference0': ({'no-8x8dct': 1}, 'direct_8x8_inference0'),
+    'no_bitstream_restriction': ({}, 'no_bitstream_restriction'),
+}
+B_FRAMES = 14
+B_FRAMES_LONG = 20  # bframes16: room for a long run of B pictures
+B_CASES = ([(stem + ext, fps, size, B_BASE, None) for stem, fps, size, exts in B_SIZES
+            for ext in exts]
+           + [(f'h264b_tool_{t}.mp4', 25.0, TOOL_SIZE, dict(B_BASE, **o), None)
+              for t, o in B_TOOLS.items()]
+           + [(f'h264b_crafted_{c}.mp4', 25.0, TOOL_SIZE, dict(B_BASE, **o), edit)
+              for c, (o, edit) in B_CRAFTED.items()])
+# The weights edited into the B slices of `weighted_bipred1` (denominators 5):
+# list 0's first entry luma and chroma, list 1's first entry luma.
+CRAFTED_WEIGHTS = {'denom': (5, 5), 'l0': ((37, -3), ((29, 2), (35, -1))), 'l1': ((27, 4), None)}
+
+
+def moving_frames(n: int, size=None):
+    """`shifted_frames` with a patch of the first frame, flipped, moving the
+    other way: two motions for the B pictures to predict from both sides."""
+    frames = shifted_frames(n, size)
+    h, w = frames[0].shape[:2]
+    ph, pw = h // 3, w // 3
+    patch = np.ascontiguousarray(frames[0][:ph, :pw][::-1, ::-1])
+    for k, frame in enumerate(frames):
+        y, x = (h - ph) * (n - 1 - k) // max(n - 1, 1), (w - pw) * k // max(n - 1, 1)
+        frame[y:y + ph, x:x + pw] = patch
+    return frames
+
+
+class BitReader:
+    """Exp-Golomb and fixed-length reads over a string of RBSP bits."""
+
+    def __init__(self, bits: str):
+        self.bits, self.pos = bits, 0
+
+    def u(self, n: int) -> int:
+        v = int(self.bits[self.pos:self.pos + n] or '0', 2)
+        self.pos += n
+        return v
+
+    def ue(self) -> int:
+        zeros = 0
+        while self.bits[self.pos] == '0':
+            zeros += 1
+            self.pos += 1
+        self.pos += 1
+        return (1 << zeros) - 1 + self.u(zeros)
+
+    def se(self) -> int:
+        k = self.ue()
+        return (k + 1) // 2 if k & 1 else -(k // 2)
+
+
+def rbsp_bits(nal: bytes) -> str:
+    """The RBSP of a NAL unit (emulation prevention removed, stop bit and
+    trailing zeros dropped) as a string of bits."""
+    rbsp, zeros = bytearray(), 0
+    for b in nal[1:]:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        rbsp.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return ''.join(f'{b:08b}' for b in rbsp).rstrip('0')[:-1]
+
+
+def nal_from_bits(header: int, bits: str) -> bytes:
+    """A NAL unit of an RBSP's bits: stop bit, alignment, emulation prevention."""
+    bits += '1'
+    bits += '0' * (-len(bits) % 8)
+    raw = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    out, zeros = bytearray([header]), 0
+    for b in raw:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def ue_bits(v: int) -> str:
+    b = bin(v + 1)[2:]
+    return '0' * (len(b) - 1) + b
+
+
+def se_bits(v: int) -> str:
+    return ue_bits(2 * v - 1 if v > 0 else -2 * v)
+
+
+def sps_fields(nal: bytes) -> dict:
+    """What an SPS says, with the bit positions of the fields an edit
+    changes (`at_*`)."""
+    r = BitReader(rbsp_bits(nal))
+    f = dict(profile=r.u(8))
+    r.u(8)
+    f['level'] = r.u(8)
+    r.ue()
+    if f['profile'] in (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135):
+        if r.ue() == 3:
+            r.u(1)
+        r.ue()
+        r.ue()
+        r.u(1)
+        f['scaling'] = r.u(1)
+        if f['scaling']:
+            raise ValueError('SPS scaling matrices are not parsed here')
+    f['log2_frame_num'] = r.ue() + 4
+    f['poc_type'] = r.ue()
+    if f['poc_type'] == 0:
+        f['log2_poc'] = r.ue() + 4
+    elif f['poc_type'] == 1:
+        f['delta_always_zero'] = r.u(1)
+        r.se()
+        r.se()
+        for _ in range(r.ue()):
+            r.se()
+    f['max_refs'] = r.ue()
+    r.u(1)
+    r.ue()
+    r.ue()
+    if not r.u(1):
+        r.u(1)
+    f['at_direct_8x8'] = r.pos
+    f['direct_8x8_inference'] = r.u(1)
+    if r.u(1):
+        for _ in range(4):
+            r.ue()
+    f['bitstream_restriction'] = 0
+    if r.u(1):  # VUI
+        if r.u(1) and r.u(8) == 255:
+            r.u(32)
+        if r.u(1):
+            r.u(1)
+        if r.u(1):
+            r.u(4)
+            if r.u(1):
+                r.u(24)
+        if r.u(1):
+            r.ue()
+            r.ue()
+        if r.u(1):
+            r.u(65)
+        hrd = [r.u(1)]
+
+        def skip_hrd():
+            count = r.ue() + 1
+            r.u(8)
+            for _ in range(count):
+                r.ue()
+                r.ue()
+                r.u(1)
+            r.u(20)
+        if hrd[0]:
+            skip_hrd()
+        hrd.append(r.u(1))
+        if hrd[1]:
+            skip_hrd()
+        if any(hrd):
+            r.u(1)
+        r.u(1)
+        f['at_bitstream_restriction'] = r.pos
+        f['bitstream_restriction'] = r.u(1)
+        if f['bitstream_restriction']:
+            r.u(1)
+            for _ in range(4):
+                r.ue()
+            f['max_num_reorder_frames'] = r.ue()
+    return f
+
+
+def pps_fields(nal: bytes) -> dict:
+    r = BitReader(rbsp_bits(nal))
+    f = dict(id=r.ue())
+    r.ue()
+    f['cabac'] = r.u(1)
+    f['bottom_field_pic_order'] = r.u(1)
+    r.ue()
+    f['num_ref_idx'] = (r.ue() + 1, r.ue() + 1)
+    f['weighted_pred'] = r.u(1)
+    f['at_weighted_bipred'] = r.pos
+    f['weighted_bipred_idc'] = r.u(2)
+    r.se()
+    r.se()
+    r.se()
+    f['deblocking_control'] = r.u(1)
+    f['constrained_intra'] = r.u(1)
+    r.u(1)
+    f['transform_8x8'] = r.u(1) if r.pos < len(r.bits) else 0
+    return f
+
+
+def slice_fields(nal: bytes, sps: dict, pps: dict) -> dict:
+    """A slice header up to its reference list modifications (CAVLC or
+    CABAC alike): slice type, POC fields, direct mode, active references
+    and the bit position after the modifications (`at_weights`, where a
+    pred_weight_table goes)."""
+    r = BitReader(rbsp_bits(nal))
+    f = dict(nal_ref_idc=nal[0] >> 5 & 3, idr=nal[0] & 31 == 5)
+    f['first_mb'] = r.ue()
+    f['type'] = r.ue() % 5
+    r.ue()
+    f['frame_num'] = r.u(sps['log2_frame_num'])
+    if f['idr']:
+        r.ue()
+    if sps['poc_type'] == 0:
+        f['poc_lsb'] = r.u(sps['log2_poc'])
+        if pps['bottom_field_pic_order']:
+            r.se()
+    elif sps['poc_type'] == 1 and not sps['delta_always_zero']:
+        r.se()
+        if pps['bottom_field_pic_order']:
+            r.se()
+    if f['type'] == 1:
+        f['direct_spatial'] = r.u(1)
+    lists = {0: 1, 1: 2}.get(f['type'], 0)
+    f['num_ref_idx'] = list(pps['num_ref_idx'][:lists])
+    if lists and r.u(1):
+        f['num_ref_idx'] = [r.ue() + 1 for _ in range(lists)]
+    for _ in range(lists):
+        if r.u(1):
+            while r.ue() != 3:
+                r.ue()
+    f['at_weights'] = r.pos
+    return f
+
+
+def stream_nals(packets):
+    """Per Annex B packet its NAL units, with the SPS and PPS in force."""
+    sps = pps = None
+    for packet in packets:
+        nals = list(split_annexb(packet))
+        for nal in nals:
+            if nal[0] & 31 == 7:
+                sps = sps_fields(nal)
+            elif nal[0] & 31 == 8:
+                pps = pps_fields(nal)
+        yield nals, sps, pps
+
+
+def _weight_table_bits(num_ref_idx) -> str:
+    w = CRAFTED_WEIGHTS
+    bits = ue_bits(w['denom'][0]) + ue_bits(w['denom'][1])
+    for lst, n in zip(('l0', 'l1'), num_ref_idx):
+        luma, chroma = w[lst]
+        for i in range(n):
+            if i == 0:
+                bits += '1' + se_bits(luma[0]) + se_bits(luma[1])
+                bits += ('1' + ''.join(se_bits(v) for c in chroma for v in c)) if chroma else '0'
+            else:
+                bits += '00'
+    return bits
+
+
+def craft(packets, edit: str):
+    """x264's Annex B packets edited: `weighted_bipred1` sets the PPS's
+    weighted_bipred_idc to 1 and gives every B slice a pred_weight_table
+    (CAVLC, so the slice data after it needs no realignment);
+    `direct_8x8_inference0` clears the SPS's direct_8x8_inference_flag (a
+    stream without the 8x8 transform, whose B_8x8 parse the flag would
+    change); `no_bitstream_restriction` drops the VUI's bitstream_restriction."""
+    out = []
+    for nals, sps, pps in stream_nals(packets):
+        edited = []
+        for nal in nals:
+            kind = nal[0] & 31
+            bits = None
+            if kind == 7 and edit == 'direct_8x8_inference0':
+                bits = rbsp_bits(nal)
+                at = sps_fields(nal)['at_direct_8x8']
+                bits = bits[:at] + '0' + bits[at + 1:]
+            elif kind == 7 and edit == 'no_bitstream_restriction':
+                bits = rbsp_bits(nal)
+                bits = bits[:sps_fields(nal)['at_bitstream_restriction']] + '0'
+            elif kind == 8 and edit == 'weighted_bipred1':
+                bits = rbsp_bits(nal)
+                at = pps_fields(nal)['at_weighted_bipred']
+                bits = bits[:at] + '01' + bits[at + 2:]
+            elif kind in (1, 5) and edit == 'weighted_bipred1':
+                f = slice_fields(nal, sps, pps)
+                if f['type'] == 1:
+                    assert not pps['cabac']
+                    bits = rbsp_bits(nal)
+                    at = f['at_weights']
+                    bits = bits[:at] + _weight_table_bits(f['num_ref_idx']) + bits[at:]
+            edited.append(nal if bits is None else nal_from_bits(nal[0], bits))
+        out.append(b''.join(b'\x00\x00\x00\x01' + nal for nal in edited))
+    return out
+
+
+def cv2_seeks(path: Path, rgb_sha256) -> list:
+    """What JAX's `imread('<path>#frame=N')` (cv2.VideoCapture,
+    CAP_PROP_POS_FRAMES, read) returns for every N up to two past the last
+    frame: the index of the sequential frame it equals, -1 where it raises.
+    Read twice: an answer that does not repeat raises here."""
+    from metrabs_tpu.data import improc as jax_improc
+    out = []
+    for n in range(len(rgb_sha256) + 2):
+        answers = []
+        for _ in range(2):
+            try:
+                digest = sha256(jax_improc.imread(f'{path}#frame={n}'))
+                answers.append(rgb_sha256.index(digest) if digest in rgb_sha256 else -2)
+            except FileNotFoundError:
+                answers.append(-1)
+        if answers[0] != answers[1] or answers[0] == -2:
+            raise RuntimeError(f'{path}: cv2 seeks to frame {n} give {answers}')
+        out.append(answers[0])
+    return out
+
+
+def write_b_fixtures() -> None:
+    H264_B_DIR.mkdir(parents=True, exist_ok=True)
+    manifest, encoded = {}, {}
+    for name, fps, size, options, edit in B_CASES:
+        stem = name.rsplit('.', 1)[0]
+        frames_n = B_FRAMES_LONG if 'bframes16' in name else B_FRAMES
+        key = (stem, fps, size)
+        if key not in encoded:
+            frames = moving_frames(frames_n, size)
+            times = []
+            packets, keys, recon = x264_encode(frames, options, fps, times=times)
+            if edit:
+                packets, recon = craft(packets, edit), None
+            encoded[key] = packets, keys, recon, times, frames[0].shape[1::-1]
+        packets, keys, recon, times, wh = encoded[key]
+        path = H264_B_DIR / name
+        write_container(path, packets, keys, wh, fps, 'h264', times=times)
+        entry = cv2_entry(path, dict(frames=frames_n, fps=fps, width=wh[0], height=wh[1],
+                                     x264=options, edit=edit, key_frames=keys,
+                                     times=times), None)
+        if recon is not None:  # in output order; FFmpeg's oracle where they agree
+            by_pts = [planes for _, planes in sorted(zip([t[0] for t in times], recon),
+                                                      key=lambda x: x[0])]
+            entry['recon_sha256'] = [[sha256(p) for p in planes] for planes in by_pts]
+            entry['recon_equals_ffmpeg'] = [sha256(planes[0]) == luma for planes, luma in
+                                            zip(by_pts, entry['luma_sha256'])]
+        entry['seek'] = cv2_seeks(path, entry['rgb_sha256'])
+        manifest[name] = entry
+    (H264_B_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
+
+
 if __name__ == '__main__':
-    write_fixtures()
+    if sys.argv[1:] != ['b']:  # `b`: the B-frame clips only
+        write_fixtures()
+    write_b_fixtures()

@@ -18,10 +18,10 @@ package's on the same weights or the same stub estimator:
   features are binned so that FFmpeg's decode (JAX's cv2.VideoCapture) and
   libjpeg's (the port's) of the flat frames give the same poses; with mp4v
   .mkv videos, as JAX's test writes them, the very same images and poses;
-- on an H.264 input (the libx264 fixtures), `demo_video` hands the same
-  estimator JAX's very frames (JAX reads them through cv2) and prints JAX's
-  line, and `transform_video` maps JAX's frames and writes an output no
-  further from them than JAX's;
+- on an H.264 input (the libx264 fixtures, with and without B slices),
+  `demo_video` hands the same estimator JAX's very frames (JAX reads them
+  through cv2) and prints JAX's line, and `transform_video` maps JAX's
+  frames and writes an output no further from them than JAX's;
 - `--viz-dir` writes JAX's file names.
 """
 
@@ -207,8 +207,9 @@ def test_demo_video_mp4v_in_and_out(tmp_path, tiny_package, monkeypatch, capsys,
 
 
 def h264_fixture(name: str) -> str:
-    from _torch_h264_fixtures import H264_DIR
-    return str(H264_DIR / name)
+    """A libx264 clip: I and P slices (h264_*) or B slices too (h264b_*)."""
+    from _torch_h264_fixtures import H264_B_DIR, H264_DIR
+    return str((H264_B_DIR if name.startswith('h264b_') else H264_DIR) / name)
 
 
 class EdgeStub(layouts.StubEstimator):
@@ -226,13 +227,24 @@ def test_demo_video_on_h264_matches_jax(tmp_path, monkeypatch, capsys, name):
     through cv2) hand the same estimator the very same frames in the same
     batches, so it gives the same poses, and both print the same line; each
     frame is decoded once."""
+    demo_video_matches_jax(tmp_path, monkeypatch, capsys, h264_fixture(name))
+
+
+@pytest.mark.parametrize('name', ['h264b_320x568.mp4', 'h264b_96x66.mkv', 'h264b_96x66.avi'])
+def test_demo_video_on_h264_b_frames_matches_jax(tmp_path, monkeypatch, capsys, name):
+    """demo_video on a libx264 clip with B slices (the MP4 with FFmpeg's
+    ctts and elst): JAX's frames in output order, JAX's line, each picture
+    decoded once."""
+    demo_video_matches_jax(tmp_path, monkeypatch, capsys, h264_fixture(name))
+
+
+def demo_video_matches_jax(tmp_path, monkeypatch, capsys, src):
     import metrabs_tpu.apps.demo_image as jax_demo_image
     from metrabs_tpu.apps import demo_video as jax_demo_video
     from metrabs_tpu_torch.data import h264
     port, jax = EdgeStub(), EdgeStub()
     monkeypatch.setattr(demo_image, 'build_default_estimator', lambda device='cuda': port)
     monkeypatch.setattr(jax_demo_image, 'build_default_estimator', lambda: jax)
-    src = h264_fixture(name)
     args = ['--video', src, '--num-aug', '1', '--frame-batch', '4', '--max-boxes', '2']
     before = h264.frames_decoded()
     demo_video.main(args + ['--device', 'cpu', '--out', str(tmp_path / 'port.mp4')])
@@ -258,8 +270,17 @@ def test_transform_video_on_h264_matches_jax(tmp_path):
     the frame function sees the same frames, and the port's mp4v output is
     no further from the inverted frames than JAX's (cv2's encoder) by
     TRANSFORM_MARGIN."""
+    transform_video_matches_jax(tmp_path, h264_fixture('h264_96x66.mp4'))
+
+
+def test_transform_video_on_h264_b_frames_matches_jax(tmp_path):
+    """transform_video on a libx264 .mp4 with B slices, ctts and elst: the
+    frames in JAX's order, an output as close to them as JAX's."""
+    transform_video_matches_jax(tmp_path, h264_fixture('h264b_96x66.mp4'))
+
+
+def transform_video_matches_jax(tmp_path, src):
     from metrabs_tpu.data import improc as jax_improc
-    src = h264_fixture('h264_96x66.mp4')
     seen, errors = {}, {}
     inverted = [255 - f for f in video.iter_frames(src)]
     for name, module in (('port', improc), ('jax', jax_improc)):

@@ -18,10 +18,12 @@ helpers, on the clips libx264 wrote into `tests/torch_fixtures/h264/`
   from the recovery points of an intra-refresh stream;
 - frames read in order, through `iter_frames` or `predict_common`'s I/O
   pool, are each decoded once;
-- B slices, interlaced coding, 4:0:0, 4:2:2, 4:4:4, bit depths above 8 and
-  transform bypass (written by x264), and FMO, redundant slices, ASO, SP and
-  SI slices, data partitioning and SVC/MVC NAL units (written here by
-  editing x264's streams) raise UnsupportedVideo naming the tool.
+- interlaced coding, 4:0:0, 4:2:2, 4:4:4, bit depths above 8 and transform
+  bypass (written by x264), FMO, redundant slices, ASO, SP and SI slices,
+  data partitioning and SVC/MVC NAL units (written here by editing x264's
+  streams), and container timing that disagrees with a B-frame stream's
+  picture order raise UnsupportedVideo naming the tool (B slices themselves:
+  tests/test_torch_h264_b.py).
 """
 
 import hashlib
@@ -32,8 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
-from _torch_h264_fixtures import (CASES, H264_DIR, TOOLS, VUIS, annexb_to_lengths,
-                                  parameter_sets, split_annexb, x264_encode)
+from _torch_h264_fixtures import (CASES, H264_DIR, TOOLS, VUIS, split_annexb, write_container,
+                                  x264_encode)
 from _torch_mp4v_fixtures import shifted_frames
 from _torch_train import one_torch_thread  # noqa: F401 (fixture)
 from metrabs_tpu.data import improc as jax_improc
@@ -57,11 +59,13 @@ def sha256(data) -> str:
 
 
 def decode_all(path: str):
-    """(RGB, (Y, U, V)) of every frame through one decoder."""
+    """(RGB, (Y, U, V)) of every frame through one decoder, in output order."""
     idx = video.index(path)
     decoder = idx.decoder(0)
     with open(path, 'rb') as f:
-        return [decoder.decode(idx.packet(i, f), planes=True) for i in range(idx.n_frames)]
+        frames = [out for i in range(idx.n_frames)
+                  for out in decoder.decode(idx.packet(i, f), planes=True)]
+    return frames + decoder.flush(planes=True)
 
 
 def test_manifest_lists_every_fixture():
@@ -311,7 +315,6 @@ SMALL = (48, 32)
 
 
 @pytest.mark.parametrize('what, options, csp, depth', [
-    ('B slices', {'bframes': 2, 'b-adapt': 0}, 'i420', 8),
     ('interlaced coding', {'interlaced': 1}, 'i420', 8),
     ('4:0:0', {}, 'i400', 8),
     ('4:2:2', {}, 'i422', 8),
@@ -422,34 +425,19 @@ def test_crafted_tools_raise_naming_them(tmp_path, kind):
 
 @pytest.mark.parametrize('ext', ['.mp4', '.mkv'])
 def test_b_frame_timing_in_mp4_raises(tmp_path, ext):
-    """An MP4 H.264 track whose ctts reorders frames raises at indexing; in
-    Matroska the B slices raise at decoding."""
-    packets, keys, _ = x264_encode(shifted_frames(4, SMALL), {'bframes': 2, 'b-adapt': 0}, 25.0)
-    src = write_annexb_avi(tmp_path / 'b.avi', packets, SMALL, keys)
-    with pytest.raises(video.UnsupportedVideo, match='B slices'):
-        list(video.iter_frames(src))
-    if ext == '.mkv':
-        return
-    from metrabs_tpu_torch.data import mp4
-    data = (tmp_path / 'clip.mp4').open('wb')
-    mux = mp4.Mp4Muxer(data, *SMALL, 25, 1, parameter_sets(packets[0]), codec='avc1')
-    for packet, key in zip(packets, keys):
-        mux.write(annexb_to_lengths(packet), key)
-    moov = mux._moov()
-    stbl = moov.index(b'stbl') - 4
-    ctts = mp4._full_box(b'ctts', 0, 0, np.array([2, 1, 2, 1, 0], '>u4').tobytes())
-    size = int.from_bytes(moov[stbl:stbl + 4], 'big')
-    # The ctts into stbl, and every enclosing box's size grown by its length.
-    moov = bytearray(moov[:stbl + size] + ctts + moov[stbl + size:])
-    moov[stbl:stbl + 4] = (size + len(ctts)).to_bytes(4, 'big')
-    for box in (b'moov', b'trak', b'mdia', b'minf'):
-        at = moov.index(box) - 4
-        moov[at:at + 4] = (int.from_bytes(moov[at:at + 4], 'big') + len(ctts)).to_bytes(4, 'big')
-    end = data.tell()
-    data.seek(mux.mdat_at + 8)
-    data.write(int(end - mux.mdat_at).to_bytes(8, 'big'))
-    data.seek(end)
-    data.write(bytes(moov))
-    data.close()
-    with pytest.raises(video.UnsupportedVideo, match='ctts'):
-        video.index(str(tmp_path / 'clip.mp4'))
+    """A B-frame stream whose container timing disagrees with its picture
+    order counts raises at indexing: an MP4 ctts, or Matroska block
+    timestamps, that put its frames in decoding order (FFmpeg outputs them
+    in picture order, and cv2 would number them by the other)."""
+    times = []
+    packets, keys, _ = x264_encode(shifted_frames(4, SMALL), {'bframes': 2, 'b-adapt': 0}, 25.0,
+                                   times=times)
+    assert [pts for pts, _ in times] != sorted(pts for pts, _ in times)  # B slices reorder
+    in_decoding_order = [(k, dts) for k, (_, dts) in enumerate(times)]
+    path = tmp_path / f'clip{ext}'
+    write_container(path, packets, keys, SMALL, 25.0, 'h264', times=in_decoding_order)
+    with pytest.raises(video.UnsupportedVideo, match='ctts' if ext == '.mp4' else 'timestamps'):
+        video.index(str(path))
+    write_container(path, packets, keys, SMALL, 25.0, 'h264', times=times)
+    video._INDEX_CACHE.clear()
+    assert len(list(video.iter_frames(str(path)))) == 4
