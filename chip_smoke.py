@@ -214,7 +214,16 @@ line:
     RGB frame in output order held to cv2's SHA-256, Y/U/V to x264's
     reconstruction where its luma is FFmpeg's, imread('#frame=N') for every
     N to cv2's seek table, the metadata to cv2's, the 1080x1920 B-stream
-    decode per packet timed on one thread. Under runs/ (deleted after): the mp4v encoder on
+    decode per packet timed on one thread; the HEVC decoder
+    (`csrc/hevc_decode.cpp`) on the libx265 fixtures of
+    tests/torch_fixtures/hevc (two sizes in MP4 hvc1, Matroska and AVI, an
+    hev1 MP4, 1080x1920 in MP4, a clip per coding tool), every packet (as
+    cv2 returns it), key flag, Y/U/V plane (libde265's), luma and RGB frame
+    held to the manifest's SHA-256, imread('#frame=N') for every N to cv2's
+    seek table, the metadata to cv2's and every decoded-picture hash SEI
+    checked (MD5 and checksum on every plane, x265's CRC on luma), the
+    1080x1920 decode timed per frame on one thread. Under runs/ (deleted
+    after): the mp4v encoder on
     MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
     thread), read back with its luma equal to the encoder's reconstruction;
     metrabs_eff2s_y4 minted on H36M-17 with a firing YOLOv4-416, a 24-frame
@@ -225,7 +234,10 @@ line:
     fixture's packets (each clip starts at an IDR picture); a 24-frame
     1080x1920 B-frame H.264 .mp4 (ctts, elst) and a third ASPset layout of
     B-frame .mkv views, whole closed GOPs of the 1080x1920 B-frame fixture
-    (H264_B_DEMO_GOPS, H264_B_ASPSET_GOPS). The demos' detector calls are
+    (H264_B_DEMO_GOPS, H264_B_ASPSET_GOPS); a 24-frame 1080x1920 HEVC .mp4
+    (hvc1) and a fourth ASPset layout of HEVC .mkv views, muxed from the
+    1080x1920 HEVC fixture's packets (each clip starts at an IRAP picture).
+    The demos' detector calls are
     made with `suppress_implausible_poses=False`, so that the random
     weights' poses survive and are drawn. `apps.demo_image.main` on the
     1080x1920 JPEG fixture, folded, with `--out` (.jpg) and `--out-3d`
@@ -241,7 +253,8 @@ line:
     wall, the mp4v and H.264 inputs' frames each decoded once; one batch again with each K1 launch
     against the plain warp, then profiled (busy share); on the B-frame .mp4
     once with every K1 launch against the plain warp, every input frame the
-    manifest's, each picture decoded once (path demo_video_h264_b);
+    manifest's, each picture decoded once (path demo_video_h264_b); on the
+    HEVC .mp4 likewise (path demo_video_hevc);
     `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
     (SMPL-24 package), its figures under JAX's names read back and timed;
     `apps.predict_aspset.main` on the mp4v .mkv clips and on the H.264
@@ -251,7 +264,8 @@ line:
     K1 launch against the plain warp and every K2 launch against the plain
     chain, both exact; on the B-frame .mkv views once with every launch so
     checked, every input frame the manifest's, each picture decoded once
-    by the 8 I/O threads (path predict_aspset_h264_b);
+    by the 8 I/O threads (path predict_aspset_h264_b); on the HEVC .mkv
+    views likewise (path predict_aspset_hevc);
 14. calibrate: camera calibration without OpenCV on the checkerboard
     fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
     1920x1080 JPEG views through a known lens, a partial board and an empty
@@ -2373,19 +2387,21 @@ class DriverRuns:
     """Runs a benchmark driver's `main` with its package loaded through
     `loader(method, **overrides)`, which keeps the estimator, times the
     loading and records the arguments of each call of `method`, and with
-    `jpeg.decode`, `mpeg4.Decoder.decode` and `h264.Decoder.decode` and `.flush` (what
-    `improc.imread` and the video reader call) and `jpeg.encode` and
-    `mpeg4.Encoder.encode` (what `improc.imwrite` and the video writer call)
-    timed; K1's and K2's counts are set to 0 just before the driver runs and
-    read just after, and the mp4v and H.264 frames decoded in the run are
-    counted."""
+    `jpeg.decode`, `mpeg4.Decoder.decode`, and `h264.Decoder` and
+    `hevc.Decoder` `.decode` and `.flush` (what `improc.imread` and the video
+    reader call) and `jpeg.encode` and `mpeg4.Encoder.encode` (what
+    `improc.imwrite` and the video writer call) timed; K1's and K2's counts
+    are set to 0 just before the driver runs and read just after, and the
+    mp4v, H.264 and HEVC frames decoded in the run are counted."""
 
     def __init__(self):
         import metrabs_tpu_torch.io.packaging as packaging
-        from metrabs_tpu_torch.data import h264, jpeg, mpeg4
+        from metrabs_tpu_torch.data import h264, hevc, jpeg, mpeg4
 
         self.packaging, self.jpeg, self.mpeg4, self.h264 = packaging, jpeg, mpeg4, h264
+        self.hevc = hevc
         self.original_h264 = h264.Decoder.decode, h264.Decoder.flush
+        self.original_hevc = hevc.Decoder.decode, hevc.Decoder.flush
         self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
         self.original_encode = jpeg.encode
         self.original_mp4v = mpeg4.Decoder.decode, mpeg4.Encoder.encode
@@ -2441,6 +2457,7 @@ class DriverRuns:
         self.jpeg.decode, self.jpeg.encode = self.original_decode, self.original_encode
         self.mpeg4.Decoder.decode, self.mpeg4.Encoder.encode = self.original_mp4v
         self.h264.Decoder.decode, self.h264.Decoder.flush = self.original_h264
+        self.hevc.Decoder.decode, self.hevc.Decoder.flush = self.original_hevc
 
     def run(self, load, main, argv) -> dict:
         from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
@@ -2454,7 +2471,10 @@ class DriverRuns:
         self.mpeg4.Encoder.encode = self.timed_method(self.original_mp4v[1], self.encode_spans)
         self.h264.Decoder.decode = self.timed_method(self.original_h264[0], self.decode_spans)
         self.h264.Decoder.flush = self.timed_method(self.original_h264[1], self.decode_spans)
+        self.hevc.Decoder.decode = self.timed_method(self.original_hevc[0], self.decode_spans)
+        self.hevc.Decoder.flush = self.timed_method(self.original_hevc[1], self.decode_spans)
         decoded, decoded_h264 = self.mpeg4.frames_decoded(), self.h264.frames_decoded()
+        decoded_hevc = self.hevc.frames_decoded()
         torch.cuda.synchronize()
         warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
         try:
@@ -2471,6 +2491,7 @@ class DriverRuns:
                     encode_s=union_seconds(self.encode_spans), k1=k1, k2=k2, last=last,
                     printed=printed, mp4v_decodes=self.mpeg4.frames_decoded() - decoded,
                     h264_decodes=self.h264.frames_decoded() - decoded_h264,
+                    hevc_decodes=self.hevc.frames_decoded() - decoded_hevc,
                     est=self.loaded[0], calls=list(self.calls), call_s=list(self.call_s))
 
 
@@ -3305,6 +3326,14 @@ H264_B_FIXTURES = 'tests/torch_fixtures/h264_b'
 H264_B_SOURCE = 'h264b_1080x1920.mp4'
 H264_B_DEMO_GOPS = (0, 0)
 H264_B_ASPSET_GOPS = {'left': (0, 1, 1), 'mid': (1, 0, 1)}
+# HEVC: the libx265 fixtures, and the clip whose packets make the HEVC demo
+# inputs in the H.264 demo's orders (each starts at an IRAP picture: the IDR
+# at 0 or the CRA at 12).
+HEVC_FIXTURES = 'tests/torch_fixtures/hevc'
+HEVC_SOURCE = 'hevc_1080x1920.mp4'
+# The decoder and the two ways each stream format muxes its fixture's packets
+MUXED = {'h264': (H264_FIXTURES, H264_SOURCE, 'avc1', b'V_MPEG4/ISO/AVC'),
+         'hevc': (HEVC_FIXTURES, HEVC_SOURCE, 'hvc1', b'V_MPEGH/ISO/HEVC')}
 ENCODE_REPEATS = 20  # single-thread encodes of the 1080x1920 frame, median taken
 MP4V_FRAMES = 24  # shifted 1080x1920 frames through the mp4v encoder: demo_video's .mp4
 MP4V_SHIFT = (3, 4)  # (down, right) pixels per frame, as tests/_torch_mp4v_fixtures.py shifts
@@ -3606,20 +3635,92 @@ def check_h264_b_fixtures(root: Path) -> dict:
                 n_timed=len(times))
 
 
-def mux_h264(root: Path, path: Path, order) -> list:
-    """The 1080x1920 H.264 fixture's packets in `order` muxed by the port
-    into `path` (.mp4 or .mkv, 25 frames/s); returns the manifest's RGB
-    SHA-256 of each frame."""
+def check_hevc_fixtures(root: Path) -> dict:
+    """Every libx265 fixture (tests/torch_fixtures/hevc) through the port's
+    demuxer and HEVC decoder: each packet (as FFmpeg's hevc_mp4toannexb
+    hands it to cv2), key flag, Y/U/V plane (libde265's), luma plane and RGB
+    frame held to the SHA-256 in the manifest, imread('#frame=N') for every
+    N to cv2's seek table, size and frame count to cv2's, the rate within
+    1e-4, and every decoded-picture hash SEI checked: MD5 and checksum on
+    every plane, x265's CRC on luma (its chroma CRC covers the last CTU row
+    only); the 1080x1920 frames' decode (to RGB and planes) timed on one
+    thread."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import hevc, improc, video
+
+    def sha(data: bytes) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    manifest = json.loads((root / HEVC_FIXTURES / 'manifest.json').read_text())
+    n_frames, n_seeks, n_hashes, times = 0, 0, 0, []
+    for name, entry in sorted(manifest.items()):
+        path = str(root / HEVC_FIXTURES / name)
+        idx = video.index(path)
+        packets = [idx.packet(i) for i in range(idx.n_frames)]
+        decoder = idx.decoder(0)
+        out = []
+        for packet in packets:
+            t = time.perf_counter()
+            out += decoder.decode(packet, planes=True)
+            if idx.height == FRAME_3DPW_SIZE[0]:
+                times.append(time.perf_counter() - t)
+        out += decoder.flush(planes=True)
+        checked, failed = decoder.hashes
+        decoder.close()
+        n = len(out)
+        hash_type = entry['written']['hash_type']
+        want_hashes = ((0, 0, 0), (0, 0, 0)) if hash_type is None else (
+            (n, n, n), (0, n, n) if hash_type == 1 else (0, 0, 0))
+        planes = [[sha(p.tobytes()) for p in yuv] for _, yuv in out]
+        seeks = []
+        video._STREAMS.clear()
+        for k in range(len(entry['seek'])):
+            try:
+                seeks.append(entry['rgb_sha256'].index(
+                    sha(improc.imread(f'{path}#frame={k}').tobytes())))
+            except FileNotFoundError:
+                seeks.append(-1)
+            except ValueError:
+                seeks.append(-2)
+        cv = entry['cv2']
+        meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
+        wrong = [what for what, got, want in (
+            ('packets', [sha(hevc.annexb(p, idx.config)) for p in packets],
+             entry['packet_sha256']),
+            ('key frames', idx.keyframes.tolist(), entry['key_frames']),
+            ('planes', planes, entry['de265_sha256']),
+            ('luma', [p[0] for p in planes], entry['luma_sha256']),
+            ('RGB', [sha(rgb.tobytes()) for rgb, _ in out], entry['rgb_sha256']),
+            ('seeks', seeks, entry['seek']),
+            ('hash SEIs', (checked, failed), want_hashes),
+            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count']))) if got != want]
+        if wrong or not math.isclose(improc.video_fps(path), cv['fps'], rel_tol=1e-4):
+            fail('demos', f'{name}: {", ".join(wrong) or "rate"} differ from the manifest\'s '
+                          f'({idx.n_frames} frames, {meta}, {improc.video_fps(path)} frames/s, '
+                          f'hashes checked {checked} failed {failed})')
+        n_frames += n
+        n_seeks += len(seeks)
+        n_hashes += sum(checked)
+    return dict(files=len(manifest), frames=n_frames, seeks=n_seeks, hashes=n_hashes,
+                ms=statistics.median(times) * 1e3, all_ms=[t * 1e3 for t in times],
+                n_timed=len(times))
+
+
+def mux_packets(root: Path, path: Path, order, codec: str = 'h264') -> list:
+    """The 1080x1920 H.264 or HEVC fixture's packets (MUXED[codec]) in
+    `order` muxed by the port into `path` (.mp4 or .mkv, 25 frames/s);
+    returns the manifest's RGB SHA-256 of each frame."""
     from metrabs_tpu_torch.data import mp4, video
 
-    src = video.index(str(root / H264_FIXTURES / H264_SOURCE))
-    want = json.loads((root / H264_FIXTURES / 'manifest.json').read_text())[H264_SOURCE]
+    fixtures, source, entry, codec_id = MUXED[codec]
+    src = video.index(str(root / fixtures / source))
+    want = json.loads((root / fixtures / 'manifest.json').read_text())[source]
     with open(path, 'wb') as f:
         if path.suffix == '.mkv':
-            mux = video._MatroskaMuxer(f, src.width, src.height, 25.0, b'V_MPEG4/ISO/AVC',
-                                       src.config)
+            mux = video._MatroskaMuxer(f, src.width, src.height, 25.0, codec_id, src.config)
         else:
-            mux = mp4.Mp4Muxer(f, src.width, src.height, 25, 1, src.config, codec='avc1')
+            mux = mp4.Mp4Muxer(f, src.width, src.height, 25, 1, src.config, codec=entry)
         for i in order:
             mux.write(src.packet(i), bool(src.keyframes[i]))
         mux.close()
@@ -3697,10 +3798,11 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
     """ASPset-510's layout with one subject and ASPSET_VIEWS: splits.csv, a
     box CSV per clip (a person box moving with the frame's shift), a camera
     JSON per view and 1080x1920 .mkv clips of ASPSET_FRAMES frames: mp4v (as
-    JAX's test writes them) written by the port's own writer, or H.264 muxed
-    from the fixture's packets ('h264': H264_ASPSET_PACKETS; 'h264_b': the
-    B-frame fixture's GOPs, H264_B_ASPSET_GOPS). Returns the manifest's RGB
-    SHA-256 of each frame by clip path (H.264)."""
+    JAX's test writes them) written by the port's own writer, or H.264 or
+    HEVC muxed from the fixture's packets ('h264', 'hevc':
+    H264_ASPSET_PACKETS; 'h264_b': the B-frame fixture's GOPs,
+    H264_B_ASPSET_GOPS). Returns the manifest's RGB SHA-256 of each frame by
+    clip path (H.264, HEVC)."""
     from metrabs_tpu_torch.data import video
 
     subj, vid = '01', '0001'
@@ -3719,8 +3821,8 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
         (work / 'test' / 'cameras' / subj / f'{subj}-{view}.json').write_text(
             json.dumps(dict(intrinsic_matrix=K_ASPSET)))
         clip = work / 'test' / 'videos' / subj / f'{subj}-{vid}-{view}.mkv'
-        if codec == 'h264':
-            want[str(clip)] = mux_h264(root, clip, H264_ASPSET_PACKETS[view])
+        if codec in MUXED:
+            want[str(clip)] = mux_packets(root, clip, H264_ASPSET_PACKETS[view], codec)
             continue
         if codec == 'h264_b':
             want[str(clip)] = mux_h264_b(root, clip, H264_B_ASPSET_GOPS[view])
@@ -3787,6 +3889,16 @@ def demos_phase(root: Path, dev) -> dict:
                 f'decode {avc_b["ms"]:.2f} ms per packet on one thread (median of '
                 f'{avc_b["n_timed"]}; all: ' + ', '.join(f'{t:.1f}' for t in avc_b['all_ms'])
                 + f') on {card_name()}')
+    hevc_fx = check_hevc_fixtures(root)
+    phase(name, f'HEVC decoder (host C++): {hevc_fx["files"]} libx265 files (MP4 hvc1 and hev1, '
+                f'Matroska and AVI; a clip per coding tool), all {hevc_fx["frames"]} frames\' '
+                f'packets, key flags, Y/U/V planes (libde265\'s), luma planes and RGB frames '
+                f'equal their manifest hashes, all {hevc_fx["seeks"]} imread(#frame=N) equal '
+                f'cv2\'s seek table, sizes, counts and rates cv2\'s, {hevc_fx["hashes"]} plane '
+                f'hashes of the decoded-picture hash SEIs checked; 1080x1920 decode to RGB and '
+                f'planes {hevc_fx["ms"]:.2f} ms per frame on one thread (median of '
+                f'{hevc_fx["n_timed"]}; all: ' + ', '.join(f'{t:.1f}' for t in hevc_fx['all_ms'])
+                + f') on {card_name()}')
 
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
@@ -3809,11 +3921,14 @@ def demos_phase(root: Path, dev) -> dict:
                 w.write(frame)
         mint_aspset_layout(root, work / 'aspset')
         h264_src = work / 'in_h264.mp4'
-        h264_want = mux_h264(root, h264_src, H264_DEMO_PACKETS)
+        h264_want = mux_packets(root, h264_src, H264_DEMO_PACKETS)
         mint_aspset_layout(root, work / 'aspset_h264', 'h264')
         h264b_src = work / 'in_h264_b.mp4'
         h264b_want = mux_h264_b(root, h264b_src, H264_B_DEMO_GOPS)
         aspset_b_want = mint_aspset_layout(root, work / 'aspset_h264_b', 'h264_b')
+        hevc_src = work / 'in_hevc.mp4'
+        hevc_want = mux_packets(root, hevc_src, H264_DEMO_PACKETS, 'hevc')
+        aspset_hevc_want = mint_aspset_layout(root, work / 'aspset_hevc', 'hevc')
         phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
                     f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
                     f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
@@ -3822,7 +3937,9 @@ def demos_phase(root: Path, dev) -> dict:
                     f'of {len(ASPSET_VIEWS)} views x {ASPSET_FRAMES} frames of H.264 .mkv, '
                     f'muxed by the port from {H264_SOURCE}\'s packets; a {len(h264b_want)}-frame '
                     f'1080x1920 B-frame H.264 .mp4 (ctts, elst) and an ASPset layout of B-frame '
-                    f'.mkv views, whole closed GOPs of {H264_B_SOURCE}')
+                    f'.mkv views, whole closed GOPs of {H264_B_SOURCE}; a {len(hevc_want)}-frame '
+                    f'1080x1920 HEVC .mp4 (hvc1) and an ASPset layout of HEVC .mkv views, muxed '
+                    f'by the port from {HEVC_SOURCE}\'s packets')
 
         # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
         # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
@@ -3985,6 +4102,38 @@ def demos_phase(root: Path, dev) -> dict:
         launches[key] = (r['k1'], r['k2'])
         del r
 
+        # demo_video on the HEVC .mp4: every K1 launch against the plain warp,
+        # every input frame the manifest's, each picture decoded once.
+        key = 'demo_video_hevc'
+        r, warp_errs = checked_warps(lambda: drivers.run(
+            drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_video.main, [
+                '--video', str(hevc_src), '--package', str(work / 'pkg'),
+                '--out', str(work / f'{key}.mp4'), '--frame-batch', str(DEMO_FRAME_BATCH)]))
+        result = json.loads(r['last'])
+        back = video.index(str(work / f'{key}.mp4'))
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(str(hevc_src))]
+        n_h = len(hevc_want)
+        warp_err = max(warp_errs, default=math.inf)
+        if (result['frames'] != n_h or back.n_frames != n_h or got != hevc_want
+                or result['total_poses'] == 0 or len(r['calls']) != n_h // DEMO_FRAME_BATCH
+                or r['k1'] < n_h // DEMO_FRAME_BATCH or len(warp_errs) != r['k1']
+                or not warp_err <= WARP_TOL or r['k2'] != 0 or r['hevc_decodes'] != n_h
+                or r['h264_decodes'] != 0 or r['mp4v_decodes'] != 0):
+            fail(name, f'{key}: {result}, {back.n_frames} frames read back, '
+                       f'{sum(a != b for a, b in zip(got, hevc_want))} of {n_h} input frames '
+                       f'unlike the manifest, {len(r["calls"])} batched calls, K1 {r["k1"]} '
+                       f'({len(warp_errs)} compared, max |kernel - plain| {warp_err:.3g}), K2 '
+                       f'{r["k2"]}, {r["hevc_decodes"]} HEVC pictures decoded')
+        phase(name, f'{key} ({hevc_src.name}, {n_h} frames of HEVC, frame batch '
+                    f'{DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} poses): every '
+                    f'input frame equal to the manifest (cv2\'s), {r["hevc_decodes"]} pictures '
+                    f'decoded ({r["hevc_decodes"] / n_h:g} per frame read); K1 {r["k1"]}, each '
+                    f'against the plain warp (max |kernel - plain| {warp_err:.3g}), K2 '
+                    f'{r["k2"]}; with the checks: {r["seconds"]:.2f} s, decoding '
+                    f'{r["decode_s"]:.2f} s')
+        launches[key] = (r['k1'], r['k2'])
+        del r
+
         # predict_3dpw --viz-dir (folded) on VIZ_3DPW: JAX's figure names, every
         # VIZ_STEP frames, read back.
         t0 = time.perf_counter()
@@ -4126,6 +4275,38 @@ def demos_phase(root: Path, dev) -> dict:
         phase(name, f'{key} (B-frame H.264 .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
                     f'unfolded, fuse_mbconv on: every input frame equal to the manifest; '
                     f'{r["h264_decodes"]} pictures decoded for {n_frames} frames read by 8 I/O '
+                    f'threads; K1 {r["k1"]}, each against the plain warp (max |kernel - plain| '
+                    f'{warp_err:.3g}), K2 {r["k2"]}, each against the plain chain (v max '
+                    f'{err_v:.3g}, SE mean max {max(mean_errs, default=math.inf):.3g}); with the '
+                    f'checks: {r["seconds"]:.2f} s, decoding {r["decode_s"]:.2f} s')
+        launches[key] = (r['k1'], r['k2'])
+        del r
+
+        # predict_aspset on the HEVC .mkv views, the same way.
+        key = 'predict_aspset_hevc'
+        (((r, warp_errs), v_errs, mean_errs)) = checked_mbconv(
+            lambda: checked_warps(lambda: aspset_run(f'pred_{key}', 'aspset_hevc')))
+        preds = [np.load(work / f'pred_{key}' / f'01-0001-{view}.npz')['coords3d_pred_world']
+                 for view in ASPSET_VIEWS]
+        unlike = sum(a != b for clip, want in aspset_hevc_want.items() for a, b in zip(
+            [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(clip)], want))
+        warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
+        if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
+                or len(warp_errs) != calls or len(v_errs) != K2_BLOCKS * calls or warp_err != 0.0
+                or err_v != 0.0 or r['hevc_decodes'] != n_frames or r['h264_decodes'] != 0
+                or r['mp4v_decodes'] != 0 or unlike
+                or sum(map(len, aspset_hevc_want.values())) != n_frames
+                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                       for p in preds)):
+            fail(name, f'{key}: K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} and '
+                       f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, {len(warp_errs)} K1 '
+                       f'launches compared (max |kernel - plain| {warp_err:.3g}, must be 0), '
+                       f'{len(v_errs)} K2 (v max {err_v:.3g}, must be 0), {r["hevc_decodes"]} '
+                       f'pictures decoded (expected {n_frames}), {unlike} input frames unlike the '
+                       f'manifest, predictions {[p.shape for p in preds]}')
+        phase(name, f'{key} (HEVC .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
+                    f'unfolded, fuse_mbconv on: every input frame equal to the manifest; '
+                    f'{r["hevc_decodes"]} pictures decoded for {n_frames} frames read by 8 I/O '
                     f'threads; K1 {r["k1"]}, each against the plain warp (max |kernel - plain| '
                     f'{warp_err:.3g}), K2 {r["k2"]}, each against the plain chain (v max '
                     f'{err_v:.3g}, SE mean max {max(mean_errs, default=math.inf):.3g}); with the '

@@ -29,18 +29,12 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import List, NamedTuple, Optional
 
-import numpy as np
-
-from metrabs_tpu_torch.data.mpeg4 import UnsupportedVideo
+from metrabs_tpu_torch.data.native_video import EntryPoint, NativeDecoder, bind
 from metrabs_tpu_torch.ops import cuda_build
 
-_ERR_LEN = 256
 _LOCK = threading.Lock()
 _LIB = None
-_COUNT_LOCK = threading.Lock()
-_FRAMES_DECODED = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -49,54 +43,25 @@ def _library() -> ctypes.CDLL:
         if _LIB is None:
             path, _ = cuda_build.build_host_library('h264_decode')
             lib = ctypes.CDLL(str(path))
-            vp, sz, i, cp = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_char_p
+            bind(lib, 'metrabs_h264_')
+            lib.metrabs_h264_decoder_recovering.argtypes = [ctypes.c_void_p]
+            lib.metrabs_h264_decoder_recovering.restype = None
             ip = ctypes.POINTER(ctypes.c_int)
-            lib.metrabs_h264_decoder_new.restype = vp
-            lib.metrabs_h264_decoder_new.argtypes = []
-            lib.metrabs_h264_decoder_free.argtypes = [vp]
-            lib.metrabs_h264_decoder_free.restype = None
-            lib.metrabs_h264_decoder_config.argtypes = [vp, cp, sz, cp, i]
-            for name in ('decoder_recovering', 'decoder_headers_only', 'flush'):
-                getattr(lib, f'metrabs_h264_{name}').argtypes = [vp]
-                getattr(lib, f'metrabs_h264_{name}').restype = None
-            lib.metrabs_h264_decode.argtypes = [vp, cp, sz, cp, i]
-            lib.metrabs_h264_pictures.argtypes = [vp]
-            lib.metrabs_h264_next.argtypes = [vp, ip, ip, ip]
-            lib.metrabs_h264_frame.argtypes = [vp, vp, vp, vp, vp, cp, i]
-            lib.metrabs_h264_packet_info.argtypes = [cp, sz, i, ip, ip, ip]
-            for name in ('decoder_config', 'decode', 'pictures', 'next', 'frame', 'packet_info'):
-                getattr(lib, f'metrabs_h264_{name}').restype = ctypes.c_int
+            lib.metrabs_h264_packet_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                                     ctypes.c_int, ip, ip, ip]
+            lib.metrabs_h264_packet_info.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
 
 def frames_decoded() -> int:
     """How many pictures every Decoder of this process has decoded."""
-    return _FRAMES_DECODED
-
-
-def _check(rc: int, err, name: str) -> None:
-    if rc == 1:
-        raise ValueError(f'{name}: corrupt H.264 stream ({err.value.decode()})')
-    if rc == 2:
-        raise UnsupportedVideo(
-            f'{name}: the H.264 stream uses {err.value.decode()}, which the port does not '
-            f'decode (progressive 8-bit 4:2:0 I, P and B slices only)')
-    if rc != 0:
-        raise RuntimeError(f'{name}: the H.264 decoder returned {rc}')
+    return Decoder.frames_decoded
 
 
 def length_size(config: bytes) -> int:
     """The NAL unit length size of an avcC; 0 without one (Annex B)."""
     return (config[4] & 3) + 1 if len(config) >= 7 and config[0] == 1 else 0
-
-
-class EntryPoint(NamedTuple):
-    """What a packet offers random access: an IDR picture, or a
-    recovery-point SEI whose frames are exact from `recovery_frames` on."""
-    idr: bool
-    recovery_frames: int  # -1 without a recovery point
-    exact: bool
 
 
 def entry_point(packet: bytes, nal_length_size: int) -> EntryPoint:
@@ -111,105 +76,22 @@ def entry_point(packet: bytes, nal_length_size: int) -> EntryPoint:
     return EntryPoint(bool(idr.value), rec.value, bool(exact.value))
 
 
-class Decoder:
-    """Decodes the packets of one H.264 stream in order. `config` is the
-    decoder configuration (MP4's avcC, Matroska's CodecPrivate; AVI's
-    packets carry their parameter sets). `recovering`: decoding starts at a
+class Decoder(NativeDecoder):
+    """Decodes the packets of one H.264 stream in order
+    (`native_video.NativeDecoder`). `recovering`: decoding starts at a
     recovery point, whose references before it are taken as grey (its frames
-    are exact from the recovery point's count on). `headers_only`: the
-    decoder reads parameter sets and slice headers only, and `order` tells
-    which pictures each packet outputs (`data.video` indexes a stream so).
+    are exact from the recovery point's count on). Pictures wait while
+    reordering may still put a later one before them."""
 
-    Pictures come out in output order, as FFmpeg's decoder hands them to
-    cv2: a picture waits while reordering may still put a later one before
-    it, so a packet outputs none, one or several, and `flush` outputs those
-    still waiting at the end of the stream."""
+    PREFIX, CODEC = 'metrabs_h264_', 'H.264'
+    SCOPE = 'progressive 8-bit 4:2:0 I, P and B slices only'
+    frames_decoded = 0
 
     def __init__(self, config: bytes = b'', name: str = '<h264>', recovering: bool = False,
                  headers_only: bool = False):
-        self._lib = _library()
-        self._ptr = self._lib.metrabs_h264_decoder_new()
-        self.name = name
+        super().__init__(_library(), config, name, headers_only)
         if recovering:
-            self._lib.metrabs_h264_decoder_recovering(self._ptr)
-        if headers_only:
-            self._lib.metrabs_h264_decoder_headers_only(self._ptr)
-        self._counted = not headers_only
-        if config:
-            err = ctypes.create_string_buffer(_ERR_LEN)
-            _check(self._lib.metrabs_h264_decoder_config(self._ptr, config, len(config), err,
-                                                         _ERR_LEN), err, name)
-
-    def decode(self, packet: bytes, luma: bool = False, planes: bool = False) -> list:
-        """The frames the packet outputs, in output order: each RGB uint8
-        [H, W, 3]; with `luma` (RGB, Y [H, W]); with `planes` (RGB, (Y, U,
-        V)), the chroma planes [(H + 1) // 2, (W + 1) // 2]."""
-        self._send(packet)
-        return self._take(luma, planes)
-
-    def flush(self, luma: bool = False, planes: bool = False) -> list:
-        """The frames still waiting at the end of the stream, as `decode`
-        returns them."""
-        self._lib.metrabs_h264_flush(self._ptr)
-        return self._take(luma, planes)
-
-    def order(self, packet: Optional[bytes]) -> List[int]:
-        """The decoding-order indices of the pictures a packet (None: the
-        end of the stream) outputs, without their samples."""
-        if packet is None:
-            self._lib.metrabs_h264_flush(self._ptr)
-        else:
-            self._send(packet)
-        out = []
-        w, h, index = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        while self._lib.metrabs_h264_next(self._ptr, ctypes.byref(w), ctypes.byref(h),
-                                          ctypes.byref(index)):
-            out.append(index.value)
-            self._lib.metrabs_h264_frame(self._ptr, None, None, None, None, None, 0)
-        return out
-
-    @property
-    def pictures(self) -> int:
-        """How many pictures this decoder has decoded (or parsed)."""
-        return self._lib.metrabs_h264_pictures(self._ptr)
-
-    def _send(self, packet: bytes) -> None:
-        global _FRAMES_DECODED
-        err = ctypes.create_string_buffer(_ERR_LEN)
-        before = self._lib.metrabs_h264_pictures(self._ptr)
-        rc = self._lib.metrabs_h264_decode(self._ptr, packet, len(packet), err, _ERR_LEN)
-        if self._counted:
-            with _COUNT_LOCK:
-                _FRAMES_DECODED += self._lib.metrabs_h264_pictures(self._ptr) - before
-        _check(rc, err, self.name)
-
-    def _take(self, luma: bool, planes: bool) -> list:
-        out = []
-        err = ctypes.create_string_buffer(_ERR_LEN)
-        w, h, index = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        while self._lib.metrabs_h264_next(self._ptr, ctypes.byref(w), ctypes.byref(h),
-                                          ctypes.byref(index)):
-            hh, ww = h.value, w.value
-            rgb = np.empty((hh, ww, 3), np.uint8)
-            y = np.empty((hh, ww), np.uint8) if luma or planes else None
-            u = v = None
-            if planes:
-                u = np.empty(((hh + 1) // 2, (ww + 1) // 2), np.uint8)
-                v = np.empty_like(u)
-            ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
-            rc = self._lib.metrabs_h264_frame(self._ptr, rgb.ctypes.data, ptr(y), ptr(u), ptr(v),
-                                              err, _ERR_LEN)
-            _check(rc, err, self.name)
-            out.append((rgb, (y, u, v)) if planes else (rgb, y) if luma else rgb)
-        return out
-
-    def close(self) -> None:
-        if self._ptr:
-            self._lib.metrabs_h264_decoder_free(self._ptr)
-            self._ptr = None
-
-    def __del__(self):
-        self.close()
+            self._call('decoder_recovering', self._ptr)
 
 
 def annexb(packet: bytes, config: bytes) -> bytes:

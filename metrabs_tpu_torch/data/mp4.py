@@ -5,20 +5,21 @@ Reading walks the boxes `ftyp`, `moov` (before or after `mdat`) / `mvhd` /
 `trak` / `tkhd`, `mdia` / `mdhd` / `hdlr` and `minf` / `stbl`, whose sample
 table gives each packet: `stsd` (the sample entry's FourCC and size; for
 `mp4v` the `esds` DecoderSpecificInfo: the VOS and VOL; for `avc1` and
-`avc3` the `avcC`), `stts` (durations: the frame rate is the `mdhd`
-timescale over them), `stss` (key frames; without it every sample is one),
-`stsc`, `stsz` and `stco`/`co64`. An H.264 track's presentation times
-are its decoding times plus the `ctts` offsets (versions 0 and 1, read as
-signed, as FFmpeg's mov demuxer reads them), shifted by the `elst` edit (an
-empty edit first delays them): B-frame streams reorder their frames so. An
+`avc3` the `avcC`; for `hvc1` and `hev1` the `hvcC`), `stts` (durations:
+the frame rate is the `mdhd` timescale over them), `stss` (key frames;
+without it every sample is one), `stsc`, `stsz` and `stco`/`co64`. An H.264
+or HEVC track's presentation times are its decoding times plus the `ctts`
+offsets (versions 0 and 1, read as signed, as FFmpeg's mov demuxer reads
+them), shifted by the `elst` edit (an empty edit first delays them):
+B-frame streams reorder their frames so. An
 edit list that FFmpeg would make drop decoded frames (an edit that starts
 past the first frame or ends before the last), holds several edits or
 plays at another rate raises UnsupportedVideo.
 
 Writing lays a file out as FFmpeg does: `ftyp`, then `mdat` with the
-packets, then `moov` with one track (mp4v with its `esds`, or avc1 with its
-`avcC`), one sample per chunk, `stss` for the key frames, and `co64` in
-place of `stco` once an offset passes 4 GiB.
+packets, then `moov` with one track (mp4v with its `esds`, avc1 with its
+`avcC`, or hvc1 or hev1 with its `hvcC`), one sample per chunk, `stss` for
+the key frames, and `co64` in place of `stco` once an offset passes 4 GiB.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from metrabs_tpu_torch.data.mpeg4 import UnsupportedVideo
 
 _CONTAINERS = (b'moov', b'trak', b'mdia', b'minf', b'stbl', b'edts', b'dinf')
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication of MPEG-4 Part 2 video
+# The decoder configuration box of each H.264 and HEVC sample entry
+_CONFIG_BOX = {'avc1': b'avcC', 'avc3': b'avcC', 'hvc1': b'hvcC', 'hev1': b'hvcC'}
 
 
 def _boxes(data: bytes, start: int, end: int):
@@ -166,9 +169,9 @@ def _read_track(path: str, moov: bytes, a: int, b: int, movie_scale: int) -> Dic
                 object_type, config = decoder_specific_info(stsd[x:y])
                 if object_type != MPEG4_VISUAL:
                     codec = f'mp4v (objectTypeIndication {object_type:#x})'
-    elif codec in ('avc1', 'avc3'):
+    elif codec in _CONFIG_BOX:
         for kind, x, y in _boxes(stsd, entry[1] + 78, entry[2]):
-            if kind == b'avcC':
+            if kind == _CONFIG_BOX[codec]:
                 config = stsd[x:y]
     sizes = _sample_sizes(payload(b'stsz'))
     offsets = _sample_offsets(path, payload(b'stsc'), payload(b'stco'), payload(b'co64'), sizes)
@@ -188,7 +191,7 @@ def _read_track(path: str, moov: bytes, a: int, b: int, movie_scale: int) -> Dic
         keyframes[sync[(sync >= 1) & (sync <= n)].astype(np.int64) - 1] = True
     out = dict(codec=codec, width=width, height=height, fps=fps, offsets=offsets,
                sizes=sizes, keyframes=keyframes, config=config)
-    if codec in ('avc1', 'avc3'):
+    if codec in _CONFIG_BOX:
         dts = np.concatenate([[0], np.cumsum(np.repeat(deltas[:, 1].astype(np.int64),
                                                        deltas[:, 0].astype(np.int64)))])[:n]
         ctts = payload(b'ctts')
@@ -296,13 +299,15 @@ _IDENTITY = struct.pack('>9I', 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
 class Mp4Muxer:
     """One video track: `ftyp`, `mdat` (its size in 64 bits, filled in on
     close), then `moov`. `timescale / delta` is the frame rate; `config` is
-    the VOS and VOL for an mp4v track's esds, or an avc1 track's avcC
-    (`codec` 'avc1', whose packets are length-prefixed NAL units)."""
+    the VOS and VOL for an mp4v track's esds, an avc1 track's avcC or an
+    hvc1 or hev1 track's hvcC (`codec` 'avc1', 'hvc1' or 'hev1', whose
+    packets are length-prefixed NAL units)."""
 
     def __init__(self, f: BinaryIO, width: int, height: int, timescale: int, delta: int,
                  config: bytes, codec: str = 'mp4v'):
-        if codec not in ('mp4v', 'avc1'):
-            raise UnsupportedVideo(f'the MP4 muxer writes mp4v and avc1 tracks, not {codec!r}')
+        if codec not in ('mp4v', 'avc1', 'hvc1', 'hev1'):
+            raise UnsupportedVideo(f'the MP4 muxer writes mp4v, avc1, hvc1 and hev1 tracks, '
+                                   f'not {codec!r}')
         self.f, self.width, self.height = f, width, height
         self.timescale, self.delta, self.config = timescale, delta, config
         self.codec = codec
@@ -343,8 +348,8 @@ class Mp4Muxer:
         vmhd = _full_box(b'vmhd', 0, 1, bytes(8))
         dinf = _box(b'dinf', _full_box(b'dref', 0, 0, struct.pack('>I', 1)
                                        + _full_box(b'url ', 0, 1, b'')))
-        if self.codec == 'avc1':
-            extension = _box(b'avcC', self.config)
+        if self.codec in _CONFIG_BOX:
+            extension = _box(_CONFIG_BOX[self.codec], self.config)
         else:
             es = (struct.pack('>HB', 1, 0)
                   + _descr(0x04, struct.pack('>BB3sII', MPEG4_VISUAL, 0x11, bytes(3),

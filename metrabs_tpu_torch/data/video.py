@@ -1,13 +1,13 @@
-"""Video files without a video library: Motion JPEG, MPEG-4 Part 2 (`mp4v`)
-and H.264 in AVI, Matroska and MP4.
+"""Video files without a video library: Motion JPEG, MPEG-4 Part 2 (`mp4v`),
+H.264 and HEVC in AVI, Matroska and MP4.
 
 Reading: the demuxers index a file's video packets once (AVI: RIFF with the
 `idx1` index, or the OpenDML `indx` super index and its `ix##` chunks that
 FFmpeg writes past 1 GiB; an AVI with neither raises; Matroska: EBML with
 SimpleBlock and BlockGroup in Clusters, `DefaultDuration` for the frame
 rate; MP4: `data.mp4`), with each packet's key-frame flag and the codec's
-private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`
-or `avcC`).
+private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`,
+`avcC` or `hvcC`).
 
 - Motion JPEG: frame N is one seek, one read and one `jpeg.decode`, which
   equals `cv2.imdecode` of the packet bit for bit. A packet without a DHT
@@ -36,8 +36,16 @@ or `avcC`).
   the frame, or at a recovery point whose frames are exact by then (its
   recovery-point SEI; an open GOP's leading B pictures are not taken from
   it), else at the first frame.
+- HEVC (AVI FourCCs `HEVC`, `H265`, `HVC1`, `HEV1` in any case, Annex B;
+  Matroska `V_MPEGH/ISO/HEVC` and MP4 `hvc1`/`hev1`, length-prefixed with
+  the hvcC as the configuration): decoded by `data.hevc`, whose planes equal
+  FFmpeg's and whose RGB equals `cv2.VideoCapture`'s, I and P slices only.
+  It is indexed as H.264 is, by one codec-neutral path: the output order
+  from the slice headers, frame N as the N-th frame of that order, and
+  random access from the last IRAP picture (IDR, CRA or BLA) whose frames
+  reach the frame.
 
-Frame N of mp4v and H.264 is decoded from such an entry point. Each file
+Frame N of mp4v, H.264 and HEVC is decoded from such an entry point. Each file
 keeps a few decoders and its last few frames under a lock, so frames read
 in order, from one thread or from several, are each decoded once; every
 frame a packet outputs is kept.
@@ -49,7 +57,7 @@ extensions, as FFmpeg writes them), a Matroska file (SimpleBlocks, one
 Cluster per second, Cues) or, for mp4v, an MP4 file, chosen by the
 extension, as cv2 chooses. Frame sizes are kept as given, odd ones too.
 
-Any other codec (HEVC, VP9, ...) or container raises UnsupportedVideo
+Any other codec (VP9, AV1, ...) or container raises UnsupportedVideo
 naming it (ROADMAP.md, "Video").
 """
 
@@ -64,7 +72,7 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from metrabs_tpu_torch.data import h264, jpeg, mp4, mpeg4
+from metrabs_tpu_torch.data import h264, hevc, jpeg, mp4, mpeg4
 from metrabs_tpu_torch.data.mpeg4 import UnsupportedVideo  # noqa: F401 (the module's error)
 
 MJPEG_CODECS = ('MJPG', 'mjpg', 'V_MJPEG')  # AVI FourCCs, the Matroska CodecID
@@ -74,19 +82,29 @@ MP4V_CODEC_IDS = ('V_MPEG4/ISO/SP', 'V_MPEG4/ISO/ASP', 'V_MPEG4/ISO/AP')
 # H.264: AVI FourCCs (any case), the Matroska CodecID, MP4 sample entries
 H264_FOURCCS = ('H264', 'X264', 'AVC1')
 H264_CODEC_IDS = ('V_MPEG4/ISO/AVC', 'avc1', 'avc3')
+# HEVC: AVI FourCCs (any case; cv2's FFmpeg reads these four as HEVC), the
+# Matroska CodecID, MP4 sample entries
+HEVC_FOURCCS = ('HEVC', 'H265', 'HVC1', 'HEV1')
+HEVC_CODEC_IDS = ('V_MPEGH/ISO/HEVC', 'hvc1', 'hev1')
+# The codecs whose frames may be reordered, indexed from their slice headers,
+# and their MP4 decoder configuration box
+_REORDERED = {'h264': (h264, 'avcC'), 'hevc': (hevc, 'hvcC')}
 _ROADMAP = 'ROADMAP.md §1, "Still to port"'
 DEFAULT_RIFF_LIMIT = 1 << 30  # FFmpeg's AVI_MAX_RIFF_SIZE: an AVIX extension past 1 GiB
 _AVIIF_KEYFRAME = 0x10
 
 
 def codec_kind(codec: str) -> Optional[str]:
-    """'mjpeg', 'mp4v', 'h264' or None for a FourCC, CodecID or sample entry."""
+    """'mjpeg', 'mp4v', 'h264', 'hevc' or None for a FourCC, CodecID or
+    sample entry."""
     if codec in MJPEG_CODECS:
         return 'mjpeg'
     if codec.upper() in MP4V_FOURCCS or codec in MP4V_CODEC_IDS:
         return 'mp4v'
     if codec.upper() in H264_FOURCCS or codec in H264_CODEC_IDS:
         return 'h264'
+    if codec.upper() in HEVC_FOURCCS or codec in HEVC_CODEC_IDS:
+        return 'hevc'
     return None
 
 
@@ -102,17 +120,18 @@ class VideoIndex:
     offsets: np.ndarray  # int64 byte offset of each packet
     sizes: np.ndarray  # int64 byte length of each packet
     keyframes: Optional[np.ndarray] = None  # bool per packet; None: every one
-    config: bytes = b''  # the codec's private header (mp4v: VOS and VOL; H.264: avcC)
+    config: bytes = b''  # the codec's private header (mp4v: VOS and VOL; avcC; hvcC)
     # The packet whose decoding outputs each frame, in output order (mp4v:
-    # the coded VOPs; H.264 reorders: n_frames for the flush at the end);
+    # the coded VOPs; H.264 and HEVC reorder: n_frames for the flush at the
+    # end);
     # None: one frame per packet.
     frame_packets: Optional[np.ndarray] = None
-    # Entry points of random access (mp4v, H.264): (first packet, first frame
+    # Entry points of random access (mp4v, H.264, HEVC): (first packet, first frame
     # decoded exactly from it, whether it starts at a recovery point), and
     # the first frame a decoder that starts there outputs, by first packet.
     entries: Optional[List[Tuple[int, int, bool]]] = None
     first_frames: Optional[Dict[int, int]] = None
-    # Presentation time of each packet (MP4 H.264: decoding time plus ctts,
+    # Presentation time of each packet (MP4 H.264 and HEVC: decoding time plus ctts,
     # shifted by the elst; Matroska: the block timestamps); None for AVI.
     pts: Optional[np.ndarray] = None
 
@@ -149,9 +168,9 @@ class VideoIndex:
         return data
 
     def frame(self, i: int, f: Optional[BinaryIO] = None) -> np.ndarray:
-        """RGB uint8 [H, W, 3] of frame i (mp4v, H.264: through the file's
-        decoder state, from the entry point before i)."""
-        if self.kind in ('mp4v', 'h264'):
+        """RGB uint8 [H, W, 3] of frame i (mp4v, H.264, HEVC: through the
+        file's decoder state, from the entry point before i)."""
+        if self.kind != 'mjpeg':
             return _stream(self).read(i)
         return jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}')
 
@@ -160,6 +179,8 @@ class VideoIndex:
         if self.kind == 'h264':
             recovering = any(s == start and r for s, _, r in self.entries or [])
             return h264.Decoder(self.config, self.path, recovering)
+        if self.kind == 'hevc':
+            return hevc.Decoder(self.config, self.path)
         return mpeg4.Decoder(self.config, self.path,
                              self.codec if self.container == 'avi' else '')
 
@@ -198,11 +219,11 @@ def index(path: str) -> VideoIndex:
             raise UnsupportedVideo(f'{path}: not an AVI, Matroska or MP4 file')
         if idx.kind is None:
             raise UnsupportedVideo(f'{path}: codec {idx.codec!r} is not ported, only Motion JPEG, '
-                                   f'MPEG-4 Part 2 (mp4v) and H.264 ({_ROADMAP})')
+                                   f'MPEG-4 Part 2 (mp4v), H.264 and HEVC ({_ROADMAP})')
         if idx.kind == 'mp4v':
             _index_vops(idx, f)
-        elif idx.kind == 'h264':
-            _index_h264(idx, f)
+        elif idx.kind in _REORDERED:
+            _index_reordered(idx, f)
     with _INDEX_LOCK:  # threads that parsed the file at once all get the first index
         hit = _INDEX_CACHE.get(path)
         if hit is not None and hit[0] == key:
@@ -226,24 +247,26 @@ def _index_vops(idx: VideoIndex, f: BinaryIO) -> None:
     idx.first_frames = dict(zip(starts, first))
 
 
-def _index_h264(idx: VideoIndex, f: BinaryIO) -> None:
-    """H.264: the output order, from the parameter sets and slice headers
-    (picture order counts, reference marking and the reorder depth) without
-    decoding, and the entry points: packet 0, the IDR pictures and the
-    recovery points among the key frames (exact from their
-    recovery_frame_cnt on; one whose leading pictures would be output
+def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
+    """H.264 and HEVC: the output order, from the parameter sets and slice
+    headers (picture order counts, reference marking and the reorder depth)
+    without decoding, and the entry points: packet 0, the IDR (HEVC: IRAP)
+    pictures and the H.264 recovery points among the key frames (exact from
+    their recovery_frame_cnt on; one whose leading pictures would be output
     among the frames before it is no entry)."""
-    size = h264.length_size(idx.config)
+    codec, config_box = _REORDERED[idx.kind]
+    name = codec.Decoder.CODEC
+    size = codec.length_size(idx.config)
     if idx.container != 'avi' and not size:
-        raise ValueError(f'{idx.path}: an H.264 track without its avcC')
+        raise ValueError(f'{idx.path}: an {name} track without its {config_box}')
     n = idx.n_frames
-    scan = h264.Decoder(idx.config, idx.path, headers_only=True)
+    scan = codec.Decoder(idx.config, idx.path, headers_only=True)
     emitter, order = [], []  # per output frame: the packet that outputs it, its picture
     try:
         for p in range(n + 1):
             pictures = scan.order(idx.packet(p, f) if p < n else None)
             if p < n and scan.pictures != p + 1:
-                raise ValueError(f'{idx.path}: H.264 packet {p} holds {scan.pictures - p} '
+                raise ValueError(f'{idx.path}: {name} packet {p} holds {scan.pictures - p} '
                                  f'pictures, not one')
             emitter += [p] * len(pictures)
             order += pictures
@@ -254,7 +277,7 @@ def _index_h264(idx: VideoIndex, f: BinaryIO) -> None:
     idx.frame_packets = np.asarray(emitter, np.int64)
     if idx.pts is not None and not np.array_equal(np.argsort(idx.pts, kind='stable'), order):
         what = 'composition times (ctts)' if idx.container == 'mp4' else 'block timestamps'
-        raise UnsupportedVideo(f'{idx.path}: {what} whose order disagrees with the H.264 '
+        raise UnsupportedVideo(f'{idx.path}: {what} whose order disagrees with the {name} '
                                f"stream's picture order counts")
     # The first frame a decoder that starts at packet k outputs; frames
     # decoded before k all precede it for an entry point.
@@ -263,7 +286,7 @@ def _index_h264(idx: VideoIndex, f: BinaryIO) -> None:
     idx.entries = [(0, 0, False)]
     for k in np.flatnonzero(idx.keyframes[1:]) + 1:
         k = int(k)
-        e = h264.entry_point(idx.packet(k, f), size)
+        e = codec.entry_point(idx.packet(k, f), size)
         if e.idr:
             idx.entries.append((k, int(first[k]), False))
         elif e.recovery_frames >= 0 and e.exact and before[k] < first[k]:
@@ -283,11 +306,12 @@ def read_frame(path: str, i: int) -> np.ndarray:
 
 def iter_frames(path: str):
     """Every frame of a video in output order, RGB uint8 [H, W, 3], through
-    one open file (and for mp4v and H.264 one decoder of its own: each frame
-    is decoded once; H.264's last frames come from the flush at the end)."""
+    one open file (and for mp4v, H.264 and HEVC one decoder of its own: each
+    frame is decoded once; the last frames of H.264 and HEVC come from the
+    flush at the end)."""
     idx = index(path)
     with open(path, 'rb') as f:
-        if idx.kind in ('mp4v', 'h264'):
+        if idx.kind != 'mjpeg':
             cursor = _Cursor(idx, 0)
             try:
                 while not cursor.done:
@@ -300,7 +324,7 @@ def iter_frames(path: str):
 
 
 # --------------------------------------------------------------------------
-# mp4v and H.264 random access
+# mp4v, H.264 and HEVC random access
 
 _CACHED_FRAMES = 16  # frames kept per file: twice predict_common's 8 I/O threads
 _CURSORS = 3  # decoders kept per file
@@ -320,24 +344,24 @@ class _Cursor:
         self.frame = idx.first_frames[start]
         self.exact_from = exact_from
         self.done = False  # past the flush at the end
-        self.flushed = start  # H.264: the entry point before which it last flushed
+        self.flushed = start  # H.264, HEVC: the entry point before which it last flushed
         if idx.kind == 'mp4v':
             self.coded = np.zeros(idx.n_frames, bool)
             self.coded[idx.frame_packets] = True
-        else:  # H.264: the pictures before an entry point all precede it in output order
+        else:  # H.264, HEVC: the pictures before an entry point all precede it in output order
             self.entry_starts = {s for s, _, _ in idx.entries}
 
     def step(self, f: BinaryIO) -> list:
         """Decodes the next packet, or flushes the decoder before an entry
-        point's packet (H.264) and past the last: the frames it outputs. The
+        point's packet (H.264, HEVC) and past the last: the frames it outputs. The
         frames before an entry point so come out without decoding its
         packet, which a cursor started there may decode."""
         idx = self.idx
         p = self.next
         if p >= idx.n_frames:
             self.done = True
-            out = self.decoder.flush() if idx.kind == 'h264' else []
-        elif idx.kind == 'h264' and p in self.entry_starts and self.flushed != p:
+            out = self.decoder.flush() if idx.kind in _REORDERED else []
+        elif idx.kind in _REORDERED and p in self.entry_starts and self.flushed != p:
             self.flushed = p
             out = self.decoder.flush()
         else:
@@ -353,7 +377,7 @@ class _Cursor:
 
 
 class _Stream:
-    """The decoders over one mp4v or H.264 file and the last _CACHED_FRAMES
+    """The decoders over one mp4v, H.264 or HEVC file and the last _CACHED_FRAMES
     frames they decoded. Readers of frame i take the lock: a frame at hand
     is copied out; else the cursor that stands after the entry point of i
     and has not output i decodes on to it; else a new cursor starts at that

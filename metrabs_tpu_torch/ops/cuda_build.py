@@ -61,13 +61,18 @@ def build_host_library(name: str, csrc_dir: Path = CSRC_DIR) -> Tuple[Path, floa
                   name)
 
 
-def _source_bytes(source: Path) -> bytes:
-    """The source and the local headers it includes (`#include "x.h"`), so
-    that an edited header builds anew too."""
+def _source_bytes(source: Path, seen=None) -> bytes:
+    """The source and the local headers it includes (`#include "x.h"`, and
+    theirs), so that an edited header builds anew too."""
+    seen = set() if seen is None else seen
     data = source.read_bytes()
+    out = data
     for header in re.findall(rb'^#include "([^"]+)"', data, re.M):
-        data += (source.parent / header.decode()).read_bytes()
-    return data
+        path = source.parent / header.decode()
+        if path not in seen:
+            seen.add(path)
+            out += _source_bytes(path, seen)
+    return out
 
 
 def _build(compiler: Callable[[], str], source: Path, flags: Tuple[str, ...], name: str) -> Tuple[Path, float]:

@@ -332,8 +332,11 @@ def parameter_sets(data: bytes) -> Optional[bytes]:
 
 def write_container(path: Path, packets, keys, size, fps: float, codec: str,
                     times=None) -> None:
-    """Annex B H.264 packets (codec 'h264') or mp4v packets ('xvid') into
-    the container the extension names, through the port's muxers. `times`
+    """Annex B H.264 packets (codec 'h264'), HEVC packets ('hevc': MP4
+    `hvc1` and Matroska without the parameter sets in band, AVI `HEVC` with
+    them; 'hev1': an MP4 `hev1` track that keeps them) or mp4v packets
+    ('xvid') into the container the extension names, through the port's
+    muxers. `times`
     (x264's (pts, dts) per packet, in frames) marks a stream whose frames
     are reordered: Matroska's block timestamps are then the presentation
     times, and the MP4 gets the time base, `ctts` and `elst` that FFmpeg's
@@ -342,7 +345,10 @@ def write_container(path: Path, packets, keys, size, fps: float, codec: str,
     w, h = size
     ext = path.suffix
     with open(path, 'wb') as f:
-        if codec == 'h264':
+        if codec in ('hevc', 'hev1'):
+            from _torch_hevc_fixtures import hevc_container_args
+            mux, data = hevc_container_args(f, ext, packets, size, fps, codec)
+        elif codec == 'h264':
             config = parameter_sets(packets[0])
             lp = [annexb_to_lengths(p) for p in packets]
             if ext == '.avi':

@@ -1,0 +1,595 @@
+"""Writes the HEVC fixtures of the port's video layer with libx265 through
+ctypes (cv2's FFmpeg writer opens no HEVC encoder that works everywhere,
+and where libx265, libde265 and cv2 are missing, as on a GPU host,
+`chip_smoke.py` holds the port's decoder to the recorded hashes):
+
+- `tests/torch_fixtures/hevc/hevc_<size>.mp4|.mkv|.avi`: 14 frames across a
+  GOP of 12 (an IDR picture at 0 and, x265's open GOP being its default, a
+  CRA picture at 12, P slices between, no B slices) of
+  shifted copies of the portrait JPEG fixture at 96x66 (coded as 96x72 and
+  cropped by the conformance window) and 320x568, x265's `medium` preset at
+  its default rate, in the three containers written by the port's muxers
+  (MP4 `hvc1` with the hvcC and no parameter sets in band, Matroska
+  `V_MPEGH/ISO/HEVC` likewise, AVI `HEVC` in Annex B with the parameter
+  sets before each key frame), `hevc_96x66_hev1.mp4` (`hev1`: the
+  parameter sets in band as well) and `hevc_1080x1920.mp4`;
+- `hevc_tool_<tool>.mp4`: 96x66 clips with one of x265's options that
+  switches a coding tool on or off (CTU and TU sizes, AMP and rectangular
+  partitions, transform skip, lossless coding, scaling lists, sign hiding,
+  SAO, deblocking, TMVP, merge candidates, references, slices, WPP,
+  constrained intra prediction, strong intra smoothing, quantisation
+  groups with chroma offsets, weighted prediction, open GOPs with CRA
+  pictures, the VUI's range and matrix, the decoded-picture hash SEI);
+  `hevc_1080x1920.mp4` and the MP4 and Matroska clips at 96x66 carry MD5
+  hash SEIs as well;
+- `manifest.json`: per file x265's options, cv2's frame count, rate, size
+  and frames read, its seek for every N (JAX's `imread`, read twice), and
+  per frame the SHA-256 of the packet as cv2 returns it (`CAP_PROP_FORMAT`
+  -1) with its key flag, of FFmpeg's luma plane (`cv2.CAP_PROP_CONVERT_RGB`
+  0), of `cv2.VideoCapture`'s frame as RGB and of libde265's Y, U and V
+  planes (a second decoder: cv2 gives no chroma plane). For a stream whose
+  VUI names the BT.709 matrix cv2's raw output is not the luma plane (it
+  converts it): `luma_from` is then 'libde265' and the luma hashes are
+  libde265's.
+
+    python tests/_torch_hevc_fixtures.py
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+from pathlib import Path
+
+import numpy as np
+
+from _torch_h264_fixtures import _input_planes, cv2_entry, cv2_seeks, split_annexb, write_container
+from _torch_mp4v_fixtures import sha256, shifted_frames
+
+ROOT = Path(__file__).resolve().parent.parent
+HEVC_DIR = ROOT / 'tests' / 'torch_fixtures' / 'hevc'
+GOP = 12
+FRAMES = 14
+CONTAINERS = ('.mp4', '.mkv', '.avi')
+# x265's thread pool stays on: without it x265 writes no WPP substreams (and
+# broken slices); its output is the same on every run all the same.
+BASE = {'bframes': 0, 'frame-threads': 1, 'keyint': GOP, 'min-keyint': GOP, 'scenecut': 0,
+        'repeat-headers': 1, 'info': 0, 'log-level': 'error'}
+
+# (stem, fps, (width, height) or None for the fixture's size, containers)
+SIZES = [
+    ('hevc_96x66', 10.0, (96, 66), CONTAINERS),
+    ('hevc_320x568', 30000 / 1001, (320, 568), CONTAINERS),
+    ('hevc_1080x1920', 25.0, None, ('.mp4',)),
+]
+TOOLS = {
+    'ctu16': {'ctu': 16},
+    'ctu32': {'ctu': 32},
+    'max_tu4': {'max-tu-size': 4},
+    'max_tu8': {'max-tu-size': 8},
+    'tu_depth4': {'tu-intra-depth': 4, 'tu-inter-depth': 4},
+    'amp_rect': {'amp': 1, 'rect': 1},
+    'tskip': {'tskip': 1},
+    'lossless': {'lossless': 1},
+    'cu_lossless': {'cu-lossless': 1},
+    'scaling_default': {'scaling-list': 'default'},
+    'signhide0': {'signhide': 0},
+    'no_sao': {'sao': 0},
+    'sao_non_deblock': {'sao-non-deblock': 1},
+    'deblock_offsets': {'deblock': '-3:2'},
+    'no_deblock': {'no-deblock': 1},
+    'tmvp0': {'temporal-mvp': 0},
+    'max_merge1': {'max-merge': 1},
+    'max_merge5': {'max-merge': 5},
+    'ref1': {'ref': 1},
+    'ref4': {'ref': 4},
+    # x265 writes broken slices when they outnumber the CTU rows: 16x16 CTUs
+    # give 96x66 five rows.
+    'slices4': {'slices': 4, 'ctu': 16},
+    'no_wpp': {'wpp': 0, 'ctu': 32},  # beside ctu32, whose rows x265 codes as WPP substreams
+    'constrained_intra': {'constrained-intra': 1},
+    'strong_intra0': {'strong-intra-smoothing': 0},
+    'qg8_chroma_offsets': {'qg-size': 8, 'cbqpoffs': 3, 'crqpoffs': -2},
+    'weightp': {'weightp': 1},  # on a fade (FADE_TOOLS): x265 then sends weights
+    'open_gop': {'keyint': 6, 'min-keyint': 6, 'open-gop': 1},
+    'closed_gop': {'open-gop': 0},
+    'fullrange_bt709': {'range': 'full', 'colormatrix': 'bt709'},
+    'bt709': {'colormatrix': 'bt709'},
+    'hash1': {'hash': 1},
+    'hash2': {'hash': 2},
+    'hash3': {'hash': 3},
+}
+TOOL_SIZE = (96, 66)
+FADE_TOOLS = ('weightp',)  # clips of frames that darken by 6% a frame
+CASES = ([(stem + ext, fps, size, {}) for stem, fps, size, exts in SIZES for ext in exts]
+         + [('hevc_96x66_hev1.mp4', 10.0, (96, 66), {})]
+         + [(f'hevc_tool_{t}.mp4', 25.0, TOOL_SIZE, o) for t, o in TOOLS.items()])
+
+# NAL unit types (H.265 Table 7-1)
+VPS, SPS, PPS = 32, 33, 34
+IRAP = range(16, 24)
+
+
+def nal_type(nal: bytes) -> int:
+    return nal[0] >> 1 & 63
+
+
+# --------------------------------------------------------------------------
+# libx265 through ctypes (x265.h, API build 199)
+
+class _Nal(ctypes.Structure):
+    _fields_ = [('type', ctypes.c_uint32), ('size', ctypes.c_uint32),
+                ('payload', ctypes.POINTER(ctypes.c_uint8))]
+
+
+# Offsets in x265_picture (x265.h of build 199)
+PIC_PTS, PIC_PLANES, PIC_STRIDE, PIC_DEPTH, PIC_CSP = 0, 24, 48, 60, 72
+X265_CSP = {'i400': 0, 'i420': 1, 'i422': 2, 'i444': 3}
+
+
+def x265_encode(frames, options: dict, fps: float, csp: str = 'i420'):
+    """Annex B packets (one access unit per frame, in decoding order; the
+    VPS, SPS and PPS before each IRAP picture) and their key flags (an IRAP
+    picture), 8-bit samples in the chroma format `csp` (x264's input
+    layout: cv2's I420, the chroma repeated for 4:2:2 and 4:4:4)."""
+    lib = ctypes.CDLL('libx265.so.199')
+    vp = ctypes.c_void_p
+    lib.x265_param_alloc.restype = vp
+    lib.x265_param_free.argtypes = [vp]
+    lib.x265_param_default_preset.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
+    lib.x265_param_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
+    lib.x265_encoder_open_199.argtypes = [vp]
+    lib.x265_encoder_open_199.restype = vp
+    lib.x265_encoder_encode.argtypes = [vp, vp, vp, vp, vp]
+    lib.x265_encoder_close.argtypes = [vp]
+    lib.x265_picture_alloc.restype = vp
+    lib.x265_picture_free.argtypes = [vp]
+    lib.x265_picture_init.argtypes = [vp, vp]
+    h, w = frames[0].shape[:2]
+    param = lib.x265_param_alloc()
+    assert lib.x265_param_default_preset(param, b'medium', None) == 0
+    num, den = (fps, 1) if float(fps).is_integer() else (30000, 1001)
+    opts = dict(BASE, **options)
+    opts.update({'fps': f'{int(num)}/{int(den)}', 'input-res': f'{w}x{h}',
+                 'input-csp': csp})
+    for key, value in opts.items():
+        assert lib.x265_param_parse(param, key.encode(), str(value).encode()) == 0, (key, value)
+    enc = lib.x265_encoder_open_199(param)
+    assert enc, opts
+    pic, out = lib.x265_picture_alloc(), lib.x265_picture_alloc()
+    lib.x265_picture_init(param, pic)
+    lib.x265_picture_init(param, out)
+    nals, n_nal = ctypes.POINTER(_Nal)(), ctypes.c_uint32()
+    packets, keys = [], []
+
+    def collect(size):
+        if size <= 0:
+            return
+        data = b''.join(ctypes.string_at(nals[i].payload, nals[i].size)
+                        for i in range(n_nal.value))
+        packets.append(data)
+        vcl = [nal_type(n) for n in split_annexb(data) if nal_type(n) < 32]
+        keys.append(vcl[0] in IRAP)
+
+    for k, frame in enumerate(frames):
+        planes = _input_planes(frame, csp, 8)
+        n = len(planes)
+        ctypes.memmove(pic + PIC_PLANES, np.array([p.ctypes.data for p in planes] + [0] * (3 - n),
+                                                  np.uint64).tobytes(), 24)
+        ctypes.memmove(pic + PIC_STRIDE, np.array([p.strides[0] for p in planes] + [0] * (3 - n),
+                                                  np.int32).tobytes(), 12)
+        ctypes.memmove(pic + PIC_DEPTH, np.array([8], np.int32).tobytes(), 4)
+        ctypes.memmove(pic + PIC_CSP, np.array([X265_CSP[csp]], np.int32).tobytes(), 4)
+        ctypes.memmove(pic + PIC_PTS, np.array([k], np.int64).tobytes(), 8)
+        collect(lib.x265_encoder_encode(enc, ctypes.byref(nals), ctypes.byref(n_nal), pic, out))
+    while True:
+        size = lib.x265_encoder_encode(enc, ctypes.byref(nals), ctypes.byref(n_nal), None, out)
+        if size <= 0:
+            break
+        collect(size)
+    lib.x265_encoder_close(enc)
+    lib.x265_picture_free(pic)
+    lib.x265_picture_free(out)
+    lib.x265_param_free(param)
+    return packets, keys
+
+
+# --------------------------------------------------------------------------
+# libde265 through ctypes (de265.h): the second plane oracle
+
+def de265_decode(packets):
+    """libde265's (Y, U, V) of each picture of Annex B packets, in output
+    order."""
+    lib = ctypes.CDLL('libde265.so.0')
+    vp = ctypes.c_void_p
+    lib.de265_new_decoder.restype = vp
+    lib.de265_free_decoder.argtypes = [vp]
+    lib.de265_push_data.argtypes = [vp, ctypes.c_char_p, ctypes.c_int, ctypes.c_int64, vp]
+    lib.de265_flush_data.argtypes = [vp]
+    lib.de265_decode.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    lib.de265_get_next_picture.argtypes = [vp]
+    lib.de265_get_next_picture.restype = vp
+    lib.de265_get_image_plane.argtypes = [vp, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.de265_get_image_plane.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.de265_get_image_width.argtypes = [vp, ctypes.c_int]
+    lib.de265_get_image_height.argtypes = [vp, ctypes.c_int]
+    ctx = lib.de265_new_decoder()
+    out = []
+
+    def drain():
+        while True:
+            img = lib.de265_get_next_picture(ctx)
+            if not img:
+                return
+            planes = []
+            for c in range(3):
+                stride = ctypes.c_int()
+                ptr = lib.de265_get_image_plane(img, c, ctypes.byref(stride))
+                w, h = lib.de265_get_image_width(img, c), lib.de265_get_image_height(img, c)
+                a = np.ctypeslib.as_array(ptr, (h, stride.value))[:, :w].copy()
+                planes.append(a)
+            out.append(tuple(planes))
+
+    for k, packet in enumerate(packets):
+        assert lib.de265_push_data(ctx, packet, len(packet), k, None) == 0
+        more = ctypes.c_int(1)
+        while more.value:
+            err = lib.de265_decode(ctx, ctypes.byref(more))
+            drain()
+            if err in (13, 14):  # DE265_ERROR_WAITING_FOR_INPUT_DATA, IMAGE_BUFFER_FULL
+                break
+    lib.de265_flush_data(ctx)
+    more = ctypes.c_int(1)
+    while more.value:
+        lib.de265_decode(ctx, ctypes.byref(more))
+        drain()
+    lib.de265_free_decoder(ctx)
+    return out
+
+
+
+def hevc_frames(n: int, size, tool: str = ''):
+    """`shifted_frames`, darkening by 6% a frame for the FADE_TOOLS."""
+    frames = shifted_frames(n, size)
+    if tool in FADE_TOOLS:
+        frames = [np.ascontiguousarray((f * (1 - 0.06 * k)).astype(np.uint8))
+                  for k, f in enumerate(frames)]
+    return frames
+
+
+# --------------------------------------------------------------------------
+# HEVC packets for the containers
+
+def hvcc(vps: bytes, sps: bytes, pps: bytes) -> bytes:
+    """An hvcC (ISO/IEC 14496-15 HEVCDecoderConfigurationRecord) of one VPS,
+    SPS and PPS (NAL units without start codes), 4-byte NAL lengths, the
+    profile, tier and level copied from the SPS's profile_tier_level."""
+    ptl = rbsp(sps)[1:13]  # after the VPS id, sub-layer count and nesting flag
+    head = bytes([1]) + ptl + bytes([0xF0, 0x00, 0xFC, 0xFD, 0xF8, 0xF8, 0, 0, 0x0F])
+    arrays = b''.join(bytes([0x80 | t, 0, 1]) + len(nal).to_bytes(2, 'big') + nal
+                      for t, nal in ((VPS, vps), (SPS, sps), (PPS, pps)))
+    return head + bytes([3]) + arrays
+
+
+def rbsp(nal: bytes) -> bytes:
+    """A NAL unit's payload without its 2-byte header and emulation prevention."""
+    out, zeros = bytearray(), 0
+    for b in nal[2:]:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def hevc_container_args(f, ext: str, packets, size, fps: float, codec: str):
+    """The port's muxer for an HEVC stream in `ext` and the packets it holds."""
+    from metrabs_tpu_torch.data import mp4, mpeg4, video
+    from _torch_h264_fixtures import annexb_to_lengths
+    w, h = size
+    sets = {nal_type(n): n for n in split_annexb(packets[0]) if nal_type(n) in (VPS, SPS, PPS)}
+    config = hvcc(sets[VPS], sets[SPS], sets[PPS])
+
+    def without_sets(p):
+        return b''.join(b'\x00\x00\x00\x01' + n for n in split_annexb(p)
+                        if nal_type(n) not in (VPS, SPS, PPS))
+
+    if ext == '.avi':
+        return video._AviMuxer(f, w, h, fps, b'HEVC'), packets
+    lp = [annexb_to_lengths(p if codec == 'hev1' else without_sets(p)) for p in packets]
+    if ext == '.mkv':
+        return video._MatroskaMuxer(f, w, h, fps, b'V_MPEGH/ISO/HEVC', config), lp
+    res, inc = mpeg4.time_base(fps)
+    return mp4.Mp4Muxer(f, w, h, res, inc, config, codec='hvc1' if codec == 'hevc' else 'hev1'), lp
+
+
+# --------------------------------------------------------------------------
+# What the parameter sets say (to read each clip's tool back)
+
+class BitReader:
+    def __init__(self, data: bytes):
+        self.bits, self.pos = ''.join(f'{b:08b}' for b in data), 0
+
+    def u(self, n: int) -> int:
+        v = int(self.bits[self.pos:self.pos + n] or '0', 2)
+        self.pos += n
+        return v
+
+    def ue(self) -> int:
+        zeros = 0
+        while self.bits[self.pos] == '0':
+            zeros += 1
+            self.pos += 1
+        self.pos += 1
+        return (1 << zeros) - 1 + self.u(zeros)
+
+    def se(self) -> int:
+        k = self.ue()
+        return (k + 1) // 2 if k & 1 else -(k // 2)
+
+
+def _skip_ptl(r: BitReader, max_sub_layers_minus1: int) -> int:
+    r.u(3)
+    profile = r.u(5)
+    r.u(32 + 48 + 8)
+    flags = [(r.u(1), r.u(1)) for _ in range(max_sub_layers_minus1)]
+    if max_sub_layers_minus1:
+        r.u(2 * (8 - max_sub_layers_minus1))
+    for p, lv in flags:
+        r.u(88 * p + 8 * lv)
+    return profile
+
+
+def _st_rps(r: BitReader, idx: int, sets: list, num: int) -> list:
+    """st_ref_pic_set(idx) (7.3.7): its (POC delta, used by the current
+    picture) pairs, in no particular order."""
+    if idx and r.u(1):
+        ref = sets[idx - 1 - (r.ue() if idx == num else 0)]
+        sign, delta = r.u(1), r.ue() + 1
+        delta = -delta if sign else delta
+        out = []
+        for d, _ in ref + [(0, 0)]:
+            used = r.u(1)
+            if (used or r.u(1)) and d + delta:
+                out.append((d + delta, used))
+        return out
+    neg, pos = r.ue(), r.ue()
+    out, poc = [], 0
+    for _ in range(neg):
+        poc -= r.ue() + 1
+        out.append((poc, r.u(1)))
+    poc = 0
+    for _ in range(pos):
+        poc += r.ue() + 1
+        out.append((poc, r.u(1)))
+    return out
+
+
+def sps_fields(nal: bytes) -> dict:
+    r = BitReader(rbsp(nal))
+    r.u(4)
+    msl = r.u(3)
+    r.u(1)
+    f = dict(profile=_skip_ptl(r, msl))
+    r.ue()
+    f['at_chroma_format_idc'] = r.pos
+    f['chroma_format_idc'] = r.ue()
+    f['width'], f['height'] = r.ue(), r.ue()
+    if r.u(1):
+        f['conformance_window'] = [r.ue() for _ in range(4)]
+    f['at_bit_depth'] = r.pos
+    f['bit_depth'] = (r.ue() + 8, r.ue() + 8)
+    f['log2_max_poc_lsb'] = r.ue() + 4
+    ordering = r.u(1)
+    for _ in range(0 if ordering else msl, msl + 1):
+        f['max_dec_pic_buffering'], f['max_num_reorder'] = r.ue() + 1, r.ue()
+        r.ue()
+    f['log2_min_cb'] = r.ue() + 3
+    f['log2_ctb'] = f['log2_min_cb'] + r.ue()
+    f['log2_min_tb'] = r.ue() + 2
+    f['log2_max_tb'] = f['log2_min_tb'] + r.ue()
+    f['max_th_depth_inter'], f['max_th_depth_intra'] = r.ue(), r.ue()
+    f['scaling_list'] = r.u(1)
+    if f['scaling_list']:
+        f['scaling_list_data'] = r.u(1)
+        if f['scaling_list_data']:
+            raise ValueError('SPS scaling lists are not parsed here')
+    f['amp'], f['sao'] = r.u(1), r.u(1)
+    f['at_pcm'] = r.pos
+    f['pcm'] = r.u(1)
+    if f['pcm']:
+        raise ValueError('PCM parameters are not parsed here')
+    sets = []
+    n = r.ue()
+    for i in range(n):
+        sets.append(_st_rps(r, i, sets, n))
+    f['st_rps'] = sets
+    f['at_long_term_refs'] = r.pos
+    f['long_term_refs'] = r.u(1)
+    if f['long_term_refs']:
+        raise ValueError('long-term parameters are not parsed here')
+    f['temporal_mvp'], f['strong_intra_smoothing'] = r.u(1), r.u(1)
+    f['full_range'], f['matrix'] = 0, 2
+    if r.u(1):  # VUI
+        if r.u(1) and r.u(8) == 255:
+            r.u(32)
+        if r.u(1):
+            r.u(1)
+        if r.u(1):
+            r.u(3)
+            f['full_range'] = r.u(1)
+            if r.u(1):
+                r.u(16)
+                f['matrix'] = r.u(8)
+        if r.u(1):
+            r.ue()
+            r.ue()
+        r.u(1)
+        f['at_field_seq'] = r.pos
+    return f
+
+
+def pps_fields(nal: bytes) -> dict:
+    r = BitReader(rbsp(nal))
+    f = dict(id=r.ue(), sps_id=r.ue())
+    f['at_dependent_slices'] = r.pos
+    f['dependent_slices'], f['output_flag_present'] = r.u(1), r.u(1)
+    f['num_extra_bits'] = r.u(3)
+    f['sign_hiding'], f['cabac_init_present'] = r.u(1), r.u(1)
+    f['num_ref_idx_default'] = (r.ue() + 1, r.ue() + 1)
+    f['init_qp'] = 26 + r.se()
+    f['constrained_intra'], f['transform_skip'], f['cu_qp_delta'] = r.u(1), r.u(1), r.u(1)
+    f['diff_cu_qp_delta_depth'] = r.ue() if f['cu_qp_delta'] else 0
+    f['cb_qp_offset'], f['cr_qp_offset'] = r.se(), r.se()
+    f['slice_chroma_qp_offsets'] = r.u(1)
+    f['weighted_pred'], f['weighted_bipred'] = r.u(1), r.u(1)
+    f['transquant_bypass'] = r.u(1)
+    f['at_tiles'] = r.pos
+    f['tiles'], f['wpp'] = r.u(1), r.u(1)
+    if f['tiles']:
+        raise ValueError('tiles are not parsed here')
+    f['loop_filter_across_slices'] = r.u(1)
+    f['deblocking_disabled'], f['beta_offset'], f['tc_offset'] = 0, 0, 0
+    if r.u(1):
+        f['deblocking_override'] = r.u(1)
+        f['deblocking_disabled'] = r.u(1)
+        if not f['deblocking_disabled']:
+            f['beta_offset'], f['tc_offset'] = 2 * r.se(), 2 * r.se()
+    f['scaling_list_data'] = r.u(1)
+    return f
+
+
+def slice_fields(nal: bytes, sps: dict, pps: dict) -> dict:
+    """A slice segment header (7.3.6.1) up to five_minus_max_num_merge_cand."""
+    r = BitReader(rbsp(nal))
+    t = nal_type(nal)
+    f = dict(nal_type=t, first=r.u(1))
+    if 16 <= t <= 23:
+        r.u(1)
+    r.ue()
+    if not f['first']:
+        ctb = 1 << sps['log2_ctb']
+        ctbs = -(-sps['width'] // ctb) * -(-sps['height'] // ctb)
+        f['address'] = r.u((ctbs - 1).bit_length())
+    r.u(pps['num_extra_bits'])
+    f['type'] = r.ue()  # 0 B, 1 P, 2 I
+    if t not in (19, 20):
+        r.u(sps['log2_max_poc_lsb'])
+        n = len(sps['st_rps'])
+        if r.u(1):
+            r.u((n - 1).bit_length() if n > 1 else 0)
+        else:
+            _st_rps(r, n, sps['st_rps'], n)
+        f['temporal_mvp'] = r.u(1) if sps['temporal_mvp'] else 0
+    if sps['sao']:
+        f['sao'] = (r.u(1), r.u(1))
+    if f['type'] == 1:
+        f['num_ref_idx'] = r.ue() + 1 if r.u(1) else pps['num_ref_idx_default'][0]
+        if pps['cabac_init_present']:
+            f['cabac_init'] = r.u(1)
+        if f.get('temporal_mvp') and f['num_ref_idx'] > 1:
+            r.ue()
+        if pps['weighted_pred']:
+            r.ue()
+            r.se()
+            luma = [r.u(1) for _ in range(f['num_ref_idx'])]
+            chroma = [r.u(1) for _ in range(f['num_ref_idx'])]
+            f['weights'] = any(luma) or any(chroma)
+            for lw, cw in zip(luma, chroma):
+                for _ in range(2 * lw + 4 * cw):
+                    r.se()
+        f['max_merge'] = 5 - r.ue()
+    return f
+
+
+def stream_fields(packets) -> dict:
+    """Of Annex B packets: the first SPS and PPS, the slice headers of each
+    packet and the hash SEI's type (None without one)."""
+    sps = pps = None
+    slices, hash_type = [], None
+    for p in packets:
+        nals = list(split_annexb(p))
+        for n in nals:
+            if nal_type(n) == SPS and sps is None:
+                sps = sps_fields(n)
+            elif nal_type(n) == PPS and pps is None:
+                pps = pps_fields(n)
+            elif nal_type(n) == 40 and n[2] == 132:  # decoded_picture_hash
+                hash_type = n[4]
+        slices.append([slice_fields(n, sps, pps) for n in nals if nal_type(n) < 32])
+    return dict(sps=sps, pps=pps, slices=slices, hash_type=hash_type)
+
+
+def nal_from_bits(header: bytes, bits: str) -> bytes:
+    """A NAL unit of an RBSP's bits: stop bit, alignment, emulation prevention."""
+    bits += '1'
+    bits += '0' * (-len(bits) % 8)
+    raw = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    out, zeros = bytearray(header), 0
+    for b in raw:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def rbsp_bits(nal: bytes) -> str:
+    """The RBSP of a NAL unit as bits, without its stop bit and alignment."""
+    return ''.join(f'{b:08b}' for b in rbsp(nal)).rstrip('0')[:-1]
+
+
+def edit_parameter_set(packets, kind: int, at: str, value: str, width: int = 1):
+    """Annex B packets whose SPS (kind SPS) or PPS (PPS) has `width` bits at
+    the field position `at` (of sps_fields/pps_fields) replaced by `value`."""
+    out = []
+    for p in packets:
+        nals = []
+        for n in split_annexb(p):
+            if nal_type(n) == kind:
+                pos = (sps_fields if kind == SPS else pps_fields)(n)[at]
+                bits = rbsp_bits(n)
+                n = nal_from_bits(n[:2], bits[:pos] + value + bits[pos + width:])
+            nals.append(n)
+        out.append(b''.join(b'\x00\x00\x00\x01' + n for n in nals))
+    return out
+
+
+# --------------------------------------------------------------------------
+
+def write_fixtures() -> None:
+    HEVC_DIR.mkdir(parents=True, exist_ok=True)
+    manifest, encoded = {}, {}
+    for name, fps, size, options in CASES:
+        stem = name.rsplit('.', 1)[0]
+        tool = stem[len('hevc_tool_'):] if stem.startswith('hevc_tool_') else ''
+        opts = dict(options)
+        if name.endswith(('.mp4', '.mkv')) and not tool and stem != 'hevc_320x568':
+            opts.setdefault('hash', 1)  # MD5 SEIs for the card to check
+        key = (stem.replace('_hev1', ''), fps, size, tuple(sorted(opts.items())))
+        if key not in encoded:
+            frames = hevc_frames(FRAMES, size, tool)
+            packets, keys = x265_encode(frames, opts, fps)
+            encoded[key] = packets, keys, de265_decode(packets), frames[0].shape[1::-1]
+        packets, keys, planes, wh = encoded[key]
+        path = HEVC_DIR / name
+        write_container(path, packets, keys, wh, fps, 'hev1' if 'hev1' in stem else 'hevc')
+        fields = stream_fields(packets)
+        entry = cv2_entry(path, dict(frames=FRAMES, fps=fps, width=wh[0], height=wh[1], x265=opts,
+                                     key_frames=keys,
+                                     slice_types=[[sl['type'] for sl in p] for p in fields['slices']],
+                                     hash_type=fields['hash_type']))
+        entry['de265_sha256'] = [[sha256(p) for p in yuv] for yuv in planes]
+        de265_luma = [yuv[0] for yuv in entry['de265_sha256']]
+        if entry['luma_sha256'] != de265_luma:  # cv2 converts the plane (BT.709)
+            entry['luma_sha256'], entry['luma_from'] = de265_luma, 'libde265'
+        entry['seek'] = cv2_seeks(path, entry['rgb_sha256'])
+        manifest[name] = entry
+        print(name, path.stat().st_size, entry['luma_from'])
+    (HEVC_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
+
+
+if __name__ == '__main__':
+    write_fixtures()

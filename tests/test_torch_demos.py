@@ -18,7 +18,8 @@ package's on the same weights or the same stub estimator:
   features are binned so that FFmpeg's decode (JAX's cv2.VideoCapture) and
   libjpeg's (the port's) of the flat frames give the same poses; with mp4v
   .mkv videos, as JAX's test writes them, the very same images and poses;
-- on an H.264 input (the libx264 fixtures, with and without B slices),
+- on an H.264 or HEVC input (the libx264 fixtures, with and without B
+  slices, and the libx265 ones),
   `demo_video` hands the same estimator JAX's very frames (JAX reads them
   through cv2) and prints JAX's line, and `transform_video` maps JAX's
   frames and writes an output no further from them than JAX's;
@@ -212,6 +213,12 @@ def h264_fixture(name: str) -> str:
     return str((H264_B_DIR if name.startswith('h264b_') else H264_DIR) / name)
 
 
+def hevc_fixture(name: str) -> str:
+    """A libx265 clip (I and P slices)."""
+    from _torch_hevc_fixtures import HEVC_DIR
+    return str(HEVC_DIR / name)
+
+
 class EdgeStub(layouts.StubEstimator):
     """The drivers' stub estimator with the skeleton edges the demos draw."""
 
@@ -238,17 +245,25 @@ def test_demo_video_on_h264_b_frames_matches_jax(tmp_path, monkeypatch, capsys, 
     demo_video_matches_jax(tmp_path, monkeypatch, capsys, h264_fixture(name))
 
 
+@pytest.mark.parametrize('name', ['hevc_320x568.mp4', 'hevc_96x66.mkv', 'hevc_96x66.avi'])
+def test_demo_video_on_hevc_matches_jax(tmp_path, monkeypatch, capsys, name):
+    """demo_video on a libx265 clip: JAX's frames, batches, poses and line;
+    each picture decoded once."""
+    demo_video_matches_jax(tmp_path, monkeypatch, capsys, hevc_fixture(name))
+
+
 def demo_video_matches_jax(tmp_path, monkeypatch, capsys, src):
     import metrabs_tpu.apps.demo_image as jax_demo_image
     from metrabs_tpu.apps import demo_video as jax_demo_video
-    from metrabs_tpu_torch.data import h264
+    from metrabs_tpu_torch.data import h264, hevc
+    codec = {'h264': h264, 'hevc': hevc}[video.index(src).kind]
     port, jax = EdgeStub(), EdgeStub()
     monkeypatch.setattr(demo_image, 'build_default_estimator', lambda device='cuda': port)
     monkeypatch.setattr(jax_demo_image, 'build_default_estimator', lambda: jax)
     args = ['--video', src, '--num-aug', '1', '--frame-batch', '4', '--max-boxes', '2']
-    before = h264.frames_decoded()
+    before = codec.frames_decoded()
     demo_video.main(args + ['--device', 'cpu', '--out', str(tmp_path / 'port.mp4')])
-    assert h264.frames_decoded() - before == 14
+    assert codec.frames_decoded() - before == 14
     port_line = last_json(capsys.readouterr().out)
     jax_demo_video.main(args + ['--out', str(tmp_path / 'jax.mp4')])
     jax_line = last_json(capsys.readouterr().out)
@@ -277,6 +292,12 @@ def test_transform_video_on_h264_b_frames_matches_jax(tmp_path):
     """transform_video on a libx264 .mp4 with B slices, ctts and elst: the
     frames in JAX's order, an output as close to them as JAX's."""
     transform_video_matches_jax(tmp_path, h264_fixture('h264b_96x66.mp4'))
+
+
+def test_transform_video_on_hevc_matches_jax(tmp_path):
+    """transform_video on a libx265 .mp4: the frames JAX sees, an output as
+    close to them as JAX's."""
+    transform_video_matches_jax(tmp_path, hevc_fixture('hevc_96x66.mp4'))
 
 
 def transform_video_matches_jax(tmp_path, src):

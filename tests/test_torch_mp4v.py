@@ -31,7 +31,7 @@ tests/_torch_mp4v_fixtures.py`) and on files written here:
 - frames read in order, through `iter_frames` or `predict_common`'s I/O
   pool, are each decoded once, whatever order the threads ask in;
 - B-VOPs, S-VOPs, quarter-pel, GMC, interlaced, data partitioning, MPEG
-  quantisation and HEVC raise UnsupportedVideo naming the tool or codec;
+  quantisation and VP9 raise UnsupportedVideo naming the tool or codec;
 - `transform_video` on JAX's layout: the port's output is no further from
   the inverted frames than JAX's (cv2's encoder) by TRANSFORM_MARGIN.
 """
@@ -485,9 +485,9 @@ def test_b_and_s_vops_raise_naming_them(vop_type, tool):
         decoder.decode(with_vop_type(idx.packet(1), vop_type))
 
 
-@pytest.mark.parametrize('ext, entry, codec', [('.mp4', b'mp4v', 'hvc1'),
-                                                ('.avi', b'mp4v', 'HEVC'),
-                                                ('.mkv', b'V_MPEG4/ISO/ASP', 'V_MPEGH/ISO/HEVC')])
+@pytest.mark.parametrize('ext, entry, codec', [('.mp4', b'mp4v', 'vp09'),
+                                                ('.avi', b'mp4v', 'VP90'),
+                                                ('.mkv', b'V_MPEG4/ISO/ASP', 'V_VP9')])
 def test_other_codecs_in_each_container_raise_naming_them(tmp_path, ext, entry, codec):
     data = (MP4V_DIR / f'mp4v_92x66{ext}').read_bytes()
     assert entry in data

@@ -109,26 +109,31 @@ def test_calibration_and_native_modules_are_held_to_the_card(path):
 
 
 @pytest.mark.parametrize('path', ['metrabs_tpu_torch/data/h264.py',
+                                  'metrabs_tpu_torch/data/hevc.py',
                                   'metrabs_tpu_torch/data/mpeg4.py',
+                                  'metrabs_tpu_torch/data/native_video.py',
                                   'metrabs_tpu_torch/data/mp4.py',
                                   'metrabs_tpu_torch/data/video.py'])
 def test_video_modules_are_held_to_the_card(path):
-    """The H.264 and mp4v modules are port files: no import of theirs, also
-    inside functions, is of JAX or of MISSING_ON_CARD."""
+    """The H.264, HEVC and mp4v modules are port files: no import of theirs,
+    also inside functions, is of JAX or of MISSING_ON_CARD."""
     assert path in PORT_FILES
     test_port_file_imports_nothing_of_jax(path)
     test_port_file_imports_no_cv2(path)
 
 
-@pytest.mark.parametrize('name', ['h264_decode.cpp', 'mpeg4_video.cpp', 'yuv_rgb.h'])
+@pytest.mark.parametrize('name', ['h264_decode.cpp', 'hevc_decode.cpp', 'mpeg4_video.cpp',
+                                  'video_codec.h', 'yuv_rgb.h'])
 def test_video_sources_include_no_library(name):
     """The host decoders include the C++ standard library and the port's own
-    `yuv_rgb.h` only: no FFmpeg, OpenCV, x264 or Xvid header."""
+    `video_codec.h` and `yuv_rgb.h` only: no FFmpeg, OpenCV, x264, x265,
+    libde265 or Xvid header."""
     source = (REPO / 'metrabs_tpu_torch' / 'csrc' / name).read_text()
     includes = [line.split(None, 1)[1] for line in source.splitlines()
                 if line.startswith('#include')]
-    assert includes and all(inc.startswith('<') and '.' not in inc or inc == '"yuv_rgb.h"'
-                            for inc in includes), includes
+    assert includes and all(inc.startswith('<') and '.' not in inc
+                            or inc in ('"video_codec.h"', '"yuv_rgb.h"') for inc in includes), \
+        includes
 
 
 def test_failed_h264_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):
@@ -145,6 +150,28 @@ def test_failed_h264_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match='false failed'):
         h264.Decoder()
     clip = str(REPO / 'tests' / 'torch_fixtures' / 'h264' / 'h264_96x66.mkv')
+    monkeypatch.setattr(video, '_INDEX_CACHE', {})
+    monkeypatch.setattr(video, '_STREAMS', {})
+    with pytest.raises(RuntimeError, match='false failed'):
+        video.read_frame(clip, 0)
+    assert not list(tmp_path.glob('*.so'))
+
+
+def test_failed_hevc_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):
+    """With the compiler failing (`CXX=false`) into an empty build directory,
+    building `hevc_decode.cpp` raises naming the compiler, and so does every
+    HEVC read: no other decoder (no system libde265 or libavcodec) takes
+    over."""
+    from metrabs_tpu_torch.data import hevc, video
+    from metrabs_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setenv('CXX', 'false')
+    monkeypatch.setattr(hevc, '_LIB', None)
+    with pytest.raises(RuntimeError, match='false failed on .*hevc_decode.cpp'):
+        cuda_build.build_host_library('hevc_decode')
+    with pytest.raises(RuntimeError, match='false failed'):
+        hevc.Decoder()
+    clip = str(REPO / 'tests' / 'torch_fixtures' / 'hevc' / 'hevc_96x66.mkv')
     monkeypatch.setattr(video, '_INDEX_CACHE', {})
     monkeypatch.setattr(video, '_STREAMS', {})
     with pytest.raises(RuntimeError, match='false failed'):

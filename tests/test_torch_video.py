@@ -285,8 +285,9 @@ def test_transform_video_like_jax(tmp_path):
 def test_other_codecs_raise_naming_it(tmp_path, ext, codec):
     """The codec cv2 writes for the mp4v FourCC in each container reads
     (tests/test_torch_mp4v.py holds its frames to FFmpeg's); the same file
-    with its codec renamed to HEVC's raises naming that (H.264, the name
-    this test used before the port read it, is tests/test_torch_h264.py's)."""
+    with its codec renamed to VP9's raises naming that (H.264 and HEVC, the
+    names this test used before the port read them, are
+    tests/test_torch_h264.py's and tests/test_torch_hevc.py's)."""
     path = str(tmp_path / f'clip{ext}')
     writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*'mp4v'), 10, (32, 24))
     assert writer.isOpened()
@@ -299,8 +300,8 @@ def test_other_codecs_raise_naming_it(tmp_path, ext, codec):
                                   jax_improc.imread(f'{path}#frame=2'))
     data = open(path, 'rb').read()
     entry = {'.mp4': b'mp4v', '.avi': b'mp4v', '.mkv': b'V_MPEG4/ISO/ASP'}[ext]
-    other = {'.mp4': b'hvc1', '.avi': b'HEVC', '.mkv': b'V_MPEGH/ISO/HEVC'}[ext]
-    renamed = str(tmp_path / f'hevc{ext}')
+    other = {'.mp4': b'vp09', '.avi': b'VP90', '.mkv': b'V_VP9'}[ext]
+    renamed = str(tmp_path / f'vp9{ext}')
     with open(renamed, 'wb') as f:
         if ext == '.mkv':  # a longer CodecID: the port's muxer writes the file with it
             src = video.index(path)
