@@ -222,8 +222,15 @@ line:
     held to the manifest's SHA-256, imread('#frame=N') for every N to cv2's
     seek table, the metadata to cv2's and every decoded-picture hash SEI
     checked (MD5 and checksum on every plane, x265's CRC on luma), the
-    1080x1920 decode timed per frame on one thread. Under runs/ (deleted
-    after): the mp4v encoder on
+    1080x1920 decode timed per frame on one thread; the same decoder on the
+    B-frame fixtures of tests/torch_fixtures/hevc_b (x265's medium B-frame
+    defaults at three sizes, MP4 with FFmpeg's ctts and elst, Matroska and
+    AVI; a clip per B-frame option; an edited stream), every packet, key
+    flag, luma and RGB frame in output order held to cv2's SHA-256, Y/U/V to
+    libde265's where its luma is FFmpeg's, every seek, the metadata and the
+    hash SEIs likewise, the 1080x1920 B-stream decode per packet timed on
+    one thread beside the I/P time. Under runs/ (deleted after): the mp4v
+    encoder on
     MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
     thread), read back with its luma equal to the encoder's reconstruction;
     metrabs_eff2s_y4 minted on H36M-17 with a firing YOLOv4-416, a 24-frame
@@ -236,7 +243,10 @@ line:
     B-frame .mkv views, whole closed GOPs of the 1080x1920 B-frame fixture
     (H264_B_DEMO_GOPS, H264_B_ASPSET_GOPS); a 24-frame 1080x1920 HEVC .mp4
     (hvc1) and a fourth ASPset layout of HEVC .mkv views, muxed from the
-    1080x1920 HEVC fixture's packets (each clip starts at an IRAP picture).
+    1080x1920 HEVC fixture's packets (each clip starts at an IRAP picture);
+    a 24-frame 1080x1920 B-frame HEVC .mp4 (ctts, elst) and a fifth ASPset
+    layout of B-frame HEVC .mkv views, whole closed GOPs of the 1080x1920
+    HEVC B fixture (HEVC_B_DEMO_GOPS, HEVC_B_ASPSET_GOPS).
     The demos' detector calls are
     made with `suppress_implausible_poses=False`, so that the random
     weights' poses survive and are drawn. `apps.demo_image.main` on the
@@ -254,7 +264,8 @@ line:
     against the plain warp, then profiled (busy share); on the B-frame .mp4
     once with every K1 launch against the plain warp, every input frame the
     manifest's, each picture decoded once (path demo_video_h264_b); on the
-    HEVC .mp4 likewise (path demo_video_hevc);
+    HEVC .mp4 and the HEVC B-frame .mp4 likewise (paths demo_video_hevc,
+    demo_video_hevc_b);
     `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
     (SMPL-24 package), its figures under JAX's names read back and timed;
     `apps.predict_aspset.main` on the mp4v .mkv clips and on the H.264
@@ -264,8 +275,9 @@ line:
     K1 launch against the plain warp and every K2 launch against the plain
     chain, both exact; on the B-frame .mkv views once with every launch so
     checked, every input frame the manifest's, each picture decoded once
-    by the 8 I/O threads (path predict_aspset_h264_b); on the HEVC .mkv
-    views likewise (path predict_aspset_hevc);
+    by the 8 I/O threads (path predict_aspset_h264_b); on the HEVC and HEVC
+    B-frame .mkv views likewise (paths predict_aspset_hevc,
+    predict_aspset_hevc_b);
 14. calibrate: camera calibration without OpenCV on the checkerboard
     fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
     1920x1080 JPEG views through a known lens, a partial board and an empty
@@ -3331,6 +3343,24 @@ H264_B_ASPSET_GOPS = {'left': (0, 1, 1), 'mid': (1, 0, 1)}
 # at 0 or the CRA at 12).
 HEVC_FIXTURES = 'tests/torch_fixtures/hevc'
 HEVC_SOURCE = 'hevc_1080x1920.mp4'
+# HEVC B slices: the fixtures, and the clip whose closed GOPs make the HEVC
+# B demo inputs, repeated whole: the IDR picture's (GOP 0, 12 frames) and the
+# CRA picture's, which has no leading pictures (GOP 1, 2 frames). A CRA
+# picture follows no GOP but an IDR picture's: after another CRA picture's
+# its picture order counts would repeat.
+HEVC_B_FIXTURES = 'tests/torch_fixtures/hevc_b'
+HEVC_B_SOURCE = 'hevcb_1080x1920.mp4'
+HEVC_B_DEMO_GOPS = (0, 0)
+HEVC_B_ASPSET_GOPS = {'left': (1, 0, 1), 'mid': (1, 0, 1)}
+# libde265's chroma is no oracle on this clip's slices (its luma is; cv2's
+# RGB holds the chroma).
+HEVC_B_DE265_CHROMA_DIFFERS = ('hevcb_tool_slices4.mp4',)
+# The B-frame clips whose GOPs make demo inputs: fixtures, clip, codec, and
+# the GOPs of demo_video's input and of each ASPset view.
+B_SOURCES = {'h264_b': (H264_B_FIXTURES, H264_B_SOURCE, 'h264', H264_B_DEMO_GOPS,
+                        H264_B_ASPSET_GOPS),
+             'hevc_b': (HEVC_B_FIXTURES, HEVC_B_SOURCE, 'hevc', HEVC_B_DEMO_GOPS,
+                        HEVC_B_ASPSET_GOPS)}
 # The decoder and the two ways each stream format muxes its fixture's packets
 MUXED = {'h264': (H264_FIXTURES, H264_SOURCE, 'avc1', b'V_MPEG4/ISO/AVC'),
          'hevc': (HEVC_FIXTURES, HEVC_SOURCE, 'hvc1', b'V_MPEGH/ISO/HEVC')}
@@ -3635,16 +3665,19 @@ def check_h264_b_fixtures(root: Path) -> dict:
                 n_timed=len(times))
 
 
-def check_hevc_fixtures(root: Path) -> dict:
-    """Every libx265 fixture (tests/torch_fixtures/hevc) through the port's
-    demuxer and HEVC decoder: each packet (as FFmpeg's hevc_mp4toannexb
-    hands it to cv2), key flag, Y/U/V plane (libde265's), luma plane and RGB
-    frame held to the SHA-256 in the manifest, imread('#frame=N') for every
-    N to cv2's seek table, size and frame count to cv2's, the rate within
-    1e-4, and every decoded-picture hash SEI checked: MD5 and checksum on
-    every plane, x265's CRC on luma (its chroma CRC covers the last CTU row
-    only); the 1080x1920 frames' decode (to RGB and planes) timed on one
-    thread."""
+def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES) -> dict:
+    """Every libx265 fixture of `fixtures` (tests/torch_fixtures/hevc: I and
+    P slices; hevc_b: B slices, in MP4 with FFmpeg's ctts and elst) through
+    the port's demuxer and HEVC decoder: each packet (as FFmpeg's
+    hevc_mp4toannexb hands it to cv2), key flag, luma plane and RGB frame (in
+    output order) held to cv2's SHA-256 in the manifest, Y/U/V to
+    libde265's where its luma is FFmpeg's (Y only on
+    HEVC_B_DE265_CHROMA_DIFFERS), imread('#frame=N') for every N to cv2's
+    seek table, size and frame count to cv2's, the rate within 1e-4, and
+    every decoded-picture hash SEI checked: MD5 and checksum on every plane,
+    x265's CRC on luma (its chroma CRC covers the last CTU row only); the
+    1080x1920 clip's decode (to RGB and planes of what each packet outputs)
+    timed per packet on one thread."""
     import hashlib
 
     from metrabs_tpu_torch.data import hevc, improc, video
@@ -3652,10 +3685,10 @@ def check_hevc_fixtures(root: Path) -> dict:
     def sha(data: bytes) -> str:
         return hashlib.sha256(data).hexdigest()
 
-    manifest = json.loads((root / HEVC_FIXTURES / 'manifest.json').read_text())
+    manifest = json.loads((root / fixtures / 'manifest.json').read_text())
     n_frames, n_seeks, n_hashes, times = 0, 0, 0, []
     for name, entry in sorted(manifest.items()):
-        path = str(root / HEVC_FIXTURES / name)
+        path = str(root / fixtures / name)
         idx = video.index(path)
         packets = [idx.packet(i) for i in range(idx.n_frames)]
         decoder = idx.decoder(0)
@@ -3673,6 +3706,10 @@ def check_hevc_fixtures(root: Path) -> dict:
         want_hashes = ((0, 0, 0), (0, 0, 0)) if hash_type is None else (
             (n, n, n), (0, n, n) if hash_type == 1 else (0, 0, 0))
         planes = [[sha(p.tobytes()) for p in yuv] for _, yuv in out]
+        chroma = name not in HEVC_B_DE265_CHROMA_DIFFERS
+        de265 = [want if agree and chroma else want[:1] + got[1:] if agree else got
+                 for got, want, agree in zip(planes, entry['de265_sha256'],
+                                             entry.get('de265_equals_ffmpeg', [True] * n))]
         seeks = []
         video._STREAMS.clear()
         for k in range(len(entry['seek'])):
@@ -3689,7 +3726,7 @@ def check_hevc_fixtures(root: Path) -> dict:
             ('packets', [sha(hevc.annexb(p, idx.config)) for p in packets],
              entry['packet_sha256']),
             ('key frames', idx.keyframes.tolist(), entry['key_frames']),
-            ('planes', planes, entry['de265_sha256']),
+            ('planes', planes, de265),
             ('luma', [p[0] for p in planes], entry['luma_sha256']),
             ('RGB', [sha(rgb.tobytes()) for rgb, _ in out], entry['rgb_sha256']),
             ('seeks', seeks, entry['seek']),
@@ -3727,33 +3764,36 @@ def mux_packets(root: Path, path: Path, order, codec: str = 'h264') -> list:
     return [want['rgb_sha256'][i] for i in order]
 
 
-def mux_h264_b(root: Path, path: Path, gops) -> list:
-    """The closed GOPs (numbered from 0, each from an IDR picture) of the
-    1080x1920 B-frame fixture, whole and in the order `gops`, muxed into
-    `path` as tests/_torch_h264_fixtures.py writes its clips: .mp4 with
-    FFmpeg's ctts and elst, .mkv with presentation timestamps. Returns the
-    manifest's RGB SHA-256 of each frame in output order."""
-    from metrabs_tpu_torch.data import h264, video
+def mux_b_gops(root: Path, path: Path, gops, source: str = 'h264_b') -> list:
+    """The closed GOPs (numbered from 0, each from a key frame) of a
+    1080x1920 B-frame fixture (B_SOURCES[source]), whole and in the order
+    `gops`, muxed into `path` as tests/_torch_h264_fixtures.py writes its
+    clips: .mp4 with FFmpeg's ctts and elst, .mkv with presentation
+    timestamps. Returns the manifest's RGB SHA-256 of each frame in output
+    order."""
+    from metrabs_tpu_torch.data import h264, hevc, video
 
     if str(root / 'tests') not in sys.path:
         sys.path.insert(0, str(root / 'tests'))
     from _torch_h264_fixtures import write_container
 
-    src = video.index(str(root / H264_B_FIXTURES / H264_B_SOURCE))
-    entry = json.loads((root / H264_B_FIXTURES / 'manifest.json').read_text())[H264_B_SOURCE]
+    fixtures, clip, codec = B_SOURCES[source][:3]
+    module = {'h264': h264, 'hevc': hevc}[codec]
+    src = video.index(str(root / fixtures / clip))
+    entry = json.loads((root / fixtures / 'manifest.json').read_text())[clip]
     starts = [int(k) for k in np.flatnonzero(src.keyframes)] + [src.n_frames]
     packets, keys, times, want = [], [], [], []
     for g in gops:
         first, end = starts[g], starts[g + 1]
         shift = len(packets) - first  # frames before this GOP in the output, less its own start
         for i in range(first, end):
-            packets.append(h264.annexb(src.packet(i), src.config))
+            packets.append(module.annexb(src.packet(i), src.config))
             keys.append(bool(src.keyframes[i]))
             pts, dts = entry['written']['times'][i]
             times.append((pts + shift, dts + shift))
         want += entry['rgb_sha256'][first:end]
     write_container(path, packets, keys, (src.width, src.height), entry['written']['fps'],
-                    'h264', times=times)
+                    codec, times=times)
     return want
 
 
@@ -3800,9 +3840,9 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
     JSON per view and 1080x1920 .mkv clips of ASPSET_FRAMES frames: mp4v (as
     JAX's test writes them) written by the port's own writer, or H.264 or
     HEVC muxed from the fixture's packets ('h264', 'hevc':
-    H264_ASPSET_PACKETS; 'h264_b': the B-frame fixture's GOPs,
-    H264_B_ASPSET_GOPS). Returns the manifest's RGB SHA-256 of each frame by
-    clip path (H.264, HEVC)."""
+    H264_ASPSET_PACKETS; 'h264_b', 'hevc_b': the B-frame fixture's GOPs,
+    B_SOURCES). Returns the manifest's RGB SHA-256 of each frame by clip
+    path (H.264, HEVC)."""
     from metrabs_tpu_torch.data import video
 
     subj, vid = '01', '0001'
@@ -3824,8 +3864,8 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
         if codec in MUXED:
             want[str(clip)] = mux_packets(root, clip, H264_ASPSET_PACKETS[view], codec)
             continue
-        if codec == 'h264_b':
-            want[str(clip)] = mux_h264_b(root, clip, H264_B_ASPSET_GOPS[view])
+        if codec in B_SOURCES:
+            want[str(clip)] = mux_b_gops(root, clip, B_SOURCES[codec][4][view], codec)
             continue
         with video.VideoWriter(str(clip), 50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]),
                                'mp4v') as writer:
@@ -3899,6 +3939,19 @@ def demos_phase(root: Path, dev) -> dict:
                 f'planes {hevc_fx["ms"]:.2f} ms per frame on one thread (median of '
                 f'{hevc_fx["n_timed"]}; all: ' + ', '.join(f'{t:.1f}' for t in hevc_fx['all_ms'])
                 + f') on {card_name()}')
+    hevc_b_fx = check_hevc_fixtures(root, HEVC_B_FIXTURES)
+    phase(name, f'HEVC decoder, B slices: {hevc_b_fx["files"]} libx265 files (x265\'s medium '
+                f'B-frame defaults in MP4 with ctts and elst, Matroska and AVI; a clip per '
+                f'B-frame option; collocated_from_l0_flag 1 edited in), all '
+                f'{hevc_b_fx["frames"]} frames\' packets, key flags, luma planes and RGB frames '
+                f'(output order) equal their cv2 hashes, Y/U/V libde265\'s where its luma is '
+                f'FFmpeg\'s, all {hevc_b_fx["seeks"]} imread(#frame=N) equal cv2\'s seek table, '
+                f'sizes, counts and rates cv2\'s, {hevc_b_fx["hashes"]} plane hashes of the '
+                f'decoded-picture hash SEIs checked; 1080x1920 B-stream decode '
+                f'{hevc_b_fx["ms"]:.2f} ms per packet on one thread (median of '
+                f'{hevc_b_fx["n_timed"]}; all: '
+                + ', '.join(f'{t:.1f}' for t in hevc_b_fx['all_ms'])
+                + f'), I/P {hevc_fx["ms"]:.2f} ms in this run, on {card_name()}')
 
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
@@ -3924,11 +3977,14 @@ def demos_phase(root: Path, dev) -> dict:
         h264_want = mux_packets(root, h264_src, H264_DEMO_PACKETS)
         mint_aspset_layout(root, work / 'aspset_h264', 'h264')
         h264b_src = work / 'in_h264_b.mp4'
-        h264b_want = mux_h264_b(root, h264b_src, H264_B_DEMO_GOPS)
+        h264b_want = mux_b_gops(root, h264b_src, H264_B_DEMO_GOPS)
         aspset_b_want = mint_aspset_layout(root, work / 'aspset_h264_b', 'h264_b')
         hevc_src = work / 'in_hevc.mp4'
         hevc_want = mux_packets(root, hevc_src, H264_DEMO_PACKETS, 'hevc')
         aspset_hevc_want = mint_aspset_layout(root, work / 'aspset_hevc', 'hevc')
+        hevcb_src = work / 'in_hevc_b.mp4'
+        hevcb_want = mux_b_gops(root, hevcb_src, HEVC_B_DEMO_GOPS, 'hevc_b')
+        aspset_hevc_b_want = mint_aspset_layout(root, work / 'aspset_hevc_b', 'hevc_b')
         phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
                     f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
                     f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
@@ -3939,7 +3995,9 @@ def demos_phase(root: Path, dev) -> dict:
                     f'1080x1920 B-frame H.264 .mp4 (ctts, elst) and an ASPset layout of B-frame '
                     f'.mkv views, whole closed GOPs of {H264_B_SOURCE}; a {len(hevc_want)}-frame '
                     f'1080x1920 HEVC .mp4 (hvc1) and an ASPset layout of HEVC .mkv views, muxed '
-                    f'by the port from {HEVC_SOURCE}\'s packets')
+                    f'by the port from {HEVC_SOURCE}\'s packets; a {len(hevcb_want)}-frame '
+                    f'1080x1920 B-frame HEVC .mp4 (ctts, elst) and an ASPset layout of B-frame '
+                    f'HEVC .mkv views, whole closed GOPs of {HEVC_B_SOURCE}')
 
         # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
         # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
@@ -4102,37 +4160,41 @@ def demos_phase(root: Path, dev) -> dict:
         launches[key] = (r['k1'], r['k2'])
         del r
 
-        # demo_video on the HEVC .mp4: every K1 launch against the plain warp,
-        # every input frame the manifest's, each picture decoded once.
-        key = 'demo_video_hevc'
-        r, warp_errs = checked_warps(lambda: drivers.run(
-            drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_video.main, [
-                '--video', str(hevc_src), '--package', str(work / 'pkg'),
-                '--out', str(work / f'{key}.mp4'), '--frame-batch', str(DEMO_FRAME_BATCH)]))
-        result = json.loads(r['last'])
-        back = video.index(str(work / f'{key}.mp4'))
-        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(str(hevc_src))]
-        n_h = len(hevc_want)
-        warp_err = max(warp_errs, default=math.inf)
-        if (result['frames'] != n_h or back.n_frames != n_h or got != hevc_want
-                or result['total_poses'] == 0 or len(r['calls']) != n_h // DEMO_FRAME_BATCH
-                or r['k1'] < n_h // DEMO_FRAME_BATCH or len(warp_errs) != r['k1']
-                or not warp_err <= WARP_TOL or r['k2'] != 0 or r['hevc_decodes'] != n_h
-                or r['h264_decodes'] != 0 or r['mp4v_decodes'] != 0):
-            fail(name, f'{key}: {result}, {back.n_frames} frames read back, '
-                       f'{sum(a != b for a, b in zip(got, hevc_want))} of {n_h} input frames '
-                       f'unlike the manifest, {len(r["calls"])} batched calls, K1 {r["k1"]} '
-                       f'({len(warp_errs)} compared, max |kernel - plain| {warp_err:.3g}), K2 '
-                       f'{r["k2"]}, {r["hevc_decodes"]} HEVC pictures decoded')
-        phase(name, f'{key} ({hevc_src.name}, {n_h} frames of HEVC, frame batch '
-                    f'{DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} poses): every '
-                    f'input frame equal to the manifest (cv2\'s), {r["hevc_decodes"]} pictures '
-                    f'decoded ({r["hevc_decodes"] / n_h:g} per frame read); K1 {r["k1"]}, each '
-                    f'against the plain warp (max |kernel - plain| {warp_err:.3g}), K2 '
-                    f'{r["k2"]}; with the checks: {r["seconds"]:.2f} s, decoding '
-                    f'{r["decode_s"]:.2f} s')
-        launches[key] = (r['k1'], r['k2'])
-        del r
+        # demo_video on the HEVC .mp4 (I and P slices) and on the HEVC B-frame
+        # .mp4 (ctts, elst): every K1 launch against the plain warp, every
+        # input frame the manifest's, each picture decoded once.
+        for key, hevc_in, hevc_in_want, what in (
+                ('demo_video_hevc', hevc_src, hevc_want, 'HEVC'),
+                ('demo_video_hevc_b', hevcb_src, hevcb_want, 'B-frame HEVC with ctts and elst')):
+            r, warp_errs = checked_warps(lambda: drivers.run(
+                drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_video.main, [
+                    '--video', str(hevc_in), '--package', str(work / 'pkg'),
+                    '--out', str(work / f'{key}.mp4'), '--frame-batch', str(DEMO_FRAME_BATCH)]))
+            result = json.loads(r['last'])
+            back = video.index(str(work / f'{key}.mp4'))
+            got = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(str(hevc_in))]
+            n_h = len(hevc_in_want)
+            warp_err = max(warp_errs, default=math.inf)
+            if (result['frames'] != n_h or back.n_frames != n_h or got != hevc_in_want
+                    or result['total_poses'] == 0 or len(r['calls']) != n_h // DEMO_FRAME_BATCH
+                    or r['k1'] < n_h // DEMO_FRAME_BATCH or len(warp_errs) != r['k1']
+                    or not warp_err <= WARP_TOL or r['k2'] != 0 or r['hevc_decodes'] != n_h
+                    or r['h264_decodes'] != 0 or r['mp4v_decodes'] != 0):
+                fail(name, f'{key}: {result}, {back.n_frames} frames read back, '
+                           f'{sum(a != b for a, b in zip(got, hevc_in_want))} of {n_h} input '
+                           f'frames unlike the manifest, {len(r["calls"])} batched calls, K1 '
+                           f'{r["k1"]} ({len(warp_errs)} compared, max |kernel - plain| '
+                           f'{warp_err:.3g}), K2 {r["k2"]}, {r["hevc_decodes"]} HEVC pictures '
+                           f'decoded')
+            phase(name, f'{key} ({hevc_in.name}, {n_h} frames of {what}, frame batch '
+                        f'{DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} poses): '
+                        f'every input frame equal to the manifest (cv2\'s), {r["hevc_decodes"]} '
+                        f'pictures decoded ({r["hevc_decodes"] / n_h:g} per frame read); K1 '
+                        f'{r["k1"]}, each against the plain warp (max |kernel - plain| '
+                        f'{warp_err:.3g}), K2 {r["k2"]}; with the checks: {r["seconds"]:.2f} s, '
+                        f'decoding {r["decode_s"]:.2f} s')
+            launches[key] = (r['k1'], r['k2'])
+            del r
 
         # predict_3dpw --viz-dir (folded) on VIZ_3DPW: JAX's figure names, every
         # VIZ_STEP frames, read back.
@@ -4282,37 +4344,41 @@ def demos_phase(root: Path, dev) -> dict:
         launches[key] = (r['k1'], r['k2'])
         del r
 
-        # predict_aspset on the HEVC .mkv views, the same way.
-        key = 'predict_aspset_hevc'
-        (((r, warp_errs), v_errs, mean_errs)) = checked_mbconv(
-            lambda: checked_warps(lambda: aspset_run(f'pred_{key}', 'aspset_hevc')))
-        preds = [np.load(work / f'pred_{key}' / f'01-0001-{view}.npz')['coords3d_pred_world']
-                 for view in ASPSET_VIEWS]
-        unlike = sum(a != b for clip, want in aspset_hevc_want.items() for a, b in zip(
-            [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(clip)], want))
-        warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
-        if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
-                or len(warp_errs) != calls or len(v_errs) != K2_BLOCKS * calls or warp_err != 0.0
-                or err_v != 0.0 or r['hevc_decodes'] != n_frames or r['h264_decodes'] != 0
-                or r['mp4v_decodes'] != 0 or unlike
-                or sum(map(len, aspset_hevc_want.values())) != n_frames
-                or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
-                       for p in preds)):
-            fail(name, f'{key}: K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} and '
-                       f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, {len(warp_errs)} K1 '
-                       f'launches compared (max |kernel - plain| {warp_err:.3g}, must be 0), '
-                       f'{len(v_errs)} K2 (v max {err_v:.3g}, must be 0), {r["hevc_decodes"]} '
-                       f'pictures decoded (expected {n_frames}), {unlike} input frames unlike the '
-                       f'manifest, predictions {[p.shape for p in preds]}')
-        phase(name, f'{key} (HEVC .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
-                    f'unfolded, fuse_mbconv on: every input frame equal to the manifest; '
-                    f'{r["hevc_decodes"]} pictures decoded for {n_frames} frames read by 8 I/O '
-                    f'threads; K1 {r["k1"]}, each against the plain warp (max |kernel - plain| '
-                    f'{warp_err:.3g}), K2 {r["k2"]}, each against the plain chain (v max '
-                    f'{err_v:.3g}, SE mean max {max(mean_errs, default=math.inf):.3g}); with the '
-                    f'checks: {r["seconds"]:.2f} s, decoding {r["decode_s"]:.2f} s')
-        launches[key] = (r['k1'], r['k2'])
-        del r
+        # predict_aspset on the HEVC .mkv views (I and P slices) and on the
+        # HEVC B-frame .mkv views, the same way.
+        for key, layout, layout_want, what in (
+                ('predict_aspset_hevc', 'aspset_hevc', aspset_hevc_want, 'HEVC'),
+                ('predict_aspset_hevc_b', 'aspset_hevc_b', aspset_hevc_b_want, 'B-frame HEVC')):
+            (((r, warp_errs), v_errs, mean_errs)) = checked_mbconv(
+                lambda: checked_warps(lambda: aspset_run(f'pred_{key}', layout)))
+            preds = [np.load(work / f'pred_{key}' / f'01-0001-{view}.npz')['coords3d_pred_world']
+                     for view in ASPSET_VIEWS]
+            unlike = sum(a != b for clip, want in layout_want.items() for a, b in zip(
+                [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(clip)], want))
+            warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
+            if (r['k1'] != calls or r['k2'] != K2_BLOCKS * calls or len(r['calls']) != calls
+                    or len(warp_errs) != calls or len(v_errs) != K2_BLOCKS * calls
+                    or warp_err != 0.0 or err_v != 0.0 or r['hevc_decodes'] != n_frames
+                    or r['h264_decodes'] != 0 or r['mp4v_decodes'] != 0 or unlike
+                    or sum(map(len, layout_want.values())) != n_frames
+                    or any(p.shape != (ASPSET_FRAMES, 17, 3) or not np.isfinite(p).all()
+                           for p in preds)):
+                fail(name, f'{key}: K1 {r["k1"]}, K2 {r["k2"]} (expected {calls} and '
+                           f'{K2_BLOCKS * calls}), {len(r["calls"])} calls, {len(warp_errs)} K1 '
+                           f'launches compared (max |kernel - plain| {warp_err:.3g}, must be 0), '
+                           f'{len(v_errs)} K2 (v max {err_v:.3g}, must be 0), '
+                           f'{r["hevc_decodes"]} pictures decoded (expected {n_frames}), {unlike} '
+                           f'input frames unlike the manifest, predictions '
+                           f'{[p.shape for p in preds]}')
+            phase(name, f'{key} ({what} .mkv, num_aug 1, batch {ASPSET_BATCH}, antialias 2), '
+                        f'unfolded, fuse_mbconv on: every input frame equal to the manifest; '
+                        f'{r["hevc_decodes"]} pictures decoded for {n_frames} frames read by 8 I/O '
+                        f'threads; K1 {r["k1"]}, each against the plain warp (max |kernel - '
+                        f'plain| {warp_err:.3g}), K2 {r["k2"]}, each against the plain chain (v '
+                        f'max {err_v:.3g}, SE mean max {max(mean_errs, default=math.inf):.3g}); '
+                        f'with the checks: {r["seconds"]:.2f} s, decoding {r["decode_s"]:.2f} s')
+            launches[key] = (r['k1'], r['k2'])
+            del r
     finally:
         drivers.restore()
         shutil.rmtree(work, ignore_errors=True)

@@ -1,5 +1,5 @@
 // HEVC / H.265 video (ITU-T H.265) on the host: a decoder for progressive,
-// 8-bit 4:2:0 Main-profile streams of I and P slices whose planes equal
+// 8-bit 4:2:0 Main-profile streams of I, P and B slices whose planes equal
 // FFmpeg's (libavcodec's hevc decoder) bit for bit, as the standard's
 // decoding process is exact.
 //
@@ -14,21 +14,25 @@
 // data hiding, transform skip and transquant bypass (lossless CUs);
 // dequantisation with flat, default and SPS/PPS scaling lists, cu_qp_delta
 // and the chroma QP offsets; the 4x4 DST and the DCT from 4x4 to 32x32; the
-// inter partitions (AMP included) with merge (spatial, temporal from the
-// collocated picture, zero) and AMVP candidates, 8-tap luma and 4-tap
-// chroma interpolation and explicit weighted prediction; the short-term
-// reference picture sets (inter RPS prediction included) and list
-// modification; deblocking with slice and PPS offsets and SAO (band and
+// inter partitions (AMP included) with uni- and bi-prediction (inter_pred_idc),
+// merge (spatial, temporal from the collocated picture of either list,
+// combined bi-predictive, zero; 8x4 and 4x8 blocks from list 0) and AMVP
+// candidates of both lists, 8-tap luma and 4-tap chroma interpolation, the
+// default average and explicit weighted prediction of P and B slices; the
+// short-term reference picture sets (inter RPS prediction included),
+// RefPicList0 and RefPicList1 with list modification; deblocking with slice and PPS offsets and SAO (band and
 // edge offsets, merge left/up); the conformance window; the VUI's matrix
 // and range; the decoded-picture hash SEI (MD5, CRC and checksum), checked
 // on every picture that carries one.
 //
-// Refused, naming the tool ("unsupported"): B slices, bit depths above 8,
-// chroma formats other than 4:2:0, separate colour planes, field coding
+// Refused, naming the tool ("unsupported"): bit depths above 8, chroma
+// formats other than 4:2:0, separate colour planes, field coding
 // (field_seq_flag), tiles, dependent slice segments, PCM coding units,
-// long-term reference pictures, and the range, multilayer, 3D and screen
-// content extension flags. NAL units of layers above 0 are skipped, as
-// FFmpeg skips them.
+// long-term reference pictures, mvd_l1_zero_flag (which x265 never sets),
+// and the range, multilayer, 3D and screen content extension flags. NAL
+// units of layers above 0 are skipped, as FFmpeg skips them; so are the
+// RASL pictures of a CRA picture that starts the stream or follows an end of
+// sequence (FFmpeg's max_ra).
 //
 // Pictures are output as FFmpeg's decoder outputs them (its output FIFO):
 // by picture order count once more pictures wait than
@@ -1057,7 +1061,6 @@ class Decoder {
     }
     br.u(pps.num_extra_bits);
     s.type = br.ue_max(2, "slice_type");
-    if (s.type == SLICE_B) unsupported("B slices");
     s.pic_output = pps.output_flag_present ? br.u1() : true;
     s.poc_lsb = 0;
     s.rps = StRps();
@@ -1082,29 +1085,45 @@ class Decoder {
     }
     s.num_ref_idx[0] = s.num_ref_idx[1] = 0;
     s.list_mod[0] = s.list_mod[1] = false;
+    s.mvd_l1_zero = false;
     s.cabac_init = false;
     s.collocated_from_l0 = true;
     s.collocated_ref_idx = 0;
     s.max_merge = 5;
-    if (s.type == SLICE_P) {
+    if (s.type != SLICE_I) {
+      const int lists = s.type == SLICE_B ? 2 : 1;
       s.num_ref_idx[0] = pps.num_ref_idx_default[0];
-      if (br.u1()) s.num_ref_idx[0] = br.ue_max(14, "num_ref_idx_l0_active_minus1") + 1;
+      if (lists == 2) s.num_ref_idx[1] = pps.num_ref_idx_default[1];
+      if (br.u1()) {  // num_ref_idx_active_override_flag
+        s.num_ref_idx[0] = br.ue_max(14, "num_ref_idx_l0_active_minus1") + 1;
+        if (lists == 2) s.num_ref_idx[1] = br.ue_max(14, "num_ref_idx_l1_active_minus1") + 1;
+      }
       int total = 0;
       for (int i = 0; i < s.rps.count(); i++) total += s.rps.used[i];
-      if (total == 0) corrupt("a P slice without references");
-      if (pps.lists_modification && total > 1) {
-        s.list_mod[0] = br.u1();
-        if (s.list_mod[0])
-          for (int i = 0; i < s.num_ref_idx[0]; i++) {
-            s.list_entry[0][i] = br.u(ceil_log2(total));
-            if (s.list_entry[0][i] >= total) corrupt("list_entry_l0 %d of %d", s.list_entry[0][i], total);
-          }
+      if (total == 0) corrupt("an inter slice without references");
+      if (pps.lists_modification && total > 1)
+        for (int l = 0; l < lists; l++) {
+          s.list_mod[l] = br.u1();
+          if (s.list_mod[l])
+            for (int i = 0; i < s.num_ref_idx[l]; i++) {
+              s.list_entry[l][i] = br.u(ceil_log2(total));
+              if (s.list_entry[l][i] >= total) corrupt("list_entry_l%d %d of %d", l, s.list_entry[l][i], total);
+            }
+        }
+      if (lists == 2) {
+        s.mvd_l1_zero = br.u1();
+        // x265 writes 0 in every B slice: no fixture holds the other to check
+        // the inferred zero differences against FFmpeg.
+        if (s.mvd_l1_zero) unsupported("mvd_l1_zero_flag (list 1 motion vector differences inferred as zero)");
       }
       if (pps.cabac_init_present) s.cabac_init = br.u1();
-      if (s.temporal_mvp && s.num_ref_idx[0] > 1) {
-        s.collocated_ref_idx = br.ue_max(s.num_ref_idx[0] - 1, "collocated_ref_idx");
+      if (s.temporal_mvp) {
+        if (lists == 2) s.collocated_from_l0 = br.u1();
+        const int n = s.num_ref_idx[s.collocated_from_l0 ? 0 : 1];
+        if (n > 1) s.collocated_ref_idx = br.ue_max(n - 1, "collocated_ref_idx");
       }
-      if (pps.weighted_pred) parse_weights(br);
+      if ((pps.weighted_pred && s.type == SLICE_P) || (pps.weighted_bipred && s.type == SLICE_B))
+        parse_weights(br, lists);
       s.max_merge = 5 - br.ue_max(4, "five_minus_max_num_merge_cand");
     }
     s.qp = pps.init_qp + br.se();
@@ -1146,34 +1165,36 @@ class Decoder {
   }
   int sh_pps_id_ = -1;
 
-  // pred_weight_table() (7.3.6.3) of a P slice
-  void parse_weights(Bits& br) {
+  // pred_weight_table() (7.3.6.3) of a P (lists 1) or B (lists 2) slice
+  void parse_weights(Bits& br, int lists) {
     SliceHeader& s = sh;
     s.luma_log2_wd = br.ue_max(7, "luma_log2_weight_denom");
     s.chroma_log2_wd = s.luma_log2_wd + br.se();
     if (s.chroma_log2_wd < 0 || s.chroma_log2_wd > 7) corrupt("ChromaLog2WeightDenom of %d", s.chroma_log2_wd);
-    const int n = s.num_ref_idx[0];
-    bool luma[16], chroma[16];
-    for (int i = 0; i < n; i++) luma[i] = br.u1();
-    for (int i = 0; i < n; i++) chroma[i] = br.u1();
-    for (int i = 0; i < n; i++) {
-      s.luma_w[0][i] = 1 << s.luma_log2_wd;
-      s.luma_o[0][i] = 0;
-      if (luma[i]) {
-        s.luma_w[0][i] += br.se();
-        s.luma_o[0][i] = br.se();
-      }
-      for (int j = 0; j < 2; j++) {
-        s.chroma_w[0][i][j] = 1 << s.chroma_log2_wd;
-        s.chroma_o[0][i][j] = 0;
-      }
-      if (chroma[i])
-        for (int j = 0; j < 2; j++) {
-          int w = (1 << s.chroma_log2_wd) + br.se();
-          int delta = br.se();
-          s.chroma_w[0][i][j] = w;
-          s.chroma_o[0][i][j] = clip3(-128, 127, (128 - ((128 * w) >> s.chroma_log2_wd)) + delta);
+    for (int l = 0; l < lists; l++) {
+      const int n = s.num_ref_idx[l];
+      bool luma[16], chroma[16];
+      for (int i = 0; i < n; i++) luma[i] = br.u1();
+      for (int i = 0; i < n; i++) chroma[i] = br.u1();
+      for (int i = 0; i < n; i++) {
+        s.luma_w[l][i] = 1 << s.luma_log2_wd;
+        s.luma_o[l][i] = 0;
+        if (luma[i]) {
+          s.luma_w[l][i] += br.se();
+          s.luma_o[l][i] = br.se();
         }
+        for (int j = 0; j < 2; j++) {
+          s.chroma_w[l][i][j] = 1 << s.chroma_log2_wd;
+          s.chroma_o[l][i][j] = 0;
+        }
+        if (chroma[i])
+          for (int j = 0; j < 2; j++) {
+            int w = (1 << s.chroma_log2_wd) + br.se();
+            int delta = br.se();
+            s.chroma_w[l][i][j] = w;
+            s.chroma_o[l][i][j] = clip3(-128, 127, (128 - ((128 * w) >> s.chroma_log2_wd)) + delta);
+          }
+      }
     }
   }
 
@@ -1289,36 +1310,41 @@ class Decoder {
                dpb_.end());
   }
 
-  // RefPicList0 of the current P slice (8.3.4).
+  // RefPicList0 and, in a B slice, RefPicList1 of the current slice (8.3.4).
   void build_ref_lists() {
     num_refs_[0] = num_refs_[1] = 0;
     no_backward_pred_ = true;
     col_ = nullptr;
     SliceRefs refs;
-    if (sh.type == SLICE_P) {
+    if (sh.type != SLICE_I) {
       std::vector<Picture*> before, after;
       for (int i = 0; i < sh.rps.count(); i++)
         if (sh.rps.used[i]) (i < sh.rps.num_neg ? before : after).push_back(rps_pics_[i]);
-      std::vector<Picture*> temp;
       const int total = (int)(before.size() + after.size());
-      const int n = std::max(sh.num_ref_idx[0], total);
-      while ((int)temp.size() < n) {
-        for (Picture* p : before)
-          if ((int)temp.size() < n) temp.push_back(p);
-        for (Picture* p : after)
-          if ((int)temp.size() < n) temp.push_back(p);
+      for (int l = 0; l < (sh.type == SLICE_B ? 2 : 1); l++) {
+        // RefPicListTemp0: before, then after; RefPicListTemp1: after, then before
+        const std::vector<Picture*>& first = l ? after : before;
+        const std::vector<Picture*>& second = l ? before : after;
+        std::vector<Picture*> temp;
+        const int n = std::max(sh.num_ref_idx[l], total);
+        while ((int)temp.size() < n) {
+          for (Picture* p : first)
+            if ((int)temp.size() < n) temp.push_back(p);
+          for (Picture* p : second)
+            if ((int)temp.size() < n) temp.push_back(p);
+        }
+        num_refs_[l] = sh.num_ref_idx[l];
+        for (int i = 0; i < num_refs_[l]; i++) {
+          Picture* p = temp[sh.list_mod[l] ? sh.list_entry[l][i] : i];
+          refs_[l][i] = p;
+          refs_lt_[l][i] = false;
+          if (p->poc > cur_->poc) no_backward_pred_ = false;
+          refs.poc[l][i] = p->poc;
+          refs.lt[l][i] = false;
+          refs.id[l][i] = p->id;
+        }
       }
-      num_refs_[0] = sh.num_ref_idx[0];
-      for (int i = 0; i < num_refs_[0]; i++) {
-        Picture* p = temp[sh.list_mod[0] ? sh.list_entry[0][i] : i];
-        refs_[0][i] = p;
-        refs_lt_[0][i] = false;
-        if (p->poc > cur_->poc) no_backward_pred_ = false;
-        refs.poc[0][i] = p->poc;
-        refs.lt[0][i] = false;
-        refs.id[0][i] = p->id;
-      }
-      if (sh.temporal_mvp) col_ = refs_[0][sh.collocated_ref_idx];
+      if (sh.temporal_mvp) col_ = refs_[sh.collocated_from_l0 ? 0 : 1][sh.collocated_ref_idx];
     }
     cur_->slices.push_back(refs);
   }
@@ -1344,7 +1370,7 @@ class Decoder {
   int qg_x_ = -1, qg_y_ = -1;
   // The coding unit being decoded.
   bool cu_intra_ = false, cu_bypass_ = false, intra_split_ = false;
-  int cu_part_ = PART_2Nx2N, chroma_mode_ = 0, max_trafo_depth_ = 0;
+  int cu_part_ = PART_2Nx2N, chroma_mode_ = 0, max_trafo_depth_ = 0, cu_depth_ = 0;
 
   size_t i4(int x, int y) const { return (size_t)(y >> 2) * w4_ + (x >> 2); }
 
@@ -1424,7 +1450,8 @@ class Decoder {
     sp.tc_offset = sh.tc_offset;
     slice_params_.push_back(sp);
     log2_qg_ = sps.log2_ctb - (pps.cu_qp_delta ? pps.diff_cu_qp_delta_depth : 0);
-    const int init_type = sh.type == SLICE_I ? 0 : sh.cabac_init ? 2 : 1;
+    // 9.3.2.2: initType 1 for P and 2 for B slices, swapped by cabac_init_flag
+    const int init_type = sh.type == SLICE_I ? 0 : (sh.type == SLICE_P) != sh.cabac_init ? 1 : 2;
     const int ctbs = sps.w_ctb * sps.h_ctb;
     uint8_t wpp_state[kNumCtx];
     cc_.init_contexts(init_type, sh.qp);
@@ -1585,6 +1612,7 @@ class Decoder {
     fill(mode_, x0, y0, w, h, (uint8_t)1);
     mark_edges(x0, y0, w, h, true);
     cu_part_ = PART_2Nx2N;
+    cu_depth_ = depth;
     intra_split_ = false;
     const uint8_t bypass = cu_bypass_ ? kBypass : 0;
     if (skip) {
@@ -2047,7 +2075,7 @@ class Decoder {
     return true;
   }
 
-  // 8.5.3.2.2 to 8.5.3.2.5: the merge candidate merge_idx (P slices).
+  // 8.5.3.2.2 to 8.5.3.2.5: the merge candidate merge_idx.
   MvField merge(int xcb, int ycb, int ncb, int xpb, int ypb, int w, int h, int part, int merge_idx) const {
     if (pps.log2_par_mrg_level > 2 && ncb == 8) {
       xpb = xcb;
@@ -2085,19 +2113,50 @@ class Decoder {
     if (b2 && B1 && same_motion(*B1, cur_->motion(xb2, yb2))) b2 = false;
     if (b2) cand[n++] = cur_->motion(xb2, yb2);
     if (n > merge_idx) return cand[merge_idx];
+    const bool b_slice = sh.type == SLICE_B;
     MvField col{};
-    col.ref[0] = 0;
-    col.ref[1] = -1;
+    col.ref[0] = col.ref[1] = -1;
     if (temporal(xpb, ypb, w, h, 0, 0, col.mv[0])) {
       col.pred = 1;
+      col.ref[0] = 0;
+    }
+    if (b_slice && temporal(xpb, ypb, w, h, 0, 1, col.mv[1])) {
+      col.pred |= 2;
+      col.ref[1] = 0;
+    }
+    if (col.pred) {
       cand[n++] = col;
       if (n > merge_idx) return cand[merge_idx];
     }
-    const int zero = merge_idx - n;  // zero candidates follow
+    if (b_slice && n > 1 && n < sh.max_merge) {  // 8.5.3.2.4: combined bi-predictive candidates
+      static const int kL0[12] = {0, 1, 0, 2, 1, 2, 0, 3, 1, 3, 2, 3};
+      static const int kL1[12] = {1, 0, 2, 0, 2, 1, 3, 0, 3, 1, 3, 2};
+      const int orig = n;
+      for (int k = 0; k < orig * (orig - 1) && n < sh.max_merge; k++) {
+        const MvField &a = cand[kL0[k]], &b = cand[kL1[k]];
+        if (!(a.pred & 1) || !(b.pred & 2)) continue;
+        if (refs_[0][a.ref[0]]->poc == refs_[1][b.ref[1]]->poc && a.mv[0][0] == b.mv[1][0] &&
+            a.mv[0][1] == b.mv[1][1])
+          continue;
+        MvField& c = cand[n++];
+        c.pred = 3;
+        c.ref[0] = a.ref[0];
+        c.ref[1] = b.ref[1];
+        c.mv[0][0] = a.mv[0][0];
+        c.mv[0][1] = a.mv[0][1];
+        c.mv[1][0] = b.mv[1][0];
+        c.mv[1][1] = b.mv[1][1];
+        if (n > merge_idx) return cand[merge_idx];
+      }
+    }
+    // 8.5.3.2.5: zero candidates, over both lists in a B slice
+    const int zero = merge_idx - n;
+    const int num_ref = b_slice ? std::min(num_refs_[0], num_refs_[1]) : num_refs_[0];
+    const int8_t r = (int8_t)(zero < num_ref ? zero : 0);
     MvField z{};
-    z.pred = 1;
-    z.ref[0] = (int8_t)(zero < num_refs_[0] ? zero : 0);
-    z.ref[1] = -1;
+    z.pred = b_slice ? 3 : 1;
+    z.ref[0] = r;
+    z.ref[1] = b_slice ? r : -1;
     return z;
   }
 
@@ -2186,6 +2245,21 @@ class Decoder {
     out[1] = list[mvp_flag][1];
   }
 
+  // mvd_coding() (7.3.8.9)
+  void mvd_coding(int mvd[2]) {
+    const int g0x = cc_.decision(kMVD_G0), g0y = cc_.decision(kMVD_G0);
+    const int g1x = g0x ? cc_.decision(kMVD_G1) : 0, g1y = g0y ? cc_.decision(kMVD_G1) : 0;
+    mvd[0] = mvd[1] = 0;
+    if (g0x) {
+      int v = g1x ? 2 + exp_golomb(1) : 1;
+      mvd[0] = cc_.bypass() ? -v : v;
+    }
+    if (g0y) {
+      int v = g1y ? 2 + exp_golomb(1) : 1;
+      mvd[1] = cc_.bypass() ? -v : v;
+    }
+  }
+
   // prediction_unit() (7.3.8.6): parses, derives and predicts; returns merge_flag.
   bool prediction_unit(int xcb, int ycb, int ncb, int xpb, int ypb, int w, int h, int part, bool skip) {
     MvField f{};
@@ -2198,27 +2272,33 @@ class Decoder {
         while (idx < sh.max_merge - 1 && cc_.bypass()) idx++;
       }
       f = merge(xcb, ycb, ncb, xpb, ypb, w, h, part, idx);
+      if (f.pred == 3 && w + h == 12) {  // 8x4 and 4x8 blocks: list 0 only
+        f.pred = 1;
+        f.ref[1] = -1;
+      }
     } else {
-      int r = 0;
-      while (r < num_refs_[0] - 1 && (r < 2 ? cc_.decision(kREF_IDX + r) : cc_.bypass())) r++;
-      int g0x = cc_.decision(kMVD_G0), g0y = cc_.decision(kMVD_G0);
-      int g1x = g0x ? cc_.decision(kMVD_G1) : 0, g1y = g0y ? cc_.decision(kMVD_G1) : 0;
-      int mvd[2] = {0, 0};
-      if (g0x) {
-        int v = g1x ? 2 + exp_golomb(1) : 1;
-        mvd[0] = cc_.bypass() ? -v : v;
+      // inter_pred_idc: 1 list 0, 2 list 1, 3 both
+      int lists = 1;
+      if (sh.type == SLICE_B) {
+        if (w + h != 12 && cc_.decision(kINTER_PRED + cu_depth_)) lists = 3;
+        else lists = cc_.decision(kINTER_PRED + 4) ? 2 : 1;
       }
-      if (g0y) {
-        int v = g1y ? 2 + exp_golomb(1) : 1;
-        mvd[1] = cc_.bypass() ? -v : v;
+      int r[2] = {0, 0}, mvd[2][2], flag[2] = {0, 0};
+      for (int l = 0; l < 2; l++) {
+        if (!((lists >> l) & 1)) continue;
+        while (r[l] < num_refs_[l] - 1 && (r[l] < 2 ? cc_.decision(kREF_IDX + r[l]) : cc_.bypass())) r[l]++;
+        mvd_coding(mvd[l]);
+        flag[l] = cc_.decision(kMVP);
       }
-      const int flag = cc_.decision(kMVP);
-      int16_t mvp[2];
-      amvp(xcb, ycb, ncb, xpb, ypb, w, h, part, r, 0, flag, mvp);
-      f.pred = 1;
-      f.ref[0] = (int8_t)r;
-      f.mv[0][0] = (int16_t)(uint16_t)(mvp[0] + mvd[0]);
-      f.mv[0][1] = (int16_t)(uint16_t)(mvp[1] + mvd[1]);
+      f.pred = (uint8_t)lists;
+      for (int l = 0; l < 2; l++) {
+        if (!((lists >> l) & 1)) continue;
+        int16_t mvp[2];
+        amvp(xcb, ycb, ncb, xpb, ypb, w, h, part, r[l], l, flag[l], mvp);
+        f.ref[l] = (int8_t)r[l];
+        f.mv[l][0] = (int16_t)(uint16_t)(mvp[0] + mvd[l][0]);
+        f.mv[l][1] = (int16_t)(uint16_t)(mvp[1] + mvd[l][1]);
+      }
     }
     for (int y = ypb; y < ypb + h && y < sps.height; y += 4)
       for (int x = xpb; x < xpb + w && x < sps.width; x += 4) cur_->mvf[i4(x, y)] = f;
@@ -2309,17 +2389,43 @@ class Decoder {
 
   // Motion compensation with the default or explicit weights (8.5.3.3.4).
   void predict_inter(int xpb, int ypb, int w, int h, const MvField& f) {
-    const bool weighted = pps.weighted_pred && sh.type == SLICE_P;
-    static thread_local std::vector<int16_t> pred;
+    const bool weighted = sh.type == SLICE_P ? pps.weighted_pred : pps.weighted_bipred;
+    for (int l = 0; l < 2; l++)
+      if (((f.pred >> l) & 1) && (f.ref[l] < 0 || f.ref[l] >= num_refs_[l]))
+        corrupt("ref_idx_l%d %d of %d", l, f.ref[l], num_refs_[l]);
+    static thread_local std::vector<int16_t> pred, pred1;
     for (int c = 0; c < 3; c++) {
       const int cw = c ? w / 2 : w, ch = c ? h / 2 : h, xb = c ? xpb / 2 : xpb, yb = c ? ypb / 2 : ypb;
-      pred.resize((size_t)cw * ch);
-      if (!(f.pred & 1)) corrupt("a P prediction block without a list 0 motion vector");
-      const int r = f.ref[0];
-      if (r < 0 || r >= num_refs_[0]) corrupt("ref_idx_l0 %d of %d", r, num_refs_[0]);
-      interpolate(*refs_[0][r], c, xb, yb, cw, ch, f.mv[0], pred.data());
       uint8_t* pl = cur_->plane(c);
       const int stride = cur_->stride(c);
+      pred.resize((size_t)cw * ch);
+      if (f.pred == 3) {  // bi-prediction
+        pred1.resize((size_t)cw * ch);
+        interpolate(*refs_[0][f.ref[0]], c, xb, yb, cw, ch, f.mv[0], pred.data());
+        interpolate(*refs_[1][f.ref[1]], c, xb, yb, cw, ch, f.mv[1], pred1.data());
+        if (!weighted) {
+          for (int y = 0; y < ch; y++) {
+            uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
+            const int16_t *p0 = pred.data() + y * cw, *p1 = pred1.data() + y * cw;
+            for (int x = 0; x < cw; x++) row[x] = clip1((p0[x] + p1[x] + 64) >> 7);
+          }
+          continue;
+        }
+        const int log2wd = (c ? sh.chroma_log2_wd : sh.luma_log2_wd) + 6;
+        const int r0 = f.ref[0], r1 = f.ref[1];
+        const int w0 = c ? sh.chroma_w[0][r0][c - 1] : sh.luma_w[0][r0];
+        const int w1 = c ? sh.chroma_w[1][r1][c - 1] : sh.luma_w[1][r1];
+        const int o = ((c ? sh.chroma_o[0][r0][c - 1] + sh.chroma_o[1][r1][c - 1]
+                          : sh.luma_o[0][r0] + sh.luma_o[1][r1]) + 1) << log2wd;
+        for (int y = 0; y < ch; y++) {
+          uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
+          const int16_t *p0 = pred.data() + y * cw, *p1 = pred1.data() + y * cw;
+          for (int x = 0; x < cw; x++) row[x] = clip1((p0[x] * w0 + p1[x] * w1 + o) >> (log2wd + 1));
+        }
+        continue;
+      }
+      const int l = f.pred == 1 ? 0 : 1, r = f.ref[l];
+      interpolate(*refs_[l][r], c, xb, yb, cw, ch, f.mv[l], pred.data());
       if (!weighted) {
         for (int y = 0; y < ch; y++) {
           uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
@@ -2328,8 +2434,8 @@ class Decoder {
         continue;
       }
       const int log2wd = (c ? sh.chroma_log2_wd : sh.luma_log2_wd) + 6;
-      const int wt = c ? sh.chroma_w[0][r][c - 1] : sh.luma_w[0][r];
-      const int o = c ? sh.chroma_o[0][r][c - 1] : sh.luma_o[0][r];
+      const int wt = c ? sh.chroma_w[l][r][c - 1] : sh.luma_w[l][r];
+      const int o = c ? sh.chroma_o[l][r][c - 1] : sh.luma_o[l][r];
       for (int y = 0; y < ch; y++) {
         uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
         for (int x = 0; x < cw; x++)
@@ -2810,17 +2916,18 @@ int metrabs_hevc_frame(void* d, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t* v
   return rc;
 }
 
-// What a packet offers random access: the NAL unit type of its first slice
-// if that is an IRAP picture (16 to 23: BLA, IDR, CRA), else -1.
+// The NAL unit type of a packet's first slice (IRAP pictures, 16 to 23:
+// BLA, IDR and CRA, offer random access; RASL pictures, 8 and 9, are skipped
+// by a decoder that starts at their CRA), -1 without a slice.
 // length_size 0: Annex B.
-int metrabs_hevc_packet_info(const uint8_t* data, size_t n, int length_size, int* irap) {
-  *irap = -1;
+int metrabs_hevc_packet_info(const uint8_t* data, size_t n, int length_size, int* nal_type) {
+  *nal_type = -1;
   try {
     for (auto& nal : split_nals(data, n, length_size)) {
       if (nal.second < 2) continue;
       const int type = (nal.first[0] >> 1) & 63, layer = ((nal.first[0] & 1) << 5) | (nal.first[1] >> 3);
       if (layer || type >= 32) continue;
-      if (is_irap(type)) *irap = type;
+      *nal_type = type;
       break;
     }
   } catch (const Failure&) {

@@ -9,14 +9,19 @@ for bit, as the standard's decoding process is exact, and its RGB equals
 stream's VUI (matrix_coeffs and video_full_range_flag; `csrc/yuv_rgb.h`,
 shared with `data.h264`).
 
-Ported: progressive 8-bit 4:2:0 Main-profile streams of I and P slices (the
-tools are listed in `csrc/hevc_decode.cpp`), with the decoded-picture hash
-SEI checked on every picture that carries one (`Decoder.hashes`). Frames
-come out in FFmpeg's output order. A stream that uses a tool beyond them
-raises UnsupportedVideo naming it: B slices, bit depths above 8, 4:0:0,
-4:2:2 and 4:4:4, field coding, tiles, dependent slice segments, PCM coding
-units, long-term reference pictures, and the range, multilayer, 3D and
-screen content extensions.
+Ported: progressive 8-bit 4:2:0 Main-profile streams of I, P and B slices
+(the tools are listed in `csrc/hevc_decode.cpp`: bi-prediction with the
+default and explicit weights, combined bi-predictive merge candidates and
+the temporal candidates of either list among them), with the
+decoded-picture hash SEI checked on every picture that carries one
+(`Decoder.hashes`). Frames come out in FFmpeg's output order (picture order
+counts, delayed by sps_max_num_reorder_pics); the RASL pictures of a CRA
+picture that starts decoding are skipped, as FFmpeg skips them. A stream
+that uses a tool beyond them raises UnsupportedVideo naming it: bit depths
+above 8, 4:0:0, 4:2:2 and 4:4:4, separate colour planes, field coding,
+tiles, dependent slice segments, PCM coding units, long-term reference
+pictures, mvd_l1_zero_flag (x265 never sets it), and the range, multilayer,
+3D and screen content extensions.
 
 The library is built with the host C++ compiler at first use
 (`ops/cuda_build.py::build_host_library`) and called through `ctypes`, which
@@ -35,6 +40,7 @@ from metrabs_tpu_torch.ops import cuda_build
 _LOCK = threading.Lock()
 _LIB = None
 IRAP_TYPES = range(16, 24)  # nal_unit_type of BLA, IDR and CRA pictures
+RASL_TYPES = (8, 9)  # RASL_N, RASL_R: skipped by a decoder that starts at their CRA
 
 
 def _library() -> ctypes.CDLL:
@@ -64,16 +70,24 @@ def length_size(config: bytes) -> int:
     return (config[21] & 3) + 1 if len(config) >= 23 and config[0] == 1 else 0
 
 
-def entry_point(packet: bytes, nal_length_size: int) -> EntryPoint:
-    """Whether a packet's picture is an IRAP picture (IDR, CRA or BLA), read
-    from its NAL unit headers: every picture that follows it in decoding
-    order decodes from it. (An HEVC stream gives no recovery points here.)"""
-    irap = ctypes.c_int()
+def nal_unit_type(packet: bytes, nal_length_size: int) -> int:
+    """The NAL unit type of a packet's first slice (-1 without one), read
+    from its NAL unit headers."""
+    kind = ctypes.c_int()
     rc = _library().metrabs_hevc_packet_info(packet, len(packet), nal_length_size,
-                                             ctypes.byref(irap))
+                                             ctypes.byref(kind))
     if rc:
         raise ValueError('corrupt HEVC packet (a NAL unit runs past it)')
-    return EntryPoint(irap.value in IRAP_TYPES, -1, False)
+    return kind.value
+
+
+def entry_point(packet: bytes, nal_length_size: int) -> EntryPoint:
+    """Whether a packet's picture is an IRAP picture (IDR, CRA or BLA): a
+    decoder may start there. A CRA picture's RASL pictures (`RASL_TYPES`,
+    after it in decoding order, before it in output order) are then skipped,
+    as FFmpeg skips them after a seek. (An HEVC stream gives no recovery
+    points here.)"""
+    return EntryPoint(nal_unit_type(packet, nal_length_size) in IRAP_TYPES, -1, False)
 
 
 class Decoder(NativeDecoder):
@@ -82,7 +96,7 @@ class Decoder(NativeDecoder):
     every picture that carries one (`hashes`)."""
 
     PREFIX, CODEC = 'metrabs_hevc_', 'HEVC'
-    SCOPE = 'progressive 8-bit 4:2:0 I and P slices only'
+    SCOPE = 'progressive 8-bit 4:2:0 I, P and B slices only'
     frames_decoded = 0
 
     def __init__(self, config: bytes = b'', name: str = '<hevc>', headers_only: bool = False):

@@ -39,11 +39,16 @@ private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`,
 - HEVC (AVI FourCCs `HEVC`, `H265`, `HVC1`, `HEV1` in any case, Annex B;
   Matroska `V_MPEGH/ISO/HEVC` and MP4 `hvc1`/`hev1`, length-prefixed with
   the hvcC as the configuration): decoded by `data.hevc`, whose planes equal
-  FFmpeg's and whose RGB equals `cv2.VideoCapture`'s, I and P slices only.
+  FFmpeg's and whose RGB equals `cv2.VideoCapture`'s, I, P and B slices.
   It is indexed as H.264 is, by one codec-neutral path: the output order
-  from the slice headers, frame N as the N-th frame of that order, and
-  random access from the last IRAP picture (IDR, CRA or BLA) whose frames
-  reach the frame.
+  from the slice headers, frame N as the N-th frame of that order (cv2's
+  seek gives it on these files), presentation times checked against it,
+  and random access from the last IRAP picture (IDR, CRA or BLA) whose
+  frames reach the frame. A decoder started at a CRA picture skips its RASL
+  pictures, as FFmpeg does after a seek, so that entry is exact from the
+  first frame it outputs (an IDR_W_RADL picture's RADL pictures decode from
+  it); a stream that starts at such a CRA picture raises (cv2 counts
+  frames it never outputs).
 
 Frame N of mp4v, H.264 and HEVC is decoded from such an entry point. Each file
 keeps a few decoders and its last few frames under a lock, so frames read
@@ -253,7 +258,9 @@ def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
     without decoding, and the entry points: packet 0, the IDR (HEVC: IRAP)
     pictures and the H.264 recovery points among the key frames (exact from
     their recovery_frame_cnt on; one whose leading pictures would be output
-    among the frames before it is no entry)."""
+    among the frames before it is no entry). A decoder started at an HEVC
+    CRA picture skips its RASL pictures: the entry is exact from the first
+    frame it outputs (a RADL picture's or the CRA's own)."""
     codec, config_box = _REORDERED[idx.kind]
     name = codec.Decoder.CODEC
     size = codec.length_size(idx.config)
@@ -262,16 +269,24 @@ def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
     n = idx.n_frames
     scan = codec.Decoder(idx.config, idx.path, headers_only=True)
     emitter, order = [], []  # per output frame: the packet that outputs it, its picture
+    kinds = []  # HEVC: the NAL unit type of each packet's picture
     try:
         for p in range(n + 1):
-            pictures = scan.order(idx.packet(p, f) if p < n else None)
+            packet = idx.packet(p, f) if p < n else None
+            pictures = scan.order(packet)
             if p < n and scan.pictures != p + 1:
                 raise ValueError(f'{idx.path}: {name} packet {p} holds {scan.pictures - p} '
                                  f'pictures, not one')
+            if p < n and idx.kind == 'hevc':
+                kinds.append(hevc.nal_unit_type(packet, size))
             emitter += [p] * len(pictures)
             order += pictures
     finally:
         scan.close()
+    if len(order) != n:
+        raise UnsupportedVideo(f'{idx.path}: {n - len(order)} of its {n} {name} pictures are never '
+                               f'output (RASL pictures of the CRA picture that starts the stream, '
+                               f'or pictures with pic_output_flag 0), and cv2 counts them')
     display = np.empty(n, np.int64)  # the output frame of each packet's picture
     display[np.asarray(order, np.int64)] = np.arange(n)
     idx.frame_packets = np.asarray(emitter, np.int64)
@@ -283,16 +298,33 @@ def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
     # decoded before k all precede it for an entry point.
     first = np.minimum.accumulate(display[::-1])[::-1]
     before = np.maximum.accumulate(np.concatenate([[-1], display[:-1]]))
-    idx.entries = [(0, 0, False)]
+    idx.entries, idx.first_frames = [(0, 0, False)], {0: 0}
     for k in np.flatnonzero(idx.keyframes[1:]) + 1:
         k = int(k)
         e = codec.entry_point(idx.packet(k, f), size)
         if e.idr:
-            idx.entries.append((k, int(first[k]), False))
+            skipped = np.asarray(_rasl_pictures(kinds, k), np.int64)
+            start = int(np.delete(display[k:], skipped - k).min())
+            if before[k] < first[k] and (display[skipped] < start).all():
+                idx.entries.append((k, start, False))
+                idx.first_frames[k] = start
         elif e.recovery_frames >= 0 and e.exact and before[k] < first[k]:
             exact = k + e.recovery_frames
             idx.entries.append((k, int(display[exact]) if exact < n else n, True))
-    idx.first_frames = {start: int(first[start]) for start, _, _ in idx.entries}
+            idx.first_frames[k] = int(first[k])
+
+
+def _rasl_pictures(kinds: List[int], k: int) -> List[int]:
+    """The packets of the RASL pictures a decoder that starts at the IRAP
+    picture of packet k skips (HEVC; none for H.264): those up to the next
+    IRAP picture."""
+    out = []
+    for p in range(k + 1, len(kinds)):
+        if kinds[p] in hevc.IRAP_TYPES:
+            break
+        if kinds[p] in hevc.RASL_TYPES:
+            out.append(p)
+    return out
 
 
 def read_frame(path: str, i: int) -> np.ndarray:

@@ -362,12 +362,104 @@ def _order_grid(g: np.ndarray, blur: torch.Tensor, cols: int, rows: int) -> Opti
         keep = [o for o in keep if o[-1, 0, 1] - o[0, 0, 1] >= 0]
     if not keep:
         return None
-    # Odd x odd boards have two equivalent dark corners (180 degrees apart):
-    # OpenCV's first row runs rightwards on 7x5 and 9x7 boards (probed at
-    # every in-plane angle); on 7x7 and 5x3 boards at some angles it starts
-    # from the other corner, which follows its quads' order.
+    if rows % 2 and cols % 2:
+        # Odd x odd boards have two dark corners 180 degrees apart: OpenCV's
+        # order follows its walk over the dark squares (_opencv_walk).
+        return _opencv_walk(g, keep[0][0, 0], cols, rows)
+    # OpenCV's first row runs rightwards on the other boards.
     keep.sort(key=lambda o: (o[0, -1, 0] - o[0, 0, 0] <= 0, o[0, 0, 1]))
     return keep[0]
+
+
+_TOP_TIE_PX = 1.0  # a square's vertices this close to its top one in y tie for it
+
+
+def _opencv_walk(g: np.ndarray, dark_corner: np.ndarray, cols: int, rows: int) -> np.ndarray:
+    """The order in which OpenCV's checkQuadGroup reads an odd x odd board
+    (pinned down against cv2 5.0 with boards of 3x3 to 9x9 inner corners at
+    every 5 degrees in the image plane). The dark squares are its quads,
+    each with its vertices clockwise on the screen from the top one (the
+    leftmost of those within _TOP_TIE_PX of the top) and its neighbours by
+    shared vertex; the group is gathered depth first from the quad whose
+    top vertex comes first in raster order; the corners are listed as the
+    group's quads reach them. The walk starts at the first listed corner of
+    a corner quad, runs its first row towards the first corner linked to it
+    (a quad edge), and is then transposed to `cols` per row and turned
+    right-handed as in `find_chessboard_corners`. `g` [n_i, n_j, 2] holds the
+    inner corners in lattice order; `dark_corner` is one that touches a dark
+    corner square."""
+    n_i, n_j = g.shape[:2]
+
+    def point(i: int, j: int) -> np.ndarray:  # a lattice point, extrapolated beyond the corners
+        ii, jj = min(max(i, 0), n_i - 1), min(max(j, 0), n_j - 1)
+        p = g[ii, jj].copy()
+        if i != ii:
+            p += (i - ii) * (g[ii, jj] - g[ii - 1 if ii else 1, jj]) * (1 if ii else -1)
+        if j != jj:
+            p += (j - jj) * (g[ii, jj] - g[ii, jj - 1 if jj else 1]) * (1 if jj else -1)
+        return p
+
+    ci, cj = np.unravel_index(np.argmin(np.linalg.norm(g - dark_corner, axis=2)), (n_i, n_j))
+    parity = ((-1 if ci == 0 else n_i - 1) + (-1 if cj == 0 else n_j - 1)) % 2
+    squares = [(a, b) for a in range(-1, n_i) for b in range(-1, n_j) if (a + b) % 2 == parity]
+    q0 = [point(*v) for v in ((0, 0), (0, 1), (1, 1), (1, 0))]
+    clockwise = sum(q0[k][0] * q0[k - 3][1] - q0[k - 3][0] * q0[k][1] for k in range(4)) > 0
+
+    def vertices(a: int, b: int):
+        lat = [(a, b), (a, b + 1), (a + 1, b + 1), (a + 1, b)]
+        if not clockwise:
+            lat = [lat[0], lat[3], lat[2], lat[1]]
+        xy = [point(*v) for v in lat]
+        top = min(v[1] for v in xy)
+        s = min((k for k in range(4) if xy[k][1] <= top + _TOP_TIE_PX), key=lambda k: xy[k][0])
+        return lat[s:] + lat[:s], xy[s]
+
+    inner = lambda v: 0 <= v[0] < n_i and 0 <= v[1] < n_j  # noqa: E731
+    corners, tops = {}, {}
+    for sq in squares:
+        corners[sq], tops[sq] = vertices(*sq)
+    owners = {}
+    for sq in squares:
+        for v in corners[sq]:
+            if inner(v):
+                owners.setdefault(v, []).append(sq)
+    neighbours = {sq: [next((o for o in owners[v] if o != sq), None) if inner(v) else None
+                       for v in corners[sq]] for sq in squares}
+    count = {sq: sum(n is not None for n in neighbours[sq]) for sq in squares}
+    seed = min((sq for sq in squares if count[sq]), key=lambda sq: (tops[sq][1], tops[sq][0]))
+    group, stack, seen = [seed], [seed], {seed}
+    while stack:
+        for n in neighbours[stack.pop()]:
+            if n is not None and n not in seen:
+                seen.add(n)
+                stack.append(n)
+                group.append(n)
+    listed, of_corner_quad, links = [], set(), {}
+    for sq in group:
+        for k in range(4):
+            if neighbours[sq][k] is None:
+                continue
+            a, b = corners[sq][k], corners[sq][(k + 1) & 3]
+            if a not in listed:
+                listed.append(a)
+            if count[sq] == 1:
+                of_corner_quad.add(a)
+            if neighbours[sq][(k + 1) & 3] is not None:
+                links.setdefault(a, []).append(b)
+                links.setdefault(b, []).append(a)
+    first = next(v for v in listed if len(links.get(v, ())) == 2 and v in of_corner_quad)
+    (i0, j0), right, below = first, links[first][0], links[first][1]
+    di, dj = right[0] - i0, right[1] - j0
+    bi, bj = below[0] - i0, below[1] - j0
+    width, height = (n_j, n_i) if di == 0 else (n_i, n_j)
+    out = np.array([[g[i0 + a * bi + b * di, j0 + a * bj + b * dj] for b in range(width)]
+                    for a in range(height)])
+    if width != cols:
+        out = out.transpose(1, 0, 2)
+    p0, p1, p2 = out[0, 0], out[0, cols - 1], out[1, 0]
+    if (p1[0] - p0[0]) * (p2[1] - p1[1]) - (p1[1] - p0[1]) * (p2[0] - p1[0]) < 0:
+        out = out[::-1]  # odd rows: OpenCV flips the columns' order
+    return np.ascontiguousarray(out)
 
 
 def find_chessboard_corners(gray, pattern_size: Tuple[int, int], device='cuda'
@@ -384,8 +476,8 @@ def find_chessboard_corners(gray, pattern_size: Tuple[int, int], device='cuda'
     a dark corner square), the rows running so that the grid is
     right-handed in the image (OpenCV reverses the rows or the columns of a
     left-handed one); for boards of even rows and columns the last row
-    below the first; for odd rows and columns the first row running
-    rightwards (`_order_grid` says where that rule is known to hold). The
+    below the first; for odd rows and columns OpenCV's walk over its dark
+    quads (`_opencv_walk`, whose first corner may touch a light square). The
     port's found flag differs from OpenCV's where OpenCV's image
     normalisation (its default CALIB_CB_NORMALIZE_IMAGE, a histogram
     equalisation) merges a small board's squares so that its quads no

@@ -1,9 +1,11 @@
-"""Times the port's H.264 decoder on one host thread: each packet of the
-1080x1920 libx264 fixtures decoded (to RGB and planes of the frames it
-outputs), median milliseconds per packet, for this checkout and for another
-(`--parent`, e.g. `git archive` of the parent commit unpacked under runs/),
-in the order parent, this, this, parent, each in a process of its own that
-imports its tree's `metrabs_tpu_torch` (each builds its own decoder).
+"""Times the port's H.264 and HEVC decoders on one host thread: each packet
+of the 1080x1920 libx264 and libx265 fixtures (I and P slices, and B
+slices) decoded (to RGB and planes of the frames it outputs), median
+milliseconds per packet, for this checkout and for another (`--parent`,
+e.g. `git archive` of the parent commit unpacked under runs/), in the order
+parent, this, this, parent, each in a process of its own that imports its
+tree's `metrabs_tpu_torch` (each builds its own decoders). A clip the other
+checkout lacks or refuses is left out of its turns.
 
     python3 scripts/h264_decode_ab_torch.py --parent runs/parent [--repeats 3]
 
@@ -21,7 +23,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURES = ('tests/torch_fixtures/h264/h264_1080x1920.mp4',  # I and P slices
-            'tests/torch_fixtures/h264_b/h264b_1080x1920.mp4')  # B slices
+            'tests/torch_fixtures/h264_b/h264b_1080x1920.mp4',  # B slices
+            'tests/torch_fixtures/hevc/hevc_1080x1920.mp4',  # I and P slices
+            'tests/torch_fixtures/hevc_b/hevcb_1080x1920.mp4')  # B slices
 
 CHILD = r'''
 import json, statistics, sys, time

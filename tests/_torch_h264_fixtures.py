@@ -347,7 +347,7 @@ def write_container(path: Path, packets, keys, size, fps: float, codec: str,
     with open(path, 'wb') as f:
         if codec in ('hevc', 'hev1'):
             from _torch_hevc_fixtures import hevc_container_args
-            mux, data = hevc_container_args(f, ext, packets, size, fps, codec)
+            mux, data = hevc_container_args(f, ext, packets, size, fps, codec, times)
         elif codec == 'h264':
             config = parameter_sets(packets[0])
             lp = [annexb_to_lengths(p) for p in packets]

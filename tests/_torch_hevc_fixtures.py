@@ -32,7 +32,14 @@ and where libx265, libde265 and cv2 are missing, as on a GPU host,
   converts it): `luma_from` is then 'libde265' and the luma hashes are
   libde265's.
 
-    python tests/_torch_hevc_fixtures.py
+- `tests/torch_fixtures/hevc_b/hevcb_*`: B-frame clips (`write_b_fixtures`:
+  x265's medium B-frame defaults at three sizes, one B-frame option each),
+  the MP4s with the ctts and elst FFmpeg's mov muxer writes, the Matroska
+  blocks with presentation timestamps, and a manifest of cv2's frames in
+  output order, its seek for every N, x265's pts/dts and libde265's planes.
+
+    python tests/_torch_hevc_fixtures.py      # all
+    python tests/_torch_hevc_fixtures.py b    # the B-frame clips only
 """
 
 from __future__ import annotations
@@ -127,11 +134,12 @@ PIC_PTS, PIC_PLANES, PIC_STRIDE, PIC_DEPTH, PIC_CSP = 0, 24, 48, 60, 72
 X265_CSP = {'i400': 0, 'i420': 1, 'i422': 2, 'i444': 3}
 
 
-def x265_encode(frames, options: dict, fps: float, csp: str = 'i420'):
+def x265_encode(frames, options: dict, fps: float, csp: str = 'i420', times=None):
     """Annex B packets (one access unit per frame, in decoding order; the
     VPS, SPS and PPS before each IRAP picture) and their key flags (an IRAP
     picture), 8-bit samples in the chroma format `csp` (x264's input
-    layout: cv2's I420, the chroma repeated for 4:2:2 and 4:4:4)."""
+    layout: cv2's I420, the chroma repeated for 4:2:2 and 4:4:4). `times`,
+    if given, receives each packet's (pts, dts) in frames."""
     lib = ctypes.CDLL('libx265.so.199')
     vp = ctypes.c_void_p
     lib.x265_param_alloc.restype = vp
@@ -170,6 +178,8 @@ def x265_encode(frames, options: dict, fps: float, csp: str = 'i420'):
         packets.append(data)
         vcl = [nal_type(n) for n in split_annexb(data) if nal_type(n) < 32]
         keys.append(vcl[0] in IRAP)
+        if times is not None:
+            times.append(tuple(int(t) for t in np.frombuffer(ctypes.string_at(out, 16), np.int64)))
 
     for k, frame in enumerate(frames):
         planes = _input_planes(frame, csp, 8)
@@ -283,10 +293,15 @@ def rbsp(nal: bytes) -> bytes:
     return bytes(out)
 
 
-def hevc_container_args(f, ext: str, packets, size, fps: float, codec: str):
-    """The port's muxer for an HEVC stream in `ext` and the packets it holds."""
+def hevc_container_args(f, ext: str, packets, size, fps: float, codec: str, times=None):
+    """The port's muxer for an HEVC stream in `ext` and the packets it holds.
+    `times` (x265's (pts, dts) per packet, in frames) marks a stream whose
+    frames are reordered: Matroska's block timestamps are then the
+    presentation times, and the MP4 gets the time base, `ctts` and `elst`
+    that FFmpeg's mov muxer writes for it."""
     from metrabs_tpu_torch.data import mp4, mpeg4, video
-    from _torch_h264_fixtures import annexb_to_lengths
+    from _torch_h264_fixtures import (annexb_to_lengths, mov_time_base, mov_timing_boxes,
+                                      moov_with_timing)
     w, h = size
     sets = {nal_type(n): n for n in split_annexb(packets[0]) if nal_type(n) in (VPS, SPS, PPS)}
     config = hvcc(sets[VPS], sets[SPS], sets[PPS])
@@ -299,9 +314,19 @@ def hevc_container_args(f, ext: str, packets, size, fps: float, codec: str):
         return video._AviMuxer(f, w, h, fps, b'HEVC'), packets
     lp = [annexb_to_lengths(p if codec == 'hev1' else without_sets(p)) for p in packets]
     if ext == '.mkv':
-        return video._MatroskaMuxer(f, w, h, fps, b'V_MPEGH/ISO/HEVC', config), lp
-    res, inc = mpeg4.time_base(fps)
-    return mp4.Mp4Muxer(f, w, h, res, inc, config, codec='hvc1' if codec == 'hevc' else 'hev1'), lp
+        mux = video._MatroskaMuxer(f, w, h, fps, b'V_MPEGH/ISO/HEVC', config)
+        if times is not None:
+            mux._timestamp = lambda i: int(round(times[i][0] * 1000 / fps))
+        return mux, lp
+    entry = 'hvc1' if codec == 'hevc' else 'hev1'
+    if times is None:
+        res, inc = mpeg4.time_base(fps)
+        return mp4.Mp4Muxer(f, w, h, res, inc, config, codec=entry), lp
+    res, inc = mov_time_base(fps)
+    mux = mp4.Mp4Muxer(f, w, h, res, inc, config, codec=entry)
+    plain = mux._moov
+    mux._moov = lambda: moov_with_timing(plain(), *mov_timing_boxes(times, inc, res))
+    return mux, lp
 
 
 # --------------------------------------------------------------------------
@@ -457,14 +482,21 @@ def pps_fields(nal: bytes) -> dict:
         if not f['deblocking_disabled']:
             f['beta_offset'], f['tc_offset'] = 2 * r.se(), 2 * r.se()
     f['scaling_list_data'] = r.u(1)
+    if not f['scaling_list_data']:  # x265 sends none
+        f['lists_modification'] = r.u(1)
+        f['log2_parallel_merge_level'] = r.ue() + 2
     return f
 
 
 def slice_fields(nal: bytes, sps: dict, pps: dict) -> dict:
-    """A slice segment header (7.3.6.1) up to five_minus_max_num_merge_cand."""
+    """A slice segment header (7.3.6.1) up to five_minus_max_num_merge_cand:
+    of a P or B slice its active references (`num_ref_idx` of list 0,
+    `num_ref_idx_l1`), mvd_l1_zero_flag, the collocated picture's list and
+    index, whether a pred_weight_table sends a weight, and MaxNumMergeCand
+    (`at_<flag>`: the RBSP bit position of a B slice's flag)."""
     r = BitReader(rbsp(nal))
     t = nal_type(nal)
-    f = dict(nal_type=t, first=r.u(1))
+    f = dict(nal_type=t, temporal_id=(nal[1] & 7) - 1, first=r.u(1))
     if 16 <= t <= 23:
         r.u(1)
     r.ue()
@@ -474,31 +506,51 @@ def slice_fields(nal: bytes, sps: dict, pps: dict) -> dict:
         f['address'] = r.u((ctbs - 1).bit_length())
     r.u(pps['num_extra_bits'])
     f['type'] = r.ue()  # 0 B, 1 P, 2 I
+    rps = []
     if t not in (19, 20):
-        r.u(sps['log2_max_poc_lsb'])
+        f['poc_lsb'] = r.u(sps['log2_max_poc_lsb'])
         n = len(sps['st_rps'])
         if r.u(1):
-            r.u((n - 1).bit_length() if n > 1 else 0)
+            rps = sps['st_rps'][r.u((n - 1).bit_length()) if n > 1 else 0]
         else:
-            _st_rps(r, n, sps['st_rps'], n)
+            rps = _st_rps(r, n, sps['st_rps'], n)
         f['temporal_mvp'] = r.u(1) if sps['temporal_mvp'] else 0
     if sps['sao']:
         f['sao'] = (r.u(1), r.u(1))
-    if f['type'] == 1:
-        f['num_ref_idx'] = r.ue() + 1 if r.u(1) else pps['num_ref_idx_default'][0]
+    if f['type'] in (0, 1):
+        lists = 2 if f['type'] == 0 else 1
+        refs = list(pps['num_ref_idx_default'][:lists])
+        if r.u(1):
+            refs = [r.ue() + 1 for _ in range(lists)]
+        f['num_ref_idx'] = refs[0]
+        if lists == 2:
+            f['num_ref_idx_l1'] = refs[1]
+        total = sum(used for _, used in rps)
+        if pps['lists_modification'] and total > 1:
+            for n_refs in refs:
+                if r.u(1):
+                    r.u(n_refs * (total - 1).bit_length())
+        if lists == 2:
+            f['at_mvd_l1_zero'] = r.pos
+            f['mvd_l1_zero'] = r.u(1)
         if pps['cabac_init_present']:
             f['cabac_init'] = r.u(1)
-        if f.get('temporal_mvp') and f['num_ref_idx'] > 1:
-            r.ue()
-        if pps['weighted_pred']:
+        if f.get('temporal_mvp'):
+            if lists == 2:
+                f['at_collocated_from_l0'] = r.pos
+            f['collocated_from_l0'] = r.u(1) if lists == 2 else 1
+            f['collocated_ref_idx'] = r.ue() if refs[1 - f['collocated_from_l0']] > 1 else 0
+        if (pps['weighted_pred'] and lists == 1) or (pps['weighted_bipred'] and lists == 2):
             r.ue()
             r.se()
-            luma = [r.u(1) for _ in range(f['num_ref_idx'])]
-            chroma = [r.u(1) for _ in range(f['num_ref_idx'])]
-            f['weights'] = any(luma) or any(chroma)
-            for lw, cw in zip(luma, chroma):
-                for _ in range(2 * lw + 4 * cw):
-                    r.se()
+            f['weights'] = False
+            for n_refs in refs:
+                luma = [r.u(1) for _ in range(n_refs)]
+                chroma = [r.u(1) for _ in range(n_refs)]
+                f['weights'] |= any(luma) or any(chroma)
+                for lw, cw in zip(luma, chroma):
+                    for _ in range(2 * lw + 4 * cw):
+                        r.se()
         f['max_merge'] = 5 - r.ue()
     return f
 
@@ -591,5 +643,143 @@ def write_fixtures() -> None:
     (HEVC_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
 
 
+# --------------------------------------------------------------------------
+# B-frame clips
+
+HEVC_B_DIR = ROOT / 'tests' / 'torch_fixtures' / 'hevc_b'
+# x265's medium preset with its B-frame defaults (bframes 4, b-adapt 2,
+# b-pyramid, open GOP); its info SEI names the options, which no header
+# shows for some of them (b-adapt).
+B_BASE = {'bframes': 4, 'info': 1}
+B_FRAMES = 14
+B_FRAMES_LONG = 20  # bframes16: room for a run of 16 B pictures
+B_SIZES = [
+    ('hevcb_96x66', 10.0, (96, 66), CONTAINERS),
+    ('hevcb_320x568', 30000 / 1001, (320, 568), CONTAINERS),
+    ('hevcb_1080x1920', 25.0, None, ('.mp4',)),
+]
+B_TOOLS = {
+    'bframes1': {'bframes': 1},
+    'bframes16': {'bframes': 16, 'b-adapt': 0, 'keyint': 24, 'min-keyint': 24},
+    'badapt0': {'b-adapt': 0},
+    'badapt2': {'b-adapt': 2},
+    'pyramid0': {'b-pyramid': 0},
+    'weightb': {'weightb': 1},  # on a fade (B_FADE_TOOLS): x265 then sends weights
+    'ref1': {'ref': 1},
+    'ref4': {'ref': 4},
+    'max_merge1': {'max-merge': 1},
+    'max_merge5': {'max-merge': 5},
+    'tmvp0': {'temporal-mvp': 0},
+    'amp_rect': {'amp': 1, 'rect': 1},
+    'slices4': {'slices': 4, 'ctu': 16},
+    'no_wpp': {'wpp': 0, 'ctu': 32},
+    # An IDR_W_RADL picture every 8 frames with the B pictures before it
+    # decoded after it as its RADL pictures.
+    'closed_radl': {'open-gop': 0, 'radl': 2, 'keyint': 8, 'min-keyint': 8},
+    # A CRA picture every 6 frames whose leading B pictures are RASL pictures.
+    'open_gop': {'keyint': 6, 'min-keyint': 6},
+    'temporal_layers': {'temporal-layers': 1},
+    'hash1': {'hash': 1},
+    'hash2': {'hash': 2},
+    'hash3': {'hash': 3},
+}
+B_FADE_TOOLS = ('weightb',)
+# A stream edited after x265 wrote it (cv2 decodes it as the oracle): x265
+# writes collocated_from_l0_flag 0 in every B slice; `collocated_l0` sets it
+# to 1 where the header keeps its length (`set_slice_flag`): the collocated
+# picture then comes from list 0, the slice data parses the same and its
+# temporal candidates change.
+B_CRAFTED = ('collocated_l0',)
+B_CASES = ([(stem + ext, fps, size, {}) for stem, fps, size, exts in B_SIZES for ext in exts]
+           + [(f'hevcb_tool_{t}.mp4', 25.0, TOOL_SIZE, o) for t, o in B_TOOLS.items()]
+           + [(f'hevcb_crafted_{c}.mp4', 25.0, TOOL_SIZE, {}) for c in B_CRAFTED])
+
+
+def set_slice_flag(packets, at: str):
+    """Annex B packets whose B slices have the one-bit flag at the position
+    `at` of slice_fields (`at_collocated_from_l0`, `at_mvd_l1_zero`) set.
+    collocated_ref_idx (here 0, one bit) follows collocated_from_l0_flag when
+    the list it names holds more than one picture: the flag is set only in
+    the slices whose two lists agree on that, so that the header keeps its
+    length and the slice data its byte alignment."""
+    out = []
+    sps = pps = None
+    for p in packets:
+        nals = []
+        for n in split_annexb(p):
+            if nal_type(n) == SPS:
+                sps = sps_fields(n)
+            elif nal_type(n) == PPS:
+                pps = pps_fields(n)
+            elif nal_type(n) < 32:
+                f = slice_fields(n, sps, pps)
+                if at in f and (at != 'at_collocated_from_l0'
+                                or (f['num_ref_idx'] > 1) == (f['num_ref_idx_l1'] > 1)):
+                    bits = rbsp_bits(n)
+                    n = nal_from_bits(n[:2], bits[:f[at]] + '1' + bits[f[at] + 1:])
+            nals.append(n)
+        out.append(b''.join(b'\x00\x00\x00\x01' + n for n in nals))
+    return out
+
+
+def hevc_b_frames(n: int, size, tool: str = ''):
+    """`moving_frames` of the H.264 B clips (two motions, for prediction from
+    both sides), darkening by 6% a frame for the B_FADE_TOOLS."""
+    from _torch_h264_fixtures import moving_frames
+    frames = moving_frames(n, size)
+    if tool in B_FADE_TOOLS:
+        frames = [np.ascontiguousarray((f * (1 - 0.06 * k)).astype(np.uint8))
+                  for k, f in enumerate(frames)]
+    return frames
+
+
+def write_b_fixtures() -> None:
+    """The B-frame clips of `tests/torch_fixtures/hevc_b/`: the MP4s with the
+    ctts and elst of FFmpeg's mov muxer, the Matroska blocks with
+    presentation timestamps, and a manifest as the I/P clips' (cv2's
+    frames in output order, its seek for every N) with x265's pts/dts, each
+    packet's NAL unit type and slice types, and per frame whether
+    libde265's luma equals FFmpeg's (where it does its Y, U and V are the
+    chroma oracle; where it does not, on a few B pictures, cv2 rules)."""
+    HEVC_B_DIR.mkdir(parents=True, exist_ok=True)
+    manifest, encoded = {}, {}
+    for name, fps, size, options in B_CASES:
+        stem = name.rsplit('.', 1)[0]
+        tool = stem[len('hevcb_tool_'):] if stem.startswith('hevcb_tool_') else ''
+        crafted = stem[len('hevcb_crafted_'):] if stem.startswith('hevcb_crafted_') else None
+        opts = dict(B_BASE, **options)
+        if name.endswith(('.mp4', '.mkv')) and not tool and not crafted and stem != 'hevcb_320x568':
+            opts.setdefault('hash', 1)  # MD5 SEIs for the card to check
+        n = B_FRAMES_LONG if tool == 'bframes16' else B_FRAMES
+        key = (stem.split('.')[0], fps, size, tuple(sorted(opts.items())))
+        if key not in encoded:
+            frames = hevc_b_frames(n, size, tool)
+            times = []
+            packets, keys = x265_encode(frames, opts, fps, times=times)
+            if crafted:
+                packets = set_slice_flag(packets, 'at_collocated_from_l0')
+            encoded[key] = packets, keys, times, de265_decode(packets), frames[0].shape[1::-1]
+        packets, keys, times, planes, wh = encoded[key]
+        path = HEVC_B_DIR / name
+        write_container(path, packets, keys, wh, fps, 'hevc', times=times)
+        fields = stream_fields(packets)
+        slices = fields['slices']
+        entry = cv2_entry(path, dict(frames=n, fps=fps, width=wh[0], height=wh[1], x265=opts,
+                                     edit=crafted, key_frames=keys, times=times,
+                                     nal_types=[p[0]['nal_type'] for p in slices],
+                                     slice_types=[[sl['type'] for sl in p] for p in slices],
+                                     hash_type=fields['hash_type']))
+        entry['de265_sha256'] = [[sha256(p) for p in yuv] for yuv in planes]
+        entry['de265_equals_ffmpeg'] = [yuv[0] == luma for yuv, luma in
+                                        zip(entry['de265_sha256'], entry['luma_sha256'])]
+        entry['seek'] = cv2_seeks(path, entry['rgb_sha256'])
+        manifest[name] = entry
+        print(name, path.stat().st_size, sum(entry['de265_equals_ffmpeg']), len(planes))
+    (HEVC_B_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
+
+
 if __name__ == '__main__':
-    write_fixtures()
+    import sys
+    if sys.argv[1:] != ['b']:  # `b`: the B-frame clips only
+        write_fixtures()
+    write_b_fixtures()

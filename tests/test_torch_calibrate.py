@@ -229,12 +229,9 @@ def test_render_checkerboard_reproduces_the_fixture():
                                   rgb)
 
 
-@pytest.mark.parametrize('pattern', [(8, 6), (8, 5), (7, 5)])
-@pytest.mark.parametrize('degrees', [10, 100, 190, 280])
-def test_corner_order_against_cv2_on_other_boards(pattern, degrees):
-    """OpenCV's order on boards of even x even, even x odd and odd x odd
-    inner corners, turned in the image plane."""
-    cv2 = pytest.importorskip('cv2')
+def board_in_plane(pattern, degrees) -> np.ndarray:
+    """A board of `pattern` inner corners turned `degrees` in the image
+    plane, facing a 640x480 camera, as cv2 reads it (libpng's gray)."""
     half = np.radians(degrees) / 2
     q = [np.cos(half), 0.0, 0.0, np.sin(half)]
     rot = calibration.rotation_from_quaternion(q)
@@ -243,11 +240,47 @@ def test_corner_order_against_cv2_on_other_boards(pattern, degrees):
     rgb = calibration.render_checkerboard(
         (480, 640), [[520.0, 0, 320.0], [0, 520.0, 240.0], [0, 0, 1]], [0.0] * 5, q, t,
         pattern_size=pattern, square=20.0, margin=20.0, supersample=2)
-    g = (rgb.astype(np.uint32) @ np.array([9797, 19234, 3737], np.uint32) >> 15).astype(np.uint8)
+    return (rgb.astype(np.uint32) @ np.array([9797, 19234, 3737], np.uint32) >> 15).astype(np.uint8)
+
+
+@pytest.mark.parametrize('pattern', [(8, 6), (8, 5), (7, 5)])
+@pytest.mark.parametrize('degrees', [10, 100, 190, 280])
+def test_corner_order_against_cv2_on_other_boards(pattern, degrees):
+    """OpenCV's order on boards of even x even, even x odd and odd x odd
+    inner corners, turned in the image plane."""
+    cv2 = pytest.importorskip('cv2')
+    g = board_in_plane(pattern, degrees)
     want_found, want = cv2.findChessboardCorners(g, pattern)
     found, got = calibration.find_chessboard_corners(g, pattern, device='cpu')
     assert want_found and found
     assert np.abs(got.reshape(-1, 2) - want.reshape(-1, 2)).max() <= ORDER_TOL_PX
+
+
+# OpenCV's walk over its dark quads (`calibration._opencv_walk`) agreed
+# with cv2 on 497 of 504 probes (3x3, 5x3, 5x5, 7x5, 7x7, 9x7 and 9x9 at
+# every 5 degrees). The rest turn the board within 5 degrees of an axis or
+# onto a diagonal, where the top vertex of cv2's pixel contours decides.
+ODD_BOARD_CV2_DIFFERS = {((3, 3), 175), ((3, 3), 315), ((3, 3), 355), ((5, 5), 175),
+                         ((5, 5), 355), ((7, 7), 175), ((7, 7), 355)}
+
+
+@pytest.mark.parametrize('pattern', [(3, 3), (5, 3), (5, 5), (7, 7), (9, 9)])
+@pytest.mark.parametrize('degrees', [60, 130, 175, 315])
+def test_corner_order_against_cv2_on_odd_boards(pattern, degrees):
+    """OpenCV's first corner and row direction on odd x odd boards, whose
+    first corner may touch a light square: the same corners, in cv2's order
+    except on the pinned near ties (the port's order is then another of the
+    board's right-handed orders)."""
+    cv2 = pytest.importorskip('cv2')
+    g = board_in_plane(pattern, degrees)
+    want_found, want = cv2.findChessboardCorners(g, pattern)
+    found, got = calibration.find_chessboard_corners(g, pattern, device='cpu')
+    assert want_found and found
+    got, want = got.reshape(-1, 2), want.reshape(-1, 2)
+    same = np.abs(got - want).max() <= ORDER_TOL_PX
+    assert same == ((pattern, degrees) not in ODD_BOARD_CV2_DIFFERS)
+    nearest = np.linalg.norm(got[:, None] - want[None], axis=2).min(1)
+    assert nearest.max() <= ORDER_TOL_PX
 
 
 def test_calibrate_camera_refuses_a_non_planar_board():

@@ -214,9 +214,9 @@ def h264_fixture(name: str) -> str:
 
 
 def hevc_fixture(name: str) -> str:
-    """A libx265 clip (I and P slices)."""
-    from _torch_hevc_fixtures import HEVC_DIR
-    return str(HEVC_DIR / name)
+    """A libx265 clip: I and P slices (hevc_*) or B slices too (hevcb_*)."""
+    from _torch_hevc_fixtures import HEVC_B_DIR, HEVC_DIR
+    return str((HEVC_B_DIR if name.startswith('hevcb_') else HEVC_DIR) / name)
 
 
 class EdgeStub(layouts.StubEstimator):
@@ -249,6 +249,15 @@ def test_demo_video_on_h264_b_frames_matches_jax(tmp_path, monkeypatch, capsys, 
 def test_demo_video_on_hevc_matches_jax(tmp_path, monkeypatch, capsys, name):
     """demo_video on a libx265 clip: JAX's frames, batches, poses and line;
     each picture decoded once."""
+    demo_video_matches_jax(tmp_path, monkeypatch, capsys, hevc_fixture(name))
+
+
+@pytest.mark.parametrize('name', ['hevcb_320x568.mp4', 'hevcb_96x66.mkv', 'hevcb_96x66.avi'])
+def test_demo_video_on_hevc_b_matches_jax(tmp_path, monkeypatch, capsys, name):
+    """demo_video on a libx265 clip with B slices (the MP4 with FFmpeg's
+    ctts and elst; the 320x568 clip's CRA picture has a RASL picture): JAX's
+    frames in output order, batches, poses and line, each picture decoded
+    once."""
     demo_video_matches_jax(tmp_path, monkeypatch, capsys, hevc_fixture(name))
 
 
@@ -298,6 +307,12 @@ def test_transform_video_on_hevc_matches_jax(tmp_path):
     """transform_video on a libx265 .mp4: the frames JAX sees, an output as
     close to them as JAX's."""
     transform_video_matches_jax(tmp_path, hevc_fixture('hevc_96x66.mp4'))
+
+
+def test_transform_video_on_hevc_b_matches_jax(tmp_path):
+    """transform_video on a libx265 .mp4 with B slices, ctts and elst: the
+    frames in JAX's order, an output as close to them as JAX's."""
+    transform_video_matches_jax(tmp_path, hevc_fixture('hevcb_96x66.mp4'))
 
 
 def transform_video_matches_jax(tmp_path, src):

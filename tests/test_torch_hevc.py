@@ -20,7 +20,7 @@ tests/_torch_hevc_fixtures.py`) and on streams written here:
   `imread('#frame=N')` equal JAX's and cv2's seek for every N;
 - frames read in order, through `iter_frames` or 8 threads, are each
   decoded once, and random access starts at the last IRAP picture;
-- B slices, 4:0:0, 4:2:2, 4:4:4 (written by x265), bit depth 10, PCM,
+- 4:0:0, 4:2:2, 4:4:4 (written by x265), bit depth 10, PCM,
   long-term references, tiles, dependent slice segments and field coding
   (written here by editing x265's parameter sets) raise UnsupportedVideo
   naming the tool.
@@ -293,7 +293,6 @@ def write_annexb_avi(path, packets, keys) -> str:
 
 
 @pytest.mark.parametrize('what, options, csp', [
-    ('B slices', {'bframes': 3}, 'i420'),
     ('4:0:0', {}, 'i400'),
     ('4:2:2', {}, 'i422'),
     ('4:4:4', {}, 'i444'),
