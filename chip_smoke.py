@@ -149,13 +149,19 @@ line:
     share of `jpeg.decode` in its wall time, valid boxes per frame and
     finite metrics;
 10. tdhp: MPI-INF-3DHP's scoring path. The port's HDF5 reader on every
-    MATLAB-layout fixture of tests/torch_fixtures/hdf5 (user block,
-    MATLAB_class attributes, chunked deflated doubles), each dataset held to
-    the SHA-256, dtype and shape h5py read in its manifest. A layout under
-    runs/ (deleted after): TS1 with 48 frames of 2048x2048 and TS5 with 40
-    of 1920x1080 (copies of the JPEG fixtures), each with its fixture
-    `annot_data.mat` (one invalid frame each), and a cameras JSON with 12
-    distortion coefficients for subj5_6. metrabs_eff2s_y4 on H36M-17 joints
+    fixture of tests/torch_fixtures/hdf5: MATLAB-layout annotations written
+    under three libver bounds (superblock v0; v2 with v2 object headers and
+    dense attributes; v3 with layout-v4 chunk indexes), the structures of v3
+    files (every chunk index, paged; a dense group of 2000 links; groups
+    that track creation order; dense and huge attributes; soft and external
+    links), a SWMR-written and a paged file: every group's members in
+    order, every dataset, alias and attribute held to the SHA-256, dtype
+    and shape h5py read in its manifest. A layout under runs/ (deleted
+    after): TS1 and TS2 with 48 frames of 2048x2048 each and TS5 and TS6
+    with 40 of 1920x1080 (copies of the JPEG fixtures), each with its
+    fixture `annot_data.mat` (superblock v0, v2, v0 and v3; one invalid
+    frame each), and a cameras JSON with 12 distortion coefficients for
+    subj5_6. metrabs_eff2s_y4 on H36M-17 joints
     (whose registry has mpi_inf_3dhp_17) with YOLOv4-416, loaded unfolded
     with `fuse_mbconv='on'`: `apps.predict_3dhp.main` with its defaults (K1
     once and K2 28 times per non-empty chunk), `apps.eval_3dhp.main` on its
@@ -163,7 +169,8 @@ line:
     with each K1 launch against the plain warp and K2's v against the plain
     chain; the predictions through `save_predictions` as .npz and .h5 read
     back equal; a MATLAB-layout file of TDHP_LARGE_FRAMES frames written by
-    the port and read, timed. Prints frames/s with and without the package's
+    the port (superblock v0) and read, and the fixture of as many frames
+    that h5py wrote under `libver='latest'` read, each read timed. Prints frames/s with and without the package's
     loading and the decoding share;
 11. detector_train: the detector trainer (`detect.train`) on minted
     416x416 scenes of upright figures with tight person boxes, float32,
@@ -2679,9 +2686,13 @@ TDHP_DIR = 'runs/chip_smoke_tdhp'
 HDF5_FIXTURES = 'tests/torch_fixtures/hdf5'
 # MPI-INF-3DHP test sequences driven in [tdhp]: (sequence number, its
 # MATLAB-layout annotation fixture, the JPEG fixture its frames copy). TS1-4
-# are 2048x2048, TS5-6 1920x1080 with lens distortion.
+# are 2048x2048, TS5-6 1920x1080 with lens distortion. The fixtures of TS1
+# and TS5 have superblock v0 (h5py's default bound), TS2's v2 (v108) and
+# TS6's v3 (latest).
 TDHP_SEQUENCES = ((1, 'TS1_annot_data.mat', 'frame_3dhp_2048x2048.jpg'),
-                  (5, 'TS5_annot_data.mat', 'frame_3dhp_1920x1080.jpg'))
+                  (2, 'TS2_annot_data.mat', 'frame_3dhp_2048x2048.jpg'),
+                  (5, 'TS5_annot_data.mat', 'frame_3dhp_1920x1080.jpg'),
+                  (6, 'TS6_annot_data.mat', 'frame_3dhp_1920x1080.jpg'))
 # Cameras close to 3DHP's test cameras (subj1_4 without distortion; subj5_6
 # with 12 coefficients, as `load_3dhp_test_frames` reads them).
 TDHP_CAMERAS = {
@@ -2691,28 +2702,62 @@ TDHP_CAMERAS = {
                     distortion=[-0.12, 0.05, 0.001, -0.0005, -0.01, 0.002, 0.0, 0.0, 0.0005,
                                 0.0, -0.0003, 0.0])}
 TDHP_LARGE_FRAMES = 6151  # frames of TS1 in the published test set: the file timed on the card
+# The fixture of TDHP_LARGE_FRAMES frames that h5py wrote under libver='latest'.
+TDHP_LARGE_FIXTURE = 'large_annot_data.mat'
 
 
-def check_hdf5_fixtures(root: Path) -> int:
-    """Every dataset of every HDF5 fixture, read by the port's reader, equal
-    to its manifest's SHA-256, dtype and shape (h5py's read, on the machine
-    that wrote them: the card's machine has no h5py). Returns the count."""
+def hdf5_digest(value) -> dict:
+    """SHA-256, dtype and shape of an array as the HDF5 manifest records them
+    (tests/_torch_hdf5_fixtures.py::digest: strings of object arrays as
+    their UTF-8 bytes, each ended by a NUL)."""
     import hashlib
+    value = np.asarray(value)
+    if value.dtype.kind == 'O':
+        data = b''.join((s.encode('utf-8') if isinstance(s, str) else s) + b'\0'
+                        for s in value.reshape(-1).tolist())
+    else:
+        value = np.ascontiguousarray(value)
+        data = value.tobytes()
+    return dict(sha256=hashlib.sha256(data).hexdigest(), dtype=value.dtype.str,
+                shape=list(value.shape))
 
+
+def check_hdf5_fixtures(root: Path) -> dict:
+    """Every HDF5 fixture read by the port's reader as its manifest says
+    (h5py's read, on the machine that wrote them: the card's machine has no
+    h5py): each group's members in order, each dataset and alias (a path to
+    a dataset read before, through hard, soft or external links), each
+    attribute in order. Returns the counts and each file's superblock
+    version."""
     from metrabs_tpu_torch.utils import hdf5
 
     manifest = json.loads((root / HDF5_FIXTURES / 'manifest.json').read_text())
-    n = 0
-    for name, datasets in sorted(manifest.items()):
+    counts = dict(files=0, groups=0, datasets=0, aliases=0, attributes=0, versions={})
+    for name, want in sorted(manifest.items()):
         with hdf5.File(root / HDF5_FIXTURES / name) as f:
-            for key, want in sorted(datasets.items()):
-                got = np.ascontiguousarray(f[key][()])
-                if (hashlib.sha256(got.tobytes()).hexdigest() != want['sha256']
-                        or got.dtype.str != want['dtype'] or list(got.shape) != want['shape']):
-                    fail('tdhp', f'{name}/{key} reads as {got.dtype.str} {got.shape}, not as its '
-                                 f'manifest says: {want}')
-                n += 1
-    return n
+            counts['versions'][name] = f._reader.version
+            for group, members in want['groups'].items():
+                if list(f[group]) != members:
+                    fail('tdhp', f'{name}:{group} lists {list(f[group])[:8]}..., not its '
+                                 f'manifest\'s {members[:8]}...')
+            for key, digest in want['datasets'].items():
+                if hdf5_digest(f[key][()]) != digest:
+                    fail('tdhp', f'{name}:{key} reads as {hdf5_digest(f[key][()])}, not as its '
+                                 f'manifest says: {digest}')
+            for key, target in want['aliases'].items():
+                if hdf5_digest(f[key][()]) != want['datasets'][target]:
+                    fail('tdhp', f'{name}:{key} does not read as {target}, which it links to')
+            for key, attrs in want['attrs'].items():
+                got = f[key].attrs
+                if (list(got) != [a for a, _ in attrs]
+                        or any(hdf5_digest(got[a]) != d for a, d in attrs)):
+                    fail('tdhp', f'{name}:{key}\'s attributes {list(got)} differ from their '
+                                 f'manifest\'s')
+        counts['files'] += 1
+        for kind in ('groups', 'datasets', 'aliases'):
+            counts[kind] += len(want[kind])
+        counts['attributes'] += sum(len(a) for a in want['attrs'].values())
+    return counts
 
 
 def mint_tdhp_layout(work: Path, root: Path) -> tuple:
@@ -2735,11 +2780,14 @@ def mint_tdhp_layout(work: Path, root: Path) -> tuple:
     return str(work / 'cameras.json'), frames
 
 
-def time_large_annotations(path: Path) -> dict:
+def time_large_annotations(path: Path, root: Path) -> dict:
     """A MATLAB-layout annot_data.mat of TDHP_LARGE_FRAMES frames written by
     the port's writer (user block, MATLAB_class attributes, doubles, chunked
-    and deflated), then read as eval_3dhp reads it: seconds of each, equal
-    values."""
+    and deflated: superblock v0), then read as eval_3dhp reads it: seconds
+    of each, equal values. Then the fixture of as many frames h5py wrote
+    under libver='latest' (superblock v3, fixed-array chunk indexes), read
+    the same way, its values equal to their manifest. Each file is read
+    twice: the seconds of both reads."""
     from metrabs_tpu_torch.utils import hdf5
 
     n = TDHP_LARGE_FRAMES
@@ -2752,13 +2800,28 @@ def time_large_annotations(path: Path) -> dict:
     hdf5.write_hdf5(path, arrays, userblock_size=512,
                     attrs={k: {'MATLAB_class': 'double'} for k in arrays})
     write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with hdf5.File(path, 'r') as m:
-        read = {k: np.asarray(m[k]) for k in arrays}
-    read_s = time.perf_counter() - t0
+    def timed_read(path):
+        t0 = time.perf_counter()
+        with hdf5.File(path, 'r') as m:
+            read = {k: np.asarray(m[k]) for k in arrays}
+            version = m._reader.version
+        return read, version, time.perf_counter() - t0
+
+    read, _, read_s = timed_read(path)
+    read_again_s = timed_read(path)[2]
     if not all(np.array_equal(read[k], v) for k, v in arrays.items()):
         fail('tdhp', 'the large annotation file reads back differently from what was written')
-    return dict(frames=n, write_s=write_s, read_s=read_s, mib=path.stat().st_size / 2**20)
+    v3 = root / HDF5_FIXTURES / TDHP_LARGE_FIXTURE
+    want = json.loads((root / HDF5_FIXTURES / 'manifest.json').read_text())[TDHP_LARGE_FIXTURE]
+    read, version, v3_read_s = timed_read(v3)
+    v3_read_again_s = timed_read(v3)[2]
+    if (version != 3 or len(read['valid_frame']) != n
+            or any(hdf5_digest(v) != want['datasets']['/' + k] for k, v in read.items())):
+        fail('tdhp', f'{TDHP_LARGE_FIXTURE} (superblock v{version}) does not read as its '
+                     f'manifest says')
+    return dict(frames=n, write_s=write_s, read_s=read_s, read_again_s=read_again_s,
+                mib=path.stat().st_size / 2**20, v3_read_s=v3_read_s,
+                v3_read_again_s=v3_read_again_s, v3_mib=v3.stat().st_size / 2**20)
 
 
 def tdhp_phase(root: Path, dev) -> dict:
@@ -2771,9 +2834,14 @@ def tdhp_phase(root: Path, dev) -> dict:
     from metrabs_tpu_torch.utils import hdf5
 
     name = 'tdhp'
-    n_datasets = check_hdf5_fixtures(root)
-    phase(name, f'HDF5 reader (pure Python): all {n_datasets} datasets of the MATLAB-layout '
-                f'fixtures equal their manifest (SHA-256, dtype, shape as h5py read them)')
+    t0 = time.perf_counter()
+    read = check_hdf5_fixtures(root)
+    phase(name, f'HDF5 reader (pure Python): {read["files"]} fixtures (superblock versions '
+                f'{json.dumps(read["versions"], sort_keys=True)}) read as their manifest says in '
+                f'{time.perf_counter() - t0:.2f} s: {read["groups"]} groups\' members in order, '
+                f'{read["datasets"]} datasets and {read["aliases"]} links to them, '
+                f'{read["attributes"]} attributes in order (SHA-256, dtype, shape as h5py '
+                f'read them)')
     work = root / TDHP_DIR
     shutil.rmtree(work, ignore_errors=True)
     gen = torch.Generator().manual_seed(SEED + 19)
@@ -2783,8 +2851,9 @@ def tdhp_phase(root: Path, dev) -> dict:
         cameras_json, frames = mint_tdhp_layout(work / '3dhp', root)
         bench_package(work / 'pkg', gen, H36M_17, with_detector=True)
         phase(name, f'layout and package minted in {time.perf_counter() - t0:.1f} s: '
-                    + ', '.join(f'TS{s} {frames[s]} frames of {j[11:-4]}'
-                                for s, _, j in TDHP_SEQUENCES)
+                    + ', '.join(f'TS{s} {frames[s]} frames of {j[11:-4]} (annotations of '
+                                f'superblock v{read["versions"][a]})'
+                                for s, a, j in TDHP_SEQUENCES)
                     + f'; {IMPORT_MODEL} on H36M-17 joints (mpi_inf_3dhp_17 in its registry) '
                       f'with YOLOv4-{DETECTOR_SIZE}')
 
@@ -2812,8 +2881,10 @@ def tdhp_phase(root: Path, dev) -> dict:
         eval_s, metrics, _, _ = run_app(eval_3dhp.main, [
             '--pred-path', str(work / 'pred.npz'), '--root', str(work / '3dhp')])
         if not (all(np.isfinite(metrics[k]) for k in ('pck', 'auc', 'mpjpe'))
-                and metrics['n_frames'] == n_pred):
-            fail(name, f'eval_3dhp metrics {metrics}')
+                and metrics['n_frames'] == n_pred
+                and sorted(metrics['per_seq_pck']) == [f'TS{s}' for s, *_ in TDHP_SEQUENCES]):
+            fail(name, f'eval_3dhp metrics {metrics}: not every sequence of {TDHP_SEQUENCES} '
+                       f'scored')
         phase(name, f'predict_3dhp (num_aug 1, batch 16, internal batch 64, max_detections 1, '
                     f'threshold 0, flip aug, antialias 2), unfolded, fuse_mbconv on: '
                     + driver_timing(r, n_pred) + f'; K1 {r["k1"]}, K2 {r["k2"]} ({chunks} '
@@ -2864,11 +2935,15 @@ def tdhp_phase(root: Path, dev) -> dict:
                     and [s.decode() for s in h['image_path'][()]] == paths.tolist())
         if not same:
             fail(name, 'the predictions read back from .npz and .h5 differ from those written')
-        large = time_large_annotations(work / 'large_annot_data.mat')
+        large = time_large_annotations(work / 'large_annot_data.mat', root)
         phase(name, f'predictions written through save_predictions as .npz and .h5 and read '
                     f'back equal; a MATLAB-layout annot_data.mat of {large["frames"]} frames '
-                    f'({large["mib"]:.1f} MiB, written by the port in {large["write_s"]:.2f} s) '
-                    f'read in {large["read_s"]:.3f} s')
+                    f'({large["mib"]:.1f} MiB, superblock v0, written by the port in '
+                    f'{large["write_s"]:.2f} s) read in {large["read_s"]:.3f} s (again: '
+                    f'{large["read_again_s"]:.3f} s); h5py\'s of as many frames under '
+                    f'libver=\'latest\' ({large["v3_mib"]:.2f} MiB, superblock v3) read in '
+                    f'{large["v3_read_s"]:.3f} s (again: {large["v3_read_again_s"]:.3f} s), equal '
+                    f'to its manifest (on the card machine\'s host, beside {card_name()})')
     finally:
         drivers.restore()
         shutil.rmtree(work, ignore_errors=True)

@@ -1,7 +1,7 @@
-"""HDF5 files without h5py: a reader of the subset that MATLAB v7.3 and
-h5py's default (`libver='earliest'`) write, and a writer of prediction
-dumps. Pure Python, numpy and zlib, after the public "HDF5 File Format
-Specification Version 3.0".
+"""HDF5 files without h5py: a reader of what h5py writes under every
+`libver` bound (MATLAB v7.3's files among them), and a writer of
+prediction dumps. Pure Python, numpy and zlib, after the public "HDF5 File
+Format Specification Version 3.0".
 
 Reader. `File(path)` has h5py's read-only surface as the drivers use it:
 a context manager, `f[name]` for datasets and groups (paths with '/'),
@@ -10,13 +10,40 @@ a context manager, `f[name]` for datasets and groups (paths with '/'),
 dataspace order with the file's byte order, as h5py gives them (MATLAB's
 column-major `[3, 17, 1, F]` reads as `[F, 1, 17, 3]`). Covered:
 
-- superblock v0 and v1 after a user block (searched at 0, 512, 1024, ...;
-  every file address is relative to the superblock, as libhdf5 reads it);
-- symbol-table groups: v1 B-trees of type 0 at any depth, SNOD nodes and
-  local heaps; version-1 object headers with continuation blocks;
+- superblocks v0 and v1, and v2 and v3 (`libver='v108'` and later) with
+  their extension (B-tree K values, driver info and file space info are
+  read past: `fs_strategy='page'`/`'fsm'` with `fs_persist`), after a user
+  block (searched at 0, 512, 1024, ...; every file address is relative to
+  the superblock, as libhdf5 reads it);
+- object headers of version 1 (continuation blocks) and 2 (`OHDR` and
+  `OCHK` blocks, stored times, phase-change values, creation-order fields
+  and gaps);
+- the Jenkins lookup3 checksum of every structure that carries one
+  (superblock v2/v3, OHDR, OCHK, FRHP, FHIB, FHDB where the heap signs its
+  direct blocks, BTHD, BTIN, BTLF, FAHD, FADB, EAHD, EAIB, EASB, EADB): a
+  mismatch raises ValueError naming the structure and its address;
+- symbol-table groups (v1 B-trees of type 0 at any depth, SNOD nodes,
+  local heaps) and new-style groups (link info and link messages, compact
+  in the header or dense in a fractal heap with a v2 B-tree name index),
+  members listed as h5py lists them: by name, or by creation order where
+  the group tracks it;
+- hard, soft and external links. A soft link resolves from the group that
+  holds it ('/...' from its file's root); an external link opens its file
+  where libhdf5 finds it (an absolute name as given, then the referring
+  file's directory, then the working directory, an absolute name by its
+  last component; `HDF5_EXT_PREFIX` is not read). A dangling link raises
+  KeyError and more than MAX_LINK_HOPS soft or external links in one lookup
+  RuntimeError ("too many links"), as h5py's;
+- fractal heaps (direct and indirect blocks at any depth; managed, tiny
+  and huge objects) and v2 B-trees at any depth (records of types 1, 5, 6,
+  8, 9, 10 and 11);
 - dataspace (v1, v2), datatype, fill value (old and v1-v3), layout v3
-  (compact, contiguous, chunked with the v1 B-tree chunk index), filter
-  pipeline v1/v2 and attribute (v1-v3) messages;
+  (compact, contiguous, chunked with the v1 B-tree chunk index) and v4
+  (compact, contiguous, and chunked with a single chunk, implicit, fixed
+  array (paged), extensible array (super blocks, paged data blocks) or v2
+  B-tree chunk index; edge chunks stored unfiltered), filter pipeline v1/v2
+  and attribute (v1-v3) messages; attributes compact or dense (fractal heap
+  and name index, huge ones included), listed as h5py lists them;
 - fixed-point (1-8 bytes, signed or not, either byte order), IEEE floats
   of 2, 4 and 8 bytes, fixed-length strings (numpy `S`), variable-length
   strings from global-heap collections (object arrays of bytes; str in
@@ -25,10 +52,11 @@ column-major `[3, 17, 1, F]` reads as `[F, 1, 17, 3]`). Covered:
   filter mask; edge chunks cropped; unallocated storage reads as the fill
   value.
 
-Everything else (superblock v2/v3, v2 object headers, new-style groups,
-layout v4 chunk indexes, soft and external links, compound, reference,
-array and other enum types, variable-length sequences, shared messages,
-other filters) raises NotImplementedError naming the feature.
+Refused with NotImplementedError naming the feature: shared object header
+messages and the shared-message table, filtered fractal heaps and huge
+objects, virtual datasets, external data storage, compound, reference,
+array and non-boolean enum types, variable-length sequences, and filters
+other than deflate, shuffle and Fletcher-32.
 
 Writer. `write_hdf5(path, datasets, ...)` writes one root group of
 datasets (superblock v0, v1 object headers, a symbol-table group) that
@@ -45,7 +73,7 @@ import math
 import os
 import struct
 import zlib
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,17 +92,34 @@ MSG_LAYOUT = 0x0008
 MSG_GROUP_INFO = 0x000A
 MSG_FILTERS = 0x000B
 MSG_ATTRIBUTE = 0x000C
+MSG_SHARED_TABLE = 0x000F
 MSG_CONTINUATION = 0x0010
 MSG_SYMBOL_TABLE = 0x0011
+MSG_BTREE_K = 0x0013
+MSG_DRIVER_INFO = 0x0014
 MSG_ATTRIBUTE_INFO = 0x0015
+MSG_FILE_SPACE_INFO = 0x0017
+
+# An object header with one of these is a group's.
+_GROUP_MESSAGES = {MSG_SYMBOL_TABLE, MSG_LINK_INFO, MSG_LINK, MSG_GROUP_INFO}
 
 FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
+
+# libhdf5's H5L_NUM_LINKS: soft and external links followed in one lookup.
+MAX_LINK_HOPS = 16
+
+# Layout message v4: chunked flags and chunk index types.
+LAYOUT_DONT_FILTER_PARTIAL = 0x01
+LAYOUT_SINGLE_INDEX_WITH_FILTER = 0x02
+INDEX_SINGLE, INDEX_IMPLICIT, INDEX_FIXED_ARRAY, INDEX_EXTENSIBLE_ARRAY, INDEX_BTREE2 = (
+    1, 2, 3, 4, 5)
 
 _CLASS_NAMES = {2: 'time', 4: 'bitfield', 5: 'opaque', 6: 'compound', 7: 'reference',
                 10: 'array'}
 # IEEE layouts: size -> (exponent location, exponent size, mantissa location,
 # mantissa size, exponent bias).
 _IEEE = {2: (10, 5, 0, 10, 15), 4: (23, 8, 0, 23, 127), 8: (52, 11, 0, 52, 1023)}
+_M32 = 0xFFFFFFFF
 
 
 def _unsupported(feature: str):
@@ -83,6 +128,58 @@ def _unsupported(feature: str):
 
 def _pad8(n: int) -> int:
     return (n + 7) & ~7
+
+
+def _uint(buf: bytes, pos: int, n: int) -> int:
+    return int.from_bytes(buf[pos:pos + n], 'little')
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _enc_size(n: int) -> int:
+    """Bytes libhdf5 uses to encode counts up to n (H5VM_limit_enc_size)."""
+    return _log2(n) // 8 + 1
+
+
+def _bit(bitmap: bytes, i: int) -> bool:
+    """Bit i of a libhdf5 bitmap, most significant bit first (H5VM_bit_get)."""
+    return bool(bitmap[i // 8] & (0x80 >> (i % 8)))
+
+
+def lookup3(data: bytes, initval: int = 0) -> int:
+    """Bob Jenkins' lookup3 `hashlittle` of `data`: the checksum libhdf5
+    gives its metadata (H5_checksum_lookup3)."""
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n + initval) & _M32
+    if n == 0:
+        return c
+    blocks = (n - 1) // 12
+    words = struct.unpack_from(f'<{3 * blocks}I', data)
+    m = _M32
+    for i in range(0, 3 * blocks, 3):
+        a = (a + words[i]) & m
+        b = (b + words[i + 1]) & m
+        c = (c + words[i + 2]) & m
+        a = (a - c) & m; a ^= ((c << 4) | (c >> 28)) & m; c = (c + b) & m  # noqa: E702
+        b = (b - a) & m; b ^= ((a << 6) | (a >> 26)) & m; a = (a + c) & m  # noqa: E702
+        c = (c - b) & m; c ^= ((b << 8) | (b >> 24)) & m; b = (b + a) & m  # noqa: E702
+        a = (a - c) & m; a ^= ((c << 16) | (c >> 16)) & m; c = (c + b) & m  # noqa: E702
+        b = (b - a) & m; b ^= ((a << 19) | (a >> 13)) & m; a = (a + c) & m  # noqa: E702
+        c = (c - b) & m; c ^= ((b << 4) | (b >> 28)) & m; b = (b + a) & m  # noqa: E702
+    tail = bytes(data[12 * blocks:])
+    x, y, z = struct.unpack('<3I', tail + b'\0' * (12 - len(tail)))
+    a, b, c = (a + x) & m, (b + y) & m, (c + z) & m
+    rot = lambda v, k: ((v << k) | (v >> (32 - k))) & m  # noqa: E731
+    c ^= b; c = (c - rot(b, 14)) & m  # noqa: E702
+    a ^= c; a = (a - rot(c, 11)) & m  # noqa: E702
+    b ^= a; b = (b - rot(a, 25)) & m  # noqa: E702
+    c ^= b; c = (c - rot(b, 16)) & m  # noqa: E702
+    a ^= c; a = (a - rot(c, 4)) & m  # noqa: E702
+    b ^= a; b = (b - rot(a, 14)) & m  # noqa: E702
+    c ^= b; c = (c - rot(b, 24)) & m  # noqa: E702
+    return c
 
 
 # --- datatypes ----------------------------------------------------------------
@@ -153,50 +250,93 @@ def _parse_datatype(buf: bytes, pos: int, offset_size: int) -> Tuple[_Type, int]
     raise _unsupported(f'{_CLASS_NAMES.get(cls, f"class {cls}")} datatype')
 
 
-def _parse_dataspace(buf: bytes, pos: int, length_size: int) -> Optional[Tuple[int, ...]]:
-    """The dataspace's shape: () for a scalar, None for a null dataspace."""
+def _parse_dataspace(buf: bytes, pos: int, length_size: int
+                     ) -> Tuple[Optional[Tuple[int, ...]], Optional[Tuple[int, ...]]]:
+    """(shape, maximum shape) of a dataspace: () for a scalar, None for a
+    null dataspace; an unlimited dimension's maximum is None, as h5py's."""
     version, rank, flags = struct.unpack_from('<BBB', buf, pos)
     if version == 1:
         dims_at = pos + 8
     elif version == 2:
-        kind = buf[pos + 3]
-        if kind == 2:
-            return None
+        if buf[pos + 3] == 2:
+            return None, None
         dims_at = pos + 4
     else:
         raise _unsupported(f'dataspace message version {version}')
     fmt = '<' + ('Q' if length_size == 8 else 'I') * rank
-    return tuple(int(d) for d in struct.unpack_from(fmt, buf, dims_at))
+    shape = tuple(int(d) for d in struct.unpack_from(fmt, buf, dims_at))
+    if not flags & 1:
+        return shape, shape
+    unlimited = (1 << (8 * length_size)) - 1
+    maxshape = tuple(None if d == unlimited else int(d) for d in
+                     struct.unpack_from(fmt, buf, dims_at + rank * length_size))
+    return shape, maxshape
 
 
 # --- the file -------------------------------------------------------------------
 
+class _Message(NamedTuple):
+    type: int
+    data: bytes
+    order: Optional[int]  # the creation-order field of a v2 header's message
+
+
+class _Messages(list):
+    """The messages of one object header; `attr_order_tracked` from a v2
+    header's flags."""
+    attr_order_tracked = False
+
+
 class _Reader:
     """Addresses, sizes and the structures shared by every object of one
-    file: superblock, heaps and object headers."""
+    file: superblock, heaps, B-trees and object headers."""
 
-    def __init__(self, fh):
+    def __init__(self, fh, path: str):
         self.fh = fh
         fh.seek(0, os.SEEK_END)
         self.file_size = fh.tell()
         self.base = self._find_superblock()
         head = self.read_abs(self.base, 24)
-        version = head[8]
-        if version > 1:
-            raise _unsupported(f'superblock version {version} (files written with '
-                               f"libver='latest' or v110+)")
-        self.offset_size, self.length_size = head[13], head[14]
+        self.version = version = head[8]
+        if version in (0, 1):
+            self.offset_size, self.length_size = head[13], head[14]
+        elif version in (2, 3):
+            self.offset_size, self.length_size = head[9], head[10]
+        else:
+            raise _unsupported(f'superblock version {version}')
         if self.offset_size not in (4, 8) or self.length_size not in (4, 8):
             raise _unsupported(f'offset size {self.offset_size} / length size '
                                f'{self.length_size}')
         self.undefined = (1 << (8 * self.offset_size)) - 1
-        pos = 24 + (4 if version == 1 else 0)
         self._o = 'Q' if self.offset_size == 8 else 'I'
         self._l = 'Q' if self.length_size == 8 else 'I'
-        tail = self.read_abs(self.base + pos, 4 * self.offset_size + self._entry_size())
-        self.root_address = self._symbol_entry(tail, 4 * self.offset_size)[1]
+        if version < 2:
+            pos = 24 + (4 if version == 1 else 0)
+            tail = self.read_abs(self.base + pos, 4 * self.offset_size + self._entry_size())
+            self.root_address = self._symbol_entry(tail, 4 * self.offset_size)[1]
+            extension = self.undefined
+        else:
+            block = self.read(0, 12 + 4 * self.offset_size + 4)
+            self.verify(block, 'superblock', 0)
+            _, extension, _, self.root_address = self.unpack('OOOO', block, 12)
+        # A referring file's directory, as libhdf5 keeps it for external links.
+        self.extpath = os.path.join(os.getcwd(), os.path.dirname(path))
+        self.root = None  # the File, once opened
+        self.externals: Dict[str, 'File'] = {}
         self._heaps: Dict[int, bytes] = {}
         self._collections: Dict[int, Dict[int, bytes]] = {}
+        self._fractal_heaps: Dict[int, _FractalHeap] = {}
+        # Per object header address: its messages, links and attributes.
+        self._messages: Dict[int, _Messages] = {}
+        self._links: Dict[int, Dict[str, tuple]] = {}
+        self._attributes: Dict[int, Attributes] = {}
+        if extension != self.undefined:
+            for m in self.messages(extension):
+                if m.type == MSG_SHARED_TABLE:
+                    raise _unsupported('shared object header message table (superblock '
+                                       'extension message 0x000F)')
+                if m.type not in (MSG_BTREE_K, MSG_DRIVER_INFO, MSG_FILE_SPACE_INFO):
+                    raise _unsupported(f'superblock extension message type {m.type:#06x}')
 
     def _find_superblock(self) -> int:
         at = 0
@@ -224,6 +364,23 @@ class _Reader:
     def unpack(self, fmt: str, buf: bytes, pos: int):
         return struct.unpack_from('<' + fmt.replace('O', self._o).replace('L', self._l),
                                   buf, pos)
+
+    def verify(self, block: bytes, what: str, address: int) -> None:
+        """Raises ValueError unless the last 4 bytes of `block` are the
+        lookup3 checksum of the others."""
+        stored, = struct.unpack_from('<I', block, len(block) - 4)
+        if lookup3(block[:-4]) != stored:
+            raise ValueError(f'HDF5 {what} at address {address} fails its lookup3 checksum: '
+                             f'corrupt file')
+
+    def signed(self, address: int, n: int, signature: bytes) -> bytes:
+        """The n bytes of a structure that starts with `signature` and ends
+        with its checksum, both checked."""
+        block = self.read(address, n)
+        if block[:4] != signature:
+            raise ValueError(f'no HDF5 {signature.decode()} at address {address}')
+        self.verify(block, signature.decode(), address)
+        return block
 
     def _symbol_entry(self, buf: bytes, pos: int):
         """(link name offset, object header address, cache type) of a symbol
@@ -271,43 +428,154 @@ class _Reader:
                 out.append(self.collection(address)[index][:length])
         return out
 
+    def fractal_heap(self, address: int) -> '_FractalHeap':
+        if address not in self._fractal_heaps:
+            self._fractal_heaps[address] = _FractalHeap(self, address)
+        return self._fractal_heaps[address]
+
     # Object headers.
-    def messages(self, address: int) -> List[Tuple[int, int, bytes]]:
-        """(type, flags, data) of every message of the version-1 object
-        header at `address`, continuation blocks included."""
+    def messages(self, address: int) -> _Messages:
+        """The messages of the object header at `address` (version 1 or 2),
+        continuation blocks included."""
+        if address not in self._messages:
+            self._messages[address] = (self._messages_v2(address)
+                                       if self.read(address, 4) == b'OHDR'
+                                       else self._messages_v1(address))
+        return self._messages[address]
+
+    def _messages_v1(self, address: int) -> _Messages:
         prefix = self.read(address, 16)
-        if prefix[:4] == b'OHDR':
-            raise _unsupported('version-2 object header')
         if prefix[0] != 1:
             raise _unsupported(f'object header version {prefix[0]}')
         size, = struct.unpack_from('<I', prefix, 8)
-        blocks, out = [(address + 16, size)], []
+        blocks, out = [(address + 16, size)], _Messages()
         while blocks:
             start, n = blocks.pop(0)
             buf = self.read(start, n)
             pos = 0
             while pos + 8 <= n:
                 mtype, msize, flags = struct.unpack_from('<HHB', buf, pos)
-                data = buf[pos + 8:pos + 8 + msize]
+                self._add_message(out, blocks, mtype, flags, buf[pos + 8:pos + 8 + msize], None)
                 pos += 8 + msize
-                if flags & 0x02:
-                    raise _unsupported('shared object header message (committed datatype)')
-                if mtype == MSG_CONTINUATION:
-                    blocks.append(self.unpack('OL', data, 0))
-                elif mtype != MSG_NIL:
-                    out.append((mtype, flags, data))
         return out
 
+    def _messages_v2(self, address: int) -> _Messages:
+        head = self.read(address, 6)
+        version, flags = head[4], head[5]
+        if version != 2:
+            raise _unsupported(f'OHDR object header version {version}')
+        pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        size = _uint(self.read(address + pos, width), 0, width)
+        pos += width
+        block = self.signed(address, pos + size + 4, b'OHDR')
+        out = _Messages()
+        out.attr_order_tracked = bool(flags & 0x04)
+        blocks = []
+        self._v2_messages(block[pos:pos + size], flags, out, blocks)
+        while blocks:
+            start, n = blocks.pop(0)
+            block = self.signed(start, n, b'OCHK')
+            self._v2_messages(block[4:-4], flags, out, blocks)
+        return out
+
+    def _v2_messages(self, body: bytes, header_flags: int, out: _Messages, blocks) -> None:
+        head = 6 if header_flags & 0x04 else 4
+        pos = 0
+        while pos + head <= len(body):  # fewer bytes are a gap
+            mtype, msize, flags = struct.unpack_from('<BHB', body, pos)
+            order = struct.unpack_from('<H', body, pos + 4)[0] if head == 6 else None
+            self._add_message(out, blocks, mtype, flags, body[pos + head:pos + head + msize],
+                              order)
+            pos += head + msize
+
+    def _add_message(self, out: _Messages, blocks, mtype: int, flags: int, data: bytes,
+                     order: Optional[int]) -> None:
+        if flags & 0x02:
+            raise _unsupported(f'shared object header message (type {mtype:#06x})')
+        if mtype == MSG_CONTINUATION:
+            blocks.append(self.unpack('OL', data, 0))
+        elif mtype != MSG_NIL:
+            out.append(_Message(mtype, data, order))
+
     def open_object(self, address: int, name: str):
-        msgs = self.messages(address)
-        types = {m[0] for m in msgs}
-        if types & {MSG_LINK_INFO, MSG_LINK, MSG_GROUP_INFO}:
-            raise _unsupported(f'new-style group {name!r} (link messages)')
-        if MSG_SYMBOL_TABLE in types:
-            return Group(self, name, msgs)
+        types = {m.type for m in self.messages(address)}
+        if types & _GROUP_MESSAGES:
+            return Group(self, name, address)
         if MSG_LAYOUT in types:
-            return Dataset(self, name, msgs)
+            return Dataset(self, name, address)
+        if MSG_DATATYPE in types:
+            raise _unsupported(f'committed datatype {name!r}')
         raise _unsupported(f'object {name!r} that is neither a group nor a dataset')
+
+    def attributes(self, address: int) -> 'Attributes':
+        if address not in self._attributes:
+            self._attributes[address] = Attributes(self, self.messages(address))
+        return self._attributes[address]
+
+    # Groups' links.
+    def links(self, address: int) -> Dict[str, tuple]:
+        """name -> ('hard', address), ('soft', path) or ('external', file,
+        path) of the members of the group at `address`, in h5py's order."""
+        if address not in self._links:
+            self._links[address] = self._read_links(self.messages(address))
+        return self._links[address]
+
+    def _read_links(self, messages: Sequence[_Message]) -> Dict[str, tuple]:
+        table = next((m.data for m in messages if m.type == MSG_SYMBOL_TABLE), None)
+        if table is not None:
+            return self._symbol_table_links(table)
+        entries = [_parse_link(m.data, self) for m in messages if m.type == MSG_LINK]
+        info = next((m.data for m in messages if m.type == MSG_LINK_INFO), None)
+        tracked = info is not None and bool(info[1] & 1)
+        if info is not None:
+            heap_address, name_index = self.unpack('OO', info, 2 + (8 if tracked else 0))
+            if heap_address != self.undefined:
+                heap = self.fractal_heap(heap_address)
+                entries += [_parse_link(heap.get(record[4:]), self)
+                            for record in self.btree2_records(name_index, 5)]
+        # h5py lists a group that tracks creation order in that order, else by name.
+        entries.sort(key=(lambda e: e[0]) if tracked else (lambda e: e[1].encode('utf-8')))
+        return {name: link for _, name, link in entries}
+
+    def _symbol_table_links(self, table: bytes) -> Dict[str, tuple]:
+        btree, heap_address = self.unpack('OO', table, 0)
+        heap = self.local_heap(heap_address)
+        links = {}
+        entry = self._entry_size()
+        for _, snod in self.btree_leaves(btree, 0, self.length_size):
+            head = self.read(snod, 8)
+            if head[:4] != b'SNOD':
+                raise ValueError(f'no symbol table node at {snod}')
+            n, = struct.unpack_from('<H', head, 6)
+            body = self.read(snod + 8, n * entry)
+            for i in range(n):
+                name_off, header, cache = self._symbol_entry(body, i * entry)
+                name = self.heap_string(heap, name_off)
+                if cache == 2:  # a soft link: its value's offset in the scratch pad
+                    value, = struct.unpack_from('<I', body, i * entry + 2 * self.offset_size + 8)
+                    links[name] = ('soft', self.heap_string(heap, value))
+                else:
+                    links[name] = ('hard', header)
+        return links
+
+    def external_file(self, filename: str, link: str) -> 'File':
+        """The file an external link names, where libhdf5 looks for it."""
+        candidates = []
+        if os.path.isabs(filename):
+            candidates.append(filename)
+            filename = os.path.basename(filename)
+        candidates += [os.path.join(self.extpath, filename), filename]
+        for path in candidates:
+            if path in self.externals:
+                return self.externals[path]
+            if os.path.isfile(path):
+                try:
+                    self.externals[path] = File(path)
+                except (OSError, ValueError):
+                    continue
+                return self.externals[path]
+        raise KeyError(f"external link {link!r}: can't open file {filename!r}")
 
     # v1 B-trees.
     def btree_leaves(self, address: int, node_type: int, key_size: int
@@ -329,34 +597,243 @@ class _Reader:
             else:
                 yield from self.btree_leaves(child, node_type, key_size)
 
+    # v2 B-trees.
+    def btree2_records(self, address: int, record_type: int) -> Iterator[bytes]:
+        """Every record of the v2 B-tree at `address`, in key order."""
+        o = self.offset_size
+        head = self.signed(address, 16 + o + 2 + self.length_size + 4, b'BTHD')
+        tree_type = head[5]
+        node_size, record_size, depth = struct.unpack_from('<IHH', head, 6)
+        root, root_records = self.unpack('OH', head, 16)
+        if tree_type != record_type:
+            if tree_type in (2, 4):
+                raise _unsupported(f'filtered huge fractal-heap objects (v2 B-tree type '
+                                   f'{tree_type})')
+            raise ValueError(f'the v2 B-tree at {address} has records of type {tree_type}, '
+                             f'not {record_type}')
+        # The widths of the child pointers' record counts (H5B2__hdr_init).
+        max_records = [(node_size - 10) // record_size]
+        count_size = _enc_size(max_records[0])
+        total_sizes, totals = [0], [max_records[0]]
+        for d in range(1, depth + 1):
+            pointer = o + count_size + (total_sizes[d - 1] if d > 1 else 0)
+            max_records.append((node_size - 10 - pointer) // (record_size + pointer))
+            totals.append((max_records[d] + 1) * totals[d - 1] + max_records[d])
+            total_sizes.append(_enc_size(totals[d]))
+
+        def walk(node: int, n: int, d: int) -> Iterator[bytes]:
+            if node == self.undefined or n == 0:
+                return
+            records = 6 + n * record_size
+            if d == 0:
+                block = self.signed(node, records + 4, b'BTLF')
+                for i in range(n):
+                    yield block[6 + i * record_size:6 + (i + 1) * record_size]
+                return
+            pointer = o + count_size + (total_sizes[d - 1] if d > 1 else 0)
+            block = self.signed(node, records + (n + 1) * pointer + 4, b'BTIN')
+            for i in range(n + 1):
+                at = records + i * pointer
+                child, = self.unpack('O', block, at)
+                yield from walk(child, _uint(block, at + o, count_size), d - 1)
+                if i < n:
+                    yield block[6 + i * record_size:6 + (i + 1) * record_size]
+
+        yield from walk(root, root_records, depth)
+
+
+def _parse_link(data: bytes, reader: _Reader) -> Tuple[Optional[int], str, tuple]:
+    """(creation order, name, link) of a link message."""
+    version, flags = data[0], data[1]
+    if version != 1:
+        raise _unsupported(f'link message version {version}')
+    pos, link_type, order = 2, 0, None
+    if flags & 0x08:
+        link_type = data[pos]
+        pos += 1
+    if flags & 0x04:
+        order, = struct.unpack_from('<q', data, pos)
+        pos += 8
+    if flags & 0x10:  # the name's character set: ASCII or UTF-8
+        pos += 1
+    width = 1 << (flags & 3)
+    n = _uint(data, pos, width)
+    pos += width
+    name = data[pos:pos + n].decode('utf-8')
+    pos += n
+    if link_type == 0:
+        return order, name, ('hard', reader.unpack('O', data, pos)[0])
+    if link_type in (1, 64):
+        n, = struct.unpack_from('<H', data, pos)
+        value = data[pos + 2:pos + 2 + n]
+        if link_type == 1:
+            return order, name, ('soft', value.decode('utf-8'))
+        filename, path = value[1:].split(b'\0')[:2]
+        return order, name, ('external', filename.decode('utf-8'), path.decode('utf-8'))
+    raise _unsupported(f'user-defined link type {link_type} ({name!r})')
+
+
+class _FractalHeap:
+    """A fractal heap (FRHP): objects by heap ID."""
+
+    def __init__(self, reader: _Reader, address: int):
+        self.reader = reader
+        o, l = reader.offset_size, reader.length_size  # noqa: E741
+        fixed = 14 + 12 * l + 3 * o + 8
+        head = reader.read(address, fixed + 4)
+        if head[:4] != b'FRHP':
+            raise ValueError(f'no HDF5 FRHP at address {address}')
+        self.id_len, filter_len, self.flags, self.max_managed = struct.unpack_from(
+            '<HHBI', head, 5)
+        if filter_len:
+            head = reader.read(address, fixed + l + 4 + filter_len + 4)
+        reader.verify(head, 'FRHP', address)
+        if filter_len:
+            raise _unsupported(f'filtered fractal heap (I/O filters on its blocks) at {address}')
+        self.address = address
+        self.huge_btree, = reader.unpack('O', head, 14 + l)
+        pos = 14 + 10 * l + 2 * o
+        self.width, = struct.unpack_from('<H', head, pos)
+        self.start_size, self.max_direct = reader.unpack('LL', head, pos + 2)
+        max_heap_bits, _, self.root, self.root_rows = reader.unpack('HHOH', head, pos + 2 + 2 * l)
+        self.offset_size = (max_heap_bits + 7) // 8
+        self.length_size = min((_log2(self.max_direct) + 7) // 8, _enc_size(self.max_managed))
+        self.max_direct_rows = _log2(self.max_direct) - _log2(self.start_size) + 2
+        self.first_row_bits = _log2(self.start_size) + _log2(self.width)
+        self.huge_direct = o + l <= self.id_len - 1
+        self.huge_id_size = min(self.id_len - 1, 8)
+        self._blocks: Dict[int, bytes] = {}
+        self._iblocks: Dict[int, Tuple[int, ...]] = {}
+        self._huge: Optional[Dict[int, Tuple[int, int]]] = None
+
+    def row_size(self, row: int) -> int:
+        return self.start_size if row == 0 else self.start_size << (row - 1)
+
+    def get(self, heap_id: bytes) -> bytes:
+        """The object a heap ID names."""
+        if heap_id[0] >> 6:
+            raise _unsupported(f'fractal heap ID version {heap_id[0] >> 6}')
+        kind = (heap_id[0] >> 4) & 3
+        if kind == 0:  # managed: an offset into the heap's space and a length
+            offset = _uint(heap_id, 1, self.offset_size)
+            n = _uint(heap_id, 1 + self.offset_size, self.length_size)
+            block, block_offset = self._direct_block(offset)
+            return block[offset - block_offset:offset - block_offset + n]
+        if kind == 1:  # huge: stored on its own
+            if self.huge_direct:
+                address, n = self.reader.unpack('OL', heap_id, 1)
+            else:
+                if self._huge is None:
+                    self._huge = {}
+                    for record in self.reader.btree2_records(self.huge_btree, 1):
+                        address, n, key = self.reader.unpack('OLL', record, 0)
+                        self._huge[key] = (address, n)
+                key = _uint(heap_id, 1, self.huge_id_size)
+                if key not in self._huge:
+                    raise ValueError(f'huge object {key} is not in the fractal heap at '
+                                     f'{self.address}')
+                address, n = self._huge[key]
+            return self.reader.read(address, n)
+        if kind == 2:  # tiny: the data are in the ID
+            if self.id_len <= 17:
+                n = (heap_id[0] & 0x0F) + 1
+                return heap_id[1:1 + n]
+            n = (((heap_id[0] & 0x0F) << 8) | heap_id[1]) + 1
+            return heap_id[2:2 + n]
+        raise ValueError(f'fractal heap ID of type {kind} in the heap at {self.address}')
+
+    def _direct_block(self, offset: int) -> Tuple[bytes, int]:
+        """(the direct block holding heap offset `offset`, its heap offset)."""
+        if self.root_rows == 0:
+            return self._dblock(self.root, self.start_size), 0
+        address, rows, block_offset = self.root, self.root_rows, 0
+        while True:
+            children = self._iblock(address, rows)
+            pos = block_offset
+            for row in range(rows):
+                size = self.row_size(row)
+                if offset < pos + size * self.width:
+                    break
+                pos += size * self.width
+            else:
+                raise ValueError(f'heap offset {offset} lies outside the fractal heap at '
+                                 f'{self.address}')
+            column = (offset - pos) // size
+            child, child_offset = children[row * self.width + column], pos + column * size
+            if child == self.reader.undefined:
+                raise ValueError(f'heap offset {offset} lies in an unallocated block of the '
+                                 f'fractal heap at {self.address}')
+            if row < self.max_direct_rows:
+                return self._dblock(child, size), child_offset
+            address, rows, block_offset = child, _log2(size) - self.first_row_bits + 1, child_offset
+
+    def _iblock(self, address: int, rows: int) -> Tuple[int, ...]:
+        if address not in self._iblocks:
+            o = self.reader.offset_size
+            n = rows * self.width
+            block = self.reader.signed(address, 5 + o + self.offset_size + n * o + 4, b'FHIB')
+            self._iblocks[address] = self.reader.unpack('O' * n, block, 5 + o + self.offset_size)
+        return self._iblocks[address]
+
+    def _dblock(self, address: int, size: int) -> bytes:
+        if address not in self._blocks:
+            block = self.reader.read(address, size)
+            if block[:4] != b'FHDB':
+                raise ValueError(f'no HDF5 FHDB at address {address}')
+            if self.flags & 0x02:  # checksummed, over the block with the checksum zeroed
+                at = 5 + self.reader.offset_size + self.offset_size
+                self.reader.verify(block[:at] + b'\0' * 4 + block[at + 4:] + block[at:at + 4],
+                                   'FHDB', address)
+            self._blocks[address] = block
+        return self._blocks[address]
+
 
 class Attributes(Mapping):
-    """`obj.attrs`: read-only, values as h5py returns them."""
+    """`obj.attrs`: read-only, values as h5py returns them, listed in
+    creation order where the object tracks it, else by name."""
 
-    def __init__(self, reader: _Reader, messages):
+    def __init__(self, reader: _Reader, messages: _Messages):
         self._reader = reader
-        self._raw = {}
-        for mtype, _, data in messages:
-            if mtype == MSG_ATTRIBUTE:
-                name, value = self._parse(data)
-                self._raw[name] = value
-            elif mtype == MSG_ATTRIBUTE_INFO:
-                fractal_heap, = reader.unpack('O', data, 2 + (2 if data[1] & 1 else 0))
-                if fractal_heap != reader.undefined:
-                    raise _unsupported('dense attribute storage')
+        entries = []
+        for m in messages:
+            if m.type == MSG_ATTRIBUTE:
+                entries.append((m.order, *self._parse(m.data)))
+            elif m.type == MSG_ATTRIBUTE_INFO:
+                entries += self._dense(m.data)
+        entries.sort(key=(lambda e: e[0]) if messages.attr_order_tracked
+                     else (lambda e: e[1].encode('utf-8')))
+        self._raw = {name: value for _, name, value in entries}
+
+    def _dense(self, info: bytes) -> list:
+        """The attributes in a fractal heap, through the name index."""
+        reader = self._reader
+        heap_address, name_index = reader.unpack('OO', info, 2 + (2 if info[1] & 1 else 0))
+        if heap_address == reader.undefined:
+            return []
+        heap = reader.fractal_heap(heap_address)
+        out = []
+        for record in reader.btree2_records(name_index, 8):
+            id_len = len(record) - 9  # heap ID, flags (1), creation order (4), hash (4)
+            if record[id_len] & 0x02:
+                raise _unsupported('shared attribute message in dense storage')
+            order, = struct.unpack_from('<I', record, id_len + 1)
+            out.append((order, *self._parse(heap.get(record[:id_len]))))
+        return out
 
     def _parse(self, data: bytes):
         version = data[0]
+        if version not in (1, 2, 3):
+            raise _unsupported(f'attribute message version {version}')
+        if version > 1 and data[1] & 0x03:
+            raise _unsupported('attribute with a shared datatype or dataspace')
         name_size, type_size, space_size = struct.unpack_from('<HHH', data, 2)
         pos = 8 + (1 if version == 3 else 0)
         pad = _pad8 if version == 1 else (lambda n: n)
-        if version not in (1, 2, 3):
-            raise _unsupported(f'attribute message version {version}')
         name = data[pos:pos + name_size].split(b'\0', 1)[0].decode('utf-8')
         pos += pad(name_size)
         dtype, _ = _parse_datatype(data, pos, self._reader.offset_size)
         pos += pad(type_size)
-        shape = _parse_dataspace(data, pos, self._reader.length_size)
+        shape, _ = _parse_dataspace(data, pos, self._reader.length_size)
         pos += pad(space_size)
         return name, (dtype, shape, data[pos:])
 
@@ -381,76 +858,88 @@ class Attributes(Mapping):
 
 
 class _Object:
-    def __init__(self, reader: _Reader, name: str, messages):
+    def __init__(self, reader: _Reader, name: str, address: int):
         self._reader = reader
         self.name = name
-        self._messages = messages
-        self.attrs = Attributes(reader, messages)
+        self._messages = reader.messages(address)
+        self.attrs = reader.attributes(address)
 
 
 class Group(_Object, Mapping):
-    """A symbol-table group: its members by name, in the file's name order."""
+    """A group, old-style (symbol table) or new-style (links): its members
+    in h5py's order; `group[path]` follows hard, soft and external links."""
 
-    def __init__(self, reader: _Reader, name: str, messages):
-        super().__init__(reader, name, messages)
-        data = next(d for t, _, d in messages if t == MSG_SYMBOL_TABLE)
-        btree, heap_address = reader.unpack('OO', data, 0)
-        heap = reader.local_heap(heap_address)
-        self._members: Dict[str, Tuple[int, int]] = {}
-        entry = reader._entry_size()
-        for _, snod in reader.btree_leaves(btree, 0, reader.length_size):
-            head = reader.read(snod, 8)
-            if head[:4] != b'SNOD':
-                raise ValueError(f'no symbol table node at {snod}')
-            n, = struct.unpack_from('<H', head, 6)
-            body = reader.read(snod + 8, n * entry)
-            for i in range(n):
-                name_off, header, cache = reader._symbol_entry(body, i * entry)
-                self._members[reader.heap_string(heap, name_off)] = (header, cache)
+    def __init__(self, reader: _Reader, name: str, address: int):
+        super().__init__(reader, name, address)
+        self._links = reader.links(address)
 
     def __getitem__(self, path: str):
-        obj = self
-        for part in [p for p in path.split('/') if p]:
+        return self._resolve(path, [MAX_LINK_HOPS])
+
+    def _resolve(self, path: str, hops: List[int]):
+        obj = self._reader.root if path.startswith('/') else self
+        for part in path.split('/'):
+            if part in ('', '.'):
+                continue
             if not isinstance(obj, Group):
                 raise KeyError(f'{obj.name!r} is a dataset, not a group: {path!r}')
-            if part not in obj._members:
+            if part not in obj._links:
                 raise KeyError(f'no member {part!r} in {obj.name!r}')
-            header, cache = obj._members[part]
-            if cache == 2:
-                raise _unsupported(f'soft link {part!r}')
-            obj = obj._reader.open_object(header, f'{obj.name.rstrip("/")}/{part}')
+            obj = obj._follow(part, hops)
         return obj
 
+    def _follow(self, part: str, hops: List[int]):
+        link = self._links[part]
+        name = f'{self.name.rstrip("/")}/{part}'
+        if link[0] == 'hard':
+            return self._reader.open_object(link[1], name)
+        if hops[0] == 0:
+            raise RuntimeError(f'{name!r}: too many links (more than {MAX_LINK_HOPS} soft or '
+                               f'external links in one lookup)')
+        hops[0] -= 1
+        if link[0] == 'soft':
+            try:
+                return self._resolve(link[1], hops)
+            except KeyError as e:
+                raise KeyError(f'soft link {name!r} -> {link[1]!r} dangles: {e}') from None
+        target = self._reader.external_file(link[1], name)
+        try:
+            return target._resolve(link[2], hops)
+        except KeyError as e:
+            raise KeyError(f'external link {name!r} -> {link[1]}:{link[2]} dangles: {e}'
+                           ) from None
+
     def __contains__(self, path) -> bool:
-        """Whether `path` names a member (its object is not opened)."""
+        """Whether `path` names a member (its link is not followed)."""
         *parents, last = [p for p in path.split('/') if p] or ['']
         try:
-            group = self['/'.join(parents)] if parents else self
+            group = self._resolve(('/' if path.startswith('/') else '') + '/'.join(parents),
+                                  [MAX_LINK_HOPS])
         except KeyError:
             return False
-        return isinstance(group, Group) and last in group._members
+        return isinstance(group, Group) and last in group._links
 
     def __iter__(self):
-        return iter(self._members)
+        return iter(self._links)
 
     def __len__(self):
-        return len(self._members)
-
+        return len(self._links)
 
 
 class Dataset(_Object):
-    """A dataset: `.shape`, `.dtype`, `.attrs`; `np.asarray(ds)`, `ds[()]` and
-    `ds[index]` read the whole array."""
+    """A dataset: `.shape`, `.maxshape`, `.dtype`, `.attrs`; `np.asarray(ds)`,
+    `ds[()]` and `ds[index]` read the whole array."""
 
-    def __init__(self, reader: _Reader, name: str, messages):
-        super().__init__(reader, name, messages)
+    def __init__(self, reader: _Reader, name: str, address: int):
+        super().__init__(reader, name, address)
         by_type = {}
-        for mtype, _, data in messages:
-            by_type.setdefault(mtype, data)
+        for m in self._messages:
+            by_type.setdefault(m.type, m.data)
         if MSG_EXTERNAL in by_type:
             raise _unsupported('external data storage')
         self._type, _ = _parse_datatype(by_type[MSG_DATATYPE], 0, reader.offset_size)
-        self.shape = _parse_dataspace(by_type[MSG_DATASPACE], 0, reader.length_size)
+        self.shape, self.maxshape = _parse_dataspace(by_type[MSG_DATASPACE], 0,
+                                                     reader.length_size)
         if self.shape is None:
             raise _unsupported(f'null dataspace of {name!r}')
         self._layout = by_type[MSG_LAYOUT]
@@ -483,10 +972,8 @@ class Dataset(_Object):
         storage = self._type.storage
         n = self.size
         version, layout_class = self._layout[0], self._layout[1]
-        if version != 3:
-            raise _unsupported(f'layout message version {version}'
-                               + (" (chunk indexes of libver='latest')" if version == 4
-                                  else ''))
+        if version not in (3, 4):
+            raise _unsupported(f'layout message version {version}')
         if layout_class == 0:  # compact: the data follow its 2-byte size
             raw = np.frombuffer(self._layout, storage, n, 4)
         elif layout_class == 1:  # contiguous
@@ -496,7 +983,9 @@ class Dataset(_Object):
             else:
                 raw = np.frombuffer(self._reader.read(address, n * storage.itemsize), storage)
         elif layout_class == 2:
-            raw = self._read_chunked()
+            raw = self._read_chunked() if version == 3 else self._read_chunked_v4()
+        elif layout_class == 3:
+            raise _unsupported(f'virtual dataset {self.name!r} (layout class 3)')
         else:
             raise _unsupported(f'layout class {layout_class}')
         raw = raw.reshape(self.shape)
@@ -514,26 +1003,233 @@ class Dataset(_Object):
             return np.zeros(n, storage)
         return np.repeat(np.frombuffer(self._fill, storage, 1), n)
 
+    def _place(self, chunk: Tuple[int, ...], entries, unfiltered_edges: bool = False
+               ) -> np.ndarray:
+        """The array from its chunks: `entries` yields (element offsets,
+        address, stored size, filter mask) of each allocated chunk; the rest
+        is the fill value. With `unfiltered_edges`, chunks that cross the
+        dataset's edge were stored without the filters."""
+        storage = self._type.storage
+        out = self._filled(self.size).reshape(self.shape)
+        if self.size == 0:
+            return out
+        for offsets, address, size, mask in entries:
+            region = tuple(slice(o, min(o + c, s)) for o, c, s in zip(offsets, chunk, self.shape))
+            if any(r.start >= r.stop for r in region):
+                continue
+            data = self._reader.read(address, size)
+            edge = any(o + c > s for o, c, s in zip(offsets, chunk, self.shape))
+            if not (unfiltered_edges and edge):
+                data = _unfilter(data, self._filters, mask, storage.itemsize)
+            values = np.frombuffer(data, storage, math.prod(chunk)).reshape(chunk)
+            out[region] = values[tuple(slice(0, r.stop - r.start) for r in region)]
+        return out
+
     def _read_chunked(self) -> np.ndarray:
+        """Layout v3: chunks indexed by a v1 B-tree."""
         reader = self._reader
         rank = self._layout[2] - 1
         btree, = reader.unpack('O', self._layout, 3)
         pos = 3 + reader.offset_size
         chunk = struct.unpack_from(f'<{rank + 1}I', self._layout, pos)[:rank]
-        storage = self._type.storage
-        out = self._filled(self.size).reshape(self.shape)
-        if btree == reader.undefined or self.size == 0:
-            return out
-        key_size = 8 + 8 * (rank + 1)
-        for key, address in reader.btree_leaves(btree, 1, key_size):
-            size, mask = struct.unpack_from('<II', key, 0)
-            offsets = struct.unpack_from(f'<{rank}Q', key, 8)
-            data = _unfilter(reader.read(address, size), self._filters, mask,
-                             storage.itemsize)
-            values = np.frombuffer(data, storage, math.prod(chunk)).reshape(chunk)
-            region = tuple(slice(o, min(o + c, s)) for o, c, s in zip(offsets, chunk, self.shape))
-            out[region] = values[tuple(slice(0, r.stop - r.start) for r in region)]
-        return out
+
+        def entries():
+            if btree == reader.undefined:
+                return
+            for key, address in reader.btree_leaves(btree, 1, 8 + 8 * (rank + 1)):
+                size, mask = struct.unpack_from('<II', key, 0)
+                yield struct.unpack_from(f'<{rank}Q', key, 8), address, size, mask
+        return self._place(chunk, entries())
+
+    def _read_chunked_v4(self) -> np.ndarray:
+        """Layout v4: chunks indexed by one of its five chunk indexes."""
+        reader, lay = self._reader, self._layout
+        flags, ndims, width = lay[2], lay[3], lay[4]
+        chunk = tuple(_uint(lay, 5 + i * width, width) for i in range(ndims))[:-1]
+        pos = 5 + ndims * width
+        index_type = lay[pos]
+        pos += 1
+        # The bytes of each index's parameters, which the reader takes from
+        # its header instead.
+        params = {INDEX_SINGLE: 0, INDEX_IMPLICIT: 0, INDEX_FIXED_ARRAY: 1,
+                  INDEX_EXTENSIBLE_ARRAY: 5, INDEX_BTREE2: 6}
+        if index_type not in params:
+            raise _unsupported(f'chunk index type {index_type}')
+        full = math.prod(chunk) * self._type.storage.itemsize
+        single = None
+        if index_type == INDEX_SINGLE and flags & LAYOUT_SINGLE_INDEX_WITH_FILTER:
+            single = reader.unpack('LI', lay, pos)
+            pos += reader.length_size + 4
+        address, = reader.unpack('O', lay, pos + params[index_type])
+        # The chunk grid the fixed and extensible arrays are laid out over:
+        # the maximum shape's (H5D's max_down_chunks).
+        grid = tuple(None if m is None else -(-m // c) for m, c in zip(self.maxshape, chunk))
+
+        def at(scaled):
+            return tuple(s * c for s, c in zip(scaled, chunk))
+
+        def entries():
+            if address == reader.undefined:
+                return
+            if index_type == INDEX_SINGLE:
+                size, mask = single if single else (full, 0)
+                yield (0,) * len(chunk), address, size, mask
+            elif index_type == INDEX_IMPLICIT:  # every chunk in order from one address
+                current = tuple(-(-s // c) for s, c in zip(self.shape, chunk))
+                for scaled in np.ndindex(*current):
+                    index = int(np.ravel_multi_index(scaled, grid))
+                    yield at(scaled), address + index * full, full, 0
+            elif index_type == INDEX_BTREE2:
+                filtered = bool(self._filters)
+                o, rank = reader.offset_size, len(chunk)
+                for record in reader.btree2_records(address, 11 if filtered else 10):
+                    caddr, = reader.unpack('O', record, 0)
+                    if filtered:
+                        size_len = len(record) - o - 4 - 8 * rank
+                        size, mask = _uint(record, o, size_len), struct.unpack_from(
+                            '<I', record, o + size_len)[0]
+                        pos_ = o + size_len + 4
+                    else:
+                        size, mask, pos_ = full, 0, o
+                    yield at(struct.unpack_from(f'<{rank}Q', record, pos_)), caddr, size, mask
+            else:
+                if index_type == INDEX_FIXED_ARRAY:
+                    elements = _fixed_array(reader, address, full)
+                    unravel = lambda i: np.unravel_index(i, grid)  # noqa: E731
+                else:
+                    unlimited = [i for i, m in enumerate(grid) if m is None]
+                    if len(unlimited) != 1:
+                        raise ValueError(f'extensible array chunk index of {self.name!r} '
+                                         f'with {len(unlimited)} unlimited dimensions')
+                    u = unlimited[0]
+                    rest = grid[:u] + grid[u + 1:]
+                    per = math.prod(rest)
+
+                    def unravel(i):  # the unlimited dimension comes first (swizzled)
+                        others = list(np.unravel_index(i % per, rest)) if rest else []
+                        return tuple(others[:u]) + (i // per,) + tuple(others[u:])
+                    elements = _extensible_array(reader, address, full)
+                for index, caddr, size, mask in elements:
+                    yield at(tuple(int(s) for s in unravel(index))), caddr, size, mask
+
+        return self._place(chunk, entries(), bool(flags & LAYOUT_DONT_FILTER_PARTIAL))
+
+
+def _chunk_elements(reader: _Reader, buf: bytes, filtered: bool, element_size: int,
+                    start: int, full: int):
+    """(chunk index, address, stored size, filter mask) of each allocated
+    chunk in a fixed or extensible array's run of elements."""
+    o = reader.offset_size
+    for i in range(len(buf) // element_size):
+        e = buf[i * element_size:(i + 1) * element_size]
+        address = _uint(e, 0, o)
+        if address == reader.undefined:
+            continue
+        if filtered:
+            yield (start + i, address, _uint(e, o, element_size - o - 4),
+                   struct.unpack_from('<I', e, element_size - 4)[0])
+        else:
+            yield start + i, address, full, 0
+
+
+def _fixed_array(reader: _Reader, address: int, full: int):
+    """The elements of a fixed array (FAHD, FADB and its pages)."""
+    o, l = reader.offset_size, reader.length_size  # noqa: E741
+    head = reader.signed(address, 8 + l + o + 4, b'FAHD')
+    filtered, element_size, page_bits = head[5] == 1, head[6], head[7]
+    n, data_block = reader.unpack('LO', head, 8)
+    if data_block == reader.undefined:
+        return
+    page = 1 << page_bits
+    pages = -(-n // page) if n > page else 0
+    prefix = 6 + o + (pages + 7) // 8
+    if not pages:
+        block = reader.signed(data_block, prefix + n * element_size + 4, b'FADB')
+        yield from _chunk_elements(reader, block[prefix:-4], filtered, element_size, 0, full)
+        return
+    block = reader.signed(data_block, prefix + 4, b'FADB')
+    page_size = page * element_size + 4
+    for p in range(pages):
+        if not _bit(block[6 + o:prefix], p):
+            continue
+        count = min(page, n - p * page)
+        at = data_block + prefix + 4 + p * page_size
+        data = reader.read(at, count * element_size + 4)
+        reader.verify(data, 'FADB page', at)
+        yield from _chunk_elements(reader, data[:-4], filtered, element_size, p * page, full)
+
+
+def _extensible_array(reader: _Reader, address: int, full: int):
+    """The elements of an extensible array: its index block (EAIB), the
+    data blocks (EADB, paged or not) it points to directly and those of its
+    super blocks (EASB)."""
+    o, l = reader.offset_size, reader.length_size  # noqa: E741
+    head = reader.signed(address, 12 + 6 * l + o + 4, b'EAHD')
+    filtered, element_size, max_bits = head[5] == 1, head[6], head[7]
+    index_elements, min_elements, min_pointers, page_bits = head[8], head[9], head[10], head[11]
+    index_block, = reader.unpack('O', head, 12 + 6 * l)
+    if index_block == reader.undefined:
+        return
+    # Each super block's (data blocks, elements per data block, first
+    # element, first data block), as H5EA__hdr_init lays them out.
+    super_blocks, first, first_block = [], 0, 0
+    for u in range(1 + max_bits - _log2(min_elements)):
+        blocks, elements = 1 << (u // 2), (1 << ((u + 1) // 2)) * min_elements
+        super_blocks.append((blocks, elements, first, first_block))
+        first += blocks * elements
+        first_block += blocks
+    in_index = 2 * _log2(min_pointers)  # super blocks whose data blocks the index block holds
+    n_dblocks, n_sblocks = 2 * (min_pointers - 1), len(super_blocks) - in_index
+    offset_size = (max_bits + 7) // 8
+    page = 1 << page_bits
+    block = reader.signed(index_block,
+                          6 + o + index_elements * element_size + (n_dblocks + n_sblocks) * o + 4,
+                          b'EAIB')
+    pos = 6 + o
+    yield from _chunk_elements(reader, block[pos:pos + index_elements * element_size], filtered,
+                               element_size, 0, full)
+    pos += index_elements * element_size
+    dblocks = reader.unpack('O' * n_dblocks, block, pos)
+    sblocks = reader.unpack('O' * n_sblocks, block, pos + n_dblocks * o)
+
+    def data_block(at: int, elements: int, start: int, initialised):
+        if at == reader.undefined:
+            return
+        prefix = 6 + o + offset_size
+        if elements <= page:
+            data = reader.signed(at, prefix + elements * element_size + 4, b'EADB')
+            yield from _chunk_elements(reader, data[prefix:-4], filtered, element_size, start,
+                                       full)
+            return
+        reader.signed(at, prefix + 4, b'EADB')
+        page_size = page * element_size + 4
+        for p in range(elements // page):
+            if initialised is not None and not initialised(p):
+                continue
+            page_at = at + prefix + 4 + p * page_size
+            data = reader.read(page_at, page_size)
+            reader.verify(data, 'EADB page', page_at)
+            yield from _chunk_elements(reader, data[:-4], filtered, element_size,
+                                       start + p * page, full)
+
+    for u in range(in_index):
+        blocks, elements, start, block0 = super_blocks[u]
+        for j in range(blocks):
+            yield from data_block(dblocks[block0 + j], elements,
+                                  index_elements + start + j * elements, None)
+    for k, at in enumerate(sblocks):
+        if at == reader.undefined:
+            continue
+        blocks, elements, start, _ = super_blocks[in_index + k]
+        pages = elements // page if elements > page else 0
+        bitmap_size = (pages + 7) // 8 * blocks if pages else 0
+        sblock = reader.signed(at, 6 + o + offset_size + bitmap_size + blocks * o + 4, b'EASB')
+        bitmap = sblock[6 + o + offset_size:6 + o + offset_size + bitmap_size]
+        addresses = reader.unpack('O' * blocks, sblock, 6 + o + offset_size + bitmap_size)
+        for j, dblock in enumerate(addresses):
+            initialised = (lambda p, j=j: _bit(bitmap, j * pages + p)) if pages else None
+            yield from data_block(dblock, elements, index_elements + start + j * elements,
+                                  initialised)
 
 
 def _parse_filters(data: bytes) -> List[Tuple[int, int, Tuple[int, ...]]]:
@@ -639,16 +1335,18 @@ class File(Group):
         self.filename = os.fspath(path)
         self._fh = open(self.filename, 'rb')
         try:
-            reader = _Reader(self._fh)
-            msgs = reader.messages(reader.root_address)
-            if not any(t == MSG_SYMBOL_TABLE for t, _, _ in msgs):
-                raise _unsupported('root group without a symbol table (new-style group)')
-            super().__init__(reader, '/', msgs)
+            reader = _Reader(self._fh, self.filename)
+            if not {m.type for m in reader.messages(reader.root_address)} & _GROUP_MESSAGES:
+                raise ValueError(f'the root object of {self.filename} is not a group')
+            reader.root = self
+            super().__init__(reader, '/', reader.root_address)
         except BaseException:
             self._fh.close()
             raise
 
     def close(self):
+        for external in self._reader.externals.values():
+            external.close()
         self._fh.close()
 
     def __enter__(self):

@@ -311,17 +311,19 @@ def tdhp_cameras(scale: float = 1.0) -> dict:
                                         0.0005, 0.0, -0.0003, 0.0])}
 
 
-def mint_3dhp(root: Path, sequences: dict, frame_hw: dict, scale: float, seed: int = 0) -> str:
-    """TS{n}/annot_data.mat in MATLAB's layout (h5py, tests/_torch_hdf5_
-    fixtures.py) and TS{n}/imageSequence/img_%06d.jpg for `sequences`
-    {n: (frames, invalid frames)}, frames of `frame_hw[n]`; returns the
-    cameras JSON's path."""
+def mint_3dhp(root: Path, sequences: dict, frame_hw: dict, scale: float, seed: int = 0,
+              libver: str = 'earliest', track_order: bool = False) -> str:
+    """TS{n}/annot_data.mat in MATLAB's layout (h5py under `libver`, with
+    `track_order`; tests/_torch_hdf5_fixtures.py) and TS{n}/imageSequence/
+    img_%06d.jpg for `sequences` {n: (frames, invalid frames)}, frames of
+    `frame_hw[n]`; returns the cameras JSON's path."""
     import _torch_hdf5_fixtures as hdf5_fixtures
     for subj, (n_frames, invalid) in sequences.items():
         seq = root / f'TS{subj}'
         (seq / 'imageSequence').mkdir(parents=True)
         arrays = hdf5_fixtures.matlab_annotations(n_frames, invalid, seed=seed + subj)
-        hdf5_fixtures.write_matlab_h5py(seq / 'annot_data.mat', arrays)
+        hdf5_fixtures.write_matlab_h5py(seq / 'annot_data.mat', arrays, libver=libver,
+                                        track_order=track_order)
         for i in range(n_frames):
             write_jpeg(seq / 'imageSequence' / f'img_{i + 1:06d}.jpg', *frame_hw[subj],
                        seed=seed + 100 * subj + i)

@@ -308,7 +308,7 @@ root = sys.argv[1] + '_3dhp'
 os.makedirs(root + '/TS1')
 shutil.copy(fixtures + '/TS1_annot_data.mat', root + '/TS1/annot_data.mat')
 with hdf5.File(root + '/TS1/annot_data.mat') as m:
-    for key, want in manifest.items():
+    for key, want in manifest['datasets'].items():
         got = np.ascontiguousarray(m[key][()])
         assert hashlib.sha256(got.tobytes()).hexdigest() == want['sha256'], key
     annot3 = m['annot3'][()]

@@ -1,7 +1,9 @@
 """MPI-INF-3DHP's scoring path in the port (`data.datasets.load_3dhp_test_frames`,
 `apps.predict_3dhp`, `apps.eval_3dhp`) against the JAX package's, on layouts
 minted in `tmp_path`: `annot_data.mat` in MATLAB's layout written by h5py
-(tests/_torch_hdf5_fixtures.py), JPEG frames written by cv2.
+(tests/_torch_hdf5_fixtures.py) under each of LIBVERS (superblock v0, v2
+with v2 object headers and dense attributes, v3 with layout-v4 chunk
+indexes), JPEG frames written by cv2.
 
 The drivers run twice with one `StubEstimator` each (the same images bit for
 bit, the same keyword arguments, equal NPZ), then with the real estimators
@@ -24,15 +26,25 @@ SCALE = 1 / 16
 # predict_3dhp's world-space poses, port against JAX on one package (float32
 # convolutions on both sides; tests/test_torch_estimator.py's tolerance).
 POSE_TOL = dict(atol=1.0, rtol=1e-3)
+# The annotation files' bounds: h5py's default, v108 and latest (the last
+# with groups and datasets that track creation order).
+LIBVERS = ('earliest', 'v108', 'latest')
 
 
 @pytest.fixture
-def layout(tmp_path):
+def layout(tmp_path, request):
+    """The 3DHP layout, its annotations written under `request.param`
+    (default: h5py's default bound)."""
+    libver = getattr(request, 'param', 'earliest')
     root = tmp_path / '3dhp'
-    cameras = layouts.mint_3dhp(root, SEQUENCES, FRAME_HW, SCALE)
+    cameras = layouts.mint_3dhp(root, SEQUENCES, FRAME_HW, SCALE, libver=libver,
+                                track_order=libver == 'latest')
+    version = (root / 'TS1' / 'annot_data.mat').read_bytes()[512 + 8]
+    assert version == {'earliest': 0, 'v108': 2, 'latest': 3}[libver]
     return root, cameras
 
 
+@pytest.mark.parametrize('layout', LIBVERS, indirect=True)
 def test_load_3dhp_test_frames_matches_jax(layout):
     from metrabs_tpu.data.datasets import load_3dhp_test_frames as jax_load
     from metrabs_tpu_torch.data.datasets import load_3dhp_test_frames
@@ -79,6 +91,7 @@ def run_both(layout, tmp_path, extra=()):
     jax_predict.main(args + ['--package', 'pkg', '--output-path', str(tmp_path / 'jax.npz')])
 
 
+@pytest.mark.parametrize('layout', LIBVERS, indirect=True)
 def test_predict_3dhp_matches_jax(tmp_path, layout, stubs):
     from test_torch_bench_apps import assert_npz_equal, assert_same_calls
     run_both(layout, tmp_path, ['--num-aug', '2'])
@@ -118,10 +131,12 @@ def package(tmp_path_factory):
                                detector='yolov4-tiny', detector_input_size=96)
 
 
+@pytest.mark.parametrize('layout', ['latest'], indirect=True)
 def test_predict_3dhp_with_the_real_estimators_matches_jax(tmp_path, layout, package,
                                                            one_torch_thread):
-    """Both drivers on one package: the same frames (paths), and the port's
-    poses within POSE_TOL of JAX's, whose detector picked the same person."""
+    """Both drivers on one package, on annotations of superblock v3: the
+    same frames (paths), and the port's poses within POSE_TOL of JAX's,
+    whose detector picked the same person."""
     from metrabs_tpu.apps import predict_3dhp as jax_predict
     from metrabs_tpu_torch.apps import predict_3dhp
     root, cameras = layout
@@ -136,6 +151,7 @@ def test_predict_3dhp_with_the_real_estimators_matches_jax(tmp_path, layout, pac
         np.testing.assert_allclose(poses, want_poses, **POSE_TOL)
 
 
+@pytest.mark.parametrize('layout', LIBVERS, indirect=True)
 def test_eval_3dhp_matches_jax(tmp_path, layout, stubs, capsys):
     """The stub's dump, one frame's prediction dropped (undetected: infinite
     error), scored by both eval apps."""
@@ -172,20 +188,42 @@ def test_eval_3dhp_matches_jax(tmp_path, layout, stubs, capsys):
 
 
 def test_fixtures_read_as_their_manifest_says():
-    """The committed MATLAB-layout fixtures, read by the port's reader and by
-    h5py, against the manifest (what h5py read when they were written)."""
+    """The committed fixtures (annotations under three bounds, the 6151-frame
+    one, the structures of v3 files, SWMR and paged files), read by the
+    port's reader and by h5py, against the manifest (what h5py read when
+    they were written): every group's members in order, every dataset and
+    alias, every attribute in order."""
     import h5py
 
     import _torch_hdf5_fixtures as fixtures
     from metrabs_tpu_torch.utils import hdf5
     manifest = fixtures.read_manifest()
-    assert sorted(manifest) == sorted(fixtures.fixture_name(s) for s in fixtures.SEQUENCES)
-    for name, datasets in manifest.items():
+    on_disk = sorted(p.name for p in fixtures.FIXTURE_DIR.iterdir() if p.name != 'manifest.json')
+    assert sorted(manifest) == on_disk
+    assert {fixtures.fixture_name(s) for s in fixtures.SEQUENCES} | {
+        fixtures.LARGE_NAME, fixtures.STRUCTURES, fixtures.EXTERNAL, 'swmr.h5',
+        'page.h5'} == set(manifest)
+    versions = {}
+    for name, want in manifest.items():
         path = fixtures.FIXTURE_DIR / name
-        assert path.read_bytes().startswith(b'MATLAB 7.3 MAT-file')
+        if name.endswith('.mat'):
+            assert path.read_bytes().startswith(b'MATLAB 7.3 MAT-file')
         with hdf5.File(path) as ours, h5py.File(path, 'r') as theirs:
-            assert sorted(ours) == sorted(theirs) == sorted(datasets)
-            for key, want in datasets.items():
-                got = ours[key][()]
-                assert fixtures.digest(got) == want == fixtures.digest(theirs[key][()]), key
-                assert ours[key].attrs['MATLAB_class'] == b'double'
+            versions[name] = ours._reader.version
+            assert list(ours) == list(theirs)
+            for group, members in want['groups'].items():
+                assert list(ours[group]) == list(theirs[group]) == members, (name, group)
+            for key, digest in want['datasets'].items():
+                assert fixtures.digest(ours[key][()]) == digest, (name, key)
+                assert fixtures.digest(theirs[key][()]) == digest, (name, key)
+            for key, target in want['aliases'].items():
+                assert fixtures.digest(ours[key][()]) == want['datasets'][target], (name, key)
+            for key, attrs in want['attrs'].items():
+                assert list(ours[key].attrs) == [attr for attr, _ in attrs], (name, key)
+                for attr, digest in attrs:
+                    assert fixtures.digest(ours[key].attrs[attr]) == digest, (name, key, attr)
+            if name.endswith('.mat'):
+                assert ours['annot3'].attrs['MATLAB_class'] == b'double'
+    assert [versions[fixtures.fixture_name(s)] for s in ('TS1', 'TS2', 'TS5', 'TS6')] == [
+        0, 2, 0, 3]
+    assert versions[fixtures.STRUCTURES] == versions[fixtures.LARGE_NAME] == 3
