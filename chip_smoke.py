@@ -46,6 +46,13 @@ line:
     times the bf16 path, and splits one call's time under torch.profiler,
     with K2's launches and device time per call against the bound of the
     launches its wrapper counted, shape by shape;
+ 5b. tools: one `scripts/profile_trace_torch.py` detect-mode profile of the
+    same estimator on the same frames (`profile`: a warm-up, a timed and a
+    profiled call): its categories must sum to the device-busy time within
+    TOOLS_BUSY_TOL, and both the wrappers' counts and the trace's records
+    must give K1 and K2 their detect-path launches; prints the device time by
+    category, the top kernels, the convolutions' input memory formats and
+    `scripts/_flops_torch.py`'s forward FLOPs per crop of EffNetV2-S@256;
  6. train: the trainer (`metrabs_tpu_torch.train`) on EffNetV2-S@256
     Metrabs with BN unfolded and `fuse_mbconv='on'`, H36M-17 3D and LSP-14
     2D joints, weights minted from TrainConfig's seed, bf16 compute with
@@ -348,10 +355,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SEED = 0
-PROC_SIDE = 256
-N_FRAMES, FRAME_H, FRAME_W = 8, 1080, 1920
-BOXES_PER_FRAME = 16
+from scripts._minting_torch import (  # noqa: F401 (re-exported to the tests)
+    BOXES_PER_FRAME, DETECTOR_FIRE_BIAS, DETECTOR_SIZE, FRAME_H, FRAME_W, JOINT_EDGES,
+    JOINT_NAMES, N_FRAMES, PROC_SIDE, SEED, detect_manifest_for, firing_detector_variables,
+    manifest_for, mint_crop_variables, mint_detector_variables, mint_state, synthetic_boxes,
+    synthetic_frames)
+
 NUM_AUG = 2
 INTERNAL_BATCH = 64
 WARP_TOL = 1e-4  # linear [0, 1] values; FMA and reassociation between nvcc and ATen
@@ -389,7 +398,6 @@ K1_OPS_PER_PIXEL = 82
 # fast kernel (5% for the datasheet rates' rounding).
 MAX_BOUND_SHARE = 1.05
 TIMING_TRIES = 3  # profiles of a kernel before a lost record or such a share fails
-DETECTOR_SIZE = 416
 MAX_DETECTIONS = 16
 BOX_TOL_PX = 1e-2
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
@@ -500,15 +508,6 @@ def timed_against_bound(name: str, fn, bound_ms: float) -> float:
                    f'{TIMING_TRIES} measurements')
 
 
-def synthetic_frames(gen: torch.Generator, dev) -> torch.Tensor:
-    """[N, 1080, 1920, 3] uint8: smooth random structure plus pixel noise."""
-    coarse = torch.rand((N_FRAMES, 3, 34, 60), generator=gen, device=dev)
-    img = torch.nn.functional.interpolate(coarse, size=(FRAME_H, FRAME_W), mode='bicubic',
-                                          align_corners=False)
-    img = img * 235 + torch.rand(img.shape, generator=gen, device=dev) * 20
-    return img.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
-
-
 def warp_case(dev, n_crops: int = 64, side: int = 256):
     """Per-crop geometry of the kernel check: scales that select pyramid
     levels 0, 1 and 2, rotations, distortion on every third crop, and the
@@ -537,120 +536,6 @@ def warp_case(dev, n_crops: int = 64, side: int = 256):
                 new_invprojmat=t(invproj), distortion_coeffs=t(dist),
                 crop_scales=t(scales),
                 image_ids=torch.arange(n_crops, device=dev) % N_FRAMES)
-
-
-def mint_state(shapes, gen: torch.Generator):
-    """A state dict for the meta tensors `shapes`: 0.8x He fan-in kernels,
-    random BN statistics and affine, small random biases."""
-    state = {}
-    for name, meta in shapes.items():
-        shape = tuple(meta.shape)
-        if name.endswith('weight') and len(shape) == 4:
-            fan_in = shape[1] * shape[2] * shape[3]
-            v = torch.randn(shape, generator=gen) * (0.8 * math.sqrt(2.0 / fan_in))
-        elif name.endswith('running_var'):
-            v = torch.rand(shape, generator=gen) * 0.8 + 0.6
-        elif name.endswith('weight'):
-            v = torch.rand(shape, generator=gen) * 0.6 + 0.7
-        else:
-            v = torch.randn(shape, generator=gen) * 0.1
-        state[name] = v
-    return state
-
-
-def mint_crop_variables(cfg, gen: torch.Generator, **crop_model_kwargs):
-    """Flat, unfolded JAX-layout variables for `cfg` and the crop model of
-    `crop_model_kwargs` (`build_crop_model`'s model class and latent mode),
-    minted by `mint_state`, with a Metrabs 3D head that agrees with the 2D
-    head (so the reconstruction places joints in front of the camera) and
-    latent recombinations that are affine (each point's weights sum to 1)."""
-    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
-    from metrabs_tpu_torch.models.metrabs import build_crop_model
-
-    with torch.device('meta'):
-        shapes = build_crop_model(cfg, **crop_model_kwargs).state_dict()
-    state = mint_state(shapes, gen)
-    for name in ('heatmap_heads.conv_final.weight', 'heatmap_heads.conv_final.bias'):
-        if name in state:
-            v = state[name]
-            j = v.shape[0] // (1 + cfg.depth)
-            v[j:] = v[:j].repeat((cfg.depth,) + (1,) * (v.ndim - 1)) + 0.05 * torch.randn(
-                v[j:].shape, generator=gen)
-    for name in ('recombination_weights', 'encoder_weights'):
-        if name in state:
-            v = torch.rand(state[name].shape, generator=gen)
-            state[name] = v / v.sum(dim=0, keepdim=True)
-    return flax_variables_from_state_dict(state)
-
-
-# The H36M 17-joint skeleton.
-JOINT_NAMES = ['pelv', 'rhip', 'rkne', 'rank', 'lhip', 'lkne', 'lank', 'spin', 'neck',
-               'head', 'htop', 'lsho', 'lelb', 'lwri', 'rsho', 'relb', 'rwri']
-JOINT_EDGES = [[0, 1], [1, 2], [2, 3], [0, 4], [4, 5], [5, 6], [0, 7], [7, 8], [8, 9],
-               [9, 10], [8, 11], [11, 12], [12, 13], [8, 14], [14, 15], [15, 16]]
-
-
-def manifest_for(dtype: str) -> dict:
-    """A package manifest for the minted crop model."""
-    return dict(
-        format_version=1,
-        model_config=dict(proc_side=PROC_SIDE, backbone='efficientnetv2-s', n_joints=17,
-                          dtype=dtype, backbone_scan_blocks=False),
-        aug_config={}, joint_names=JOINT_NAMES, joint_edges=JOINT_EDGES,
-        has_detector=False)
-
-
-def synthetic_boxes():
-    """[8, 16, 4] person-like boxes inside the frames and their validity; 3
-    per frame invalid, one of them the degenerate [0, 0, 0, 0]."""
-    g = np.random.default_rng(SEED + 1)
-    h = g.uniform(150, 1000, (N_FRAMES, BOXES_PER_FRAME))
-    w = h * g.uniform(0.35, 0.6, h.shape)
-    x = g.uniform(0, 1, h.shape) * (FRAME_W - w)
-    y = g.uniform(0, 1, h.shape) * (FRAME_H - h)
-    boxes = np.stack([x, y, w, h], axis=-1).astype(np.float32)
-    valid = np.ones(h.shape, bool)
-    valid[:, [3, 9, 15]] = False
-    boxes[:, 15] = 0.0
-    return boxes, valid
-
-
-def detect_manifest_for(dtype: str) -> dict:
-    """The manifest with a YOLOv4-416 detector in `dtype` (flat layout)."""
-    return dict(manifest_for(dtype), has_detector=True, detector_type='yolov4',
-                detector_dtype=dtype, detector_input_size=DETECTOR_SIZE,
-                detector_scan_repeats=False)
-
-
-def mint_detector_variables(gen: torch.Generator, kind: str = 'yolov4'):
-    """Flat, unfolded JAX-layout variables of a detector of `kind`, minted by
-    `mint_state`."""
-    from metrabs_tpu_torch.detect.yolov4 import build_detector_model
-    from metrabs_tpu_torch.io.weights import flax_variables_from_state_dict
-
-    with torch.device('meta'):
-        shapes = build_detector_model(kind).state_dict()
-    return flax_variables_from_state_dict(mint_state(shapes, gen))
-
-
-# Added to the objectness and person-class logits of every YOLOv4 head of a
-# minted detector, so that its scores pass a driver's fixed threshold (0.2
-# in predict_3dpw and predict_mupots): a random head's scores sit near
-# sigmoid(0)^2 = 0.25 with a wide spread, and many frames would have no box.
-DETECTOR_FIRE_BIAS = 3.0
-
-
-def firing_detector_variables(gen: torch.Generator, kind: str = 'yolov4'):
-    """`mint_detector_variables` with DETECTOR_FIRE_BIAS added to each head's
-    objectness and person logits (channels 4 and 5 of each anchor's 85)."""
-    variables = mint_detector_variables(gen, kind)
-    for layer in variables['params'].values():
-        conv_bias = layer.get('conv', {}).get('bias') if isinstance(layer, dict) else None
-        if conv_bias is not None and conv_bias.shape == (3 * 85,):
-            conv_bias = np.array(conv_bias, copy=True)
-            conv_bias.reshape(3, 85)[:, 4:6] += np.float32(DETECTOR_FIRE_BIAS)
-            layer['conv']['bias'] = conv_bias
-    return variables
 
 
 def k2_case(shape, dtype, gen: torch.Generator, dev):
@@ -1380,6 +1265,56 @@ def timed_calls(run, n: int = 5):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times
+
+
+TOOLS_TRACE_DIR = 'runs/chip_smoke_tools_trace'  # the profile's trace (deleted after)
+TOOLS_BUSY_TOL = 0.005  # |sum of the categories - busy time| / busy time
+
+
+def tools_phase(root: Path, est, frames, dev, chunks: int) -> dict:
+    """The [tools] phase (module docstring) on the detect cell's estimator
+    `est` and `frames`, whose run has `chunks` non-empty chunks. Returns
+    {'tools': (K1 launches, K2 launches)} of the profiled call."""
+    import types
+
+    from scripts import _flops_torch, _tracelib_torch
+    from scripts import profile_trace_torch as trace_tool
+
+    run, modules, _ = trace_tool.build_detect(types.SimpleNamespace(k2='on'), dev, est, frames)
+    try:
+        s = trace_tool.profile(run, 1, str(root / TOOLS_TRACE_DIR), dev, modules)
+    finally:
+        shutil.rmtree(root / TOOLS_TRACE_DIR, ignore_errors=True)
+    k1, k2 = _tracelib_torch.K1, _tracelib_torch.K2
+    want = {k1: chunks, k2: K2_BLOCKS * chunks}
+    seen = {k: s['category_launches'][k] for k in want}
+    counted = {k: s['wrapper_launches'][k] for k in want}
+    if seen != want or counted != want:
+        fail('tools', f'K1/K2 launches in the trace {seen}, counted by the wrappers {counted}, '
+                      f'expected {want}')
+    gap = abs(sum(s['categories_ms'].values()) - s['busy_ms']) / s['busy_ms']
+    if not gap <= TOOLS_BUSY_TOL:
+        fail('tools', f'the categories sum to {sum(s["categories_ms"].values()):.3f} ms against '
+                      f'{s["busy_ms"]:.3f} ms busy ({100 * gap:.2f}% > {100 * TOOLS_BUSY_TOL}%)')
+    gflop = _flops_torch.gflop_per_crop('efficientnetv2-s', PROC_SIDE)
+    phase('tools', f'profile_trace_torch detect (K2 on): device {s["device_ms"]:.3f} ms, busy '
+                   f'{s["busy_ms"]:.3f} ms over {s["device_events"]} device events, categories '
+                   f'within {100 * gap:.4f}% of busy; wall {s["wall_ms"]:.1f} ms, '
+                   f'{s["profiled_wall_ms"]:.1f} ms profiled ({100 * s["busy_share"]:.1f}% busy '
+                   f'unprofiled); '
+                   f'K1 {seen[k1]} and K2 {seen[k2]} launches in the trace and the wrappers '
+                   f'({s["attempts"]} profile(s))')
+    for cat, ms in sorted(s['categories_ms'].items(), key=lambda kv: -kv[1]):
+        phase('tools', f'  {cat}: {ms:.3f} ms ({100 * ms / s["device_ms"]:.1f}%), '
+                       f'{s["category_launches"][cat]} launches')
+    for k in s['top_kernels'][:5]:
+        phase('tools', f'  top: {k["ms"]:.3f} ms, {k["launches"]:.0f}x [{k["category"]}] '
+                       f'{k["name"][:90]}')
+    phase('tools', 'convolution inputs by memory format: ' + ', '.join(
+        f'{k} {v}' for k, v in sorted(s['conv_input_formats'].items())))
+    phase('tools', f'_flops_torch: EffNetV2-S@{PROC_SIDE} forward {gflop:.4f} GFLOP per crop '
+                   f'(convolutions and matrix products, 2 x multiply-adds)')
+    return {'tools': (seen[k1], seen[k2])}
 
 
 def families_phase(root: Path, dev, frames, boxes, box_valid) -> dict:
@@ -5424,6 +5359,11 @@ def main() -> None:
                     + f'), device {device_ms["K2 (mbconv kernel)"]:.3f} ms against a bound of '
                       f'{k2_bound_call:.3f} ms for these launches')
 
+    # 5b. The measuring tools on the detect cell.
+    start = time.perf_counter()
+    tools_by_path = tools_phase(root, est_d, frames, dev, chunks)
+    phase('tools', f'{time.perf_counter() - start:.1f} s')
+
     # 6. The trainer, then the trained weights served through K1 and K2.
     del est, est32, ref32, est_d
     torch.cuda.empty_cache()
@@ -5438,6 +5378,7 @@ def main() -> None:
         start = time.perf_counter()
         by_path = train_families_phase(root, dev, frames, boxes, box_valid,
                                        root / TRAINED_PACKAGE)
+        by_path.update(tools_by_path)
         phase('train_families', f'{time.perf_counter() - start:.1f} s')
     finally:
         shutil.rmtree(root / TRAINED_PACKAGE, ignore_errors=True)

@@ -1,9 +1,10 @@
 """Tracing / profiling utilities (`metrabs_tpu/utils/profiling.py`), on
 torch:
 
-- `trace(logdir)`: context manager around `torch.profiler` writing a
-  TensorBoard-loadable (Chrome trace) file of the host and, where there is
-  a card, device execution;
+- `trace(logdir, record_shapes=False)`: context manager around
+  `torch.profiler` writing a TensorBoard-loadable (Chrome trace) file of
+  the host and, where there is a card, device execution (with each op's
+  input shapes and strides where `record_shapes`);
 - `StageTimer`: lightweight named-stage wall timing that fences the
   device's asynchronous work: the tensors a stage registers are waited for
   with CUDA synchronisation at its exit, where JAX calls
@@ -23,12 +24,12 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, record_shapes: bool = False):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
-            activities=activities,
+            activities=activities, record_shapes=record_shapes,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
         yield
 

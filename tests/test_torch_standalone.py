@@ -50,7 +50,13 @@ MISSING_ON_CARD = ('cv2', 'h5py', 'matplotlib', 'PIL', 'ml_dtypes', 'msgpack')
 # The port's scripts, held to the package's rules.
 PORT_SCRIPTS = ['scripts/ablate_crop_served_gap_torch.py', 'scripts/gen_bone_priors_torch.py',
                 'scripts/train_to_serve_e2e_torch.py', 'scripts/validate_distributed_cpu_torch.py',
-                'scripts/verify_e2e_torch.py', 'scripts/h264_decode_ab_torch.py']
+                'scripts/verify_e2e_torch.py', 'scripts/h264_decode_ab_torch.py',
+                'scripts/_minting_torch.py', 'scripts/_tracelib_torch.py',
+                'scripts/_flops_torch.py', 'scripts/profile_trace_torch.py',
+                'scripts/profile_pipeline_torch.py', 'scripts/profile_cropmodel_torch.py',
+                'scripts/mfu_experiments_torch.py', 'scripts/overfit_sanity_torch.py',
+                'scripts/bench_data_pipeline_torch.py',
+                'scripts/bench_pipelined_flagship_torch.py']
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / 'metrabs_tpu_torch').rglob('*.py')
                     if '_build' not in p.parts) + ['chip_smoke.py'] + PORT_SCRIPTS
 
