@@ -243,7 +243,18 @@ line:
     flag, luma and RGB frame in output order held to cv2's SHA-256, Y/U/V to
     libde265's where its luma is FFmpeg's, every seek, the metadata and the
     hash SEIs likewise, the 1080x1920 B-stream decode per packet timed on
-    one thread beside the I/P time. Under runs/ (deleted after): the mp4v
+    one thread beside the I/P time; the same decoder on the Main 10 clips of
+    tests/torch_fixtures/hevc10 (x265's 10-bit API: two sizes with and
+    without B slices in MP4, a phone's QuickTime .mov, Matroska and AVI, a
+    clip per tool, the phone's turned 1920x1080 clip), every packet, key
+    flag, 16-bit Y/U/V plane (libde265's, or the picture's MD5 SEI where
+    libde265's are wrong), RGB frame as displayed (not on the HLG clip,
+    fault F11), seek and hash SEI likewise, the phone clip's decode per
+    packet timed on one thread; the turned clips of
+    tests/torch_fixtures/orientation (fault F10: mp4v, H.264 and HEVC 8- and
+    10-bit, every matrix of cv2's table, MP4 and QuickTime), their turns,
+    frames, seeks and displayed sizes held to cv2's. Under runs/ (deleted
+    after): the mp4v
     encoder on
     MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
     thread), read back with its luma equal to the encoder's reconstruction;
@@ -279,7 +290,12 @@ line:
     once with every K1 launch against the plain warp, every input frame the
     manifest's, each picture decoded once (path demo_video_h264_b); on the
     HEVC .mp4 and the HEVC B-frame .mp4 likewise (paths demo_video_hevc,
-    demo_video_hevc_b);
+    demo_video_hevc_b); on the phone's clip of tests/torch_fixtures/hevc10
+    (HEVC Main 10 in QuickTime's layout, 1920x1080 stored and turned by 90
+    degrees in its track header) timed, then again with every K1 launch
+    against the plain warp, every input frame as displayed the manifest's,
+    the overlay 1080 wide, each picture decoded once (path
+    demo_video_hevc10);
     `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
     (SMPL-24 package), its figures under JAX's names read back and timed;
     `apps.predict_aspset.main` on the mp4v .mkv clips and on the H.264
@@ -3365,6 +3381,14 @@ HEVC_B_ASPSET_GOPS = {'left': (1, 0, 1), 'mid': (1, 0, 1)}
 # libde265's chroma is no oracle on this clip's slices (its luma is; cv2's
 # RGB holds the chroma).
 HEVC_B_DE265_CHROMA_DIFFERS = ('hevcb_tool_slices4.mp4',)
+HEVC10_FIXTURES = 'tests/torch_fixtures/hevc10'
+# The phone's clip: 1920x1080 Main 10 stored, turned by 90 degrees (demo_video_hevc10).
+HEVC10_PHONE = 'hevc10_phone_1920x1080.mov'
+HEVC10_STORED = (1920, 1080)  # (width, height) of the phone's frames as coded
+# F11 (ROADMAP.md §3): cv2 maps BT.2020 primaries and HLG to other colours,
+# the port does not; its RGB is not held to the manifest there.
+HEVC10_CV2_MAPS_COLOURS = ('hevc10_tool_bt2020_hlg.mp4',)
+ORIENTATION_FIXTURES = 'tests/torch_fixtures/orientation'
 # The B-frame clips whose GOPs make demo inputs: fixtures, clip, codec, and
 # the GOPs of demo_video's input and of each ASPset view.
 B_SOURCES = {'h264_b': (H264_B_FIXTURES, H264_B_SOURCE, 'h264', H264_B_DEMO_GOPS,
@@ -3675,19 +3699,23 @@ def check_h264_b_fixtures(root: Path) -> dict:
                 n_timed=len(times))
 
 
-def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES) -> dict:
+def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES,
+                        timed: tuple = (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])) -> dict:
     """Every libx265 fixture of `fixtures` (tests/torch_fixtures/hevc: I and
-    P slices; hevc_b: B slices, in MP4 with FFmpeg's ctts and elst) through
-    the port's demuxer and HEVC decoder: each packet (as FFmpeg's
-    hevc_mp4toannexb hands it to cv2), key flag, luma plane and RGB frame (in
-    output order) held to cv2's SHA-256 in the manifest, Y/U/V to
-    libde265's where its luma is FFmpeg's (Y only on
-    HEVC_B_DE265_CHROMA_DIFFERS), imread('#frame=N') for every N to cv2's
-    seek table, size and frame count to cv2's, the rate within 1e-4, and
-    every decoded-picture hash SEI checked: MD5 and checksum on every plane,
-    x265's CRC on luma (its chroma CRC covers the last CTU row only); the
-    1080x1920 clip's decode (to RGB and planes of what each packet outputs)
-    timed per packet on one thread."""
+    P slices; hevc_b: B slices, in MP4 with FFmpeg's ctts and elst; hevc10:
+    Main 10, I/P and B, with the phone's turned .mov) through the port's
+    demuxer and HEVC decoder: each packet (as FFmpeg's hevc_mp4toannexb
+    hands it to cv2), key flag, luma plane (8 bits) and RGB frame (in output
+    order, turned as displayed; not on HEVC10_CV2_MAPS_COLOURS, F11) held to
+    cv2's SHA-256 in the manifest, Y/U/V to libde265's where its luma is
+    FFmpeg's (Y only on HEVC_B_DE265_CHROMA_DIFFERS; at 10 bits, where its
+    planes are not known wrong, else to the picture's MD5 SEI),
+    imread('#frame=N') for every N to cv2's seek table, displayed size and
+    frame count to cv2's, the rate within 1e-4, and every decoded-picture
+    hash SEI checked: MD5 and checksum on every plane, x265's CRC on luma
+    (its chroma CRC covers the last CTU row only); the decode (to RGB and
+    planes of what each packet outputs) of the clip stored at `timed`
+    (width, height) timed per packet on one thread."""
     import hashlib
 
     from metrabs_tpu_torch.data import hevc, improc, video
@@ -3706,7 +3734,7 @@ def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES) -> dict:
         for packet in packets:
             t = time.perf_counter()
             out += decoder.decode(packet, planes=True)
-            if idx.height == FRAME_3DPW_SIZE[0]:
+            if (idx.width, idx.height) == timed:
                 times.append(time.perf_counter() - t)
         out += decoder.flush(planes=True)
         checked, failed = decoder.hashes
@@ -3720,6 +3748,11 @@ def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES) -> dict:
         de265 = [want if agree and chroma else want[:1] + got[1:] if agree else got
                  for got, want, agree in zip(planes, entry['de265_sha256'],
                                              entry.get('de265_equals_ffmpeg', [True] * n))]
+        for k, verified in enumerate(entry.get('de265_verified', [])):
+            if verified is False:  # libde265 wrong (10 bits): the MD5 SEI judges
+                planes[k] = [hashlib.md5(p.tobytes()).hexdigest() for p in out[k][1]]
+                de265[k] = entry['sei_md5'][k]
+        mapped = name in HEVC10_CV2_MAPS_COLOURS  # F11: no RGB to hold it to
         seeks = []
         video._STREAMS.clear()
         for k in range(len(entry['seek'])):
@@ -3737,11 +3770,13 @@ def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES) -> dict:
              entry['packet_sha256']),
             ('key frames', idx.keyframes.tolist(), entry['key_frames']),
             ('planes', planes, de265),
-            ('luma', [p[0] for p in planes], entry['luma_sha256']),
-            ('RGB', [sha(rgb.tobytes()) for rgb, _ in out], entry['rgb_sha256']),
-            ('seeks', seeks, entry['seek']),
+            ('luma', [p[0] for p in planes], entry.get('luma_sha256')),  # 8 bits only
+            ('RGB', [sha(idx.display(rgb).tobytes()) for rgb, _ in out],
+             None if mapped else entry['rgb_sha256']),
+            ('seeks', seeks, None if mapped else entry['seek']),
             ('hash SEIs', (checked, failed), want_hashes),
-            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count']))) if got != want]
+            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count'])))
+            if want is not None and got != want]
         if wrong or not math.isclose(improc.video_fps(path), cv['fps'], rel_tol=1e-4):
             fail('demos', f'{name}: {", ".join(wrong) or "rate"} differ from the manifest\'s '
                           f'({idx.n_frames} frames, {meta}, {improc.video_fps(path)} frames/s, '
@@ -3752,6 +3787,49 @@ def check_hevc_fixtures(root: Path, fixtures: str = HEVC_FIXTURES) -> dict:
     return dict(files=len(manifest), frames=n_frames, seeks=n_seeks, hashes=n_hashes,
                 ms=statistics.median(times) * 1e3, all_ms=[t * 1e3 for t in times],
                 n_timed=len(times))
+
+
+def check_orientation_fixtures(root: Path) -> dict:
+    """Every turned clip of tests/torch_fixtures/orientation (mp4v, H.264,
+    HEVC 8- and 10-bit in MP4 and a phone's QuickTime .mov, each matrix of
+    cv2's table in the track header; the movie header's; a Matroska roll):
+    the turn, the frames read in order and imread('#frame=N') for every N
+    held to cv2's SHA-256 and seek table in the manifest, the displayed size
+    (video_extents) to cv2's CAP_PROP_FRAME_WIDTH and HEIGHT."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc, video
+
+    def sha(a) -> str:
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    manifest = json.loads((root / ORIENTATION_FIXTURES / 'manifest.json').read_text())
+    turns = collections.Counter()
+    n_frames = 0
+    for name, entry in sorted(manifest.items()):
+        path = str(root / ORIENTATION_FIXTURES / name)
+        idx = video.index(path)
+        frames = [sha(f) for f in video.iter_frames(path)]
+        video._STREAMS.clear()
+        seeks = []
+        for k in range(len(entry['seek'])):
+            try:
+                seeks.append(entry['rgb_sha256'].index(sha(improc.imread(f'{path}#frame={k}'))))
+            except FileNotFoundError:
+                seeks.append(-1)
+            except ValueError:
+                seeks.append(-2)
+        extents = improc.video_extents(path).tolist()
+        cv = entry['cv2']
+        if (idx.rotation != entry['turn'] or frames != entry['rgb_sha256']
+                or seeks != entry['seek'] or extents != [cv['width'], cv['height']]):
+            fail('demos', f'{name}: turn {idx.rotation} (cv2 {entry["turn"]}), '
+                          f'{sum(a != b for a, b in zip(frames, entry["rgb_sha256"]))} frames '
+                          f'unlike cv2\'s, seeks {seeks} (cv2 {entry["seek"]}), extents {extents} '
+                          f'(cv2 {[cv["width"], cv["height"]]})')
+        turns[idx.rotation] += 1
+        n_frames += len(frames)
+    return dict(files=len(manifest), frames=n_frames, turns=dict(sorted(turns.items())))
 
 
 def mux_packets(root: Path, path: Path, order, codec: str = 'h264') -> list:
@@ -3962,6 +4040,25 @@ def demos_phase(root: Path, dev) -> dict:
                 f'{hevc_b_fx["n_timed"]}; all: '
                 + ', '.join(f'{t:.1f}' for t in hevc_b_fx['all_ms'])
                 + f'), I/P {hevc_fx["ms"]:.2f} ms in this run, on {card_name()}')
+    hevc10_fx = check_hevc_fixtures(root, HEVC10_FIXTURES, HEVC10_STORED)
+    phase(name, f'HEVC decoder, Main 10: {hevc10_fx["files"]} files of x265\'s 10-bit API (96x66 '
+                f'and 320x568 with and without B slices in MP4, a phone\'s QuickTime .mov, '
+                f'Matroska and AVI; a clip per tool; {HEVC10_PHONE}, turned by 90 degrees), all '
+                f'{hevc10_fx["frames"]} frames\' packets, key flags and 16-bit Y/U/V planes equal '
+                f'their manifest hashes (libde265\'s, or the picture\'s MD5 SEI where libde265\'s '
+                f'are wrong), RGB frames as displayed cv2\'s (but on '
+                f'{", ".join(HEVC10_CV2_MAPS_COLOURS)}, fault F11), all {hevc10_fx["seeks"]} '
+                f'imread(#frame=N) cv2\'s seek table, displayed sizes, counts and rates cv2\'s, '
+                f'{hevc10_fx["hashes"]} plane hashes of the decoded-picture hash SEIs checked over '
+                f'two bytes per sample; 1920x1080 Main 10 decode to RGB and planes '
+                f'{hevc10_fx["ms"]:.2f} ms per packet on one thread (median of '
+                f'{hevc10_fx["n_timed"]}; all: ' + ', '.join(f'{t:.1f}' for t in hevc10_fx['all_ms'])
+                + f'), 8-bit I/P {hevc_fx["ms"]:.2f} ms in this run, on {card_name()}')
+    turned = check_orientation_fixtures(root)
+    phase(name, f'display rotation (F10): {turned["files"]} turned clips (mp4v, H.264, HEVC 8- '
+                f'and 10-bit in MP4 and QuickTime .mov; movie-header and Matroska-roll cases), '
+                f'turns {turned["turns"]} equal cv2\'s, all {turned["frames"]} frames, every '
+                f'imread(#frame=N) and the displayed sizes cv2\'s')
 
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
@@ -4205,6 +4302,54 @@ def demos_phase(root: Path, dev) -> dict:
                         f'decoding {r["decode_s"]:.2f} s')
             launches[key] = (r['k1'], r['k2'])
             del r
+
+        # demo_video on the phone's clip (HEVC Main 10 in QuickTime, 1920x1080
+        # stored, turned by 90 degrees): every input frame as displayed the
+        # manifest's (cv2's), the overlay 1080 wide, every K1 launch against
+        # the plain warp, each picture decoded once; timed without the checks.
+        key = 'demo_video_hevc10'
+        phone = root / HEVC10_FIXTURES / HEVC10_PHONE
+        phone_want = json.loads((root / HEVC10_FIXTURES / 'manifest.json').read_text())[
+            HEVC10_PHONE]['rgb_sha256']
+        demo_args = ['--video', str(phone), '--package', str(work / 'pkg'),
+                     '--out', str(work / f'{key}.mp4'), '--frame-batch', str(DEMO_FRAME_BATCH)]
+        drawing = TimedCalls((demo_image, 'draw_poses'))
+        try:
+            timed = drivers.run(drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
+                                demo_video.main, demo_args)
+        finally:
+            drawing.restore()
+        timed['draw_s'] = drawing.seconds('draw_poses')
+        r, warp_errs = checked_warps(lambda: drivers.run(
+            drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_video.main,
+            demo_args))
+        result = json.loads(r['last'])
+        back = video.index(str(work / f'{key}.mp4'))
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(str(phone))]
+        n_p = len(phone_want)
+        warp_err = max(warp_errs, default=math.inf)
+        if (result['frames'] != n_p or back.n_frames != n_p or got != phone_want
+                or (back.width, back.height) != (HEVC10_STORED[1], HEVC10_STORED[0])
+                or result['total_poses'] == 0 or len(r['calls']) != n_p // DEMO_FRAME_BATCH
+                or r['k1'] < n_p // DEMO_FRAME_BATCH or len(warp_errs) != r['k1']
+                or not warp_err <= WARP_TOL or r['k2'] != 0 or r['hevc_decodes'] != n_p
+                or timed['hevc_decodes'] != n_p or timed['k1'] != r['k1']):
+            fail(name, f'{key}: {result}, {back.n_frames} frames of {back.width}x{back.height} '
+                       f'read back, {sum(a != b for a, b in zip(got, phone_want))} of {n_p} input '
+                       f'frames unlike the manifest, {len(r["calls"])} batched calls, K1 '
+                       f'{r["k1"]} ({len(warp_errs)} compared, max |kernel - plain| '
+                       f'{warp_err:.3g}), K2 {r["k2"]}, {r["hevc_decodes"]} HEVC pictures decoded')
+        phase(name, f'{key} ({phone.name}: {n_p} frames of HEVC Main 10 with B slices, '
+                    f'{HEVC10_STORED[0]}x{HEVC10_STORED[1]} stored and turned by 90 degrees, frame '
+                    f'batch {DEMO_FRAME_BATCH}, num_aug 2, folded; {result["total_poses"]} poses): '
+                    + demo_timing(timed, n_p) + f'; every input frame as displayed equal to the '
+                    f'manifest (cv2\'s), {r["hevc_decodes"]} pictures decoded '
+                    f'({r["hevc_decodes"] / n_p:g} per frame read); the overlay read back: '
+                    f'{back.n_frames} {back.codec} frames of {back.width}x{back.height}; run again '
+                    f'with every launch checked: K1 {r["k1"]}, each against the plain warp (max '
+                    f'|kernel - plain| {warp_err:.3g}), K2 {r["k2"]}')
+        launches[key] = (r['k1'], r['k2'])
+        del r, timed
 
         # predict_3dpw --viz-dir (folded) on VIZ_3DPW: JAX's figure names, every
         # VIZ_STEP frames, read back.
@@ -5098,14 +5243,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
-    # decoder and encoder, the mp4v codec, the H.264 decoder and the native
-    # image ops, started together.
+    # decoder and encoder, the mp4v codec, the H.264 and HEVC decoders and the
+    # native image ops, started together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
-    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'h264_decode', 'improc')
+    host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'h264_decode', 'hevc_decode',
+                    'improc')
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))

@@ -1,7 +1,19 @@
-// HEVC / H.265 video (ITU-T H.265) on the host: a decoder for progressive,
-// 8-bit 4:2:0 Main-profile streams of I, P and B slices whose planes equal
-// FFmpeg's (libavcodec's hevc decoder) bit for bit, as the standard's
-// decoding process is exact.
+// HEVC / H.265 video (ITU-T H.265) on the host: a decoder for progressive
+// 4:2:0 Main and Main 10 streams (8 bits, or 9 and 10 with luma and chroma
+// of one depth) of I, P and B slices whose planes equal FFmpeg's
+// (libavcodec's hevc decoder) bit for bit, as the standard's decoding
+// process is exact.
+//
+// One source serves both depths: the sample-processing stages (residual,
+// intra and inter prediction, deblocking, SAO) are templates on the sample
+// type, uint8_t at 8 bits (where the bit depth is a constant, so that this
+// code stays as it was) and uint16_t above, chosen per picture. What the
+// bit depth changes: QpBdOffset (6 per bit above 8) in the QP derivation
+// and dequantisation, the transform's second shift (20 - depth),
+// intra substitution and strong smoothing's threshold, the interpolation's
+// shifts (14 - depth, depth - 8) and the weighted prediction's shifts and
+// offsets, deblocking's beta and tC, SAO's band shift and offset range,
+// the clipping, and the hash SEI (two bytes per sample).
 //
 // Tools: the coding quadtree from 8x8 to 64x64 CTBs; CABAC with its three
 // context initialisation types (cabac_init_flag) and wavefront parallel
@@ -25,14 +37,15 @@
 // and range; the decoded-picture hash SEI (MD5, CRC and checksum), checked
 // on every picture that carries one.
 //
-// Refused, naming the tool ("unsupported"): bit depths above 8, chroma
-// formats other than 4:2:0, separate colour planes, field coding
-// (field_seq_flag), tiles, dependent slice segments, PCM coding units,
+// Refused, naming the tool ("unsupported"): bit depths above 10, unequal
+// luma and chroma depths, chroma formats other than 4:2:0, separate colour
+// planes, field coding (field_seq_flag), tiles, dependent slice segments, PCM coding units,
 // long-term reference pictures, mvd_l1_zero_flag (which x265 never sets),
 // and the range, multilayer, 3D and screen content extension flags. NAL
 // units of layers above 0 are skipped, as FFmpeg skips them; so are the
 // RASL pictures of a CRA picture that starts the stream or follows an end of
-// sequence (FFmpeg's max_ra).
+// sequence (FFmpeg's max_ra). NAL units of the unspecified types 48 to 63
+// (a Dolby Vision stream's RPU, 62) are skipped.
 //
 // Pictures are output as FFmpeg's decoder outputs them (its output FIFO):
 // by picture order count once more pictures wait than
@@ -586,6 +599,7 @@ struct Sps {
   StRps st_rps[65];
   bool temporal_mvp = false, strong_intra_smoothing = false;
   int matrix = 2, full_range = 0;
+  int bit_depth = 8;  // of luma and chroma, which must agree
   // derived
   int ctb = 16, w_ctb = 0, h_ctb = 0;
 };
@@ -610,8 +624,9 @@ Sps parse_sps(Bits& br) {
     s.conf_bottom = 2 * br.ue_max(8192, "conf_win_bottom_offset");
   }
   int depth = br.ue_max(8, "bit_depth_luma_minus8") + 8, depth_c = br.ue_max(8, "bit_depth_chroma_minus8") + 8;
-  if (depth != 8 || depth_c != 8)
-    unsupported("bit depth %d (luma) and %d (chroma), above 8 (Main 10 and beyond)", depth, depth_c);
+  if (depth != depth_c) unsupported("unequal luma and chroma bit depths (%d and %d)", depth, depth_c);
+  if (depth > 10) unsupported("bit depth %d, above 10 (Main 12 and beyond)", depth);
+  s.bit_depth = depth;
   s.log2_max_poc_lsb = br.ue_max(12, "log2_max_pic_order_cnt_lsb_minus4") + 4;
   bool ordering_all = br.u1();
   for (int i = ordering_all ? 0 : msl; i <= msl; i++) {
@@ -809,7 +824,8 @@ enum { kOutput = 1, kShortRef = 2, kLongRef = 4 };
 
 struct Picture {
   int w = 0, h = 0;  // coded luma size
-  std::vector<uint8_t> y, u, v;
+  int depth = 8;     // bit depth: samples of 8 bits in one byte, of 9 and 10 in two
+  std::vector<uint8_t> y, u, v;  // the planes' bytes
   int id = 0;
   int poc = 0;
   int decode_index = 0;
@@ -825,25 +841,36 @@ struct Picture {
   int hash_type = -1;
   uint8_t hash[3][16];
 
-  void alloc(int w_, int h_, int log2_ctb_, bool samples) {
+  void alloc(int w_, int h_, int log2_ctb_, int depth_, bool samples) {
     w = w_;
     h = h_;
+    depth = depth_;
     log2_ctb = log2_ctb_;
     w4 = w >> 2;
     w_ctb = (w + (1 << log2_ctb) - 1) >> log2_ctb;
     int h_ctb = (h + (1 << log2_ctb) - 1) >> log2_ctb;
     ctb_slice.assign((size_t)w_ctb * h_ctb, 0);
     slices.assign(1, SliceRefs());
-    if (samples) {
-      y.assign((size_t)w * h, 128);
-      u.assign((size_t)(w / 2) * (h / 2), 128);
-      v.assign((size_t)(w / 2) * (h / 2), 128);
+    if (samples) {  // mid-grey, as a missing reference is generated (8.3.3.2)
+      const size_t bytes = depth > 8 ? 2 : 1, n = (size_t)w * h, nc = (size_t)(w / 2) * (h / 2);
+      y.resize(n * bytes);
+      u.resize(nc * bytes);
+      v.resize(nc * bytes);
+      for (int c = 0; c < 3; c++) {
+        if (depth > 8) std::fill_n(samples_of<uint16_t>(c), c ? nc : n, (uint16_t)(1 << (depth - 1)));
+        else std::fill_n(samples_of<uint8_t>(c), c ? nc : n, (uint8_t)128);
+      }
       MvField intra{};
       mvf.assign((size_t)w4 * (h >> 2), intra);
     }
   }
   uint8_t* plane(int c) { return c == 0 ? y.data() : c == 1 ? u.data() : v.data(); }
   const uint8_t* plane(int c) const { return c == 0 ? y.data() : c == 1 ? u.data() : v.data(); }
+  // The samples of plane c: P is uint8_t at 8 bits, uint16_t above.
+  template <class P>
+  P* samples_of(int c) { return reinterpret_cast<P*>(plane(c)); }
+  template <class P>
+  const P* samples_of(int c) const { return reinterpret_cast<const P*>(plane(c)); }
   int stride(int c) const { return c == 0 ? w : w / 2; }
   const MvField& motion(int x, int y_) const { return mvf[(size_t)(y_ >> 2) * w4 + (x >> 2)]; }
   const SliceRefs& slice_at(int x, int y_) const {
@@ -1127,7 +1154,7 @@ class Decoder {
       s.max_merge = 5 - br.ue_max(4, "five_minus_max_num_merge_cand");
     }
     s.qp = pps.init_qp + br.se();
-    if (s.qp < 0 || s.qp > 51) corrupt("SliceQpY of %d", s.qp);
+    if (s.qp < -6 * (sps.bit_depth - 8) || s.qp > 51) corrupt("SliceQpY of %d", s.qp);
     s.cb_qp_offset = s.cr_qp_offset = 0;
     if (pps.slice_chroma_qp_offsets) {
       s.cb_qp_offset = br.se();
@@ -1256,7 +1283,9 @@ class Decoder {
     // The new picture
     cur_ = std::make_shared<Picture>();
     Picture& P = *cur_;
-    P.alloc(sps.width, sps.height, sps.log2_ctb, !headers_only);
+    bd_ = sps.bit_depth;
+    qp_bd_ = 6 * (bd_ - 8);
+    P.alloc(sps.width, sps.height, sps.log2_ctb, bd_, !headers_only);
     P.id = next_id_++;
     P.poc = poc;
     P.decode_index = pictures_ - 1;
@@ -1276,7 +1305,7 @@ class Decoder {
 
   Picture* generate_missing(int poc) {
     auto p = std::make_shared<Picture>();
-    p->alloc(sps.width, sps.height, sps.log2_ctb, !headers_only);
+    p->alloc(sps.width, sps.height, sps.log2_ctb, sps.bit_depth, !headers_only);
     p->id = next_id_++;
     p->poc = poc;
     p->slices.assign(1, SliceRefs());
@@ -1336,6 +1365,7 @@ class Decoder {
         num_refs_[l] = sh.num_ref_idx[l];
         for (int i = 0; i < num_refs_[l]; i++) {
           Picture* p = temp[sh.list_mod[l] ? sh.list_entry[l][i] : i];
+          if (p->depth != cur_->depth) corrupt("a reference picture of bit depth %d in a picture of %d", p->depth, cur_->depth);
           refs_[l][i] = p;
           refs_lt_[l][i] = false;
           if (p->poc > cur_->poc) no_backward_pred_ = false;
@@ -1366,6 +1396,7 @@ class Decoder {
   int slice_idx_ = 0;
   int log2_qg_ = 6;
   int qp_y_ = 26, qp_prev_ = 26, qpy_pred_ = 26, cu_qp_delta_ = 0;
+  int bd_ = 8, qp_bd_ = 0;  // the current picture's bit depth and QpBdOffset (6 per bit above 8)
   bool qp_delta_coded_ = false, first_qg_ = true;
   int qg_x_ = -1, qg_y_ = -1;
   // The coding unit being decoded.
@@ -1503,9 +1534,10 @@ class Decoder {
         else s.type[2] = s.type[1];
         if (!s.type[c]) continue;
         int abs[4];
+        const int cmax = (1 << (std::min(bd_, 10) - 5)) - 1;  // SaoOffsetVal is not scaled up to 10 bits
         for (int i = 0; i < 4; i++) {
           abs[i] = 0;
-          while (abs[i] < 7 && cc_.bypass()) abs[i]++;
+          while (abs[i] < cmax && cc_.bypass()) abs[i]++;
         }
         if (s.type[c] == 1) {
           for (int i = 0; i < 4; i++)
@@ -1607,7 +1639,7 @@ class Decoder {
       qg_y_ = y0 & qg_mask;
       start_qg(qg_x_, qg_y_);
     }
-    qp_y_ = (qpy_pred_ + cu_qp_delta_ + 52) % 52;
+    qp_y_ = (qpy_pred_ + cu_qp_delta_ + 52 + 2 * qp_bd_) % (52 + qp_bd_) - qp_bd_;
     fill(depth_, x0, y0, w, h, (uint8_t)depth);
     fill(mode_, x0, y0, w, h, (uint8_t)1);
     mark_edges(x0, y0, w, h, true);
@@ -1780,10 +1812,10 @@ class Decoder {
       while (v < 5 && cc_.decision(kQP_DELTA + (v > 0))) v++;
       if (v == 5) v += exp_golomb(0);
       if (v && cc_.bypass()) v = -v;
-      if (v < -26 || v > 25) corrupt("CuQpDeltaVal of %d", v);
+      if (v < -(26 + qp_bd_ / 2) || v > 25 + qp_bd_ / 2) corrupt("CuQpDeltaVal of %d", v);
       qp_delta_coded_ = true;
       cu_qp_delta_ = v;
-      qp_y_ = (qpy_pred_ + v + 52) % 52;
+      qp_y_ = (qpy_pred_ + v + 52 + 2 * qp_bd_) % (52 + qp_bd_) - qp_bd_;
     }
     if (cu_intra_) intra_pred(0, x0, y0, log2, mode_[i4(x0, y0)]);
     if (cbf_luma) residual(0, x0, y0, log2);
@@ -1953,10 +1985,11 @@ class Decoder {
     if (cu_bypass_) {
       memcpy(res, coeff, sizeof(int) * nn);
     } else {
-      int qp = qp_y_;
-      if (c) qp = chroma_qp(clip3(0, 57, qp_y_ + (c == 1 ? pps.cb_qp_offset + sh.cb_qp_offset
-                                                        : pps.cr_qp_offset + sh.cr_qp_offset)));
-      const int bdshift = log2 + 3;
+      // Qp'Y and Qp'C: QpY and the chroma table's QP, offset by QpBdOffset
+      int qp = qp_y_ + qp_bd_;
+      if (c) qp = chroma_qp(clip3(-qp_bd_, 57, qp_y_ + (c == 1 ? pps.cb_qp_offset + sh.cb_qp_offset
+                                                               : pps.cr_qp_offset + sh.cr_qp_offset))) + qp_bd_;
+      const int bdshift = log2 + bd_ - 5;
       const int64_t scale = (int64_t)kLevelScale[qp % 6] << (qp / 6);
       const uint8_t* m = nullptr;
       if (scaling_ && !(tskip && n > 4)) m = factor_[log2 - 2][(cu_intra_ ? 0 : 3) + c].data();
@@ -1965,21 +1998,33 @@ class Decoder {
         const int64_t v = ((int64_t)coeff[i] * (m ? m[i] : 16) * scale + (1 << (bdshift - 1))) >> bdshift;
         coeff[i] = (int)std::max<int64_t>(-32768, std::min<int64_t>(32767, v));
       }
+      const int shift = 20 - bd_;  // the second stage's bdShift
       if (tskip) {
-        for (int i = 0; i < nn; i++) res[i] = ((coeff[i] << 7) + 2048) >> 12;
+        for (int i = 0; i < nn; i++) res[i] = ((coeff[i] << 7) + (1 << (shift - 1))) >> shift;
       } else {
-        inverse_transform(coeff, res, log2, cu_intra_ && c == 0 && n == 4);
+        const bool dst = cu_intra_ && c == 0 && n == 4;
+        if (bd_ == 8) inverse_transform<12>(coeff, res, log2, dst);
+        else if (bd_ == 9) inverse_transform<11>(coeff, res, log2, dst);
+        else inverse_transform<10>(coeff, res, log2, dst);
       }
     }
-    uint8_t* pl = cur_->plane(c);
-    const int stride = cur_->stride(c);
+    if (bd_ > 8) add_residual<uint16_t>(c, x0, y0, n, res);
+    else add_residual<uint8_t>(c, x0, y0, n, res);
+  }
+
+  template <class P>
+  void add_residual(int c, int x0, int y0, int n, const int* res) {
+    P* pl = cur_->samples_of<P>(c);
+    const int stride = cur_->stride(c), max = sizeof(P) == 1 ? 255 : (1 << bd_) - 1;
     for (int y = 0; y < n; y++) {
-      uint8_t* row = pl + (size_t)(y0 + y) * stride + x0;
-      for (int x = 0; x < n; x++) row[x] = clip1(row[x] + res[y * n + x]);
+      P* row = pl + (size_t)(y0 + y) * stride + x0;
+      for (int x = 0; x < n; x++) row[x] = (P)clip3(0, max, row[x] + res[y * n + x]);
     }
   }
 
-  // 8.6.4.2: columns, the intermediate clip, then rows.
+  // 8.6.4.2: columns, the intermediate clip, then rows (SHIFT: 20 less the
+  // bit depth).
+  template <int SHIFT>
   static void inverse_transform(const int* d, int* r, int log2, bool dst) {
     const int n = 1 << log2;
     const ScanTables& T = tables();
@@ -2011,7 +2056,7 @@ class Decoder {
         const int* mk = m + k * n;
         for (int j = 0; j < n; j++) out[j] += mk[j] * gk;
       }
-      for (int j = 0; j < n; j++) out[j] = (out[j] + 2048) >> 12;
+      for (int j = 0; j < n; j++) out[j] = (out[j] + (1 << (SHIFT - 1))) >> SHIFT;
     }
   }
 
@@ -2309,34 +2354,38 @@ class Decoder {
 
   // Fractional sample interpolation (8.5.3.3.3) of one list into pred
   // (14-bit intermediate samples) for a w x h block of component c.
+  template <class P>
   void interpolate(const Picture& ref, int c, int xb, int yb, int w, int h, const int16_t mv[2],
                    int16_t* pred) const {
-    if (c) filter<4>(ref, c, xb + (mv[0] >> 3), yb + (mv[1] >> 3), w, h, kChromaFilter[mv[0] & 7],
-                     kChromaFilter[mv[1] & 7], (mv[0] & 7) != 0, (mv[1] & 7) != 0, pred);
-    else filter<8>(ref, c, xb + (mv[0] >> 2), yb + (mv[1] >> 2), w, h, kLumaFilter[mv[0] & 3],
-                   kLumaFilter[mv[1] & 3], (mv[0] & 3) != 0, (mv[1] & 3) != 0, pred);
+    if (c) filter<P, 4>(ref, c, xb + (mv[0] >> 3), yb + (mv[1] >> 3), w, h, kChromaFilter[mv[0] & 7],
+                        kChromaFilter[mv[1] & 7], (mv[0] & 7) != 0, (mv[1] & 7) != 0, pred);
+    else filter<P, 8>(ref, c, xb + (mv[0] >> 2), yb + (mv[1] >> 2), w, h, kLumaFilter[mv[0] & 3],
+                      kLumaFilter[mv[1] & 3], (mv[0] & 3) != 0, (mv[1] & 3) != 0, pred);
   }
 
   // The TAPS-tap filters hx (across) and hy (down) over the reference block
-  // at (xi, yi), its margins clamped at the picture's edges.
-  template <int TAPS>
+  // at (xi, yi), its margins clamped at the picture's edges. A full sample
+  // is shifted up by 14 less the bit depth (shift3), a first filter's sum
+  // down by the bit depth less 8 (shift1), a second's by 6 (shift2).
+  template <class P, int TAPS>
   static void filter(const Picture& ref, int c, int xi, int yi, int w, int h, const int* hx,
                      const int* hy, bool fx, bool fy, int16_t* pred) {
     constexpr int before = TAPS / 2 - 1;
+    const int depth = sizeof(P) == 1 ? 8 : ref.depth, shift1 = depth - 8, shift3 = 14 - depth;
     const int pw = c ? ref.w / 2 : ref.w, ph = c ? ref.h / 2 : ref.h;
     const int bw = w + TAPS - 1, bh = h + TAPS - 1;
-    const uint8_t* src;
+    const P* src;
     int stride;
-    static thread_local std::vector<uint8_t> block;
+    static thread_local std::vector<P> block;
     static thread_local std::vector<int> tmp;
     if (xi - before >= 0 && yi - before >= 0 && xi - before + bw <= pw && yi - before + bh <= ph) {
       stride = ref.stride(c);
-      src = ref.plane(c) + (size_t)(yi - before) * stride + xi - before;
+      src = ref.samples_of<P>(c) + (size_t)(yi - before) * stride + xi - before;
     } else {
       block.resize((size_t)bw * bh);
-      const uint8_t* plane = ref.plane(c);
+      const P* plane = ref.samples_of<P>(c);
       for (int r = 0; r < bh; r++) {
-        const uint8_t* row = plane + (size_t)clip3(0, ph - 1, yi + r - before) * ref.stride(c);
+        const P* row = plane + (size_t)clip3(0, ph - 1, yi + r - before) * ref.stride(c);
         for (int k = 0; k < bw; k++) block[(size_t)r * bw + k] = row[clip3(0, pw - 1, xi + k - before)];
       }
       src = block.data();
@@ -2344,18 +2393,18 @@ class Decoder {
     }
     if (!fx && !fy) {
       for (int r = 0; r < h; r++) {
-        const uint8_t* b = src + (size_t)(r + before) * stride + before;
-        for (int k = 0; k < w; k++) pred[r * w + k] = (int16_t)(b[k] << 6);
+        const P* b = src + (size_t)(r + before) * stride + before;
+        for (int k = 0; k < w; k++) pred[r * w + k] = (int16_t)(b[k] << shift3);
       }
       return;
     }
     if (!fy) {
       for (int r = 0; r < h; r++) {
-        const uint8_t* b = src + (size_t)(r + before) * stride;
+        const P* b = src + (size_t)(r + before) * stride;
         for (int k = 0; k < w; k++) {
           int v = 0;
           for (int t = 0; t < TAPS; t++) v += hx[t] * b[k + t];
-          pred[r * w + k] = (int16_t)v;
+          pred[r * w + k] = (int16_t)(v >> shift1);
         }
       }
       return;
@@ -2363,20 +2412,20 @@ class Decoder {
     if (!fx) {
       for (int r = 0; r < h; r++)
         for (int k = 0; k < w; k++) {
-          const uint8_t* b = src + (size_t)r * stride + k + before;
+          const P* b = src + (size_t)r * stride + k + before;
           int v = 0;
           for (int t = 0; t < TAPS; t++) v += hy[t] * b[(size_t)t * stride];
-          pred[r * w + k] = (int16_t)v;
+          pred[r * w + k] = (int16_t)(v >> shift1);
         }
       return;
     }
     tmp.resize((size_t)w * bh);
     for (int r = 0; r < bh; r++) {
-      const uint8_t* b = src + (size_t)r * stride;
+      const P* b = src + (size_t)r * stride;
       for (int k = 0; k < w; k++) {
         int v = 0;
         for (int t = 0; t < TAPS; t++) v += hx[t] * b[k + t];
-        tmp[(size_t)r * w + k] = v;
+        tmp[(size_t)r * w + k] = v >> shift1;
       }
     }
     for (int r = 0; r < h; r++)
@@ -2389,57 +2438,69 @@ class Decoder {
 
   // Motion compensation with the default or explicit weights (8.5.3.3.4).
   void predict_inter(int xpb, int ypb, int w, int h, const MvField& f) {
-    const bool weighted = sh.type == SLICE_P ? pps.weighted_pred : pps.weighted_bipred;
     for (int l = 0; l < 2; l++)
       if (((f.pred >> l) & 1) && (f.ref[l] < 0 || f.ref[l] >= num_refs_[l]))
         corrupt("ref_idx_l%d %d of %d", l, f.ref[l], num_refs_[l]);
+    if (bd_ > 8) predict_inter_samples<uint16_t>(xpb, ypb, w, h, f);
+    else predict_inter_samples<uint8_t>(xpb, ypb, w, h, f);
+  }
+
+  // The weighted sample prediction (8.5.3.3.4.2-3): shift1 = 14 - bit
+  // depth, shift2 = 15 - bit depth, and the explicit offsets scaled up by the
+  // bit depth less 8.
+  template <class P>
+  void predict_inter_samples(int xpb, int ypb, int w, int h, const MvField& f) {
+    const bool weighted = sh.type == SLICE_P ? pps.weighted_pred : pps.weighted_bipred;
+    const int depth = sizeof(P) == 1 ? 8 : bd_, max = (1 << depth) - 1;
+    const int shift1 = 14 - depth, shift2 = 15 - depth, up = depth - 8;
+    auto clip = [max](int v) { return (P)(v < 0 ? 0 : v > max ? max : v); };
     static thread_local std::vector<int16_t> pred, pred1;
     for (int c = 0; c < 3; c++) {
       const int cw = c ? w / 2 : w, ch = c ? h / 2 : h, xb = c ? xpb / 2 : xpb, yb = c ? ypb / 2 : ypb;
-      uint8_t* pl = cur_->plane(c);
+      P* pl = cur_->samples_of<P>(c);
       const int stride = cur_->stride(c);
       pred.resize((size_t)cw * ch);
       if (f.pred == 3) {  // bi-prediction
         pred1.resize((size_t)cw * ch);
-        interpolate(*refs_[0][f.ref[0]], c, xb, yb, cw, ch, f.mv[0], pred.data());
-        interpolate(*refs_[1][f.ref[1]], c, xb, yb, cw, ch, f.mv[1], pred1.data());
+        interpolate<P>(*refs_[0][f.ref[0]], c, xb, yb, cw, ch, f.mv[0], pred.data());
+        interpolate<P>(*refs_[1][f.ref[1]], c, xb, yb, cw, ch, f.mv[1], pred1.data());
         if (!weighted) {
           for (int y = 0; y < ch; y++) {
-            uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
+            P* row = pl + (size_t)(yb + y) * stride + xb;
             const int16_t *p0 = pred.data() + y * cw, *p1 = pred1.data() + y * cw;
-            for (int x = 0; x < cw; x++) row[x] = clip1((p0[x] + p1[x] + 64) >> 7);
+            for (int x = 0; x < cw; x++) row[x] = clip((p0[x] + p1[x] + (1 << (shift2 - 1))) >> shift2);
           }
           continue;
         }
-        const int log2wd = (c ? sh.chroma_log2_wd : sh.luma_log2_wd) + 6;
+        const int log2wd = (c ? sh.chroma_log2_wd : sh.luma_log2_wd) + shift1;
         const int r0 = f.ref[0], r1 = f.ref[1];
         const int w0 = c ? sh.chroma_w[0][r0][c - 1] : sh.luma_w[0][r0];
         const int w1 = c ? sh.chroma_w[1][r1][c - 1] : sh.luma_w[1][r1];
-        const int o = ((c ? sh.chroma_o[0][r0][c - 1] + sh.chroma_o[1][r1][c - 1]
-                          : sh.luma_o[0][r0] + sh.luma_o[1][r1]) + 1) << log2wd;
+        const int o = (((c ? sh.chroma_o[0][r0][c - 1] + sh.chroma_o[1][r1][c - 1]
+                           : sh.luma_o[0][r0] + sh.luma_o[1][r1]) << up) + 1) << log2wd;
         for (int y = 0; y < ch; y++) {
-          uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
+          P* row = pl + (size_t)(yb + y) * stride + xb;
           const int16_t *p0 = pred.data() + y * cw, *p1 = pred1.data() + y * cw;
-          for (int x = 0; x < cw; x++) row[x] = clip1((p0[x] * w0 + p1[x] * w1 + o) >> (log2wd + 1));
+          for (int x = 0; x < cw; x++) row[x] = clip((p0[x] * w0 + p1[x] * w1 + o) >> (log2wd + 1));
         }
         continue;
       }
       const int l = f.pred == 1 ? 0 : 1, r = f.ref[l];
-      interpolate(*refs_[l][r], c, xb, yb, cw, ch, f.mv[l], pred.data());
+      interpolate<P>(*refs_[l][r], c, xb, yb, cw, ch, f.mv[l], pred.data());
       if (!weighted) {
         for (int y = 0; y < ch; y++) {
-          uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
-          for (int x = 0; x < cw; x++) row[x] = clip1((pred[y * cw + x] + 32) >> 6);
+          P* row = pl + (size_t)(yb + y) * stride + xb;
+          for (int x = 0; x < cw; x++) row[x] = clip((pred[y * cw + x] + (1 << (shift1 - 1))) >> shift1);
         }
         continue;
       }
-      const int log2wd = (c ? sh.chroma_log2_wd : sh.luma_log2_wd) + 6;
+      const int log2wd = (c ? sh.chroma_log2_wd : sh.luma_log2_wd) + shift1;
       const int wt = c ? sh.chroma_w[l][r][c - 1] : sh.luma_w[l][r];
-      const int o = c ? sh.chroma_o[l][r][c - 1] : sh.luma_o[l][r];
+      const int o = (c ? sh.chroma_o[l][r][c - 1] : sh.luma_o[l][r]) * (1 << up);
       for (int y = 0; y < ch; y++) {
-        uint8_t* row = pl + (size_t)(yb + y) * stride + xb;
+        P* row = pl + (size_t)(yb + y) * stride + xb;
         for (int x = 0; x < cw; x++)
-          row[x] = clip1(((pred[y * cw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + o);
+          row[x] = clip(((pred[y * cw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + o);
       }
     }
   }
@@ -2447,8 +2508,19 @@ class Decoder {
   // ---- Intra prediction (8.4.4.2)
 
   void intra_pred(int c, int x0, int y0, int log2, int mode) {
+    if (bd_ > 8) intra_samples<uint16_t>(c, x0, y0, log2, mode);
+    else intra_samples<uint8_t>(c, x0, y0, log2, mode);
+  }
+
+  // Substitution with 1 << (bit depth - 1), strong intra smoothing's
+  // threshold of 1 << (bit depth - 5), the edge filters clipped to the bit
+  // depth.
+  template <class P>
+  void intra_samples(int c, int x0, int y0, int log2, int mode) {
     const int n = 1 << log2, s = c ? 1 : 0;
-    uint8_t* pl = cur_->plane(c);
+    const int depth = sizeof(P) == 1 ? 8 : bd_, max = (1 << depth) - 1;
+    auto clip = [max](int v) { return (P)(v < 0 ? 0 : v > max ? max : v); };
+    P* pl = cur_->samples_of<P>(c);
     const int stride = cur_->stride(c);
     // p[0] = p[-1][2n-1] up to p[2n-1] = p[-1][0], p[2n] = p[-1][-1],
     // p[2n+1] = p[0][-1] up to p[4n] = p[2n-1][-1]
@@ -2483,7 +2555,7 @@ class Decoder {
     }
     const int total = 4 * n + 1;
     if (!any) {
-      for (int k = 0; k < total; k++) p[k] = 128;
+      for (int k = 0; k < total; k++) p[k] = 1 << (depth - 1);
     } else {
       if (!av[0]) {
         int k = 1;
@@ -2500,8 +2572,9 @@ class Decoder {
       if (dist > thres) {
         int f[4 * 32 + 1];
         const int corner = p[2 * n], bottom = p[0], right = p[4 * n];
-        if (sps.strong_intra_smoothing && n == 32 && std::abs(corner + right - 2 * p[2 * n + n]) < 8 &&
-            std::abs(corner + bottom - 2 * p[2 * n - n]) < 8) {
+        const int strong = 1 << (depth - 5);
+        if (sps.strong_intra_smoothing && n == 32 && std::abs(corner + right - 2 * p[2 * n + n]) < strong &&
+            std::abs(corner + bottom - 2 * p[2 * n - n]) < strong) {
           // p[-1][y] = p[2n-1-y], p[x][-1] = p[2n+1+x]
           for (int y = 0; y < 63; y++) f[63 - y] = ((63 - y) * corner + (y + 1) * bottom + 32) >> 6;
           f[0] = bottom;
@@ -2518,13 +2591,13 @@ class Decoder {
     }
     auto left = [&](int y) { return p[2 * n - 1 - y]; };  // p[-1][y], y >= -1
     auto top = [&](int x) { return p[2 * n + 1 + x]; };   // p[x][-1], x >= -1
-    uint8_t* out = pl + (size_t)y0 * stride + x0;
+    P* out = pl + (size_t)y0 * stride + x0;
     if (mode == 0) {  // planar
       for (int y = 0; y < n; y++)
         for (int x = 0; x < n; x++)
-          out[(size_t)y * stride + x] = (uint8_t)(((n - 1 - x) * left(y) + (x + 1) * top(n) +
-                                                   (n - 1 - y) * top(x) + (y + 1) * left(n) + n) >>
-                                                  (log2 + 1));
+          out[(size_t)y * stride + x] = (P)(((n - 1 - x) * left(y) + (x + 1) * top(n) +
+                                             (n - 1 - y) * top(x) + (y + 1) * left(n) + n) >>
+                                            (log2 + 1));
       return;
     }
     if (mode == 1) {  // DC
@@ -2532,11 +2605,11 @@ class Decoder {
       for (int k = 0; k < n; k++) sum += top(k) + left(k);
       const int dc = sum >> (log2 + 1);
       for (int y = 0; y < n; y++)
-        for (int x = 0; x < n; x++) out[(size_t)y * stride + x] = (uint8_t)dc;
+        for (int x = 0; x < n; x++) out[(size_t)y * stride + x] = (P)dc;
       if (c == 0 && n < 32) {
-        out[0] = (uint8_t)((left(0) + 2 * dc + top(0) + 2) >> 2);
-        for (int x = 1; x < n; x++) out[x] = (uint8_t)((top(x) + 3 * dc + 2) >> 2);
-        for (int y = 1; y < n; y++) out[(size_t)y * stride] = (uint8_t)((left(y) + 3 * dc + 2) >> 2);
+        out[0] = (P)((left(0) + 2 * dc + top(0) + 2) >> 2);
+        for (int x = 1; x < n; x++) out[x] = (P)((top(x) + 3 * dc + 2) >> 2);
+        for (int y = 1; y < n; y++) out[(size_t)y * stride] = (P)((left(y) + 3 * dc + 2) >> 2);
       }
       return;
     }
@@ -2561,15 +2634,15 @@ class Decoder {
       for (int i = 0; i < n; i++) {
         const int v = fact ? ((32 - fact) * ref[i + idx + 1] + fact * ref[i + idx + 2] + 16) >> 5
                            : ref[i + idx + 1];
-        if (vertical) out[(size_t)j * stride + i] = (uint8_t)v;
-        else out[(size_t)i * stride + j] = (uint8_t)v;
+        if (vertical) out[(size_t)j * stride + i] = (P)v;
+        else out[(size_t)i * stride + j] = (P)v;
       }
     }
     if (c == 0 && n < 32) {
       if (mode == 26)
-        for (int y = 0; y < n; y++) out[(size_t)y * stride] = clip1(top(0) + ((left(y) - left(-1)) >> 1));
+        for (int y = 0; y < n; y++) out[(size_t)y * stride] = clip(top(0) + ((left(y) - left(-1)) >> 1));
       else if (mode == 10)
-        for (int x = 0; x < n; x++) out[x] = clip1(left(0) + ((top(x) - top(-1)) >> 1));
+        for (int x = 0; x < n; x++) out[x] = clip(left(0) + ((top(x) - top(-1)) >> 1));
     }
   }
 
@@ -2618,12 +2691,16 @@ class Decoder {
 
   // One 4-sample luma edge segment: pix at q0 of its first line; step
   // across the edge, stride along it.
-  static void filter_luma(uint8_t* pix, int step, int stride, int bs, int qp, int beta_off, int tc_off,
-                          bool no_p, bool no_q) {
-    const int beta = kBeta[clip3(0, 51, qp + beta_off)];
-    const int tc = kTc[clip3(0, 53, qp + 2 * (bs - 1) + tc_off)];
-    auto P = [&](int i, int k) -> uint8_t& { return pix[k * stride - (i + 1) * step]; };
-    auto Q = [&](int i, int k) -> uint8_t& { return pix[k * stride + i * step]; };
+  // beta and tC scale by 1 << (bit depth - 8), the samples clip to it.
+  template <class S>
+  static void filter_luma(S* pix, int step, int stride, int bs, int qp, int beta_off, int tc_off,
+                          bool no_p, bool no_q, int depth) {
+    const int beta = kBeta[clip3(0, 51, qp + beta_off)] << (depth - 8);
+    const int tc = kTc[clip3(0, 53, qp + 2 * (bs - 1) + tc_off)] << (depth - 8);
+    const int max = (1 << depth) - 1;
+    auto clip1 = [max](int v) { return (S)(v < 0 ? 0 : v > max ? max : v); };
+    auto P = [&](int i, int k) -> S& { return pix[k * stride - (i + 1) * step]; };
+    auto Q = [&](int i, int k) -> S& { return pix[k * stride + i * step]; };
     const int dp0 = std::abs(P(2, 0) - 2 * P(1, 0) + P(0, 0)), dp3 = std::abs(P(2, 3) - 2 * P(1, 3) + P(0, 3));
     const int dq0 = std::abs(Q(2, 0) - 2 * Q(1, 0) + Q(0, 0)), dq3 = std::abs(Q(2, 3) - 2 * Q(1, 3) + Q(0, 3));
     const int d = dp0 + dq0 + dp3 + dq3;
@@ -2639,14 +2716,14 @@ class Decoder {
       const int q0 = Q(0, k), q1 = Q(1, k), q2 = Q(2, k), q3 = Q(3, k);
       if (strong) {
         if (!no_p) {
-          P(0, k) = (uint8_t)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
-          P(1, k) = (uint8_t)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2);
-          P(2, k) = (uint8_t)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+          P(0, k) = (S)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+          P(1, k) = (S)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2);
+          P(2, k) = (S)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
         }
         if (!no_q) {
-          Q(0, k) = (uint8_t)clip3(q0 - 2 * tc, q0 + 2 * tc, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
-          Q(1, k) = (uint8_t)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2);
-          Q(2, k) = (uint8_t)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
+          Q(0, k) = (S)clip3(q0 - 2 * tc, q0 + 2 * tc, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+          Q(1, k) = (S)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2);
+          Q(2, k) = (S)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
         }
         continue;
       }
@@ -2660,9 +2737,13 @@ class Decoder {
     }
   }
 
-  static void filter_chroma(uint8_t* pix, int step, int stride, int n, int tc, bool no_p, bool no_q) {
+  template <class S>
+  static void filter_chroma(S* pix, int step, int stride, int n, int tc, bool no_p, bool no_q, int depth) {
+    const int max = (1 << depth) - 1;
+    auto clip1 = [max](int v) { return (S)(v < 0 ? 0 : v > max ? max : v); };
+    tc <<= depth - 8;
     for (int k = 0; k < n; k++) {
-      uint8_t* s = pix + k * stride;
+      S* s = pix + k * stride;
       const int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
       const int delta = clip3(-tc, tc, ((((q0 - p0) << 2) + p1 - q1 + 4) >> 3));
       if (!no_p) s[-step] = clip1(p0 + delta);
@@ -2673,7 +2754,14 @@ class Decoder {
   // The edges of one direction over the whole picture: vertical ones
   // (dir 0) first, then horizontal ones on their output.
   void deblock() {
+    if (bd_ > 8) deblock_samples<uint16_t>();
+    else deblock_samples<uint8_t>();
+  }
+
+  template <class S>
+  void deblock_samples() {
     Picture& P = *cur_;
+    const int depth = sizeof(S) == 1 ? 8 : bd_;
     std::vector<uint8_t> bs((size_t)w4_ * h4_);
     for (int dir = 0; dir < 2; dir++) {
       const uint8_t tflag = dir ? kEdgeHT : kEdgeVT, pflag = dir ? kEdgeHP : kEdgeVP;
@@ -2702,18 +2790,18 @@ class Decoder {
           const SliceParams& sq = params_at(x, y);
           const int qp = (qp_[i4(xp, yp)] + qp_[i4(x, y)] + 1) >> 1;
           const bool no_p = exempt(xp, yp), no_q = exempt(x, y);
-          uint8_t* pix = P.y.data() + (size_t)y * P.w + x;
-          if (dir == 0) filter_luma(pix, 1, P.w, b, qp, sq.beta_offset, sq.tc_offset, no_p, no_q);
-          else filter_luma(pix, P.w, 1, b, qp, sq.beta_offset, sq.tc_offset, no_p, no_q);
+          S* pix = P.samples_of<S>(0) + (size_t)y * P.w + x;
+          if (dir == 0) filter_luma(pix, 1, P.w, b, qp, sq.beta_offset, sq.tc_offset, no_p, no_q, depth);
+          else filter_luma(pix, P.w, 1, b, qp, sq.beta_offset, sq.tc_offset, no_p, no_q, depth);
           if (b != 2 || ((dir ? y : x) & 15)) continue;
           for (int c = 1; c < 3; c++) {
             const int offset = c == 1 ? pps.cb_qp_offset : pps.cr_qp_offset;
             const int qpc = chroma_qp(((qp_[i4(xp, yp)] + qp_[i4(x, y)] + 1) >> 1) + offset);
             const int tc = kTc[clip3(0, 53, qpc + 2 + sq.tc_offset)];
             const int cs = P.w / 2;
-            uint8_t* cp = P.plane(c) + (size_t)(y / 2) * cs + x / 2;
-            if (dir == 0) filter_chroma(cp, 1, cs, 2, tc, no_p, no_q);
-            else filter_chroma(cp, cs, 1, 2, tc, no_p, no_q);
+            S* cp = P.samples_of<S>(c) + (size_t)(y / 2) * cs + x / 2;
+            if (dir == 0) filter_chroma(cp, 1, cs, 2, tc, no_p, no_q, depth);
+            else filter_chroma(cp, cs, 1, 2, tc, no_p, no_q, depth);
           }
         }
     }
@@ -2725,13 +2813,22 @@ class Decoder {
     bool any = false;
     for (const Sao& s : sao_) any |= s.type[0] || s.type[1] || s.type[2];
     if (!any) return;
+    if (bd_ > 8) sao_samples<uint16_t>();
+    else sao_samples<uint8_t>();
+  }
+
+  // The band index is a sample's top 5 bits; the samples clip to the bit depth.
+  template <class S>
+  void sao_samples() {
     Picture& P = *cur_;
+    const int depth = sizeof(S) == 1 ? 8 : bd_, max = (1 << depth) - 1, band_shift = depth - 5;
+    auto clip1 = [max](int v) { return (S)(v < 0 ? 0 : v > max ? max : v); };
     const bool any_bypass = pps.transquant_bypass;  // the only samples SAO leaves
     for (int c = 0; c < 3; c++) {
       const int pw = c ? P.w / 2 : P.w, ph = c ? P.h / 2 : P.h, s = c ? 1 : 0;
       const int ctb = sps.ctb >> s;
-      std::vector<uint8_t> src(P.plane(c), P.plane(c) + (size_t)pw * ph);
-      uint8_t* dst = P.plane(c);
+      std::vector<S> src(P.samples_of<S>(c), P.samples_of<S>(c) + (size_t)pw * ph);
+      S* dst = P.samples_of<S>(c);
       for (int addr = 0; addr < sps.w_ctb * sps.h_ctb; addr++) {
         const Sao& sao = sao_[addr];
         if (!sao.type[c] || ctb_addr_[addr] < 0) continue;
@@ -2760,7 +2857,7 @@ class Decoder {
             for (int x = x0; x < x1; x++) {
               if (any_bypass && exempt(x << s, y << s)) continue;
               const int v = src[(size_t)y * pw + x];
-              dst[(size_t)y * pw + x] = clip1(v + sao.offset[c][table[v >> 3]]);
+              dst[(size_t)y * pw + x] = clip1(v + sao.offset[c][table[v >> band_shift]]);
             }
           continue;
         }
@@ -2793,24 +2890,27 @@ class Decoder {
     }
   }
 
-  // ---- The decoded-picture hash (D.3.19)
+  // ---- The decoded-picture hash (D.3.19): MD5 and CRC over the picture's
+  // bytes, of samples above 8 bits two each, the low byte first (as the
+  // planes lie in memory); the checksum adds the two bytes of such a sample.
 
   void check_hash() {
     Picture& P = *cur_;
     if (P.hash_type < 0) return;
+    const int bytes = P.depth > 8 ? 2 : 1;
     for (int c = 0; c < 3; c++) {
       bool ok;
       const int pw = c ? P.w / 2 : P.w, ph = c ? P.h / 2 : P.h;
       const uint8_t* pl = P.plane(c);
       if (P.hash_type == 0) {
         Md5 md5;
-        md5.update(pl, (size_t)pw * ph);
+        md5.update(pl, (size_t)pw * ph * bytes);
         uint8_t out[16];
         md5.digest(out);
         ok = memcmp(out, P.hash[c], 16) == 0;
       } else if (P.hash_type == 1) {
         uint32_t crc = 0xffff;
-        for (int i = 0; i < pw * ph; i++)
+        for (int i = 0; i < pw * ph * bytes; i++)
           for (int b = 0; b < 8; b++) {
             const uint32_t msb = (crc >> 15) & 1, bit = (pl[i] >> (7 - b)) & 1;
             crc = (((crc << 1) + bit) & 0xffff) ^ (msb * 0x1021);
@@ -2825,7 +2925,7 @@ class Decoder {
         for (int y = 0; y < ph; y++)
           for (int x = 0; x < pw; x++) {
             const uint32_t mask = (x & 0xff) ^ (y & 0xff) ^ (x >> 8) ^ (y >> 8);
-            sum += (pl[(size_t)y * pw + x] & 0xff) ^ mask;
+            for (int b = 0; b < bytes; b++) sum += pl[((size_t)y * pw + x) * bytes + b] ^ mask;
           }
         ok = sum == ((uint32_t)P.hash[c][0] << 24 | P.hash[c][1] << 16 | P.hash[c][2] << 8 | P.hash[c][3]);
       }
@@ -2902,16 +3002,23 @@ int metrabs_hevc_next(void* d, int* width, int* height, int* decode_index) {
   return 1;
 }
 
+// The bit depth of the next output picture's samples (8, 9 or 10), 0 when
+// none waits.
+int metrabs_hevc_bit_depth(void* d) {
+  const Picture* p = static_cast<Decoder*>(d)->ready();
+  return p ? p->depth : 0;
+}
+
 // Hands out the next output picture: RGB [h][w][3] and the planes (y [h][w],
-// u and v [(h+1)/2][(w+1)/2]), each skipped when null; 3 when none waits.
+// u and v [(h+1)/2][(w+1)/2], uint16_t samples above 8 bits), each skipped
+// when null; 3 when none waits.
 // 2 when RGB is asked of a size or colour matrix whose conversion is not
 // ported (the picture stays).
-int metrabs_hevc_frame(void* d, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t* v, char* err,
-                       int err_len) {
+int metrabs_hevc_frame(void* d, uint8_t* rgb, void* y, void* u, void* v, char* err, int err_len) {
   Decoder* dec = static_cast<Decoder*>(d);
   const Picture* p = dec->ready();
   if (!p) return kNoFrame;
-  const int rc = hand_out(p, rgb, y, u, v, err, err_len);
+  const int rc = hand_out(p, rgb, y, u, v, err, err_len, p->depth);
   if (rc == kOk) dec->pop();
   return rc;
 }

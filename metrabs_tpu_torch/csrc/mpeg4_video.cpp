@@ -1012,6 +1012,10 @@ class Decoder : public Codec {
  public:
   Vol vol;
   bool have_ref = false;
+  // The colour of the RGB conversion: the container's (an MP4 colr box), as
+  // FFmpeg keeps it for a stream whose visual object sends no video signal
+  // type; BT.601 and limited range without one.
+  int matrix = 2, full_range = 0;
 
   void header(const uint8_t* data, size_t n) { parse(data, n, false); }
 
@@ -2186,6 +2190,12 @@ int metrabs_mp4v_decoder_config(void* d, const uint8_t* data, size_t n, int* wid
   return kOk;
 }
 
+// The container's matrix_coefficients and full-range flag (an MP4 colr box).
+void metrabs_mp4v_decoder_colour(void* d, int matrix, int full_range) {
+  static_cast<Decoder*>(d)->matrix = matrix;
+  static_cast<Decoder*>(d)->full_range = full_range;
+}
+
 // Decodes one packet into RGB [h][w][3], and its luma into y if not null
 // (a not-coded VOP gives the previous frame again).
 int metrabs_mp4v_decode_rgb(void* d, const uint8_t* data, size_t n, uint8_t* rgb, uint8_t* y,
@@ -2200,12 +2210,17 @@ int metrabs_mp4v_decode_rgb(void* d, const uint8_t* data, size_t n, uint8_t* rgb
   int w = dec->width, h = dec->height;
   if (!yuv_rgb::supported(h))
     return fail(Failure{kUnsupported, "RGB frames of an odd height below 9 rows"}, err, err_len);
+  if (dec->matrix == 0 || dec->matrix == 8 || dec->matrix > 10) {
+    char what[96];
+    snprintf(what, sizeof what, "RGB of matrix_coefficients %d (GBR, YCgCo and above 10)", dec->matrix);
+    return fail(Failure{kUnsupported, what}, err, err_len);
+  }
   std::vector<uint8_t> planes((size_t)w * h + 2 * (size_t)((w + 1) / 2) * ((h + 1) / 2));
   uint8_t* py = planes.data();
   uint8_t* pu = py + (size_t)w * h;
   uint8_t* pv = pu + (size_t)((w + 1) / 2) * ((h + 1) / 2);
   copy_planes(f, w, h, py, pu, pv);
-  yuv_rgb::to_rgb(py, w, pu, pv, (w + 1) / 2, w, h, 0, 2, rgb);  // BT.601, limited range
+  yuv_rgb::to_rgb(py, w, pu, pv, (w + 1) / 2, w, h, dec->full_range, dec->matrix, 8, rgb);
   if (y) memcpy(y, py, (size_t)w * h);
   return kOk;
 }

@@ -234,15 +234,35 @@ struct CabacEngine {
 // ---------------------------------------------------------------------------
 // Handing out a decoded picture: RGB [h][w][3] and the planes (y [h][w], u
 // and v [(h+1)/2][(w+1)/2]) of its conformance window, each skipped when
-// null. kUnsupported when RGB is asked of a size or colour matrix whose
-// conversion is not ported.
+// null; samples of `depth` bits, one byte each at 8 and two above. Its
+// planes' bytes are p->y, p->u and p->v. kUnsupported when RGB is asked of
+// a size or colour matrix whose conversion is not ported.
+
+template <class P, class Picture>
+void copy_out(const Picture* p, uint8_t* rgb, P* y, P* u, P* v, int depth) {
+  const int w = p->out_w, h = p->out_h, cw = (w + 1) / 2, ch = (h + 1) / 2, cs = p->w / 2;
+  const int cl = p->crop_left, ct = p->crop_top;
+  const P* py = reinterpret_cast<const P*>(p->y.data()) + (size_t)ct * p->w + cl;
+  const P* pu = reinterpret_cast<const P*>(p->u.data()) + (size_t)(ct / 2) * cs + cl / 2;
+  const P* pv = reinterpret_cast<const P*>(p->v.data()) + (size_t)(ct / 2) * cs + cl / 2;
+  if (y)
+    for (int r = 0; r < h; r++) memcpy(y + (size_t)r * w, py + (size_t)r * p->w, w * sizeof(P));
+  if (u)
+    for (int r = 0; r < ch; r++) memcpy(u + (size_t)r * cw, pu + (size_t)r * cs, cw * sizeof(P));
+  if (v)
+    for (int r = 0; r < ch; r++) memcpy(v + (size_t)r * cw, pv + (size_t)r * cs, cw * sizeof(P));
+  if (rgb) yuv_rgb::to_rgb(py, p->w, pu, pv, cs, w, h, p->full_range, p->matrix, depth, rgb);
+}
 
 template <class Picture>
-int hand_out(const Picture* p, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t* v, char* err,
-             int err_len) {
-  const int w = p->out_w, h = p->out_h, cw = (w + 1) / 2, ch = (h + 1) / 2;
-  if (rgb && !yuv_rgb::supported(h))
-    return fail(Failure{kUnsupported, "RGB frames of an odd height below 9 rows"}, err, err_len);
+int hand_out(const Picture* p, uint8_t* rgb, void* y, void* u, void* v, char* err, int err_len,
+             int depth = 8) {
+  if (rgb && !yuv_rgb::supported(p->out_h, depth)) {
+    if (depth == 8) return fail(Failure{kUnsupported, "RGB frames of an odd height below 9 rows"}, err, err_len);
+    char what[96];
+    snprintf(what, sizeof what, "RGB frames of %d-bit video below 10 rows", depth);
+    return fail(Failure{kUnsupported, what}, err, err_len);
+  }
   if (rgb && (p->matrix == 0 || p->matrix == 8 || p->matrix > 10)) {
     char what[96];
     snprintf(what, sizeof what, "RGB of matrix_coefficients %d (GBR, YCgCo and above 10)", p->matrix);
@@ -250,17 +270,10 @@ int hand_out(const Picture* p, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t* v,
   }
   if (!(rgb || y || u || v)) return kOk;
   if (p->y.empty()) return fail(Failure{kUnsupported, "samples of a header-only decoder"}, err, err_len);
-  const int cl = p->crop_left, ct = p->crop_top;
-  const uint8_t* py = p->y.data() + (size_t)ct * p->w + cl;
-  const uint8_t* pu = p->u.data() + (size_t)(ct / 2) * (p->w / 2) + cl / 2;
-  const uint8_t* pv = p->v.data() + (size_t)(ct / 2) * (p->w / 2) + cl / 2;
-  if (y)
-    for (int r = 0; r < h; r++) memcpy(y + (size_t)r * w, py + (size_t)r * p->w, w);
-  if (u)
-    for (int r = 0; r < ch; r++) memcpy(u + (size_t)r * cw, pu + (size_t)r * (p->w / 2), cw);
-  if (v)
-    for (int r = 0; r < ch; r++) memcpy(v + (size_t)r * cw, pv + (size_t)r * (p->w / 2), cw);
-  if (rgb) yuv_rgb::to_rgb(py, p->w, pu, pv, p->w / 2, w, h, p->full_range, p->matrix, rgb);
+  if (depth > 8)
+    copy_out(p, rgb, (uint16_t*)y, (uint16_t*)u, (uint16_t*)v, depth);
+  else
+    copy_out(p, rgb, (uint8_t*)y, (uint8_t*)u, (uint8_t*)v, depth);
   return kOk;
 }
 

@@ -1,29 +1,35 @@
-// YUV 4:2:0 (8-bit) to RGB as cv2.VideoCapture converts decoded frames:
-// FFmpeg's swscale, asked for bgr24 at the frame's own size with
-// SWS_BICUBIC, and with the coefficients sws_setColorspaceDetails derives
-// from the stream's matrix_coefficients and full-range flag. Shared by the
-// mp4v and H.264 decoders (`mpeg4_video.cpp`, `h264_decode.cpp`).
+// YUV 4:2:0 (8-bit, or 9 and 10 bits in 16-bit samples) to RGB as
+// cv2.VideoCapture converts decoded frames: FFmpeg's swscale, asked for
+// bgr24 at the frame's own size with SWS_BICUBIC, and with the coefficients
+// sws_setColorspaceDetails derives from the stream's matrix_coefficients
+// and full-range flag. Shared by the mp4v, H.264 and HEVC decoders
+// (`mpeg4_video.cpp`, `h264_decode.cpp`, `hevc_decode.cpp`).
 //
 // swscale takes one of three paths, and each is followed here to the bit:
 //
-// - Even height: the unscaled converter (its x86 SIMD yuv2rgb), each chroma
-//   sample serving its 2x2 luma samples, each term a 16-bit fixed-point
-//   product rounded down (pmulhw).
-// - Odd height, even width: the scaler. Chroma is filtered horizontally at
-//   the same size (bicubic, the source's chroma sited left of its two luma
-//   columns, the output's between them: a quarter-sample shift) into 15-bit
-//   samples, then vertically from (h + 1) / 2 rows to h rows (bicubic, 12-bit
-//   taps; FFmpeg's initFilter, with its reduction of near-zero taps and its
-//   border handling). Rows 0 to h - 3 go through the MMX vertical filter and
-//   yuv2bgr24_X (pmulhw per tap, a rounder of 4); the last two rows through
-//   the C yuv2rgb_X and its lookup tables, as swscale switches there.
+// - 8 bits, even height: the unscaled converter (its x86 SIMD yuv2rgb),
+//   each chroma sample serving its 2x2 luma samples, each term a 16-bit
+//   fixed-point product rounded down (pmulhw).
+// - Odd height (or above 8 bits, at any height: swscale has no unscaled
+//   converter from 16-bit planes to bgr24), even width: the scaler. Luma
+//   and chroma are read into 15-bit samples (hScale8To15, or hScale16To15,
+//   whose shift is the bit depth less one), luma unscaled and chroma filtered
+//   horizontally at the same size (bicubic, the source's chroma sited left
+//   of its two luma columns, the output's between them: a quarter-sample
+//   shift), then chroma vertically from (h + 1) / 2 rows to h rows (bicubic,
+//   12-bit taps; FFmpeg's initFilter, with its reduction of near-zero taps
+//   and its border handling). Rows 0 to h - 3 go through the MMX vertical
+//   filter and yuv2bgr24_X (pmulhw per tap, a rounder of 4); the last two
+//   rows through the C yuv2rgb_X and its lookup tables, as swscale switches
+//   there.
 // - Odd height, odd width: swscale forces full horizontal chroma
 //   interpolation (chroma filtered from (w + 1) / 2 to w columns) and the C
 //   yuv2rgb_full_X.
 //
-// Odd heights of 3 to 7 rows, where the vertical chroma filter has at most
-// two taps and swscale takes its yuv2bgr24_1 shortcut, are not emulated:
-// `supported` is false for them.
+// Heights where the vertical chroma filter has at most two taps and
+// swscale takes its yuv2bgr24_1 shortcut are not emulated: `supported` is
+// false for them (odd heights of 3 to 7 rows; above 8 bits, heights below
+// 10).
 
 #pragma once
 
@@ -213,15 +219,18 @@ inline Filter bicubic_filter(int x_inc, int src_w, int dst_w, int one, int src_p
   return out;
 }
 
-// Horizontal chroma scaling into 15-bit samples (hScale8To15).
-inline void hscale(const uint8_t* src, int src_w, const Filter& f, int dst_w, int32_t* dst) {
+// Horizontal chroma scaling into 15-bit samples (hScale8To15, and
+// hScale16To15 of `depth`-bit samples: a shift of depth - 1).
+template <class P>
+inline void hscale(const P* src, int src_w, const Filter& f, int dst_w, int depth, int32_t* dst) {
+  const int shift = sizeof(P) == 1 ? 7 : depth - 1;
   for (int i = 0; i < dst_w; i++) {
     int64_t acc = 0;
     for (int j = 0; j < f.size; j++) {
       int s = std::min(f.pos[i] + j, src_w - 1);
       acc += (int64_t)src[s] * f.taps[(size_t)i * f.size + j];
     }
-    dst[i] = (int32_t)std::min<int64_t>(acc >> 7, (1 << 15) - 1);
+    dst[i] = (int32_t)std::min<int64_t>(acc >> shift, (1 << 15) - 1);
   }
 }
 
@@ -249,26 +258,33 @@ struct Tables {
   }
 };
 
-// Whether to_rgb gives cv2's numbers for a frame of this size.
-inline bool supported(int h) {
+// Whether to_rgb gives cv2's numbers for a frame of this height and bit depth.
+inline bool supported(int h, int depth = 8) {
+  if (depth > 8) return h >= 10;
   return !(h & 1) || h == 1 || h >= 9;
 }
 
-// RGB [h][w][3] of planes y (stride ys) and u, v ((w + 1) / 2 by (h + 1) / 2,
-// stride cs).
-inline void to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v, int cs, int w,
-                   int h, int full_range, int matrix, uint8_t* rgb) {
+// RGB [h][w][3] of `depth`-bit planes y (stride ys samples) and u, v
+// ((w + 1) / 2 by (h + 1) / 2, stride cs): 8-bit samples in uint8_t, 9 and
+// 10 in uint16_t.
+template <class P>
+inline void to_rgb(const P* y, int ys, const P* u, const P* v, int cs, int w, int h, int full_range,
+                   int matrix, int depth, uint8_t* rgb) {
   const Coeffs k = coeffs(full_range, matrix);
-  if (!(h & 1)) {
-    for (int r = 0; r < h; r++) {
-      const uint8_t* yr = y + (size_t)r * ys;
-      const uint8_t* ur = u + (size_t)(r >> 1) * cs;
-      const uint8_t* vr = v + (size_t)(r >> 1) * cs;
-      uint8_t* out = rgb + (size_t)r * w * 3;
-      for (int c = 0; c < w; c++)
-        simd_pixel(yr[c] * 8, (ur[c >> 1] - 128) * 8, (vr[c >> 1] - 128) * 8, k, out + 3 * c);
+  // The 15-bit luma sample of the scaler (unscaled hScale: Y << (15 - depth)).
+  const int luma_shift = 15 - (sizeof(P) == 1 ? 8 : depth);
+  if constexpr (sizeof(P) == 1) {
+    if (!(h & 1)) {
+      for (int r = 0; r < h; r++) {
+        const uint8_t* yr = y + (size_t)r * ys;
+        const uint8_t* ur = u + (size_t)(r >> 1) * cs;
+        const uint8_t* vr = v + (size_t)(r >> 1) * cs;
+        uint8_t* out = rgb + (size_t)r * w * 3;
+        for (int c = 0; c < w; c++)
+          simd_pixel(yr[c] * 8, (ur[c >> 1] - 128) * 8, (vr[c >> 1] - 128) * 8, k, out + 3 * c);
+      }
+      return;
     }
-    return;
   }
   const int cw = (w + 1) / 2, ch = (h + 1) / 2;
   const bool full_chroma = w & 1;  // swscale forces it for odd widths
@@ -281,13 +297,13 @@ inline void to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v,
                                    128, 128, 2);
   std::vector<int32_t> uh((size_t)ch * dst_cw), vh((size_t)ch * dst_cw);
   for (int r = 0; r < ch; r++) {
-    hscale(u + (size_t)r * cs, cw, hf, dst_cw, &uh[(size_t)r * dst_cw]);
-    hscale(v + (size_t)r * cs, cw, hf, dst_cw, &vh[(size_t)r * dst_cw]);
+    hscale(u + (size_t)r * cs, cw, hf, dst_cw, depth, &uh[(size_t)r * dst_cw]);
+    hscale(v + (size_t)r * cs, cw, hf, dst_cw, depth, &vh[(size_t)r * dst_cw]);
   }
   const Tables tables(k);
   std::vector<int64_t> us(dst_cw), vs(dst_cw);
   for (int r = 0; r < h; r++) {
-    const uint8_t* yr = y + (size_t)r * ys;
+    const P* yr = y + (size_t)r * ys;
     uint8_t* out = rgb + (size_t)r * w * 3;
     const int* taps = &vf.taps[(size_t)r * vf.size];
     auto src_row = [&](int j) { return std::min(vf.pos[r] + j, ch - 1); };
@@ -300,7 +316,7 @@ inline void to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v,
         }
         U >>= 10;
         V >>= 10;
-        int64_t Y = ((int64_t)yr[c] << 9) - k.y_offset9;
+        int64_t Y = ((int64_t)yr[c] << (luma_shift + 2)) - k.y_offset9;
         Y = Y * k.y_coeff + (1 << 21);
         int64_t R = Y + V * k.v2r, G = Y + V * k.v2g + U * k.u2g, B = Y + U * k.u2b;
         auto clip30 = [](int64_t x) { return x < 0 ? 0 : x > (1 << 30) - 1 ? (1 << 30) - 1 : x; };
@@ -316,7 +332,7 @@ inline void to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v,
           sv += mulhi(vh[(size_t)src_row(j) * cw + c], taps[j]);
         }
         for (int p = 2 * c; p < std::min(2 * c + 2, w); p++)
-          simd_pixel(yr[p] * 8 + 4, su - 1024, sv - 1024, k, out + 3 * p);
+          simd_pixel(((yr[p] << luma_shift) >> 4) + 4, su - 1024, sv - 1024, k, out + 3 * p);
       }
     } else {  // the last two rows: C yuv2rgb_X and its tables
       for (int c = 0; c < cw; c++) {
@@ -326,7 +342,8 @@ inline void to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v,
           V += (int64_t)vh[(size_t)src_row(j) * cw + c] * taps[j];
         }
         int Ui = (int)clip_u8(U >> 19), Vi = (int)clip_u8(V >> 19);
-        for (int p = 2 * c; p < std::min(2 * c + 2, w); p++) tables.pixel(yr[p], Ui, Vi, out + 3 * p);
+        for (int p = 2 * c; p < std::min(2 * c + 2, w); p++)
+          tables.pixel(clip_u8(((yr[p] << luma_shift) + 64) >> 7), Ui, Vi, out + 3 * p);
       }
     }
   }

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional, Tuple
 
 from metrabs_tpu_torch.data.native_video import EntryPoint, NativeDecoder, bind
 from metrabs_tpu_torch.ops import cuda_build
@@ -46,6 +47,8 @@ def _library() -> ctypes.CDLL:
             bind(lib, 'metrabs_h264_')
             lib.metrabs_h264_decoder_recovering.argtypes = [ctypes.c_void_p]
             lib.metrabs_h264_decoder_recovering.restype = None
+            lib.metrabs_h264_decoder_colour.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            lib.metrabs_h264_decoder_colour.restype = None
             ip = ctypes.POINTER(ctypes.c_int)
             lib.metrabs_h264_packet_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                                      ctypes.c_int, ip, ip, ip]
@@ -81,17 +84,21 @@ class Decoder(NativeDecoder):
     (`native_video.NativeDecoder`). `recovering`: decoding starts at a
     recovery point, whose references before it are taken as grey (its frames
     are exact from the recovery point's count on). Pictures wait while
-    reordering may still put a later one before them."""
+    reordering may still put a later one before them. `colour`: the
+    container's (matrix_coefficients, full range), which RGB follows where
+    the VUI does not send them, as FFmpeg's decoder does."""
 
     PREFIX, CODEC = 'metrabs_h264_', 'H.264'
     SCOPE = 'progressive 8-bit 4:2:0 I, P and B slices only'
     frames_decoded = 0
 
     def __init__(self, config: bytes = b'', name: str = '<h264>', recovering: bool = False,
-                 headers_only: bool = False):
+                 headers_only: bool = False, colour: Optional[Tuple[int, int]] = None):
         super().__init__(_library(), config, name, headers_only)
         if recovering:
             self._call('decoder_recovering', self._ptr)
+        if colour is not None:
+            self._call('decoder_colour', self._ptr, *colour)
 
 
 def annexb(packet: bytes, config: bytes) -> bytes:

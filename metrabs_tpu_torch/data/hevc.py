@@ -2,26 +2,31 @@
 
 `Decoder` turns the packets of one stream (access units, length-prefixed
 as MP4 and Matroska hold them, or Annex B as AVI holds them) into frames.
-Its Y, U and V planes equal FFmpeg's (`cv2.VideoCapture(path,
-cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])` gives the luma plane) bit
-for bit, as the standard's decoding process is exact, and its RGB equals
-`cv2.VideoCapture`'s BGR frames, converted as swscale converts them for the
-stream's VUI (matrix_coeffs and video_full_range_flag; `csrc/yuv_rgb.h`,
-shared with `data.h264`).
+Its Y, U and V planes equal FFmpeg's bit for bit, as the standard's
+decoding process is exact (at 8 bits `cv2.VideoCapture(path,
+cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])` gives the luma plane; at 10
+bits cv2 gives no plane, and libde265's and the stream's hash SEIs are the
+oracles), and its RGB equals `cv2.VideoCapture`'s BGR frames, converted as
+swscale converts them for the stream's VUI (matrix_coeffs and
+video_full_range_flag; `csrc/yuv_rgb.h`, shared with `data.h264`).
 
-Ported: progressive 8-bit 4:2:0 Main-profile streams of I, P and B slices
+Ported: progressive 4:2:0 Main and Main 10 streams (8-bit samples, and 9 or
+10 bits in uint16 planes; luma and chroma of one depth) of I, P and B slices
 (the tools are listed in `csrc/hevc_decode.cpp`: bi-prediction with the
 default and explicit weights, combined bi-predictive merge candidates and
 the temporal candidates of either list among them), with the
 decoded-picture hash SEI checked on every picture that carries one
 (`Decoder.hashes`). Frames come out in FFmpeg's output order (picture order
 counts, delayed by sps_max_num_reorder_pics); the RASL pictures of a CRA
-picture that starts decoding are skipped, as FFmpeg skips them. A stream
-that uses a tool beyond them raises UnsupportedVideo naming it: bit depths
-above 8, 4:0:0, 4:2:2 and 4:4:4, separate colour planes, field coding,
-tiles, dependent slice segments, PCM coding units, long-term reference
-pictures, mvd_l1_zero_flag (x265 never sets it), and the range, multilayer,
-3D and screen content extensions.
+picture that starts decoding are skipped, as FFmpeg skips them. NAL units
+of the unspecified types 48 to 63 (a Dolby Vision stream's RPU, 62, and
+enhancement layer, 63) are skipped, as FFmpeg's decoder skips them for cv2.
+A stream that uses a tool beyond them raises UnsupportedVideo naming it: bit
+depths above 10, unequal luma and chroma bit depths, 4:0:0, 4:2:2 and
+4:4:4, separate colour planes, field coding, tiles, dependent slice
+segments, PCM coding units, long-term reference pictures, mvd_l1_zero_flag
+(x265 never sets it), and the range, multilayer, 3D and screen content
+extensions.
 
 The library is built with the host C++ compiler at first use
 (`ops/cuda_build.py::build_host_library`) and called through `ctypes`, which
@@ -96,7 +101,7 @@ class Decoder(NativeDecoder):
     every picture that carries one (`hashes`)."""
 
     PREFIX, CODEC = 'metrabs_hevc_', 'HEVC'
-    SCOPE = 'progressive 8-bit 4:2:0 I, P and B slices only'
+    SCOPE = 'progressive 8- and 10-bit 4:2:0 I, P and B slices only'
     frames_decoded = 0
 
     def __init__(self, config: bytes = b'', name: str = '<hevc>', headers_only: bool = False):

@@ -191,9 +191,10 @@ def imwrite(path: str, image: np.ndarray) -> None:
 
 def video_extents(filepath: str) -> np.ndarray:
     """Video (width, height) from the container's header, without decoding
-    frames (AVI, Matroska and MP4)."""
-    idx = video.index(str(filepath))
-    return np.asarray([idx.width, idx.height])
+    frames (AVI, Matroska and MP4), as displayed: swapped where the display
+    matrix or projection turns the frames by 90 or 270 degrees, as cv2's
+    CAP_PROP_FRAME_WIDTH and HEIGHT swap them."""
+    return np.asarray(video.index(str(filepath)).displayed_size)
 
 
 def video_fps(filepath: str) -> float:
@@ -211,8 +212,9 @@ def num_frames_of_video(path: str) -> int:
 
 def transform_video(inp_path: str, out_path: str, process_frame_fn,
                     fourcc: str = 'mp4v') -> None:
-    """Reads a video (Motion JPEG, mp4v or H.264, B-frame streams in their
-    output order), maps `process_frame_fn` over its RGB frames and writes the results at the source's frame rate,
+    """Reads a video (Motion JPEG, mp4v, H.264 or HEVC, B-frame streams in
+    their output order, turned as displayed), maps `process_frame_fn` over
+    its RGB frames and writes the results at the source's frame rate,
     in the container the output's extension names (`.mp4`, `.avi` or
     `.mkv`), as mp4v (JAX's default) or MJPG. The frame function must keep
     the frame size. Another codec raises NotImplementedError naming it."""

@@ -2,7 +2,9 @@
 the index of a file's first video track, and a muxer for one mp4v track.
 
 Reading walks the boxes `ftyp`, `moov` (before or after `mdat`) / `mvhd` /
-`trak` / `tkhd`, `mdia` / `mdhd` / `hdlr` and `minf` / `stbl`, whose sample
+`trak` / `tkhd` (the display matrices: a phone's portrait clip is stored
+landscape and turned by them, which cv2 applies), `mdia` / `mdhd` / `hdlr`
+and `minf` / `stbl` of the first video track (`vide`), whose sample
 table gives each packet: `stsd` (the sample entry's FourCC and size; for
 `mp4v` the `esds` DecoderSpecificInfo: the VOS and VOL; for `avc1` and
 `avc3` the `avcC`; for `hvc1` and `hev1` the `hvcC`), `stts` (durations:
@@ -120,9 +122,12 @@ def decoder_specific_info(esds: bytes) -> Tuple[int, bytes]:
 
 def read_index(path: str, f: BinaryIO, file_size: int) -> Dict:
     """The first video track of an MP4/QuickTime file: codec (the sample
-    entry's FourCC), width, height, fps, the byte offset and size of each
-    packet, the key-frame mask, the decoder configuration and (H.264) each
-    packet's presentation time in the track's timescale."""
+    entry's FourCC), width, height (as stored), fps, the byte offset and
+    size of each packet, the key-frame mask, the decoder configuration,
+    (H.264, HEVC) each packet's presentation time in the track's timescale,
+    the rotation cv2 applies to its frames (`display_rotation` of the
+    track header's matrix after the movie header's) and the sample entry's
+    colour (`colr`: (matrix_coefficients, full range) or None)."""
     moov = None
     for kind, at, size in _top_level(f, file_size):
         if kind == b'moov':
@@ -140,8 +145,48 @@ def read_index(path: str, f: BinaryIO, file_size: int) -> Dict:
         mvhd = _find(moov, 0, len(moov), (b'mvhd',))
         version = moov[mvhd[0]]
         movie_scale = struct.unpack('>I', moov[mvhd[0] + (20 if version == 1 else 12):][:4])[0]
-        return _read_track(path, moov, a, b, movie_scale)
+        out = _read_track(path, moov, a, b, movie_scale)
+        tkhd = _find(moov, a, b, (b'tkhd',))
+        if tkhd is not None:
+            # The matrices follow 32 (36 in version 1) and 24 (36) bytes of
+            # times, ids, rate and volume.
+            movie = _matrix(moov, mvhd[0] + (48 if version == 1 else 36))
+            track = _matrix(moov, tkhd[0] + (52 if moov[tkhd[0]] == 1 else 40))
+            out['rotation'] = display_rotation(_times(track, movie))
+        return out
     raise ValueError(f'{path}: no video track')
+
+
+def _matrix(data: bytes, at: int) -> np.ndarray:
+    """A 3x3 transformation matrix of a movie or track header: a, b and c, d
+    in 16.16 fixed point, u, v, w in 2.30, row by row as stored."""
+    return np.asarray(struct.unpack('>9i', data[at:at + 36]), np.int64).reshape(3, 3)
+
+
+def _times(track: np.ndarray, movie: np.ndarray) -> np.ndarray:
+    """The track's matrix applied after the movie's, in FFmpeg's mov demuxer's
+    fixed point: each product shifted by its row's point (16, 16, 30) of the
+    track's matrix, the sums kept in 32 bits."""
+    out = np.zeros((3, 3), np.int64)
+    for e, shift in enumerate((16, 16, 30)):
+        out += (track[:, e:e + 1] * movie[e:e + 1, :]) >> shift
+    return ((out + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def display_rotation(matrix) -> int:
+    """The clockwise rotation cv2.VideoCapture applies to the frames of a
+    stream with this display matrix (3x3, a and b at [0, 0] and [0, 1], c
+    and d at [1, 0] and [1, 1], in 16.16): its CAP_PROP_ORIENTATION_META,
+    the angle of FFmpeg's av_display_rotation_get rounded to even and taken
+    modulo 360, when that is 90, 180 or 270, else 0 (cv2 leaves other
+    angles as they are). A mirror so counts only through its angle: (-1, 0,
+    0, 1) turns by 180 degrees, (1, 0, 0, -1) not at all."""
+    m = np.asarray(matrix, np.float64).reshape(3, 3) / 65536.0
+    scale = np.hypot(m[0, 0], m[1, 0]), np.hypot(m[0, 1], m[1, 1])
+    if scale[0] == 0 or scale[1] == 0:
+        return 0
+    angle = int(np.rint(np.degrees(np.arctan2(m[0, 1] / scale[1], m[0, 0] / scale[0])))) % 360
+    return angle if angle in (90, 180, 270) else 0
 
 
 def _read_track(path: str, moov: bytes, a: int, b: int, movie_scale: int) -> Dict:
@@ -163,16 +208,20 @@ def _read_track(path: str, moov: bytes, a: int, b: int, movie_scale: int) -> Dic
     codec = stsd[entry[1] - 4:entry[1]].decode('latin1')
     width, height = struct.unpack('>HH', stsd[entry[1] + 24:entry[1] + 28])
     config = b''
-    if codec == 'mp4v':
-        for kind, x, y in _boxes(stsd, entry[1] + 78, entry[2]):
-            if kind == b'esds':
-                object_type, config = decoder_specific_info(stsd[x:y])
-                if object_type != MPEG4_VISUAL:
-                    codec = f'mp4v (objectTypeIndication {object_type:#x})'
-    elif codec in _CONFIG_BOX:
-        for kind, x, y in _boxes(stsd, entry[1] + 78, entry[2]):
-            if kind == _CONFIG_BOX[codec]:
-                config = stsd[x:y]
+    colour = None
+    for kind, x, y in _boxes(stsd, entry[1] + 78, entry[2]):
+        if kind == b'esds' and codec == 'mp4v':
+            object_type, config = decoder_specific_info(stsd[x:y])
+            if object_type != MPEG4_VISUAL:
+                codec = f'mp4v (objectTypeIndication {object_type:#x})'
+        elif codec in _CONFIG_BOX and kind == _CONFIG_BOX[codec]:
+            config = stsd[x:y]
+        elif kind == b'colr' and colour is None and stsd[x:x + 4] in (b'nclx', b'nclc'):
+            # colour_primaries, transfer_characteristics, matrix_coefficients
+            # and (nclx) full_range_flag; QuickTime's nclc has no range.
+            matrix = struct.unpack('>H', stsd[x + 8:x + 10])[0]
+            full = stsd[x + 10] >> 7 if stsd[x:x + 4] == b'nclx' and y > x + 10 else 0
+            colour = (matrix, full)
     sizes = _sample_sizes(payload(b'stsz'))
     offsets = _sample_offsets(path, payload(b'stsc'), payload(b'stco'), payload(b'co64'), sizes)
     n = len(sizes)
@@ -190,7 +239,7 @@ def _read_track(path: str, moov: bytes, a: int, b: int, movie_scale: int) -> Dic
         sync = np.frombuffer(stss[8:8 + 4 * struct.unpack('>I', stss[4:8])[0]], '>u4')
         keyframes[sync[(sync >= 1) & (sync <= n)].astype(np.int64) - 1] = True
     out = dict(codec=codec, width=width, height=height, fps=fps, offsets=offsets,
-               sizes=sizes, keyframes=keyframes, config=config)
+               sizes=sizes, keyframes=keyframes, config=config, colour=colour)
     if codec in _CONFIG_BOX:
         dts = np.concatenate([[0], np.cumsum(np.repeat(deltas[:, 1].astype(np.int64),
                                                        deltas[:, 0].astype(np.int64)))])[:n]

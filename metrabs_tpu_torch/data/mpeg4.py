@@ -26,7 +26,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from fractions import Fraction
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -63,6 +63,8 @@ def _library() -> ctypes.CDLL:
             lib.metrabs_mp4v_vop_coded.restype = ctypes.c_int
             lib.metrabs_mp4v_decoder_config.argtypes = [vp, ctypes.c_char_p, sz, ip, ip,
                                                         ctypes.c_char_p, i]
+            lib.metrabs_mp4v_decoder_colour.argtypes = [vp, i, i]
+            lib.metrabs_mp4v_decoder_colour.restype = None
             lib.metrabs_mp4v_decode_rgb.argtypes = [vp, ctypes.c_char_p, sz, vp, vp,
                                                     ctypes.c_char_p, i]
             lib.metrabs_mp4v_encoder_new.restype = vp
@@ -116,12 +118,15 @@ class Decoder:
     AVI key frames do. `fourcc` is an AVI stream's FourCC, which FFmpeg
     reads where the stream carries no encoder stamp (XVID: Xvid's IDCT)."""
 
-    def __init__(self, config: bytes = b'', name: str = '<mp4v>', fourcc: str = ''):
+    def __init__(self, config: bytes = b'', name: str = '<mp4v>', fourcc: str = '',
+                 colour: Optional[Tuple[int, int]] = None):
         self._lib = _library()
         self._ptr = self._lib.metrabs_mp4v_decoder_new()
         self.name = name
         self.width = self.height = 0
         self._lib.metrabs_mp4v_decoder_fourcc(self._ptr, fourcc.encode('latin1'))
+        if colour is not None:  # the container's (matrix_coefficients, full range)
+            self._lib.metrabs_mp4v_decoder_colour(self._ptr, *colour)
         if config:
             self.configure(config)
 

@@ -6,7 +6,9 @@ the two C++ decoders share), and `NativeDecoder` drives it.
 A decoder takes the packets of one stream in decoding order and hands out
 frames in output order, as FFmpeg's decoder hands them to cv2: a packet
 outputs none, one or several, and `flush` outputs those still waiting at
-the end of the stream. Each call releases the GIL.
+the end of the stream. Each call releases the GIL. RGB frames are uint8 at
+every bit depth, as cv2's; the planes are uint8 at 8 bits and uint16 above
+(`<prefix>bit_depth` tells the next picture's).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def bind(lib: ctypes.CDLL, prefix: str) -> None:
                             ('decoder_config', [vp, cp, sz, cp, i], i),
                             ('decode', [vp, cp, sz, cp, i], i), ('flush', [vp, cp, i], i),
                             ('pictures', [vp], i), ('next', [vp, ip, ip, ip], i),
-                            ('frame', [vp, vp, vp, vp, vp, cp, i], i)):
+                            ('bit_depth', [vp], i), ('frame', [vp, vp, vp, vp, vp, cp, i], i)):
         f = getattr(lib, prefix + name)
         f.argtypes, f.restype = args, res
 
@@ -90,7 +92,8 @@ class NativeDecoder:
     def decode(self, packet: bytes, luma: bool = False, planes: bool = False) -> list:
         """The frames the packet outputs, in output order: each RGB uint8
         [H, W, 3]; with `luma` (RGB, Y [H, W]); with `planes` (RGB, (Y, U,
-        V)), the chroma planes [(H + 1) // 2, (W + 1) // 2]."""
+        V)), the chroma planes [(H + 1) // 2, (W + 1) // 2]; planes uint8 at
+        8 bits, uint16 above."""
         self._send(packet)
         return self._take(luma, planes)
 
@@ -136,10 +139,11 @@ class NativeDecoder:
         while self._call('next', self._ptr, ctypes.byref(w), ctypes.byref(h), ctypes.byref(index)):
             hh, ww = h.value, w.value
             rgb = np.empty((hh, ww, 3), np.uint8)
-            y = np.empty((hh, ww), np.uint8) if luma or planes else None
+            dtype = np.uint16 if self._call('bit_depth', self._ptr) > 8 else np.uint8
+            y = np.empty((hh, ww), dtype) if luma or planes else None
             u = v = None
             if planes:
-                u = np.empty(((hh + 1) // 2, (ww + 1) // 2), np.uint8)
+                u = np.empty(((hh + 1) // 2, (ww + 1) // 2), dtype)
                 v = np.empty_like(u)
             ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
             self._check(self._call('frame', self._ptr, rgb.ctypes.data, ptr(y), ptr(u), ptr(v),

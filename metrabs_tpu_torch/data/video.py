@@ -39,7 +39,8 @@ private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`,
 - HEVC (AVI FourCCs `HEVC`, `H265`, `HVC1`, `HEV1` in any case, Annex B;
   Matroska `V_MPEGH/ISO/HEVC` and MP4 `hvc1`/`hev1`, length-prefixed with
   the hvcC as the configuration): decoded by `data.hevc`, whose planes equal
-  FFmpeg's and whose RGB equals `cv2.VideoCapture`'s, I, P and B slices.
+  FFmpeg's and whose RGB equals `cv2.VideoCapture`'s, I, P and B slices, Main
+  and Main 10 (uint16 planes; RGB uint8, as cv2's).
   It is indexed as H.264 is, by one codec-neutral path: the output order
   from the slice headers, frame N as the N-th frame of that order (cv2's
   seek gives it on these files), presentation times checked against it,
@@ -49,6 +50,16 @@ private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`,
   first frame it outputs (an IDR_W_RADL picture's RADL pictures decode from
   it); a stream that starts at such a CRA picture raises (cv2 counts
   frames it never outputs).
+
+Frames come out as cv2 displays them: MP4's display matrices (the track
+header's after the movie header's, `mp4.display_rotation`) and a Matroska
+track's Projection roll turn them by 90, 180 or 270 degrees, as a phone's
+portrait clip stored landscape is turned; `VideoIndex` keeps the stored size
+for the decoders and reports the displayed one (`displayed_size`). An MP4
+sample entry's `colr` (matrix and range) sets the RGB conversion of mp4v
+and H.264 streams that do not send their own, as FFmpeg's decoders keep it.
+QuickTime files (`ftyp qt  `, sound tracks before the video track, `co64`)
+are read as MP4.
 
 Frame N of mp4v, H.264 and HEVC is decoded from such an entry point. Each file
 keeps a few decoders and its last few frames under a lock, so frames read
@@ -139,6 +150,14 @@ class VideoIndex:
     # Presentation time of each packet (MP4 H.264 and HEVC: decoding time plus ctts,
     # shifted by the elst; Matroska: the block timestamps); None for AVI.
     pts: Optional[np.ndarray] = None
+    # The clockwise turn (0, 90, 180 or 270 degrees) cv2 gives the frames:
+    # MP4's display matrices (`mp4.display_rotation`), a Matroska track's
+    # ProjectionPoseRoll. `width` and `height` stay the stored frames'.
+    rotation: int = 0
+    # An MP4 sample entry's colour (`colr`): (matrix_coefficients, full
+    # range), which FFmpeg's mp4v and H.264 decoders keep for cv2 where the
+    # stream does not send its own (its HEVC decoder does not); None without.
+    colour: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
         if self.keyframes is None:
@@ -160,6 +179,20 @@ class VideoIndex:
     def kind(self) -> Optional[str]:
         return codec_kind(self.codec)
 
+    @property
+    def displayed_size(self) -> Tuple[int, int]:
+        """(width, height) of the frames as read (cv2's CAP_PROP_FRAME_WIDTH
+        and HEIGHT): the stored ones, swapped by a turn of 90 or 270 degrees."""
+        if self.rotation in (90, 270):
+            return self.height, self.width
+        return self.width, self.height
+
+    def display(self, frame: np.ndarray) -> np.ndarray:
+        """A decoded frame turned as cv2 turns it (`rotation`)."""
+        if not self.rotation:
+            return frame
+        return np.ascontiguousarray(np.rot90(frame, -self.rotation // 90))
+
     def packet(self, i: int, f: Optional[BinaryIO] = None) -> bytes:
         if not 0 <= i < self.n_frames:
             raise IndexError(f'{self.path}: packet {i} of {self.n_frames}')
@@ -173,21 +206,21 @@ class VideoIndex:
         return data
 
     def frame(self, i: int, f: Optional[BinaryIO] = None) -> np.ndarray:
-        """RGB uint8 [H, W, 3] of frame i (mp4v, H.264, HEVC: through the
-        file's decoder state, from the entry point before i)."""
+        """RGB uint8 [H, W, 3] of frame i as displayed (mp4v, H.264, HEVC:
+        through the file's decoder state, from the entry point before i)."""
         if self.kind != 'mjpeg':
             return _stream(self).read(i)
-        return jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}')
+        return self.display(jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}'))
 
     def decoder(self, start: int = 0):
         """A decoder of this stream whose first packet is `start`."""
         if self.kind == 'h264':
             recovering = any(s == start and r for s, _, r in self.entries or [])
-            return h264.Decoder(self.config, self.path, recovering)
+            return h264.Decoder(self.config, self.path, recovering, colour=self.colour)
         if self.kind == 'hevc':
             return hevc.Decoder(self.config, self.path)
         return mpeg4.Decoder(self.config, self.path,
-                             self.codec if self.container == 'avi' else '')
+                             self.codec if self.container == 'avi' else '', self.colour)
 
     def entry_for(self, frame: int) -> Tuple[int, int]:
         """(first packet, first exact frame) of the latest entry point from
@@ -385,7 +418,8 @@ class _Cursor:
 
     def step(self, f: BinaryIO) -> list:
         """Decodes the next packet, or flushes the decoder before an entry
-        point's packet (H.264, HEVC) and past the last: the frames it outputs. The
+        point's packet (H.264, HEVC) and past the last: the frames it outputs,
+        turned as displayed (`VideoIndex.display`). The
         frames before an entry point so come out without decoding its
         packet, which a cursor started there may decode."""
         idx = self.idx
@@ -405,7 +439,7 @@ class _Cursor:
             else:
                 out = self.decoder.decode(packet)
         self.frame += len(out)
-        return out
+        return [idx.display(frame) for frame in out]
 
 
 class _Stream:
@@ -786,6 +820,11 @@ def _uint(data: bytes) -> int:
     return int.from_bytes(data, 'big')
 
 
+def _float(data: bytes) -> float:
+    """An EBML float: 0, 4 or 8 bytes, big-endian."""
+    return struct.unpack('>f' if len(data) == 4 else '>d', data)[0] if data else 0.0
+
+
 def _index_matroska(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
     doc = None
     segment = None
@@ -838,7 +877,27 @@ def _index_matroska(path: str, f: BinaryIO, file_size: int) -> VideoIndex:
                       offsets=np.asarray([b[0] for b in blocks], np.int64),
                       sizes=np.asarray([b[1] for b in blocks], np.int64),
                       keyframes=np.asarray([b[3] for b in blocks], bool), config=track['private'],
-                      pts=np.asarray([b[2] for b in blocks], np.int64))
+                      pts=np.asarray([b[2] for b in blocks], np.int64),
+                      rotation=_projection_rotation(track['projection']))
+
+
+def _projection_rotation(projection: Dict[int, float]) -> int:
+    """The turn cv2 gives a Matroska track with a Projection (its
+    ProjectionType and ProjectionPoseYaw, Pitch and Roll by element ID):
+    FFmpeg's matroska demuxer makes a display matrix of a rectangular
+    projection whose pitch is 0 and yaw 0 or 180 degrees (a mirror) from
+    its roll, counter-clockwise (av_display_rotation_set in 16.16, then
+    av_display_matrix_flip), and cv2 turns by that matrix."""
+    yaw, pitch, roll = (projection.get(k, 0.0) for k in (0x7673, 0x7674, 0x7675))
+    if projection.get(0x7671, 0) != 0 or (yaw == pitch == roll == 0) or pitch != 0 \
+            or yaw not in (0.0, 180.0, -180.0) or np.isnan(roll):
+        return 0
+    flip = -1 if yaw else 1
+    radians = roll * flip * np.pi / 180  # av_display_rotation_set(-roll * flip)
+    c, s = np.cos(radians), np.sin(radians)
+    fixed = lambda v: int(v * 65536)  # noqa: E731 (CONV_DP: truncated)
+    matrix = [[fixed(c) * flip, fixed(-s), 0], [fixed(s) * flip, fixed(c), 0], [0, 0, 1 << 30]]
+    return mp4.display_rotation(matrix)
 
 
 def _matroska_video_track(f, start: int, end: int):
@@ -846,7 +905,7 @@ def _matroska_video_track(f, start: int, end: int):
         if eid != 0xAE:  # TrackEntry
             continue
         fields = dict(number=None, kind=None, codec='', default_duration=0, width=0, height=0,
-                      private=b'')
+                      private=b'', projection={})
         for cid, cat, csize in _elements(f, at, at + size):
             f.seek(cat)
             data = f.read(csize)
@@ -867,6 +926,14 @@ def _matroska_video_track(f, start: int, end: int):
                         fields['width'] = _uint(f.read(vsize))
                     elif vid == 0xBA:
                         fields['height'] = _uint(f.read(vsize))
+                    elif vid == 0x7670:  # Projection: its type (uint) and pose (floats)
+                        for pid, pat, psize in _elements(f, vat, vat + vsize):
+                            f.seek(pat)
+                            data = f.read(psize)
+                            if pid == 0x7671:
+                                fields['projection'][pid] = _uint(data)
+                            elif pid in (0x7673, 0x7674, 0x7675):
+                                fields['projection'][pid] = _float(data)
             elif cid == 0x6D80:  # ContentEncodings: compressed or encrypted frames
                 raise UnsupportedVideo('Matroska content encodings are not ported')
         if fields['kind'] == 1:
@@ -949,7 +1016,7 @@ class _MatroskaMuxer:
     CLUSTER_MS = 1000
 
     def __init__(self, f: BinaryIO, width: int, height: int, fps: float,
-                 codec_id: bytes = b'V_MJPEG', private: bytes = b''):
+                 codec_id: bytes = b'V_MJPEG', private: bytes = b'', roll: float = 0.0):
         self.f, self.fps = f, fps
         self.n = 0
         self.clusters: List[Tuple[int, int]] = []  # (segment-relative offset, timestamp)
@@ -972,7 +1039,10 @@ class _MatroskaMuxer:
             _uint_element(0x9C, 0), _element(0x86, codec_id),
             *([_element(0x63A2, private)] if private else []),
             _uint_element(0x23E383, int(round(1e9 / fps))),
-            _element(0xE0, _uint_element(0xB0, width) + _uint_element(0xBA, height))]))))
+            _element(0xE0, _uint_element(0xB0, width) + _uint_element(0xBA, height)
+                     + (_element(0x7670, _uint_element(0x7671, 0)
+                                 + _element(0x7675, struct.pack('>d', roll))) if roll else b''))
+        ]))))
 
     @staticmethod
     def _seekhead(info: int, tracks: int, cues: int) -> bytes:

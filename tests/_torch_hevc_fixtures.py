@@ -38,8 +38,17 @@ and where libx265, libde265 and cv2 are missing, as on a GPU host,
   blocks with presentation timestamps, and a manifest of cv2's frames in
   output order, its seek for every N, x265's pts/dts and libde265's planes.
 
-    python tests/_torch_hevc_fixtures.py      # all
+- `tests/torch_fixtures/hevc10/`: Main 10 clips (`write_fixtures10`) through
+  x265's 10-bit API (`x265_api`): the medium preset at 96x66 and 320x568
+  with no B frames and with its B-frame defaults, in MP4, a phone's
+  QuickTime .mov, Matroska and AVI; a tool clip each (`TOOLS10`); and the
+  phone's clip `PHONE` (1920x1080 stored, turned by 90 degrees, HLG over
+  BT.2020, Dolby Vision RPUs). The manifest holds libde265's 16-bit planes
+  and cv2's RGB frames, metadata and seek.
+
+    python tests/_torch_hevc_fixtures.py      # 8-bit, I/P and B
     python tests/_torch_hevc_fixtures.py b    # the B-frame clips only
+    python tests/_torch_hevc_fixtures.py 10   # the Main 10 clips only
 """
 
 from __future__ import annotations
@@ -134,39 +143,56 @@ PIC_PTS, PIC_PLANES, PIC_STRIDE, PIC_DEPTH, PIC_CSP = 0, 24, 48, 60, 72
 X265_CSP = {'i400': 0, 'i420': 1, 'i422': 2, 'i444': 3}
 
 
-def x265_encode(frames, options: dict, fps: float, csp: str = 'i420', times=None):
+# The functions of x265's API struct (x265.h: struct x265_api, build 199)
+# by their byte offset. It has one layout at every bit depth; these offsets
+# were found by matching the 8-bit struct's pointers against the exported
+# symbols, which they equal.
+X265_API = {'param_alloc': 48, 'param_free': 56, 'param_parse': 72, 'param_default_preset': 88,
+            'picture_alloc': 96, 'picture_free': 104, 'picture_init': 112, 'encoder_open': 120,
+            'encoder_encode': 160, 'encoder_close': 184}
+
+
+def x265_api(depth: int) -> dict:
+    """libx265's functions for `depth`-bit samples (8, 10 or 12; the
+    library builds all three), from `x265_api_get_199(depth)`."""
+    lib = ctypes.CDLL('libx265.so.199')
+    vp, i, cp = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+    lib.x265_api_get_199.restype = vp
+    lib.x265_api_get_199.argtypes = [i]
+    api = lib.x265_api_get_199(depth)
+    assert api, f'libx265 has no {depth}-bit API'
+    assert np.frombuffer(ctypes.string_at(api, 32), np.int32)[7] == depth  # x265_api.bit_depth
+    pointers = np.frombuffer(ctypes.string_at(api, 192), np.uint64)
+    types = {'param_alloc': (vp,), 'param_free': (None, vp), 'param_parse': (i, vp, cp, cp),
+             'param_default_preset': (i, vp, cp, cp), 'picture_alloc': (vp,),
+             'picture_free': (None, vp), 'picture_init': (None, vp, vp), 'encoder_open': (vp, vp),
+             'encoder_encode': (i, vp, vp, vp, vp, vp), 'encoder_close': (None, vp)}
+    return {name: ctypes.CFUNCTYPE(*types[name])(int(pointers[at // 8]))
+            for name, at in X265_API.items()}
+
+
+def x265_encode(frames, options: dict, fps: float, csp: str = 'i420', times=None, depth: int = 8):
     """Annex B packets (one access unit per frame, in decoding order; the
     VPS, SPS and PPS before each IRAP picture) and their key flags (an IRAP
-    picture), 8-bit samples in the chroma format `csp` (x264's input
-    layout: cv2's I420, the chroma repeated for 4:2:2 and 4:4:4). `times`,
-    if given, receives each packet's (pts, dts) in frames."""
-    lib = ctypes.CDLL('libx265.so.199')
-    vp = ctypes.c_void_p
-    lib.x265_param_alloc.restype = vp
-    lib.x265_param_free.argtypes = [vp]
-    lib.x265_param_default_preset.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
-    lib.x265_param_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
-    lib.x265_encoder_open_199.argtypes = [vp]
-    lib.x265_encoder_open_199.restype = vp
-    lib.x265_encoder_encode.argtypes = [vp, vp, vp, vp, vp]
-    lib.x265_encoder_close.argtypes = [vp]
-    lib.x265_picture_alloc.restype = vp
-    lib.x265_picture_free.argtypes = [vp]
-    lib.x265_picture_init.argtypes = [vp, vp]
+    picture), samples of `depth` bits (8, 10 or 12: 8-bit ones shifted up)
+    in the chroma format `csp` (x264's input layout: cv2's I420, the chroma
+    repeated for 4:2:2 and 4:4:4), through x265's API of that depth.
+    `times`, if given, receives each packet's (pts, dts) in frames."""
+    x = x265_api(depth)
     h, w = frames[0].shape[:2]
-    param = lib.x265_param_alloc()
-    assert lib.x265_param_default_preset(param, b'medium', None) == 0
+    param = x['param_alloc']()
+    assert x['param_default_preset'](param, b'medium', None) == 0
     num, den = (fps, 1) if float(fps).is_integer() else (30000, 1001)
     opts = dict(BASE, **options)
     opts.update({'fps': f'{int(num)}/{int(den)}', 'input-res': f'{w}x{h}',
                  'input-csp': csp})
     for key, value in opts.items():
-        assert lib.x265_param_parse(param, key.encode(), str(value).encode()) == 0, (key, value)
-    enc = lib.x265_encoder_open_199(param)
+        assert x['param_parse'](param, key.encode(), str(value).encode()) == 0, (key, value)
+    enc = x['encoder_open'](param)
     assert enc, opts
-    pic, out = lib.x265_picture_alloc(), lib.x265_picture_alloc()
-    lib.x265_picture_init(param, pic)
-    lib.x265_picture_init(param, out)
+    pic, out = x['picture_alloc'](), x['picture_alloc']()
+    x['picture_init'](param, pic)
+    x['picture_init'](param, out)
     nals, n_nal = ctypes.POINTER(_Nal)(), ctypes.c_uint32()
     packets, keys = [], []
 
@@ -182,25 +208,25 @@ def x265_encode(frames, options: dict, fps: float, csp: str = 'i420', times=None
             times.append(tuple(int(t) for t in np.frombuffer(ctypes.string_at(out, 16), np.int64)))
 
     for k, frame in enumerate(frames):
-        planes = _input_planes(frame, csp, 8)
+        planes = _input_planes(frame, csp, depth)
         n = len(planes)
         ctypes.memmove(pic + PIC_PLANES, np.array([p.ctypes.data for p in planes] + [0] * (3 - n),
                                                   np.uint64).tobytes(), 24)
         ctypes.memmove(pic + PIC_STRIDE, np.array([p.strides[0] for p in planes] + [0] * (3 - n),
                                                   np.int32).tobytes(), 12)
-        ctypes.memmove(pic + PIC_DEPTH, np.array([8], np.int32).tobytes(), 4)
+        ctypes.memmove(pic + PIC_DEPTH, np.array([depth], np.int32).tobytes(), 4)
         ctypes.memmove(pic + PIC_CSP, np.array([X265_CSP[csp]], np.int32).tobytes(), 4)
         ctypes.memmove(pic + PIC_PTS, np.array([k], np.int64).tobytes(), 8)
-        collect(lib.x265_encoder_encode(enc, ctypes.byref(nals), ctypes.byref(n_nal), pic, out))
+        collect(x['encoder_encode'](enc, ctypes.byref(nals), ctypes.byref(n_nal), pic, out))
     while True:
-        size = lib.x265_encoder_encode(enc, ctypes.byref(nals), ctypes.byref(n_nal), None, out)
+        size = x['encoder_encode'](enc, ctypes.byref(nals), ctypes.byref(n_nal), None, out)
         if size <= 0:
             break
         collect(size)
-    lib.x265_encoder_close(enc)
-    lib.x265_picture_free(pic)
-    lib.x265_picture_free(out)
-    lib.x265_param_free(param)
+    x['encoder_close'](enc)
+    x['picture_free'](pic)
+    x['picture_free'](out)
+    x['param_free'](param)
     return packets, keys
 
 
@@ -209,7 +235,7 @@ def x265_encode(frames, options: dict, fps: float, csp: str = 'i420', times=None
 
 def de265_decode(packets):
     """libde265's (Y, U, V) of each picture of Annex B packets, in output
-    order."""
+    order: uint8 planes at 8 bits, uint16 above."""
     lib = ctypes.CDLL('libde265.so.0')
     vp = ctypes.c_void_p
     lib.de265_new_decoder.restype = vp
@@ -223,6 +249,7 @@ def de265_decode(packets):
     lib.de265_get_image_plane.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.de265_get_image_width.argtypes = [vp, ctypes.c_int]
     lib.de265_get_image_height.argtypes = [vp, ctypes.c_int]
+    lib.de265_get_bits_per_pixel.argtypes = [vp, ctypes.c_int]
     ctx = lib.de265_new_decoder()
     out = []
 
@@ -236,8 +263,9 @@ def de265_decode(packets):
                 stride = ctypes.c_int()
                 ptr = lib.de265_get_image_plane(img, c, ctypes.byref(stride))
                 w, h = lib.de265_get_image_width(img, c), lib.de265_get_image_height(img, c)
-                a = np.ctypeslib.as_array(ptr, (h, stride.value))[:, :w].copy()
-                planes.append(a)
+                wide = lib.de265_get_bits_per_pixel(img, c) > 8  # 16-bit little-endian samples
+                a = np.ctypeslib.as_array(ptr, (h, stride.value))[:, :w * (1 + wide)].copy()
+                planes.append(a.view('<u2') if wide else a)
             out.append(tuple(planes))
 
     for k, packet in enumerate(packets):
@@ -778,8 +806,199 @@ def write_b_fixtures() -> None:
     (HEVC_B_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
 
 
+# --------------------------------------------------------------------------
+# Main 10 clips
+
+HEVC10_DIR = ROOT / 'tests' / 'torch_fixtures' / 'hevc10'
+CONTAINERS10 = ('.mp4', '.mov', '.mkv', '.avi')
+# (stem, fps, (width, height), x265 options beyond BASE, containers)
+SIZES10 = [
+    ('hevc10_96x66', 10.0, (96, 66), {}, CONTAINERS10),
+    ('hevc10_320x568', 30000 / 1001, (320, 568), {}, CONTAINERS10),
+    ('hevc10b_96x66', 10.0, (96, 66), B_BASE, CONTAINERS10),
+    ('hevc10b_320x568', 30000 / 1001, (320, 568), B_BASE, CONTAINERS10),
+]
+TOOLS10 = {
+    'no_sao': {'sao': 0},
+    'crf8': {'crf': 8},  # large levels and SAO offsets (up to 31 at 10 bits)
+    'weightp': {'weightp': 1},  # on a fade
+    'weightb': dict(B_BASE, weightb=1),  # on a fade
+    'strong_intra0': {'strong-intra-smoothing': 0},
+    'tskip': {'tskip': 1},
+    'signhide0': {'signhide': 0},
+    'amp_rect': {'amp': 1, 'rect': 1},
+    'no_wpp': {'wpp': 0, 'ctu': 32},
+    'lossless': {'lossless': 1},
+    'qg8_chroma_offsets': {'qg-size': 8, 'cbqpoffs': 3, 'crqpoffs': -2},
+    'bt2020': {'colormatrix': 'bt2020nc'},
+    # An iPhone's HDR signalling: cv2's FFmpeg maps BT.2020 primaries and
+    # the HLG transfer to its RGB's, which the port does not (F11).
+    'bt2020_hlg': {'colorprim': 'bt2020', 'transfer': 'arib-std-b67', 'colormatrix': 'bt2020nc'},
+    'fullrange_bt709': {'range': 'full', 'colormatrix': 'bt709'},
+    'dovi_rpu': {},  # NAL units of type 62 (Dolby Vision RPUs) after each picture
+    'hash1': {'hash': 1},
+    'hash2': {'hash': 2},
+    'hash3': {'hash': 3},
+}
+FADE_TOOLS10 = ('weightp', 'weightb')
+# Uncropped, so that the MD5 SEIs can judge libde265's planes (its weighted
+# B pictures go wrong where the hash shows the port's right).
+TOOL10_SIZES = {'weightb': (96, 64)}
+# The phone's clip: a portrait video as an iPhone stores it (landscape
+# 1920x1080 frames turned by 90 degrees in the track header) in QuickTime's
+# layout (its colr naming BT.2020 and HLG), Main 10 over the BT.2020 matrix
+# with x265's B-frame defaults, and a Dolby Vision RPU after each picture.
+# Its VUI names no primaries and no transfer: an iPhone's names BT.2020 and
+# HLG, which cv2 maps to other colours (F11, `bt2020_hlg`).
+PHONE = 'hevc10_phone_1920x1080.mov'
+PHONE_FRAMES = 24
+PHONE_OPTIONS = dict(B_BASE, hash=1, **TOOLS10['bt2020'])
+CASES10 = ([(stem + ext, fps, size, opts) for stem, fps, size, opts, exts in SIZES10
+            for ext in exts]
+           + [(f'hevc10_tool_{t}.mp4', 25.0, TOOL10_SIZES.get(t, TOOL_SIZE), o)
+              for t, o in TOOLS10.items()]
+           + [(PHONE, 30.0, (1920, 1080), PHONE_OPTIONS)])
+# A Dolby Vision RPU's NAL unit: type 62, layer 0, temporal id 0, and a
+# payload that parses as none (FFmpeg warns and ignores it; no emulation
+# prevention needed).
+DOVI_RPU = bytes([62 << 1, 1, 0x19, 0x08, 0x09, 0x15, 0x40, 0x80])
+
+
+def with_rpus(packets):
+    """Annex B packets with a Dolby Vision RPU NAL unit last in each, as
+    an iPhone's HDR stream carries them."""
+    return [p + b'\x00\x00\x00\x01' + DOVI_RPU for p in packets]
+
+
+def phone_frames(n: int):
+    """The portrait fixture's frames (shifted), stored turned 90 degrees
+    counter-clockwise: what cv2 turns back by the clip's matrix."""
+    return [np.ascontiguousarray(np.rot90(f, 1)) for f in shifted_frames(n)]
+
+
+def cv2_entry10(path: Path, written: dict) -> dict:
+    """cv2's frames (RGB SHA-256), metadata (with the orientation), packets
+    and key flags of a clip; its seek for every N. cv2 gives no plane of a
+    10-bit stream (CAP_PROP_CONVERT_RGB 0 returns the rows' first bytes)."""
+    import cv2
+    from _torch_h264_fixtures import cv2_packets_and_keys
+    cap = cv2.VideoCapture(str(path))
+    rgb = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        rgb.append(sha256(frame[..., ::-1]))
+    meta = dict(frame_count=cap.get(cv2.CAP_PROP_FRAME_COUNT), fps=cap.get(cv2.CAP_PROP_FPS),
+                width=int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                height=int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                orientation=cap.get(cv2.CAP_PROP_ORIENTATION_META), frames_read=len(rgb))
+    cap.release()
+    packets, keys = cv2_packets_and_keys(str(path))
+    import hashlib
+    return dict(written=written, cv2=meta, rgb_sha256=rgb, packet_sha256=[sha256(p) for p in packets],
+                key_frames=keys, seek=cv2_seeks(path, rgb),
+                file_sha256=hashlib.sha256(path.read_bytes()).hexdigest())
+
+
+def write_fixtures10() -> None:
+    """The Main 10 clips of `tests/torch_fixtures/hevc10/` and their manifest:
+    libde265's 16-bit planes (the plane oracle: cv2 gives none at 10 bits),
+    cv2's RGB frames, metadata and seek, x265's options. The .mov files have
+    a phone's QuickTime layout (`_torch_orientation_fixtures.quicktime`),
+    the phone's clip its matrix too."""
+    from _torch_orientation_fixtures import (MATRICES, fixed_matrix, quicktime, rewrite_mp4,
+                                             set_matrix)
+    HEVC10_DIR.mkdir(parents=True, exist_ok=True)
+    manifest, encoded = {}, {}
+    for name, fps, size, options in CASES10:
+        stem, ext = name.rsplit('.', 1)
+        tool = stem[len('hevc10_tool_'):] if stem.startswith('hevc10_tool_') else ''
+        opts = dict(options)
+        if (ext in ('mp4', 'mov', 'mkv') and not tool and '320x568' not in stem) or \
+                opts.get('bframes'):
+            # MD5 SEIs for the card to check, and on the B pictures where
+            # libde265 goes wrong the oracle of the planes
+            opts.setdefault('hash', 1)
+        n = PHONE_FRAMES if name == PHONE else FRAMES
+        key = (stem, fps, size, tuple(sorted(opts.items())))
+        if key not in encoded:
+            if name == PHONE:
+                frames = phone_frames(n)
+            else:
+                frames = shifted_frames(n, size)
+                if tool in FADE_TOOLS10:
+                    frames = [np.ascontiguousarray((f * (1 - 0.06 * k)).astype(np.uint8))
+                              for k, f in enumerate(frames)]
+            times = []
+            packets, keys = x265_encode(frames, opts, fps, times=times, depth=10)
+            if tool == 'dovi_rpu' or name == PHONE:
+                packets = with_rpus(packets)
+            reordered = opts.get('bframes', 0) > 0
+            encoded[key] = (packets, keys, times if reordered else None, de265_decode(packets),
+                            frames[0].shape[1::-1])
+        packets, keys, times, planes, wh = encoded[key]
+        path = HEVC10_DIR / name
+        if ext == 'mov':
+            mp4_path = path.with_name(stem + '_mov.mp4')
+            write_container(mp4_path, packets, keys, wh, fps, 'hevc', times=times)
+            mp4_path.rename(path)
+            colour = (9, 18, 9, 0) if name == PHONE else (1, 1, 1, 0)
+
+            def edit(moov, phone=name == PHONE, colour=colour):
+                if phone:
+                    set_matrix(moov, b'tkhd', fixed_matrix(*MATRICES['rot90'][0]))
+                quicktime(moov, colour)
+            rewrite_mp4(path, edit, brand=b'qt  ')
+        else:
+            write_container(path, packets, keys, wh, fps, 'hevc', times=times)
+        fields = stream_fields(packets)
+        slices = fields['slices']
+        entry = cv2_entry10(path, dict(frames=n, fps=fps, width=wh[0], height=wh[1], x265=opts,
+                                       key_frames=keys, times=times,
+                                       nal_types=[p[0]['nal_type'] for p in slices],
+                                       slice_types=[[sl['type'] for sl in p] for p in slices],
+                                       hash_type=fields['hash_type'],
+                                       bit_depth=fields['sps']['bit_depth']))
+        entry['de265_sha256'] = [[sha256(p) for p in yuv] for yuv in planes]
+        entry['sei_md5'], entry['de265_verified'] = md5_seis(packets, times, planes, fields['sps'])
+        manifest[name] = entry
+        print(name, path.stat().st_size, entry['cv2'], entry['de265_verified'].count(False))
+    (HEVC10_DIR / 'manifest.json').write_text(json.dumps(manifest, indent=1) + '\n')
+
+
+def md5_seis(packets, times, planes, sps):
+    """Per output picture: the MD5s of its decoded-picture hash SEI (None
+    without one), and whether libde265's planes equal them (None where the
+    conformance window crops the picture, which the hash covers whole).
+    libde265 goes wrong on a few B pictures; there the hash is the oracle."""
+    import hashlib
+    sums = []
+    for p in packets:
+        found = None
+        for n in split_annexb(p):
+            if nal_type(n) == 40 and n[2] == 132 and n[4] == 0:
+                r = rbsp(n)
+                found = [r[3 + 16 * c:19 + 16 * c].hex() for c in range(3)]
+        sums.append(found)
+    order = np.argsort([t[0] for t in times], kind='stable') if times else range(len(packets))
+    cropped = 'conformance_window' in sps
+    md5s, verified = [], []
+    for j, yuv in zip(order, planes):
+        md5s.append(sums[j])
+        if sums[j] is None or cropped:
+            verified.append(None)
+        else:
+            verified.append([hashlib.md5(a.astype('<u2').tobytes()).hexdigest() for a in yuv] == sums[j])
+    return md5s, verified
+
+
 if __name__ == '__main__':
     import sys
-    if sys.argv[1:] != ['b']:  # `b`: the B-frame clips only
-        write_fixtures()
-    write_b_fixtures()
+    which = sys.argv[1:]  # `b`: the B-frame clips only; `10`: the Main 10 clips only
+    if which == ['10']:
+        write_fixtures10()
+    else:
+        if which != ['b']:
+            write_fixtures()
+        write_b_fixtures()

@@ -20,10 +20,11 @@ tests/_torch_hevc_fixtures.py`) and on streams written here:
   `imread('#frame=N')` equal JAX's and cv2's seek for every N;
 - frames read in order, through `iter_frames` or 8 threads, are each
   decoded once, and random access starts at the last IRAP picture;
-- 4:0:0, 4:2:2, 4:4:4 (written by x265), bit depth 10, PCM,
-  long-term references, tiles, dependent slice segments and field coding
-  (written here by editing x265's parameter sets) raise UnsupportedVideo
-  naming the tool.
+- 4:0:0, 4:2:2, 4:4:4 and bit depth 12 (written by x265), unequal luma
+  and chroma bit depths, PCM, long-term references, tiles, dependent slice
+  segments and field coding (written here by editing x265's parameter sets)
+  raise UnsupportedVideo naming the tool (10-bit streams decode:
+  tests/test_torch_hevc10.py).
 """
 
 import hashlib
@@ -292,13 +293,14 @@ def write_annexb_avi(path, packets, keys) -> str:
     return str(path)
 
 
-@pytest.mark.parametrize('what, options, csp', [
-    ('4:0:0', {}, 'i400'),
-    ('4:2:2', {}, 'i422'),
-    ('4:4:4', {}, 'i444'),
+@pytest.mark.parametrize('what, options, csp, depth', [
+    ('4:0:0', {}, 'i400', 8),
+    ('4:2:2', {}, 'i422', 8),
+    ('4:4:4', {}, 'i444', 8),
+    ('bit depth 12', {}, 'i420', 12),  # x265's 12-bit API (Main 12)
 ])
-def test_tools_x265_writes_raise_naming_them(tmp_path, what, options, csp):
-    packets, keys = x265_encode(hevc_frames(6, SMALL), options, 25.0, csp=csp)
+def test_tools_x265_writes_raise_naming_them(tmp_path, what, options, csp, depth):
+    packets, keys = x265_encode(hevc_frames(6, SMALL), options, 25.0, csp=csp, depth=depth)
     path = write_annexb_avi(tmp_path / 'clip.avi', packets, keys)
     with pytest.raises(video.UnsupportedVideo, match=what):
         list(video.iter_frames(path))
@@ -307,7 +309,8 @@ def test_tools_x265_writes_raise_naming_them(tmp_path, what, options, csp):
 # (what the error names, parameter set, field position, the bits put there,
 # the bits they replace)
 CRAFTED = {
-    'bit depth 10': (SPS, 'at_bit_depth', '011', 1),  # bit_depth_luma_minus8 2
+    # bit_depth_luma_minus8 2 under 8-bit chroma
+    'unequal luma and chroma bit depths': (SPS, 'at_bit_depth', '011', 1),
     'PCM coding units': (SPS, 'at_pcm', '1', 1),
     'long-term reference pictures': (SPS, 'at_long_term_refs', '1', 1),
     'field coding': (SPS, 'at_field_seq', '1', 1),
