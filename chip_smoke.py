@@ -308,6 +308,20 @@ line:
     by the 8 I/O threads (path predict_aspset_h264_b); on the HEVC and HEVC
     B-frame .mkv views likewise (paths predict_aspset_hevc,
     predict_aspset_hevc_b);
+13b. images: still images as cv2.imread reads them. Every fixture of
+    tests/torch_fixtures/images (PNG of every colour type and depth with
+    and without tRNS, Adam7, APNG and eXIf; Adobe CMYK, YCCK and RGB
+    JPEG; WebP lossless, lossy with every loop-filter type, 2-8 token
+    partitions, segmentation, alpha, animation and EXIF) decoded in colour
+    and in gray and held to the manifest's SHA-256 of cv2's reads (this
+    machine has neither cv2 nor Pillow), image_extents to PIL's sizes;
+    the 4032x3024 Paeth-filtered PNG and the 4032x3024 lossy WebP
+    (Orientation 6) decoded IMAGE_DECODE_REPEATS times each on one host
+    thread (median ms); then `apps.demo_image.main` (folded, `--out`) on
+    that WebP and on the 640x480 palette PNG with metrabs_eff2s_y4 on
+    H36M-17 and a firing YOLOv4-416: K1 launched, every launch exact
+    against the plain warp, poses found, the overlay read back at the
+    displayed size (paths demo_image_webp, demo_image_png_palette);
 14. calibrate: camera calibration without OpenCV on the checkerboard
     fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
     1920x1080 JPEG views through a known lens, a partial board and an empty
@@ -4540,6 +4554,134 @@ def demos_phase(root: Path, dev) -> dict:
     return launches
 
 
+# The [images] phase.
+IMAGE_FIXTURES = 'tests/torch_fixtures/images'
+IMAGES_DIR = 'runs/chip_smoke_images'  # demo_image's overlays (deleted after)
+IMAGE_TIMED = ('png_large_paeth.png', 'webp_large_o6.webp')  # 4032x3024
+IMAGE_DECODE_REPEATS = 3
+IMAGE_DEMOS = (('demo_image_webp', 'webp_large_o6.webp'),
+               ('demo_image_png_palette', 'png_palette16_640x480.png'))
+
+
+def check_image_fixtures(root: Path) -> dict:
+    """Every still-image fixture in colour and in gray against the
+    manifest's hashes of cv2's reads, and image_extents against PIL's."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc
+
+    fixtures = root / IMAGE_FIXTURES
+    manifest = json.loads((fixtures / 'manifest.json').read_text())
+    kinds = collections.Counter()
+    for name, entry in sorted(manifest.items()):
+        path = str(fixtures / name)
+        for key, gray in (('rgb', False), ('gray', True)):
+            im = improc.imread(path, gray=gray)
+            if (list(im.shape) != entry[f'shape_{key}']
+                    or hashlib.sha256(im.tobytes()).hexdigest() != entry[f'sha256_{key}']):
+                fail('images', f'{name} ({key}): {im.shape} differs from cv2\'s read '
+                               f'{entry[f"shape_{key}"]} or its hash')
+        if list(improc.image_extents(path)) != entry['pil_size']:
+            fail('images', f'{name}: image_extents {improc.image_extents(path)} != PIL\'s '
+                           f'{entry["pil_size"]}')
+        kinds[name.split('_')[0]] += 1
+    return dict(files=len(manifest), kinds=dict(kinds))
+
+
+def time_image_decodes(root: Path) -> dict:
+    """Median ms (and all) of IMAGE_DECODE_REPEATS decodes to RGB on this
+    thread of each phone-sized fixture."""
+    from metrabs_tpu_torch.data import png, webp
+
+    out = {}
+    for name in IMAGE_TIMED:
+        data = (root / IMAGE_FIXTURES / name).read_bytes()
+        decode = png.decode if name.endswith('.png') else webp.decode
+        times = []
+        for _ in range(IMAGE_DECODE_REPEATS):
+            t = time.perf_counter()
+            im = decode(data, name)
+            times.append(1e3 * (time.perf_counter() - t))
+        out[name] = dict(ms=statistics.median(times), all_ms=times, shape=im.shape,
+                         kib=len(data) / 1024)
+    return out
+
+
+def images_phase(root: Path, dev) -> dict:
+    """The [images] phase (module docstring). Returns the K1 and K2
+    launches of the demo_image runs."""
+    from metrabs_tpu_torch.apps import demo_image
+    from metrabs_tpu_torch.data import improc, png, webp
+    from metrabs_tpu_torch.pipeline.skeletons import H36M_17
+
+    name = 'images'
+    fx = check_image_fixtures(root)
+    phase(name, f'all {fx["files"]} still-image fixtures ({fx["kinds"]}) decoded in colour and '
+                f'in gray equal to their manifest hashes of cv2.imread, image_extents equal to '
+                f'PIL\'s sizes')
+    timed = time_image_decodes(root)
+    for fixture, t in timed.items():
+        phase(name, f'{fixture} ({t["kib"]:.0f} KiB) to RGB {t["shape"]}: {t["ms"]:.1f} ms '
+                    f'(median of {IMAGE_DECODE_REPEATS} on one host thread; all: '
+                    + ', '.join(f'{v:.1f}' for v in t['all_ms']) + f') on {card_name()}')
+    work = root / IMAGES_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    drivers = DriverRuns()
+    launches = {}
+    original = png.decode, webp.decode
+    spans = []
+
+    def timed_decode(decode):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return decode(*args, **kwargs)
+            finally:
+                spans.append(time.perf_counter() - t)
+        return run
+
+    try:
+        bench_package(work / 'pkg', torch.Generator().manual_seed(SEED + 23), H36M_17,
+                      with_detector=True)
+        for key, fixture in IMAGE_DEMOS:
+            image_path = str(root / IMAGE_FIXTURES / fixture)
+            out_path = work / f'{key}.jpg'
+            spans.clear()
+            png.decode, webp.decode = timed_decode(original[0]), timed_decode(original[1])
+            try:
+                r, warp_errs = checked_warps(lambda: drivers.run(
+                    drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
+                    demo_image.main, ['--image', image_path, '--package', str(work / 'pkg'),
+                                      '--out', str(out_path)]))
+            finally:
+                png.decode, webp.decode = original
+            line = json.loads([t for t in r['printed'].splitlines() if t.startswith('{')][-1])
+            shown = improc.imread(image_path)
+            overlay = improc.imread(str(out_path))
+            warp_err = max(warp_errs, default=math.inf)
+            if (r['k1'] == 0 or len(warp_errs) != r['k1'] or warp_err != 0.0 or r['k2'] != 0
+                    or overlay.shape != shown.shape or line['n_poses'] == 0
+                    or np.array_equal(overlay, undrawn(shown))):
+                fail(name, f'demo_image on {fixture}: K1 {r["k1"]} ({len(warp_errs)} compared, '
+                           f'max |kernel - plain| {warp_err:.3g}), K2 {r["k2"]}, overlay '
+                           f'{overlay.shape} for the displayed {shown.shape} (poses must be '
+                           f'drawn), {line}')
+            phase(name, f'demo_image (folded) on {fixture}, displayed {shown.shape}: '
+                        f'{line["n_poses"]} poses in {r["seconds"]:.2f} s ({r["run_s"]:.2f} s '
+                        f'without loading the package); decoding {1e3 * sum(spans):.1f} ms; K1 '
+                        f'{r["k1"]}, each against the plain warp (max |kernel - plain| '
+                        f'{warp_err:.3g}), K2 {r["k2"]}; overlay {overlay.shape} with the poses '
+                        f'drawn')
+            launches[key] = (r['k1'], r['k2'])
+            del r
+    finally:
+        png.decode, webp.decode = original
+        drivers.restore()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, timed
+
+
 # The [calibrate] phase.
 CALIB_FIXTURES = 'tests/torch_fixtures/calib'
 CALIB_DIR = 'runs/chip_smoke_calibrate'  # the apps' JSON output (deleted after)
@@ -5243,15 +5385,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
-    # decoder and encoder, the mp4v codec, the H.264 and HEVC decoders and the
-    # native image ops, started together.
+    # decoder and encoder, the mp4v codec, the H.264 and HEVC decoders, the
+    # native image ops and the PNG and WebP decoders, started together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
     host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'h264_decode', 'hevc_decode',
-                    'improc')
+                    'improc', 'png_decode', 'webp_decode')
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))
@@ -5573,6 +5715,14 @@ def main() -> None:
     start = time.perf_counter()
     by_path.update(demos_phase(root, dev))
     phase('demos', f'{time.perf_counter() - start:.1f} s')
+
+    # 13b. Still images: every fixture to cv2's hashes, phone-sized decodes,
+    # demo_image on a turned WebP and a palette PNG.
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    images_by_path, _ = images_phase(root, dev)
+    by_path.update(images_by_path)
+    phase('images', f'{time.perf_counter() - start:.1f} s')
 
     # 14. Calibrate a camera from the checkerboard fixtures, then serve with it.
     torch.cuda.empty_cache()

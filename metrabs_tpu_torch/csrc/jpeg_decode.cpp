@@ -5,12 +5,19 @@
 // for bit.
 //
 // Scope: baseline and extended sequential and progressive Huffman JPEG, 8-bit
-// samples, 1 (gray) or 3 (YCbCr) components, any integral sampling factors,
-// restart intervals, any image size, the standard Huffman tables where a file
-// defines none (Motion JPEG frames). Arithmetic coding, 12-bit, lossless,
-// hierarchical, CMYK/YCCK and RGB-coded files are refused as unsupported; a
-// corrupt or truncated file as corrupt (libjpeg would warn and fill; this
-// decoder never returns a partial image).
+// samples, 1 (gray), 3 (YCbCr or RGB) or 4 (CMYK or YCCK) components, any
+// integral sampling factors, restart intervals, any image size, the standard
+// Huffman tables where a file defines none (Motion JPEG frames). The colour
+// space is libjpeg's guess (jdapimin.c): three components are RGB under an
+// Adobe APP14 with transform 0, or without JFIF and Adobe markers when their
+// IDs are 'R', 'G', 'B'; four are CMYK under transform 0 or without an Adobe
+// marker, else YCCK (converted to CMYK as jdcolor.c does). OpenCV asks
+// libjpeg for CMYK and converts it itself (icvCvt_CMYK2BGR_8u_C4C3R and
+// icvCvt_CMYK2Gray_8u_C4C1R), as Adobe's inverted CMYK; an RGB file's gray
+// output is libjpeg's rgb_gray_convert. Arithmetic coding, 12-bit, lossless
+// and hierarchical files are refused as unsupported; a corrupt or truncated
+// file as corrupt (libjpeg would warn and fill; this decoder never returns a
+// partial image).
 //
 // Plain C interface for ctypes:
 //   metrabs_jpeg_header(data, size, &height, &width, &orientation, err, n)
@@ -19,9 +26,10 @@
 // reason is written to err). `orientation` is the EXIF Orientation tag of the
 // first APP1 segment (1 when absent), read as OpenCV reads it; the caller
 // applies it. The output is height x width x channels, row-major: RGB for 3
-// channels; for 1 the luma plane at full resolution, which is what libjpeg
-// gives for JCS_GRAYSCALE output and cv2.imread(path, IMREAD_GRAYSCALE)
-// returns (no colour conversion and no chroma upsampling).
+// channels; for 1 what cv2.imread(path, IMREAD_GRAYSCALE) returns: for gray
+// and YCbCr files the luma plane at full resolution, which is what libjpeg
+// gives for JCS_GRAYSCALE output (no colour conversion and no chroma
+// upsampling), for RGB, CMYK and YCCK files a conversion of every component.
 
 #include <algorithm>
 #include <cstdint>
@@ -412,6 +420,7 @@ class Decoder {
   bool progressive_ = false, have_frame_ = false, saw_jfif_ = false, saw_adobe_ = false;
   bool saw_app1_ = false;
   int adobe_transform_ = -1;
+  enum Space { kGray, kYcc, kRgb, kCmyk, kYcck } space_ = kGray;
   int restart_interval_ = 0;
   int max_h_ = 1, max_v_ = 1, mcus_x_ = 0, mcus_y_ = 0;
   std::vector<Component> comps_;
@@ -600,8 +609,7 @@ class Decoder {
     int nf = static_cast<int>(u8(body + 5));
     if (precision != 8) unsupported(std::to_string(precision) + "-bit samples");
     if (height <= 0 || width <= 0) corrupt("empty image");
-    if (nf == 4) unsupported("CMYK/YCCK JPEG");
-    if (nf != 1 && nf != 3) unsupported(std::to_string(nf) + "-component JPEG");
+    if (nf != 1 && nf != 3 && nf != 4) unsupported(std::to_string(nf) + "-component JPEG");
     if (end - body != static_cast<size_t>(6 + 3 * nf)) corrupt("bad SOF length");
     comps_.resize(nf);
     for (int i = 0; i < nf; i++) {
@@ -626,7 +634,9 @@ class Decoder {
       if (saw_jfif_) rgb = false;
       else if (saw_adobe_) rgb = adobe_transform_ == 0;
       else rgb = comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
-      if (rgb) unsupported("RGB-coded (Adobe) JPEG");
+      space_ = rgb ? kRgb : kYcc;
+    } else if (nf == 4) {
+      space_ = saw_adobe_ && adobe_transform_ != 0 ? kYcck : kCmyk;
     }
     mcus_x_ = (width + 8 * max_h_ - 1) / (8 * max_h_);
     mcus_y_ = (height + 8 * max_v_ - 1) / (8 * max_v_);
@@ -862,28 +872,60 @@ class Decoder {
       }
       std::vector<int16_t>().swap(c.coef);
     }
-    const int nc = channels == 1 ? 1 : static_cast<int>(comps_.size());
+    const bool luma_only = space_ == kGray || (channels == 1 && space_ == kYcc);
+    const int nc = luma_only ? 1 : static_cast<int>(comps_.size());
     std::vector<std::vector<uint8_t>> rows(nc, std::vector<uint8_t>(width + 8));
     std::vector<int> colsum(width + 8);
+    const uint8_t* clamp = g_clamp + 512;
     for (int y = 0; y < height; y++) {
       for (int ci = 0; ci < nc; ci++) upsample_row(comps_[ci], y, rows[ci].data(), colsum.data());
-      if (channels == 1) {
-        std::memcpy(out + static_cast<size_t>(y) * width, rows[0].data(), width);
-        continue;
-      }
-      uint8_t* o = out + static_cast<size_t>(y) * width * 3;
+      uint8_t* o = out + static_cast<size_t>(y) * width * channels;
       if (nc == 1) {
         const uint8_t* g = rows[0].data();
-        for (int x = 0; x < width; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
-      } else {
-        const uint8_t *yy = rows[0].data(), *cb = rows[1].data(), *cr = rows[2].data();
-        const uint8_t* clamp = g_clamp + 512;
-        for (int x = 0; x < width; x++) {
-          int l = yy[x];
-          o[3 * x] = clamp[l + g_cr_r[cr[x]]];
-          o[3 * x + 1] = clamp[l + static_cast<int>((g_cb_g[cb[x]] + g_cr_g[cr[x]]) >> 16)];
-          o[3 * x + 2] = clamp[l + g_cb_b[cb[x]]];
+        if (channels == 1) std::memcpy(o, g, width);
+        else for (int x = 0; x < width; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
+        continue;
+      }
+      const uint8_t *c0 = rows[0].data(), *c1 = rows[1].data(), *c2 = rows[2].data();
+      for (int x = 0; x < width; x++) {
+        int r, g, b;
+        if (space_ == kRgb) {
+          r = c0[x];
+          g = c1[x];
+          b = c2[x];
+          if (channels == 1) {  // jdcolor.c rgb_gray_convert
+            o[x] = static_cast<uint8_t>((19595 * r + 38470 * g + 7471 * b + 32768) >> 16);
+            continue;
+          }
+        } else {
+          int l = c0[x];
+          r = clamp[l + g_cr_r[c2[x]]];
+          g = clamp[l + static_cast<int>((g_cb_g[c1[x]] + g_cr_g[c2[x]]) >> 16)];
+          b = clamp[l + g_cb_b[c1[x]]];
+          if (space_ != kYcc) {
+            int k = rows[3][x], cyan, magenta, yellow;
+            if (space_ == kCmyk) {
+              cyan = c0[x];
+              magenta = c1[x];
+              yellow = c2[x];
+            } else {  // jdcolor.c ycck_cmyk_convert
+              cyan = clamp[255 - (l + g_cr_r[c2[x]])];
+              magenta = clamp[255 - (l + static_cast<int>((g_cb_g[c1[x]] + g_cr_g[c2[x]]) >> 16))];
+              yellow = clamp[255 - (l + g_cb_b[c1[x]])];
+            }
+            // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R (inverted CMYK).
+            r = k - ((255 - cyan) * k >> 8);
+            g = k - ((255 - magenta) * k >> 8);
+            b = k - ((255 - yellow) * k >> 8);
+            if (channels == 1) {  // icvCvt_CMYK2Gray_8u_C4C1R
+              o[x] = static_cast<uint8_t>((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14);
+              continue;
+            }
+          }
         }
+        o[3 * x] = static_cast<uint8_t>(r);
+        o[3 * x + 1] = static_cast<uint8_t>(g);
+        o[3 * x + 2] = static_cast<uint8_t>(b);
       }
     }
   }

@@ -1,6 +1,7 @@
 """Background replacement augmentation
 (`metrabs_tpu/data/augment/background.py`, with `data.cvfree` and the port's
-`imread`: background images are read from PNG or .npy).
+`imread`: the pool's .jpg, .jpeg and .png files are read as cv2 reads them,
+whatever their encoding: JPEG, PNG or WebP).
 
 Replaces the image background (outside the person's foreground mask) with a
 randomly zoomed/shifted crop of a distractor image. The reference uses the

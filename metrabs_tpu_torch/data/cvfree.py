@@ -952,7 +952,6 @@ def connected_components_with_stats(mask: np.ndarray, connectivity: int = 8):
 # --- PNG: cv2.imread / cv2.imwrite -----------------------------------------
 
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> channels (gray, RGB, RGBA)
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -985,60 +984,10 @@ def write_png(path: str, image: np.ndarray, compression: int = 6) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG (gray, RGB or RGBA) as uint8 [H, W] or
-    [H, W, C] in PNG's channel order. Rows filtered with None, Sub and Up
-    decode vectorised; Average and Paeth rows pixel by pixel. Other bit
-    depths, palettes and interlacing raise NotImplementedError."""
+    """An 8-bit PNG without a palette (gray, gray with alpha, RGB or RGBA) as
+    uint8 [H, W] or [H, W, C] in PNG's channel order, alpha kept: the stored
+    samples, through `data.png` (any filter, interlaced or not). Other kinds
+    raise NotImplementedError; `improc.imread` reads every PNG as cv2 does."""
+    from metrabs_tpu_torch.data import png
     with open(path, 'rb') as f:
-        data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f'{path} is not a PNG file')
-    pos, header, idat = 8, None, []
-    while pos < len(data):
-        length, kind = struct.unpack('>I4s', data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b'IHDR':
-            header = struct.unpack('>IIBBBBB', body)
-        elif kind == b'IDAT':
-            idat.append(body)
-        elif kind == b'IEND':
-            break
-    if header is None:
-        raise ValueError(f'{path}: no IHDR chunk')
-    w, h, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _PNG_CHANNELS or interlace:
-        raise NotImplementedError(f'{path}: PNG bit depth {depth}, colour type {color_type}, '
-                                  f'interlace {interlace} (8-bit gray, RGB and RGBA only)')
-    c = _PNG_CHANNELS[color_type]
-    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8).reshape(h, 1 + w * c)
-    filters, rows = raw[:, 0], raw[:, 1:]
-    if np.any(filters > 4):
-        raise ValueError(f'{path}: PNG row filter {filters.max()}')
-    # None and Sub rows do not depend on the row above: all at once (uint8
-    # sums wrap modulo 256, as the filters do).
-    out = rows.copy()
-    sub = filters == 1
-    out[sub] = np.cumsum(rows[sub].reshape(-1, w, c), axis=1, dtype=np.uint8).reshape(-1, w * c)
-    zeros = np.zeros(w * c, np.int32)
-    for y in np.flatnonzero(filters >= 2):
-        row, prior = rows[y], (out[y - 1] if y else zeros.astype(np.uint8))
-        if filters[y] == 2:
-            out[y] = row + prior
-            continue
-        row, prior = row.astype(np.int32), prior.astype(np.int32)
-        cur = np.zeros(w * c, np.int32)
-        for x in range(w):
-            s = slice(x * c, x * c + c)
-            left = cur[s.start - c:s.stop - c] if x else zeros[:c]
-            up = prior[s]
-            if filters[y] == 3:
-                cur[s] = (row[s] + ((left + up) >> 1)) & 255
-            else:
-                up_left = prior[s.start - c:s.stop - c] if x else zeros[:c]
-                p = left + up - up_left
-                pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
-                pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
-                cur[s] = (row[s] + pred) & 255
-        out[y] = cur
-    return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
+        return png.decode_stored(f.read(), path)

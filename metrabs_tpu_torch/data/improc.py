@@ -1,6 +1,7 @@
 """CPU image helpers of the data pipeline (`metrabs_tpu/data/improc.py`)
-without OpenCV: images are read from JPEG (through `data.jpeg`, equal to
-cv2's decode), PNG (through `data.cvfree`) and `.npy` files and written as
+without OpenCV: images are read from JPEG (through `data.jpeg`), PNG
+(`data.png`) and WebP (`data.webp`) files, each equal to cv2's decode, and
+from `.npy` files, and written as
 JPEG (equal to cv2's encode) or PNG, video frames are read as Motion JPEG,
 MPEG-4 Part 2 (mp4v) or H.264 and written as Motion JPEG or mp4v in AVI,
 Matroska and MP4 files (through `data.video`), and the colour and resize
@@ -10,24 +11,25 @@ helpers give OpenCV's numbers.
 from __future__ import annotations
 
 import os
-import struct
 from typing import Optional
 
 import numpy as np
 
-from metrabs_tpu_torch.data import cvfree, jpeg, video
+from metrabs_tpu_torch.data import cvfree, jpeg, png, video, webp
 _JPEG_SIGNATURE = b'\xff\xd8\xff'
-_PNG_SIGNATURE = b'\x89PNG'
 
 
 def imread(path: str, gray: bool = False) -> np.ndarray:
-    """RGB uint8 [H, W, 3] image. The format is the file's signature, as cv2
-    reads it: JPEG (`FF D8 FF`; equal to `cv2.imread(path, IMREAD_COLOR)`,
-    EXIF orientation applied) or PNG (`89 50 4E 47`; gray is repeated over
-    the three channels and alpha dropped, as IMREAD_COLOR does); a `.npy`
-    file holds such an array. Raises FileNotFoundError for a missing file,
-    ValueError for a corrupt or truncated JPEG, and NotImplementedError for
-    any other format.
+    """RGB uint8 [H, W, 3] image, equal to `cv2.imread(path, IMREAD_COLOR)`
+    (in RGB order) bit for bit, EXIF orientation applied. The format is the
+    file's signature, as cv2 reads it: JPEG (`FF D8 FF`; gray, YCbCr, RGB,
+    CMYK and YCCK), PNG (`89 50 4E 47`; every colour type and depth, Adam7;
+    16 bits keep their high byte, gray is repeated over the three channels
+    and alpha dropped) or WebP (`RIFF....WEBP`; lossless and lossy, the first
+    frame of an animation); a `.npy` file holds such an array. Raises
+    FileNotFoundError for a missing file, ValueError for a corrupt or
+    truncated one (where cv2 returns None), and NotImplementedError for any
+    other format or a tool a decoder does not read.
 
     `video.ext#frame=N` is frame N (from 0) of a Motion JPEG, mp4v or H.264
     video in AVI, Matroska or MP4 (the ASPset adapter's convention for its
@@ -43,14 +45,14 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
 
     With `gray`, uint8 [H, W], equal to `cv2.imread(path,
     cv2.IMREAD_GRAYSCALE)` bit for bit: a JPEG's luma plane (libjpeg's
-    grayscale output), a gray PNG as stored, an RGB or RGBA PNG through
-    libpng's `png_set_rgb_to_gray` as OpenCV sets it up, (9797 R + 19234 G +
-    3737 B) >> 15 (0.299 and 0.587 in 15-bit fixed point, truncated, blue
-    the rest; alpha dropped). `.npy` files and video frames, which cv2 does
-    not read, raise NotImplementedError in gray."""
+    grayscale output; RGB and CMYK files converted as libjpeg and OpenCV
+    convert them), a PNG through libpng's `png_set_rgb_to_gray` as OpenCV
+    sets it up (data/png.py), a WebP through OpenCV's BGR2GRAY. `.npy` files
+    and video frames, which cv2 does not read, raise NotImplementedError in
+    gray."""
     path = str(path)
     if gray and ('#frame=' in path or os.path.splitext(path)[1].lower() == '.npy'):
-        raise NotImplementedError(f'{path}: gray reads are of JPEG and PNG files only')
+        raise NotImplementedError(f'{path}: gray reads are of JPEG, PNG and WebP files only')
     if '#frame=' in path:
         video_path, frame_spec = path.split('#frame=')
         return video.read_frame(video_path, int(frame_spec))
@@ -66,18 +68,11 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
         data = f.read()
     if data.startswith(_JPEG_SIGNATURE):
         return jpeg.decode(data, path, gray=gray)
-    if not data.startswith(_PNG_SIGNATURE):
-        raise NotImplementedError(f'{path}: neither JPEG nor PNG (the formats imread decodes)')
-    im = cvfree.read_png(path)
-    if gray:
-        if im.ndim == 2:
-            return im
-        rgb = im[..., :3].astype(np.uint32)
-        return ((9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2]) >> 15
-                ).astype(np.uint8)
-    if im.ndim == 2:
-        return np.repeat(im[..., None], 3, axis=2)
-    return np.ascontiguousarray(im[..., :3])
+    if data.startswith(png.SIGNATURE):
+        return png.decode(data, path, gray=gray)
+    if webp.is_webp(data):
+        return webp.decode(data, path, gray=gray)
+    raise NotImplementedError(f'{path}: neither JPEG nor PNG nor WebP (the formats imread decodes)')
 
 
 def normalize01(im: np.ndarray) -> np.ndarray:
@@ -153,23 +148,25 @@ def rounded_int_tuple(p) -> tuple:
 
 
 def image_extents(filepath: str) -> np.ndarray:
-    """Image (width, height) without decoding pixel data: from a `.npy`
-    file's header, a PNG's, or a JPEG's frame header (before its EXIF
-    orientation, as the JAX package reads it); other formats raise
-    NotImplementedError."""
+    """Image (width, height) without decoding pixel data, before any EXIF
+    orientation, as the JAX package reads it from PIL: from a `.npy` file's
+    header, a JPEG's frame header, a PNG's IHDR, or a WebP's canvas (VP8X)
+    or bitstream header; other formats raise NotImplementedError."""
     filepath = str(filepath)
     if os.path.splitext(filepath)[1].lower() == '.npy':
         shape = np.load(filepath, mmap_mode='r').shape
         return np.asarray([shape[1], shape[0]])
     with open(filepath, 'rb') as f:
-        data = f.read(24)
+        data = f.read(64)
         if data.startswith(_JPEG_SIGNATURE):
             # The frame header follows segments of any length (EXIF, tables).
             height, width, _ = jpeg.header(data + f.read(), filepath)
             return np.asarray([width, height])
-    if data[:8] != b'\x89PNG\r\n\x1a\n' or data[12:16] != b'IHDR':
-        raise NotImplementedError(f'{filepath}: neither JPEG nor PNG')
-    return np.asarray(struct.unpack('>II', data[16:24]))
+        if data.startswith(png.SIGNATURE):
+            return np.asarray(png.header(data, filepath))
+        if webp.is_webp(data):
+            return np.asarray(webp.header(data + f.read(), filepath))
+    raise NotImplementedError(f'{filepath}: neither JPEG nor PNG nor WebP')
 
 
 def imwrite(path: str, image: np.ndarray) -> None:

@@ -52,7 +52,7 @@ def _check(rc: int, err, name: str) -> None:
     if rc == 2:
         raise NotImplementedError(f'{name}: {err.value.decode()} is not supported by the '
                                   f'JPEG decoder (baseline and progressive Huffman, 8-bit, '
-                                  f'gray or YCbCr)')
+                                  f'gray, YCbCr, RGB, CMYK or YCCK)')
     if rc != 0:
         raise RuntimeError(f'{name}: the JPEG decoder returned {rc}')
 
@@ -72,10 +72,12 @@ def decode(data: bytes, name: str = '<bytes>', gray: bool = False) -> np.ndarray
     """RGB uint8 [H, W, 3] of an encoded JPEG, EXIF orientation applied (gray
     files give three equal channels); with `gray`, uint8 [H, W], the luma
     plane, equal to `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` (libjpeg's
-    grayscale output: the Y component, not a conversion of the RGB). Raises
-    ValueError naming `name` for a corrupt or truncated file and
-    NotImplementedError for arithmetic coding, 12-bit, lossless,
-    hierarchical, CMYK/YCCK and RGB-coded files."""
+    grayscale output: the Y component, not a conversion of the RGB; for RGB,
+    CMYK and YCCK files the conversions of libjpeg and OpenCV). CMYK and
+    YCCK files are read as Adobe's inverted CMYK, as OpenCV reads them.
+    Raises ValueError naming `name` for a corrupt or truncated file and
+    NotImplementedError for arithmetic coding, 12-bit, lossless and
+    hierarchical files."""
     height, width, orientation = header(data, name)
     channels = 1 if gray else 3
     out = np.empty((height, width, channels), np.uint8)

@@ -3,9 +3,11 @@ through `data/jpeg.py`) against `cv2.imread(path, cv2.IMREAD_COLOR)` in RGB,
 bit for bit: on every committed fixture (and its manifest hash, which is how
 the card's machine, without cv2, checks it), on images cv2 encodes with
 random sizes, qualities, samplings, progressive mode and restart intervals,
-and on threads. Truncated and corrupt files raise ValueError naming the
-file, the unsupported kinds NotImplementedError, and `imread` picks the
-decoder by the file's signature, not its name.
+and on threads; Adobe CMYK, YCCK and RGB-coded files (the image fixtures
+of `tests/torch_fixtures/images` against JAX's imread, and random Pillow
+encodings) in colour and in gray. Truncated and corrupt files raise
+ValueError naming the file, the unsupported kinds NotImplementedError, and
+`imread` picks the decoder by the file's signature, not its name.
 """
 
 import json
@@ -18,6 +20,7 @@ import pytest
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
+import _torch_image_fixtures as image_fixtures
 from _torch_jpeg_fixtures import FIXTURE_DIR, MANIFEST, exif_app1, read_manifest, rgb_digest
 from metrabs_tpu.data import improc as jax_improc
 from metrabs_tpu_torch.data import improc, jpeg
@@ -197,18 +200,26 @@ def _cmyk() -> bytes:
     return out.getvalue()
 
 
-@pytest.mark.parametrize('kind', ['arithmetic', 'lossless', 'hierarchical', 'twelve_bit',
-                                  'rgb_coded', 'cmyk'])
+@pytest.mark.parametrize('kind', ['arithmetic', 'lossless', 'hierarchical', 'twelve_bit'])
 def test_unsupported_kinds_raise_not_implemented(kind):
     data = dict(arithmetic=lambda: _sof_variant(marker=0xC9),
                 lossless=lambda: _sof_variant(marker=0xC3),
                 hierarchical=lambda: _sof_variant(marker=0xC5),
-                twelve_bit=lambda: _sof_variant(precision=12),
-                rgb_coded=_rgb_coded, cmyk=_cmyk)[kind]()
+                twelve_bit=lambda: _sof_variant(precision=12))[kind]()
     with pytest.raises(NotImplementedError, match='not supported'):
         jpeg.decode(data, 'x.jpg')
-    if kind == 'rgb_coded':  # cv2 decodes it, without the YCbCr transform
-        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None
+
+
+@pytest.mark.parametrize('kind', ['rgb_coded', 'cmyk'])
+def test_rgb_coded_and_cmyk_decode_equal_to_cv2(kind):
+    """RGB by component IDs (no JFIF, no Adobe marker) and Pillow's Adobe
+    CMYK, which the decoder refused before it read their colour spaces, in
+    colour and in gray."""
+    data = dict(rgb_coded=_rgb_coded, cmyk=_cmyk)[kind]()
+    np.testing.assert_array_equal(jpeg.decode(data, 'x.jpg'), cv2_rgb(data))
+    np.testing.assert_array_equal(
+        jpeg.decode(data, 'x.jpg', gray=True),
+        cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
 
 
 def test_imread_dispatches_on_the_signature_not_the_name(tmp_path):
@@ -227,3 +238,56 @@ def test_imread_dispatches_on_the_signature_not_the_name(tmp_path):
         improc.imread(str(tmp_path / 'c.jpg'))
     with pytest.raises(FileNotFoundError):
         improc.imread(str(tmp_path / 'missing.jpg'))
+
+
+IMAGE_JPEGS = sorted(n for n in image_fixtures.read_manifest() if n.endswith('.jpg'))
+
+
+def test_image_fixtures_cover_cmyk_ycck_and_rgb():
+    spaces = set()
+    for name in IMAGE_JPEGS:
+        data = (image_fixtures.FIXTURE_DIR / name).read_bytes()
+        adobe = data.find(b'Adobe')
+        n_components = data[data.find(b'\xff\xc0') + 9] if b'\xff\xc0' in data else \
+            data[data.find(b'\xff\xc2') + 9]
+        spaces.add((n_components, data[adobe + 11] if adobe >= 0 else None))
+    assert {(4, 0), (4, 2), (3, 0), (3, None)} <= spaces
+
+
+@pytest.mark.parametrize('name', IMAGE_JPEGS)
+def test_cmyk_ycck_and_rgb_fixtures_equal_jax_imread(name):
+    """Adobe CMYK (baseline, 4:2:0, progressive, EXIF-turned), YCCK, and
+    RGB-coded files (Adobe transform 0, component IDs R, G, B) against JAX's
+    imread (cv2) in colour, cv2 in gray, PIL's size and the manifest."""
+    path = str(image_fixtures.FIXTURE_DIR / name)
+    entry = image_fixtures.read_manifest()[name]
+    got = improc.imread(path)
+    np.testing.assert_array_equal(got, jax_improc.imread(path))
+    assert image_fixtures.digest(got) == entry['sha256_rgb']
+    gray = improc.imread(path, gray=True)
+    np.testing.assert_array_equal(gray, cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    assert image_fixtures.digest(gray) == entry['sha256_gray']
+    np.testing.assert_array_equal(improc.image_extents(path), jax_improc.image_extents(path))
+
+
+@pytest.mark.parametrize('seed', range(6))
+def test_random_cmyk_and_rgb_encodings_equal_cv2(seed):
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    h, w = (int(v) for v in rng.integers(1, 60, 2))
+    cmyk = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    for options in (dict(quality=int(rng.integers(5, 100)), subsampling=int(rng.integers(0, 3))),
+                    dict(quality=60, progressive=True)):
+        data = image_fixtures.pil_bytes(Image.fromarray(cmyk, 'CMYK'), 'JPEG', **options)
+        for transform in (0, 2):  # CMYK, then the same file read as YCCK
+            edited = bytearray(data)
+            edited[edited.find(b'Adobe') + 11] = transform
+            np.testing.assert_array_equal(jpeg.decode(bytes(edited)), cv2_rgb(bytes(edited)))
+            np.testing.assert_array_equal(
+                jpeg.decode(bytes(edited), gray=True),
+                cv2.imdecode(np.frombuffer(bytes(edited), np.uint8), cv2.IMREAD_GRAYSCALE))
+    rgb = image_fixtures.pil_bytes(Image.fromarray(cmyk[..., :3]), 'JPEG', keep_rgb=True,
+                                   subsampling=0, quality=int(rng.integers(5, 100)))
+    np.testing.assert_array_equal(jpeg.decode(rgb), cv2_rgb(rgb))
+    np.testing.assert_array_equal(jpeg.decode(rgb, gray=True),
+                                  cv2.imdecode(np.frombuffer(rgb, np.uint8), cv2.IMREAD_GRAYSCALE))

@@ -128,12 +128,27 @@ def test_video_modules_are_held_to_the_card(path):
     test_port_file_imports_no_cv2(path)
 
 
+@pytest.mark.parametrize('path', ['metrabs_tpu_torch/data/png.py',
+                                  'metrabs_tpu_torch/data/webp.py',
+                                  'metrabs_tpu_torch/data/exif.py',
+                                  'metrabs_tpu_torch/data/jpeg.py',
+                                  'metrabs_tpu_torch/data/improc.py'])
+def test_image_modules_are_held_to_the_card(path):
+    """The still-image decoders are port files: no import of theirs, also
+    inside functions, is of JAX or of MISSING_ON_CARD (cv2 and Pillow among
+    them)."""
+    assert path in PORT_FILES
+    test_port_file_imports_nothing_of_jax(path)
+    test_port_file_imports_no_cv2(path)
+
+
 @pytest.mark.parametrize('name', ['h264_decode.cpp', 'hevc_decode.cpp', 'mpeg4_video.cpp',
-                                  'video_codec.h', 'yuv_rgb.h'])
+                                  'video_codec.h', 'yuv_rgb.h', 'png_decode.cpp',
+                                  'webp_decode.cpp', 'jpeg_decode.cpp'])
 def test_video_sources_include_no_library(name):
     """The host decoders include the C++ standard library and the port's own
     `video_codec.h` and `yuv_rgb.h` only: no FFmpeg, OpenCV, x264, x265,
-    libde265 or Xvid header."""
+    libde265, Xvid, libpng, zlib, libjpeg or libwebp header."""
     source = (REPO / 'metrabs_tpu_torch' / 'csrc' / name).read_text()
     includes = [line.split(None, 1)[1] for line in source.splitlines()
                 if line.startswith('#include')]
@@ -182,6 +197,25 @@ def test_failed_hevc_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     monkeypatch.setattr(video, '_STREAMS', {})
     with pytest.raises(RuntimeError, match='false failed'):
         video.read_frame(clip, 0)
+    assert not list(tmp_path.glob('*.so'))
+
+
+@pytest.mark.parametrize('kind', ['png', 'webp'])
+def test_failed_image_build_raises_and_nothing_falls_back(kind, monkeypatch, tmp_path):
+    """With the compiler failing (`CXX=false`) into an empty build directory,
+    reading a PNG or a WebP raises naming the compiler: no Pillow, cv2 or
+    Python decoder takes over."""
+    from metrabs_tpu_torch.data import improc, png, webp
+    from metrabs_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setenv('CXX', 'false')
+    module = dict(png=png, webp=webp)[kind]
+    monkeypatch.setattr(module, '_LIB', None)
+    fixture = dict(png='png_ct2_d8.png', webp='webp_lossless_pillow.webp')[kind]
+    path = str(REPO / 'tests' / 'torch_fixtures' / 'images' / fixture)
+    with pytest.raises(RuntimeError, match=f'false failed on .*{kind}_decode.cpp'):
+        improc.imread(path)
+    assert not improc.is_image_readable(path)
     assert not list(tmp_path.glob('*.so'))
 
 
@@ -300,6 +334,14 @@ manifest = json.load(open(fixtures + '/manifest.json'))
 for name in ('progressive_s420_61x75.jpg', 'exif_orientation6_40x64.jpg', 'gray_48x80.jpg'):
     im = imread(fixtures + '/' + name)
     assert hashlib.sha256(im.tobytes()).hexdigest() == manifest[name]['sha256_rgb'], name
+fixtures = 'tests/torch_fixtures/images'
+manifest = json.load(open(fixtures + '/manifest.json'))
+for name, entry in manifest.items():
+    if 'large' in name:
+        continue
+    for key, gray in (('sha256_rgb', False), ('sha256_gray', True)):
+        im = imread(fixtures + '/' + name, gray=gray)
+        assert hashlib.sha256(im.tobytes()).hexdigest() == entry[key], (name, key)
 from metrabs_tpu_torch.eval import harness
 from metrabs_tpu_torch.utils import hdf5
 dumped = dict(x=np.arange(6.0).reshape(2, 3), names=np.array(['a', 'b']), ok=np.array([True, False]))
@@ -366,7 +408,9 @@ def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     with torch alone, those weights through a TF checkpoint and back, one
     CPU train step of Metrabs and one of Metro, the eval metrics, an example
     loaded from a PNG with every augmentation (`load_and_transform3d`), the
-    mask association, JPEG fixtures decoded to their manifest hashes, an
+    mask association, JPEG fixtures and the still-image fixtures (PNG,
+    CMYK and RGB JPEG, WebP; colour and gray) decoded to their manifest
+    hashes, an
     HDF5 dump written and read back by the port's own HDF5 code, the
     MATLAB-layout 3DHP fixture read to its manifest hashes through
     `load_3dhp_test_frames` and scored by `eval_3dhp`, one detector
