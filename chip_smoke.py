@@ -321,7 +321,18 @@ line:
     that WebP and on the 640x480 palette PNG with metrabs_eff2s_y4 on
     H36M-17 and a firing YOLOv4-416: K1 launched, every launch exact
     against the plain warp, poses found, the overlay read back at the
-    displayed size (paths demo_image_webp, demo_image_png_palette);
+    displayed size (paths demo_image_webp, demo_image_png_palette). The
+    TIFF, BMP, PNM/PAM/PFM, GIF, Sun raster and Radiance fixtures are held
+    to their hashes likewise (where cv2 returns None, the port must raise,
+    and image_extents must raise where PIL does); a 4032x3024 16-bit RGB
+    TIFF (LZW, predictor 2, 256x256 tiles) and a 4032x3024 24-bit BMP are
+    minted here (tests/_torch_image_fixtures.py: numpy only), each decoded
+    IMAGE_DECODE_REPEATS times on one host thread, every decode equal to
+    the pixels it was written from, and read by demo_image as above (paths
+    demo_image_tiff, demo_image_bmp); and apps.calibrate_camera on
+    calibration set (a)'s views written as 8-bit gray TIFF and BMP must give
+    exactly its JSON on the PNGs, with K1 and K2 counted in each run and
+    both 0 (paths calibrate_tiff, calibrate_bmp);
 14. calibrate: camera calibration without OpenCV on the checkerboard
     fixtures of tests/torch_fixtures/calib ((a) 640x480 PNG views, (b)
     1920x1080 JPEG views through a known lens, a partial board and an empty
@@ -4558,78 +4569,183 @@ def demos_phase(root: Path, dev) -> dict:
 IMAGE_FIXTURES = 'tests/torch_fixtures/images'
 IMAGES_DIR = 'runs/chip_smoke_images'  # demo_image's overlays (deleted after)
 IMAGE_TIMED = ('png_large_paeth.png', 'webp_large_o6.webp')  # 4032x3024
+# Minted in IMAGES_DIR by tests/_torch_image_fixtures.py, 4032x3024 each.
+IMAGE_MINTED = ('large_rgb16_lzw_pred2_tiles.tif', 'large_rgb24.bmp')
 IMAGE_DECODE_REPEATS = 3
 IMAGE_DEMOS = (('demo_image_webp', 'webp_large_o6.webp'),
-               ('demo_image_png_palette', 'png_palette16_640x480.png'))
+               ('demo_image_png_palette', 'png_palette16_640x480.png'),
+               ('demo_image_tiff', IMAGE_MINTED[0]), ('demo_image_bmp', IMAGE_MINTED[1]))
+IMAGE_CALIB_COPIES = (('calibrate_tiff', 'tif'), ('calibrate_bmp', 'bmp'))
+PIL_RAISES = 'PIL raises'  # the manifest's size where PIL does not identify a file
+
+
+def image_fixture_helpers(root: Path):
+    """tests/_torch_image_fixtures.py (numpy only at import): the writers
+    of the minted TIFF and BMP files."""
+    if str(root / 'tests') not in sys.path:
+        sys.path.insert(0, str(root / 'tests'))
+    import _torch_image_fixtures
+    return _torch_image_fixtures
 
 
 def check_image_fixtures(root: Path) -> dict:
     """Every still-image fixture in colour and in gray against the
-    manifest's hashes of cv2's reads, and image_extents against PIL's."""
+    manifest's hashes of cv2's reads (a ValueError where cv2 returns None),
+    and image_extents against PIL's sizes (a ValueError where PIL raises)."""
     import hashlib
 
     from metrabs_tpu_torch.data import improc
 
     fixtures = root / IMAGE_FIXTURES
     manifest = json.loads((fixtures / 'manifest.json').read_text())
-    kinds = collections.Counter()
+    kinds, refused = collections.Counter(), 0
     for name, entry in sorted(manifest.items()):
         path = str(fixtures / name)
         for key, gray in (('rgb', False), ('gray', True)):
+            if entry[f'sha256_{key}'] is None:
+                try:
+                    improc.imread(path, gray=gray)
+                except ValueError:
+                    refused += 1
+                    continue
+                fail('images', f'{name} ({key}): read, where cv2.imread returns None')
             im = improc.imread(path, gray=gray)
             if (list(im.shape) != entry[f'shape_{key}']
                     or hashlib.sha256(im.tobytes()).hexdigest() != entry[f'sha256_{key}']):
                 fail('images', f'{name} ({key}): {im.shape} differs from cv2\'s read '
                                f'{entry[f"shape_{key}"]} or its hash')
-        if list(improc.image_extents(path)) != entry['pil_size']:
+        if entry['pil_size'] == PIL_RAISES:
+            try:
+                improc.image_extents(path)
+            except ValueError:
+                refused += 1
+            else:
+                fail('images', f'{name}: image_extents answers where PIL raises')
+        elif list(improc.image_extents(path)) != entry['pil_size']:
             fail('images', f'{name}: image_extents {improc.image_extents(path)} != PIL\'s '
                            f'{entry["pil_size"]}')
         kinds[name.split('_')[0]] += 1
-    return dict(files=len(manifest), kinds=dict(kinds))
+    return dict(files=len(manifest), kinds=dict(kinds), refused=refused)
 
 
-def time_image_decodes(root: Path) -> dict:
+def mint_large_images(root: Path, work: Path) -> None:
+    """IMAGE_MINTED in `work`: the phone-sized 16-bit TIFF and 24-bit BMP."""
+    fx = image_fixture_helpers(root)
+    (work / IMAGE_MINTED[0]).write_bytes(fx.large_tiff())
+    (work / IMAGE_MINTED[1]).write_bytes(fx.large_bmp())
+
+
+def time_image_decodes(root: Path, work: Path) -> dict:
     """Median ms (and all) of IMAGE_DECODE_REPEATS decodes to RGB on this
-    thread of each phone-sized fixture."""
-    from metrabs_tpu_torch.data import png, webp
+    thread of each phone-sized fixture and each minted image. Every decode
+    of a minted image must equal the array it was written from: the BMP
+    holds large_scene(), the 16-bit TIFF large_rgb16(), which cv2 reads as
+    (v + 128) // 257."""
+    from metrabs_tpu_torch.data import bmp, png, tiff, webp
 
+    decoders = {'.png': png.decode, '.webp': webp.decode, '.tif': tiff.decode, '.bmp': bmp.decode}
+    fx = image_fixture_helpers(root)
+    written = {IMAGE_MINTED[0]: lambda: ((fx.large_rgb16().astype(np.uint32) + 128)
+                                         // 257).astype(np.uint8),
+               IMAGE_MINTED[1]: fx.large_scene}
     out = {}
-    for name in IMAGE_TIMED:
-        data = (root / IMAGE_FIXTURES / name).read_bytes()
-        decode = png.decode if name.endswith('.png') else webp.decode
+    for name, path in ([(n, root / IMAGE_FIXTURES / n) for n in IMAGE_TIMED]
+                       + [(n, work / n) for n in IMAGE_MINTED]):
+        data = path.read_bytes()
+        decode = decoders[Path(name).suffix]
+        want = written[name]() if name in written else None
         times = []
         for _ in range(IMAGE_DECODE_REPEATS):
             t = time.perf_counter()
             im = decode(data, name)
             times.append(1e3 * (time.perf_counter() - t))
+            if want is not None and (im.dtype != want.dtype or not np.array_equal(im, want)):
+                fail('images', f'{name} decodes to {im.shape} {im.dtype}, not to the '
+                               f'{want.shape} {want.dtype} pixels it was written from')
         out[name] = dict(ms=statistics.median(times), all_ms=times, shape=im.shape,
                          kib=len(data) / 1024)
     return out
 
 
+def calibrate_copies(root: Path, work: Path, dev) -> dict:
+    """apps.calibrate_camera on calibration set (a) as PNGs and on its
+    views' gray reads written as 8-bit gray TIFF and BMP (the same pixels):
+    the JSON of each copy must equal the PNGs'. Returns the (K1, K2)
+    launches counted in each copy's run, which must be (0, 0): the app
+    launches no kernel."""
+    import contextlib
+    import io
+
+    from metrabs_tpu_torch.apps import calibrate_camera
+    from metrabs_tpu_torch.data import improc
+    from metrabs_tpu_torch.ops import mbconv_cuda, warp_cuda
+
+    fx = image_fixture_helpers(root)
+    manifest = json.loads((root / CALIB_FIXTURES / 'manifest.json').read_text())
+    cols, rows = manifest['pattern_size']
+    run = manifest['calibrations']['a']
+    pngs = sorted((root / CALIB_FIXTURES / 'a').glob('*.png'))
+
+    def app(pattern: str, out: Path) -> tuple:
+        warp_cuda.warp_pyramid.launches = mbconv_cuda.fused_mbconv_inner.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            calibrate_camera.main(['--images', pattern, '--rows', str(rows), '--cols', str(cols),
+                                   '--square-mm', str(run['square_mm']), '--out', str(out),
+                                   '--device', str(dev)])
+        seconds = time.perf_counter() - t0
+        counts = (warp_cuda.warp_pyramid.launches, mbconv_cuda.fused_mbconv_inner.launches)
+        if counts != (0, 0):
+            fail('images', f'calibrate_camera on {pattern} launched K1/K2 {counts}')
+        return json.loads(out.read_text()), seconds, counts
+
+    want, png_s, _ = app(str(root / CALIB_FIXTURES / 'a' / '*.png'), work / 'a_png.json')
+    launches = {}
+    for key, ext in IMAGE_CALIB_COPIES:
+        copies = work / key
+        copies.mkdir()
+        write = fx.gray_tiff if ext == 'tif' else fx.gray_bmp
+        for png in pngs:
+            (copies / f'{png.stem}.{ext}').write_bytes(write(improc.imread(str(png), gray=True)))
+        got, seconds, counts = app(str(copies / f'*.{ext}'), work / f'{key}.json')
+        if got != want:
+            fail('images', f'calibrate_camera on the {ext} copies of (a) differs from its answer '
+                           f'on the PNGs: {got} != {want}')
+        phase('images', f'calibrate_camera on (a)\'s {len(pngs)} views as 8-bit gray {ext}: '
+                        f'{seconds:.2f} s (PNGs: {png_s:.2f} s); JSON equal to the PNGs\' '
+                        f'(rms {got["rms_reprojection_error"]:.6f} px, fx '
+                        f'{got["intrinsic_matrix"][0][0]:.3f}); K1/K2 launches {counts}')
+        launches[key] = counts
+    return launches
+
+
 def images_phase(root: Path, dev) -> dict:
     """The [images] phase (module docstring). Returns the K1 and K2
-    launches of the demo_image runs."""
+    launches of the demo_image runs and the calibrations."""
     from metrabs_tpu_torch.apps import demo_image
-    from metrabs_tpu_torch.data import improc, png, webp
+    from metrabs_tpu_torch.data import bmp, improc, png, tiff, webp
     from metrabs_tpu_torch.pipeline.skeletons import H36M_17
 
     name = 'images'
     fx = check_image_fixtures(root)
     phase(name, f'all {fx["files"]} still-image fixtures ({fx["kinds"]}) decoded in colour and '
                 f'in gray equal to their manifest hashes of cv2.imread, image_extents equal to '
-                f'PIL\'s sizes')
-    timed = time_image_decodes(root)
+                f'PIL\'s sizes; {fx["refused"]} reads and sizes raise where cv2 or PIL refuse')
+    work = root / IMAGES_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    start = time.perf_counter()
+    mint_large_images(root, work)
+    phase(name, f'{", ".join(IMAGE_MINTED)} minted in {time.perf_counter() - start:.1f} s')
+    timed = time_image_decodes(root, work)
     for fixture, t in timed.items():
         phase(name, f'{fixture} ({t["kib"]:.0f} KiB) to RGB {t["shape"]}: {t["ms"]:.1f} ms '
                     f'(median of {IMAGE_DECODE_REPEATS} on one host thread; all: '
                     + ', '.join(f'{v:.1f}' for v in t['all_ms']) + f') on {card_name()}')
-    work = root / IMAGES_DIR
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     drivers = DriverRuns()
     launches = {}
-    original = png.decode, webp.decode
+    modules = (png, webp, tiff, bmp)
+    original = tuple(m.decode for m in modules)
     spans = []
 
     def timed_decode(decode):
@@ -4645,17 +4761,20 @@ def images_phase(root: Path, dev) -> dict:
         bench_package(work / 'pkg', torch.Generator().manual_seed(SEED + 23), H36M_17,
                       with_detector=True)
         for key, fixture in IMAGE_DEMOS:
-            image_path = str(root / IMAGE_FIXTURES / fixture)
+            image_path = str((work if fixture in IMAGE_MINTED else root / IMAGE_FIXTURES)
+                             / fixture)
             out_path = work / f'{key}.jpg'
             spans.clear()
-            png.decode, webp.decode = timed_decode(original[0]), timed_decode(original[1])
+            for m, decode in zip(modules, original):
+                m.decode = timed_decode(decode)
             try:
                 r, warp_errs = checked_warps(lambda: drivers.run(
                     drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
                     demo_image.main, ['--image', image_path, '--package', str(work / 'pkg'),
                                       '--out', str(out_path)]))
             finally:
-                png.decode, webp.decode = original
+                for m, decode in zip(modules, original):
+                    m.decode = decode
             line = json.loads([t for t in r['printed'].splitlines() if t.startswith('{')][-1])
             shown = improc.imread(image_path)
             overlay = improc.imread(str(out_path))
@@ -4675,8 +4794,10 @@ def images_phase(root: Path, dev) -> dict:
                         f'drawn')
             launches[key] = (r['k1'], r['k2'])
             del r
+        launches.update(calibrate_copies(root, work, dev))
     finally:
-        png.decode, webp.decode = original
+        for m, decode in zip(modules, original):
+            m.decode = decode
         drivers.restore()
         shutil.rmtree(work, ignore_errors=True)
     return launches, timed
@@ -5386,14 +5507,15 @@ def main() -> None:
 
     # 2. Build: one nvcc per kernel source and the host compiler for the JPEG
     # decoder and encoder, the mp4v codec, the H.264 and HEVC decoders, the
-    # native image ops and the PNG and WebP decoders, started together.
+    # native image ops and the PNG, WebP, TIFF and raster decoders, started
+    # together.
     from metrabs_tpu_torch.ops import cuda_build, mbconv_cuda
     from metrabs_tpu_torch.ops import warp as warp_ops
     from metrabs_tpu_torch.ops import warp_cuda
     sources = ('warp', 'mbconv')
     start = time.perf_counter()
     host_sources = ('jpeg_decode', 'jpeg_encode', 'mpeg4_video', 'h264_decode', 'hevc_decode',
-                    'improc', 'png_decode', 'webp_decode')
+                    'improc', 'png_decode', 'webp_decode', 'tiff_decode', 'raster_decode')
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
         host_builds = [pool.submit(cuda_build.build_host_library, h) for h in host_sources]
         built = list(pool.map(cuda_build.build_library, sources))

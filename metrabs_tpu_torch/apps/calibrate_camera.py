@@ -13,7 +13,11 @@ The output JSON is JAX's: `rms_reprojection_error`, `intrinsic_matrix`,
 image). Its `intrinsic_matrix` and `distortion_coeffs` go unchanged into
 `estimate_poses_batched(..., intrinsic_matrix=K, distortion_coeffs=d)`.
 `--camera-id` parses as in JAX and raises NotImplementedError: the port has
-no camera capture (ROADMAP.md, "webcam capture and display").
+no camera capture (ROADMAP.md, "webcam capture and display"). The views are
+read in gray as cv2.imread(IMREAD_GRAYSCALE) reads them, in any format
+`data.improc.imread` decodes (JPEG, PNG, WebP, TIFF with 16-bit samples
+among them, BMP, PNM/PAM/PFM, GIF, Sun raster, Radiance HDR); a file it
+cannot read is skipped, as cv2's None is.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ Usage:
 
 Without --package, runs a randomly initialised MobileNetV3-small estimator
 (a pipeline smoke test); without --boxes, uses the detector (if packaged) or
-one full-image box. The image is read as cv2.imread reads it (JPEG, PNG or
-WebP, EXIF orientation applied). Prints JAX's JSON line, then writes `--out` (the 2D
+one full-image box. The image is read as cv2.imread reads it (JPEG, PNG,
+WebP, TIFF, BMP, PNM/PAM/PFM, GIF, Sun raster or Radiance HDR, EXIF and TIFF
+orientation applied; `data.improc.imread`). Prints JAX's JSON line, then writes `--out` (the 2D
 overlay, JPEG or PNG, equal to JAX's cv2 file) and `--out-3d` (the 3D scene
 of `utils.viz.plot_poses_3d`). JAX's flags plus `--device` (default cuda);
 `--fast-load` is accepted and does nothing: the port runs the flat backbone

@@ -22,6 +22,7 @@
 // Plain C interface for ctypes:
 //   metrabs_jpeg_header(data, size, &height, &width, &orientation, err, n)
 //   metrabs_jpeg_decode(data, size, out, out_size, channels, err, n)
+//   metrabs_jpeg_decode_tiff(data, size, out, out_size, ycbcr, err, n)
 // return 0 on success, 1 for a corrupt file, 2 for an unsupported one (the
 // reason is written to err). `orientation` is the EXIF Orientation tag of the
 // first APP1 segment (1 when absent), read as OpenCV reads it; the caller
@@ -37,6 +38,8 @@
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "raster_common.h"
 
 namespace {
 
@@ -411,6 +414,29 @@ class Decoder {
     reconstruct(out, channels);
   }
 
+  // A strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec gives
+  // it: with `ycbcr` (Photometric YCbCr, JPEGCOLORMODE_RGB) three components
+  // converted to RGB whatever the markers say; otherwise every component as
+  // coded, without colour conversion, all of them unsubsampled.
+  void decode_tiff(uint8_t* out, size_t out_size, bool ycbcr) {
+    parse(true);
+    const int nc = static_cast<int>(comps_.size());
+    if (ycbcr) {
+      if (nc != 3) corrupt("YCbCr data without three components");
+      space_ = kYcc;
+    } else {
+      for (const Component& c : comps_) {
+        if (c.h != 1 || c.v != 1) corrupt("improper JPEG sampling factors");
+      }
+      raw_ = true;
+    }
+    const int channels = ycbcr ? 3 : nc;
+    if (out_size != static_cast<size_t>(height) * width * channels) {
+      corrupt("output buffer of the wrong size");
+    }
+    reconstruct(out, channels);
+  }
+
   int height = 0, width = 0, orientation = 1;
 
  private:
@@ -418,7 +444,7 @@ class Decoder {
   size_t size_;
   size_t pos_ = 0;
   bool progressive_ = false, have_frame_ = false, saw_jfif_ = false, saw_adobe_ = false;
-  bool saw_app1_ = false;
+  bool saw_app1_ = false, raw_ = false;
   int adobe_transform_ = -1;
   enum Space { kGray, kYcc, kRgb, kCmyk, kYcck } space_ = kGray;
   int restart_interval_ = 0;
@@ -872,7 +898,7 @@ class Decoder {
       }
       std::vector<int16_t>().swap(c.coef);
     }
-    const bool luma_only = space_ == kGray || (channels == 1 && space_ == kYcc);
+    const bool luma_only = !raw_ && (space_ == kGray || (channels == 1 && space_ == kYcc));
     const int nc = luma_only ? 1 : static_cast<int>(comps_.size());
     std::vector<std::vector<uint8_t>> rows(nc, std::vector<uint8_t>(width + 8));
     std::vector<int> colsum(width + 8);
@@ -880,6 +906,12 @@ class Decoder {
     for (int y = 0; y < height; y++) {
       for (int ci = 0; ci < nc; ci++) upsample_row(comps_[ci], y, rows[ci].data(), colsum.data());
       uint8_t* o = out + static_cast<size_t>(y) * width * channels;
+      if (raw_) {
+        for (int x = 0; x < width; x++) {
+          for (int ci = 0; ci < nc; ci++) o[static_cast<size_t>(x) * nc + ci] = rows[ci][x];
+        }
+        continue;
+      }
       if (nc == 1) {
         const uint8_t* g = rows[0].data();
         if (channels == 1) std::memcpy(o, g, width);
@@ -918,7 +950,7 @@ class Decoder {
             g = k - ((255 - magenta) * k >> 8);
             b = k - ((255 - yellow) * k >> 8);
             if (channels == 1) {  // icvCvt_CMYK2Gray_8u_C4C1R
-              o[x] = static_cast<uint8_t>((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14);
+              o[x] = gray14(r, g, b);
               continue;
             }
           }
@@ -1007,6 +1039,18 @@ int metrabs_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t o
                         int channels, char* err, int err_len) {
   try {
     Decoder(data, size).decode(out, out_size, channels);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, err_len);
+  } catch (const std::bad_alloc&) {
+    return report(DecodeError{1, "out of memory"}, err, err_len);
+  }
+}
+
+int metrabs_jpeg_decode_tiff(const uint8_t* data, size_t size, uint8_t* out, size_t out_size,
+                             int ycbcr, char* err, int err_len) {
+  try {
+    Decoder(data, size).decode_tiff(out, out_size, ycbcr != 0);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, err_len);

@@ -1,7 +1,8 @@
 """Background replacement augmentation
 (`metrabs_tpu/data/augment/background.py`, with `data.cvfree` and the port's
 `imread`: the pool's .jpg, .jpeg and .png files are read as cv2 reads them,
-whatever their encoding: JPEG, PNG or WebP).
+whatever their encoding: JPEG, PNG, WebP, TIFF, BMP, PNM/PAM/PFM, GIF, Sun
+raster or Radiance HDR).
 
 Replaces the image background (outside the person's foreground mask) with a
 randomly zoomed/shifted crop of a distractor image. The reference uses the

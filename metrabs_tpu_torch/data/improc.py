@@ -1,7 +1,9 @@
 """CPU image helpers of the data pipeline (`metrabs_tpu/data/improc.py`)
 without OpenCV: images are read from JPEG (through `data.jpeg`), PNG
-(`data.png`) and WebP (`data.webp`) files, each equal to cv2's decode, and
-from `.npy` files, and written as
+(`data.png`), WebP (`data.webp`), TIFF (`data.tiff`), BMP (`data.bmp`),
+PNM/PAM/PFM (`data.pnm`), GIF (`data.gif`), Sun raster (`data.sunras`) and
+Radiance HDR (`data.hdr`) files, each equal to cv2's decode, and from
+`.npy` files, and written as
 JPEG (equal to cv2's encode) or PNG, video frames are read as Motion JPEG,
 MPEG-4 Part 2 (mp4v) or H.264 and written as Motion JPEG or mp4v in AVI,
 Matroska and MP4 files (through `data.video`), and the colour and resize
@@ -15,8 +17,14 @@ from typing import Optional
 
 import numpy as np
 
-from metrabs_tpu_torch.data import cvfree, jpeg, png, video, webp
+from metrabs_tpu_torch.data import (bmp, cvfree, gif, hdr, jpeg, png, pnm, sunras, tiff, video,
+                                    webp)
 _JPEG_SIGNATURE = b'\xff\xd8\xff'
+# The formats besides JPEG, PNG and WebP, each with the test of its
+# signature, as cv2.imread picks its decoder.
+_RASTERS = ((tiff.is_tiff, tiff), (bmp.is_bmp, bmp), (pnm.is_pnm, pnm), (gif.is_gif, gif),
+            (sunras.is_sunras, sunras), (hdr.is_hdr, hdr))
+_READ = 'JPEG, PNG, WebP, TIFF, BMP, PNM/PAM/PFM, GIF, Sun raster or Radiance HDR'
 
 
 def imread(path: str, gray: bool = False) -> np.ndarray:
@@ -25,11 +33,17 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
     file's signature, as cv2 reads it: JPEG (`FF D8 FF`; gray, YCbCr, RGB,
     CMYK and YCCK), PNG (`89 50 4E 47`; every colour type and depth, Adam7;
     16 bits keep their high byte, gray is repeated over the three channels
-    and alpha dropped) or WebP (`RIFF....WEBP`; lossless and lossy, the first
-    frame of an animation); a `.npy` file holds such an array. Raises
-    FileNotFoundError for a missing file, ValueError for a corrupt or
-    truncated one (where cv2 returns None), and NotImplementedError for any
-    other format or a tool a decoder does not read.
+    and alpha dropped), WebP (`RIFF....WEBP`; lossless and lossy, the first
+    frame of an animation), TIFF (`II*\\0`, `MM\\0*` and BigTIFF's
+    `II+\\0`, `MM\\0+`; the first page, data.tiff), BMP (`BM`, data.bmp),
+    PNM, PAM and PFM (`P1`-`P7`, `PF`, `Pf`; data.pnm), GIF (`GIF87a`,
+    `GIF89a`; the first frame on its screen, data.gif), Sun raster
+    (`59 A6 6A 95`, data.sunras) or Radiance HDR (`#?RADIANCE`, `#?RGBE`,
+    data.hdr), each with cv2's own conversion to 8 bits; a `.npy` file holds
+    such an array. Raises FileNotFoundError for a missing file, ValueError
+    where cv2 returns None (a corrupt or truncated file, or a kind cv2's
+    reader refuses), and NotImplementedError for any other format (AVIF,
+    JPEG 2000) or a tool a decoder does not read.
 
     `video.ext#frame=N` is frame N (from 0) of a Motion JPEG, mp4v or H.264
     video in AVI, Matroska or MP4 (the ASPset adapter's convention for its
@@ -47,12 +61,12 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
     cv2.IMREAD_GRAYSCALE)` bit for bit: a JPEG's luma plane (libjpeg's
     grayscale output; RGB and CMYK files converted as libjpeg and OpenCV
     convert them), a PNG through libpng's `png_set_rgb_to_gray` as OpenCV
-    sets it up (data/png.py), a WebP through OpenCV's BGR2GRAY. `.npy` files
-    and video frames, which cv2 does not read, raise NotImplementedError in
-    gray."""
+    sets it up (data/png.py), a WebP through OpenCV's BGR2GRAY, the other
+    formats as their OpenCV readers convert them. `.npy` files and video
+    frames, which cv2 does not read, raise NotImplementedError in gray."""
     path = str(path)
     if gray and ('#frame=' in path or os.path.splitext(path)[1].lower() == '.npy'):
-        raise NotImplementedError(f'{path}: gray reads are of JPEG, PNG and WebP files only')
+        raise NotImplementedError(f'{path}: gray reads are of still-image files only')
     if '#frame=' in path:
         video_path, frame_spec = path.split('#frame=')
         return video.read_frame(video_path, int(frame_spec))
@@ -72,7 +86,10 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
         return png.decode(data, path, gray=gray)
     if webp.is_webp(data):
         return webp.decode(data, path, gray=gray)
-    raise NotImplementedError(f'{path}: neither JPEG nor PNG nor WebP (the formats imread decodes)')
+    for is_format, module in _RASTERS:
+        if is_format(data):
+            return module.decode(data, path, gray=gray)
+    raise NotImplementedError(f'{path}: not {_READ} (the formats imread decodes)')
 
 
 def normalize01(im: np.ndarray) -> np.ndarray:
@@ -149,9 +166,12 @@ def rounded_int_tuple(p) -> tuple:
 
 def image_extents(filepath: str) -> np.ndarray:
     """Image (width, height) without decoding pixel data, before any EXIF
-    orientation, as the JAX package reads it from PIL: from a `.npy` file's
-    header, a JPEG's frame header, a PNG's IHDR, or a WebP's canvas (VP8X)
-    or bitstream header; other formats raise NotImplementedError."""
+    or TIFF orientation, as the JAX package reads it from PIL: from a `.npy`
+    file's header, a JPEG's frame header, a PNG's IHDR, a WebP's canvas
+    (VP8X) or bitstream header, a TIFF's first directory, a BMP, PNM or Sun
+    raster header, or a GIF's logical screen. PIL identifies neither PAM,
+    cv2's PFM nor Radiance HDR: those raise ValueError, where the JAX
+    package's PIL raises. Other formats raise NotImplementedError."""
     filepath = str(filepath)
     if os.path.splitext(filepath)[1].lower() == '.npy':
         shape = np.load(filepath, mmap_mode='r').shape
@@ -166,7 +186,11 @@ def image_extents(filepath: str) -> np.ndarray:
             return np.asarray(png.header(data, filepath))
         if webp.is_webp(data):
             return np.asarray(webp.header(data + f.read(), filepath))
-    raise NotImplementedError(f'{filepath}: neither JPEG nor PNG nor WebP')
+        for is_format, module in _RASTERS:
+            if is_format(data):
+                # A TIFF's directory, and a PNM's comments, may lie anywhere.
+                return np.asarray(module.header(data + f.read(), filepath))
+    raise NotImplementedError(f'{filepath}: not {_READ}')
 
 
 def imwrite(path: str, image: np.ndarray) -> None:

@@ -41,7 +41,11 @@ def _library() -> ctypes.CDLL:
             lib.metrabs_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                                 ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
                                                 ctypes.c_char_p, ctypes.c_int]
+            lib.metrabs_jpeg_decode_tiff.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                                     ctypes.c_void_p, ctypes.c_size_t,
+                                                     ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
             lib.metrabs_jpeg_header.restype = lib.metrabs_jpeg_decode.restype = ctypes.c_int
+            lib.metrabs_jpeg_decode_tiff.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
@@ -86,6 +90,22 @@ def decode(data: bytes, name: str = '<bytes>', gray: bool = False) -> np.ndarray
                                           channels, err, _ERR_LEN), err, name)
     out = apply_exif_orientation(out, orientation)
     return out[..., 0] if gray else out
+
+
+def decode_tiff_chunk(data: bytes, components: int, ycbcr: bool,
+                      name: str = '<bytes>') -> np.ndarray:
+    """uint8 [H, W, C] of one strip or tile of a JPEG-compressed TIFF (its
+    JPEGTables already joined to it), as libtiff's JPEG codec gives it to
+    TIFFRGBAImage: with `ycbcr`, RGB (C = 3) whatever the markers say;
+    otherwise the `components` coded components as they are (C =
+    components), none of them subsampled. Raises ValueError as `decode`."""
+    height, width, _ = header(data, name)
+    channels = 3 if ycbcr else components
+    out = np.empty((height, width, channels), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _check(_library().metrabs_jpeg_decode_tiff(data, len(data), out.ctypes.data, out.nbytes,
+                                               int(ycbcr), err, _ERR_LEN), err, name)
+    return out
 
 
 def apply_exif_orientation(im: np.ndarray, orientation: int) -> np.ndarray:

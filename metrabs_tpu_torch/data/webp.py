@@ -21,7 +21,7 @@ import threading
 
 import numpy as np
 
-from metrabs_tpu_torch.data import exif
+from metrabs_tpu_torch.data import exif, raster_native
 from metrabs_tpu_torch.data.jpeg import apply_exif_orientation
 from metrabs_tpu_torch.ops import cuda_build
 
@@ -156,11 +156,7 @@ def decode(data: bytes, name: str = '<bytes>', gray: bool = False) -> np.ndarray
         canvas[info['y']:info['y'] + fh, info['x']:info['x'] + fw] = frame
         frame = canvas
     if gray:
-        rgb = frame.astype(np.int32)
-        # OpenCV 5.0's 8-bit BGR2GRAY: 0.299, 0.587 and 0.114 in 15-bit
-        # fixed point, rounded.
-        frame = ((9798 * rgb[..., 0] + 19235 * rgb[..., 1] + 3735 * rgb[..., 2] + 16384) >> 15
-                 ).astype(np.uint8)[..., None]
+        frame = raster_native.gray15(frame)[..., None]
     out = apply_exif_orientation(frame, info['orientation'])
     return out[..., 0] if gray else out
 

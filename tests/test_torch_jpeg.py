@@ -234,8 +234,12 @@ def test_imread_dispatches_on_the_signature_not_the_name(tmp_path):
         np.testing.assert_array_equal(improc.imread(path), want)
     np.testing.assert_array_equal(improc.image_extents(jpeg_named_png), [30, 20])
     (tmp_path / 'c.jpg').write_bytes(b'GIF89a' + bytes(20))
-    with pytest.raises(NotImplementedError, match='neither JPEG nor PNG'):
+    assert cv2.imread(str(tmp_path / 'c.jpg')) is None  # a GIF with a 0x0 screen
+    with pytest.raises(ValueError, match='GIF screen'):
         improc.imread(str(tmp_path / 'c.jpg'))
+    (tmp_path / 'd.jpg').write_bytes(b'\x00\x00\x00\x0cjP  \r\n\x87\n' + bytes(20))
+    with pytest.raises(NotImplementedError, match='not JPEG, PNG, WebP, TIFF'):
+        improc.imread(str(tmp_path / 'd.jpg'))  # JPEG 2000, not yet read
     with pytest.raises(FileNotFoundError):
         improc.imread(str(tmp_path / 'missing.jpg'))
 

@@ -132,7 +132,14 @@ def test_video_modules_are_held_to_the_card(path):
                                   'metrabs_tpu_torch/data/webp.py',
                                   'metrabs_tpu_torch/data/exif.py',
                                   'metrabs_tpu_torch/data/jpeg.py',
-                                  'metrabs_tpu_torch/data/improc.py'])
+                                  'metrabs_tpu_torch/data/improc.py',
+                                  'metrabs_tpu_torch/data/tiff.py',
+                                  'metrabs_tpu_torch/data/bmp.py',
+                                  'metrabs_tpu_torch/data/pnm.py',
+                                  'metrabs_tpu_torch/data/gif.py',
+                                  'metrabs_tpu_torch/data/sunras.py',
+                                  'metrabs_tpu_torch/data/hdr.py',
+                                  'metrabs_tpu_torch/data/raster_native.py'])
 def test_image_modules_are_held_to_the_card(path):
     """The still-image decoders are port files: no import of theirs, also
     inside functions, is of JAX or of MISSING_ON_CARD (cv2 and Pillow among
@@ -144,16 +151,19 @@ def test_image_modules_are_held_to_the_card(path):
 
 @pytest.mark.parametrize('name', ['h264_decode.cpp', 'hevc_decode.cpp', 'mpeg4_video.cpp',
                                   'video_codec.h', 'yuv_rgb.h', 'png_decode.cpp',
-                                  'webp_decode.cpp', 'jpeg_decode.cpp'])
+                                  'webp_decode.cpp', 'jpeg_decode.cpp', 'tiff_decode.cpp',
+                                  'raster_decode.cpp', 'raster_common.h'])
 def test_video_sources_include_no_library(name):
     """The host decoders include the C++ standard library and the port's own
-    `video_codec.h` and `yuv_rgb.h` only: no FFmpeg, OpenCV, x264, x265,
-    libde265, Xvid, libpng, zlib, libjpeg or libwebp header."""
+    `video_codec.h`, `yuv_rgb.h` and `raster_common.h` only: no FFmpeg,
+    OpenCV, x264, x265, libde265, Xvid, libpng, zlib, libjpeg, libwebp,
+    libtiff or giflib header."""
     source = (REPO / 'metrabs_tpu_torch' / 'csrc' / name).read_text()
     includes = [line.split(None, 1)[1] for line in source.splitlines()
                 if line.startswith('#include')]
     assert includes and all(inc.startswith('<') and '.' not in inc
-                            or inc in ('"video_codec.h"', '"yuv_rgb.h"') for inc in includes), \
+                            or inc in ('"video_codec.h"', '"yuv_rgb.h"', '"raster_common.h"')
+                            for inc in includes), \
         includes
 
 
@@ -200,18 +210,22 @@ def test_failed_hevc_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     assert not list(tmp_path.glob('*.so'))
 
 
-@pytest.mark.parametrize('kind', ['png', 'webp'])
+IMAGE_BUILDS = dict(png='png_ct2_d8.png', webp='webp_lossless_pillow.webp',
+                    tiff='tiff_rgb8_lzw.tif', raster='bmp_rle8.bmp')
+
+
+@pytest.mark.parametrize('kind', sorted(IMAGE_BUILDS))
 def test_failed_image_build_raises_and_nothing_falls_back(kind, monkeypatch, tmp_path):
     """With the compiler failing (`CXX=false`) into an empty build directory,
-    reading a PNG or a WebP raises naming the compiler: no Pillow, cv2 or
-    Python decoder takes over."""
-    from metrabs_tpu_torch.data import improc, png, webp
+    reading a PNG, a WebP, a TIFF or a BMP (the raster library) raises
+    naming the compiler: no Pillow, cv2 or Python decoder takes over."""
+    from metrabs_tpu_torch.data import improc, png, raster_native, tiff, webp
     from metrabs_tpu_torch.ops import cuda_build
     monkeypatch.setattr(cuda_build, 'BUILD_DIR', tmp_path)
     monkeypatch.setenv('CXX', 'false')
-    module = dict(png=png, webp=webp)[kind]
+    module = dict(png=png, webp=webp, tiff=tiff, raster=raster_native)[kind]
     monkeypatch.setattr(module, '_LIB', None)
-    fixture = dict(png='png_ct2_d8.png', webp='webp_lossless_pillow.webp')[kind]
+    fixture = IMAGE_BUILDS[kind]
     path = str(REPO / 'tests' / 'torch_fixtures' / 'images' / fixture)
     with pytest.raises(RuntimeError, match=f'false failed on .*{kind}_decode.cpp'):
         improc.imread(path)
@@ -340,6 +354,12 @@ for name, entry in manifest.items():
     if 'large' in name:
         continue
     for key, gray in (('sha256_rgb', False), ('sha256_gray', True)):
+        if entry[key] is None:  # cv2.imread returns None: the port raises
+            try:
+                imread(fixtures + '/' + name, gray=gray)
+            except ValueError:
+                continue
+            raise AssertionError((name, key))
         im = imread(fixtures + '/' + name, gray=gray)
         assert hashlib.sha256(im.tobytes()).hexdigest() == entry[key], (name, key)
 from metrabs_tpu_torch.eval import harness
@@ -409,8 +429,9 @@ def test_port_and_chip_smoke_run_without_jax_loaded(tmp_path):
     CPU train step of Metrabs and one of Metro, the eval metrics, an example
     loaded from a PNG with every augmentation (`load_and_transform3d`), the
     mask association, JPEG fixtures and the still-image fixtures (PNG,
-    CMYK and RGB JPEG, WebP; colour and gray) decoded to their manifest
-    hashes, an
+    CMYK and RGB JPEG, WebP, TIFF, BMP, PNM/PAM/PFM, GIF, Sun raster and
+    Radiance; colour and gray) decoded to their manifest hashes (or raising
+    where cv2 returns None), an
     HDF5 dump written and read back by the port's own HDF5 code, the
     MATLAB-layout 3DHP fixture read to its manifest hashes through
     `load_3dhp_test_frames` and scored by `eval_3dhp`, one detector
