@@ -253,7 +253,18 @@ line:
     packet timed on one thread; the turned clips of
     tests/torch_fixtures/orientation (fault F10: mp4v, H.264 and HEVC 8- and
     10-bit, every matrix of cv2's table, MP4 and QuickTime), their turns,
-    frames, seeks and displayed sizes held to cv2's. Under runs/ (deleted
+    frames, seeks and displayed sizes held to cv2's; the mp4v decoder on
+    the Advanced Simple clips of tests/torch_fixtures/mp4v_asp
+    (libxvidcore's B-VOPs in open and closed GOPs, packed, MPEG
+    quantisation with default and custom matrices, quarter-pel with 4MV,
+    GMC and interlaced coding; FFmpeg's encoder's field vectors; Xvid's
+    usual stream of them all at three sizes in AVI and Matroska; B-VOPs in
+    MP4 with ctts), every packet, key flag, Y/U/V plane (FFmpeg's
+    decoder's) and luma plane held to the manifest, RGB frames and every
+    seek to cv2's, on the interlaced clips, which cv2 has no picture of
+    (fault F14), to FFmpeg's decoder's frames through libswscale, the
+    1080x1920 decode per packet timed on one thread, the packets that
+    decode a B-VOP apart. Under runs/ (deleted
     after): the mp4v
     encoder on
     MP4V_FRAMES shifted 1080x1920 frames into an .mp4 (timed on one
@@ -295,7 +306,10 @@ line:
     degrees in its track header) timed, then again with every K1 launch
     against the plain warp, every input frame as displayed the manifest's,
     the overlay 1080 wide, each picture decoded once (path
-    demo_video_hevc10);
+    demo_video_hevc10); on Xvid's usual Advanced Simple 1080x1920 AVI
+    (MP4V_ASP_DEMO) timed, then again with every K1 launch against the
+    plain warp, every input frame the manifest's, each VOP decoded once
+    (path demo_video_mp4v_asp);
     `apps.predict_3dpw.main --viz-dir` on a 3DPW layout of 8 frames
     (SMPL-24 package), its figures under JAX's names read back and timed;
     `apps.predict_aspset.main` on the mp4v .mkv clips and on the H.264
@@ -307,7 +321,9 @@ line:
     checked, every input frame the manifest's, each picture decoded once
     by the 8 I/O threads (path predict_aspset_h264_b); on the HEVC and HEVC
     B-frame .mkv views likewise (paths predict_aspset_hevc,
-    predict_aspset_hevc_b);
+    predict_aspset_hevc_b), and on an ASPset layout whose two views are
+    Xvid's usual Advanced Simple .mkv (MP4V_ASP_VIEW, all its frames) likewise
+    (path predict_aspset_mp4v_asp);
 13b. images: still images as cv2.imread reads them. Every fixture of
     tests/torch_fixtures/images (PNG of every colour type and depth with
     and without tRNS, Adam7, APNG and eXIf; Adobe CMYK, YCCK and RGB
@@ -2382,9 +2398,9 @@ class DriverRuns:
     """Runs a benchmark driver's `main` with its package loaded through
     `loader(method, **overrides)`, which keeps the estimator, times the
     loading and records the arguments of each call of `method`, and with
-    `jpeg.decode`, `mpeg4.Decoder.decode`, and `h264.Decoder` and
-    `hevc.Decoder` `.decode` and `.flush` (what `improc.imread` and the video
-    reader call) and `jpeg.encode` and `mpeg4.Encoder.encode` (what
+    `jpeg.decode`, and `mpeg4.Decoder`, `h264.Decoder` and `hevc.Decoder`
+    `.decode` and `.flush` (what `improc.imread` and the
+    video reader call) and `jpeg.encode` and `mpeg4.Encoder.encode` (what
     `improc.imwrite` and the video writer call) timed; K1's and K2's counts
     are set to 0 just before the driver runs and read just after, and the
     mp4v, H.264 and HEVC frames decoded in the run are counted."""
@@ -2399,7 +2415,7 @@ class DriverRuns:
         self.original_hevc = hevc.Decoder.decode, hevc.Decoder.flush
         self.original_load, self.original_decode = packaging.load_pose_estimator, jpeg.decode
         self.original_encode = jpeg.encode
-        self.original_mp4v = mpeg4.Decoder.decode, mpeg4.Encoder.encode
+        self.original_mp4v = mpeg4.Decoder.decode, mpeg4.Decoder.flush, mpeg4.Encoder.encode
         self.loaded, self.calls, self.decode_spans, self.load_s = [], [], [], []
         self.encode_spans = []
         self.call_s = []  # seconds of each recorded call, CUDA-synchronised
@@ -2450,7 +2466,8 @@ class DriverRuns:
     def restore(self) -> None:
         self.packaging.load_pose_estimator = self.original_load
         self.jpeg.decode, self.jpeg.encode = self.original_decode, self.original_encode
-        self.mpeg4.Decoder.decode, self.mpeg4.Encoder.encode = self.original_mp4v
+        (self.mpeg4.Decoder.decode, self.mpeg4.Decoder.flush,
+         self.mpeg4.Encoder.encode) = self.original_mp4v
         self.h264.Decoder.decode, self.h264.Decoder.flush = self.original_h264
         self.hevc.Decoder.decode, self.hevc.Decoder.flush = self.original_hevc
 
@@ -2463,7 +2480,8 @@ class DriverRuns:
         self.packaging.load_pose_estimator, self.jpeg.decode = load, self.timed_decode
         self.jpeg.encode = self.timed_encode
         self.mpeg4.Decoder.decode = self.timed_method(self.original_mp4v[0], self.decode_spans)
-        self.mpeg4.Encoder.encode = self.timed_method(self.original_mp4v[1], self.encode_spans)
+        self.mpeg4.Decoder.flush = self.timed_method(self.original_mp4v[1], self.decode_spans)
+        self.mpeg4.Encoder.encode = self.timed_method(self.original_mp4v[2], self.encode_spans)
         self.h264.Decoder.decode = self.timed_method(self.original_h264[0], self.decode_spans)
         self.h264.Decoder.flush = self.timed_method(self.original_h264[1], self.decode_spans)
         self.hevc.Decoder.decode = self.timed_method(self.original_hevc[0], self.decode_spans)
@@ -3414,6 +3432,12 @@ HEVC10_STORED = (1920, 1080)  # (width, height) of the phone's frames as coded
 # the port does not; its RGB is not held to the manifest there.
 HEVC10_CV2_MAPS_COLOURS = ('hevc10_tool_bt2020_hlg.mp4',)
 ORIENTATION_FIXTURES = 'tests/torch_fixtures/orientation'
+# MPEG-4 Advanced Simple: libxvidcore's clips and FFmpeg's encoder's
+# interlaced ones; Xvid's usual stream at 1080x1920 as demo_video's AVI
+# input, and its Matroska copy as each view of an ASPset layout.
+MP4V_ASP_FIXTURES = 'tests/torch_fixtures/mp4v_asp'
+MP4V_ASP_DEMO = 'xvid_asp_usual_1080x1920.avi'
+MP4V_ASP_VIEW = 'xvid_asp_usual_1080x1920.mkv'
 # The B-frame clips whose GOPs make demo inputs: fixtures, clip, codec, and
 # the GOPs of demo_video's input and of each ASPset view.
 B_SOURCES = {'h264_b': (H264_B_FIXTURES, H264_B_SOURCE, 'h264', H264_B_DEMO_GOPS,
@@ -3590,7 +3614,7 @@ def check_mp4v_fixtures(root: Path) -> dict:
         lumas, rgbs = [], []
         for packet in packets:
             t = time.perf_counter()
-            rgb, y = decoder.decode(packet, luma=True)
+            (rgb, y), = decoder.decode(packet, luma=True)  # no B-VOPs: a frame per packet
             if idx.height == FRAME_3DPW_SIZE[0]:
                 times.append(time.perf_counter() - t)
             lumas.append(sha(y.tobytes()))
@@ -3607,6 +3631,75 @@ def check_mp4v_fixtures(root: Path) -> dict:
         n_frames += len(packets)
     return dict(files=len(manifest), frames=n_frames, ms=statistics.median(times) * 1e3,
                 n_timed=len(times))
+
+
+def check_mp4v_asp_fixtures(root: Path) -> dict:
+    """Every MPEG-4 Advanced Simple fixture through the port's demuxer and
+    decoder: each packet, key flag, Y/U/V plane (FFmpeg's decoder's) and
+    luma plane held to the manifest, the RGB frames to cv2's and every
+    imread('#frame=N') to cv2's seek table (on the interlaced clips, which
+    cv2 has no picture of, F14: to FFmpeg's decoder's frames through
+    libswscale, in its order), size and frame count to cv2's; the 1080x1920
+    packets' decode timed on one thread, those that decode a B-VOP
+    apart."""
+    import hashlib
+
+    from metrabs_tpu_torch.data import improc, video
+
+    def sha(data) -> str:
+        return hashlib.sha256(data if isinstance(data, bytes) else data.tobytes()).hexdigest()
+
+    manifest = json.loads((root / MP4V_ASP_FIXTURES / 'manifest.json').read_text())
+    n_frames = n_seeks = n_interlaced = 0
+    times, b_times = [], []
+    for name, entry in sorted(manifest.items()):
+        path = str(root / MP4V_ASP_FIXTURES / name)
+        idx = video.index(path)
+        packets = [idx.packet(i) for i in range(idx.n_frames)]
+        decoder = idx.decoder()
+        out = []
+        for packet in packets:
+            b_vops = decoder.stats()['b_vops']
+            t = time.perf_counter()
+            out += decoder.decode(packet, planes=True)
+            dt = time.perf_counter() - t
+            if idx.height == FRAME_3DPW_SIZE[0]:
+                times.append(dt)
+                if decoder.stats()['b_vops'] > b_vops:
+                    b_times.append(dt)
+        out += decoder.flush(planes=True)
+        decoder.close()
+        planes = [[sha(p) for p in yuv] for _, yuv in out]
+        n_interlaced += not entry['cv2_is_ffmpeg']
+        # cv2 has no picture of an interlaced clip (F14): its N-th frame is
+        # FFmpeg's decoder's N-th, through swscale (the manifest's rgb_from).
+        seek = entry['seek'] or list(range(len(entry['rgb_sha256']))) + [-1]
+        seeks_wrong = 0
+        for n, want in enumerate(seek):
+            n_seeks += 1
+            try:
+                got = sha(improc.imread(f'{path}#frame={n}'))
+                seeks_wrong += want < 0 or got != entry['rgb_sha256'][want]
+            except FileNotFoundError:
+                seeks_wrong += want >= 0
+        cv = entry['cv2']
+        meta = (improc.video_extents(path).tolist(), improc.num_frames_of_video(path))
+        wrong = [what for what, got, want in (
+            ('packets', [sha(p) for p in packets], entry['packet_sha256']),
+            ('key flags', idx.keyframes.tolist(), entry['key_frames']),
+            ('Y/U/V planes', planes, entry['lavc_sha256']),
+            ('luma', [p[0] for p in planes], entry['luma_sha256']),
+            ('RGB', [sha(rgb) for rgb, _ in out], entry['rgb_sha256']),
+            ('seeks', seeks_wrong, 0),
+            ('metadata', meta, ([cv['width'], cv['height']], cv['frame_count']))) if got != want]
+        if wrong:
+            fail('demos', f'{name}: {", ".join(wrong)} differ from the manifest\'s '
+                          f'({idx.n_frames} packets, {len(out)} frames, {meta})')
+        n_frames += len(out)
+    return dict(files=len(manifest), frames=n_frames, seeks=n_seeks, interlaced=n_interlaced,
+                ms=statistics.median(times) * 1e3, n_timed=len(times),
+                b_ms=statistics.median(b_times) * 1e3, n_b=len(b_times),
+                all_ms=[t * 1e3 for t in times])
 
 
 def check_h264_fixtures(root: Path) -> dict:
@@ -3933,7 +4026,7 @@ def check_mp4v_encoder(root: Path, path: Path) -> dict:
         for i in range(idx.n_frames):
             packet = idx.packet(i, f)
             t = time.perf_counter()
-            rgb, y = decoder.decode(packet, luma=True)
+            (rgb, y), = decoder.decode(packet, luma=True)  # no B-VOPs: a frame per packet
             dec_times.append(time.perf_counter() - t)
             exact += int(np.array_equal(y, recon[i]))
             mse.append(np.mean((rgb.astype(np.float64) - frames[i]) ** 2))
@@ -3954,8 +4047,9 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
     JAX's test writes them) written by the port's own writer, or H.264 or
     HEVC muxed from the fixture's packets ('h264', 'hevc':
     H264_ASPSET_PACKETS; 'h264_b', 'hevc_b': the B-frame fixture's GOPs,
-    B_SOURCES). Returns the manifest's RGB SHA-256 of each frame by clip
-    path (H.264, HEVC)."""
+    B_SOURCES), or copies of MP4V_ASP_VIEW, all its frames ('mp4v_asp').
+    Returns the manifest's RGB SHA-256 of each frame by clip path (H.264,
+    HEVC, mp4v_asp)."""
     from metrabs_tpu_torch.data import video
 
     subj, vid = '01', '0001'
@@ -3963,12 +4057,17 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
     (work / 'splits.csv').write_text('subject,video,view,split\n' + ''.join(
         f'{subj},{vid},{view},test\n' for view in ASPSET_VIEWS))
     frames = shifted_frames(root, ASPSET_FRAMES) if codec == 'mp4v' else []
+    n_frames, asp_want = ASPSET_FRAMES, None
+    if codec == 'mp4v_asp':
+        asp_want = json.loads((root / MP4V_ASP_FIXTURES / 'manifest.json').read_text())[
+            MP4V_ASP_VIEW]['rgb_sha256']
+        n_frames = len(asp_want)
     want = {}
     for i_view, view in enumerate(ASPSET_VIEWS):
         for d in ('boxes', 'cameras', 'videos'):
             (work / 'test' / d / subj).mkdir(parents=True, exist_ok=True)
         lines = ['x1,y1,x2,y2'] + [f'{300 + 10 * k + 40 * i_view},400,{700 + 10 * k},1500'
-                                   for k in range(ASPSET_FRAMES)]
+                                   for k in range(n_frames)]
         (work / 'test' / 'boxes' / subj / f'{subj}-{vid}-{view}.csv').write_text(
             '\n'.join(lines) + '\n')
         (work / 'test' / 'cameras' / subj / f'{subj}-{view}.json').write_text(
@@ -3979,6 +4078,10 @@ def mint_aspset_layout(root: Path, work: Path, codec: str = 'mp4v') -> dict:
             continue
         if codec in B_SOURCES:
             want[str(clip)] = mux_b_gops(root, clip, B_SOURCES[codec][4][view], codec)
+            continue
+        if codec == 'mp4v_asp':
+            shutil.copy(root / MP4V_ASP_FIXTURES / MP4V_ASP_VIEW, clip)
+            want[str(clip)] = asp_want
             continue
         with video.VideoWriter(str(clip), 50.0, (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0]),
                                'mp4v') as writer:
@@ -4084,6 +4187,20 @@ def demos_phase(root: Path, dev) -> dict:
                 f'and 10-bit in MP4 and QuickTime .mov; movie-header and Matroska-roll cases), '
                 f'turns {turned["turns"]} equal cv2\'s, all {turned["frames"]} frames, every '
                 f'imread(#frame=N) and the displayed sizes cv2\'s')
+    asp = check_mp4v_asp_fixtures(root)
+    phase(name, f'mp4v decoder, Advanced Simple: {asp["files"]} files (libxvidcore\'s B-VOPs in '
+                f'open and closed GOPs, packed, MPEG quantisation with default and custom '
+                f'matrices, quarter-pel with 4MV, GMC, interlaced; FFmpeg\'s encoder\'s field '
+                f'vectors; Xvid\'s usual stream of them all at 96x66, 320x568 and 1080x1920 in '
+                f'AVI and Matroska; B-VOPs in MP4 with ctts), all {asp["frames"]} frames\' '
+                f'packets, key flags, Y/U/V planes (FFmpeg\'s decoder\'s) and luma planes equal '
+                f'their manifest hashes, RGB frames and all {asp["seeks"]} imread(#frame=N) '
+                f'cv2\'s (on the {asp["interlaced"]} interlaced clips, which cv2 has no picture of, '
+                f'F14: FFmpeg\'s decoder\'s through libswscale), sizes and counts cv2\'s; 1080x1920 '
+                f'decode of Xvid\'s usual stream {asp["ms"]:.2f} ms per packet on one thread '
+                f'(median of {asp["n_timed"]}), {asp["b_ms"]:.2f} ms per packet that decodes a '
+                f'B-VOP (median of {asp["n_b"]}; all: '
+                + ', '.join(f'{t:.1f}' for t in asp['all_ms']) + f') on {card_name()}')
 
     work = root / DEMOS_DIR
     shutil.rmtree(work, ignore_errors=True)
@@ -4117,6 +4234,7 @@ def demos_phase(root: Path, dev) -> dict:
         hevcb_src = work / 'in_hevc_b.mp4'
         hevcb_want = mux_b_gops(root, hevcb_src, HEVC_B_DEMO_GOPS, 'hevc_b')
         aspset_hevc_b_want = mint_aspset_layout(root, work / 'aspset_hevc_b', 'hevc_b')
+        aspset_asp_want = mint_aspset_layout(root, work / 'aspset_mp4v_asp', 'mp4v_asp')
         phase(name, f'minted in {time.perf_counter() - t0:.1f} s: {IMPORT_MODEL} on H36M-17 '
                     f'with a firing YOLOv4-{DETECTOR_SIZE}; a {DEMO_VIDEO_FRAMES}-frame '
                     f'1080x1920 MJPEG .avi and an ASPset layout of {len(ASPSET_VIEWS)} views x '
@@ -4129,7 +4247,8 @@ def demos_phase(root: Path, dev) -> dict:
                     f'1080x1920 HEVC .mp4 (hvc1) and an ASPset layout of HEVC .mkv views, muxed '
                     f'by the port from {HEVC_SOURCE}\'s packets; a {len(hevcb_want)}-frame '
                     f'1080x1920 B-frame HEVC .mp4 (ctts, elst) and an ASPset layout of B-frame '
-                    f'HEVC .mkv views, whole closed GOPs of {HEVC_B_SOURCE}')
+                    f'HEVC .mkv views, whole closed GOPs of {HEVC_B_SOURCE}; an ASPset layout '
+                    f'whose views are {MP4V_ASP_VIEW}')
 
         # demo_image on the 1080x1920 JPEG fixture: every K1 launch against
         # the plain warp; the overlay JPEG and the 3D scene PNG read back, the
@@ -4193,7 +4312,7 @@ def demos_phase(root: Path, dev) -> dict:
             encoder = mpeg4.Encoder(back.width, back.height, back.fps)
             packet, _ = encoder.encode(video.read_frame(str(source), 0))
             drawn = None if np.array_equal(
-                first, mpeg4.Decoder(encoder.config).decode(packet)) else 0
+                first, mpeg4.Decoder(encoder.config).decode(packet)[0]) else 0
             if (result['frames'] != DEMO_VIDEO_FRAMES or back.n_frames != DEMO_VIDEO_FRAMES
                     or result['total_poses'] == 0 or drawn is None
                     or (back.width, back.height) != (FRAME_3DPW_SIZE[1], FRAME_3DPW_SIZE[0])
@@ -4373,6 +4492,52 @@ def demos_phase(root: Path, dev) -> dict:
                     f'{back.n_frames} {back.codec} frames of {back.width}x{back.height}; run again '
                     f'with every launch checked: K1 {r["k1"]}, each against the plain warp (max '
                     f'|kernel - plain| {warp_err:.3g}), K2 {r["k2"]}')
+        launches[key] = (r['k1'], r['k2'])
+        del r, timed
+
+        # demo_video on Xvid's usual Advanced Simple AVI (packed B-VOPs,
+        # quarter-pel, MPEG quantisation, GMC): timed, then again with every
+        # K1 launch against the plain warp, every input frame the manifest's,
+        # each VOP decoded once.
+        key = 'demo_video_mp4v_asp'
+        asp_in = root / MP4V_ASP_FIXTURES / MP4V_ASP_DEMO
+        asp_in_want = json.loads((root / MP4V_ASP_FIXTURES / 'manifest.json').read_text())[
+            MP4V_ASP_DEMO]['rgb_sha256']
+        demo_args = ['--video', str(asp_in), '--package', str(work / 'pkg'),
+                     '--out', str(work / f'{key}.mp4'), '--frame-batch', str(DEMO_FRAME_BATCH)]
+        drawing = TimedCalls((demo_image, 'draw_poses'))
+        try:
+            timed = drivers.run(drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES),
+                                demo_video.main, demo_args)
+        finally:
+            drawing.restore()
+        timed['draw_s'] = drawing.seconds('draw_poses')
+        r, warp_errs = checked_warps(lambda: drivers.run(
+            drivers.loader('detect_poses_batched', call_kwargs=KEEP_POSES), demo_video.main,
+            demo_args))
+        result = json.loads(r['last'])
+        back = video.index(str(work / f'{key}.mp4'))
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(str(asp_in))]
+        n_a = len(asp_in_want)
+        n_calls = math.ceil(n_a / DEMO_FRAME_BATCH)
+        warp_err = max(warp_errs, default=math.inf)
+        if (result['frames'] != n_a or back.n_frames != n_a or got != asp_in_want
+                or result['total_poses'] == 0 or len(r['calls']) != n_calls
+                or r['k1'] < n_calls or len(warp_errs) != r['k1'] or not warp_err <= WARP_TOL
+                or r['k2'] != 0 or r['mp4v_decodes'] != n_a or timed['mp4v_decodes'] != n_a
+                or timed['k1'] != r['k1'] or r['h264_decodes'] or r['hevc_decodes']):
+            fail(name, f'{key}: {result}, {back.n_frames} frames read back, '
+                       f'{sum(a != b for a, b in zip(got, asp_in_want))} of {n_a} input frames '
+                       f'unlike the manifest, {len(r["calls"])} batched calls, K1 {r["k1"]} '
+                       f'({len(warp_errs)} compared, max |kernel - plain| {warp_err:.3g}), K2 '
+                       f'{r["k2"]}, {r["mp4v_decodes"]} and {timed["mp4v_decodes"]} VOPs decoded')
+        phase(name, f'{key} ({asp_in.name}: {n_a} frames of Xvid\'s usual Advanced Simple stream, '
+                    f'frame batch {DEMO_FRAME_BATCH}, num_aug 2, folded; '
+                    f'{result["total_poses"]} poses): ' + demo_timing(timed, n_a) + f'; every '
+                    f'input frame equal to the manifest (cv2\'s), {r["mp4v_decodes"]} VOPs '
+                    f'decoded ({r["mp4v_decodes"] / n_a:g} per frame read); run again with every '
+                    f'launch checked: K1 {r["k1"]}, each against the plain warp (max |kernel - '
+                    f'plain| {warp_err:.3g}), K2 {r["k2"]}')
         launches[key] = (r['k1'], r['k2'])
         del r, timed
 
@@ -4559,6 +4724,41 @@ def demos_phase(root: Path, dev) -> dict:
                         f'with the checks: {r["seconds"]:.2f} s, decoding {r["decode_s"]:.2f} s')
             launches[key] = (r['k1'], r['k2'])
             del r
+
+        # predict_aspset on the Advanced Simple .mkv views (Xvid's usual
+        # packed stream, all its frames), the same way.
+        key = 'predict_aspset_mp4v_asp'
+        (((r, warp_errs), v_errs, mean_errs)) = checked_mbconv(
+            lambda: checked_warps(lambda: aspset_run(f'pred_{key}', 'aspset_mp4v_asp')))
+        n_view = len(next(iter(aspset_asp_want.values())))
+        n_asp, asp_calls = len(ASPSET_VIEWS) * n_view, len(ASPSET_VIEWS) * math.ceil(
+            n_view / ASPSET_BATCH)
+        preds = [np.load(work / f'pred_{key}' / f'01-0001-{view}.npz')['coords3d_pred_world']
+                 for view in ASPSET_VIEWS]
+        unlike = sum(a != b for clip, want in aspset_asp_want.items() for a, b in zip(
+            [hashlib.sha256(f.tobytes()).hexdigest() for f in video.iter_frames(clip)], want))
+        warp_err, err_v = max(warp_errs, default=math.inf), max(v_errs, default=math.inf)
+        if (r['k1'] != asp_calls or r['k2'] != K2_BLOCKS * asp_calls
+                or len(r['calls']) != asp_calls or len(warp_errs) != asp_calls
+                or len(v_errs) != K2_BLOCKS * asp_calls or warp_err != 0.0 or err_v != 0.0
+                or r['mp4v_decodes'] != n_asp or r['h264_decodes'] or r['hevc_decodes'] or unlike
+                or any(p.shape != (n_view, 17, 3) or not np.isfinite(p).all() for p in preds)):
+            fail(name, f'{key}: K1 {r["k1"]}, K2 {r["k2"]} (expected {asp_calls} and '
+                       f'{K2_BLOCKS * asp_calls}), {len(r["calls"])} calls, {len(warp_errs)} K1 '
+                       f'launches compared (max |kernel - plain| {warp_err:.3g}, must be 0), '
+                       f'{len(v_errs)} K2 (v max {err_v:.3g}, must be 0), {r["mp4v_decodes"]} '
+                       f'VOPs decoded (expected {n_asp}), {unlike} input frames unlike the '
+                       f'manifest, predictions {[p.shape for p in preds]}')
+        phase(name, f'{key} (Xvid\'s usual Advanced Simple .mkv, {len(ASPSET_VIEWS)} views x '
+                    f'{n_view} frames, num_aug 1, batch {ASPSET_BATCH}, antialias 2), unfolded, '
+                    f'fuse_mbconv on: every input frame equal to the manifest; '
+                    f'{r["mp4v_decodes"]} VOPs decoded for {n_asp} frames read by 8 I/O threads; '
+                    f'K1 {r["k1"]}, each against the plain warp (max |kernel - plain| '
+                    f'{warp_err:.3g}), K2 {r["k2"]}, each against the plain chain (v max '
+                    f'{err_v:.3g}, SE mean max {max(mean_errs, default=math.inf):.3g}); with the '
+                    f'checks: {r["seconds"]:.2f} s, decoding {r["decode_s"]:.2f} s')
+        launches[key] = (r['k1'], r['k2'])
+        del r
     finally:
         drivers.restore()
         shutil.rmtree(work, ignore_errors=True)

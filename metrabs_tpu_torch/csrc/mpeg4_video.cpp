@@ -1,38 +1,65 @@
-// MPEG-4 Part 2 Simple Profile video (ISO/IEC 14496-2; the `mp4v` FourCC
-// that cv2 and FFmpeg write) on the host: a decoder whose planes equal
-// FFmpeg's (libavcodec's mpeg4 decoder) bit for bit, and an encoder whose
-// reconstruction is the decoder's own.
+// MPEG-4 Part 2 video (ISO/IEC 14496-2; the `mp4v` FourCC that cv2 and
+// FFmpeg write, and the Advanced Simple streams Xvid writes) on the host: a
+// decoder whose planes equal FFmpeg's (libavcodec's mpeg4 decoder) bit for
+// bit, and a Simple Profile encoder whose reconstruction is the decoder's
+// own.
 //
-// Decoder. I- and P-VOPs of rectangular, progressive, 8-bit 4:2:0 video with
-// H.263 quantisation: DC/AC prediction with the alternate scans, intra DC
-// through the DC size VLCs or (intra_dc_vlc_thr) the AC table, dquant,
-// not-coded MBs, intra MBs in P-VOPs, 1MV and 4MV with median prediction and
-// f_code wrap, half-pel MC that honours vop_rounding_type, unrestricted MVs
-// over references replicated past the edge of the MB-aligned picture (FFmpeg
-// pads from mb_width * 16, not the display width), resync markers and video
-// packets, and not-coded VOPs (the reference repeats; FFmpeg outputs no frame
-// for one, and `data.video` numbers frames as FFmpeg does, from
-// metrabs_mp4v_vop_coded). The decisions FFmpeg
-// takes where the standard leaves room are taken as it takes them: the DC
-// clip to [0, 2047], the AC rescale by the neighbour's qscale, the AC buffers
-// cleared at a video packet, the MV prediction at a packet's first line.
-// The IDCT is FFmpeg's C "simple IDCT" (integer rows, then columns, with
-// 11- and 20-bit shifts and the DC-only row shortcut), which FFmpeg uses for
-// Lavc-stamped and unstamped streams; probed against cv2's FFmpeg, its
-// planes are equal bit for bit. A stream whose user data carries an Xvid
-// stamp ("XviD<build>", read as FFmpeg's decode_user_data reads it) is
-// decoded with FFmpeg's Xvid IDCT (ff_xvid_idct: 16-bit rows with per-row
-// rounding, then columns through the tangent butterflies), as FFmpeg
-// switches to it. FFmpeg also takes an unstamped stream in an AVI with the
-// FourCC XVID (XVIX, RMP4, ZMP4, SIPP) for Xvid build 0, and DivX-stamped or
-// unstamped DIVX streams for DivX: both then get bug workarounds (edge
-// emulation, DC clipping, half-pel chroma rounding) that this decoder does
-// not emulate, so they are refused, as Xvid builds up to 32 are.
+// Decoder. Rectangular 8-bit 4:2:0 video:
+// - I-, P-, B- and S-VOPs. DC/AC prediction with the alternate scans, intra
+//   DC through the DC size VLCs or (intra_dc_vlc_thr) the AC table, dquant
+//   and dbquant, not-coded MBs, intra MBs in P- and S-VOPs, 1MV and 4MV with
+//   median prediction and f_code wrap, unrestricted MVs over references
+//   replicated past the edge of the MB-aligned picture (FFmpeg pads from
+//   mb_width * 16, not the display width), resync markers and video
+//   packets, not-coded VOPs.
+// - B-VOPs: forward, backward, interpolated and direct modes (the
+//   co-located MB's 1MV, 4MV or field vectors scaled by TRB / TRD from the
+//   VOP times, modulo_time_base wraps included), a B-MB skipped where the
+//   co-located MB was not coded, fcode_backward, and FFmpeg's skipping of a
+//   B-VOP without two anchors or out of order (an open GOP after a seek).
+// - Output order as FFmpeg's decoder gives it: with low_delay 0 an anchor
+//   comes out when the next one is decoded and the last at the flush; a
+//   not-coded VOP gives no frame, but a final one gives the last frame
+//   again (FFmpeg's skipped_last_frame); a packed bitstream (DivX 5's
+//   convention, which Xvid's XVID_GLOBAL_PACKED writes, stamped
+//   "DivX<ver>b<build>p") has its second VOP decoded with the next packet,
+//   whose placeholder is dropped.
+// - MPEG quantisation (quant_type 1): the default matrices or loaded ones
+//   (zigzag order, to the end-of-matrix zero), FFmpeg's dequantisation
+//   (the intra DC by the DC scaler, mismatch control on inter blocks only).
+// - Quarter-pel MC with FFmpeg's MPEG-4 filters (mirrored at the block's
+//   edges; 8x8 blocks for 4MV and for direct mode's vectors) and its chroma
+//   vectors; FFmpeg's QPEL_CHROMA workarounds belong to the refused builds.
+// - GMC (sprite_enable 2) of three warping points, as Xvid writes it: the
+//   sprite trajectory, FFmpeg's one-point path where the warp is a
+//   translation and its general path else, mcsel per MB, the average MV of
+//   a GMC MB for its neighbours and for direct mode.
+// - Interlaced coding: field DCT, field MVs in P- and B-VOPs with their
+//   field selects and the chroma rounding of field vectors, field direct
+//   mode, top_field_first and alternate_vertical_scan_flag; a frame is the
+//   two fields woven, as FFmpeg outputs it (no deinterlacing).
+// Half-pel MC honours vop_rounding_type (B-VOPs round). The decisions
+// FFmpeg takes where the standard leaves room are taken as it takes them:
+// the DC clip to [0, 2047], the AC rescale by the neighbour's qscale, the AC
+// buffers cleared at a video packet, the MV prediction at a packet's first
+// line. The IDCT is FFmpeg's C "simple IDCT" (integer rows, then columns,
+// with 11- and 20-bit shifts and the DC-only row shortcut), which FFmpeg
+// uses for Lavc-stamped and unstamped streams; a stream whose user data
+// carries an Xvid stamp ("XviD<build>", read as FFmpeg's decode_user_data
+// reads it) is decoded with FFmpeg's Xvid IDCT (ff_xvid_idct: 16-bit rows
+// with per-row rounding, then columns through the tangent butterflies), as
+// FFmpeg switches to it, whatever DivX stamp stands beside it. FFmpeg also
+// takes an unstamped stream in an AVI with the FourCC XVID (XVIX, RMP4,
+// ZMP4, SIPP) for Xvid build 0, and DivX-stamped or unstamped DIVX streams
+// for DivX: both then get bug workarounds (edge emulation, DC clipping,
+// half-pel and quarter-pel chroma rounding, the direct-mode block size)
+// that this decoder does not emulate, so they are refused, as Xvid builds
+// up to 32 are.
 //
-// Every other tool of the standard raises "unsupported" naming it: B-VOPs,
-// S-VOPs (sprites, GMC), quarter-pel, interlaced, data partitioning and
-// RVLC, non-rectangular shape, MPEG quantisation (quant_type 1), not-8-bit,
-// reduced resolution VOPs, newpred, scalability and complexity estimation.
+// Every other tool raises "unsupported" naming it: static sprites, sprite
+// brightness change, GMC of other than 3 warping points, data partitioning
+// and RVLC, non-rectangular shape, not-8-bit, reduced resolution VOPs,
+// newpred, scalability and complexity estimation.
 //
 // Encoder. I-VOP every `gop` frames, P-VOPs between, at a fixed quantiser,
 // 1MV with a predictor search and half-pel refinement, intra MBs where they
@@ -589,7 +616,7 @@ void block_idct(const int16_t* coef, int* res, bool xvid) {
 }
 
 // ---------------------------------------------------------------------------
-// Planes and half-pel motion compensation
+// Planes
 
 struct Plane {
   int w = 0, h = 0;  // coded (MB-aligned) size
@@ -612,54 +639,199 @@ struct Frame {
   }
 };
 
-// Predicts a bw x bh block at (sx, sy) + half-pel offset dxy (bit 0 x, bit 1
-// y) of `ref`, whose pixels past its edges repeat the edge (FFmpeg's
-// emulated edge over the MB-aligned picture). rnd: 0 rounds half up (FFmpeg's
-// put_pixels), 1 rounds down (put_no_rnd_pixels).
-void mc_block(const Plane& ref, int sx, int sy, int dxy, int bw, int bh, int rnd, uint8_t* dst,
-              int dstride) {
-  uint8_t tmp[17 * 17];
-  const int tw = bw + 1, th = bh + 1;
-  const uint8_t* src;
-  int sstride;
-  if (sx >= 0 && sy >= 0 && sx + tw <= ref.w && sy + th <= ref.h) {
-    src = ref.row(sy) + sx;
-    sstride = ref.w;
-  } else {
-    for (int y = 0; y < th; y++) {
-      int yy = std::min(std::max(sy + y, 0), ref.h - 1);
-      const uint8_t* r = ref.row(yy);
-      for (int x = 0; x < tw; x++) tmp[y * tw + x] = r[std::min(std::max(sx + x, 0), ref.w - 1)];
-    }
-    src = tmp;
-    sstride = tw;
+// ---------------------------------------------------------------------------
+// Motion compensation, as FFmpeg predicts (hpeldsp, qpeldsp,
+// mpegvideo_motion and mpeg4videodsp in C): half-pel, quarter-pel, field
+// rows and GMC. Reference samples are read through `window`: in place
+// inside the plane, clamped to the MB-aligned plane past its edge.
+
+// The w x h window of `p` from column x0 and (field) row y0, frame row
+// ystep * (y0 + r) + yoff: in the plane itself where it lies inside (*stride
+// its row step), else copied into `tmp` (row step ts) with each coordinate
+// clamped into the plane, as FFmpeg's emulated edge repeats the edge of the
+// MB-aligned picture.
+const uint8_t* window(const Plane& p, int x0, int y0, int w, int h, int ystep, int yoff,
+                      uint8_t* tmp, int ts, int* stride) {
+  const int top = ystep * y0 + yoff, bottom = ystep * (y0 + h - 1) + yoff;
+  if (x0 >= 0 && x0 + w <= p.w && top >= 0 && bottom < p.h) {
+    *stride = ystep * p.w;
+    return p.row(top) + x0;
   }
+  for (int r = 0; r < h; r++) {
+    const uint8_t* row = p.row(std::min(std::max(ystep * (y0 + r) + yoff, 0), p.h - 1));
+    for (int c = 0; c < w; c++) tmp[r * ts + c] = row[std::min(std::max(x0 + c, 0), p.w - 1)];
+  }
+  *stride = ts;
+  return tmp;
+}
+
+// FFmpeg's put(_no_rnd)_pixels of a window of (bw + 1) x (bh + 1): half-pel
+// offset dxy (bit 0 x, bit 1 y); rnd 0 rounds half up, 1 rounds down.
+void hpel(const uint8_t* s, int ss, int dxy, int bw, int bh, int rnd, uint8_t* d, int ds) {
   switch (dxy) {
     case 0:
-      for (int y = 0; y < bh; y++) memcpy(dst + y * dstride, src + y * sstride, bw);
+      for (int y = 0; y < bh; y++) memcpy(d + y * ds, s + y * ss, bw);
       break;
     case 1:
       for (int y = 0; y < bh; y++)
         for (int x = 0; x < bw; x++) {
-          const uint8_t* s = src + y * sstride + x;
-          dst[y * dstride + x] = (uint8_t)((s[0] + s[1] + 1 - rnd) >> 1);
+          const uint8_t* p = s + y * ss + x;
+          d[y * ds + x] = (uint8_t)((p[0] + p[1] + 1 - rnd) >> 1);
         }
       break;
     case 2:
       for (int y = 0; y < bh; y++)
         for (int x = 0; x < bw; x++) {
-          const uint8_t* s = src + y * sstride + x;
-          dst[y * dstride + x] = (uint8_t)((s[0] + s[sstride] + 1 - rnd) >> 1);
+          const uint8_t* p = s + y * ss + x;
+          d[y * ds + x] = (uint8_t)((p[0] + p[ss] + 1 - rnd) >> 1);
         }
       break;
     default:
       for (int y = 0; y < bh; y++)
         for (int x = 0; x < bw; x++) {
-          const uint8_t* s = src + y * sstride + x;
-          dst[y * dstride + x] =
-              (uint8_t)((s[0] + s[1] + s[sstride] + s[sstride + 1] + 2 - rnd) >> 2);
+          const uint8_t* p = s + y * ss + x;
+          d[y * ds + x] = (uint8_t)((p[0] + p[1] + p[ss] + p[ss + 1] + 2 - rnd) >> 2);
         }
   }
+}
+
+// Predicts a bw x bh block from (x0, y0) of p (field rows: ystep 2, yoff
+// the field) at half-pel offset dxy.
+void hpel_block(const Plane& p, int x0, int y0, int ystep, int yoff, int dxy, int bw, int bh,
+                int rnd, uint8_t* d, int ds) {
+  uint8_t tmp[17 * 17];
+  int ss;
+  const uint8_t* s = window(p, x0, y0, bw + 1, bh + 1, ystep, yoff, tmp, bw + 1, &ss);
+  hpel(s, ss, dxy, bw, bh, rnd, d, ds);
+}
+
+// The MPEG-4 quarter-pel filter (taps 20, -6, 3, -1, mirrored at the block's
+// edges) over n outputs per row of `rows` rows, and down n columns.
+void qpel_h(const uint8_t* s, int ss, uint8_t* d, int ds, int n, int rows, int rnd) {
+  auto at = [n](int j) { return j < 0 ? -1 - j : j > n ? 2 * n + 1 - j : j; };
+  for (int r = 0; r < rows; r++) {
+    const uint8_t* p = s + r * ss;
+    for (int i = 0; i < n; i++) {
+      int v = (p[at(i)] + p[at(i + 1)]) * 20 - (p[at(i - 1)] + p[at(i + 2)]) * 6 +
+              (p[at(i - 2)] + p[at(i + 3)]) * 3 - (p[at(i - 3)] + p[at(i + 4)]);
+      d[r * ds + i] = clip_pixel((v + 16 - rnd) >> 5);
+    }
+  }
+}
+
+void qpel_v(const uint8_t* s, int ss, uint8_t* d, int ds, int n, int rnd) {
+  auto at = [n](int j) { return j < 0 ? -1 - j : j > n ? 2 * n + 1 - j : j; };
+  for (int c = 0; c < n; c++)
+    for (int i = 0; i < n; i++) {
+      auto p = [&](int j) { return (int)s[at(j) * ss + c]; };
+      int v = (p(i) + p(i + 1)) * 20 - (p(i - 1) + p(i + 2)) * 6 + (p(i - 2) + p(i + 3)) * 3 -
+              (p(i - 3) + p(i + 4));
+      d[i * ds + c] = clip_pixel((v + 16 - rnd) >> 5);
+    }
+}
+
+void avg2(const uint8_t* a, int as, const uint8_t* b, int bs, uint8_t* d, int ds, int n, int rows,
+          int rnd) {
+  for (int r = 0; r < rows; r++)
+    for (int c = 0; c < n; c++) d[r * ds + c] = (uint8_t)((a[r * as + c] + b[r * bs + c] + 1 - rnd) >> 1);
+}
+
+// FFmpeg's (put|put_no_rnd)_qpel{8,16}_mcXY_c over a window of (n + 1) x
+// (n + 1) samples: quarter-pel offset dxy (bits 0-1 x, 2-3 y).
+void qpel(const uint8_t* s, int ss, int n, int dxy, int rnd, uint8_t* d, int ds) {
+  const int x = dxy & 3, y = dxy >> 2;
+  uint8_t half_h[17 * 17], half[16 * 16];
+  if (y == 0) {
+    if (x == 0) {
+      for (int r = 0; r < n; r++) memcpy(d + r * ds, s + r * ss, n);
+    } else if (x == 2) {
+      qpel_h(s, ss, d, ds, n, n, rnd);
+    } else {
+      qpel_h(s, ss, half, 16, n, n, rnd);
+      avg2(s + (x == 3), ss, half, 16, d, ds, n, n, rnd);
+    }
+    return;
+  }
+  if (x == 0) {
+    if (y == 2) {
+      qpel_v(s, ss, d, ds, n, rnd);
+    } else {
+      qpel_v(s, ss, half, 16, n, rnd);
+      avg2(s + (y == 3) * ss, ss, half, 16, d, ds, n, n, rnd);
+    }
+    return;
+  }
+  qpel_h(s, ss, half_h, 17, n, n + 1, rnd);
+  if (x != 2) avg2(half_h, 17, s + (x == 3), ss, half_h, 17, n, n + 1, rnd);
+  if (y == 2) {
+    qpel_v(half_h, 17, d, ds, n, rnd);
+  } else {
+    qpel_v(half_h, 17, half, 16, n, rnd);
+    avg2(half_h + (y == 3) * 17, 17, half, 16, d, ds, n, n, rnd);
+  }
+}
+
+// Predicts an n x n luma block from (x0, y0) (field rows as in hpel_block)
+// at quarter-pel offset dxy.
+void qpel_block(const Plane& p, int x0, int y0, int ystep, int yoff, int dxy, int n, int rnd,
+                uint8_t* d, int ds) {
+  uint8_t tmp[17 * 17];
+  int ss;
+  const uint8_t* s = window(p, x0, y0, n + 1, n + 1, ystep, yoff, tmp, 17, &ss);
+  qpel(s, ss, n, dxy, rnd, d, ds);
+}
+
+// FFmpeg's ff_gmc_c: 8 columns of h rows warped by the affine map whose
+// 16.16 fixed-point source position starts at (ox, oy) and steps by (dxx,
+// dyx) per column and (dxy, dyy) per row; `width` and `height` are the
+// plane's (its edge past them repeats).
+void gmc8(const Plane& p, uint8_t* d, int ds, int h, int ox, int oy, int dxx, int dxy, int dyx,
+          int dyy, int shift, int r) {
+  const int s = 1 << shift, width = p.w - 1, height = p.h - 1;
+  auto px = [&p](int x, int y) { return (int)p.row(y)[x]; };
+  for (int y = 0; y < h; y++) {
+    int vx = ox, vy = oy;
+    for (int x = 0; x < 8; x++) {
+      int src_x = vx >> 16, src_y = vy >> 16;
+      const int frac_x = src_x & (s - 1), frac_y = src_y & (s - 1);
+      src_x >>= shift;
+      src_y >>= shift;
+      int v;
+      if ((unsigned)src_x < (unsigned)width) {
+        if ((unsigned)src_y < (unsigned)height) {
+          v = ((px(src_x, src_y) * (s - frac_x) + px(src_x + 1, src_y) * frac_x) * (s - frac_y) +
+               (px(src_x, src_y + 1) * (s - frac_x) + px(src_x + 1, src_y + 1) * frac_x) * frac_y +
+               r) >> (shift * 2);
+        } else {
+          const int yy = std::min(std::max(src_y, 0), height);
+          v = ((px(src_x, yy) * (s - frac_x) + px(src_x + 1, yy) * frac_x) * s + r) >> (shift * 2);
+        }
+      } else {
+        const int xx = std::min(std::max(src_x, 0), width);
+        if ((unsigned)src_y < (unsigned)height) {
+          v = ((px(xx, src_y) * (s - frac_y) + px(xx, src_y + 1) * frac_y) * s + r) >> (shift * 2);
+        } else {
+          v = px(xx, std::min(std::max(src_y, 0), height));
+        }
+      }
+      d[y * ds + x] = (uint8_t)v;
+      vx += dxx;
+      vy += dyx;
+    }
+    ox += dxy;
+    oy += dyy;
+  }
+}
+
+// FFmpeg's gmc1_c: 8 columns of h rows, bilinear at sixteenth-pel (x16,
+// y16) over a window with one more row and column.
+void gmc1(const uint8_t* s, int ss, uint8_t* d, int ds, int h, int x16, int y16, int rounder) {
+  const int A = (16 - x16) * (16 - y16), B = x16 * (16 - y16), C = (16 - x16) * y16, D = x16 * y16;
+  for (int y = 0; y < h; y++)
+    for (int x = 0; x < 8; x++) {
+      const uint8_t* p = s + y * ss + x;
+      d[y * ds + x] = (uint8_t)((A * p[0] + B * p[1] + C * p[ss] + D * p[ss + 1] + rounder) >> 8);
+    }
 }
 
 // The chroma vector of 4MV from the sum of the four luma vectors (half-pel):
@@ -681,6 +853,12 @@ struct Vol {
   int ver_id = 1;
   int vo_type = 0;
   bool control_parameters = false;
+  bool interlaced = false;
+  int sprite = 0;  // sprite_enable: 2 GMC
+  int warping_points = 0, warping_accuracy = 0;
+  bool mpeg_quant = false;
+  uint8_t intra_matrix[64], inter_matrix[64];  // natural order
+  bool quarter_sample = false;
 };
 
 struct MbState {  // per-MB motion and prediction state, with a border
@@ -711,18 +889,46 @@ struct MbState {  // per-MB motion and prediction state, with a border
 };
 
 
+// The kind of an MB's prediction (an intra MB: none).
+enum MbKind : uint8_t { kIntraMb, k16x16, k8x8, kFieldMb, kGmcMb };
+
+// The motion of one direction of an inter MB (FFmpeg's mv_type, mv and
+// field_select).
+struct Motion {
+  int type = k16x16;  // k16x16, k8x8, kFieldMb or kGmcMb
+  int mv[4][2] = {};  // 16x16: [0]; 8x8: per block; field: [0] top, [1] bottom
+  int sel[2] = {0, 1};
+};
+
+// How many VOPs, MBs and refusals of each kind the decoder met (the tools a
+// stream really uses: a fixture's tests read them).
+enum Stat {
+  kStatI, kStatP, kStatB, kStatS, kStatNotCoded, kStatBDropped, kStatPackedVops, kStatMcsel,
+  kStatFieldDct, kStatFieldMv, kStatDirect, kStatDirectField, kStat4Mv, kStatQpelMv,
+  kStatCount
+};
+
+// Where an MB's prediction goes: its luma 16x16 and chroma 8x8 blocks and
+// their row steps (the MB's place in the picture, or a buffer).
+struct Pred {
+  uint8_t *y, *u, *v;
+  int ys, cs;
+};
+
 // ---------------------------------------------------------------------------
 // The state and reconstruction that the decoder and the encoder share
 
 class Codec {
  public:
   int width = 0, height = 0;
-
-  // The last complete frame (the reference of the next P-VOP).
-  const Frame& output() const { return ref_; }
+  // The stream's VOL: the decoder reads it; the encoder's is Simple
+  // Profile's, every Advanced Simple tool off, so that its MBs take the
+  // half-pel, H.263-quantised paths below.
+  Vol vol;
+  int64_t stats[kStatCount] = {};  // by Stat: what the decoder met
 
  protected:
-  Frame cur_, ref_;
+  Frame cur_;  // the picture being coded
   MbState st_;
   int mbw_ = 0, mbh_ = 0;
   int pict_ = 0, qscale_ = 1, rounding_ = 0, fcode_ = 1;
@@ -733,6 +939,12 @@ class Codec {
   int16_t block_[6][64];
   int last_index_[6];
   bool xvid_idct_ = false;  // FFmpeg's Xvid IDCT in place of its simple IDCT
+  bool interlaced_dct_ = false;  // the MB's luma blocks are fields
+  uint16_t intra_matrix_[64], inter_matrix_[64];  // MPEG quantisation's
+  // GMC: FFmpeg's sprite_offset, sprite_delta and sprite_shift, and how
+  // many points the warp really needs (1: a translation).
+  int sprite_offset_[2][2] = {}, sprite_delta_[2][2] = {}, sprite_shift_[2] = {};
+  int real_warping_points_ = 0;
 
   void init_size(int w, int h) {
     width = w;
@@ -740,7 +952,6 @@ class Codec {
     mbw_ = (w + 15) / 16;
     mbh_ = (h + 15) / 16;
     cur_.resize(mbw_, mbh_);
-    ref_.resize(mbw_, mbh_);
     st_.resize(mbw_, mbh_);
   }
 
@@ -941,6 +1152,186 @@ class Codec {
     return cur_.p[plane].row(mb_y_ * 8) + mb_x_ * 8;
   }
 
+  // ---- prediction
+
+  // One direction's prediction of the MB (FFmpeg's mpv_motion_internal).
+  void predict(const Frame& ref, const Motion& m, int rnd, const Pred& p) {
+    if (m.type == kGmcMb) {
+      predict_gmc(ref, rnd, p);
+    } else if (m.type == k8x8) {
+      predict_8x8(ref, m, rnd, p);
+    } else if (m.type == kFieldMb) {
+      for (int i = 0; i < 2; i++) predict_field(ref, m.mv[i][0], m.mv[i][1], i, m.sel[i], rnd, p);
+    } else if (vol.quarter_sample) {
+      predict_qpel16(ref, m.mv[0][0], m.mv[0][1], rnd, p);
+    } else {
+      const int mx = m.mv[0][0], my = m.mv[0][1];
+      const int dxy = ((my & 1) << 1) | (mx & 1);
+      const int sx = mb_x_ * 16 + (mx >> 1), sy = mb_y_ * 16 + (my >> 1);
+      hpel_block(ref.p[0], sx, sy, 1, 0, dxy, 16, 16, rnd, p.y, p.ys);
+      const int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+      hpel_block(ref.p[1], sx >> 1, sy >> 1, 1, 0, uvdxy, 8, 8, rnd, p.u, p.cs);
+      hpel_block(ref.p[2], sx >> 1, sy >> 1, 1, 0, uvdxy, 8, 8, rnd, p.v, p.cs);
+    }
+  }
+
+  // FFmpeg's qpel_motion of a frame MB.
+  void predict_qpel16(const Frame& ref, int mx, int my, int rnd, const Pred& p) {
+    if (mx & 3 || my & 3) stats[kStatQpelMv]++;
+    const int dxy = ((my & 3) << 2) | (mx & 3);
+    qpel_block(ref.p[0], mb_x_ * 16 + (mx >> 2), mb_y_ * 16 + (my >> 2), 1, 0, dxy, 16, rnd, p.y, p.ys);
+    int cx = mx / 2, cy = my / 2;
+    cx = (cx >> 1) | (cx & 1);
+    cy = (cy >> 1) | (cy & 1);
+    const int uvdxy = (cx & 1) | ((cy & 1) << 1);
+    const int ux = mb_x_ * 8 + (cx >> 1), uy = mb_y_ * 8 + (cy >> 1);
+    hpel_block(ref.p[1], ux, uy, 1, 0, uvdxy, 8, 8, rnd, p.u, p.cs);
+    hpel_block(ref.p[2], ux, uy, 1, 0, uvdxy, 8, 8, rnd, p.v, p.cs);
+  }
+
+  // One field of a field MB: rows i, i + 2, ... of the MB from field `sel`
+  // of the reference (FFmpeg's mpeg_motion_field, or qpel_motion with
+  // field_based).
+  void predict_field(const Frame& ref, int mx, int my, int i, int sel, int rnd, const Pred& p) {
+    if (vol.quarter_sample) {
+      if (mx & 3 || my & 3) stats[kStatQpelMv]++;
+      const int dxy = ((my & 3) << 2) | (mx & 3);
+      const int sx = mb_x_ * 16 + (mx >> 2), sy = mb_y_ * 8 + (my >> 2);
+      for (int h = 0; h < 2; h++)
+        qpel_block(ref.p[0], sx + 8 * h, sy, 2, sel, dxy, 8, rnd, p.y + p.ys * i + 8 * h, 2 * p.ys);
+      int cx = mx / 2, cy = my >> 1;
+      cx = (cx >> 1) | (cx & 1);
+      cy = (cy >> 1) | (cy & 1);
+      const int uvdxy = (cx & 1) | ((cy & 1) << 1);
+      const int ux = mb_x_ * 8 + (cx >> 1), uy = mb_y_ * 4 + (cy >> 1);
+      hpel_block(ref.p[1], ux, uy, 2, sel, uvdxy, 8, 4, rnd, p.u + p.cs * i, 2 * p.cs);
+      hpel_block(ref.p[2], ux, uy, 2, sel, uvdxy, 8, 4, rnd, p.v + p.cs * i, 2 * p.cs);
+      return;
+    }
+    const int dxy = ((my & 1) << 1) | (mx & 1);
+    const int sx = mb_x_ * 16 + (mx >> 1), sy = mb_y_ * 8 + (my >> 1);
+    hpel_block(ref.p[0], sx, sy, 2, sel, dxy, 16, 8, rnd, p.y + p.ys * i, 2 * p.ys);
+    const int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+    hpel_block(ref.p[1], sx >> 1, sy >> 1, 2, sel, uvdxy, 8, 4, rnd, p.u + p.cs * i, 2 * p.cs);
+    hpel_block(ref.p[2], sx >> 1, sy >> 1, 2, sel, uvdxy, 8, 4, rnd, p.v + p.cs * i, 2 * p.cs);
+  }
+
+  // FFmpeg's apply_8x8: four luma blocks and one chroma vector.
+  void predict_8x8(const Frame& ref, const Motion& m, int rnd, const Pred& p) {
+    int sumx = 0, sumy = 0;
+    for (int i = 0; i < 4; i++) {
+      const int mx = m.mv[i][0], my = m.mv[i][1];
+      uint8_t* d = p.y + (i >> 1) * 8 * p.ys + (i & 1) * 8;
+      if (vol.quarter_sample) {
+        if (mx & 3 || my & 3) stats[kStatQpelMv]++;
+        int dxy = ((my & 3) << 2) | (mx & 3);
+        int sx = mb_x_ * 16 + (mx >> 2) + (i & 1) * 8, sy = mb_y_ * 16 + (my >> 2) + (i >> 1) * 8;
+        sx = std::min(std::max(sx, -16), width);
+        if (sx == width) dxy &= ~3;
+        sy = std::min(std::max(sy, -16), height);
+        if (sy == height) dxy &= ~12;
+        qpel_block(ref.p[0], sx, sy, 1, 0, dxy, 8, rnd, d, p.ys);
+        sumx += mx / 2;
+        sumy += my / 2;
+      } else {
+        int sx = mb_x_ * 16 + (i & 1) * 8 + (mx >> 1), sy = mb_y_ * 16 + (i >> 1) * 8 + (my >> 1);
+        int dxy = 0;
+        sx = std::min(std::max(sx, -16), width);
+        if (sx != width) dxy |= mx & 1;
+        sy = std::min(std::max(sy, -16), height);
+        if (sy != height) dxy |= (my & 1) << 1;
+        hpel_block(ref.p[0], sx, sy, 1, 0, dxy, 8, 8, rnd, d, p.ys);
+        sumx += mx;
+        sumy += my;
+      }
+    }
+    const int mx = round_chroma_4mv(sumx), my = round_chroma_4mv(sumy);
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    int sx = mb_x_ * 8 + (mx >> 1), sy = mb_y_ * 8 + (my >> 1);
+    sx = std::min(std::max(sx, -8), width >> 1);
+    if (sx == (width >> 1)) dxy &= ~1;
+    sy = std::min(std::max(sy, -8), height >> 1);
+    if (sy == (height >> 1)) dxy &= ~2;
+    hpel_block(ref.p[1], sx, sy, 1, 0, dxy, 8, 8, rnd, p.u, p.cs);
+    hpel_block(ref.p[2], sx, sy, 1, 0, dxy, 8, 8, rnd, p.v, p.cs);
+  }
+
+  // FFmpeg's gmc1_motion (a translation) and gmc_motion (the warp).
+  void predict_gmc(const Frame& ref, int rnd, const Pred& p) {
+    const int acc = vol.warping_accuracy;
+    if (real_warping_points_ == 1) {
+      for (int plane = 0; plane < 3; plane++) {
+        const bool luma = plane == 0;
+        const int size = luma ? 16 : 8;
+        int mx = sprite_offset_[luma ? 0 : 1][0], my = sprite_offset_[luma ? 0 : 1][1];
+        int sx = (luma ? mb_x_ * 16 : mb_x_ * 8) + (mx >> (acc + 1));
+        int sy = (luma ? mb_y_ * 16 : mb_y_ * 8) + (my >> (acc + 1));
+        mx *= 1 << (3 - acc);
+        my *= 1 << (3 - acc);
+        const int w = luma ? width : width >> 1, h = luma ? height : height >> 1;
+        sx = std::min(std::max(sx, -size), w);
+        if (sx == w) mx = 0;
+        sy = std::min(std::max(sy, -size), h);
+        if (sy == h) my = 0;
+        uint8_t tmp[17 * 17];
+        int ss;
+        const uint8_t* s = window(ref.p[plane], sx, sy, size + 1, size + 1, 1, 0, tmp, 17, &ss);
+        uint8_t* d = plane == 0 ? p.y : plane == 1 ? p.u : p.v;
+        const int ds = luma ? p.ys : p.cs;
+        if (!luma || (mx | my) & 7) {
+          for (int h8 = 0; h8 < size; h8 += 8)
+            gmc1(s + h8, ss, d + h8, ds, size, mx & 15, my & 15, 128 - rnd);
+        } else {
+          hpel(s, ss, ((mx >> 3) & 1) | ((my >> 2) & 2), 16, 16, rnd, d, ds);
+        }
+      }
+      return;
+    }
+    const int dxx = sprite_delta_[0][0], dxy = sprite_delta_[0][1];
+    const int dyx = sprite_delta_[1][0], dyy = sprite_delta_[1][1];
+    const int shift = acc + 1, r = (1 << (2 * acc + 1)) - rnd;
+    int ox = sprite_offset_[0][0] + dxx * mb_x_ * 16 + dxy * mb_y_ * 16;
+    int oy = sprite_offset_[0][1] + dyx * mb_x_ * 16 + dyy * mb_y_ * 16;
+    gmc8(ref.p[0], p.y, p.ys, 16, ox, oy, dxx, dxy, dyx, dyy, shift, r);
+    gmc8(ref.p[0], p.y + 8, p.ys, 16, ox + dxx * 8, oy + dyx * 8, dxx, dxy, dyx, dyy, shift, r);
+    ox = sprite_offset_[1][0] + dxx * mb_x_ * 8 + dxy * mb_y_ * 8;
+    oy = sprite_offset_[1][1] + dyx * mb_x_ * 8 + dyy * mb_y_ * 8;
+    gmc8(ref.p[1], p.u, p.cs, 8, ox, oy, dxx, dxy, dyx, dyy, shift, r);
+    gmc8(ref.p[2], p.v, p.cs, 8, ox, oy, dxx, dxy, dyx, dyy, shift, r);
+  }
+
+  // The luma block n of the MB in cur_ (field DCT: its rows interleave).
+  uint8_t* luma_block(int n, int* stride) {
+    const int w = cur_.p[0].w;
+    if (interlaced_dct_) {
+      *stride = 2 * w;
+      return cur_.p[0].row(mb_y_ * 16 + (n >> 1)) + mb_x_ * 16 + (n & 1) * 8;
+    }
+    *stride = w;
+    return dest(0, n);
+  }
+
+  uint8_t* block_dest(int n, int* stride) {
+    if (n < 4) return luma_block(n, stride);
+    *stride = cur_.p[n - 3].w;
+    return dest(n - 3, n);
+  }
+
+  // FFmpeg's dct_unquantize_mpeg2_inter: the matrix, then mismatch control
+  // on the last coefficient.
+  void dequant_mpeg_inter(int16_t* b) {
+    int sum = -1;
+    for (int j = 0; j < 64; j++) {
+      int level = b[j];
+      if (!level) continue;
+      int v = (((std::abs(level) << 1) + 1) * (qscale_ << 1) * inter_matrix_[j]) >> 5;
+      level = level < 0 ? -v : v;
+      b[j] = (int16_t)level;
+      sum += level;
+    }
+    b[63] ^= (int16_t)(sum & 1);
+  }
+
   // Intra MB: block_ holds quantised levels (the DC with its prediction).
   void reconstruct_intra() {
     const int qmul = qscale_ << 1, qadd = (qscale_ - 1) | 1;
@@ -949,118 +1340,216 @@ class Codec {
       b[0] = (int16_t)(b[0] * (n < 4 ? y_dc_ : c_dc_));
       for (int k = 1; k < 64; k++) {
         int level = b[k];
-        if (level) b[k] = (int16_t)(level < 0 ? level * qmul - qadd : level * qmul + qadd);
+        if (!level) continue;
+        if (vol.mpeg_quant) {  // dct_unquantize_mpeg2_intra (no mismatch control)
+          int v = (std::abs(level) * (qscale_ << 1) * intra_matrix_[k]) >> 4;
+          b[k] = (int16_t)(level < 0 ? -v : v);
+        } else {
+          b[k] = (int16_t)(level < 0 ? level * qmul - qadd : level * qmul + qadd);
+        }
       }
-      int plane = n < 4 ? 0 : n - 3;
-      idct_put(b, dest(plane, n), cur_.p[plane].w, xvid_idct_);
+      int stride;
+      uint8_t* d = block_dest(n, &stride);
+      idct_put(b, d, stride, xvid_idct_);
     }
   }
 
-  // Inter MB: the motion-compensated prediction into cur_ (FFmpeg's
-  // mpeg_motion for one vector, hpel_motion and chroma_4mv_motion for four).
-  void predict_inter(int mv_type, const int mvs[4][2]) {
-    const Plane& ry = ref_.p[0];
-    if (mv_type <= 1) {
-      int mx = mvs[0][0], my = mvs[0][1];
-      int dxy = ((my & 1) << 1) | (mx & 1);
-      int sx = mb_x_ * 16 + (mx >> 1), sy = mb_y_ * 16 + (my >> 1);
-      mc_block(ry, sx, sy, dxy, 16, 16, rounding_, dest(0, 0), cur_.p[0].w);
-      int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-      for (int c = 1; c < 3; c++)
-        mc_block(ref_.p[c], sx >> 1, sy >> 1, uvdxy, 8, 8, rounding_, dest(c, 0), cur_.p[c].w);
-      return;
-    }
-    int sumx = 0, sumy = 0;
-    for (int i = 0; i < 4; i++) {
-      int mx = mvs[i][0], my = mvs[i][1];
-      int sx = mb_x_ * 16 + (i & 1) * 8 + (mx >> 1);
-      int sy = mb_y_ * 16 + (i >> 1) * 8 + (my >> 1);
-      int dxy = 0;
-      sx = std::min(std::max(sx, -16), width);
-      if (sx != width) dxy |= mx & 1;
-      sy = std::min(std::max(sy, -16), height);
-      if (sy != height) dxy |= (my & 1) << 1;
-      mc_block(ry, sx, sy, dxy, 8, 8, rounding_, dest(0, i), cur_.p[0].w);
-      sumx += mx;
-      sumy += my;
-    }
-    int mx = round_chroma_4mv(sumx), my = round_chroma_4mv(sumy);
-    int dxy = ((my & 1) << 1) | (mx & 1);
-    int sx = mb_x_ * 8 + (mx >> 1), sy = mb_y_ * 8 + (my >> 1);
-    sx = std::min(std::max(sx, -8), width >> 1);
-    if (sx == (width >> 1)) dxy &= ~1;
-    sy = std::min(std::max(sy, -8), height >> 1);
-    if (sy == (height >> 1)) dxy &= ~2;
-    for (int c = 1; c < 3; c++)
-      mc_block(ref_.p[c], sx, sy, dxy, 8, 8, rounding_, dest(c, 0), cur_.p[c].w);
+
+  // The MB's place in cur_, where its prediction goes.
+  Pred in_picture() {
+    return Pred{dest(0, 0), dest(1, 0), dest(2, 0), cur_.p[0].w, cur_.p[1].w};
   }
 
-  // Inter MB: block_ holds dequantised coefficients of the coded blocks.
+  // Inter MB: adds the residual of the coded blocks to the prediction in
+  // cur_ (block_ holds H.263 coefficients dequantised as read, MPEG ones
+  // still to dequantise).
   void add_residual() {
     for (int n = 0; n < 6; n++) {
       if (last_index_[n] < 0) continue;
-      int plane = n < 4 ? 0 : n - 3;
-      idct_add(block_[n], dest(plane, n), cur_.p[plane].w, xvid_idct_);
+      if (vol.mpeg_quant) dequant_mpeg_inter(block_[n]);
+      int stride;
+      uint8_t* d = block_dest(n, &stride);
+      idct_add(block_[n], d, stride, xvid_idct_);
     }
   }
 };
 
+// Table B-33: the sprite trajectory's dmv_length.
+const uint16_t kSpriteTrajectory[15][2] = {{0x00, 2},  {0x02, 3},  {0x03, 3},  {0x04, 3},
+                                           {0x05, 3},  {0x06, 3},  {0x0e, 4},  {0x1e, 5},
+                                           {0x3e, 6},  {0x7e, 7},  {0xfe, 8},  {0x1fe, 9},
+                                           {0x3fe, 10}, {0x7fe, 11}, {0xffe, 12}};
+// Table B-3 (mb_type of B-VOPs): direct, interpolate, backward, forward.
+const uint8_t kBMbType[4][2] = {{1, 1}, {1, 2}, {1, 3}, {1, 4}};
+
+const Vlc& sprite_vlc() {
+  static const Vlc v{kSpriteTrajectory, 15, 12};
+  return v;
+}
+const Vlc& b_mb_type_vlc() {
+  static const Vlc v{kBMbType, 4, 4};
+  return v;
+}
+
+// The default matrices of MPEG quantisation (natural order).
+const uint8_t kDefaultIntraMatrix[64] = {
+    8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28, 20, 21, 22, 23, 24, 26,
+    28, 30, 21, 22, 23, 24, 26, 28, 30, 32, 22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28,
+    30, 32, 35, 38, 25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45};
+const uint8_t kDefaultInterMatrix[64] = {
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24, 18, 19, 20, 21, 22, 23,
+    24, 25, 19, 20, 21, 22, 23, 24, 26, 27, 20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24,
+    26, 27, 28, 30, 22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
+
+inline int rounded_div64(int64_t a, int64_t b) {
+  return (int)((a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b);
+}
+
 // ---------------------------------------------------------------------------
 // Decoder
 
+// What a B-VOP's direct mode and skipping read of the co-located MB of the
+// anchor after it: FFmpeg's mb_type, mbskip_table, motion_val, and for a
+// field MB its two vectors and field selects.
+struct MbInfo {
+  uint8_t kind = kIntraMb;
+  uint8_t skipped = 0;
+  uint8_t field_sel[2] = {0, 0};
+  int16_t mv[4][2] = {};
+  int16_t field_mv[2][2] = {};
+};
+
+// A decoded picture: its planes, its MBs' motion (anchors) and its tag
+// (packet index * 4 + VOP ordinal in the packet).
+struct Picture {
+  Frame f;
+  std::vector<MbInfo> mb;
+  int64_t tag = -1;
+};
+
 class Decoder : public Codec {
  public:
-  Vol vol;
-  bool have_ref = false;
   // The colour of the RGB conversion: the container's (an MP4 colr box), as
   // FFmpeg keeps it for a stream whose visual object sends no video signal
   // type; BT.601 and limited range without one.
   int matrix = 2, full_range = 0;
+  bool headers_only = false;  // read headers and order frames; decode no MB
+  std::string fourcc;         // the AVI FourCC, else empty
+  int pictures = 0;           // VOPs decoded (or parsed, headers only)
 
-  void header(const uint8_t* data, size_t n) { parse(data, n, false); }
+  // The frame the last call output (null if none) and its tag.
+  const Frame* out = nullptr;
+  int64_t out_tag = -1;
 
-  // Decodes one packet; returns true if it held a VOP (coded or not).
-  bool decode(const uint8_t* data, size_t n) { return parse(data, n, true); }
+  // Reads the headers before the first VOP (a decoder configuration).
+  void header(const uint8_t* data, size_t n) { parse(data, n, nullptr); }
 
-  // The vop_coded flag of the packet's VOP (reading its headers, not its
-  // macroblocks); -1 without a VOP.
-  int vop_coded(const uint8_t* data, size_t n) {
-    size_t i = 0;
-    while (i + 4 <= n) {
-      if (!(data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1)) {
-        i++;
-        continue;
+  // Decodes one packet as FFmpeg's decoder takes it (with the packed
+  // bitstream's stored VOP: DivX 5's convention, which Xvid's packed mode
+  // writes); `out` is the frame it outputs, if any.
+  void decode(const uint8_t* data, size_t n, int64_t tag) {
+    out = nullptr;
+    skipped_last_ = false;
+    const uint8_t* src = data;
+    size_t len = n;
+    int64_t src_tag = tag * 4;
+    bool from_buffer = false;
+    std::vector<uint8_t> stored;
+    if (!buffer_.empty()) {
+      bool discard = false;
+      if (divx_packed_) {
+        for (size_t i = 0; i + 3 < n; i++)
+          if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1) {
+            discard = data[i + 3] == 0xb0;
+            break;
+          }
       }
-      const uint8_t code = data[i + 3];
-      const size_t start = i + 4;
-      size_t end = start;
-      while (end + 3 <= n && !(data[end] == 0 && data[end + 1] == 0 && data[end + 2] == 1)) end++;
-      if (end + 3 > n) end = n;
-      if (code >= 0x20 && code <= 0x2f) {
-        BitReader br(data + start, end - start);
-        parse_vol(br);
-      } else if (code == 0xb6) {
-        if (!vol.valid) corrupt("a VOP before the video object layer header");
-        BitReader br(data + start, n - start);
-        br.skip(2);
-        while (br.get1()) {
-          if (br.left() <= 0) corrupt("truncated VOP header");
-        }
-        br.marker("before vop_time_increment");
-        br.skip(vol.time_bits);
-        br.marker("after vop_time_increment");
-        return br.get1();
+      stored.swap(buffer_);
+      if (!discard && (divx_packed_ || n <= 19)) {
+        src = stored.data();
+        len = stored.size();
+        src_tag = buffer_tag_;
+        from_buffer = true;
       }
-      i = end;
     }
-    return -1;
+    size_t vop_at = 0;
+    vop_tag_ = src_tag;
+    int result = parse(src, len, &vop_at);
+    if (result == kVopMissing) corrupt("a packet without a VOP");
+    if (result != kVopDecoded) return;
+    // FFmpeg's ff_mpeg4_frame_end: after a VOP of a packed stream, the
+    // packet's next VOP (from the start of the packet if the stored one was
+    // decoded) waits for the next packet if it is a B- or I-VOP.
+    if (divx_packed_) {
+      size_t from = from_buffer ? 0 : vop_at + 4;
+      for (size_t i = from; i + 4 < n; i++)
+        if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1 && data[i + 3] == 0xb6) {
+          const size_t current = from_buffer ? 0 : i - 1;
+          if (n - current > 7 && !(data[i + 4] & 0x40)) {
+            buffer_.assign(data + i, data + n);
+            buffer_tag_ = tag * 4 + (from_buffer ? 0 : 1);
+            stats[kStatPackedVops]++;
+          }
+          break;
+        }
+    }
   }
 
- private:
-  int dc_threshold_ = 99;
+  // The end of the stream: the last anchor, unless a low-delay stream has
+  // output it already (it comes again after a final not-coded VOP, as
+  // FFmpeg outputs it).
+  void flush() {
+    out = nullptr;
+    if ((!low_delay_ || skipped_last_) && have_next_) {
+      out = &next_.f;
+      out_tag = next_.tag;
+      have_next_ = false;
+    }
+    skipped_last_ = false;
+  }
 
-  bool parse(const uint8_t* data, size_t n, bool want_vop) {
-    // Walks the start codes: VOS, VO, VOL, user data, GOV, then one VOP.
+  // The stored VOP of a packed stream, and the anchors held: what makes two
+  // decoders at the same packet agree from there on.
+  bool state_equal(const Decoder& o) const {
+    return buffer_ == o.buffer_ && buffer_tag_ == o.buffer_tag_ && have_next_ == o.have_next_ &&
+           have_last_ == o.have_last_ && (!have_next_ || next_.tag == o.next_.tag) &&
+           (!have_last_ || last_.tag == o.last_.tag) && low_delay_ == o.low_delay_ &&
+           (!vol.interlaced || t_frame_ == o.t_frame_);
+  }
+  bool pending() const { return !buffer_.empty(); }
+
+ private:
+  enum { kVopMissing, kVopSkipped, kVopDecoded };
+
+  int dc_threshold_ = 99;
+  int xvid_build_ = -1, divx_version_ = -1;
+  bool lavc_ = false, divx_packed_ = false;
+  int low_delay_ = 0;
+  bool skipped_last_ = false;
+  std::vector<uint8_t> buffer_;  // a packed stream's stored VOP
+  int64_t buffer_tag_ = -1;
+  int64_t cur_tag_ = -1;
+
+  // The anchors: next_ the latest (the reference of P- and S-VOPs and the
+  // backward reference of B-VOPs), last_ the one before (the forward one).
+  Picture next_, last_;
+  bool have_next_ = false, have_last_ = false;
+  std::vector<MbInfo> mbi_;  // the MBs of the anchor being decoded
+
+  // FFmpeg's VOP times (ticks of vop_time_increment_resolution).
+  int64_t time_base_ = 0, last_time_base_ = 0, time_ = 0, last_non_b_time_ = 0;
+  uint16_t pp_time_ = 0, pb_time_ = 0, pp_field_time_ = 0, pb_field_time_ = 0;
+  int t_frame_ = 0;
+
+  // The VOP's coding state.
+  int bcode_ = 1;
+  bool top_field_first_ = false, alternate_scan_ = false;
+  bool mcsel_ = false;
+  int last_mv_[2][2][2] = {};  // B-VOPs: [direction][field][component]
+
+  // Walks the start codes: VOS, VO, VOL, user data, GOV, then one VOP.
+  // *vop_at: the VOP's start code.
+  int parse(const uint8_t* data, size_t n, size_t* vop_at) {
     size_t i = 0;
     while (i + 4 <= n) {
       if (!(data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1)) {
@@ -1076,13 +1565,16 @@ class Decoder : public Codec {
         BitReader br(data + start, end - start);
         parse_vol(br);
       } else if (code == 0xb6) {
-        if (!want_vop) return false;
+        if (!vop_at) return kVopMissing;
         if (!vol.valid) corrupt("a VOP before the video object layer header");
+        *vop_at = i;
         BitReader br(data + start, n - start);
-        decode_vop(br);
-        return true;
+        return decode_vop(br) ? kVopDecoded : kVopSkipped;
       } else if (code == 0xb2) {
         user_data(data + start, end - start);
+      } else if (code == 0xb3) {
+        BitReader br(data + start, end - start);
+        gov(br);
       } else if (code == 0xb5) {
         BitReader br(data + start, end - start);
         if (br.get1()) br.skip(7);  // visual_object_verid, priority
@@ -1090,7 +1582,16 @@ class Decoder : public Codec {
       }
       i = end;
     }
-    return false;
+    return kVopMissing;
+  }
+
+  // FFmpeg's mpeg4_decode_gop_header: the GOV's time code sets the time base.
+  void gov(BitReader& br) {
+    if (br.left() < 23 || !br.peek(23)) return;
+    int hours = (int)br.get(5), minutes = (int)br.get(6);
+    br.skip(1);
+    int seconds = (int)br.get(6);
+    time_base_ = seconds + 60 * (minutes + 60 * hours);
   }
 
   // User data: the encoder stamps FFmpeg's decode_user_data reads.
@@ -1107,7 +1608,10 @@ class Decoder : public Codec {
     char last = 0;
     int e = sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
     if (e < 2) e = sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
-    if (e >= 2) divx_version_ = ver;
+    if (e >= 2) {
+      divx_version_ = ver;
+      divx_packed_ = e == 3 && last == 'p';
+    }
     e = sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
     if (e != 4) e = sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2, &ver3, &build);
     if (e != 4) e = sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
@@ -1116,7 +1620,8 @@ class Decoder : public Codec {
   }
 
   // FFmpeg's ff_mpeg4_workaround_bugs, as far as it changes the decoding of
-  // the tools this decoder reads: the IDCT, or a refusal.
+  // the tools this decoder reads: the IDCT, or a refusal. A DivX stamp
+  // beside an Xvid one (Xvid's packed mode writes both) yields to it.
   void choose_idct() {
     int xvid = xvid_build_, divx = divx_version_;
     if (xvid < 0 && divx < 0 && !lavc_) {
@@ -1133,13 +1638,6 @@ class Decoder : public Codec {
     xvid_idct_ = xvid >= 0;
   }
 
- public:
-  std::string fourcc;  // the AVI FourCC, else empty
-
- private:
-  int xvid_build_ = -1, divx_version_ = -1;
-  bool lavc_ = false;
-
   void parse_vol(BitReader& br) {
     Vol v;
     br.skip(1);  // random_accessible_vol
@@ -1153,7 +1651,7 @@ class Decoder : public Codec {
     v.control_parameters = br.get1();
     if (v.control_parameters) {
       if (br.get(2) != 1) unsupported("chroma formats other than 4:2:0");
-      br.skip(1);       // low_delay: B-VOPs are refused where they come
+      low_delay_ = br.get1();
       if (br.get1()) {  // vbv_parameters
         for (int bits : {15, 15, 15}) {
           br.skip(bits);
@@ -1164,6 +1662,8 @@ class Decoder : public Codec {
         br.skip(15);
         br.marker("in vbv_parameters");
       }
+    } else if (!pictures) {  // FFmpeg decides once: Simple and Advanced Simple are low delay
+      low_delay_ = v.vo_type == 1 || v.vo_type == 17;
     }
     if (br.get(2) != 0) unsupported("non-rectangular shape");
     br.marker("before vop_time_increment_resolution");
@@ -1178,14 +1678,34 @@ class Decoder : public Codec {
     v.height = (int)br.get(13);
     br.marker("after video_object_layer_height");
     if (v.width <= 0 || v.height <= 0) corrupt("video size %dx%d", v.width, v.height);
-    if (br.get1()) unsupported("interlaced video");
+    v.interlaced = br.get1();
     br.skip(1);  // obmc_disable
-    int sprite = (int)br.get(v.ver_id == 1 ? 1 : 2);
-    if (sprite == 1) unsupported("static sprites");
-    if (sprite == 2) unsupported("global motion compensation (GMC)");
+    v.sprite = (int)br.get(v.ver_id == 1 ? 1 : 2);
+    if (v.sprite == 1) unsupported("static sprites");
+    if (v.sprite == 3) corrupt("sprite_enable 3");
+    if (v.sprite == 2) {
+      v.warping_points = (int)br.get(6);
+      v.warping_accuracy = (int)br.get(2);
+      if (br.get1()) unsupported("sprite brightness change");
+      if (v.warping_points != 3) unsupported("GMC of other than 3 warping points (Xvid's)");
+    }
     if (br.get1()) unsupported("not-8-bit video");
-    if (br.get1()) unsupported("MPEG quantisation (quant_type 1)");
-    if (v.ver_id != 1 && br.get1()) unsupported("quarter-pel motion");
+    v.mpeg_quant = br.get1();
+    memcpy(v.intra_matrix, kDefaultIntraMatrix, 64);
+    memcpy(v.inter_matrix, kDefaultInterMatrix, 64);
+    if (v.mpeg_quant) {
+      for (uint8_t* m : {v.intra_matrix, v.inter_matrix}) {
+        if (!br.get1()) continue;  // load_*_quant_mat
+        int i = 0, last = 0;  // zigzag order, to an end of 0; the last value repeats
+        for (; i < 64; i++) {
+          int q = (int)br.get(8);
+          if (!q) break;
+          m[kZigzag[i]] = (uint8_t)(last = q);
+        }
+        for (; i < 64; i++) m[kZigzag[i]] = (uint8_t)last;
+      }
+    }
+    v.quarter_sample = v.ver_id != 1 && br.get1();
     if (!br.get1()) unsupported("complexity estimation");
     v.resync_disable = br.get1();
     if (br.get1()) unsupported("data partitioning (and RVLC)");
@@ -1197,44 +1717,277 @@ class Decoder : public Codec {
     v.valid = true;
     bool resized = !vol.valid || v.width != vol.width || v.height != vol.height;
     vol = v;
+    for (int k = 0; k < 64; k++) {
+      intra_matrix_[k] = vol.intra_matrix[k];
+      inter_matrix_[k] = vol.inter_matrix[k];
+    }
     if (resized) {
       init_size(vol.width, vol.height);
-      have_ref = false;
+      for (Picture* p : {&next_, &last_}) {
+        p->f.resize(mbw_, mbh_);
+        p->mb.assign((size_t)mbw_ * mbh_, MbInfo());
+      }
+      mbi_.assign((size_t)mbw_ * mbh_, MbInfo());
+      have_next_ = have_last_ = false;
     }
   }
 
-  void decode_vop(BitReader& br) {
+  // FFmpeg's mpeg4_decode_sprite_trajectory for three points (and the
+  // simplification of a pure translation to its one-point path), with the
+  // VOP's rectangle as the reference points.
+  void sprite_trajectory(BitReader& br) {
+    const int a = 2 << vol.warping_accuracy, rho = 3 - vol.warping_accuracy, r = 16 / a;
+    const int w = width, h = height;
+    const int vop_ref[4][2] = {{0, 0}, {w, 0}, {0, h}, {w, h}};
+    int d[4][2] = {};
+    for (int i = 0; i < vol.warping_points; i++) {
+      for (int c = 0; c < 2; c++) {
+        int length = br.vlc(sprite_vlc());
+        int x = 0;
+        if (length > 0) {
+          int u = (int)br.get(length);
+          x = (u >> (length - 1)) ? u : u - (1 << length) + 1;
+        }
+        br.marker("in sprite_trajectory");
+        d[i][c] = x;
+      }
+    }
+    int alpha = 1, beta = 0;
+    while ((1 << alpha) < w) alpha++;
+    while ((1 << beta) < h) beta++;
+    const int w2 = 1 << alpha, h2 = 1 << beta;
+    int sprite_ref[3][2];
+    sprite_ref[0][0] = (a >> 1) * (2 * vop_ref[0][0] + d[0][0]);
+    sprite_ref[0][1] = (a >> 1) * (2 * vop_ref[0][1] + d[0][1]);
+    sprite_ref[1][0] = (a >> 1) * (2 * vop_ref[1][0] + d[0][0] + d[1][0]);
+    sprite_ref[1][1] = (a >> 1) * (2 * vop_ref[1][1] + d[0][1] + d[1][1]);
+    sprite_ref[2][0] = (a >> 1) * (2 * vop_ref[2][0] + d[0][0] + d[2][0]);
+    sprite_ref[2][1] = (a >> 1) * (2 * vop_ref[2][1] + d[0][1] + d[2][1]);
+    int64_t virtual_ref[2][2];
+    virtual_ref[0][0] = 16 * (vop_ref[0][0] + w2) +
+                        rounded_div64((int64_t)(w - w2) * (r * sprite_ref[0][0] - 16LL * vop_ref[0][0]) +
+                                          (int64_t)w2 * (r * sprite_ref[1][0] - 16LL * vop_ref[1][0]),
+                                      w);
+    virtual_ref[0][1] = 16 * vop_ref[0][1] +
+                        rounded_div64((int64_t)(w - w2) * (r * sprite_ref[0][1] - 16LL * vop_ref[0][1]) +
+                                          (int64_t)w2 * (r * sprite_ref[1][1] - 16LL * vop_ref[1][1]),
+                                      w);
+    virtual_ref[1][0] = 16 * vop_ref[0][0] +
+                        rounded_div64((int64_t)(h - h2) * (r * sprite_ref[0][0] - 16LL * vop_ref[0][0]) +
+                                          (int64_t)h2 * (r * sprite_ref[2][0] - 16LL * vop_ref[2][0]),
+                                      h);
+    virtual_ref[1][1] = 16 * (vop_ref[0][1] + h2) +
+                        rounded_div64((int64_t)(h - h2) * (r * sprite_ref[0][1] - 16LL * vop_ref[0][1]) +
+                                          (int64_t)h2 * (r * sprite_ref[2][1] - 16LL * vop_ref[2][1]),
+                                      h);
+    const int min_ab = std::min(alpha, beta);
+    const int64_t w3 = w2 >> min_ab, h3 = h2 >> min_ab;
+    const int shift0 = alpha + beta + rho - min_ab;
+    int64_t offset[2][2], delta[2][2];
+    offset[0][0] = ((int64_t)sprite_ref[0][0] << shift0) +
+                   (-r * (int64_t)sprite_ref[0][0] + virtual_ref[0][0]) * h3 * (-vop_ref[0][0]) +
+                   (-r * (int64_t)sprite_ref[0][0] + virtual_ref[1][0]) * w3 * (-vop_ref[0][1]) +
+                   ((int64_t)1 << (shift0 - 1));
+    offset[0][1] = ((int64_t)sprite_ref[0][1] << shift0) +
+                   (-r * (int64_t)sprite_ref[0][1] + virtual_ref[0][1]) * h3 * (-vop_ref[0][0]) +
+                   (-r * (int64_t)sprite_ref[0][1] + virtual_ref[1][1]) * w3 * (-vop_ref[0][1]) +
+                   ((int64_t)1 << (shift0 - 1));
+    offset[1][0] = (-r * (int64_t)sprite_ref[0][0] + virtual_ref[0][0]) * h3 * (-2 * vop_ref[0][0] + 1) +
+                   (-r * (int64_t)sprite_ref[0][0] + virtual_ref[1][0]) * w3 * (-2 * vop_ref[0][1] + 1) +
+                   2 * w2 * h3 * r * (int64_t)sprite_ref[0][0] - 16 * w2 * h3 +
+                   ((int64_t)1 << (shift0 + 1));
+    offset[1][1] = (-r * (int64_t)sprite_ref[0][1] + virtual_ref[0][1]) * h3 * (-2 * vop_ref[0][0] + 1) +
+                   (-r * (int64_t)sprite_ref[0][1] + virtual_ref[1][1]) * w3 * (-2 * vop_ref[0][1] + 1) +
+                   2 * w2 * h3 * r * (int64_t)sprite_ref[0][1] - 16 * w2 * h3 +
+                   ((int64_t)1 << (shift0 + 1));
+    delta[0][0] = (-r * (int64_t)sprite_ref[0][0] + virtual_ref[0][0]) * h3;
+    delta[0][1] = (-r * (int64_t)sprite_ref[0][0] + virtual_ref[1][0]) * w3;
+    delta[1][0] = (-r * (int64_t)sprite_ref[0][1] + virtual_ref[0][1]) * h3;
+    delta[1][1] = (-r * (int64_t)sprite_ref[0][1] + virtual_ref[1][1]) * w3;
+    int shift[2] = {shift0, shift0 + 2};
+    if (delta[0][0] == ((int64_t)a << shift[0]) && delta[0][1] == 0 && delta[1][0] == 0 &&
+        delta[1][1] == ((int64_t)a << shift[0])) {
+      offset[0][0] >>= shift[0];
+      offset[0][1] >>= shift[0];
+      offset[1][0] >>= shift[1];
+      offset[1][1] >>= shift[1];
+      delta[0][0] = a;
+      delta[0][1] = delta[1][0] = 0;
+      delta[1][1] = a;
+      shift[0] = shift[1] = 0;
+      real_warping_points_ = 1;
+    } else {
+      const int shift_y = 16 - shift[0], shift_c = 16 - shift[1];
+      for (int i = 0; i < 2; i++)
+        if (shift_c < 0 || shift_y < 0 || std::llabs(offset[0][i]) >= (INT32_MAX >> shift_y) ||
+            std::llabs(offset[1][i]) >= (INT32_MAX >> shift_c) ||
+            std::llabs(delta[0][i]) >= (INT32_MAX >> shift_y) ||
+            std::llabs(delta[1][i]) >= (INT32_MAX >> shift_y))
+          unsupported("a GMC warp beyond FFmpeg's 32-bit range");
+      for (int i = 0; i < 2; i++) {
+        offset[0][i] *= (int64_t)1 << shift_y;
+        offset[1][i] *= (int64_t)1 << shift_c;
+        delta[0][i] *= (int64_t)1 << shift_y;
+        delta[1][i] *= (int64_t)1 << shift_y;
+        shift[i] = 16;
+      }
+      real_warping_points_ = vol.warping_points;
+    }
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 2; j++) {
+        sprite_offset_[i][j] = (int)offset[i][j];
+        sprite_delta_[i][j] = (int)delta[i][j];
+      }
+    sprite_shift_[0] = shift[0];
+    sprite_shift_[1] = shift[1];
+  }
+
+  // FFmpeg's get_amv: the average motion vector of the MB's GMC warp (what
+  // a GMC MB leaves for its neighbours' prediction and for direct mode).
+  int get_amv(int n) const {
+    const int len = 1 << (fcode_ + 4), a = vol.warping_accuracy;
+    // FFmpeg's RSHIFT: rounded, halves toward plus infinity above zero
+    // and toward minus infinity below.
+    auto rshift = [](int v, int b) {
+      return v > 0 ? (v + ((1 << b) >> 1)) >> b : (v + ((1 << b) >> 1) - 1) >> b;
+    };
+    int sum;
+    if (real_warping_points_ == 1) {
+      sum = rshift(sprite_offset_[0][n] * (1 << vol.quarter_sample), a);
+    } else {
+      int dx = sprite_delta_[n][0], dy = sprite_delta_[n][1];
+      const int shift = sprite_shift_[0];
+      if (n)
+        dy -= 1 << (shift + a + 1);
+      else
+        dx -= 1 << (shift + a + 1);
+      unsigned mb_v = (unsigned)sprite_offset_[0][n] + (unsigned)dx * mb_x_ * 16u + (unsigned)dy * mb_y_ * 16u;
+      sum = 0;
+      for (int y = 0; y < 16; y++) {
+        unsigned v = mb_v + (unsigned)dy * y;
+        for (int x = 0; x < 16; x++) {
+          sum += (int)v >> shift;
+          v += dx;
+        }
+      }
+      sum = rshift(sum, a + 8 - vol.quarter_sample);
+    }
+    if (sum < -len) sum = -len;
+    else if (sum >= len) sum = len - 1;
+    return sum;
+  }
+
+  // Decodes one VOP; false if FFmpeg outputs nothing for it and keeps no
+  // picture (not coded, or a B-VOP it skips).
+  bool decode_vop(BitReader& br) {
     choose_idct();
     pict_ = (int)br.get(2);
-    if (pict_ == 2) unsupported("B-VOPs");
-    if (pict_ == 3) unsupported("S-VOPs (sprites, GMC)");
+    if (pict_ == 2 && low_delay_ && !vol.control_parameters) low_delay_ = 0;
+    int time_incr = 0;
     while (br.get1()) {  // modulo_time_base
       if (br.left() <= 0) corrupt("truncated VOP header");
+      time_incr++;
     }
     br.marker("before vop_time_increment");
-    br.skip(vol.time_bits);
+    const int time_increment = (int)br.get(vol.time_bits);
     br.marker("after vop_time_increment");
-    if (!br.get1()) {  // vop_coded 0: the reference repeats
-      if (!have_ref) corrupt("a not-coded VOP without a reference");
-      return;
+    // FFmpeg's VOP times: TRD (pp) and TRB (pb) of direct mode; a B-VOP out
+    // of order (after a seek) is skipped.
+    if (pict_ != 2) {
+      last_time_base_ = time_base_;
+      time_base_ += time_incr;
+      time_ = time_base_ * vol.time_resolution + time_increment;
+      pp_time_ = (uint16_t)(time_ - last_non_b_time_);
+      last_non_b_time_ = time_;
+    } else {
+      time_ = (last_time_base_ + time_incr) * vol.time_resolution + time_increment;
+      pb_time_ = (uint16_t)(pp_time_ - (last_non_b_time_ - time_));
+      if (pp_time_ <= pb_time_ || pp_time_ <= pp_time_ - pb_time_ || pp_time_ <= 0) {
+        stats[kStatBDropped]++;
+        return false;
+      }
+      if (!t_frame_) t_frame_ = pb_time_;
+      if (!t_frame_) t_frame_ = 1;
+      auto rdiv = [](int64_t a, int64_t b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; };
+      pp_field_time_ = (uint16_t)((rdiv(last_non_b_time_, t_frame_) -
+                                   rdiv(last_non_b_time_ - pp_time_, t_frame_)) * 2);
+      pb_field_time_ = (uint16_t)((rdiv(time_, t_frame_) -
+                                   rdiv(last_non_b_time_ - pp_time_, t_frame_)) * 2);
+      if (pp_field_time_ <= pb_field_time_ || pb_field_time_ <= 1) {
+        pb_field_time_ = 2;
+        pp_field_time_ = 4;
+        if (vol.interlaced) {
+          stats[kStatBDropped]++;
+          return false;
+        }
+      }
     }
-    rounding_ = pict_ == 1 ? br.get1() : 0;
+    if (!br.get1()) {  // vop_coded 0: no frame; the reference stays
+      stats[kStatNotCoded]++;
+      skipped_last_ = true;
+      return false;
+    }
+    if (pict_ == 3 && vol.sprite != 2) unsupported("S-VOPs of a stream without GMC");
+    rounding_ = pict_ == 1 || pict_ == 3 ? br.get1() : 0;
     dc_threshold_ = kDcThreshold[br.get(3)];
+    top_field_first_ = alternate_scan_ = false;
+    if (vol.interlaced) {
+      top_field_first_ = br.get1();
+      alternate_scan_ = br.get1();
+    }
+    if (pict_ == 3) sprite_trajectory(br);
     int q = (int)br.get(vol.quant_precision);
     if (q == 0) corrupt("vop_quant 0");
     set_qscale(q);
-    fcode_ = 1;
-    if (pict_ == 1) {
+    fcode_ = bcode_ = 1;
+    if (pict_ != 0) {
       fcode_ = (int)br.get(3);
       if (!fcode_) corrupt("vop_fcode_forward 0");
-      if (!have_ref) corrupt("a P-VOP without a reference");
     }
-    decode_mbs(br);
-    std::swap(cur_, ref_);
-    have_ref = true;
+    if (pict_ == 2) {
+      bcode_ = (int)br.get(3);
+      if (!bcode_) corrupt("vop_fcode_backward 0");
+    }
+    // FFmpeg skips a B-VOP without two anchors (an open GOP's first
+    // B-VOPs); a P- or S-VOP without one is refused.
+    if (pict_ == 2 && !have_last_) {
+      stats[kStatBDropped]++;
+      return false;
+    }
+    if ((pict_ == 1 || pict_ == 3) && !have_next_) corrupt("a P- or S-VOP without a reference");
+    stats[pict_ == 0 ? kStatI : pict_ == 1 ? kStatP : pict_ == 2 ? kStatB : kStatS]++;
+    pictures++;
+    cur_tag_ = vop_tag_;
+    interlaced_dct_ = false;
+    if (!headers_only) decode_mbs(br);
+    if (pict_ == 2) {
+      out = &cur_;
+      out_tag = cur_tag_;
+      return true;
+    }
+    std::swap(last_, next_);
+    std::swap(next_.f, cur_);
+    next_.mb.swap(mbi_);
+    next_.tag = cur_tag_;
+    have_last_ = have_next_;
+    have_next_ = true;
+    if (low_delay_) {
+      out = &next_.f;
+      out_tag = next_.tag;
+    } else if (have_last_) {
+      out = &last_.f;
+      out_tag = last_.tag;
+    }
+    return true;
   }
 
-  int packet_prefix_length() const { return pict_ == 0 ? 16 : 15 + fcode_; }
+ public:
+  int64_t vop_tag_ = -1;  // the tag of the VOP parse() decodes next
+
+ private:
+  int packet_prefix_length() const {
+    return pict_ == 0 ? 16 : pict_ == 2 ? 15 + std::max(std::max(fcode_, bcode_), 1) : 15 + fcode_;
+  }
 
   // Whether a resync marker follows the MB just decoded: the stuffing (a
   // zero, then ones to the byte boundary), prefix-length zeros and a one.
@@ -1268,8 +2021,12 @@ class Decoder : public Codec {
       br.skip(vol.time_bits);
       br.marker("in a video packet header");
       br.skip(2 + 3);  // vop_coding_type, intra_dc_vlc_thr
+      if (pict_ == 3) unsupported("a video packet header extension in an S-VOP");
       if (pict_ != 0 && !br.get(3)) corrupt("vop_fcode_forward 0 in a video packet header");
+      if (pict_ == 2 && !br.get(3)) corrupt("vop_fcode_backward 0 in a video packet header");
     }
+    // FFmpeg's ff_mpeg4_clean_buffers also resets the B-VOP predictors.
+    last_mv_[0][0][0] = last_mv_[0][0][1] = last_mv_[1][0][0] = last_mv_[1][0][1] = 0;
   }
 
   void decode_mbs(BitReader& br) {
@@ -1284,7 +2041,10 @@ class Decoder : public Codec {
       for (; mb_y_ < mbh_; mb_y_++) {
         for (; mb_x_ < mbw_; mb_x_++) {
           if (resync_x_ == mb_x_ && resync_y_ + 1 == mb_y_) first_line_ = false;
-          decode_mb(br);
+          if (pict_ == 2)
+            decode_b_mb(br);
+          else
+            decode_mb(br);
           bool last_mb = mb_x_ + 1 == mbw_ && mb_y_ + 1 == mbh_;
           if (!vol.resync_disable && !last_mb && at_resync(br)) {
             packet_end = true;
@@ -1298,11 +2058,11 @@ class Decoder : public Codec {
     }
   }
 
-  int decode_motion(BitReader& br, int pred) {
+  int decode_motion(BitReader& br, int pred, int fcode) {
     int code = br.vlc(tables().mv);
     if (code == 0) return pred;
     int sign = br.get1();
-    int shift = fcode_ - 1;
+    int shift = fcode - 1;
     int val = code;
     if (shift) {
       val = (val - 1) << shift;
@@ -1311,54 +2071,127 @@ class Decoder : public Codec {
     }
     if (sign) val = -val;
     val += pred;
-    int m = 1 << (5 + fcode_);  // wrap into [-32 << (fcode - 1), 32 << (fcode - 1))
+    int m = 1 << (5 + fcode);  // wrap into [-32 << (fcode - 1), 32 << (fcode - 1))
     return ((val + (m >> 1)) & (m - 1)) - (m >> 1);
   }
 
+  MbInfo& info() { return mbi_[(size_t)mb_y_ * mbw_ + mb_x_]; }
+
+  // FFmpeg's ff_h263_update_motion_val for the MB just decoded of an
+  // anchor: its vectors for the neighbours' prediction and for direct mode.
+  void keep_motion(const Motion& m, bool intra, bool skipped) {
+    MbInfo& mi = info();
+    mi = MbInfo();
+    mi.skipped = skipped;
+    if (intra) {
+      mi.kind = kIntraMb;
+      set_mvs(0, 0);
+      return;
+    }
+    mi.kind = (uint8_t)m.type;
+    if (m.type == k8x8) {
+      for (int b = 0; b < 4; b++) {
+        mi.mv[b][0] = (int16_t)m.mv[b][0];
+        mi.mv[b][1] = (int16_t)m.mv[b][1];
+        int16_t* p = mv_at(2 * mb_x_ + (b & 1), 2 * mb_y_ + (b >> 1));
+        p[0] = (int16_t)m.mv[b][0];
+        p[1] = (int16_t)m.mv[b][1];
+      }
+      return;
+    }
+    int mx = m.mv[0][0], my = m.mv[0][1];
+    if (m.type == kFieldMb) {
+      mx = m.mv[0][0] + m.mv[1][0];
+      my = m.mv[0][1] + m.mv[1][1];
+      mx = (mx >> 1) | (mx & 1);
+      for (int i = 0; i < 2; i++) {
+        mi.field_mv[i][0] = (int16_t)m.mv[i][0];
+        mi.field_mv[i][1] = (int16_t)m.mv[i][1];
+        mi.field_sel[i] = (uint8_t)m.sel[i];
+      }
+    }
+    for (int b = 0; b < 4; b++) {
+      mi.mv[b][0] = (int16_t)mx;
+      mi.mv[b][1] = (int16_t)my;
+    }
+    set_mvs(mx, my);
+  }
+
+  // P- and S-VOP MBs (and I-VOP ones).
   void decode_mb(BitReader& br) {
     const Tables& t = tables();
     int cbpc, dquant;
-    int mvs[4][2] = {{0, 0}, {0, 0}, {0, 0}, {0, 0}};
+    Motion m;
     memset(block_, 0, sizeof block_);
-    if (pict_ == 1) {
+    if (pict_ == 1 || pict_ == 3) {
       do {
-        if (br.get1()) {  // not_coded: a copy of the reference
-          set_mvs(0, 0);
+        if (br.get1()) {  // not_coded
           st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
           clean_intra_entries();
-          predict_inter(1, mvs);
+          const bool gmc = pict_ == 3;
+          if (gmc) {
+            m.type = kGmcMb;
+            m.mv[0][0] = get_amv(0);
+            m.mv[0][1] = get_amv(1);
+            stats[kStatMcsel]++;
+          }
+          keep_motion(m, false, !gmc);
+          for (int n = 0; n < 6; n++) last_index_[n] = -1;
+          reconstruct_inter(m, nullptr, rounding_);
           return;
         }
         cbpc = br.vlc(t.inter_mcbpc);
       } while (cbpc == 20);
       dquant = cbpc & 8;
       if (!(cbpc & 4)) {
+        mcsel_ = pict_ == 3 && !(cbpc & 16) && br.get1();
         int cbpy = br.vlc(t.cbpy) ^ 0xf;
         int cbp = (cbpc & 3) | (cbpy << 2);
         if (dquant) set_qscale(qscale_ + kQuantDelta[br.get(2)]);
-        int mv_type = cbpc & 16 ? 4 : 1;
-        if (mv_type == 4) {
+        if (vol.interlaced && cbp) interlaced_dct_ = br.get1();
+        if (!(cbpc & 16)) {
+          if (mcsel_) {
+            m.type = kGmcMb;
+            m.mv[0][0] = get_amv(0);
+            m.mv[0][1] = get_amv(1);
+            stats[kStatMcsel]++;
+          } else if (vol.interlaced && br.get1()) {
+            m.type = kFieldMb;
+            m.sel[0] = br.get1();
+            m.sel[1] = br.get1();
+            int px, py;
+            pred_motion(0, &px, &py);
+            for (int i = 0; i < 2; i++) {
+              m.mv[i][0] = decode_motion(br, px, fcode_);
+              m.mv[i][1] = decode_motion(br, py / 2, fcode_);
+            }
+            stats[kStatFieldMv]++;
+          } else {
+            int px, py;
+            pred_motion(0, &px, &py);
+            m.mv[0][0] = decode_motion(br, px, fcode_);
+            m.mv[0][1] = decode_motion(br, py, fcode_);
+          }
+        } else {
+          m.type = k8x8;
           for (int i = 0; i < 4; i++) {
             int px, py;
             pred_motion(i, &px, &py);
-            int mx = decode_motion(br, px);
-            int my = decode_motion(br, py);
+            m.mv[i][0] = decode_motion(br, px, fcode_);
+            m.mv[i][1] = decode_motion(br, py, fcode_);
             int16_t* p = mv_at(2 * mb_x_ + (i & 1), 2 * mb_y_ + (i >> 1));
-            p[0] = (int16_t)(mvs[i][0] = mx);
-            p[1] = (int16_t)(mvs[i][1] = my);
+            p[0] = (int16_t)m.mv[i][0];
+            p[1] = (int16_t)m.mv[i][1];
           }
-        } else {
-          int px, py;
-          pred_motion(0, &px, &py);
-          mvs[0][0] = decode_motion(br, px);
-          mvs[0][1] = decode_motion(br, py);
-          set_mvs(mvs[0][0], mvs[0][1]);
+          stats[kStat4Mv]++;
         }
-        for (int i = 0; i < 6; i++) decode_block(br, block_[i], i, (cbp >> (5 - i)) & 1, false, false);
+        for (int i = 0; i < 6; i++)
+          decode_block(br, block_[i], i, (cbp >> (5 - i)) & 1, false, false);
         st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
         clean_intra_entries();
-        predict_inter(mv_type, mvs);
-        add_residual();
+        keep_motion(m, false, false);
+        if (cbp && interlaced_dct_) stats[kStatFieldDct]++;
+        reconstruct_inter(m, nullptr, rounding_);
         return;
       }
     } else {
@@ -1373,18 +2206,172 @@ class Decoder : public Codec {
     int cbp = (cbpc & 3) | (cbpy << 2);
     bool use_dc_vlc = qscale_ < dc_threshold_;  // the running qscale, before dquant
     if (dquant) set_qscale(qscale_ + kQuantDelta[br.get(2)]);
+    if (vol.interlaced) interlaced_dct_ = br.get1();
+    if (interlaced_dct_) stats[kStatFieldDct]++;
     st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
     for (int i = 0; i < 6; i++) decode_block(br, block_[i], i, (cbp >> (5 - i)) & 1, true, use_dc_vlc);
-    set_mvs(0, 0);
+    keep_motion(m, true, false);
     reconstruct_intra();
   }
 
+  // FFmpeg's mpeg4_decode_mb for B-VOPs, then ff_mpeg4_set_direct_mv.
+  void decode_b_mb(BitReader& br) {
+    memset(block_, 0, sizeof block_);
+    if (mb_x_ == 0) memset(last_mv_, 0, sizeof last_mv_);
+    const MbInfo& col = next_.mb[(size_t)mb_y_ * mbw_ + mb_x_];
+    Motion m[2];
+    if (col.skipped) {  // skipped in the anchor after it: a copy of the one before
+      for (int n = 0; n < 6; n++) last_index_[n] = -1;
+      reconstruct_inter(m[0], nullptr, 0);
+      return;
+    }
+    int cbp = 0, mb_type;  // 0 direct, 1 interpolate, 2 backward, 3 forward
+    bool field = false;
+    int sel[2][2] = {{0, 0}, {0, 0}};
+    if (br.get1()) {  // modb 1: direct, no vectors, no coefficients
+      mb_type = -1;
+    } else {
+      const int modb2 = br.get1();
+      mb_type = br.vlc(b_mb_type_vlc());
+      if (!modb2) cbp = (int)br.get(6);
+      if (mb_type != 0 && cbp && br.get1()) set_qscale(qscale_ + (br.get1() ? 2 : -2));
+      if (vol.interlaced) {
+        if (cbp) interlaced_dct_ = br.get1();
+        if (mb_type != 0 && br.get1()) {
+          field = true;
+          if (mb_type != 2) {  // forward
+            sel[0][0] = br.get1();
+            sel[0][1] = br.get1();
+          }
+          if (mb_type != 3) {  // backward
+            sel[1][0] = br.get1();
+            sel[1][1] = br.get1();
+          }
+        }
+      }
+    }
+    bool dirs[2] = {false, false};
+    if (mb_type > 0) {
+      dirs[0] = mb_type != 2;
+      dirs[1] = mb_type != 3;
+      for (int d = 0; d < 2; d++) {
+        if (!dirs[d]) continue;
+        const int code = d ? bcode_ : fcode_;
+        if (!field) {
+          int mx = decode_motion(br, last_mv_[d][0][0], code);
+          int my = decode_motion(br, last_mv_[d][0][1], code);
+          last_mv_[d][1][0] = last_mv_[d][0][0] = m[d].mv[0][0] = mx;
+          last_mv_[d][1][1] = last_mv_[d][0][1] = m[d].mv[0][1] = my;
+        } else {
+          m[d].type = kFieldMb;
+          for (int i = 0; i < 2; i++) {
+            int mx = decode_motion(br, last_mv_[d][i][0], code);
+            int my = decode_motion(br, last_mv_[d][i][1] / 2, code);
+            last_mv_[d][i][0] = m[d].mv[i][0] = mx;
+            m[d].mv[i][1] = my;
+            last_mv_[d][i][1] = my * 2;
+            m[d].sel[i] = sel[d][i];
+          }
+          stats[kStatFieldMv]++;
+        }
+      }
+    } else {
+      int mx = 0, my = 0;
+      if (mb_type == 0) {
+        mx = decode_motion(br, 0, 1);
+        my = decode_motion(br, 0, 1);
+      }
+      set_direct_mv(col, mx, my, m);
+      dirs[0] = dirs[1] = true;
+      stats[kStatDirect]++;
+    }
+    for (int i = 0; i < 6; i++) decode_block(br, block_[i], i, (cbp >> (5 - i)) & 1, false, false);
+    if (cbp && interlaced_dct_) stats[kStatFieldDct]++;
+    reconstruct_inter(m[0], dirs[1] ? &m[1] : nullptr, 0, dirs[0]);
+  }
+
+  // FFmpeg's ff_mpeg4_set_direct_mv: the co-located MB's vectors scaled by
+  // TRB / TRD, plus the delta (mx, my).
+  void set_direct_mv(const MbInfo& col, int mx, int my, Motion* m) {
+    const int pp = pp_time_, pb = pb_time_;
+    auto one = [&](int i, int b) {
+      for (int c = 0; c < 2; c++) {
+        const int p = col.mv[b][c], delta = c ? my : mx;
+        m[0].mv[i][c] = p * pb / pp + delta;
+        m[1].mv[i][c] = delta ? m[0].mv[i][c] - p : p * (pb - pp) / pp;
+      }
+    };
+    if (col.kind == k8x8) {
+      m[0].type = m[1].type = k8x8;
+      for (int i = 0; i < 4; i++) one(i, i);
+    } else if (col.kind == kFieldMb) {
+      m[0].type = m[1].type = kFieldMb;
+      for (int i = 0; i < 2; i++) {
+        const int fs = col.field_sel[i];
+        m[0].sel[i] = fs;
+        m[1].sel[i] = i;
+        int tpp, tpb;
+        if (top_field_first_) {
+          tpp = (uint16_t)(pp_field_time_ - fs + i);
+          tpb = (uint16_t)(pb_field_time_ - fs + i);
+        } else {
+          tpp = (uint16_t)(pp_field_time_ + fs - i);
+          tpb = (uint16_t)(pb_field_time_ + fs - i);
+        }
+        for (int c = 0; c < 2; c++) {
+          const int p = col.field_mv[i][c], delta = c ? my : mx;
+          m[0].mv[i][c] = p * tpb / tpp + delta;
+          m[1].mv[i][c] = delta ? m[0].mv[i][c] - p : p * (tpb - tpp) / tpp;
+        }
+      }
+      stats[kStatDirectField]++;
+    } else {
+      one(0, 0);
+      for (int d = 0; d < 2; d++) {
+        for (int i = 1; i < 4; i++) {
+          m[d].mv[i][0] = m[d].mv[0][0];
+          m[d].mv[i][1] = m[d].mv[0][1];
+        }
+        m[d].type = vol.quarter_sample ? k8x8 : k16x16;
+      }
+    }
+  }
+
+  // Inter MB: the prediction of one direction (two: their rounded mean),
+  // then the residual of the coded blocks.
+  void reconstruct_inter(const Motion& m0, const Motion* m1, int rnd, bool forward = true) {
+    const Pred p = in_picture();
+    if (pict_ == 2 && forward && m1) {
+      uint8_t y[256], u[64], v[64];
+      predict(last_.f, m0, 0, p);
+      predict(next_.f, *m1, 0, Pred{y, u, v, 16, 8});
+      for (int r = 0; r < 16; r++)
+        for (int c = 0; c < 16; c++) {
+          uint8_t& d = p.y[r * p.ys + c];
+          d = (uint8_t)((d + y[r * 16 + c] + 1) >> 1);
+        }
+      for (int r = 0; r < 8; r++)
+        for (int c = 0; c < 8; c++) {
+          uint8_t& du = p.u[r * p.cs + c];
+          uint8_t& dv = p.v[r * p.cs + c];
+          du = (uint8_t)((du + u[r * 8 + c] + 1) >> 1);
+          dv = (uint8_t)((dv + v[r * 8 + c] + 1) >> 1);
+        }
+    } else if (pict_ == 2) {
+      predict(forward ? last_.f : next_.f, forward ? m0 : *m1, 0, p);
+    } else {
+      predict(next_.f, m0, rnd, p);
+    }
+    add_residual();
+  }
+
   // FFmpeg's mpeg4_decode_block: intra blocks keep quantised levels (with
-  // their DC and AC predictions); inter blocks are dequantised as read.
+  // their DC and AC predictions); inter blocks are dequantised as read
+  // (H.263 quantisation) or after (MPEG quantisation).
   void decode_block(BitReader& br, int16_t* block, int n, bool coded, bool intra, bool use_dc_vlc) {
     const Tables& t = tables();
     int i, dc_dir = 0;
-    const uint8_t* scan = kZigzag;
+    const uint8_t* scan = alternate_scan_ ? kAltVertical : kZigzag;
     const RunLevelTable* rl;
     const Vlc* vlc;
     int qmul = 1, qadd = 0;
@@ -1406,7 +2393,7 @@ class Decoder : public Codec {
       }
       rl = &t.intra;
       vlc = &t.intra_vlc;
-      if (ac_pred_) scan = dc_dir == 0 ? kAltVertical : kAltHorizontal;
+      if (ac_pred_ && !alternate_scan_) scan = dc_dir == 0 ? kAltVertical : kAltHorizontal;
     } else {
       i = -1;
       if (!coded) {
@@ -1415,8 +2402,10 @@ class Decoder : public Codec {
       }
       rl = &t.inter;
       vlc = &t.inter_vlc;
-      qmul = qscale_ << 1;
-      qadd = (qscale_ - 1) | 1;
+      if (!vol.mpeg_quant) {
+        qmul = qscale_ << 1;
+        qadd = (qscale_ - 1) | 1;
+      }
     }
     if (coded) {
       for (;;) {
@@ -1557,9 +2546,13 @@ class Encoder : public Codec {
   bool keyframe = false;
   Tools tools;
 
+  // The last frame as a decoder reconstructs it.
+  const Frame& output() const { return ref_; }
+
   Encoder(int w, int h, int time_resolution, int time_increment, int gop, int q)
       : time_res_(time_resolution), time_inc_(time_increment), gop_(gop), q_(q) {
     init_size(w, h);
+    ref_.resize(mbw_, mbh_);
     src_.resize(mbw_, mbh_);
     time_bits_ = std::max(log2_floor(time_res_ - 1) + 1, 1);
     prev_mv_.assign((size_t)mbw_ * mbh_ * 2, 0);
@@ -1677,6 +2670,7 @@ class Encoder : public Codec {
   }
 
  private:
+  Frame ref_;  // the last frame reconstructed (the reference of the next P-VOP)
   Frame src_;  // the input, replicated to the MB-aligned size
   int time_res_, time_inc_, time_bits_ = 1, gop_, q_;
   int dc_threshold_ = 99;
@@ -1884,8 +2878,8 @@ class Encoder : public Codec {
   int sad(int mx, int my, int limit) {
     uint8_t pred[256];
     int dxy = ((my & 1) << 1) | (mx & 1);
-    mc_block(ref_.p[0], mb_x_ * 16 + (mx >> 1), mb_y_ * 16 + (my >> 1), dxy, 16, 16, rounding_,
-             pred, 16);
+    hpel_block(ref_.p[0], mb_x_ * 16 + (mx >> 1), mb_y_ * 16 + (my >> 1), 1, 0, dxy, 16, 16,
+               rounding_, pred, 16);
     const uint8_t* s = src_block(0, 0);
     int total = 0;
     for (int y = 0; y < 16; y++) {
@@ -1905,8 +2899,8 @@ class Encoder : public Codec {
   int sad8(int n, int mx, int my) {
     uint8_t pred[64];
     int dxy = ((my & 1) << 1) | (mx & 1);
-    mc_block(ref_.p[0], mb_x_ * 16 + (n & 1) * 8 + (mx >> 1), mb_y_ * 16 + (n >> 1) * 8 + (my >> 1),
-             dxy, 8, 8, rounding_, pred, 8);
+    hpel_block(ref_.p[0], mb_x_ * 16 + (n & 1) * 8 + (mx >> 1),
+               mb_y_ * 16 + (n >> 1) * 8 + (my >> 1), 1, 0, dxy, 8, 8, rounding_, pred, 8);
     const uint8_t* s = src_block(0, n);
     int total = 0;
     for (int y = 0; y < 8; y++)
@@ -2053,7 +3047,10 @@ class Encoder : public Codec {
       if (!four)
         for (auto& mv : mvs) mv[0] = best_x, mv[1] = best_y;
     }
-    predict_inter(four ? 4 : 1, mvs);
+    Motion m;
+    m.type = four ? k8x8 : k16x16;
+    memcpy(m.mv, mvs, sizeof m.mv);
+    predict(ref_, m, rounding_, in_picture());
     int16_t levels[6][64];
     int cbp = quantise_inter(levels);
     st_.qscale[st_.cidx(mb_x_, mb_y_)] = (uint8_t)qscale_;
@@ -2157,17 +3154,8 @@ void* metrabs_mp4v_decoder_new() { return new Decoder(); }
 
 void metrabs_mp4v_decoder_free(void* d) { delete static_cast<Decoder*>(d); }
 
-// *coded: the vop_coded flag of the packet's VOP (FFmpeg outputs no frame
-// for a VOP with 0), read from its headers; 3 without a VOP.
-int metrabs_mp4v_vop_coded(void* d, const uint8_t* data, size_t n, int* coded, char* err,
-                           int err_len) {
-  try {
-    *coded = static_cast<Decoder*>(d)->vop_coded(data, n);
-  } catch (const Failure& f) {
-    return fail(f, err, err_len);
-  }
-  return *coded < 0 ? kNoFrame : kOk;
-}
+// The decoder reads headers and orders frames without decoding MBs.
+void metrabs_mp4v_decoder_headers_only(void* d) { static_cast<Decoder*>(d)->headers_only = true; }
 
 // The AVI FourCC of the stream, which FFmpeg reads for encoder workarounds.
 void metrabs_mp4v_decoder_fourcc(void* d, const char* fourcc) {
@@ -2196,17 +3184,42 @@ void metrabs_mp4v_decoder_colour(void* d, int matrix, int full_range) {
   static_cast<Decoder*>(d)->full_range = full_range;
 }
 
-// Decodes one packet into RGB [h][w][3], and its luma into y if not null
-// (a not-coded VOP gives the previous frame again).
-int metrabs_mp4v_decode_rgb(void* d, const uint8_t* data, size_t n, uint8_t* rgb, uint8_t* y,
-                            char* err, int err_len) {
+// Decodes one packet (`tag`: its index, which the frames it yields carry
+// as tag * 4 + the VOP's place in it); the frame it outputs, if any, waits
+// for metrabs_mp4v_next and metrabs_mp4v_frame. n 0: the end of the stream.
+int metrabs_mp4v_decode(void* d, const uint8_t* data, size_t n, int64_t tag, char* err,
+                        int err_len) {
   Decoder* dec = static_cast<Decoder*>(d);
   try {
-    if (!dec->decode(data, n)) return kNoFrame;
+    if (n)
+      dec->decode(data, n, tag);
+    else
+      dec->flush();
   } catch (const Failure& f) {
+    dec->out = nullptr;
     return fail(f, err, err_len);
   }
-  const Frame& f = dec->output();
+  return kOk;
+}
+
+// 1 and the frame's tag if a frame waits.
+int metrabs_mp4v_next(void* d, int64_t* tag) {
+  Decoder* dec = static_cast<Decoder*>(d);
+  if (!dec->out) return 0;
+  *tag = dec->out_tag;
+  return 1;
+}
+
+// The waiting frame into RGB [h][w][3]
+// and its planes into y, u and v ([(h + 1) / 2][(w + 1) / 2]), each if not
+// null; the waiting frame is taken.
+int metrabs_mp4v_frame(void* d, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t* v, char* err,
+                       int err_len) {
+  Decoder* dec = static_cast<Decoder*>(d);
+  const Frame* f = dec->out;
+  dec->out = nullptr;
+  if (!f) return fail(Failure{kNoFrame, "no frame"}, err, err_len);
+  if (!rgb && !y && !u) return kOk;
   int w = dec->width, h = dec->height;
   if (!yuv_rgb::supported(h))
     return fail(Failure{kUnsupported, "RGB frames of an odd height below 9 rows"}, err, err_len);
@@ -2219,11 +3232,31 @@ int metrabs_mp4v_decode_rgb(void* d, const uint8_t* data, size_t n, uint8_t* rgb
   uint8_t* py = planes.data();
   uint8_t* pu = py + (size_t)w * h;
   uint8_t* pv = pu + (size_t)((w + 1) / 2) * ((h + 1) / 2);
-  copy_planes(f, w, h, py, pu, pv);
-  yuv_rgb::to_rgb(py, w, pu, pv, (w + 1) / 2, w, h, dec->full_range, dec->matrix, 8, rgb);
+  copy_planes(*f, w, h, py, pu, pv);
+  if (rgb) yuv_rgb::to_rgb(py, w, pu, pv, (w + 1) / 2, w, h, dec->full_range, dec->matrix, 8, rgb);
   if (y) memcpy(y, py, (size_t)w * h);
+  if (u) memcpy(u, pu, (size_t)((w + 1) / 2) * ((h + 1) / 2));
+  if (v) memcpy(v, pv, (size_t)((w + 1) / 2) * ((h + 1) / 2));
   return kOk;
 }
+
+// How many VOPs the decoder has decoded (or parsed, headers only).
+int metrabs_mp4v_pictures(void* d) { return static_cast<Decoder*>(d)->pictures; }
+
+// The counts of the decoder's Stat kinds (n of them at most).
+void metrabs_mp4v_stats(void* d, int64_t* out, int n) {
+  Decoder* dec = static_cast<Decoder*>(d);
+  for (int i = 0; i < n && i < kStatCount; i++) out[i] = dec->stats[i];
+}
+
+// 1 if two decoders at the same packet go on alike: the same stored VOP and
+// the same anchors.
+int metrabs_mp4v_state_equal(void* a, void* b) {
+  return static_cast<Decoder*>(a)->state_equal(*static_cast<Decoder*>(b));
+}
+
+// 1 if a packed stream's VOP waits for the next packet.
+int metrabs_mp4v_pending(void* d) { return static_cast<Decoder*>(d)->pending(); }
 
 void* metrabs_mp4v_encoder_new(int width, int height, int time_resolution, int time_increment,
                                int gop, int qscale) {

@@ -1,20 +1,26 @@
-"""MPEG-4 Part 2 Simple Profile video (the `mp4v` that cv2 and FFmpeg
-write) on the host, through `csrc/mpeg4_video.cpp`.
+"""MPEG-4 Part 2 video (the `mp4v` that cv2 and FFmpeg write, and the
+Advanced Simple streams of Xvid) on the host, through `csrc/mpeg4_video.cpp`.
 
-`Decoder` turns the packets of one stream into RGB frames. Its luma planes
-equal FFmpeg's (`cv2.VideoCapture(path, cv2.CAP_FFMPEG,
-[cv2.CAP_PROP_CONVERT_RGB, 0])`) bit for bit, with FFmpeg's Xvid IDCT for
-Xvid-stamped streams, and its RGB equals `cv2.VideoCapture`'s BGR frames
-(swscale's conversion, `csrc/yuv_rgb.h`: the unscaled path at even heights,
-the scaler at odd ones). A stream that uses a tool beyond the Simple
-Profile (B-VOPs, quarter-pel, GMC, interlaced, data partitioning, MPEG
-quantisation, ...) raises UnsupportedVideo naming it, as do the streams
-FFmpeg decodes with bug workarounds (DivX, old or unstamped Xvid).
+`Decoder` turns the packets of one stream into RGB frames in FFmpeg's
+output order. Its planes equal FFmpeg's (`cv2.VideoCapture(path,
+cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])` for luma, FFmpeg's decoder
+for all three) bit for bit, with FFmpeg's Xvid IDCT for Xvid-stamped
+streams, and its RGB equals `cv2.VideoCapture`'s BGR frames (swscale's
+conversion, `csrc/yuv_rgb.h`: the unscaled path at even heights, the scaler
+at odd ones). It decodes the Simple Profile and the Advanced Simple tools
+libxvidcore writes: B-VOPs (direct mode included), the packed bitstream,
+MPEG quantisation, quarter-pel, GMC of three warping points and
+interlaced coding (field DCT and field vectors). A stream that uses another
+tool (static sprites, data partitioning, reduced resolution, newpred,
+scalability, not-8-bit, ...) raises UnsupportedVideo naming it, as do the
+streams FFmpeg decodes with bug workarounds (DivX, old or unstamped Xvid).
+`frames_decoded` counts the VOPs decoded, of every type.
 
 `Encoder` writes I-VOPs every GOP frames and P-VOPs between at a fixed
 quantiser (OpenCV's GOP of 12 and its qmin of 3), and reconstructs each
 frame through the decoder's own IDCT and motion compensation, so a decoder
-(FFmpeg's or this one) sees the encoder's reconstruction exactly.
+(FFmpeg's or this one) sees the encoder's reconstruction exactly. It stays
+Simple Profile, as cv2's FFmpeg writes mp4v.
 
 The library is built with the host C++ compiler at first use
 (`ops/cuda_build.py::build_host_library`) and called through `ctypes`, which
@@ -26,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from fractions import Fraction
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -51,42 +57,39 @@ def _library() -> ctypes.CDLL:
         if _LIB is None:
             path, _ = cuda_build.build_host_library('mpeg4_video')
             lib = ctypes.CDLL(str(path))
-            vp, sz, i, ip = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(
-                ctypes.c_int)
-            lib.metrabs_mp4v_decoder_new.restype = vp
-            lib.metrabs_mp4v_decoder_new.argtypes = []
-            lib.metrabs_mp4v_decoder_free.argtypes = [vp]
-            lib.metrabs_mp4v_decoder_fourcc.argtypes = [vp, ctypes.c_char_p]
-            lib.metrabs_mp4v_decoder_fourcc.restype = None
-            lib.metrabs_mp4v_vop_coded.argtypes = [vp, ctypes.c_char_p, sz, ip, ctypes.c_char_p,
-                                                   i]
-            lib.metrabs_mp4v_vop_coded.restype = ctypes.c_int
-            lib.metrabs_mp4v_decoder_config.argtypes = [vp, ctypes.c_char_p, sz, ip, ip,
-                                                        ctypes.c_char_p, i]
-            lib.metrabs_mp4v_decoder_colour.argtypes = [vp, i, i]
-            lib.metrabs_mp4v_decoder_colour.restype = None
-            lib.metrabs_mp4v_decode_rgb.argtypes = [vp, ctypes.c_char_p, sz, vp, vp,
-                                                    ctypes.c_char_p, i]
-            lib.metrabs_mp4v_encoder_new.restype = vp
-            lib.metrabs_mp4v_encoder_new.argtypes = [i] * 6
-            lib.metrabs_mp4v_encoder_free.argtypes = [vp]
-            lib.metrabs_mp4v_encoder_config.argtypes = [vp, ctypes.c_char_p, i]
-            lib.metrabs_mp4v_encode.argtypes = [vp, vp, ctypes.POINTER(vp), ctypes.POINTER(sz),
-                                                ip]
-            lib.metrabs_mp4v_encoder_recon.argtypes = [vp, vp, vp, vp]
-            lib.metrabs_mp4v_encoder_tools.argtypes = [vp] + [i] * 6
-            lib.metrabs_mp4v_encoder_tools.restype = None
-            for name in ('decoder_config', 'decode_rgb', 'encoder_config', 'encode'):
-                getattr(lib, f'metrabs_mp4v_{name}').restype = ctypes.c_int
-            lib.metrabs_mp4v_decoder_free.restype = lib.metrabs_mp4v_encoder_free.restype = None
-            lib.metrabs_mp4v_encoder_recon.restype = None
+            vp, sz, i, cp = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_char_p
+            ip, i64 = ctypes.POINTER(ctypes.c_int), ctypes.c_int64
+            for name, args, res in (
+                    ('decoder_new', [], vp), ('decoder_free', [vp], None),
+                    ('decoder_headers_only', [vp], None), ('decoder_fourcc', [vp, cp], None),
+                    ('decoder_config', [vp, cp, sz, ip, ip, cp, i], i),
+                    ('decoder_colour', [vp, i, i], None),
+                    ('decode', [vp, cp, sz, i64, cp, i], i),
+                    ('next', [vp, ctypes.POINTER(i64)], i),
+                    ('frame', [vp, vp, vp, vp, vp, cp, i], i), ('pictures', [vp], i),
+                    ('stats', [vp, ctypes.POINTER(i64), i], None),
+                    ('state_equal', [vp, vp], i), ('pending', [vp], i),
+                    ('encoder_new', [i] * 6, vp), ('encoder_free', [vp], None),
+                    ('encoder_config', [vp, cp, i], i),
+                    ('encode', [vp, vp, ctypes.POINTER(vp), ctypes.POINTER(sz), ip], i),
+                    ('encoder_recon', [vp, vp, vp, vp], None),
+                    ('encoder_tools', [vp] + [i] * 6, None)):
+                f = getattr(lib, 'metrabs_mp4v_' + name)
+                f.argtypes, f.restype = args, res
             _LIB = lib
         return _LIB
 
 
 def frames_decoded() -> int:
-    """How many packets every Decoder of this process has decoded."""
+    """How many VOPs every Decoder of this process has decoded."""
     return _FRAMES_DECODED
+
+
+# The decoder's counts (csrc/mpeg4_video.cpp, Stat): VOPs by type, not coded,
+# B-VOPs FFmpeg skips, VOPs a packed stream stores, then MBs by tool.
+STATS = ('i_vops', 'p_vops', 'b_vops', 's_vops', 'not_coded_vops', 'b_vops_skipped',
+         'packed_vops', 'gmc_mbs', 'field_dct_mbs', 'field_mv_mbs', 'direct_mbs',
+         'direct_field_mbs', 'four_mv_mbs', 'quarter_pel_vectors')
 
 
 def _check(rc: int, err, name: str) -> None:
@@ -95,7 +98,7 @@ def _check(rc: int, err, name: str) -> None:
     if rc == 2:
         raise UnsupportedVideo(
             f'{name}: the mp4v stream uses {err.value.decode()}, which the port does not '
-            f'decode (MPEG-4 Part 2 Simple Profile only)')
+            f'decode (MPEG-4 Part 2 Simple and Advanced Simple Profile as Xvid writes it)')
     if rc == 3:
         raise ValueError(f'{name}: no VOP (frame) in the mp4v packet')
     if rc != 0:
@@ -112,19 +115,35 @@ def _has_vol(data: bytes) -> bool:
 
 
 class Decoder:
-    """Decodes the packets of one mp4v stream in order. `config` is the
-    decoder configuration (MP4's esds, Matroska's CodecPrivate, AVI's strf
-    extra bytes); without one, the first key frame must carry the VOL, as
-    AVI key frames do. `fourcc` is an AVI stream's FourCC, which FFmpeg
-    reads where the stream carries no encoder stamp (XVID: Xvid's IDCT)."""
+    """Decodes the packets of one mp4v stream in order, and hands out frames
+    in FFmpeg's output order: with B-VOPs (low_delay 0) an I- or P-VOP comes
+    out when the next one is decoded, and the last at `flush`; a VOP that is
+    not coded gives none (but a stream that ends on one gives its last frame
+    again at the flush, as FFmpeg does); a packed stream's second VOP (Xvid's
+    and DivX 5's packed B-VOPs) is decoded with the next packet, whose own
+    VOP, a placeholder, is dropped.
+
+    `config` is the decoder configuration (MP4's esds, Matroska's
+    CodecPrivate, AVI's strf extra bytes); without one, the first key frame
+    must carry the VOL, as AVI key frames do. `fourcc` is an AVI stream's
+    FourCC, which FFmpeg reads where the stream carries no encoder stamp
+    (XVID: Xvid's IDCT). `start`: the index of the first packet in its file
+    (the frames carry `4 * packet + VOP in the packet` as their tags).
+    `headers_only`: VOP headers are read and frames ordered, no MB decoded
+    (`order`)."""
 
     def __init__(self, config: bytes = b'', name: str = '<mp4v>', fourcc: str = '',
-                 colour: Optional[Tuple[int, int]] = None):
+                 colour: Optional[Tuple[int, int]] = None, start: int = 0,
+                 headers_only: bool = False):
         self._lib = _library()
         self._ptr = self._lib.metrabs_mp4v_decoder_new()
         self.name = name
         self.width = self.height = 0
+        self.packets = start
+        self._counted = not headers_only
         self._lib.metrabs_mp4v_decoder_fourcc(self._ptr, fourcc.encode('latin1'))
+        if headers_only:
+            self._lib.metrabs_mp4v_decoder_headers_only(self._ptr)
         if colour is not None:  # the container's (matrix_coefficients, full range)
             self._lib.metrabs_mp4v_decoder_colour(self._ptr, *colour)
         if config:
@@ -143,34 +162,82 @@ class Decoder:
         self.width, self.height = w.value, h.value
         return True
 
-    def decode(self, packet: bytes, luma: bool = False):
-        """RGB uint8 [H, W, 3] of the packet's VOP (and its luma plane
-        [H, W] if `luma`); a not-coded VOP gives the previous frame again
-        (`data.video` numbers frames as FFmpeg does, without it)."""
+    def _send(self, packet: Optional[bytes]) -> None:
         global _FRAMES_DECODED
-        if not self.width or _has_vol(packet):
-            self.configure(packet)
-        if not self.width:
-            raise ValueError(f'{self.name}: a packet before the video object layer header')
-        rgb = np.empty((self.height, self.width, 3), np.uint8)
-        y = np.empty((self.height, self.width), np.uint8) if luma else None
+        if packet is not None:
+            if not self.width or _has_vol(packet):
+                self.configure(packet)
+            if not self.width:
+                raise ValueError(f'{self.name}: a packet before the video object layer header')
         err = ctypes.create_string_buffer(_ERR_LEN)
-        rc = self._lib.metrabs_mp4v_decode_rgb(self._ptr, packet, len(packet), rgb.ctypes.data,
-                                               y.ctypes.data if luma else None, err, _ERR_LEN)
+        before = self.pictures
+        data = b'' if packet is None else packet
+        rc = self._lib.metrabs_mp4v_decode(self._ptr, data, len(data), self.packets, err, _ERR_LEN)
+        if packet is not None:
+            self.packets += 1
+        if self._counted:
+            with _COUNT_LOCK:
+                _FRAMES_DECODED += self.pictures - before
         _check(rc, err, self.name)
-        with _COUNT_LOCK:
-            _FRAMES_DECODED += 1
-        return (rgb, y) if luma else rgb
 
-    def vop_coded(self, packet: bytes) -> bool:
-        """The vop_coded flag of the packet's VOP, read from its headers
-        (FFmpeg outputs no frame for a VOP that is not coded)."""
-        coded = ctypes.c_int()
+    def _take(self, luma: bool, planes: bool = False):
+        h, w = self.height, self.width
+        rgb = np.empty((h, w, 3), np.uint8)
+        y = np.empty((h, w), np.uint8) if luma or planes else None
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8) if planes else None
+        v = np.empty_like(u) if planes else None
+        ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
         err = ctypes.create_string_buffer(_ERR_LEN)
-        rc = self._lib.metrabs_mp4v_vop_coded(self._ptr, packet, len(packet), ctypes.byref(coded),
-                                              err, _ERR_LEN)
-        _check(rc, err, self.name)
-        return bool(coded.value)
+        _check(self._lib.metrabs_mp4v_frame(self._ptr, rgb.ctypes.data, ptr(y), ptr(u), ptr(v),
+                                            err, _ERR_LEN), err, self.name)
+        return (rgb, (y, u, v)) if planes else (rgb, y) if luma else rgb
+
+    def _waiting(self) -> Optional[int]:
+        tag = ctypes.c_int64()
+        return tag.value if self._lib.metrabs_mp4v_next(self._ptr, ctypes.byref(tag)) else None
+
+    def decode(self, packet: bytes, luma: bool = False, planes: bool = False) -> list:
+        """The frames (none or one) the packet outputs, RGB uint8 [H, W, 3]
+        (with `luma`: (RGB, Y [H, W]); with `planes`: (RGB, (Y, U, V)), the
+        chroma [(H + 1) // 2, (W + 1) // 2])."""
+        self._send(packet)
+        return [self._take(luma, planes)] if self._waiting() is not None else []
+
+    def flush(self, luma: bool = False, planes: bool = False) -> list:
+        """The frame still waiting at the end of the stream, as `decode`."""
+        self._send(None)
+        return [self._take(luma, planes)] if self._waiting() is not None else []
+
+    def order(self, packet: Optional[bytes]) -> List[int]:
+        """The tags of the frames a packet (None: the end of the stream)
+        outputs, without their samples."""
+        self._send(packet)
+        tag = self._waiting()
+        if tag is None:
+            return []
+        self._lib.metrabs_mp4v_frame(self._ptr, None, None, None, None, None, 0)
+        return [tag]
+
+    @property
+    def pictures(self) -> int:
+        """How many VOPs this decoder has decoded (or parsed, headers only)."""
+        return self._lib.metrabs_mp4v_pictures(self._ptr)
+
+    @property
+    def pending(self) -> bool:
+        """Whether a packed stream's VOP waits for the next packet."""
+        return bool(self._lib.metrabs_mp4v_pending(self._ptr))
+
+    def same_state(self, other: 'Decoder') -> bool:
+        """Whether this decoder and `other`, after the same packet, output
+        alike from there on: the same anchors and stored VOP."""
+        return bool(self._lib.metrabs_mp4v_state_equal(self._ptr, other._ptr))
+
+    def stats(self) -> Dict[str, int]:
+        """What the decoder met so far, by STATS."""
+        out = (ctypes.c_int64 * len(STATS))()
+        self._lib.metrabs_mp4v_stats(self._ptr, out, len(STATS))
+        return dict(zip(STATS, out))
 
     def close(self) -> None:
         if self._ptr:

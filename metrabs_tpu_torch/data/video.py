@@ -17,12 +17,20 @@ private header (AVI `strf` extra bytes, Matroska `CodecPrivate`, MP4 `esds`,
   differ from these by a few levels.
 - mp4v (FourCCs `mp4v`, `MP4V`, `FMP4`, `DIVX`, `DX50`, `XVID`; Matroska
   `V_MPEG4/ISO/SP`, `/ASP`, `/AP`): decoded by `data.mpeg4`, whose luma
-  equals FFmpeg's and whose RGB equals `cv2.VideoCapture`'s. A VOP that is
-  not coded gives no frame, as FFmpeg gives none: the index reads each
-  packet's `vop_coded` flag, and frames are numbered as cv2 numbers them
-  (`num_frames_of_video` stays the container's count, as cv2's
-  CAP_PROP_FRAME_COUNT does). The stream's own VOL decides what is refused
-  (B-VOPs, quarter-pel, GMC, ...).
+  equals FFmpeg's and whose RGB equals `cv2.VideoCapture`'s, Simple and
+  Advanced Simple (B-VOPs, packed bitstreams, quarter-pel, MPEG
+  quantisation, GMC, interlaced). Frames come out in FFmpeg's output
+  order, which the index finds from the VOP headers without decoding
+  (`_index_vops`): an anchor after the B-VOPs it follows, no frame for a
+  VOP that is not coded (but the last again after a final one), a packed
+  stream's stored VOP with the next packet; frame N is the N-th, as cv2's
+  seek gives it on these files whatever the container's timestamps (MP4
+  `ctts`, Matroska's, AVI's none). `num_frames_of_video` stays the
+  container's count, as cv2's CAP_PROP_FRAME_COUNT does. Key frames are
+  the packets whose first VOP is an I-VOP (FFmpeg's parser's flags), and
+  those from which a decoder soon agrees with one from the start are entry
+  points (an open GOP's B-VOPs after the I-VOP, which FFmpeg skips there,
+  precede its frame). The stream's own VOL decides what is refused.
 - H.264 (AVI FourCCs `H264`, `X264`, `AVC1` in any case, Annex B; Matroska
   `V_MPEG4/ISO/AVC` and MP4 `avc1`/`avc3`, length-prefixed with the avcC as
   the configuration): decoded by `data.h264`, whose planes equal FFmpeg's and
@@ -106,6 +114,7 @@ HEVC_CODEC_IDS = ('V_MPEGH/ISO/HEVC', 'hvc1', 'hev1')
 # and their MP4 decoder configuration box
 _REORDERED = {'h264': (h264, 'avcC'), 'hevc': (hevc, 'hvcC')}
 _ROADMAP = 'ROADMAP.md §1, "Still to port"'
+_ENTRY_PACKETS = 64  # how far a decoder from a key frame may run before it agrees
 DEFAULT_RIFF_LIMIT = 1 << 30  # FFmpeg's AVI_MAX_RIFF_SIZE: an AVIX extension past 1 GiB
 _AVIIF_KEYFRAME = 0x10
 
@@ -212,15 +221,17 @@ class VideoIndex:
             return _stream(self).read(i)
         return self.display(jpeg.decode(self.packet(i, f), f'{self.path}#frame={i}'))
 
-    def decoder(self, start: int = 0):
-        """A decoder of this stream whose first packet is `start`."""
+    def decoder(self, start: int = 0, headers_only: bool = False):
+        """A decoder of this stream whose first packet is `start`
+        (`headers_only`: one that orders frames without decoding them)."""
         if self.kind == 'h264':
             recovering = any(s == start and r for s, _, r in self.entries or [])
-            return h264.Decoder(self.config, self.path, recovering, colour=self.colour)
+            return h264.Decoder(self.config, self.path, recovering, headers_only, self.colour)
         if self.kind == 'hevc':
-            return hevc.Decoder(self.config, self.path)
+            return hevc.Decoder(self.config, self.path, headers_only)
         return mpeg4.Decoder(self.config, self.path,
-                             self.codec if self.container == 'avi' else '', self.colour)
+                             self.codec if self.container == 'avi' else '', self.colour,
+                             start, headers_only)
 
     def entry_for(self, frame: int) -> Tuple[int, int]:
         """(first packet, first exact frame) of the latest entry point from
@@ -270,21 +281,6 @@ def index(path: str) -> VideoIndex:
     return idx
 
 
-def _index_vops(idx: VideoIndex, f: BinaryIO) -> None:
-    """mp4v: the packets whose VOP is coded (FFmpeg outputs a frame for
-    each), from their headers; entry points at the key frames."""
-    probe = idx.decoder()
-    try:
-        coded = [probe.vop_coded(idx.packet(i, f)) for i in range(idx.n_frames)]
-    finally:
-        probe.close()
-    idx.frame_packets = np.flatnonzero(coded).astype(np.int64)
-    starts = [int(k) for k in np.flatnonzero(idx.keyframes)] or [0]
-    first = [int(np.searchsorted(idx.frame_packets, k)) for k in starts]
-    idx.entries = [(k, j, False) for k, j in zip(starts, first)]
-    idx.first_frames = dict(zip(starts, first))
-
-
 def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
     """H.264 and HEVC: the output order, from the parameter sets and slice
     headers (picture order counts, reference marking and the reorder depth)
@@ -300,7 +296,7 @@ def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
     if idx.container != 'avi' and not size:
         raise ValueError(f'{idx.path}: an {name} track without its {config_box}')
     n = idx.n_frames
-    scan = codec.Decoder(idx.config, idx.path, headers_only=True)
+    scan = idx.decoder(headers_only=True)
     emitter, order = [], []  # per output frame: the packet that outputs it, its picture
     kinds = []  # HEVC: the NAL unit type of each packet's picture
     try:
@@ -345,6 +341,55 @@ def _index_reordered(idx: VideoIndex, f: BinaryIO) -> None:
             exact = k + e.recovery_frames
             idx.entries.append((k, int(display[exact]) if exact < n else n, True))
             idx.first_frames[k] = int(first[k])
+
+
+def _index_vops(idx: VideoIndex, f: BinaryIO) -> None:
+    """mp4v: the output order, from the VOP headers (coding types, vop_coded,
+    times, a packed stream's stored VOPs) without decoding, and the entry
+    points. A decoder started at a key frame runs beside the one from the
+    start until both hold the same anchors and stored VOP (an open GOP's
+    first B-VOPs, which FFmpeg skips without their forward reference, lie
+    between); the key frame is an entry point if what it output by then is
+    the sequence the first one output up to there: frames from its first
+    one on, each as the first decoder decodes it. Key frames are the
+    packets whose first VOP is an I-VOP, as FFmpeg's mpeg4 parser flags
+    them for cv2 (a packed stream's not-coded placeholder of an I-VOP
+    included)."""
+    n = idx.n_frames
+    keys = np.zeros(n, bool)
+    scan = idx.decoder(headers_only=True)
+    emitter, order = [], []  # per output frame: the packet that outputs it, its tag
+    idx.entries, idx.first_frames = [(0, 0, False)], {0: 0}
+    trials: List[Tuple[int, 'mpeg4.Decoder', list]] = []  # (first packet, decoder, its tags)
+    try:
+        for p in range(n + 1):
+            packet = idx.packet(p, f) if p < n else None
+            if p < n:
+                at = packet.find(b'\x00\x00\x01\xb6')
+                keys[p] = 0 <= at < len(packet) - 4 and packet[at + 4] >> 6 == 0
+            if p < n and p and keys[p] and not scan.pending:
+                trials.append((p, idx.decoder(p, headers_only=True), []))
+            tags = scan.order(packet)
+            emitter += [p] * len(tags)
+            order += tags
+            for trial in list(trials):
+                start, decoder, out = trial
+                out += decoder.order(packet)
+                agrees = p == n or decoder.same_state(scan)  # past the flush: all is out
+                if not agrees and p - start < _ENTRY_PACKETS:
+                    continue
+                trials.remove(trial)
+                decoder.close()
+                first = len(order) - len(out)
+                if agrees and order[first:] == out:
+                    idx.entries.append((start, first, False))
+                    idx.first_frames[start] = first
+    finally:
+        scan.close()
+        for _, decoder, _ in trials:
+            decoder.close()
+    idx.frame_packets = np.asarray(emitter, np.int64)
+    idx.keyframes = keys
 
 
 def _rasl_pictures(kinds: List[int], k: int) -> List[int]:
@@ -410,11 +455,10 @@ class _Cursor:
         self.exact_from = exact_from
         self.done = False  # past the flush at the end
         self.flushed = start  # H.264, HEVC: the entry point before which it last flushed
-        if idx.kind == 'mp4v':
-            self.coded = np.zeros(idx.n_frames, bool)
-            self.coded[idx.frame_packets] = True
-        else:  # H.264, HEVC: the pictures before an entry point all precede it in output order
-            self.entry_starts = {s for s, _, _ in idx.entries}
+        # H.264, HEVC: the pictures before an entry point all precede it in
+        # output order (mp4v decodes on through them: an I-VOP outputs the
+        # anchor before it)
+        self.entry_starts = set() if idx.kind == 'mp4v' else {s for s, _, _ in idx.entries}
 
     def step(self, f: BinaryIO) -> list:
         """Decodes the next packet, or flushes the decoder before an entry
@@ -426,18 +470,13 @@ class _Cursor:
         p = self.next
         if p >= idx.n_frames:
             self.done = True
-            out = self.decoder.flush() if idx.kind in _REORDERED else []
-        elif idx.kind in _REORDERED and p in self.entry_starts and self.flushed != p:
+            out = self.decoder.flush()
+        elif p in self.entry_starts and self.flushed != p:
             self.flushed = p
             out = self.decoder.flush()
         else:
             self.next += 1
-            packet = idx.packet(p, f)
-            if idx.kind == 'mp4v':
-                rgb = self.decoder.decode(packet)
-                out = [rgb] if self.coded[p] else []
-            else:
-                out = self.decoder.decode(packet)
+            out = self.decoder.decode(idx.packet(p, f))
         self.frame += len(out)
         return [idx.display(frame) for frame in out]
 
@@ -467,8 +506,16 @@ class _Stream:
             if hit is not None:
                 return hit.copy()
             start, exact_from = idx.entry_for(i)
+            reach = start
+            first = idx.first_frames[start]
+            if first and idx.frame_packets[first - 1] >= start:
+                # The entry's packet outputs the frame before it (an mp4v
+                # I-VOP the anchor before it, an IDR picture those waiting):
+                # a cursor in the GOP before goes on through that packet
+                # rather than leave it to a second decoder.
+                reach = max([s for s, _, _ in idx.entries if s < start], default=start)
             usable = [c for c in self.cursors
-                      if start <= c.next and c.frame <= i and c.exact_from <= i and not c.done]
+                      if reach <= c.next and c.frame <= i and c.exact_from <= i and not c.done]
             if usable:
                 cursor = max(usable, key=lambda c: c.frame)
                 self.cursors.remove(cursor)

@@ -215,7 +215,24 @@ def x264_encode(frames, options: dict, fps: float, csp: str = 'i420', depth: int
 
 XVID_VERSION = (1 << 16) | (3 << 8)
 XVID_VOP_HALFPEL = 1 << 1
+XVID_VOP_INTER4V = 1 << 2
+XVID_VOP_TOPFIELDFIRST = 1 << 9
+XVID_VOP_ALTERNATESCAN = 1 << 10
+XVID_GLOBAL_PACKED = 1 << 0
+XVID_GLOBAL_CLOSED_GOP = 1 << 1
+XVID_VOL_MPEGQUANT = 1 << 0
+XVID_VOL_QUARTERPEL = 1 << 2
+XVID_VOL_GMC = 1 << 3
+XVID_VOL_REDUCED_ENABLE = 1 << 4
+XVID_VOL_INTERLACING = 1 << 5
+XVID_ME_HALFPELREFINE16 = 1 << 4
+XVID_ME_HALFPELREFINE8 = 1 << 6
+XVID_ME_QUARTERPELREFINE16 = 1 << 7
+XVID_ME_QUARTERPELREFINE8 = 1 << 8
+XVID_ME_GME_REFINE = 1 << 9
+XVID_ME_EXTSEARCH16 = 1 << 10
 XVID_CSP_PLANAR = 1 << 0
+XVID_CSP_NULL = 1 << 14
 XVID_KEYFRAME = 1 << 1
 
 
@@ -251,36 +268,60 @@ class _XvidEncFrame(ctypes.Structure):
                 ('length', ctypes.c_int), ('out_flags', ctypes.c_int)]
 
 
-def xvid_encode(frames, fps: float, quant: int):
+def xvid_encode(frames, fps: float, quant: int, max_bframes: int = 0, global_flags: int = 0,
+                vol_flags: int = 0, vop_flags: int = XVID_VOP_HALFPEL, motion: int = 0,
+                quant_intra_matrix=None, quant_inter_matrix=None, gop: int = GOP):
     """Packets (the first with the VOL and the XviD user data) and key
-    flags: Simple Profile tools, an I-VOP every GOP frames."""
+    flags, in coding order: an I-VOP every `gop` frames. The defaults are
+    Simple Profile tools; `max_bframes` (B-VOPs), `global_flags`
+    (XVID_GLOBAL_*: packed bitstream, closed GOP), `vol_flags`
+    (XVID_VOL_*: MPEG quantisation, quarter-pel, GMC, interlacing),
+    `vop_flags` (XVID_VOP_*), `motion` (XVID_ME_*) and the two 64-entry
+    matrices (natural order) switch on Advanced Simple tools. With B-VOPs
+    the encoder holds frames back: the flush at the end (an input of
+    XVID_CSP_NULL) writes those left."""
     import cv2
     lib = ctypes.CDLL('libxvidcore.so.4')
     lib.xvid_global.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.xvid_encore.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     assert lib.xvid_global(None, 0, ctypes.byref(_XvidGblInit(XVID_VERSION, 0, 0)), None) == 0
     h, w = frames[0].shape[:2]
-    create = _XvidEncCreate(version=XVID_VERSION, width=w, height=h, max_key_interval=GOP)
+    create = _XvidEncCreate(version=XVID_VERSION, width=w, height=h, max_key_interval=gop,
+                            max_bframes=max_bframes, global_flags=global_flags,
+                            bquant_ratio=150, bquant_offset=100)
     create.fincr, create.fbase = (1, int(fps)) if float(fps).is_integer() else (1001, 30000)
     assert lib.xvid_encore(None, 0, ctypes.byref(create), None) == 0, (w, h)
     buf = ctypes.create_string_buffer(w * h * 4 + 4096)
+    matrices = [None if m is None else (ctypes.c_ubyte * 64)(*m)
+                for m in (quant_intra_matrix, quant_inter_matrix)]
     packets, keys = [], []
-    for frame in frames:
-        flat = cv2.cvtColor(np.ascontiguousarray(frame[..., ::-1]), cv2.COLOR_BGR2YUV_I420).reshape(-1)
-        q = (h // 2) * (w // 2)
-        planes = [np.ascontiguousarray(flat[:h * w]), np.ascontiguousarray(flat[h * w:h * w + q]),
-                  np.ascontiguousarray(flat[h * w + q:h * w + 2 * q])]
-        fr = _XvidEncFrame(version=XVID_VERSION, vop_flags=XVID_VOP_HALFPEL, quant=quant)
-        fr.input.csp = XVID_CSP_PLANAR
-        for k, (p, stride) in enumerate(zip(planes, (w, w // 2, w // 2))):
-            fr.input.plane[k] = p.ctypes.data
-            fr.input.stride[k] = stride
+    for k in range(len(frames) + max_bframes + 2):
+        fr = _XvidEncFrame(version=XVID_VERSION, vol_flags=vol_flags, vop_flags=vop_flags,
+                           motion=motion, quant=quant)
+        for name, m in zip(('quant_intra_matrix', 'quant_inter_matrix'), matrices):
+            if m is not None:
+                setattr(fr, name, ctypes.cast(m, ctypes.c_void_p))
+        if k < len(frames):
+            flat = cv2.cvtColor(np.ascontiguousarray(frames[k][..., ::-1]),
+                                cv2.COLOR_BGR2YUV_I420).reshape(-1)
+            q = (h // 2) * (w // 2)
+            planes = [np.ascontiguousarray(flat[:h * w]),
+                      np.ascontiguousarray(flat[h * w:h * w + q]),
+                      np.ascontiguousarray(flat[h * w + q:h * w + 2 * q])]
+            fr.input.csp = XVID_CSP_PLANAR
+            for i, (p, stride) in enumerate(zip(planes, (w, w // 2, w // 2))):
+                fr.input.plane[i] = p.ctypes.data
+                fr.input.stride[i] = stride
+        else:
+            fr.input.csp = XVID_CSP_NULL
         fr.bitstream = ctypes.cast(buf, ctypes.c_void_p)
         fr.length = len(buf)
         n = lib.xvid_encore(create.handle, 2, ctypes.byref(fr), None)
-        assert n > 0, n
-        packets.append(buf.raw[:n])
-        keys.append(bool(fr.out_flags & XVID_KEYFRAME))
+        if n > 0:
+            packets.append(buf.raw[:n])
+            keys.append(bool(fr.out_flags & XVID_KEYFRAME))
+        elif k >= len(frames):
+            break
     lib.xvid_encore(create.handle, 1, None, None)
     return packets, keys
 

@@ -261,23 +261,36 @@ def test_demo_video_on_hevc_b_matches_jax(tmp_path, monkeypatch, capsys, name):
     demo_video_matches_jax(tmp_path, monkeypatch, capsys, hevc_fixture(name))
 
 
+@pytest.mark.parametrize('name', ['xvid_asp_usual_320x568.mkv', 'xvid_asp_usual_96x66.avi',
+                                  'xvid_asp_bvop.mp4'])
+def test_demo_video_on_xvid_asp_matches_jax(tmp_path, monkeypatch, capsys, name):
+    """demo_video on libxvidcore's Advanced Simple clips (B-VOPs, packed,
+    quarter-pel, MPEG quantisation and GMC; B-VOPs in an MP4 with ctts):
+    JAX's frames in output order, batches, poses and line, each VOP decoded
+    once."""
+    from _torch_mp4v_asp_fixtures import ASP_DIR
+    demo_video_matches_jax(tmp_path, monkeypatch, capsys, str(ASP_DIR / name))
+
+
 def demo_video_matches_jax(tmp_path, monkeypatch, capsys, src):
     import metrabs_tpu.apps.demo_image as jax_demo_image
     from metrabs_tpu.apps import demo_video as jax_demo_video
-    from metrabs_tpu_torch.data import h264, hevc
-    codec = {'h264': h264, 'hevc': hevc}[video.index(src).kind]
+    from metrabs_tpu_torch.data import h264, hevc, mpeg4
+    idx = video.index(src)
+    codec = {'h264': h264, 'hevc': hevc, 'mp4v': mpeg4}[idx.kind]
+    n = idx.n_decoded
     port, jax = EdgeStub(), EdgeStub()
     monkeypatch.setattr(demo_image, 'build_default_estimator', lambda device='cuda': port)
     monkeypatch.setattr(jax_demo_image, 'build_default_estimator', lambda: jax)
     args = ['--video', src, '--num-aug', '1', '--frame-batch', '4', '--max-boxes', '2']
     before = codec.frames_decoded()
     demo_video.main(args + ['--device', 'cpu', '--out', str(tmp_path / 'port.mp4')])
-    assert codec.frames_decoded() - before == 14
+    assert codec.frames_decoded() - before == n
     port_line = last_json(capsys.readouterr().out)
     jax_demo_video.main(args + ['--out', str(tmp_path / 'jax.mp4')])
     jax_line = last_json(capsys.readouterr().out)
-    assert port_line == jax_line and port_line['frames'] == 14
-    assert len(port.calls) == len(jax.calls) == 4
+    assert port_line == jax_line and port_line['frames'] == n
+    assert len(port.calls) == len(jax.calls) == -(-n // 4)
     for (m1, im1, kw1), (m2, im2, kw2) in zip(list(port.calls), list(jax.calls)):
         assert m1 == m2 == 'detect'
         np.testing.assert_array_equal(im1, im2)
@@ -286,7 +299,7 @@ def demo_video_matches_jax(tmp_path, monkeypatch, capsys, src):
         for key in ('poses3d', 'poses2d', 'valid'):
             np.testing.assert_array_equal(out1[key], out2[key])
     for out in ('port.mp4', 'jax.mp4'):
-        assert improc.num_frames_of_video(str(tmp_path / out)) == 14
+        assert improc.num_frames_of_video(str(tmp_path / out)) == n
 
 
 def test_transform_video_on_h264_matches_jax(tmp_path):
@@ -469,6 +482,45 @@ def test_predict_aspset_on_mp4v_matches_jax(tmp_path, monkeypatch):
             assert a['coords3d_pred_world'].shape == (14, 17, 3)
             np.testing.assert_array_equal(a['coords3d_pred_world'], b['coords3d_pred_world'])
     assert len(port.calls) == len(jax.calls) == 4
+    for (_, im1, _), (_, im2, _) in zip(port.calls, jax.calls):
+        np.testing.assert_array_equal(im1, im2)
+
+
+def test_predict_aspset_on_xvid_asp_matches_jax(tmp_path, monkeypatch):
+    """JAX's layout with libxvidcore's Advanced Simple .mkv videos (the usual
+    packed stream with quarter-pel, MPEG quantisation and GMC; B-VOPs with
+    presentation timestamps): the port's frames equal cv2's, so the driver
+    gives JAX's poses and hands the estimator JAX's very images; each VOP is
+    decoded once."""
+    import shutil
+
+    import metrabs_tpu.io.packaging as jax_packaging
+    import metrabs_tpu_torch.io.packaging as packaging
+    from _torch_mp4v_asp_fixtures import ASP_DIR
+    from metrabs_tpu.apps import predict_aspset as jax_predict_aspset
+    from metrabs_tpu_torch.data import mpeg4
+    monkeypatch.setitem(layouts.SKELETON_JOINTS, 'aspset_17', 17)
+    port, jax = (layouts.StubEstimator(skeleton_names=tuple(layouts.SKELETON_JOINTS))
+                 for _ in range(2))
+    monkeypatch.setattr(packaging, 'load_pose_estimator', lambda path, device='cuda': port)
+    monkeypatch.setattr(jax_packaging, 'load_pose_estimator', lambda path: jax)
+    root = tmp_path / 'aspset'
+    names = mint_aspset_with_videos(root, n_frames=24, w=96, h=66)
+    for name, clip in zip(names, ('xvid_asp_usual_96x66.mkv', 'xvid_asp_bvop.mkv')):
+        subj = name.split('-')[0]
+        shutil.copy(ASP_DIR / clip, root / 'test' / 'videos' / subj / f'{name}.mkv')
+    before = mpeg4.frames_decoded()
+    predict_aspset.main(['--package', 'stub', '--root', str(root), '--output-dir',
+                         str(tmp_path / 'port'), '--device', 'cpu'])
+    assert mpeg4.frames_decoded() - before == 2 * 24
+    jax_predict_aspset.main(['--package', 'stub', '--root', str(root), '--output-dir',
+                             str(tmp_path / 'jax')])
+    for name in names:
+        with np.load(tmp_path / 'port' / f'{name}.npz') as a, \
+                np.load(tmp_path / 'jax' / f'{name}.npz') as b:
+            assert a['coords3d_pred_world'].shape == (24, 17, 3)
+            np.testing.assert_array_equal(a['coords3d_pred_world'], b['coords3d_pred_world'])
+    assert len(port.calls) == len(jax.calls) == 6
     for (_, im1, _), (_, im2, _) in zip(port.calls, jax.calls):
         np.testing.assert_array_equal(im1, im2)
 

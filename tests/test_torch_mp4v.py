@@ -30,8 +30,12 @@ tests/_torch_mp4v_fixtures.py`) and on files written here:
   and odd widths;
 - frames read in order, through `iter_frames` or `predict_common`'s I/O
   pool, are each decoded once, whatever order the threads ask in;
-- B-VOPs, S-VOPs, quarter-pel, GMC, interlaced, data partitioning, MPEG
-  quantisation and VP9 raise UnsupportedVideo naming the tool or codec;
+- the Advanced Simple VOLs (interlaced, quarter-pel, MPEG quantisation)
+  read; newpred, reduced resolution, scalability, not-8-bit, static
+  sprites, data partitioning, non-rectangular shape, S-VOPs without GMC and
+  VP9 raise UnsupportedVideo naming the tool or codec, and a B-VOP with one
+  anchor before it gives no frame, as FFmpeg skips it
+  (`tests/test_torch_mp4v_asp.py` holds the Advanced Simple streams);
 - `transform_video` on JAX's layout: the port's output is no further from
   the inverted frames than JAX's (cv2's encoder) by TRANSFORM_MARGIN.
 """
@@ -75,11 +79,16 @@ def sha256(data) -> str:
 
 
 def decode_all(path: str):
-    """(RGB, luma) of every frame through one decoder."""
+    """(RGB, luma) of every packet's frame through one decoder: these streams
+    have no B-VOPs, so each packet outputs its own frame, or none for a VOP
+    that is not coded, whose frame is the one before (as cv2 gives it)."""
     idx = video.index(path)
     decoder = mpeg4.Decoder(idx.config, path)
+    out = []
     with open(path, 'rb') as f:
-        return [decoder.decode(idx.packet(i, f), luma=True) for i in range(idx.n_frames)]
+        for i in range(idx.n_frames):
+            out += decoder.decode(idx.packet(i, f), luma=True) or out[-1:]
+    return out
 
 
 def test_manifest_lists_every_fixture():
@@ -240,7 +249,7 @@ class Bits:
 
 
 def vol(verid=1, interlaced=0, sprite=0, quant_type=0, quarter_pel=0, partitioned=0,
-        shape=0) -> bytes:
+        shape=0, not_8_bit=0, newpred=0, reduced=0, scalability=0) -> bytes:
     """VOS, VO and a VOL of 64x48 with the given tools."""
     b = Bits()
     b.put(0x1b0, 32).put(1, 8).put(0x1b5, 32).put(1, 1).put(1, 4).put(1, 3).put(1, 4).put(0, 1)
@@ -251,7 +260,10 @@ def vol(verid=1, interlaced=0, sprite=0, quant_type=0, quarter_pel=0, partitione
     b.put(shape, 2).put(1, 1).put(25, 16).put(1, 1).put(0, 1)
     b.put(1, 1).put(64, 13).put(1, 1).put(48, 13).put(1, 1)
     b.put(interlaced, 1).put(1, 1).put(sprite, 1 if verid == 1 else 2)
-    b.put(0, 1).put(quant_type, 1)
+    b.put(not_8_bit, 1)
+    if not_8_bit:
+        b.put(5, 4).put(8, 4)  # quant_precision, bits_per_pixel
+    b.put(quant_type, 1)
     if quant_type:
         b.put(0, 2)  # default matrices
     if verid != 1:
@@ -260,8 +272,11 @@ def vol(verid=1, interlaced=0, sprite=0, quant_type=0, quarter_pel=0, partitione
     if partitioned:
         b.put(0, 1)
     if verid != 1:
-        b.put(0, 2)
-    b.put(0, 1).stuffing()
+        b.put(newpred, 1)
+        if newpred:
+            b.put(0, 3)  # requested_upstream_message_type, newpred_segment_type
+        b.put(reduced, 1)
+    b.put(scalability, 1).stuffing()
     return b.bytes()
 
 
@@ -462,27 +477,40 @@ def test_mp4_muxer_switches_to_co64_past_4_gib(tmp_path):
     assert index['config'] == vol() and (index['width'], index['height']) == (64, 48)
 
 
-TOOLS = {'interlaced': dict(interlaced=1), 'quarter-pel': dict(verid=2, quarter_pel=1),
-         'GMC': dict(verid=2, sprite=2), 'static sprites': dict(sprite=1),
-         'data partitioning': dict(partitioned=1), 'MPEG quantisation': dict(quant_type=1),
+TOOLS = {'newpred': dict(verid=2, newpred=1), 'reduced resolution': dict(verid=2, reduced=1),
+         'scalability': dict(scalability=1), 'not-8-bit': dict(not_8_bit=1),
+         'static sprites': dict(sprite=1), 'data partitioning': dict(partitioned=1),
          'non-rectangular shape': dict(shape=1)}
+# Advanced Simple tools the decoder reads (tests/test_torch_mp4v_asp.py decodes them)
+ASP_VOLS = [dict(interlaced=1), dict(verid=2, quarter_pel=1), dict(quant_type=1)]
 
 
 @pytest.mark.parametrize('tool', list(TOOLS))
 def test_advanced_simple_tools_raise_naming_them(tool):
-    assert mpeg4.Decoder(vol()).width == 64  # the plain VOL reads
+    """The tools libxvidcore does not write raise by name; the plain VOL and
+    the Advanced Simple ones (interlaced, quarter-pel, MPEG quantisation)
+    read."""
+    for tools in [{}] + ASP_VOLS:
+        assert mpeg4.Decoder(vol(**tools)).width == 64
     with pytest.raises(video.UnsupportedVideo, match=tool):
         mpeg4.Decoder(vol(**TOOLS[tool]))
 
 
-@pytest.mark.parametrize('vop_type, tool', [(2, 'B-VOPs'), (3, 'S-VOPs')])
+@pytest.mark.parametrize('vop_type, tool', [(2, None), (3, 'S-VOPs')])
 def test_b_and_s_vops_raise_naming_them(vop_type, tool):
+    """An S-VOP in a stream without GMC raises naming it; a B-VOP after one
+    anchor (the I-VOP) gives no frame and no error, as FFmpeg skips a B-VOP
+    without two anchors."""
     path = path_of('mp4v_92x66.mp4')
     idx = video.index(path)
     decoder = mpeg4.Decoder(idx.config, path)
     decoder.decode(idx.packet(0))
+    packet = with_vop_type(idx.packet(1), vop_type)
+    if tool is None:
+        assert decoder.decode(packet) == [] and decoder.stats()['b_vops_skipped'] == 1
+        return
     with pytest.raises(video.UnsupportedVideo, match=tool):
-        decoder.decode(with_vop_type(idx.packet(1), vop_type))
+        decoder.decode(packet)
 
 
 @pytest.mark.parametrize('ext, entry, codec', [('.mp4', b'mp4v', 'vp09'),
